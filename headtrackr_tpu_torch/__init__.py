@@ -1,0 +1,23 @@
+"""headtrackr_tpu_torch — the PyTorch and CUDA port of headtrackr_tpu.
+
+Face detection (BBF cascade), camshift color tracking, smoothing and head
+position over N camera streams, served on one NVIDIA GPU:
+
+  frames (N, H, W, 3) u8
+    -> [whitebalance-stability gate]
+    -> cascade detection over every window of every scale
+    -> camshift tracking (CUDA kernels: hist4096, backproject)
+    -> EMA smoothing -> head position (x, y, z cm)
+
+The JAX package ``headtrackr_tpu`` is the reference this port is held
+against; this package imports torch and numpy, never jax or headtrackr_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from .cascade import Cascade, frontalface, toy_cascade
+from .config import TrackerConfig
+from .runtime.serving import BatchedTracker
+
+__all__ = ["BatchedTracker", "TrackerConfig", "frontalface", "toy_cascade",
+           "Cascade"]

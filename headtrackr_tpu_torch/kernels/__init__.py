@@ -1,0 +1,1 @@
+"""CUDA kernels of the PyTorch port and their wrappers."""

@@ -1,0 +1,343 @@
+"""The per-frame WB -> VJ -> CS state machine over a batch of streams.
+
+Spec: src/facetrackr.js:37-228 (mode dispatch, handoff) + src/main.js:168-305
+(supervision: loss/retry, smoothing, head-diagonal stability gate, FOV caching,
+head position).  The counterpart of headtrackr_tpu/models/facetracker.py:
+state is a ``TrackerState`` of (N, ...) tensors, and the mode dispatch runs
+each branch on the streams in that mode, selected by index.
+
+Status side effects are a bitmask in the step output (src/main.js:70-77).
+"""
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import TrackerConfig
+from ..ops.imageproc import grayscale, whitebalance
+from . import camshift as cs
+from . import headpose as hp
+from .detector import detect_best, detector_tables
+
+__all__ = ["TrackerState", "StepOutput", "init_state", "make_step",
+           "MODE_WB", "MODE_VJ", "MODE_CS",
+           "STATUS_WHITEBALANCE", "STATUS_DETECTING", "STATUS_FOUND",
+           "STATUS_REDETECTING", "STATUS_LOST", "STATUS_BITS"]
+
+MODE_WB, MODE_VJ, MODE_CS = 0, 1, 2
+
+STATUS_WHITEBALANCE = 1
+STATUS_DETECTING = 2
+STATUS_FOUND = 4
+STATUS_REDETECTING = 8
+STATUS_LOST = 16
+STATUS_BITS = [
+    (STATUS_WHITEBALANCE, "whitebalance"),
+    (STATUS_DETECTING, "detecting"),
+    (STATUS_FOUND, "found"),
+    (STATUS_REDETECTING, "redetecting"),
+    (STATUS_LOST, "lost"),
+]
+
+PWB_LENGTH = 15                # src/facetrackr.js:59
+CONFIDENCE_THRESHOLD = -10.0   # src/facetrackr.js:57
+DIAG_LENGTH = 6                # src/main.js:271
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+class TrackerState(NamedTuple):
+    mode: torch.Tensor            # (N,) i32: 0 WB, 1 VJ, 2 CS
+    wb_ring: torch.Tensor         # (N, 15) f32, most recent first (JS unshift)
+    wb_n: torch.Tensor            # (N,) i32
+    cs: cs.CamshiftState
+    sm_sp: torch.Tensor           # (N, 5) f32 smoother state [x, y, z, w, h]
+    sm_init: torch.Tensor         # (N,) bool
+    face_found: torch.Tensor      # (N,) bool
+    first_run: torch.Tensor       # (N,) bool
+    diag_ring: torch.Tensor       # (N, 6) f32
+    diag_n: torch.Tensor          # (N,) i32
+    headpose_active: torch.Tensor  # (N,) bool
+    tan_fov: torch.Tensor         # (N,) f32 (2*tan(fov/2); 0 = unset)
+    fov_width: torch.Tensor       # (N,) f32 radians (cached across re-inits)
+    head_diag_cam: torch.Tensor   # (N,) f32 (stateful edge-correction diagonal)
+    stopped: torch.Tensor         # (N,) bool
+    pend_age: torch.Tensor        # (N,) i32 scheduler wait counter (0 here:
+                                  # every pending stream is served each tick)
+
+
+class StepOutput(NamedTuple):
+    detection: torch.Tensor       # i32 mode of this frame's result
+    wb: torch.Tensor              # f32 (WB frames)
+    face_x: torch.Tensor          # raw result fields (facetrackingEvent payload)
+    face_y: torch.Tensor
+    face_w: torch.Tensor
+    face_h: torch.Tensor
+    face_angle: torch.Tensor
+    face_conf: torch.Tensor
+    smooth_x: torch.Tensor        # main's faceObj after optional smoothing
+    smooth_y: torch.Tensor
+    smooth_w: torch.Tensor
+    smooth_h: torch.Tensor
+    head_valid: torch.Tensor      # bool: headtrackingEvent fired
+    head_x: torch.Tensor
+    head_y: torch.Tensor
+    head_z: torch.Tensor
+    status: torch.Tensor          # i32 bitmask of STATUS_*
+    event_face: torch.Tensor      # bool: facetrackingEvent fired
+    fov_deg: torch.Tensor         # f32 current FOV estimate in degrees
+    mode_after: torch.Tensor      # i32 mode for the NEXT frame
+    escaped: torch.Tensor         # bool band-escape telemetry: always False
+                                  # on this package's full-frame path
+
+
+def init_state(n, device="cpu", whitebalancing=True):
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=device)
+    return TrackerState(
+        mode=full((n,), MODE_WB if whitebalancing else MODE_VJ, _I32),
+        wb_ring=full((n, PWB_LENGTH), 0.0, _F32), wb_n=full((n,), 0, _I32),
+        cs=cs.init_state(n, device),
+        sm_sp=full((n, 5), 0.0, _F32), sm_init=full((n,), False, torch.bool),
+        face_found=full((n,), False, torch.bool),
+        first_run=full((n,), True, torch.bool),
+        diag_ring=full((n, DIAG_LENGTH), 0.0, _F32), diag_n=full((n,), 0, _I32),
+        headpose_active=full((n,), False, torch.bool),
+        tan_fov=full((n,), 0.0, _F32), fov_width=full((n,), 0.0, _F32),
+        head_diag_cam=full((n,), 0.0, _F32),
+        stopped=full((n,), False, torch.bool), pend_age=full((n,), 0, _I32),
+    )
+
+
+def _tree_index(tree, idx):
+    """Rows ``idx`` of every (N, ...) tensor of a NamedTuple tree."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_index(t, idx) for t in tree))
+    return tree.index_select(0, idx)
+
+
+def _tree_scatter(tree, idx, sub):
+    """A copy of ``tree`` with rows ``idx`` replaced by ``sub``'s rows."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_scatter(t, idx, s) for t, s in zip(tree, sub)))
+    return tree.index_copy(0, idx, sub.to(tree.dtype))
+
+
+def _where(cond, a, b):
+    """Per-stream select over NamedTuple trees of (N, ...) tensors."""
+    if isinstance(a, tuple):
+        return type(a)(*(_where(cond, x, y) for x, y in zip(a, b)))
+    return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+class _Result(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+    h: torch.Tensor
+    angle: torch.Tensor
+    conf: torch.Tensor
+    wb: torch.Tensor
+
+
+def _empty_result(n, device):
+    z = torch.zeros((n,), dtype=_F32, device=device)
+    return _Result(z, z, z, z, z, torch.full_like(z, -10000.0), z)
+
+
+def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
+              device="cpu"):
+    """Build the per-frame step for a static (cascade, config, H, W, device).
+
+    step(state, frames, modes=None) -> (state', StepOutput), frames
+    (N, H, W, 3) u8.  ``modes`` is the host copy of ``state.mode`` (a NumPy
+    array); when None the step reads it from the device.
+
+    variant="full":  the complete WB/VJ/CS mode dispatch; each branch runs
+        on the streams in its mode.
+    variant="track": camshift-only fast path; valid only when every stream
+        is in CS mode (the serving tick routes streams so).
+    """
+    if variant not in ("full", "track"):
+        raise ValueError(f"variant must be 'full' or 'track', got {variant!r}")
+    H, W = frame_shape
+    tables = (detector_tables(W, H, cascade, config.detectorInterval, device)
+              if variant == "full" else None)
+    # f32 constants made once: a host-to-device copy per tick would
+    # synchronize the stream
+    camw = torch.tensor(W, dtype=_F32, device=device)
+    camh = torch.tensor(H, dtype=_F32, device=device)
+    alpha = torch.tensor(config.smoothingAlpha, dtype=_F32, device=device)
+    rad2deg = torch.tensor(180.0 / math.pi, dtype=_F32, device=device)
+
+    def wb_branch(state, frames):
+        wb = whitebalance(frames).to(_F32)
+        # 15-deep stability ring, switch when max - min < 2 (src/facetrackr.js:79-95)
+        ring = torch.cat([wb[:, None], state.wb_ring[:, :-1]], dim=1)
+        n = torch.clamp(state.wb_n + 1, max=PWB_LENGTH)
+        stable = (n == PWB_LENGTH) & (
+            (ring.amax(dim=1) - ring.amin(dim=1)) < 2.0)
+        new_mode = torch.where(stable, MODE_VJ, MODE_WB).to(_I32)
+        res = _empty_result(frames.shape[0], frames.device)._replace(wb=wb)
+        return state._replace(mode=new_mode, wb_ring=ring, wb_n=n), res
+
+    def vj_branch(state, frames):
+        found, x, y, w, h, conf = detect_best(grayscale(frames), tables,
+                                              config.minNeighbors)
+        zero = torch.zeros_like(x)
+        conf = torch.where(found, conf, -10000.0)
+        res = _Result(x=torch.where(found, x, zero), y=torch.where(found, y, zero),
+                      w=torch.where(found, w, zero), h=torch.where(found, h, zero),
+                      angle=zero, conf=conf, wb=zero)
+        # VJ -> CS handoff (src/facetrackr.js:97-108)
+        switch = conf > CONFIDENCE_THRESHOLD
+        rect = torch.floor(torch.stack([res.x, res.y, res.w, res.h], 1)).to(_I32)
+        new_cs = cs.init_tracker(frames, rect)
+        cs_state = _where(switch, new_cs, state.cs)
+        new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
+        return state._replace(mode=new_mode, cs=cs_state), res
+
+    def cs_branch(state, frames):
+        new_cs, _ = cs.track(state.cs, frames, config.calcAngles)
+        one = torch.ones_like(new_cs.track_angle)
+        res = _Result(x=new_cs.track_x.to(_F32), y=new_cs.track_y.to(_F32),
+                      w=new_cs.track_w.to(_F32), h=new_cs.track_h.to(_F32),
+                      angle=new_cs.track_angle, conf=one,
+                      wb=torch.zeros_like(one))
+        return state._replace(cs=new_cs), res
+
+    branches = {MODE_WB: wb_branch, MODE_VJ: vj_branch, MODE_CS: cs_branch}
+
+    def dispatch(state, frames, modes):
+        if modes is None:
+            modes = state.mode.cpu().numpy()
+        present = [m for m in (MODE_WB, MODE_VJ, MODE_CS) if (modes == m).any()]
+        if len(present) == 1:
+            return branches[present[0]](state, frames)
+        new_state = state
+        res = _empty_result(frames.shape[0], frames.device)
+        for m in present:
+            idx = torch.as_tensor(np.nonzero(modes == m)[0], device=frames.device)
+            sub_state, sub_res = branches[m](_tree_index(state, idx),
+                                             frames.index_select(0, idx))
+            new_state = _tree_scatter(new_state, idx, sub_state)
+            res = _tree_scatter(res, idx, sub_res)
+        return new_state, res
+
+    def step(state, frames, modes=None):
+        entry_mode = state.mode
+        if variant == "track":
+            state, res = cs_branch(state, frames)
+        else:
+            state, res = dispatch(state, frames, modes)
+        detection = entry_mode
+        N = frames.shape[0]
+        dev = frames.device
+        zeros_i = torch.zeros((N,), dtype=_I32, device=dev)
+
+        status = torch.where(detection == MODE_WB, STATUS_WHITEBALANCE, zeros_i)
+        status = status | torch.where(
+            state.first_run & (detection == MODE_VJ), STATUS_DETECTING, zeros_i)
+
+        is_cs = detection == MODE_CS
+        conf_gate = res.conf != 0  # src/main.js:186
+        lost = is_cs & conf_gate & ((res.w == 0) | (res.h == 0))
+        tracking = is_cs & conf_gate & ~lost
+
+        # --- loss / retry (src/main.js:230-248)
+        if config.retryDetection:
+            status = status | torch.where(lost, STATUS_REDETECTING, zeros_i)
+            mode_after = torch.where(lost, MODE_VJ, state.mode).to(_I32)
+            stopped = state.stopped
+        else:
+            status = status | torch.where(lost, STATUS_LOST, zeros_i)
+            mode_after = state.mode
+            stopped = state.stopped | lost
+        face_found = state.face_found & ~lost
+        headpose_active = state.headpose_active & ~lost
+
+        # --- found + smoothing (src/main.js:250-261)
+        status = status | torch.where(tracking & ~state.face_found,
+                                      STATUS_FOUND, zeros_i)
+        face_found = face_found | tracking
+
+        zero = torch.zeros_like(res.x)
+        cur = torch.stack([res.x, res.y, zero, res.w, res.h], dim=1)
+        if config.smoothing:
+            t1 = tracking[:, None]
+            sp0 = torch.where(state.sm_init[:, None], state.sm_sp, cur)
+            sp1 = alpha * cur + (1 - alpha) * sp0
+            sm_sp = torch.where(t1, sp1, state.sm_sp)
+            sm_init = state.sm_init | tracking
+            smoothed = torch.where(t1, sp1, cur)
+        else:
+            sm_sp = state.sm_sp
+            sm_init = state.sm_init
+            smoothed = cur
+        sx, sy, sw, sh = smoothed[:, 0], smoothed[:, 1], smoothed[:, 3], smoothed[:, 4]
+
+        # --- head-diagonal stability gate + FOV (src/main.js:263-297)
+        diag = torch.sqrt(sw * sw + sh * sh)
+        gate = tracking & ~headpose_active & bool(config.headPosition)
+        ring_full = state.diag_n >= DIAG_LENGTH
+        rolled = torch.cat([state.diag_ring[:, 1:], diag[:, None]], dim=1)
+        slot = torch.clamp(state.diag_n, max=DIAG_LENGTH - 1).long()
+        filled = state.diag_ring.scatter(1, slot[:, None], diag[:, None])
+        pushed = torch.where(ring_full[:, None], rolled, filled)
+        diag_ring = torch.where(gate[:, None], pushed, state.diag_ring)
+        diag_n = torch.where(gate, torch.clamp(state.diag_n + 1, max=DIAG_LENGTH),
+                             state.diag_n)
+        stable = gate & ring_full & (
+            (pushed.amax(dim=1) - pushed.amin(dim=1)) < 5.0)
+
+        if config.fov is not None:
+            fov_est = torch.full_like(sw, config.fov * math.pi / 180.0)
+        else:
+            fov_est = hp.estimate_fov_width(sw, sh, camw,
+                                            config.distance_to_screen)
+        activate = stable
+        first = activate & state.first_run
+        fov_width = torch.where(first, fov_est, state.fov_width)
+        tan_fov = torch.where(first, 2 * torch.tan(fov_est / 2), state.tan_fov)
+        first_run = state.first_run & ~activate
+        # constructor resets head_diag_cam from the activation faceObj
+        # (src/headposition.js:66-68)
+        head_diag_cam = torch.where(activate, torch.sqrt(sw * sw + sh * sh),
+                                    state.head_diag_cam)
+        headpose_active = headpose_active | activate
+
+        run_head = activate | (tracking & headpose_active
+                               & bool(config.headPosition))
+        hx, hy, hz, new_diag_cam = hp.track_head(
+            sx, sy, sw, sh, head_diag_cam,
+            torch.where(tan_fov > 0, tan_fov, 1.0),  # guard; masked by run_head
+            camw, camh, config.cameraOffset, config.edgecorrection)
+        head_diag_cam = torch.where(run_head, new_diag_cam, head_diag_cam)
+
+        out = StepOutput(
+            detection=detection, wb=res.wb,
+            face_x=res.x, face_y=res.y, face_w=res.w, face_h=res.h,
+            face_angle=res.angle, face_conf=res.conf,
+            smooth_x=sx, smooth_y=sy, smooth_w=sw, smooth_h=sh,
+            head_valid=run_head,
+            head_x=torch.where(run_head, hx, 0.0),
+            head_y=torch.where(run_head, hy, 0.0),
+            head_z=torch.where(run_head, hz, 0.0),
+            status=status,
+            event_face=is_cs & bool(config.sendEvents),
+            fov_deg=fov_width * rad2deg,
+            mode_after=mode_after,
+            escaped=torch.zeros((N,), dtype=torch.bool, device=dev),
+        )
+        new_state = state._replace(
+            mode=mode_after, sm_sp=sm_sp, sm_init=sm_init,
+            face_found=face_found, first_run=first_run,
+            diag_ring=diag_ring, diag_n=diag_n,
+            headpose_active=headpose_active, tan_fov=tan_fov,
+            fov_width=fov_width, head_diag_cam=head_diag_cam, stopped=stopped)
+        return new_state, out
+
+    return step

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels and serving tick on the card, held against their
+plain PyTorch twins on the CPU.  Marked ``cuda``: they skip without a card.
+The JAX reference is not needed here, so on a machine without jax run them
+without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from headtrackr_tpu_torch import BatchedTracker, toy_cascade
+from headtrackr_tpu_torch.kernels import histpdf as K
+from headtrackr_tpu_torch.ops import histogram as hg
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (57, 99)])
+def test_kernels_bit_equal_to_twins(dev, shape):
+    g = torch.Generator().manual_seed(3)
+    N = 8
+    frames = torch.randint(0, 256, (N,) + shape + (3,), generator=g,
+                           dtype=torch.uint8)
+    frames[:4, : shape[0] // 2] = torch.tensor([120, 100, 90], dtype=torch.uint8)
+    rects = torch.cat([torch.randint(-10, 60, (N, 2), generator=g),
+                       torch.randint(0, 80, (N, 2), generator=g)], 1).int()
+    rects[0] = torch.tensor([0, 0, shape[1], shape[0]])
+    w = torch.rand((N, 4096), generator=g)
+    before = dict(K.launches)
+    got_h = K.hist4096(frames.to(dev), rects.to(dev))
+    got_p = K.backproject(frames.to(dev), w.to(dev))
+    torch.cuda.synchronize()
+    assert K.launches["hist4096"] == before["hist4096"] + 1
+    assert K.launches["backproject"] == before["backproject"] + 1
+    assert torch.equal(got_h.cpu(), hg.hist4096_plain(frames, rects).float())
+    assert torch.equal(got_p.cpu(), hg.backproject_plain(frames, w))
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # not contiguous
+        K.hist4096(frames.transpose(1, 2), hg.full_rects(2, (8, 8), dev))
+    with pytest.raises(ValueError):  # wrong table width
+        K.backproject(frames, torch.zeros((2, 4095), device=dev))
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        K.backproject(frames, torch.zeros(2 * 4096 + 1, device=dev)[1:]
+                      .view(2, 4096))
+
+
+def test_serving_tick_card_equals_cpu(dev):
+    H, W = 120, 160
+
+    def frame(cx, cy):
+        f = np.full((H, W, 3), 40, np.uint8)
+        f[cy - 12:cy + 12, cx - 12:cx + 12] = (230, 80, 60)
+        return f
+
+    blue = np.zeros((H, W, 3), np.uint8)
+    blue[..., 2] = 250
+    clip = ([frame(60, 50)] * 16 + [frame(60 + t, 50) for t in range(10)]
+            + [blue] * 2 + [frame(80, 60)] * 8)
+    clip = np.stack([np.stack([f, np.roll(f, 20, axis=1)]) for f in clip])
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        bt = BatchedTracker(2, (H, W), cascade=toy_cascade(), device=d)
+        outs.append([[t.cpu().numpy() for t in bt.step(f)] for f in clip])
+    # a tracker on the card pins full-f32 matmuls and convolutions (no TF32)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    for a_t, b_t in zip(*outs):
+        for a, b in zip(a_t, b_t):
+            if a.dtype.kind in "biu":
+                np.testing.assert_array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
