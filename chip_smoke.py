@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build: nvcc builds the CUDA kernels from headtrackr_tpu_torch/csrc/;
-  3. kernels: hist4096 and backproject on the card at N=256 x 240x320 must be
-     bit-equal to their plain PyTorch twins on the same inputs (tolerance 0),
-     each timed beside its twin;
-  4. serving: BatchedTracker(256, (240, 320)) with the real cascade, the
+  3. kernels: hist4096, backproject (frame and band), histpdf_band (pdf and
+     hist-only) on the card at N=256 x 240x320 must be bit-equal to their
+     plain PyTorch twins on the same inputs (tolerance 0): the bench pools
+     (face_noise 0 and 20) and uniform random frames, with full-frame
+     rects, random detection boxes and 96x128 bands, plus histpdf_band on
+     the TPU experiments' own workload (the full frame, random bins, a model
+     of integers 1..199).  Each is timed (CUDA events over 20 calls, and
+     over 20 calls replayed from a CUDA graph) beside its twin, its
+     byte/operation bound and, given precomputed bins, the nearest single
+     PyTorch call;
+  4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol (16 lock ticks, then 32 ticks over a 16-batch pool with
-     4 loss streams): >= 99% locked, loss streams relock, both kernels
-     launched by the main path, no NaN outside the zero-mass angle;
-  5. card vs CPU: 2 streams x 24 ticks through the port on the card and on
-     the CPU (plain twins) agree: integer outputs exactly, floats within
-     rtol 1e-5 / atol 1e-4.
+     4 loss streams) in three configurations: the full-frame arm, a 96x128
+     band with full-frame histograms, and the headline (96x128 band,
+     bandHist, bucket 8).  Each: >= 99% locked, loss streams relock, the
+     kernels of its path launched in its run, no NaN outside the zero-mass
+     angle;
+  5. steady-tick profile: on each configuration's locked tracker of phase 4,
+     PROFILE_TICKS all-tracking ticks (pool batches before the loss frame),
+     configurations in turns, two passes: host ms/tick unprofiled, then
+     under torch.profiler the device ms per tick, the device busy share
+     (device ms over profiled wall time) and the device kernels per tick;
+  6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
+     the CPU (plain twins), full-frame and headline configurations, agree:
+     integer outputs exactly, floats within rtol 1e-5 / atol 1e-4.
 
-The line before last is the nvidia-smi name/power line; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX or headtrackr_tpu.
+The last four lines: the steady-tick profile as JSON (phase 5), the
+kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
+{...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
 
 import json
@@ -31,7 +47,34 @@ H, W = 240, 320
 N_STREAMS = 256
 POOL = 16
 LOSS_STREAMS = 4
+LOSS_AT = POOL // 2  # the pool batch where the loss streams turn blue
+PROFILE_TICKS = 8
+BAND = (96, 128)
 RTOL, ATOL = 1e-5, 1e-4
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
+
+# serving configurations: name -> (BatchedTracker kwargs, kernels of its path)
+CONFIGS = {
+    "full-frame": (dict(band=None, bandHist=False, bucket=8),
+                   ("hist4096", "backproject", "histpdf_band_hist")),
+    "band": (dict(band=BAND, bandHist=False, bucket=8),
+             ("hist4096", "backproject_rect", "histpdf_band_hist")),
+    "headline": (dict(band=BAND, bandHist=True, bucket=8),
+                 ("histpdf_band", "histpdf_band_hist", "backproject")),
+}
+# kernel -> (the TPU kernel it replaces, the configuration whose run its
+# launch count reports)
+KERNELS = {
+    "hist4096": ("headtrackr_tpu/kernels/histpdf.py:109", "full-frame"),
+    "backproject": ("headtrackr_tpu/kernels/histpdf.py:123", "full-frame"),
+    "backproject_rect": ("headtrackr_tpu/kernels/histpdf.py:123", "band"),
+    "histpdf_band": ("tools/kernel_experiments.py:148", "headline"),
+    "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline"),
+}
+ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
+X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 
 
 def log(msg):
@@ -59,6 +102,31 @@ def cuda_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time of one call of fn: ``reps`` calls captured in a CUDA
+    graph and replayed, timed with events.  Replay has no host enqueue
+    time, which back-to-back event timing of a ~30 us kernel also
+    measures.  fn must not synchronize (the kernels' wrappers do not)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def interleaved_ms(kernel, plain):
     """plain, kernel, kernel, plain on one card: (kernel ms, plain ms)."""
     p1 = cuda_ms(plain)
@@ -68,65 +136,163 @@ def interleaved_ms(kernel, plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(nbytes, ops):
+    """The least time for the work: (ms, "bytes" | "operations")."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops / F32_OPS_PER_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def given_bins(frames, rects):
+    """The per-stream-offset bins (bin + 4096 n) of each [x, y, w, h] rect's
+    pixels: what a single torch.bincount needs to count the rects."""
+    import torch
+    from headtrackr_tpu_torch.ops.histogram import rgb_bins
+    N, dev = frames.shape[0], frames.device
+    rows = torch.arange(H, device=dev).view(1, H, 1)
+    cols = torch.arange(W, device=dev).view(1, 1, W)
+    r = rects.to(torch.int64).view(N, 4, 1, 1)
+    inside = ((rows >= r[:, 1]) & (rows < r[:, 1] + r[:, 3]) &
+              (cols >= r[:, 0]) & (cols < r[:, 0] + r[:, 2]))
+    flat = rgb_bins(frames).long() + 4096 * torch.arange(
+        N, device=dev).view(N, 1, 1)
+    return flat[inside]
+
+
+def bin_frames(bins):
+    """(..., H, W) bins -> u8 RGB whose bins they are."""
+    import torch
+    b = bins.to(torch.int32)
+    rgb = torch.stack([(b >> 8) << 4, ((b >> 4) & 15) << 4, (b & 15) << 4], -1)
+    return rgb.to(torch.uint8)
+
+
 def phase_kernels(pools, dev):
     import torch
     from headtrackr_tpu_torch.kernels import histpdf as K
     from headtrackr_tpu_torch.ops import histogram as hg
 
+    N, (bh, bw) = N_STREAMS, BAND
     g = torch.Generator().manual_seed(7)
     inputs = {f"face_noise={k}": torch.as_tensor(p[1]).to(dev)
               for k, p in pools.items()}
-    inputs["random"] = torch.randint(0, 256, (N_STREAMS, H, W, 3), generator=g,
+    inputs["random"] = torch.randint(0, 256, (N, H, W, 3), generator=g,
                                      dtype=torch.uint8).to(dev)
-    full = hg.full_rects(N_STREAMS, (H, W), dev)
-    xy = torch.randint(-20, 300, (N_STREAMS, 2), generator=g)
-    wh = torch.randint(0, 120, (N_STREAMS, 2), generator=g)
-    boxes = torch.cat([xy, wh], 1).to(torch.int32).to(dev)
-    err = {"hist4096": 0.0, "backproject": 0.0}
-    times = {}
-    for name, fr in inputs.items():
+    full = hg.full_rects(N, (H, W), dev)
+    boxes = torch.cat([torch.randint(-20, 300, (N, 2), generator=g),
+                       torch.randint(0, 120, (N, 2), generator=g)],
+                      1).to(torch.int32).to(dev)
+    bands = torch.cat([torch.randint(-20, W - bw + 20, (N, 1), generator=g),
+                       torch.randint(-20, H - bh + 20, (N, 1), generator=g),
+                       torch.full((N, 1), bw), torch.full((N, 1), bh)],
+                      1).to(torch.int32).to(dev)
+    err = dict.fromkeys(KERNELS, 0.0)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max()) if got.numel() else 0.0
+        err[name] = max(err[name], e)
+
+    for fr in inputs.values():
         for rects in (full, boxes):
-            got = K.hist4096(fr, rects)
-            want = hg.hist4096_plain(fr, rects).to(torch.float32)
-            torch.cuda.synchronize()
-            err["hist4096"] = max(err["hist4096"],
-                                  float((got - want).abs().max()))
-        model = K.hist4096(fr, boxes)
+            check("hist4096", K.hist4096(fr, rects),
+                  hg.hist4096_plain(fr, rects).float())
+            check("histpdf_band_hist", K.histpdf_band(fr, rects),
+                  hg.histpdf_band_plain(fr, rects))
+        model = K.histpdf_band(fr, boxes)
         for w in (hg.backprojection_weights(model, K.hist4096(fr, full)),
-                  torch.rand((N_STREAMS, 4096), generator=g).to(dev)):
-            got = K.backproject(fr, w)
-            want = hg.backproject_plain(fr, w)
-            torch.cuda.synchronize()
-            err["backproject"] = max(err["backproject"],
-                                     float((got - want).abs().max()))
-        w = hg.backprojection_weights(model, K.hist4096(fr, full))
-        times[name] = {
-            "hist4096": interleaved_ms(lambda: K.hist4096(fr, full),
-                                       lambda: hg.hist4096_plain(fr, full)),
-            "backproject": interleaved_ms(lambda: K.backproject(fr, w),
-                                          lambda: hg.backproject_plain(fr, w)),
-        }
+                  torch.rand((N, 4096), generator=g).to(dev)):
+            check("backproject", K.backproject(fr, w),
+                  hg.backproject_plain(fr, w))
+            check("backproject_rect", K.backproject(fr, w, bands, BAND),
+                  hg.backproject_plain(fr, w, bands, BAND))
+        for m in (model, torch.randint(1, 200, (N, 4096), generator=g)
+                  .float().to(dev)):
+            got = K.histpdf_band(fr, bands, m, BAND)
+            want = hg.histpdf_band_plain(fr, bands, m, BAND)
+            for a, b in zip(got, want):
+                check("histpdf_band", a, b)
+    # the TPU experiments' own workload: every pixel of the frame, random
+    # bins, a model of integers 1..199 (tools/kernel_experiments.py:44-46)
+    x4_frames = bin_frames(torch.randint(0, 4096, (N, H, W), generator=g)).to(dev)
+    x4_model = torch.randint(1, 200, (N, 4096), generator=g).float().to(dev)
+    got = K.histpdf_band(x4_frames, full, x4_model, (H, W))
+    want = hg.histpdf_band_plain(x4_frames, full, x4_model, (H, W))
+    for a, b in zip(got, want):
+        check("histpdf_band", a, b)
     for name, e in err.items():
         if e != 0.0:
             raise AssertionError(f"{name} differs from its plain twin: "
                                  f"max abs err {e}")
-    for name, t in times.items():
-        log(f"kernels [{name}] N={N_STREAMS} {H}x{W}: "
-            + "; ".join(f"{k} {v[0]:.4f} ms (plain {v[1]:.4f} ms)"
-                        for k, v in t.items()))
     log(f"kernels: bit-equal to their plain twins (max abs err {err})")
-    return err, times
+
+    # times at the main path's shapes, face_noise=0 frames
+    fr = inputs["face_noise=0"]
+    model = K.histpdf_band(fr, boxes)
+    w = hg.backprojection_weights(model, K.hist4096(fr, full))
+    bins_full = hg.rgb_bins(fr).view(N, -1).long()
+    bins_band = hg.band_bins(fr, bands, BAND).view(N, -1)
+    given_full, given_box = given_bins(fr, full), given_bins(fr, boxes)
+    npx_band, npx_full = N * bh * bw, N * H * W
+    npx_box = given_box.numel()
+    x4_bins = hg.rgb_bins(x4_frames).view(N, -1).long()
+    x4_w = hg.backprojection_weights(x4_model, K.hist4096(x4_frames, full))
+    # name -> (kernel call, plain twin call, library call given bins,
+    #          bytes moved, operations)
+    calls = {
+        "hist4096": (
+            lambda: K.hist4096(fr, full), lambda: hg.hist4096_plain(fr, full),
+            lambda: torch.bincount(given_full, minlength=N * 4096),
+            3 * npx_full + 16 * N + 4 * 4096 * N, 6 * npx_full),
+        "backproject": (
+            lambda: K.backproject(fr, w), lambda: hg.backproject_plain(fr, w),
+            lambda: torch.gather(w, 1, bins_full),
+            7 * npx_full + 4 * 4096 * N, 6 * npx_full),
+        "backproject_rect": (
+            lambda: K.backproject(fr, w, bands, BAND),
+            lambda: hg.backproject_plain(fr, w, bands, BAND),
+            lambda: torch.gather(w, 1, bins_band),
+            7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
+        "histpdf_band": (
+            lambda: K.histpdf_band(fr, bands, model, BAND),
+            lambda: hg.histpdf_band_plain(fr, bands, model, BAND),
+            lambda: torch.gather(w, 1, bins_band),
+            7 * npx_band + 16 * N + 8 * 4096 * N, 7 * npx_band + 3 * 4096 * N),
+        "histpdf_band_hist": (
+            lambda: K.histpdf_band(fr, boxes),
+            lambda: hg.histpdf_band_plain(fr, boxes),
+            lambda: torch.bincount(given_box, minlength=N * 4096),
+            3 * npx_box + 16 * N + 4 * 4096 * N, 6 * npx_box),
+        X4: (
+            lambda: K.histpdf_band(x4_frames, full, x4_model, (H, W)),
+            lambda: hg.histpdf_band_plain(x4_frames, full, x4_model, (H, W)),
+            lambda: torch.gather(x4_w, 1, x4_bins),
+            7 * npx_full + 16 * N + 8 * 4096 * N, 7 * npx_full + 3 * 4096 * N),
+    }
+    t = {}
+    for name, (kern, plain, lib, nbytes, ops) in calls.items():
+        ms, plain_ms = interleaved_ms(kern, plain)
+        b, by = bound(nbytes, ops)
+        t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       library_ms=cuda_ms(lib), graph_ms=graph_ms(kern))
+        log(f"kernels: {name} {ms:.4f} ms, graph replay "
+            f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{b:.4f} ms, given-bins library call {t[name]['library_ms']:.4f} "
+            f"ms)")
+    return err, t
 
 
-def phase_serving(pool, dev):
+def phase_serving(name, frames, dev):
+    """frames: the (POOL, N, H, W, 3) bench pool, staged on the card.
+    Returns (launch counts of the run, ms/tick, the locked tracker)."""
     import numpy as np
     import torch
     from headtrackr_tpu_torch import BatchedTracker
     from headtrackr_tpu_torch.kernels import histpdf as K
     from headtrackr_tpu_torch.models import facetracker as ft
 
-    bt = BatchedTracker(N_STREAMS, (H, W), device=dev)
-    frames = torch.as_tensor(pool).to(dev)          # staged on the card
+    kw, path = CONFIGS[name]
+    bt = BatchedTracker(N_STREAMS, (H, W), device=dev, **kw)
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -137,7 +303,8 @@ def phase_serving(pool, dev):
     torch.cuda.synchronize()
     t_lock = time.perf_counter() - t0
     if locked < 0.99:
-        raise AssertionError(f"only {100 * locked:.1f}% of streams locked")
+        raise AssertionError(f"{name}: only {100 * locked:.1f}% of streams "
+                             f"locked")
     n_ticks = 2 * POOL
     t0 = time.perf_counter()
     for t in range(n_ticks):
@@ -145,8 +312,10 @@ def phase_serving(pool, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(K.launches)
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: {counts}")
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: "
+                             f"{missing} ({counts})")
 
     status = np.stack([o.status.cpu().numpy() for o in outs[16:]])
     redet = (status[:, :LOSS_STREAMS] & ft.STATUS_REDETECTING) != 0
@@ -155,46 +324,105 @@ def phase_serving(pool, dev):
     for s in range(LOSS_STREAMS):
         r = np.nonzero(redet[:, s])[0]
         if r.size == 0 or not found[r[0]:, s].any() or modes[s] != ft.MODE_CS:
-            raise AssertionError(f"loss stream {s} did not redetect and relock")
+            raise AssertionError(f"{name}: loss stream {s} did not redetect "
+                                 f"and relock")
     for o in outs:
-        for name, v in zip(o._fields, o):
+        for field, v in zip(o._fields, o):
             if v.is_floating_point():
                 nan = torch.isnan(v)
-                if name == "face_angle":
+                if field == "face_angle":
                     nan &= ~((o.detection == ft.MODE_CS) & (o.face_w == 0))
                 if bool(nan.any()):
-                    raise AssertionError(f"NaN in output {name}")
+                    raise AssertionError(f"{name}: NaN in output {field}")
+    esc = float(np.mean([int(o.escaped.sum()) for o in outs[16:]]))
+    dirty = bt.state.cs.band_dirty
+    n_dirty = int(dirty.sum()) if dirty is not None else None
     ms = 1000 * dt / n_ticks
-    log(f"serving: {100 * locked:.1f}% of {N_STREAMS} streams locked after 16 "
-        f"ticks ({t_lock:.2f} s, {16 * N_STREAMS / t_lock:.0f} frames/s cold "
-        f"start); {n_ticks} steady ticks {ms:.3f} ms/tick, "
-        f"{N_STREAMS * n_ticks / dt:.0f} frames/s; {LOSS_STREAMS} loss streams "
-        f"relocked; launches {counts}")
-    return counts, ms
+    log(f"serving [{name}] {kw}: {100 * locked:.1f}% of {N_STREAMS} streams "
+        f"locked after 16 ticks ({t_lock:.2f} s, "
+        f"{16 * N_STREAMS / t_lock:.0f} frames/s cold start); {n_ticks} steady "
+        f"ticks {ms:.3f} ms/tick, {N_STREAMS * n_ticks / dt:.0f} frames/s; "
+        f"escapes {esc:.2f}/tick; band_dirty {n_dirty}; {LOSS_STREAMS} loss "
+        f"streams relocked; launches {counts}")
+    return counts, ms, bt
 
 
-def phase_card_vs_cpu(pool, dev):
+def steady_s(bt, frames):
+    """Host seconds of PROFILE_TICKS all-tracking ticks."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PROFILE_TICKS):
+        bt.step_auto(frames[t % LOSS_AT])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_profile(trackers, frames):
+    """Steady-tick profile of each locked tracker, configurations in turns,
+    two passes: name -> [one dict per pass]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from headtrackr_tpu_torch.kernels import histpdf as K
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    rows = {name: [] for name in trackers}
+    for rep in range(2):
+        for name, bt in trackers.items():
+            if not (bt.modes == ft.MODE_CS).all():
+                raise AssertionError(f"profile [{name}]: not every stream "
+                                     f"tracks")
+            steady_s(bt, frames)  # warm
+            wall = steady_s(bt, frames)
+            K.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pwall = steady_s(bt, frames)
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not kern:
+                raise AssertionError("the profiler saw no device kernels")
+            device_s = sum(e.device_time_total for e in kern) / 1e6
+            r = {"ms_per_tick": 1e3 * wall / PROFILE_TICKS,
+                 "profiled_ms_per_tick": 1e3 * pwall / PROFILE_TICKS,
+                 "device_ms": 1e3 * device_s / PROFILE_TICKS,
+                 "device_busy": device_s / pwall,
+                 "launches": len(kern) / PROFILE_TICKS,
+                 "kernel_launches": {k: v / PROFILE_TICKS
+                                     for k, v in K.launches.items()}}
+            rows[name].append(r)
+            log(f"profile [{name}] pass {rep}: {r['ms_per_tick']:.3f} ms/tick "
+                f"({r['profiled_ms_per_tick']:.3f} profiled), device "
+                f"{r['device_ms']:.3f} ms/tick ({100 * r['device_busy']:.1f}% "
+                f"busy), {r['launches']:.2f} launches/tick, kernels "
+                f"{r['kernel_launches']}")
+    return rows
+
+
+def phase_card_vs_cpu(name, pool, dev):
     import numpy as np
     import torch
     from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.models.facetracker import StepOutput
 
+    kw, _ = CONFIGS[name]
     ticks = [0] * 16 + list(range(4, 12))           # lock, track, lose, relock
     res = []
     for d in (dev, torch.device("cpu")):
-        bt = BatchedTracker(2, (H, W), device=d)
+        bt = BatchedTracker(2, (H, W), device=d, **kw)
         res.append([[t.cpu().numpy() for t in bt.step_auto(pool[i, :2])]
                     for i in ticks])
-    from headtrackr_tpu_torch.models.facetracker import StepOutput
     for k, (a, b) in enumerate(zip(*res)):
-        for name, x, y in zip(StepOutput._fields, a, b):
+        for field, x, y in zip(StepOutput._fields, a, b):
             if x.dtype.kind in "biu":
                 ok = np.array_equal(x, y)
             else:
                 ok = np.allclose(x, y, rtol=RTOL, atol=ATOL, equal_nan=True)
             if not ok:
-                raise AssertionError(f"card vs CPU: tick {k} {name}: {x} vs {y}")
-    log(f"card vs CPU: 2 streams x {len(ticks)} ticks agree (integers exact, "
-        f"floats rtol {RTOL} / atol {ATOL})")
+                raise AssertionError(f"card vs CPU [{name}]: tick {k} "
+                                     f"{field}: {x} vs {y}")
+    log(f"card vs CPU [{name}]: 2 streams x {len(ticks)} ticks agree "
+        f"(integers exact, floats rtol {RTOL} / atol {ATOL})")
 
 
 def main():
@@ -227,18 +455,26 @@ def main():
                            np.random.default_rng(0), face_noise=k)
              for k in (0, 20)}
     err, times = phase_kernels(pools, dev)
-    counts, _ = phase_serving(pools[0], dev)
-    phase_card_vs_cpu(pools[0], dev)
+    frames = torch.as_tensor(pools[0]).to(dev)
+    runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
+    prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
+    counts = {name: r[0] for name, r in runs.items()}
+    del runs, frames  # free the trackers and the staged pool
+    for name in ("full-frame", "headline"):
+        phase_card_vs_cpu(name, pools[0], dev)
 
-    src = "headtrackr_tpu_torch/csrc/histpdf.cu"
-    replaces = {"hist4096": "headtrackr_tpu/kernels/histpdf.py:109",
-                "backproject": "headtrackr_tpu/kernels/histpdf.py:123"}
-    t0 = times["face_noise=0"]
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": counts[k], "max_abs_err": err[k],
-         "ms": t0[k][0], "plain_ms": t0[k][1]} for k in ("hist4096",
-                                                         "backproject")]}))
+    entries = []
+    for k, (replaces, path) in KERNELS.items():
+        e = {"name": k, "route": "cuda", "source": SRC, "replaces": replaces,
+             "launches": counts[path][k], "path": path, "max_abs_err": err[k],
+             **times[k]}
+        if k in ALSO_REPLACES:
+            e["also_replaces"] = ALSO_REPLACES[k]
+            e["x4_workload"] = times[X4]
+        entries.append(e)
+    print(json.dumps({"profile": prof, "ticks": PROFILE_TICKS,
+                      "streams": N_STREAMS}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ position over N camera streams, served on one NVIDIA GPU:
   frames (N, H, W, 3) u8
     -> [whitebalance-stability gate]
     -> cascade detection over every window of every scale
-    -> camshift tracking (CUDA kernels: hist4096, backproject)
+    -> camshift tracking, full frame or band-local (CUDA kernels: hist4096,
+       backproject, histpdf_band)
     -> EMA smoothing -> head position (x, y, z cm)
 
 The JAX package ``headtrackr_tpu`` is the reference this port is held

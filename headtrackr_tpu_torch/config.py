@@ -8,13 +8,13 @@ packages unchanged.  Names and defaults follow the reference:
   - camshift params:     src/camshift.js:150-151
   - headposition params: src/headposition.js:22-48,69-84
 
-The port reads the reference-behaviour fields.  The capacity and TPU
+The port reads the reference-behaviour fields and the band-local serving
+knobs (bandHist, bandHistAudit, bandHistAuditAction).  The capacity and TPU
 formulation knobs (maxCandidates, survivorsStage2, survivorsDeep, histBlock,
 sparseHist, histKernel, exactCamshift) are carried for compatibility and do
 not change its results: its detector has no capacity caps, its camshift pdf
 is always the exact f32 lookup, and its histogram and backprojection always
-run the CUDA kernels on the card.  bandHist and its audit belong to the
-band-local serving path, which this package does not have yet.
+run the CUDA kernels on the card.
 """
 
 import dataclasses

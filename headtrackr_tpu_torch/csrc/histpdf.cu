@@ -1,5 +1,6 @@
-// Camshift pixel kernels for Hopper (sm_90a): the 4096-bin RGB histogram
-// and the ratio-weight backprojection, over a batch of u8 RGB frames.
+// Camshift pixel kernels for Hopper (sm_90a): the 4096-bin RGB histogram,
+// the ratio-weight backprojection and the fused band histogram + weights +
+// pdf, over a batch of u8 RGB frames.
 //
 // hist4096 replaces headtrackr_tpu/kernels/histpdf.py::hist_pallas
 // (_hist_kernel, _onehots, _pad_blocks).  The TPU kernel builds hi/lo
@@ -17,8 +18,9 @@
 //     bin (a flat background, a 2-3-bin face).  Each warp aggregates first
 //     (__match_any_sync): one atomic per distinct bin in the warp, adding the
 //     peer count, instead of 32 serialized atomics on one address.
-//   - The rect [x, y, w, h] (clamped to the frame) serves the full-frame
-//     current histogram and the handoff model histogram of the detection box.
+//   - The grid is sized by the frame, so the rect should cover most of it:
+//     the serving path calls it for full-frame current histograms only.
+//     Small rects (a detection box, a band) go to histpdf_band below.
 //
 // backproject replaces headtrackr_tpu/kernels/histpdf.py::pdf_pallas
 // (_pdf_kernel).  The TPU kernel needs a triple-bf16 split of the weight
@@ -29,8 +31,25 @@
 //     memory, then each thread bins its pixels and loads the weight.  A table
 //     load is exact by construction, so no split is needed.  Blocks cover
 //     16,384 pixels each so the table load stays small against the pixels.
+//   - backproject_rect is the same lookup over a per-stream (bh, bw) rect
+//     (the band pdf of the band-local camshift with full-frame histograms).
 //
-// Both launch on the caller's stream, allocate nothing and return
+// histpdf_band replaces tools/kernel_experiments.py hp_call (k4) and
+// hp7_call (k7), the fused per-stream histogram + min(model/cur, 1) weights +
+// pdf, and in hist-only mode hist_call (k3).  On the TPU each grid step is
+// one stream, the histogram is a one-hot MXU contraction and the pdf a
+// bf16-plane weight matmul.  Here:
+//   - Bound: bytes.  At a 96x128 band: 36 KB of RGB in, a 16 KB model in,
+//     16 KB of counts and 48 KB of pdf out per stream.
+//   - Design: one block per stream (the TPU kernel's grid=(N,)), so no
+//     cross-block merge and no global atomics.  Pass 1 bins the rect into a
+//     16 KB shared i32 histogram with warp-aggregated shared atomics; the
+//     epilogue writes the f32 counts and, in pdf mode, forms the weights in
+//     a 16 KB shared table with IEEE division (bit-equal to the torch
+//     formulation); pass 2 reads the rect again (from L2) and writes
+//     pdf = table[bin].  Hist-only mode stops after the counts.
+//
+// All launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() of the launch.
 
 #include <cstdint>
@@ -40,6 +59,7 @@ namespace {
 
 constexpr int kBins = 4096;
 constexpr int kThreads = 256;
+constexpr int kBandThreads = 512;
 constexpr int kHistPixelsPerBlock = 8192;
 constexpr int kPdfPixelsPerBlock = 16384;
 
@@ -49,15 +69,12 @@ __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
          static_cast<int>(px[2] >> 4);
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist4096_kernel(const uint8_t* __restrict__ frames,
-                const int32_t* __restrict__ rects,
-                int32_t* __restrict__ out, int h, int w) {
-  __shared__ int32_t hist[kBins];
-  const int n = blockIdx.y;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
+// The rect [x, y, w, h] clamped to the frame: origin (x0, y0), size rw x rh.
+struct Rect {
+  int64_t x0, y0, rw, rh;
+};
 
-  const int32_t* r = rects + 4 * static_cast<int64_t>(n);
+__device__ __forceinline__ Rect clamped_rect(const int32_t* r, int h, int w) {
   const int64_t rx = r[0], ry = r[1];
   const int64_t x0 = rx > 0 ? rx : 0;
   const int64_t y0 = ry > 0 ? ry : 0;
@@ -65,24 +82,32 @@ hist4096_kernel(const uint8_t* __restrict__ frames,
   int64_t y1 = ry + r[3];
   x1 = x1 < w ? x1 : w;
   y1 = y1 < h ? y1 : h;
-  const int64_t rw = x1 > x0 ? x1 - x0 : 0;
-  const int64_t rh = y1 > y0 ? y1 - y0 : 0;
-  const int64_t npx = rw * rh;
-  __syncthreads();
+  return {x0, y0, x1 > x0 ? x1 - x0 : 0, y1 > y0 ? y1 - y0 : 0};
+}
 
-  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
+// A (bh, bw) band at the rect's origin, the origin clipped so the band lies
+// in the frame (the caller guarantees bh <= h and bw <= w).
+__device__ __forceinline__ Rect band_rect(const int32_t* r, int h, int w,
+                                          int bh, int bw) {
+  int64_t x0 = r[0], y0 = r[1];
+  x0 = x0 < 0 ? 0 : (x0 > w - bw ? w - bw : x0);
+  y0 = y0 < 0 ? 0 : (y0 > h - bh ? h - bh : y0);
+  return {x0, y0, bw, bh};
+}
+
+// Count the pixels [start, end) of the rect into a shared histogram.  The
+// loop bound is uniform across the block, so every warp runs the same trip
+// count and __match_any_sync sees all 32 lanes.
+__device__ __forceinline__ void count_pixels(const uint8_t* f, int w,
+                                             const Rect& rc, int64_t start,
+                                             int64_t end, int32_t* hist) {
   const int lane = threadIdx.x & 31;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kHistPixelsPerBlock;
-  int64_t end = start + kHistPixelsPerBlock;
-  end = end < npx ? end : npx;
-  // `base` is uniform across the block, so every warp runs the same trip
-  // count and __match_any_sync sees all 32 lanes.
   for (int64_t base = start; base < end; base += blockDim.x) {
     const int64_t p = base + threadIdx.x;
     int bin = -1;
     if (p < end) {
-      const int64_t yy = y0 + p / rw;
-      const int64_t xx = x0 + p % rw;
+      const int64_t yy = rc.y0 + p / rc.rw;
+      const int64_t xx = rc.x0 + p % rc.rw;
       bin = rgb_bin(f + (yy * w + xx) * 3);
     }
     const unsigned peers = __match_any_sync(0xffffffffu, bin);
@@ -90,6 +115,24 @@ hist4096_kernel(const uint8_t* __restrict__ frames,
       atomicAdd(&hist[bin], __popc(peers));
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hist4096_kernel(const uint8_t* __restrict__ frames,
+                const int32_t* __restrict__ rects,
+                int32_t* __restrict__ out, int h, int w) {
+  __shared__ int32_t hist[kBins];
+  const int n = blockIdx.y;
+  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
+  const Rect rc = clamped_rect(rects + 4 * static_cast<int64_t>(n), h, w);
+  const int64_t npx = rc.rw * rc.rh;
+  __syncthreads();
+
+  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kHistPixelsPerBlock;
+  int64_t end = start + kHistPixelsPerBlock;
+  end = end < npx ? end : npx;
+  count_pixels(f, w, rc, start, end, hist);
   __syncthreads();
 
   int32_t* o = out + static_cast<int64_t>(n) * kBins;
@@ -99,17 +142,22 @@ hist4096_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
+__device__ __forceinline__ const float* stage_table(const float* weights,
+                                                    int n, float4* table4) {
+  const float4* w4 =
+      reinterpret_cast<const float4*>(weights + static_cast<int64_t>(n) * kBins);
+  for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) table4[i] = w4[i];
+  __syncthreads();
+  return reinterpret_cast<const float*>(table4);
+}
+
 __global__ void __launch_bounds__(kThreads)
 backproject_kernel(const uint8_t* __restrict__ frames,
                    const float* __restrict__ weights,
                    float* __restrict__ out, int64_t hw) {
   __shared__ float4 table4[kBins / 4];
   const int n = blockIdx.y;
-  const float4* w4 =
-      reinterpret_cast<const float4*>(weights + static_cast<int64_t>(n) * kBins);
-  for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) table4[i] = w4[i];
-  __syncthreads();
-  const float* table = reinterpret_cast<const float*>(table4);
+  const float* table = stage_table(weights, n, table4);
 
   const uint8_t* f = frames + static_cast<int64_t>(n) * hw * 3;
   float* o = out + static_cast<int64_t>(n) * hw;
@@ -118,6 +166,72 @@ backproject_kernel(const uint8_t* __restrict__ frames,
   end = end < hw ? end : hw;
   for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
     o[p] = table[rgb_bin(f + p * 3)];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+backproject_rect_kernel(const uint8_t* __restrict__ frames,
+                        const float* __restrict__ weights,
+                        const int32_t* __restrict__ rects,
+                        float* __restrict__ out, int h, int w, int bh, int bw) {
+  __shared__ float4 table4[kBins / 4];
+  const int n = blockIdx.y;
+  const float* table = stage_table(weights, n, table4);
+  const Rect rc = band_rect(rects + 4 * static_cast<int64_t>(n), h, w, bh, bw);
+
+  const int64_t npx = static_cast<int64_t>(bh) * bw;
+  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
+  float* o = out + static_cast<int64_t>(n) * npx;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kPdfPixelsPerBlock;
+  int64_t end = start + kPdfPixelsPerBlock;
+  end = end < npx ? end : npx;
+  for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
+    const int64_t yy = rc.y0 + p / bw;
+    const int64_t xx = rc.x0 + p % bw;
+    o[p] = table[rgb_bin(f + (yy * w + xx) * 3)];
+  }
+}
+
+template <bool kPdf>
+__global__ void __launch_bounds__(kBandThreads)
+histpdf_band_kernel(const uint8_t* __restrict__ frames,
+                    const int32_t* __restrict__ rects,
+                    const float* __restrict__ model,
+                    float* __restrict__ cur, float* __restrict__ pdf,
+                    int h, int w, int bh, int bw) {
+  __shared__ int32_t hist[kBins];
+  __shared__ float table[kPdf ? kBins : 1];
+  const int n = blockIdx.x;
+  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
+  const int32_t* r = rects + 4 * static_cast<int64_t>(n);
+  const Rect rc = kPdf ? band_rect(r, h, w, bh, bw) : clamped_rect(r, h, w);
+  const int64_t npx = rc.rw * rc.rh;
+  __syncthreads();
+
+  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
+  count_pixels(f, w, rc, 0, npx, hist);
+  __syncthreads();
+
+  float* c = cur + static_cast<int64_t>(n) * kBins;
+  const float* m = kPdf ? model + static_cast<int64_t>(n) * kBins : nullptr;
+  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
+    const int32_t k = hist[i];
+    const float cf = static_cast<float>(k);
+    c[i] = cf;
+    if constexpr (kPdf) {
+      // min(model / cur, 1), 0 where cur == 0: IEEE round-to-nearest
+      // division, as the torch formulation (ops/histogram.py)
+      table[i] = k != 0 ? fminf(__fdiv_rn(m[i], cf), 1.0f) : 0.0f;
+    }
+  }
+  if constexpr (kPdf) {
+    __syncthreads();
+    float* o = pdf + static_cast<int64_t>(n) * npx;
+    for (int64_t p = threadIdx.x; p < npx; p += blockDim.x) {
+      const int64_t yy = rc.y0 + p / rc.rw;
+      const int64_t xx = rc.x0 + p % rc.rw;
+      o[p] = table[rgb_bin(f + (yy * w + xx) * 3)];
+    }
   }
 }
 
@@ -150,5 +264,49 @@ extern "C" int backproject_launch(const void* frames, const void* weights,
   backproject_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
       static_cast<float*>(out), hw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
+// rects (n, 4) i32 whose [x, y] place a (bh, bw) band (clipped into the
+// frame; 1 <= bh <= h, 1 <= bw <= w), out (n, bh, bw) f32.
+extern "C" int backproject_rect_launch(const void* frames, const void* weights,
+                                       const void* rects, void* out, int n,
+                                       int h, int w, int bh, int bw,
+                                       void* stream) {
+  if (n <= 0) return 0;
+  const dim3 grid(blocks_for(static_cast<int64_t>(bh) * bw, kPdfPixelsPerBlock),
+                  n);
+  backproject_rect_kernel<<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
+      static_cast<const int32_t*>(rects), static_cast<float*>(out), h, w, bh,
+      bw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h], cur (n, 4096) f32.
+// model == nullptr: hist-only, cur = counts of each rect clamped to the
+// frame (bh, bw, pdf unused).  Otherwise model (n, 4096) f32, and each
+// rect's [x, y] places a (bh, bw) band clipped into the frame
+// (1 <= bh <= h, 1 <= bw <= w): cur = the band's counts, pdf (n, bh, bw) f32
+// = min(model / cur, 1)[bin].
+extern "C" int histpdf_band_launch(const void* frames, const void* rects,
+                                   const void* model, void* cur, void* pdf,
+                                   int n, int h, int w, int bh, int bw,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint8_t*>(frames);
+  const auto* r = static_cast<const int32_t*>(rects);
+  const auto* m = static_cast<const float*>(model);
+  if (model == nullptr) {
+    histpdf_band_kernel<false><<<n, kBandThreads, 0, s>>>(
+        f, r, m, static_cast<float*>(cur), nullptr, h, w, 0, 0);
+  } else {
+    histpdf_band_kernel<true><<<n, kBandThreads, 0, s>>>(
+        f, r, m, static_cast<float*>(cur), static_cast<float*>(pdf), h, w, bh,
+        bw);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,6 +28,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "hist4096_launch": (_C, _C, _C, _I, _I, _I, _C),
     "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
+    "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+    "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
 }
 
 

@@ -2,10 +2,20 @@
 
 Behavior spec: src/camshift.js (see headtrackr_tpu/oracle/camshift.py); the
 counterpart of headtrackr_tpu/models/camshift.py with the stream axis written
-out.  Per frame: the current full-frame 4096-bin histogram (CUDA kernel
-``hist4096`` on the card), ratio weights, the backprojection (CUDA kernel
-``backproject``), <= 10 mean-shift iterations with the fixed-point freeze,
+out.  Per frame: the current 4096-bin histogram, ratio weights, the
+backprojection, <= 10 mean-shift iterations with the fixed-point freeze,
 then size and orientation from the central moments.
+
+Two forms of the step:
+  * ``track``: full frame (CUDA kernels ``hist4096`` and ``backproject`` on
+    the card).
+  * ``track_band``: the pdf and the moments over an 8-aligned (bh, bw) band
+    around each search window (``band_rect``).  The current histogram is
+    full frame (``hist4096`` + ``backproject_rect``) or, with ``band_hist``,
+    the band's own (one fused ``histpdf_band`` launch: counts, weights and
+    pdf).  A stream whose mean-shift trajectory leaves its band is flagged
+    ``escaped``; its result is invalid and the caller recomputes it with
+    ``track``.
 
 * First moments come from 1-D marginal prefix sums (cumsum, a fixed-order
   scan; no float atomics), window-relative like the reference package.
@@ -16,18 +26,31 @@ then size and orientation from the central moments.
 """
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.histpdf import backproject
+from ..kernels.histpdf import backproject, histpdf_band
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
                              histogram_rect)
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
-           "mean_shift", "MEANSHIFT_ITERS"]
+           "track_band", "mean_shift", "MEANSHIFT_ITERS", "DEFAULT_BAND",
+           "BAND_SLACK", "band_for", "parse_band", "band_rect", "band_rects",
+           "handoff_band_audit"]
 
 MEANSHIFT_ITERS = 10  # src/camshift.js:277
+
+# Default band (rows, cols) of the band-local serving path at 240x320+:
+# covers search windows up to ~(112, 176) px with drift margin; bigger
+# windows (or trajectories reaching the band edge) raise ``escaped`` and the
+# serving tick recomputes those streams full-frame (runtime/serving.py).
+DEFAULT_BAND = (128, 192)
+
+# Escape-free slack per band dimension: up to 8 px of 8-aligned band
+# re-centering + the per-tick mean-shift trajectory + the 1.1x window growth
+# (src/camshift.js:257-258).
+BAND_SLACK = 24
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -41,28 +64,78 @@ class CamshiftState(NamedTuple):
     track_w: torch.Tensor       # (N,) i32 (JS << 2 result)
     track_h: torch.Tensor       # (N,) i32
     track_angle: torch.Tensor   # (N,) f32 radians
+    # bandHist handoff audit (TrackerConfig.bandHistAudit): True when, at
+    # handoff, a pixel outside the serving band carried a model bin.  None
+    # when the audit is off (the reference's schema rule, same leaf order).
+    band_dirty: Optional[torch.Tensor] = None   # (N,) bool
 
 
-def init_state(n, device):
+def init_state(n, device, band_audit=False):
     z = torch.zeros((n,), dtype=_I32, device=device)
     return CamshiftState(
         model_hist=torch.zeros((n, NBINS), dtype=_F32, device=device),
         window=torch.zeros((n, 4), dtype=_I32, device=device),
         track_x=z, track_y=z.clone(), track_w=z.clone(), track_h=z.clone(),
-        track_angle=torch.zeros((n,), dtype=_F32, device=device))
+        track_angle=torch.zeros((n,), dtype=_F32, device=device),
+        # False before the handoff, which always overwrites it
+        band_dirty=(torch.zeros((n,), dtype=torch.bool, device=device)
+                    if band_audit else None))
 
 
-def init_tracker(frames, rects):
+def band_rect(window, band, frame_shape):
+    """Each stream's serving band (ry, rx, bh, bw) for its search window:
+    8-aligned starts centered on the clamped window, clipped to the frame.
+    window (N, 4) i32 -> ry, rx (N,) i32 tensors and bh, bw ints -- the one
+    placement rule of track_band, the handoff audit and the divergence
+    cross-check."""
+    H, W = frame_shape
+    bh = min(band[0], H)
+    bw = min(band[1], W)
+    cx = torch.clamp(window[:, 0], 0, W) + window[:, 2] // 2
+    cy = torch.clamp(window[:, 1], 0, H) + window[:, 3] // 2
+    rx = torch.clamp((cx - bw // 2) & ~7, 0, W - bw)
+    ry = torch.clamp((cy - bh // 2) & ~7, 0, H - bh)
+    return ry, rx, bh, bw
+
+
+def band_rects(ry, rx, bh, bw):
+    """``band_rect``'s result as (N, 4) i32 [x, y, w, h] rects."""
+    return torch.stack([rx, ry, torch.full_like(rx, bw),
+                        torch.full_like(rx, bh)], 1).to(_I32)
+
+
+def handoff_band_audit(frames, model_hist, rect, band):
+    """(N,) bool: some pixel OUTSIDE the band (placed for the handoff window
+    ``rect``) carries a bin with nonzero model count -- the content
+    condition under which bandHist stops being exact (docs/PARITY.md
+    deviation 13).  One full-frame 0/1-weight lookup masked to the band's
+    complement."""
+    N, H, W, _ = frames.shape
+    ry, rx, bh, bw = band_rect(rect, band, (H, W))
+    is_model = backproject(frames, (model_hist > 0).to(_F32))
+    rows = torch.arange(H, device=frames.device).view(1, H, 1)
+    cols = torch.arange(W, device=frames.device).view(1, 1, W)
+    v = lambda t: t.view(N, 1, 1)  # noqa: E731
+    outside = ((rows < v(ry)) | (rows >= v(ry) + bh) |
+               (cols < v(rx)) | (cols >= v(rx) + bw))
+    return ((is_model > 0.5) & outside).flatten(1).any(1)
+
+
+def init_tracker(frames, rects, audit_band=None):
     """VJ -> CS handoff (src/camshift.js:198-211): model histogram of each
     stream's crop.  rects: (N, 4) i32 [x, y, w, h], already floored by the
-    caller (src/facetrackr.js:101-106)."""
+    caller (src/facetrackr.js:101-106).  audit_band=(bh, bw) also runs the
+    bandHist handoff audit and stores ``band_dirty``."""
     rects = rects.to(_I32).contiguous()
-    z = torch.zeros((rects.shape[0],), dtype=_I32, device=rects.device)
+    n = rects.shape[0]
+    hist = histogram_rect(frames, rects)
+    z = torch.zeros((n,), dtype=_I32, device=rects.device)
     return CamshiftState(
-        model_hist=histogram_rect(frames, rects), window=rects,
+        model_hist=hist, window=rects,
         track_x=z, track_y=z.clone(), track_w=z.clone(), track_h=z.clone(),
-        track_angle=torch.zeros((rects.shape[0],), dtype=_F32,
-                                device=rects.device))
+        track_angle=torch.zeros((n,), dtype=_F32, device=rects.device),
+        band_dirty=(handoff_band_audit(frames, hist, rects, audit_band)
+                    if audit_band is not None else None))
 
 
 def _js_shift(v):
@@ -85,8 +158,8 @@ def _gather_cols(plane, idx):
 
 
 def _second_moments(pdf, wadx, wady, wadw, wadh):
-    """One masked full-frame pass for m11/m20/m02 of the final window (the JS
-    computes second moments only at the stopping iteration,
+    """One masked pass over the pdf for m11/m20/m02 of the final window (the
+    JS computes second moments only at the stopping iteration,
     src/camshift.js:291,300)."""
     N, H, W = pdf.shape
     rows = torch.arange(H, device=pdf.device).view(1, H, 1)
@@ -103,33 +176,53 @@ def _second_moments(pdf, wadx, wady, wadw, wadh):
     return m11, m20, m02
 
 
-def mean_shift(pdf, window):
-    """Full-frame mean shift (src/camshift.js:261-312) for every stream.
+def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
+    """<= 10 mean-shift iterations (src/camshift.js:261-312) for every stream.
 
-    pdf (N, H, W) f32, window (N, 4) i32.  Returns (window', moments dict at
-    the stopping iteration, zero_mass flag (N,))."""
-    N, H, W = pdf.shape
+    pdf (N, bh, bw) f32 covers frame rows [ry, ry+bh) x cols [rx, rx+bw)
+    (ry, rx (N,) i32; the full frame when they are None), window (N, 4) i32,
+    frame_shape (H, W) (default: the pdf's).  All window arithmetic stays in
+    frame coordinates; only the moment reductions translate into band
+    coordinates.  Returns (window', moments dict at the stopping iteration,
+    zero_mass (N,), escaped (N,)): escaped means some iteration's clamped
+    window left the band (never for a full-frame pdf)."""
+    N, bh, bw = pdf.shape
+    H, W = frame_shape if frame_shape is not None else (bh, bw)
     dev = pdf.device
+    banded = ry is not None  # the full frame needs no offsets or escape test
+    # the four window bounds travel as one (N, 4) [x0, y0, x1, y1] tensor;
+    # bounds made on the device (a host-to-device copy would synchronize)
+    frame_hi = torch.full((2,), W, dtype=_I32, device=dev)
+    frame_hi[1] = H
+    band_hi = torch.full((4,), bw, dtype=_I32, device=dev)
+    band_hi[1::2] = bh
+    if banded:
+        origin = torch.stack([rx, ry, rx, ry], 1)
     # marginal prefix sums: col_cum[n, y, x] = sum_{y' < y} pdf[n, y', x]
     col_cum = torch.nn.functional.pad(torch.cumsum(pdf, dim=1), (0, 0, 1, 0))
     row_cum = torch.nn.functional.pad(torch.cumsum(pdf, dim=2), (1, 0))
-    xs = torch.arange(W, device=dev).view(1, W)
-    ys = torch.arange(H, device=dev).view(1, H)
+    xs = torch.arange(bw, device=dev).view(1, bw)
+    ys = torch.arange(bh, device=dev).view(1, bh)
 
     win = window.clone()
     prevx, prevy = win[:, 0].clone(), win[:, 1].clone()
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    esc = torch.zeros((N,), dtype=torch.bool, device=dev)
     zf = torch.zeros((N,), dtype=_F32, device=dev)
     m00, m10, m01 = zf, zf.clone(), zf.clone()
-    zi = torch.zeros((N,), dtype=_I32, device=dev)
-    wad = (zi, zi, zi, zi)
+    wad = torch.zeros((N, 4), dtype=_I32, device=dev)  # frozen bounds
     for _ in range(MEANSHIFT_ITERS):
-        wadx = torch.clamp(win[:, 0], min=0)
-        wady = torch.clamp(win[:, 1], min=0)
-        wadw = torch.clamp(wadx + win[:, 2], max=W)
-        wadh = torch.clamp(wady + win[:, 3], max=H)
-        bx0, by0 = torch.clamp(wadx, 0, W), torch.clamp(wady, 0, H)
-        bx1, by1 = torch.clamp(wadw, 0, W), torch.clamp(wadh, 0, H)
+        lo = torch.clamp(win[:, :2], min=0)
+        bounds = torch.cat([lo, torch.minimum(lo + win[:, 2:], frame_hi)], 1)
+        if banded:
+            # band coordinates: (xs - bx0) == (xs_frame - wadx), so the
+            # moments are the window-relative ones of the frame; the window
+            # escaped when its start is before the band or its end after it
+            bounds = bounds - origin
+            esc = esc | (~done & ((bounds[:, :2] < 0) |
+                                  (bounds[:, 2:] > band_hi[2:])).any(1))
+        bounds = torch.minimum(torch.clamp(bounds, min=0), band_hi)
+        bx0, by0, bx1, by1 = bounds.unbind(1)
         empty = (bx1 <= bx0) | (by1 <= by0)
         colmass = _gather_rows(col_cum, by1) - _gather_rows(col_cum, by0)
         rowmass = _gather_cols(row_cum, bx1) - _gather_cols(row_cum, bx0)
@@ -151,7 +244,7 @@ def mean_shift(pdf, window):
         # freeze after done: keep the previous window, moments and bounds
         keep = lambda old, new: torch.where(done, old, new)  # noqa: E731
         m00, m10, m01 = keep(m00, n00), keep(m10, n10), keep(m01, n01)
-        wad = tuple(keep(o, n) for o, n in zip(wad, (bx0, by0, bx1, by1)))
+        wad = torch.where(done[:, None], wad, bounds)
         win = torch.stack([keep(win[:, 0], newx), keep(win[:, 1], newy),
                            win[:, 2], win[:, 3]], dim=1)
         prevx, prevy = keep(prevx, newx), keep(prevy, newy)
@@ -159,7 +252,7 @@ def mean_shift(pdf, window):
 
     win = torch.stack([torch.clamp(win[:, 0], 0, W), torch.clamp(win[:, 1], 0, H),
                        win[:, 2], win[:, 3]], dim=1)
-    m11, m20, m02 = _second_moments(pdf, *wad)
+    m11, m20, m02 = _second_moments(pdf, *wad.unbind(1))
     nonzero = m00 > 0
     inv = torch.where(nonzero, 1.0 / torch.clamp(m00, min=1e-30), math.inf)
     xc = m10 * inv
@@ -168,7 +261,7 @@ def mean_shift(pdf, window):
                invM00=inv, xc=xc, yc=yc,
                mu20=m20 - m10 * xc, mu02=m02 - m01 * yc,
                mu11=m11 - m01 * xc)  # JS quirk: m01 * xc (src/camshift.js:118)
-    return win, mom, ~nonzero
+    return win, mom, ~nonzero, esc
 
 
 def _sqrt_shl2(v, bad):
@@ -216,5 +309,68 @@ def track(state, frames, calc_angles=True):
     cur = histogram_full(frames)
     weights = backprojection_weights(state.model_hist, cur)
     pdf = backproject(frames, weights)
-    win, m, zero_mass = mean_shift(pdf, state.window)
+    win, m, zero_mass, _ = mean_shift(pdf, state.window)
     return _finish(state, win, m, zero_mass, calc_angles, H, W), pdf
+
+
+def band_for(max_window, frame_shape=(240, 320)):
+    """Smallest escape-free band (rows, cols) for search windows up to
+    ``max_window`` = (h, w) px: each window dimension plus BAND_SLACK,
+    rounded up to 8 px and clipped to the frame.  Undersized bands are
+    safe -- escapes recompute full-frame (slower, never wrong)."""
+    wh, ww = int(max_window[0]), int(max_window[1])
+    H, W = int(frame_shape[0]), int(frame_shape[1])
+    bh = min(-(-(wh + BAND_SLACK) // 8) * 8, H)
+    bw = min(-(-(ww + BAND_SLACK) // 8) * 8, W)
+    return (bh, bw)
+
+
+def parse_band(tok):
+    """CLI band token -> serving band value: "auto" -> "auto"
+    (DEFAULT_BAND upstream), "none" -> None (full-frame), "HxW" -> (H, W)."""
+    if tok == "auto":
+        return "auto"
+    if tok == "none":
+        return None
+    try:
+        h, w = tok.split("x")
+        return (int(h), int(w))
+    except ValueError:
+        raise ValueError(
+            f"band must be 'auto', 'none', or HxW (e.g. 96x128); got "
+            f"{tok!r}") from None
+
+
+def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
+               band_hist=False, audit_escape=True):
+    """Band-local camshift step: ``track``'s math with the pdf lookup and
+    moment reductions restricted to each stream's band (``band_rect``).
+
+    The current histogram is full frame (reference semantics; the band pdf
+    values then equal the full-frame ones exactly) or, with ``band_hist``
+    (TrackerConfig.bandHist), counted over the band: exact whenever the
+    band contains every model-colored pixel, else weights inflate toward 1
+    (docs/PARITY.md deviation 13).
+
+    Returns (new_state, escaped (N,) bool).  Where ``escaped`` is True the
+    window's mean-shift trajectory left the band and that stream's new
+    state is INVALID: the caller reruns ``track`` on its old state.
+
+    audit_escape (TrackerConfig.bandHistAuditAction == "escape"): with
+    band_hist and a state carrying ``band_dirty``, dirty streams are also
+    reported escaped, so the caller's full-frame fallback serves them
+    reference-exact.  False (the "flag" action) leaves the flag as
+    telemetry."""
+    H, W = frames.shape[1], frames.shape[2]
+    ry, rx, bh, bw = band_rect(state.window, band, (H, W))
+    rects = band_rects(ry, rx, bh, bw)
+    if band_hist:
+        _, pdf = histpdf_band(frames, rects, state.model_hist, (bh, bw))
+    else:
+        weights = backprojection_weights(state.model_hist,
+                                         histogram_full(frames))
+        pdf = backproject(frames, weights, rects, (bh, bw))
+    win, m, zero_mass, escaped = mean_shift(pdf, state.window, ry, rx, (H, W))
+    if band_hist and audit_escape and state.band_dirty is not None:
+        escaped = escaped | state.band_dirty
+    return _finish(state, win, m, zero_mass, calc_angles, H, W), escaped

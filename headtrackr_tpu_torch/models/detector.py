@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..cascade import cascade_to_torch
+from ..device import resolve_device
 from ..ops.imageproc import build_pyramid, pyramid_spec
 
 __all__ = ["DetectorTables", "detector_tables", "detect_candidates",
@@ -76,7 +77,9 @@ class DetectorTables:
     stages: tuple          # tuple[_Stage]
 
 
-def detector_tables(w0, h0, cascade, interval=5, device="cpu"):
+def detector_tables(w0, h0, cascade, interval=5, device=None):
+    """The static tables on ``device`` (see device.resolve_device)."""
+    device = resolve_device(device)
     spec = pyramid_spec(w0, h0, interval)
     dims = dict(spec.dims)
     nxt = spec.next

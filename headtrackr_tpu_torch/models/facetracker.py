@@ -4,7 +4,9 @@ Spec: src/facetrackr.js:37-228 (mode dispatch, handoff) + src/main.js:168-305
 (supervision: loss/retry, smoothing, head-diagonal stability gate, FOV caching,
 head position).  The counterpart of headtrackr_tpu/models/facetracker.py:
 state is a ``TrackerState`` of (N, ...) tensors, and the mode dispatch runs
-each branch on the streams in that mode, selected by index.
+each branch on the streams in that mode, selected by index.  The optional
+``band_dirty`` leaf (None when the bandHist audit is off) passes through
+every tree helper as None.
 
 Status side effects are a bitmask in the step output (src/main.js:70-77).
 """
@@ -16,12 +18,14 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
+from ..device import resolve_device
 from ..ops.imageproc import grayscale, whitebalance
 from . import camshift as cs
 from . import headpose as hp
 from .detector import detect_best, detector_tables
 
 __all__ = ["TrackerState", "StepOutput", "init_state", "make_step",
+           "tree_index", "tree_scatter",
            "MODE_WB", "MODE_VJ", "MODE_CS",
            "STATUS_WHITEBALANCE", "STATUS_DETECTING", "STATUS_FOUND",
            "STATUS_REDETECTING", "STATUS_LOST", "STATUS_BITS"]
@@ -90,17 +94,24 @@ class StepOutput(NamedTuple):
     event_face: torch.Tensor      # bool: facetrackingEvent fired
     fov_deg: torch.Tensor         # f32 current FOV estimate in degrees
     mode_after: torch.Tensor      # i32 mode for the NEXT frame
-    escaped: torch.Tensor         # bool band-escape telemetry: always False
-                                  # on this package's full-frame path
+    escaped: torch.Tensor         # bool: this tick's band-local camshift
+                                  # result was recomputed full-frame (band
+                                  # escape or the "escape" audit action);
+                                  # the serving tick fills it after the
+                                  # merge, always False off the band path
 
 
-def init_state(n, device="cpu", whitebalancing=True):
+def init_state(n, device=None, whitebalancing=True, band_audit=False):
+    """device: see device.resolve_device (None: the card).  band_audit:
+    carry the bandHist handoff-audit flag (must match the step's
+    ``audit_band`` presence, the reference's schema rule)."""
+    device = resolve_device(device)
     def full(shape, v, dtype):
         return torch.full(shape, v, dtype=dtype, device=device)
     return TrackerState(
         mode=full((n,), MODE_WB if whitebalancing else MODE_VJ, _I32),
         wb_ring=full((n, PWB_LENGTH), 0.0, _F32), wb_n=full((n,), 0, _I32),
-        cs=cs.init_state(n, device),
+        cs=cs.init_state(n, device, band_audit),
         sm_sp=full((n, 5), 0.0, _F32), sm_init=full((n,), False, torch.bool),
         face_found=full((n,), False, torch.bool),
         first_run=full((n,), True, torch.bool),
@@ -112,24 +123,26 @@ def init_state(n, device="cpu", whitebalancing=True):
     )
 
 
-def _tree_index(tree, idx):
+def tree_index(tree, idx):
     """Rows ``idx`` of every (N, ...) tensor of a NamedTuple tree."""
     if isinstance(tree, tuple):
-        return type(tree)(*(_tree_index(t, idx) for t in tree))
-    return tree.index_select(0, idx)
+        return type(tree)(*(tree_index(t, idx) for t in tree))
+    return None if tree is None else tree.index_select(0, idx)
 
 
-def _tree_scatter(tree, idx, sub):
+def tree_scatter(tree, idx, sub):
     """A copy of ``tree`` with rows ``idx`` replaced by ``sub``'s rows."""
     if isinstance(tree, tuple):
-        return type(tree)(*(_tree_scatter(t, idx, s) for t, s in zip(tree, sub)))
-    return tree.index_copy(0, idx, sub.to(tree.dtype))
+        return type(tree)(*(tree_scatter(t, idx, s) for t, s in zip(tree, sub)))
+    return None if tree is None else tree.index_copy(0, idx, sub.to(tree.dtype))
 
 
 def _where(cond, a, b):
     """Per-stream select over NamedTuple trees of (N, ...) tensors."""
     if isinstance(a, tuple):
         return type(a)(*(_where(cond, x, y) for x, y in zip(a, b)))
+    if a is None:
+        return None
     return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
@@ -141,15 +154,17 @@ class _Result(NamedTuple):
     angle: torch.Tensor
     conf: torch.Tensor
     wb: torch.Tensor
+    escaped: torch.Tensor  # bool: band-local camshift left its band
 
 
 def _empty_result(n, device):
     z = torch.zeros((n,), dtype=_F32, device=device)
-    return _Result(z, z, z, z, z, torch.full_like(z, -10000.0), z)
+    return _Result(z, z, z, z, z, torch.full_like(z, -10000.0), z,
+                   torch.zeros((n,), dtype=torch.bool, device=device))
 
 
 def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
-              device="cpu"):
+              device=None, band=None, audit_band=None, tables=None):
     """Build the per-frame step for a static (cascade, config, H, W, device).
 
     step(state, frames, modes=None) -> (state', StepOutput), frames
@@ -160,12 +175,33 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         on the streams in its mode.
     variant="track": camshift-only fast path; valid only when every stream
         is in CS mode (the serving tick routes streams so).
+    variant="wbtrack": camshift for CS streams + whitebalance for WB
+        streams; VJ streams freeze (state unchanged, conf 0, no status).
+        The cold-start fast path: no detector.
+    band=(bh, bw): the CS streams take the band-local camshift
+        (models/camshift.track_band), and the step returns
+        (state', StepOutput, escaped): escaped (N,) marks CS streams whose
+        result is invalid (window left the band); the caller recomputes
+        them with an unbanded "track" step.  With variant="full" this is
+        the per-stream result of the reference's bucket and chunk ticks
+        (band camshift for the trackers, the full machinery for the rest).
+    audit_band=(bh, bw): run the bandHist handoff audit at every VJ -> CS
+        handoff and carry ``band_dirty`` (states must come from
+        ``init_state(..., band_audit=True)``).
+    tables: the detector tables of this (cascade, config, H, W, device),
+        to share them between steps; built here when None.
+    device: see device.resolve_device (None: the card).
     """
-    if variant not in ("full", "track"):
-        raise ValueError(f"variant must be 'full' or 'track', got {variant!r}")
+    device = resolve_device(device)
+    if variant not in ("full", "track", "wbtrack"):
+        raise ValueError("variant must be 'full', 'track' or 'wbtrack', got "
+                         f"{variant!r}")
+    if config.bandHistAuditAction not in ("flag", "escape"):
+        raise ValueError("bandHistAuditAction must be 'flag' or 'escape', "
+                         f"got {config.bandHistAuditAction!r}")
     H, W = frame_shape
-    tables = (detector_tables(W, H, cascade, config.detectorInterval, device)
-              if variant == "full" else None)
+    if variant == "full" and tables is None:
+        tables = detector_tables(W, H, cascade, config.detectorInterval, device)
     # f32 constants made once: a host-to-device copy per tick would
     # synchronize the stream
     camw = torch.tensor(W, dtype=_F32, device=device)
@@ -191,25 +227,42 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         conf = torch.where(found, conf, -10000.0)
         res = _Result(x=torch.where(found, x, zero), y=torch.where(found, y, zero),
                       w=torch.where(found, w, zero), h=torch.where(found, h, zero),
-                      angle=zero, conf=conf, wb=zero)
+                      angle=zero, conf=conf, wb=zero,
+                      escaped=torch.zeros_like(found))
         # VJ -> CS handoff (src/facetrackr.js:97-108)
         switch = conf > CONFIDENCE_THRESHOLD
         rect = torch.floor(torch.stack([res.x, res.y, res.w, res.h], 1)).to(_I32)
-        new_cs = cs.init_tracker(frames, rect)
+        new_cs = cs.init_tracker(frames, rect, audit_band)
         cs_state = _where(switch, new_cs, state.cs)
         new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
         return state._replace(mode=new_mode, cs=cs_state), res
 
+    def vj_frozen(state, frames):
+        # wbtrack's VJ streams: the reference's wbtrack reports the
+        # whitebalance branch's result with conf 0 and keeps the state
+        res = _empty_result(frames.shape[0], frames.device)
+        return state, res._replace(wb=whitebalance(frames).to(_F32),
+                                   conf=torch.zeros_like(res.conf))
+
     def cs_branch(state, frames):
-        new_cs, _ = cs.track(state.cs, frames, config.calcAngles)
+        if band is None:
+            new_cs, _ = cs.track(state.cs, frames, config.calcAngles)
+            escaped = torch.zeros_like(state.mode, dtype=torch.bool)
+        else:
+            new_cs, escaped = cs.track_band(
+                state.cs, frames, config.calcAngles, band,
+                band_hist=config.bandHist,
+                audit_escape=config.bandHistAuditAction == "escape")
         one = torch.ones_like(new_cs.track_angle)
         res = _Result(x=new_cs.track_x.to(_F32), y=new_cs.track_y.to(_F32),
                       w=new_cs.track_w.to(_F32), h=new_cs.track_h.to(_F32),
                       angle=new_cs.track_angle, conf=one,
-                      wb=torch.zeros_like(one))
+                      wb=torch.zeros_like(one), escaped=escaped)
         return state._replace(cs=new_cs), res
 
-    branches = {MODE_WB: wb_branch, MODE_VJ: vj_branch, MODE_CS: cs_branch}
+    branches = {MODE_WB: wb_branch,
+                MODE_VJ: vj_frozen if variant == "wbtrack" else vj_branch,
+                MODE_CS: cs_branch}
 
     def dispatch(state, frames, modes):
         if modes is None:
@@ -221,10 +274,10 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         res = _empty_result(frames.shape[0], frames.device)
         for m in present:
             idx = torch.as_tensor(np.nonzero(modes == m)[0], device=frames.device)
-            sub_state, sub_res = branches[m](_tree_index(state, idx),
+            sub_state, sub_res = branches[m](tree_index(state, idx),
                                              frames.index_select(0, idx))
-            new_state = _tree_scatter(new_state, idx, sub_state)
-            res = _tree_scatter(res, idx, sub_res)
+            new_state = tree_scatter(new_state, idx, sub_state)
+            res = tree_scatter(res, idx, sub_res)
         return new_state, res
 
     def step(state, frames, modes=None):
@@ -241,6 +294,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         status = torch.where(detection == MODE_WB, STATUS_WHITEBALANCE, zeros_i)
         status = status | torch.where(
             state.first_run & (detection == MODE_VJ), STATUS_DETECTING, zeros_i)
+        if variant == "wbtrack":  # frozen VJ streams emit nothing
+            status = torch.where(detection != MODE_VJ, status, zeros_i)
 
         is_cs = detection == MODE_CS
         conf_gate = res.conf != 0  # src/main.js:186
@@ -338,6 +393,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             diag_ring=diag_ring, diag_n=diag_n,
             headpose_active=headpose_active, tan_fov=tan_fov,
             fov_width=fov_width, head_diag_cam=head_diag_cam, stopped=stopped)
+        if band is not None:
+            return new_state, out, res.escaped & is_cs
         return new_state, out
 
     return step

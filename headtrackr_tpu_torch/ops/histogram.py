@@ -5,18 +5,23 @@ Reference math:
   - ratio weights  min(model/cur, 1), 0 where cur == 0              (src/camshift.js:314-330)
   - backprojection pdf[p] = weights[bin(p)]                          (src/camshift.js:332-353)
 
-``hist4096_plain`` and ``backproject_plain`` are the plain PyTorch twins of the
-CUDA kernels in ``kernels/histpdf.py``: the same function, used for CPU
-tensors and as the kernels' reference on the card.  ``histogram_rect`` and
-``histogram_full`` go through the kernel wrapper, so a CUDA tensor always
-takes the kernel.
+``hist4096_plain``, ``backproject_plain`` and ``histpdf_band_plain`` are the
+plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``: the same
+function, used for CPU tensors and as the kernels' reference on the card.
+``histogram_rect`` and ``histogram_full`` go through the kernel wrappers, so
+a CUDA tensor always takes a kernel.
+
+Rects are (N, 4) i32 [x, y, w, h].  A *band* is a (bh, bw) rect of the same
+size for every stream, placed at each rect's [x, y] clipped into the frame
+(``band_origins``); ``bh <= H`` and ``bw <= W``.
 """
 
 import torch
 
-__all__ = ["NBINS", "rgb_bins", "full_rects", "hist4096_plain",
-           "backproject_plain", "histogram_rect", "histogram_full",
-           "backprojection_weights"]
+__all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
+           "band_bins", "hist4096_plain", "backproject_plain",
+           "histpdf_band_plain",
+           "histogram_rect", "histogram_full", "backprojection_weights"]
 
 NBINS = 4096
 
@@ -36,6 +41,14 @@ def full_rects(n, frame_shape, device):
     return r
 
 
+def band_origins(rects, band, frame_shape):
+    """(N, 4) rects -> (x0, y0) (N,) i64: each rect's [x, y] clipped so the
+    (bh, bw) band lies inside the (H, W) frame."""
+    (bh, bw), (H, W) = band, frame_shape
+    r = rects.to(torch.int64)
+    return r[:, 0].clamp(0, W - bw), r[:, 1].clamp(0, H - bh)
+
+
 def hist4096_plain(frames, rects):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) i32 exact counts
     of the pixels inside each stream's rect (clamped to the frame)."""
@@ -53,24 +66,61 @@ def hist4096_plain(frames, rects):
     return counts.view(N, NBINS).to(torch.int32)
 
 
-def backproject_plain(frames, weights):
-    """(N, H, W, 3) u8 + (N, 4096) f32 -> (N, H, W) f32, pdf = weights[bin]."""
+def band_bins(frames, rects, band):
+    """(N, bh, bw) i64 bins of each stream's band."""
     N, H, W, _ = frames.shape
-    bins = rgb_bins(frames).view(N, H * W).to(torch.int64)
-    return torch.gather(weights, 1, bins).view(N, H, W)
+    bh, bw = band
+    x0, y0 = band_origins(rects, band, (H, W))
+    dev = frames.device
+    rows = (y0.view(N, 1) + torch.arange(bh, device=dev)).view(N, bh, 1)
+    cols = (x0.view(N, 1) + torch.arange(bw, device=dev)).view(N, 1, bw)
+    bins = rgb_bins(frames).to(torch.int64)
+    bins = torch.gather(bins, 1, rows.expand(N, bh, W))
+    return torch.gather(bins, 2, cols.expand(N, bh, bw))
+
+
+def backproject_plain(frames, weights, rects=None, band=None):
+    """(N, H, W, 3) u8 + (N, 4096) f32 -> pdf = weights[bin]: (N, H, W) over
+    the frame, or (N, bh, bw) over each stream's band when ``rects`` and
+    ``band`` are given."""
+    N = frames.shape[0]
+    if rects is None:
+        bins = rgb_bins(frames).to(torch.int64)
+    else:
+        bins = band_bins(frames, rects, band)
+    return torch.gather(weights, 1, bins.view(N, -1)).view(bins.shape)
+
+
+def histpdf_band_plain(frames, rects, model=None, band=None):
+    """Hist-only (``model`` None): (N, 4096) f32 exact counts of each rect,
+    clamped to the frame.  Otherwise (cur, pdf): the counts of each stream's
+    (bh, bw) band, and pdf (N, bh, bw) = min(model/cur, 1)[bin]."""
+    if model is None:
+        return hist4096_plain(frames, rects).to(torch.float32)
+    N, H, W, _ = frames.shape
+    bh, bw = band
+    x0, y0 = band_origins(rects, band, (H, W))
+    brects = torch.stack([x0, y0, torch.full_like(x0, bw),
+                          torch.full_like(x0, bh)], 1)
+    cur = hist4096_plain(frames, brects).to(torch.float32)
+    pdf = backproject_plain(frames, backprojection_weights(model, cur),
+                            brects, band)
+    return cur, pdf
 
 
 def histogram_rect(frames, rects):
     """Model histogram of each stream's rect: (N, 4096) f32 counts
-    (Histogram(getImageData(rect)), src/camshift.js:206-208)."""
-    from ..kernels.histpdf import hist4096
-    return hist4096(frames, rects)
+    (Histogram(getImageData(rect)), src/camshift.js:206-208); the hist-only
+    mode of ``histpdf_band``, one block per stream on the card."""
+    from ..kernels.histpdf import histpdf_band
+    return histpdf_band(frames, rects)
 
 
 def histogram_full(frames):
     """Current full-frame histogram: (N, 4096) f32 counts."""
+    from ..kernels.histpdf import hist4096
     N, H, W, _ = frames.shape
-    return histogram_rect(frames, full_rects(N, (H, W), frames.device))
+    return hist4096(frames, full_rects(N, (H, W), frames.device))
 
 
 def backprojection_weights(model_hist, cur_hist):

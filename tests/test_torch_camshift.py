@@ -45,7 +45,7 @@ def _start(frames0, rects):
     batch = batch._replace(
         cs=jax.tree_util.tree_map(lambda *a: jnp.stack(a), *js))
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(batch)]
-    return js, convert.state_from_numpy(leaves).cs
+    return js, convert.state_from_numpy(leaves, device="cpu").cs
 
 
 def _check(js, ts, oracle_angles=None):

@@ -45,6 +45,36 @@ def test_kernels_bit_equal_to_twins(dev, shape):
     assert torch.equal(got_p.cpu(), hg.backproject_plain(frames, w))
 
 
+@pytest.mark.parametrize("shape,band", [((240, 320), (96, 128)),
+                                        ((57, 99), (24, 40)),
+                                        ((240, 320), (240, 320))])
+def test_band_kernels_bit_equal_to_twins(dev, shape, band):
+    g = torch.Generator().manual_seed(5)
+    N = 8
+    frames = torch.randint(0, 256, (N,) + shape + (3,), generator=g,
+                           dtype=torch.uint8)
+    frames[:4, : shape[0] // 2] = torch.tensor([120, 100, 90], dtype=torch.uint8)
+    # band origins inside and outside the frame (clipped by both sides)
+    rects = torch.cat([torch.randint(-20, shape[1], (N, 1), generator=g),
+                       torch.randint(-20, shape[0], (N, 1), generator=g),
+                       torch.randint(0, 80, (N, 2), generator=g)], 1).int()
+    model = torch.randint(0, 200, (N, 4096), generator=g).float()
+    model[:, :64] = 0
+    w = torch.rand((N, 4096), generator=g)
+    before = dict(K.launches)
+    cur, pdf = K.histpdf_band(frames.to(dev), rects.to(dev), model.to(dev), band)
+    hist = K.histpdf_band(frames.to(dev), rects.to(dev))
+    bp = K.backproject(frames.to(dev), w.to(dev), rects.to(dev), band)
+    torch.cuda.synchronize()
+    for k in ("histpdf_band", "histpdf_band_hist", "backproject_rect"):
+        assert K.launches[k] == before[k] + 1, k
+    want_cur, want_pdf = hg.histpdf_band_plain(frames, rects, model, band)
+    assert torch.equal(cur.cpu(), want_cur)
+    assert torch.equal(pdf.cpu(), want_pdf)
+    assert torch.equal(hist.cpu(), hg.histpdf_band_plain(frames, rects))
+    assert torch.equal(bp.cpu(), hg.backproject_plain(frames, w, rects, band))
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):  # not contiguous
@@ -69,9 +99,14 @@ def test_serving_tick_card_equals_cpu(dev):
     clip = ([frame(60, 50)] * 16 + [frame(60 + t, 50) for t in range(10)]
             + [blue] * 2 + [frame(80, 60)] * 8)
     clip = np.stack([np.stack([f, np.roll(f, 20, axis=1)]) for f in clip])
+    for kw in ({}, dict(band=(64, 96), bandHist=True, bucket=1)):
+        _card_equals_cpu(dev, clip, (H, W), kw)
+
+
+def _card_equals_cpu(dev, clip, shape, kw):
     outs = []
     for d in (dev, torch.device("cpu")):
-        bt = BatchedTracker(2, (H, W), cascade=toy_cascade(), device=d)
+        bt = BatchedTracker(2, shape, cascade=toy_cascade(), device=d, **kw)
         outs.append([[t.cpu().numpy() for t in bt.step(f)] for f in clip])
     # a tracker on the card pins full-f32 matmuls and convolutions (no TF32)
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -90,7 +90,7 @@ def test_convert_round_trip(runs):
     for a, b in zip(ref_leaves, port_leaves):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4)
-    back = convert.state_to_numpy(convert.state_from_numpy(ref_leaves))
+    back = convert.state_to_numpy(convert.state_from_numpy(ref_leaves, device="cpu"))
     for a, b in zip(ref_leaves, back):
         np.testing.assert_array_equal(a, b)
     # the port's leaves rebuild the reference pytree
@@ -117,8 +117,11 @@ def test_config_pinned_to_reference():
 def test_import_boundary_no_jax():
     code = ("import sys; "
             "import headtrackr_tpu_torch; "
-            "from headtrackr_tpu_torch import convert; "
+            "from headtrackr_tpu_torch import convert, device; "
             "from headtrackr_tpu_torch.kernels import build, histpdf; "
+            "from headtrackr_tpu_torch.models import camshift, facetracker; "
+            "from headtrackr_tpu_torch.runtime import serving; "
+            "from headtrackr_tpu_torch.ops import histogram; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'headtrackr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
