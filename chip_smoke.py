@@ -5,29 +5,41 @@
 
 Phases, one line each; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1;
-  2. build: nvcc builds the CUDA kernels from headtrackr_tpu_torch/csrc/;
+  2. build: nvcc builds the CUDA kernels from headtrackr_tpu_torch/csrc/,
+     one process per source, all started together;
   3. kernels: hist4096, backproject (frame and band), histpdf_band (pdf and
      hist-only) on the card at N=256 x 240x320 must be bit-equal to their
      plain PyTorch twins on the same inputs (tolerance 0): the bench pools
      (face_noise 0 and 20) and uniform random frames, with full-frame
      rects, random detection boxes and 96x128 bands, plus histpdf_band on
      the TPU experiments' own workload (the full frame, random bins, a model
-     of integers 1..199).  Each is timed (CUDA events over 20 calls, and
+     of integers 1..199).  take_along likewise on X8's own workload (an
+     (8, 128) lane gather) and on mean shift's prefix-sum planes of 256
+     streams (the 96x128 band and the 240x320 frame, one iteration's row
+     and column selections).  Each is timed (CUDA events over 20 calls, and
      over 20 calls replayed from a CUDA graph) beside its twin, its
-     byte/operation bound and, given precomputed bins, the nearest single
-     PyTorch call;
+     byte/operation bound and the nearest single PyTorch call (given
+     precomputed bins for the histogram kernels; torch.gather for
+     take_along);
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
-     bench protocol (16 lock ticks, then 32 ticks over a 16-batch pool with
-     4 loss streams) in three configurations: the full-frame arm, a 96x128
+     bench protocol in three configurations: the full-frame arm, a 96x128
      band with full-frame histograms, and the headline (96x128 band,
-     bandHist, bucket 8).  Each: >= 99% locked, loss streams relock, the
-     kernels of its path launched in its run, no NaN outside the zero-mass
-     angle;
+     bandHist, bucket 8).  Each, after warmup() and with the launch counts
+     at 0: 16 lock ticks and 32 ticks of step_auto over a 16-batch pool
+     with 4 loss streams, then run_scan over the pool (K = 16, as bench.py
+     runs it).  Checks: >= 99% locked, loss streams relock, every kernel of
+     its path launched in its run, no NaN outside the zero-mass angle; and
+     a second tracker driven by step(sync=True) at sync_interval 1 over the
+     same 64 frame batches agrees on every tick (integers exact, floats
+     within rtol 1e-5 / atol 1e-4; the largest float difference printed).
+     ms/tick of step_auto, run_scan and step;
   5. steady-tick profile: on each configuration's locked tracker of phase 4,
-     PROFILE_TICKS all-tracking ticks (pool batches before the loss frame),
-     configurations in turns, two passes: host ms/tick unprofiled, then
-     under torch.profiler the device ms per tick, the device busy share
-     (device ms over profiled wall time) and the device kernels per tick;
+     PROFILE_TICKS all-tracking ticks (pool batches before the loss frame)
+     of step_auto (a CUDA graph replay per tick) and of step (the eager
+     host-scheduled tick), configurations in turns, two passes: host
+     ms/tick unprofiled, then under torch.profiler the device ms per tick,
+     the device busy share (device ms over profiled wall time), the device
+     operations per tick and the host's launch calls per tick;
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
      integer outputs exactly, floats within rtol 1e-5 / atol 1e-4.
@@ -46,6 +58,7 @@ import time
 H, W = 240, 320
 N_STREAMS = 256
 POOL = 16
+LOCK_TICKS = 16
 LOSS_STREAMS = 4
 LOSS_AT = POOL // 2  # the pool batch where the loss streams turn blue
 PROFILE_TICKS = 8
@@ -53,28 +66,43 @@ BAND = (96, 128)
 RTOL, ATOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
+HISTPDF_SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
+GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
+# the host's launch calls as the profiler names them (kernels and graphs)
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 # serving configurations: name -> (BatchedTracker kwargs, kernels of its path)
 CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8),
-                   ("hist4096", "backproject", "histpdf_band_hist")),
+                   ("hist4096", "backproject", "histpdf_band_hist",
+                    "take_along")),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
-             ("hist4096", "backproject_rect", "histpdf_band_hist")),
+             ("hist4096", "backproject_rect", "histpdf_band_hist",
+              "take_along")),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
-                 ("histpdf_band", "histpdf_band_hist", "backproject")),
+                 ("histpdf_band", "histpdf_band_hist", "backproject",
+                  "take_along")),
 }
 # kernel -> (the TPU kernel it replaces, the configuration whose run its
-# launch count reports)
+# launch count reports, its source)
 KERNELS = {
-    "hist4096": ("headtrackr_tpu/kernels/histpdf.py:109", "full-frame"),
-    "backproject": ("headtrackr_tpu/kernels/histpdf.py:123", "full-frame"),
-    "backproject_rect": ("headtrackr_tpu/kernels/histpdf.py:123", "band"),
-    "histpdf_band": ("tools/kernel_experiments.py:148", "headline"),
-    "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline"),
+    "hist4096": ("headtrackr_tpu/kernels/histpdf.py:109", "full-frame",
+                 HISTPDF_SRC),
+    "backproject": ("headtrackr_tpu/kernels/histpdf.py:123", "full-frame",
+                    HISTPDF_SRC),
+    "backproject_rect": ("headtrackr_tpu/kernels/histpdf.py:123", "band",
+                         HISTPDF_SRC),
+    "histpdf_band": ("tools/kernel_experiments.py:148", "headline",
+                     HISTPDF_SRC),
+    "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
+                          HISTPDF_SRC),
+    "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
 }
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
+# take_along's extra timing entries: the full-frame planes, X8's workload
+TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
 
 
 def log(msg):
@@ -282,23 +310,124 @@ def phase_kernels(pools, dev):
     return err, t
 
 
+def phase_gather(dev):
+    """take_along against its twin, bit-equal, on X8's own workload and on
+    mean shift's prefix-sum planes; then its times.  Returns (max abs err,
+    timing entries)."""
+    import torch
+    import torch.nn.functional as F
+    from headtrackr_tpu_torch.kernels.gather import take_along
+    from headtrackr_tpu_torch.ops.gather import take_along_plain
+
+    N = N_STREAMS
+    g = torch.Generator().manual_seed(11)
+
+    def planes(h, w):
+        """One mean-shift iteration's two selections: rows [y0, y1] of the
+        column prefix sums, columns [x0, x1] of the row prefix sums."""
+        pdf = torch.rand((N, h, w), generator=g)
+        col = F.pad(torch.cumsum(pdf, 1), (0, 0, 1, 0))
+        row = F.pad(torch.cumsum(pdf, 2), (1, 0))
+        ys = torch.randint(0, h + 1, (N, 2), generator=g).sort(1).values
+        xs = torch.randint(0, w + 1, (N, 2), generator=g).sort(1).values
+        return [(col.to(dev), ys.int().view(N, 2, 1).to(dev), 1),
+                (row.to(dev), xs.int().view(N, 1, 2).to(dev), 2)]
+
+    x8 = [(torch.rand((1, 8, 128), generator=g).to(dev),
+           torch.randint(0, 128, (1, 8, 128), generator=g,
+                         dtype=torch.int32).to(dev), 2)]
+    cases = {"take_along": planes(*BAND), TA_EXTRA["frame"]: planes(H, W),
+             TA_EXTRA["x8_workload"]: x8}
+    err = 0.0
+    for calls in cases.values():
+        for src, idx, dim in calls:
+            got, want = take_along(src, idx, dim), take_along_plain(src, idx,
+                                                                    dim)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"take_along differs from its twin: "
+                                     f"{tuple(src.shape)} dim {dim}")
+    log(f"kernels: take_along bit-equal to its twin on X8's workload and "
+        f"the band and frame planes (max abs err {err})")
+    t = {}
+    for name, calls in cases.items():
+        shapes = [take_along_plain(*c).shape for c in calls]
+        lib_idx = [idx.long().expand(sh) for (_, idx, _), sh
+                   in zip(calls, shapes)]
+        # each output written once, its source element and index read once
+        nbytes = sum(8 * sh.numel() + 4 * idx.numel()
+                     for (_, idx, _), sh in zip(calls, shapes))
+
+        def kern(calls=calls):
+            return [take_along(*c) for c in calls]
+
+        def plain(calls=calls):
+            return [take_along_plain(*c) for c in calls]
+
+        def lib(calls=calls, lib_idx=lib_idx):
+            return [torch.gather(src, dim, li)
+                    for (src, _, dim), li in zip(calls, lib_idx)]
+
+        ms, plain_ms = interleaved_ms(kern, plain)
+        b, by = bound(nbytes, 0)
+        t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       library_ms=cuda_ms(lib), graph_ms=graph_ms(kern),
+                       launches_per_call=len(calls))
+        log(f"kernels: {name} ({len(calls)} launches) {ms:.4f} ms, graph "
+            f"replay {t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms, torch.gather {t[name]['library_ms']:.4f} ms)")
+    return err, t
+
+
+def _stacked(outs):
+    """A list of StepOutputs of (N,) tensors -> host arrays (ticks, N)."""
+    import torch
+    return [torch.stack(v).cpu().numpy() for v in zip(*outs)]
+
+
+def agree(a_outs, b_outs, where):
+    """Tick for tick: integers exact, floats within RTOL / ATOL (NaN where
+    NaN).  Returns the largest float difference."""
+    import numpy as np
+    from headtrackr_tpu_torch.models.facetracker import StepOutput
+    worst = 0.0
+    for field, x, y in zip(StepOutput._fields, _stacked(a_outs),
+                           _stacked(b_outs)):
+        if x.dtype.kind in "biu":
+            bad = np.nonzero((x != y).any(1))[0]
+        else:
+            bad = np.nonzero(~np.isclose(x, y, rtol=RTOL, atol=ATOL,
+                                         equal_nan=True).all(1))[0]
+            both = np.isfinite(x) & np.isfinite(y)
+            if both.any():
+                worst = max(worst, float(np.abs(x - y)[both].max()))
+        if bad.size:
+            k = int(bad[0])
+            raise AssertionError(f"{where}: tick {k} {field}: {x[k]} vs "
+                                 f"{y[k]}")
+    return worst
+
+
 def phase_serving(name, frames, dev):
     """frames: the (POOL, N, H, W, 3) bench pool, staged on the card.
-    Returns (launch counts of the run, ms/tick, the locked tracker)."""
+    Returns (launch counts of the run, ms/tick by entry point, the locked
+    tracker)."""
     import numpy as np
     import torch
     from headtrackr_tpu_torch import BatchedTracker
-    from headtrackr_tpu_torch.kernels import histpdf as K
+    from headtrackr_tpu_torch.kernels import launch as L
     from headtrackr_tpu_torch.models import facetracker as ft
 
     kw, path = CONFIGS[name]
     bt = BatchedTracker(N_STREAMS, (H, W), device=dev, **kw)
-    torch.cuda.synchronize()
-    K.reset_launches()
     t0 = time.perf_counter()
-    outs = []
-    for _ in range(16):
-        outs.append(bt.step_auto(frames[0]))
+    bt.warmup(scan_len=POOL)
+    t_warm = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    L.reset_launches()
+    t0 = time.perf_counter()
+    outs = [bt.step_auto(frames[0]) for _ in range(LOCK_TICKS)]
     locked = float((bt.modes == ft.MODE_CS).mean())
     torch.cuda.synchronize()
     t_lock = time.perf_counter() - t0
@@ -310,22 +439,27 @@ def phase_serving(name, frames, dev):
     for t in range(n_ticks):
         outs.append(bt.step_auto(frames[t % POOL]))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(K.launches)
+    dt_auto = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = bt.run_scan(frames)
+    torch.cuda.synchronize()
+    dt_scan = time.perf_counter() - t0
+    counts = dict(L.launches)
     missing = [k for k in path if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: "
                              f"{missing} ({counts})")
+    outs += [ft.StepOutput(*(v[k] for v in scan)) for k in range(POOL)]
 
-    status = np.stack([o.status.cpu().numpy() for o in outs[16:]])
+    status = np.stack([o.status.cpu().numpy() for o in outs[LOCK_TICKS:]])
     redet = (status[:, :LOSS_STREAMS] & ft.STATUS_REDETECTING) != 0
     found = (status[:, :LOSS_STREAMS] & ft.STATUS_FOUND) != 0
     modes = bt.modes
     for s in range(LOSS_STREAMS):
         r = np.nonzero(redet[:, s])[0]
-        if r.size == 0 or not found[r[0]:, s].any() or modes[s] != ft.MODE_CS:
+        if r.size < 3 or not found[r[0]:, s].any() or modes[s] != ft.MODE_CS:
             raise AssertionError(f"{name}: loss stream {s} did not redetect "
-                                 f"and relock")
+                                 f"and relock on each pool pass")
     for o in outs:
         for field, v in zip(o._fields, o):
             if v.is_floating_point():
@@ -334,68 +468,98 @@ def phase_serving(name, frames, dev):
                     nan &= ~((o.detection == ft.MODE_CS) & (o.face_w == 0))
                 if bool(nan.any()):
                     raise AssertionError(f"{name}: NaN in output {field}")
-    esc = float(np.mean([int(o.escaped.sum()) for o in outs[16:]]))
+    esc = float(np.mean([int(o.escaped.sum()) for o in outs[LOCK_TICKS:]]))
     dirty = bt.state.cs.band_dirty
     n_dirty = int(dirty.sum()) if dirty is not None else None
-    ms = 1000 * dt / n_ticks
-    log(f"serving [{name}] {kw}: {100 * locked:.1f}% of {N_STREAMS} streams "
-        f"locked after 16 ticks ({t_lock:.2f} s, "
-        f"{16 * N_STREAMS / t_lock:.0f} frames/s cold start); {n_ticks} steady "
-        f"ticks {ms:.3f} ms/tick, {N_STREAMS * n_ticks / dt:.0f} frames/s; "
-        f"escapes {esc:.2f}/tick; band_dirty {n_dirty}; {LOSS_STREAMS} loss "
-        f"streams relocked; launches {counts}")
+
+    # the eager twin: the host scheduler at sync_interval 1, same frames
+    ref = BatchedTracker(N_STREAMS, (H, W), device=dev, sync_interval=1, **kw)
+    seq = ([frames[0]] * LOCK_TICKS + [frames[t % POOL] for t in range(n_ticks)]
+           + list(frames))
+    ref_outs = [ref.step(f, sync=True) for f in seq[:LOCK_TICKS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_outs += [ref.step(f, sync=True) for f in seq[LOCK_TICKS:]]
+    torch.cuda.synchronize()
+    dt_step = time.perf_counter() - t0
+    worst = agree(outs, ref_outs, f"{name}: step_auto/run_scan vs step")
+
+    ms = {"step_auto": 1000 * dt_auto / n_ticks, "run_scan": 1000 * dt_scan
+          / POOL, "step": 1000 * dt_step / (n_ticks + POOL)}
+    log(f"serving [{name}] {kw}: warmup {t_warm:.2f} s; {100 * locked:.1f}% "
+        f"of {N_STREAMS} streams locked after {LOCK_TICKS} ticks "
+        f"({t_lock:.2f} s, {LOCK_TICKS * N_STREAMS / t_lock:.0f} frames/s "
+        f"cold start); step_auto {ms['step_auto']:.3f} ms/tick over "
+        f"{n_ticks} ticks ({N_STREAMS * n_ticks / dt_auto:.0f} frames/s), "
+        f"run_scan K={POOL} {ms['run_scan']:.3f} ms/tick "
+        f"({N_STREAMS * POOL / dt_scan:.0f} frames/s), step (eager, "
+        f"sync_interval 1) {ms['step']:.3f} ms/tick; escapes {esc:.2f}/tick; "
+        f"band_dirty {n_dirty}; {LOSS_STREAMS} loss streams relocked on each "
+        f"pool pass; launches {counts}")
+    log(f"serving [{name}]: step_auto + run_scan agree with step(sync=True) "
+        f"on {len(outs)} ticks (integers exact, floats rtol {RTOL} / atol "
+        f"{ATOL}; largest float difference {worst})")
     return counts, ms, bt
 
 
-def steady_s(bt, frames):
-    """Host seconds of PROFILE_TICKS all-tracking ticks."""
+def steady_s(tick, frames):
+    """Host seconds of PROFILE_TICKS all-tracking ticks of ``tick``."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(PROFILE_TICKS):
-        bt.step_auto(frames[t % LOSS_AT])
+        tick(frames[t % LOSS_AT])
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
 def phase_profile(trackers, frames):
-    """Steady-tick profile of each locked tracker, configurations in turns,
-    two passes: name -> [one dict per pass]."""
+    """Steady-tick profile of each locked tracker's step_auto (graph
+    replay) and step (eager), configurations in turns, two passes:
+    name -> entry point -> [one dict per pass]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from headtrackr_tpu_torch.kernels import histpdf as K
+    from headtrackr_tpu_torch.kernels import launch as L
     from headtrackr_tpu_torch.models import facetracker as ft
 
-    rows = {name: [] for name in trackers}
+    rows = {name: {"step_auto": [], "step": []} for name in trackers}
     for rep in range(2):
         for name, bt in trackers.items():
-            if not (bt.modes == ft.MODE_CS).all():
-                raise AssertionError(f"profile [{name}]: not every stream "
-                                     f"tracks")
-            steady_s(bt, frames)  # warm
-            wall = steady_s(bt, frames)
-            K.reset_launches()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                pwall = steady_s(bt, frames)
-            kern = [e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            if not kern:
-                raise AssertionError("the profiler saw no device kernels")
-            device_s = sum(e.device_time_total for e in kern) / 1e6
-            r = {"ms_per_tick": 1e3 * wall / PROFILE_TICKS,
-                 "profiled_ms_per_tick": 1e3 * pwall / PROFILE_TICKS,
-                 "device_ms": 1e3 * device_s / PROFILE_TICKS,
-                 "device_busy": device_s / pwall,
-                 "launches": len(kern) / PROFILE_TICKS,
-                 "kernel_launches": {k: v / PROFILE_TICKS
-                                     for k, v in K.launches.items()}}
-            rows[name].append(r)
-            log(f"profile [{name}] pass {rep}: {r['ms_per_tick']:.3f} ms/tick "
-                f"({r['profiled_ms_per_tick']:.3f} profiled), device "
-                f"{r['device_ms']:.3f} ms/tick ({100 * r['device_busy']:.1f}% "
-                f"busy), {r['launches']:.2f} launches/tick, kernels "
-                f"{r['kernel_launches']}")
+            for entry in ("step_auto", "step"):
+                if not (bt.modes == ft.MODE_CS).all():
+                    raise AssertionError(f"profile [{name}]: not every "
+                                         f"stream tracks")
+                tick = getattr(bt, entry)
+                steady_s(tick, frames)  # warm
+                wall = steady_s(tick, frames)
+                L.reset_launches()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    pwall = steady_s(tick, frames)
+                events = prof.events()
+                dev_ops = [e for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA]
+                if not dev_ops:
+                    raise AssertionError("the profiler saw no device kernels")
+                host = sum(e.name in HOST_LAUNCHES for e in events)
+                device_s = sum(e.device_time_total for e in dev_ops) / 1e6
+                r = {"ms_per_tick": 1e3 * wall / PROFILE_TICKS,
+                     "profiled_ms_per_tick": 1e3 * pwall / PROFILE_TICKS,
+                     "device_ms": 1e3 * device_s / PROFILE_TICKS,
+                     "device_busy": device_s / pwall,
+                     "launches": len(dev_ops) / PROFILE_TICKS,
+                     "host_launches": host / PROFILE_TICKS,
+                     "kernel_launches": {k: v / PROFILE_TICKS
+                                         for k, v in L.launches.items()}}
+                rows[name][entry].append(r)
+                log(f"profile [{name}] {entry} pass {rep}: "
+                    f"{r['ms_per_tick']:.3f} ms/tick "
+                    f"({r['profiled_ms_per_tick']:.3f} profiled), device "
+                    f"{r['device_ms']:.3f} ms/tick "
+                    f"({100 * r['device_busy']:.1f}% busy), "
+                    f"{r['launches']:.2f} device ops/tick, "
+                    f"{r['host_launches']:.2f} host launch calls/tick, "
+                    f"kernels {r['kernel_launches']}")
     return rows
 
 
@@ -448,32 +612,37 @@ def main():
     t0 = time.perf_counter()
     lib = load_library()
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    log(f"build: {time.perf_counter() - t0:.2f} s ({lib.path.name}; "
-        f"{' | '.join(regs)})")
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(p.name for p in lib.paths)}; {' | '.join(regs)})")
 
     pools = {k: build_pool(N_STREAMS, H, W, POOL, LOSS_STREAMS,
                            np.random.default_rng(0), face_noise=k)
              for k in (0, 20)}
     err, times = phase_kernels(pools, dev)
+    err["take_along"], ta_times = phase_gather(dev)
+    times.update(ta_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
     counts = {name: r[0] for name, r in runs.items()}
+    ms = {name: r[1] for name, r in runs.items()}
     del runs, frames  # free the trackers and the staged pool
     for name in ("full-frame", "headline"):
         phase_card_vs_cpu(name, pools[0], dev)
 
     entries = []
-    for k, (replaces, path) in KERNELS.items():
-        e = {"name": k, "route": "cuda", "source": SRC, "replaces": replaces,
+    for k, (replaces, path, src) in KERNELS.items():
+        e = {"name": k, "route": "cuda", "source": src, "replaces": replaces,
              "launches": counts[path][k], "path": path, "max_abs_err": err[k],
              **times[k]}
         if k in ALSO_REPLACES:
             e["also_replaces"] = ALSO_REPLACES[k]
             e["x4_workload"] = times[X4]
+        if k == "take_along":
+            e.update({key: times[t] for key, t in TA_EXTRA.items()})
         entries.append(e)
-    print(json.dumps({"profile": prof, "ticks": PROFILE_TICKS,
-                      "streams": N_STREAMS}))
+    print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
+                      "ticks": PROFILE_TICKS, "streams": N_STREAMS}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

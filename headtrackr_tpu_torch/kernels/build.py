@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``headtrackr_tpu_torch/csrc/`` expose a plain C interface
-(no PyTorch headers), so a build takes seconds.  The shared library goes to
-``build/headtrackr_tpu_torch/`` at the root of the checkout, named by a hash
-of the sources and flags: an edited source builds anew, an unchanged one is
-loaded from the previous build.  Nothing here runs at import time.
+(no PyTorch headers), so a build takes seconds.  Each source builds into
+its own shared library, all nvcc processes started together, in
+``build/headtrackr_tpu_torch/`` at the root of the checkout; a library is
+named by a hash of its source, the headers and the flags, so an edited
+source builds anew and an unchanged one is loaded from the previous build.
+Nothing here runs at import time.
 """
 
 import ctypes
@@ -25,11 +27,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
+# source stem -> {C launcher: argtypes}
 _SIGNATURES = {
-    "hist4096_launch": (_C, _C, _C, _I, _I, _I, _C),
-    "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
-    "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
-    "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+    "histpdf": {
+        "hist4096_launch": (_C, _C, _C, _I, _I, _I, _C),
+        "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
+        "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+        "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+    },
+    "gather": {
+        "take_along_launch": (_C, _C, _C, _I, _I, _I, _I, _I, _I, _C),
+    },
 }
 
 
@@ -45,26 +53,37 @@ def _nvcc():
 
 def _sources():
     srcs = sorted(CSRC.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    if sorted(p.stem for p in srcs) != sorted(_SIGNATURES):
+        raise RuntimeError(f"CUDA sources in {CSRC} ({[p.name for p in srcs]}) "
+                           f"do not match the launchers {sorted(_SIGNATURES)}")
     return srcs
 
 
-def _digest():
+def _digest(src):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
 class Library:
-    """The loaded shared library plus what its build printed."""
+    """The loaded shared libraries plus what their builds printed."""
 
-    def __init__(self, lib, path, log):
-        self.lib = lib
-        self.path = path
+    def __init__(self, libs, paths, log):
+        self._fns = {}
+        for stem, lib in libs.items():
+            for name, argtypes in _SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self._fns[name] = fn
+        self.paths = paths  # one .so per source
         self.log = log  # nvcc's output (-Xptxas -v resource usage); "" if reused
+
+    def fn(self, name):
+        """The C launcher ``name``."""
+        return self._fns[name]
 
 
 @functools.lru_cache(maxsize=1)
@@ -72,24 +91,35 @@ def load_library():
     """Compile (if needed) and load the kernels; raises on any failure."""
     srcs = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"histpdf-{_digest()}.so"
-    log = ""
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+    sos = {p.stem: BUILD_DIR / f"{p.stem}-{_digest(p)}.so" for p in srcs}
+    jobs = {}  # stem -> (process, temporary output)
+    logs, failed = [], []
+    try:
+        for p in srcs:
+            if sos[p.stem].exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[p.stem] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp)
+        for stem, (proc, tmp) in jobs.items():
+            out, _ = proc.communicate()
+            logs.append(f"[{stem}.cu]\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so)
-        finally:
+                failed.append(f"{stem}.cu ({proc.returncode})")
+            else:
+                os.replace(tmp, sos[stem])
+    finally:
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return Library(lib, so, log)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    libs = {stem: ctypes.CDLL(str(so)) for stem, so in sos.items()}
+    return Library(libs, list(sos.values()), log)

@@ -9,25 +9,18 @@
 Dispatch: a CPU tensor takes the kernel's plain twin (ops/histogram.py); a
 CUDA tensor launches the kernel, built on first use (kernels/build.py);
 any other device raises.  There is no fallback: a failed build or launch
-raises.  ``launches`` counts the launches of each kernel, so a run can show
-that its main path went through the kernels.
+raises.  ``launches`` (kernels/launch.py) counts the device launches of each
+kernel, so a run can show that its main path went through the kernels.
 """
 
 import torch
 
 from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
+from .launch import launch as _launch
+from .launch import on_cuda as _on_cuda
 
-__all__ = ["hist4096", "backproject", "histpdf_band", "launches",
-           "reset_launches"]
-
-launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
-            "histpdf_band": 0, "histpdf_band_hist": 0}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
+__all__ = ["hist4096", "backproject", "histpdf_band"]
 
 
 def _check_frames(frames):
@@ -53,30 +46,6 @@ def _check_band(band, H, W):
     if not (1 <= bh <= H and 1 <= bw <= W):
         raise ValueError(f"band {band} must fit the ({H}, {W}) frame")
     return bh, bw
-
-
-def _launch(key, fn_name, *args):
-    from .build import load_library
-    fn = getattr(load_library().lib, fn_name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{key} launch failed: cudaError {err}")
-    launches[key] += 1
-
-
-def _on_cuda(*tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
-    if dev.type == "cpu":
-        return False
-    if dev.type == "cuda":
-        for t in tensors:
-            if not t.is_contiguous():
-                raise ValueError("kernel inputs must be contiguous")
-        return True
-    raise ValueError(f"no kernel for device {dev}")
 
 
 def hist4096(frames, rects):

@@ -1,0 +1,74 @@
+"""What the kernel wrappers share: device dispatch, the launch, and the
+count of device launches by kernel.
+
+``launches`` counts the launches that reached the card, so a run can show
+that its main path went through the kernels.  A launch issued while a CUDA
+graph captures the stream is not one: it is tallied by ``capturing`` instead,
+and ``replayed`` adds that tally on each replay of the graph.
+"""
+
+import contextlib
+
+import torch
+
+__all__ = ["launches", "reset_launches", "capturing", "replayed", "launch",
+           "on_cuda"]
+
+launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
+            "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0}
+
+_tally = None  # the open ``capturing`` block's tally
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Yield a dict that tallies, by kernel, the launches a CUDA graph
+    captures inside the block (pass it to ``replayed`` on each replay)."""
+    global _tally
+    prev, _tally = _tally, dict.fromkeys(launches, 0)
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def replayed(tally):
+    """Count one replay of a graph whose captured launches are ``tally``."""
+    for k, v in tally.items():
+        launches[k] += v
+
+
+def launch(key, fn_name, *args):
+    """Call the C launcher ``fn_name`` on the current stream; raise on a
+    refused launch; count it under ``key``."""
+    from .build import load_library
+    err = load_library().fn(fn_name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{key} launch failed: cudaError {err}")
+    if not torch.cuda.is_current_stream_capturing():
+        launches[key] += 1
+    elif _tally is not None:
+        _tally[key] += 1
+
+
+def on_cuda(*tensors):
+    """True for CUDA tensors (which must be contiguous), False for CPU
+    tensors (the plain twin's device); any other device raises."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("kernel inputs must be contiguous")
+        return True
+    raise ValueError(f"no kernel for device {dev}")

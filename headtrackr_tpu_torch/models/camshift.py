@@ -19,6 +19,8 @@ Two forms of the step:
 
 * First moments come from 1-D marginal prefix sums (cumsum, a fixed-order
   scan; no float atomics), window-relative like the reference package.
+  Each iteration reads the sums' lines at the window's edges with two
+  launches of the ``take_along`` gather kernel.
 * The JS NaN-mediated loss (zero backprojection mass => 0-size box,
   src/camshift.js:109,240-241) is explicit zero-mass logic.
 * JS ``(v) >> 0`` (truncate toward zero, NaN -> 0) is ``_js_shift``, with
@@ -30,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.gather import take_along
 from ..kernels.histpdf import backproject, histpdf_band
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
                              histogram_rect)
@@ -145,18 +148,6 @@ def _js_shift(v):
                        0.0).to(_I32)
 
 
-def _gather_rows(plane, idx):
-    """plane (N, R, C), idx (N,) -> (N, C) rows plane[n, idx[n]]."""
-    N, _, C = plane.shape
-    return torch.gather(plane, 1, idx.view(N, 1, 1).expand(N, 1, C).long())[:, 0]
-
-
-def _gather_cols(plane, idx):
-    """plane (N, R, C), idx (N,) -> (N, R) columns plane[n, :, idx[n]]."""
-    N, R, _ = plane.shape
-    return torch.gather(plane, 2, idx.view(N, 1, 1).expand(N, R, 1).long())[..., 0]
-
-
 def _second_moments(pdf, wadx, wady, wadw, wadh):
     """One masked pass over the pdf for m11/m20/m02 of the final window (the
     JS computes second moments only at the stopping iteration,
@@ -191,11 +182,12 @@ def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
     dev = pdf.device
     banded = ry is not None  # the full frame needs no offsets or escape test
     # the four window bounds travel as one (N, 4) [x0, y0, x1, y1] tensor;
-    # bounds made on the device (a host-to-device copy would synchronize)
+    # bounds made on the device by fill_ (a host-to-device copy would
+    # synchronize, and a CUDA graph cannot capture it)
     frame_hi = torch.full((2,), W, dtype=_I32, device=dev)
-    frame_hi[1] = H
+    frame_hi[1:].fill_(H)
     band_hi = torch.full((4,), bw, dtype=_I32, device=dev)
-    band_hi[1::2] = bh
+    band_hi[1::2].fill_(bh)
     if banded:
         origin = torch.stack([rx, ry, rx, ry], 1)
     # marginal prefix sums: col_cum[n, y, x] = sum_{y' < y} pdf[n, y', x]
@@ -224,8 +216,13 @@ def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
         bounds = torch.minimum(torch.clamp(bounds, min=0), band_hi)
         bx0, by0, bx1, by1 = bounds.unbind(1)
         empty = (bx1 <= bx0) | (by1 <= by0)
-        colmass = _gather_rows(col_cum, by1) - _gather_rows(col_cum, by0)
-        rowmass = _gather_cols(row_cum, bx1) - _gather_cols(row_cum, bx0)
+        # the prefix-sum lines at the window's edges (clamped above): rows
+        # [by0, by1] of col_cum, columns [bx0, bx1] of row_cum
+        ys2 = bounds[:, 1::2].contiguous().view(N, 2, 1)
+        xs2 = bounds[:, 0::2].contiguous().view(N, 1, 2)
+        rows2, cols2 = take_along(col_cum, ys2, 1), take_along(row_cum, xs2, 2)
+        colmass = rows2[:, 1] - rows2[:, 0]
+        rowmass = cols2[..., 1] - cols2[..., 0]
         in_x = ((xs >= bx0[:, None]) & (xs < bx1[:, None])).to(_F32)
         in_y = ((ys >= by0[:, None]) & (ys < by1[:, None])).to(_F32)
         n00 = (colmass * in_x).sum(dim=1)

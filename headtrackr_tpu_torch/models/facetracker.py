@@ -69,8 +69,9 @@ class TrackerState(NamedTuple):
     fov_width: torch.Tensor       # (N,) f32 radians (cached across re-inits)
     head_diag_cam: torch.Tensor   # (N,) f32 (stateful edge-correction diagonal)
     stopped: torch.Tensor         # (N,) bool
-    pend_age: torch.Tensor        # (N,) i32 scheduler wait counter (0 here:
-                                  # every pending stream is served each tick)
+    pend_age: torch.Tensor        # (N,) i32 ticks pended unserved by the
+                                  # device scheduler (runtime/serving.py;
+                                  # nonzero only under overload="rotate")
 
 
 class StepOutput(NamedTuple):
@@ -173,18 +174,19 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
 
     variant="full":  the complete WB/VJ/CS mode dispatch; each branch runs
         on the streams in its mode.
-    variant="track": camshift-only fast path; valid only when every stream
-        is in CS mode (the serving tick routes streams so).
+    variant="track": camshift-only fast path.  Non-CS streams freeze: state
+        unchanged, conf 0, no status, never ``escaped`` (the reference's
+        freeze, so a scheduler may dispatch it on a stale mode view).  It
+        selects with ``torch.where`` over the batch, so it holds no host
+        read and a CUDA graph can capture it.
     variant="wbtrack": camshift for CS streams + whitebalance for WB
         streams; VJ streams freeze (state unchanged, conf 0, no status).
         The cold-start fast path: no detector.
-    band=(bh, bw): the CS streams take the band-local camshift
-        (models/camshift.track_band), and the step returns
-        (state', StepOutput, escaped): escaped (N,) marks CS streams whose
-        result is invalid (window left the band); the caller recomputes
-        them with an unbanded "track" step.  With variant="full" this is
-        the per-stream result of the reference's bucket and chunk ticks
-        (band camshift for the trackers, the full machinery for the rest).
+    band=(bh, bw), with "track" or "wbtrack": the CS streams take the
+        band-local camshift (models/camshift.track_band), and the step
+        returns (state', StepOutput, escaped): escaped (N,) marks CS streams
+        whose result is invalid (window left the band); the caller
+        recomputes them with an unbanded "track" step.
     audit_band=(bh, bw): run the bandHist handoff audit at every VJ -> CS
         handoff and carry ``band_dirty`` (states must come from
         ``init_state(..., band_audit=True)``).
@@ -196,6 +198,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     if variant not in ("full", "track", "wbtrack"):
         raise ValueError("variant must be 'full', 'track' or 'wbtrack', got "
                          f"{variant!r}")
+    if band is not None and variant == "full":
+        raise ValueError("band requires variant 'track' or 'wbtrack'")
     if config.bandHistAuditAction not in ("flag", "escape"):
         raise ValueError("bandHistAuditAction must be 'flag' or 'escape', "
                          f"got {config.bandHistAuditAction!r}")
@@ -283,7 +287,10 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     def step(state, frames, modes=None):
         entry_mode = state.mode
         if variant == "track":
-            state, res = cs_branch(state, frames)
+            is_cs = entry_mode == MODE_CS
+            new_state, res = cs_branch(state, frames)
+            state = state._replace(cs=_where(is_cs, new_state.cs, state.cs))
+            res = res._replace(conf=torch.where(is_cs, res.conf, 0.0))
         else:
             state, res = dispatch(state, frames, modes)
         detection = entry_mode
@@ -294,7 +301,9 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         status = torch.where(detection == MODE_WB, STATUS_WHITEBALANCE, zeros_i)
         status = status | torch.where(
             state.first_run & (detection == MODE_VJ), STATUS_DETECTING, zeros_i)
-        if variant == "wbtrack":  # frozen VJ streams emit nothing
+        if variant == "track":  # frozen non-CS streams emit nothing
+            status = torch.where(detection == MODE_CS, status, zeros_i)
+        elif variant == "wbtrack":  # frozen VJ streams emit nothing
             status = torch.where(detection != MODE_VJ, status, zeros_i)
 
         is_cs = detection == MODE_CS

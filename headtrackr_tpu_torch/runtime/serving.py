@@ -1,35 +1,53 @@
 """Batched multi-stream serving: N cameras on one GPU.
 
 The reference runs one Tracker per camera in one JS thread.  Here per-stream
-state is a ``TrackerState`` of (N, ...) tensors and each tick is scheduled
-on the host from one read of the mode vector, with the branch rule of the
-reference package's device scheduler (headtrackr_tpu/runtime/serving.py
-``auto_step``, ``overload="full"``), with kb = min(bucket, N) and
-chunk_cap = max(kb, (min(N, 4 kb) // kb) kb):
+state is a ``TrackerState`` of (N, ...) tensors.  Two schedulers, as in the
+reference package (headtrackr_tpu/runtime/serving.py):
 
-  no stream pending (all CS)      -> "track" on the whole batch;
-  pending, none in VJ             -> "wbtrack" (whitebalance + camshift);
-  1 .. chunk_cap pending          -> camshift for the trackers, the full
-                                     WB/VJ machinery for the pending streams
-                                     (the reference's bucket/chunk ticks;
-                                     every pending stream is served);
-  more pending                    -> the "full" step on the whole batch,
-                                     whose trackers take FULL-FRAME camshift.
+Host scheduler (``step``), from a host view of the mode vector that is
+refreshed every ``sync_interval`` ticks (so up to that many ticks stale):
+  every stream CS                  -> "track" (non-CS streams freeze);
+  1 .. bucket streams non-CS       -> "track", then the full WB/VJ/CS
+                                      machinery for those of them still
+                                      non-CS after it;
+  more                             -> the "full" step on the whole batch.
+A stream that loses track between syncs is served at the next sync.
+
+Device scheduler (``step_auto``, ``run_scan``), from the exact mode vector,
+with the branch rule of the reference's ``auto_step``, kb = min(bucket, N)
+and chunk_cap = max(kb, (min(N, 4 kb) // kb) kb):
+  no stream pending (all CS)       -> "track";
+  pending, none in VJ              -> "wbtrack" (whitebalance + camshift);
+  1 .. chunk_cap pending           -> "track", then the full machinery for
+                                      the pending streams (the reference's
+                                      bucket and chunk ticks);
+  more pending                     -> overload="full": the "full" step on
+                                      the whole batch, whose trackers take
+                                      FULL-FRAME camshift; overload="rotate":
+                                      as above for the chunk_cap oldest
+                                      pending streams (by ``pend_age``, ties
+                                      to the lower index), while the others
+                                      stay frozen and age by one tick.
+Every branch but the rotation's leaves ``pend_age`` at 0.  On the card the
+all-CS tick is one replay of a CUDA graph of the "track" step, captured once
+per tracker on static frame and state buffers, plus one host read
+(``mode_after`` and ``escaped`` together); the other branches run eagerly.
 
 With a band (``band="auto"``: DEFAULT_BAND when it is smaller than the
-frame) the first three take the band-local camshift.  Streams whose window
-left the band are recomputed from the pre-step state by the full-frame
-"track" step and scattered back: one more host read per band tick.  The
-reference bounds that recompute's cost with ``escape_bucket``; its
-per-stream results are the same whatever the bound, so here exactly the
-escaped streams are recomputed.
+frame) "track" and "wbtrack" take the band-local camshift.  Streams whose
+window left the band are recomputed from the pre-step state by the
+full-frame "track" step and scattered back.  The reference bounds that
+recompute's cost with ``escape_bucket``; its per-stream results are the same
+whatever the bound, so here exactly the escaped streams are recomputed.
 """
 
+import numpy as np
 import torch
 
 from ..cascade import frontalface
 from ..config import TrackerConfig
 from ..device import resolve_device
+from ..kernels import launch
 from ..models import camshift as cs_mod
 from ..models import facetracker as ft
 from ..models.detector import detector_tables
@@ -57,25 +75,90 @@ def wants_band_audit(config, band):
     return band is not None and config.bandHist and config.bandHistAudit
 
 
+def _leaves(tree):
+    """The tensors of a NamedTuple tree in field order (None leaves
+    skipped)."""
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _clone(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone(v) for v in tree))
+    return None if tree is None else tree.clone()
+
+
+def _host(modes):
+    """A mode vector (device tensor or host array) as a host array."""
+    return modes.cpu().numpy() if torch.is_tensor(modes) else np.array(modes)
+
+
+class _TrackGraph:
+    """The device scheduler's all-CS tick, ``tick(state, frames) -> (state',
+    StepOutput)``, captured in a CUDA graph on static buffers: ``frames``
+    and ``state_in`` in; ``state_out``, the outputs (one packed tensor per
+    dtype) and ``sync`` = (mode_after, escaped) as (2, N) i32 out.
+    ``launches`` tallies the kernel launches one replay makes.  A capture
+    failure raises."""
+
+    def __init__(self, tick, state, frames_shape, device):
+        self.device = device
+        self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
+                                  device=device)
+        self.state_in = _clone(state)
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # warm up off the capture stream
+                tick(self.state_in, self.frames)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with launch.capturing() as self.launches, \
+                    torch.cuda.graph(self.graph):
+                self.state_out, out = tick(self.state_in, self.frames)
+                rows, packs = [], {}
+                for v in out:
+                    group = packs.setdefault(v.dtype, [])
+                    rows.append((v.dtype, len(group)))
+                    group.append(v)
+                self._packs = {dt: torch.stack(g) for dt, g in packs.items()}
+                self._rows = rows
+                self.sync = torch.stack([out.mode_after,
+                                         out.escaped.to(torch.int32)])
+
+    def replay(self):
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        launch.replayed(self.launches)
+
+    def outputs(self):
+        """This replay's StepOutput, copied out of the graph's buffers."""
+        c = {dt: p.clone() for dt, p in self._packs.items()}
+        return ft.StepOutput(*(c[dt][i] for dt, i in self._rows))
+
+
 class BatchedTracker:
-    """Serve N independent streams, one host-scheduled tick per frame batch."""
+    """Serve N independent streams: ``step`` (host-scheduled), ``step_auto``
+    (device-scheduled) or ``run_scan`` (K device-scheduled ticks)."""
 
     def __init__(self, n_streams, frame_shape=(240, 320), params=None,
-                 cascade=None, device=None, bucket=32, band="auto",
-                 overload="full", escape_bucket=8, **kw):
+                 cascade=None, device=None, sync_interval=8, bucket=32,
+                 band="auto", overload="full", escape_bucket=8, **kw):
         """params / kw: TrackerConfig fields.  device: where state and
         compute live (default: the current CUDA device; with no card, pass
         device="cpu" to run the kernels' plain twins on the CPU).
 
-        bucket: the reference scheduler's redetect bucket; it sets which
-        ticks serve the pending streams beside the trackers (see the
-        module docstring).  band: "auto", None (full frame) or (bh, bw).
-        overload: only "full" (every pending stream served on every tick).
-        escape_bucket: accepted for the reference's signature; it bounds
-        cost there and changes no result, so it is not used."""
-        if overload != "full":
-            raise NotImplementedError(
-                f"overload={overload!r}: only 'full' is ported")
+        sync_interval: ticks between the host scheduler's reads of the mode
+        vector (``step``).  bucket: the redetect bucket of both schedulers
+        (see the module docstring).  band: "auto", None (full frame) or
+        (bh, bw).  overload: the device scheduler's policy when more than
+        chunk_cap streams pend, "full" or "rotate".  escape_bucket:
+        accepted for the reference's signature; it bounds cost there and
+        changes no result, so it is not used."""
+        if overload not in ("full", "rotate"):
+            raise ValueError(f"overload must be 'full' or 'rotate', got "
+                             f"{overload!r}")
         merged = dict(params or {})
         merged.update(kw)
         # the reference package's batched capacity defaults, carried so the
@@ -96,7 +179,10 @@ class BatchedTracker:
             torch.backends.cudnn.allow_tf32 = False
         self.band = resolve_band(band, self.frame_shape)
         self._band_audit = wants_band_audit(self.config, self.band)
-        self.bucket = max(1, min(int(bucket), n_streams))
+        self.overload = overload
+        self.sync_interval = max(1, int(sync_interval))
+        self.bucket = kb = max(1, min(int(bucket), n_streams))
+        self._chunk_cap = max(kb, (min(n_streams, 4 * kb) // kb) * kb)
 
         H, W = self.frame_shape
         tables = detector_tables(W, H, self.cascade,
@@ -108,15 +194,13 @@ class BatchedTracker:
                                 variant, self.device, band=band,
                                 audit_band=audit, tables=tables)
 
-        full, self._track_plain = mk("full"), mk("track")
-        b = self.band
-        # one step per branch; the banded ones return escaped streams, which
-        # the full-frame "track" step recomputes
-        self._steps = {"track": mk("track", b) if b else self._track_plain,
-                       "wbtrack": mk("wbtrack", b),
-                       "bucket": mk("full", b) if b else full,
-                       "full": full}
-        self._banded = {"track", "wbtrack", "bucket"} if b else set()
+        # the banded steps return the escaped streams, which the full-frame
+        # "track" step recomputes
+        self._full, self._track_plain = mk("full"), mk("track")
+        self._track = (mk("track", self.band) if self.band
+                       else self._track_plain)
+        self._wbtrack = mk("wbtrack", self.band)
+        self._graph = None  # the all-CS tick's CUDA graph, captured lazily
         self.reset()
 
     def _init_state(self, n):
@@ -126,67 +210,243 @@ class BatchedTracker:
     def reset(self):
         """Re-initialize every stream (fresh cold start)."""
         self.state = self._init_state(self.n)
+        self._modes = self.state.mode.cpu().numpy()
+        self._pending_modes = None  # the last tick's mode_after, unread
+        self._tick = 0
 
     def reset_stream(self, i):
         """Re-initialize one stream (a new camera connects)."""
+        self._drain()  # before overwriting the view
+        s1 = self._init_state(1)
         idx = torch.tensor([int(i)], device=self.device)
-        self.state = ft.tree_scatter(self.state, idx, self._init_state(1))
+        self.state = ft.tree_scatter(self.state, idx, s1)
+        self._modes[int(i)] = int(s1.mode[0])
 
     @property
     def modes(self):
-        """Host copy of the (N,) mode vector."""
-        return self.state.mode.cpu().numpy()
+        """Host copy of the (N,) mode vector as of the last tick (the last
+        sync's view after ``step(sync=False)`` ticks that are not due)."""
+        return self._drain().copy()
+
+    def _drain(self):
+        """Bring the last tick's mode_after into the host view."""
+        if self._pending_modes is not None:
+            self._modes = _host(self._pending_modes)
+            self._pending_modes = None
+        return self._modes
 
     def branch(self, modes):
-        """The reference scheduler's branch for a host mode vector."""
+        """The device scheduler's branch for a host mode vector: "track",
+        "wbtrack", "bucket" (bucket and chunk ticks, and the rotation) or
+        "full"."""
         npend = int((modes != ft.MODE_CS).sum())
         if npend == 0:
             return "track"
         if not (modes == ft.MODE_VJ).any():
             return "wbtrack"
-        kb = self.bucket
-        chunk_cap = max(kb, (min(self.n, 4 * kb) // kb) * kb)
-        return "bucket" if npend <= chunk_cap else "full"
+        if npend <= self._chunk_cap or self.overload == "rotate":
+            return "bucket"
+        return "full"
 
-    def step(self, frames):
-        """frames: (N, H, W, 3) u8 (tensor or array).  Returns the
-        StepOutput batch of (N,) tensors on the device."""
+    def _frames(self, frames, lead=()):
         frames = torch.as_tensor(frames).to(self.device)
-        if tuple(frames.shape) != (self.n,) + self.frame_shape + (3,) \
-                or frames.dtype != torch.uint8:
-            raise ValueError(f"frames must be ({self.n}, {self.frame_shape[0]}, "
-                             f"{self.frame_shape[1]}, 3) uint8, got "
+        want = lead + (self.n,) + self.frame_shape + (3,)
+        if tuple(frames.shape) != want or frames.dtype != torch.uint8:
+            raise ValueError(f"frames must be {want} uint8, got "
                              f"{tuple(frames.shape)} {frames.dtype}")
-        frames = frames.contiguous()
-        modes = self.modes
-        branch = self.branch(modes)
-        if branch not in self._banded:
-            self.state, out = self._steps[branch](self.state, frames, modes)
-            return out
-        state, out, escaped = self._steps[branch](self.state, frames, modes)
-        idx = torch.nonzero(escaped.cpu()).flatten()
-        if idx.numel():
-            idx = idx.to(self.device)
+        return frames.contiguous()
+
+    def _recompute(self, state, frames, new, out, esc, esc_host):
+        """Recompute a banded step's escaped streams from the pre-step
+        ``state`` with the full-frame "track" step; ``esc`` stays the
+        output's telemetry."""
+        idx = np.nonzero(esc_host)[0]
+        if idx.size:
+            idx = torch.as_tensor(idx, device=self.device)
             sub_state, sub_out = self._track_plain(
-                ft.tree_index(self.state, idx), frames.index_select(0, idx))
-            state = ft.tree_scatter(state, idx, sub_state)
+                ft.tree_index(state, idx), frames.index_select(0, idx))
+            new = ft.tree_scatter(new, idx, sub_state)
             out = ft.tree_scatter(out, idx, sub_out)
+        return new, out._replace(escaped=esc)
+
+    def _checked(self, step, state, frames, modes=None):
+        """A "track" or "wbtrack" step with the band's escape fallback (one
+        host read of the escaped streams)."""
+        if self.band is None:
+            return step(state, frames, modes)
+        new, out, esc = step(state, frames, modes)
+        return self._recompute(state, frames, new, out, esc,
+                               esc.cpu().numpy())
+
+    def _apply_bucket(self, state1, out, frames, idx):
+        """The full WB/VJ/CS machinery for the streams ``idx`` (host array)
+        that are still non-CS after the track pass that gave ``state1``,
+        merged into its results (the reference's ``_apply_bucket``)."""
+        modes1 = state1.mode.cpu().numpy()
+        idx = idx[modes1[idx] != ft.MODE_CS]
+        if idx.size == 0:
+            return state1, out
+        t = torch.as_tensor(idx, device=self.device)
+        sub_state, sub_out = self._full(ft.tree_index(state1, t),
+                                        frames.index_select(0, t), modes1[idx])
+        return ft.tree_scatter(state1, t, sub_state), \
+            ft.tree_scatter(out, t, sub_out)
+
+    def step(self, frames, sync=False):
+        """The host scheduler's tick.  frames: (N, H, W, 3) u8 (tensor or
+        array).  Returns the StepOutput batch of (N,) tensors on the device.
+
+        The mode view is refreshed from the previous tick's ``mode_after``
+        every ``sync_interval`` ticks; sync=True refreshes it now and reads
+        this tick's modes after it.  Stale views are safe: "track" freezes
+        non-CS streams until a bucket or full tick serves them."""
+        frames = self._frames(frames)
+        self._tick += 1
+        if sync or self._tick % self.sync_interval == 0:
+            self._drain()
+        non_cs = np.nonzero(self._modes != ft.MODE_CS)[0]
+        if non_cs.size > self.bucket:
+            state, out = self._full(self.state, frames)
+        else:
+            state, out = self._checked(self._track, self.state, frames)
+            if non_cs.size:
+                state, out = self._apply_bucket(state, out, frames, non_cs)
         self.state = state
-        return out._replace(escaped=escaped)
+        if sync:
+            self._modes = state.mode.cpu().numpy()
+            self._pending_modes = None
+        else:
+            self._pending_modes = out.mode_after
+        return out
 
     def step_auto(self, frames):
-        """The same tick as ``step`` (the reference package's name for its
-        device-scheduled tick, whose per-stream outputs this matches)."""
-        return self.step(frames)
+        """One device-scheduled tick (the module docstring's branch rule,
+        from the exact mode vector).  frames: (N, H, W, 3) u8.  Returns the
+        StepOutput batch.  Per stream it equals ``step(sync=True)`` at
+        sync_interval=1 under overload="full".  After a replayed tick
+        ``self.state`` holds the graph's input buffers, which the next
+        replayed tick overwrites (the reference donates its state too)."""
+        return self._auto(self._frames(frames))
+
+    def run_scan(self, frames_seq):
+        """K device-scheduled ticks: frames_seq (K, N, H, W, 3) u8, staged
+        on the device in one copy.  Returns a StepOutput batch with (K, N)
+        leaves, tick for tick those of K ``step_auto`` calls."""
+        seq = torch.as_tensor(frames_seq)
+        if seq.dim() == 0 or seq.shape[0] == 0:
+            raise ValueError("run_scan needs at least one tick "
+                             "(frames_seq has leading length 0)")
+        seq = self._frames(seq, lead=(seq.shape[0],))
+        outs = [self._auto(seq[k]) for k in range(seq.shape[0])]
+        return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))
+
+    def warmup(self, scan_len=None, host_sched=True, device_sched=True):
+        """Pay the first ticks' one-time costs up front: device_sched builds
+        the kernels and, on the card, captures the all-CS tick's CUDA graph;
+        host_sched runs the eager steps once ("track", "full" on the batch,
+        and the detector at the bucket's size).  The steps are functional,
+        so ``self.state`` and the mode view are untouched.  scan_len is
+        accepted for the reference's signature: ``run_scan`` replays the
+        per-tick graph, so no K needs a program of its own."""
+        if scan_len is not None and int(scan_len) < 1:
+            raise ValueError(f"scan_len must be >= 1, got {scan_len}")
+        frames = torch.zeros((self.n,) + self.frame_shape + (3,),
+                             dtype=torch.uint8, device=self.device)
+        if device_sched and self.device.type == "cuda":
+            self._captured()
+        if host_sched:
+            self._checked(self._track, self.state, frames)
+            self._full(self.state, frames)
+            kb = self.bucket
+            sub = ft.tree_index(self.state,
+                                torch.arange(kb, device=self.device))
+            sub = sub._replace(mode=torch.full_like(sub.mode, ft.MODE_VJ))
+            self._full(sub, frames[:kb], np.full((kb,), ft.MODE_VJ))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _auto_track(self, state, frames):
+        """The device scheduler's all-CS tick before the escape fallback:
+        "track" (banded: escaped in the output), pend_age zeroed.  No host
+        read: the graph captures it."""
+        if self.band is None:
+            new, out = self._track(state, frames)
+        else:
+            new, out, esc = self._track(state, frames)
+            out = out._replace(escaped=esc)
+        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
+
+    def _captured(self):
+        """The all-CS tick's CUDA graph, captured on first use."""
+        if self._graph is None:
+            self._graph = _TrackGraph(
+                self._auto_track, self.state,
+                (self.n,) + self.frame_shape + (3,), self.device)
+        return self._graph
+
+    def _track_replayed(self, frames):
+        """The all-CS tick on the card: one graph replay and one host read;
+        escaped streams are recomputed eagerly from the graph's untouched
+        input state, and only then is the new state committed to it."""
+        g = self._captured()
+        if self.state is not g.state_in:  # reset or an eager tick replaced it
+            torch._foreach_copy_(_leaves(g.state_in), _leaves(self.state))
+        g.frames.copy_(frames)
+        g.replay()
+        out = g.outputs()
+        mode_after, esc = g.sync.cpu().numpy()  # the tick's one host read
+        state = g.state_out
+        if esc.any():
+            state, out = self._recompute(g.state_in, g.frames, state, out,
+                                         out.escaped, esc != 0)
+            state = state._replace(pend_age=g.state_out.pend_age)
+            self._pending_modes = out.mode_after
+        else:
+            self._pending_modes = mode_after
+        torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
+        self.state = g.state_in
+        return out
+
+    def _auto(self, frames):
+        self._tick += 1
+        modes = self._drain()
+        branch = self.branch(modes)
+        if branch == "track" and self.device.type == "cuda":
+            return self._track_replayed(frames)
+        state = self.state
+        age = torch.zeros_like(state.pend_age)
+        if branch == "track":
+            new, out = self._checked(self._track, state, frames)
+        elif branch == "wbtrack":
+            new, out = self._checked(self._wbtrack, state, frames, modes)
+        elif branch == "full":
+            new, out = self._full(state, frames, modes)
+        else:
+            non_cs = modes != ft.MODE_CS
+            served = np.nonzero(non_cs)[0]
+            if served.size > self._chunk_cap:  # rotate: the oldest first
+                old = state.pend_age.cpu().numpy()
+                key = np.where(non_cs, 1 + old, 0)
+                served = np.sort(np.argsort(-key, kind="stable")
+                                 [:self._chunk_cap])
+                non_cs[served] = False  # now: pending and not served
+                age = torch.as_tensor(np.where(non_cs, old + 1, 0)
+                                      .astype(np.int32), device=self.device)
+            new, out = self._checked(self._track, state, frames)
+            new, out = self._apply_bucket(new, out, frames, served)
+        self.state = new._replace(pend_age=age)
+        self._pending_modes = out.mode_after
+        return out
 
     def stream_info(self, stream):
         """Per-stream snapshot (host reads; not for the per-tick path):
-        mode "wb" | "vj" | "cs", the search window [x, y, w, h], the model's
-        distinct nonzero bins, and the bandHist audit flag (None when the
-        audit is off)."""
+        mode "wb" | "vj" | "cs" (the scheduler's mode view), the search
+        window [x, y, w, h], the model's distinct nonzero bins, and the
+        bandHist audit flag (None when the audit is off)."""
         s = int(stream)
         mode = {ft.MODE_WB: "wb", ft.MODE_VJ: "vj",
-                ft.MODE_CS: "cs"}[int(self.state.mode[s])]
+                ft.MODE_CS: "cs"}[int(self.modes[s])]
         dirty = self.state.cs.band_dirty
         return {
             "stream": s,

@@ -32,6 +32,7 @@ from headtrackr_tpu.oracle.camshift import CamshiftTracker
 from headtrackr_tpu_torch import BatchedTracker, TrackerConfig, convert
 from headtrackr_tpu_torch import toy_cascade
 from headtrackr_tpu_torch.kernels import histpdf as K
+from headtrackr_tpu_torch.kernels.launch import launches
 from headtrackr_tpu_torch.models import camshift as tcs
 from headtrackr_tpu_torch.models import facetracker as tft
 from headtrackr_tpu_torch.models.detector import detector_tables
@@ -204,11 +205,11 @@ def test_band_wrappers_check_inputs():
     frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
     rects = thg.full_rects(2, (8, 8), "cpu")
     model = torch.zeros((2, 4096))
-    before = dict(K.launches)
+    before = dict(launches)
     K.histpdf_band(frames, rects)
     K.histpdf_band(frames, rects, model, (4, 4))
     K.backproject(frames, model, rects, (4, 4))
-    assert K.launches == before  # the CPU twin is not a kernel launch
+    assert launches == before  # the CPU twin is not a kernel launch
     with pytest.raises(ValueError):  # band larger than the frame
         K.histpdf_band(frames, rects, model, (9, 4))
     with pytest.raises(ValueError):
@@ -307,9 +308,12 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_serving_knobs_checked():
-    with pytest.raises(NotImplementedError, match="rotate"):
+    with pytest.raises(ValueError, match="overload"):
         BatchedTracker(2, (40, 40), cascade=toy_cascade(), device="cpu",
-                       overload="rotate")
+                       overload="bogus")
+    with pytest.raises(ValueError, match="band requires"):
+        tft.make_step(toy_cascade(), TrackerConfig(), (120, 160), "full",
+                      "cpu", band=(64, 96))
     with pytest.raises(ValueError, match="bandHistAuditAction"):
         BatchedTracker(2, (120, 160), cascade=toy_cascade(), device="cpu",
                        band=(64, 96), bandHist=True,

@@ -12,6 +12,7 @@ different orders cannot promise 1e-5 to each other there."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from headtrackr_tpu.models import camshift as jcs
@@ -106,3 +107,77 @@ def test_zero_mass_loss_and_calc_angles_off(rng):
                        torch.as_tensor(np.stack([blue, blue])), True)
     assert torch.isnan(ts2.track_angle).all()
     assert (ts2.track_w == 0).all() and (ts2.track_h == 0).all()
+
+
+def test_take_along_twin_matches_take_along_axis(rng):
+    """The take_along kernel's plain twin (the wrapper on CPU tensors)
+    against jnp.take_along_axis, X8's kernel body: X8's own (8, 128) lane
+    gather, and mean shift's line selections on 6-stream band and frame
+    prefix-sum planes (broadcast indices)."""
+    from headtrackr_tpu_torch.kernels.gather import take_along
+
+    src = rng.random((8, 128), dtype=np.float32)
+    idx = rng.integers(0, 128, (8, 128)).astype(np.int32)
+    got = take_along(torch.as_tensor(src)[None], torch.as_tensor(idx)[None], 2)
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(src), jnp.asarray(idx),
+                                          axis=1))
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    for s, l in ((65, 96), (121, 160)):
+        plane = rng.random((6, s, l), dtype=np.float32)
+        for dim, shape, hi in ((1, (6, 2, 1), s), (2, (6, s, 2), l),
+                               (2, (6, 1, 2), l), (1, (6, 3, l), s)):
+            idx = rng.integers(0, hi, shape).astype(np.int32)
+            got = take_along(torch.as_tensor(plane), torch.as_tensor(idx), dim)
+            want = np.asarray(jnp.take_along_axis(
+                jnp.asarray(plane), jnp.asarray(idx), axis=dim))
+            np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="idx"):
+        take_along(torch.zeros((2, 4, 5)), torch.zeros((2, 3, 2),
+                                                      dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="dim"):
+        take_along(torch.zeros((2, 4, 5)), torch.zeros((2, 4, 1),
+                                                      dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="src"):
+        take_along(torch.zeros((2, 4, 5), dtype=torch.float64),
+                   torch.zeros((2, 4, 1), dtype=torch.int32), 2)
+
+
+@pytest.mark.parametrize("band", [None, (40, 56)])
+def test_mean_shift_matches_reference_core(rng, band):
+    """mean_shift (line selections through take_along) against the JAX
+    package's _mean_shift_core on pdfs of quarter steps (every sum exact
+    in f32, whatever the order): windows, escapes, zero mass and moments
+    equal to the bit."""
+    n = 6
+    pdf = np.zeros((n, H, W), np.float32)
+    for k in range(n):
+        cy, cx = rng.integers(15, H - 15), rng.integers(15, W - 15)
+        pdf[k, cy - 9:cy + 9, cx - 7:cx + 7] = rng.integers(
+            0, 5, (18, 14)) / 4
+    pdf[5] = 0  # a zero-mass stream
+    win = np.stack([rng.integers(0, W - 20, n), rng.integers(0, H - 20, n),
+                    rng.integers(8, 30, n), rng.integers(8, 30, n)],
+                   1).astype(np.int32)
+    if band is None:
+        ry = rx = np.zeros(n, np.int32)
+        part = pdf
+    else:
+        ry, rx, _, _ = tcs.band_rect(torch.as_tensor(win), band, (H, W))
+        ry, rx = ry.numpy(), rx.numpy()
+        part = np.stack([p[y:y + band[0], x:x + band[1]]
+                         for p, y, x in zip(pdf, ry, rx)])
+    core = jax.vmap(lambda p, w, y, x: jcs._mean_shift_core(
+        p, w, True, y, x, H, W))
+    jwin, jm, jzero, jesc = core(jnp.asarray(part), jnp.asarray(win),
+                                 jnp.asarray(ry), jnp.asarray(rx))
+    offs = {} if band is None else dict(ry=torch.as_tensor(ry),
+                                        rx=torch.as_tensor(rx),
+                                        frame_shape=(H, W))
+    twin, tm, tzero, tesc = tcs.mean_shift(torch.as_tensor(part),
+                                           torch.as_tensor(win), **offs)
+    np.testing.assert_array_equal(twin.numpy(), np.asarray(jwin))
+    np.testing.assert_array_equal(tzero.numpy(), np.asarray(jzero))
+    np.testing.assert_array_equal(tesc.numpy(), np.asarray(jesc))
+    for k in ("m00", "m10", "m01", "m11", "m20", "m02"):
+        np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]), k)
+    assert tzero[5] and not tzero[:5].all()

@@ -12,6 +12,8 @@ import torch
 
 from headtrackr_tpu_torch import BatchedTracker, toy_cascade
 from headtrackr_tpu_torch.kernels import histpdf as K
+from headtrackr_tpu_torch.kernels.launch import launches
+from headtrackr_tpu_torch.models import facetracker as tft
 from headtrackr_tpu_torch.ops import histogram as hg
 
 pytestmark = pytest.mark.cuda
@@ -35,12 +37,12 @@ def test_kernels_bit_equal_to_twins(dev, shape):
                        torch.randint(0, 80, (N, 2), generator=g)], 1).int()
     rects[0] = torch.tensor([0, 0, shape[1], shape[0]])
     w = torch.rand((N, 4096), generator=g)
-    before = dict(K.launches)
+    before = dict(launches)
     got_h = K.hist4096(frames.to(dev), rects.to(dev))
     got_p = K.backproject(frames.to(dev), w.to(dev))
     torch.cuda.synchronize()
-    assert K.launches["hist4096"] == before["hist4096"] + 1
-    assert K.launches["backproject"] == before["backproject"] + 1
+    assert launches["hist4096"] == before["hist4096"] + 1
+    assert launches["backproject"] == before["backproject"] + 1
     assert torch.equal(got_h.cpu(), hg.hist4096_plain(frames, rects).float())
     assert torch.equal(got_p.cpu(), hg.backproject_plain(frames, w))
 
@@ -61,13 +63,13 @@ def test_band_kernels_bit_equal_to_twins(dev, shape, band):
     model = torch.randint(0, 200, (N, 4096), generator=g).float()
     model[:, :64] = 0
     w = torch.rand((N, 4096), generator=g)
-    before = dict(K.launches)
+    before = dict(launches)
     cur, pdf = K.histpdf_band(frames.to(dev), rects.to(dev), model.to(dev), band)
     hist = K.histpdf_band(frames.to(dev), rects.to(dev))
     bp = K.backproject(frames.to(dev), w.to(dev), rects.to(dev), band)
     torch.cuda.synchronize()
     for k in ("histpdf_band", "histpdf_band_hist", "backproject_rect"):
-        assert K.launches[k] == before[k] + 1, k
+        assert launches[k] == before[k] + 1, k
     want_cur, want_pdf = hg.histpdf_band_plain(frames, rects, model, band)
     assert torch.equal(cur.cpu(), want_cur)
     assert torch.equal(pdf.cpu(), want_pdf)
@@ -117,3 +119,95 @@ def _card_equals_cpu(dev, clip, shape, kw):
                 np.testing.assert_array_equal(a, b)
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,dim,idx_shape", [
+    ((1, 8, 128), 2, (1, 8, 128)),      # X8's own lane gather
+    ((8, 97, 128), 1, (8, 2, 1)),       # mean shift's rows of col_cum
+    ((8, 96, 129), 2, (8, 1, 2)),       # and columns of row_cum
+    ((8, 241, 320), 1, (8, 5, 320)),
+    ((3, 7, 9), 2, (3, 7, 4))])
+def test_take_along_bit_equal_to_twin(dev, shape, dim, idx_shape):
+    from headtrackr_tpu_torch.kernels.gather import take_along
+    from headtrackr_tpu_torch.ops.gather import take_along_plain
+    g = torch.Generator().manual_seed(9)
+    src = torch.rand(shape, generator=g)
+    idx = torch.randint(0, shape[dim], idx_shape, generator=g,
+                        dtype=torch.int32)
+    before = launches["take_along"]
+    got = take_along(src.to(dev), idx.to(dev), dim)
+    torch.cuda.synchronize()
+    assert launches["take_along"] == before + 1
+    assert torch.equal(got.cpu(), take_along_plain(src, idx, dim))
+
+
+def _serving_clip(H, W, n):
+    """Faces drifting right; stream 1 loses track at tick 20; streams 3
+    and 7 carry faces taller than a 64-row band (an escape every band
+    tick)."""
+    def frame(cx, cy, half):
+        f = np.full((H, W, 3), 40, np.uint8)
+        f[cy - half:cy + half, cx - half:cx + half] = (230, 80, 60)
+        return f
+
+    blue = np.zeros((H, W, 3), np.uint8)
+    blue[..., 2] = 250
+    clip = []
+    for t in range(30):
+        clip.append(np.stack([
+            blue if (s, t) == (1, 20) else
+            np.roll(frame(60 + t % 5, 55, 26 if s % 4 == 3 else 12), 10 * s,
+                    axis=1) for s in range(n)]))
+    return np.stack(clip)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
+def test_graph_replayed_ticks_equal_host_step(dev, kw):
+    """step_auto and run_scan (all-CS ticks replayed from a CUDA graph)
+    against the eager step(sync=True) at sync_interval 1, 8 streams, on the
+    card: the lock, steady ticks, a loss and its relock, and with the band
+    the escape recompute after replayed ticks."""
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    mk = lambda **k: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                    device=dev, bucket=2, **kw, **k)
+    host, auto, scan = mk(sync_interval=1), mk(), mk().warmup()
+    want = [[t.cpu().numpy() for t in host.step(f, sync=True)] for f in clip]
+    before = dict(launches)
+    got_auto = [[t.cpu().numpy() for t in auto.step_auto(f)] for f in clip]
+    assert auto._graph is not None  # replayed on the all-CS ticks
+    esc = np.stack([o[tft.StepOutput._fields.index("escaped")]
+                    for o in got_auto])
+    assert esc[-5:, [3, 7]].all() == bool(kw)  # escapes on replayed ticks
+    assert launches["take_along"] > before["take_along"]
+    out = scan.run_scan(clip[:13])
+    out2 = scan.run_scan(torch.as_tensor(clip[13:]).to(dev))
+    got_scan = [[v[k].cpu().numpy() for v in o] for o in (out, out2)
+                for k in range(o.mode_after.shape[0])]
+    for got in (got_auto, got_scan):
+        for t, (a_t, b_t) in enumerate(zip(want, got)):
+            for a, b in zip(a_t, b_t):
+                if a.dtype.kind in "biu":
+                    np.testing.assert_array_equal(b, a, err_msg=f"tick {t}")
+                else:
+                    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                               err_msg=f"tick {t}")
+    assert scan.modes.tolist() == [2] * n
+
+
+def test_graph_replay_counts_its_launches(dev):
+    """One replayed all-CS tick adds the launches its graph holds: two
+    take_along per mean-shift iteration, one histogram and one pdf."""
+    H, W, n = 120, 160, 4
+    clip = _serving_clip(H, W, n)
+    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev)
+    for f in clip[:18]:
+        bt.step_auto(f)
+    assert (bt.modes == 2).all() and bt._graph is not None
+    before = dict(launches)
+    bt.step_auto(clip[18])
+    torch.cuda.synchronize()
+    got = {k: launches[k] - before[k] for k in launches}
+    assert got == dict(bt._graph.launches)
+    assert got["take_along"] == 20
+    assert got["hist4096"] == 1 and got["backproject"] == 1
