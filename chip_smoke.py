@@ -20,11 +20,17 @@ Phases, one line each; any failure raises and exits nonzero:
      over 20 calls replayed from a CUDA graph) beside its twin, its
      byte/operation bound and the nearest single PyTorch call (given
      precomputed bins for the histogram kernels; torch.gather for
-     take_along);
+     take_along).  hist_mma (the int8 tensor-core histogram) likewise on the
+     bench pools, uniform random frames, one-bin frames and random boxes at
+     N=256 and N=1, and on X6's own workload (the full frame, uniform random
+     bins), timed beside its twin, hist4096's bound (the histogram's bytes),
+     the dense int8 one-hot product's tensor-core time and torch.bincount;
+     hist4096 is also timed at N=1, the session's shape;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
-     bench protocol in three configurations: the full-frame arm, a 96x128
-     band with full-frame histograms, and the headline (96x128 band,
-     bandHist, bucket 8).  Each, after warmup() and with the launch counts
+     bench protocol in three configurations: the full-frame arm
+     (histKernel="pallas": hist4096), a 96x128 band with full-frame
+     histograms (the default histKernel: hist_mma), and the headline (96x128
+     band, bandHist, bucket 8).  Each, after warmup() and with the launch counts
      at 0: 16 lock ticks and 32 ticks of step_auto over a 16-batch pool
      with 4 loss streams, then run_scan over the pool (K = 16, as bench.py
      runs it).  Checks: >= 99% locked, loss streams relock, every kernel of
@@ -42,11 +48,26 @@ Phases, one line each; any failure raises and exits nonzero:
      operations per tick and the host's launch calls per tick;
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
-     integer outputs exactly, floats within rtol 1e-5 / atol 1e-4.
+     integer outputs exactly, floats within rtol 1e-5 / atol 1e-4;
+  7. session: a Tracker(debug=True) with the real cascade over a 320x240
+     ClipSource of 256 frames of one bench-pool stream (its 15 loss frames
+     included) passes whitebalance -> detecting -> found, emits finite
+     facetrackingEvents and headtrackingEvents, relocks after each loss,
+     shows a (240, 320, 3) u8 backprojection on CS frames, and launches
+     hist_mma and backproject; ms per step_once (mean, p50, p99) over all
+     frames and by the mode each frame ran in (WB, VJ, CS);
+  8. fanout and checkpoint: a BatchedSession of 256 pull-mode ClipSources
+     (the bench pool, headline configuration) over 32 ticks plus flush()
+     emits, per stream, the events a StreamFanout emits from a second
+     tracker's step(sync=True) outputs on the same frames (time excluded);
+     then save_tracker mid-track, load_tracker into a fresh tracker, whose
+     next 8 ticks equal the uninterrupted tracker's (integers exact, floats
+     rtol 1e-5 / atol 1e-4); file size, save and load ms.
 
-The last four lines: the steady-tick profile as JSON (phase 5), the
-kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
-{...}}.  Imports nothing of JAX or headtrackr_tpu.
+The last four lines: the steady-tick profile, session, fanout and
+checkpoint numbers as JSON (phases 5, 7, 8), the kernels' JSON, the
+nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX or headtrackr_tpu.
 """
 
 import json
@@ -66,19 +87,25 @@ BAND = (96, 128)
 RTOL, ATOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor cores
 HISTPDF_SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
 GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
+HISTMMA_SRC = "headtrackr_tpu_torch/csrc/histmma.cu"
+SESSION_FRAMES = 16 * POOL  # 15 losses: the CS frames' p99 is not their max
+FANOUT_TICKS = 2 * POOL
+RESUME_TICKS = 8
 # the host's launch calls as the profiler names them (kernels and graphs)
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 # serving configurations: name -> (BatchedTracker kwargs, kernels of its path)
 CONFIGS = {
-    "full-frame": (dict(band=None, bandHist=False, bucket=8),
+    "full-frame": (dict(band=None, bandHist=False, bucket=8,
+                        histKernel="pallas"),
                    ("hist4096", "backproject", "histpdf_band_hist",
                     "take_along")),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
-             ("hist4096", "backproject_rect", "histpdf_band_hist",
+             ("hist_mma", "backproject_rect", "histpdf_band_hist",
               "take_along")),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
                  ("histpdf_band", "histpdf_band_hist", "backproject",
@@ -98,6 +125,7 @@ KERNELS = {
     "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
                           HISTPDF_SRC),
     "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
+    "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
 }
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
@@ -380,6 +408,99 @@ def phase_gather(dev):
     return err, t
 
 
+def phase_histmma(pools, dev):
+    """hist_mma against its twin, bit-equal (tolerance 0), at N=256 and
+    N=1 on the bench pools, uniform random frames, one-bin frames and X6's
+    own workload (every pixel of the frame, uniform random bins), with
+    full-frame rects and random boxes; then its times.  Returns (max abs
+    err, timing entries, X5's bound and library time)."""
+    import torch
+    from headtrackr_tpu_torch.kernels.histmma import hist_mma
+    from headtrackr_tpu_torch.kernels.histpdf import hist4096
+    from headtrackr_tpu_torch.ops import histogram as hg
+
+    N = N_STREAMS
+    g = torch.Generator().manual_seed(13)
+    inputs = {f"face_noise={k}": torch.as_tensor(p[1]).to(dev)
+              for k, p in pools.items()}
+    inputs["random"] = torch.randint(0, 256, (N, H, W, 3), generator=g,
+                                     dtype=torch.uint8).to(dev)
+    inputs["one_bin"] = torch.tensor([120, 100, 90], dtype=torch.uint8).to(
+        dev).expand(N, H, W, 3).contiguous()
+    # tools/kernel_experiments.py:44-46: uniform random bins over the frame
+    inputs["x6_workload"] = bin_frames(torch.randint(
+        0, 4096, (N, H, W), generator=g)).to(dev)
+    full = hg.full_rects(N, (H, W), dev)
+    boxes = torch.cat([torch.randint(-20, 300, (N, 2), generator=g),
+                       torch.randint(0, 240, (N, 2), generator=g)],
+                      1).to(torch.int32).to(dev)
+    err = 0.0
+    for name, fr in inputs.items():
+        for rects in (full, boxes):
+            for n in (N, 1):
+                got = hist_mma(fr[:n], rects[:n])
+                want = hg.hist_mma_plain(fr[:n], rects[:n])
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                err = max(err, e)
+                if e != 0.0 or not torch.equal(got, hist4096(fr[:n],
+                                                             rects[:n])):
+                    raise AssertionError(f"hist_mma differs from its twin "
+                                         f"or hist4096 on {name} at N={n}: "
+                                         f"max abs err {e}")
+    log(f"kernels: hist_mma bit-equal to its twin (and to hist4096) on the "
+        f"bench pools, random, one-bin and X6 frames, full frames and "
+        f"boxes, N={N} and N=1 (max abs err {err})")
+
+    def entry(kern, plain, lib, n):
+        """Times beside the histogram's bound, hist4096's: the bytes (frames
+        and rects read, counts written) against the binning's f32 work (6
+        a pixel).  Beside it, onehot_ms: the int8 tensor-core time of the
+        dense one-hot product (2 x 4096 operations a pixel), which is
+        hist_mma's formulation and not the function's least work."""
+        npx = n * H * W
+        b, by = bound(3 * npx + 16 * n + 4 * 4096 * n, 6 * npx)
+        ms, plain_ms = interleaved_ms(kern, plain)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                    onehot_ms=1e3 * 2 * 4096 * npx / INT8_OPS_PER_S,
+                    library_ms=cuda_ms(lib), graph_ms=graph_ms(kern))
+
+    t = {}
+    for name, fr in (("hist_mma", inputs["face_noise=0"]),
+                     ("hist_mma x6", inputs["x6_workload"])):
+        given = given_bins(fr, full)
+        t[name] = entry(lambda fr=fr: hist_mma(fr, full),
+                        lambda fr=fr: hg.hist_mma_plain(fr, full),
+                        lambda given=given: torch.bincount(
+                            given, minlength=N * 4096), N)
+    fr1, full1 = inputs["face_noise=0"][:1], full[:1]
+    given1 = given_bins(fr1, full1)
+    t["hist_mma n1"] = entry(lambda: hist_mma(fr1, full1),
+                             lambda: hg.hist_mma_plain(fr1, full1),
+                             lambda: torch.bincount(given1, minlength=4096),
+                             1)
+    t["hist4096 n1"] = entry(lambda: hist4096(fr1, full1),
+                             lambda: hg.hist4096_plain(fr1, full1),
+                             lambda: torch.bincount(given1, minlength=4096),
+                             1)
+    # X5 (still to port) computes X3's function from (N, C, CH) i32 bins of
+    # the frame (tools/kernel_experiments.py:44): its byte bound, and the
+    # bincount of the same uniform random bins (X6's workload's)
+    x5 = {"bound_ms": 1e3 * (4 * N * H * W + 4 * 4096 * N) / HBM_BYTES_PER_S,
+          "bound_by": "bytes",
+          "library_ms": t["hist_mma x6"]["library_ms"]}
+    log(f"kernels: X5 (to port): byte bound {x5['bound_ms']:.4f} ms "
+        f"({N} x {H * W} i32 bins in, {N} x 4096 counts out), torch.bincount "
+        f"of its bins {x5['library_ms']:.4f} ms")
+    for name, e in t.items():
+        log(f"kernels: {name} {e['ms']:.4f} ms, graph replay "
+            f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.6f} ms by {e['bound_by']}; the dense int8 "
+            f"one-hot product {e['onehot_ms']:.4f} ms; torch.bincount "
+            f"{e['library_ms']:.4f} ms)")
+    return err, t, x5
+
+
 def _stacked(outs):
     """A list of StepOutputs of (N,) tensors -> host arrays (ticks, N)."""
     import torch
@@ -589,6 +710,190 @@ def phase_card_vs_cpu(name, pool, dev):
         f"(integers exact, floats rtol {RTOL} / atol {ATOL})")
 
 
+def _listen(add, log):
+    """Log (type, payload without ``time``) of the three event types."""
+    from headtrackr_tpu_torch import events
+    for ty in (events.STATUS, events.FACETRACKING, events.HEADTRACKING):
+        add(ty, lambda e, ty=ty: log.append(
+            (ty, {k: v for k, v in vars(e).items()
+                  if k not in ("type", "time")})))
+
+
+def _dedup(log):
+    from headtrackr_tpu_torch import events
+    st = [e["status"] for ty, e in log if ty == events.STATUS]
+    return [x for i, x in enumerate(st) if i == 0 or st[i - 1] != x]
+
+
+def phase_session(pool, dev):
+    """Tracker(debug=True), real cascade, over one bench-pool loss stream:
+    SESSION_FRAMES frames of 320x240 (16 of the lock frame, then the pool
+    in order, so a blue loss frame every 16).  Returns the session's
+    numbers, step_once's ms over all frames and by the frame's mode."""
+    import math
+
+    import numpy as np
+    import torch
+    from headtrackr_tpu_torch import ClipSource, Tracker, events
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    s = 0  # build_pool: the first LOSS_STREAMS streams lose their face
+    clip = np.stack([pool[0, s]] * LOCK_TICKS
+                    + [pool[t % POOL, s]
+                       for t in range(SESSION_FRAMES - LOCK_TICKS)])
+    bus = events.EventBus()
+    evs = []
+    _listen(bus.add_event_listener, evs)
+    tr = Tracker(ui=False, bus=bus, debug=True, device=dev)
+    if not tr.init(ClipSource(clip)) or tr._canvas_size != (W, H):
+        raise AssertionError("session: init did not take the 320x240 clip")
+    torch.cuda.synchronize()
+    L.reset_launches()
+    times, modes, n_bp = [], [], 0
+    while True:
+        t0 = time.perf_counter()
+        out = tr.step_once()
+        dt = time.perf_counter() - t0
+        if out is None:
+            break
+        times.append(dt)
+        modes.append(int(out.detection))
+        if modes[-1] == ft.MODE_CS:
+            bp = tr.get_debug()["backprojection"]
+            if bp is None or bp.shape != (H, W, 3) or bp.dtype != np.uint8:
+                raise AssertionError("session: no (240, 320, 3) u8 "
+                                     "backprojection on a CS frame")
+            n_bp += 1
+    counts = dict(L.launches)
+    if len(times) != SESSION_FRAMES:
+        raise AssertionError(f"session: {len(times)} of {SESSION_FRAMES} "
+                             f"frames stepped")
+    seq = _dedup(evs)
+    if seq[:3] != ["whitebalance", "detecting", "found"]:
+        raise AssertionError(f"session: statuses {seq[:6]}")
+    lost = [i for i, x in enumerate(seq) if x == "redetecting"]
+    if len(lost) < 3 or any("found" not in seq[i:] for i in lost):
+        raise AssertionError(f"session: no relock after each loss: {seq}")
+    faces = [e for ty, e in evs if ty == events.FACETRACKING]
+    heads = [e for ty, e in evs if ty == events.HEADTRACKING]
+    for e in faces:
+        vals = [e[k] for k in ("x", "y", "width", "height", "confidence")]
+        if e["width"]:  # a zero-mass loss frame has a NaN angle
+            vals.append(e["angle"])
+        if not all(map(math.isfinite, vals)):
+            raise AssertionError(f"session: non-finite payload {e}")
+    if not heads or not all(math.isfinite(e[k]) for e in heads
+                            for k in ("x", "y", "z")):
+        raise AssertionError("session: no finite headtrackingEvents")
+    missing = [k for k in ("hist_mma", "backproject") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"session: kernels never launched: {missing}")
+    ms, modes = 1e3 * np.asarray(times), np.asarray(modes)
+
+    def stats(x):
+        return {"frames": int(x.size), "ms_mean": float(x.mean()),
+                "ms_p50": float(np.percentile(x, 50)),
+                "ms_p99": float(np.percentile(x, 99)), "ms_max": float(x.max())}
+
+    by_mode = {name: stats(ms[modes == m]) for name, m in
+               (("WB", ft.MODE_WB), ("VJ", ft.MODE_VJ), ("CS", ft.MODE_CS))
+               if (modes == m).any()}
+    r = {**stats(ms), "by_mode": by_mode, "cs_frames": n_bp,
+         "face_events": len(faces), "head_events": len(heads),
+         "relocks": len(lost), "launches": counts}
+    log(f"session: Tracker(debug=True) over {SESSION_FRAMES} frames of a "
+        f"bench-pool stream: statuses {' -> '.join(seq)}; {len(faces)} "
+        f"facetrackingEvents, {len(heads)} headtrackingEvents, {n_bp} "
+        f"backprojection images; launches {counts}")
+    for name, x in [("all", r)] + list(by_mode.items()):
+        log(f"session: step_once, {name} frames ({x['frames']}): "
+            f"{x['ms_mean']:.3f} ms mean, p50 {x['ms_p50']:.3f}, p99 "
+            f"{x['ms_p99']:.3f}, max {x['ms_max']:.3f}")
+    return r
+
+
+def phase_fanout(pool, dev, root):
+    """BatchedSession of N_STREAMS pull-mode clips (headline configuration)
+    against a StreamFanout fed from a second tracker's step(sync=True);
+    then a checkpoint of the session's tracker resumed in a fresh one.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+    from headtrackr_tpu_torch import (BatchedSession, BatchedTracker,
+                                      StreamFanout, checkpoint)
+
+    kw, _ = CONFIGS["headline"]
+    n = N_STREAMS
+    seq = np.concatenate([np.repeat(pool[:1], LOCK_TICKS, 0), pool])
+    sess = BatchedSession(n, sources=[seq[:, s] for s in range(n)],
+                          frame_shape=(H, W), device=dev, **kw)
+    logs = [[] for _ in range(n)]
+    for i, lg in enumerate(logs):
+        _listen(lambda ty, cb, i=i: sess.fanout.add_event_listener(i, ty, cb),
+                lg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = sess.run(sync=True)
+    dt_sess = time.perf_counter() - t0
+    if ticks != FANOUT_TICKS:
+        raise AssertionError(f"fanout: {ticks} ticks, not {FANOUT_TICKS}")
+    bt = BatchedTracker(n, (H, W), device=dev, **kw)
+    fan = StreamFanout(n)
+    ref = [[] for _ in range(n)]
+    for i, lg in enumerate(ref):
+        _listen(lambda ty, cb, i=i: fan.add_event_listener(i, ty, cb), lg)
+    for f in seq:
+        fan.emit(bt.step(f, sync=True))
+    n_events = 0
+    for i, (got, want) in enumerate(zip(logs, ref)):
+        if [t for t, _ in got] != [t for t, _ in want]:
+            raise AssertionError(f"fanout: stream {i} event types differ")
+        for a_t, b_t in zip(got, want):
+            a, b = a_t[1], b_t[1]
+            same = a.keys() == b.keys() and all(
+                a[k] == b[k] if isinstance(b[k], str) else
+                bool(np.isclose(a[k], b[k], rtol=RTOL, atol=ATOL,
+                                equal_nan=True)) for k in b)
+            if not same:
+                raise AssertionError(f"fanout: stream {i}: {a} vs {b}")
+        n_events += len(got)
+    relocked = sum("redetecting" in _dedup(lg) and _dedup(lg)[-1] == "found"
+                   for lg in logs[:LOSS_STREAMS])
+    if relocked != LOSS_STREAMS:
+        raise AssertionError(f"fanout: {relocked} of {LOSS_STREAMS} loss "
+                             f"streams relocked")
+    log(f"fanout: BatchedSession of {n} ClipSources, {ticks} ticks + flush "
+        f"({1e3 * dt_sess / ticks:.3f} ms/tick, step(sync=True) and "
+        f"emission of the previous tick): {n_events} events, per stream "
+        f"equal to a StreamFanout of step(sync=True) (time excluded)")
+
+    path = os.path.join(root, "build", "chip_smoke", "resume.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    src = sess.tracker  # mid-track: every stream locked, 16 pool ticks in
+    t0 = time.perf_counter()
+    checkpoint.save_tracker(path, src)
+    t_save = time.perf_counter() - t0
+    fresh = BatchedTracker(n, (H, W), device=dev, **kw)
+    t0 = time.perf_counter()
+    checkpoint.load_tracker(path, fresh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    resumed = [fresh.step_auto(pool[t]) for t in range(RESUME_TICKS)]
+    want = [src.step_auto(pool[t]) for t in range(RESUME_TICKS)]
+    worst = agree(resumed, want, "checkpoint resume")
+    r = {"ticks": ticks, "ms_per_tick": 1e3 * dt_sess / ticks,
+         "events": n_events, "checkpoint_bytes": os.path.getsize(path),
+         "save_ms": 1e3 * t_save, "load_ms": 1e3 * t_load,
+         "resume_ticks": RESUME_TICKS, "resume_worst_float_diff": worst}
+    log(f"checkpoint: save_tracker {r['save_ms']:.1f} ms, "
+        f"{r['checkpoint_bytes']} bytes; load_tracker {r['load_ms']:.1f} ms; "
+        f"the resumed tracker's next {RESUME_TICKS} ticks equal the "
+        f"uninterrupted tracker's (largest float difference {worst})")
+    os.unlink(path)
+    return r
+
+
 def main():
     try:
         import torch
@@ -621,6 +926,8 @@ def main():
     err, times = phase_kernels(pools, dev)
     err["take_along"], ta_times = phase_gather(dev)
     times.update(ta_times)
+    err["hist_mma"], mma_times, x5 = phase_histmma(pools, dev)
+    times.update(mma_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
@@ -629,6 +936,8 @@ def main():
     del runs, frames  # free the trackers and the staged pool
     for name in ("full-frame", "headline"):
         phase_card_vs_cpu(name, pools[0], dev)
+    session = phase_session(pools[0], dev)
+    fanout = phase_fanout(pools[0], dev, root)
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
@@ -640,9 +949,15 @@ def main():
             e["x4_workload"] = times[X4]
         if k == "take_along":
             e.update({key: times[t] for key, t in TA_EXTRA.items()})
+        if k == "hist_mma":
+            e.update(session_launches=session["launches"][k],
+                     n1=times["hist_mma n1"], x6_workload=times["hist_mma x6"],
+                     hist4096_n1=times["hist4096 n1"])
         entries.append(e)
     print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
-                      "ticks": PROFILE_TICKS, "streams": N_STREAMS}))
+                      "ticks": PROFILE_TICKS, "streams": N_STREAMS,
+                      "session": session, "fanout": fanout,
+                      "to_port": {"X5": x5}}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

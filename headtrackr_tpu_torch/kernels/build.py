@@ -38,6 +38,9 @@ _SIGNATURES = {
     "gather": {
         "take_along_launch": (_C, _C, _C, _I, _I, _I, _I, _I, _I, _C),
     },
+    "histmma": {
+        "hist_mma_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+    },
 }
 
 

@@ -1,0 +1,70 @@
+"""Wrapper of the ``hist_mma`` CUDA kernel (``csrc/histmma.cu``).
+
+  hist_mma   replaces tools/kernel_experiments.py mk_call(hist_k6), the
+             int8 one-hot histogram (the JAX package's default formulation,
+             headtrackr_tpu/ops/histogram.py histogram_scan); the camshift
+             histogram when TrackerConfig.histKernel is None, and
+             band_hist_divergence's full-frame histogram
+
+Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
+(ops/histogram.py ``hist_mma_plain``), a CUDA tensor launches the kernel,
+any other device raises.
+"""
+
+import functools
+
+import torch
+
+from ..ops.histogram import NBINS, hist_mma_plain
+from .histpdf import _check_frames, _check_rects
+from .launch import launch, on_cuda
+
+__all__ = ["hist_mma", "split_frame"]
+
+# resident blocks an SM holds (the kernel's 194 registers a thread) and the
+# fewest pixels a block takes (a multiple of the 32-pixel warp step)
+_BLOCKS_PER_SM = 2
+_MIN_BLOCK_PX = 1024
+
+
+def split_frame(n, npx, sms):
+    """(blocks per stream, pixels per block) of a launch over n streams of
+    npx pixels on a card of ``sms`` SMs: one wave of blocks, split evenly
+    over the streams (a stream per block from n >= the wave on), each of
+    at least _MIN_BLOCK_PX pixels.  Each block pays a fixed cost (merging
+    its warps' histograms and writing its partial), so fewer, longer blocks
+    win once the card is full."""
+    wave = _BLOCKS_PER_SM * sms
+    blocks = max(1, min(-(-npx // _MIN_BLOCK_PX), wave // n))
+    block_px = -(-npx // blocks)
+    block_px = -(-block_px // 32) * 32
+    return -(-npx // block_px), block_px
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def hist_mma(frames, rects):
+    """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
+    counts of each stream's rect (clamped to the frame), by an int8 one-hot
+    product on the tensor cores: ``hist4096``'s contract.  Its grid covers
+    the frame: meant for full-frame rects."""
+    _check_frames(frames)
+    N, H, W, _ = frames.shape
+    _check_rects(rects, N)
+    if not on_cuda(frames, rects):
+        return hist_mma_plain(frames, rects)
+    if N * H * W == 0:
+        return torch.zeros((N, NBINS), dtype=torch.float32,
+                           device=frames.device)
+    blocks, block_px = split_frame(N, H * W, _sm_count(frames.device))
+    out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
+    partial = torch.empty((N, blocks, NBINS), dtype=torch.int32,
+                          device=frames.device)
+    with torch.cuda.device(frames.device):
+        launch("hist_mma", "hist_mma_launch", frames.data_ptr(),
+               rects.data_ptr(), partial.data_ptr(), out.data_ptr(), N, H, W,
+               blocks, block_px)
+    return out

@@ -7,15 +7,16 @@ backprojection, <= 10 mean-shift iterations with the fixed-point freeze,
 then size and orientation from the central moments.
 
 Two forms of the step:
-  * ``track``: full frame (CUDA kernels ``hist4096`` and ``backproject`` on
-    the card).
+  * ``track``: full frame (CUDA kernels on the card: the histogram that
+    ``hist_kernel`` names, ``hist_mma`` by default or ``hist4096``, and
+    ``backproject``).
   * ``track_band``: the pdf and the moments over an 8-aligned (bh, bw) band
     around each search window (``band_rect``).  The current histogram is
-    full frame (``hist4096`` + ``backproject_rect``) or, with ``band_hist``,
-    the band's own (one fused ``histpdf_band`` launch: counts, weights and
-    pdf).  A stream whose mean-shift trajectory leaves its band is flagged
-    ``escaped``; its result is invalid and the caller recomputes it with
-    ``track``.
+    full frame (``hist_kernel``'s + ``backproject_rect``) or, with
+    ``band_hist``, the band's own (one fused ``histpdf_band`` launch:
+    counts, weights and pdf).  A stream whose mean-shift trajectory leaves
+    its band is flagged ``escaped``; its result is invalid and the caller
+    recomputes it with ``track``.
 
 * First moments come from 1-D marginal prefix sums (cumsum, a fixed-order
   scan; no float atomics), window-relative like the reference package.
@@ -298,12 +299,14 @@ def _finish(state, win, m, zero_mass, calc_angles, H, W):
                           track_w=tw, track_h=th, track_angle=ang.to(_F32))
 
 
-def track(state, frames, calc_angles=True):
+def track(state, frames, calc_angles=True, hist_kernel=None):
     """One camshift frame step for every stream (src/camshift.js:213-259).
 
-    frames (N, H, W, 3) u8.  Returns (new state, full-frame pdf (N, H, W))."""
+    frames (N, H, W, 3) u8; hist_kernel: TrackerConfig.histKernel (see
+    ops/histogram.HIST_KERNELS).  Returns (new state, full-frame pdf
+    (N, H, W))."""
     H, W = frames.shape[1], frames.shape[2]
-    cur = histogram_full(frames)
+    cur = histogram_full(frames, hist_kernel)
     weights = backprojection_weights(state.model_hist, cur)
     pdf = backproject(frames, weights)
     win, m, zero_mass, _ = mean_shift(pdf, state.window)
@@ -339,7 +342,7 @@ def parse_band(tok):
 
 
 def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
-               band_hist=False, audit_escape=True):
+               band_hist=False, audit_escape=True, hist_kernel=None):
     """Band-local camshift step: ``track``'s math with the pdf lookup and
     moment reductions restricted to each stream's band (``band_rect``).
 
@@ -357,7 +360,8 @@ def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
     band_hist and a state carrying ``band_dirty``, dirty streams are also
     reported escaped, so the caller's full-frame fallback serves them
     reference-exact.  False (the "flag" action) leaves the flag as
-    telemetry."""
+    telemetry.  hist_kernel: the full-frame histogram's kernel, as in
+    ``track``."""
     H, W = frames.shape[1], frames.shape[2]
     ry, rx, bh, bw = band_rect(state.window, band, (H, W))
     rects = band_rects(ry, rx, bh, bw)
@@ -365,7 +369,7 @@ def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
         _, pdf = histpdf_band(frames, rects, state.model_hist, (bh, bw))
     else:
         weights = backprojection_weights(state.model_hist,
-                                         histogram_full(frames))
+                                         histogram_full(frames, hist_kernel))
         pdf = backproject(frames, weights, rects, (bh, bw))
     win, m, zero_mass, escaped = mean_shift(pdf, state.window, ry, rx, (H, W))
     if band_hist and audit_escape and state.band_dirty is not None:

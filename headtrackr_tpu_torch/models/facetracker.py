@@ -19,6 +19,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..device import resolve_device
+from ..ops.histogram import check_hist_kernel
 from ..ops.imageproc import grayscale, whitebalance
 from . import camshift as cs
 from . import headpose as hp
@@ -165,7 +166,8 @@ def _empty_result(n, device):
 
 
 def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
-              device=None, band=None, audit_band=None, tables=None):
+              device=None, band=None, audit_band=None, tables=None,
+              with_pdf=False):
     """Build the per-frame step for a static (cascade, config, H, W, device).
 
     step(state, frames, modes=None) -> (state', StepOutput), frames
@@ -193,13 +195,23 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     tables: the detector tables of this (cascade, config, H, W, device),
         to share them between steps; built here when None.
     device: see device.resolve_device (None: the card).
+    with_pdf=True: the step also returns the full-frame camshift
+        backprojection (N, H, W) f32, zeros on streams not in CS at entry,
+        as a third output: the debug surface of Tracker(debug=True)
+        (src/facetrackr.js:194-196).  It is the pdf the camshift step
+        computes anyway; not with ``band``.
+    The full-frame histogram runs the kernel that config.histKernel names
+    (ops/histogram.HIST_KERNELS: None -> hist_mma, "pallas" -> hist4096);
+    any other value raises.
     """
     device = resolve_device(device)
     if variant not in ("full", "track", "wbtrack"):
         raise ValueError("variant must be 'full', 'track' or 'wbtrack', got "
                          f"{variant!r}")
-    if band is not None and variant == "full":
-        raise ValueError("band requires variant 'track' or 'wbtrack'")
+    if band is not None and (variant == "full" or with_pdf):
+        raise ValueError("band requires variant 'track' or 'wbtrack' "
+                         "without with_pdf")
+    hist_kernel = check_hist_kernel(config.histKernel)
     if config.bandHistAuditAction not in ("flag", "escape"):
         raise ValueError("bandHistAuditAction must be 'flag' or 'escape', "
                          f"got {config.bandHistAuditAction!r}")
@@ -222,7 +234,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             (ring.amax(dim=1) - ring.amin(dim=1)) < 2.0)
         new_mode = torch.where(stable, MODE_VJ, MODE_WB).to(_I32)
         res = _empty_result(frames.shape[0], frames.device)._replace(wb=wb)
-        return state._replace(mode=new_mode, wb_ring=ring, wb_n=n), res
+        return state._replace(mode=new_mode, wb_ring=ring, wb_n=n), res, None
 
     def vj_branch(state, frames):
         found, x, y, w, h, conf = detect_best(grayscale(frames), tables,
@@ -239,36 +251,45 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         new_cs = cs.init_tracker(frames, rect, audit_band)
         cs_state = _where(switch, new_cs, state.cs)
         new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
-        return state._replace(mode=new_mode, cs=cs_state), res
+        return state._replace(mode=new_mode, cs=cs_state), res, None
 
     def vj_frozen(state, frames):
         # wbtrack's VJ streams: the reference's wbtrack reports the
         # whitebalance branch's result with conf 0 and keeps the state
         res = _empty_result(frames.shape[0], frames.device)
         return state, res._replace(wb=whitebalance(frames).to(_F32),
-                                   conf=torch.zeros_like(res.conf))
+                                   conf=torch.zeros_like(res.conf)), None
 
     def cs_branch(state, frames):
+        """(state', result, full-frame pdf or None off the full frame)."""
+        pdf = None
         if band is None:
-            new_cs, _ = cs.track(state.cs, frames, config.calcAngles)
+            new_cs, pdf = cs.track(state.cs, frames, config.calcAngles,
+                                   hist_kernel)
             escaped = torch.zeros_like(state.mode, dtype=torch.bool)
         else:
             new_cs, escaped = cs.track_band(
                 state.cs, frames, config.calcAngles, band,
                 band_hist=config.bandHist,
-                audit_escape=config.bandHistAuditAction == "escape")
+                audit_escape=config.bandHistAuditAction == "escape",
+                hist_kernel=hist_kernel)
         one = torch.ones_like(new_cs.track_angle)
         res = _Result(x=new_cs.track_x.to(_F32), y=new_cs.track_y.to(_F32),
                       w=new_cs.track_w.to(_F32), h=new_cs.track_h.to(_F32),
                       angle=new_cs.track_angle, conf=one,
                       wb=torch.zeros_like(one), escaped=escaped)
-        return state._replace(cs=new_cs), res
+        return state._replace(cs=new_cs), res, pdf
 
     branches = {MODE_WB: wb_branch,
                 MODE_VJ: vj_frozen if variant == "wbtrack" else vj_branch,
                 MODE_CS: cs_branch}
 
+    def no_pdf(n):
+        return torch.zeros((n, H, W), dtype=_F32, device=device)
+
     def dispatch(state, frames, modes):
+        """Each mode's branch on its streams: (state', result, pdf or
+        None), the pdf zero on the streams of other modes."""
         if modes is None:
             modes = state.mode.cpu().numpy()
         present = [m for m in (MODE_WB, MODE_VJ, MODE_CS) if (modes == m).any()]
@@ -276,23 +297,28 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             return branches[present[0]](state, frames)
         new_state = state
         res = _empty_result(frames.shape[0], frames.device)
+        pdf = None
         for m in present:
             idx = torch.as_tensor(np.nonzero(modes == m)[0], device=frames.device)
-            sub_state, sub_res = branches[m](tree_index(state, idx),
-                                             frames.index_select(0, idx))
+            sub_state, sub_res, sub_pdf = branches[m](
+                tree_index(state, idx), frames.index_select(0, idx))
             new_state = tree_scatter(new_state, idx, sub_state)
             res = tree_scatter(res, idx, sub_res)
-        return new_state, res
+            if with_pdf and sub_pdf is not None:
+                pdf = no_pdf(frames.shape[0]).index_copy(0, idx, sub_pdf)
+        return new_state, res, pdf
 
     def step(state, frames, modes=None):
         entry_mode = state.mode
         if variant == "track":
             is_cs = entry_mode == MODE_CS
-            new_state, res = cs_branch(state, frames)
+            new_state, res, pdf = cs_branch(state, frames)
             state = state._replace(cs=_where(is_cs, new_state.cs, state.cs))
             res = res._replace(conf=torch.where(is_cs, res.conf, 0.0))
+            if with_pdf:
+                pdf = torch.where(is_cs.view(-1, 1, 1), pdf, 0.0)
         else:
-            state, res = dispatch(state, frames, modes)
+            state, res, pdf = dispatch(state, frames, modes)
         detection = entry_mode
         N = frames.shape[0]
         dev = frames.device
@@ -404,6 +430,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             fov_width=fov_width, head_diag_cam=head_diag_cam, stopped=stopped)
         if band is not None:
             return new_state, out, res.escaped & is_cs
+        if with_pdf:
+            return new_state, out, pdf if pdf is not None else no_pdf(N)
         return new_state, out
 
     return step

@@ -6,8 +6,9 @@ Reference math:
   - backprojection pdf[p] = weights[bin(p)]                          (src/camshift.js:332-353)
 
 ``hist4096_plain``, ``backproject_plain`` and ``histpdf_band_plain`` are the
-plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``: the same
-function, used for CPU tensors and as the kernels' reference on the card.
+plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``, and
+``hist_mma_plain`` that of ``kernels/histmma.py``: the same function, used
+for CPU tensors and as the kernels' reference on the card.
 ``histogram_rect`` and ``histogram_full`` go through the kernel wrappers, so
 a CUDA tensor always takes a kernel.
 
@@ -19,11 +20,27 @@ size for every stream, placed at each rect's [x, y] clipped into the frame
 import torch
 
 __all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
-           "band_bins", "hist4096_plain", "backproject_plain",
-           "histpdf_band_plain",
-           "histogram_rect", "histogram_full", "backprojection_weights"]
+           "band_bins", "hist4096_plain", "hist_mma_plain",
+           "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
+           "check_hist_kernel", "histogram_rect", "histogram_full",
+           "backprojection_weights"]
 
 NBINS = 4096
+_MMA_CHUNK = 16  # streams a step of hist_mma_plain's one-hot product takes
+
+# TrackerConfig.histKernel's values, each naming a full-frame histogram
+# kernel: None (the reference's default, the int8 one-hot product) ->
+# hist_mma; "pallas" (the reference's Mosaic kernel hist_pallas) ->
+# hist4096.  Both give the same exact counts.
+HIST_KERNELS = (None, "pallas")
+
+
+def check_hist_kernel(kernel):
+    """Raise on a histKernel value that names no kernel; return it."""
+    if kernel not in HIST_KERNELS:
+        raise ValueError(f"histKernel must be None or 'pallas', got "
+                         f"{kernel!r}")
+    return kernel
 
 
 def rgb_bins(rgb):
@@ -49,21 +66,49 @@ def band_origins(rects, band, frame_shape):
     return r[:, 0].clamp(0, W - bw), r[:, 1].clamp(0, H - bh)
 
 
+def _inside(rects, frame_shape, device):
+    """(N, H, W) bool: the pixels inside each [x, y, w, h] rect."""
+    H, W = frame_shape
+    N = rects.shape[0]
+    rows = torch.arange(H, device=device).view(1, H, 1)
+    cols = torch.arange(W, device=device).view(1, 1, W)
+    r = rects.to(torch.int64)
+    x, y = r[:, 0].view(N, 1, 1), r[:, 1].view(N, 1, 1)
+    w, h = r[:, 2].view(N, 1, 1), r[:, 3].view(N, 1, 1)
+    return (rows >= y) & (rows < y + h) & (cols >= x) & (cols < x + w)
+
+
 def hist4096_plain(frames, rects):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) i32 exact counts
     of the pixels inside each stream's rect (clamped to the frame)."""
     N, H, W, _ = frames.shape
-    bins = rgb_bins(frames)
-    rows = torch.arange(H, device=frames.device).view(1, H, 1)
-    cols = torch.arange(W, device=frames.device).view(1, 1, W)
-    r = rects.to(torch.int64)
-    x, y = r[:, 0].view(N, 1, 1), r[:, 1].view(N, 1, 1)
-    w, h = r[:, 2].view(N, 1, 1), r[:, 3].view(N, 1, 1)
-    inside = (rows >= y) & (rows < y + h) & (cols >= x) & (cols < x + w)
-    flat = bins.to(torch.int64) + NBINS * torch.arange(
+    inside = _inside(rects, (H, W), frames.device)
+    flat = rgb_bins(frames).to(torch.int64) + NBINS * torch.arange(
         N, device=frames.device).view(N, 1, 1)
     counts = torch.bincount(flat[inside], minlength=N * NBINS)
     return counts.view(N, NBINS).to(torch.int32)
+
+
+def hist_mma_plain(frames, rects):
+    """``hist4096_plain``'s function by ``hist_mma``'s (and the reference's
+    ``histogram_scan``'s) formulation: per stream the product
+    OneHot(hi)^T @ OneHot(lo) (64, 64) of bin = 64 hi + lo, where a pixel
+    outside the rect takes hi = 64, which matches no row.  (N, 4096) f32;
+    the 0/1 products sum exactly in f32 below 2^24 pixels.  _MMA_CHUNK
+    streams at a time bound the one-hots' memory."""
+    N, H, W, _ = frames.shape
+    dev = frames.device
+    bins = rgb_bins(frames)
+    hi = torch.where(_inside(rects, (H, W), dev), bins >> 6, 64).view(N, -1)
+    lo = (bins & 63).view(N, -1)
+    iota = torch.arange(64, device=dev)
+    c = _MMA_CHUNK
+    out = [torch.bmm((hi[s:s + c, :, None] == iota).float().transpose(1, 2),
+                     (lo[s:s + c, :, None] == iota).float())
+           for s in range(0, N, c)]
+    if not out:
+        return torch.zeros((0, NBINS), dtype=torch.float32, device=dev)
+    return torch.cat(out).view(N, NBINS)
 
 
 def band_bins(frames, rects, band):
@@ -116,11 +161,14 @@ def histogram_rect(frames, rects):
     return histpdf_band(frames, rects)
 
 
-def histogram_full(frames):
-    """Current full-frame histogram: (N, 4096) f32 counts."""
+def histogram_full(frames, kernel=None):
+    """Current full-frame histogram: (N, 4096) f32 counts, by the kernel
+    that ``kernel`` (TrackerConfig.histKernel) names in HIST_KERNELS."""
+    from ..kernels.histmma import hist_mma
     from ..kernels.histpdf import hist4096
+    fn = hist_mma if check_hist_kernel(kernel) is None else hist4096
     N, H, W, _ = frames.shape
-    return hist4096(frames, full_rects(N, (H, W), frames.device))
+    return fn(frames, full_rects(N, (H, W), frames.device))
 
 
 def backprojection_weights(model_hist, cur_hist):

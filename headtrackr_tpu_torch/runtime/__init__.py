@@ -1,1 +1,2 @@
-"""Batched multi-stream serving."""
+"""The runtime: batched multi-stream serving, the session Tracker, events,
+frame sources, fanout and checkpoints."""

@@ -214,6 +214,17 @@ class BatchedTracker:
         self._pending_modes = None  # the last tick's mode_after, unread
         self._tick = 0
 
+    def set_state(self, state, modes=None):
+        """Replace every stream's state (e.g. a checkpoint's): ``state`` a
+        TrackerState of this tracker's schema on its device, ``modes`` its
+        host mode view (read from ``state.mode`` when None).  A captured
+        CUDA graph copies the new state into its input buffers at its next
+        replay."""
+        self.state = state
+        self._modes = (state.mode.cpu().numpy() if modes is None
+                       else np.array(modes, dtype=np.int32))
+        self._pending_modes = None
+
     def reset_stream(self, i):
         """Re-initialize one stream (a new camera connects)."""
         self._drain()  # before overwriting the view
@@ -472,7 +483,9 @@ class BatchedTracker:
         model = self.state.cs.model_hist[s:s + 1]
         rect = cs_mod.band_rects(*cs_mod.band_rect(
             self.state.cs.window[s:s + 1], self.band, self.frame_shape))
-        cur_full = histogram_full(frame)
+        # the reference always counts this one with histogram_scan, whatever
+        # histKernel says: here its kernel, hist_mma
+        cur_full = histogram_full(frame, None)
         cur_band = histogram_rect(frame, rect)
         w_full = backprojection_weights(model, cur_full)
         w_band = backprojection_weights(model, cur_band)

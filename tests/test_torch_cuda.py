@@ -197,7 +197,8 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
 
 def test_graph_replay_counts_its_launches(dev):
     """One replayed all-CS tick adds the launches its graph holds: two
-    take_along per mean-shift iteration, one histogram and one pdf."""
+    take_along per mean-shift iteration, one histogram (hist_mma, the
+    default histKernel's) and one pdf."""
     H, W, n = 120, 160, 4
     clip = _serving_clip(H, W, n)
     bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev)
@@ -210,4 +211,112 @@ def test_graph_replay_counts_its_launches(dev):
     got = {k: launches[k] - before[k] for k in launches}
     assert got == dict(bt._graph.launches)
     assert got["take_along"] == 20
-    assert got["hist4096"] == 1 and got["backproject"] == 1
+    assert got["hist_mma"] == 1 and got["backproject"] == 1
+    assert got["hist4096"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 256])
+@pytest.mark.parametrize("kind", ["random", "one_bin", "bench"])
+def test_hist_mma_bit_equal_to_twin(dev, n, kind):
+    from bench import build_pool
+    from headtrackr_tpu_torch.kernels.histmma import hist_mma
+    H, W = 240, 320
+    g = torch.Generator().manual_seed(17)
+    if kind == "random":
+        frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                               dtype=torch.uint8)
+    elif kind == "one_bin":
+        frames = torch.tensor([120, 100, 90], dtype=torch.uint8).expand(
+            n, H, W, 3).contiguous()
+    else:
+        frames = torch.as_tensor(build_pool(n, H, W, 2, 0,
+                                            np.random.default_rng(0),
+                                            face_noise=20)[1])
+    boxes = torch.cat([torch.randint(-20, 300, (n, 2), generator=g),
+                       torch.randint(0, 240, (n, 2), generator=g)], 1).int()
+    for rects in (hg.full_rects(n, (H, W), "cpu"), boxes):
+        before = launches["hist_mma"]
+        got = hist_mma(frames.to(dev), rects.to(dev))
+        torch.cuda.synchronize()
+        assert launches["hist_mma"] == before + 1
+        assert torch.equal(got.cpu(), hg.hist_mma_plain(frames, rects))
+        assert torch.equal(got.cpu(), hg.hist4096_plain(frames, rects).float())
+
+
+def test_hist_mma_odd_frames_and_views(dev):
+    """Frames whose pixel count is not a multiple of 8 take the kernel's
+    byte loads; a stream slice of a batch is a view at an offset."""
+    from headtrackr_tpu_torch.kernels.histmma import hist_mma
+    g = torch.Generator().manual_seed(19)
+    frames = torch.randint(0, 256, (5, 57, 99, 3), generator=g,
+                           dtype=torch.uint8)
+    rects = torch.tensor([[0, 0, 99, 57], [-5, -3, 20, 20], [10, 7, 200, 200],
+                          [3, 4, 0, 5], [98, 56, 1, 1]], dtype=torch.int32)
+    got = hist_mma(frames.to(dev), rects.to(dev))
+    assert torch.equal(got.cpu(), hg.hist_mma_plain(frames, rects))
+    got = hist_mma(frames.to(dev)[3:], rects.to(dev)[3:])
+    assert torch.equal(got.cpu(), hg.hist_mma_plain(frames[3:], rects[3:]))
+
+
+def test_session_tracker_card_equals_cpu(dev):
+    """Tracker(debug=True) on the card and on the CPU over 24 frames: the
+    same events (time excluded) and debug backprojection bytes."""
+    import headtrackr_tpu_torch as pt
+    H, W = 120, 160
+
+    def frame(cx, cy):
+        f = np.full((H, W, 3), 40, np.uint8)
+        f[cy - 12:cy + 12, cx - 12:cx + 12] = (230, 80, 60)
+        return f
+
+    blue = np.zeros((H, W, 3), np.uint8)
+    blue[..., 2] = 250
+    clip = np.stack([frame(60, 50)] * 16 + [frame(60 + t, 50)
+                                            for t in range(4)]
+                    + [blue] + [frame(70, 55)] * 3)
+    runs = []
+    for d in (dev, "cpu"):
+        bus = pt.events.EventBus()
+        log, bps = [], []
+        for ty in (pt.events.STATUS, pt.events.FACETRACKING,
+                   pt.events.HEADTRACKING):
+            bus.add_event_listener(ty, lambda e, ty=ty: log.append(
+                (ty, {k: v for k, v in vars(e).items() if k != "time"})))
+        t = pt.Tracker(ui=False, bus=bus, cascade=toy_cascade(), debug=True,
+                       device=d)
+        t.init(pt.ClipSource(clip), canvas=(W, H))
+        while t.step_once() is not None:
+            bps.append(t.get_debug()["backprojection"])
+        runs.append((log, bps))
+    (log_a, bp_a), (log_b, bp_b) = runs
+    assert [ty for ty, _ in log_a] == [ty for ty, _ in log_b]
+    for (_, a), (_, b) in zip(log_a, log_b):
+        for k in b:
+            if isinstance(b[k], str):
+                assert a[k] == b[k]
+            else:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-4)
+    assert len(bp_a) == len(clip) and sum(b is not None for b in bp_a) > 4
+    for a, b in zip(bp_a, bp_b):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_replayed_outputs_survive_the_next_replay(dev):
+    """A replayed tick's StepOutput is a copy of the graph's buffers, so
+    holding tick t-1's outputs across tick t (BatchedSession's pipelined
+    emission) is safe."""
+    H, W, n = 120, 160, 4
+    clip = _serving_clip(H, W, n)
+    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev)
+    for f in clip[:18]:
+        bt.step_auto(f)
+    assert (bt.modes == 2).all() and bt._graph is not None
+    held = bt.step_auto(clip[18])
+    snap = [v.clone() for v in held]
+    nxt = bt.step_auto(clip[19])
+    torch.cuda.synchronize()
+    for a, b in zip(held, snap):
+        assert torch.equal(a, b)
+    assert not torch.equal(held.face_x, nxt.face_x)

@@ -118,9 +118,12 @@ def test_import_boundary_no_jax():
     code = ("import sys; "
             "import headtrackr_tpu_torch; "
             "from headtrackr_tpu_torch import convert, device; "
-            "from headtrackr_tpu_torch.kernels import build, gather, histpdf, launch; "
+            "from headtrackr_tpu_torch.kernels import build, gather, histmma, "
+            "histpdf, launch; "
             "from headtrackr_tpu_torch.models import camshift, facetracker; "
-            "from headtrackr_tpu_torch.runtime import serving; "
+            "from headtrackr_tpu_torch.runtime import (checkpoint, events, "
+            "fanout, host, serving, tracker, ui, video); "
+            "from headtrackr_tpu_torch.utils import debugdraw; "
             "from headtrackr_tpu_torch.ops import gather, histogram; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'headtrackr_tpu')); "
