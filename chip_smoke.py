@@ -25,7 +25,15 @@ Phases, one line each; any failure raises and exits nonzero:
      N=256 and N=1, and on X6's own workload (the full frame, uniform random
      bins), timed beside its twin, hist4096's bound (the histogram's bytes),
      the dense int8 one-hot product's tensor-core time and torch.bincount;
-     hist4096 is also timed at N=1, the session's shape;
+     hist4096 is also timed at N=1, the session's shape.  hist_bins (the
+     bins-in histogram) must be bit-equal to its twin and to hist4096 of
+     the full frame of the same pixels on X5's own workload (uniform random
+     ids of shape (256, 8, 9600)), the bench pools' bins, uniform random
+     frames' bins, one-bin rows, rows of 76,799 ids (a tail) with -1, -64
+     and >= 4096 ids among them (and a view of them off the 16-byte
+     boundary), and N=1; timed (events and graph replay) beside its twin,
+     its byte bound and torch.bincount on X5's workload, the bench bins and
+     at N=1;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -62,10 +70,23 @@ Phases, one line each; any failure raises and exits nonzero:
      tracker's step(sync=True) outputs on the same frames (time excluded);
      then save_tracker mid-track, load_tracker into a fresh tracker, whose
      next 8 ticks equal the uninterrupted tracker's (integers exact, floats
-     rtol 1e-5 / atol 1e-4); file size, save and load ms.
+     rtol 1e-5 / atol 1e-4); file size, save and load ms;
+  9. facades: the reference-parity namespace on the card over the session's
+     clip (one bench-pool stream, 256 frames, 15 loss frames), real
+     cascade: facetrackr.Tracker goes WB x 15 -> VJ -> CS, its CS boxes are
+     finite and the first loss frame collapses the box for good (the
+     orchestrator never leaves CS, as in the reference); the first 24
+     frames again with device="cpu" agree (integers exact, floats rtol 1e-5
+     / atol 1e-4); headposition.Tracker from the first CS result, fed each
+     live CS box, with a controllers.RealisticAbsoluteCameraControl on the
+     bus: one finite pose per headtrackingEvent; Smoother over the boxes;
+     camshift.Histogram of each frame equals hist4096 of the full frame;
+     hist_bins, hist_mma, backproject, histpdf_band_hist and take_along
+     each launched; ms per track() by mode (p50/p99), per
+     ccv.detect_objects at 320x240 and per Histogram.
 
-The last four lines: the steady-tick profile, session, fanout and
-checkpoint numbers as JSON (phases 5, 7, 8), the kernels' JSON, the
+The last four lines: the steady-tick profile, session, fanout, checkpoint
+and facade numbers as JSON (phases 5, 7, 8, 9), the kernels' JSON, the
 nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX or headtrackr_tpu.
 """
@@ -91,6 +112,7 @@ INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor cores
 HISTPDF_SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
 GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
 HISTMMA_SRC = "headtrackr_tpu_torch/csrc/histmma.cu"
+HISTBINS_SRC = "headtrackr_tpu_torch/csrc/histbins.cu"
 SESSION_FRAMES = 16 * POOL  # 15 losses: the CS frames' p99 is not their max
 FANOUT_TICKS = 2 * POOL
 RESUME_TICKS = 8
@@ -126,7 +148,12 @@ KERNELS = {
                           HISTPDF_SRC),
     "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
     "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
+    "hist_bins": ("tools/kernel_experiments.py:257", "facade", HISTBINS_SRC),
 }
+# the kernels the facade phase's path launches
+FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
+               "take_along")
+FACADE_CPU_FRAMES = 24
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # take_along's extra timing entries: the full-frame planes, X8's workload
@@ -413,7 +440,7 @@ def phase_histmma(pools, dev):
     N=1 on the bench pools, uniform random frames, one-bin frames and X6's
     own workload (every pixel of the frame, uniform random bins), with
     full-frame rects and random boxes; then its times.  Returns (max abs
-    err, timing entries, X5's bound and library time)."""
+    err, timing entries)."""
     import torch
     from headtrackr_tpu_torch.kernels.histmma import hist_mma
     from headtrackr_tpu_torch.kernels.histpdf import hist4096
@@ -483,22 +510,95 @@ def phase_histmma(pools, dev):
                              lambda: hg.hist4096_plain(fr1, full1),
                              lambda: torch.bincount(given1, minlength=4096),
                              1)
-    # X5 (still to port) computes X3's function from (N, C, CH) i32 bins of
-    # the frame (tools/kernel_experiments.py:44): its byte bound, and the
-    # bincount of the same uniform random bins (X6's workload's)
-    x5 = {"bound_ms": 1e3 * (4 * N * H * W + 4 * 4096 * N) / HBM_BYTES_PER_S,
-          "bound_by": "bytes",
-          "library_ms": t["hist_mma x6"]["library_ms"]}
-    log(f"kernels: X5 (to port): byte bound {x5['bound_ms']:.4f} ms "
-        f"({N} x {H * W} i32 bins in, {N} x 4096 counts out), torch.bincount "
-        f"of its bins {x5['library_ms']:.4f} ms")
     for name, e in t.items():
         log(f"kernels: {name} {e['ms']:.4f} ms, graph replay "
             f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.6f} ms by {e['bound_by']}; the dense int8 "
             f"one-hot product {e['onehot_ms']:.4f} ms; torch.bincount "
             f"{e['library_ms']:.4f} ms)")
-    return err, t, x5
+    return err, t
+
+
+def phase_histbins(pools, dev):
+    """hist_bins against its twin and against hist4096 of the full frame of
+    the same pixels, bit-equal (tolerance 0), on X5's own workload and the
+    others of the module docstring; then its times.  Returns (max abs err,
+    timing entries)."""
+    import numpy as np
+    import torch
+    from headtrackr_tpu_torch.kernels.histbins import hist_bins
+    from headtrackr_tpu_torch.kernels.histpdf import hist4096
+    from headtrackr_tpu_torch.ops import histogram as hg
+
+    N = N_STREAMS
+    g = torch.Generator().manual_seed(23)
+    # name -> (ids (n, P) i32, frames (n, fh, fw, 3) whose pixels' bins are
+    # the valid ids)
+    work = {}
+    # tools/kernel_experiments.py:212: uniform random ids, (N, C, CH)
+    x5 = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 4096, (N, 8, 9600)).astype(np.int32)).to(dev)
+    work["x5_workload"] = (x5.view(N, -1), bin_frames(x5.view(N, H, W)))
+    for k, p in pools.items():
+        fr = torch.as_tensor(p[1]).to(dev)
+        work[f"face_noise={k}"] = (hg.rgb_bins(fr).view(N, -1), fr)
+    rnd = torch.randint(0, 256, (N, H, W, 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    work["random"] = (hg.rgb_bins(rnd).view(N, -1), rnd)
+    one = torch.full((N, H * W), 1234, dtype=torch.int32, device=dev)
+    work["one_bin"] = (one, bin_frames(one.view(N, H, W)))
+    # 76,799 ids a row (P % 4 == 3), 64 of them out of range
+    P, K = H * W - 1, 64
+    pos = torch.randperm(P, generator=g)[:K].to(dev)
+    bad = torch.tensor([-1, -64, 4096, 4097, 5000, 65535, 2 ** 31 - 1,
+                        -2 ** 31], dtype=torch.int32).repeat(K // 8).to(dev)
+    pfr = torch.randint(0, 256, (N, 1, P - K, 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    keep = torch.ones(P, dtype=torch.bool, device=dev)
+    keep[pos] = False
+    pads = torch.empty((N, P), dtype=torch.int32, device=dev)
+    pads[:, keep] = hg.rgb_bins(pfr).view(N, -1)
+    pads[:, ~keep] = bad
+    work["pads_tail"] = (pads, pfr)
+    work["pads_tail_view"] = (pads[1:], pfr[1:])  # rows off the 16 B boundary
+    work["n1"] = (work["face_noise=0"][0][:1], work["face_noise=0"][1][:1])
+    err = 0.0
+    for name, (ids, fr) in work.items():
+        n, fh, fw = fr.shape[:3]
+        got = hist_bins(ids)
+        twin = hg.hist_bins_plain(ids)
+        ref = hist4096(fr.contiguous(), hg.full_rects(n, (fh, fw), dev))
+        torch.cuda.synchronize()
+        e = max(float((got - twin).abs().max()), float((got - ref).abs().max()))
+        err = max(err, e)
+        if not (torch.equal(got, twin) and torch.equal(got, ref)):
+            raise AssertionError(f"hist_bins differs from its twin or "
+                                 f"hist4096 on {name}: max abs err {e}")
+    log(f"kernels: hist_bins bit-equal to its twin and to hist4096 of the "
+        f"same pixels on {', '.join(work)} (max abs err {err})")
+
+    t = {}
+    for name, key in (("hist_bins", "x5_workload"),
+                      ("hist_bins bench", "face_noise=0"),
+                      ("hist_bins n1", "n1")):
+        ids = work[key][0]
+        n, p = ids.shape
+        given = (ids.long() + 4096 * torch.arange(n, device=dev).view(n, 1)
+                 ).view(-1)
+        ms, plain_ms = interleaved_ms(lambda ids=ids: hist_bins(ids),
+                                      lambda ids=ids: hg.hist_bins_plain(ids))
+        # the ids read once, the f32 counts written once
+        b, by = bound(4 * n * p + 4 * 4096 * n, 0)
+        t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       library_ms=cuda_ms(lambda given=given, n=n:
+                                          torch.bincount(given,
+                                                         minlength=n * 4096)),
+                       graph_ms=graph_ms(lambda ids=ids: hist_bins(ids)))
+        log(f"kernels: {name} ({n} x {p} ids) {ms:.4f} ms, graph replay "
+            f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{b:.6f} ms by {by}, torch.bincount {t[name]['library_ms']:.4f} "
+            f"ms)")
+    return err, t
 
 
 def _stacked(outs):
@@ -894,6 +994,170 @@ def phase_fanout(pool, dev, root):
     return r
 
 
+def phase_facade(pool, dev):
+    """The reference-parity namespace on the card over the session's clip:
+    facetrackr.Tracker, headposition.Tracker with a camera controller on
+    the bus, Smoother, camshift.Histogram and ccv.detect_objects; the first
+    FACADE_CPU_FRAMES frames again on the CPU.  Returns the numbers."""
+    import math
+
+    import numpy as np
+    import torch
+    import headtrackr_tpu_torch as pt
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels.histpdf import hist4096
+    from headtrackr_tpu_torch.ops import histogram as hg
+
+    s = 0  # build_pool: the first LOSS_STREAMS streams lose their face
+    clip = np.stack([pool[0, s]] * LOCK_TICKS
+                    + [pool[t % POOL, s]
+                       for t in range(SESSION_FRAMES - LOCK_TICKS)])
+    loss = [i for i in range(len(clip))
+            if i >= LOCK_TICKS and (i - LOCK_TICKS) % POOL == LOSS_AT]
+
+    def run(device, frames):
+        bus = pt.events.EventBus()
+        events = []
+        bus.add_event_listener(pt.events.FACETRACKING,
+                               lambda e: events.append(e))
+        tr = pt.facetrackr.Tracker(bus=bus, device=device)
+        tr.init(pt.ClipSource(frames))
+        res, ms = [], []
+        for _ in range(len(frames)):
+            t0 = time.perf_counter()
+            r = tr.track()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            res.append(r)
+        return res, ms, events
+
+    heads, poses = [], []
+
+    class Camera:
+        aspect = 4 / 3
+
+        def apply(self, pose):
+            poses.append(pose)
+
+    ctl = pt.controllers.RealisticAbsoluteCameraControl(Camera(), 1.0,
+                                                        (0, 0, 100))
+    listener = pt.events.add_event_listener(pt.events.HEADTRACKING,
+                                            heads.append)
+    torch.cuda.synchronize()
+    L.reset_launches()
+    try:
+        res, ms, faces = run(dev, clip)
+        det = [r.detection for r in res]
+        if det[:16] != ["WB"] * 15 + ["VJ"] or set(det[16:]) != {"CS"}:
+            raise AssertionError(f"facade: modes {det[:20]}")
+        cs = [r for r in res if r.detection == "CS"]
+        if len(faces) != len(cs):
+            raise AssertionError(f"facade: {len(faces)} facetrackingEvents "
+                                 f"for {len(cs)} CS frames")
+        vals = [v for r in cs for v in (r.x, r.y, r.width, r.height, r.angle)]
+        if not all(map(math.isfinite, vals)):
+            raise AssertionError("facade: a non-finite CS box")
+        live = [r for i, r in enumerate(res)
+                if r.detection == "CS" and i < loss[0]]
+        if not live or any(r.width <= 0 or r.height <= 0 for r in live):
+            raise AssertionError("facade: no live CS box before the loss")
+        if any(r.width or r.height for r in res[loss[0]:]):
+            raise AssertionError("facade: the loss frame did not collapse "
+                                 "the box")
+        hp = pt.headposition.Tracker(live[0], W, H, device=dev)
+        sm = pt.Smoother(device=dev)
+        sm.init(live[0])
+        smoothed = []
+        for r in live:
+            hp.track(r)
+            smoothed.append(sm.smooth(r))
+        hists, hist_ms = [], []
+        for f in clip:
+            t0 = time.perf_counter()
+            hists.append(pt.camshift.Histogram(f, device=dev))
+            hist_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        counts = dict(L.launches)
+    finally:
+        pt.events.remove_event_listener(pt.events.HEADTRACKING, listener)
+        ctl.close()
+    missing = [k for k in FACADE_PATH if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"facade: kernels never launched: {missing} "
+                             f"({counts})")
+    if len(heads) != len(live) or len(poses) != len(heads):
+        raise AssertionError(f"facade: {len(heads)} headtrackingEvents, "
+                             f"{len(poses)} poses for {len(live)} boxes")
+    for e, p in zip(heads, poses):
+        v = [e.x, e.y, e.z, p.fov, *p.position, *p.view_offset]
+        if not all(map(math.isfinite, v)):
+            raise AssertionError(f"facade: non-finite pose {e} {p}")
+    if not all(math.isfinite(v) for d in smoothed
+               for k, v in d.items() if k in ("x", "y", "width", "height")):
+        raise AssertionError("facade: non-finite smoothed box")
+    frames = torch.as_tensor(clip).to(dev)
+    want = hist4096(frames, hg.full_rects(len(clip), (H, W), dev)).cpu()
+    if not torch.equal(torch.as_tensor(np.stack(hists)), want):
+        raise AssertionError("facade: Histogram differs from hist4096")
+
+    # the first frames again on the CPU
+    cpu, _, cpu_faces = run("cpu", clip[:FACADE_CPU_FRAMES])
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(res, cpu)):
+        for f in ("detection", "x", "y", "width", "height", "angle",
+                  "confidence", "wb"):
+            x, y = getattr(a, f), getattr(b, f)
+            if isinstance(y, str) or (isinstance(x, int)
+                                      and isinstance(y, int)):
+                ok = x == y  # modes, and the CS box's integers
+            else:
+                ok = bool(np.isclose(x, y, rtol=RTOL, atol=ATOL))
+                worst = max(worst, abs(float(x) - float(y)))
+            if not ok:
+                raise AssertionError(f"facade card vs CPU: frame {k} {f}: "
+                                     f"{x} vs {y}")
+    if len(cpu_faces) != sum(r.detection == "CS" for r in cpu):
+        raise AssertionError("facade card vs CPU: facetrackingEvents")
+
+    gray = pt.ccv.grayscale(clip[0], device=dev)
+    det_ms = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boxes = pt.ccv.detect_objects(gray, pt.cascade(), 5, 1)
+        det_ms.append(1e3 * (time.perf_counter() - t0))
+    if not boxes:
+        raise AssertionError("facade: ccv.detect_objects found no face")
+
+    def stats(x):
+        x = np.asarray(x)
+        return {"frames": int(x.size), "ms_p50": float(np.percentile(x, 50)),
+                "ms_p99": float(np.percentile(x, 99)),
+                "ms_mean": float(x.mean())}
+
+    ms = np.asarray(ms)
+    by_mode = {m: stats(ms[np.asarray(det) == m]) for m in ("WB", "VJ", "CS")}
+    r = {"frames": len(clip), "loss_frames": len(loss), "live_cs": len(live),
+         "head_events": len(heads), "track_ms_by_mode": by_mode,
+         "detect_objects_ms": stats(det_ms[1:]), "histogram_ms": stats(hist_ms),
+         "cpu_frames": FACADE_CPU_FRAMES, "cpu_worst_float_diff": worst,
+         "launches": counts}
+    log(f"facade: facetrackr.Tracker over {len(clip)} frames ({len(loss)} "
+        f"loss frames): WB x 15 -> VJ -> CS, {len(live)} live CS boxes, then "
+        f"the box collapses at frame {loss[0]}; {len(heads)} head poses, "
+        f"finite; Histogram == hist4096 on every frame; the first "
+        f"{FACADE_CPU_FRAMES} frames on the CPU agree (largest float "
+        f"difference {worst}); launches {counts}")
+    for m, x in by_mode.items():
+        log(f"facade: track() {m} frames ({x['frames']}): p50 "
+            f"{x['ms_p50']:.3f} ms, p99 {x['ms_p99']:.3f}, mean "
+            f"{x['ms_mean']:.3f}")
+    log(f"facade: ccv.detect_objects at {W}x{H}: p50 "
+        f"{r['detect_objects_ms']['ms_p50']:.3f} ms ({len(boxes)} faces); "
+        f"camshift.Histogram p50 {r['histogram_ms']['ms_p50']:.3f} ms, p99 "
+        f"{r['histogram_ms']['ms_p99']:.3f}")
+    return r
+
+
 def main():
     try:
         import torch
@@ -926,8 +1190,10 @@ def main():
     err, times = phase_kernels(pools, dev)
     err["take_along"], ta_times = phase_gather(dev)
     times.update(ta_times)
-    err["hist_mma"], mma_times, x5 = phase_histmma(pools, dev)
+    err["hist_mma"], mma_times = phase_histmma(pools, dev)
     times.update(mma_times)
+    err["hist_bins"], hb_times = phase_histbins(pools, dev)
+    times.update(hb_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
@@ -938,6 +1204,8 @@ def main():
         phase_card_vs_cpu(name, pools[0], dev)
     session = phase_session(pools[0], dev)
     fanout = phase_fanout(pools[0], dev, root)
+    facade = phase_facade(pools[0], dev)
+    counts["facade"] = facade["launches"]
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
@@ -949,6 +1217,8 @@ def main():
             e["x4_workload"] = times[X4]
         if k == "take_along":
             e.update({key: times[t] for key, t in TA_EXTRA.items()})
+        if k == "hist_bins":
+            e.update(bench=times["hist_bins bench"], n1=times["hist_bins n1"])
         if k == "hist_mma":
             e.update(session_launches=session["launches"][k],
                      n1=times["hist_mma n1"], x6_workload=times["hist_mma x6"],
@@ -957,7 +1227,7 @@ def main():
     print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
-                      "to_port": {"X5": x5}}))
+                      "facade": facade}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

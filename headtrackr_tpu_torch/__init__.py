@@ -13,7 +13,11 @@ position over N camera streams, served on one NVIDIA GPU:
 
 Entry points: ``Tracker`` (one camera, the reference's headtrackr.Tracker),
 ``BatchedTracker`` (N streams), ``BatchedSession`` / ``StreamFanout`` /
-``IngestRing`` (N streams with per-stream events), ``checkpoint``.
+``IngestRing`` (N streams with per-stream events), ``checkpoint``, and the
+reference-parity namespace: ``ccv``, ``camshift`` (its ``Histogram`` runs
+the hist_bins kernel), ``facetrackr``, ``headposition``, ``controllers``,
+``Smoother``, ``getWhitebalance``.  Each takes ``device=``; None means the
+card, and raises when there is none.
 
 The JAX package ``headtrackr_tpu`` is the reference this port is held
 against; this package imports torch and numpy, never jax or headtrackr_tpu.
@@ -23,6 +27,8 @@ __version__ = "0.1.0"
 
 from .cascade import Cascade, frontalface, toy_cascade
 from .config import TrackerConfig
+from . import camshift, ccv, controllers, facetrackr, headposition
+from .api import Smoother, getWhitebalance
 from .runtime import checkpoint, events
 from .runtime.fanout import BatchedSession, IngestRing, StreamFanout
 from .runtime.serving import BatchedTracker
@@ -30,7 +36,16 @@ from .runtime.tracker import Tracker
 from .runtime.ui import Ui
 from .runtime.video import CameraSource, ClipSource, SyntheticFaceSource
 
-__all__ = ["BatchedTracker", "TrackerConfig", "frontalface", "toy_cascade",
-           "Cascade", "Tracker", "Ui", "events", "checkpoint",
-           "StreamFanout", "IngestRing", "BatchedSession",
-           "ClipSource", "SyntheticFaceSource", "CameraSource"]
+# The bundled model, like headtrackr.cascade (src/cascade.js:19); the
+# module stays reachable as ``from headtrackr_tpu_torch.cascade import ...``.
+cascade = frontalface
+rev = 2  # API-parity counterpart of headtrackr.rev (src/main.js:30)
+
+__all__ = [
+    "Cascade", "frontalface", "toy_cascade", "TrackerConfig",
+    "ccv", "camshift", "facetrackr", "headposition", "controllers",
+    "Smoother", "getWhitebalance", "Tracker", "Ui", "BatchedTracker",
+    "StreamFanout", "IngestRing", "BatchedSession",
+    "ClipSource", "SyntheticFaceSource", "CameraSource",
+    "events", "cascade", "rev", "checkpoint",
+]

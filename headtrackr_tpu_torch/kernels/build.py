@@ -41,6 +41,9 @@ _SIGNATURES = {
     "histmma": {
         "hist_mma_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
     },
+    "histbins": {
+        "hist_bins_launch": (_C, _C, _C, _I, _I, _I, _C),
+    },
 }
 
 

@@ -11,13 +11,11 @@ Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 any other device raises.
 """
 
-import functools
-
 import torch
 
 from ..ops.histogram import NBINS, hist_mma_plain
 from .histpdf import _check_frames, _check_rects
-from .launch import launch, on_cuda
+from .launch import launch, on_cuda, sm_count
 
 __all__ = ["hist_mma", "split_frame"]
 
@@ -41,11 +39,6 @@ def split_frame(n, npx, sms):
     return -(-npx // block_px), block_px
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def hist_mma(frames, rects):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
     counts of each stream's rect (clamped to the frame), by an int8 one-hot
@@ -59,7 +52,7 @@ def hist_mma(frames, rects):
     if N * H * W == 0:
         return torch.zeros((N, NBINS), dtype=torch.float32,
                            device=frames.device)
-    blocks, block_px = split_frame(N, H * W, _sm_count(frames.device))
+    blocks, block_px = split_frame(N, H * W, sm_count(frames.device))
     out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     partial = torch.empty((N, blocks, NBINS), dtype=torch.int32,
                           device=frames.device)

@@ -8,15 +8,16 @@ and ``replayed`` adds that tally on each replay of the graph.
 """
 
 import contextlib
+import functools
 
 import torch
 
 __all__ = ["launches", "reset_launches", "capturing", "replayed", "launch",
-           "on_cuda"]
+           "on_cuda", "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
-            "hist_mma": 0}
+            "hist_mma": 0, "hist_bins": 0}
 
 _tally = None  # the open ``capturing`` block's tally
 
@@ -73,3 +74,9 @@ def on_cuda(*tensors):
                 raise ValueError("kernel inputs must be contiguous")
         return True
     raise ValueError(f"no kernel for device {dev}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The SMs of a CUDA device (the wrappers size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -7,23 +7,26 @@ Reference math:
 
 ``hist4096_plain``, ``backproject_plain`` and ``histpdf_band_plain`` are the
 plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``, and
-``hist_mma_plain`` that of ``kernels/histmma.py``: the same function, used
-for CPU tensors and as the kernels' reference on the card.
-``histogram_rect`` and ``histogram_full`` go through the kernel wrappers, so
-a CUDA tensor always takes a kernel.
+``hist_mma_plain`` that of ``kernels/histmma.py`` and ``hist_bins_plain``
+that of ``kernels/histbins.py``: the same function, used for CPU tensors
+and as the kernels' reference on the card.  ``histogram_rect``,
+``histogram_full``, ``histogram_4096`` and ``histogram_scan`` go through the
+kernel wrappers, so a CUDA tensor always takes a kernel.
 
 Rects are (N, 4) i32 [x, y, w, h].  A *band* is a (bh, bw) rect of the same
 size for every stream, placed at each rect's [x, y] clipped into the frame
 (``band_origins``); ``bh <= H`` and ``bw <= W``.
 """
 
+import math
+
 import torch
 
 __all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
-           "band_bins", "hist4096_plain", "hist_mma_plain",
+           "band_bins", "hist4096_plain", "hist_mma_plain", "hist_bins_plain",
            "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
            "check_hist_kernel", "histogram_rect", "histogram_full",
-           "backprojection_weights"]
+           "histogram_4096", "histogram_scan", "backprojection_weights"]
 
 NBINS = 4096
 _MMA_CHUNK = 16  # streams a step of hist_mma_plain's one-hot product takes
@@ -111,6 +114,18 @@ def hist_mma_plain(frames, rects):
     return torch.cat(out).view(N, NBINS)
 
 
+def hist_bins_plain(bins):
+    """(N, P) i32 bin ids -> (N, 4096) f32 exact counts, one histogram per
+    row; an id outside [0, 4096) counts nowhere.  Integer counts (one
+    bincount over per-row offset ids), converted to f32 at the end."""
+    N = bins.shape[0]
+    b = bins.to(torch.int64)
+    ok = (b >= 0) & (b < NBINS)
+    flat = b + NBINS * torch.arange(N, device=bins.device).view(N, 1)
+    counts = torch.bincount(flat[ok], minlength=N * NBINS)
+    return counts.view(N, NBINS).to(torch.float32)
+
+
 def band_bins(frames, rects, band):
     """(N, bh, bw) i64 bins of each stream's band."""
     N, H, W, _ = frames.shape
@@ -169,6 +184,25 @@ def histogram_full(frames, kernel=None):
     fn = hist_mma if check_hist_kernel(kernel) is None else hist4096
     N, H, W, _ = frames.shape
     return fn(frames, full_rects(N, (H, W), frames.device))
+
+
+def histogram_4096(bins, mask=None):
+    """(..., H, W) i32 bin ids -> (..., 4096) f32 exact counts, one
+    histogram per leading index (a stream); ids outside [0, 4096) count
+    nowhere.  ``mask`` (bool, broadcast to ``bins``): False pixels count
+    nowhere.  The ``hist_bins`` kernel on the card."""
+    from ..kernels.histbins import hist_bins
+    if mask is not None:
+        bins = torch.where(mask, bins, -1)
+    lead, (H, W) = bins.shape[:-2], bins.shape[-2:]
+    rows = bins.reshape(math.prod(lead), H * W).contiguous()
+    return hist_bins(rows).view(*lead, NBINS)
+
+
+def histogram_scan(bins, block=None):
+    """``histogram_4096`` without a mask.  ``block`` is the reference's TPU
+    tiling knob: accepted, changes nothing."""
+    return histogram_4096(bins)
 
 
 def backprojection_weights(model_hist, cur_hist):

@@ -320,3 +320,87 @@ def test_replayed_outputs_survive_the_next_replay(dev):
     for a, b in zip(held, snap):
         assert torch.equal(a, b)
     assert not torch.equal(held.face_x, nxt.face_x)
+
+
+@pytest.mark.parametrize("kind", ["x5", "bench", "random", "pads_tail", "n1"])
+def test_hist_bins_bit_equal_to_twin(dev, kind):
+    """hist_bins against its twin and against hist4096 of the same pixels:
+    X5's workload (uniform random ids of shape (256, 8, 9600)), the bench
+    pool's bins, uniform random frames' bins, rows of 76,799 ids with
+    out-of-range ids among them (and the same rows off the 16-byte
+    boundary), and N = 1."""
+    from bench import build_pool
+    from headtrackr_tpu_torch.kernels.histbins import hist_bins
+    H, W, n = 240, 320, 256
+    g = torch.Generator().manual_seed(29)
+    if kind == "x5":
+        ids = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 4096, (n, 8, 9600)).astype(np.int32)).view(n, -1)
+        frames = torch.stack([(ids >> 8) << 4, ((ids >> 4) & 15) << 4,
+                              (ids & 15) << 4], -1).view(n, H, W, 3).to(
+                                  torch.uint8)
+    elif kind == "pads_tail":
+        frames = torch.randint(0, 256, (n, 1, H * W - 65, 3), generator=g,
+                               dtype=torch.uint8)
+        ids = torch.cat([hg.rgb_bins(frames).view(n, -1),
+                         torch.tensor([-1, -64, 4096, 2 ** 31 - 1] * 16,
+                                      dtype=torch.int32).expand(n, 64)], 1)
+        ids = ids[:, torch.randperm(ids.shape[1], generator=g)].contiguous()
+    else:
+        if kind == "random":
+            frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                                   dtype=torch.uint8)
+        else:
+            frames = torch.as_tensor(build_pool(n, H, W, 2, 0,
+                                                np.random.default_rng(0))[1])
+        if kind == "n1":
+            frames = frames[:1].contiguous()
+        ids = hg.rgb_bins(frames).view(frames.shape[0], -1)
+    m = frames.shape[0]
+    want = hg.hist4096_plain(frames, hg.full_rects(
+        m, frames.shape[1:3], "cpu")).float()
+    before = launches["hist_bins"]
+    got = hist_bins(ids.to(dev))
+    torch.cuda.synchronize()
+    assert launches["hist_bins"] == before + 1
+    assert torch.equal(got.cpu(), hg.hist_bins_plain(ids))
+    assert torch.equal(got.cpu(), want)
+    if kind == "pads_tail":  # a row that starts off the 16-byte boundary
+        assert torch.equal(hist_bins(ids.to(dev)[1:]).cpu(),
+                           hg.hist_bins_plain(ids[1:]))
+
+
+def test_facades_default_to_the_card(dev):
+    """Without device= the facades run on the card and agree with the CPU:
+    camshift.Histogram exactly, facetrackr.Tracker over 24 frames result
+    for result (integers exact, floats rtol 1e-5 / atol 1e-4)."""
+    import headtrackr_tpu_torch as pt
+    H, W = 120, 160
+
+    def frame(cx, cy):
+        f = np.full((H, W, 3), 40, np.uint8)
+        f[cy - 12:cy + 12, cx - 12:cx + 12] = (230, 80, 60)
+        return f
+
+    clip = np.stack([frame(60, 50)] * 16 + [frame(60 + t, 50)
+                                            for t in range(8)])
+    assert pt.camshift.Tracker().device.type == "cuda"
+    assert pt.Smoother().device.type == "cuda"
+    assert pt.ccv.grayscale(clip[0]).is_cuda
+    np.testing.assert_array_equal(pt.camshift.Histogram(clip[0]),
+                                  pt.camshift.Histogram(clip[0], device="cpu"))
+    runs = []
+    for kw in ({}, {"device": "cpu"}):
+        t = pt.facetrackr.Tracker(cascade=toy_cascade(), sendEvents=False,
+                                  **kw)
+        t.init(pt.ClipSource(clip))
+        runs.append([vars(t.track()) for _ in range(len(clip))])
+    assert [r["detection"] for r in runs[0]][-1] == "CS"
+    for a, b in zip(*runs):
+        for k in b:
+            if k == "time":
+                continue
+            if isinstance(b[k], (str, int)) and isinstance(a[k], type(b[k])):
+                assert a[k] == b[k], k
+            else:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-4)

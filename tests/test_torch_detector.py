@@ -5,6 +5,7 @@ fixture.  ``found`` and ``floor(rect)`` exact, x/y/w/h to rtol 1e-6,
 confidence to atol 1e-5, grouped box set equal to the oracle's (rtol 1e-6
 against its f64 values)."""
 
+import importlib
 import os
 
 import jax
@@ -18,8 +19,11 @@ from headtrackr_tpu.cascade import toy_cascade as j_toy
 from headtrackr_tpu.models import detector as jd
 from headtrackr_tpu.ops.imageproc import grayscale as j_gray
 from headtrackr_tpu.oracle import detector as od
-from headtrackr_tpu_torch import cascade as tc
 from headtrackr_tpu_torch.models import detector as td
+
+# the module: the package's ``cascade`` attribute is the bundled model, as
+# the reference package's is
+tc = importlib.import_module("headtrackr_tpu_torch.cascade")
 
 torch.set_num_threads(2)
 
