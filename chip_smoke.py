@@ -13,16 +13,23 @@ Phases, one line each; any failure raises and exits nonzero:
      (face_noise 0 and 20) and uniform random frames, with full-frame
      rects, random detection boxes and 96x128 bands, plus histpdf_band on
      the TPU experiments' own workload (the full frame, random bins, a model
-     of integers 1..199).  take_along likewise on X8's own workload (an
+     of integers 1..199), and backproject_rect also on band x origins on and
+     off the 8-pixel grid, odd band widths and a band equal to the frame
+     (and timed on both: origins from -20 up, and on the grid as the
+     serving path places them).  take_along likewise on X8's own workload (an
      (8, 128) lane gather) and on mean shift's prefix-sum planes of 256
      streams (the 96x128 band and the 240x320 frame, one iteration's row
      and column selections).  Each is timed (CUDA events over 20 calls, and
      over 20 calls replayed from a CUDA graph) beside its twin, its
      byte/operation bound and the nearest single PyTorch call (given
      precomputed bins for the histogram kernels; torch.gather for
-     take_along).  hist_mma (the int8 tensor-core histogram) likewise on the
-     bench pools, uniform random frames, one-bin frames and random boxes at
-     N=256 and N=1, and on X6's own workload (the full frame, uniform random
+     take_along), the library call by events and, where a graph can
+     capture it (torch.gather; not torch.bincount, which reads its max on
+     the host), by graph replay.  hist_mma (the int8 tensor-core histogram)
+     likewise on the bench pools, uniform random frames, one-bin frames and
+     random boxes at N=256, 1, 2 and 3, on 241x320, 48x80 and 57x99 frames
+     (pixel counts off its 1,024-pixel stage, with and without its bulk
+     copies) and on X6's own workload (the full frame, uniform random
      bins), timed beside its twin, hist4096's bound (the histogram's bytes),
      the dense int8 one-hot product's tensor-core time and torch.bincount;
      hist4096 is also timed at N=1, the session's shape.  hist_bins (the
@@ -156,6 +163,11 @@ FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
 FACADE_CPU_FRAMES = 24
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
+# backproject_rect's timing entry at band x origins on the 8-pixel grid, as
+# the serving path places them (its main entry: origins from -20 up)
+BPR_GRID = "backproject_rect grid"
+# phase_kernels' entries whose library call is torch.bincount
+BINCOUNT = ("hist4096", "histpdf_band_hist")
 # take_along's extra timing entries: the full-frame planes, X8's workload
 TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
 
@@ -208,6 +220,19 @@ def graph_ms(fn, reps=20):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def library_times(lib, capturable):
+    """{library_ms: events, library_graph_ms: graph replay} of a library
+    call, the graph time None where the call reads the card from the host
+    (torch.bincount sizes its output by its max), which a graph cannot
+    capture."""
+    return {"library_ms": cuda_ms(lib),
+            "library_graph_ms": graph_ms(lib) if capturable else None}
+
+
+def fmt_ms(x):
+    return "not capturable" if x is None else f"{x:.4f} ms"
 
 
 def interleaved_ms(kernel, plain):
@@ -303,11 +328,26 @@ def phase_kernels(pools, dev):
     want = hg.histpdf_band_plain(x4_frames, full, x4_model, (H, W))
     for a, b in zip(got, want):
         check("histpdf_band", a, b)
+    # backproject_rect's edges: x origins on the 8-pixel grid (the serving
+    # path's 4-pixel loop) and off it, odd band widths, the whole frame
+    on_grid = bands.clone()
+    on_grid[:, 0] = bands[:, 0].clamp(0, W - bw) // 8 * 8
+    off_grid = on_grid.clone()
+    off_grid[:, 0] += torch.arange(N, device=dev, dtype=torch.int32) % 7 + 1
+    w = torch.rand((N, 4096), generator=g).to(dev)
+    for fr in (inputs["random"], inputs["face_noise=0"]):
+        for rects, band in ((on_grid, BAND), (off_grid, BAND),
+                            (bands, (bh - 1, bw - 1)), (on_grid, (bh, bw + 3)),
+                            (bands, (H, W))):
+            check("backproject_rect", K.backproject(fr, w, rects, band),
+                  hg.backproject_plain(fr, w, rects, band))
     for name, e in err.items():
         if e != 0.0:
             raise AssertionError(f"{name} differs from its plain twin: "
                                  f"max abs err {e}")
-    log(f"kernels: bit-equal to their plain twins (max abs err {err})")
+    log(f"kernels: bit-equal to their plain twins, backproject_rect also on "
+        f"origins on and off the 8-pixel grid, odd widths and the whole "
+        f"frame (max abs err {err})")
 
     # times at the main path's shapes, face_noise=0 frames
     fr = inputs["face_noise=0"]
@@ -315,13 +355,15 @@ def phase_kernels(pools, dev):
     w = hg.backprojection_weights(model, K.hist4096(fr, full))
     bins_full = hg.rgb_bins(fr).view(N, -1).long()
     bins_band = hg.band_bins(fr, bands, BAND).view(N, -1)
+    bins_grid = hg.band_bins(fr, on_grid, BAND).view(N, -1)
     given_full, given_box = given_bins(fr, full), given_bins(fr, boxes)
     npx_band, npx_full = N * bh * bw, N * H * W
     npx_box = given_box.numel()
     x4_bins = hg.rgb_bins(x4_frames).view(N, -1).long()
     x4_w = hg.backprojection_weights(x4_model, K.hist4096(x4_frames, full))
     # name -> (kernel call, plain twin call, library call given bins,
-    #          bytes moved, operations)
+    #          bytes moved, operations); the gathers replay from a graph,
+    #          bincount does not (library_times)
     calls = {
         "hist4096": (
             lambda: K.hist4096(fr, full), lambda: hg.hist4096_plain(fr, full),
@@ -335,6 +377,11 @@ def phase_kernels(pools, dev):
             lambda: K.backproject(fr, w, bands, BAND),
             lambda: hg.backproject_plain(fr, w, bands, BAND),
             lambda: torch.gather(w, 1, bins_band),
+            7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
+        BPR_GRID: (
+            lambda: K.backproject(fr, w, on_grid, BAND),
+            lambda: hg.backproject_plain(fr, w, on_grid, BAND),
+            lambda: torch.gather(w, 1, bins_grid),
             7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
         "histpdf_band": (
             lambda: K.histpdf_band(fr, bands, model, BAND),
@@ -357,11 +404,12 @@ def phase_kernels(pools, dev):
         ms, plain_ms = interleaved_ms(kern, plain)
         b, by = bound(nbytes, ops)
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                       library_ms=cuda_ms(lib), graph_ms=graph_ms(kern))
+                       graph_ms=graph_ms(kern),
+                       **library_times(lib, name not in BINCOUNT))
         log(f"kernels: {name} {ms:.4f} ms, graph replay "
             f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{b:.4f} ms, given-bins library call {t[name]['library_ms']:.4f} "
-            f"ms)")
+            f"ms, graph replay {fmt_ms(t[name]['library_graph_ms'])})")
     return err, t
 
 
@@ -427,11 +475,12 @@ def phase_gather(dev):
         ms, plain_ms = interleaved_ms(kern, plain)
         b, by = bound(nbytes, 0)
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                       library_ms=cuda_ms(lib), graph_ms=graph_ms(kern),
-                       launches_per_call=len(calls))
+                       graph_ms=graph_ms(kern), launches_per_call=len(calls),
+                       **library_times(lib, True))
         log(f"kernels: {name} ({len(calls)} launches) {ms:.4f} ms, graph "
             f"replay {t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {b:.6f} ms, torch.gather {t[name]['library_ms']:.4f} ms)")
+            f"bound {b:.6f} ms, torch.gather {t[name]['library_ms']:.4f} ms, "
+            f"graph replay {fmt_ms(t[name]['library_graph_ms'])})")
     return err, t
 
 
@@ -462,22 +511,40 @@ def phase_histmma(pools, dev):
                        torch.randint(0, 240, (N, 2), generator=g)],
                       1).to(torch.int32).to(dev)
     err = 0.0
+
+    def check(name, fr, rects):
+        nonlocal err
+        got = hist_mma(fr, rects)
+        want = hg.hist_mma_plain(fr, rects)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        if e != 0.0 or not torch.equal(got, hist4096(fr, rects)):
+            raise AssertionError(f"hist_mma differs from its twin or "
+                                 f"hist4096 on {name} at N={fr.shape[0]}: "
+                                 f"max abs err {e}")
+
     for name, fr in inputs.items():
         for rects in (full, boxes):
-            for n in (N, 1):
-                got = hist_mma(fr[:n], rects[:n])
-                want = hg.hist_mma_plain(fr[:n], rects[:n])
-                torch.cuda.synchronize()
-                e = float((got - want).abs().max())
-                err = max(err, e)
-                if e != 0.0 or not torch.equal(got, hist4096(fr[:n],
-                                                             rects[:n])):
-                    raise AssertionError(f"hist_mma differs from its twin "
-                                         f"or hist4096 on {name} at N={n}: "
-                                         f"max abs err {e}")
+            for n in (N, 1, 2, 3):
+                check(name, fr[:n], rects[:n])
+    # pixel counts off the 1,024-pixel stage and the 128-pixel tile: with
+    # the bulk copies (241 x 320, 48 x 80) and without (57 x 99, and a
+    # view one stream in)
+    for shape in ((241, 320), (48, 80), (57, 99)):
+        fr = torch.randint(0, 256, (4,) + shape + (3,), generator=g,
+                           dtype=torch.uint8).to(dev)
+        rects = torch.cat([hg.full_rects(1, shape, dev),
+                           boxes[:3] % torch.tensor(
+                               [shape[1], shape[0], 80, 80], device=dev,
+                               dtype=torch.int32)])
+        for n in (1, 2, 3):
+            check(f"{shape}", fr[:n], rects[:n])
+        check(f"{shape} view", fr[1:], rects[1:])
     log(f"kernels: hist_mma bit-equal to its twin (and to hist4096) on the "
         f"bench pools, random, one-bin and X6 frames, full frames and "
-        f"boxes, N={N} and N=1 (max abs err {err})")
+        f"boxes, N={N}, 1, 2 and 3, and on 241x320, 48x80 and 57x99 frames "
+        f"(max abs err {err})")
 
     def entry(kern, plain, lib, n):
         """Times beside the histogram's bound, hist4096's: the bytes (frames
@@ -490,7 +557,7 @@ def phase_histmma(pools, dev):
         ms, plain_ms = interleaved_ms(kern, plain)
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                     onehot_ms=1e3 * 2 * 4096 * npx / INT8_OPS_PER_S,
-                    library_ms=cuda_ms(lib), graph_ms=graph_ms(kern))
+                    graph_ms=graph_ms(kern), **library_times(lib, False))
 
     t = {}
     for name, fr in (("hist_mma", inputs["face_noise=0"]),
@@ -515,7 +582,8 @@ def phase_histmma(pools, dev):
             f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.6f} ms by {e['bound_by']}; the dense int8 "
             f"one-hot product {e['onehot_ms']:.4f} ms; torch.bincount "
-            f"{e['library_ms']:.4f} ms)")
+            f"{e['library_ms']:.4f} ms, graph replay "
+            f"{fmt_ms(e['library_graph_ms'])})")
     return err, t
 
 
@@ -590,14 +658,13 @@ def phase_histbins(pools, dev):
         # the ids read once, the f32 counts written once
         b, by = bound(4 * n * p + 4 * 4096 * n, 0)
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                       library_ms=cuda_ms(lambda given=given, n=n:
-                                          torch.bincount(given,
-                                                         minlength=n * 4096)),
-                       graph_ms=graph_ms(lambda ids=ids: hist_bins(ids)))
+                       graph_ms=graph_ms(lambda ids=ids: hist_bins(ids)),
+                       **library_times(lambda given=given, n=n: torch.bincount(
+                           given, minlength=n * 4096), False))
         log(f"kernels: {name} ({n} x {p} ids) {ms:.4f} ms, graph replay "
             f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{b:.6f} ms by {by}, torch.bincount {t[name]['library_ms']:.4f} "
-            f"ms)")
+            f"ms, graph replay {fmt_ms(t[name]['library_graph_ms'])})")
     return err, t
 
 
@@ -1212,6 +1279,8 @@ def main():
         e = {"name": k, "route": "cuda", "source": src, "replaces": replaces,
              "launches": counts[path][k], "path": path, "max_abs_err": err[k],
              **times[k]}
+        if k == "backproject_rect":
+            e["grid_origins"] = times[BPR_GRID]
         if k in ALSO_REPLACES:
             e["also_replaces"] = ALSO_REPLACES[k]
             e["x4_workload"] = times[X4]

@@ -31,8 +31,21 @@
 //     memory, then each thread bins its pixels and loads the weight.  A table
 //     load is exact by construction, so no split is needed.  Blocks cover
 //     16,384 pixels each so the table load stays small against the pixels.
-//   - backproject_rect is the same lookup over a per-stream (bh, bw) rect
-//     (the band pdf of the band-local camshift with full-frame histograms).
+//
+// backproject_rect is the same lookup over a per-stream (bh, bw) band (the
+// band pdf of the band-local camshift with full-frame histograms), on the
+// band configuration's steady tick once a tick.
+//   - Bound: bytes.  At a 96x128 band: 36 KB of RGB in, 48 KB of pdf out
+//     and the 16 KB weight row per stream; 0.0078 ms at 256 streams.
+//   - Design: a thread-block cluster of kCluster CTAs per stream splits the
+//     band's rows.  The stream's 16 KB weight row reaches every CTA's shared
+//     memory by TMA: each CTA copies a quarter with .multicast::cluster, so
+//     the row is read once a stream, not once a CTA, and no thread stages
+//     it.  Row and column loops, advanced without division.  Where the
+//     band's rows start 4-byte aligned and its width is a multiple of 4 (the
+//     serving path: the band's x origin is a multiple of 8), a thread takes
+//     4 pixels at a time: three 4-byte loads, four lookups and one 16-byte
+//     store.  Any other origin or width takes the pixel-at-a-time loop.
 //
 // histpdf_band replaces tools/kernel_experiments.py hp_call (k4) and
 // hp7_call (k7), the fused per-stream histogram + min(model/cur, 1) weights +
@@ -55,6 +68,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kBins = 4096;
@@ -62,6 +77,7 @@ constexpr int kThreads = 256;
 constexpr int kBandThreads = 512;
 constexpr int kHistPixelsPerBlock = 8192;
 constexpr int kPdfPixelsPerBlock = 16384;
+constexpr int kCluster = 4;  // backproject_rect's CTAs per stream
 
 __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
   return (static_cast<int>(px[0] >> 4) << 8) |
@@ -169,27 +185,85 @@ backproject_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int bin_of(uint32_t R, uint32_t G, uint32_t B) {
+  return static_cast<int>(((R >> 4) << 8) | ((G >> 4) << 4) | (B >> 4));
+}
+
+// grid (kCluster, N), one cluster a stream: CTA `rank` of stream n looks up
+// its share of the band's rows.  vec: the launcher found the frames 4-byte
+// aligned, w and bw multiples of 4 and out 16-byte aligned.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 backproject_rect_kernel(const uint8_t* __restrict__ frames,
                         const float* __restrict__ weights,
                         const int32_t* __restrict__ rects,
-                        float* __restrict__ out, int h, int w, int bh, int bw) {
-  __shared__ float4 table4[kBins / 4];
+                        float* __restrict__ out, int h, int w, int bh, int bw,
+                        bool vec) {
+  __shared__ alignas(16) float table[kBins];
+  __shared__ uint64_t bar;
   const int n = blockIdx.y;
-  const float* table = stage_table(weights, n, table4);
-  const Rect rc = band_rect(rects + 4 * static_cast<int64_t>(n), h, w, bh, bw);
-
-  const int64_t npx = static_cast<int64_t>(bh) * bw;
-  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
-  float* o = out + static_cast<int64_t>(n) * npx;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kPdfPixelsPerBlock;
-  int64_t end = start + kPdfPixelsPerBlock;
-  end = end < npx ? end : npx;
-  for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
-    const int64_t yy = rc.y0 + p / bw;
-    const int64_t xx = rc.x0 + p % bw;
-    o[p] = table[rgb_bin(f + (yy * w + xx) * 3)];
+  const uint32_t rank = sm90::cluster_rank();
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bar, 1);
+    sm90::mbar_init_fence();
   }
+  // every CTA's barrier is set before any CTA's copy lands on it
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  if (threadIdx.x == 0) {
+    constexpr uint32_t kSlice = kBins * sizeof(float) / kCluster;
+    sm90::mbar_arrive_expect_tx(&bar, kBins * sizeof(float));
+    sm90::bulk_load_multicast(
+        reinterpret_cast<char*>(table) + rank * kSlice,
+        reinterpret_cast<const char*>(weights + static_cast<int64_t>(n) * kBins)
+            + rank * kSlice,
+        kSlice, &bar, static_cast<uint16_t>((1u << kCluster) - 1));
+  }
+  const Rect rc = band_rect(rects + 4 * static_cast<int64_t>(n), h, w, bh, bw);
+  const int x0 = static_cast<int>(rc.x0);
+  const int rows = (bh + kCluster - 1) / kCluster;
+  const int r0 = static_cast<int>(rank) * rows;
+  const int nrows = max(0, min(bh - r0, rows));
+  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3 +
+                     (static_cast<int64_t>(rc.y0 + r0) * w + x0) * 3;
+  float* o = out + static_cast<int64_t>(n) * bh * bw +
+             static_cast<int64_t>(r0) * bw;
+  sm90::mbar_wait(&bar, 0);
+  // this CTA holds the whole row, so every copy into it has landed
+  sm90::cluster_arrive();
+
+  const bool quad = vec && x0 % 4 == 0;
+  const int cols = quad ? bw / 4 : bw;  // units a row: 4 pixels or 1
+  const int units = nrows * cols;
+  // unit u = (row, col), advanced by blockDim.x units a step
+  const int step_r = blockDim.x / cols;
+  const int step_c = blockDim.x - step_r * cols;
+  int row = threadIdx.x / cols;
+  int col = threadIdx.x - row * cols;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int src = row * w + (quad ? 4 * col : col);
+    const int dst = row * bw + (quad ? 4 * col : col);
+    if (quad) {
+      const uint32_t* q = reinterpret_cast<const uint32_t*>(f + 3 * src);
+      const uint32_t a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+      // little-endian bytes: a = R0 G0 B0 R1, b = G1 B1 R2 G2, c = B2 R3 G3 B3
+      float4 v;
+      v.x = table[bin_of(a & 0xFF, (a >> 8) & 0xFF, (a >> 16) & 0xFF)];
+      v.y = table[bin_of(a >> 24, b & 0xFF, (b >> 8) & 0xFF)];
+      v.z = table[bin_of((b >> 16) & 0xFF, b >> 24, c & 0xFF)];
+      v.w = table[bin_of((c >> 8) & 0xFF, (c >> 16) & 0xFF, c >> 24)];
+      *reinterpret_cast<float4*>(o + dst) = v;
+    } else {
+      o[dst] = table[rgb_bin(f + 3 * src)];
+    }
+    col += step_c;
+    row += step_r;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+  // no CTA exits while a copy it issued may still land in another
+  sm90::cluster_wait();
 }
 
 template <bool kPdf>
@@ -269,19 +343,26 @@ extern "C" int backproject_launch(const void* frames, const void* weights,
 
 // frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
 // rects (n, 4) i32 whose [x, y] place a (bh, bw) band (clipped into the
-// frame; 1 <= bh <= h, 1 <= bw <= w), out (n, bh, bw) f32.
+// frame; 1 <= bh <= h, 1 <= bw <= w), out (n, bh, bw) f32.  One cluster of
+// kCluster CTAs a stream.
 extern "C" int backproject_rect_launch(const void* frames, const void* weights,
                                        const void* rects, void* out, int n,
                                        int h, int w, int bh, int bw,
                                        void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid(blocks_for(static_cast<int64_t>(bh) * bw, kPdfPixelsPerBlock),
-                  n);
-  backproject_rect_kernel<<<grid, kThreads, 0,
+  if (n > 65535 || bh < 1 || bw < 1 || bh > h || bw > w ||
+      static_cast<int64_t>(h) * w * 3 > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = reinterpret_cast<uintptr_t>(frames) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 4 == 0 &&
+                   bw % 4 == 0;
+  backproject_rect_kernel<<<dim3(kCluster, n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
       static_cast<const int32_t*>(rects), static_cast<float*>(out), h, w, bh,
-      bw);
+      bw, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,23 +19,24 @@ from .launch import launch, on_cuda, sm_count
 
 __all__ = ["hist_mma", "split_frame"]
 
-# resident blocks an SM holds (the kernel's 194 registers a thread) and the
-# fewest pixels a block takes (a multiple of the 32-pixel warp step)
-_BLOCKS_PER_SM = 2
-_MIN_BLOCK_PX = 1024
+# resident blocks an SM holds (a block is one warpgroup with 45 KB of
+# shared memory: five fit, four leave room), and the pixels of a bulk-copy
+# stage, of which a block's span is a multiple
+_BLOCKS_PER_SM = 4
+_STAGE_PX = 1024
 
 
 def split_frame(n, npx, sms):
     """(blocks per stream, pixels per block) of a launch over n streams of
     npx pixels on a card of ``sms`` SMs: one wave of blocks, split evenly
-    over the streams (a stream per block from n >= the wave on), each of
-    at least _MIN_BLOCK_PX pixels.  Each block pays a fixed cost (merging
-    its warps' histograms and writing its partial), so fewer, longer blocks
-    win once the card is full."""
+    over the streams (a stream per block from n >= the wave on), each a
+    whole number of _STAGE_PX-pixel stages.  Each block pays a fixed cost
+    (zeroing its one-hot tiles, writing its partial), so fewer, longer
+    blocks win once the card is full."""
     wave = _BLOCKS_PER_SM * sms
-    blocks = max(1, min(-(-npx // _MIN_BLOCK_PX), wave // n))
+    blocks = max(1, min(-(-npx // _STAGE_PX), wave // n))
     block_px = -(-npx // blocks)
-    block_px = -(-block_px // 32) * 32
+    block_px = -(-block_px // _STAGE_PX) * _STAGE_PX
     return -(-npx // block_px), block_px
 
 

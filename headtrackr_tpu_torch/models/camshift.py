@@ -36,7 +36,7 @@ import torch
 from ..kernels.gather import take_along
 from ..kernels.histpdf import backproject, histpdf_band
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
-                             histogram_rect)
+                             histogram_rects)
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
            "track_band", "mean_shift", "MEANSHIFT_ITERS", "DEFAULT_BAND",
@@ -132,7 +132,7 @@ def init_tracker(frames, rects, audit_band=None):
     bandHist handoff audit and stores ``band_dirty``."""
     rects = rects.to(_I32).contiguous()
     n = rects.shape[0]
-    hist = histogram_rect(frames, rects)
+    hist = histogram_rects(frames, rects)
     z = torch.zeros((n,), dtype=_I32, device=rects.device)
     return CamshiftState(
         model_hist=hist, window=rects,

@@ -9,9 +9,10 @@ Reference math:
 plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``, and
 ``hist_mma_plain`` that of ``kernels/histmma.py`` and ``hist_bins_plain``
 that of ``kernels/histbins.py``: the same function, used for CPU tensors
-and as the kernels' reference on the card.  ``histogram_rect``,
-``histogram_full``, ``histogram_4096`` and ``histogram_scan`` go through the
-kernel wrappers, so a CUDA tensor always takes a kernel.
+and as the kernels' reference on the card.  ``histogram_rects``,
+``histogram_full``, ``histogram_4096``, ``histogram_rect`` and
+``histogram_scan`` go through the kernel wrappers, so a CUDA tensor always
+takes a kernel.
 
 Rects are (N, 4) i32 [x, y, w, h].  A *band* is a (bh, bw) rect of the same
 size for every stream, placed at each rect's [x, y] clipped into the frame
@@ -25,8 +26,9 @@ import torch
 __all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
            "band_bins", "hist4096_plain", "hist_mma_plain", "hist_bins_plain",
            "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
-           "check_hist_kernel", "histogram_rect", "histogram_full",
-           "histogram_4096", "histogram_scan", "backprojection_weights"]
+           "check_hist_kernel", "histogram_rects", "histogram_full",
+           "histogram_4096", "histogram_rect", "histogram_scan",
+           "backprojection_weights"]
 
 NBINS = 4096
 _MMA_CHUNK = 16  # streams a step of hist_mma_plain's one-hot product takes
@@ -168,7 +170,7 @@ def histpdf_band_plain(frames, rects, model=None, band=None):
     return cur, pdf
 
 
-def histogram_rect(frames, rects):
+def histogram_rects(frames, rects):
     """Model histogram of each stream's rect: (N, 4096) f32 counts
     (Histogram(getImageData(rect)), src/camshift.js:206-208); the hist-only
     mode of ``histpdf_band``, one block per stream on the card."""
@@ -197,6 +199,26 @@ def histogram_4096(bins, mask=None):
     lead, (H, W) = bins.shape[:-2], bins.shape[-2:]
     rows = bins.reshape(math.prod(lead), H * W).contiguous()
     return hist_bins(rows).view(*lead, NBINS)
+
+
+def histogram_rect(bins, x, y, w, h, block=None):
+    """The reference's ``histogram_rect``: (..., H, W) i32 bin ids -> (...,
+    4096) f32 exact counts of the rect [x, x + w) x [y, y + h) of each
+    leading index; x, y, w, h are ints or tensors of the leading shape.  A
+    mask plus ``histogram_4096``.  ``block`` is the reference's TPU tiling
+    knob: accepted, changes nothing."""
+    H, W = bins.shape[-2:]
+    dev = bins.device
+
+    def corner(v):
+        t = torch.as_tensor(v, device=dev).to(torch.int64)
+        return t.view(*t.shape, 1, 1)
+
+    x, y, w, h = map(corner, (x, y, w, h))
+    rows = torch.arange(H, device=dev).view(H, 1)
+    cols = torch.arange(W, device=dev).view(1, W)
+    inside = (rows >= y) & (rows < y + h) & (cols >= x) & (cols < x + w)
+    return histogram_4096(bins, inside)
 
 
 def histogram_scan(bins, block=None):

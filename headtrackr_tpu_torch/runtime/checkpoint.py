@@ -29,12 +29,14 @@ FORMAT_VERSION = 2
 
 # Leaves addable without breaking old checkpoints: absent paths default to
 # zeros of the template leaf (state/pend_age is ephemeral scheduler state --
-# a resumed tracker just restarts its wait counters).  The sparse-model
-# leaves are the reference's; the port carries no sparse model, so a file
-# holding them fails its schema check here.
-_OPTIONAL_PATHS = {"state/pend_age", "state/cs/model_bins",
-                   "state/cs/model_counts", "state/cs/model_overflow",
-                   "state/cs/band_dirty"}
+# a resumed tracker just restarts its wait counters).
+_OPTIONAL_PATHS = {"state/pend_age", "state/cs/band_dirty"}
+# The reference's sparse-model leaves (a tracker with sparseHist=K): the
+# port carries no sparse model, so they are dropped on load.  The same
+# file's dense model_hist gives the reference's results (its sparse path is
+# value-identical, and an overflowed sparse model is served full-frame).
+_SPARSE_PATHS = {"state/cs/model_bins", "state/cs/model_counts",
+                 "state/cs/model_overflow"}
 # Non-zero defaults for absent optional leaves.  band_dirty defaults DIRTY
 # (true): a pre-audit checkpoint resumed into an audited bandHist config was
 # never content-audited, so its streams are conservatively served by the
@@ -95,7 +97,7 @@ def _load(path, like):
             have = set(np.asarray(d["__paths__"]).tolist())
             missing = [k for k, _ in want
                        if k not in have and k not in _OPTIONAL_PATHS]
-            extra = have - {k for k, _ in want}
+            extra = have - {k for k, _ in want} - _SPARSE_PATHS
             if missing or extra:
                 raise ValueError(
                     f"checkpoint schema mismatch: missing {missing}, "

@@ -52,7 +52,7 @@ from ..models import camshift as cs_mod
 from ..models import facetracker as ft
 from ..models.detector import detector_tables
 from ..ops.histogram import (backprojection_weights, histogram_full,
-                             histogram_rect)
+                             histogram_rects)
 
 __all__ = ["BatchedTracker", "resolve_band", "wants_band_audit"]
 
@@ -201,6 +201,9 @@ class BatchedTracker:
                        else self._track_plain)
         self._wbtrack = mk("wbtrack", self.band)
         self._graph = None  # the all-CS tick's CUDA graph, captured lazily
+        # the host scheduler's tick count; reset() keeps it, as the
+        # reference's does, so the sync ticks stay on its schedule
+        self._tick = 0
         self.reset()
 
     def _init_state(self, n):
@@ -212,7 +215,6 @@ class BatchedTracker:
         self.state = self._init_state(self.n)
         self._modes = self.state.mode.cpu().numpy()
         self._pending_modes = None  # the last tick's mode_after, unread
-        self._tick = 0
 
     def set_state(self, state, modes=None):
         """Replace every stream's state (e.g. a checkpoint's): ``state`` a
@@ -486,7 +488,7 @@ class BatchedTracker:
         # the reference always counts this one with histogram_scan, whatever
         # histKernel says: here its kernel, hist_mma
         cur_full = histogram_full(frame, None)
-        cur_band = histogram_rect(frame, rect)
+        cur_band = histogram_rects(frame, rect)
         w_full = backprojection_weights(model, cur_full)
         w_band = backprojection_weights(model, cur_band)
         present = cur_band > 0  # bins the band pdf can read

@@ -233,7 +233,7 @@ def test_handoff_band_audit_clean_and_dirty():
                      np.int32)  # inside the blob, same + a patch, with bg
     band = (64, 96)
     tf, tr = torch.as_tensor(frames), torch.as_tensor(rects)
-    model = thg.histogram_rect(tf, tr)
+    model = thg.histogram_rects(tf, tr)
     got = tcs.handoff_band_audit(tf, model, tr, band)
     want = [bool(jcs.handoff_band_audit(
         jhg.rgb_bins(jnp.asarray(f)), jnp.asarray(m.numpy()),

@@ -190,3 +190,21 @@ def test_optional_leaves_default(locked, tmp_path):
     jck.save_tracker(tmp_path / "audited.npz", jb)
     tb2 = tck.load_tracker(tmp_path / "audited.npz", _port(**kw))
     assert tb2.state.cs.band_dirty.tolist() == [True] * N
+
+
+def test_sparse_hist_jax_checkpoint_resumes_in_port(tmp_path):
+    """A reference tracker with sparseHist=64 saves its sparse-model leaves
+    beside the dense model; the port drops them on load and resumes with
+    the reference's ticks."""
+    jb = _jax(sparseHist=64)
+    for t in range(LOCK):
+        jb.step_auto(_frames(t))
+    assert (jb.modes == 2).all()
+    p = tmp_path / "sparse.npz"
+    jck.save_tracker(p, jb)
+    with np.load(p) as d:
+        assert {"state/cs/model_bins", "state/cs/model_counts",
+                "state/cs/model_overflow"} <= set(d["__paths__"].tolist())
+    tb = tck.load_tracker(p, _port(sparseHist=64))
+    assert (tb.modes == tft.MODE_CS).all()
+    _same_ticks(_ticks(tb, LOCK, RESUME), _ticks(jb, LOCK, RESUME))

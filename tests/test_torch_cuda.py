@@ -215,7 +215,7 @@ def test_graph_replay_counts_its_launches(dev):
     assert got["hist4096"] == 0
 
 
-@pytest.mark.parametrize("n", [1, 256])
+@pytest.mark.parametrize("n", [1, 2, 3, 256])
 @pytest.mark.parametrize("kind", ["random", "one_bin", "bench"])
 def test_hist_mma_bit_equal_to_twin(dev, n, kind):
     from bench import build_pool
@@ -256,6 +256,60 @@ def test_hist_mma_odd_frames_and_views(dev):
     assert torch.equal(got.cpu(), hg.hist_mma_plain(frames, rects))
     got = hist_mma(frames.to(dev)[3:], rects.to(dev)[3:])
     assert torch.equal(got.cpu(), hg.hist_mma_plain(frames[3:], rects[3:]))
+
+
+@pytest.mark.parametrize("shape", [(57, 99), (241, 320), (48, 80), (7, 5)])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_hist_mma_ragged_frames(dev, shape, n):
+    """Pixel counts off the kernel's 1,024-pixel stage and 128-pixel tile:
+    with the bulk copies (241 x 320, 48 x 80: a multiple of 16 pixels) and
+    without (57 x 99, 7 x 5); full frames and boxes, bit-equal to the twin
+    and to hist4096."""
+    from headtrackr_tpu_torch.kernels.histmma import hist_mma
+    g = torch.Generator().manual_seed(31 + n)
+    H, W = shape
+    frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                           dtype=torch.uint8)
+    frames[0, : H // 2] = torch.tensor([120, 100, 90], dtype=torch.uint8)
+    boxes = torch.cat([torch.randint(-5, W, (n, 2), generator=g),
+                       torch.randint(0, 2 * H, (n, 2), generator=g)], 1).int()
+    for rects in (hg.full_rects(n, shape, "cpu"), boxes):
+        got = hist_mma(frames.to(dev), rects.to(dev)).cpu()
+        assert torch.equal(got, hg.hist_mma_plain(frames, rects))
+        assert torch.equal(got, hg.hist4096_plain(frames, rects).float())
+
+
+@pytest.mark.parametrize("shape,band", [((240, 320), (96, 128)),
+                                        ((240, 320), (95, 127)),
+                                        ((240, 320), (96, 131)),
+                                        ((240, 320), (240, 320)),
+                                        ((57, 99), (24, 41)),
+                                        ((57, 99), (57, 99))])
+def test_backproject_rect_origins_and_widths(dev, shape, band):
+    """backproject_rect with band x origins on the 8-pixel grid (the
+    serving path's 4-pixel loop), off it and clipped from -20, odd band
+    widths and the whole frame, bit-equal to the twin; a view one stream
+    in."""
+    g = torch.Generator().manual_seed(37)
+    H, W = shape
+    bh, bw = band
+    n = 16
+    frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                           dtype=torch.uint8)
+    w = torch.rand((n, 4096), generator=g)
+    x = torch.randint(-20, W - bw + 21, (n,), generator=g)
+    x[: n // 2] = x[: n // 2].clamp(0, W - bw) // 8 * 8
+    rects = torch.stack([x, torch.randint(-20, H - bh + 21, (n,), generator=g),
+                         torch.full((n,), bw), torch.full((n,), bh)], 1).int()
+    before = launches["backproject_rect"]
+    got = K.backproject(frames.to(dev), w.to(dev), rects.to(dev), band)
+    torch.cuda.synchronize()
+    assert launches["backproject_rect"] == before + 1
+    assert torch.equal(got.cpu(), hg.backproject_plain(frames, w, rects, band))
+    got = K.backproject(frames.to(dev)[1:], w.to(dev)[1:], rects.to(dev)[1:],
+                        band)
+    assert torch.equal(got.cpu(),
+                       hg.backproject_plain(frames[1:], w[1:], rects[1:], band))
 
 
 def test_session_tracker_card_equals_cpu(dev):

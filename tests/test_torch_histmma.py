@@ -71,11 +71,14 @@ def test_split_frame_covers_each_frame():
     for n, npx in [(256, 76800), (1, 76800), (8, 19200), (3, 1), (1, 31),
                    (1000, 100), (7, 5643)]:
         blocks, block_px = histmma.split_frame(n, npx, 132)
-        assert block_px % 32 == 0 and block_px >= 32
+        assert block_px % 1024 == 0 and block_px >= 1024  # whole stages
         assert blocks * block_px >= npx > (blocks - 1) * block_px
-    assert histmma.split_frame(256, 76800, 132) == (1, 76800)
-    assert histmma.split_frame(128, 76800, 132) == (2, 38400)
-    assert histmma.split_frame(1, 76800, 132)[0] == 75
+    # a wave of 4 blocks an SM: two a stream at 256 streams, 75 of one
+    # stage each at one stream
+    assert histmma.split_frame(256, 76800, 132) == (2, 38912)
+    assert histmma.split_frame(128, 76800, 132) == (4, 19456)
+    assert histmma.split_frame(1, 76800, 132) == (75, 1024)
+    assert histmma.split_frame(600, 76800, 132) == (1, 76800)
 
 
 def test_hist_kernel_routing(monkeypatch):

@@ -44,7 +44,30 @@ def test_histogram_rect_matches_reference(rng):
                       [0, 0, 0, 5]], np.int32)
     want = np.stack([np.asarray(jhg.histogram_rect(
         jhg.rgb_bins(jnp.asarray(f)), *map(int, r))) for f, r in zip(rgb, rects)])
-    got = thg.histogram_rect(torch.as_tensor(rgb), torch.as_tensor(rects))
+    got = thg.histogram_rects(torch.as_tensor(rgb), torch.as_tensor(rects))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ops_histogram_rect_has_the_reference_signature(rng):
+    """``ops.histogram_rect(bins, x, y, w, h, block=None)`` as the
+    reference's: one (H, W) bin image and a rect, bit-exact, rects past
+    every edge included; and batched, a rect per stream."""
+    import headtrackr_tpu.ops as jops
+    import headtrackr_tpu_torch.ops as tops
+    H, W = 57, 99
+    rgb = rng.integers(0, 256, (4, H, W, 3), np.uint8)
+    rgb[0, :20] = (120, 100, 90)
+    rects = np.array([[5, 7, 12, 9], [-3, -2, 20, 10], [80, 40, 40, 40],
+                      [0, 0, 0, 5]], np.int32)
+    bins = thg.rgb_bins(torch.as_tensor(rgb))
+    want = np.stack([np.asarray(jops.histogram_rect(
+        jhg.rgb_bins(jnp.asarray(f)), *map(int, r)))
+        for f, r in zip(rgb, rects)])
+    for (b, r), w in zip(zip(bins, rects), want):
+        got = tops.histogram_rect(b, *map(int, r), block=512)
+        assert got.shape == (4096,) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), w)
+    got = tops.histogram_rect(bins, *torch.as_tensor(rects).T)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -148,6 +148,28 @@ def test_host_step_matches_reference(sync_interval):
     assert frozen == (4 if sync_interval == 8 else 0)
 
 
+def test_host_step_after_reset_matches_reference():
+    """``reset()`` mid-run at sync_interval 8 keeps the tick count, as the
+    reference's does: the fresh cold start's mode view refreshes on the
+    same ticks on both sides, so the switch back to "track" ticks (the band
+    path) falls on the same tick.  Reset at tick 21, off the sync grid."""
+    clip = _host_clip(52, blue=None)
+    kw = dict(sync_interval=8, bucket=1, band=BAND, bandHist=True)
+    jb = ht.BatchedTracker(4, (H, W), cascade=ht.toy_cascade(),
+                           histKernel="pallas", **kw)
+    tb = pt.BatchedTracker(4, (H, W), cascade=toy_cascade(), device="cpu",
+                           **kw)
+    for t, frames in enumerate(clip):
+        if t == 21:
+            jb.reset()
+            tb.reset()
+            assert tb.modes.tolist() == [tft.MODE_WB] * 4
+        _assert_same(jb.step(frames), tb.step(frames), f"tick {t}")
+        assert tb._tick == jb._tick == t + 1
+    _assert_states(jb.state, tb.state, "end")
+    assert tb.modes.tolist() == jb.modes.tolist() == [tft.MODE_CS] * 4
+
+
 def _rotate_clip():
     """Six streams; streams 0-5 lose track at tick 17, streams 0-3 see blue
     again at tick 18 (their served redetect fails), so at tick 19 the
