@@ -17,15 +17,22 @@ Phases, one line each; any failure raises and exits nonzero:
      off the 8-pixel grid, odd band widths and a band equal to the frame
      (and timed on both: origins from -20 up, and on the grid as the
      serving path places them).  take_along likewise on X8's own workload (an
-     (8, 128) lane gather) and on mean shift's prefix-sum planes of 256
-     streams (the 96x128 band and the 240x320 frame, one iteration's row
-     and column selections).  Each is timed (CUDA events over 20 calls, and
+     (8, 128) lane gather) and on prefix-sum planes of 256 streams (the
+     96x128 band and the 240x320 frame, one mean-shift iteration's row and
+     column selections: the serving path's use of it before meanshift).
+     meanshift (the whole mean shift a launch) must be bit-equal to its
+     twin run on the card and to its twin run on the CPU on the serving
+     path's inputs from the bench pools (face boxes as windows, the pdf of
+     a tracking batch and of the loss batch through histpdf_band at the
+     96x128 band and at 128x192, at band_rect's origins, and through
+     backproject over the frame), on escaping, off-frame and empty windows
+     and at N=1.  Each is timed (CUDA events over 20 calls, and
      over 20 calls replayed from a CUDA graph) beside its twin, its
      byte/operation bound and the nearest single PyTorch call (given
      precomputed bins for the histogram kernels; torch.gather for
-     take_along), the library call by events and, where a graph can
-     capture it (torch.gather; not torch.bincount, which reads its max on
-     the host), by graph replay.  hist_mma (the int8 tensor-core histogram)
+     take_along; none computes meanshift's function), the library call by
+     events and, where a graph can capture it (torch.gather; not
+     torch.bincount, which reads its max on the host), by graph replay.  hist_mma (the int8 tensor-core histogram)
      likewise on the bench pools, uniform random frames, one-bin frames and
      random boxes at N=256, 1, 2 and 3, on 241x320, 48x80 and 57x99 frames
      (pixel counts off its 1,024-pixel stage, with and without its bulk
@@ -88,7 +95,7 @@ Phases, one line each; any failure raises and exits nonzero:
      live CS box, with a controllers.RealisticAbsoluteCameraControl on the
      bus: one finite pose per headtrackingEvent; Smoother over the boxes;
      camshift.Histogram of each frame equals hist4096 of the full frame;
-     hist_bins, hist_mma, backproject, histpdf_band_hist and take_along
+     hist_bins, hist_mma, backproject, histpdf_band_hist and meanshift
      each launched; ms per track() by mode (p50/p99), per
      ccv.detect_objects at 320x240 and per Histogram.
 
@@ -120,6 +127,7 @@ HISTPDF_SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
 GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
 HISTMMA_SRC = "headtrackr_tpu_torch/csrc/histmma.cu"
 HISTBINS_SRC = "headtrackr_tpu_torch/csrc/histbins.cu"
+MEANSHIFT_SRC = "headtrackr_tpu_torch/csrc/meanshift.cu"
 SESSION_FRAMES = 16 * POOL  # 15 losses: the CS frames' p99 is not their max
 FANOUT_TICKS = 2 * POOL
 RESUME_TICKS = 8
@@ -132,13 +140,13 @@ CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8,
                         histKernel="pallas"),
                    ("hist4096", "backproject", "histpdf_band_hist",
-                    "take_along")),
+                    "meanshift")),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
              ("hist_mma", "backproject_rect", "histpdf_band_hist",
-              "take_along")),
+              "meanshift")),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
                  ("histpdf_band", "histpdf_band_hist", "backproject",
-                  "take_along")),
+                  "meanshift")),
 }
 # kernel -> (the TPU kernel it replaces, the configuration whose run its
 # launch count reports, its source)
@@ -154,14 +162,17 @@ KERNELS = {
     "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
                           HISTPDF_SRC),
     "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
+    "meanshift": ("tools/kernel_experiments.py:397", "headline",
+                  MEANSHIFT_SRC),
     "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
     "hist_bins": ("tools/kernel_experiments.py:257", "facade", HISTBINS_SRC),
 }
 # the kernels the facade phase's path launches
 FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
-               "take_along")
+               "meanshift")
 FACADE_CPU_FRAMES = 24
-ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351"}
+ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
+                 "meanshift": "headtrackr_tpu/models/camshift.py:265"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # backproject_rect's timing entry at band x origins on the 8-pixel grid, as
 # the serving path places them (its main entry: origins from -20 up)
@@ -170,6 +181,10 @@ BPR_GRID = "backproject_rect grid"
 BINCOUNT = ("hist4096", "histpdf_band_hist")
 # take_along's extra timing entries: the full-frame planes, X8's workload
 TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
+# meanshift's timing entries: the headline's 96x128 band (its main entry),
+# the 240x320 frame, DEFAULT_BAND and the frame at N=1
+MS_ENTRIES = ("meanshift", "meanshift frame", "meanshift default_band",
+              "meanshift n1")
 
 
 def log(msg):
@@ -481,6 +496,174 @@ def phase_gather(dev):
             f"replay {t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, "
             f"bound {b:.6f} ms, torch.gather {t[name]['library_ms']:.4f} ms, "
             f"graph replay {fmt_ms(t[name]['library_graph_ms'])})")
+    return err, t
+
+
+def face_boxes(frames):
+    """(N, 4) i32 [x, y, w, h]: the box of each stream's pixels that are not
+    the bench pool's background, in (N, H, W, 3) u8 frames (a pool batch
+    before the loss frame: each stream's face, a detection box)."""
+    import numpy as np
+    from bench import _BG
+    fg = (frames != np.array(_BG, np.uint8)).any(-1)
+    rows, cols = fg.any(2), fg.any(1)
+    y0, y1 = rows.argmax(1), H - rows[:, ::-1].argmax(1)
+    x0, x1 = cols.argmax(1), W - cols[:, ::-1].argmax(1)
+    return np.stack([x0, y0, x1 - x0, y1 - y0], 1).astype(np.int32)
+
+
+def meanshift_ops(pdf, win, ry, rx):
+    """The f32 operations this run's data needs, iteration by iteration
+    from the twin's windows (one more iteration each run): 5 a pixel of a
+    stream's window in each iteration it runs (m00, m10, m01), and 9 a
+    pixel of its stopping window (m11, m20, m02)."""
+    import torch
+    from headtrackr_tpu_torch.ops import meanshift as om
+    n, bh, bw = pdf.shape
+    zero = torch.zeros((n,), dtype=torch.int32, device=pdf.device)
+    oy, ox = (zero, zero) if ry is None else (ry, rx)
+
+    def area(w):
+        x0, y0 = w[:, 0].clamp(min=0), w[:, 1].clamp(min=0)
+        x1, y1 = (x0 + w[:, 2]).clamp(max=W), (y0 + w[:, 3]).clamp(max=H)
+        dx = (x1 - ox).clamp(0, bw) - (x0 - ox).clamp(0, bw)
+        dy = (y1 - oy).clamp(0, bh) - (y0 - oy).clamp(0, bh)
+        return dx.clamp(min=0).long() * dy.clamp(min=0).long()
+
+    iters, ops = om.MEANSHIFT_ITERS, 0
+    prev, done = win, torch.zeros((n,), dtype=torch.bool, device=pdf.device)
+    try:
+        for k in range(1, iters + 1):
+            om.MEANSHIFT_ITERS = k
+            cur = om.mean_shift_plain(pdf, win, ry, rx, (H, W))[0]
+            a = area(prev)
+            moved = (cur[:, :2] != prev[:, :2]).any(1)
+            stop = ~done & (~moved | (k == iters))
+            ops += int((5 * a)[~done].sum()) + int((9 * a)[stop].sum())
+            done |= ~moved
+            prev = cur
+    finally:
+        om.MEANSHIFT_ITERS = iters
+    return ops
+
+
+def phase_meanshift(pools, dev):
+    """meanshift against its twin run on the card and its twin run on the
+    CPU, bit-equal (tolerance 0).  Inputs as the serving path makes them
+    from the bench pools (face_noise 0 and 20): each stream's face box as
+    its window, its model histogram from the pool's first batch, then the
+    pdf of batch 1 (tracking) and of the loss batch (zero mass on the loss
+    streams) through histpdf_band at the 96x128 band and at DEFAULT_BAND
+    (128x192), at band_rect's origins, and through backproject over the
+    240x320 frame; plus windows that escape the band (larger than it, or
+    shifted off its origin), lie partly off the frame, or are empty, and
+    N=1.  Then its times beside its twin's and its bound; no PyTorch call
+    computes its function.  Returns (max abs err, timing entries)."""
+    import torch
+    from headtrackr_tpu_torch.kernels import histpdf as K
+    from headtrackr_tpu_torch.kernels.meanshift import mean_shift
+    from headtrackr_tpu_torch.models import camshift as cs
+    from headtrackr_tpu_torch.ops import histogram as hg
+    from headtrackr_tpu_torch.ops import meanshift as om
+
+    N = N_STREAMS
+    cpu = torch.device("cpu")
+    full = hg.full_rects(N, (H, W), dev)
+    cases = {}  # name -> (pdf, window, ry, rx) on the card
+
+    def band_pdf(fr, win, model, band):
+        ry, rx, bh, bw = cs.band_rect(win, band, (H, W))
+        _, pdf = K.histpdf_band(fr, cs.band_rects(ry, rx, bh, bw), model,
+                                band)
+        return pdf, ry, rx
+
+    for k, pool in pools.items():
+        boxes = torch.as_tensor(face_boxes(pool[0])).to(dev)
+        model = K.histpdf_band(torch.as_tensor(pool[0]).to(dev), boxes)
+        for t in (1, LOSS_AT):
+            fr = torch.as_tensor(pool[t]).to(dev)
+            for band in (BAND, cs.DEFAULT_BAND):
+                pdf, ry, rx = band_pdf(fr, boxes, model, band)
+                cases[f"face_noise={k} t={t} {band[0]}x{band[1]}"] = (
+                    pdf, boxes, ry, rx)
+            w = hg.backprojection_weights(model, K.hist4096(fr, full))
+            cases[f"face_noise={k} t={t} frame"] = (K.backproject(fr, w),
+                                                   boxes, None, None)
+    pdf, boxes, ry, rx = cases[f"face_noise=0 t=1 {BAND[0]}x{BAND[1]}"]
+    q = N // 4
+    odd = boxes.clone()
+    odd[:q, 2:] = torch.tensor([150, 110], dtype=torch.int32)  # > the band
+    odd[q:2 * q, 0] += 80  # moved off the band's origin
+    odd[2 * q:3 * q, 2] = 0  # empty
+    cases["escaping and empty windows"] = (pdf, odd, ry, rx)
+    edge = boxes.clone()
+    edge[:q, :2] = torch.tensor([-20, -12], dtype=torch.int32)
+    edge[q:2 * q, 0] = W - 20
+    edge[2 * q:3 * q, 1] = H - 10
+    model = K.histpdf_band(torch.as_tensor(pools[0][0]).to(dev), boxes)
+    pdf, ry, rx = band_pdf(torch.as_tensor(pools[0][1]).to(dev), edge, model,
+                           BAND)
+    cases["windows partly off the frame"] = (pdf, edge, ry, rx)
+    headline, frame = f"face_noise=0 t=1 {BAND[0]}x{BAND[1]}", \
+        "face_noise=0 t=1 frame"
+    cases["N=1 frame"] = tuple(None if v is None else v[:1]
+                               for v in cases[frame])
+    cases["N=1 band"] = tuple(v[:1] for v in cases[headline])
+
+    def bits(t):
+        return torch.where(torch.isnan(t), 0, t.view(torch.int32))
+
+    err, escaped, zero = 0.0, 0, 0
+    for name, (pdf, win, ry, rx) in cases.items():
+        got = mean_shift(pdf, win, ry, rx, (H, W))
+        torch.cuda.synchronize()
+        escaped += int(got[3].sum())
+        zero += int(got[2].sum())
+        on = lambda v, d: None if v is None else v.to(d)  # noqa: E731
+        for where, d in (("the card", dev), ("the CPU", cpu)):
+            want = om.mean_shift_plain(pdf.to(d), win.to(d), on(ry, d),
+                                       on(rx, d), (H, W))
+            for label, a, b in (("window", got[0], want[0]),
+                                ("zero_mass", got[2], want[2]),
+                                ("escaped", got[3], want[3])):
+                if not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"meanshift differs from its twin "
+                                         f"on {where}: {name}, {label}")
+            for m in om.MOMENTS:
+                a, b = got[1][m].cpu(), want[1][m].cpu()
+                fin = torch.isfinite(a) & torch.isfinite(b)
+                if fin.any():
+                    err = max(err, float((a - b)[fin].abs().max()))
+                if not (torch.equal(torch.isnan(a), torch.isnan(b))
+                        and torch.equal(bits(a), bits(b))):
+                    raise AssertionError(f"meanshift differs from its twin "
+                                         f"on {where}: {name}, {m}")
+    log(f"kernels: meanshift bit-equal to its twin run on the card and to "
+        f"its twin run on the CPU on {len(cases)} inputs ({', '.join(cases)};"
+        f" {escaped} escaped and {zero} zero-mass streams in all; max abs "
+        f"err {err})")
+
+    t = {}
+    for name, key in zip(MS_ENTRIES, (headline, frame,
+                                      "face_noise=0 t=1 128x192",
+                                      "N=1 frame")):
+        pdf, win, ry, rx = cases[key]
+        n = pdf.shape[0]
+        # the pdf, windows and origins read once; windows, moments, flags
+        # written once
+        nbytes = (4 * pdf.numel() + 16 * n + (0 if ry is None else 8 * n)
+                  + (16 + 4 * len(om.MOMENTS) + 2) * n)
+        b, by = bound(nbytes, meanshift_ops(pdf, win, ry, rx))
+        args = (pdf, win, ry, rx, (H, W))
+        ms, plain_ms = interleaved_ms(lambda a=args: mean_shift(*a),
+                                      lambda a=args: om.mean_shift_plain(*a))
+        t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       graph_ms=graph_ms(lambda a=args: mean_shift(*a)),
+                       library_ms=None, library_graph_ms=None,
+                       shape=list(pdf.shape))
+        log(f"kernels: {name} {tuple(pdf.shape)} {ms:.4f} ms, graph replay "
+            f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{b:.6f} ms by {by}; no PyTorch call computes its function)")
     return err, t
 
 
@@ -1257,6 +1440,8 @@ def main():
     err, times = phase_kernels(pools, dev)
     err["take_along"], ta_times = phase_gather(dev)
     times.update(ta_times)
+    err["meanshift"], ms_times = phase_meanshift(pools, dev)
+    times.update(ms_times)
     err["hist_mma"], mma_times = phase_histmma(pools, dev)
     times.update(mma_times)
     err["hist_bins"], hb_times = phase_histbins(pools, dev)
@@ -1283,9 +1468,12 @@ def main():
             e["grid_origins"] = times[BPR_GRID]
         if k in ALSO_REPLACES:
             e["also_replaces"] = ALSO_REPLACES[k]
+        if k == "histpdf_band":
             e["x4_workload"] = times[X4]
         if k == "take_along":
             e.update({key: times[t] for key, t in TA_EXTRA.items()})
+        if k == "meanshift":
+            e.update({t.split()[1]: times[t] for t in MS_ENTRIES[1:]})
         if k == "hist_bins":
             e.update(bench=times["hist_bins bench"], n1=times["hist_bins n1"])
         if k == "hist_mma":

@@ -4,7 +4,7 @@ headtrackr.camshift and headtrackr_tpu/camshift.py).
 Canvas-free port of the reference interface (src/camshift.js:148-354):
 frames are (H, W, 3) u8 arrays or tensors.  The work runs on the device in
 models/camshift.py at N = 1 (the ``hist_mma``, ``backproject`` and
-``take_along`` kernels on the card); this wrapper is the stateful object API
+``meanshift`` kernels on the card); this wrapper is the stateful object API
 (initTracker / track / getTrackObj / getBackProjectionImg).  ``Histogram``
 counts an image's bins with the ``hist_bins`` kernel.
 """

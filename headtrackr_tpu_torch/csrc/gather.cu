@@ -15,8 +15,9 @@
 //     kernel does not check.
 //   - Bound: bytes.  Each output element reads one index and one source
 //     element and writes one float; there is no arithmetic.  On the
-//     mean-shift path the arrays are two lines of a prefix-sum plane per
-//     stream, so a launch moves a few hundred KB and its latency dominates.
+//     mean-shift path it served (meanshift.cu has taken that step whole)
+//     the arrays were two lines of a prefix-sum plane per stream, so a
+//     launch moved a few hundred KB and its latency dominated.
 //   - Design: one thread per output element, consecutive threads on
 //     consecutive outputs, so the writes coalesce; a dim-1 gather (rows of
 //     the plane) reads whole rows, coalesced too.

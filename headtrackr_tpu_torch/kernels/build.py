@@ -44,6 +44,11 @@ _SIGNATURES = {
     "histbins": {
         "hist_bins_launch": (_C, _C, _C, _I, _I, _I, _C),
     },
+    "meanshift": {
+        "meanshift_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
+                             _I, _C),
+        "meanshift_scratch_floats": (_I, _I),
+    },
 }
 
 

@@ -1,8 +1,10 @@
 """Wrapper of the ``take_along`` CUDA kernel (``csrc/gather.cu``).
 
   take_along   replaces tools/kernel_experiments.py::ta_call (k8), the
-               take_along_axis lane gather; mean shift selects its
-               prefix-sum lines with it (models/camshift.py)
+               take_along_axis lane gather; mean shift selected its
+               prefix-sum lines with it until the ``meanshift`` kernel
+               (kernels/meanshift.py) took the whole step, so no serving
+               path launches it
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 (ops/gather.py), a CUDA tensor launches the kernel, any other device raises.

@@ -18,14 +18,14 @@ Two forms of the step:
     its band is flagged ``escaped``; its result is invalid and the caller
     recomputes it with ``track``.
 
-* First moments come from 1-D marginal prefix sums (cumsum, a fixed-order
-  scan; no float atomics), window-relative like the reference package.
-  Each iteration reads the sums' lines at the window's edges with two
-  launches of the ``take_along`` gather kernel.
+* Mean shift (``mean_shift``) is one launch of the ``meanshift`` kernel
+  for the whole batch (kernels/meanshift.py): first moments from 1-D
+  marginal prefix sums, window-relative like the reference package, the
+  iterations, the second moments, all in shared memory and in the fixed
+  order of its twin (ops/meanshift.py), so the card and the CPU agree to
+  the bit.
 * The JS NaN-mediated loss (zero backprojection mass => 0-size box,
   src/camshift.js:109,240-241) is explicit zero-mass logic.
-* JS ``(v) >> 0`` (truncate toward zero, NaN -> 0) is ``_js_shift``, with
-  the ``isfinite`` guard: a NaN cast to int is backend-dependent.
 """
 
 import math
@@ -33,17 +33,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.gather import take_along
 from ..kernels.histpdf import backproject, histpdf_band
+from ..kernels.meanshift import mean_shift
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
                              histogram_rects)
+from ..ops.meanshift import MEANSHIFT_ITERS
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
            "track_band", "mean_shift", "MEANSHIFT_ITERS", "DEFAULT_BAND",
            "BAND_SLACK", "band_for", "parse_band", "band_rect", "band_rects",
            "handoff_band_audit"]
-
-MEANSHIFT_ITERS = 10  # src/camshift.js:277
 
 # Default band (rows, cols) of the band-local serving path at 240x320+:
 # covers search windows up to ~(112, 176) px with drift margin; bigger
@@ -140,126 +139,6 @@ def init_tracker(frames, rects, audit_band=None):
         track_angle=torch.zeros((n,), dtype=_F32, device=rects.device),
         band_dirty=(handoff_band_audit(frames, hist, rects, audit_band)
                     if audit_band is not None else None))
-
-
-def _js_shift(v):
-    """JS ``v >> 0``: truncate toward zero; NaN/Inf -> 0."""
-    ok = torch.isfinite(v)
-    return torch.where(ok, torch.trunc(torch.where(ok, v, 0.0)),
-                       0.0).to(_I32)
-
-
-def _second_moments(pdf, wadx, wady, wadw, wadh):
-    """One masked pass over the pdf for m11/m20/m02 of the final window (the
-    JS computes second moments only at the stopping iteration,
-    src/camshift.js:291,300)."""
-    N, H, W = pdf.shape
-    rows = torch.arange(H, device=pdf.device).view(1, H, 1)
-    cols = torch.arange(W, device=pdf.device).view(1, 1, W)
-    v = lambda t: t.view(N, 1, 1)  # noqa: E731
-    inside = ((rows >= v(wady)) & (rows < v(wadh)) &
-              (cols >= v(wadx)) & (cols < v(wadw)))
-    w = torch.where(inside, pdf, 0.0)
-    vx = (cols - v(wadx)).to(_F32)
-    vy = (rows - v(wady)).to(_F32)
-    m11 = (vx * vy * w).sum(dim=(1, 2))
-    m20 = (vx * vx * w).sum(dim=(1, 2))
-    m02 = (vy * vy * w).sum(dim=(1, 2))
-    return m11, m20, m02
-
-
-def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
-    """<= 10 mean-shift iterations (src/camshift.js:261-312) for every stream.
-
-    pdf (N, bh, bw) f32 covers frame rows [ry, ry+bh) x cols [rx, rx+bw)
-    (ry, rx (N,) i32; the full frame when they are None), window (N, 4) i32,
-    frame_shape (H, W) (default: the pdf's).  All window arithmetic stays in
-    frame coordinates; only the moment reductions translate into band
-    coordinates.  Returns (window', moments dict at the stopping iteration,
-    zero_mass (N,), escaped (N,)): escaped means some iteration's clamped
-    window left the band (never for a full-frame pdf)."""
-    N, bh, bw = pdf.shape
-    H, W = frame_shape if frame_shape is not None else (bh, bw)
-    dev = pdf.device
-    banded = ry is not None  # the full frame needs no offsets or escape test
-    # the four window bounds travel as one (N, 4) [x0, y0, x1, y1] tensor;
-    # bounds made on the device by fill_ (a host-to-device copy would
-    # synchronize, and a CUDA graph cannot capture it)
-    frame_hi = torch.full((2,), W, dtype=_I32, device=dev)
-    frame_hi[1:].fill_(H)
-    band_hi = torch.full((4,), bw, dtype=_I32, device=dev)
-    band_hi[1::2].fill_(bh)
-    if banded:
-        origin = torch.stack([rx, ry, rx, ry], 1)
-    # marginal prefix sums: col_cum[n, y, x] = sum_{y' < y} pdf[n, y', x]
-    col_cum = torch.nn.functional.pad(torch.cumsum(pdf, dim=1), (0, 0, 1, 0))
-    row_cum = torch.nn.functional.pad(torch.cumsum(pdf, dim=2), (1, 0))
-    xs = torch.arange(bw, device=dev).view(1, bw)
-    ys = torch.arange(bh, device=dev).view(1, bh)
-
-    win = window.clone()
-    prevx, prevy = win[:, 0].clone(), win[:, 1].clone()
-    done = torch.zeros((N,), dtype=torch.bool, device=dev)
-    esc = torch.zeros((N,), dtype=torch.bool, device=dev)
-    zf = torch.zeros((N,), dtype=_F32, device=dev)
-    m00, m10, m01 = zf, zf.clone(), zf.clone()
-    wad = torch.zeros((N, 4), dtype=_I32, device=dev)  # frozen bounds
-    for _ in range(MEANSHIFT_ITERS):
-        lo = torch.clamp(win[:, :2], min=0)
-        bounds = torch.cat([lo, torch.minimum(lo + win[:, 2:], frame_hi)], 1)
-        if banded:
-            # band coordinates: (xs - bx0) == (xs_frame - wadx), so the
-            # moments are the window-relative ones of the frame; the window
-            # escaped when its start is before the band or its end after it
-            bounds = bounds - origin
-            esc = esc | (~done & ((bounds[:, :2] < 0) |
-                                  (bounds[:, 2:] > band_hi[2:])).any(1))
-        bounds = torch.minimum(torch.clamp(bounds, min=0), band_hi)
-        bx0, by0, bx1, by1 = bounds.unbind(1)
-        empty = (bx1 <= bx0) | (by1 <= by0)
-        # the prefix-sum lines at the window's edges (clamped above): rows
-        # [by0, by1] of col_cum, columns [bx0, bx1] of row_cum
-        ys2 = bounds[:, 1::2].contiguous().view(N, 2, 1)
-        xs2 = bounds[:, 0::2].contiguous().view(N, 1, 2)
-        rows2, cols2 = take_along(col_cum, ys2, 1), take_along(row_cum, xs2, 2)
-        colmass = rows2[:, 1] - rows2[:, 0]
-        rowmass = cols2[..., 1] - cols2[..., 0]
-        in_x = ((xs >= bx0[:, None]) & (xs < bx1[:, None])).to(_F32)
-        in_y = ((ys >= by0[:, None]) & (ys < by1[:, None])).to(_F32)
-        n00 = (colmass * in_x).sum(dim=1)
-        n10 = ((xs - bx0[:, None]).to(_F32) * colmass * in_x).sum(dim=1)
-        n01 = ((ys - by0[:, None]).to(_F32) * rowmass * in_y).sum(dim=1)
-        n00 = torch.where(empty, 0.0, n00)
-        n10 = torch.where(empty, 0.0, n10)
-        n01 = torch.where(empty, 0.0, n01)
-        nonzero = n00 > 0
-        safe = torch.clamp(n00, min=1e-30)
-        xc = torch.where(nonzero, n10 / safe, math.nan)
-        yc = torch.where(nonzero, n01 / safe, math.nan)
-        newx = win[:, 0] + _js_shift(xc - win[:, 2].to(_F32) / 2)
-        newy = win[:, 1] + _js_shift(yc - win[:, 3].to(_F32) / 2)
-        fixed = (newx == prevx) & (newy == prevy)
-        # freeze after done: keep the previous window, moments and bounds
-        keep = lambda old, new: torch.where(done, old, new)  # noqa: E731
-        m00, m10, m01 = keep(m00, n00), keep(m10, n10), keep(m01, n01)
-        wad = torch.where(done[:, None], wad, bounds)
-        win = torch.stack([keep(win[:, 0], newx), keep(win[:, 1], newy),
-                           win[:, 2], win[:, 3]], dim=1)
-        prevx, prevy = keep(prevx, newx), keep(prevy, newy)
-        done = done | fixed
-
-    win = torch.stack([torch.clamp(win[:, 0], 0, W), torch.clamp(win[:, 1], 0, H),
-                       win[:, 2], win[:, 3]], dim=1)
-    m11, m20, m02 = _second_moments(pdf, *wad.unbind(1))
-    nonzero = m00 > 0
-    inv = torch.where(nonzero, 1.0 / torch.clamp(m00, min=1e-30), math.inf)
-    xc = m10 * inv
-    yc = m01 * inv
-    mom = dict(m00=m00, m10=m10, m01=m01, m11=m11, m20=m20, m02=m02,
-               invM00=inv, xc=xc, yc=yc,
-               mu20=m20 - m10 * xc, mu02=m02 - m01 * yc,
-               mu11=m11 - m01 * xc)  # JS quirk: m01 * xc (src/camshift.js:118)
-    return win, mom, ~nonzero, esc
 
 
 def _sqrt_shl2(v, bad):

@@ -144,10 +144,10 @@ def test_take_along_twin_matches_take_along_axis(rng):
 
 @pytest.mark.parametrize("band", [None, (40, 56)])
 def test_mean_shift_matches_reference_core(rng, band):
-    """mean_shift (line selections through take_along) against the JAX
-    package's _mean_shift_core on pdfs of quarter steps (every sum exact
-    in f32, whatever the order): windows, escapes, zero mass and moments
-    equal to the bit."""
+    """mean_shift (on CPU tensors, the meanshift kernel's twin) against
+    the JAX package's _mean_shift_core on pdfs of quarter steps (every sum
+    exact in f32, whatever the order): windows, escapes, zero mass and
+    moments equal to the bit."""
     n = 6
     pdf = np.zeros((n, H, W), np.float32)
     for k in range(n):

@@ -179,7 +179,8 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
     esc = np.stack([o[tft.StepOutput._fields.index("escaped")]
                     for o in got_auto])
     assert esc[-5:, [3, 7]].all() == bool(kw)  # escapes on replayed ticks
-    assert launches["take_along"] > before["take_along"]
+    assert launches["meanshift"] > before["meanshift"]
+    assert launches["take_along"] == before["take_along"]
     out = scan.run_scan(clip[:13])
     out2 = scan.run_scan(torch.as_tensor(clip[13:]).to(dev))
     got_scan = [[v[k].cpu().numpy() for v in o] for o in (out, out2)
@@ -196,9 +197,9 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
 
 
 def test_graph_replay_counts_its_launches(dev):
-    """One replayed all-CS tick adds the launches its graph holds: two
-    take_along per mean-shift iteration, one histogram (hist_mma, the
-    default histKernel's) and one pdf."""
+    """One replayed all-CS tick adds the launches its graph holds: one
+    meanshift (no take_along), one histogram (hist_mma, the default
+    histKernel's) and one pdf."""
     H, W, n = 120, 160, 4
     clip = _serving_clip(H, W, n)
     bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev)
@@ -210,7 +211,7 @@ def test_graph_replay_counts_its_launches(dev):
     torch.cuda.synchronize()
     got = {k: launches[k] - before[k] for k in launches}
     assert got == dict(bt._graph.launches)
-    assert got["take_along"] == 20
+    assert got["meanshift"] == 1 and got["take_along"] == 0
     assert got["hist_mma"] == 1 and got["backproject"] == 1
     assert got["hist4096"] == 0
 
@@ -458,3 +459,85 @@ def test_facades_default_to_the_card(dev):
                 assert a[k] == b[k], k
             else:
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-4)
+
+
+def _meanshift_case(n, shape, banded, seed):
+    """A batch of pdfs (40% of pixels zero), windows (some partly off the
+    frame or the band, one of width 0) and band origins, with a zero-mass
+    stream where n > 2."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = 240, 320
+    bh, bw = shape
+    pdf = torch.rand((n, bh, bw), generator=g)
+    pdf[pdf < 0.4] = 0
+    if n > 2:
+        pdf[1] = 0
+    ry = torch.randint(0, H - bh + 1, (n,), generator=g).int()
+    rx = torch.randint(0, W - bw + 1, (n,), generator=g).int()
+    off = (torch.stack([rx, ry], 1) if banded
+           else torch.zeros((n, 2), dtype=torch.int32))
+    win = torch.cat([off + torch.randint(-12, min(bh, bw), (n, 2),
+                                         generator=g).int(),
+                     torch.randint(4, 60, (n, 2), generator=g).int()], 1)
+    win[-1, 2] = 0
+    return pdf, win, (ry, rx) if banded else (None, None)
+
+
+def _bits(t):
+    """An f32 tensor's bits, NaNs (whatever their sign and payload) as 0."""
+    return torch.where(torch.isnan(t), 0, t.view(torch.int32))
+
+
+def _meanshift_equal(got, want):
+    from headtrackr_tpu_torch.ops.meanshift import MOMENTS
+    for a, b in ((got[0], want[0]), (got[2], want[2]), (got[3], want[3])):
+        assert torch.equal(a.cpu(), b.cpu())
+    for k in MOMENTS:
+        a, b = got[1][k].cpu(), want[1][k].cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+        assert torch.equal(_bits(a), _bits(b)), k
+
+
+@pytest.mark.parametrize("n", [1, 3, 256])
+@pytest.mark.parametrize("shape,banded", [((96, 128), True),
+                                          ((128, 192), True),
+                                          ((240, 320), False),
+                                          ((57, 99), True)])
+def test_meanshift_bit_equal_to_twin(dev, n, shape, banded):
+    """One launch; bit-equal to the twin run on the card and on the CPU
+    (the planes in shared memory at the bands, in the global scratch at
+    the full frame; 57x99 takes the plain loads instead of TMA)."""
+    from headtrackr_tpu_torch.kernels.meanshift import mean_shift
+    from headtrackr_tpu_torch.ops.meanshift import mean_shift_plain
+    pdf, win, (ry, rx) = _meanshift_case(n, shape, banded, seed=n)
+    on = lambda t, d: None if t is None else t.to(d)  # noqa: E731
+    args = lambda d: (pdf.to(d), win.to(d), on(ry, d), on(rx, d),  # noqa: E731
+                      (240, 320))
+    before = launches["meanshift"]
+    got = mean_shift(*args(dev))
+    torch.cuda.synchronize()
+    assert launches["meanshift"] == before + 1
+    _meanshift_equal(got, mean_shift_plain(*args(dev)))
+    _meanshift_equal(got, mean_shift_plain(*args("cpu")))
+
+
+def test_meanshift_in_a_graph_equals_eager(dev):
+    """The kernel captured in a CUDA graph (its scratch allocated in the
+    graph's pool at the full frame) and replayed equals the eager call."""
+    from headtrackr_tpu_torch.kernels.meanshift import mean_shift
+    for shape, banded in (((96, 128), True), ((240, 320), False)):
+        pdf, win, (ry, rx) = _meanshift_case(8, shape, banded, seed=4)
+        on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+        args = (pdf.to(dev), win.to(dev), on(ry), on(rx), (240, 320))
+        eager = mean_shift(*args)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mean_shift(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            got = mean_shift(*args)
+        g.replay()
+        torch.cuda.synchronize()
+        _meanshift_equal(got, eager)
