@@ -16,7 +16,13 @@ Phases, one line each; any failure raises and exits nonzero:
      of integers 1..199), and backproject_rect also on band x origins on and
      off the 8-pixel grid, odd band widths and a band equal to the frame
      (and timed on both: origins from -20 up, and on the grid as the
-     serving path places them).  take_along likewise on X8's own workload (an
+     serving path places them), histpdf_band likewise at N=256, 1 and 3;
+     hist4096 and histpdf_band's hist-only mode (one cluster kernel) also
+     on bench, uniform random, uniform random-bin and one-bin frames of
+     240x320, 241x320, 57x99 and 8x8 at N=256, 1, 2 and 3, with full
+     rects, boxes partly outside the frame and empty rects, and on frames
+     one byte off the 16-byte boundary; hist4096 is timed also on uniform
+     random bins.  take_along likewise on X8's own workload (an
      (8, 128) lane gather) and on prefix-sum planes of 256 streams (the
      96x128 band and the 240x320 frame, one mean-shift iteration's row and
      column selections: the serving path's use of it before meanshift).
@@ -178,7 +184,8 @@ X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # the serving path places them (its main entry: origins from -20 up)
 BPR_GRID = "backproject_rect grid"
 # phase_kernels' entries whose library call is torch.bincount
-BINCOUNT = ("hist4096", "histpdf_band_hist")
+K1_RANDOM = "hist4096 random"  # hist4096 on uniform random bins
+BINCOUNT = ("hist4096", K1_RANDOM, "histpdf_band_hist")
 # take_along's extra timing entries: the full-frame planes, X8's workload
 TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
 # meanshift's timing entries: the headline's 96x128 band (its main entry),
@@ -290,6 +297,24 @@ def bin_frames(bins):
     return rgb.to(torch.uint8)
 
 
+def cluster_rects(n, shape, g, dev):
+    """Full-frame rects; boxes partly outside the frame; rects of zero
+    width or height, or wholly off the frame."""
+    import torch
+    from headtrackr_tpu_torch.ops.histogram import full_rects
+    sh, sw = shape
+    boxes = torch.cat([torch.randint(-sw // 2, sw, (n, 1), generator=g),
+                       torch.randint(-sh // 2, sh, (n, 1), generator=g),
+                       torch.randint(1, sw + 1, (n, 1), generator=g),
+                       torch.randint(1, sh + 1, (n, 1), generator=g)],
+                      1).to(torch.int32)
+    empty = boxes.clone()
+    empty[0::3, 2] = 0
+    empty[1::3, 3] = 0
+    empty[2::3, 0] = sw + 3
+    return full_rects(n, shape, dev), boxes.to(dev), empty.to(dev)
+
+
 def phase_kernels(pools, dev):
     import torch
     from headtrackr_tpu_torch.kernels import histpdf as K
@@ -343,26 +368,63 @@ def phase_kernels(pools, dev):
     want = hg.histpdf_band_plain(x4_frames, full, x4_model, (H, W))
     for a, b in zip(got, want):
         check("histpdf_band", a, b)
-    # backproject_rect's edges: x origins on the 8-pixel grid (the serving
-    # path's 4-pixel loop) and off it, odd band widths, the whole frame
+    # backproject_rect's and histpdf_band's edges: x origins on the 8-pixel
+    # grid (the serving path's 4-pixel loop) and off it, odd band widths,
+    # the whole frame; histpdf_band also at N = 1 and 3
     on_grid = bands.clone()
     on_grid[:, 0] = bands[:, 0].clamp(0, W - bw) // 8 * 8
     off_grid = on_grid.clone()
     off_grid[:, 0] += torch.arange(N, device=dev, dtype=torch.int32) % 7 + 1
     w = torch.rand((N, 4096), generator=g).to(dev)
-    for fr in (inputs["random"], inputs["face_noise=0"]):
+    m = torch.randint(0, 200, (N, 4096), generator=g).float().to(dev)
+    for fr in (inputs["random"], inputs["face_noise=0"], inputs["face_noise=20"]):
         for rects, band in ((on_grid, BAND), (off_grid, BAND),
                             (bands, (bh - 1, bw - 1)), (on_grid, (bh, bw + 3)),
                             (bands, (H, W))):
             check("backproject_rect", K.backproject(fr, w, rects, band),
                   hg.backproject_plain(fr, w, rects, band))
+            for n in (N, 1, 3):
+                got = K.histpdf_band(fr[:n], rects[:n], m[:n], band)
+                want = hg.histpdf_band_plain(fr[:n], rects[:n], m[:n], band)
+                for a, b in zip(got, want):
+                    check("histpdf_band", a, b)
+    # the cluster histogram's edges (hist4096 and histpdf_band's hist-only
+    # mode): the bench pool, uniform random bytes, uniform random bins and
+    # one bin, over 240x320, 241x320 (a row more than the split), 57x99
+    # and 8x8 frames (rows off the 16-byte grid, fewer pixels than a CTA);
+    # N = 256, 1, 2 and 3; full rects, boxes partly outside, rects of zero
+    # size; and frames one byte off the 16-byte boundary
+    kinds = {"bench": inputs["face_noise=20"], "random": inputs["random"],
+             "random_bins": x4_frames,
+             "one_bin": torch.tensor([120, 100, 90], dtype=torch.uint8).to(
+                 dev).expand(N, H, W, 3).contiguous()}
+    for shape in ((H, W), (H + 1, W), (57, 99), (8, 8)):
+        sh, sw = shape
+        for kind, fr in kinds.items():
+            fr = (torch.cat([fr, fr[:, -1:]], 1) if sh > H
+                  else fr[:, :sh, :sw].contiguous())
+            for rects in cluster_rects(N, shape, g, dev):
+                for n in (N, 1, 2, 3):
+                    want = hg.hist4096_plain(fr[:n], rects[:n]).float()
+                    check("hist4096", K.hist4096(fr[:n], rects[:n]), want)
+                    check("histpdf_band_hist",
+                          K.histpdf_band(fr[:n], rects[:n]), want)
+                off = torch.empty(3 * sh * sw * 3 + 1, dtype=torch.uint8,
+                                  device=dev)[1:].view(3, sh, sw, 3)
+                off.copy_(fr[:3])
+                check("hist4096", K.hist4096(off, rects[:3]),
+                      hg.hist4096_plain(fr[:3], rects[:3]).float())
     for name, e in err.items():
         if e != 0.0:
             raise AssertionError(f"{name} differs from its plain twin: "
                                  f"max abs err {e}")
-    log(f"kernels: bit-equal to their plain twins, backproject_rect also on "
-        f"origins on and off the 8-pixel grid, odd widths and the whole "
-        f"frame (max abs err {err})")
+    log(f"kernels: bit-equal to their plain twins, backproject_rect and "
+        f"histpdf_band also on origins on and off the 8-pixel grid, odd "
+        f"widths and the whole frame (histpdf_band at N=256, 1 and 3), "
+        f"hist4096 and histpdf_band_hist also on bench, random, random-bin "
+        f"and one-bin frames of 240x320, 241x320, 57x99 and 8x8 at N=256, "
+        f"1, 2 and 3, full rects, boxes and empty rects, and frames off the "
+        f"16-byte boundary (max abs err {err})")
 
     # times at the main path's shapes, face_noise=0 frames
     fr = inputs["face_noise=0"]
@@ -379,10 +441,16 @@ def phase_kernels(pools, dev):
     # name -> (kernel call, plain twin call, library call given bins,
     #          bytes moved, operations); the gathers replay from a graph,
     #          bincount does not (library_times)
+    given_x4 = given_bins(x4_frames, full)
     calls = {
         "hist4096": (
             lambda: K.hist4096(fr, full), lambda: hg.hist4096_plain(fr, full),
             lambda: torch.bincount(given_full, minlength=N * 4096),
+            3 * npx_full + 16 * N + 4 * 4096 * N, 6 * npx_full),
+        K1_RANDOM: (
+            lambda: K.hist4096(x4_frames, full),
+            lambda: hg.hist4096_plain(x4_frames, full),
+            lambda: torch.bincount(given_x4, minlength=N * 4096),
             3 * npx_full + 16 * N + 4 * 4096 * N, 6 * npx_full),
         "backproject": (
             lambda: K.backproject(fr, w), lambda: hg.backproject_plain(fr, w),
@@ -1470,6 +1538,8 @@ def main():
             e["also_replaces"] = ALSO_REPLACES[k]
         if k == "histpdf_band":
             e["x4_workload"] = times[X4]
+        if k == "hist4096":
+            e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":
             e.update({key: times[t] for key, t in TA_EXTRA.items()})
         if k == "meanshift":

@@ -6,21 +6,27 @@
 // (_hist_kernel, _onehots, _pad_blocks).  The TPU kernel builds hi/lo
 // one-hot factors per 7,680-pixel block and contracts them on the MXU into a
 // (64, 64) count matrix.  Here the native form is a shared-memory histogram:
-//   - Bound: bytes.  One read of the frame, 230 KB of RGB per 320x240 stream;
-//     the arithmetic per pixel is a few shifts and one shared-memory atomic.
-//   - Design: binning is fused into the kernel (no i32 bin image in device
-//     memory).  Each block owns a 16 KB shared histogram for one stream's
-//     slice of the rect, updates it with shared integer atomics and flushes
-//     its nonzero bins with global integer atomics.  Integer atomics are
-//     exact in any order, so the counts are bit-equal to any other
-//     formulation.
-//   - Contention: camera-like frames put most pixels of a warp in the same
-//     bin (a flat background, a 2-3-bin face).  Each warp aggregates first
-//     (__match_any_sync): one atomic per distinct bin in the warp, adding the
-//     peer count, instead of 32 serialized atomics on one address.
-//   - The grid is sized by the frame, so the rect should cover most of it:
-//     the serving path calls it for full-frame current histograms only.
-//     Small rects (a detection box, a band) go to histpdf_band below.
+//   - Bound: bytes.  One read of the frame, 230 KB of RGB per 320x240
+//     stream, 0.019 ms at 256 streams; the arithmetic per pixel is a few
+//     shifts and at most one shared-memory atomic.
+//   - What held the first design back (one block per 8,192 pixels, flushed
+//     by global atomics into a zero-filled buffer, then a cast): ~41k global
+//     atomics a stream on spread bins, a 64-bit division and modulo and
+//     three byte loads a pixel, and two extra launches.
+//   - Design: a thread-block cluster of C CTAs a stream (C from
+//     kernels/histpdf.py cluster_split: 2 at 256 streams, 16 at one), the
+//     cluster machinery below (cluster_hist_kernel) shared with
+//     histpdf_band.  Each CTA counts a contiguous share of the rect's rows
+//     into its own 16 KB shared i32 histogram; after a cluster barrier
+//     each CTA sums its 4096 / C bins over the peers' histograms through
+//     distributed shared memory and writes them as f32 straight to the
+//     output.  No global atomics, no memset, no cast launch; integer sums
+//     in any order are exact, so the counts are bit-equal to the twin.
+//   - What paces it (H100 SXM, PERF.md, tools/torch_histpdf_variants.py):
+//     each CTA's fixed cost (zeroing its histogram, reading its slice from
+//     every peer, two cluster barriers), so few long CTAs win once the
+//     card is full: at 256 streams C = 2 took 0.039 ms on the bench pool,
+//     2.1x the bound, C = 8 0.045 and C = 16 0.068.
 //
 // backproject replaces headtrackr_tpu/kernels/histpdf.py::pdf_pallas
 // (_pdf_kernel).  The TPU kernel needs a triple-bf16 split of the weight
@@ -53,14 +59,42 @@
 // one stream, the histogram is a one-hot MXU contraction and the pdf a
 // bf16-plane weight matmul.  Here:
 //   - Bound: bytes.  At a 96x128 band: 36 KB of RGB in, a 16 KB model in,
-//     16 KB of counts and 48 KB of pdf out per stream.
-//   - Design: one block per stream (the TPU kernel's grid=(N,)), so no
-//     cross-block merge and no global atomics.  Pass 1 bins the rect into a
-//     16 KB shared i32 histogram with warp-aggregated shared atomics; the
-//     epilogue writes the f32 counts and, in pdf mode, forms the weights in
-//     a 16 KB shared table with IEEE division (bit-equal to the torch
-//     formulation); pass 2 reads the rect again (from L2) and writes
-//     pdf = table[bin].  Hist-only mode stops after the counts.
+//     16 KB of counts and 48 KB of pdf out per stream, 0.0091 ms at 256
+//     streams; the frame (X7's workload) 0.0436 ms.
+//   - What held the first design back (one 512-thread block a stream): 256
+//     blocks on 132 SMs left every load's latency exposed; the band was
+//     read twice (counting, then the pdf), each time with a 64-bit division
+//     a pixel, and one block formed all 4,096 weights.
+//   - Design: the same cluster of C CTAs a stream as hist4096 (C from the
+//     band's size and the streams: 2 at 256 streams, 4 for one stream's
+//     96x128 band).  Each CTA counts its share of the band's rows and keeps
+//     each pixel's bin in shared memory as u16 (12 KB at 96x128 and C = 2),
+//     so no pixel is read twice.  After a cluster barrier each CTA sums its 4096 / C bins over
+//     the peers (distributed shared memory), writes them to cur, forms
+//     their weights with IEEE division (bit-equal to the torch formulation)
+//     and stores that slice of the table into every peer's 16 KB table.
+//     After a second barrier each CTA writes pdf = table[bin] for its rows
+//     from the kept bins, 16 bytes a store where the band's width is a
+//     multiple of 4.  A share too large to keep (bands past ~96 KB of bins
+//     a CTA) bins its rows from the frame again instead, which doubled the
+//     time at 96x128 and over the frame when tried everywhere.  Hist-only
+//     mode is hist4096's kernel on each rect clamped to the frame.
+//   - What paces it (H100 SXM, PERF.md): the same fixed cost a CTA, and
+//     the three phases (count, weights, pdf) in turn behind two barriers:
+//     0.016-0.017 ms at 96x128, 1.8x the bound.
+//
+// The cluster kernel counts a row as one run of rw x 3 bytes: a thread
+// takes 16 neighbouring pixels at a time with three 16-byte loads, and
+// another the row's unaligned head or tail (< 16 pixels each) pixel by
+// pixel; no division or modulo a pixel.  A thread merges runs of equal bins among the
+// pixels it takes (a flat background costs one atomic a run, not a pixel)
+// and adds each run with one shared atomic.  A warp match of the run heads
+// (__match_any_sync) or of every pixel, the first design's order, was
+// slower on every workload measured (tools/torch_histpdf_variants.py).
+// The rows a CTA takes: the rect's rh rows split evenly over its first
+// `active` CTAs, active = min(C, ceil(rw rh / 3072), rh) (at least 1), so
+// a small detection box is counted by one or two CTAs and the rest only
+// help reduce; kernels/histpdf.py cluster_rows mirrors the split.
 //
 // All launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() of the launch.
@@ -74,10 +108,14 @@ namespace {
 
 constexpr int kBins = 4096;
 constexpr int kThreads = 256;
-constexpr int kBandThreads = 512;
-constexpr int kHistPixelsPerBlock = 8192;
 constexpr int kPdfPixelsPerBlock = 16384;
 constexpr int kCluster = 4;  // backproject_rect's CTAs per stream
+// the cluster histogram: pixels a counting CTA takes at least (as
+// kernels/histpdf.py _MIN_CTA_PX), the largest cluster, and the most
+// shared memory a CTA spends keeping its pixels' bins
+constexpr int kMinCtaPx = 3072;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxStashBytes = 96 * 1024;
 
 __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
   return (static_cast<int>(px[0] >> 4) << 8) |
@@ -109,53 +147,6 @@ __device__ __forceinline__ Rect band_rect(const int32_t* r, int h, int w,
   x0 = x0 < 0 ? 0 : (x0 > w - bw ? w - bw : x0);
   y0 = y0 < 0 ? 0 : (y0 > h - bh ? h - bh : y0);
   return {x0, y0, bw, bh};
-}
-
-// Count the pixels [start, end) of the rect into a shared histogram.  The
-// loop bound is uniform across the block, so every warp runs the same trip
-// count and __match_any_sync sees all 32 lanes.
-__device__ __forceinline__ void count_pixels(const uint8_t* f, int w,
-                                             const Rect& rc, int64_t start,
-                                             int64_t end, int32_t* hist) {
-  const int lane = threadIdx.x & 31;
-  for (int64_t base = start; base < end; base += blockDim.x) {
-    const int64_t p = base + threadIdx.x;
-    int bin = -1;
-    if (p < end) {
-      const int64_t yy = rc.y0 + p / rc.rw;
-      const int64_t xx = rc.x0 + p % rc.rw;
-      bin = rgb_bin(f + (yy * w + xx) * 3);
-    }
-    const unsigned peers = __match_any_sync(0xffffffffu, bin);
-    if (bin >= 0 && lane == __ffs(peers) - 1) {
-      atomicAdd(&hist[bin], __popc(peers));
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-hist4096_kernel(const uint8_t* __restrict__ frames,
-                const int32_t* __restrict__ rects,
-                int32_t* __restrict__ out, int h, int w) {
-  __shared__ int32_t hist[kBins];
-  const int n = blockIdx.y;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
-  const Rect rc = clamped_rect(rects + 4 * static_cast<int64_t>(n), h, w);
-  const int64_t npx = rc.rw * rc.rh;
-  __syncthreads();
-
-  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kHistPixelsPerBlock;
-  int64_t end = start + kHistPixelsPerBlock;
-  end = end < npx ? end : npx;
-  count_pixels(f, w, rc, start, end, hist);
-  __syncthreads();
-
-  int32_t* o = out + static_cast<int64_t>(n) * kBins;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    const int32_t c = hist[i];
-    if (c != 0) atomicAdd(&o[i], c);
-  }
 }
 
 __device__ __forceinline__ const float* stage_table(const float* weights,
@@ -266,47 +257,298 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
   sm90::cluster_wait();
 }
 
-template <bool kPdf>
-__global__ void __launch_bounds__(kBandThreads)
-histpdf_band_kernel(const uint8_t* __restrict__ frames,
+// ---- the cluster histogram (hist4096, histpdf_band) ----------------------
+
+// The rows of a rect's rh rows that CTA `rank` of a cluster of c counts:
+// [r0, r0 + nrows), over the first `active` CTAs (kernels/histpdf.py
+// cluster_rows is the same split).
+struct Share {
+  int r0, nrows, active;
+};
+
+// The CTAs of a cluster of c that count a rect of `rows` rows and `npx`
+// pixels: one a kMinCtaPx pixels, at most one a row, at least one.
+__host__ __device__ __forceinline__ int active_ctas(int64_t npx, int64_t rows,
+                                                    int c) {
+  int64_t a = (npx + kMinCtaPx - 1) / kMinCtaPx;
+  a = a < c ? a : c;
+  a = a < rows ? a : rows;
+  return a > 1 ? static_cast<int>(a) : 1;
+}
+
+__device__ __forceinline__ Share cta_share(const Rect& rc, int c, int rank) {
+  const int a = active_ctas(rc.rw * rc.rh, rc.rh, c);
+  const int rh = static_cast<int>(rc.rh);
+  if (rank >= a) return {rh, 0, a};
+  const int r0 = rank * rh / a;
+  return {r0, (rank + 1) * rh / a - r0, a};
+}
+
+// A thread's pending run of equal bins, added to the histogram when the bin
+// changes and at the end.
+struct Run {
+  int bin = -1;
+  int count = 0;
+
+  __device__ __forceinline__ void add(int b, int32_t* hist) {
+    if (b == bin) {
+      ++count;
+    } else {
+      if (count) atomicAdd(&hist[bin], count);
+      bin = b;
+      count = 1;
+    }
+  }
+  __device__ __forceinline__ void flush(int32_t* hist) {
+    if (count) atomicAdd(&hist[bin], count);
+  }
+};
+
+// The bins of 16 neighbouring pixels: 48 bytes from a 16-byte aligned p.
+__device__ __forceinline__ void bins16(const uint8_t* p, int (&b)[16]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+  const uint32_t v[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
+                          q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    // little-endian: byte k of the run is byte k % 4 of v[k / 4]
+    const uint32_t r = (v[(3 * j) / 4] >> (8 * ((3 * j) % 4))) & 0xFF;
+    const uint32_t g = (v[(3 * j + 1) / 4] >> (8 * ((3 * j + 1) % 4))) & 0xFF;
+    const uint32_t bl = (v[(3 * j + 2) / 4] >> (8 * ((3 * j + 2) % 4))) & 0xFF;
+    b[j] = bin_of(r, g, bl);
+  }
+}
+
+// Add one chunk's bins (-1: no pixel) to the histogram through the
+// thread's run.  (tools/torch_histpdf_variants.py swaps this body for
+// warp-collective orders, which the block-uniform loop of count_rows
+// allows.)
+__device__ __forceinline__ void count16(const int (&b)[16], Run& run,
+                                        int32_t* hist) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (b[j] >= 0) run.add(b[j], hist);
+  }
+}
+
+// Keep a chunk's 16 bins at s as u16, in the widest stores its alignment
+// allows: two 16-byte stores, eight 4-byte ones, or (s 2 bytes past a
+// 4-byte boundary) one u16, seven 4-byte stores and one u16.
+__device__ __forceinline__ void stash16(uint16_t* s, const int (&b)[16]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(s);
+  if ((a & 15) == 0) {
+    uint4* s4 = reinterpret_cast<uint4*>(s);
+    s4[0] = make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16,
+                       b[4] | b[5] << 16, b[6] | b[7] << 16);
+    s4[1] = make_uint4(b[8] | b[9] << 16, b[10] | b[11] << 16,
+                       b[12] | b[13] << 16, b[14] | b[15] << 16);
+  } else if ((a & 3) == 0) {
+    uint32_t* s1 = reinterpret_cast<uint32_t*>(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s1[j] = b[2 * j] | b[2 * j + 1] << 16;
+  } else {
+    s[0] = static_cast<uint16_t>(b[0]);
+    uint32_t* s1 = reinterpret_cast<uint32_t*>(s + 1);
+#pragma unroll
+    for (int j = 0; j < 7; ++j) s1[j] = b[2 * j + 1] | b[2 * j + 2] << 16;
+    s[15] = static_cast<uint16_t>(b[15]);
+  }
+}
+
+// Count rows [r0, r0 + nrows) of the rect into hist; with kStash also keep
+// each pixel's bin, stash[(row - r0) * rw + x].  A row is rw / 16 + 2
+// units: unit 0 its unaligned head, units 1..body its 16-pixel chunks,
+// unit body + 1 its tail (head and tail < 16 pixels, taken one pixel at a
+// time but with every load issued before the first is used).  Units are
+// dealt to threads in order, advanced without division; the loop's trip
+// count is uniform over the block.
+template <bool kStash>
+__device__ __forceinline__ void count_rows(const uint8_t* f, int w,
+                                           const Rect& rc, int r0, int nrows,
+                                           int32_t* hist, uint16_t* stash) {
+  const int rw = static_cast<int>(rc.rw);
+  const int units = rw / 16 + 2;
+  const int total = nrows * units;
+  const int step_r = blockDim.x / units;
+  const int step_c = blockDim.x - step_r * units;
+  int row = threadIdx.x / units;
+  int col = threadIdx.x - row * units;
+  Run run;
+  for (int base = 0; base < total; base += blockDim.x) {
+    int b[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) b[j] = -1;
+    if (base + static_cast<int>(threadIdx.x) < total) {
+      const uint8_t* p = f + ((rc.y0 + r0 + row) * w + rc.x0) * 3;
+      // 3 head == -p (mod 16): the pixel at `head` starts 16-byte aligned
+      int head = static_cast<int>(
+          ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) * 11) & 15);
+      head = head < rw ? head : rw;
+      const int body = (rw - head) / 16;
+      const int tail = head + 16 * body;
+      uint16_t* s = stash + row * rw;
+      if (col == 0 || col == body + 1) {
+        const int x = col == 0 ? 0 : tail;
+        const int m = col == 0 ? head : rw - tail;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (j < m) b[j] = rgb_bin(p + 3 * (x + j));
+        }
+        if constexpr (kStash) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (j < m) s[x + j] = static_cast<uint16_t>(b[j]);
+          }
+        }
+      } else if (col <= body) {
+        const int x = head + 16 * (col - 1);
+        bins16(p + 3 * x, b);
+        if constexpr (kStash) stash16(s + x, b);
+      }
+    }
+    count16(b, run, hist);
+    col += step_c;
+    row += step_r;
+    if (col >= units) {
+      col -= units;
+      ++row;
+    }
+  }
+  run.flush(hist);
+}
+
+// grid (C, N), one cluster of C CTAs a stream (C a power of two <= 16).
+// kPdf: histpdf_band's pdf mode (model, band (bh, bw), pdf); otherwise the
+// counts of each rect clamped to the frame (hist4096, hist-only mode).
+// kStash: the pdf mode keeps its pixels' bins in shared memory.  vec: bw %
+// 4 == 0 and pdf 16-byte aligned.  Dynamic shared memory: the i32
+// histogram, then in pdf mode the f32 weight table and the u16 bins.
+template <bool kPdf, bool kStash>
+__global__ void __launch_bounds__(kThreads)
+cluster_hist_kernel(const uint8_t* __restrict__ frames,
                     const int32_t* __restrict__ rects,
-                    const float* __restrict__ model,
-                    float* __restrict__ cur, float* __restrict__ pdf,
-                    int h, int w, int bh, int bw) {
-  __shared__ int32_t hist[kBins];
-  __shared__ float table[kPdf ? kBins : 1];
-  const int n = blockIdx.x;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
+                    const float* __restrict__ model, float* __restrict__ cur,
+                    float* __restrict__ pdf, int h, int w, int bh, int bw,
+                    bool vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* hist = reinterpret_cast<int32_t*>(smem);
+  float* table = reinterpret_cast<float*>(smem + kBins * sizeof(int32_t));
+  uint16_t* stash = reinterpret_cast<uint16_t*>(smem + 2 * kBins * 4);
+  const int n = blockIdx.y;
+  const int c = gridDim.x;
+  const uint32_t rank = sm90::cluster_rank();
   const int32_t* r = rects + 4 * static_cast<int64_t>(n);
   const Rect rc = kPdf ? band_rect(r, h, w, bh, bw) : clamped_rect(r, h, w);
-  const int64_t npx = rc.rw * rc.rh;
-  __syncthreads();
-
+  const Share sh = cta_share(rc, c, static_cast<int>(rank));
   const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
-  count_pixels(f, w, rc, 0, npx, hist);
-  __syncthreads();
+  if (static_cast<int>(rank) < sh.active) {
+    int4* h4 = reinterpret_cast<int4*>(hist);
+    for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) {
+      h4[i] = make_int4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    count_rows<kPdf && kStash>(f, w, rc, sh.r0, sh.nrows, hist, stash);
+  }
+  // every CTA's counts are in its shared memory, visible to the cluster
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
 
-  float* c = cur + static_cast<int64_t>(n) * kBins;
-  const float* m = kPdf ? model + static_cast<int64_t>(n) * kBins : nullptr;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    const int32_t k = hist[i];
-    const float cf = static_cast<float>(k);
-    c[i] = cf;
+  // this CTA's slice of the bins, summed over the counting peers
+  const int slice = kBins / c;
+  const int lo = static_cast<int>(rank) * slice;
+  float4* c4 = reinterpret_cast<float4*>(cur + static_cast<int64_t>(n) * kBins
+                                         + lo);
+  for (int i = threadIdx.x; i < slice / 4; i += blockDim.x) {
+    int4 k = make_int4(0, 0, 0, 0);
+    for (int p = 0; p < sh.active; ++p) {
+      const int4 v = sm90::ld_cluster_v4(sm90::map_rank(hist + lo + 4 * i, p));
+      k.x += v.x;
+      k.y += v.y;
+      k.z += v.z;
+      k.w += v.w;
+    }
+    const float4 cf = make_float4(k.x, k.y, k.z, k.w);
+    c4[i] = cf;
     if constexpr (kPdf) {
       // min(model / cur, 1), 0 where cur == 0: IEEE round-to-nearest
       // division, as the torch formulation (ops/histogram.py)
-      table[i] = k != 0 ? fminf(__fdiv_rn(m[i], cf), 1.0f) : 0.0f;
+      const float4 m = reinterpret_cast<const float4*>(
+          model + static_cast<int64_t>(n) * kBins + lo)[i];
+      const float4 wt = make_float4(
+          k.x != 0 ? fminf(__fdiv_rn(m.x, cf.x), 1.0f) : 0.0f,
+          k.y != 0 ? fminf(__fdiv_rn(m.y, cf.y), 1.0f) : 0.0f,
+          k.z != 0 ? fminf(__fdiv_rn(m.z, cf.z), 1.0f) : 0.0f,
+          k.w != 0 ? fminf(__fdiv_rn(m.w, cf.w), 1.0f) : 0.0f);
+      for (int p = 0; p < sh.active; ++p) {
+        sm90::st_cluster_v4(sm90::map_rank(table + lo + 4 * i, p), wt);
+      }
     }
   }
+  // no peer reads this CTA's histogram any more, and (pdf mode) every
+  // slice of its weight table has landed
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
   if constexpr (kPdf) {
-    __syncthreads();
-    float* o = pdf + static_cast<int64_t>(n) * npx;
-    for (int64_t p = threadIdx.x; p < npx; p += blockDim.x) {
-      const int64_t yy = rc.y0 + p / rc.rw;
-      const int64_t xx = rc.x0 + p % rc.rw;
-      o[p] = table[rgb_bin(f + (yy * w + xx) * 3)];
+    if (sh.nrows == 0) return;
+    float* o = pdf + (static_cast<int64_t>(n) * bh + sh.r0) * bw;
+    if constexpr (kStash) {
+      const int npx = sh.nrows * bw;
+      if (vec) {
+        const uint2* s2 = reinterpret_cast<const uint2*>(stash);
+        float4* o4 = reinterpret_cast<float4*>(o);
+        for (int i = threadIdx.x; i < npx / 4; i += blockDim.x) {
+          const uint2 q = s2[i];
+          o4[i] = make_float4(table[q.x & 0xFFFF], table[q.x >> 16],
+                              table[q.y & 0xFFFF], table[q.y >> 16]);
+        }
+      } else {
+        for (int i = threadIdx.x; i < npx; i += blockDim.x) {
+          o[i] = table[stash[i]];
+        }
+      }
+    } else {
+      for (int row = 0; row < sh.nrows; ++row) {
+        const uint8_t* p = f + ((rc.y0 + sh.r0 + row) * w + rc.x0) * 3;
+        for (int x = threadIdx.x; x < bw; x += blockDim.x) {
+          o[row * bw + x] = table[rgb_bin(p + 3 * x)];
+        }
+      }
     }
   }
+}
+
+bool cluster_ok(int n, int c) {
+  return n <= 65535 && c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0;
+}
+
+// Launch cluster_hist_kernel over grid (c, n) in clusters of c, with `smem`
+// bytes of dynamic shared memory.  A cluster of 16 is past the portable 8,
+// so the kernel opts in.
+template <bool kPdf, bool kStash>
+int launch_cluster(int n, int c, int smem, cudaStream_t s, const uint8_t* f,
+                   const int32_t* r, const float* m, float* cur, float* pdf,
+                   int h, int w, int bh, int bw, bool vec) {
+  auto* kernel = cluster_hist_kernel<kPdf, kStash>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                       1);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, f, r, m, cur, pdf,
+                                             h, w, bh, bw, vec);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int blocks_for(int64_t pixels, int per_block) {
@@ -316,16 +558,19 @@ int blocks_for(int64_t pixels, int per_block) {
 
 }  // namespace
 
-// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h], out (n, 4096) i32
-// zero-filled by the caller.
+// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h], out (n, 4096) f32
+// (16-byte aligned): the counts of each rect clamped to the frame.  One
+// cluster of c CTAs a stream (c a power of two, at most 16).
 extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
-                               int n, int h, int w, void* stream) {
+                               int n, int h, int w, int c, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid(blocks_for(static_cast<int64_t>(h) * w, kHistPixelsPerBlock), n);
-  hist4096_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!cluster_ok(n, c) || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_cluster<false, false>(
+      n, c, kBins * sizeof(int32_t), static_cast<cudaStream_t>(stream),
       static_cast<const uint8_t*>(frames), static_cast<const int32_t*>(rects),
-      static_cast<int32_t*>(out), h, w);
-  return static_cast<int>(cudaGetLastError());
+      nullptr, static_cast<float*>(out), nullptr, h, w, 0, 0, false);
 }
 
 // frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
@@ -366,28 +611,38 @@ extern "C" int backproject_rect_launch(const void* frames, const void* weights,
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h], cur (n, 4096) f32.
-// model == nullptr: hist-only, cur = counts of each rect clamped to the
-// frame (bh, bw, pdf unused).  Otherwise model (n, 4096) f32, and each
-// rect's [x, y] places a (bh, bw) band clipped into the frame
-// (1 <= bh <= h, 1 <= bw <= w): cur = the band's counts, pdf (n, bh, bw) f32
-// = min(model / cur, 1)[bin].
+// frames (n, h, w, 3) u8, rects (n, 4) i32 whose [x, y] place a (bh, bw)
+// band clipped into the frame (1 <= bh <= h, 1 <= bw <= w), model (n, 4096)
+// f32, cur (n, 4096) f32 (both 16-byte aligned): cur = the band's counts,
+// pdf (n, bh, bw) f32 = min(model / cur, 1)[bin].  One cluster of c CTAs a
+// stream (c a power of two, at most 16).  The hist-only mode is
+// hist4096_launch.
 extern "C" int histpdf_band_launch(const void* frames, const void* rects,
                                    const void* model, void* cur, void* pdf,
-                                   int n, int h, int w, int bh, int bw,
+                                   int n, int h, int w, int bh, int bw, int c,
                                    void* stream) {
   if (n <= 0) return 0;
+  if (!cluster_ok(n, c) || model == nullptr || bh < 1 || bw < 1 || bh > h ||
+      bw > w || reinterpret_cast<uintptr_t>(cur) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(model) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const uint8_t*>(frames);
   const auto* r = static_cast<const int32_t*>(rects);
   const auto* m = static_cast<const float*>(model);
-  if (model == nullptr) {
-    histpdf_band_kernel<false><<<n, kBandThreads, 0, s>>>(
-        f, r, m, static_cast<float*>(cur), nullptr, h, w, 0, 0);
-  } else {
-    histpdf_band_kernel<true><<<n, kBandThreads, 0, s>>>(
-        f, r, m, static_cast<float*>(cur), static_cast<float*>(pdf), h, w, bh,
-        bw);
+  auto* cu = static_cast<float*>(cur);
+  auto* o = static_cast<float*>(pdf);
+  const bool vec = bw % 4 == 0 && reinterpret_cast<uintptr_t>(pdf) % 16 == 0;
+  // the rows of the largest share (cta_share over the band)
+  const int active = active_ctas(static_cast<int64_t>(bh) * bw, bh, c);
+  const int64_t rows = (bh + active - 1) / active;
+  const int64_t stash = (rows * bw * sizeof(uint16_t) + 15) / 16 * 16;
+  const int tables = 2 * kBins * 4;
+  if (stash <= kMaxStashBytes) {
+    return launch_cluster<true, true>(n, c, tables + static_cast<int>(stash),
+                                      s, f, r, m, cu, o, h, w, bh, bw, vec);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster<true, false>(n, c, tables, s, f, r, m, cu, o, h, w, bh,
+                                     bw, vec);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives the kernels share, as inline PTX: mbarriers,
-// TMA bulk copies (plain and multicast to a cluster), cluster barriers, the
-// proxy fence and the int8 warpgroup matrix multiply.  Header only; each
-// .cu that includes it builds on its own.
+// TMA bulk copies (plain and multicast to a cluster), cluster barriers,
+// distributed shared memory loads and stores, the proxy fence and the int8
+// warpgroup matrix multiply.  Header only; each .cu that includes it builds
+// on its own.
 
 #pragma once
 
@@ -94,6 +95,34 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---- distributed shared memory --------------------------------------------
+
+// The address of `p` (this CTA's shared memory) in the shared memory of the
+// cluster's CTA `rank`, for ld/st.shared::cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // ---- warpgroup matrix multiply --------------------------------------------

@@ -30,10 +30,11 @@ _I = ctypes.c_int
 # source stem -> {C launcher: argtypes}
 _SIGNATURES = {
     "histpdf": {
-        "hist4096_launch": (_C, _C, _C, _I, _I, _I, _C),
+        "hist4096_launch": (_C, _C, _C, _I, _I, _I, _I, _C),
         "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
         "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
-        "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+        "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
+                                _C),
     },
     "gather": {
         "take_along_launch": (_C, _C, _C, _I, _I, _I, _I, _I, _I, _C),

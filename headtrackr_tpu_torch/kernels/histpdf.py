@@ -11,6 +11,10 @@ CUDA tensor launches the kernel, built on first use (kernels/build.py);
 any other device raises.  There is no fallback: a failed build or launch
 raises.  ``launches`` (kernels/launch.py) counts the device launches of each
 kernel, so a run can show that its main path went through the kernels.
+
+``hist4096`` and ``histpdf_band`` run one thread-block cluster of C CTAs a
+stream (``cluster_split``), each CTA counting a share of the rect's rows
+(``cluster_rows``) and reducing a slice of the bins over its peers.
 """
 
 import torch
@@ -19,8 +23,42 @@ from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
+from .launch import sm_count as _sm_count
 
-__all__ = ["hist4096", "backproject", "histpdf_band"]
+__all__ = ["hist4096", "backproject", "histpdf_band", "cluster_split",
+           "cluster_rows"]
+
+# the cluster histogram's CTAs a launch puts on an SM (one wave of them),
+# the pixels a counting CTA takes at least (csrc/histpdf.cu kMinCtaPx), the
+# largest cluster.  Each CTA pays a fixed cost (zeroing its 16 KB histogram,
+# reading its slice from every peer), so fewer, longer CTAs win once the
+# card is full: on an H100 at 256 streams C = 2 beat 1, 4, 8 and 16 on the
+# bench pool, random bins, the 96x128 band and boxes, and came within 8%
+# of C = 8 over the frame (tools/torch_histpdf_variants.py, PERF.md).
+_CTAS_PER_SM = 4
+_MIN_CTA_PX = 3072
+_MAX_CLUSTER = 16
+
+
+def cluster_split(n, rows, cols, sms):
+    """CTAs a stream (a power of two <= 16) of a cluster launch over n
+    streams whose rects are at most rows x cols on a card of ``sms`` SMs:
+    one wave of _CTAS_PER_SM CTAs an SM split evenly over the streams, no
+    more than one a row or one a _MIN_CTA_PX pixels (the kernel narrows
+    that again to each rect's own size, ``cluster_rows``)."""
+    c = min(_MAX_CLUSTER, rows, -(-rows * cols // _MIN_CTA_PX),
+            _CTAS_PER_SM * sms // max(n, 1))
+    return 1 << (max(1, c).bit_length() - 1)
+
+
+def cluster_rows(c, rows, cols):
+    """[r0, r1) of a rows x cols rect that each CTA of a cluster of c counts
+    (the kernel's cta_share): the rows split evenly over the first
+    min(c, ceil(rows cols / _MIN_CTA_PX), rows) CTAs (at least one); the
+    others count none."""
+    active = max(1, min(c, -(-rows * cols // _MIN_CTA_PX), rows))
+    return [(k * rows // active, (k + 1) * rows // active) if k < active
+            else (rows, rows) for k in range(c)]
 
 
 def _check_frames(frames):
@@ -50,19 +88,29 @@ def _check_band(band, H, W):
 
 def hist4096(frames, rects):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
-    counts of each stream's rect (clamped to the frame).  Its grid covers
-    the frame: meant for full-frame rects (small ones: ``histpdf_band``)."""
+    counts of each stream's rect (clamped to the frame).  One cluster a
+    stream sized by the frame: meant for full-frame rects (a box counts on
+    one or two of its CTAs; ``histpdf_band``'s hist-only mode sizes its
+    clusters the same way)."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
     _check_rects(rects, N)
     if not _on_cuda(frames, rects):
         return hist4096_plain(frames, rects).to(torch.float32)
-    out = torch.zeros((N, NBINS), dtype=torch.int32, device=frames.device)
+    return _counts("hist4096", frames, rects)
+
+
+def _counts(key, frames, rects):
+    """The rects' counts by the cluster kernel (C from the frame), its
+    launch counted under ``key``."""
+    N, H, W, _ = frames.shape
+    out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     if N:
+        c = cluster_split(N, H, W, _sm_count(frames.device))
         with torch.cuda.device(frames.device):
-            _launch("hist4096", "hist4096_launch", frames.data_ptr(),
-                    rects.data_ptr(), out.data_ptr(), N, H, W)
-    return out.to(torch.float32)
+            _launch(key, "hist4096_launch", frames.data_ptr(),
+                    rects.data_ptr(), out.data_ptr(), N, H, W, c)
+    return out
 
 
 def backproject(frames, weights, rects=None, band=None):
@@ -96,39 +144,38 @@ def backproject(frames, weights, rects=None, band=None):
 
 
 def histpdf_band(frames, rects, model=None, band=None):
-    """One block per stream: the histogram of a rect and, given the model,
+    """One cluster per stream: the histogram of a rect and, given the model,
     the ratio weights and the pdf over it.
 
     Hist-only (``model`` None): (N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h]
     -> (N, 4096) f32 exact counts of each rect clamped to the frame (the
-    handoff model histogram of a detection box).
+    handoff model histogram of a detection box): ``hist4096``'s kernel,
+    counted as ``histpdf_band_hist``.
 
-    Pdf mode: also ``model`` (N, 4096) f32 and ``band`` (bh, bw); each
-    rect's [x, y] places the band (clipped into the frame).  Returns
-    (cur (N, 4096) f32 counts of the band, pdf (N, bh, bw) f32 =
-    min(model/cur, 1)[bin]) -- one band-local camshift tick's pixel work."""
+    Pdf mode: also ``model`` (N, 4096) f32 (16-byte aligned) and ``band``
+    (bh, bw); each rect's [x, y] places the band (clipped into the frame).
+    Returns (cur (N, 4096) f32 counts of the band, pdf (N, bh, bw) f32 =
+    min(model/cur, 1)[bin]) -- one band-local camshift tick's pixel work,
+    C from the band's size (``cluster_split``)."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
     _check_rects(rects, N)
     if model is None:
         if not _on_cuda(frames, rects):
             return histpdf_band_plain(frames, rects)
-        cur = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
-        if N:
-            with torch.cuda.device(frames.device):
-                _launch("histpdf_band_hist", "histpdf_band_launch",
-                        frames.data_ptr(), rects.data_ptr(), None,
-                        cur.data_ptr(), None, N, H, W, 0, 0)
-        return cur
+        return _counts("histpdf_band_hist", frames, rects)
     _check_table("model", model, N)
     bh, bw = _check_band(band, H, W)
     if not _on_cuda(frames, rects, model):
         return histpdf_band_plain(frames, rects, model, (bh, bw))
+    if model.data_ptr() % 16:
+        raise ValueError("model must be 16-byte aligned (float4 loads)")
     cur = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     pdf = torch.empty((N, bh, bw), dtype=torch.float32, device=frames.device)
     if N:
+        c = cluster_split(N, bh, bw, _sm_count(frames.device))
         with torch.cuda.device(frames.device):
             _launch("histpdf_band", "histpdf_band_launch", frames.data_ptr(),
                     rects.data_ptr(), model.data_ptr(), cur.data_ptr(),
-                    pdf.data_ptr(), N, H, W, bh, bw)
+                    pdf.data_ptr(), N, H, W, bh, bw, c)
     return cur, pdf

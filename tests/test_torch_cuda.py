@@ -79,13 +79,33 @@ def test_band_kernels_bit_equal_to_twins(dev, shape, band):
 
 def test_kernel_rejects_what_it_does_not_take(dev):
     frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
+    rects = hg.full_rects(2, (8, 8), dev)
     with pytest.raises(ValueError):  # not contiguous
-        K.hist4096(frames.transpose(1, 2), hg.full_rects(2, (8, 8), dev))
+        K.hist4096(frames.transpose(1, 2), rects)
     with pytest.raises(ValueError):  # wrong table width
         K.backproject(frames, torch.zeros((2, 4095), device=dev))
     with pytest.raises(ValueError):  # rows not 16-byte aligned
         K.backproject(frames, torch.zeros(2 * 4096 + 1, device=dev)[1:]
                       .view(2, 4096))
+    with pytest.raises(ValueError):  # model not 16-byte aligned
+        K.histpdf_band(frames, rects, torch.zeros(2 * 4096 + 1, device=dev)
+                       [1:].view(2, 4096), (4, 4))
+    with pytest.raises(ValueError):  # band larger than the frame
+        K.histpdf_band(frames, rects, torch.zeros((2, 4096), device=dev),
+                       (9, 8))
+    # a launch the card refuses raises, as does a cluster size the C
+    # launcher does not take
+    from headtrackr_tpu_torch.kernels.build import load_library
+    out = torch.empty((2, 4096), device=dev)
+    fn = load_library().fn("hist4096_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    for c in (3, 32):
+        assert fn(frames.data_ptr(), rects.data_ptr(), out.data_ptr(), 2, 8,
+                  8, c, stream) != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        from headtrackr_tpu_torch.kernels.launch import launch
+        launch("hist4096", "hist4096_launch", frames.data_ptr(),
+               rects.data_ptr(), out.data_ptr(), 2, 8, 8, 3)
 
 
 def test_serving_tick_card_equals_cpu(dev):
@@ -196,13 +216,20 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
     assert scan.modes.tolist() == [2] * n
 
 
-def test_graph_replay_counts_its_launches(dev):
+@pytest.mark.parametrize("kw,hist,pdf", [
+    ({}, "hist_mma", "backproject"),
+    (dict(histKernel="pallas"), "hist4096", "backproject"),
+    (dict(band=(64, 96), bandHist=True), "histpdf_band", None)])
+def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     """One replayed all-CS tick adds the launches its graph holds: one
     meanshift (no take_along), one histogram (hist_mma, the default
-    histKernel's) and one pdf."""
-    H, W, n = 120, 160, 4
+    histKernel's; hist4096, the "pallas" one's; or the band's cluster
+    histpdf_band, which also makes the pdf) and one pdf.  Three streams:
+    the clip's fourth carries a face taller than the band, whose escape
+    recompute would run eagerly after the replay."""
+    H, W, n = 120, 160, 3
     clip = _serving_clip(H, W, n)
-    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev)
+    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev, **kw)
     for f in clip[:18]:
         bt.step_auto(f)
     assert (bt.modes == 2).all() and bt._graph is not None
@@ -212,8 +239,11 @@ def test_graph_replay_counts_its_launches(dev):
     got = {k: launches[k] - before[k] for k in launches}
     assert got == dict(bt._graph.launches)
     assert got["meanshift"] == 1 and got["take_along"] == 0
-    assert got["hist_mma"] == 1 and got["backproject"] == 1
-    assert got["hist4096"] == 0
+    assert got[hist] == 1
+    if pdf is not None:
+        assert got[pdf] == 1
+    others = {"hist_mma", "hist4096", "histpdf_band"} - {hist}
+    assert all(got[k] == 0 for k in others)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 256])
@@ -541,3 +571,109 @@ def test_meanshift_in_a_graph_equals_eager(dev):
         g.replay()
         torch.cuda.synchronize()
         _meanshift_equal(got, eager)
+
+
+def _hist_frames(kind, n, shape, g):
+    """(n, H, W, 3) u8 frames: the bench pool cropped or edge-padded to
+    ``shape``, uniform random bytes, or one bin everywhere."""
+    H, W = shape
+    if kind == "random":
+        return torch.randint(0, 256, (n, H, W, 3), generator=g,
+                             dtype=torch.uint8)
+    if kind == "one_bin":
+        return torch.tensor([120, 100, 90], dtype=torch.uint8).expand(
+            n, H, W, 3).contiguous()
+    from bench import build_pool
+    pool = build_pool(n, 240, 320, 2, 0, np.random.default_rng(n),
+                      face_noise=20)[1]
+    pool = np.pad(pool, ((0, 0), (0, max(0, H - 240)), (0, 0), (0, 0)),
+                  mode="edge")
+    return torch.as_tensor(np.ascontiguousarray(pool[:, :H, :W]))
+
+
+def _cluster_rects(n, shape, g):
+    """Full-frame rects; boxes partly outside the frame; rects of zero
+    width or height or wholly off the frame."""
+    H, W = shape
+    boxes = torch.cat([torch.randint(-W // 2, W, (n, 1), generator=g),
+                       torch.randint(-H // 2, H, (n, 1), generator=g),
+                       torch.randint(1, W + 1, (n, 1), generator=g),
+                       torch.randint(1, H + 1, (n, 1), generator=g)], 1).int()
+    empty = boxes.clone()
+    empty[0::3, 2] = 0
+    empty[1::3, 3] = 0
+    empty[2::3, 0] = W + 3
+    return {"full": hg.full_rects(n, shape, "cpu"), "boxes": boxes,
+            "empty": empty}
+
+
+@pytest.mark.parametrize("kind", ["bench", "random", "one_bin"])
+@pytest.mark.parametrize("n", [1, 2, 3, 256])
+@pytest.mark.parametrize("shape", [(240, 320), (241, 320), (57, 99), (8, 8)])
+def test_hist4096_cluster_bit_equal_to_twin(dev, shape, n, kind):
+    """hist4096 (one cluster a stream, its C from cluster_split) and
+    histpdf_band's hist-only mode against the twin, tolerance 0: full
+    frames, boxes partly outside, zero-size rects; and the same frames in
+    a buffer one byte off the 16-byte boundary (every row's head and tail
+    taken pixel by pixel)."""
+    g = torch.Generator().manual_seed(43 + n)
+    frames = _hist_frames(kind, n, shape, g)
+    off = torch.empty(frames.numel() + 1, dtype=torch.uint8,
+                      device=dev)[1:].view(frames.shape)
+    off.copy_(frames.to(dev))
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    for name, rects in _cluster_rects(n, shape, g).items():
+        want = hg.hist4096_plain(frames, rects).float()
+        before = dict(launches)
+        got = K.hist4096(frames.to(dev), rects.to(dev))
+        hist = K.histpdf_band(frames.to(dev), rects.to(dev))
+        torch.cuda.synchronize()
+        assert launches["hist4096"] == before["hist4096"] + 1
+        assert launches["histpdf_band_hist"] == before["histpdf_band_hist"] + 1
+        assert torch.equal(got.cpu(), want), name
+        assert torch.equal(hist.cpu(), want), name
+        assert torch.equal(K.hist4096(off, rects.to(dev)).cpu(), want), name
+
+
+@pytest.mark.parametrize("n", [1, 3, 256])
+@pytest.mark.parametrize("shape,band", [((240, 320), (96, 128)),
+                                        ((240, 320), (95, 127)),
+                                        ((240, 320), (96, 131)),
+                                        ((240, 320), (240, 320)),
+                                        ((57, 99), (24, 41)),
+                                        ((57, 99), (57, 99))])
+def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
+    """histpdf_band in pdf mode (band x origins on the 8-pixel grid, off it
+    and clipped from -20; odd widths; the whole frame, X7's use) and in
+    hist-only mode, bit-equal to the twins, on random and bench frames; a
+    view one stream in."""
+    g = torch.Generator().manual_seed(53 + n)
+    H, W = shape
+    bh, bw = band
+    for kind in ("random", "bench"):
+        frames = _hist_frames(kind, n, shape, g)
+        x = torch.randint(-20, W - bw + 21, (n,), generator=g)
+        x[: (n + 1) // 2] = x[: (n + 1) // 2].clamp(0, W - bw) // 8 * 8
+        rects = torch.stack([x, torch.randint(-20, H - bh + 21, (n,),
+                                              generator=g),
+                             torch.full((n,), bw), torch.full((n,), bh)],
+                            1).int()
+        model = torch.randint(0, 200, (n, 4096), generator=g).float()
+        model[:, :64] = 0
+        before = launches["histpdf_band"]
+        cur, pdf = K.histpdf_band(frames.to(dev), rects.to(dev),
+                                  model.to(dev), band)
+        torch.cuda.synchronize()
+        assert launches["histpdf_band"] == before + 1
+        want_cur, want_pdf = hg.histpdf_band_plain(frames, rects, model, band)
+        assert torch.equal(cur.cpu(), want_cur), kind
+        assert torch.equal(pdf.cpu(), want_pdf), kind
+        boxes = _cluster_rects(n, shape, g)["boxes"]
+        assert torch.equal(K.histpdf_band(frames.to(dev), boxes.to(dev)).cpu(),
+                           hg.histpdf_band_plain(frames, boxes)), kind
+        if n > 1:
+            got = K.histpdf_band(frames.to(dev)[1:], rects.to(dev)[1:],
+                                 model.to(dev)[1:], band)
+            want = hg.histpdf_band_plain(frames[1:], rects[1:], model[1:],
+                                         band)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

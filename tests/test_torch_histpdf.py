@@ -95,3 +95,32 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
         K.backproject(frames, torch.zeros((2, 4096), dtype=torch.float64))
     with pytest.raises(ValueError):
         K.backproject(frames.to("meta"), torch.zeros((2, 4096), device="meta"))
+
+
+@pytest.mark.parametrize("cols", [320, 128, 99, 1])
+def test_cluster_split_covers_each_row_once(cols):
+    """The cluster kernel's C (a power of two <= 16, one CTA a row at most)
+    and each CTA's rows (the kernel's cta_share): every row of a stream is
+    counted by exactly one CTA, in order, and no counting CTA is empty."""
+    for n in (1, 2, 3, 128, 256, 600):
+        for rows in (240, 241, 96, 57, 1):
+            c = K.cluster_split(n, rows, cols, 132)
+            assert 1 <= c <= 16 and c & (c - 1) == 0 and c <= rows
+            spans = K.cluster_rows(c, rows, cols)
+            assert len(spans) == c
+            covered = [r for r0, r1 in spans for r in range(r0, r1)]
+            assert covered == list(range(rows))
+            counting = [s for s in spans if s[1] > s[0]]
+            assert spans[:len(counting)] == counting
+    # one wave of 4 CTAs an SM over 132 SMs, at least 3,072 pixels a CTA:
+    # the full frame and the 96x128 band at 256 streams, at one, past a wave
+    assert K.cluster_split(256, 240, 320, 132) == 2
+    assert K.cluster_split(256, 96, 128, 132) == 2
+    assert K.cluster_split(128, 240, 320, 132) == 4
+    assert K.cluster_split(1, 240, 320, 132) == 16
+    assert K.cluster_split(1, 96, 128, 132) == 4
+    assert K.cluster_split(600, 240, 320, 132) == 1
+    assert K.cluster_rows(2, 240, 320) == [(0, 120), (120, 240)]
+    assert K.cluster_rows(16, 241, 320)[:2] == [(0, 15), (15, 30)]
+    # a 60x60 box counts on two CTAs of eight
+    assert K.cluster_rows(8, 60, 60) == [(0, 30), (30, 60)] + [(60, 60)] * 6
