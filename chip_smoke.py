@@ -51,9 +51,11 @@ Phases, one line each; any failure raises and exits nonzero:
      ids of shape (256, 8, 9600)), the bench pools' bins, uniform random
      frames' bins, one-bin rows, rows of 76,799 ids (a tail) with -1, -64
      and >= 4096 ids among them (and a view of them off the 16-byte
-     boundary), and N=1; timed (events and graph replay) beside its twin,
-     its byte bound and torch.bincount on X5's workload, the bench bins and
-     at N=1;
+     boundary), N=1 and 65,537 rows of 16 ids (past a launch's 65,535
+     rows: two launches, hist4096 compared chunk by chunk); one device
+     operation a call (torch.profiler: no memset, no cast); timed (events
+     and graph replay) beside its twin, its byte bound and torch.bincount
+     on X5's workload, the bench bins and at N=1, with its cluster size C;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -103,10 +105,17 @@ Phases, one line each; any failure raises and exits nonzero:
      camshift.Histogram of each frame equals hist4096 of the full frame;
      hist_bins, hist_mma, backproject, histpdf_band_hist and meanshift
      each launched; ms per track() by mode (p50/p99), per
-     ccv.detect_objects at 320x240 and per Histogram.
+     ccv.detect_objects at 320x240 and per Histogram;
+ 10. plan and examples: plan_serving's kwargs for 256 streams of 320x240
+     (24 px faces, 4 losses) build a BatchedTracker on the card that locks
+     >= 99% of the bench pool in 16 ticks and runs a K=4 scan with finite
+     outputs; examples/torch_batched_serving.py (every stream tracks, head
+     events on each) and examples/torch_facetracking.py --toy (ends
+     tracking, head events printed) run on the card; with the launch
+     counts at 0 before, the headline configuration's kernels launched.
 
-The last four lines: the steady-tick profile, session, fanout, checkpoint
-and facade numbers as JSON (phases 5, 7, 8, 9), the kernels' JSON, the
+The last four lines: the steady-tick profile, session, fanout, checkpoint,
+facade and plan numbers as JSON (phases 5, 7-10), the kernels' JSON, the
 nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX or headtrackr_tpu.
 """
@@ -838,14 +847,30 @@ def phase_histmma(pools, dev):
     return err, t
 
 
+def device_ops(fn):
+    """The names of the device operations (kernels, memsets, copies) of one
+    call of fn, as torch.profiler sees them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_histbins(pools, dev):
     """hist_bins against its twin and against hist4096 of the full frame of
     the same pixels, bit-equal (tolerance 0), on X5's own workload and the
-    others of the module docstring; then its times.  Returns (max abs err,
-    timing entries)."""
+    others of the module docstring; one device operation a launch; then its
+    times.  Returns (max abs err, timing entries)."""
     import numpy as np
     import torch
-    from headtrackr_tpu_torch.kernels.histbins import hist_bins
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels.histbins import (MAX_ROWS, hist_bins,
+                                                       split_bins)
     from headtrackr_tpu_torch.kernels.histpdf import hist4096
     from headtrackr_tpu_torch.ops import histogram as hg
 
@@ -881,12 +906,26 @@ def phase_histbins(pools, dev):
     work["pads_tail"] = (pads, pfr)
     work["pads_tail_view"] = (pads[1:], pfr[1:])  # rows off the 16 B boundary
     work["n1"] = (work["face_noise=0"][0][:1], work["face_noise=0"][1][:1])
+    # more rows than a launch's grid takes: 65,537 rows of 16 ids
+    big = torch.randint(0, 4096, (MAX_ROWS + 2, 16), generator=g,
+                        dtype=torch.int32).to(dev)
+    work["rows_65537"] = (big, bin_frames(big.view(-1, 4, 4)))
     err = 0.0
     for name, (ids, fr) in work.items():
         n, fh, fw = fr.shape[:3]
+        before = L.launches["hist_bins"]
         got = hist_bins(ids)
+        torch.cuda.synchronize()
+        chunks = -(-n // MAX_ROWS)
+        if L.launches["hist_bins"] != before + chunks:
+            raise AssertionError(f"hist_bins on {name}: "
+                                 f"{L.launches['hist_bins'] - before} "
+                                 f"launches, not {chunks}")
         twin = hg.hist_bins_plain(ids)
-        ref = hist4096(fr.contiguous(), hg.full_rects(n, (fh, fw), dev))
+        full = hg.full_rects(n, (fh, fw), dev)
+        ref = torch.cat([hist4096(fr[r0:r0 + MAX_ROWS].contiguous(),
+                                  full[r0:r0 + MAX_ROWS])
+                         for r0 in range(0, n, MAX_ROWS)])
         torch.cuda.synchronize()
         e = max(float((got - twin).abs().max()), float((got - ref).abs().max()))
         err = max(err, e)
@@ -894,7 +933,15 @@ def phase_histbins(pools, dev):
             raise AssertionError(f"hist_bins differs from its twin or "
                                  f"hist4096 on {name}: max abs err {e}")
     log(f"kernels: hist_bins bit-equal to its twin and to hist4096 of the "
-        f"same pixels on {', '.join(work)} (max abs err {err})")
+        f"same pixels on {', '.join(work)} (max abs err {err}), one launch "
+        f"per {MAX_ROWS} rows")
+    for key in ("x5_workload", "n1"):
+        ops = device_ops(lambda ids=work[key][0]: hist_bins(ids))
+        if len(ops) != 1 or "hist_bins_kernel" not in ops[0]:
+            raise AssertionError(f"hist_bins on {key}: device operations "
+                                 f"{ops}, not one kernel")
+    log(f"kernels: hist_bins is one device operation a call (X5's workload "
+        f"and N=1: {ops}; no memset, no cast)")
 
     t = {}
     for name, key in (("hist_bins", "x5_workload"),
@@ -908,11 +955,15 @@ def phase_histbins(pools, dev):
                                       lambda ids=ids: hg.hist_bins_plain(ids))
         # the ids read once, the f32 counts written once
         b, by = bound(4 * n * p + 4 * 4096 * n, 0)
+        c = split_bins(n, p, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                        graph_ms=graph_ms(lambda ids=ids: hist_bins(ids)),
+                       cluster=c,
                        **library_times(lambda given=given, n=n: torch.bincount(
                            given, minlength=n * 4096), False))
-        log(f"kernels: {name} ({n} x {p} ids) {ms:.4f} ms, graph replay "
+        log(f"kernels: {name} ({n} x {p} ids, C={c}) {ms:.4f} ms, graph "
+            f"replay "
             f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{b:.6f} ms by {by}, torch.bincount {t[name]['library_ms']:.4f} "
             f"ms, graph replay {fmt_ms(t[name]['library_graph_ms'])})")
@@ -1476,6 +1527,91 @@ def phase_facade(pool, dev):
     return r
 
 
+def load_example(root, name):
+    """examples/<name>.py as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_plan(pool, dev, root):
+    """plan_serving's kwargs build a BatchedTracker of N_STREAMS streams on
+    the card that locks the bench pool and runs a short scan; then
+    examples/torch_batched_serving.py and examples/torch_facetracking.py
+    (toy cascade, 120x160) run on the card.  The launch counts are set to 0
+    before and read after: the headline configuration's kernels must have
+    run.  Returns the numbers."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import headtrackr_tpu_torch as pt
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    plan = pt.plan_serving(N_STREAMS, (H, W), max_face_px=24,
+                           simultaneous_losses=LOSS_STREAMS)
+    L.reset_launches()
+    t0 = time.perf_counter()
+    bt = pt.BatchedTracker(N_STREAMS, (H, W), device=dev, band=plan["band"],
+                           bucket=plan["bucket"], overload=plan["overload"],
+                           bandHist=plan["bandHist"],
+                           sparseHist=plan["sparse_hist"])
+    frames = torch.as_tensor(pool[:4]).to(dev)
+    for _ in range(LOCK_TICKS):
+        bt.step_auto(frames[0])
+    locked = float((bt.modes == ft.MODE_CS).mean())
+    scan = bt.run_scan(frames)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    if locked < 0.99:
+        raise AssertionError(f"plan: only {100 * locked:.1f}% of streams "
+                             f"locked")
+    for field, v in zip(scan._fields, scan):
+        if v.is_floating_point() and field != "face_angle" and \
+                not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"plan: non-finite {field} in run_scan")
+    del bt, frames
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        heads, modes, xs = load_example(root, "torch_batched_serving").main(
+            ["--device", str(dev)])
+        tracker = load_example(root, "torch_facetracking").main(
+            ["--toy", "--device", str(dev)])
+    torch.cuda.synchronize()
+    t_ex = time.perf_counter() - t0
+    counts = dict(L.launches)
+    lines = out.getvalue().splitlines()
+    if modes != [ft.MODE_CS] * len(modes) or not all(heads) or \
+            not np.isfinite(xs).all():
+        raise AssertionError(f"torch_batched_serving: modes {modes}, head "
+                             f"events {[len(h) for h in heads]}")
+    if tracker.status != "tracking" or not any(
+            ln.startswith("[head]") for ln in lines):
+        raise AssertionError(f"torch_facetracking: status {tracker.status}")
+    missing = [k for k in CONFIGS["headline"][1] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"plan/examples: kernels never launched: "
+                             f"{missing} ({counts})")
+    log(f"plan: plan_serving({N_STREAMS}, {(H, W)}, max_face_px=24, "
+        f"simultaneous_losses={LOSS_STREAMS}) = {plan}; its BatchedTracker "
+        f"locked {100 * locked:.1f}% in {LOCK_TICKS} ticks and ran a K=4 "
+        f"scan ({t_plan:.2f} s)")
+    log(f"examples: torch_batched_serving (modes {modes}, "
+        f"{[len(h) for h in heads]} head events) and torch_facetracking "
+        f"--toy (status {tracker.status}) on the card, {t_ex:.2f} s, "
+        f"{len(lines)} lines printed; launches {counts}")
+    return {"plan": plan, "locked": locked, "plan_s": t_plan,
+            "examples_s": t_ex, "launches": counts}
+
+
 def main():
     try:
         import torch
@@ -1526,6 +1662,7 @@ def main():
     fanout = phase_fanout(pools[0], dev, root)
     facade = phase_facade(pools[0], dev)
     counts["facade"] = facade["launches"]
+    plan = phase_plan(pools[0], dev, root)
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
@@ -1554,7 +1691,7 @@ def main():
     print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
-                      "facade": facade}))
+                      "facade": facade, "plan": plan}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ position over N camera streams, served on one NVIDIA GPU:
     -> facetrackingEvent / headtrackingEvent / headtrackrStatus callbacks
 
 Entry points: ``Tracker`` (one camera, the reference's headtrackr.Tracker),
-``BatchedTracker`` (N streams), ``BatchedSession`` / ``StreamFanout`` /
+``BatchedTracker`` (N streams, sized by ``plan_serving``), ``BatchedSession`` / ``StreamFanout`` /
 ``IngestRing`` (N streams with per-stream events), ``checkpoint``, and the
 reference-parity namespace: ``ccv``, ``camshift`` (its ``Histogram`` runs
 the hist_bins kernel), ``facetrackr``, ``headposition``, ``controllers``,
@@ -31,7 +31,7 @@ from . import camshift, ccv, controllers, facetrackr, headposition
 from .api import Smoother, getWhitebalance
 from .runtime import checkpoint, events
 from .runtime.fanout import BatchedSession, IngestRing, StreamFanout
-from .runtime.serving import BatchedTracker
+from .runtime.serving import BatchedTracker, plan_serving
 from .runtime.tracker import Tracker
 from .runtime.ui import Ui
 from .runtime.video import CameraSource, ClipSource, SyntheticFaceSource
@@ -45,6 +45,7 @@ __all__ = [
     "Cascade", "frontalface", "toy_cascade", "TrackerConfig",
     "ccv", "camshift", "facetrackr", "headposition", "controllers",
     "Smoother", "getWhitebalance", "Tracker", "Ui", "BatchedTracker",
+    "plan_serving",
     "StreamFanout", "IngestRing", "BatchedSession",
     "ClipSource", "SyntheticFaceSource", "CameraSource",
     "events", "cascade", "rev", "checkpoint",

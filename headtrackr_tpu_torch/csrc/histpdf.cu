@@ -15,13 +15,14 @@
 //     three byte loads a pixel, and two extra launches.
 //   - Design: a thread-block cluster of C CTAs a stream (C from
 //     kernels/histpdf.py cluster_split: 2 at 256 streams, 16 at one), the
-//     cluster machinery below (cluster_hist_kernel) shared with
-//     histpdf_band.  Each CTA counts a contiguous share of the rect's rows
-//     into its own 16 KB shared i32 histogram; after a cluster barrier
-//     each CTA sums its 4096 / C bins over the peers' histograms through
-//     distributed shared memory and writes them as f32 straight to the
-//     output.  No global atomics, no memset, no cast launch; integer sums
-//     in any order are exact, so the counts are bit-equal to the twin.
+//     kernel below (cluster_hist_kernel) shared with histpdf_band, its
+//     cluster machinery with hist_bins (cluster_hist.cuh).  Each CTA
+//     counts a contiguous share of the rect's rows into its own 16 KB
+//     shared i32 histogram; after a cluster barrier each CTA sums its
+//     4096 / C bins over the peers' histograms through distributed shared
+//     memory and writes them as f32 straight to the output.  No global
+//     atomics, no memset, no cast launch; integer sums in any order are
+//     exact, so the counts are bit-equal to the twin.
 //   - What paces it (H100 SXM, PERF.md, tools/torch_histpdf_variants.py):
 //     each CTA's fixed cost (zeroing its histogram, reading its slice from
 //     every peer, two cluster barriers), so few long CTAs win once the
@@ -102,6 +103,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster_hist.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -111,10 +113,9 @@ constexpr int kThreads = 256;
 constexpr int kPdfPixelsPerBlock = 16384;
 constexpr int kCluster = 4;  // backproject_rect's CTAs per stream
 // the cluster histogram: pixels a counting CTA takes at least (as
-// kernels/histpdf.py _MIN_CTA_PX), the largest cluster, and the most
-// shared memory a CTA spends keeping its pixels' bins
+// kernels/histpdf.py _MIN_CTA_PX) and the most shared memory a CTA spends
+// keeping its pixels' bins
 constexpr int kMinCtaPx = 3072;
-constexpr int kMaxCluster = 16;
 constexpr int kMaxStashBytes = 96 * 1024;
 
 __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
@@ -198,8 +199,7 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
     sm90::mbar_init_fence();
   }
   // every CTA's barrier is set before any CTA's copy lands on it
-  sm90::cluster_arrive();
-  sm90::cluster_wait();
+  chist::cluster_sync();
   if (threadIdx.x == 0) {
     constexpr uint32_t kSlice = kBins * sizeof(float) / kCluster;
     sm90::mbar_arrive_expect_tx(&bar, kBins * sizeof(float));
@@ -258,6 +258,7 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
 }
 
 // ---- the cluster histogram (hist4096, histpdf_band) ----------------------
+// (its machinery, shared with histbins.cu: cluster_hist.cuh)
 
 // The rows of a rect's rh rows that CTA `rank` of a cluster of c counts:
 // [r0, r0 + nrows), over the first `active` CTAs (kernels/histpdf.py
@@ -284,26 +285,6 @@ __device__ __forceinline__ Share cta_share(const Rect& rc, int c, int rank) {
   return {r0, (rank + 1) * rh / a - r0, a};
 }
 
-// A thread's pending run of equal bins, added to the histogram when the bin
-// changes and at the end.
-struct Run {
-  int bin = -1;
-  int count = 0;
-
-  __device__ __forceinline__ void add(int b, int32_t* hist) {
-    if (b == bin) {
-      ++count;
-    } else {
-      if (count) atomicAdd(&hist[bin], count);
-      bin = b;
-      count = 1;
-    }
-  }
-  __device__ __forceinline__ void flush(int32_t* hist) {
-    if (count) atomicAdd(&hist[bin], count);
-  }
-};
-
 // The bins of 16 neighbouring pixels: 48 bytes from a 16-byte aligned p.
 __device__ __forceinline__ void bins16(const uint8_t* p, int (&b)[16]) {
   const uint4* q = reinterpret_cast<const uint4*>(p);
@@ -317,18 +298,6 @@ __device__ __forceinline__ void bins16(const uint8_t* p, int (&b)[16]) {
     const uint32_t g = (v[(3 * j + 1) / 4] >> (8 * ((3 * j + 1) % 4))) & 0xFF;
     const uint32_t bl = (v[(3 * j + 2) / 4] >> (8 * ((3 * j + 2) % 4))) & 0xFF;
     b[j] = bin_of(r, g, bl);
-  }
-}
-
-// Add one chunk's bins (-1: no pixel) to the histogram through the
-// thread's run.  (tools/torch_histpdf_variants.py swaps this body for
-// warp-collective orders, which the block-uniform loop of count_rows
-// allows.)
-__device__ __forceinline__ void count16(const int (&b)[16], Run& run,
-                                        int32_t* hist) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (b[j] >= 0) run.add(b[j], hist);
   }
 }
 
@@ -374,7 +343,7 @@ __device__ __forceinline__ void count_rows(const uint8_t* f, int w,
   const int step_c = blockDim.x - step_r * units;
   int row = threadIdx.x / units;
   int col = threadIdx.x - row * units;
-  Run run;
+  chist::Run run;
   for (int base = 0; base < total; base += blockDim.x) {
     int b[16];
 #pragma unroll
@@ -407,7 +376,7 @@ __device__ __forceinline__ void count_rows(const uint8_t* f, int w,
         if constexpr (kStash) stash16(s + x, b);
       }
     }
-    count16(b, run, hist);
+    chist::count16(b, run, hist);
     col += step_c;
     row += step_r;
     if (col >= units) {
@@ -443,52 +412,35 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   const Share sh = cta_share(rc, c, static_cast<int>(rank));
   const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
   if (static_cast<int>(rank) < sh.active) {
-    int4* h4 = reinterpret_cast<int4*>(hist);
-    for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) {
-      h4[i] = make_int4(0, 0, 0, 0);
-    }
-    __syncthreads();
+    chist::zero_hist(hist);
     count_rows<kPdf && kStash>(f, w, rc, sh.r0, sh.nrows, hist, stash);
   }
   // every CTA's counts are in its shared memory, visible to the cluster
-  sm90::cluster_arrive();
-  sm90::cluster_wait();
+  chist::cluster_sync();
 
   // this CTA's slice of the bins, summed over the counting peers
-  const int slice = kBins / c;
-  const int lo = static_cast<int>(rank) * slice;
-  float4* c4 = reinterpret_cast<float4*>(cur + static_cast<int64_t>(n) * kBins
-                                         + lo);
-  for (int i = threadIdx.x; i < slice / 4; i += blockDim.x) {
-    int4 k = make_int4(0, 0, 0, 0);
-    for (int p = 0; p < sh.active; ++p) {
-      const int4 v = sm90::ld_cluster_v4(sm90::map_rank(hist + lo + 4 * i, p));
-      k.x += v.x;
-      k.y += v.y;
-      k.z += v.z;
-      k.w += v.w;
-    }
+  float* cn = cur + static_cast<int64_t>(n) * kBins;
+  chist::reduce_slice(hist, c, rank, sh.active, [&](int bin, int4 k) {
     const float4 cf = make_float4(k.x, k.y, k.z, k.w);
-    c4[i] = cf;
+    *reinterpret_cast<float4*>(cn + bin) = cf;
     if constexpr (kPdf) {
       // min(model / cur, 1), 0 where cur == 0: IEEE round-to-nearest
       // division, as the torch formulation (ops/histogram.py)
-      const float4 m = reinterpret_cast<const float4*>(
-          model + static_cast<int64_t>(n) * kBins + lo)[i];
+      const float4 m = *reinterpret_cast<const float4*>(
+          model + static_cast<int64_t>(n) * kBins + bin);
       const float4 wt = make_float4(
           k.x != 0 ? fminf(__fdiv_rn(m.x, cf.x), 1.0f) : 0.0f,
           k.y != 0 ? fminf(__fdiv_rn(m.y, cf.y), 1.0f) : 0.0f,
           k.z != 0 ? fminf(__fdiv_rn(m.z, cf.z), 1.0f) : 0.0f,
           k.w != 0 ? fminf(__fdiv_rn(m.w, cf.w), 1.0f) : 0.0f);
       for (int p = 0; p < sh.active; ++p) {
-        sm90::st_cluster_v4(sm90::map_rank(table + lo + 4 * i, p), wt);
+        sm90::st_cluster_v4(sm90::map_rank(table + bin, p), wt);
       }
     }
-  }
+  });
   // no peer reads this CTA's histogram any more, and (pdf mode) every
   // slice of its weight table has landed
-  sm90::cluster_arrive();
-  sm90::cluster_wait();
+  chist::cluster_sync();
   if constexpr (kPdf) {
     if (sh.nrows == 0) return;
     float* o = pdf + (static_cast<int64_t>(n) * bh + sh.r0) * bw;
@@ -518,37 +470,15 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
-bool cluster_ok(int n, int c) {
-  return n <= 65535 && c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0;
-}
-
 // Launch cluster_hist_kernel over grid (c, n) in clusters of c, with `smem`
-// bytes of dynamic shared memory.  A cluster of 16 is past the portable 8,
-// so the kernel opts in.
+// bytes of dynamic shared memory.
 template <bool kPdf, bool kStash>
 int launch_cluster(int n, int c, int smem, cudaStream_t s, const uint8_t* f,
                    const int32_t* r, const float* m, float* cur, float* pdf,
                    int h, int w, int bh, int bw, bool vec) {
-  auto* kernel = cluster_hist_kernel<kPdf, kStash>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                       1);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c, n);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, f, r, m, cur, pdf,
-                                             h, w, bh, bw, vec);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return chist::launch_cluster(cluster_hist_kernel<kPdf, kStash>, n, c,
+                               kThreads, smem, s, f, r, m, cur, pdf, h, w, bh,
+                               bw, vec);
 }
 
 int blocks_for(int64_t pixels, int per_block) {
@@ -564,7 +494,8 @@ int blocks_for(int64_t pixels, int per_block) {
 extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
                                int n, int h, int w, int c, void* stream) {
   if (n <= 0) return 0;
-  if (!cluster_ok(n, c) || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+  if (!chist::cluster_ok(n, c) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_cluster<false, false>(
@@ -622,8 +553,8 @@ extern "C" int histpdf_band_launch(const void* frames, const void* rects,
                                    int n, int h, int w, int bh, int bw, int c,
                                    void* stream) {
   if (n <= 0) return 0;
-  if (!cluster_ok(n, c) || model == nullptr || bh < 1 || bw < 1 || bh > h ||
-      bw > w || reinterpret_cast<uintptr_t>(cur) % 16 != 0 ||
+  if (!chist::cluster_ok(n, c) || model == nullptr || bh < 1 || bw < 1 ||
+      bh > h || bw > w || reinterpret_cast<uintptr_t>(cur) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(model) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

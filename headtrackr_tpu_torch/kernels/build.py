@@ -43,7 +43,7 @@ _SIGNATURES = {
         "hist_mma_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
     },
     "histbins": {
-        "hist_bins_launch": (_C, _C, _C, _I, _I, _I, _C),
+        "hist_bins_launch": (_C, _C, _I, _I, _I, _C),
     },
     "meanshift": {
         "meanshift_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,

@@ -7,7 +7,11 @@
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 (ops/histogram.py ``hist_bins_plain``), a CUDA tensor launches the kernel,
-any other device raises.
+any other device raises.  The kernel is hist4096's cluster histogram with
+an i32 loader: one cluster of C CTAs a row (``split_bins``), each CTA
+counting a share of the row's ids (``id_shares``) and reducing a slice of
+the bins over its peers.  A launch takes at most ``MAX_ROWS`` rows (the
+grid's y limit); the wrapper splits larger batches (``row_chunks``).
 """
 
 import torch
@@ -15,22 +19,55 @@ import torch
 from ..ops.histogram import NBINS, hist_bins_plain
 from .launch import launch, on_cuda, sm_count
 
-__all__ = ["hist_bins", "split_bins"]
+__all__ = ["hist_bins", "split_bins", "id_shares", "row_chunks", "MAX_ROWS"]
 
-# resident blocks an SM holds (512 threads a block) and the fewest ids a
-# block takes
-_BLOCKS_PER_SM = 4
-_MIN_BLOCK_IDS = 8192
+MAX_ROWS = 65535  # rows a launch takes: the grid's y dimension
+# the CTAs a launch puts on an SM (one wave of them), the fewest ids a
+# counting CTA takes, the largest cluster (as kernels/histpdf.py).  On an
+# NVIDIA H100 80GB HBM3 at 700 W C = 2 won at 256 rows of 76,800 ids
+# (random and the bench pool's), 16 at one such row and 4 at one row of
+# 12,288 ids (tools/torch_histbins_variants.py, PERF.md).
+_CTAS_PER_SM = 4
+_MIN_CTA_IDS = 3072
+_MAX_CLUSTER = 16
 
 
 def split_bins(n, p, sms):
-    """Blocks per stream of a launch over n rows of p ids on a card of
-    ``sms`` SMs: one wave of blocks split evenly over the streams, each of
-    at least _MIN_BLOCK_IDS ids, at least one a stream.  Each block zeroes
-    and flushes a 16 KB histogram, so fewer, longer blocks win once the card
-    is full."""
-    wave = _BLOCKS_PER_SM * sms
-    return max(1, min(-(-p // _MIN_BLOCK_IDS), wave // max(n, 1)))
+    """CTAs a row (a power of two <= 16) of a launch over n rows of p ids
+    on a card of ``sms`` SMs: one wave of _CTAS_PER_SM CTAs an SM split
+    evenly over the rows, no more than one a _MIN_CTA_IDS ids, at least
+    one."""
+    c = min(_MAX_CLUSTER, -(-p // _MIN_CTA_IDS),
+            _CTAS_PER_SM * sms // max(n, 1))
+    return 1 << (max(1, c).bit_length() - 1)
+
+
+def id_shares(c, p, head=0):
+    """The ids of a row of p ids that each CTA of a cluster of c counts
+    (the kernel's split), as a list of [lo, hi) ranges a CTA: the row's
+    whole 16-byte vectors after its ``head`` unaligned ids (0-3, from the
+    row's address) split evenly over the first min(c, vectors) CTAs (at
+    least one); CTA 0 also takes the head and the ids after the last whole
+    vector; the other CTAs count none."""
+    head = min(head, p)
+    nvec = (p - head) // 4
+    active = max(1, min(c, nvec))
+    shares = []
+    for k in range(c):
+        if k >= active:
+            shares.append([])
+            continue
+        v0, v1 = k * nvec // active, (k + 1) * nvec // active
+        r = [(head + 4 * v0, head + 4 * v1)]
+        if k == 0:
+            r += [(0, head), (head + 4 * nvec, p)]
+        shares.append([(lo, hi) for lo, hi in r if hi > lo])
+    return shares
+
+
+def row_chunks(n):
+    """[r0, r1) of the launches over n rows, each at most ``MAX_ROWS``."""
+    return [(r0, min(r0 + MAX_ROWS, n)) for r0 in range(0, n, MAX_ROWS)]
 
 
 def hist_bins(bins):
@@ -39,17 +76,17 @@ def hist_bins(bins):
     if bins.dtype != torch.int32 or bins.dim() != 2:
         raise ValueError(f"bins must be (N, P) int32, got "
                          f"{tuple(bins.shape)} {bins.dtype}")
-    if not on_cuda(bins):
-        return hist_bins_plain(bins)
+    cuda = on_cuda(bins)
     N, P = bins.shape
-    if P >= 2 ** 31:
+    if cuda and P >= 2 ** 31:
         raise ValueError(f"rows of {P} ids: the kernel takes fewer than 2^31")
     out = torch.empty((N, NBINS), dtype=torch.float32, device=bins.device)
-    if N == 0:
-        return out
-    counts = torch.empty((N, NBINS), dtype=torch.int32, device=bins.device)
-    blocks = split_bins(N, P, sm_count(bins.device))
-    with torch.cuda.device(bins.device):
-        launch("hist_bins", "hist_bins_launch", bins.data_ptr(),
-               counts.data_ptr(), out.data_ptr(), N, P, blocks)
+    for r0, r1 in row_chunks(N):
+        if not cuda:
+            out[r0:r1] = hist_bins_plain(bins[r0:r1])
+            continue
+        c = split_bins(r1 - r0, P, sm_count(bins.device))
+        with torch.cuda.device(bins.device):
+            launch("hist_bins", "hist_bins_launch", bins[r0:r1].data_ptr(),
+                   out[r0:r1].data_ptr(), r1 - r0, P, c)
     return out

@@ -3,7 +3,7 @@ frame sources, fanout, network ingest and checkpoints."""
 
 from . import events
 from .fanout import BatchedSession, IngestRing, StreamFanout
-from .serving import BatchedTracker
+from .serving import BatchedTracker, plan_serving
 from .tracker import Tracker
 from .ui import Ui
 from .video import CameraSource, ClipSource, SyntheticFaceSource, VideoSource

@@ -54,7 +54,8 @@ from ..models.detector import detector_tables
 from ..ops.histogram import (backprojection_weights, histogram_full,
                              histogram_rects)
 
-__all__ = ["BatchedTracker", "resolve_band", "wants_band_audit"]
+__all__ = ["BatchedTracker", "plan_serving", "resolve_band",
+           "wants_band_audit"]
 
 
 def resolve_band(band, frame_shape):
@@ -73,6 +74,68 @@ def wants_band_audit(config, band):
     bandHist handoff-audit flag: states fed to them must come from
     ``ft.init_state(..., band_audit=wants_band_audit(config, band))``."""
     return band is not None and config.bandHist and config.bandHistAudit
+
+
+def plan_serving(n_streams, frame_shape=(240, 320), max_face_px=100,
+                 simultaneous_losses=None, latency_sensitive=False,
+                 model_bins=None):
+    """Capacity planner: ``BatchedTracker`` kwargs (and a ``run_scan``
+    length) sized to a deployment's workload, by the reference package's
+    rules (headtrackr_tpu/runtime/serving.py ``plan_serving``), so that it
+    returns the reference's dict on every input.
+
+    Rules:
+
+    - ``band``: camshift search windows run ~1.3x the tracked face, and an
+      escape-free band needs BAND_SLACK px more per dimension
+      (models/camshift.py ``band_for``).  Undersized is safe: escaped
+      streams are recomputed over the full frame (correct, slower).
+    - ``bucket``: 2x the expected simultaneous losses (default: 2% of the
+      streams), at least 1 and at most the streams.  A redetect tick's
+      detector cost grows with the bucket; more pending streams than it
+      (up to 4x) are served in chunks.
+    - ``overload``: "rotate" for latency-sensitive serving (a bounded tick
+      under mass loss, oldest pending streams first), else "full" (every
+      stream relocks in one slow tick).
+    - ``scan_len``: 1 for latency-sensitive callers (drive ``step_auto``
+      tick by tick), else 16.  In this port ``run_scan`` replays one CUDA
+      graph a tick, so a longer scan buys nothing on the card yet.
+    - ``sparse_hist``: 64 when 1.3x ``model_bins`` (the distinct bins of
+      the deployment's face models) fits in 64, else None.  It maps to the
+      ``sparseHist`` config field, which this port accepts and ignores:
+      its histograms are dense and give the same values.
+    - ``bandHist``: True (band-local current histograms, PARITY deviation
+      13), with the handoff audit flagging streams whose model carries
+      bins outside the band (``TrackerConfig.bandHistAudit``).
+
+    The bucket and scan rules have not been re-derived on the GPU yet; that
+    waits for the port's own bench.
+
+    Returns a dict: band / bucket / overload / bandHist are
+    ``BatchedTracker`` kwargs, sparse_hist is its ``sparseHist``; scan_len
+    is for ``warmup(scan_len=...)`` / ``run_scan``.
+
+    >>> p = plan_serving(256, max_face_px=40)
+    >>> bt = BatchedTracker(256, band=p["band"], bucket=p["bucket"],
+    ...                     overload=p["overload"], bandHist=p["bandHist"],
+    ...                     sparseHist=p["sparse_hist"])
+    """
+    win = int(np.ceil(1.3 * max_face_px))
+    band = cs_mod.band_for((win, win), frame_shape)
+    if simultaneous_losses is None:
+        simultaneous_losses = max(1, round(0.02 * n_streams))
+    bucket = max(1, min(2 * int(simultaneous_losses), n_streams))
+    sparse = None
+    if model_bins is not None:
+        sparse = 64 if 1.3 * int(model_bins) <= 64 else None
+    return {
+        "band": band,
+        "bucket": bucket,
+        "overload": "rotate" if latency_sensitive else "full",
+        "scan_len": 1 if latency_sensitive else 16,
+        "sparse_hist": sparse,
+        "bandHist": True,
+    }
 
 
 def _leaves(tree):

@@ -455,6 +455,91 @@ def test_hist_bins_bit_equal_to_twin(dev, kind):
                            hg.hist_bins_plain(ids[1:]))
 
 
+
+def _hist_bins_ids(kind, g):
+    """(rows, ids a row) of i32 ids of one kind: random in [0, 4096), one
+    bin, ids of [-100, 5000) with the pads and the i32 extremes among them,
+    or camera-like runs of a few bins."""
+    if kind == "random":
+        return torch.randint(0, 4096, (37, 1001), generator=g).int()
+    if kind == "one_bin":
+        return torch.full((3, 70_001), 1234, dtype=torch.int32)
+    if kind == "pads":
+        ids = torch.randint(-100, 5000, (9, 4099), generator=g).int()
+        ids[:, :8] = torch.tensor([-1, -64, 4096, 4095, 0, -2 ** 31,
+                                   2 ** 31 - 1, 65535], dtype=torch.int32)
+        return ids
+    runs = torch.tensor([17, 18, 273, 4000], dtype=torch.int32)[
+        torch.randint(0, 4, (5, 300), generator=g)]
+    return runs.repeat_interleave(
+        torch.randint(1, 60, (300,), generator=g), dim=1).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["random", "one_bin", "pads", "runs"])
+def test_hist_bins_edges_bit_equal_to_twin(dev, kind):
+    """hist_bins against its twin on random ids, one bin (a count past
+    2^16), out-of-range pads, camera-like runs; each also as views one,
+    two and three ids off the 16-byte boundary and as short rows of 0-17
+    ids (fewer than a vector; a head with no body)."""
+    from headtrackr_tpu_torch.kernels.histbins import hist_bins
+    g = torch.Generator().manual_seed(61)
+    ids = _hist_bins_ids(kind, g)
+    d = ids.to(dev)
+    before = launches["hist_bins"]
+    assert torch.equal(hist_bins(d).cpu(), hg.hist_bins_plain(ids))
+    assert launches["hist_bins"] == before + 1
+    flat, flat_d = ids.view(-1), d.view(-1)
+    n, p = ids.shape
+    for off in (1, 2, 3):
+        view = flat_d[off:off + (n - 1) * p].view(n - 1, p)
+        assert torch.equal(hist_bins(view).cpu(), hg.hist_bins_plain(
+            flat[off:off + (n - 1) * p].view(n - 1, p))), off
+    for q in (0, 1, 2, 3, 4, 5, 7, 17):
+        for off in (0, 1, 3):
+            m = min(n, 3)
+            v = flat[off:off + m * q].view(m, q)
+            got = hist_bins(flat_d[off:off + m * q].view(m, q))
+            assert torch.equal(got.cpu(), hg.hist_bins_plain(v)), (q, off)
+
+
+def test_hist_bins_empty_one_and_past_the_grid(dev):
+    """N = 0 launches nothing; N = 1; N = 65,537 rows of 16 ids (past the
+    grid's 65,535 rows) takes two launches and equals the twin."""
+    from headtrackr_tpu_torch.kernels.histbins import hist_bins
+    g = torch.Generator().manual_seed(67)
+    before = launches["hist_bins"]
+    assert hist_bins(torch.empty((0, 5), dtype=torch.int32,
+                                 device=dev)).shape == (0, 4096)
+    assert launches["hist_bins"] == before
+    one = torch.randint(-3, 4100, (1, 76_800), generator=g).int()
+    assert torch.equal(hist_bins(one.to(dev)).cpu(), hg.hist_bins_plain(one))
+    big = torch.randint(-3, 4100, (65_537, 16), generator=g).int().to(dev)
+    before = launches["hist_bins"]
+    got = hist_bins(big)
+    torch.cuda.synchronize()
+    assert launches["hist_bins"] == before + 2
+    assert torch.equal(got, hg.hist_bins_plain(big))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_hist_bins_every_cluster_size(dev, c):
+    """The launcher at each cluster size C (tools/torch_histbins_variants.py
+    times them all) on random ids, runs and pads, on rows on and off the
+    16-byte boundary, bit-equal to the twin."""
+    from headtrackr_tpu_torch.kernels.launch import launch
+    g = torch.Generator().manual_seed(71 + c)
+    for kind in ("random", "runs", "pads"):
+        ids = _hist_bins_ids(kind, g)
+        n, p = ids.shape
+        flat = ids.to(dev).view(-1)
+        for off in (0, 1):
+            rows = flat[off:off + (n - 1) * p].view(n - 1, p)
+            out = torch.full((n - 1, 4096), -1.0, device=dev)
+            launch("hist_bins", "hist_bins_launch", rows.data_ptr(),
+                   out.data_ptr(), n - 1, p, c)
+            assert torch.equal(out, hg.hist_bins_plain(rows)), (kind, off)
+
+
 def test_facades_default_to_the_card(dev):
     """Without device= the facades run on the card and agree with the CPU:
     camshift.Histogram exactly, facetrackr.Tracker over 24 frames result

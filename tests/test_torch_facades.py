@@ -384,7 +384,7 @@ def test_stage_timer_and_trace(tmp_path):
 # -- the namespace -------------------------------------------------------------
 
 def test_namespace_equals_reference():
-    want = (set(ht.__all__) - {"plan_serving"}) | {"checkpoint"}
+    want = set(ht.__all__) | {"checkpoint"}
     assert set(pt.__all__) == want and len(pt.__all__) == len(want)
     for name in pt.__all__:
         assert hasattr(pt, name), name

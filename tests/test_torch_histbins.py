@@ -19,7 +19,9 @@ import torch
 
 from headtrackr_tpu.kernels.histpdf import hist_pallas
 from headtrackr_tpu.ops import histogram as jh
-from headtrackr_tpu_torch.kernels.histbins import hist_bins, split_bins
+from headtrackr_tpu_torch.kernels import histbins
+from headtrackr_tpu_torch.kernels.histbins import (hist_bins, id_shares,
+                                                   row_chunks, split_bins)
 from headtrackr_tpu_torch.ops import histogram as hg
 
 torch.set_num_threads(2)
@@ -127,10 +129,65 @@ def test_hist_bins_rejects_what_it_does_not_take():
 
 
 def test_split_bins_covers_the_card():
-    """One wave of 512-thread blocks (4 an SM) split over the streams: at
-    the bench's 256 x 76,800 ids on 132 SMs two blocks a stream, at the
-    facade's N = 1 ten blocks of 7,680 ids; never fewer than one."""
+    """One wave of 4 CTAs an SM split over the rows, as a power of two of at
+    most 16: at the bench's 256 x 76,800 ids on 132 SMs two CTAs a row, at
+    the facade's N = 1 sixteen; never more than one a 3,072 ids; never
+    fewer than one."""
     assert split_bins(256, 76_800, 132) == 2
-    assert split_bins(1, 76_800, 132) == 10
+    assert split_bins(1, 76_800, 132) == 16
+    assert split_bins(1, 12_288, 132) == 4
+    assert split_bins(1, 5_000, 132) == 2
     assert split_bins(4096, 76_800, 132) == 1
     assert split_bins(1, 0, 132) == 1
+    for n in (1, 2, 3, 7, 100, 256, 529, 70_000):
+        for p in (0, 1, 16, 3071, 3073, 9_999, 76_800, 10 ** 6):
+            c = split_bins(n, p, 132)
+            assert c in (1, 2, 4, 8, 16), (n, p)
+            assert c == 1 or (c <= -(-p // 3072) and c * n <= 4 * 132)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_id_shares_cover_each_id_once(c):
+    """The kernel's split of a row: every id counted by exactly one CTA,
+    whatever the row's length and its head (0-3 ids before the 16-byte
+    boundary); the vectors dealt evenly (shares differ by at most one
+    vector) to a prefix of the CTAs; the head and tail ids on CTA 0."""
+    for p in (0, 1, 2, 3, 4, 5, 15, 16, 17, 63, 64, 65, 4099, 76_799):
+        for head in range(4):
+            shares = id_shares(c, p, head)
+            assert len(shares) == c
+            ids = sorted(i for r in shares for lo, hi in r
+                         for i in range(lo, hi))
+            assert ids == list(range(p)), (p, head)
+            h = min(head, p)
+            nvec = (p - h) // 4
+            body = [sum(hi - lo for lo, hi in r
+                        if lo >= h and hi <= h + 4 * nvec) for r in shares]
+            dealt = [b for b in body if b]
+            assert max(dealt, default=0) - min(dealt, default=0) <= 4
+            active = max(1, min(c, nvec))
+            assert all(shares[:active]) or p == 0
+            assert not any(shares[active:])
+
+
+def test_hist_bins_chunks_rows_past_the_grid(monkeypatch):
+    """A batch of more rows than a launch takes goes in chunks of at most
+    MAX_ROWS (65,535 on the card), each through the kernel's path (here the
+    twin's, on the CPU), and the counts equal the twin's on the whole."""
+    assert row_chunks(65_537) == [(0, 65_535), (65_535, 65_537)]
+    assert row_chunks(65_535) == [(0, 65_535)]
+    assert row_chunks(0) == []
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(-5, 4100, (11, 37)).astype(np.int32))
+    calls = []
+
+    def twin(b):
+        calls.append(tuple(b.shape))
+        return hg.hist_bins_plain(b)
+
+    monkeypatch.setattr(histbins, "MAX_ROWS", 4)
+    monkeypatch.setattr(histbins, "hist_bins_plain", twin)
+    got = hist_bins(ids)
+    assert calls == [(4, 37), (4, 37), (3, 37)]
+    np.testing.assert_array_equal(got.numpy(),
+                                  hg.hist_bins_plain(ids).numpy())

@@ -5,7 +5,8 @@ headtrackr_tpu_torch/csrc/histpdf.cu timed on one NVIDIA GPU.
 
     python3 tools/torch_histpdf_variants.py
 
-Each variant is the shipped source with text substitutions, built by
+Each variant is the shipped source with text substitutions (in histpdf.cu
+or in the header it shares with histbins.cu, cluster_hist.cuh), built by
 nvcc with the package's flags into build/histpdf_variants/ and loaded with
 ctypes.  The counting orders swap the body of ``count16``:
   runs            the shipped source: a thread's runs of equal bins,
@@ -100,35 +101,43 @@ COUNTING = ("runs", "runs_match", "match")  # timed on every workload
 SIZES = (1, 2, 4, 8, 16)
 
 
-def build():
+def build_variants(stem, variants, out):
+    """Build each variant of csrc/<stem>.cu (name -> text substitutions,
+    each found exactly once in the source or in the cluster histogram's
+    header, cluster_hist.cuh) with nvcc and the package's flags, all at
+    once, into out/<name>/; returns name -> {launcher: ctypes function}.
+    The variant's header copy sits beside its source, so it is the one its
+    quoted include finds."""
     from headtrackr_tpu_torch.kernels import build as B
-    src = (B.CSRC / "histpdf.cu").read_text()
-    out = os.path.join(ROOT, "build", "histpdf_variants")
-    os.makedirs(out, exist_ok=True)
+    files = (f"{stem}.cu", "cluster_hist.cuh")
+    srcs = {f: (B.CSRC / f).read_text() for f in files}
     procs = {}
-    for name, subs in VARIANTS.items():
-        s = src
+    for name, subs in variants.items():
+        text = dict(srcs)
         for a, b in subs:
-            if s.count(a) != 1:
-                raise RuntimeError(f"{name}: {a!r} is not once in histpdf.cu")
-            s = s.replace(a, b)
-        cu = os.path.join(out, f"histpdf_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(s)
+            hits = [f for f in files if a in text[f]]
+            if len(hits) != 1 or text[hits[0]].count(a) != 1:
+                raise RuntimeError(f"{name}: {a!r} is not once in {files}")
+            text[hits[0]] = text[hits[0]].replace(a, b)
+        d = os.path.join(out, name)
+        os.makedirs(d, exist_ok=True)
+        for f, t in text.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(t)
         procs[name] = subprocess.Popen(
             [B._nvcc(), *B.NVCC_FLAGS, "-I", str(B.CSRC), "-o",
-             cu[:-3] + ".so", cu], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+             os.path.join(d, f"{stem}.so"), os.path.join(d, f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, p in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out, f"histpdf_{name}.so"))
+        lib = ctypes.CDLL(os.path.join(out, name, f"{stem}.so"))
         fns[name] = {}
-        for fn in ("hist4096_launch", "histpdf_band_launch"):
+        for fn, argtypes in B._SIGNATURES[stem].items():
             f = getattr(lib, fn)
-            f.argtypes = B._SIGNATURES["histpdf"][fn]
+            f.argtypes = argtypes
             f.restype = ctypes.c_int
             fns[name][fn] = f
     return fns
@@ -149,7 +158,8 @@ def main():
 
     dev = torch.device("cuda", 0)
     sms = sm_count(dev)
-    fns = build()
+    fns = build_variants("histpdf", VARIANTS, os.path.join(
+        ROOT, "build", "histpdf_variants"))
     g = torch.Generator().manual_seed(47)
     frames = {f"bench{k}": torch.as_tensor(build_pool(
         N, H, W, 2, 0, np.random.default_rng(0), face_noise=k)[1]).to(dev)
