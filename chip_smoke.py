@@ -31,8 +31,11 @@ Phases, one line each; any failure raises and exits nonzero:
      path's inputs from the bench pools (face boxes as windows, the pdf of
      a tracking batch and of the loss batch through histpdf_band at the
      96x128 band and at 128x192, at band_rect's origins, and through
-     backproject over the frame), on escaping, off-frame and empty windows
-     and at N=1.  Each is timed (CUDA events over 20 calls, and
+     backproject over the frame; 128 of those frame pdfs upsampled 2x by
+     nearest neighbour to 480x640, the 640x480 cell's frames), on
+     escaping, off-frame and empty windows and at N=1, each through the
+     kernel kernels/meanshift.py route picks (logged: one CTA a stream, a
+     cluster of C CTAs a stream, or the global scratch).  Each is timed (CUDA events over 20 calls, and
      over 20 calls replayed from a CUDA graph) beside its twin, its
      byte/operation bound and the nearest single PyTorch call (given
      precomputed bins for the histogram kernels; torch.gather for
@@ -198,9 +201,11 @@ BINCOUNT = ("hist4096", K1_RANDOM, "histpdf_band_hist")
 # take_along's extra timing entries: the full-frame planes, X8's workload
 TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
 # meanshift's timing entries: the headline's 96x128 band (its main entry),
-# the 240x320 frame, DEFAULT_BAND and the frame at N=1
+# the 240x320 frame, DEFAULT_BAND, the frame at N=1 and 128 streams of
+# 480x640 frames
 MS_ENTRIES = ("meanshift", "meanshift frame", "meanshift default_band",
-              "meanshift n1")
+              "meanshift n1", "meanshift 480x640")
+MS_BIG = 128  # streams of the 480x640 case
 
 
 def log(msg):
@@ -589,14 +594,15 @@ def face_boxes(frames):
     return np.stack([x0, y0, x1 - x0, y1 - y0], 1).astype(np.int32)
 
 
-def meanshift_ops(pdf, win, ry, rx):
+def meanshift_ops(pdf, win, ry, rx, frame):
     """The f32 operations this run's data needs, iteration by iteration
     from the twin's windows (one more iteration each run): 5 a pixel of a
     stream's window in each iteration it runs (m00, m10, m01), and 9 a
-    pixel of its stopping window (m11, m20, m02)."""
+    pixel of its stopping window (m11, m20, m02).  frame: (H, W)."""
     import torch
     from headtrackr_tpu_torch.ops import meanshift as om
     n, bh, bw = pdf.shape
+    H, W = frame
     zero = torch.zeros((n,), dtype=torch.int32, device=pdf.device)
     oy, ox = (zero, zero) if ry is None else (ry, rx)
 
@@ -612,7 +618,7 @@ def meanshift_ops(pdf, win, ry, rx):
     try:
         for k in range(1, iters + 1):
             om.MEANSHIFT_ITERS = k
-            cur = om.mean_shift_plain(pdf, win, ry, rx, (H, W))[0]
+            cur = om.mean_shift_plain(pdf, win, ry, rx, frame)[0]
             a = area(prev)
             moved = (cur[:, :2] != prev[:, :2]).any(1)
             stop = ~done & (~moved | (k == iters))
@@ -632,12 +638,15 @@ def phase_meanshift(pools, dev):
     pdf of batch 1 (tracking) and of the loss batch (zero mass on the loss
     streams) through histpdf_band at the 96x128 band and at DEFAULT_BAND
     (128x192), at band_rect's origins, and through backproject over the
-    240x320 frame; plus windows that escape the band (larger than it, or
-    shifted off its origin), lie partly off the frame, or are empty, and
-    N=1.  Then its times beside its twin's and its bound; no PyTorch call
-    computes its function.  Returns (max abs err, timing entries)."""
+    240x320 frame, and 128 of those frame pdfs upsampled 2x to 480x640
+    (windows doubled); plus windows that escape the band (larger than it,
+    or shifted off its origin), lie partly off the frame, or are empty, and
+    N=1.  Then its times beside its twin's and its bound, and the kernel
+    route picked; no PyTorch call computes its function.  Returns (max abs
+    err, timing entries)."""
     import torch
     from headtrackr_tpu_torch.kernels import histpdf as K
+    from headtrackr_tpu_torch.kernels import meanshift as kms
     from headtrackr_tpu_torch.kernels.meanshift import mean_shift
     from headtrackr_tpu_torch.models import camshift as cs
     from headtrackr_tpu_torch.ops import histogram as hg
@@ -686,20 +695,28 @@ def phase_meanshift(pools, dev):
     cases["N=1 frame"] = tuple(None if v is None else v[:1]
                                for v in cases[frame])
     cases["N=1 band"] = tuple(v[:1] for v in cases[headline])
+    big = "face_noise=0 t=1 480x640"
+    pdf, boxes = cases[frame][:2]
+    cases[big] = (pdf[:MS_BIG].repeat_interleave(2, 1).repeat_interleave(
+        2, 2).contiguous(), 2 * boxes[:MS_BIG], None, None)
+
+    def frame_of(pdf, ry):  # a band's frame, or the full-frame pdf's own
+        return (H, W) if ry is not None else tuple(pdf.shape[1:])
 
     def bits(t):
         return torch.where(torch.isnan(t), 0, t.view(torch.int32))
 
     err, escaped, zero = 0.0, 0, 0
+    card = kms.card(dev)
     for name, (pdf, win, ry, rx) in cases.items():
-        got = mean_shift(pdf, win, ry, rx, (H, W))
+        got = mean_shift(pdf, win, ry, rx, frame_of(pdf, ry))
         torch.cuda.synchronize()
         escaped += int(got[3].sum())
         zero += int(got[2].sum())
         on = lambda v, d: None if v is None else v.to(d)  # noqa: E731
         for where, d in (("the card", dev), ("the CPU", cpu)):
             want = om.mean_shift_plain(pdf.to(d), win.to(d), on(ry, d),
-                                       on(rx, d), (H, W))
+                                       on(rx, d), frame_of(pdf, ry))
             for label, a, b in (("window", got[0], want[0]),
                                 ("zero_mass", got[2], want[2]),
                                 ("escaped", got[3], want[3])):
@@ -723,24 +740,29 @@ def phase_meanshift(pools, dev):
     t = {}
     for name, key in zip(MS_ENTRIES, (headline, frame,
                                       "face_noise=0 t=1 128x192",
-                                      "N=1 frame")):
+                                      "N=1 frame", big)):
         pdf, win, ry, rx = cases[key]
-        n = pdf.shape[0]
+        n, bh, bw = pdf.shape
+        fs = frame_of(pdf, ry)
+        c = kms.route(n, bh, bw, card)
+        kernel = {kms.ONE_CTA: "one CTA", kms.SCRATCH: "scratch"}.get(
+            c, f"cluster of {c}")
         # the pdf, windows and origins read once; windows, moments, flags
         # written once
         nbytes = (4 * pdf.numel() + 16 * n + (0 if ry is None else 8 * n)
                   + (16 + 4 * len(om.MOMENTS) + 2) * n)
-        b, by = bound(nbytes, meanshift_ops(pdf, win, ry, rx))
-        args = (pdf, win, ry, rx, (H, W))
+        b, by = bound(nbytes, meanshift_ops(pdf, win, ry, rx, fs))
+        args = (pdf, win, ry, rx, fs)
         ms, plain_ms = interleaved_ms(lambda a=args: mean_shift(*a),
                                       lambda a=args: om.mean_shift_plain(*a))
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                        graph_ms=graph_ms(lambda a=args: mean_shift(*a)),
                        library_ms=None, library_graph_ms=None,
-                       shape=list(pdf.shape))
-        log(f"kernels: {name} {tuple(pdf.shape)} {ms:.4f} ms, graph replay "
-            f"{t[name]['graph_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{b:.6f} ms by {by}; no PyTorch call computes its function)")
+                       shape=list(pdf.shape), kernel=c)
+        log(f"kernels: {name} {tuple(pdf.shape)} ({kernel}) {ms:.4f} ms, "
+            f"graph replay {t[name]['graph_ms']:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {b:.6f} ms by {by}; no PyTorch call "
+            f"computes its function)")
     return err, t
 
 

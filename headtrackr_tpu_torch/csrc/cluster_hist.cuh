@@ -5,20 +5,20 @@
 //   - each counting CTA zeroes its own 16 KB shared i32 histogram
 //     (zero_hist) and adds runs of equal bins to it, one shared atomic a
 //     run (Run, count16);
-//   - after a cluster barrier (cluster_sync) each CTA sums its 4096 / C
+//   - after a cluster barrier (sm90::cluster_sync) each CTA sums its 4096 / C
 //     bins over the counting peers through distributed shared memory
 //     (reduce_slice: mapa + ld.shared::cluster) and writes them out;
 //   - a last cluster barrier keeps every CTA's histogram alive until its
 //     peers have read it.
 // Integer sums in any order are exact, so no float atomic is needed (F5).
-// launch_cluster launches such a kernel over grid (C, n) in clusters of C
-// by cudaLaunchKernelEx (16 is past the portable 8, so the kernel opts in).
+// sm90::launch_cluster launches such a kernel over grid (C, n) in clusters
+// of C (sm90.cuh holds the barrier and the launch, which meanshift.cu uses
+// too).
 // Header only; each .cu that includes it builds on its own.
 
 #pragma once
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
 #include "sm90.cuh"
 
@@ -69,13 +69,6 @@ __device__ __forceinline__ void zero_hist(int32_t* hist) {
   __syncthreads();
 }
 
-// Every thread of every CTA of the cluster: the shared-memory writes before
-// it are visible to the cluster after it.
-__device__ __forceinline__ void cluster_sync() {
-  sm90::cluster_arrive();
-  sm90::cluster_wait();
-}
-
 // This CTA's slice of the bins, [rank 4096 / c, (rank + 1) 4096 / c),
 // summed over the histograms of the cluster's first `active` CTAs, four
 // bins at a time: f(bin, counts of bin .. bin + 3).
@@ -103,31 +96,6 @@ __device__ __forceinline__ void reduce_slice(const int32_t* hist, int c,
 // of two <= 16 (so that 4096 / c bins split into whole int4s).
 inline bool cluster_ok(int n, int c) {
   return n <= 65535 && c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0;
-}
-
-// Launch `kernel` over grid (c, n) in clusters of c, `threads` a CTA, with
-// `smem` bytes of dynamic shared memory; returns the launch's CUDA error.
-template <class... Params, class... Args>
-int launch_cluster(void (*kernel)(Params...), int n, int c, int threads,
-                   int smem, cudaStream_t s, Args... args) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                       1);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c, n);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace chist

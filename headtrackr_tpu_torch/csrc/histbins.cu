@@ -121,7 +121,7 @@ hist_bins_kernel(const int32_t* __restrict__ bins, float* __restrict__ out,
     run.flush(hist);
   }
   // every CTA's counts are in its shared memory, visible to the cluster
-  chist::cluster_sync();
+  sm90::cluster_sync();
 
   // this CTA's slice of the bins, summed over the counting peers
   float* o = out + static_cast<int64_t>(n) * kBins;
@@ -131,7 +131,7 @@ hist_bins_kernel(const int32_t* __restrict__ bins, float* __restrict__ out,
                             make_float4(k.x, k.y, k.z, k.w);
                       });
   // no peer reads this CTA's histogram any more
-  chist::cluster_sync();
+  sm90::cluster_sync();
 }
 
 }  // namespace
@@ -148,8 +148,8 @@ extern "C" int hist_bins_launch(const void* bins, void* out, int n, int p,
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return chist::launch_cluster(hist_bins_kernel, n, c, kThreads, 0,
-                               static_cast<cudaStream_t>(stream),
-                               static_cast<const int32_t*>(bins),
-                               static_cast<float*>(out), p);
+  return sm90::launch_cluster(hist_bins_kernel, dim3(c, n), c, kThreads, 0,
+                              static_cast<cudaStream_t>(stream),
+                              static_cast<const int32_t*>(bins),
+                              static_cast<float*>(out), p);
 }

@@ -199,7 +199,7 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
     sm90::mbar_init_fence();
   }
   // every CTA's barrier is set before any CTA's copy lands on it
-  chist::cluster_sync();
+  sm90::cluster_sync();
   if (threadIdx.x == 0) {
     constexpr uint32_t kSlice = kBins * sizeof(float) / kCluster;
     sm90::mbar_arrive_expect_tx(&bar, kBins * sizeof(float));
@@ -416,7 +416,7 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
     count_rows<kPdf && kStash>(f, w, rc, sh.r0, sh.nrows, hist, stash);
   }
   // every CTA's counts are in its shared memory, visible to the cluster
-  chist::cluster_sync();
+  sm90::cluster_sync();
 
   // this CTA's slice of the bins, summed over the counting peers
   float* cn = cur + static_cast<int64_t>(n) * kBins;
@@ -440,7 +440,7 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   });
   // no peer reads this CTA's histogram any more, and (pdf mode) every
   // slice of its weight table has landed
-  chist::cluster_sync();
+  sm90::cluster_sync();
   if constexpr (kPdf) {
     if (sh.nrows == 0) return;
     float* o = pdf + (static_cast<int64_t>(n) * bh + sh.r0) * bw;
@@ -476,9 +476,9 @@ template <bool kPdf, bool kStash>
 int launch_cluster(int n, int c, int smem, cudaStream_t s, const uint8_t* f,
                    const int32_t* r, const float* m, float* cur, float* pdf,
                    int h, int w, int bh, int bw, bool vec) {
-  return chist::launch_cluster(cluster_hist_kernel<kPdf, kStash>, n, c,
-                               kThreads, smem, s, f, r, m, cur, pdf, h, w, bh,
-                               bw, vec);
+  return sm90::launch_cluster(cluster_hist_kernel<kPdf, kStash>, dim3(c, n),
+                              c, kThreads, smem, s, f, r, m, cur, pdf, h, w,
+                              bh, bw, vec);
 }
 
 int blocks_for(int64_t pixels, int per_block) {

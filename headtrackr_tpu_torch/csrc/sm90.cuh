@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives the kernels share, as inline PTX: mbarriers,
-// TMA bulk copies (plain and multicast to a cluster), cluster barriers,
+// TMA bulk copies (plain and multicast to a cluster), 16-byte asynchronous
+// copies, cluster barriers and the launch of a kernel in clusters,
 // distributed shared memory loads and stores, the proxy fence and the int8
 // warpgroup matrix multiply.  Header only; each .cu that includes it builds
 // on its own.
@@ -7,6 +8,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace sm90 {
 
@@ -67,6 +69,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global memory into this CTA's shared memory (both 16-byte
+// aligned), asynchronously; cp_async_wait_all waits for this thread's.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // The same copy delivered to the same shared-memory offset in every CTA of
 // the cluster named in `mask`, completing on the barrier at `bar`'s offset
 // in each of them.
@@ -97,6 +112,46 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Every thread of every CTA of the cluster: the shared-memory writes before
+// it (local or remote) are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Launch `kernel` over `grid` (its x a multiple of c) in clusters of c CTAs
+// along x, `threads` a CTA, with `smem` bytes of dynamic shared memory;
+// returns the launch's CUDA error.  Clusters of 16 are past the portable 8,
+// so the kernel opts in.
+template <class... Params, class... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, int c, int threads,
+                   int smem, cudaStream_t s, Args... args) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                       1);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// A barrier of the CTA's first `threads` threads (whole warps) on named
+// barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- distributed shared memory --------------------------------------------
 
 // The address of `p` (this CTA's shared memory) in the shared memory of the
@@ -107,6 +162,18 @@ __device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
                : "=r"(a)
                : "r"(smem_addr(p)), "r"(rank));
   return a;
+}
+
+// The generic address of `p` (this CTA's shared memory) in the shared
+// memory of the cluster's CTA `rank`: plain loads and stores through it
+// reach the peer, and the compiler may schedule them like any other.
+template <class T>
+__device__ __forceinline__ T* map_peer(T* p, uint32_t rank) {
+  uint64_t a;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(a)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(a);
 }
 
 __device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {

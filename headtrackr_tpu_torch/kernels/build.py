@@ -47,8 +47,10 @@ _SIGNATURES = {
     },
     "meanshift": {
         "meanshift_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
-                             _I, _C),
+                             _I, _I, _C),
         "meanshift_scratch_floats": (_I, _I),
+        "meanshift_smem_bytes": (_I, _I, _I),
+        "meanshift_smem_limits": (_C,),
     },
 }
 

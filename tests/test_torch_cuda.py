@@ -579,10 +579,11 @@ def test_facades_default_to_the_card(dev):
 def _meanshift_case(n, shape, banded, seed):
     """A batch of pdfs (40% of pixels zero), windows (some partly off the
     frame or the band, one of width 0) and band origins, with a zero-mass
-    stream where n > 2."""
+    stream where n > 2.  A band lies in a 240x320 frame; a full-frame pdf
+    is its frame."""
     g = torch.Generator().manual_seed(seed)
-    H, W = 240, 320
     bh, bw = shape
+    H, W = (240, 320) if banded else shape
     pdf = torch.rand((n, bh, bw), generator=g)
     pdf[pdf < 0.4] = 0
     if n > 2:
@@ -595,7 +596,7 @@ def _meanshift_case(n, shape, banded, seed):
                                          generator=g).int(),
                      torch.randint(4, 60, (n, 2), generator=g).int()], 1)
     win[-1, 2] = 0
-    return pdf, win, (ry, rx) if banded else (None, None)
+    return pdf, win, (ry, rx) if banded else (None, None), (H, W)
 
 
 def _bits(t):
@@ -613,46 +614,101 @@ def _meanshift_equal(got, want):
         assert torch.equal(_bits(a), _bits(b)), k
 
 
-@pytest.mark.parametrize("n", [1, 3, 256])
-@pytest.mark.parametrize("shape,banded", [((96, 128), True),
-                                          ((128, 192), True),
-                                          ((240, 320), False),
-                                          ((57, 99), True)])
+def _meanshift_args(case, d):
+    pdf, win, (ry, rx), frame = case
+    on = lambda t: None if t is None else t.to(d)  # noqa: E731
+    return pdf.to(d), win.to(d), on(ry), on(rx), frame
+
+
+@pytest.mark.parametrize("n,shape,banded", [
+    (n, shape, banded)
+    for n in (1, 3, 256)
+    for shape, banded in (((96, 128), True), ((128, 192), True),
+                          ((240, 320), False), ((57, 99), True),
+                          ((480, 640), False))] + [(1, (1024, 1024), False)])
 def test_meanshift_bit_equal_to_twin(dev, n, shape, banded):
-    """One launch; bit-equal to the twin run on the card and on the CPU
-    (the planes in shared memory at the bands, in the global scratch at
-    the full frame; 57x99 takes the plain loads instead of TMA)."""
-    from headtrackr_tpu_torch.kernels.meanshift import mean_shift
+    """One launch of the kernel route picks; bit-equal to the twin run on
+    the card and on the CPU: a cluster over the 240x320 and 480x640 frames
+    at 1 and 3 streams, the global scratch at 256 of them and at
+    1024x1024, one CTA or a cluster at the bands (57x99 takes the plain
+    loads instead of TMA)."""
+    from headtrackr_tpu_torch.kernels import meanshift as kms
     from headtrackr_tpu_torch.ops.meanshift import mean_shift_plain
-    pdf, win, (ry, rx) = _meanshift_case(n, shape, banded, seed=n)
-    on = lambda t, d: None if t is None else t.to(d)  # noqa: E731
-    args = lambda d: (pdf.to(d), win.to(d), on(ry, d), on(rx, d),  # noqa: E731
-                      (240, 320))
+    case = _meanshift_case(n, shape, banded, seed=n)
+    c = kms.route(n, *shape, kms.card(dev))
+    if shape in ((240, 320), (480, 640)) and n < 256:
+        assert c in kms.CLUSTER_SIZES
+    assert (c == kms.SCRATCH) == (shape == (1024, 1024) or (
+        shape in ((240, 320), (480, 640)) and n == 256))
     before = launches["meanshift"]
-    got = mean_shift(*args(dev))
+    got = kms.mean_shift(*_meanshift_args(case, dev))
     torch.cuda.synchronize()
     assert launches["meanshift"] == before + 1
-    _meanshift_equal(got, mean_shift_plain(*args(dev)))
-    _meanshift_equal(got, mean_shift_plain(*args("cpu")))
+    _meanshift_equal(got, mean_shift_plain(*_meanshift_args(case, dev)))
+    _meanshift_equal(got, mean_shift_plain(*_meanshift_args(case, "cpu")))
+
+
+@pytest.mark.parametrize("shape,banded,kernels", [
+    ((240, 320), False, (0, 4, 8, 16)),
+    ((96, 128), True, (0, 2, 4, 8, 16)),
+    ((57, 99), True, (2, 16)),
+    ((1, 1), False, (2, 16)),
+    ((480, 640), False, (16,))])
+def test_meanshift_every_kernel(dev, shape, banded, kernels):
+    """Each kernel forced (the scratch kernel, the cluster kernel at every
+    size that fits) at n = 8, bit-equal to the twin on the card; the sizes
+    that do not fit are refused."""
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    from headtrackr_tpu_torch.ops.meanshift import mean_shift_plain
+    case = _meanshift_case(8, shape, banded, seed=91)
+    args = _meanshift_args(case, dev)
+    want = mean_shift_plain(*args)
+    smem = kms.card(dev).smem_cta
+    for c in kernels:
+        _meanshift_equal(kms.launch_kernel(c, *args), want)
+    for c in (kms.ONE_CTA,) + kms.CLUSTER_SIZES:
+        if kms.smem_bytes(*shape, c) > smem:
+            with pytest.raises(RuntimeError, match="meanshift launch"):
+                kms.launch_kernel(c, *args)
+
+
+def test_meanshift_route_mirrors_the_source(dev):
+    """kernels/meanshift.py smem_bytes equals the source's layouts, and
+    route sends to the scratch exactly the shapes for which the source
+    asks for scratch (meanshift_scratch_floats)."""
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    from headtrackr_tpu_torch.kernels.build import load_library
+    lib = load_library()
+    card = kms.card(dev)
+    assert card.sms > 0 and card.smem_sm >= card.smem_cta > 0
+    for bh, bw in ((1, 1), (57, 99), (96, 128), (128, 192), (240, 320),
+                   (241, 321), (480, 640), (700, 900), (1024, 1024)):
+        for c in (kms.SCRATCH, kms.ONE_CTA) + kms.CLUSTER_SIZES:
+            assert kms.smem_bytes(bh, bw, c) == lib.fn(
+                "meanshift_smem_bytes")(bh, bw, c), (bh, bw, c)
+        floats = lib.fn("meanshift_scratch_floats")(bh, bw)
+        assert (kms.route(1, bh, bw, card) == kms.SCRATCH) == (floats > 0)
+        assert floats in (0, kms.scratch_floats(bh, bw))
 
 
 def test_meanshift_in_a_graph_equals_eager(dev):
-    """The kernel captured in a CUDA graph (its scratch allocated in the
-    graph's pool at the full frame) and replayed equals the eager call."""
-    from headtrackr_tpu_torch.kernels.meanshift import mean_shift
-    for shape, banded in (((96, 128), True), ((240, 320), False)):
-        pdf, win, (ry, rx) = _meanshift_case(8, shape, banded, seed=4)
-        on = lambda t: None if t is None else t.to(dev)  # noqa: E731
-        args = (pdf.to(dev), win.to(dev), on(ry), on(rx), (240, 320))
-        eager = mean_shift(*args)
+    """Each kernel captured in a CUDA graph (one CTA at the band, the
+    cluster and the scratch kernel over the frame, the scratch allocated
+    in the graph's pool) and replayed equals the eager call."""
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    for shape, banded, c in (((96, 128), True, kms.ONE_CTA),
+                             ((240, 320), False, 8),
+                             ((240, 320), False, kms.SCRATCH)):
+        args = _meanshift_args(_meanshift_case(8, shape, banded, seed=4), dev)
+        eager = kms.launch_kernel(c, *args)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            mean_shift(*args)
+            kms.launch_kernel(c, *args)
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            got = mean_shift(*args)
+            got = kms.launch_kernel(c, *args)
         g.replay()
         torch.cuda.synchronize()
         _meanshift_equal(got, eager)

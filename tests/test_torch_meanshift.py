@@ -16,6 +16,13 @@ kernels/meanshift.py) against the JAX package's ``_mean_shift_core``
   * a stream's result alone equals its result in a batch of 6;
   * the stated order: f64 running sums rounded to f32 (where an f32
     running sum differs), and adjacent pairs in the tree;
+  * the twin at 480x640 on 2 streams (2x nearest-neighbour upsampled
+    backprojections, the card phase's new shape): windows, escapes and
+    zero mass exact, moments within rtol 1e-5 / atol 1e-4;
+  * the kernels' route and the cluster kernel's strips (the Python mirror
+    of csrc/meanshift.cu's layouts): every row and column in exactly one
+    CTA's strip, strip boundaries on 32-element segments, each shape's
+    kernel and its shared-memory budget;
   * the wrapper's checks and its device dispatch.
 """
 
@@ -26,6 +33,7 @@ import pytest
 import torch
 
 from headtrackr_tpu.models import camshift as jcs
+from headtrackr_tpu_torch.kernels import meanshift as kms
 from headtrackr_tpu_torch.kernels.meanshift import MAX_SIDE, mean_shift
 from headtrackr_tpu_torch.models import camshift as tcs
 from headtrackr_tpu_torch.ops import histogram as thg
@@ -39,20 +47,21 @@ N = 6
 _CORE = {}
 
 
-def _jax_core(pdf, win, ry, rx):
+def _jax_core(pdf, win, ry, rx, frame=(H, W)):
     """The reference's _mean_shift_core over a batch of streams (numpy in,
-    numpy out); one jit a pdf shape."""
-    core = _CORE.setdefault(pdf.shape[1:], jax.jit(jax.vmap(
-        lambda p, w, y, x: jcs._mean_shift_core(p, w, True, y, x, H, W))))
+    numpy out) in a frame of ``frame`` (H, W); one jit a pdf shape."""
+    fh, fw = frame
+    core = _CORE.setdefault((pdf.shape[1:], frame), jax.jit(jax.vmap(
+        lambda p, w, y, x: jcs._mean_shift_core(p, w, True, y, x, fh, fw))))
     w, m, z, e = core(jnp.asarray(pdf), jnp.asarray(win), jnp.asarray(ry),
                       jnp.asarray(rx))
     return (np.asarray(w), {k: np.asarray(v) for k, v in m.items()},
             np.asarray(z), np.asarray(e))
 
 
-def _twin(pdf, win, ry=None, rx=None):
+def _twin(pdf, win, ry=None, rx=None, frame=(H, W)):
     t = lambda a: None if a is None else torch.as_tensor(a)  # noqa: E731
-    w, m, z, e = oms.mean_shift_plain(t(pdf), t(win), t(ry), t(rx), (H, W))
+    w, m, z, e = oms.mean_shift_plain(t(pdf), t(win), t(ry), t(rx), frame)
     return (w.numpy(), {k: v.numpy() for k, v in m.items()}, z.numpy(),
             e.numpy())
 
@@ -178,6 +187,92 @@ def test_twin_matches_reference_on_backprojections(rng, band):
     want = _jax_core(pdf.numpy(), win, ry, rx)
     _assert_same(got, want, exact_moments=False)
     assert (got[0][:, :2] != win[:, :2]).any()  # the windows moved
+
+
+def test_twin_matches_reference_at_480x640(rng):
+    """Two streams of 480x640 pdfs, as chip_smoke's new case makes them:
+    240x320 backprojections (a blob frame's model histogram of its box,
+    weighed against the next frame's histogram) upsampled 2x by nearest
+    neighbour, windows the boxes doubled.  Windows, escapes and zero mass
+    exact; moments within rtol 1e-5 / atol 1e-4 (the central moments
+    relative to their terms): the reference's prefix sums are f32 matmuls,
+    the twin's f64 running sums."""
+    fh, fw, n = 240, 320, 2
+    centers = [(150, 100), (90, 160)]
+    frames = []
+    for dx, dy in ((0, 0), (4, -3)):
+        fr = rng.integers(0, 60, (n, fh, fw, 3), dtype=np.uint8)
+        for k, (cx, cy) in enumerate(centers):
+            fr[k, cy + dy - 20:cy + dy + 20, cx + dx - 15:cx + dx + 15] = (
+                215, 80, 60)
+        frames.append(torch.as_tensor(fr))
+    box = np.array([[cx - 15, cy - 20, 30, 40] for cx, cy in centers],
+                   np.int32)
+    model = thg.histogram_rects(frames[0], torch.as_tensor(box))
+    cur = thg.hist4096_plain(frames[1],
+                             thg.full_rects(n, (fh, fw), "cpu")).float()
+    pdf = thg.backproject_plain(frames[1],
+                                thg.backprojection_weights(model, cur))
+    pdf = pdf.repeat_interleave(2, 1).repeat_interleave(2, 2).numpy()
+    win = 2 * box
+    zero = np.zeros(n, np.int32)
+    got = _twin(pdf, win, frame=(2 * fh, 2 * fw))
+    _assert_same(got, _jax_core(pdf, win, zero, zero, (2 * fh, 2 * fw)),
+                 exact_moments=False)
+    assert (got[0][:, :2] != win[:, :2]).any() and not got[2].any()
+
+
+ROUTE_SHAPES = [(1, 1), (57, 99), (96, 128), (128, 192), (240, 320),
+                (480, 640), (1024, 1024)]
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_strips_cover_each_row_and_column_once(c):
+    """The cluster kernel's split of each side: c strips in order, every
+    row and column in exactly one, every boundary on a 32-element segment
+    (or the side's end), none wider than the layout's room."""
+    for bh, bw in ROUTE_SHAPES:
+        for side in (bh, bw):
+            most = 32 * -(-(-(-side // 32)) // c)  # ceil(segments / c)
+            st = kms.strips(side, c)
+            assert len(st) == c and st[0][0] == 0 and st[-1][1] == side
+            held = np.zeros(side, int)
+            for (lo, hi), nxt in zip(st, st[1:] + [(side, side)]):
+                assert hi == nxt[0] and lo <= hi
+                assert lo % 32 == 0 or lo == side
+                assert hi % 32 == 0 or hi == side
+                assert hi - lo <= most
+                held[lo:hi] += 1
+            assert (held == 1).all()
+
+
+def test_route_picks_the_stated_kernel():
+    """On an H100, the sweep's winners (PERF.md): the cluster kernel over
+    the 240x320 frame (16 CTAs a stream at one stream, 8 at 32 to 231:
+    up to 7 waves of 33) and the 480x640 frame (16, up to 56 streams: 7
+    waves of 8), the scratch kernel beyond (256 frames of 240x320, 128 of
+    480x640) and beyond 16 CTAs' room (1024x1024); one CTA at the
+    headline's 96x128 band and 256 streams, a cluster of 2 at 128x192 and
+    256 streams; the budgets the source's header states."""
+    want = {(1, 240, 320): 16, (32, 240, 320): 8, (192, 240, 320): 8,
+            (231, 240, 320): 8, (232, 240, 320): kms.SCRATCH,
+            (256, 240, 320): kms.SCRATCH, (1, 480, 640): 16,
+            (56, 480, 640): 16, (57, 480, 640): kms.SCRATCH,
+            (128, 480, 640): kms.SCRATCH,
+            (256, 96, 128): kms.ONE_CTA, (256, 128, 192): 2,
+            (256, 57, 99): kms.ONE_CTA, (1, 1, 1): kms.ONE_CTA,
+            (1, 1024, 1024): kms.SCRATCH, (256, 1024, 1024): kms.SCRATCH}
+    for (n, bh, bw), c in want.items():
+        assert kms.route(n, bh, bw, kms.H100) == c, (n, bh, bw)
+    smem = kms.H100.smem_cta
+    kb = {c: kms.smem_bytes(240, 320, c) / 1024 for c in (2, 4, 8, 16)}
+    assert kb[2] * 1024 > smem
+    assert [round(kb[c]) for c in (4, 8, 16)] == [178, 107, 77]
+    assert round(kms.smem_bytes(480, 640, 16) / 1024) == 210
+    assert kms.smem_bytes(480, 640, 8) > smem
+    assert kms.smem_bytes(1024, 1024, 16) > smem
+    assert kms.smem_bytes(96, 128, kms.ONE_CTA) <= smem // 2
+    assert kms.smem_bytes(128, 192, kms.ONE_CTA) <= smem
 
 
 def _edge_batch():
