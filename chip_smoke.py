@@ -115,12 +115,31 @@ Phases, one line each; any failure raises and exits nonzero:
      outputs; examples/torch_batched_serving.py (every stream tracks, head
      events on each) and examples/torch_facetracking.py --toy (ends
      tracking, head events printed) run on the card; with the launch
-     counts at 0 before, the headline configuration's kernels launched.
+     counts at 0 before, the headline configuration's kernels launched;
+ 11. mesh: the headline configuration at 256 streams on the bench pool
+     (16 lock ticks, 32 ticks of step_auto with the 4 loss streams, then
+     run_scan with K = 16) meshless, on (a) stream_mesh() (the card's
+     devices, one shard) and (b) stream_mesh([card] * 4) (four shards of
+     64 on the one card): every output leaf of every tick and the final
+     state of (a) and (b) equal the meshless tracker's (integers exact,
+     floats bit-equal); histpdf_band and meanshift launched on every
+     step_auto tick, once a shard (4x a tick in (b)); a checkpoint saved
+     from (b) loads into a meshless tracker whose next 8 ticks equal (b)'s,
+     bit for bit; ms/tick of step_auto (host clock over ticks ending in a
+     synchronize) over the 32 ticks and over 32 all-CS ticks, trackers in
+     turns (four each); phase 5's profile of (a) and (b) (step_auto, and
+     step: the host scheduler on the mesh);
+ 12. gate: tools/torch_verify_gpu.py (loaded by path) on the card with 60
+     tracked frames, every clip kind (realistic and degenerate clips, the
+     relock gate with bandHist on and off, the lighting and occlusion
+     clips, the clutter crowd) at 320x240 and 640x480: the port's full
+     step and serving path (bandHist on and off) against the port's copy
+     of the f64 oracle; a failed gate raises.
 
 The last four lines: the steady-tick profile, session, fanout, checkpoint,
-facade and plan numbers as JSON (phases 5, 7-10), the kernels' JSON, the
-nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Imports
-nothing of JAX or headtrackr_tpu.
+facade, plan, mesh and gate numbers as JSON (phases 5, 7-12), the
+kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
+{...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
 
 import json
@@ -206,6 +225,10 @@ TA_EXTRA = {"frame": "take_along frame", "x8_workload": "take_along x8"}
 MS_ENTRIES = ("meanshift", "meanshift frame", "meanshift default_band",
               "meanshift n1", "meanshift 480x640")
 MS_BIG = 128  # streams of the 480x640 case
+MESH_SHARDS = 4  # phase 11 (b): shards on the one card
+MESH_STEADY_TICKS = 32  # phase 11: all-CS ticks a timed turn
+GATE_FRAMES = 60  # phase 12: tracked frames a clip
+GATE_SIZES = ((240, 320), (480, 640))
 
 
 def log(msg):
@@ -1114,12 +1137,12 @@ def phase_serving(name, frames, dev):
     return counts, ms, bt
 
 
-def steady_s(tick, frames):
-    """Host seconds of PROFILE_TICKS all-tracking ticks of ``tick``."""
+def steady_s(tick, frames, ticks=PROFILE_TICKS):
+    """Host seconds of ``ticks`` all-tracking ticks of ``tick``."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(PROFILE_TICKS):
+    for t in range(ticks):
         tick(frames[t % LOSS_AT])
     torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -1549,12 +1572,12 @@ def phase_facade(pool, dev):
     return r
 
 
-def load_example(root, name):
-    """examples/<name>.py as a module (the examples are scripts, not a
-    package)."""
+def load_example(root, name, folder="examples"):
+    """<folder>/<name>.py as a module (the examples and tools are scripts,
+    not a package)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(root, "examples", f"{name}.py"))
+        name, os.path.join(root, folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1634,6 +1657,151 @@ def phase_plan(pool, dev, root):
             "examples_s": t_ex, "launches": counts}
 
 
+def _bits(t):
+    """A tensor's values on the host, f32 as their bit patterns."""
+    a = t.cpu().numpy()
+    return a.view("int32") if a.dtype.name == "float32" else a
+
+
+def same_bits(a, b, where):
+    """Two lists of StepOutputs (or TrackerStates): every leaf equal,
+    integers exactly, floats bit for bit."""
+    import numpy as np
+
+    def leaves(tree):
+        if isinstance(tree, tuple):
+            return [(f"{n}.{m}" if m else n, t) for n, v in
+                    zip(tree._fields, tree) for m, t in leaves(v)]
+        return [] if tree is None else [("", tree)]
+
+    for k, (x, y) in enumerate(zip(a, b)):
+        for (name, u), (_, v) in zip(leaves(x), leaves(y)):
+            if not np.array_equal(_bits(u), _bits(v)):
+                raise AssertionError(f"{where}: tick {k} {name}: "
+                                     f"{u.cpu().numpy()} vs {v.cpu().numpy()}")
+
+
+def phase_mesh(pool, dev, root):
+    """Phase 11: the headline configuration meshless, on stream_mesh() and
+    on MESH_SHARDS shards of the one card.  Returns the numbers."""
+    import torch
+    from headtrackr_tpu_torch import BatchedTracker, checkpoint
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.parallel import stream_mesh
+
+    kw, _ = CONFIGS["headline"]
+    frames = torch.as_tensor(pool).to(dev)
+    meshes = {"meshless": None, "mesh_a": stream_mesh(),
+              "mesh_b": stream_mesh([dev] * MESH_SHARDS)}
+    if meshes["mesh_a"].devices.size != torch.cuda.device_count():
+        raise AssertionError("mesh: stream_mesh() does not name every card")
+    n_ticks = 2 * POOL
+    runs = {}
+    for name, mesh in meshes.items():
+        shards = 1 if mesh is None else mesh.devices.size
+        bt = BatchedTracker(N_STREAMS, (H, W), mesh=mesh,
+                            device=dev if mesh is None else None, **kw)
+        bt.warmup(scan_len=POOL)
+        torch.cuda.synchronize()
+        L.reset_launches()
+        outs = [bt.step_auto(frames[0]) for _ in range(LOCK_TICKS)]
+        torch.cuda.synchronize()
+        per_tick = []
+        t0 = time.perf_counter()
+        for t in range(n_ticks):
+            before = dict(L.launches)
+            outs.append(bt.step_auto(frames[t % POOL]))
+            per_tick.append({k: L.launches[k] - before[k]
+                             for k in ("histpdf_band", "meanshift")})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        before = dict(L.launches)
+        scan = bt.run_scan(frames)
+        torch.cuda.synchronize()
+        scan_launches = {k: L.launches[k] - before[k]
+                         for k in ("histpdf_band", "meanshift")}
+        outs += [ft.StepOutput(*(v[k] for v in scan)) for k in range(POOL)]
+        short = [(t, c) for t, c in enumerate(per_tick)
+                 if min(c.values()) < shards]
+        if short or min(scan_launches.values()) < shards * POOL:
+            raise AssertionError(f"mesh [{name}]: histpdf_band / meanshift "
+                                 f"not launched once a shard every tick: "
+                                 f"{short[:3]}, scan {scan_launches}")
+        if not (bt.modes == ft.MODE_CS).all():
+            raise AssertionError(f"mesh [{name}]: not every stream tracks")
+        runs[name] = {"bt": bt, "outs": outs, "shards": shards,
+                      "ms_per_tick": 1e3 * dt / n_ticks,
+                      "launches": dict(L.launches),
+                      "launches_per_tick": {
+                          k: sum(c[k] for c in per_tick) / n_ticks
+                          for k in ("histpdf_band", "meanshift")}}
+    ref = runs["meshless"]
+    for name in ("mesh_a", "mesh_b"):
+        same_bits(runs[name]["outs"], ref["outs"], f"mesh [{name}]")
+        same_bits([runs[name]["bt"].state], [ref["bt"].state],
+                  f"mesh [{name}] final state")
+    log(f"mesh: stream_mesh() = {meshes['mesh_a']} and "
+        f"{MESH_SHARDS} shards of {N_STREAMS // MESH_SHARDS} on one card: "
+        f"{LOCK_TICKS + n_ticks + POOL} ticks (step_auto and a K={POOL} "
+        f"run_scan) and the final state equal the meshless tracker's "
+        f"(integers exact, floats bit-equal); histpdf_band and meanshift "
+        f"launched once a shard every tick")
+
+    # a checkpoint of (b) resumed meshless
+    path = os.path.join(root, "build", "chip_smoke", "mesh.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    src = runs["mesh_b"]["bt"]
+    checkpoint.save_tracker(path, src)
+    fresh = BatchedTracker(N_STREAMS, (H, W), device=dev, **kw)
+    checkpoint.load_tracker(path, fresh)
+    os.unlink(path)
+    resumed = [fresh.step_auto(frames[t]) for t in range(RESUME_TICKS)]
+    want = [src.step_auto(frames[t]) for t in range(RESUME_TICKS)]
+    same_bits(resumed, want, "mesh checkpoint resume")
+    log(f"mesh: a checkpoint of the {MESH_SHARDS}-shard tracker loaded into "
+        f"a meshless one; its next {RESUME_TICKS} ticks equal the "
+        f"uninterrupted run's bit for bit")
+
+    # all-CS ticks, trackers in turns (a, b, meshless, meshless, b, a, twice)
+    order = ["mesh_a", "mesh_b", "meshless"]
+    steady = {name: [] for name in order}
+    for name in 2 * (order + order[::-1]):
+        steady[name].append(1e3 * steady_s(
+            runs[name]["bt"].step_auto, frames, MESH_STEADY_TICKS)
+            / MESH_STEADY_TICKS)
+    prof = phase_profile({name: runs[name]["bt"]
+                          for name in ("mesh_a", "mesh_b")}, frames)
+    r = {"shards": {k: v["shards"] for k, v in runs.items()},
+         "ms_per_tick": {k: v["ms_per_tick"] for k, v in runs.items()},
+         "steady_ms_per_tick": steady, "profile": prof,
+         "launches_per_tick": {k: v["launches_per_tick"]
+                               for k, v in runs.items()},
+         "launches": {k: v["launches"] for k, v in runs.items()},
+         "resume_ticks": RESUME_TICKS}
+    log(f"mesh: step_auto ms/tick over {n_ticks} ticks (4 loss streams): "
+        f"{r['ms_per_tick']}; all-CS ms/tick over {MESH_STEADY_TICKS} "
+        f"ticks, four turns: {r['steady_ms_per_tick']}; launches per tick "
+        f"{r['launches_per_tick']}")
+    return r
+
+
+def phase_gate(dev, root):
+    """Phase 12: tools/torch_verify_gpu.py on the card, every clip kind at
+    both sizes.  Returns its results; a failed gate raises."""
+    gate = load_example(root, "torch_verify_gpu", folder="tools")
+    t0 = time.perf_counter()
+    ok, res = gate.run_gate(GATE_FRAMES, "all", GATE_SIZES, dev,
+                            log=lambda m: log(f"gate: {m}"))
+    if not ok:
+        raise AssertionError("gate: the port failed the conformance gate "
+                             "against the oracle (lines above)")
+    log(f"gate: every clip kind at "
+        f"{', '.join(f'{w}x{h}' for h, w in GATE_SIZES)} passes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
 def main():
     try:
         import torch
@@ -1685,6 +1853,8 @@ def main():
     facade = phase_facade(pools[0], dev)
     counts["facade"] = facade["launches"]
     plan = phase_plan(pools[0], dev, root)
+    mesh = phase_mesh(pools[0], dev, root)
+    gate = phase_gate(dev, root)
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
@@ -1713,7 +1883,8 @@ def main():
     print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
-                      "facade": facade, "plan": plan}))
+                      "facade": facade, "plan": plan, "mesh": mesh,
+                      "gate": gate}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -78,7 +78,7 @@ def main(argv=None):
     xs = out.face_x.cpu().numpy()            # (16, N)
     print(f"run_scan: 16 ticks/call, stream-0 track x: "
           f"{xs[:, 0].astype(int).tolist()}")
-    # more than one GPU (examples/mesh_serving.py) is not ported yet
+    # several devices: examples/torch_mesh_serving.py (mesh=)
     return heads, bt.modes.tolist(), xs
 
 

@@ -44,8 +44,17 @@ class Cascade:
     nz: np.ndarray
     stage_of: np.ndarray      # (K,) i32
 
-    def __getitem__(self, key):
+    @property
+    def n_weak(self):
+        return self.alpha.shape[0]
+
+    def __getitem__(self, key):  # dict-style access for the oracle
         return getattr(self, key)
+
+    def stage_slice(self, s):
+        """Stage s's weak classifiers as the range [k0, k1) of K."""
+        k0 = int(self.stage_counts[:s].sum())
+        return k0, k0 + int(self.stage_counts[s])
 
 
 @functools.lru_cache(maxsize=1)

@@ -29,7 +29,8 @@ the f32 scale in f32, single-chunk cascades the f64 product cast to f32.
 
 Grouping (src/ccv.js:249-331) is connected components over each stream's
 candidates by min-label propagation with pointer jumping (no matmul, so no
-TF32 question), then f32 member sums and the containment filter.
+TF32 question), then member sums (exact in f64, rounded to f32) and the
+containment filter.
 """
 
 import dataclasses
@@ -278,12 +279,12 @@ def group_candidates(x, y, w, h, conf, valid, min_neighbors=1):
 
     idxv = torch.arange(K, device=x.device)
     member = (row(label) == idxv[None, :, None]) & row(valid)  # [n, rep, j]
-    mf = member.to(f32)
-    n = mf.sum(dim=2)
-    sx = (mf * row(x)).sum(dim=2)
-    sy = (mf * row(y)).sum(dim=2)
-    sw = (mf * row(w)).sum(dim=2)
-    sh = (mf * row(h)).sum(dim=2)
+    # member sums in f64, exact in any order, rounded once to f32: a
+    # stream's boxes do not depend on the K its batch pads it to
+    mf = member.to(torch.float64)
+    msum = lambda t: (mf * row(t).to(torch.float64)).sum(dim=2).to(f32)  # noqa: E731
+    n = mf.sum(dim=2).to(f32)
+    sx, sy, sw, sh = msum(x), msum(y), msum(w), msum(h)
     mconf = torch.where(member, row(conf), -torch.inf).amax(dim=2)
 
     rep = valid & (label == idxv) & (n >= min_neighbors)

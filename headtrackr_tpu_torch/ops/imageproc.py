@@ -28,9 +28,12 @@ def grayscale(rgb):
 
 def whitebalance(rgb):
     """(N, H, W, 3) u8 -> (N,) f32 mean gray value (avgR + avgG + avgB) / 3.
-    src/whitebalance.js:17-28."""
-    m = rgb.to(torch.float32).mean(dim=(-3, -2))
-    return (m[..., 0] + m[..., 1] + m[..., 2]) / 3.0
+    src/whitebalance.js:17-28.  The channel sums are exact in f64 (as the
+    JS numbers are), so a stream's value is the same in any batch and in
+    any reduction order; it is rounded once to f32."""
+    m = rgb.sum(dim=(-3, -2), dtype=torch.float64) / (
+        rgb.shape[-3] * rgb.shape[-2])
+    return ((m[..., 0] + m[..., 1] + m[..., 2]) / 3.0).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=256)
@@ -91,6 +94,10 @@ class PyramidSpec:
     next: int
     dims: tuple  # dims[i] = (i, (w, h)) for level i
 
+    def plane_key(self, i, q=0):
+        """The JS ``pyr`` index of level i's plane q (src/ccv.js:131-147)."""
+        return i * 4 + q
+
 
 @functools.lru_cache(maxsize=32)
 def pyramid_spec(w0, h0, interval=5):
@@ -119,20 +126,21 @@ def build_pyramid(gray, interval=5):
     dims = dict(spec.dims)
     next_ = spec.next
 
+    key = spec.plane_key
     pyr = {0: gray}
     for i in range(1, interval + 1):
         w, h = dims[i]
-        pyr[i * 4] = resize_bilinear(gray, 0, 0, w0, h0, w, h, w, h)
+        pyr[key(i)] = resize_bilinear(gray, 0, 0, w0, h0, w, h, w, h)
     for i in range(next_, spec.scale_upto + next_ * 2):
-        src = pyr[(i - next_) * 4]
+        src = pyr[key(i - next_)]
         sh_, sw_ = src.shape[1:]
         w, h = dims[i]
-        pyr[i * 4] = resize_bilinear(src, 0, 0, sw_, sh_, w, h, w, h)
+        pyr[key(i)] = resize_bilinear(src, 0, 0, sw_, sh_, w, h, w, h)
     for i in range(next_ * 2, spec.scale_upto + next_ * 2):
-        src = pyr[(i - next_) * 4]
+        src = pyr[key(i - next_)]
         sh_, sw_ = src.shape[1:]
         w, h = dims[i]
-        pyr[i * 4 + 1] = resize_bilinear(src, 1, 0, sw_ - 1, sh_, w - 2, h, w, h)
-        pyr[i * 4 + 2] = resize_bilinear(src, 0, 1, sw_, sh_ - 1, w, h - 2, w, h)
-        pyr[i * 4 + 3] = resize_bilinear(src, 1, 1, sw_ - 1, sh_ - 1, w - 2, h - 2, w, h)
+        pyr[key(i, 1)] = resize_bilinear(src, 1, 0, sw_ - 1, sh_, w - 2, h, w, h)
+        pyr[key(i, 2)] = resize_bilinear(src, 0, 1, sw_, sh_ - 1, w, h - 2, w, h)
+        pyr[key(i, 3)] = resize_bilinear(src, 1, 1, sw_ - 1, sh_ - 1, w - 2, h - 2, w, h)
     return pyr, spec

@@ -1,0 +1,59 @@
+"""Smoother oracle.
+
+The reference intends LaViola double-exponential smoothing (src/smoother.js:1-11)
+but two latent bugs make the *observable* behavior a plain EMA with alpha = 0.35:
+
+  1. ``sp2 = sp`` aliases the arrays (src/smoother.js:27-28), so the second stage
+     update ``sp2[i] = a*sp[i] + (1-a)*sp2[i]`` reads/writes the same slot and is a
+     no-op, leaving sp2 === sp forever.
+  2. ``updateTime`` is reset immediately before computing msDiff
+     (src/smoother.js:44-46), so predict(0) returns ``2*sp - sp2 == sp``.
+
+The framework's parity target is therefore EMA on [x, y, z, width, height]; a
+correct DESP implementation is available behind ``mode="desp"`` for users who want
+the intended behavior.  The z channel: the reference feeds undefined (NaN) z — we
+deliberately carry z = 0 instead (documented deviation; z is never consumed).
+
+The port's copy of headtrackr_tpu/oracle/smoother.py, the same code: the
+card has no jax, and headtrackr_tpu_torch imports nothing of the JAX
+package (whose __init__ imports jax), so the port keeps its own oracle
+and its conformance gate (tools/torch_verify_gpu.py) holds the port
+against this copy.
+"""
+
+__all__ = ["Smoother"]
+
+
+class Smoother:
+    def __init__(self, alpha=0.35, interval=35, mode="ema"):
+        self.alpha = alpha
+        self.interval = interval
+        self.mode = mode
+        self.initialized = False
+        self.sp = None
+        self.sp2 = None
+
+    def init(self, pos):
+        """pos: dict with x, y, width, height (z optional, default 0)."""
+        self.sp = [pos["x"], pos["y"], pos.get("z", 0.0), pos["width"], pos["height"]]
+        self.sp2 = list(self.sp)
+        self.initialized = True
+
+    def smooth(self, pos):
+        if not self.initialized:
+            return False
+        a = self.alpha
+        cur = [pos["x"], pos["y"], pos.get("z", 0.0), pos["width"], pos["height"]]
+        for i in range(5):
+            self.sp[i] = a * cur[i] + (1 - a) * self.sp[i]
+            if self.mode == "desp":
+                self.sp2[i] = a * self.sp[i] + (1 - a) * self.sp2[i]
+            else:  # parity: aliasing bug makes the second stage a no-op
+                self.sp2[i] = self.sp[i]
+        if self.mode == "desp":
+            out = [2 * self.sp[i] - self.sp2[i] for i in range(5)]
+        else:
+            out = list(self.sp)
+        pos = dict(pos)
+        pos["x"], pos["y"], pos["z"], pos["width"], pos["height"] = out
+        return pos

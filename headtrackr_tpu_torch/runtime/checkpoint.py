@@ -13,8 +13,8 @@ and loading validates paths/shapes/dtypes against the target -- a checkpoint
 from a different n_streams, frame geometry, or state schema fails loudly
 instead of silently unflattening mismatched leaves.  v1 positional ``leaf_i``
 checkpoints are still readable (structure validated by leaf count only).
-The reference's mesh placement on load is multi-device work the port does
-not have yet.
+The state schema does not depend on placement, so a file saved from a
+tracker on a mesh of any size (or none) loads into a tracker on another.
 """
 
 import numpy as np
@@ -154,7 +154,10 @@ def load_tracker(path, bt):
     """Restore a checkpoint into an existing BatchedTracker (same n_streams
     and frame shape -- validated) through its state-write path
     (``BatchedTracker.set_state``: a captured CUDA graph takes the new
-    state into its buffers at its next replay), with the host mode view."""
+    state into its buffers at its next replay), with the host mode view.
+    ``set_state`` re-applies the target's placement, as the reference's
+    load does: a tracker on a mesh splits the state over its shards, each
+    slice on its shard's device; a meshless one keeps it on its device."""
     state, meta = _load(path, bt.state)
     if "n_streams" in meta and int(meta["n_streams"]) != bt.n:
         raise ValueError(f"checkpoint has {int(meta['n_streams'])} streams, "

@@ -1,4 +1,4 @@
-"""Batched multi-stream serving: N cameras on one GPU.
+"""Batched multi-stream serving: N cameras on one GPU, or on a mesh of them.
 
 The reference runs one Tracker per camera in one JS thread.  Here per-stream
 state is a ``TrackerState`` of (N, ...) tensors.  Two schedulers, as in the
@@ -39,6 +39,12 @@ window left the band are recomputed from the pre-step state by the
 full-frame "track" step and scattered back.  The reference bounds that
 recompute's cost with ``escape_bucket``; its per-stream results are the same
 whatever the bound, so here exactly the escaped streams are recomputed.
+
+With a mesh (``parallel.stream_mesh``) the streams split into equal shards,
+one a mesh entry, each a tracker of its own on its entry's device: the
+device scheduler runs on every shard's own slice (its own branch, bucket,
+chunk cap and ``pend_age`` order, no cross-shard read), as the reference's
+shard_map does; the host scheduler keeps the reference's global rule.
 """
 
 import numpy as np
@@ -53,6 +59,7 @@ from ..models import facetracker as ft
 from ..models.detector import detector_tables
 from ..ops.histogram import (backprojection_weights, histogram_full,
                              histogram_rects)
+from ..parallel.mesh import gather_streams, shard_streams, split_streams
 
 __all__ = ["BatchedTracker", "plan_serving", "resolve_band",
            "wants_band_audit"]
@@ -152,6 +159,19 @@ def _clone(tree):
     return None if tree is None else tree.clone()
 
 
+def _merged_config(n_streams, params, kw):
+    """TrackerConfig fields: ``params`` updated by ``kw``, with the
+    reference package's batched capacity defaults, carried so the two
+    configurations compare equal (this detector has no caps)."""
+    merged = dict(params or {})
+    merged.update(kw)
+    if n_streams >= 32:
+        merged.setdefault("survivorsStage2", 4096)
+        merged.setdefault("survivorsDeep", 128)
+        merged.setdefault("maxCandidates", 64)
+    return merged
+
+
 def _host(modes):
     """A mode vector (device tensor or host array) as a host array."""
     return modes.cpu().numpy() if torch.is_tensor(modes) else np.array(modes)
@@ -161,7 +181,8 @@ class _TrackGraph:
     """The device scheduler's all-CS tick, ``tick(state, frames) -> (state',
     StepOutput)``, captured in a CUDA graph on static buffers: ``frames``
     and ``state_in`` in; ``state_out``, the outputs (one packed tensor per
-    dtype) and ``sync`` = (mode_after, escaped) as (2, N) i32 out.
+    dtype) and ``sync`` = (mode_after, escaped) as (2, N) i32 out, whose
+    host copy each replay starts (into pinned memory, behind an event).
     ``launches`` tallies the kernel launches one replay makes.  A capture
     failure raises."""
 
@@ -189,11 +210,26 @@ class _TrackGraph:
                 self._rows = rows
                 self.sync = torch.stack([out.mode_after,
                                          out.escaped.to(torch.int32)])
+        self._sync_host = torch.empty(self.sync.shape, dtype=torch.int32,
+                                      pin_memory=True)
+        self._copied = torch.cuda.Event()
 
     def replay(self):
+        """Enqueue one replay and the host copy of its sync word."""
         with torch.cuda.device(self.device):
             self.graph.replay()
+            self._sync_host.copy_(self.sync, non_blocking=True)
+            self._copied.record()
         launch.replayed(self.launches)
+
+    def wait(self):
+        """Wait for the last replay's sync word to reach the host."""
+        self._copied.synchronize()
+
+    def read_sync(self):
+        """The last replay's (mode_after, escaped) as a (2, N) host array."""
+        self.wait()
+        return self._sync_host.numpy().copy()
 
     def outputs(self):
         """This replay's StepOutput, copied out of the graph's buffers."""
@@ -203,14 +239,25 @@ class _TrackGraph:
 
 class BatchedTracker:
     """Serve N independent streams: ``step`` (host-scheduled), ``step_auto``
-    (device-scheduled) or ``run_scan`` (K device-scheduled ticks)."""
+    (device-scheduled) or ``run_scan`` (K device-scheduled ticks).  With a
+    ``mesh`` the instance is a ``_MeshTracker``, which splits the streams
+    over the mesh's shards."""
+
+    def __new__(cls, n_streams=None, frame_shape=None, params=None,
+                cascade=None, mesh=None, *args, **kw):
+        if mesh is not None and cls is BatchedTracker:
+            cls = _MeshTracker
+        return super().__new__(cls)
 
     def __init__(self, n_streams, frame_shape=(240, 320), params=None,
-                 cascade=None, device=None, sync_interval=8, bucket=32,
-                 band="auto", overload="full", escape_bucket=8, **kw):
-        """params / kw: TrackerConfig fields.  device: where state and
-        compute live (default: the current CUDA device; with no card, pass
-        device="cpu" to run the kernels' plain twins on the CPU).
+                 cascade=None, mesh=None, sync_interval=8, bucket=32,
+                 band="auto", overload="full", escape_bucket=8, device=None,
+                 **kw):
+        """params / kw: TrackerConfig fields.  mesh: a
+        ``parallel.stream_mesh`` to split the streams over (see
+        ``_MeshTracker``); None serves them all on ``device``.  device: where
+        state and compute live (default: the current CUDA device; with no
+        card, pass device="cpu" to run the kernels' plain twins on the CPU).
 
         sync_interval: ticks between the host scheduler's reads of the mode
         vector (``step``).  bucket: the redetect bucket of both schedulers
@@ -222,15 +269,8 @@ class BatchedTracker:
         if overload not in ("full", "rotate"):
             raise ValueError(f"overload must be 'full' or 'rotate', got "
                              f"{overload!r}")
-        merged = dict(params or {})
-        merged.update(kw)
-        # the reference package's batched capacity defaults, carried so the
-        # two configurations compare equal (this detector has no caps)
-        if n_streams >= 32:
-            merged.setdefault("survivorsStage2", 4096)
-            merged.setdefault("survivorsDeep", 128)
-            merged.setdefault("maxCandidates", 64)
-        self.config = TrackerConfig(**merged)
+        self.config = TrackerConfig(**_merged_config(n_streams, params, kw))
+        self.mesh = None
         self.n = n_streams
         self.frame_shape = tuple(frame_shape)
         self.cascade = cascade if cascade is not None else frontalface()
@@ -381,7 +421,14 @@ class BatchedTracker:
         if sync or self._tick % self.sync_interval == 0:
             self._drain()
         non_cs = np.nonzero(self._modes != ft.MODE_CS)[0]
-        if non_cs.size > self.bucket:
+        return self._host_tick(frames, non_cs, non_cs.size > self.bucket,
+                               sync)
+
+    def _host_tick(self, frames, non_cs, full, sync):
+        """The host scheduler's tick once its branch is picked: "full" on
+        the batch, or "track" and then the full machinery for the streams
+        ``non_cs`` (host array) still non-CS after it."""
+        if full:
             state, out = self._full(self.state, frames)
         else:
             state, out = self._checked(self._track, self.state, frames)
@@ -461,17 +508,22 @@ class BatchedTracker:
                 (self.n,) + self.frame_shape + (3,), self.device)
         return self._graph
 
-    def _track_replayed(self, frames):
-        """The all-CS tick on the card: one graph replay and one host read;
-        escaped streams are recomputed eagerly from the graph's untouched
-        input state, and only then is the new state committed to it."""
+    def _replay_begin(self, frames):
+        """The all-CS tick on the card, enqueued: one graph replay, its
+        outputs copied out of the graph's buffers and its sync word on the
+        way to the host.  No host read.  Returns (graph, StepOutput)."""
         g = self._captured()
         if self.state is not g.state_in:  # reset or an eager tick replaced it
             torch._foreach_copy_(_leaves(g.state_in), _leaves(self.state))
         g.frames.copy_(frames)
         g.replay()
-        out = g.outputs()
-        mode_after, esc = g.sync.cpu().numpy()  # the tick's one host read
+        return g, g.outputs()
+
+    def _replay_end(self, g, out):
+        """Finish a replayed tick with its one host read (the sync word):
+        escaped streams are recomputed eagerly from the graph's untouched
+        input state, and only then is the new state committed to it."""
+        mode_after, esc = g.read_sync()
         state = g.state_out
         if esc.any():
             state, out = self._recompute(g.state_in, g.frames, state, out,
@@ -485,11 +537,18 @@ class BatchedTracker:
         return out
 
     def _auto(self, frames):
+        return self._auto_end(self._auto_begin(frames))
+
+    def _auto_begin(self, frames):
+        """Start one device-scheduled tick.  On the card an all-CS tick is
+        left in flight (``_replay_begin``); every other branch runs to its
+        end.  Returns (the replayed graph or None, the StepOutput) for
+        ``_auto_end``."""
         self._tick += 1
         modes = self._drain()
         branch = self.branch(modes)
         if branch == "track" and self.device.type == "cuda":
-            return self._track_replayed(frames)
+            return self._replay_begin(frames)
         state = self.state
         age = torch.zeros_like(state.pend_age)
         if branch == "track":
@@ -513,7 +572,11 @@ class BatchedTracker:
             new, out = self._apply_bucket(new, out, frames, served)
         self.state = new._replace(pend_age=age)
         self._pending_modes = out.mode_after
-        return out
+        return None, out
+
+    def _auto_end(self, tick):
+        graph, out = tick
+        return out if graph is None else self._replay_end(graph, out)
 
     def stream_info(self, stream):
         """Per-stream snapshot (host reads; not for the per-tick path):
@@ -565,3 +628,167 @@ class BatchedTracker:
             "band_dirty": bool(dirty[s]) if dirty is not None else None,
             "stream": s,
         }
+
+
+class _MeshTracker(BatchedTracker):
+    """``BatchedTracker(mesh=...)``: the N streams split into equal shards,
+    one a mesh entry, each served by a meshless tracker of N / shards
+    streams on its entry's device, with its own state slice, mode view and
+    CUDA graph.  The bucket is clamped to a shard's streams, as in the
+    reference (the device scheduler's bucket is per shard).
+
+    Device scheduler (``step_auto``, ``run_scan``): each shard picks its own
+    branch and bucket (under overload="rotate" also its own chunk cap and
+    ``pend_age`` order) from its own slice, as the reference's shard_map
+    does.  Every shard's tick is enqueued before the first host read; then
+    one wait a device, then each shard's sync word is read.  Host scheduler
+    (``step``): the reference's global rule, one mode view over all N: the
+    count of non-CS streams against the clamped bucket picks "full" on every
+    shard, or "track" with the bucket's indices split by shard (a shard with
+    none runs "track" alone).
+
+    Frames are cut on the host (or on the frames' device) and each slice is
+    copied to its shard's device.  Outputs and ``state`` read in stream
+    order on the first shard's device; ``set_state`` splits a state over the
+    shards.  Stream i lives in shard i // per as its stream i % per.  A
+    kernel that fails on any shard raises; no shard falls back."""
+
+    def __init__(self, n_streams, frame_shape=(240, 320), params=None,
+                 cascade=None, mesh=None, sync_interval=8, bucket=32,
+                 band="auto", overload="full", escape_bucket=8, device=None,
+                 **kw):
+        if device is not None:
+            raise ValueError("pass mesh or device, not both: the mesh names "
+                             "its shards' devices")
+        k = mesh.devices.size
+        if n_streams % k:
+            raise ValueError(f"n_streams={n_streams} not divisible by mesh "
+                             f"size {k}")
+        self.mesh = mesh
+        self.n = n_streams
+        self.per = n_streams // k
+        self.cascade = cascade if cascade is not None else frontalface()
+        # the batch's capacity defaults follow all N streams, as in the
+        # reference; the shards take the merged fields as they are
+        merged = _merged_config(n_streams, params, kw)
+        bucket = min(max(1, min(int(bucket), n_streams)), self.per)
+        self._shards = [
+            BatchedTracker(self.per, frame_shape, merged, self.cascade,
+                           sync_interval=sync_interval, bucket=bucket,
+                           band=band, overload=overload,
+                           escape_bucket=escape_bucket, device=d)
+            for d in mesh.devices.flat]
+        s0 = self._shards[0]
+        self.config, self.frame_shape = s0.config, s0.frame_shape
+        self.device = s0.device
+        self.band = s0.band
+        self.overload = overload
+        self.sync_interval, self.bucket = s0.sync_interval, s0.bucket
+        self._tick = 0
+
+    @property
+    def state(self):
+        """Every stream's state as one tree over N on the first shard's
+        device, assembled on each read (write it with ``set_state``)."""
+        return self._joined([s.state for s in self._shards])
+
+    def _joined(self, parts):
+        """The shards' trees (states or outputs) as one in stream order on
+        the first shard's device; one shard's tree as it is."""
+        return parts[0] if len(parts) == 1 else gather_streams(parts,
+                                                               self.device)
+
+    def set_state(self, state, modes=None):
+        """Split ``state`` (a TrackerState over N, on any device) and its
+        host mode view (read from the state when None) over the shards."""
+        parts = shard_streams(state, self.mesh)
+        views = ([None] * len(parts) if modes is None else
+                 split_streams(np.array(modes, dtype=np.int32), len(parts)))
+        for s, p, m in zip(self._shards, parts, views):
+            s.set_state(p, m)
+
+    def reset(self):
+        for s in self._shards:
+            s.reset()
+
+    def reset_stream(self, i):
+        j, local = divmod(int(i), self.per)
+        self._shards[j].reset_stream(local)
+
+    @property
+    def modes(self):
+        return np.concatenate([s.modes for s in self._shards])
+
+    def branch(self, modes):
+        """Each shard's device-scheduler branch for a host mode vector over
+        N, as a list in shard order."""
+        return [s.branch(m) for s, m in zip(
+            self._shards, split_streams(np.asarray(modes), len(self._shards)))]
+
+    def _split(self, frames, lead=()):
+        """Each shard's slice of a frame batch (the stream axis after
+        ``lead``) on its device, one copy a shard."""
+        if len(self._shards) == 1:
+            return [self._shards[0]._frames(frames, lead)]
+        frames = torch.as_tensor(frames)
+        want = lead + (self.n,) + self.frame_shape + (3,)
+        if tuple(frames.shape) != want or frames.dtype != torch.uint8:
+            raise ValueError(f"frames must be {want} uint8, got "
+                             f"{tuple(frames.shape)} {frames.dtype}")
+        parts = split_streams(frames, len(self._shards), len(lead))
+        return [s._frames(p, lead) for s, p in zip(self._shards, parts)]
+
+    def step(self, frames, sync=False):
+        parts = self._split(frames)
+        self._tick += 1
+        if sync or self._tick % self.sync_interval == 0:
+            for s in self._shards:
+                s._drain()
+        view = np.concatenate([s._modes for s in self._shards])
+        non_cs = np.nonzero(view != ft.MODE_CS)[0]
+        full = non_cs.size > self.bucket
+        outs = [s._host_tick(f, non_cs[non_cs // self.per == j] % self.per,
+                             full, sync)
+                for j, (s, f) in enumerate(zip(self._shards, parts))]
+        return self._joined(outs)
+
+    def step_auto(self, frames):
+        return self._auto_all(self._split(frames))
+
+    def run_scan(self, frames_seq):
+        seq = torch.as_tensor(frames_seq)
+        if seq.dim() == 0 or seq.shape[0] == 0:
+            raise ValueError("run_scan needs at least one tick "
+                             "(frames_seq has leading length 0)")
+        parts = self._split(seq, lead=(seq.shape[0],))
+        outs = [self._auto_all([p[k] for p in parts])
+                for k in range(seq.shape[0])]
+        return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))
+
+    def _auto_all(self, parts):
+        """One device-scheduled tick on every shard: every shard's tick is
+        enqueued first, then one wait a device (for its last replay's sync
+        word; a lone shard's read is that wait), then each shard's tick is
+        finished."""
+        self._tick += 1
+        ticks = [s._auto_begin(f) for s, f in zip(self._shards, parts)]
+        if len(ticks) > 1:
+            for g in {g.device: g for g, _ in ticks if g is not None}.values():
+                g.wait()
+        outs = [s._auto_end(t) for s, t in zip(self._shards, ticks)]
+        return self._joined(outs)
+
+    def warmup(self, scan_len=None, host_sched=True, device_sched=True):
+        for s in self._shards:
+            s.warmup(scan_len, host_sched, device_sched)
+        return self
+
+    def stream_info(self, stream):
+        j, local = divmod(int(stream), self.per)
+        return dict(self._shards[j].stream_info(local), stream=int(stream))
+
+    def band_hist_divergence(self, frames, stream=0):
+        s = int(stream)
+        j, local = divmod(s, self.per)
+        one = torch.as_tensor(frames)[s:s + 1]
+        return dict(self._shards[j].band_hist_divergence(one, 0), stream=s)

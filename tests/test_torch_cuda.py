@@ -818,3 +818,69 @@ def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
             want = hg.histpdf_band_plain(frames[1:], rects[1:], model[1:],
                                          band)
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
+def test_mesh_of_two_shards_equals_meshless(dev, kw):
+    """stream_mesh([cuda:0] * 2) over 8 streams: each tick's outputs and
+    the final state equal the meshless tracker's bit for bit through the
+    lock, replayed all-CS ticks, a loss and (banded) the escape recompute
+    after replayed ticks; each shard replays a graph of its own."""
+    from headtrackr_tpu_torch.parallel import stream_mesh
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    mk = lambda **k: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                    bucket=2, **kw, **k)
+    one, mesh = mk(device=dev), mk(mesh=stream_mesh([dev] * 2))
+    esc = []
+    for t, f in enumerate(clip):
+        a, b = one.step_auto(f), mesh.step_auto(f)
+        for name, x, y in zip(tft.StepOutput._fields, a, b):
+            assert y.device == dev
+            np.testing.assert_array_equal(y.cpu().numpy(), x.cpu().numpy(),
+                                          err_msg=f"tick {t} {name}")
+        esc.append(b.escaped.cpu().numpy())
+    assert np.stack(esc)[-5:, [3, 7]].all() == bool(kw)
+    for x, y in zip(_leaves(one.state), _leaves(mesh.state)):
+        np.testing.assert_array_equal(y.cpu().numpy(), x.cpu().numpy())
+    graphs = [s._graph for s in mesh._shards]
+    assert all(g is not None for g in graphs)
+    assert graphs[0] is not graphs[1] and graphs[0].graph is not graphs[1].graph
+    assert [s.n for s in mesh._shards] == [4, 4]
+    assert mesh.modes.tolist() == one.modes.tolist() == [2] * n
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def test_mesh_kernel_failure_on_one_shard_raises(dev, monkeypatch):
+    """A kernel launch refused on the second shard raises out of the mesh
+    tick: no shard gives way to a plain twin."""
+    from headtrackr_tpu_torch.kernels import build
+    from headtrackr_tpu_torch.parallel import stream_mesh
+    H, W, n = 120, 160, 4
+    clip = _serving_clip(H, W, n)
+    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(),
+                        mesh=stream_mesh([dev] * 2))
+    real = build.load_library
+
+    class Refusing:
+        def fn(self, name):
+            f = real().fn(name)
+            return (lambda *a: 1) if name == "meanshift_launch" else f
+
+    shard = bt._shards[1]
+    track = shard._track
+
+    def refused(*a, **k):
+        with monkeypatch.context() as m:
+            m.setattr(build, "load_library", Refusing)
+            return track(*a, **k)
+
+    shard._track = refused
+    with pytest.raises(RuntimeError, match="meanshift launch failed"):
+        for f in clip:
+            bt.step_auto(f)

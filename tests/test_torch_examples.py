@@ -18,7 +18,8 @@ import torch
 
 EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
 PORTED = ("torch_facetracking", "torch_head_coupled_camera",
-          "torch_batched_serving", "torch_net_ingest_serving")
+          "torch_batched_serving", "torch_net_ingest_serving",
+          "torch_mesh_serving")
 
 torch.set_num_threads(2)
 
@@ -37,9 +38,7 @@ def _load(name, monkeypatch):
 def test_every_example_is_ported_and_imports_no_jax():
     jax_examples = {p.stem for p in EXAMPLES.glob("*.py")
                     if not p.stem.startswith("torch_")}
-    # multi-GPU serving waits for a machine with more than one card
-    assert {f"torch_{s}" for s in jax_examples - {"mesh_serving"}} == \
-        set(PORTED)
+    assert {f"torch_{s}" for s in jax_examples} == set(PORTED)
     for path in EXAMPLES.glob("torch_*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -91,6 +90,19 @@ def test_batched_serving(monkeypatch, capsys):
     # what examples/batched_serving.py prints for stream 0
     assert xs[:, 0].astype(int).tolist() == [39, 41, 42, 43, 44, 45, 46, 47,
                                              48, 49, 50, 51, 52, 53, 54, 55]
+
+
+def test_mesh_serving(monkeypatch, capsys):
+    mod = _load("torch_mesh_serving", monkeypatch)
+    modes, lost, shards = mod.main(["--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert shards == 8 and modes == [2] * mod.N and lost == [3, mod.N - 1]
+    assert lines[0].startswith("mesh: 8 shards ['cpu', ")
+    assert "lock: 32/32 streams tracking, 4 a shard" in lines
+    assert lines[3] == ("  shard 0 (cpu): streams 0-3, modes [2, 2, 2, 2], "
+                        "redetect ticks 1")
+    assert lines[-1].startswith("run_scan: 16 ticks a call; streams [3, 31] "
+                                "lost track at tick 8")
 
 
 def test_net_ingest_ring_only(monkeypatch, capsys):

@@ -429,7 +429,10 @@ def test_no_port_module_imports_jax():
     assert {"headtrackr_tpu_torch.ccv", "headtrackr_tpu_torch.facetrackr",
             "headtrackr_tpu_torch.kernels.histbins",
             "headtrackr_tpu_torch.runtime.netingest",
-            "headtrackr_tpu_torch.utils.profiling"} <= set(mods)
+            "headtrackr_tpu_torch.utils.profiling",
+            "headtrackr_tpu_torch.oracle", "headtrackr_tpu_torch.oracle.pipeline",
+            "headtrackr_tpu_torch.parallel",
+            "headtrackr_tpu_torch.parallel.mesh"} <= set(mods)
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
