@@ -136,8 +136,15 @@ Phases, one line each; any failure raises and exits nonzero:
      step and serving path (bandHist on and off) against the port's copy
      of the f64 oracle; a failed gate raises.
 
+ 13. bench: ``python3 bench_torch.py`` as a subprocess on the card, three
+     runs of 64 timed ticks: the headline with the exact arm, --h2d and 20
+     latency ticks; --face-noise 20; 640x480 at 128 streams (meanshift's
+     scratch kernel).  Each must exit 0 with its JSON line holding every
+     key, >= 99% locked, relocks, and the headline path's kernels launched
+     in its run; each line is printed here.
+
 The last four lines: the steady-tick profile, session, fanout, checkpoint,
-facade, plan, mesh and gate numbers as JSON (phases 5, 7-12), the
+facade, plan, mesh, gate and bench numbers as JSON (phases 5, 7-13), the
 kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
@@ -229,6 +236,17 @@ MESH_SHARDS = 4  # phase 11 (b): shards on the one card
 MESH_STEADY_TICKS = 32  # phase 11: all-CS ticks a timed turn
 GATE_FRAMES = 60  # phase 12: tracked frames a clip
 GATE_SIZES = ((240, 320), (480, 640))
+# phase 13: bench_torch.py's arms, each a run of its own on the card
+BENCH_TICKS = 64
+BENCH_ARMS = {
+    "headline": ["--h2d", "--latency-ticks", "20"],
+    "face-noise-20": ["--face-noise", "20", "--no-exact-arm"],
+    "640x480": ["--size", "640x480", "--streams", "128", "--no-exact-arm"],
+}
+BENCH_KEYS = ("metric", "value", "unit", "exact_value", "cold_start_value",
+              "cold_start_unit", "latency_p50_ms", "latency_p99_ms",
+              "h2d_value", "locked", "relocks", "redetects", "escapes",
+              "device", "vs_limit", "launches")
 
 
 def log(msg):
@@ -1802,6 +1820,48 @@ def phase_gate(dev, root):
     return res
 
 
+def phase_bench(root):
+    """Phase 13: ``python3 bench_torch.py`` on the card, one subprocess an
+    arm of BENCH_ARMS at BENCH_TICKS timed ticks (its kernels already built
+    by phase 2).  Each arm must exit 0 and print its JSON line with every
+    key, >= 99% locked, relocks in the timed region, and the headline
+    configuration's kernels launched (histpdf_band and meanshift on every
+    tick, the handoff's histpdf_band_hist and backproject).  Returns
+    {"arms": {arm: its record}, "seconds": the phase's}."""
+    t0 = time.perf_counter()
+    arms = {}
+    for name, extra in BENCH_ARMS.items():
+        cmd = [sys.executable, os.path.join(root, "bench_torch.py"),
+               "--ticks", str(BENCH_TICKS), *extra]
+        p = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"bench [{name}]: exit {p.returncode}\n"
+                                 f"{p.stderr[-4000:]}")
+        line = p.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        optional = () if name == "headline" else ("exact_value",
+                                                  "h2d_value")
+        missing = [k for k in BENCH_KEYS if k not in rec
+                   or (rec[k] is None and k not in optional)]
+        if missing:
+            raise AssertionError(f"bench [{name}]: no {missing} in {line}")
+        if rec["locked"] < 0.99 or rec["relocks"] <= 0:
+            raise AssertionError(f"bench [{name}]: gate missed: {line}")
+        idle = [k for k in CONFIGS["headline"][1] if rec["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"bench [{name}]: {idle} never launched")
+        for ln in p.stderr.splitlines():
+            if ln.startswith("#"):
+                log(f"bench [{name}] {ln}")
+        log(f"bench [{name}]: {line}")
+        arms[name] = rec
+    r = {"arms": arms, "seconds": time.perf_counter() - t0}
+    log(f"bench: {len(arms)} runs of bench_torch.py ({', '.join(arms)}) "
+        f"in {r['seconds']:.1f} s")
+    return r
+
+
 def main():
     try:
         import torch
@@ -1855,6 +1915,7 @@ def main():
     plan = phase_plan(pools[0], dev, root)
     mesh = phase_mesh(pools[0], dev, root)
     gate = phase_gate(dev, root)
+    bench = phase_bench(root)
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
@@ -1884,7 +1945,7 @@ def main():
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,
-                      "gate": gate}))
+                      "gate": gate, "bench": bench}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
 from ..ops.meanshift import MEANSHIFT_ITERS
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
-           "track_band", "mean_shift", "MEANSHIFT_ITERS", "DEFAULT_BAND",
+           "track_band", "mean_shift", "camshift_step", "MEANSHIFT_ITERS", "DEFAULT_BAND",
            "BAND_SLACK", "band_for", "parse_band", "band_rect", "band_rects",
            "handoff_band_audit"]
 
@@ -254,3 +254,10 @@ def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
     if band_hist and audit_escape and state.band_dirty is not None:
         escaped = escaped | state.band_dirty
     return _finish(state, win, m, zero_mass, calc_angles, H, W), escaped
+
+
+def camshift_step(state, frames, calc_angles=True, exact=False):
+    """``track``'s new state alone: one camshift step for every stream of
+    ``frames`` (N, H, W, 3) u8.  ``exact`` is accepted for the reference's
+    signature: this port's pdf is always the exact lookup."""
+    return track(state, frames, calc_angles)[0]

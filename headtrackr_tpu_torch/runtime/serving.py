@@ -40,6 +40,11 @@ full-frame "track" step and scattered back.  The reference bounds that
 recompute's cost with ``escape_bucket``; its per-stream results are the same
 whatever the bound, so here exactly the escaped streams are recomputed.
 
+``make_batched_steps`` is the same tick in the reference's functional form:
+five functions of (state, frames) that hold no stream state.  It and
+``BatchedTracker`` run one implementation of the tick (``_Steps``); the
+tracker adds the state and its host mode view.
+
 With a mesh (``parallel.stream_mesh``) the streams split into equal shards,
 one a mesh entry, each a tracker of its own on its entry's device: the
 device scheduler runs on every shard's own slice (its own branch, bucket,
@@ -61,8 +66,8 @@ from ..ops.histogram import (backprojection_weights, histogram_full,
                              histogram_rects)
 from ..parallel.mesh import gather_streams, shard_streams, split_streams
 
-__all__ = ["BatchedTracker", "plan_serving", "resolve_band",
-           "wants_band_audit"]
+__all__ = ["BatchedTracker", "make_batched_steps", "plan_serving",
+           "resolve_band", "wants_band_audit"]
 
 
 def resolve_band(band, frame_shape):
@@ -237,6 +242,355 @@ class _TrackGraph:
         return ft.StepOutput(*(c[dt][i] for dt, i in self._rows))
 
 
+def _check_frames(frames, want):
+    """Raise unless ``frames`` is a u8 tensor of shape ``want``."""
+    if tuple(frames.shape) != tuple(want) or frames.dtype != torch.uint8:
+        raise ValueError(f"frames must be {tuple(want)} uint8, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    return frames
+
+
+def _staged(frames, want, device):
+    """``frames`` (a tensor or an array) as a contiguous u8 tensor of shape
+    ``want`` on ``device``; another shape or dtype raises."""
+    return _check_frames(torch.as_tensor(frames).to(device), want) \
+        .contiguous()
+
+
+class _Steps:
+    """The serving tick on one device, as functions of (state, frames) that
+    hold no stream state: the steps of one (cascade, config, frame shape,
+    band, bucket, overload), the device scheduler's branch rule, the
+    bucket merge and the band's escape recompute.  ``BatchedTracker`` (which
+    adds the state and its host mode view) and ``make_batched_steps`` (the
+    reference's functional form) are both built on it.
+
+    The batch size is read from each call's frames, so the bucket and the
+    chunk cap follow N, as the reference's batch-polymorphic steps do; the
+    all-CS tick's CUDA graph is captured once a batch size."""
+
+    def __init__(self, cascade, config, frame_shape, device, band, bucket,
+                 overload):
+        if overload not in ("full", "rotate"):
+            raise ValueError(f"overload must be 'full' or 'rotate', got "
+                             f"{overload!r}")
+        self.device = device
+        self.frame_shape = tuple(frame_shape)
+        self.band = band
+        self.bucket = max(1, int(bucket))
+        self.overload = overload
+        H, W = self.frame_shape
+        tables = detector_tables(W, H, cascade, config.detectorInterval,
+                                 device)
+        audit = band if wants_band_audit(config, band) else None
+
+        def mk(variant, band=None):
+            return ft.make_step(cascade, config, self.frame_shape, variant,
+                                device, band=band, audit_band=audit,
+                                tables=tables)
+
+        # the banded steps return the escaped streams, which the full-frame
+        # "track" step recomputes
+        self.full = mk("full")  # (state, frames, modes=None): on the batch
+        self._track_plain = mk("track")
+        self._track = mk("track", band) if band else self._track_plain
+        self._wbtrack = mk("wbtrack", band)
+        self._graphs = {}  # batch size -> the all-CS tick's CUDA graph
+
+    def chunk_cap(self, n):
+        """The most pending streams one tick serves at batch size n."""
+        kb = min(self.bucket, n)
+        return max(kb, (min(n, 4 * kb) // kb) * kb)
+
+    def branch(self, modes):
+        """The device scheduler's branch for a host mode vector: "track",
+        "wbtrack", "bucket" (bucket and chunk ticks, and the rotation) or
+        "full"."""
+        npend = int((modes != ft.MODE_CS).sum())
+        if npend == 0:
+            return "track"
+        if not (modes == ft.MODE_VJ).any():
+            return "wbtrack"
+        if npend <= self.chunk_cap(len(modes)) or self.overload == "rotate":
+            return "bucket"
+        return "full"
+
+    def track(self, state, frames):
+        """The "track" step with the band's escape recompute."""
+        return self._checked(self._track, state, frames)
+
+    def bucket_tick(self, state, frames, idx):
+        """"track" on the batch, then the full machinery for the streams
+        ``idx`` (host array) still non-CS after it."""
+        state1, out = self.track(state, frames)
+        return self._apply_bucket(state1, out, frames, idx)
+
+    def _recompute(self, state, frames, new, out, esc, esc_host):
+        """Recompute a banded step's escaped streams from the pre-step
+        ``state`` with the full-frame "track" step; ``esc`` stays the
+        output's telemetry."""
+        idx = np.nonzero(esc_host)[0]
+        if idx.size:
+            idx = torch.as_tensor(idx, device=self.device)
+            sub_state, sub_out = self._track_plain(
+                ft.tree_index(state, idx), frames.index_select(0, idx))
+            new = ft.tree_scatter(new, idx, sub_state)
+            out = ft.tree_scatter(out, idx, sub_out)
+        return new, out._replace(escaped=esc)
+
+    def _checked(self, step, state, frames, modes=None):
+        """A "track" or "wbtrack" step with the band's escape fallback (one
+        host read of the escaped streams)."""
+        if self.band is None:
+            return step(state, frames, modes)
+        new, out, esc = step(state, frames, modes)
+        return self._recompute(state, frames, new, out, esc,
+                               esc.cpu().numpy())
+
+    def _apply_bucket(self, state1, out, frames, idx):
+        """The full WB/VJ/CS machinery for the streams ``idx`` (host array)
+        that are still non-CS after the track pass that gave ``state1``,
+        merged into its results (the reference's ``_apply_bucket``).  No
+        host read when ``idx`` is empty (the all-CS host tick)."""
+        if idx.size == 0:
+            return state1, out
+        modes1 = state1.mode.cpu().numpy()
+        idx = idx[modes1[idx] != ft.MODE_CS]
+        if idx.size == 0:
+            return state1, out
+        t = torch.as_tensor(idx, device=self.device)
+        sub_state, sub_out = self.full(ft.tree_index(state1, t),
+                                       frames.index_select(0, t), modes1[idx])
+        return ft.tree_scatter(state1, t, sub_state), \
+            ft.tree_scatter(out, t, sub_out)
+
+    def _auto_track(self, state, frames):
+        """The device scheduler's all-CS tick before the escape fallback:
+        "track" (banded: escaped in the output), pend_age zeroed.  No host
+        read: the graph captures it."""
+        if self.band is None:
+            new, out = self._track(state, frames)
+        else:
+            new, out, esc = self._track(state, frames)
+            out = out._replace(escaped=esc)
+        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
+
+    def captured(self, state):
+        """The all-CS tick's CUDA graph at ``state``'s batch size, captured
+        (on a copy of ``state``) on first use."""
+        n = state.mode.shape[0]
+        if n not in self._graphs:
+            self._graphs[n] = _TrackGraph(
+                self._auto_track, state, (n,) + self.frame_shape + (3,),
+                self.device)
+        return self._graphs[n]
+
+    def begin(self, state, frames, modes=None):
+        """Start one device-scheduled tick from ``state`` and its host mode
+        vector ``modes`` (read from the device when None).  On the card an
+        all-CS tick is left in flight: one graph replay (the caller's state
+        copied into the graph's input buffers unless it is them), its
+        outputs copied out of the graph's buffers and its sync word on the
+        way to the host, no host read.  Every other branch runs to its end.
+        Returns the tick for ``end``: (the replayed graph or None, its
+        StepOutput or the tick's (state, StepOutput))."""
+        if modes is None:
+            modes = state.mode.cpu().numpy()
+        branch = self.branch(modes)
+        if branch == "track" and self.device.type == "cuda":
+            g = self.captured(state)
+            if state is not g.state_in:
+                torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
+            g.frames.copy_(frames)
+            g.replay()
+            return g, g.outputs()
+        age = torch.zeros_like(state.pend_age)
+        if branch == "track":
+            new, out = self.track(state, frames)
+        elif branch == "wbtrack":
+            new, out = self._checked(self._wbtrack, state, frames, modes)
+        elif branch == "full":
+            new, out = self.full(state, frames, modes)
+        else:
+            non_cs = modes != ft.MODE_CS
+            served = np.nonzero(non_cs)[0]
+            if served.size > self.chunk_cap(len(modes)):  # rotate: the oldest
+                old = state.pend_age.cpu().numpy()
+                key = np.where(non_cs, 1 + old, 0)
+                served = np.sort(np.argsort(-key, kind="stable")
+                                 [:self.chunk_cap(len(modes))])
+                non_cs[served] = False  # now: pending and not served
+                age = torch.as_tensor(np.where(non_cs, old + 1, 0)
+                                      .astype(np.int32), device=self.device)
+            new, out = self.bucket_tick(state, frames, served)
+        return None, (new._replace(pend_age=age), out)
+
+    def end(self, tick, donate=True):
+        """Finish a tick of ``begin``: (state, StepOutput, mode view), the
+        view the host array of the sync word or ``out.mode_after``.  A
+        replayed tick makes its one host read here; escaped streams are
+        recomputed eagerly from the graph's untouched input state, and only
+        then is the new state committed to it.  donate=True returns the
+        graph's input buffers as the state (the next replay overwrites
+        them, as the reference's donated state is reused); False returns a
+        copy."""
+        g, res = tick
+        if g is None:
+            state, out = res
+            return state, out, out.mode_after
+        out = res
+        mode_after, esc = g.read_sync()
+        state, view = g.state_out, mode_after
+        if esc.any():
+            state, out = self._recompute(g.state_in, g.frames, state, out,
+                                         out.escaped, esc != 0)
+            state = state._replace(pend_age=g.state_out.pend_age)
+            view = out.mode_after
+        if not donate:
+            return _clone(state), out, view
+        torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
+        return g.state_in, out, view
+
+
+def _tick_all(begins, ends):
+    """One device-scheduled tick on every shard: every shard's tick
+    enqueued first (``begins``, thunks), then one wait a device for its
+    last replay's sync word (a lone shard's read is that wait), then each
+    shard's tick finished (``ends``, applied to its tick).  Returns the
+    ends' results in shard order."""
+    ticks = [b() for b in begins]
+    if len(ticks) > 1:
+        for g in {g.device: g for g, _ in ticks if g is not None}.values():
+            g.wait()
+    return [e(t) for e, t in zip(ends, ticks)]
+
+
+def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
+                       bucket=32, band="auto", overload="full",
+                       escape_bucket=8, device=None):
+    """The serving tick in the reference's functional form: returns
+    (step_full, step_track, step_bucket, step_auto, step_scan), each
+    ``(state, frames, ...) -> (state', StepOutput)`` on a ``TrackerState``
+    of (N, ...) tensors and (N, H, W, 3) u8 frames (a tensor or an array),
+    holding no stream state.  ``BatchedTracker`` runs the same tick code.
+
+      step_full(state, frames): the "full" WB/VJ/CS step on the batch.
+      step_track(state, frames): the camshift fast path (non-CS streams
+        freeze); with a band, escaped streams are recomputed over the full
+        frame and ``out.escaped`` marks them.
+      step_bucket(state, frames, idx): "track" on the batch, then the full
+        machinery for the streams named by ``idx`` ((bucket,) i32, padded
+        with N) that are still non-CS after it.
+      step_auto(state, frames): one device-scheduled tick (the module
+        docstring's branch rule and ``pend_age``, the bucket and chunk cap
+        from N = the state's batch).
+      step_scan(state, frames_seq): K step_auto ticks over (K, N, H, W, 3)
+        frames; the StepOutput's leaves are (K, N).
+
+    config: a ``TrackerConfig``.  States come from ``ft.init_state(...,
+    band_audit=wants_band_audit(config, resolve_band(band, frame_shape)))``.
+    donate=True lets a step reuse or overwrite the caller's state tensors
+    (the reference donates its state): after an all-CS tick on the card the
+    returned state is the CUDA graph's input buffers, which the next such
+    tick overwrites.  donate=False leaves the caller's state untouched and
+    returns tensors the caller owns.  escape_bucket is accepted for the
+    reference's signature and changes no result (exactly the escaped
+    streams are recomputed).
+
+    mesh: a ``parallel.stream_mesh``.  State and frames split into its
+    equal shards, each stepped on its device by its own copy of the steps
+    (step_auto and step_scan schedule each shard from its own slice, as the
+    reference's shard_map does: every shard's tick is enqueued before one
+    wait a device), and the results are joined in stream order on the first
+    shard's device.  A stream's results do not depend on its batch, so they
+    equal the meshless steps' bit for bit wherever the shards take the
+    meshless branches (a shard's bucket and chunk cap follow its own
+    streams, as in the reference).  device: where the steps run
+    without a mesh (None: the card; with no card it raises); a mesh names
+    its devices, so mesh with device raises."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh or device, not both: the mesh names its "
+                         "shards' devices")
+    frame_shape = tuple(frame_shape)
+    devices = (list(mesh.devices.flat) if mesh is not None
+               else [resolve_device(device)])
+    band = resolve_band(band, frame_shape)
+    cores = [_Steps(cascade, config, frame_shape, d, band, bucket, overload)
+             for d in devices]
+    k = len(cores)
+    own = mesh is not None  # the shards' states are copies, ours to donate
+
+    def split(state, frames, lead=()):
+        """Each shard's (state, frames) on its device: without a mesh the
+        caller's state itself, on a mesh copies of its slices."""
+        want = lead + (state.mode.shape[0],) + frame_shape + (3,)
+        if mesh is None:
+            return [state], [_staged(frames, want, devices[0])]
+        frames = _check_frames(torch.as_tensor(frames), want)
+        parts = split_streams(frames, k, len(lead))
+        return (shard_streams(state, mesh),
+                [_staged(p, p.shape, d) for p, d in zip(parts, devices)])
+
+    def joined(parts):
+        """The shards' trees as one, a copy on a mesh (never a graph's
+        buffers)."""
+        return parts[0] if mesh is None else gather_streams(parts,
+                                                            devices[0])
+
+    def run(method, state, frames):
+        states, parts = split(state, frames)
+        res = [getattr(c, method)(s, f)
+               for c, s, f in zip(cores, states, parts)]
+        return joined([r[0] for r in res]), joined([r[1] for r in res])
+
+    def auto(states, parts, mine):
+        """One tick on every shard; ``mine``: the states are this function's
+        own copies (a shard's may be donated whatever ``donate`` says)."""
+        res = _tick_all(
+            [lambda c=c, s=s, f=f: c.begin(s, f)
+             for c, s, f in zip(cores, states, parts)],
+            [lambda t, c=c: c.end(t, donate or mine) for c in cores])
+        return [r[0] for r in res], [r[1] for r in res]
+
+    def step_full(state, frames):
+        return run("full", state, frames)
+
+    def step_track(state, frames):
+        return run("track", state, frames)
+
+    def step_bucket(state, frames, idx):
+        idx = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx)
+        n = state.mode.shape[0]
+        idx = idx[(idx >= 0) & (idx < n)].astype(np.int64)
+        per = n // k
+        states, parts = split(state, frames)
+        res = [c.bucket_tick(s, f, idx[idx // per == j] % per)
+               for j, (c, s, f) in enumerate(zip(cores, states, parts))]
+        return joined([r[0] for r in res]), joined([r[1] for r in res])
+
+    def step_auto(state, frames):
+        states, parts = split(state, frames)
+        states, outs = auto(states, parts, own)
+        return joined(states), joined(outs)
+
+    def step_scan(state, frames_seq):
+        seq = torch.as_tensor(frames_seq)
+        if seq.dim() == 0 or seq.shape[0] == 0:
+            raise ValueError("step_scan needs at least one tick "
+                             "(frames_seq has leading length 0)")
+        states, parts = split(state, seq, lead=(seq.shape[0],))
+        outs = []
+        for t in range(seq.shape[0]):
+            states, o = auto(states, [p[t] for p in parts], own or t > 0)
+            outs.append(joined(o))
+        if not (donate or own) and seq.shape[0] > 1:
+            states = [_clone(states[0])]  # not the graph's input buffers
+        return joined(states), ft.StepOutput(*(torch.stack(v)
+                                               for v in zip(*outs)))
+
+    return step_full, step_track, step_bucket, step_auto, step_scan
+
+
 class BatchedTracker:
     """Serve N independent streams: ``step`` (host-scheduled), ``step_auto``
     (device-scheduled) or ``run_scan`` (K device-scheduled ticks).  With a
@@ -266,9 +620,6 @@ class BatchedTracker:
         chunk_cap streams pend, "full" or "rotate".  escape_bucket:
         accepted for the reference's signature; it bounds cost there and
         changes no result, so it is not used."""
-        if overload not in ("full", "rotate"):
-            raise ValueError(f"overload must be 'full' or 'rotate', got "
-                             f"{overload!r}")
         self.config = TrackerConfig(**_merged_config(n_streams, params, kw))
         self.mesh = None
         self.n = n_streams
@@ -284,30 +635,18 @@ class BatchedTracker:
         self._band_audit = wants_band_audit(self.config, self.band)
         self.overload = overload
         self.sync_interval = max(1, int(sync_interval))
-        self.bucket = kb = max(1, min(int(bucket), n_streams))
-        self._chunk_cap = max(kb, (min(n_streams, 4 * kb) // kb) * kb)
-
-        H, W = self.frame_shape
-        tables = detector_tables(W, H, self.cascade,
-                                 self.config.detectorInterval, self.device)
-        audit = self.band if self._band_audit else None
-
-        def mk(variant, band=None):
-            return ft.make_step(self.cascade, self.config, self.frame_shape,
-                                variant, self.device, band=band,
-                                audit_band=audit, tables=tables)
-
-        # the banded steps return the escaped streams, which the full-frame
-        # "track" step recomputes
-        self._full, self._track_plain = mk("full"), mk("track")
-        self._track = (mk("track", self.band) if self.band
-                       else self._track_plain)
-        self._wbtrack = mk("wbtrack", self.band)
-        self._graph = None  # the all-CS tick's CUDA graph, captured lazily
+        self.bucket = max(1, min(int(bucket), n_streams))
+        self._steps = _Steps(self.cascade, self.config, self.frame_shape,
+                             self.device, self.band, self.bucket, overload)
         # the host scheduler's tick count; reset() keeps it, as the
         # reference's does, so the sync ticks stay on its schedule
         self._tick = 0
         self.reset()
+
+    @property
+    def _graph(self):
+        """The all-CS tick's CUDA graph, or None before its capture."""
+        return self._steps._graphs.get(self.n)
 
     def _init_state(self, n):
         return ft.init_state(n, self.device, self.config.whitebalancing,
@@ -355,58 +694,11 @@ class BatchedTracker:
         """The device scheduler's branch for a host mode vector: "track",
         "wbtrack", "bucket" (bucket and chunk ticks, and the rotation) or
         "full"."""
-        npend = int((modes != ft.MODE_CS).sum())
-        if npend == 0:
-            return "track"
-        if not (modes == ft.MODE_VJ).any():
-            return "wbtrack"
-        if npend <= self._chunk_cap or self.overload == "rotate":
-            return "bucket"
-        return "full"
+        return self._steps.branch(modes)
 
     def _frames(self, frames, lead=()):
-        frames = torch.as_tensor(frames).to(self.device)
-        want = lead + (self.n,) + self.frame_shape + (3,)
-        if tuple(frames.shape) != want or frames.dtype != torch.uint8:
-            raise ValueError(f"frames must be {want} uint8, got "
-                             f"{tuple(frames.shape)} {frames.dtype}")
-        return frames.contiguous()
-
-    def _recompute(self, state, frames, new, out, esc, esc_host):
-        """Recompute a banded step's escaped streams from the pre-step
-        ``state`` with the full-frame "track" step; ``esc`` stays the
-        output's telemetry."""
-        idx = np.nonzero(esc_host)[0]
-        if idx.size:
-            idx = torch.as_tensor(idx, device=self.device)
-            sub_state, sub_out = self._track_plain(
-                ft.tree_index(state, idx), frames.index_select(0, idx))
-            new = ft.tree_scatter(new, idx, sub_state)
-            out = ft.tree_scatter(out, idx, sub_out)
-        return new, out._replace(escaped=esc)
-
-    def _checked(self, step, state, frames, modes=None):
-        """A "track" or "wbtrack" step with the band's escape fallback (one
-        host read of the escaped streams)."""
-        if self.band is None:
-            return step(state, frames, modes)
-        new, out, esc = step(state, frames, modes)
-        return self._recompute(state, frames, new, out, esc,
-                               esc.cpu().numpy())
-
-    def _apply_bucket(self, state1, out, frames, idx):
-        """The full WB/VJ/CS machinery for the streams ``idx`` (host array)
-        that are still non-CS after the track pass that gave ``state1``,
-        merged into its results (the reference's ``_apply_bucket``)."""
-        modes1 = state1.mode.cpu().numpy()
-        idx = idx[modes1[idx] != ft.MODE_CS]
-        if idx.size == 0:
-            return state1, out
-        t = torch.as_tensor(idx, device=self.device)
-        sub_state, sub_out = self._full(ft.tree_index(state1, t),
-                                        frames.index_select(0, t), modes1[idx])
-        return ft.tree_scatter(state1, t, sub_state), \
-            ft.tree_scatter(out, t, sub_out)
+        return _staged(frames, lead + (self.n,) + self.frame_shape + (3,),
+                       self.device)
 
     def step(self, frames, sync=False):
         """The host scheduler's tick.  frames: (N, H, W, 3) u8 (tensor or
@@ -429,11 +721,9 @@ class BatchedTracker:
         the batch, or "track" and then the full machinery for the streams
         ``non_cs`` (host array) still non-CS after it."""
         if full:
-            state, out = self._full(self.state, frames)
+            state, out = self._steps.full(self.state, frames)
         else:
-            state, out = self._checked(self._track, self.state, frames)
-            if non_cs.size:
-                state, out = self._apply_bucket(state, out, frames, non_cs)
+            state, out = self._steps.bucket_tick(self.state, frames, non_cs)
         self.state = state
         if sync:
             self._modes = state.mode.cpu().numpy()
@@ -449,18 +739,20 @@ class BatchedTracker:
         sync_interval=1 under overload="full".  After a replayed tick
         ``self.state`` holds the graph's input buffers, which the next
         replayed tick overwrites (the reference donates its state too)."""
-        return self._auto(self._frames(frames))
+        return self._auto_end(self._auto_begin(self._frames(frames)))
 
     def run_scan(self, frames_seq):
-        """K device-scheduled ticks: frames_seq (K, N, H, W, 3) u8, staged
-        on the device in one copy.  Returns a StepOutput batch with (K, N)
-        leaves, tick for tick those of K ``step_auto`` calls."""
+        """K device-scheduled ticks: frames_seq (K, N, H, W, 3) u8 (a host
+        sequence is staged on the device in one copy; a device tensor is
+        used in place).  Returns a StepOutput batch with (K, N) leaves, tick
+        for tick those of K ``step_auto`` calls."""
         seq = torch.as_tensor(frames_seq)
         if seq.dim() == 0 or seq.shape[0] == 0:
             raise ValueError("run_scan needs at least one tick "
                              "(frames_seq has leading length 0)")
         seq = self._frames(seq, lead=(seq.shape[0],))
-        outs = [self._auto(seq[k]) for k in range(seq.shape[0])]
+        outs = [self._auto_end(self._auto_begin(seq[k]))
+                for k in range(seq.shape[0])]
         return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))
 
     def warmup(self, scan_len=None, host_sched=True, device_sched=True):
@@ -476,107 +768,28 @@ class BatchedTracker:
         frames = torch.zeros((self.n,) + self.frame_shape + (3,),
                              dtype=torch.uint8, device=self.device)
         if device_sched and self.device.type == "cuda":
-            self._captured()
+            self._steps.captured(self.state)
         if host_sched:
-            self._checked(self._track, self.state, frames)
-            self._full(self.state, frames)
+            self._steps.track(self.state, frames)
+            self._steps.full(self.state, frames)
             kb = self.bucket
             sub = ft.tree_index(self.state,
                                 torch.arange(kb, device=self.device))
             sub = sub._replace(mode=torch.full_like(sub.mode, ft.MODE_VJ))
-            self._full(sub, frames[:kb], np.full((kb,), ft.MODE_VJ))
+            self._steps.full(sub, frames[:kb], np.full((kb,), ft.MODE_VJ))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
 
-    def _auto_track(self, state, frames):
-        """The device scheduler's all-CS tick before the escape fallback:
-        "track" (banded: escaped in the output), pend_age zeroed.  No host
-        read: the graph captures it."""
-        if self.band is None:
-            new, out = self._track(state, frames)
-        else:
-            new, out, esc = self._track(state, frames)
-            out = out._replace(escaped=esc)
-        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
-
-    def _captured(self):
-        """The all-CS tick's CUDA graph, captured on first use."""
-        if self._graph is None:
-            self._graph = _TrackGraph(
-                self._auto_track, self.state,
-                (self.n,) + self.frame_shape + (3,), self.device)
-        return self._graph
-
-    def _replay_begin(self, frames):
-        """The all-CS tick on the card, enqueued: one graph replay, its
-        outputs copied out of the graph's buffers and its sync word on the
-        way to the host.  No host read.  Returns (graph, StepOutput)."""
-        g = self._captured()
-        if self.state is not g.state_in:  # reset or an eager tick replaced it
-            torch._foreach_copy_(_leaves(g.state_in), _leaves(self.state))
-        g.frames.copy_(frames)
-        g.replay()
-        return g, g.outputs()
-
-    def _replay_end(self, g, out):
-        """Finish a replayed tick with its one host read (the sync word):
-        escaped streams are recomputed eagerly from the graph's untouched
-        input state, and only then is the new state committed to it."""
-        mode_after, esc = g.read_sync()
-        state = g.state_out
-        if esc.any():
-            state, out = self._recompute(g.state_in, g.frames, state, out,
-                                         out.escaped, esc != 0)
-            state = state._replace(pend_age=g.state_out.pend_age)
-            self._pending_modes = out.mode_after
-        else:
-            self._pending_modes = mode_after
-        torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
-        self.state = g.state_in
-        return out
-
-    def _auto(self, frames):
-        return self._auto_end(self._auto_begin(frames))
-
     def _auto_begin(self, frames):
-        """Start one device-scheduled tick.  On the card an all-CS tick is
-        left in flight (``_replay_begin``); every other branch runs to its
-        end.  Returns (the replayed graph or None, the StepOutput) for
-        ``_auto_end``."""
+        """Start one device-scheduled tick from the state and the exact mode
+        view (``_Steps.begin``)."""
         self._tick += 1
-        modes = self._drain()
-        branch = self.branch(modes)
-        if branch == "track" and self.device.type == "cuda":
-            return self._replay_begin(frames)
-        state = self.state
-        age = torch.zeros_like(state.pend_age)
-        if branch == "track":
-            new, out = self._checked(self._track, state, frames)
-        elif branch == "wbtrack":
-            new, out = self._checked(self._wbtrack, state, frames, modes)
-        elif branch == "full":
-            new, out = self._full(state, frames, modes)
-        else:
-            non_cs = modes != ft.MODE_CS
-            served = np.nonzero(non_cs)[0]
-            if served.size > self._chunk_cap:  # rotate: the oldest first
-                old = state.pend_age.cpu().numpy()
-                key = np.where(non_cs, 1 + old, 0)
-                served = np.sort(np.argsort(-key, kind="stable")
-                                 [:self._chunk_cap])
-                non_cs[served] = False  # now: pending and not served
-                age = torch.as_tensor(np.where(non_cs, old + 1, 0)
-                                      .astype(np.int32), device=self.device)
-            new, out = self._checked(self._track, state, frames)
-            new, out = self._apply_bucket(new, out, frames, served)
-        self.state = new._replace(pend_age=age)
-        self._pending_modes = out.mode_after
-        return None, out
+        return self._steps.begin(self.state, frames, self._drain())
 
     def _auto_end(self, tick):
-        graph, out = tick
-        return out if graph is None else self._replay_end(graph, out)
+        self.state, out, self._pending_modes = self._steps.end(tick)
+        return out
 
     def stream_info(self, stream):
         """Per-stream snapshot (host reads; not for the per-tick path):
@@ -730,11 +943,8 @@ class _MeshTracker(BatchedTracker):
         ``lead``) on its device, one copy a shard."""
         if len(self._shards) == 1:
             return [self._shards[0]._frames(frames, lead)]
-        frames = torch.as_tensor(frames)
-        want = lead + (self.n,) + self.frame_shape + (3,)
-        if tuple(frames.shape) != want or frames.dtype != torch.uint8:
-            raise ValueError(f"frames must be {want} uint8, got "
-                             f"{tuple(frames.shape)} {frames.dtype}")
+        frames = _check_frames(torch.as_tensor(frames),
+                               lead + (self.n,) + self.frame_shape + (3,))
         parts = split_streams(frames, len(self._shards), len(lead))
         return [s._frames(p, lead) for s, p in zip(self._shards, parts)]
 
@@ -766,17 +976,12 @@ class _MeshTracker(BatchedTracker):
         return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))
 
     def _auto_all(self, parts):
-        """One device-scheduled tick on every shard: every shard's tick is
-        enqueued first, then one wait a device (for its last replay's sync
-        word; a lone shard's read is that wait), then each shard's tick is
-        finished."""
+        """One device-scheduled tick on every shard (``_tick_all``)."""
         self._tick += 1
-        ticks = [s._auto_begin(f) for s, f in zip(self._shards, parts)]
-        if len(ticks) > 1:
-            for g in {g.device: g for g, _ in ticks if g is not None}.values():
-                g.wait()
-        outs = [s._auto_end(t) for s, t in zip(self._shards, ticks)]
-        return self._joined(outs)
+        return self._joined(_tick_all(
+            [lambda s=s, f=f: s._auto_begin(f)
+             for s, f in zip(self._shards, parts)],
+            [s._auto_end for s in self._shards]))
 
     def warmup(self, scan_len=None, host_sched=True, device_sched=True):
         for s in self._shards:

@@ -216,6 +216,46 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
     assert scan.modes.tolist() == [2] * n
 
 
+@pytest.mark.parametrize("donate", [True, False])
+def test_batched_steps_equal_tracker_on_the_card(dev, donate):
+    """make_batched_steps' step_auto and step_scan against
+    BatchedTracker.step_auto on the card, band and bandHist, 8 streams:
+    every output of every tick bit-equal, through the lock, replayed
+    all-CS ticks with escapes, a loss and its relock.  donate=True hands
+    back the graph's input buffers on replayed ticks (the same tree each
+    steady tick); donate=False leaves the caller's state untouched and
+    hands back a tree of its own."""
+    from headtrackr_tpu_torch.runtime.serving import make_batched_steps
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    kw = dict(bucket=2, band=(64, 96))
+    bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev,
+                        bandHist=True, **kw)
+    _, _, _, step_auto, step_scan = make_batched_steps(
+        toy_cascade(), bt.config, (H, W), donate=donate, device=dev, **kw)
+    state = tft.init_state(n, dev, band_audit=True)
+    same_tree = []
+    for t, f in enumerate(clip):
+        want = bt.step_auto(f)
+        before = [x.clone() for x in _leaves(state)]
+        new, got = step_auto(state, f)
+        if not donate:
+            for a, b in zip(before, _leaves(state)):
+                assert torch.equal(a, b), f"tick {t}: the state moved"
+        same_tree.append(new is state)
+        state = new
+        for name, x, y in zip(tft.StepOutput._fields, want, got):
+            assert torch.equal(x, y), f"tick {t} {name}"
+    assert any(same_tree[-5:]) == donate  # replayed into the graph's buffers
+    for x, y in zip(_leaves(bt.state), _leaves(state)):
+        assert torch.equal(x, y)
+    want, (state, got) = bt.run_scan(clip[:6]), step_scan(state, clip[:6])
+    for name, x, y in zip(tft.StepOutput._fields, want, got):
+        assert torch.equal(x, y), f"scan {name}"
+    for x, y in zip(_leaves(bt.state), _leaves(state)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("kw,hist,pdf", [
     ({}, "hist_mma", "backproject"),
     (dict(histKernel="pallas"), "hist4096", "backproject"),
@@ -872,7 +912,7 @@ def test_mesh_kernel_failure_on_one_shard_raises(dev, monkeypatch):
             f = real().fn(name)
             return (lambda *a: 1) if name == "meanshift_launch" else f
 
-    shard = bt._shards[1]
+    shard = bt._shards[1]._steps  # the second shard's tick
     track = shard._track
 
     def refused(*a, **k):

@@ -7,7 +7,8 @@
     between syncs, which the stale mode view serves at the next sync;
   * ``step_auto(overload="rotate")`` with more than chunk_cap streams
     pending: the oldest served first (``pend_age``, ties to the lower
-    index), the others frozen and aging.
+    index), the others frozen and aging; ``make_batched_steps``'s
+    step_auto with the same knobs beside it, tick for tick.
 
 Toy cascade, 120x160 frames, numpy-made clips.  Integer and bool fields
 exact, floats to rtol 1e-5 / atol 1e-4 (f32 sums in another order)."""
@@ -26,6 +27,7 @@ from headtrackr_tpu.models import camshift as jcs
 from headtrackr_tpu.models import facetracker as jft
 from headtrackr_tpu_torch import TrackerConfig, convert, toy_cascade
 from headtrackr_tpu_torch.models import facetracker as tft
+from headtrackr_tpu_torch.runtime.serving import make_batched_steps
 
 torch.set_num_threads(2)
 
@@ -186,20 +188,30 @@ def test_rotate_matches_reference():
                            histKernel="pallas", **kw)
     tb = pt.BatchedTracker(6, (H, W), cascade=toy_cascade(), device="cpu",
                            **kw)
+    # the functional form of the same tick, tick for tick beside them
+    step_auto = make_batched_steps(toy_cascade(), tb.config, (H, W),
+                                   bucket=1, band=BAND, overload="rotate",
+                                   device="cpu")[3]
+    fstate = convert.state_from_numpy(convert.state_to_numpy(tb.state),
+                                      device="cpu")
     ages, served = [], []
     for t, frames in enumerate(_rotate_clip()):
         assert tb.branch(tb.modes) != "full"
         entry = tb.modes
         jout = jb.step_auto(frames)
         tout = tb.step_auto(frames)
+        fstate, fout = step_auto(fstate, frames)
         _assert_same(jout, tout, f"tick {t}")
+        _assert_same(jout, fout, f"tick {t} make_batched_steps")
         age = tb.state.pend_age.numpy()
         np.testing.assert_array_equal(age, np.asarray(jb.state.pend_age))
+        np.testing.assert_array_equal(fstate.pend_age.numpy(), age)
         ages.append(age.tolist())
         # a served pending stream reports its own branch's status bits
         served.append([s for s in range(6) if entry[s] != tft.MODE_CS
                        and (age[s] == 0)])
     _assert_states(jb.state, tb.state, "end")
+    _assert_states(jb.state, fstate, "end (make_batched_steps)")
     # cold start: all six VJ at once, chunk_cap 4: streams 0-3 first
     first = next(t for t, a in enumerate(ages) if any(a))
     assert ages[first] == [0, 0, 0, 0, 1, 1]
