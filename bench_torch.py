@@ -31,7 +31,8 @@ holds the first ``wbtrack`` ticks and the first detect tick's allocations.
 
 Left out of bench.py's flags: ``--sparse-hist``, ``--k1``, ``--k2`` and
 ``--deep-dtype``.  They are TPU knobs or capacity caps that the port does
-not have (its histograms are dense, its detector has no capacity caps).
+not have (its histograms are dense, its detector keeps a fixed 256
+candidate slots a stream and has no tile or window caps).
 
 Prints one JSON line last, with bench.py's keys where they apply (metric,
 value, unit, exact_value, cold_start_value, cold_start_unit) and
@@ -335,13 +336,15 @@ def main(argv=None):
     gate_ok = all(a["locked"] >= LOCKED_MIN
                   and (args.loss_streams == 0 or a["relocks"] > 0)
                   for a in arms)
+    value = round(fps, 1)
     record = {
         "metric": f"{W}x{H} detect+track frames/sec/card ({N}-stream "
                   "serving; fresh frame content every tick, losses+redetects "
                   f"in timed region, device-scheduled{bh_tag})",
-        "value": round(fps, 1),
+        "value": value,
         "unit": "frames/sec/card",
-        "vs_limit": round(fps / LIMIT_FPS, 4),
+        # of the value as printed, so a reader's ratio matches to the digit
+        "vs_limit": round(value / LIMIT_FPS, 4),
         "exact_value": round(exact["fps"], 1) if exact else None,
         "cold_start_value": round(head["lock_fps"], 1),
         "cold_start_unit": "frames/sec/card (16-tick lock phase)",

@@ -58,7 +58,18 @@ Phases, one line each; any failure raises and exits nonzero:
      rows: two launches, hist4096 compared chunk by chunk); one device
      operation a call (torch.profiler: no memset, no cast); timed (events
      and graph replay) beside its twin, its byte bound and torch.bincount
-     on X5's workload, the bench bins and at N=1, with its cluster size C;
+     on X5's workload, the bench bins and at N=1, with its cluster size C.
+     The detector's kernels: pyramid (the frames into the packed plane
+     buffer), cascade (every window through the stages, the survivors in
+     window order, capacity C) and group (grouping and the pick) must be
+     bit-equal to their twins run on the card (and, at <= 8 streams, run
+     on the CPU), candidates slot for slot and overflow equal: the bench
+     pools and uniform random frames at N=256, 8 and 1 with the real
+     cascade, the toy cascade on a bench batch and on random frames (more
+     survivors than C: overflow), C=1 on the bench, and 480x640 frames;
+     group also with min_neighbors 0.  Each is timed at N=256, 8 and 1
+     beside its twin, its bound and (pyramid) one F.interpolate resize,
+     the nearest library call;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -78,7 +89,11 @@ Phases, one line each; any failure raises and exits nonzero:
      host-scheduled tick), configurations in turns, two passes: host
      ms/tick unprofiled, then under torch.profiler the device ms per tick,
      the device busy share (device ms over profiled wall time), the device
-     operations per tick and the host's launch calls per tick;
+     operations per tick and the host's launch calls per tick.  Then the
+     headline's relock tick: the loss streams turn blue and redetect on
+     the next batch (a bucket tick), its graph replayed and the same tick
+     eager, in turns: host ms, device ms, device operations, host launch
+     calls and host reads a relock tick;
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
      integer outputs exactly, floats within rtol 1e-5 / atol 1e-4;
@@ -143,7 +158,7 @@ Phases, one line each; any failure raises and exits nonzero:
      key, >= 99% locked, relocks, and the headline path's kernels launched
      in its run; each line is printed here.
 
-The last four lines: the steady-tick profile, session, fanout, checkpoint,
+The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
 facade, plan, mesh, gate and bench numbers as JSON (phases 5, 7-13), the
 kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX or headtrackr_tpu.
@@ -172,6 +187,13 @@ GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
 HISTMMA_SRC = "headtrackr_tpu_torch/csrc/histmma.cu"
 HISTBINS_SRC = "headtrackr_tpu_torch/csrc/histbins.cu"
 MEANSHIFT_SRC = "headtrackr_tpu_torch/csrc/meanshift.cu"
+PYRAMID_SRC = "headtrackr_tpu_torch/csrc/pyramid.cu"
+CASCADE_SRC = "headtrackr_tpu_torch/csrc/cascade.cu"
+GROUP_SRC = "headtrackr_tpu_torch/csrc/group.cu"
+DETECT = ("pyramid", "cascade", "group")  # the detector's kernels
+DETECT_NS = (256, 8, 1)  # phase 3's timed stream counts (8: a bucket)
+DETECT_BIG = 16  # streams of the 480x640 case
+RELOCK_TICKS = 6  # phase 5: profiled relock ticks an arm
 SESSION_FRAMES = 16 * POOL  # 15 losses: the CS frames' p99 is not their max
 FANOUT_TICKS = 2 * POOL
 RESUME_TICKS = 8
@@ -184,13 +206,13 @@ CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8,
                         histKernel="pallas"),
                    ("hist4096", "backproject", "histpdf_band_hist",
-                    "meanshift")),
+                    "meanshift") + DETECT),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
              ("hist_mma", "backproject_rect", "histpdf_band_hist",
-              "meanshift")),
+              "meanshift") + DETECT),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
                  ("histpdf_band", "histpdf_band_hist", "backproject",
-                  "meanshift")),
+                  "meanshift") + DETECT),
 }
 # kernel -> (the TPU kernel it replaces, the configuration whose run its
 # launch count reports, its source)
@@ -210,13 +232,21 @@ KERNELS = {
                   MEANSHIFT_SRC),
     "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
     "hist_bins": ("tools/kernel_experiments.py:257", "facade", HISTBINS_SRC),
+    "pyramid": ("headtrackr_tpu/ops/imageproc.py:141", "headline",
+                PYRAMID_SRC),
+    "cascade": ("headtrackr_tpu/models/detector.py:595", "headline",
+                CASCADE_SRC),
+    "group": ("headtrackr_tpu/models/detector.py:517", "headline", GROUP_SRC),
 }
 # the kernels the facade phase's path launches
 FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
                "meanshift")
 FACADE_CPU_FRAMES = 24
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
-                 "meanshift": "headtrackr_tpu/models/camshift.py:265"}
+                 "meanshift": "headtrackr_tpu/models/camshift.py:265",
+                 "pyramid": "headtrackr_tpu/ops/imageproc.py:49",
+                 "cascade": "headtrackr_tpu/models/detector.py:261, :441",
+                 "group": "headtrackr_tpu/models/detector.py:788"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # backproject_rect's timing entry at band x origins on the 8-pixel grid, as
 # the serving path places them (its main entry: origins from -20 up)
@@ -1033,6 +1063,177 @@ def phase_histbins(pools, dev):
     return err, t
 
 
+def cascade_weak(buf, tables):
+    """Weak classifiers the cascade evaluates on ``buf`` (this run's data:
+    every window through the stages until it dies), by the twin's loop."""
+    import torch
+    from headtrackr_tpu_torch.ops import detect as od
+    M = tables.M
+    alive = torch.arange(buf.shape[0] * M, device=buf.device)
+    weak = 0
+    for stage in tables.stages:
+        if alive.numel() == 0:
+            break
+        weak += alive.numel() * stage.alpha0.numel()
+        sums = torch.cat([od._stage_sums(buf, tables, stage, a // M, a % M)
+                          for a in torch.split(alive, 1 << 20)])
+        alive = alive[sums >= stage.thresh]
+    return weak
+
+
+def phase_detect(pools, dev):
+    """Phase 3's detector kernels: pyramid, cascade and group against their
+    twins (run on the card; at <= 8 streams also on the CPU), tolerance 0,
+    candidates slot for slot; then their times at DETECT_NS streams."""
+    import torch
+    import torch.nn.functional as F
+    from headtrackr_tpu_torch.cascade import frontalface, toy_cascade
+    from headtrackr_tpu_torch.kernels.cascade import cascade
+    from headtrackr_tpu_torch.kernels.group import group
+    from headtrackr_tpu_torch.kernels.pyramid import pyramid
+    from headtrackr_tpu_torch.models import detector as td
+    from headtrackr_tpu_torch.ops import detect as od
+    from headtrackr_tpu_torch.ops.imageproc import grayscale, pack_pyramid
+
+    cpu = torch.device("cpu")
+    cascades = {"real": frontalface(), "toy": toy_cascade()}
+    tabs = {}
+
+    def tables(cn, shape, d):
+        key = (cn, shape, d)
+        if key not in tabs:
+            tabs[key] = td.detector_tables(shape[1], shape[0], cascades[cn],
+                                           5, d)
+        return tabs[key]
+
+    keys = ("x", "y", "width", "height", "confidence", "valid")
+    g = torch.Generator().manual_seed(13)
+    grays = {f"face_noise={k}": grayscale(torch.as_tensor(p[1]).to(dev))
+             for k, p in pools.items()}
+    grays["random"] = torch.randint(0, 256, (N_STREAMS, H, W), generator=g,
+                                    dtype=torch.uint8).to(dev)
+    big = grays["face_noise=0"][:DETECT_BIG].repeat_interleave(
+        2, 1).repeat_interleave(2, 2).contiguous()
+    cases = [(f"{name} real N={n}", "real", gr[:n].contiguous(), 256)
+             for name, gr in grays.items() for n in DETECT_NS]
+    cases += [("face_noise=0 toy N=8", "toy", grays["face_noise=0"][:8], 256),
+              ("random toy N=8 (overflow)", "toy", grays["random"][:8], 256),
+              ("random toy N=256 (overflow)", "toy", grays["random"], 256),
+              ("face_noise=0 real N=8 C=1", "real",
+               grays["face_noise=0"][:8], 1),
+              (f"480x640 real N={DETECT_BIG}", "real", big, 256)]
+    err = dict.fromkeys(DETECT, 0.0)
+    survivors = {}
+
+    def same(name, label, got, want):
+        for a, b in zip(got, want):
+            a, b = a.cpu(), b.cpu()
+            if a.is_floating_point():
+                fin = torch.isfinite(a) & torch.isfinite(b)
+                if fin.any():
+                    err[name] = max(err[name],
+                                    float((a - b)[fin].abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} differs from its twin on "
+                                     f"{label}")
+
+    for label, cn, gray, cap in cases:
+        shape = tuple(gray.shape[1:])
+        tg = tables(cn, shape, dev)
+        twins = [(tg, gray)]
+        if gray.shape[0] <= 8:
+            twins.append((tables(cn, shape, cpu), gray.cpu()))
+        buf = pyramid(gray, tg)
+        cand = cascade(buf, tg, cap)
+        slots, best = group(*(cand[k] for k in keys), 1)
+        for t, gr in twins:
+            where = f"{label} (twin on the {gr.device.type})"
+            want_buf = pack_pyramid(gr, 5, t.plane_keys, t.geom_levels)
+            same("pyramid", where, [buf], [want_buf])
+            want = od.cascade_plain(want_buf, t, cap)
+            same("cascade", where, [cand[k] for k in want],
+                 list(want.values()))
+            ws, wb = od.group_plain(*(want[k] for k in keys), 1)
+            same("group", where, [slots[k] for k in ws] + list(best),
+                 list(ws.values()) + list(wb))
+            w0s, w0b = od.group_plain(*(want[k] for k in keys), 0)
+            s0, b0 = group(*(cand[k] for k in keys), 0)
+            same("group", where + " min_neighbors 0",
+                 [s0[k] for k in w0s] + list(b0), list(w0s.values())
+                 + list(w0b))
+        survivors[label] = (int(cand["valid"].sum()),
+                            int(cand["overflow"].sum()),
+                            int(best[0].sum()))
+        if "overflow" in label and not survivors[label][1] > 0:
+            raise AssertionError(f"{label}: no survivor beyond the capacity")
+    log(f"kernels: pyramid, cascade and group bit-equal to their twins "
+        f"(candidates slot for slot, overflow equal) on {len(cases)} "
+        f"inputs: " + "; ".join(f"{k}: {v[0]} kept, {v[1]} over, {v[2]} "
+                                f"found" for k, v in survivors.items()))
+
+    def plain_vs(kern, plain):
+        p1 = cuda_ms(plain, reps=5)
+        k1 = cuda_ms(kern)
+        k2 = cuda_ms(kern)
+        p2 = cuda_ms(plain, reps=5)
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    t = {}
+    for n in DETECT_NS:
+        gray = grays["face_noise=0"][:n].contiguous()
+        tg = tables("real", (H, W), dev)
+        buf = pyramid(gray, tg)
+        cand = cascade(buf, tg, 256)
+        cargs = [cand[k] for k in keys]
+        k = int(cand["valid"].sum(1).max())
+        sfx = "" if n == N_STREAMS else f" n{n}"
+        # pyramid: the frames read, the packed planes written; ~8 f32
+        # operations a pixel.  Nearest library call: one bilinear resize
+        # (F.interpolate) of the frames to the first level, not the same
+        # function.
+        w1, h1 = dict(tg.spec.dims)[1]
+        ms, plain_ms = plain_vs(
+            lambda: pyramid(gray, tg),
+            lambda: pack_pyramid(gray, 5, tg.plane_keys, tg.geom_levels))
+        b, by = bound(n * (H * W + tg.L), 8 * n * tg.L)
+        gf = gray[:, None].float()
+        t["pyramid" + sfx] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            graph_ms=graph_ms(lambda: pyramid(gray, tg)),
+            library_ms=cuda_ms(lambda: F.interpolate(
+                gf, size=(h1, w1), mode="bilinear", align_corners=False)),
+            library_call="F.interpolate(bilinear), one level (nearest, not "
+                         "the same function)", launches_per_call=len(
+                             tg.plan.gens))
+        # cascade: the packed planes read once, the slots written; ~12
+        # operations a weak classifier evaluated (10 pixel compares, the
+        # vote, the f64 add) over this run's windows
+        ms, plain_ms = plain_vs(lambda: cascade(buf, tg, 256),
+                                lambda: od.cascade_plain(buf, tg, 256))
+        b, by = bound(n * tg.L + n * 256 * 21 + 4 * n,
+                      12 * cascade_weak(buf, tg))
+        t["cascade" + sfx] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            graph_ms=graph_ms(lambda: cascade(buf, tg, 256)),
+            library_ms=None, launches_per_call=2)
+        # group: the slots read and written, the picks written; ~20
+        # operations a pair of valid slots
+        ms, plain_ms = plain_vs(lambda: group(*cargs, 1),
+                                lambda: od.group_plain(*cargs, 1))
+        pairs = int((cand["valid"].sum(1) ** 2).sum())
+        b, by = bound(n * 256 * (21 + 25) + 21 * n, 20 * pairs)
+        t["group" + sfx] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            graph_ms=graph_ms(lambda: group(*cargs, 1)), library_ms=None,
+            launches_per_call=1, most_candidates=k)
+    for name, e in t.items():
+        log(f"kernels: {name} {e['ms']:.4f} ms, graph replay "
+            f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.6f} ms by {e['bound_by']}; library "
+            f"{fmt_ms(e['library_ms']) if e['library_ms'] is not None else 'none'})")
+    return err, t
+
+
 def _stacked(outs):
     """A list of StepOutputs of (N,) tensors -> host arrays (ticks, N)."""
     import torch
@@ -1213,6 +1414,76 @@ def phase_profile(trackers, frames):
                     f"{r['launches']:.2f} device ops/tick, "
                     f"{r['host_launches']:.2f} host launch calls/tick, "
                     f"kernels {r['kernel_launches']}")
+    return rows
+
+
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
+
+
+def phase_relock(bt, frames):
+    """Phase 5's relock tick on the headline's locked tracker: the
+    LOSS_STREAMS streams turn blue (pool batch LOSS_AT, an all-CS tick) and
+    redetect on the next batch: a bucket tick.  Arms in turns, two passes
+    each: the tick replayed from its graph (``_Steps.replay`` on) and run
+    eagerly (off).  Per relock tick: host ms (host clock, ending in a
+    synchronize), and under torch.profiler device ms, device operations,
+    host launch calls and host reads (stream and event synchronizations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    def relock_state():
+        bt.step_auto(frames[LOSS_AT])
+        pend = int((bt.modes != ft.MODE_CS).sum())
+        if pend != LOSS_STREAMS:
+            raise AssertionError(f"relock: {pend} streams pending after the "
+                                 f"blue frame, not {LOSS_STREAMS}")
+
+    rows = {"graph": [], "eager": []}
+    for rep in range(2):
+        for arm in rows:
+            host, dev_s, ops, launches, syncs = [], 0.0, 0, 0, 0
+            for _ in range(RELOCK_TICKS):
+                relock_state()
+                bt._steps.replay = arm == "graph"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bt.step_auto(frames[LOSS_AT + 1])
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+                bt._steps.replay = True
+                if not (bt.modes == ft.MODE_CS).all():
+                    raise AssertionError("relock: a stream did not relock")
+            for _ in range(RELOCK_TICKS):
+                relock_state()
+                bt._steps.replay = arm == "graph"
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    bt.step_auto(frames[LOSS_AT + 1])
+                    torch.cuda.synchronize()
+                bt._steps.replay = True
+                events = prof.events()
+                dev_ops = [e for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA]
+                dev_s += sum(e.device_time_total for e in dev_ops) / 1e6
+                ops += len(dev_ops)
+                launches += sum(e.name in HOST_LAUNCHES for e in events)
+                syncs += sum(e.name in HOST_SYNCS for e in events)
+            host.sort()
+            r = {"host_ms_p50": 1e3 * host[len(host) // 2],
+                 "host_ms_mean": 1e3 * sum(host) / len(host),
+                 "device_ms": 1e3 * dev_s / RELOCK_TICKS,
+                 "device_ops": ops / RELOCK_TICKS,
+                 "host_launches": launches / RELOCK_TICKS,
+                 "host_reads": syncs / RELOCK_TICKS}
+            rows[arm].append(r)
+            log(f"relock [headline] {arm} pass {rep}: {LOSS_STREAMS} "
+                f"redetects, host {r['host_ms_p50']:.3f} ms p50 "
+                f"({r['host_ms_mean']:.3f} mean), device "
+                f"{r['device_ms']:.3f} ms, {r['device_ops']:.2f} device ops, "
+                f"{r['host_launches']:.2f} host launch calls, "
+                f"{r['host_reads']:.2f} host reads a relock tick")
     return rows
 
 
@@ -1900,9 +2171,13 @@ def main():
     times.update(mma_times)
     err["hist_bins"], hb_times = phase_histbins(pools, dev)
     times.update(hb_times)
+    det_err, det_times = phase_detect(pools, dev)
+    err.update(det_err)
+    times.update(det_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
+    relock = phase_relock(runs["headline"][2], frames)
     counts = {name: r[0] for name, r in runs.items()}
     ms = {name: r[1] for name, r in runs.items()}
     del runs, frames  # free the trackers and the staged pool
@@ -1936,12 +2211,15 @@ def main():
             e.update({t.split()[1]: times[t] for t in MS_ENTRIES[1:]})
         if k == "hist_bins":
             e.update(bench=times["hist_bins bench"], n1=times["hist_bins n1"])
+        if k in DETECT:
+            e.update({f"n{n}": times[f"{k} n{n}"] for n in DETECT_NS[1:]})
         if k == "hist_mma":
             e.update(session_launches=session["launches"][k],
                      n1=times["hist_mma n1"], x6_workload=times["hist_mma x6"],
                      hist4096_n1=times["hist4096 n1"])
         entries.append(e)
-    print(json.dumps({"profile": prof, "serving_ms_per_tick": ms,
+    print(json.dumps({"profile": prof, "relock": relock,
+                      "serving_ms_per_tick": ms,
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,

@@ -12,7 +12,9 @@ The port reads the reference-behaviour fields and the band-local serving
 knobs (bandHist, bandHistAudit, bandHistAuditAction).  The capacity and TPU
 formulation knobs (maxCandidates, survivorsStage2, survivorsDeep, histBlock,
 sparseHist, histKernel, exactCamshift) are carried for compatibility and do
-not change its results: its detector has no capacity caps, its camshift pdf
+not change its results: its detector keeps a fixed 256 candidate slots a
+stream (models/detector.py CAPACITY) and none of the reference's tile and
+window caps, its camshift pdf
 is always the exact f32 lookup, and its histogram and backprojection always
 run the CUDA kernels on the card.
 """

@@ -52,6 +52,19 @@ _SIGNATURES = {
         "meanshift_smem_bytes": (_I, _I, _I),
         "meanshift_smem_limits": (_C,),
     },
+    "pyramid": {
+        "pyramid_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
+                           _I, _I, _C),
+    },
+    "cascade": {
+        "cascade_eval_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I,
+                                _I, _I, _C),
+        "cascade_compact_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _I,
+                                   _I, _I, _C),
+    },
+    "group": {
+        "group_launch": (_C, _C, _C, _C, _C, _C, _I, _I, _I, _C),
+    },
 }
 
 

@@ -1,10 +1,19 @@
-"""BBF cascade detector over a batch of streams, in plain PyTorch on the device.
+"""BBF cascade detector over a batch of streams: three kernels on the card.
 
 Reference behavior: src/ccv.js:109-333.  The formulation is the oracle's
-(headtrackr_tpu/oracle/detector.py): the cascade is evaluated stage by stage
-over the windows still alive, batched over streams, with no capacity caps.
-Without caps the candidate set equals the reference package's wherever that
-package reports ``overflow == 0``.
+(headtrackr_tpu/oracle/detector.py): every window runs the cascade with
+early exit, and the survivors go into a fixed buffer of ``capacity`` slots a
+stream (default CAPACITY, the reference package's ``k_cand``), the first
+ones in window order; ``overflow`` counts the survivors beyond it.  Where
+the reference package reports ``overflow == 0`` the candidate set is its.
+
+On the card a detection is three kernels with no host read, so a CUDA graph
+can capture it: ``pyramid`` (kernels/pyramid.py: the gray frames into the
+packed plane buffer below), ``cascade`` (kernels/cascade.py: the windows
+through the stages, the survivors compacted in window order) and ``group``
+(kernels/group.py: the grouping below and the pick).  On the CPU each
+wrapper runs its plain twin (ops/imageproc.py pack_pyramid, ops/detect.py
+cascade_plain and group_plain), to the bit the kernel's results.
 
 Window addressing.  The 4 detection phases (dx, dy in {0,1}^2) of a scale
 step fold into one (2*qh, 2*qw) window grid; window (y2, x2) reads feature
@@ -28,9 +37,8 @@ matches: cascades deeper than ``CHUNK_A_END`` stages take ``2*x2`` times
 the f32 scale in f32, single-chunk cascades the f64 product cast to f32.
 
 Grouping (src/ccv.js:249-331) is connected components over each stream's
-candidates by min-label propagation with pointer jumping (no matmul, so no
-TF32 question), then member sums (exact in f64, rounded to f32) and the
-containment filter.
+candidate slots, labelled by their smallest member slot, then member sums
+(exact in f64, rounded to f32) and the containment filter.
 """
 
 import dataclasses
@@ -40,17 +48,21 @@ import torch
 
 from ..cascade import cascade_to_torch
 from ..device import resolve_device
-from ..ops.imageproc import build_pyramid, pyramid_spec
+from ..kernels.cascade import cascade
+from ..kernels.group import group
+from ..kernels.pyramid import pyramid
+from ..ops.imageproc import pyramid_plan, pyramid_spec
 
 __all__ = ["DetectorTables", "detector_tables", "detect_candidates",
            "group_candidates", "detect_objects_padded", "detect_best",
-           "CHUNK_A_END"]
+           "CHUNK_A_END", "CAPACITY"]
 
 # the reference package's dense stage chunk; deeper cascades take its
 # deep-path box arithmetic (see the module docstring)
 CHUNK_A_END = 2
-# alive windows x weak slots per gather chunk (bounds the index tensors)
-_GATHER_BUDGET = 1 << 25
+# candidate slots a stream: the reference package's k_cand (and
+# maxCandidates' default)
+CAPACITY = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +74,22 @@ class _Stage:
 
 
 @dataclasses.dataclass(frozen=True)
+class _Plan:
+    """ops/imageproc.py PyramidPlan with its arrays on the device."""
+    jobs: torch.Tensor     # (J, 13) i32
+    xi: torch.Tensor       # (X, 2) i32
+    xf: torch.Tensor       # (X, 2) f32
+    yi: torch.Tensor
+    yf: torch.Tensor
+    gens: tuple            # (first job, end job, pixels) a generation
+    S: int                 # scratch bytes a stream
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorTables:
-    """Static tables for one (frame size, interval, cascade, device)."""
+    """Static tables for one (frame size, interval, cascade, device): the
+    plain twins' and, in the kernels' layouts, the kernels' (all on the
+    device once)."""
     spec: object
     M: int                 # windows per stream
     plane_keys: tuple      # pyramid planes packed first, in order
@@ -76,6 +102,28 @@ class DetectorTables:
     out_w: torch.Tensor
     out_h: torch.Tensor
     stages: tuple          # tuple[_Stage]
+    plan: _Plan            # the pyramid kernel's jobs
+    base32: torch.Tensor   # (M, 3) i32: base, rowstep as i32
+    rowstep32: torch.Tensor
+    feat: torch.Tensor     # (K, 10) i32 feature codes z | x' << 2 | y << 8
+                           # (x' the column offset), -1 an empty slot;
+                           # 5 positive, then 5 negative
+    alpha: torch.Tensor    # (K, 2) f32
+    thresh: torch.Tensor   # (S,) f32
+    stage_end: torch.Tensor  # (S,) i32 end of each stage's weak range
+
+
+def _feature_codes(cascade):
+    """(K, 10) i32 codes of the weak classifiers' feature pixels (the
+    cascade kernel's table)."""
+    codes = []
+    for zz, xx, yy in (("pz", "px", "py"), ("nz", "nx", "ny")):
+        z = np.asarray(cascade[zz], np.int64)
+        x = np.asarray(cascade[xx], np.int64)
+        y = np.asarray(cascade[yy], np.int64)
+        xo = np.where(z == 2, 2 * x, x)
+        codes.append(np.where(z >= 0, z | (xo << 2) | (y << 8), -1))
+    return np.concatenate(codes, axis=1).astype(np.int32)
 
 
 def detector_tables(w0, h0, cascade, interval=5, device=None):
@@ -95,18 +143,12 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
             geoms.append((i, 2 * qh, 2 * qw, scale, H2, W2))
         scale *= spec.scale
 
-    plane_keys = sorted({i * 4 for (i, *_r) in geoms} |
-                        {(i + nxt) * 4 for (i, *_r) in geoms})
-    offs = {}
-    L = 0
-    for k in plane_keys:
-        w, h = dims[k // 4]
-        offs[k] = L
-        L += w * h
-    ioffs = {}
-    for (i, _, _, _, H2, W2) in geoms:
-        ioffs[i] = L
-        L += 4 * H2 * W2
+    plane_keys = tuple(sorted({i * 4 for (i, *_r) in geoms} |
+                              {(i + nxt) * 4 for (i, *_r) in geoms}))
+    geom_levels = tuple(g[0] for g in geoms)
+    # the packed buffer's layout is the plan's (ops/imageproc.py)
+    p = pyramid_plan(spec, plane_keys, geom_levels)
+    offs, ioffs = p.plane_off, p.inter_off
 
     base, rstep, ox, oy, ow, oh = [], [], [], [], [], []
     for (i, qh2, qw2, sc, H2, W2) in geoms:
@@ -153,187 +195,69 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
             alpha0=c["alpha"][k0:k1, 0], alpha1=c["alpha"][k0:k1, 1],
             sides=tuple(sides)))
 
+    dev = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    base_t = cat(base, torch.int64, 3)
+    rstep_t = cat(rstep, torch.int64, 3)
     return DetectorTables(
         spec=spec, M=sum(g[1] * g[2] for g in geoms),
-        plane_keys=tuple(plane_keys), geom_levels=tuple(g[0] for g in geoms),
-        L=L, base=cat(base, torch.int64, 3), rowstep=cat(rstep, torch.int64, 3),
+        plane_keys=plane_keys, geom_levels=geom_levels,
+        L=p.L, base=base_t, rowstep=rstep_t,
         out_x=cat(ox, torch.float32), out_y=cat(oy, torch.float32),
         out_w=cat(ow, torch.float32), out_h=cat(oh, torch.float32),
-        stages=tuple(stages))
+        stages=tuple(stages),
+        plan=_Plan(jobs=dev(p.jobs), xi=dev(p.xi), xf=dev(p.xf),
+                   yi=dev(p.yi), yf=dev(p.yf), gens=p.gens, S=p.S),
+        base32=base_t.to(torch.int32).contiguous(),
+        rowstep32=rstep_t.to(torch.int32).contiguous(),
+        feat=dev(_feature_codes(cascade)),
+        alpha=dev(np.asarray(cascade["alpha"], np.float32)),
+        thresh=dev(np.asarray(cascade["stage_thresh"], np.float32)),
+        stage_end=dev(np.cumsum(np.asarray(cascade["stage_counts"]))
+                      .astype(np.int32)))
 
 
-def _pack_planes(gray, tables):
-    """(N, H, W) u8 -> (N, L) u8: the pyramid planes and interleaved
-    quarter planes of every stream, flat, in the tables' layout."""
-    N = gray.shape[0]
-    pyr, spec = build_pyramid(gray, tables.spec.interval)
-    nxt = spec.next
-    parts = [pyr[k].reshape(N, -1) for k in tables.plane_keys]
-    for i in tables.geom_levels:
-        q = torch.stack([pyr[(i + 2 * nxt) * 4 + j] for j in range(4)], dim=1)
-        _, _, H2, W2 = q.shape
-        inter = q.view(N, 2, 2, H2, W2).permute(0, 3, 1, 4, 2)
-        parts.append(inter.reshape(N, 4 * H2 * W2))
-    return torch.cat(parts, dim=1).contiguous()
-
-
-def _stage_sums(buf, tables, stage, nidx, midx):
-    """f64 vote sums of one stage for the alive windows (nidx, midx)."""
-    base = tables.base[midx]
-    rstep = tables.rowstep[midx]
-    row0 = nidx * buf.shape[1]
-    ext = []
-    for (z, xoff, py, valid), fill, reduce in zip(
-            stage.sides, (255, 0), (torch.amin, torch.amax)):
-        idx = row0[:, None, None] + base[:, z] + py * rstep[:, z] + xoff
-        vals = buf.view(-1)[idx].to(torch.int16)
-        vals = torch.where(valid, vals, fill)
-        ext.append(reduce(vals, dim=2))
-    votes = torch.where(ext[0] > ext[1], stage.alpha1, stage.alpha0)
-    return votes.to(torch.float64).sum(dim=1)
-
-
-def detect_candidates(gray, tables):
+def detect_candidates(gray, tables, capacity=CAPACITY):
     """Run the cascade over every window of every stream.
 
-    gray (N, H, W) u8.  Returns dict of (N, K) arrays x, y, width, height,
-    confidence + valid mask, K = the largest per-stream candidate count;
-    each stream's candidates are in window order."""
-    N = gray.shape[0]
-    dev = gray.device
-    M = tables.M
-    if M == 0 or N == 0:
-        z = torch.zeros((N, 0), dtype=torch.float32, device=dev)
-        return dict(x=z, y=z, width=z, height=z, confidence=z,
-                    valid=torch.zeros((N, 0), dtype=torch.bool, device=dev))
-    buf = _pack_planes(gray, tables)
-    alive = torch.arange(N * M, dtype=torch.int64, device=dev)
-    conf = torch.zeros((N * M,), dtype=torch.float32, device=dev)
-    for stage in tables.stages:
-        if alive.numel() == 0:
-            break
-        per = max(1, _GATHER_BUDGET // (10 * stage.alpha0.numel()))
-        sums = torch.cat([
-            _stage_sums(buf, tables, stage, a // M, a % M)
-            for a in torch.split(alive, per)])
-        conf[alive] = sums.to(torch.float32)
-        alive = alive[sums >= stage.thresh]
-
-    n, m = alive // M, alive % M
-    counts = torch.bincount(n, minlength=N)
-    K = int(counts.max()) if alive.numel() else 0
-    start = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(alive.numel(), device=dev) - start[n]
-
-    def pack(vals, fill=0.0):
-        out = torch.full((N, K), fill, dtype=vals.dtype, device=dev)
-        out[n, slot] = vals
-        return out
-
-    return dict(x=pack(tables.out_x[m]), y=pack(tables.out_y[m]),
-                width=pack(tables.out_w[m]), height=pack(tables.out_h[m]),
-                confidence=pack(conf[alive]),
-                valid=pack(torch.ones_like(alive, dtype=torch.bool), False))
-
-
-def _components(adj, valid):
-    """(N, K, K) symmetric adjacency -> (N, K) component label = the
-    smallest member index (K for invalid slots)."""
-    N, K, _ = adj.shape
-    idx = torch.arange(K, device=adj.device)
-    lab = torch.where(valid, idx, K).expand(N, K).contiguous()
-    while True:
-        nb = torch.where(adj, lab[:, None, :], K).amin(dim=2)
-        new = torch.minimum(lab, nb)
-        # pointer jumping: a label is a member index of the same component
-        new = torch.minimum(new, torch.gather(
-            torch.cat([new, torch.full((N, 1), K, device=adj.device,
-                                       dtype=new.dtype)], 1), 1, new))
-        if torch.equal(new, lab):
-            return lab
-        lab = new
+    gray (N, H, W) u8.  Returns dict of (N, capacity) arrays x, y, width,
+    height, confidence + valid mask: each stream's first ``capacity``
+    survivors in window order; and overflow (N,) i32, the survivors beyond
+    ``capacity`` (the reference package's key)."""
+    return cascade(pyramid(gray, tables), tables, capacity)
 
 
 def group_candidates(x, y, w, h, conf, valid, min_neighbors=1):
-    """src/ccv.js:249-331 over (N, K) candidate slots.
+    """src/ccv.js:249-331 over (N, K) candidate slots (K <= 256 on the
+    card).
 
     Returns dict of (N, K) arrays: kept mask + grouped x/y/width/height/
     neighbors/confidence at component-representative slots (the smallest
     member index), in slot order like the JS seq2."""
-    N, K = x.shape
-    if K == 0:
-        return dict(kept=valid, x=x, y=y, width=w, height=h,
-                    neighbors=x, confidence=conf)
-    f32 = torch.float32
-    dist = torch.floor(w * 0.25 + 0.5)
-    wide = torch.floor(w * 1.5 + 0.5)
-    col = lambda t: t[:, :, None]  # noqa: E731  (candidate i, the r1 role)
-    row = lambda t: t[:, None, :]  # noqa: E731  (candidate j, the r2 role)
-    pred = ((row(x) <= col(x) + col(dist)) & (row(x) >= col(x) - col(dist)) &
-            (row(y) <= col(y) + col(dist)) & (row(y) >= col(y) - col(dist)) &
-            (row(w) <= col(wide)) & (row(wide) >= col(w)))
-    eye = torch.eye(K, dtype=torch.bool, device=x.device)
-    adj = (pred | pred.transpose(1, 2)) & col(valid) & row(valid)
-    adj = adj | (eye & col(valid))
-    label = _components(adj, valid)
-
-    idxv = torch.arange(K, device=x.device)
-    member = (row(label) == idxv[None, :, None]) & row(valid)  # [n, rep, j]
-    # member sums in f64, exact in any order, rounded once to f32: a
-    # stream's boxes do not depend on the K its batch pads it to
-    mf = member.to(torch.float64)
-    msum = lambda t: (mf * row(t).to(torch.float64)).sum(dim=2).to(f32)  # noqa: E731
-    n = mf.sum(dim=2).to(f32)
-    sx, sy, sw, sh = msum(x), msum(y), msum(w), msum(h)
-    mconf = torch.where(member, row(conf), -torch.inf).amax(dim=2)
-
-    rep = valid & (label == idxv) & (n >= min_neighbors)
-    n_safe = torch.clamp(n, min=1.0)
-    gx = (sx * 2 + n) / (2 * n_safe)
-    gy = (sy * 2 + n) / (2 * n_safe)
-    gw = (sw * 2 + n) / (2 * n_safe)
-    gh = (sh * 2 + n) / (2 * n_safe)
-
-    # containment filter (src/ccv.js:305-331): drop r1 contained (+-dist) in
-    # a kept r2 with more neighbors
-    dist2 = torch.floor(gw * 0.25 + 0.5)
-    inside = ((col(gx) >= row(gx) - row(dist2)) &
-              (col(gy) >= row(gy) - row(dist2)) &
-              (col(gx) + col(gw) <= row(gx) + row(gw) + row(dist2)) &
-              (col(gy) + col(gh) <= row(gy) + row(gh) + row(dist2)) &
-              ((row(n) > torch.clamp(col(n), min=3.0)) | (col(n) < 3.0)) &
-              row(rep) & ~eye)
-    kept = rep & ~inside.any(dim=2)
-    return dict(kept=kept, x=gx, y=gy, width=gw, height=gh,
-                neighbors=n, confidence=mconf)
+    return group(x, y, w, h, conf, valid, max(int(min_neighbors), 1))[0]
 
 
-def detect_objects_padded(gray, tables, min_neighbors=1):
+def detect_objects_padded(gray, tables, min_neighbors=1, capacity=CAPACITY):
     """Grouped detections (ccv.detect_objects with min_neighbors > 0) as
-    (N, K) arrays + kept mask; min_neighbors=0 keeps every raw candidate."""
-    cand = detect_candidates(gray, tables)
+    (N, capacity) arrays + kept mask, and the cascade's overflow;
+    min_neighbors=0 keeps every raw candidate."""
+    cand = detect_candidates(gray, tables, capacity)
     if not min_neighbors > 0:
         cand = dict(cand)
         cand["kept"] = cand.pop("valid")
         cand["neighbors"] = cand["kept"].to(torch.float32)
         return cand
-    return group_candidates(cand["x"], cand["y"], cand["width"],
-                            cand["height"], cand["confidence"], cand["valid"],
-                            min_neighbors)
+    g = group_candidates(cand["x"], cand["y"], cand["width"],
+                         cand["height"], cand["confidence"], cand["valid"],
+                         min_neighbors)
+    g["overflow"] = cand["overflow"]
+    return g
 
 
-def detect_best(gray, tables, min_neighbors=1):
+def detect_best(gray, tables, min_neighbors=1, capacity=CAPACITY):
     """The facetrackr candidate pick (src/facetrackr.js:157-165): max
     confidence, the first candidate wins ties.  Returns (found, x, y, w, h,
-    confidence), each (N,)."""
-    g = detect_objects_padded(gray, tables, min_neighbors)
-    N, K = g["kept"].shape
-    if K == 0:
-        z = torch.zeros((N,), dtype=torch.float32, device=gray.device)
-        return (torch.zeros((N,), dtype=torch.bool, device=gray.device),
-                z, z, z, z, torch.full_like(z, -torch.inf))
-    score = torch.where(g["kept"], g["confidence"], -torch.inf)
-    i = torch.argmax(score, dim=1, keepdim=True)
-    pick = lambda k: torch.gather(g[k], 1, i)[:, 0]  # noqa: E731
-    return (g["kept"].any(dim=1), pick("x"), pick("y"), pick("width"),
-            pick("height"), pick("confidence"))
+    confidence), each (N,).  No host read."""
+    cand = detect_candidates(gray, tables, capacity)
+    return group(cand["x"], cand["y"], cand["width"], cand["height"],
+                 cand["confidence"], cand["valid"],
+                 min_neighbors if min_neighbors > 0 else 0)[1]

@@ -26,7 +26,7 @@ from . import headpose as hp
 from .detector import detect_best, detector_tables
 
 __all__ = ["TrackerState", "StepOutput", "init_state", "make_step",
-           "tree_index", "tree_scatter",
+           "tree_index", "tree_scatter", "tree_where",
            "MODE_WB", "MODE_VJ", "MODE_CS",
            "STATUS_WHITEBALANCE", "STATUS_DETECTING", "STATUS_FOUND",
            "STATUS_REDETECTING", "STATUS_LOST", "STATUS_BITS"]
@@ -139,13 +139,16 @@ def tree_scatter(tree, idx, sub):
     return None if tree is None else tree.index_copy(0, idx, sub.to(tree.dtype))
 
 
-def _where(cond, a, b):
+def tree_where(cond, a, b):
     """Per-stream select over NamedTuple trees of (N, ...) tensors."""
     if isinstance(a, tuple):
-        return type(a)(*(_where(cond, x, y) for x, y in zip(a, b)))
+        return type(a)(*(tree_where(cond, x, y) for x, y in zip(a, b)))
     if a is None:
         return None
     return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+_where = tree_where
 
 
 class _Result(NamedTuple):
@@ -184,6 +187,12 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     variant="wbtrack": camshift for CS streams + whitebalance for WB
         streams; VJ streams freeze (state unchanged, conf 0, no status).
         The cold-start fast path: no detector.
+    variant="pending": the "full" step for streams not in CS, in the
+        select form of the reference's vmapped step: the WB and the VJ
+        branch both run on every stream and each stream takes its mode's
+        result (``_where``), so the step holds no host read and a CUDA
+        graph can capture it.  A CS stream's result is meaningless; the
+        caller drops it (the serving bucket's masked scatter).
     band=(bh, bw), with "track" or "wbtrack": the CS streams take the
         band-local camshift (models/camshift.track_band), and the step
         returns (state', StepOutput, escaped): escaped (N,) marks CS streams
@@ -205,10 +214,10 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     any other value raises.
     """
     device = resolve_device(device)
-    if variant not in ("full", "track", "wbtrack"):
-        raise ValueError("variant must be 'full', 'track' or 'wbtrack', got "
-                         f"{variant!r}")
-    if band is not None and (variant == "full" or with_pdf):
+    if variant not in ("full", "track", "wbtrack", "pending"):
+        raise ValueError("variant must be 'full', 'track', 'wbtrack' or "
+                         f"'pending', got {variant!r}")
+    if band is not None and (variant in ("full", "pending") or with_pdf):
         raise ValueError("band requires variant 'track' or 'wbtrack' "
                          "without with_pdf")
     hist_kernel = check_hist_kernel(config.histKernel)
@@ -216,7 +225,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         raise ValueError("bandHistAuditAction must be 'flag' or 'escape', "
                          f"got {config.bandHistAuditAction!r}")
     H, W = frame_shape
-    if variant == "full" and tables is None:
+    if variant in ("full", "pending") and tables is None:
         tables = detector_tables(W, H, cascade, config.detectorInterval, device)
     # f32 constants made once: a host-to-device copy per tick would
     # synchronize the stream
@@ -317,9 +326,18 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             res = res._replace(conf=torch.where(is_cs, res.conf, 0.0))
             if with_pdf:
                 pdf = torch.where(is_cs.view(-1, 1, 1), pdf, 0.0)
+        elif variant == "pending":
+            is_wb = (entry_mode == MODE_WB)
+            wb_state, wb_res, _ = wb_branch(state, frames)
+            vj_state, vj_res, _ = vj_branch(state, frames)
+            state = _where(is_wb, wb_state, vj_state)
+            res = _where(is_wb, wb_res, vj_res)
+            pdf = None
         else:
             state, res, pdf = dispatch(state, frames, modes)
-        detection = entry_mode
+        # copies: an output must not alias the input state, which a caller
+        # may overwrite in place (the serving graphs' donated buffers)
+        detection = entry_mode.clone()
         N = frames.shape[0]
         dev = frames.device
         zeros_i = torch.zeros((N,), dtype=_I32, device=dev)
@@ -344,7 +362,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             stopped = state.stopped
         else:
             status = status | torch.where(lost, STATUS_LOST, zeros_i)
-            mode_after = state.mode
+            mode_after = state.mode.clone()
             stopped = state.stopped | lost
         face_found = state.face_found & ~lost
         headpose_active = state.headpose_active & ~lost

@@ -31,7 +31,15 @@ and chunk_cap = max(kb, (min(N, 4 kb) // kb) kb):
 Every branch but the rotation's leaves ``pend_age`` at 0.  On the card the
 all-CS tick is one replay of a CUDA graph of the "track" step, captured once
 per tracker on static frame and state buffers, plus one host read
-(``mode_after`` and ``escaped`` together); the other branches run eagerly.
+(``mode_after`` and ``escaped`` together).  So is a bucket or chunk tick
+(1 .. chunk_cap pending, some in VJ; not the rotation's overload tick): one
+replay of a graph of "track" and the reference's ``_apply_bucket`` in its
+device form (``_Steps.bucket_device``: the "pending" step, which selects
+the WB or VJ branch by mode, on the served streams' slots padded with N,
+and a masked scatter back), the served streams filled in from the host
+mode view, and the same one host read.  The detector in it is three
+kernels with no host read (models/detector.py).  The other branches
+(wbtrack, full, the rotation) run eagerly.
 
 With a band (``band="auto"``: DEFAULT_BAND when it is smaller than the
 frame) "track" and "wbtrack" take the band-local camshift.  Streams whose
@@ -167,7 +175,8 @@ def _clone(tree):
 def _merged_config(n_streams, params, kw):
     """TrackerConfig fields: ``params`` updated by ``kw``, with the
     reference package's batched capacity defaults, carried so the two
-    configurations compare equal (this detector has no caps)."""
+    configurations compare equal (this detector has none of these caps:
+    it keeps a fixed 256 candidate slots a stream)."""
     merged = dict(params or {})
     merged.update(kw)
     if n_streams >= 32:
@@ -182,45 +191,71 @@ def _host(modes):
     return modes.cpu().numpy() if torch.is_tensor(modes) else np.array(modes)
 
 
-class _TrackGraph:
-    """The device scheduler's all-CS tick, ``tick(state, frames) -> (state',
-    StepOutput)``, captured in a CUDA graph on static buffers: ``frames``
-    and ``state_in`` in; ``state_out``, the outputs (one packed tensor per
-    dtype) and ``sync`` = (mode_after, escaped) as (2, N) i32 out, whose
-    host copy each replay starts (into pinned memory, behind an event).
-    ``launches`` tallies the kernel launches one replay makes.  A capture
-    failure raises."""
+class _Buffers:
+    """A batch size's static tick inputs, shared by its captured ticks:
+    ``frames`` and ``state_in`` (the tracker's state after a replayed tick,
+    which ``_Steps.end`` donates)."""
 
-    def __init__(self, tick, state, frames_shape, device):
-        self.device = device
+    def __init__(self, state, frames_shape, device):
         self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
                                   device=device)
         self.state_in = _clone(state)
+
+
+class _TickGraph:
+    """A device-scheduled tick, ``tick(state, frames, *extra) -> (state',
+    StepOutput)``, on a batch size's static ``_Buffers``: on the card
+    captured in a CUDA graph (``launches`` tallies the kernel launches one
+    replay makes; a capture failure raises), on the CPU run uncaptured on
+    the same buffers at each replay.  Out: ``state_out``, the outputs (one
+    packed tensor per dtype) and ``sync`` = (mode_after, escaped) as (2, N)
+    i32, whose host copy each replay starts (into pinned memory, behind an
+    event)."""
+
+    def __init__(self, tick, bufs, extra, device):
+        self.device = device
+        self.frames, self.state_in, self.extra = (bufs.frames, bufs.state_in,
+                                                  extra)
+        self.graph = None
+        self.launches = dict.fromkeys(launch.launches, 0)
+        self.tick = tick  # run at each replay on the CPU
+        if device.type != "cuda":
+            return
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):  # warm up off the capture stream
-                tick(self.state_in, self.frames)
+                tick(self.state_in, self.frames, *extra)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with launch.capturing() as self.launches, \
                     torch.cuda.graph(self.graph):
-                self.state_out, out = tick(self.state_in, self.frames)
-                rows, packs = [], {}
-                for v in out:
-                    group = packs.setdefault(v.dtype, [])
-                    rows.append((v.dtype, len(group)))
-                    group.append(v)
-                self._packs = {dt: torch.stack(g) for dt, g in packs.items()}
-                self._rows = rows
-                self.sync = torch.stack([out.mode_after,
-                                         out.escaped.to(torch.int32)])
+                self._run()
+        # not kept on the card: a graph holding its _Steps' bound method
+        # makes a reference cycle, which the cyclic collector may free while
+        # another graph captures, destroying CUDA objects mid-capture
+        del self.tick
         self._sync_host = torch.empty(self.sync.shape, dtype=torch.int32,
                                       pin_memory=True)
         self._copied = torch.cuda.Event()
 
+    def _run(self):
+        self.state_out, out = self.tick(self.state_in, self.frames,
+                                        *self.extra)
+        rows, packs = [], {}
+        for v in out:
+            group = packs.setdefault(v.dtype, [])
+            rows.append((v.dtype, len(group)))
+            group.append(v)
+        self._packs = {dt: torch.stack(g) for dt, g in packs.items()}
+        self._rows = rows
+        self.sync = torch.stack([out.mode_after, out.escaped.to(torch.int32)])
+
     def replay(self):
         """Enqueue one replay and the host copy of its sync word."""
+        if self.graph is None:
+            self._run()
+            return
         with torch.cuda.device(self.device):
             self.graph.replay()
             self._sync_host.copy_(self.sync, non_blocking=True)
@@ -229,10 +264,13 @@ class _TrackGraph:
 
     def wait(self):
         """Wait for the last replay's sync word to reach the host."""
-        self._copied.synchronize()
+        if self.graph is not None:
+            self._copied.synchronize()
 
     def read_sync(self):
         """The last replay's (mode_after, escaped) as a (2, N) host array."""
+        if self.graph is None:
+            return self.sync.numpy().copy()
         self.wait()
         return self._sync_host.numpy().copy()
 
@@ -240,6 +278,20 @@ class _TrackGraph:
         """This replay's StepOutput, copied out of the graph's buffers."""
         c = {dt: p.clone() for dt, p in self._packs.items()}
         return ft.StepOutput(*(c[dt][i] for dt, i in self._rows))
+
+
+def _scatter_slots(tree, idx, sub):
+    """A copy of ``tree`` (N rows) with rows ``idx`` replaced by ``sub``'s
+    rows, where ``idx`` may hold N (padding: that row is dropped, as the
+    reference's scatter with mode="drop" drops it).  No host read."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_scatter_slots(t, idx, s)
+                            for t, s in zip(tree, sub)))
+    if tree is None:
+        return None
+    n = tree.shape[0]
+    return torch.cat([tree, tree[:1]]).index_copy(
+        0, idx, sub.to(tree.dtype))[:n]
 
 
 def _check_frames(frames, want):
@@ -295,7 +347,14 @@ class _Steps:
         self._track_plain = mk("track")
         self._track = mk("track", band) if band else self._track_plain
         self._wbtrack = mk("wbtrack", band)
-        self._graphs = {}  # batch size -> the all-CS tick's CUDA graph
+        self._pending = mk("pending")  # the bucket's full step, no host read
+        # run the all-CS and the bucket ticks from captured programs: CUDA
+        # graphs on the card; the CPU runs the same tick functions on the
+        # same buffers uncaptured when a caller (a test) sets it
+        self.replay = self.device.type == "cuda"
+        self._bufs = {}  # batch size -> its _Buffers
+        # (batch size, bucket slots; 0: the all-CS tick) -> its _TickGraph
+        self._graphs = {}
 
     def chunk_cap(self, n):
         """The most pending streams one tick serves at batch size n."""
@@ -324,6 +383,20 @@ class _Steps:
         ``idx`` (host array) still non-CS after it."""
         state1, out = self.track(state, frames)
         return self._apply_bucket(state1, out, frames, idx)
+
+    def bucket_step(self, state, frames, served, donate=True):
+        """``bucket_tick`` as the functional ``step_bucket`` runs it: on the
+        card one replay of the bucket graph (``served`` in its slots) and
+        one host read, ``pend_age`` kept as the caller's (the graph zeroes
+        it, as the device scheduler's bucket tick does); elsewhere
+        ``bucket_tick``.  donate as ``end``'s."""
+        if not self.replay:
+            return self.bucket_tick(state, frames, served)
+        kb = min(self.bucket, frames.shape[0])
+        age = state.pend_age.clone()
+        new, out, _ = self.end(self._replayed(
+            state, frames, -(-served.size // kb) * kb, served), donate)
+        return new._replace(pend_age=age), out
 
     def _recompute(self, state, frames, new, out, esc, esc_host):
         """Recompute a banded step's escaped streams from the pre-step
@@ -375,35 +448,98 @@ class _Steps:
             out = out._replace(escaped=esc)
         return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
 
-    def captured(self, state):
-        """The all-CS tick's CUDA graph at ``state``'s batch size, captured
-        (on a copy of ``state``) on first use."""
+    def bucket_device(self, state, frames, idx):
+        """The device scheduler's bucket or chunk tick before the escape
+        fallback, with no host read (the graph captures it): "track" on the
+        batch, then the reference's ``_apply_bucket`` on the slots ``idx``
+        ((slots,) i64 on the device, padded with N): the "pending" step on
+        the streams min(idx, N - 1), kept where idx < N and the stream is
+        not in CS after the track pass, scattered back (padding dropped).
+        A chunk tick's chunks serve disjoint streams and a stream's result
+        does not depend on its batch, so one step over all its slots equals
+        the reference's chunks in turn.  pend_age zeroed (no rotation)."""
+        state1, out = self._auto_track(state, frames)
+        n = frames.shape[0]
+        safe = torch.clamp(idx, max=n - 1)
+        sub = ft.tree_index(state1, safe)
+        sub_state, sub_out = self._pending(sub, frames.index_select(0, safe))
+        keep = (idx < n) & (sub.mode != ft.MODE_CS)
+        sub_state = ft.tree_where(keep, sub_state, sub)
+        sub_out = ft.tree_where(keep, sub_out, ft.tree_index(out, safe))
+        return (_scatter_slots(state1, idx, sub_state),
+                _scatter_slots(out, idx, sub_out))
+
+    def captured(self, state, slots=0):
+        """The CUDA graph of the all-CS tick (slots 0) or of the bucket
+        tick over ``slots`` stream slots at ``state``'s batch size,
+        captured (on a copy of ``state``) on first use; on the CPU the same
+        tick run uncaptured on the same buffers."""
         n = state.mode.shape[0]
-        if n not in self._graphs:
-            self._graphs[n] = _TrackGraph(
-                self._auto_track, state, (n,) + self.frame_shape + (3,),
-                self.device)
-        return self._graphs[n]
+        if n not in self._bufs:
+            self._bufs[n] = _Buffers(state, (n,) + self.frame_shape + (3,),
+                                     self.device)
+        if (n, slots) not in self._graphs:
+            if slots == 0:
+                tick, extra = self._auto_track, ()
+            else:  # the served streams' slots, padded with N
+                tick, extra = self.bucket_device, (torch.full(
+                    (slots,), n, dtype=torch.int64, device=self.device),)
+            self._graphs[(n, slots)] = _TickGraph(tick, self._bufs[n], extra,
+                                                  self.device)
+        return self._graphs[(n, slots)]
+
+    def capture_all(self, state):
+        """Capture, at ``state``'s batch size, the all-CS tick's graph and
+        the bucket tick's at every slot count a tick can take (the bucket
+        kb and its multiples up to the chunk cap)."""
+        n = state.mode.shape[0]
+        kb = min(self.bucket, n)
+        for slots in [0] + list(range(kb, self.chunk_cap(n) + 1, kb)):
+            self.captured(state, slots)
+
+    def _replayed(self, state, frames, slots=0, served=None):
+        """Replay the graph of ``captured(state, slots)``: the caller's
+        state copied into the graph's input buffers unless it is them, the
+        frames and (bucket ticks) the served streams, padded with N, into
+        theirs."""
+        g = self.captured(state, slots)
+        if state is not g.state_in:
+            torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
+        g.frames.copy_(frames)
+        if slots:
+            n = frames.shape[0]
+            idx = np.full((slots,), n, dtype=np.int64)
+            idx[:served.size] = served
+            host = torch.from_numpy(idx)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            g.extra[0].copy_(host, non_blocking=True)
+        g.replay()
+        return g, g.outputs()
 
     def begin(self, state, frames, modes=None):
         """Start one device-scheduled tick from ``state`` and its host mode
         vector ``modes`` (read from the device when None).  On the card an
-        all-CS tick is left in flight: one graph replay (the caller's state
-        copied into the graph's input buffers unless it is them), its
-        outputs copied out of the graph's buffers and its sync word on the
-        way to the host, no host read.  Every other branch runs to its end.
-        Returns the tick for ``end``: (the replayed graph or None, its
+        all-CS tick and a bucket or chunk tick are left in flight: one
+        graph replay (the caller's state copied into the graph's input
+        buffers unless it is them; a bucket tick's served streams filled in
+        from ``modes``), its outputs copied out of the graph's buffers and
+        its sync word on the way to the host, no host read.  Every other
+        branch (wbtrack, full, the rotation under overload) runs to its
+        end.  Returns the tick for ``end``: (the replayed graph or None, its
         StepOutput or the tick's (state, StepOutput))."""
         if modes is None:
             modes = state.mode.cpu().numpy()
         branch = self.branch(modes)
-        if branch == "track" and self.device.type == "cuda":
-            g = self.captured(state)
-            if state is not g.state_in:
-                torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
-            g.frames.copy_(frames)
-            g.replay()
-            return g, g.outputs()
+        n = len(modes)
+        if branch == "track" and self.replay:
+            return self._replayed(state, frames)
+        if branch == "bucket" and self.replay:
+            served = np.nonzero(modes != ft.MODE_CS)[0]
+            if served.size <= self.chunk_cap(n):
+                kb = min(self.bucket, n)
+                return self._replayed(state, frames,
+                                      -(-served.size // kb) * kb, served)
         age = torch.zeros_like(state.pend_age)
         if branch == "track":
             new, out = self.track(state, frames)
@@ -414,11 +550,11 @@ class _Steps:
         else:
             non_cs = modes != ft.MODE_CS
             served = np.nonzero(non_cs)[0]
-            if served.size > self.chunk_cap(len(modes)):  # rotate: the oldest
+            if served.size > self.chunk_cap(n):  # rotate: the oldest
                 old = state.pend_age.cpu().numpy()
                 key = np.where(non_cs, 1 + old, 0)
                 served = np.sort(np.argsort(-key, kind="stable")
-                                 [:self.chunk_cap(len(modes))])
+                                 [:self.chunk_cap(n)])
                 non_cs[served] = False  # now: pending and not served
                 age = torch.as_tensor(np.where(non_cs, old + 1, 0)
                                       .astype(np.int32), device=self.device)
@@ -441,6 +577,9 @@ class _Steps:
         out = res
         mode_after, esc = g.read_sync()
         state, view = g.state_out, mode_after
+        # escaped streams were CS at entry and a bucket tick serves only
+        # streams that were not, so the two merges touch disjoint streams
+        # and their order does not matter
         if esc.any():
             state, out = self._recompute(g.state_in, g.frames, state, out,
                                          out.escaped, esc != 0)
@@ -480,7 +619,8 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
         frame and ``out.escaped`` marks them.
       step_bucket(state, frames, idx): "track" on the batch, then the full
         machinery for the streams named by ``idx`` ((bucket,) i32, padded
-        with N) that are still non-CS after it.
+        with N) that are still non-CS after it (on the card one replay of
+        the bucket tick's graph, as ``step_auto``'s bucket ticks).
       step_auto(state, frames): one device-scheduled tick (the module
         docstring's branch rule and ``pend_age``, the bucket and chunk cap
         from N = the state's batch).
@@ -564,7 +704,8 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
         idx = idx[(idx >= 0) & (idx < n)].astype(np.int64)
         per = n // k
         states, parts = split(state, frames)
-        res = [c.bucket_tick(s, f, idx[idx // per == j] % per)
+        res = [c.bucket_step(s, f, idx[idx // per == j] % per,
+                             donate or own)
                for j, (c, s, f) in enumerate(zip(cores, states, parts))]
         return joined([r[0] for r in res]), joined([r[1] for r in res])
 
@@ -646,7 +787,7 @@ class BatchedTracker:
     @property
     def _graph(self):
         """The all-CS tick's CUDA graph, or None before its capture."""
-        return self._steps._graphs.get(self.n)
+        return self._steps._graphs.get((self.n, 0))
 
     def _init_state(self, n):
         return ft.init_state(n, self.device, self.config.whitebalancing,
@@ -757,7 +898,8 @@ class BatchedTracker:
 
     def warmup(self, scan_len=None, host_sched=True, device_sched=True):
         """Pay the first ticks' one-time costs up front: device_sched builds
-        the kernels and, on the card, captures the all-CS tick's CUDA graph;
+        the kernels and, on the card, captures the all-CS tick's and the
+        bucket ticks' CUDA graphs;
         host_sched runs the eager steps once ("track", "full" on the batch,
         and the detector at the bucket's size).  The steps are functional,
         so ``self.state`` and the mode view are untouched.  scan_len is
@@ -768,7 +910,7 @@ class BatchedTracker:
         frames = torch.zeros((self.n,) + self.frame_shape + (3,),
                              dtype=torch.uint8, device=self.device)
         if device_sched and self.device.type == "cuda":
-            self._steps.captured(self.state)
+            self._steps.capture_all(self.state)
         if host_sched:
             self._steps.track(self.state, frames)
             self._steps.full(self.state, frames)

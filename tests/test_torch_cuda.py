@@ -924,3 +924,138 @@ def test_mesh_kernel_failure_on_one_shard_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="meanshift launch failed"):
         for f in clip:
             bt.step_auto(f)
+
+
+@pytest.mark.parametrize("casc", ["toy", "real"])
+@pytest.mark.parametrize("n,shape", [(8, (240, 320)), (1, (240, 320)),
+                                     (3, (57, 99)), (2, (480, 640))])
+def test_detector_kernels_bit_equal_to_twins(dev, casc, n, shape):
+    """pyramid, cascade (capacity 256 and 4: survivors beyond it, the
+    overflow) and group (min_neighbors 1 and 0) against their twins on
+    the CPU, slot for slot, on random frames with flat squares."""
+    from headtrackr_tpu_torch.cascade import frontalface
+    from headtrackr_tpu_torch.kernels.cascade import cascade
+    from headtrackr_tpu_torch.kernels.group import group
+    from headtrackr_tpu_torch.kernels.pyramid import pyramid
+    from headtrackr_tpu_torch.models import detector as td
+    H, W = shape
+    c = toy_cascade() if casc == "toy" else frontalface()
+    g = torch.Generator().manual_seed(11)
+    gray = torch.randint(0, 256, (n, H, W), generator=g, dtype=torch.uint8)
+    gray[:, H // 4:H // 4 + 24, W // 4:W // 4 + 24] = 200
+    tc = td.detector_tables(W, H, c, 5, "cpu")
+    tg = td.detector_tables(W, H, c, 5, dev)
+    before = dict(launches)
+    buf = pyramid(gray.to(dev), tg)
+    torch.cuda.synchronize()
+    assert launches["pyramid"] - before["pyramid"] == len(tg.plan.gens)
+    want_buf = pyramid(gray, tc)
+    assert torch.equal(buf.cpu(), want_buf)
+    keys = ("x", "y", "width", "height", "confidence", "valid")
+    for cap in (256, 4):
+        got = cascade(buf, tg, cap)
+        want = cascade(want_buf, tc, cap)
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), v), (cap, k)
+        for mn in (1, 0):
+            s_got, b_got = group(*(got[k] for k in keys), mn)
+            s_want, b_want = group(*(want[k] for k in keys), mn)
+            for k, v in s_want.items():
+                assert torch.equal(s_got[k].cpu(), v), (cap, mn, k)
+            for a, b in zip(b_got, b_want):
+                assert torch.equal(a.cpu(), b), (cap, mn)
+
+
+def test_detect_best_in_a_graph_equals_eager(dev):
+    """detect_best at 8 streams captured in a CUDA graph (no host read)
+    and replayed equals the eager call."""
+    from bench import build_pool
+    from headtrackr_tpu_torch.cascade import frontalface
+    from headtrackr_tpu_torch.models import detector as td
+    from headtrackr_tpu_torch.ops.imageproc import grayscale
+    pool = build_pool(8, 240, 320, 2, 2, np.random.default_rng(0))
+    gray = grayscale(torch.as_tensor(pool[1]).to(dev))
+    tables = td.detector_tables(320, 240, frontalface(), 5, dev)
+    want = td.detect_best(gray, tables)
+    static = gray.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        td.detect_best(static, tables)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = td.detect_best(static, tables)
+    static.zero_()
+    graph.replay()
+    static.copy_(gray)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool(want[0].any())
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
+def test_bucket_graph_equals_eager_ticks(dev, kw):
+    """step_auto with the bucket and chunk ticks replayed from CUDA graphs
+    against the same tracker run eagerly (``_Steps.replay`` off), 8
+    streams, bucket 2: every output of every tick bit-equal, through the
+    lock, losses of one and of three streams and their relocks; one graph
+    a slot count."""
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    clip = np.concatenate([clip, clip[-4:]])
+    clip[-4, [1, 2, 5]] = (0, 0, 250)
+    mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                device=dev, bucket=2, **kw)
+    graph, eager = mk(), mk()
+    eager._steps.replay = False
+    before = dict(launches)
+    for t, f in enumerate(clip):
+        a = [v.cpu().numpy() for v in eager.step_auto(f)]
+        b = [v.cpu().numpy() for v in graph.step_auto(f)]
+        for name, x, y in zip(tft.StepOutput._fields, a, b):
+            np.testing.assert_array_equal(y, x, err_msg=f"tick {t} {name}")
+    slots = {s for (_, s) in graph._steps._graphs}
+    assert {0, 2, 4} <= slots
+    assert not eager._steps._graphs
+    assert launches["cascade"] > before["cascade"]
+    assert graph.modes.tolist() == [2] * n
+
+
+def test_step_bucket_replays_on_the_card(dev):
+    """make_batched_steps' step_bucket on the card (one replay of the bucket
+    graph) against the same step on the CPU: integers exact, floats rtol
+    1e-5 / atol 1e-4, ``pend_age`` kept, the caller's state untouched
+    (donate=False)."""
+    from headtrackr_tpu_torch.runtime.serving import make_batched_steps
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=d,
+                            bucket=2, band=None)
+        for f in clip[:18]:
+            bt.step_auto(f)
+        _, _, step_bucket, _, _ = make_batched_steps(
+            toy_cascade(), bt.config, (H, W), donate=False, device=d,
+            bucket=2, band=None)
+        mode = torch.full((n,), tft.MODE_CS, dtype=torch.int32)
+        mode[[1, 5]] = tft.MODE_VJ
+        state = bt.state._replace(mode=mode.to(d), pend_age=torch.arange(
+            n, dtype=torch.int32, device=d))
+        before = [t.clone() for t in _leaves(state)]
+        new, out = step_bucket(state, clip[18], torch.tensor([1, 5]))
+        for a, b in zip(before, _leaves(state)):
+            assert torch.equal(a, b)
+        assert new.pend_age.tolist() == list(range(n))
+        got.append([t.cpu().numpy() for t in out])
+    for name, a, b in zip(tft.StepOutput._fields, *got):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4,
+                                       err_msg=name)
+    assert got[0][tft.StepOutput._fields.index("mode_after")][[1, 5]].tolist() \
+        == [tft.MODE_CS] * 2

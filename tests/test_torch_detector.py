@@ -1,9 +1,9 @@
-"""The port's detector (plain PyTorch, no capacity caps) against the
-reference package's ``detect_best`` and the oracle's ``detect_objects``:
-the toy cascade at 120x160 and the real cascade at 240x320 on the synthface
-fixture.  ``found`` and ``floor(rect)`` exact, x/y/w/h to rtol 1e-6,
-confidence to atol 1e-5, grouped box set equal to the oracle's (rtol 1e-6
-against its f64 values)."""
+"""The port's detector (its kernels' plain twins on the CPU, 256 candidate
+slots a stream) against the reference package's ``detect_best`` and the
+oracle's ``detect_objects``: the toy cascade at 120x160 and the real
+cascade at 240x320 on the synthface fixture.  ``found`` and ``floor(rect)``
+exact, x/y/w/h to rtol 1e-6, confidence to atol 1e-5, grouped box set equal
+to the oracle's (rtol 1e-6 against its f64 values)."""
 
 import importlib
 import os

@@ -106,6 +106,22 @@ def test_step_outputs_match_reference_every_tick(run):
         _assert_outputs_equal(ref, got, f"tick {t}")
 
 
+def test_replayed_relock_ticks_match_reference_every_tick(run):
+    """The same clip through the tick's device form (the bucket and chunk
+    ticks, and the all-CS ticks, run as the card replays them: uncaptured
+    here on the graphs' buffers) against the reference's step_auto."""
+    tb = pt.BatchedTracker(N, (H, W), cascade=pt.toy_cascade(), device="cpu",
+                           band=BAND, bandHist=True, bucket=1,
+                           bandHistAuditAction=run["tb"].config
+                           .bandHistAuditAction)
+    tb._steps.replay = True
+    for t, frames in enumerate(_clip()):
+        got = [v.numpy() for v in tb.step_auto(frames)]
+        _assert_outputs_equal(run["rows"][t][0], got, f"tick {t}")
+    assert any(g is not None for g in tb._steps._graphs.values())
+    assert {s for _, s in tb._steps._graphs} >= {0, 1, 2}
+
+
 def test_clip_covers_every_branch_escape_and_audit(run):
     rows, br = run["rows"], run["branches"]
     det = _field(rows, "detection")

@@ -23,8 +23,10 @@ Parts (``--parts``, comma list; default all):
              (graph);
   dispatch   one replayed all-tracking ``step_auto`` on an idle card (host
              clock: the whole call, and its enqueue alone);
-  bucket     a tick with 8 streams redetecting (after a blue frame), eager
-             (events and host clock).
+  bucket     a tick with 8 streams redetecting (after a blue frame): one
+             replay of the bucket tick's CUDA graph (events and host clock);
+  bucket_eager  the same tick run eagerly (``_Steps.replay`` off for it;
+             events and host clock).
 
 Prints one ``<part>_ms_per_tick`` line a part (ms for N streams), then the
 parts as one JSON line.  tools/profile_chip.py's per-stage camshift times
@@ -48,11 +50,42 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 
 PARTS = ("rtt", "h2d", "track", "trackband", "bandparts", "histpdf", "hist",
-         "pdfonly", "meanshift", "dispatch", "bucket")
+         "pdfonly", "meanshift", "dispatch", "bucket", "bucket_eager")
 REPS = 20
 POOL = 16
 LOCK_TICKS = 16
 BUCKET = 8
+
+
+def redetect_ms(bt, pool, dev, eager=False):
+    """(events ms, host ms), medians over 5 reps, of a tick in which BUCKET
+    streams redetect (a blue frame just unlocked them): track on the batch
+    and the full step on the BUCKET streams.  eager=True runs that tick
+    eagerly instead of replaying its graph."""
+    import torch
+    from headtrackr_tpu_torch.models import facetracker as ft
+    lost = pool[1].clone()
+    lost[:BUCKET] = torch.tensor([0, 0, 250], dtype=torch.uint8, device=dev)
+    ev, host = [], []
+    for rep in range(6):
+        bt.step_auto(lost)  # BUCKET streams lose track
+        if int((bt.modes != ft.MODE_CS).sum()) != BUCKET:
+            raise SystemExit("the blue frame did not unlock 8 streams")
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        bt._steps.replay = not eager
+        t0 = time.perf_counter()
+        a.record()
+        bt.step_auto(pool[2])  # they redetect: track + full on BUCKET
+        b.record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        bt._steps.replay = True
+        ev.append(a.elapsed_time(b))
+        for _ in range(2):
+            bt.step_auto(pool[2])
+    return float(np.median(ev[1:])), 1e3 * float(np.median(host[1:]))
 
 
 def events_ms(fn, reps=REPS):
@@ -248,30 +281,11 @@ def main(argv=None):
                "replayed step_auto on an idle card, host clock, median")
         report("dispatch_enqueue", 1e3 * float(np.median(begin[4:])),
                "its enqueue alone (_auto_begin), host clock, median")
-    if "bucket" in want:
-        lost = pool[1].clone()
-        lost[:BUCKET] = torch.tensor([0, 0, 250], dtype=torch.uint8,
-                                     device=dev)
-        ev, host = [], []
-        for rep in range(6):
-            bt.step_auto(lost)  # 8 streams lose track
-            if int((bt.modes != ft.MODE_CS).sum()) != BUCKET:
-                raise SystemExit("the blue frame did not unlock 8 streams")
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            a.record()
-            bt.step_auto(pool[2])  # they redetect: track + full on 8
-            b.record()
-            torch.cuda.synchronize()
-            host.append(time.perf_counter() - t0)
-            ev.append(a.elapsed_time(b))
-            for _ in range(2):
-                bt.step_auto(pool[2])
-        report("bucket", float(np.median(ev[1:])),
-               f"8 redetects, events, median; host clock "
-               f"{1e3 * float(np.median(host[1:])):.4f} ms")
+    for part in ("bucket", "bucket_eager"):
+        if part in want:
+            ev, host = redetect_ms(bt, pool, dev, eager=part != "bucket")
+            report(part, ev, f"8 redetects, events, median; host clock "
+                   f"{host:.4f} ms")
     print(json.dumps({"parts_ms_per_tick": res, "streams": N,
                       "device": card_name(dev)}))
     return res

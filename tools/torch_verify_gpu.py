@@ -20,8 +20,10 @@ clip (+-3 LSB noise, gated exact) and the degenerate one (noise 0, gated on
 mean IoU >= 0.99, the reference tool's documented worst case); the
 hard clips (a lighting ramp; a blue bar occluding the face, which forces a
 redetect), gated on full mode agreement and mean IoU >= 0.99; the clutter
-gate (a crowd of faces: the port's detector, which has no capacity caps,
-must give the oracle's raw candidate set and find a face); and the relock
+gate (a crowd of faces: the port's detector, which keeps 256 candidate
+slots a stream and none of the reference's tile and window caps, must
+report no overflow, give the oracle's raw candidate set and find a face);
+and the relock
 gate (8 streams, three lose track at once and must relock within 3 ticks
 and stay locked, bandHist on and off).
 
@@ -324,9 +326,11 @@ def run_hard(frames, size, device, log=print):
 def run_clutter(size, device, log=print):
     """The port's detector on the crowd frame: its raw candidate set equals
     the oracle's (to 1e-2 px and 5e-3 confidence, as the reference tool
-    rounds), and detect_best finds a face.  The port's detector has no
-    capacity caps, so the reference tool's capped and starved arms have no
-    counterpart here."""
+    rounds), and detect_best finds a face.  The port's detector keeps 256
+    candidate slots a stream and reports the survivors beyond them (0 on
+    this frame); it has none of the reference's tile and window caps, so
+    the reference tool's capped and starved arms have no counterpart
+    here."""
     import torch
     from headtrackr_tpu_torch.cascade import frontalface
     from headtrackr_tpu_torch.models import detector as td
@@ -342,6 +346,7 @@ def run_clutter(size, device, log=print):
     g = torch.as_tensor(gray).to(device)[None]
     cand = {k: v[0].cpu().numpy()
             for k, v in td.detect_candidates(g, tables).items()}
+    overflow = int(cand.pop("overflow"))
     bj = sorted((round(float(cand["x"][i]), 3), round(float(cand["y"][i]), 3),
                  round(float(cand["width"][i]), 3),
                  round(float(cand["confidence"][i]), 3))
@@ -352,7 +357,8 @@ def run_clutter(size, device, log=print):
         return (abs(a[0] - b[0]) < 1e-2 and abs(a[1] - b[1]) < 1e-2
                 and abs(a[2] - b[2]) < 1e-2 and abs(a[3] - b[3]) < 5e-3)
 
-    parity = len(bj) == len(bo) and all(close(a, b) for a, b in zip(bj, bo))
+    parity = (overflow == 0 and len(bj) == len(bo)
+              and all(close(a, b) for a, b in zip(bj, bo)))
     log(f"--- clutter gate ({W}x{H} crowd frame): {len(bj)}/{len(bo)} "
         f"candidates | SET parity: {'exact' if parity else 'FAIL'} | "
         f"detect_best found: {found}")
