@@ -66,10 +66,15 @@ Phases, one line each; any failure raises and exits nonzero:
      on the CPU), candidates slot for slot and overflow equal: the bench
      pools and uniform random frames at N=256, 8 and 1 with the real
      cascade, the toy cascade on a bench batch and on random frames (more
-     survivors than C: overflow), C=1 on the bench, and 480x640 frames;
-     group also with min_neighbors 0.  Each is timed at N=256, 8 and 1
-     beside its twin, its bound and (pyramid) one F.interpolate resize,
-     the nearest library call;
+     survivors than C: overflow), C=1 on the bench, 480x640 frames, and
+     frames tiled with faces at N=8 and 256 (deep survivors in every warp
+     that holds a face); group also with min_neighbors 0.  On the bench
+     pool at N=8 and 256 it logs, from the plain code, the deep survivors
+     and the deep weak classifiers the busiest warp of 32 windows held
+     under the old division (each warp walked its own survivors' chains).
+     Each is timed at N=256, 8 and 1 (pyramid and cascade also at
+     480x640) by events and graph replay beside its twin, its bound and
+     (pyramid) one F.interpolate resize, the nearest library call;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -302,6 +307,17 @@ def cuda_ms(fn, reps=20):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def launches_of(key, fn):
+    """The launches of kernel ``key`` one eager call of fn makes: the
+    wrappers' count (kernels/launch.py), read before and after it."""
+    import torch
+    from headtrackr_tpu_torch.kernels import launch as L
+    before = L.launches[key]
+    fn()
+    torch.cuda.synchronize()
+    return L.launches[key] - before
 
 
 def graph_ms(fn, reps=20):
@@ -1081,6 +1097,55 @@ def cascade_weak(buf, tables):
     return weak
 
 
+def face_tiles(n, dev):
+    """n gray 240x320 frames tiled with the synthetic 24x24 face every 26
+    px: the windows around each face pass the deep stages."""
+    import numpy as np
+    import torch
+    from headtrackr_tpu_torch.cascade import DATA_DIR
+    from headtrackr_tpu_torch.ops.imageproc import grayscale
+    face = np.load(os.path.join(DATA_DIR, "synthface.npz"))["rgb"]
+    rgb = np.full((H, W, 3), (120, 100, 90), np.uint8)
+    for y in range(1, H - 24, 26):
+        for x in range(1, W - 24, 26):
+            rgb[y:y + 24, x:x + 24] = face
+    gray = grayscale(torch.as_tensor(rgb).to(dev))
+    return gray[None].repeat(n, 1, 1).contiguous()
+
+
+def old_division_load(buf, tables):
+    """The deep-stage work each warp of 32 windows held under the old
+    division (the warp that found a dense survivor walked its deep stages),
+    by the plain code: the dense survivors (the first two stages), each
+    one's deep weak classifiers evaluated until it dies, summed by warp."""
+    import torch
+    from headtrackr_tpu_torch.ops import detect as od
+    M = tables.M
+    alive = torch.arange(buf.shape[0] * M, device=buf.device)
+    weak = torch.zeros(buf.shape[0] * M, dtype=torch.int64,
+                       device=buf.device)
+    dense = None
+    for s, stage in enumerate(tables.stages):
+        if s == 2:
+            dense = alive.clone()
+        if alive.numel() == 0:
+            break
+        if s >= 2:
+            weak[alive] += stage.alpha0.numel()
+        sums = od._stage_sums(buf, tables, stage, alive // M, alive % M)
+        alive = alive[sums >= stage.thresh]
+    dense = alive if dense is None else dense
+    warp = (dense // M) * (-(-M // 32)) + (dense % M) // 32
+    held = torch.bincount(warp)
+    held_weak = torch.bincount(warp, weights=weak[dense].double())
+    busy = held_weak[held > 0]
+    return dict(survivors=int(dense.numel()), warps=int((held > 0).sum()),
+                most_survivors=int(held.max()) if held.numel() else 0,
+                most_weak=int(busy.max()) if busy.numel() else 0,
+                mean_weak=float(busy.mean()) if busy.numel() else 0.0,
+                longest_chain=int(weak.max()))
+
+
 def phase_detect(pools, dev):
     """Phase 3's detector kernels: pyramid, cascade and group against their
     twins (run on the card; at <= 8 streams also on the CPU), tolerance 0,
@@ -1116,7 +1181,10 @@ def phase_detect(pools, dev):
         2, 1).repeat_interleave(2, 2).contiguous()
     cases = [(f"{name} real N={n}", "real", gr[:n].contiguous(), 256)
              for name, gr in grays.items() for n in DETECT_NS]
-    cases += [("face_noise=0 toy N=8", "toy", grays["face_noise=0"][:8], 256),
+    faces = face_tiles(N_STREAMS, dev)
+    cases += [("faces real N=8", "real", faces[:8].contiguous(), 256),
+              (f"faces real N={N_STREAMS}", "real", faces, 256),
+              ("face_noise=0 toy N=8", "toy", grays["face_noise=0"][:8], 256),
               ("random toy N=8 (overflow)", "toy", grays["random"][:8], 256),
               ("random toy N=256 (overflow)", "toy", grays["random"], 256),
               ("face_noise=0 real N=8 C=1", "real",
@@ -1171,6 +1239,19 @@ def phase_detect(pools, dev):
         f"inputs: " + "; ".join(f"{k}: {v[0]} kept, {v[1]} over, {v[2]} "
                                 f"found" for k, v in survivors.items()))
 
+    for n in (8, N_STREAMS):
+        tg = tables("real", (H, W), dev)
+        load = old_division_load(pyramid(grays["face_noise=0"][:n]
+                                         .contiguous(), tg), tg)
+        log(f"kernels: cascade at N={n} on the bench pool under the old "
+            f"division (a warp walked its own dense survivors' deep "
+            f"stages): {load['survivors']} deep survivors in "
+            f"{load['warps']} warps of 32 windows; the busiest warp held "
+            f"{load['most_survivors']} of them and "
+            f"{load['most_weak']} deep weak classifiers (mean over warps "
+            f"with any: {load['mean_weak']:.1f}); the longest single chain "
+            f"{load['longest_chain']}")
+
     def plain_vs(kern, plain):
         p1 = cuda_ms(plain, reps=5)
         k1 = cuda_ms(kern)
@@ -1179,14 +1260,17 @@ def phase_detect(pools, dev):
         return (k1 + k2) / 2, (p1 + p2) / 2
 
     t = {}
-    for n in DETECT_NS:
-        gray = grays["face_noise=0"][:n].contiguous()
-        tg = tables("real", (H, W), dev)
+    runs = [(n, (H, W), grays["face_noise=0"][:n].contiguous())
+            for n in DETECT_NS] + [(DETECT_BIG, (2 * H, 2 * W), big)]
+    for n, shape, gray in runs:
+        tg = tables("real", shape, dev)
         buf = pyramid(gray, tg)
         cand = cascade(buf, tg, 256)
         cargs = [cand[k] for k in keys]
         k = int(cand["valid"].sum(1).max())
-        sfx = "" if n == N_STREAMS else f" n{n}"
+        sfx = ("" if n == N_STREAMS else f" n{n}") if shape == (H, W) \
+            else " 480x640"
+        hh, ww = shape
         # pyramid: the frames read, the packed planes written; ~8 f32
         # operations a pixel.  Nearest library call: one bilinear resize
         # (F.interpolate) of the frames to the first level, not the same
@@ -1195,7 +1279,7 @@ def phase_detect(pools, dev):
         ms, plain_ms = plain_vs(
             lambda: pyramid(gray, tg),
             lambda: pack_pyramid(gray, 5, tg.plane_keys, tg.geom_levels))
-        b, by = bound(n * (H * W + tg.L), 8 * n * tg.L)
+        b, by = bound(n * (hh * ww + tg.L), 8 * n * tg.L)
         gf = gray[:, None].float()
         t["pyramid" + sfx] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -1203,8 +1287,9 @@ def phase_detect(pools, dev):
             library_ms=cuda_ms(lambda: F.interpolate(
                 gf, size=(h1, w1), mode="bilinear", align_corners=False)),
             library_call="F.interpolate(bilinear), one level (nearest, not "
-                         "the same function)", launches_per_call=len(
-                             tg.plan.gens))
+                         "the same function)",
+            launches_per_call=launches_of("pyramid",
+                                          lambda: pyramid(gray, tg)))
         # cascade: the packed planes read once, the slots written; ~12
         # operations a weak classifier evaluated (10 pixel compares, the
         # vote, the f64 add) over this run's windows
@@ -1215,7 +1300,10 @@ def phase_detect(pools, dev):
         t["cascade" + sfx] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
             graph_ms=graph_ms(lambda: cascade(buf, tg, 256)),
-            library_ms=None, launches_per_call=2)
+            library_ms=None, launches_per_call=launches_of(
+                "cascade", lambda: cascade(buf, tg, 256)))
+        if shape != (H, W):
+            continue  # group's slots do not grow with the frame
         # group: the slots read and written, the picks written; ~20
         # operations a pair of valid slots
         ms, plain_ms = plain_vs(lambda: group(*cargs, 1),
@@ -1225,9 +1313,12 @@ def phase_detect(pools, dev):
         t["group" + sfx] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
             graph_ms=graph_ms(lambda: group(*cargs, 1)), library_ms=None,
-            launches_per_call=1, most_candidates=k)
+            launches_per_call=launches_of("group",
+                                          lambda: group(*cargs, 1)),
+            most_candidates=k)
     for name, e in t.items():
-        log(f"kernels: {name} {e['ms']:.4f} ms, graph replay "
+        log(f"kernels: {name} ({e['launches_per_call']} launches a call) "
+            f"{e['ms']:.4f} ms, graph replay "
             f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.6f} ms by {e['bound_by']}; library "
             f"{fmt_ms(e['library_ms']) if e['library_ms'] is not None else 'none'})")
@@ -2213,6 +2304,8 @@ def main():
             e.update(bench=times["hist_bins bench"], n1=times["hist_bins n1"])
         if k in DETECT:
             e.update({f"n{n}": times[f"{k} n{n}"] for n in DETECT_NS[1:]})
+        if f"{k} 480x640" in times:
+            e["x480x640"] = times[f"{k} 480x640"]
         if k == "hist_mma":
             e.update(session_launches=session["launches"][k],
                      n1=times["hist_mma n1"], x6_workload=times["hist_mma x6"],

@@ -54,10 +54,14 @@ _SIGNATURES = {
     },
     "pyramid": {
         "pyramid_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
-                           _I, _I, _C),
+                           _I, _I, _I, _I, _I, _I, _C),
     },
     "cascade": {
-        "cascade_eval_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I,
+        "cascade_dense_launch": (_C, _C, _C, _C, _C, _I, _I, _C, _I, _I, _C,
+                                 _C, _I, _I, _C, _C, _C, _C, _C, _I, _I, _I,
+                                 _C),
+        "cascade_deep_launch": (_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _C, _C, _C, _C, _I, _I,
                                 _I, _I, _C),
         "cascade_compact_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _I,
                                    _I, _I, _C),

@@ -4,18 +4,78 @@
             (with _dense_chunk_stacked and _patch_chunk)
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
-(ops/detect.py cascade_plain), a CUDA tensor launches the kernels, two
-launches a call (the windows through the stages, then each stream's
-survivors compacted in window order); any other device raises, and so does
-a failed build or launch.  The two are equal to the bit, slot for slot.
+(ops/detect.py cascade_plain), a CUDA tensor launches the kernels, three
+launches a call (the windows through the dense stages, listing their
+survivors; the listed survivors through the deep stages, a warp each; each
+stream's survivors compacted in window order), two for a cascade of at
+most DENSE stages; any other device raises, and so does a failed build or
+launch.  The two are equal to the bit, slot for slot.
+
+The launch policy is this module's: the dense kernel's tile (``dense_tile``)
+and its tiles (``dense_tiles``), cached on the tables.
 """
 
+import numpy as np
 import torch
 
 from ..ops.detect import cascade_plain
-from .launch import launch, on_cuda
+from .launch import launch, on_cuda, sm_count
 
-__all__ = ["cascade"]
+DENSE = 2          # stages run a thread a window, at most (kDense)
+DENSE_WEAK = 16    # their weak classifiers, at most (kDenseWeak)
+DENSE_TILES = (256, 1024)  # windows of one scale step a dense CTA takes
+_LIST_MAX = (1 << 32) - 1  # list entries n * M + m are u32
+
+
+def dense_tile(n_streams, ctas, sms):
+    """Windows a dense CTA takes: the larger tile (its staging and slot
+    table spread over 4x the windows) where its CTAs (``ctas``: the larger
+    tile's CTAs a stream) still fill 8 a SM of ``sms``, else the smaller
+    (more CTAs: the relock bucket and the session).  A pure function of
+    the shapes and the card."""
+    return DENSE_TILES[1] if n_streams * ctas >= 8 * sms else DENSE_TILES[0]
+
+
+def dense_tiles(scales, ext, tile):
+    """The dense kernel's tiles of ``tile`` windows over the scale steps
+    ``scales`` (DetectorTables.dense): tile_first (G + 1,) i32 (scale step
+    g's tiles, each from the 32-window word of its first window), and the
+    most shared-memory bytes a tile's staged rows take (each plane's run
+    of whole rows, ``ext`` rows beyond the tile's window rows, 16-byte
+    aligned with its start's offset)."""
+    tile_first, most = [0], 0
+    for first, count, cols, _, _, _, w0, w1, wi in scales:
+        starts = range(first // 32 * 32, first + count, tile)
+        tile_first.append(tile_first[-1] + len(starts))
+        for m0 in starts:
+            dy = ((min(m0 + tile, first + count) - 1 - first) // cols
+                  - (max(m0, first) - first) // cols)
+            rows = [2 * dy + ext[0], dy + ext[1], dy + ext[2]]
+            most = max(most, sum((r * w + 30) & ~15 for r, w, e in zip(
+                rows, (w0, w1, wi), ext) if e))
+    return np.asarray(tile_first, np.int32), most
+
+
+def _tiles(tables, tile):
+    """dense_tiles of ``tables``, cached on them."""
+    key = ("cascade", tile)
+    if key not in tables.launch:
+        tables.launch[key] = dense_tiles(tables.dense.scales,
+                                         tables.dense.ext, tile)
+    return tables.launch[key]
+
+
+def dense_stages(ends):
+    """The stages the dense kernel runs, a thread a window: the leading
+    ones, at most DENSE, whose weak classifiers (``ends``: each stage's
+    cumulative end) fit DENSE_WEAK; the deep kernel takes the rest."""
+    d = 0
+    while d < min(DENSE, len(ends)) and int(ends[d]) <= DENSE_WEAK:
+        d += 1
+    return d
+
+__all__ = ["cascade", "dense_stages", "dense_tile", "dense_tiles", "DENSE",
+           "DENSE_WEAK", "DENSE_TILES"]
 
 
 def cascade(buf, tables, capacity):
@@ -41,16 +101,41 @@ def cascade(buf, tables, capacity):
     overflow = torch.empty((N,), dtype=torch.int32, device=dev)
     if N:
         words = -(-M // 32)
-        bits = torch.empty((N, words), dtype=torch.int32, device=dev)
+        # the bitmap, then the survivor count: zeroed by one memset
+        zero = torch.empty((N * words + 1,), dtype=torch.int32, device=dev)
+        bits = zero[:N * words]
         conf = torch.empty((N, M), dtype=torch.float32, device=dev)
+        stages = len(tables.stages)
+        dn = tables.dense
+        d = len(dn.ends)
+        tile = dense_tile(N, int(_tiles(tables, DENSE_TILES[1])[0][-1]),
+                          sm_count(dev))
+        tile_first, tile_bytes = _tiles(tables, tile)
+        chunk = min(N, max(1, _LIST_MAX // max(M, 1)))
         with torch.cuda.device(dev):
             if M:
-                launch("cascade", "cascade_eval_launch", buf.data_ptr(),
-                       tables.base32.data_ptr(), tables.rowstep32.data_ptr(),
-                       tables.feat.data_ptr(), tables.alpha.data_ptr(),
-                       tables.thresh.data_ptr(), tables.stage_end.data_ptr(),
-                       bits.data_ptr(), conf.data_ptr(), N, tables.L, M,
-                       len(tables.stages))
+                work = torch.empty((chunk * M,), dtype=torch.int32,
+                                   device=dev)
+            for n0 in range(0, N if M else 0, chunk):
+                n = min(chunk, N - n0)
+                at = (bits[n0 * words].data_ptr(), zero[N * words].data_ptr(),
+                      conf[n0].data_ptr(), work.data_ptr(), n, tables.L, M)
+                launch("cascade", "cascade_dense_launch",
+                       dn.codes.ctypes.data, dn.side.ctypes.data,
+                       dn.alpha.ctypes.data, dn.thresh.ctypes.data,
+                       dn.ends.ctypes.data, d, len(dn.codes),
+                       dn.ext.ctypes.data, tile, tile_bytes,
+                       dn.scales.ctypes.data, tile_first.ctypes.data,
+                       len(dn.scales), int(stages > d), buf[n0].data_ptr(),
+                       *at)
+                if stages > d:
+                    launch("cascade", "cascade_deep_launch",
+                           buf[n0].data_ptr(), tables.base32.data_ptr(),
+                           tables.rowstep32.data_ptr(),
+                           tables.offs16.data_ptr(), tables.alpha.data_ptr(),
+                           tables.thresh.data_ptr(),
+                           tables.stage_end.data_ptr(), len(tables.alpha), d,
+                           stages, *tables.footprint, *at, sm_count(dev))
             launch("cascade", "cascade_compact_launch", bits.data_ptr(),
                    conf.data_ptr(), tables.out_x.data_ptr(),
                    tables.out_y.data_ptr(), tables.out_w.data_ptr(),

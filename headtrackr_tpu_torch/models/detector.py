@@ -48,7 +48,7 @@ import torch
 
 from ..cascade import cascade_to_torch
 from ..device import resolve_device
-from ..kernels.cascade import cascade
+from ..kernels.cascade import cascade, dense_stages
 from ..kernels.group import group
 from ..kernels.pyramid import pyramid
 from ..ops.imageproc import pyramid_plan, pyramid_spec
@@ -75,14 +75,17 @@ class _Stage:
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
-    """ops/imageproc.py PyramidPlan with its arrays on the device."""
-    jobs: torch.Tensor     # (J, 13) i32
-    xi: torch.Tensor       # (X, 2) i32
-    xf: torch.Tensor       # (X, 2) f32
-    yi: torch.Tensor
-    yf: torch.Tensor
-    gens: tuple            # (first job, end job, pixels) a generation
-    S: int                 # scratch bytes a stream
+    """ops/imageproc.py PyramidPlan (``host``) with its arrays on the
+    device."""
+    steps: torch.Tensor        # (J, STEP_COLS) i32, a row a level
+    chain_first: torch.Tensor  # (C + 1,) i32
+    chain_grid: torch.Tensor   # (C, 4) i32 a chain's xg and yg rows
+    xg: torch.Tensor           # (X, 4) i32
+    yg: torch.Tensor
+    grid_bytes: int            # a chain's grids, staged
+    chains: int                # C
+    S: int                     # scratch bytes a stream
+    host: object               # the PyramidPlan (NumPy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +105,7 @@ class DetectorTables:
     out_w: torch.Tensor
     out_h: torch.Tensor
     stages: tuple          # tuple[_Stage]
-    plan: _Plan            # the pyramid kernel's jobs
+    plan: _Plan            # the pyramid kernel's chains
     base32: torch.Tensor   # (M, 3) i32: base, rowstep as i32
     rowstep32: torch.Tensor
     feat: torch.Tensor     # (K, 10) i32 feature codes z | x' << 2 | y << 8
@@ -111,6 +114,76 @@ class DetectorTables:
     alpha: torch.Tensor    # (K, 2) f32
     thresh: torch.Tensor   # (S,) f32
     stage_end: torch.Tensor  # (S,) i32 end of each stage's weak range
+    offs16: torch.Tensor   # (K, 10) i16 the deep kernel's feature slots:
+                           # offsets in a window's footprint, -1 empty
+    footprint: tuple       # (w0, h0, w1, h1, w2, h2): the footprint's
+                           # bytes a row and rows a plane z (its layout)
+    dense: "_Dense"        # the dense kernel's parameters (host arrays)
+    launch: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+                           # the kernel wrappers' launch settings, cached
+
+
+@dataclasses.dataclass(frozen=True)
+class _Dense:
+    """The cascade's dense kernel's parameters, host arrays copied into
+    each launch (kernels/cascade.py): its leading stages' weak classifiers
+    and the scale steps' geometry."""
+    codes: np.ndarray      # (D, 10) i32, empty slots filled (_dense_codes)
+    side: np.ndarray       # (D,) i32 sides with no slot
+    alpha: np.ndarray      # (D, 2) f32
+    thresh: np.ndarray     # (d,) f32 its stages' thresholds
+    ends: np.ndarray       # (d,) i32 and ends
+    ext: np.ndarray        # (3,) i32 plane rows a window row reads
+    scales: np.ndarray     # (G, 9) i32 a scale step's first window,
+                           # windows, columns 2 qw, plane offsets for z =
+                           # 0, 1, 2, widths of planes 0, 1 and of I
+
+
+def _dense_codes(codes):
+    """The dense kernel's codes: each empty slot (-1) filled with the first
+    slot of its side (a repeated pixel leaves min and max alone), and the
+    sides with no slot at all: side bit 0 (no positive: min 255), bit 1
+    (no negative: max 0), their slots code 0 (read, then ignored)."""
+    out = codes.copy()
+    side = np.zeros(len(codes), np.int32)
+    for k, row in enumerate(codes):
+        for bit, sl in ((1, slice(0, 5)), (2, slice(5, 10))):
+            valid = row[sl][row[sl] >= 0]
+            if valid.size == 0:
+                side[k] |= bit
+            out[k, sl] = np.where(row[sl] >= 0, row[sl],
+                                  valid[0] if valid.size else 0)
+    return out, side
+
+
+def _dense_ext(codes):
+    """The plane rows a window row reads, (3,) i32: planes 0 and 1 y < ext;
+    I rows y2 + 2y, so 2 max y + 1; 0 for a plane no code reads."""
+    z, y = codes & 3, codes >> 8
+    ext = np.zeros(3, np.int32)
+    for p in range(3):
+        if (z == p).any():
+            ext[p] = (2 if p == 2 else 1) * int(y[z == p].max()) + 1
+    return ext
+
+
+def _footprint(codes):
+    """The deep kernel's footprint of a window (its feature pixels' extent
+    by plane: (w0, h0, w1, h1, w2, h2), x' then y) and each slot's offset
+    in it (planes 0, 1, 2 in turn, row-major; -1: an empty slot)."""
+    ok = codes >= 0
+    z, x, y = codes & 3, (codes >> 2) & 63, codes >> 8
+    ext, offs = [], np.full(codes.shape, -1, np.int64)
+    at = 0
+    for p in range(3):
+        on = ok & (z == p)
+        w = int(x[on].max()) + 1 if on.any() else 0
+        h = int(y[on].max()) + 1 if on.any() else 0
+        offs[on] = at + y[on] * w + x[on]
+        ext += [w, h]
+        at += w * h
+    return tuple(ext), offs.astype(np.int16)
 
 
 def _feature_codes(cascade):
@@ -151,7 +224,12 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
     offs, ioffs = p.plane_off, p.inter_off
 
     base, rstep, ox, oy, ow, oh = [], [], [], [], [], []
+    scales, first = [], 0
     for (i, qh2, qw2, sc, H2, W2) in geoms:
+        scales.append([first, qh2 * qw2, qw2, offs[i * 4],
+                       offs[(i + nxt) * 4], ioffs[i], dims[i][0],
+                       dims[i + nxt][0], 2 * W2])
+        first += qh2 * qw2
         y2, x2 = (a.ravel().astype(np.int64) for a in
                   np.meshgrid(np.arange(qh2), np.arange(qw2), indexing="ij"))
         w0p = dims[i][0]
@@ -197,6 +275,16 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
 
     dev = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
     base_t = cat(base, torch.int64, 3)
+    codes = _feature_codes(cascade)
+    alpha = np.asarray(cascade["alpha"], np.float32).reshape(-1, 2)
+    thresh = np.asarray(cascade["stage_thresh"], np.float32)
+    ends = np.cumsum(np.asarray(cascade["stage_counts"])).astype(np.int32)
+    d = dense_stages(ends)
+    kd = int(ends[d - 1]) if d else 0
+    foot, foot_offs = _footprint(codes)
+    dense_codes, side = _dense_codes(codes[:kd])
+    scales = np.asarray(scales, np.int32).reshape(-1, 9)
+    ext = _dense_ext(dense_codes)
     rstep_t = cat(rstep, torch.int64, 3)
     return DetectorTables(
         spec=spec, M=sum(g[1] * g[2] for g in geoms),
@@ -205,15 +293,17 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
         out_x=cat(ox, torch.float32), out_y=cat(oy, torch.float32),
         out_w=cat(ow, torch.float32), out_h=cat(oh, torch.float32),
         stages=tuple(stages),
-        plan=_Plan(jobs=dev(p.jobs), xi=dev(p.xi), xf=dev(p.xf),
-                   yi=dev(p.yi), yf=dev(p.yf), gens=p.gens, S=p.S),
+        plan=_Plan(steps=dev(p.steps), chain_first=dev(p.chain_first),
+                   chain_grid=dev(p.chain_grid),
+                   xg=dev(p.xg), yg=dev(p.yg), grid_bytes=p.grid_bytes,
+                   chains=len(p.chain_first) - 1, S=p.S, host=p),
         base32=base_t.to(torch.int32).contiguous(),
         rowstep32=rstep_t.to(torch.int32).contiguous(),
-        feat=dev(_feature_codes(cascade)),
-        alpha=dev(np.asarray(cascade["alpha"], np.float32)),
-        thresh=dev(np.asarray(cascade["stage_thresh"], np.float32)),
-        stage_end=dev(np.cumsum(np.asarray(cascade["stage_counts"]))
-                      .astype(np.int32)))
+        feat=dev(codes), alpha=dev(alpha), thresh=dev(thresh),
+        stage_end=dev(ends), offs16=dev(foot_offs), footprint=foot,
+        dense=_Dense(*(np.ascontiguousarray(a) for a in (
+            dense_codes, side, alpha[:kd], thresh[:d], ends[:d], ext,
+            scales))))
 
 
 def detect_candidates(gray, tables, capacity=CAPACITY):

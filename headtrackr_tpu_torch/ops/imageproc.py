@@ -166,37 +166,51 @@ def pack_pyramid(gray, interval, plane_keys, geom_levels):
     return torch.cat(parts, dim=1).contiguous()
 
 
-# PyramidPlan.jobs columns
-(JOB_SRC, JOB_SRC_W, JOB_OUT_W, JOB_OUT_H, JOB_DW, JOB_DH, JOB_XT, JOB_YT,
- JOB_DST, JOB_OFF, JOB_ROW, JOB_COL, JOB_START, JOB_COLS) = range(14)
+# PyramidPlan.steps columns
+(STEP_LEVEL, STEP_W, STEP_H, STEP_SW, STEP_SH, STEP_FROM, STEP_XA, STEP_YA,
+ STEP_XB, STEP_YB, STEP_PLANE, STEP_INTER, STEP_SOURCE, STEP_SCR,
+ STEP_COLS) = range(15)
+# STEP_FROM: what a step reads
+FROM_COPY, FROM_FRAME, FROM_PREV = -1, 0, 1
 
 
 @dataclasses.dataclass(frozen=True)
 class PyramidPlan:
-    """``pack_pyramid`` as jobs for the ``pyramid`` kernel: one job an output
-    plane copy, each a defined resize (or, src -2, a copy of the frame)
-    written to the scratch of intermediate levels (dst 0) or to the packed
-    buffer (dst 1), grouped in generations that read only the frame or the
-    generation before (level i reads level i - next).
+    """``pack_pyramid`` as chains for the ``pyramid`` kernel.  Level i >= next
+    is level i - next halved (and, from 2 next on, its shifted quarter
+    variants read level i - next too), so the pyramid is ``next``
+    independent chains c, c + next, c + 2 next, ... a stream; the kernel
+    builds each chain's levels in order, each from the one before.
 
-    jobs (J, JOB_COLS) i32: src offset in the scratch (-1: the frame, -2:
-    the frame copied), source row stride, the output plane's width and
-    height, the filled [0, dh) x [0, dw) region (the rest is 0), the rows
-    of xtab and ytab where its grid starts, dst, the destination offset,
-    its row stride and column step (2 in the interleaved quarter planes),
-    and the job's first pixel among its generation's.  xi/xf (X, 2): a
-    column's source columns (x0, x1) and weights (1 - fx, fx); yi/yf
-    likewise for rows, all from ``_grid``.  gens: (first job, end job,
-    pixels) a generation.  S: scratch bytes a stream, L: packed bytes.
-    The packed layout: plane_off[k], the offset of plane key k (row-major),
-    and inter_off[i], that of scale step i's interleaved quarter planes
-    (2 H2 x 2 W2, I[2a + dy, 2b + dx] = quarter_{2 dy + dx}[a, b])."""
-    jobs: np.ndarray
-    xi: np.ndarray
-    xf: np.ndarray
-    yi: np.ndarray
-    yf: np.ndarray
-    gens: tuple
+    steps (J, STEP_COLS) i32, a row a level, chain by chain
+    (``chain_first``: (C + 1,) i32, chain j's rows are chain_first[j] up to
+    chain_first[j + 1]): the level, its width and height, its source's
+    width and height, what it reads (FROM_COPY: level 0, the frame copied;
+    FROM_FRAME: a resize of the frame, levels 1..next; FROM_PREV: a resize
+    of the chain's previous level), the rows of xg and yg where its grids start (A: the
+    whole plane, sx = sy = 0; B: the shifted variants' sx = 1 or sy = 1, -1
+    where that variant is empty), the packed offsets of its plane
+    (row-major, -1: not packed) and of its interleaved quarter planes (-1:
+    none), whether the next level reads it (STEP_SOURCE), and its scratch
+    offset (-1: none; only a source that is not packed has one, and the
+    kernel writes it there only when shared memory does not hold it).
+    The quarter planes: q0 the plane itself (grids A, A), q1 (B, A),
+    q2 (A, B), q3 (B, B), each filled on [0, dh) x [0, dw) and 0 beyond.
+    xg/yg (X, 4) i32: a column's source columns x0, x1 and the f32 bits of
+    its weights 1 - fx, fx (rows likewise), from ``_grid``, chain by chain:
+    chain_grid (C, 4) i32 gives each chain's rows of xg and of yg (first,
+    count); grid_bytes: the most bytes one chain's grids take (the kernel
+    stages them in shared memory, beside the held levels).  S: scratch
+    bytes a stream (0 for the detector's layouts: every source is packed),
+    L: packed bytes.  The packed layout: plane_off[k], the offset of plane
+    key k, and inter_off[i], that of scale step i's interleaved quarter
+    planes (2 H2 x 2 W2, I[2a + dy, 2b + dx] = quarter_{2 dy + dx}[a, b])."""
+    steps: np.ndarray
+    chain_first: np.ndarray
+    chain_grid: np.ndarray
+    xg: np.ndarray
+    yg: np.ndarray
+    grid_bytes: int
     S: int
     L: int
     plane_off: dict
@@ -209,89 +223,88 @@ def pyramid_plan(spec, plane_keys, geom_levels):
     dims = dict(spec.dims)
     nxt = spec.next
     w0, h0 = spec.w0, spec.h0
-    dests = []  # (level, q, dst, offset, row, col)
     plane_off, inter_off = {}, {}
     off = 0
     for k in plane_keys:
         w, h = dims[k // 4]
-        plane_off[k] = off
-        dests.append((k // 4, 0, 1, off, w, 1))
+        plane_off[k // 4] = off
         off += w * h
     for i in geom_levels:
         W2, H2 = dims[i + 2 * nxt]
-        inter_off[i] = off
-        for q in range(4):
-            dy, dx = divmod(q, 2)
-            dests.append((i + 2 * nxt, q, 1, off + dy * 2 * W2 + dx, 4 * W2,
-                          2))
+        inter_off[i + 2 * nxt] = off
         off += 4 * H2 * W2
     L = off
 
-    # the levels other jobs read, each computed once into the scratch
-    scratch, S = {}, 0
-    todo = sorted({lv - nxt for (lv, *_r) in dests if lv >= nxt})
-    while todo:
-        lv = todo.pop()
-        if lv == 0 or lv in scratch:
-            continue
-        w, h = dims[lv]
-        scratch[lv] = S
-        S += w * h
+    # the levels written, and those they read (level i reads i - next)
+    needed = set(plane_off) | set(inter_off)
+    for lv in sorted(needed, reverse=True):
         if lv >= nxt:
-            todo.append(lv - nxt)
-    dests += [(lv, 0, 0, o, dims[lv][0], 1) for lv, o in scratch.items()]
+            needed.add(lv - nxt)
+    xg, yg = [], []
+    rows = {"x": 0, "y": 0}
 
-    def geometry(lv, q):
-        """(source level, sx, sy, sw, sh, dw, dh) of plane (lv, q)."""
-        w, h = dims[lv]
-        if lv <= spec.interval:
-            return 0, 0, 0, w0, h0, w, h
-        sw, sh = dims[lv - nxt]
-        return ((lv - nxt,) + ((0, 0, sw, sh, w, h), (1, 0, sw - 1, sh, w - 2, h),
-                              (0, 1, sw, sh - 1, w, h - 2),
-                              (1, 1, sw - 1, sh - 1, w - 2, h - 2))[q])
+    def grid(axis, s0, sn, dn):
+        """The row of xg (axis "x") or yg where the grid of a resize of
+        source span [s0, s0 + sn) to dn starts; -1 when it is empty."""
+        if dn <= 0 or sn <= 0:
+            return -1
+        if axis == "x":
+            a0, a1, _, _, f, g, _, _ = _grid(s0, 0, sn, 1, dn, 1)
+        else:
+            _, _, a0, a1, _, _, f, g = _grid(0, s0, 1, sn, 1, dn)
+        (xg if axis == "x" else yg).append(np.stack(
+            [a0.astype(np.int32), a1.astype(np.int32), g.view(np.int32),
+             f.view(np.int32)], 1))
+        row = rows[axis]
+        rows[axis] += dn
+        return row
 
-    jobs, xi, xf, yi, yf, gens = [], [], [], [], [], []
-    nx = ny = 0
-    for g in range(max((lv for (lv, *_r) in dests), default=-1) // nxt + 1):
-        first, pixels = len(jobs), 0
-        for (lv, q, dst, o, row, col) in sorted(dests):
-            if lv // nxt != g:
-                continue
+    steps, chain_first, chain_grid, S = [], [], [], 0
+    for c in range(nxt):
+        chain = sorted(lv for lv in needed if lv % nxt == c)
+        if not chain:
+            continue
+        chain_first.append(len(steps))
+        chain_grid.append([rows["x"], 0, rows["y"], 0])
+        for lv in chain:
             w, h = dims[lv]
-            src, sx, sy, sw, sh, dw, dh = geometry(lv, q)
-            row_job = [0] * JOB_COLS
-            row_job[JOB_OUT_W], row_job[JOB_OUT_H] = w, h
-            row_job[JOB_DST], row_job[JOB_OFF] = dst, o
-            row_job[JOB_ROW], row_job[JOB_COL] = row, col
-            row_job[JOB_START] = pixels
+            st = [0] * STEP_COLS
+            st[STEP_LEVEL], st[STEP_W], st[STEP_H] = lv, w, h
             if lv == 0:
-                row_job[JOB_SRC], row_job[JOB_SRC_W] = -2, w0
-                row_job[JOB_DW], row_job[JOB_DH] = w0, h0
-            else:
-                row_job[JOB_SRC] = -1 if src == 0 else scratch[src]
-                row_job[JOB_SRC_W] = dims[src][0]
-                if dw > 0 and dh > 0 and sw > 0 and sh > 0:
-                    x0, x1, y0, y1, fx, gx, fy, gy = _grid(sx, sy, sw, sh,
-                                                           dw, dh)
-                    row_job[JOB_DW], row_job[JOB_DH] = dw, dh
-                    row_job[JOB_XT], row_job[JOB_YT] = nx, ny
-                    xi.append(np.stack([x0, x1], 1))
-                    xf.append(np.stack([gx, fx], 1))
-                    yi.append(np.stack([y0, y1], 1))
-                    yf.append(np.stack([gy, fy], 1))
-                    nx += dw
-                    ny += dh
-            jobs.append(row_job)
-            pixels += w * h
-        gens.append((first, len(jobs), pixels))
+                st[STEP_FROM], (sw, sh) = FROM_COPY, (w0, h0)
+            else:  # a level of source level 0 reads the frame itself
+                st[STEP_FROM] = FROM_FRAME if lv <= nxt else FROM_PREV
+                sw, sh = (w0, h0) if lv <= nxt else dims[lv - nxt]
+            st[STEP_SW], st[STEP_SH] = sw, sh
+            st[STEP_XA] = st[STEP_YA] = st[STEP_XB] = st[STEP_YB] = -1
+            if lv:
+                st[STEP_XA] = grid("x", 0, sw, w)
+                st[STEP_YA] = grid("y", 0, sh, h)
+            st[STEP_PLANE] = plane_off.get(lv, -1)
+            st[STEP_INTER] = inter_off.get(lv, -1)
+            if st[STEP_INTER] >= 0:
+                st[STEP_XB] = grid("x", 1, sw - 1, w - 2)
+                st[STEP_YB] = grid("y", 1, sh - 1, h - 2)
+            st[STEP_SOURCE] = int(lv + nxt in needed and lv > 0)
+            st[STEP_SCR] = -1
+            if st[STEP_SOURCE] and st[STEP_PLANE] < 0:
+                st[STEP_SCR], S = S, S + w * h
+            steps.append(st)
+        chain_grid[-1][1] = rows["x"] - chain_grid[-1][0]
+        chain_grid[-1][3] = rows["y"] - chain_grid[-1][2]
+    chain_first.append(len(steps))
 
-    def cat(parts, dtype):
-        return (np.concatenate(parts).astype(dtype) if parts
-                else np.zeros((0, 2), dtype))
+    def cat(parts):
+        return (np.concatenate(parts) if parts
+                else np.zeros((0, 4), np.int32))
 
-    return PyramidPlan(jobs=np.asarray(jobs, np.int32).reshape(-1, JOB_COLS),
-                       xi=cat(xi, np.int32), xf=cat(xf, np.float32),
-                       yi=cat(yi, np.int32), yf=cat(yf, np.float32),
-                       gens=tuple(gens), S=S, L=L, plane_off=plane_off,
-                       inter_off=inter_off)
+    return PyramidPlan(
+        steps=np.asarray(steps, np.int32).reshape(-1, STEP_COLS),
+        chain_first=np.asarray(chain_first, np.int32),
+        chain_grid=np.asarray(chain_grid, np.int32).reshape(-1, 4),
+        xg=cat(xg), yg=cat(yg),
+        grid_bytes=16 * max((g[1] + g[3] for g in chain_grid), default=0),
+        S=S, L=L,
+        plane_off={lv * 4: o for lv, o in plane_off.items()},
+        inter_off={lv - 2 * nxt: o for lv, o in inter_off.items()})
+

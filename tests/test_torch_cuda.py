@@ -948,12 +948,15 @@ def test_detector_kernels_bit_equal_to_twins(dev, casc, n, shape):
     before = dict(launches)
     buf = pyramid(gray.to(dev), tg)
     torch.cuda.synchronize()
-    assert launches["pyramid"] - before["pyramid"] == len(tg.plan.gens)
+    assert launches["pyramid"] - before["pyramid"] == 1
     want_buf = pyramid(gray, tc)
     assert torch.equal(buf.cpu(), want_buf)
     keys = ("x", "y", "width", "height", "confidence", "valid")
     for cap in (256, 4):
+        before = dict(launches)
         got = cascade(buf, tg, cap)
+        assert launches["cascade"] - before["cascade"] == (
+            2 if casc == "toy" else 3)
         want = cascade(want_buf, tc, cap)
         for k, v in want.items():
             assert torch.equal(got[k].cpu(), v), (cap, k)
@@ -1059,3 +1062,146 @@ def test_step_bucket_replays_on_the_card(dev):
                                        err_msg=name)
     assert got[0][tft.StepOutput._fields.index("mode_after")][[1, 5]].tolist() \
         == [tft.MODE_CS] * 2
+
+
+def _detect_frames(kind, n, shape):
+    """Gray frames for the detector kernels: the bench pool's ("bench"),
+    uniform random ("random"), or the synthetic face tiled every 26 px
+    over the frame ("faces": windows around every face pass deep stages,
+    so every warp of them holds deep survivors)."""
+    import importlib
+    import os
+    from bench import build_pool
+    from headtrackr_tpu_torch.ops.imageproc import grayscale
+    H, W = shape
+    if kind == "bench":
+        pool = build_pool(n, H, W, 2, 1, np.random.default_rng(0))
+        return grayscale(torch.as_tensor(pool[1]))
+    if kind == "random":
+        g = torch.Generator().manual_seed(5)
+        return torch.randint(0, 256, (n, H, W), generator=g,
+                             dtype=torch.uint8)
+    tc = importlib.import_module("headtrackr_tpu_torch.cascade")
+    face = np.load(os.path.join(tc.DATA_DIR, "synthface.npz"))["rgb"]
+    rgb = np.full((H, W, 3), (120, 100, 90), np.uint8)
+    for y in range(1, H - 24, 26):
+        for x in range(1, W - 24, 26):
+            rgb[y:y + 24, x:x + 24] = face
+    gray = grayscale(torch.as_tensor(rgb))
+    return gray[None].repeat(n, 1, 1).contiguous()
+
+
+@pytest.mark.parametrize("kind,casc", [("bench", "real"), ("faces", "real"),
+                                       ("random", "toy")])
+@pytest.mark.parametrize("n", [1, 8, 256])
+def test_detector_kernels_bit_equal_to_twins_at_serving_sizes(dev, kind,
+                                                              casc, n):
+    """pyramid and cascade (capacity 256) at N = 1, 8 (the relock bucket)
+    and 256 (the cold start's full tick) against their twins run on the
+    card, slot for slot: the bench pool, frames tiled with faces (deep
+    survivors in every warp that holds a face) and the toy cascade on
+    random frames (survivors beyond the capacity at every N)."""
+    from headtrackr_tpu_torch.cascade import frontalface
+    from headtrackr_tpu_torch.kernels.cascade import cascade
+    from headtrackr_tpu_torch.kernels.pyramid import pyramid
+    from headtrackr_tpu_torch.models import detector as td
+    from headtrackr_tpu_torch.ops import detect as od
+    from headtrackr_tpu_torch.ops.imageproc import pack_pyramid
+    gray = _detect_frames(kind, n, (240, 320)).to(dev)
+    tg = td.detector_tables(320, 240, toy_cascade() if casc == "toy"
+                            else frontalface(), 5, dev)
+    buf = pyramid(gray, tg)
+    want_buf = pack_pyramid(gray, 5, tg.plane_keys, tg.geom_levels)
+    assert torch.equal(buf, want_buf)
+    got = cascade(buf, tg, 256)
+    want = od.cascade_plain(want_buf, tg, 256)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    if kind == "random":
+        assert bool((got["overflow"] > 0).all())
+    if kind == "faces":
+        assert int(got["valid"].sum(1).min()) > 0
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n,shape", [(1, (240, 320)), (8, (240, 320)),
+                                     (3, (57, 99)), (2, (480, 640))])
+def test_pyramid_every_split_bit_equal_to_twin(dev, ctas, n, shape,
+                                               monkeypatch):
+    """The pyramid kernel at every cluster size (``split`` patched to give
+    ``ctas``): levels held in shared memory and read across the cluster,
+    and (480x640 at 1, 2 or 4 CTAs a chain) read back from the packed
+    planes."""
+    from headtrackr_tpu_torch.kernels import pyramid as kp
+    from headtrackr_tpu_torch.models import detector as td
+    from headtrackr_tpu_torch.ops.imageproc import pack_pyramid
+    H, W = shape
+    g = torch.Generator().manual_seed(3)
+    gray = torch.randint(0, 256, (n, H, W), generator=g,
+                         dtype=torch.uint8).to(dev)
+    tg = td.detector_tables(W, H, toy_cascade(), 5, dev)
+    monkeypatch.setattr(kp, "split", lambda *a: ctas)
+    got = kp.pyramid(gray, tg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pack_pyramid(gray, 5, tg.plane_keys,
+                                         tg.geom_levels))
+
+
+def test_cascade_graph_replays_twice_alike(dev):
+    """cascade captured in a CUDA graph at the relock bucket's 8 streams
+    and replayed twice in a row (the survivor count zeroed inside the
+    captured work each time), then on other frames and back: every replay
+    equals the eager call on the same planes."""
+    from headtrackr_tpu_torch.cascade import frontalface
+    from headtrackr_tpu_torch.kernels.cascade import cascade
+    from headtrackr_tpu_torch.kernels.pyramid import pyramid
+    from headtrackr_tpu_torch.models import detector as td
+    tg = td.detector_tables(320, 240, frontalface(), 5, dev)
+    bufs = [pyramid(_detect_frames(k, 8, (240, 320)).to(dev), tg)
+            for k in ("faces", "bench")]
+    wants = [cascade(b, tg, 256) for b in bufs]
+    static = bufs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cascade(static, tg, 256)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cascade(static, tg, 256)
+    for i in (0, 0, 1, 0):
+        static.copy_(bufs[i])
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, v in wants[i].items():
+            assert torch.equal(got[k], v), (i, k)
+    assert int(wants[0]["valid"].sum()) > 0
+
+
+def test_relock_graph_real_cascade_equals_host_step(dev):
+    """The real cascade at 320x240, 8 streams of the bench pool with 2 loss
+    streams: step_auto (its bucket ticks, the redetects, replayed from CUDA
+    graphs through pyramid, cascade's three kernels and group) against the
+    eager step(sync=True) at sync_interval 1, tick for tick through the
+    lock, the loss and the relock."""
+    from bench import build_pool
+    from headtrackr_tpu_torch.cascade import frontalface
+    n, H, W = 8, 240, 320
+    pool = build_pool(n, H, W, 16, 2, np.random.default_rng(0))
+    clip = np.concatenate([pool, pool])
+    mk = lambda **k: BatchedTracker(n, (H, W), cascade=frontalface(),  # noqa: E731
+                                    device=dev, bucket=2, **k)
+    host, auto = mk(sync_interval=1), mk()
+    before = dict(launches)
+    for t, f in enumerate(clip):
+        want = [v.cpu().numpy() for v in host.step(f, sync=True)]
+        got = [v.cpu().numpy() for v in auto.step_auto(f)]
+        for name, a, b in zip(tft.StepOutput._fields, want, got):
+            if a.dtype.kind in "biu":
+                np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
+            else:
+                np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                           err_msg=f"tick {t} {name}")
+    assert {s for (_, s) in auto._steps._graphs} >= {2}  # a relock replayed
+    assert launches["cascade"] > before["cascade"]
+    assert auto.modes.tolist() == [2] * n
