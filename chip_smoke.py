@@ -68,13 +68,26 @@ Phases, one line each; any failure raises and exits nonzero:
      cascade, the toy cascade on a bench batch and on random frames (more
      survivors than C: overflow), C=1 on the bench, 480x640 frames, and
      frames tiled with faces at N=8 and 256 (deep survivors in every warp
-     that holds a face); group also with min_neighbors 0.  On the bench
+     that holds a face); group also with min_neighbors 0, and on
+     tools/torch_group_cases.py's adversarial slot sets (the longest
+     component, 256 singletons, every slot valid, k = 1, 32, 33 and 256,
+     equal confidences, a non-prefix mask, a contained cluster) at
+     min_neighbors 0, 1 and 3.  It logs group's k (the last valid slot + 1:
+     at most 32, warp 0 groups alone) over the bench pool, face_noise 20,
+     the faces pool, the relock bucket (the loss streams' frames after the
+     blue one) and random toy frames, and checks that a group call is one
+     device operation: the CUDA graph that captures it holds one node, a
+     kernel (libcuda's cuGraphGetNodes).  On the bench
      pool at N=8 and 256 it logs, from the plain code, the deep survivors
      and the deep weak classifiers the busiest warp of 32 windows held
      under the old division (each warp walked its own survivors' chains).
      Each is timed at N=256, 8 and 1 (pyramid and cascade also at
      480x640) by events and graph replay beside its twin, its bound and
-     (pyramid) one F.interpolate resize, the nearest library call;
+     (pyramid) one F.interpolate resize, the nearest library call; group
+     also beside an empty kernel at its grid (the floor of one device
+     operation), and on its worst case (random toy frames: every slot
+     valid) and the adversarial chain, shuffled chain, singletons and
+     dense slots;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -198,6 +211,7 @@ GROUP_SRC = "headtrackr_tpu_torch/csrc/group.cu"
 DETECT = ("pyramid", "cascade", "group")  # the detector's kernels
 DETECT_NS = (256, 8, 1)  # phase 3's timed stream counts (8: a bucket)
 DETECT_BIG = 16  # streams of the 480x640 case
+WORST_GROUP = "random toy N=256 (overflow)"  # every slot valid: group's k^2
 RELOCK_TICKS = 6  # phase 5: profiled relock ticks an arm
 SESSION_FRAMES = 16 * POOL  # 15 losses: the CS frames' p99 is not their max
 FANOUT_TICKS = 2 * POOL
@@ -1146,7 +1160,7 @@ def old_division_load(buf, tables):
                 longest_chain=int(weak.max()))
 
 
-def phase_detect(pools, dev):
+def phase_detect(pools, dev, root):
     """Phase 3's detector kernels: pyramid, cascade and group against their
     twins (run on the card; at <= 8 streams also on the CPU), tolerance 0,
     candidates slot for slot; then their times at DETECT_NS streams."""
@@ -1192,6 +1206,7 @@ def phase_detect(pools, dev):
               (f"480x640 real N={DETECT_BIG}", "real", big, 256)]
     err = dict.fromkeys(DETECT, 0.0)
     survivors = {}
+    ks = {}  # a case's k a stream: its last valid slot + 1
 
     def same(name, label, got, want):
         for a, b in zip(got, want):
@@ -1232,12 +1247,46 @@ def phase_detect(pools, dev):
         survivors[label] = (int(cand["valid"].sum()),
                             int(cand["overflow"].sum()),
                             int(best[0].sum()))
+        ks[label] = last_slots(cand["valid"])
+        if label == WORST_GROUP:
+            worst = [cand[k] for k in keys]
         if "overflow" in label and not survivors[label][1] > 0:
             raise AssertionError(f"{label}: no survivor beyond the capacity")
     log(f"kernels: pyramid, cascade and group bit-equal to their twins "
         f"(candidates slot for slot, overflow equal) on {len(cases)} "
         f"inputs: " + "; ".join(f"{k}: {v[0]} kept, {v[1]} over, {v[2]} "
                                 f"found" for k, v in survivors.items()))
+    gcases = group_cases(root)
+    for name, arrays in gcases.items():
+        cpu_in = [torch.as_tensor(a) for a in arrays]
+        dev_in = [a.to(dev) for a in cpu_in]
+        for mn in (0, 1, 3):
+            s, b = group(*dev_in, mn)
+            for twin_in in (dev_in, cpu_in):
+                ws, wb = od.group_plain(*twin_in, mn)
+                same("group", f"{name} min_neighbors {mn} (twin on the "
+                     f"{twin_in[0].device.type})",
+                     [s[k] for k in ws] + list(b),
+                     list(ws.values()) + list(wb))
+    log(f"kernels: group bit-equal to its twin (card and CPU) on "
+        f"{len(gcases)} adversarial slot sets at min_neighbors 0, 1 and 3: "
+        f"{', '.join(gcases)}")
+    relock = grayscale(torch.as_tensor(
+        pools[0][LOSS_AT + 1, :LOSS_STREAMS]).to(dev))
+    tg = tables("real", (H, W), dev)
+    ks["relock bucket"] = last_slots(cascade(pyramid(relock, tg), tg,
+                                             256)["valid"])
+    k_pools = {"bench": f"face_noise=0 real N={N_STREAMS}",
+               "face_noise=20": f"face_noise=20 real N={N_STREAMS}",
+               "faces": f"faces real N={N_STREAMS}",
+               "relock bucket": "relock bucket",
+               "random toy (overflow)": WORST_GROUP}
+    k_dist = {name: k_spread(ks[label]) for name, label in k_pools.items()}
+    for name, d in k_dist.items():
+        log(f"kernels: group's k on {name}: {d['streams']} streams, "
+            f"{d['share_le_32']:.3f} at k <= 32 (warp 0 alone); k min "
+            f"{d['min']}, median {d['median']}, max {d['max']}; by range "
+            f"{d['by_range']}")
 
     for n in (8, N_STREAMS):
         tg = tables("real", (H, W), dev)
@@ -1310,19 +1359,118 @@ def phase_detect(pools, dev):
                                 lambda: od.group_plain(*cargs, 1))
         pairs = int((cand["valid"].sum(1) ** 2).sum())
         b, by = bound(n * 256 * (21 + 25) + 21 * n, 20 * pairs)
+        nodes = graph_nodes(lambda: group(*cargs, 1))
+        if nodes != ["kernel"]:
+            raise AssertionError(f"group at N={n}: a captured call is the "
+                                 f"graph nodes {nodes}, not one kernel")
         t["group" + sfx] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
             graph_ms=graph_ms(lambda: group(*cargs, 1)), library_ms=None,
             launches_per_call=launches_of("group",
                                           lambda: group(*cargs, 1)),
+            graph_nodes=nodes,
+            floor_graph_ms=graph_ms(lambda: floor_launch(n)),
             most_candidates=k)
+    t["group"]["worst_case"] = dict(
+        input=WORST_GROUP, graph_ms=graph_ms(lambda: group(*worst, 1)),
+        pairs=int((worst[5].sum(1) ** 2).sum()))
+    for name in ("chain", "chain shuffled", "singletons", "dense"):
+        gin = [torch.as_tensor(a).to(dev) for a in gcases[name]]
+        t["group"]["worst_case"][name] = graph_ms(lambda: group(*gin, 1))
+    t["group"]["k"] = k_dist
     for name, e in t.items():
         log(f"kernels: {name} ({e['launches_per_call']} launches a call) "
             f"{e['ms']:.4f} ms, graph replay "
             f"{e['graph_ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.6f} ms by {e['bound_by']}; library "
             f"{fmt_ms(e['library_ms']) if e['library_ms'] is not None else 'none'})")
+        if name.startswith("group"):
+            log(f"kernels: {name}: a captured call is the graph nodes "
+                f"{e['graph_nodes']} (one device operation); an empty "
+                f"kernel at its grid (the floor of one device operation) "
+                f"{e['floor_graph_ms']:.4f} ms by graph replay")
+    wc = t["group"]["worst_case"]
+    log(f"kernels: group's worst case ({wc['input']}, {wc['pairs']} pairs "
+        f"of valid slots) {wc['graph_ms']:.4f} ms by graph replay; at N=1: "
+        + ", ".join(f"{k} {wc[k]:.4f} ms" for k in
+                    ("chain", "chain shuffled", "singletons", "dense")))
     return err, t
+
+
+def last_slots(valid):
+    """(N, C) valid -> (N,) its last valid slot + 1 a stream (0 if none):
+    group's k."""
+    import torch
+    idx = torch.arange(1, valid.shape[1] + 1, device=valid.device)
+    return (valid * idx).amax(1).cpu()
+
+
+def k_spread(k):
+    """The spread of group's k over a case's streams."""
+    ranges = ((0, 0), (1, 32), (33, 64), (65, 128), (129, 256))
+    return dict(streams=int(k.numel()),
+                share_le_32=float((k <= 32).double().mean()),
+                min=int(k.min()), median=int(k.median()), max=int(k.max()),
+                by_range={f"{a}-{b}": int(((k >= a) & (k <= b)).sum())
+                          for a, b in ranges},
+                mean=float(k.double().mean()))
+
+
+def group_cases(root):
+    """tools/torch_group_cases.py's adversarial slot sets."""
+    import numpy as np
+    return load_example(root, "torch_group_cases", "tools").cases(
+        np.random.default_rng(15))
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty"}  # CUgraphNodeType
+
+
+def node_kinds(g):
+    """The node types of a torch.cuda.CUDAGraph captured with
+    keep_graph=True (libcuda's cuGraphGetNodes, cuGraphNodeGetType)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_TYPES.get(kind.value, str(kind.value)))
+    return kinds
+
+
+def graph_nodes(fn):
+    """The node types of the CUDA graph that captures one call of fn."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    return node_kinds(g)
+
+
+def floor_launch(n):
+    """An empty kernel at group's grid (n CTAs of 256 threads), on the
+    current stream."""
+    import torch
+    from headtrackr_tpu_torch.kernels.build import load_library
+    err = load_library().fn("group_floor_launch")(
+        n, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"group_floor_launch failed: cudaError {err}")
 
 
 def _stacked(outs):
@@ -2262,7 +2410,7 @@ def main():
     times.update(mma_times)
     err["hist_bins"], hb_times = phase_histbins(pools, dev)
     times.update(hb_times)
-    det_err, det_times = phase_detect(pools, dev)
+    det_err, det_times = phase_detect(pools, dev, root)
     err.update(det_err)
     times.update(det_times)
     frames = torch.as_tensor(pools[0]).to(dev)

@@ -67,7 +67,9 @@ _SIGNATURES = {
                                    _I, _I, _C),
     },
     "group": {
-        "group_launch": (_C, _C, _C, _C, _C, _C, _I, _I, _I, _C),
+        "group_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I,
+                         _C),
+        "group_floor_launch": (_I, _C),
     },
 }
 

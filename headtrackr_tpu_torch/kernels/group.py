@@ -5,8 +5,11 @@
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 (ops/detect.py group_plain), a CUDA tensor launches the kernel, one launch
-a call, a CTA a stream; any other device raises, and so does a failed build
-or launch.  The two are equal to the bit.
+a call, a CTA a stream, reading the six planes in place (no copy: a call is
+one device operation); any other device raises, and so does a failed build
+or launch.  The two are equal to the bit where the twin's f64 member sums
+are exact (csrc/group.cu states the range; the detector's boxes lie well
+inside it).
 """
 
 import torch
@@ -39,16 +42,16 @@ def group(x, y, w, h, conf, valid, min_neighbors=1):
         raise ValueError(f"the group kernel takes 1 to {MAX_SLOTS} slots a "
                          f"stream, got {K}")
     dev = x.device
-    cand = torch.stack([x, y, w, h, conf])
     slots = torch.empty((6, N, K), dtype=torch.float32, device=dev)
     kept = torch.empty((N, K), dtype=torch.bool, device=dev)
     best = torch.empty((5, N), dtype=torch.float32, device=dev)
     found = torch.empty((N,), dtype=torch.bool, device=dev)
     if N:
         with torch.cuda.device(dev):
-            launch("group", "group_launch", cand.data_ptr(),
-                   valid.contiguous().data_ptr(), slots.data_ptr(),
-                   kept.data_ptr(), best.data_ptr(), found.data_ptr(), N, K,
+            launch("group", "group_launch", x.data_ptr(), y.data_ptr(),
+                   w.data_ptr(), h.data_ptr(), conf.data_ptr(),
+                   valid.data_ptr(), slots.data_ptr(), kept.data_ptr(),
+                   best.data_ptr(), found.data_ptr(), N, K,
                    int(min_neighbors))
     return (dict(kept=kept, x=slots[0], y=slots[1], width=slots[2],
                  height=slots[3], neighbors=slots[4], confidence=slots[5]),

@@ -969,6 +969,92 @@ def test_detector_kernels_bit_equal_to_twins(dev, casc, n, shape):
                 assert torch.equal(a.cpu(), b), (cap, mn)
 
 
+def _group_cases():
+    """tools/torch_group_cases.py's slot sets (a script, loaded by path)."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
+            / "torch_group_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_group_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.cases(np.random.default_rng(15))
+
+
+def _gbits(t):
+    """A group output's bits: an f32's int32 view, a mask as it is."""
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+GROUP_CASES = ("clustered", "chain", "chain shuffled", "singletons", "dense",
+               "k = 1, 32, 33, 256", "ties", "holes", "nested")
+
+
+@pytest.mark.parametrize("mn", [0, 1, 3])
+@pytest.mark.parametrize("name", GROUP_CASES)
+def test_group_kernel_equals_twin_on_adversarial_slots(dev, name, mn):
+    """group on the card against its twin on the CPU, bit for bit, on the
+    longest component, 256 singletons, every slot valid, k = 1, 32, 33 and
+    256 (warp 0 alone, then the CTA), equal confidences, a non-prefix mask
+    and a contained cluster."""
+    from headtrackr_tpu_torch.kernels.group import group
+    arrays = _group_cases()[name]
+    want_s, want_b = group(*(torch.as_tensor(a) for a in arrays), mn)
+    before = launches["group"]
+    got_s, got_b = group(*(torch.as_tensor(a).to(dev) for a in arrays), mn)
+    torch.cuda.synchronize()
+    assert launches["group"] == before + 1
+    for k, v in want_s.items():
+        assert torch.equal(_gbits(got_s[k].cpu()), _gbits(v)), (name, mn, k)
+    for a, b in zip(got_b, want_b):
+        assert torch.equal(_gbits(a.cpu()), _gbits(b)), (name, mn)
+
+
+def _group_graph(dev, arrays, mn):
+    """group captured in a CUDA graph on static inputs: (graph, inputs,
+    outputs)."""
+    from headtrackr_tpu_torch.kernels.group import group
+    static = [torch.as_tensor(a).to(dev) for a in arrays]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        group(*static, mn)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group(*static, mn)
+    return graph, static, out
+
+
+def test_group_replayed_twice_gives_the_same_bits(dev):
+    """Two replays of a captured group (the hooking's atomics race in a
+    different order each time) give the twin's bits."""
+    from headtrackr_tpu_torch.kernels.group import group
+    arrays = _group_cases()["clustered"]
+    graph, _, (slots, best) = _group_graph(dev, arrays, 1)
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([_gbits(t.cpu()) for t in [*slots.values(), *best]])
+    want_s, want_b = group(*(torch.as_tensor(a) for a in arrays), 1)
+    want = [_gbits(t) for t in [*want_s.values(), *want_b]]
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mn", [0, 1])
+@pytest.mark.parametrize("name", ["k = 1, 32, 33, 256", "clustered"])
+def test_group_call_is_one_device_operation(dev, name, mn):
+    """A group call is one device operation (the kernel reads the planes in
+    place: no copy): the CUDA graph that captures it holds one node, a
+    kernel, with warp 0 alone (k <= 32) and with the whole CTA."""
+    from chip_smoke import graph_nodes
+    from headtrackr_tpu_torch.kernels.group import group
+    static = [torch.as_tensor(a).to(dev) for a in _group_cases()[name]]
+    assert graph_nodes(lambda: group(*static, mn)) == ["kernel"]
+
+
 def test_detect_best_in_a_graph_equals_eager(dev):
     """detect_best at 8 streams captured in a CUDA graph (no host read)
     and replayed equals the eager call."""

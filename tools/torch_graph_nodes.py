@@ -1,0 +1,59 @@
+"""The nodes of every CUDA graph that a headline BatchedTracker (256
+streams of 320x240, 96x128 band, bandHist, bucket 8) captures in warmup(),
+in the checkout at ``--root`` (default: this one): the exact device
+operations of each replayed tick, where torch.profiler's count of a
+profiled tick can lose or gain an event.  tools/torch_relock_compare.sh
+runs it for the parent and this checkout:
+
+    python3 tools/torch_graph_nodes.py [--root build/parent]
+
+Prints the card's name and power limit, then one JSON line: each graph's
+node kinds counted (kernel, memcpy, memset, ...) in capture order (the
+all-CS tick, then the bucket and chunk ticks, one graph a slot count).
+Needs a CUDA card; node_kinds comes from this checkout's chip_smoke.py.
+"""
+
+import argparse
+import collections
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=HERE,
+                   help="the checkout whose headtrackr_tpu_torch to count")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_graph_nodes: no CUDA device", file=sys.stderr)
+        return 1
+    graphs = []
+    init = torch.cuda.CUDAGraph.__init__
+
+    def keep(self, *a, **k):  # every graph keeps its cudaGraph_t
+        init(self, *a, **{**k, "keep_graph": True})
+        graphs.append(self)
+
+    torch.cuda.CUDAGraph.__init__ = keep
+    from headtrackr_tpu_torch import BatchedTracker
+    bt = BatchedTracker(256, (240, 320), device=torch.device("cuda", 0),
+                        band=(96, 128), bandHist=True, bucket=8)
+    bt.warmup(scan_len=16)
+    print(cs.smi())
+    print(json.dumps([dict(collections.Counter(cs.node_kinds(g)))
+                      for g in graphs]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
