@@ -175,11 +175,28 @@ Phases, one line each; any failure raises and exits nonzero:
      scratch kernel).  Each must exit 0 with its JSON line holding every
      key, >= 99% locked, relocks, and the headline path's kernels launched
      in its run; each line is printed here.
+ 14. surface: the reference's public names on the card with every device
+     argument left at None, the launch counts at 0 before: kernels.
+     hist_pallas and pdf_pallas (the hist_bins and take_along kernels) on
+     the bench pool's bins at N=256 and N=1, on one (H, W) frame and on ids
+     outside [0, 4096) (counted nowhere, looked up as 0);
+     models.camshift.mean_shift on pdf_pallas's pdf; handoff_band_audit on
+     bins (stream 1 with a pixel of its face's color far from it: dirty);
+     detect_best(gray, cascade) with the real cascade at N=8;
+     init_state and cascade_to_torch.  Each is bit-equal to its kernel's
+     twin and to the path it aliases (hist4096 and backproject of the same
+     frames, the kernel wrapper's mean shift and its twin, init_tracker's
+     frames audit, detect_best on the tables), and every kernel of
+     SURFACE_PATH launched.  The two entry points are timed at N=256 and
+     N=1 (events and graph replay) beside their twins, byte bounds,
+     torch.bincount and torch.gather, and the card's name and power limit;
+     hist_bins' and take_along's kernel entries carry these under
+     "surface" (take_along's launches are this phase's).
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
-facade, plan, mesh, gate and bench numbers as JSON (phases 5, 7-13), the
-kernels' JSON, the nvidia-smi name/power line, and {"ok": true, "device":
-{...}}.  Imports nothing of JAX or headtrackr_tpu.
+facade, plan, mesh, gate, bench and surface numbers as JSON (phases 5,
+7-14), the kernels' JSON, the nvidia-smi name/power line, and {"ok": true,
+"device": {...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
 
 import json
@@ -246,7 +263,7 @@ KERNELS = {
                      HISTPDF_SRC),
     "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
                           HISTPDF_SRC),
-    "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
+    "take_along": ("tools/kernel_experiments.py:396", "surface", GATHER_SRC),
     "meanshift": ("tools/kernel_experiments.py:397", "headline",
                   MEANSHIFT_SRC),
     "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
@@ -257,6 +274,10 @@ KERNELS = {
                 CASCADE_SRC),
     "group": ("headtrackr_tpu/models/detector.py:517", "headline", GROUP_SRC),
 }
+# the kernels that phase 14's calls of the reference's surface launch
+SURFACE_PATH = ("hist_bins", "take_along", "meanshift") + DETECT
+SURFACE_NS = (N_STREAMS, 1)  # hist_pallas / pdf_pallas: 256 streams and one
+SURFACE_DETECT = 8  # detect_best(gray, cascade): a relock bucket's streams
 # the kernels the facade phase's path launches
 FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
                "meanshift")
@@ -2330,6 +2351,173 @@ def phase_gate(dev, root):
     return res
 
 
+def _pdf_twin(bins, weights):
+    """pdf_pallas's function by its kernel's twin: the clamped ids looked up
+    by take_along_plain, 0 for an id outside [0, 4096)."""
+    import torch
+    from headtrackr_tpu_torch.ops.gather import take_along_plain
+    n = bins.shape[0] if bins.dim() == 3 else 1
+    ids = bins.reshape(n, -1, 1)
+    got = take_along_plain(weights.reshape(n, 4096, 1), ids.clamp(0, 4095), 1)
+    return torch.where((ids >= 0) & (ids < 4096), got, 0.0).view(bins.shape)
+
+
+def phase_surface(pools, dev):
+    """The reference's public surface on the card, every device argument
+    left at None: hist_pallas and pdf_pallas on the bench pool's bins at
+    N=256 and N=1 (and one (H, W) frame, and ids outside [0, 4096)),
+    models.camshift.mean_shift on pdf_pallas's pdf, handoff_band_audit on
+    bins, detect_best(gray, cascade), init_state and cascade_to_torch.  The
+    launch counts are set to 0 just before those calls and read just after;
+    every kernel of SURFACE_PATH must have launched.  Each result is held,
+    bit for bit, against its kernel's twin on the same inputs and against
+    the path it aliases: hist4096 and backproject of the same frames, the
+    kernel wrapper's mean shift (track's) and its twin, init_tracker's
+    frames audit, detect_best on the tables.  Then the two entry points'
+    times.  Returns the numbers."""
+    import torch
+    import headtrackr_tpu_torch as pt
+    from headtrackr_tpu_torch.cascade import cascade_to_torch
+    from headtrackr_tpu_torch.kernels import hist_pallas, pdf_pallas
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    from headtrackr_tpu_torch.kernels.histpdf import (backproject, hist4096,
+                                                      histpdf_band)
+    from headtrackr_tpu_torch.models import camshift as tcs
+    from headtrackr_tpu_torch.models import detector as td
+    from headtrackr_tpu_torch.models import facetracker as tft
+    from headtrackr_tpu_torch.ops import histogram as hg
+    from headtrackr_tpu_torch.ops.imageproc import grayscale
+    from headtrackr_tpu_torch.ops.meanshift import mean_shift_plain
+
+    frames = torch.as_tensor(pools[0][1]).to(dev)
+    N = frames.shape[0]
+    rects = torch.as_tensor(face_boxes(pools[0][1])).to(dev)
+    full = hg.full_rects(N, (H, W), dev)
+    model = histpdf_band(frames, rects)
+    weights = hg.backprojection_weights(model, hist4096(frames, full))
+    bins = hg.rgb_bins(frames)
+    # stream 1 with a pixel of its face's color far from the face: dirty
+    afr = frames.clone()
+    x, y, w, h = (int(v) for v in rects[1])
+    afr[1, 2:5, W - 5:W - 2] = frames[1, y + h // 2, x + w // 2]
+    abins = hg.rgb_bins(afr)
+    odd = bins.clone()
+    odd[:, 0, :6] = torch.tensor([-1, -64, 4096, 5000, -2 ** 31, 2 ** 31 - 1],
+                                 dtype=torch.int32, device=dev)
+    casc = pt.cascade()
+    gray = grayscale(frames[:SURFACE_DETECT])
+    torch.cuda.synchronize()
+
+    L.reset_launches()
+    on_card = [tft.init_state(4).mode, tcs.init_state(4).window,
+               cascade_to_torch(casc)["alpha"]]
+    got = {}
+    for n in SURFACE_NS:
+        got[n] = (hist_pallas(bins[:n]), pdf_pallas(bins[:n], weights[:n]))
+    frame1 = (hist_pallas(bins[0]), pdf_pallas(bins[0], weights[0]))
+    odd_out = (hist_pallas(odd), pdf_pallas(odd, weights))
+    three = tcs.mean_shift(got[N][1], rects)
+    audit = tcs.handoff_band_audit(abins, model, rects, BAND)
+    best = td.detect_best(gray, casc)
+    torch.cuda.synchronize()
+    launches = {k: L.launches[k] for k in SURFACE_PATH}
+    idle = [k for k, v in launches.items() if not v]
+    if idle:
+        raise AssertionError(f"surface: kernels not launched: {idle}")
+    if any(t.device.type != dev.type for t in on_card):
+        raise AssertionError("surface: a None device did not land on the "
+                             "card")
+
+    err = {"hist_bins": 0.0, "take_along": 0.0}
+
+    def same(kernel, a, b, what):
+        e = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+        err[kernel] = max(err[kernel], e)
+        if not torch.equal(a, b):
+            raise AssertionError(f"surface: {what} differs (max abs err {e})")
+
+    for n, (h, p) in got.items():
+        same("hist_bins", h, hg.hist_bins_plain(bins[:n].reshape(n, -1)),
+             f"hist_pallas vs its twin at N={n}")
+        same("hist_bins", h, hist4096(frames[:n], full[:n]),
+             f"hist_pallas vs hist4096 at N={n}")
+        same("take_along", p, _pdf_twin(bins[:n], weights[:n]),
+             f"pdf_pallas vs its twin at N={n}")
+        same("take_along", p, backproject(frames[:n], weights[:n]),
+             f"pdf_pallas vs backproject at N={n}")
+    same("hist_bins", frame1[0], got[1][0][0], "hist_pallas on one frame")
+    same("take_along", frame1[1], got[1][1][0], "pdf_pallas on one frame")
+    same("hist_bins", odd_out[0], hg.hist_bins_plain(odd.reshape(N, -1)),
+         "hist_pallas on ids outside [0, 4096)")
+    same("take_along", odd_out[1], _pdf_twin(odd, weights),
+         "pdf_pallas on ids outside [0, 4096)")
+    if not (odd_out[1][:, 0, :6] == 0).all():
+        raise AssertionError("surface: pdf_pallas looked up an id outside "
+                             "[0, 4096)")
+    four = kms.mean_shift(got[N][1], rects)
+    plain = mean_shift_plain(got[N][1], rects)
+    for want, what in ((four, "the kernel wrapper's"), (plain, "its twin's")):
+        ok = (torch.equal(three[0], want[0]) and torch.equal(three[2], want[2])
+              and all(torch.equal(three[1][k], want[1][k]) for k in three[1]))
+        if not ok:
+            raise AssertionError(f"surface: mean_shift differs from "
+                                 f"{what} mean shift")
+    frames_audit = tcs.init_tracker(afr, rects, audit_band=BAND).band_dirty
+    if not (torch.equal(audit, frames_audit) and bool(audit[1])):
+        raise AssertionError("surface: handoff_band_audit on bins differs "
+                             "from init_tracker's frames audit, or misses "
+                             "stream 1's far pixel")
+    tables = td.detector_tables(W, H, casc)
+    for a, b in zip(best, td.detect_best(gray, tables)):
+        if not torch.equal(a, b):
+            raise AssertionError("surface: detect_best(gray, cascade) "
+                                 "differs from detect_best(gray, tables)")
+    torch.cuda.synchronize()
+    log(f"surface: hist_pallas, pdf_pallas (N={', '.join(map(str, SURFACE_NS))}"
+        f", one frame, ids outside [0, 4096)), mean_shift, handoff_band_audit"
+        f" on bins ({int(audit.sum())} of {N} dirty), detect_best(gray, "
+        f"cascade) ({int(best[0].sum())} of {SURFACE_DETECT} found), "
+        f"init_state and cascade_to_torch on the card with device None: "
+        f"bit-equal to the twins and the aliased paths; launches {launches}")
+
+    card = smi()
+    times = {}
+    for n in SURFACE_NS:
+        b, w = bins[:n], weights[:n]
+        P = H * W
+        given = (b.reshape(n, -1).long() + 4096 * torch.arange(
+            n, device=dev).view(n, 1)).view(-1)
+        lib_ids = b.reshape(n, -1).long()
+        cases = {
+            "hist_pallas": (lambda b=b: hist_pallas(b),
+                            lambda b=b, n=n: hg.hist_bins_plain(
+                                b.reshape(n, -1)),
+                            4 * n * P + 4 * 4096 * n,
+                            lambda g=given, n=n: torch.bincount(
+                                g, minlength=n * 4096), False, "torch.bincount"),
+            "pdf_pallas": (lambda b=b, w=w: pdf_pallas(b, w),
+                           lambda b=b, w=w: _pdf_twin(b, w),
+                           8 * n * P + 4 * 4096 * n,
+                           lambda w=w, i=lib_ids: torch.gather(w, 1, i),
+                           True, "torch.gather"),
+        }
+        for name, (kern, twin, nbytes, lib, capt, lib_name) in cases.items():
+            ms, plain_ms = interleaved_ms(kern, twin)
+            bms, by = bound(nbytes, 0)
+            key = f"{name} n{n}"
+            times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                              bound_by=by, graph_ms=graph_ms(kern),
+                              library=lib_name, **library_times(lib, capt))
+            log(f"surface: {key} ({n} x {H}x{W} bins) {ms:.4f} ms, graph "
+                f"replay {times[key]['graph_ms']:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, bound {bms:.6f} ms by {by}, {lib_name} "
+                f"{times[key]['library_ms']:.4f} ms, graph replay "
+                f"{fmt_ms(times[key]['library_graph_ms'])}); {card}")
+    return {"launches": launches, "times": times, "err": err,
+            "dirty": int(audit.sum()), "found": int(best[0].sum())}
+
+
 def phase_bench(root):
     """Phase 13: ``python3 bench_torch.py`` on the card, one subprocess an
     arm of BENCH_ARMS at BENCH_TICKS timed ticks (its kernels already built
@@ -2430,12 +2618,21 @@ def main():
     mesh = phase_mesh(pools[0], dev, root)
     gate = phase_gate(dev, root)
     bench = phase_bench(root)
+    surface = phase_surface(pools, dev)
+    counts["surface"] = surface["launches"]
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
         e = {"name": k, "route": "cuda", "source": src, "replaces": replaces,
-             "launches": counts[path][k], "path": path, "max_abs_err": err[k],
+             "launches": counts[path][k], "path": path,
+             "max_abs_err": max(err[k], surface["err"].get(k, 0.0)),
              **times[k]}
+        if k in ("hist_bins", "take_along"):
+            entry = "hist_pallas" if k == "hist_bins" else "pdf_pallas"
+            e["surface"] = {"entry_point": entry,
+                            "launches": surface["launches"][k],
+                            **{f"n{n}": surface["times"][f"{entry} n{n}"]
+                               for n in SURFACE_NS}}
         if k == "backproject_rect":
             e["grid_origins"] = times[BPR_GRID]
         if k in ALSO_REPLACES:
@@ -2464,7 +2661,9 @@ def main():
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,
-                      "gate": gate, "bench": bench}))
+                      "gate": gate, "bench": bench,
+                      "surface": {k: surface[k] for k in ("launches", "times",
+                                                          "dirty", "found")}}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

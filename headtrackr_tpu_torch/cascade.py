@@ -16,6 +16,8 @@ import os
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["Cascade", "frontalface", "toy_cascade", "cascade_to_torch",
            "DATA_DIR", "ARRAY_FIELDS"]
 
@@ -89,10 +91,12 @@ def toy_cascade(threshold=0.5):
     )
 
 
-def cascade_to_torch(arrays, device):
+def cascade_to_torch(arrays, device=None):
     """Model arrays (a ``Cascade`` of either package, or a dict of NumPy
     arrays with the ``ARRAY_FIELDS`` keys) -> dict of tensors on ``device``
+    (see device.resolve_device: None is the card, and raises with none)
     with the same values: integers as int64, floats as float32."""
+    device = resolve_device(device)
     out = {}
     for k in ARRAY_FIELDS:
         a = np.asarray(arrays[k])

@@ -12,39 +12,15 @@ dtype.  Each function takes ``device=``: an array argument goes to that
 device (None: the card, or an error), a tensor stays on its own.
 """
 
-import collections
-import hashlib
-
 import numpy as np
 
 from .device import to_device
-from .models.detector import (detect_candidates, detect_objects_padded,
-                              detector_tables)
+from .models.detector import _TABLES  # noqa: F401 (the tables cache)
+from .models.detector import detect_candidates, detect_objects_padded
 from .ops.imageproc import grayscale as _grayscale
 from .runtime.host import HostCopy
 
 __all__ = ["grayscale", "detect_objects"]
-
-_CASCADE_FIELDS = ("stage_counts", "stage_thresh", "alpha", "size",
-                   "px", "py", "pz", "nx", "ny", "nz")
-_TABLES = collections.OrderedDict()  # (w, h, interval, digest, device) -> tables
-_TABLES_MAX = 16
-
-
-def _tables(w, h, cascade, interval, device):
-    """detector_tables, cached per (frame size, cascade, interval, device)
-    like the reference package's tables: a VJ frame does not rebuild them."""
-    d = hashlib.sha1()
-    for k in _CASCADE_FIELDS:
-        d.update(np.ascontiguousarray(np.asarray(cascade[k])).tobytes())
-    key = (w, h, interval, d.hexdigest(), device)
-    if key in _TABLES:
-        _TABLES.move_to_end(key)
-    else:
-        _TABLES[key] = detector_tables(w, h, cascade, interval, device=device)
-        if len(_TABLES) > _TABLES_MAX:
-            _TABLES.popitem(last=False)
-    return _TABLES[key]
 
 
 def grayscale(image, device=None):
@@ -60,17 +36,15 @@ def detect_objects(gray, cascade, interval=5, min_neighbors=1, device=None):
     gray = to_device(gray, device)
     if gray.dim() == 3:
         gray = _grayscale(gray)
-    H, W = gray.shape
-    tables = _tables(W, H, cascade, interval, gray.device)
     keys = ("x", "y", "width", "height", "confidence")
     if not min_neighbors > 0:
-        out = detect_candidates(gray[None], tables)
+        out = detect_candidates(gray[None], cascade, interval)
         *vals, valid = HostCopy([out[k][0] for k in keys + ("valid",)]).arrays()
         x, y, w, h, conf = vals
         return [dict(x=float(x[i]), y=float(y[i]), width=float(w[i]),
                      height=float(h[i]), neighbor=1, confidence=float(conf[i]))
                 for i in np.nonzero(valid)[0]]
-    g = detect_objects_padded(gray[None], tables, min_neighbors)
+    g = detect_objects_padded(gray[None], cascade, interval, min_neighbors)
     *vals, nb, kept = HostCopy(
         [g[k][0] for k in keys + ("neighbors", "kept")]).arrays()
     x, y, w, h, conf = vals

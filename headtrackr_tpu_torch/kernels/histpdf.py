@@ -5,6 +5,10 @@
                 (over the frame, or over a per-stream band: backproject_rect)
   histpdf_band  replaces tools/kernel_experiments.py hp_call (k4) and
                 hp7_call (k7); in hist-only mode hist_call (k3)
+  hist_pallas   the reference's name and contract for K1, on bin ids: the
+                ``hist_bins`` kernel (kernels/histbins.py)
+  pdf_pallas    the reference's name and contract for K2, on bin ids: the
+                ``take_along`` kernel (kernels/gather.py)
 
 Dispatch: a CPU tensor takes the kernel's plain twin (ops/histogram.py); a
 CUDA tensor launches the kernel, built on first use (kernels/build.py);
@@ -21,12 +25,14 @@ import torch
 
 from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
+from .gather import take_along
+from .histbins import hist_bins
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
 from .launch import sm_count as _sm_count
 
-__all__ = ["hist4096", "backproject", "histpdf_band", "cluster_split",
-           "cluster_rows"]
+__all__ = ["hist4096", "backproject", "histpdf_band", "hist_pallas",
+           "pdf_pallas", "cluster_split", "cluster_rows"]
 
 # the cluster histogram's CTAs a launch puts on an SM (one wave of them),
 # the pixels a counting CTA takes at least (csrc/histpdf.cu kMinCtaPx), the
@@ -179,3 +185,44 @@ def histpdf_band(frames, rects, model=None, band=None):
                     rects.data_ptr(), model.data_ptr(), cur.data_ptr(),
                     pdf.data_ptr(), N, H, W, bh, bw, c)
     return cur, pdf
+
+
+def _check_bins(bins):
+    if bins.dtype != torch.int32 or bins.dim() not in (2, 3):
+        raise ValueError(f"bins must be (H, W) or (N, H, W) int32, got "
+                         f"{tuple(bins.shape)} {bins.dtype}")
+
+
+def hist_pallas(bins, block=None):
+    """The reference's ``hist_pallas`` (headtrackr_tpu/kernels/histpdf.py):
+    (H, W) or (N, H, W) i32 bin ids -> (4096,) or (N, 4096) f32 exact
+    counts; an id outside [0, 4096) counts nowhere.  The ``hist_bins``
+    kernel over each stream's ids.  ``block`` is the reference's TPU tiling
+    knob: accepted, changes nothing."""
+    _check_bins(bins)
+    rows = bins.reshape(-1 if bins.dim() == 3 else 1,
+                        bins.shape[-2] * bins.shape[-1])
+    out = hist_bins(rows.contiguous())
+    return out if bins.dim() == 3 else out[0]
+
+
+def pdf_pallas(bins, weights, block=None):
+    """The reference's ``pdf_pallas``: (H, W) or (N, H, W) i32 bin ids and
+    (4096,) or (N, 4096) f32 weights -> the f32 lookup weights[bin] of the
+    bins' shape; an id outside [0, 4096) looks up 0, as the reference's
+    one-hot gives.  The ``take_along`` kernel gathers each stream's table
+    (dim 1, L = 1) at the clamped ids, and a select zeroes the others, with
+    no host read.  ``block`` is the reference's TPU tiling knob: accepted,
+    changes nothing."""
+    _check_bins(bins)
+    lead = bins.shape[:-2]
+    if weights.dtype != torch.float32 or tuple(weights.shape) != (
+            *lead, NBINS):
+        raise ValueError(f"weights must be {(*lead, NBINS)} float32, got "
+                         f"{tuple(weights.shape)} {weights.dtype}")
+    n = bins.shape[0] if lead else 1
+    ids = bins.reshape(n, -1, 1)
+    got = take_along(weights.reshape(n, NBINS, 1).contiguous(),
+                     ids.clamp(0, NBINS - 1).contiguous(), 1)
+    ok = (ids >= 0) & (ids < NBINS)
+    return torch.where(ok, got, 0.0).view(bins.shape)

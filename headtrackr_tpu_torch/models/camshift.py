@@ -6,19 +6,23 @@ out.  Per frame: the current 4096-bin histogram, ratio weights, the
 backprojection, <= 10 mean-shift iterations with the fixed-point freeze,
 then size and orientation from the central moments.
 
+Every function takes the reference's parameters, names and positional order,
+with each array batched over a leading stream axis N (frames (N, H, W, 3),
+windows and rects (N, 4)); ``init_state`` takes N first.
+
 Two forms of the step:
   * ``track``: full frame (CUDA kernels on the card: the histogram that
-    ``hist_kernel`` names, ``hist_mma`` by default or ``hist4096``, and
+    ``kernel`` names, ``hist_mma`` by default or ``hist4096``, and
     ``backproject``).
   * ``track_band``: the pdf and the moments over an 8-aligned (bh, bw) band
     around each search window (``band_rect``).  The current histogram is
-    full frame (``hist_kernel``'s + ``backproject_rect``) or, with
+    full frame (``kernel``'s + ``backproject_rect``) or, with
     ``band_hist``, the band's own (one fused ``histpdf_band`` launch:
     counts, weights and pdf).  A stream whose mean-shift trajectory leaves
     its band is flagged ``escaped``; its result is invalid and the caller
     recomputes it with ``track``.
 
-* Mean shift (``mean_shift``) is one launch of the ``meanshift`` kernel
+* Mean shift is one launch of the ``meanshift`` kernel
   for the whole batch (kernels/meanshift.py): first moments from 1-D
   marginal prefix sums, window-relative like the reference package, the
   iterations, the second moments, all in shared memory and in the fixed
@@ -33,8 +37,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.histpdf import backproject, histpdf_band
-from ..kernels.meanshift import mean_shift
+from ..device import resolve_device
+from ..kernels import meanshift as _ms
+from ..kernels.histpdf import backproject, histpdf_band, pdf_pallas
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
                              histogram_rects)
 from ..ops.meanshift import MEANSHIFT_ITERS
@@ -73,7 +78,12 @@ class CamshiftState(NamedTuple):
     band_dirty: Optional[torch.Tensor] = None   # (N,) bool
 
 
-def init_state(n, device, band_audit=False):
+def init_state(n, sparse_k=0, band_audit=False, *, device=None):
+    """The state of n streams before a handoff, on ``device`` (see
+    device.resolve_device: None is the card, and raises with none).
+    ``sparse_k`` is accepted for the reference's signature: sparseHist is
+    value-identical here, so the state carries no sparse descriptor."""
+    device = resolve_device(device)
     z = torch.zeros((n,), dtype=_I32, device=device)
     return CamshiftState(
         model_hist=torch.zeros((n, NBINS), dtype=_F32, device=device),
@@ -107,38 +117,49 @@ def band_rects(ry, rx, bh, bw):
                         torch.full_like(rx, bh)], 1).to(_I32)
 
 
-def handoff_band_audit(frames, model_hist, rect, band):
-    """(N,) bool: some pixel OUTSIDE the band (placed for the handoff window
-    ``rect``) carries a bin with nonzero model count -- the content
-    condition under which bandHist stops being exact (docs/PARITY.md
-    deviation 13).  One full-frame 0/1-weight lookup masked to the band's
-    complement."""
-    N, H, W, _ = frames.shape
+def _model_outside_band(is_model, rect, band):
+    """(N,) bool: some pixel of the (N, H, W) 0/1 lookup ``is_model`` lies
+    outside the band placed for ``rect``."""
+    N, H, W = is_model.shape
     ry, rx, bh, bw = band_rect(rect, band, (H, W))
-    is_model = backproject(frames, (model_hist > 0).to(_F32))
-    rows = torch.arange(H, device=frames.device).view(1, H, 1)
-    cols = torch.arange(W, device=frames.device).view(1, 1, W)
+    rows = torch.arange(H, device=is_model.device).view(1, H, 1)
+    cols = torch.arange(W, device=is_model.device).view(1, 1, W)
     v = lambda t: t.view(N, 1, 1)  # noqa: E731
     outside = ((rows < v(ry)) | (rows >= v(ry) + bh) |
                (cols < v(rx)) | (cols >= v(rx) + bw))
     return ((is_model > 0.5) & outside).flatten(1).any(1)
 
 
-def init_tracker(frames, rects, audit_band=None):
+def handoff_band_audit(bins, model_hist, rect, band):
+    """(N,) bool: some pixel OUTSIDE the band (placed for the handoff window
+    ``rect`` (N, 4) i32) carries a bin with nonzero model count -- the
+    content condition under which bandHist stops being exact
+    (docs/PARITY.md deviation 13).  bins (N, H, W) i32, model_hist
+    (N, 4096) f32.  One full-frame 0/1-weight lookup (``pdf_pallas``)
+    masked to the band's complement."""
+    is_model = pdf_pallas(bins, (model_hist > 0).to(_F32))
+    return _model_outside_band(is_model, rect, band)
+
+
+def init_tracker(frame_rgb, rect, sparse_k=0, audit_band=None):
     """VJ -> CS handoff (src/camshift.js:198-211): model histogram of each
-    stream's crop.  rects: (N, 4) i32 [x, y, w, h], already floored by the
-    caller (src/facetrackr.js:101-106).  audit_band=(bh, bw) also runs the
-    bandHist handoff audit and stores ``band_dirty``."""
-    rects = rects.to(_I32).contiguous()
+    stream's crop.  frame_rgb (N, H, W, 3) u8; rect (N, 4) i32 [x, y, w, h],
+    already floored by the caller (src/facetrackr.js:101-106).
+    ``sparse_k`` is accepted for the reference's signature (sparseHist is
+    value-identical here).  audit_band=(bh, bw) also runs the bandHist
+    handoff audit (``handoff_band_audit``'s function, its lookup by
+    ``backproject`` on the frames) and stores ``band_dirty``."""
+    rects = rect.to(_I32).contiguous()
     n = rects.shape[0]
-    hist = histogram_rects(frames, rects)
+    hist = histogram_rects(frame_rgb, rects)
     z = torch.zeros((n,), dtype=_I32, device=rects.device)
     return CamshiftState(
         model_hist=hist, window=rects,
         track_x=z, track_y=z.clone(), track_w=z.clone(), track_h=z.clone(),
         track_angle=torch.zeros((n,), dtype=_F32, device=rects.device),
-        band_dirty=(handoff_band_audit(frames, hist, rects, audit_band)
-                    if audit_band is not None else None))
+        band_dirty=(_model_outside_band(
+            backproject(frame_rgb, (hist > 0).to(_F32)), rects, audit_band)
+            if audit_band is not None else None))
 
 
 def _sqrt_shl2(v, bad):
@@ -178,17 +199,31 @@ def _finish(state, win, m, zero_mass, calc_angles, H, W):
                           track_w=tw, track_h=th, track_angle=ang.to(_F32))
 
 
-def track(state, frames, calc_angles=True, hist_kernel=None):
+def mean_shift(pdf, window, exact=False):
+    """Full-frame mean shift (src/camshift.js:261-312) for every stream:
+    pdf (N, H, W) f32, window (N, 4) i32.  Returns (window' (N, 4) i32,
+    moments {name: (N,) f32} at the stopping iteration, zero_mass (N,)
+    bool).  One launch of the ``meanshift`` kernel (kernels/meanshift.py).
+    ``exact`` is accepted for the reference's signature: the sums here are
+    always f32-faithful, in the kernel's fixed order."""
+    win, m, zero_mass, _ = _ms.mean_shift(pdf, window)
+    return win, m, zero_mass
+
+
+def track(state, frame_rgb, calc_angles=True, exact=False, block=None,
+          kernel=None):
     """One camshift frame step for every stream (src/camshift.js:213-259).
 
-    frames (N, H, W, 3) u8; hist_kernel: TrackerConfig.histKernel (see
-    ops/histogram.HIST_KERNELS).  Returns (new state, full-frame pdf
-    (N, H, W))."""
-    H, W = frames.shape[1], frames.shape[2]
-    cur = histogram_full(frames, hist_kernel)
+    frame_rgb (N, H, W, 3) u8; kernel: TrackerConfig.histKernel, the
+    full-frame histogram's kernel (see ops/histogram.HIST_KERNELS).
+    ``exact`` and ``block`` are accepted for the reference's signature:
+    the pdf is always the exact lookup, and no scan has blocks.  Returns
+    (new state, full-frame pdf (N, H, W))."""
+    H, W = frame_rgb.shape[1], frame_rgb.shape[2]
+    cur = histogram_full(frame_rgb, kernel)
     weights = backprojection_weights(state.model_hist, cur)
-    pdf = backproject(frames, weights)
-    win, m, zero_mass, _ = mean_shift(pdf, state.window)
+    pdf = backproject(frame_rgb, weights)
+    win, m, zero_mass, _ = _ms.mean_shift(pdf, state.window)
     return _finish(state, win, m, zero_mass, calc_angles, H, W), pdf
 
 
@@ -220,8 +255,9 @@ def parse_band(tok):
             f"{tok!r}") from None
 
 
-def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
-               band_hist=False, audit_escape=True, hist_kernel=None):
+def track_band(state, frame_rgb, calc_angles=True, exact=False,
+               band=DEFAULT_BAND, block=None, kernel=None, band_hist=False,
+               audit_escape=True):
     """Band-local camshift step: ``track``'s math with the pdf lookup and
     moment reductions restricted to each stream's band (``band_rect``).
 
@@ -239,25 +275,27 @@ def track_band(state, frames, calc_angles=True, band=DEFAULT_BAND,
     band_hist and a state carrying ``band_dirty``, dirty streams are also
     reported escaped, so the caller's full-frame fallback serves them
     reference-exact.  False (the "flag" action) leaves the flag as
-    telemetry.  hist_kernel: the full-frame histogram's kernel, as in
-    ``track``."""
-    H, W = frames.shape[1], frames.shape[2]
+    telemetry.  kernel: the full-frame histogram's kernel, as in ``track``;
+    ``exact`` and ``block`` are accepted as there.  frame_rgb
+    (N, H, W, 3) u8."""
+    H, W = frame_rgb.shape[1], frame_rgb.shape[2]
     ry, rx, bh, bw = band_rect(state.window, band, (H, W))
     rects = band_rects(ry, rx, bh, bw)
     if band_hist:
-        _, pdf = histpdf_band(frames, rects, state.model_hist, (bh, bw))
+        _, pdf = histpdf_band(frame_rgb, rects, state.model_hist, (bh, bw))
     else:
         weights = backprojection_weights(state.model_hist,
-                                         histogram_full(frames, hist_kernel))
-        pdf = backproject(frames, weights, rects, (bh, bw))
-    win, m, zero_mass, escaped = mean_shift(pdf, state.window, ry, rx, (H, W))
+                                         histogram_full(frame_rgb, kernel))
+        pdf = backproject(frame_rgb, weights, rects, (bh, bw))
+    win, m, zero_mass, escaped = _ms.mean_shift(pdf, state.window, ry, rx,
+                                                (H, W))
     if band_hist and audit_escape and state.band_dirty is not None:
         escaped = escaped | state.band_dirty
     return _finish(state, win, m, zero_mass, calc_angles, H, W), escaped
 
 
-def camshift_step(state, frames, calc_angles=True, exact=False):
+def camshift_step(state, frame_rgb, calc_angles=True, exact=False):
     """``track``'s new state alone: one camshift step for every stream of
-    ``frames`` (N, H, W, 3) u8.  ``exact`` is accepted for the reference's
-    signature: this port's pdf is always the exact lookup."""
-    return track(state, frames, calc_angles)[0]
+    ``frame_rgb`` (N, H, W, 3) u8.  ``exact`` is accepted for the
+    reference's signature: this port's pdf is always the exact lookup."""
+    return track(state, frame_rgb, calc_angles)[0]

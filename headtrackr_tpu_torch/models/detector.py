@@ -2,8 +2,8 @@
 
 Reference behavior: src/ccv.js:109-333.  The formulation is the oracle's
 (headtrackr_tpu/oracle/detector.py): every window runs the cascade with
-early exit, and the survivors go into a fixed buffer of ``capacity`` slots a
-stream (default CAPACITY, the reference package's ``k_cand``), the first
+early exit, and the survivors go into a fixed buffer of ``k_cand`` slots a
+stream (default CAPACITY, as in the reference package), the first
 ones in window order; ``overflow`` counts the survivors beyond it.  Where
 the reference package reports ``overflow == 0`` the candidate set is its.
 
@@ -41,14 +41,17 @@ candidate slots, labelled by their smallest member slot, then member sums
 (exact in f64, rounded to f32) and the containment filter.
 """
 
+import collections
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
 
-from ..cascade import cascade_to_torch
+from ..cascade import ARRAY_FIELDS, cascade_to_torch
 from ..device import resolve_device
-from ..kernels.cascade import cascade, dense_stages
+from ..kernels.cascade import cascade as _cascade
+from ..kernels.cascade import dense_stages
 from ..kernels.group import group
 from ..kernels.pyramid import pyramid
 from ..ops.imageproc import pyramid_plan, pyramid_spec
@@ -306,14 +309,53 @@ def detector_tables(w0, h0, cascade, interval=5, device=None):
             scales))))
 
 
-def detect_candidates(gray, tables, capacity=CAPACITY):
+_TABLES = collections.OrderedDict()  # (w, h, interval, digest, device) -> tables
+_TABLES_MAX = 16
+
+
+def _cached_tables(w, h, cascade, interval, device):
+    """``detector_tables``, cached per (frame size, cascade, interval,
+    device) like the reference package's tables: a VJ frame does not
+    rebuild them."""
+    d = hashlib.sha1()
+    for k in ARRAY_FIELDS:
+        d.update(np.ascontiguousarray(np.asarray(cascade[k])).tobytes())
+    key = (w, h, interval, d.hexdigest(), torch.device(device))
+    if key in _TABLES:
+        _TABLES.move_to_end(key)
+    else:
+        _TABLES[key] = detector_tables(w, h, cascade, interval, device=device)
+        if len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
+    return _TABLES[key]
+
+
+def _tables_for(gray, cascade, interval):
+    """The tables of ``cascade`` (a model, or its ``DetectorTables``) for
+    gray (N, H, W) at ``interval``; a table set of another interval
+    raises."""
+    if isinstance(cascade, DetectorTables):
+        if cascade.spec.interval != interval:
+            raise ValueError(f"tables of interval {cascade.spec.interval} "
+                             f"passed with interval={interval}")
+        return cascade
+    H, W = gray.shape[-2:]
+    return _cached_tables(W, H, cascade, interval, gray.device)
+
+
+def detect_candidates(gray, cascade, interval=5, k1=None, k2=None,
+                      k_cand=CAPACITY):
     """Run the cascade over every window of every stream.
 
-    gray (N, H, W) u8.  Returns dict of (N, capacity) arrays x, y, width,
-    height, confidence + valid mask: each stream's first ``capacity``
-    survivors in window order; and overflow (N,) i32, the survivors beyond
-    ``capacity`` (the reference package's key)."""
-    return cascade(pyramid(gray, tables), tables, capacity)
+    gray (N, H, W) u8; cascade: a model (``Cascade`` of either package;
+    its tables are built once per frame size, interval and device) or its
+    ``detector_tables``.  k1 and k2 (the reference's tile and window caps)
+    are accepted and ignored: the port has neither (F7).  Returns dict of
+    (N, k_cand) arrays x, y, width, height, confidence + valid mask: each
+    stream's first ``k_cand`` survivors in window order; and overflow (N,)
+    i32, the survivors beyond ``k_cand`` (the reference package's key)."""
+    tables = _tables_for(gray, cascade, interval)
+    return _cascade(pyramid(gray, tables), tables, k_cand)
 
 
 def group_candidates(x, y, w, h, conf, valid, min_neighbors=1):
@@ -326,11 +368,13 @@ def group_candidates(x, y, w, h, conf, valid, min_neighbors=1):
     return group(x, y, w, h, conf, valid, max(int(min_neighbors), 1))[0]
 
 
-def detect_objects_padded(gray, tables, min_neighbors=1, capacity=CAPACITY):
+def detect_objects_padded(gray, cascade, interval=5, min_neighbors=1,
+                          k_cand=CAPACITY, k1=None, k2=None):
     """Grouped detections (ccv.detect_objects with min_neighbors > 0) as
-    (N, capacity) arrays + kept mask, and the cascade's overflow;
-    min_neighbors=0 keeps every raw candidate."""
-    cand = detect_candidates(gray, tables, capacity)
+    (N, k_cand) arrays + kept mask, and the cascade's overflow;
+    min_neighbors=0 keeps every raw candidate.  cascade, k1, k2: as in
+    ``detect_candidates``."""
+    cand = detect_candidates(gray, cascade, interval, k_cand=k_cand)
     if not min_neighbors > 0:
         cand = dict(cand)
         cand["kept"] = cand.pop("valid")
@@ -343,11 +387,13 @@ def detect_objects_padded(gray, tables, min_neighbors=1, capacity=CAPACITY):
     return g
 
 
-def detect_best(gray, tables, min_neighbors=1, capacity=CAPACITY):
+def detect_best(gray, cascade, interval=5, min_neighbors=1, k_cand=CAPACITY,
+                k1=None, k2=None):
     """The facetrackr candidate pick (src/facetrackr.js:157-165): max
     confidence, the first candidate wins ties.  Returns (found, x, y, w, h,
-    confidence), each (N,).  No host read."""
-    cand = detect_candidates(gray, tables, capacity)
+    confidence), each (N,).  No host read.  cascade, k1, k2: as in
+    ``detect_candidates``."""
+    cand = detect_candidates(gray, cascade, interval, k_cand=k_cand)
     return group(cand["x"], cand["y"], cand["width"], cand["height"],
                  cand["confidence"], cand["valid"],
                  min_neighbors if min_neighbors > 0 else 0)[1]

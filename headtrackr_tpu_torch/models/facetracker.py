@@ -103,17 +103,25 @@ class StepOutput(NamedTuple):
                                   # merge, always False off the band path
 
 
-def init_state(n, device=None, whitebalancing=True, band_audit=False):
-    """device: see device.resolve_device (None: the card).  band_audit:
-    carry the bandHist handoff-audit flag (must match the step's
-    ``audit_band`` presence, the reference's schema rule)."""
+def init_state(n, whitebalancing=True, sparse_k=0, band_audit=False, *,
+               device=None):
+    """The state of n streams, the reference's ``init_state`` with the
+    stream count first.  device: see device.resolve_device (None: the
+    card).  whitebalancing must be a bool (so that a device passed in its
+    place raises).  sparse_k is accepted for the reference's signature
+    (sparseHist is value-identical here).  band_audit: carry the bandHist
+    handoff-audit flag (must match the step's ``audit_band`` presence, the
+    reference's schema rule)."""
+    if not isinstance(whitebalancing, (bool, np.bool_)):
+        raise TypeError(f"whitebalancing must be a bool, got "
+                        f"{whitebalancing!r}")
     device = resolve_device(device)
     def full(shape, v, dtype):
         return torch.full(shape, v, dtype=dtype, device=device)
     return TrackerState(
         mode=full((n,), MODE_WB if whitebalancing else MODE_VJ, _I32),
         wb_ring=full((n, PWB_LENGTH), 0.0, _F32), wb_n=full((n,), 0, _I32),
-        cs=cs.init_state(n, device, band_audit),
+        cs=cs.init_state(n, band_audit=band_audit, device=device),
         sm_sp=full((n, 5), 0.0, _F32), sm_init=full((n,), False, torch.bool),
         face_found=full((n,), False, torch.bool),
         first_run=full((n,), True, torch.bool),
@@ -169,9 +177,11 @@ def _empty_result(n, device):
 
 
 def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
-              device=None, band=None, audit_band=None, tables=None,
-              with_pdf=False):
-    """Build the per-frame step for a static (cascade, config, H, W, device).
+              with_pdf=False, band=None, audit_band=None, *, device=None,
+              tables=None):
+    """Build the per-frame step for a static (cascade, config, H, W, device):
+    the reference's ``make_step`` over a batch, with ``device`` and
+    ``tables`` as keywords after its parameters.
 
     step(state, frames, modes=None) -> (state', StepOutput), frames
     (N, H, W, 3) u8.  ``modes`` is the host copy of ``state.mode`` (a NumPy
@@ -226,7 +236,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
                          f"got {config.bandHistAuditAction!r}")
     H, W = frame_shape
     if variant in ("full", "pending") and tables is None:
-        tables = detector_tables(W, H, cascade, config.detectorInterval, device)
+        tables = detector_tables(W, H, cascade, config.detectorInterval,
+                                 device=device)
     # f32 constants made once: a host-to-device copy per tick would
     # synchronize the stream
     camw = torch.tensor(W, dtype=_F32, device=device)
@@ -246,8 +257,9 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         return state._replace(mode=new_mode, wb_ring=ring, wb_n=n), res, None
 
     def vj_branch(state, frames):
-        found, x, y, w, h, conf = detect_best(grayscale(frames), tables,
-                                              config.minNeighbors)
+        found, x, y, w, h, conf = detect_best(
+            grayscale(frames), tables, config.detectorInterval,
+            config.minNeighbors)
         zero = torch.zeros_like(x)
         conf = torch.where(found, conf, -10000.0)
         res = _Result(x=torch.where(found, x, zero), y=torch.where(found, y, zero),
@@ -257,7 +269,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         # VJ -> CS handoff (src/facetrackr.js:97-108)
         switch = conf > CONFIDENCE_THRESHOLD
         rect = torch.floor(torch.stack([res.x, res.y, res.w, res.h], 1)).to(_I32)
-        new_cs = cs.init_tracker(frames, rect, audit_band)
+        new_cs = cs.init_tracker(frames, rect, audit_band=audit_band)
         cs_state = _where(switch, new_cs, state.cs)
         new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
         return state._replace(mode=new_mode, cs=cs_state), res, None
@@ -274,14 +286,13 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         pdf = None
         if band is None:
             new_cs, pdf = cs.track(state.cs, frames, config.calcAngles,
-                                   hist_kernel)
+                                   kernel=hist_kernel)
             escaped = torch.zeros_like(state.mode, dtype=torch.bool)
         else:
             new_cs, escaped = cs.track_band(
-                state.cs, frames, config.calcAngles, band,
-                band_hist=config.bandHist,
-                audit_escape=config.bandHistAuditAction == "escape",
-                hist_kernel=hist_kernel)
+                state.cs, frames, config.calcAngles, band=band,
+                kernel=hist_kernel, band_hist=config.bandHist,
+                audit_escape=config.bandHistAuditAction == "escape")
         one = torch.ones_like(new_cs.track_angle)
         res = _Result(x=new_cs.track_x.to(_F32), y=new_cs.track_y.to(_F32),
                       w=new_cs.track_w.to(_F32), h=new_cs.track_h.to(_F32),

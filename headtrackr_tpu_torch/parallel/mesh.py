@@ -75,11 +75,15 @@ def _place(x, device):
     return torch.as_tensor(np.ascontiguousarray(x)).to(device, copy=True)
 
 
-def shard_streams(tree, mesh):
+def shard_streams(tree, mesh, axis_name="streams"):
     """Split a stream-batched tree (a NamedTuple tree, a tensor or an array;
     None leaves stay None) along its leading stream axis into the mesh's
     equal slices.  Returns one tree a shard, each on its shard's device.  A length
-    that does not divide raises ``ValueError``."""
+    that does not divide raises ``ValueError``, and so does an
+    ``axis_name`` that is not the mesh's axis."""
+    if axis_name != mesh.axis_names[0]:
+        raise ValueError(f"the mesh's axis is {mesh.axis_names[0]!r}, not "
+                         f"{axis_name!r}")
     k = mesh.devices.size
 
     def cut(t):

@@ -137,7 +137,7 @@ def load_state(path, like=None, device=None):
     to a fresh single-stream state on ``device``, see
     device.resolve_device)."""
     if like is None:
-        like = ft.init_state(1, device)
+        like = ft.init_state(1, device=device)
     state, _ = _load(path, like)
     return state
 

@@ -338,7 +338,7 @@ class _Steps:
 
         def mk(variant, band=None):
             return ft.make_step(cascade, config, self.frame_shape, variant,
-                                device, band=band, audit_band=audit,
+                                band=band, audit_band=audit, device=device,
                                 tables=tables)
 
         # the banded steps return the escaped streams, which the full-frame
@@ -668,7 +668,7 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
             return [state], [_staged(frames, want, devices[0])]
         frames = _check_frames(torch.as_tensor(frames), want)
         parts = split_streams(frames, k, len(lead))
-        return (shard_streams(state, mesh),
+        return (shard_streams(state, mesh, mesh.axis_names[0]),
                 [_staged(p, p.shape, d) for p, d in zip(parts, devices)])
 
     def joined(parts):
@@ -790,8 +790,8 @@ class BatchedTracker:
         return self._steps._graphs.get((self.n, 0))
 
     def _init_state(self, n):
-        return ft.init_state(n, self.device, self.config.whitebalancing,
-                             band_audit=self._band_audit)
+        return ft.init_state(n, self.config.whitebalancing,
+                             band_audit=self._band_audit, device=self.device)
 
     def reset(self):
         """Re-initialize every stream (fresh cold start)."""
@@ -1056,7 +1056,7 @@ class _MeshTracker(BatchedTracker):
     def set_state(self, state, modes=None):
         """Split ``state`` (a TrackerState over N, on any device) and its
         host mode view (read from the state when None) over the shards."""
-        parts = shard_streams(state, self.mesh)
+        parts = shard_streams(state, self.mesh, self.mesh.axis_names[0])
         views = ([None] * len(parts) if modes is None else
                  split_streams(np.array(modes, dtype=np.int32), len(parts)))
         for s, p, m in zip(self._shards, parts, views):

@@ -87,7 +87,8 @@ class Tracker:
 
     def _reset_state(self):
         """Detection from scratch: a fresh state and its mode view."""
-        self._state = ft.init_state(1, self.device, self.config.whitebalancing)
+        self._state = ft.init_state(1, self.config.whitebalancing,
+                                    device=self.device)
         self._modes = self._state.mode.cpu().numpy()
 
     def init(self, video=None, canvas=None, setupVideo=True):
@@ -122,8 +123,8 @@ class Tracker:
         self._canvas_size = (cw, ch)
 
         self._step = ft.make_step(self._cascade, self.config, (ch, cw),
-                                  "full", self.device,
-                                  with_pdf=self.config.debug)
+                                  "full", with_pdf=self.config.debug,
+                                  device=self.device)
         self._reset_state()
         self._last_frame = None
         self._last_pdf = None

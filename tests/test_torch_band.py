@@ -122,7 +122,7 @@ def test_track_band_parity_blob_clips(rng, band_hist):
         s, f, True, band=BAND, kernel="pallas", band_hist=band_hist))
     n_esc = 0
     for t in range(1, T):
-        got = tcs.track_band(ts, torch.as_tensor(clips[t]), True, BAND,
+        got = tcs.track_band(ts, torch.as_tensor(clips[t]), True, band=BAND,
                              band_hist=band_hist)
         ref = [step(s, jnp.asarray(f)) for s, f in zip(js, clips[t])]
         esc = got[1].numpy()
@@ -143,7 +143,7 @@ def test_band_too_small_escapes(rng):
     js, ts = _start(f0, np.array([[34, 18, 28, 36], [42, 30, 12, 12]],
                                  np.int32))
     small = (16, 16)
-    new, esc = tcs.track_band(ts, torch.as_tensor(f0), True, small)
+    new, esc = tcs.track_band(ts, torch.as_tensor(f0), True, band=small)
     ref = [jcs.track_band(s, jnp.asarray(f), True, band=small,
                           kernel="pallas") for s, f in zip(js, f0)]
     assert esc.tolist() == [bool(e) for _, e in ref]
@@ -234,7 +234,7 @@ def test_handoff_band_audit_clean_and_dirty():
     band = (64, 96)
     tf, tr = torch.as_tensor(frames), torch.as_tensor(rects)
     model = thg.histogram_rects(tf, tr)
-    got = tcs.handoff_band_audit(tf, model, tr, band)
+    got = tcs.handoff_band_audit(thg.rgb_bins(tf), model, tr, band)
     want = [bool(jcs.handoff_band_audit(
         jhg.rgb_bins(jnp.asarray(f)), jnp.asarray(m.numpy()),
         jnp.asarray(r), band)) for f, m, r in zip(frames, model, rects)]
@@ -266,7 +266,7 @@ def test_wbtrack_step_matches_reference(rng):
         j_toy(), JConfig(histKernel="pallas", **cfg), (Hs, Ws), "wbtrack",
         band=band)))
     tstep = tft.make_step(toy_cascade(), TrackerConfig(**cfg), (Hs, Ws),
-                          "wbtrack", "cpu", band=band)
+                          "wbtrack", band=band, device="cpu")
     tstate = convert.state_from_numpy(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate)],
         device="cpu")
@@ -294,7 +294,7 @@ def test_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedTracker(2, (40, 40), cascade=toy_cascade())
-    leaves = convert.state_to_numpy(tft.init_state(2, "cpu"))
+    leaves = convert.state_to_numpy(tft.init_state(2, device="cpu"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.state_from_numpy(leaves)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -313,7 +313,7 @@ def test_serving_knobs_checked():
                        overload="bogus")
     with pytest.raises(ValueError, match="band requires"):
         tft.make_step(toy_cascade(), TrackerConfig(), (120, 160), "full",
-                      "cpu", band=(64, 96))
+                      band=(64, 96), device="cpu")
     with pytest.raises(ValueError, match="bandHistAuditAction"):
         BatchedTracker(2, (120, 160), cascade=toy_cascade(), device="cpu",
                        band=(64, 96), bandHist=True,

@@ -85,9 +85,10 @@ def _copy(jstate):
 
 
 def _port_state(config):
-    return tft.init_state(N, "cpu", config.whitebalancing,
+    return tft.init_state(N, config.whitebalancing,
                           band_audit=wants_band_audit(
-                              config, resolve_band(BAND, (H, W))))
+                              config, resolve_band(BAND, (H, W))),
+                          device="cpu")
 
 
 def _steps(**kw):

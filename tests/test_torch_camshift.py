@@ -19,6 +19,7 @@ from headtrackr_tpu.models import camshift as jcs
 from headtrackr_tpu.models import facetracker as jft
 from headtrackr_tpu.oracle.camshift import CamshiftTracker
 from headtrackr_tpu_torch import convert
+from headtrackr_tpu_torch.kernels import meanshift as kms
 from headtrackr_tpu_torch.models import camshift as tcs
 
 torch.set_num_threads(2)
@@ -173,7 +174,7 @@ def test_mean_shift_matches_reference_core(rng, band):
     offs = {} if band is None else dict(ry=torch.as_tensor(ry),
                                         rx=torch.as_tensor(rx),
                                         frame_shape=(H, W))
-    twin, tm, tzero, tesc = tcs.mean_shift(torch.as_tensor(part),
+    twin, tm, tzero, tesc = kms.mean_shift(torch.as_tensor(part),
                                            torch.as_tensor(win), **offs)
     np.testing.assert_array_equal(twin.numpy(), np.asarray(jwin))
     np.testing.assert_array_equal(tzero.numpy(), np.asarray(jzero))

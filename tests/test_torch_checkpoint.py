@@ -136,7 +136,7 @@ def test_state_round_trip_and_v1(tmp_path):
         tck.load_state(v1, like=_port().state)
     # the default template: one fresh stream
     one = tmp_path / "one.npz"
-    tck.save_state(one, tft.init_state(1, "cpu"))
+    tck.save_state(one, tft.init_state(1, device="cpu"))
     assert int(tck.load_state(one, device="cpu").mode[0]) == tft.MODE_WB
 
 
@@ -166,7 +166,7 @@ def test_schema_shape_dtype_and_metadata_errors(locked, tmp_path):
         tck.load_tracker(_edited(src, tmp_path / "b.npz",
                                  put={"state/extra": np.zeros(N)}), _port())
     with pytest.raises(ValueError, match="shape"):
-        tck.load_state(src, like=tft.init_state(1, "cpu"))
+        tck.load_state(src, like=tft.init_state(1, device="cpu"))
     with pytest.raises(ValueError, match="dtype"):
         tck.load_tracker(_edited(src, tmp_path / "c.npz", put={
             "state/wb_n": np.zeros(N, np.int64)}), _port())

@@ -233,7 +233,7 @@ def test_batched_steps_equal_tracker_on_the_card(dev, donate):
                         bandHist=True, **kw)
     _, _, _, step_auto, step_scan = make_batched_steps(
         toy_cascade(), bt.config, (H, W), donate=donate, device=dev, **kw)
-    state = tft.init_state(n, dev, band_audit=True)
+    state = tft.init_state(n, band_audit=True, device=dev)
     same_tree = []
     for t, f in enumerate(clip):
         want = bt.step_auto(f)
@@ -494,6 +494,76 @@ def test_hist_bins_bit_equal_to_twin(dev, kind):
         assert torch.equal(hist_bins(ids.to(dev)[1:]).cpu(),
                            hg.hist_bins_plain(ids[1:]))
 
+
+@pytest.mark.parametrize("n", [1, 8, 256])
+def test_hist_pallas_pdf_pallas_bit_equal_to_twins(dev, n):
+    """The reference-named entry points on the card: hist_pallas launches
+    hist_bins, pdf_pallas take_along (one launch each), bit-equal to the
+    twins on (n, 240, 320) bins with ids below 0 and from 4096 up among them
+    (counted nowhere, looked up as 0), and on one (240, 320) frame."""
+    from headtrackr_tpu_torch.kernels import hist_pallas, pdf_pallas
+    from headtrackr_tpu_torch.ops.gather import take_along_plain
+    g = torch.Generator().manual_seed(16)
+    bins = torch.randint(0, 4096, (n, 240, 320), generator=g).int()
+    bins[:, 0, :6] = torch.tensor([-1, -64, 4096, 5000, -2 ** 31,
+                                   2 ** 31 - 1], dtype=torch.int32)
+    w = torch.rand((n, 4096), generator=g)
+    ok = (bins >= 0) & (bins < 4096)
+    want_p = torch.where(ok, take_along_plain(
+        w.view(n, 4096, 1), bins.clamp(0, 4095).view(n, -1, 1), 1).view(
+            bins.shape), 0.0)
+    before = dict(launches)
+    h = hist_pallas(bins.to(dev))
+    p = pdf_pallas(bins.to(dev), w.to(dev))
+    torch.cuda.synchronize()
+    assert launches["hist_bins"] == before["hist_bins"] + 1
+    assert launches["take_along"] == before["take_along"] + 1
+    assert torch.equal(h.cpu(), hg.hist_bins_plain(bins.view(n, -1)))
+    assert torch.equal(p.cpu(), want_p)
+    assert (p.cpu()[:, 0, :6] == 0).all()
+    assert torch.equal(hist_pallas(bins[0].to(dev)).cpu(), h[0].cpu())
+    assert torch.equal(pdf_pallas(bins[0].to(dev), w[0].to(dev)).cpu(),
+                       want_p[0])
+
+
+def test_reference_surface_on_the_card(dev):
+    """The repaired reference-shaped calls with device left at None run on
+    the card and equal the paths they alias: mean_shift(pdf, window) the
+    kernel wrapper's first three outputs, handoff_band_audit on bins the
+    frames route of init_tracker, detect_best(gray, cascade) the tables
+    route; init_state and cascade_to_torch land on the card."""
+    from headtrackr_tpu_torch.cascade import cascade_to_torch
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    from headtrackr_tpu_torch.models import camshift as tcs
+    from headtrackr_tpu_torch.models import detector as td
+    assert tft.init_state(2).mode.device.type == "cuda"
+    assert tcs.init_state(2).window.device.type == "cuda"
+    assert cascade_to_torch(toy_cascade())["alpha"].device.type == "cuda"
+    g = torch.Generator().manual_seed(17)
+    frames = torch.randint(20, 60, (8, 120, 160, 3), generator=g,
+                           dtype=torch.uint8)
+    frames[:, 38:62, 48:72] = torch.tensor([230, 80, 60], dtype=torch.uint8)
+    frames[1, 2:5, 150:153] = torch.tensor([230, 80, 60], dtype=torch.uint8)
+    rects = torch.tensor([[50, 40, 20, 20]] * 8, dtype=torch.int32)
+    f, r = frames.to(dev), rects.to(dev)
+    st = tcs.init_tracker(f, r, audit_band=(64, 96))
+    got = tcs.handoff_band_audit(hg.rgb_bins(f), st.model_hist, r, (64, 96))
+    assert got.tolist() == st.band_dirty.tolist()
+    assert got.tolist()[:2] == [False, True]
+    pdf = torch.rand((8, 120, 160), generator=g).to(dev)
+    three = tcs.mean_shift(pdf, r)
+    four = kms.mean_shift(pdf, r)
+    for a, b in zip(three, (four[0], four[1], four[2])):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        else:
+            assert torch.equal(a, b)
+    gray = torch.full((2, 120, 160), 40, dtype=torch.uint8, device=dev)
+    gray[:, 38:62, 48:72] = 220
+    tables = td.detector_tables(160, 120, toy_cascade(), 5, dev)
+    for a, b in zip(td.detect_best(gray, toy_cascade()),
+                    td.detect_best(gray, tables)):
+        assert torch.equal(a, b)
 
 
 def _hist_bins_ids(kind, g):

@@ -611,7 +611,7 @@ def test_cascade_twin_equals_reference_candidates(k_cand):
     tables = td.detector_tables(64, 48, toy_cascade(), 5, "cpu")
     got = {k: v.numpy() for k, v in
            td.detect_candidates(torch.as_tensor(gray), tables,
-                                capacity=k_cand).items()}
+                                k_cand=k_cand).items()}
     np.testing.assert_array_equal(got["valid"], want["valid"])
     np.testing.assert_array_equal(got["overflow"], want["overflow"])
     v = want["valid"]
@@ -624,8 +624,8 @@ def test_cascade_twin_equals_reference_candidates(k_cand):
     else:
         assert want["overflow"][0] > 0  # survivors beyond the capacity
     # detect_objects_padded reports the same overflow
-    g = td.detect_objects_padded(torch.as_tensor(gray), tables, 1,
-                                 capacity=k_cand)
+    g = td.detect_objects_padded(torch.as_tensor(gray), tables,
+                                 min_neighbors=1, k_cand=k_cand)
     np.testing.assert_array_equal(g["overflow"].numpy(), want["overflow"])
 
 

@@ -101,13 +101,14 @@ def test_hist_kernel_routing(monkeypatch):
         hg.histogram_full(frames, "triton")
     # the choice travels from the config through make_step to camshift
     calls.clear()
-    state = tcs.init_state(2, "cpu")
+    state = tcs.init_state(2, device="cpu")
     tcs.track(state, frames)
-    tcs.track(state, frames, hist_kernel="pallas")
+    tcs.track(state, frames, kernel="pallas")
     assert calls == ["hist_mma", "hist4096"]
     cfg = pt.TrackerConfig(histKernel="mxu")
     with pytest.raises(ValueError, match="histKernel"):
-        tft.make_step(pt.toy_cascade(), cfg, (24, 32), "track", "cpu")
+        tft.make_step(pt.toy_cascade(), cfg, (24, 32), "track",
+                      device="cpu")
     with pytest.raises(ValueError, match="histKernel"):
         pt.BatchedTracker(2, (24, 32), cascade=pt.toy_cascade(),
                           device="cpu", histKernel="mxu")

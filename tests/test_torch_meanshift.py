@@ -387,18 +387,26 @@ def test_tree_sum_adds_adjacent_pairs():
     assert oms.tree_sum(torch.ones((3, 1))).tolist() == [1, 1, 1]
 
 
-def test_camshift_mean_shift_is_the_wrapper():
-    """models/camshift.mean_shift dispatches through the kernel's wrapper:
-    on CPU tensors, the twin."""
-    assert tcs.mean_shift is mean_shift
+def test_camshift_mean_shift_is_the_wrapper(monkeypatch):
+    """models/camshift.mean_shift (the reference's three outputs) dispatches
+    through the kernel's wrapper: on CPU tensors, the twin."""
+    calls = []
+    monkeypatch.setattr(kms, "mean_shift",
+                        lambda *a: calls.append(a) or mean_shift(*a))
     rng = np.random.default_rng(3)
     pdf, win = _quarter_pdfs(rng)
-    got = tcs.mean_shift(torch.as_tensor(pdf), torch.as_tensor(win))
+    got = mean_shift(torch.as_tensor(pdf), torch.as_tensor(win))
     want = _twin(pdf, win)
     for a, b in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
         np.testing.assert_array_equal(a.numpy(), b)
     for k in oms.MOMENTS:
         _assert_bits(got[1][k].numpy(), want[1][k], k)
+    three = tcs.mean_shift(torch.as_tensor(pdf), torch.as_tensor(win))
+    assert len(calls) == 1 and len(three) == 3
+    for a, b in zip((three[0], three[2]), (want[0], want[2])):
+        np.testing.assert_array_equal(a.numpy(), b)
+    for k in oms.MOMENTS:
+        _assert_bits(three[1][k].numpy(), want[1][k], k)
 
 
 def test_wrapper_rejects_what_it_does_not_take():

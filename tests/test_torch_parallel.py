@@ -89,7 +89,7 @@ def test_shard_streams_splits_the_leading_axis():
     for j, p in enumerate(parts):
         assert p.device == torch.device("cpu") and p.shape == (1, 4)
         np.testing.assert_array_equal(p.numpy(), x[j:j + 1])
-    state = tft.init_state(16, "cpu", band_audit=True)
+    state = tft.init_state(16, band_audit=True, device="cpu")
     back = gather_streams(shard_streams(state, mesh), torch.device("cpu"))
     _same(back, state)
     assert back.cs.band_dirty is not None

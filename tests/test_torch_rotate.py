@@ -93,7 +93,7 @@ def test_track_step_freezes_non_cs_streams(band):
         ht.toy_cascade(), JConfig(histKernel="pallas", **cfg), (H, W),
         "track", band=band)))
     tstep = tft.make_step(toy_cascade(), TrackerConfig(**cfg), (H, W),
-                          "track", "cpu", band=band)
+                          "track", band=band, device="cpu")
     tstate = convert.state_from_numpy(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate)],
         device="cpu")

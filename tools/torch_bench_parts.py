@@ -198,8 +198,8 @@ def main(argv=None):
             report(name, ms, f"{mb:.1f} MB, {mb / ms:.2f} GB/s, events")
 
     def step(variant, with_band):
-        return ft.make_step(bt.cascade, bt.config, (H, W), variant, dev,
-                            band=band if with_band else None)
+        return ft.make_step(bt.cascade, bt.config, (H, W), variant,
+                            band=band if with_band else None, device=dev)
 
     if "track" in want:
         track = step("track", False)

@@ -182,8 +182,9 @@ def run_device(clip, device):
     from headtrackr_tpu_torch.models import facetracker as ft
 
     cfg = TrackerConfig(smoothing=False, headPosition=False)
-    step = ft.make_step(frontalface(), cfg, clip.shape[1:3], "full", device)
-    state = ft.init_state(1, device, cfg.whitebalancing)
+    step = ft.make_step(frontalface(), cfg, clip.shape[1:3], "full",
+                        device=device)
+    state = ft.init_state(1, cfg.whitebalancing, device=device)
     frames = torch.as_tensor(clip).to(device)
     outs = []
     for k in range(len(clip)):
