@@ -177,7 +177,7 @@ Phases, one line each; any failure raises and exits nonzero:
      in its run; each line is printed here.
  14. surface: the reference's public names on the card with every device
      argument left at None, the launch counts at 0 before: kernels.
-     hist_pallas and pdf_pallas (the hist_bins and take_along kernels) on
+     hist_pallas and pdf_pallas (the hist_bins and pdf_bins kernels) on
      the bench pool's bins at N=256 and N=1, on one (H, W) frame and on ids
      outside [0, 4096) (counted nowhere, looked up as 0);
      models.camshift.mean_shift on pdf_pallas's pdf; handoff_band_audit on
@@ -187,11 +187,13 @@ Phases, one line each; any failure raises and exits nonzero:
      twin and to the path it aliases (hist4096 and backproject of the same
      frames, the kernel wrapper's mean shift and its twin, init_tracker's
      frames audit, detect_best on the tables), and every kernel of
-     SURFACE_PATH launched.  The two entry points are timed at N=256 and
-     N=1 (events and graph replay) beside their twins, byte bounds,
-     torch.bincount and torch.gather, and the card's name and power limit;
-     hist_bins' and take_along's kernel entries carry these under
-     "surface" (take_along's launches are this phase's).
+     SURFACE_PATH launched, and take_along not (pdf_pallas is one
+     pdf_bins launch: the CUDA graph that captures a call at N=256 and at
+     N=1 holds one node, a kernel).  The two entry points are timed at
+     N=256 and N=1 (events and graph replay) beside their twins, byte
+     bounds, torch.bincount and torch.gather, and the card's name and power
+     limit; hist_bins' and pdf_bins' kernel entries carry these under
+     "surface" (pdf_bins' launches, times and error are this phase's).
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
 facade, plan, mesh, gate, bench and surface numbers as JSON (phases 5,
@@ -221,6 +223,7 @@ HISTPDF_SRC = "headtrackr_tpu_torch/csrc/histpdf.cu"
 GATHER_SRC = "headtrackr_tpu_torch/csrc/gather.cu"
 HISTMMA_SRC = "headtrackr_tpu_torch/csrc/histmma.cu"
 HISTBINS_SRC = "headtrackr_tpu_torch/csrc/histbins.cu"
+PDFBINS_SRC = "headtrackr_tpu_torch/csrc/pdfbins.cu"
 MEANSHIFT_SRC = "headtrackr_tpu_torch/csrc/meanshift.cu"
 PYRAMID_SRC = "headtrackr_tpu_torch/csrc/pyramid.cu"
 CASCADE_SRC = "headtrackr_tpu_torch/csrc/cascade.cu"
@@ -263,11 +266,13 @@ KERNELS = {
                      HISTPDF_SRC),
     "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
                           HISTPDF_SRC),
-    "take_along": ("tools/kernel_experiments.py:396", "surface", GATHER_SRC),
+    "take_along": ("tools/kernel_experiments.py:396", "headline", GATHER_SRC),
     "meanshift": ("tools/kernel_experiments.py:397", "headline",
                   MEANSHIFT_SRC),
     "hist_mma": ("tools/kernel_experiments.py:257", "band", HISTMMA_SRC),
     "hist_bins": ("tools/kernel_experiments.py:257", "facade", HISTBINS_SRC),
+    "pdf_bins": ("headtrackr_tpu/kernels/histpdf.py:123", "surface",
+                 PDFBINS_SRC),
     "pyramid": ("headtrackr_tpu/ops/imageproc.py:141", "headline",
                 PYRAMID_SRC),
     "cascade": ("headtrackr_tpu/models/detector.py:595", "headline",
@@ -275,7 +280,7 @@ KERNELS = {
     "group": ("headtrackr_tpu/models/detector.py:517", "headline", GROUP_SRC),
 }
 # the kernels that phase 14's calls of the reference's surface launch
-SURFACE_PATH = ("hist_bins", "take_along", "meanshift") + DETECT
+SURFACE_PATH = ("hist_bins", "pdf_bins", "meanshift") + DETECT
 SURFACE_NS = (N_STREAMS, 1)  # hist_pallas / pdf_pallas: 256 streams and one
 SURFACE_DETECT = 8  # detect_best(gray, cascade): a relock bucket's streams
 # the kernels the facade phase's path launches
@@ -2351,17 +2356,6 @@ def phase_gate(dev, root):
     return res
 
 
-def _pdf_twin(bins, weights):
-    """pdf_pallas's function by its kernel's twin: the clamped ids looked up
-    by take_along_plain, 0 for an id outside [0, 4096)."""
-    import torch
-    from headtrackr_tpu_torch.ops.gather import take_along_plain
-    n = bins.shape[0] if bins.dim() == 3 else 1
-    ids = bins.reshape(n, -1, 1)
-    got = take_along_plain(weights.reshape(n, 4096, 1), ids.clamp(0, 4095), 1)
-    return torch.where((ids >= 0) & (ids < 4096), got, 0.0).view(bins.shape)
-
-
 def phase_surface(pools, dev):
     """The reference's public surface on the card, every device argument
     left at None: hist_pallas and pdf_pallas on the bench pool's bins at
@@ -2425,11 +2419,13 @@ def phase_surface(pools, dev):
     idle = [k for k, v in launches.items() if not v]
     if idle:
         raise AssertionError(f"surface: kernels not launched: {idle}")
+    if L.launches["take_along"]:
+        raise AssertionError("surface: pdf_pallas launched take_along")
     if any(t.device.type != dev.type for t in on_card):
         raise AssertionError("surface: a None device did not land on the "
                              "card")
 
-    err = {"hist_bins": 0.0, "take_along": 0.0}
+    err = {"hist_bins": 0.0, "pdf_bins": 0.0}
 
     def same(kernel, a, b, what):
         e = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
@@ -2442,19 +2438,24 @@ def phase_surface(pools, dev):
              f"hist_pallas vs its twin at N={n}")
         same("hist_bins", h, hist4096(frames[:n], full[:n]),
              f"hist_pallas vs hist4096 at N={n}")
-        same("take_along", p, _pdf_twin(bins[:n], weights[:n]),
+        same("pdf_bins", p, hg.pdf_bins_plain(bins[:n], weights[:n]),
              f"pdf_pallas vs its twin at N={n}")
-        same("take_along", p, backproject(frames[:n], weights[:n]),
+        same("pdf_bins", p, backproject(frames[:n], weights[:n]),
              f"pdf_pallas vs backproject at N={n}")
     same("hist_bins", frame1[0], got[1][0][0], "hist_pallas on one frame")
-    same("take_along", frame1[1], got[1][1][0], "pdf_pallas on one frame")
+    same("pdf_bins", frame1[1], got[1][1][0], "pdf_pallas on one frame")
     same("hist_bins", odd_out[0], hg.hist_bins_plain(odd.reshape(N, -1)),
          "hist_pallas on ids outside [0, 4096)")
-    same("take_along", odd_out[1], _pdf_twin(odd, weights),
+    same("pdf_bins", odd_out[1], hg.pdf_bins_plain(odd, weights),
          "pdf_pallas on ids outside [0, 4096)")
     if not (odd_out[1][:, 0, :6] == 0).all():
         raise AssertionError("surface: pdf_pallas looked up an id outside "
                              "[0, 4096)")
+    nodes = {n: graph_nodes(lambda n=n: pdf_pallas(bins[:n], weights[:n]))
+             for n in SURFACE_NS}
+    if any(v != ["kernel"] for v in nodes.values()):
+        raise AssertionError(f"surface: a pdf_pallas call is not one kernel "
+                             f"node: {nodes}")
     four = kms.mean_shift(got[N][1], rects)
     plain = mean_shift_plain(got[N][1], rects)
     for want, what in ((four, "the kernel wrapper's"), (plain, "its twin's")):
@@ -2479,7 +2480,8 @@ def phase_surface(pools, dev):
         f" on bins ({int(audit.sum())} of {N} dirty), detect_best(gray, "
         f"cascade) ({int(best[0].sum())} of {SURFACE_DETECT} found), "
         f"init_state and cascade_to_torch on the card with device None: "
-        f"bit-equal to the twins and the aliased paths; launches {launches}")
+        f"bit-equal to the twins and the aliased paths; launches {launches}"
+        f"; pdf_pallas graph nodes {nodes}")
 
     card = smi()
     times = {}
@@ -2497,7 +2499,7 @@ def phase_surface(pools, dev):
                             lambda g=given, n=n: torch.bincount(
                                 g, minlength=n * 4096), False, "torch.bincount"),
             "pdf_pallas": (lambda b=b, w=w: pdf_pallas(b, w),
-                           lambda b=b, w=w: _pdf_twin(b, w),
+                           lambda b=b, w=w: hg.pdf_bins_plain(b, w),
                            8 * n * P + 4 * 4096 * n,
                            lambda w=w, i=lib_ids: torch.gather(w, 1, i),
                            True, "torch.gather"),
@@ -2515,7 +2517,8 @@ def phase_surface(pools, dev):
                 f"{times[key]['library_ms']:.4f} ms, graph replay "
                 f"{fmt_ms(times[key]['library_graph_ms'])}); {card}")
     return {"launches": launches, "times": times, "err": err,
-            "dirty": int(audit.sum()), "found": int(best[0].sum())}
+            "dirty": int(audit.sum()), "found": int(best[0].sum()),
+            "pdf_nodes": {f"n{n}": v for n, v in nodes.items()}}
 
 
 def phase_bench(root):
@@ -2620,14 +2623,15 @@ def main():
     bench = phase_bench(root)
     surface = phase_surface(pools, dev)
     counts["surface"] = surface["launches"]
+    times["pdf_bins"] = surface["times"][f"pdf_pallas n{N_STREAMS}"]
 
     entries = []
     for k, (replaces, path, src) in KERNELS.items():
         e = {"name": k, "route": "cuda", "source": src, "replaces": replaces,
              "launches": counts[path][k], "path": path,
-             "max_abs_err": max(err[k], surface["err"].get(k, 0.0)),
+             "max_abs_err": max(err.get(k, 0.0), surface["err"].get(k, 0.0)),
              **times[k]}
-        if k in ("hist_bins", "take_along"):
+        if k in ("hist_bins", "pdf_bins"):
             entry = "hist_pallas" if k == "hist_bins" else "pdf_pallas"
             e["surface"] = {"entry_point": entry,
                             "launches": surface["launches"][k],
@@ -2662,8 +2666,9 @@ def main():
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,
                       "gate": gate, "bench": bench,
-                      "surface": {k: surface[k] for k in ("launches", "times",
-                                                          "dirty", "found")}}))
+                      "surface": {k: surface[k] for k in (
+                          "launches", "times", "dirty", "found",
+                          "pdf_nodes")}}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

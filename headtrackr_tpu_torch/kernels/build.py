@@ -45,6 +45,9 @@ _SIGNATURES = {
     "histbins": {
         "hist_bins_launch": (_C, _C, _I, _I, _I, _C),
     },
+    "pdfbins": {
+        "pdf_bins_launch": (_C, _C, _C, _I, _I, _I, _C),
+    },
     "meanshift": {
         "meanshift_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
                              _I, _I, _C),

@@ -3,8 +3,10 @@
   take_along   replaces tools/kernel_experiments.py::ta_call (k8), the
                take_along_axis lane gather; mean shift selected its
                prefix-sum lines with it until the ``meanshift`` kernel
-               (kernels/meanshift.py) took the whole step, so no serving
-               path launches it
+               (kernels/meanshift.py) took the whole step, and
+               ``kernels.pdf_pallas`` looked up its tables with it until
+               the ``pdf_bins`` kernel (kernels/pdfbins.py), so no path of
+               the port launches it
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 (ops/gather.py), a CUDA tensor launches the kernel, any other device raises.

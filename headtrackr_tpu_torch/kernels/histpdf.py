@@ -8,7 +8,7 @@
   hist_pallas   the reference's name and contract for K1, on bin ids: the
                 ``hist_bins`` kernel (kernels/histbins.py)
   pdf_pallas    the reference's name and contract for K2, on bin ids: the
-                ``take_along`` kernel (kernels/gather.py)
+                ``pdf_bins`` kernel (kernels/pdfbins.py)
 
 Dispatch: a CPU tensor takes the kernel's plain twin (ops/histogram.py); a
 CUDA tensor launches the kernel, built on first use (kernels/build.py);
@@ -25,11 +25,11 @@ import torch
 
 from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
-from .gather import take_along
 from .histbins import hist_bins
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
 from .launch import sm_count as _sm_count
+from .pdfbins import pdf_bins
 
 __all__ = ["hist4096", "backproject", "histpdf_band", "hist_pallas",
            "pdf_pallas", "cluster_split", "cluster_rows"]
@@ -209,11 +209,10 @@ def hist_pallas(bins, block=None):
 def pdf_pallas(bins, weights, block=None):
     """The reference's ``pdf_pallas``: (H, W) or (N, H, W) i32 bin ids and
     (4096,) or (N, 4096) f32 weights -> the f32 lookup weights[bin] of the
-    bins' shape; an id outside [0, 4096) looks up 0, as the reference's
-    one-hot gives.  The ``take_along`` kernel gathers each stream's table
-    (dim 1, L = 1) at the clamped ids, and a select zeroes the others, with
-    no host read.  ``block`` is the reference's TPU tiling knob: accepted,
-    changes nothing."""
+    bins' shape; an id outside [0, 4096) looks up +0.0, as the reference's
+    one-hot gives.  One ``pdf_bins`` launch: each stream's table looked up
+    with the range check in the same pass.  ``block`` is the reference's
+    TPU tiling knob: accepted, changes nothing."""
     _check_bins(bins)
     lead = bins.shape[:-2]
     if weights.dtype != torch.float32 or tuple(weights.shape) != (
@@ -221,8 +220,6 @@ def pdf_pallas(bins, weights, block=None):
         raise ValueError(f"weights must be {(*lead, NBINS)} float32, got "
                          f"{tuple(weights.shape)} {weights.dtype}")
     n = bins.shape[0] if lead else 1
-    ids = bins.reshape(n, -1, 1)
-    got = take_along(weights.reshape(n, NBINS, 1).contiguous(),
-                     ids.clamp(0, NBINS - 1).contiguous(), 1)
-    ok = (ids >= 0) & (ids < NBINS)
-    return torch.where(ok, got, 0.0).view(bins.shape)
+    return pdf_bins(bins.reshape(n, bins.shape[-2] * bins.shape[-1])
+                    .contiguous(),
+                    weights.reshape(n, NBINS).contiguous()).view(bins.shape)

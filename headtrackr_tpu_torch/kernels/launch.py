@@ -17,8 +17,8 @@ __all__ = ["launches", "reset_launches", "capturing", "replayed", "launch",
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
-            "hist_mma": 0, "hist_bins": 0, "meanshift": 0, "pyramid": 0,
-            "cascade": 0, "group": 0}
+            "hist_mma": 0, "hist_bins": 0, "pdf_bins": 0, "meanshift": 0,
+            "pyramid": 0, "cascade": 0, "group": 0}
 
 _tally = None  # the open ``capturing`` block's tally
 

@@ -7,8 +7,9 @@ Reference math:
 
 ``hist4096_plain``, ``backproject_plain`` and ``histpdf_band_plain`` are the
 plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``, and
-``hist_mma_plain`` that of ``kernels/histmma.py`` and ``hist_bins_plain``
-that of ``kernels/histbins.py``: the same function, used for CPU tensors
+``hist_mma_plain`` that of ``kernels/histmma.py``, ``hist_bins_plain``
+that of ``kernels/histbins.py`` and ``pdf_bins_plain`` that of
+``kernels/pdfbins.py``: the same function, used for CPU tensors
 and as the kernels' reference on the card.  ``histogram_rects``,
 ``histogram_full``, ``histogram_4096``, ``histogram_rect`` and
 ``histogram_scan`` go through the kernel wrappers, so a CUDA tensor always
@@ -25,7 +26,7 @@ import torch
 
 __all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
            "band_bins", "hist4096_plain", "hist_mma_plain", "hist_bins_plain",
-           "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
+           "pdf_bins_plain", "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
            "check_hist_kernel", "histogram_rects", "histogram_full",
            "histogram_4096", "histogram_rect", "histogram_scan",
            "backprojection_weights"]
@@ -126,6 +127,17 @@ def hist_bins_plain(bins):
     flat = b + NBINS * torch.arange(N, device=bins.device).view(N, 1)
     counts = torch.bincount(flat[ok], minlength=N * NBINS)
     return counts.view(N, NBINS).to(torch.float32)
+
+
+def pdf_bins_plain(bins, weights):
+    """(N, ...) i32 bin ids and (N, 4096) f32 weights, or (...) ids and one
+    (4096,) table -> f32 weights[n, bin] of the bins' shape, +0.0 for an id
+    outside [0, 4096): a gather at the clamped ids, then a select."""
+    w = weights.reshape(-1, NBINS)
+    ids = bins.reshape(w.shape[0], bins.numel() // max(w.shape[0], 1))
+    ids = ids.to(torch.int64)
+    got = torch.gather(w, 1, ids.clamp(0, NBINS - 1))
+    return torch.where((ids >= 0) & (ids < NBINS), got, 0.0).view(bins.shape)
 
 
 def band_bins(frames, rects, band):

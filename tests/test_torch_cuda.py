@@ -498,32 +498,135 @@ def test_hist_bins_bit_equal_to_twin(dev, kind):
 @pytest.mark.parametrize("n", [1, 8, 256])
 def test_hist_pallas_pdf_pallas_bit_equal_to_twins(dev, n):
     """The reference-named entry points on the card: hist_pallas launches
-    hist_bins, pdf_pallas take_along (one launch each), bit-equal to the
-    twins on (n, 240, 320) bins with ids below 0 and from 4096 up among them
-    (counted nowhere, looked up as 0), and on one (240, 320) frame."""
+    hist_bins, pdf_pallas pdf_bins (one launch each, and no take_along),
+    bit-equal to the twins on (n, 240, 320) bins with ids below 0 and from
+    4096 up among them (counted nowhere, looked up as 0), and on one
+    (240, 320) frame."""
     from headtrackr_tpu_torch.kernels import hist_pallas, pdf_pallas
-    from headtrackr_tpu_torch.ops.gather import take_along_plain
     g = torch.Generator().manual_seed(16)
     bins = torch.randint(0, 4096, (n, 240, 320), generator=g).int()
     bins[:, 0, :6] = torch.tensor([-1, -64, 4096, 5000, -2 ** 31,
                                    2 ** 31 - 1], dtype=torch.int32)
     w = torch.rand((n, 4096), generator=g)
-    ok = (bins >= 0) & (bins < 4096)
-    want_p = torch.where(ok, take_along_plain(
-        w.view(n, 4096, 1), bins.clamp(0, 4095).view(n, -1, 1), 1).view(
-            bins.shape), 0.0)
+    want_p = hg.pdf_bins_plain(bins, w)
     before = dict(launches)
     h = hist_pallas(bins.to(dev))
     p = pdf_pallas(bins.to(dev), w.to(dev))
     torch.cuda.synchronize()
     assert launches["hist_bins"] == before["hist_bins"] + 1
-    assert launches["take_along"] == before["take_along"] + 1
+    assert launches["pdf_bins"] == before["pdf_bins"] + 1
+    assert launches["take_along"] == before["take_along"]
     assert torch.equal(h.cpu(), hg.hist_bins_plain(bins.view(n, -1)))
     assert torch.equal(p.cpu(), want_p)
     assert (p.cpu()[:, 0, :6] == 0).all()
     assert torch.equal(hist_pallas(bins[0].to(dev)).cpu(), h[0].cpu())
     assert torch.equal(pdf_pallas(bins[0].to(dev), w[0].to(dev)).cpu(),
                        want_p[0])
+
+
+def _pdf_case(kind):
+    """(bins (N, H, W) i32, weights (N, 4096) f32) of a pdf_bins case."""
+    g = torch.Generator().manual_seed(17)
+    n, shape = {"odd_p": (3, (23, 29)), "n1_frame": (1, (240, 320)),
+                "bench_shape": (256, (240, 320)), "one_id": (5, (1, 1)),
+                "tail": (2, (1, 76_799))}.get(kind, (3, (23, 29)))
+    bins = torch.randint(-70, 4200, (n,) + shape, generator=g).int()
+    w = torch.rand((n, 4096), generator=g) * 2 - 1
+    if bins[0].numel() >= 5:
+        bins.view(n, -1)[:, :5] = torch.tensor(
+            [-1, -64, 4096, -2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
+    if kind == "zero_weights":
+        w[:, ::2] = 0.0
+        w[-1] = 0.0
+    if kind == "special_weights":  # -0.0, denormals, extremes: exact bits
+        w[:, :8] = torch.tensor([-0.0, 1e-40, -1e-45, 2.0 ** -149, 1.17e-38,
+                                 3.4e38, -float("inf"), float("inf")])
+        bins.view(n, -1)[:, 5:13] = torch.arange(8, dtype=torch.int32)
+    return bins, w
+
+
+PDF_CASES = ("odd_p", "n1_frame", "bench_shape", "one_id", "tail",
+             "zero_weights", "special_weights")
+
+
+@pytest.mark.parametrize("kind", PDF_CASES)
+def test_pdf_bins_bit_equal_to_twin(dev, kind):
+    """pdf_bins on the card equals its twin bit for bit (ids outside [0,
+    4096) among them, looked up as +0.0), through the wrapper and through
+    pdf_pallas in both forms; one launch a call; then on the ids viewed one
+    element past their start (a head off the 16-byte boundary), whose
+    output starts at the same offset."""
+    from headtrackr_tpu_torch.kernels import pdf_pallas
+    from headtrackr_tpu_torch.kernels.pdfbins import pdf_bins
+    bins, w = _pdf_case(kind)
+    n = bins.shape[0]
+    flat = bins.view(n, -1)
+    want = hg.pdf_bins_plain(flat, w)
+    before = launches["pdf_bins"]
+    got = pdf_bins(flat.to(dev), w.to(dev))
+    torch.cuda.synchronize()
+    assert launches["pdf_bins"] == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(pdf_pallas(bins.to(dev), w.to(dev)).cpu(),
+                       want.view(bins.shape))
+    assert torch.equal(pdf_pallas(bins[0].to(dev), w[0].to(dev)).cpu(),
+                       want[0].view(bins.shape[1:]))
+    ids = flat.reshape(-1).to(dev)
+    w2 = w.repeat(2, 1)[:2]
+    for m in (1, 2):  # one row, two rows, each from the second id on
+        length = (ids.numel() - 1) // m
+        if length < 1:
+            continue
+        view = ids[1:1 + m * length].view(m, length)
+        assert view.data_ptr() % 16 == 4
+        out = pdf_bins(view, w2[:m].to(dev))
+        torch.cuda.synchronize()
+        assert out.data_ptr() % 16 == 4
+        assert torch.equal(out.cpu(), hg.pdf_bins_plain(view.cpu(), w2[:m]))
+
+
+def test_pdf_bins_empty_past_the_grid_and_misaligned(dev):
+    """N = 0 and P = 0 launch nothing and give empty outputs; 65,537 rows
+    of 3 ids take two launches (a launch's 65,535 rows); a table off the
+    16-byte boundary raises, as does a launch the C launcher refuses."""
+    from headtrackr_tpu_torch.kernels import pdf_pallas
+    from headtrackr_tpu_torch.kernels.build import load_library
+    from headtrackr_tpu_torch.kernels.pdfbins import pdf_bins
+    before = launches["pdf_bins"]
+    for n, p in ((0, 76_800), (3, 0)):
+        out = pdf_bins(torch.zeros((n, p), dtype=torch.int32, device=dev),
+                       torch.zeros((n, 4096), device=dev))
+        assert tuple(out.shape) == (n, p)
+    assert pdf_pallas(torch.zeros((0, 24, 32), dtype=torch.int32,
+                                  device=dev),
+                      torch.zeros((0, 4096), device=dev)).shape == (0, 24, 32)
+    assert launches["pdf_bins"] == before
+    g = torch.Generator().manual_seed(18)
+    bins = torch.randint(-2, 4098, (65_537, 3), generator=g).int().to(dev)
+    # a table a row (1 GB), each entry its bin plus its row: exact in f32
+    w = (torch.arange(4096, device=dev)
+         + torch.arange(65_537, device=dev).view(-1, 1)).float()
+    got = pdf_bins(bins, w)
+    torch.cuda.synchronize()
+    assert launches["pdf_bins"] == before + 2
+    assert torch.equal(got, hg.pdf_bins_plain(bins, w))  # the twin on the card
+    del w, got
+    ids = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    odd = torch.zeros(2 * 4096 + 1, device=dev)[1:].view(2, 4096)
+    with pytest.raises(ValueError, match="16-byte"):
+        pdf_bins(ids, odd)
+    with pytest.raises(ValueError, match="16-byte"):
+        pdf_pallas(ids.view(2, 8, 8), odd)
+    out = torch.empty((2, 64), device=dev)
+    fn = load_library().fn("pdf_bins_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    table = torch.zeros((2, 4096), device=dev)
+    # an output whose address differs from the ids' modulo 16, and c = 0
+    assert fn(ids.data_ptr(), table.data_ptr(), out[:, 1:].data_ptr(), 2, 63,
+              1, stream) != 0
+    assert fn(ids.data_ptr(), table.data_ptr(), out.data_ptr(), 2, 64, 0,
+              stream) != 0
+    assert launches["pdf_bins"] == before + 2
 
 
 def test_reference_surface_on_the_card(dev):
