@@ -103,15 +103,17 @@ Phases, one line each; any failure raises and exits nonzero:
      ms/tick of step_auto, run_scan and step;
   5. steady-tick profile: on each configuration's locked tracker of phase 4,
      PROFILE_TICKS all-tracking ticks (pool batches before the loss frame)
-     of step_auto (a CUDA graph replay per tick) and of step (the eager
+     of step_auto (one launch of the serving program a tick) and of step
+     (the eager
      host-scheduled tick), configurations in turns, two passes: host
      ms/tick unprofiled, then under torch.profiler the device ms per tick,
      the device busy share (device ms over profiled wall time), the device
      operations per tick and the host's launch calls per tick.  Then the
      headline's relock tick: the loss streams turn blue and redetect on
-     the next batch (a bucket tick), its graph replayed and the same tick
-     eager, in turns: host ms, device ms, device operations, host launch
-     calls and host reads a relock tick;
+     the next batch (a bucket tick), one launch of the serving program and
+     the same tick eager on the per-tick path, in turns: host ms, device
+     ms, device operations, host launch calls and host reads a relock
+     tick;
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
      integer outputs exactly, floats within rtol 1e-5 / atol 1e-4;
@@ -194,10 +196,26 @@ Phases, one line each; any failure raises and exits nonzero:
      bounds, torch.bincount and torch.gather, and the card's name and power
      limit; hist_bins' and pdf_bins' kernel entries carry these under
      "surface" (pdf_bins' launches, times and error are this phase's).
+ 15. schedule (run after phase 6): the serving program's kernels
+     (csrc/schedule.cu) bit-equal to their twins (tick_select and
+     escape_select on random vectors with ties at 256 and 4,096 streams,
+     both overloads; scan_step and scan_commit on the main path's frames,
+     state and outputs) and timed (events and graph replay) beside their
+     twins, byte bounds and one PyTorch call (torch.sort, copy_,
+     _foreach_copy_); then the headline configuration at 256 streams
+     from init_state under overload "full" and "rotate", two run_scan
+     calls of 16 ticks each (the cold start's wbtrack and full ticks or
+     its rotation burst, bucket and chunk ticks after losses, band escapes
+     within escape_bucket and beyond it): every StepOutput leaf and the
+     final state bit-equal to the per-tick path run eagerly on the card,
+     every branch's body run (the program's own counts), the per-tick
+     path's host code never reached (kernels/launch.py host_paths), and a
+     profiled scan of 16 ticks one program launch, one host read and no
+     kernel launched from the host.
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
-facade, plan, mesh, gate, bench and surface numbers as JSON (phases 5,
-7-14), the kernels' JSON, the nvidia-smi name/power line, and {"ok": true,
+facade, plan, mesh, gate, bench, surface and schedule numbers as JSON
+(phases 5, 7-15), the kernels' JSON, the nvidia-smi name/power line, and {"ok": true,
 "device": {...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
 
@@ -278,6 +296,15 @@ KERNELS = {
     "cascade": ("headtrackr_tpu/models/detector.py:595", "headline",
                 CASCADE_SRC),
     "group": ("headtrackr_tpu/models/detector.py:517", "headline", GROUP_SRC),
+    # the serving program's kernels: XLA's control flow, no Pallas kernel
+    "tick_select": ("headtrackr_tpu/runtime/serving.py:326", "schedule",
+                    "headtrackr_tpu_torch/csrc/schedule.cu"),
+    "escape_select": ("headtrackr_tpu/runtime/serving.py:225", "schedule",
+                      "headtrackr_tpu_torch/csrc/schedule.cu"),
+    "scan_step": ("headtrackr_tpu/runtime/serving.py:426", "schedule",
+                  "headtrackr_tpu_torch/csrc/schedule.cu"),
+    "scan_commit": ("headtrackr_tpu/runtime/serving.py:426", "schedule",
+                    "headtrackr_tpu_torch/csrc/schedule.cu"),
 }
 # the kernels that phase 14's calls of the reference's surface launch
 SURFACE_PATH = ("hist_bins", "pdf_bins", "meanshift") + DETECT
@@ -323,6 +350,12 @@ BENCH_KEYS = ("metric", "value", "unit", "exact_value", "cold_start_value",
               "h2d_value", "locked", "relocks", "redetects", "escapes",
               "device", "vs_limit", "launches")
 
+SCHED_K = 16  # phase 15: ticks a run_scan
+SCHED_LOSSES = (4, 20)  # streams lost before a bucket tick, a chunk tick
+SCHED_ESCAPES = (12, 3)  # streams whose face outgrows the band: many, few
+SCHED_NS = (N_STREAMS, 4096)  # the select kernels' random vectors
+SCHED_EB = 8  # escape_bucket (the default)
+SCHED_KERNELS = ("tick_select", "escape_select", "scan_step", "scan_commit")
 
 def log(msg):
     print(msg, flush=True)
@@ -1689,10 +1722,11 @@ def phase_relock(bt, frames):
     """Phase 5's relock tick on the headline's locked tracker: the
     LOSS_STREAMS streams turn blue (pool batch LOSS_AT, an all-CS tick) and
     redetect on the next batch: a bucket tick.  Arms in turns, two passes
-    each: the tick replayed from its graph (``_Steps.replay`` on) and run
-    eagerly (off).  Per relock tick: host ms (host clock, ending in a
-    synchronize), and under torch.profiler device ms, device operations,
-    host launch calls and host reads (stream and event synchronizations)."""
+    each: the tick as one launch of the serving program (``_Steps.scheduled``
+    on) and run eagerly on the per-tick path (off).  Per relock tick: host
+    ms (host clock, ending in a synchronize), and under torch.profiler
+    device ms, device operations, host launch calls and host reads (stream
+    and event synchronizations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from headtrackr_tpu_torch.models import facetracker as ft
@@ -1710,24 +1744,24 @@ def phase_relock(bt, frames):
             host, dev_s, ops, launches, syncs = [], 0.0, 0, 0, 0
             for _ in range(RELOCK_TICKS):
                 relock_state()
-                bt._steps.replay = arm == "graph"
+                bt._steps.scheduled = arm == "graph"
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 bt.step_auto(frames[LOSS_AT + 1])
                 torch.cuda.synchronize()
                 host.append(time.perf_counter() - t0)
-                bt._steps.replay = True
+                bt._steps.scheduled = True
                 if not (bt.modes == ft.MODE_CS).all():
                     raise AssertionError("relock: a stream did not relock")
             for _ in range(RELOCK_TICKS):
                 relock_state()
-                bt._steps.replay = arm == "graph"
+                bt._steps.scheduled = arm == "graph"
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     bt.step_auto(frames[LOSS_AT + 1])
                     torch.cuda.synchronize()
-                bt._steps.replay = True
+                bt._steps.scheduled = True
                 events = prof.events()
                 dev_ops = [e for e in events if e.device_type
                            == torch.autograd.DeviceType.CUDA]
@@ -1750,6 +1784,319 @@ def phase_relock(bt, frames):
                 f"{r['host_launches']:.2f} host launch calls, "
                 f"{r['host_reads']:.2f} host reads a relock tick")
     return rows
+
+
+def sched_frames(pool, dev, n):
+    """Phase 15's second scan, (SCHED_K, n, H, W, 3) on the card, from the
+    pool's batches before its loss frame: SCHED_LOSSES[0] streams blue at
+    tick 1 (a bucket tick follows), SCHED_LOSSES[1] others at tick 4 (a
+    chunk tick); the faces of the last SCHED_ESCAPES[1] streams stretched
+    to 120 rows of their color from tick 0, those of the last
+    SCHED_ESCAPES[0] from tick 4.  A window grows to its stretched face
+    over ~8 ticks and escapes the band once taller than it: the few
+    streams escape first (within escape_bucket), then the many."""
+    import numpy as np
+    import torch
+    from bench import _face_rgb
+    seq = torch.as_tensor(pool[[(t + 1) % LOSS_AT for t in range(SCHED_K)]]
+                          ).to(dev).clone()
+    blue = torch.tensor([0, 0, 250], dtype=torch.uint8, device=dev)
+    a, b = SCHED_LOSSES
+    seq[1, :a] = blue
+    seq[4, a:a + b] = blue
+    skin = torch.as_tensor(np.median(_face_rgb().reshape(-1, 3), 0)
+                           .astype(np.uint8)).to(dev)
+    many, few = SCHED_ESCAPES
+    for t in range(SCHED_K):
+        for s in range(n - (many if t >= 4 else few), n):
+            f = seq[t, s]
+            rows, cols = torch.nonzero((f // 16 == skin // 16).all(-1),
+                                       as_tuple=True)  # the face's bin
+            if rows.numel():
+                cy = int(rows.float().mean())
+                f[max(0, cy - 60):cy + 60, int(cols.min()):int(cols.max())
+                  + 1] = skin
+    return seq
+
+
+def phase_schedule(pool, dev):
+    """Phase 15: the serving program, the device-scheduled tick whole on the
+    card.  Its kernels first: tick_select and escape_select bit-equal to
+    their twins on random vectors with ties at SCHED_NS streams, scan_step
+    and scan_commit to theirs on the main path's frames and a headline
+    tracker's state and outputs; each timed by graph replay beside its
+    twin (events), its byte bound and one PyTorch call.  Then the headline
+    configuration at 256 streams from init_state, twice: overload "full"
+    (a cold start of 15 wbtrack ticks and a full tick, then bucket and
+    chunk ticks after losses and band escapes beyond escape_bucket and
+    within it) and overload "rotate" (the cold start's burst of 256 pending
+    streams served chunk_cap at a time), each as two run_scan calls of
+    SCHED_K ticks: every StepOutput leaf and the final state bit-equal to
+    the per-tick path run eagerly (``_Steps.scheduled`` off) on the same
+    frames; the program's bodies ran every branch and each schedule
+    kernel ran once a tick (the runs the card reports, which the launch
+    counters take); the per-tick path's host code (its eager branches, the
+    state machine's host index lists, the host escape recompute) never
+    reached; then one more scan under torch.profiler: one launch of the
+    program, one host read, no kernel launched from the host.  Returns the
+    kernels' errors and times, the launch counts of the scheduled runs and
+    the numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels import schedule as S
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    n = pool.shape[1]
+    kw, _ = CONFIGS["headline"]
+    err, times = dict.fromkeys(SCHED_KERNELS, 0.0), {}
+    g = torch.Generator().manual_seed(18)
+    for m in SCHED_NS:
+        kb = min(kw["bucket"], m)
+        cap = max(kb, (min(m, 4 * kb) // kb) * kb)
+        for trial in range(8):
+            mode = torch.randint(0, 3, (m,), generator=g, dtype=torch.int32)
+            age = torch.randint(0, 4, (m,), generator=g, dtype=torch.int32)
+            if trial == 1:
+                mode[:] = ft.MODE_CS
+                mode[torch.randperm(m, generator=g)[:kb]] = ft.MODE_VJ
+            esc = torch.rand(m, generator=g) < (0.002, 0.02, 0.5)[trial % 3]
+            for rotate in (False, True):
+                params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64,
+                                     device=dev)
+                idx = torch.empty(cap, dtype=torch.int64, device=dev)
+                aout = torch.empty(m, dtype=torch.int32, device=dev)
+                S.tick_select(mode.to(dev), age.to(dev), kb, cap, rotate,
+                              idx, aout, params)
+                b, want_i, want_a = S.tick_select_plain(mode, age, kb, cap,
+                                                        rotate)
+                eidx = torch.empty(8, dtype=torch.int64, device=dev)
+                S.escape_select(esc.to(dev), 8, eidx, params)
+                sel, want_e = S.escape_select_plain(esc, 8)
+                torch.cuda.synchronize()
+                if (int(params[S.P_BRANCH]) != b
+                        or not torch.equal(idx.cpu(), want_i)
+                        or not torch.equal(aout.cpu(), want_a)):
+                    raise AssertionError(f"tick_select differs from its twin "
+                                         f"at N={m} trial {trial}")
+                if int(params[S.P_ESEL]) != sel or \
+                        not torch.equal(eidx.cpu(), want_e):
+                    raise AssertionError(f"escape_select differs from its "
+                                         f"twin at N={m} trial {trial}")
+    log(f"schedule: tick_select and escape_select equal their twins on "
+        f"random vectors with ties at N = {SCHED_NS}, both overloads")
+
+    # the main path's shapes: a bucket tick's selection at 256 streams
+    mode = torch.full((n,), ft.MODE_CS, dtype=torch.int32)
+    mode[:SCHED_LOSSES[0]] = ft.MODE_VJ
+    age = torch.zeros(n, dtype=torch.int32)
+    esc = torch.zeros(n, dtype=torch.bool)
+    esc[-SCHED_ESCAPES[1]:] = True
+    kb = kw["bucket"]
+    cap = 4 * kb
+    dmode, dage, desc = mode.to(dev), age.to(dev), esc.to(dev)
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64, device=dev)
+    idx = torch.empty(cap, dtype=torch.int64, device=dev)
+    aout = torch.empty(n, dtype=torch.int32, device=dev)
+    eidx = torch.empty(8, dtype=torch.int64, device=dev)
+    key = torch.where(dmode != ft.MODE_CS, 1 + dage.long(), 0)
+    sel_bytes = 12 * n + 8 * cap
+    def select():
+        S.tick_select(dmode, dage, kb, cap, False, idx, aout, params)
+
+    def escape():
+        S.escape_select(desc, 8, eidx, params)
+
+    times["tick_select"] = {
+        "ms": cuda_ms(select), "graph_ms": graph_ms(select),
+        "plain_ms": cuda_ms(lambda: S.tick_select_plain(dmode, dage, kb, cap,
+                                                        False)),
+        **dict(zip(("bound_ms", "bound_by"), bound(sel_bytes, 0))),
+        **library_times(lambda: torch.sort(key, descending=True,
+                                           stable=True), False)}
+    times["escape_select"] = {
+        "ms": cuda_ms(escape), "graph_ms": graph_ms(escape),
+        "plain_ms": cuda_ms(lambda: S.escape_select_plain(desc, 8)),
+        **dict(zip(("bound_ms", "bound_by"), bound(n + 64, 0))),
+        **library_times(lambda: torch.sort(desc.int(), descending=True,
+                                           stable=True), False)}
+
+    bt = BatchedTracker(n, (H, W), device=dev, **kw)
+    bt.warmup(scan_len=SCHED_K)
+    prog = bt._steps._programs[n]
+    seq = torch.as_tensor(pool[:2]).to(dev)
+    frames = torch.empty_like(seq[0])
+    p0 = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    p0[S.P_K], p0[S.P_TICKS], p0[S.P_FRAMES] = 1, 2, seq.data_ptr()
+    p0 = p0.to(dev)
+    S.scan_step(p0, frames)
+    torch.cuda.synchronize()
+    want = torch.empty_like(frames)
+    S.scan_step_plain(seq, 1, want)
+    err["scan_step"] = float((frames.int() - want.int()).abs().max())
+    if err["scan_step"]:
+        raise AssertionError("scan_step differs from its twin")
+
+    def step_once():
+        S.scan_step(p0, frames)
+
+    times["scan_step"] = {
+        "ms": cuda_ms(step_once), "graph_ms": graph_ms(step_once),
+        "plain_ms": cuda_ms(lambda: S.scan_step_plain(seq, 1, want)),
+        **dict(zip(("bound_ms", "bound_by"), bound(2 * frames.numel(), 0))),
+        **library_times(lambda: want.copy_(seq[1]), True)}
+    carry = [(src, torch.empty_like(dst)) for src, dst in prog.carry]
+    packs = [torch.empty((p.shape[0], 2) + p.shape[1:], dtype=p.dtype,
+                         device=dev) for p in prog.bufs.packs.values()]
+    rows = [(v, slot, row) for v, slot, row in prog.rows]
+    table = S.segments(carry, rows, dev)
+    pc = p0.clone()
+    for j, pk in enumerate(packs):
+        pc[S.P_OUT + j] = pk.data_ptr()
+    S.scan_commit(pc, table)  # row k - 1 = 0
+    want_carry = [torch.empty_like(d) for _, d in carry]
+    want_packs = [torch.empty_like(p) for p in packs]
+    S.scan_commit_plain(0, [(s, w) for (s, _), w in zip(carry, want_carry)],
+                        [(v, want_packs[slot], row) for v, slot, row in rows])
+    torch.cuda.synchronize()
+    for a, b in zip([d for _, d in carry] + [p[:, 0] for p in packs],
+                    want_carry + [p[:, 0] for p in want_packs]):
+        if not torch.equal(a, b):
+            raise AssertionError("scan_commit differs from its twin")
+    moved = sum(int(r[2]) for r in table.tolist())
+    def commit():
+        S.scan_commit(pc, table)
+
+    times["scan_commit"] = {
+        "ms": cuda_ms(commit), "graph_ms": graph_ms(commit),
+        "plain_ms": cuda_ms(lambda: S.scan_commit_plain(
+            0, [(s, w) for (s, _), w in zip(carry, want_carry)],
+            [(v, want_packs[slot], row) for v, slot, row in rows])),
+        **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
+        **library_times(lambda: torch._foreach_copy_(
+            want_carry, [s for s, _ in carry]), True)}
+    for k in SCHED_KERNELS:
+        t = times[k]
+        log(f"schedule: {k} {t['ms']:.4f} ms, graph replay "
+            f"{t['graph_ms']:.4f} ms vs twin "
+            f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f} "
+            f"({t['bound_by']}), library {t['library_ms']:.4f} / "
+            f"{fmt_ms(t['library_graph_ms'])}")
+    del bt, prog, carry, packs, want_carry, want_packs
+
+    # the device-scheduled tick against the per-tick path, from init_state
+    cold = torch.as_tensor(pool[[0] * SCHED_K]).to(dev)
+    second = sched_frames(pool, dev, n)
+    counts, runs, numbers = {}, {}, {}
+    for overload in ("full", "rotate"):
+        mk = lambda: BatchedTracker(n, (H, W), device=dev,  # noqa: E731
+                                    overload=overload,
+                                    escape_bucket=SCHED_EB, **kw)
+        bt, ref = mk(), mk()
+        ref._steps.scheduled = False
+        t0 = time.perf_counter()
+        bt.warmup(scan_len=SCHED_K)
+        t_build = time.perf_counter() - t0
+        prog = bt._steps._programs[n]
+        torch.cuda.synchronize()
+        L.reset_launches()
+        got, ran = [], np.zeros(16, int)
+        t0 = time.perf_counter()
+        for seq in (cold, second):
+            got.append(bt.run_scan(seq))
+            ran += np.array(prog.runs)
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+        counts[overload] = dict(L.launches)
+        # the schedule kernels' counts, which the card reports in the
+        # program's parameter block: one run of each a tick
+        off = {k: counts[overload][k] for k in SCHED_KERNELS
+               if counts[overload][k] != 2 * SCHED_K}
+        if off:
+            raise AssertionError(f"schedule [{overload}]: the card reports "
+                                 f"runs other than one a tick for "
+                                 f"{2 * SCHED_K} ticks: {off}")
+        if any(L.host_paths.values()):
+            raise AssertionError(f"schedule [{overload}]: the per-tick "
+                                 f"path's host code ran: {L.host_paths}")
+        want = [ref.run_scan(seq) for seq in (cold, second)]
+        torch.cuda.synchronize()
+        same_bits(got, want, f"schedule [{overload}]")
+        same_bits([bt.state], [ref.state], f"schedule [{overload}] state")
+        m = prog.cap // prog.kb
+        entry = torch.cat([o.detection for o in got]).cpu().numpy()
+        npend = (entry != ft.MODE_CS).sum(1)
+        need = {"wbtrack": m + 1}
+        need.update({"track": 0, "full": m + 2} if overload == "full"
+                    else {})
+        missing = [b for b, i in need.items() if not ran[i]]
+        if not ran[1:m + 1].any():
+            missing.append("bucket")
+        if overload == "full" and not (ran[2:m + 1].any()):
+            missing.append("chunks")
+        if overload == "full" and not (ran[9] and ran[10]):
+            missing.append("escape few and many")
+        if overload == "rotate" and not (ran[m] and npend.max() > prog.cap):
+            missing.append("rotation")
+        if missing:
+            raise AssertionError(f"schedule [{overload}]: no {missing} tick "
+                                 f"(body runs {ran.tolist()})")
+        escapes = torch.cat([o.escaped for o in got]).sum(1).tolist()
+        runs[overload] = ran.tolist()
+        numbers[overload] = {"build_s": t_build,
+                             "ms_per_tick": 1e3 * t_scan / (2 * SCHED_K),
+                             "pending_max": int(npend.max()),
+                             "escapes_per_tick": escapes}
+        log(f"schedule [{overload}]: program built in {t_build:.2f} s; two "
+            f"run_scan calls of {SCHED_K} ticks from init_state equal the "
+            f"per-tick path run eagerly, every leaf and the final state bit "
+            f"for bit; body runs {ran.tolist()} (track, bucket x{m}, "
+            f"wbtrack{', full' if overload == 'full' else ''}; escape few "
+            f"{ran[9]}, many {ran[10]}); pending at most {npend.max()}; "
+            f"escapes a tick {escapes}; host code of the per-tick path "
+            f"not reached; {numbers[overload]['ms_per_tick']:.3f} ms/tick")
+        if overload == "full":  # one more scan, profiled
+            seq = torch.as_tensor(pool[[t % LOSS_AT
+                                        for t in range(SCHED_K)]]).to(dev)
+            bt.run_scan(seq)
+            torch.cuda.synchronize()
+            launches0 = prog.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as pr:
+                bt.run_scan(seq)
+            events = pr.events()
+            dev_ops = [e for e in events if e.device_type
+                       == torch.autograd.DeviceType.CUDA]
+            p = {"program_launches": prog.launches - launches0,
+                 "host_graph_launches": sum(e.name in ("cudaGraphLaunch",
+                                                       "cuGraphLaunch")
+                                            for e in events),
+                 "host_kernel_launches": sum(
+                     e.name in HOST_LAUNCHES and "Graph" not in e.name
+                     for e in events),
+                 "host_reads": sum(e.name in HOST_SYNCS for e in events),
+                 "device_ops_per_tick": len(dev_ops) / SCHED_K,
+                 "device_ms_per_tick": sum(e.device_time_total
+                                           for e in dev_ops) / 1e3 / SCHED_K}
+            if p["program_launches"] != 1 or p["host_reads"] != 1 or \
+                    p["host_kernel_launches"]:
+                raise AssertionError(f"schedule: a scan is not one launch "
+                                     f"and one host read: {p}")
+            numbers["profile"] = p
+            log(f"schedule: a profiled run_scan of {SCHED_K} all-CS ticks: "
+                f"{p['program_launches']} program launch "
+                f"({p['host_graph_launches']} graph launch calls seen), "
+                f"{p['host_reads']} host read, {p['host_kernel_launches']} "
+                f"kernel launches from the host; "
+                f"{p['device_ops_per_tick']:.2f} device ops and "
+                f"{p['device_ms_per_tick']:.3f} device ms a tick")
+        del bt, ref, prog
+    launches = {k: counts["full"][k] + counts["rotate"][k]
+                for k in counts["full"]}
+    return {"err": err, "times": times, "launches": launches, "runs": runs,
+            **numbers}
 
 
 def phase_card_vs_cpu(name, pool, dev):
@@ -2613,6 +2960,10 @@ def main():
     del runs, frames  # free the trackers and the staged pool
     for name in ("full-frame", "headline"):
         phase_card_vs_cpu(name, pools[0], dev)
+    sched = phase_schedule(pools[0], dev)
+    err.update(sched.pop("err"))
+    times.update(sched.pop("times"))
+    counts["schedule"] = sched.pop("launches")
     session = phase_session(pools[0], dev)
     fanout = phase_fanout(pools[0], dev, root)
     facade = phase_facade(pools[0], dev)
@@ -2665,7 +3016,7 @@ def main():
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,
-                      "gate": gate, "bench": bench,
+                      "gate": gate, "bench": bench, "schedule": sched,
                       "surface": {k: surface[k] for k in (
                           "launches", "times", "dirty", "found",
                           "pdf_nodes")}}))

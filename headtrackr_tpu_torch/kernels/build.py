@@ -69,6 +69,17 @@ _SIGNATURES = {
         "cascade_compact_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _I,
                                    _I, _I, _C),
     },
+    "schedule": {
+        "tick_select_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _C),
+        "escape_select_launch": (_C, _C, _C, _I, _I, _C),
+        "scan_step_launch": (_C, _C, ctypes.c_longlong, _C),
+        "scan_commit_launch": (_C, _C, _I, _C),
+        "sched_driver_version": (_C,),
+        "sched_program_build": (_C, _I, _C, _I, _C),
+        "sched_program_launch": (_C, _C),
+        "sched_program_destroy": (_C,),
+        "sched_error_string": (_I, _C, _I),
+    },
     "group": {
         "group_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I,
                          _C),

@@ -4,7 +4,13 @@ count of device launches by kernel.
 ``launches`` counts the launches that reached the card, so a run can show
 that its main path went through the kernels.  A launch issued while a CUDA
 graph captures the stream is not one: it is tallied by ``capturing`` instead,
-and ``replayed`` adds that tally on each replay of the graph.
+and ``replayed`` adds that tally on each replay of the graph (the serving
+program adds each body's tally times the runs the card reports for it).
+
+``host_paths`` counts the entries into the serving tick's host-scheduled
+code (the per-tick path's eager branches, the state machine's host index
+lists, the host escape recompute), so a run can show that the
+device-scheduled path never reached them.
 """
 
 import contextlib
@@ -12,20 +18,23 @@ import functools
 
 import torch
 
-__all__ = ["launches", "reset_launches", "capturing", "replayed", "launch",
-           "on_cuda", "sm_count"]
+__all__ = ["launches", "host_paths", "reset_launches", "capturing",
+           "replayed", "launch", "on_cuda", "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
             "hist_mma": 0, "hist_bins": 0, "pdf_bins": 0, "meanshift": 0,
-            "pyramid": 0, "cascade": 0, "group": 0}
+            "pyramid": 0, "cascade": 0, "group": 0, "tick_select": 0,
+            "escape_select": 0, "scan_step": 0, "scan_commit": 0}
+host_paths = {"eager_branch": 0, "dispatch": 0, "recompute": 0}
 
 _tally = None  # the open ``capturing`` block's tally
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, host_paths):
+        for k in counts:
+            counts[k] = 0
 
 
 @contextlib.contextmanager

@@ -1,0 +1,289 @@
+"""Wrappers of the serving program's CUDA kernels (``csrc/schedule.cu``),
+their plain twins, and the program's CUDA graph.
+
+  tick_select    the control flow of headtrackr_tpu/runtime/serving.py:326
+                 auto_step: the branch rule (its lax.switch), the
+                 oldest-first top_k of the served streams and their new
+                 pend_age (_aged); and :426 scan_steps' tick count
+  escape_select  :225 _escape_checked: none / few / many (its lax.switch)
+                 and the top_k of the escaped streams
+  scan_step      :426 scan_steps (lax.scan): tick k's frames
+  scan_commit    the scan's carried state and its stacked outputs
+
+None replaces a Pallas kernel: the reference leaves these to XLA's control
+flow inside one program.  Dispatch as the other wrappers: a CPU tensor
+takes the plain twin, a CUDA tensor launches the kernel, any other device
+raises.  In the program (``Graph``) the two selects also set CUDA graph
+conditional handles, which choose the IF node of the tick's body and of
+the escape fallback's, and tick_select also the WHILE node's (k < K
+after it advances k); launched alone here they set none.  On the CPU the serving program (runtime/serving.py
+``_Program``) runs the twins, whose selection drives a Python ``if``: the
+conditional nodes' twin.
+
+Branches of a tick (``tick_select``): 0 "track"; 1 .. m the bucket over
+s * kb slots (m = chunk_cap // kb; the bucket and chunk ticks, and the
+rotation at s = m); m + 1 "wbtrack"; m + 2 "full" (overload "full" only).
+"""
+
+import ctypes
+
+import torch
+
+from .launch import launch, on_cuda
+
+__all__ = ["tick_select", "tick_select_plain", "escape_select",
+           "escape_select_plain", "scan_step", "scan_step_plain",
+           "scan_commit", "scan_commit_plain", "segments", "Graph",
+           "PARAM_WORDS", "MAX_N"]
+
+MODE_VJ, MODE_CS = 1, 2
+MAX_N = 4096  # streams a select kernel takes (one CTA)
+# the parameter block's 64-bit words (csrc/schedule.cu Params)
+PARAM_WORDS = 32
+P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
+P_COMMITS = 11  # scan_commit's runs this launch (P_STEPS: scan_step's)
+P_RUNS = 16  # runs this launch: tick_select's by its body from here,
+ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
+# sched_program_build's argument words (csrc/schedule.cu BuildArg)
+BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
+              "rotate", "esc", "eidx", "eb", "frames", "frame_bytes", "segs",
+              "nseg", "few", "many")
+MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
+# cudaGraphNodeType
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait event", 7: "event record",
+              8: "external semaphore signal", 9: "external semaphore wait",
+              10: "memory allocation", 11: "memory free",
+              12: "batch memory operation", 13: "conditional"}
+
+
+def tick_select_plain(mode, age, kb, cap, rotate, force=0, idx=None):
+    """The tick_select kernel's twin: (branch, idx, age_out) for a tick
+    whose streams enter in ``mode`` (N,) i32 with ``age`` (N,) i32 pend_age,
+    at bucket kb and chunk cap ``cap`` (a multiple of kb), overload
+    "rotate" when ``rotate``.  idx: (cap,) i64, the served streams of a
+    bucket branch oldest first (key 1 + age, ties to the lower index, the
+    reference's top_k), padded with N, else all N; age_out: the reference's
+    ``_aged`` on a bucket branch (served and CS streams 0, pending unserved
+    streams age + 1), else 0.  force = 1 + slots (the host's own bucket of
+    ``idx``, step_bucket): the bucket over that many slots (0: "track"),
+    ``idx`` as given and pend_age kept."""
+    n = mode.shape[0]
+    m = cap // kb
+    if force:
+        return (force - 1) // kb, idx, age.clone()
+    non_cs = mode != MODE_CS
+    npend = int(non_cs.sum())
+    if npend == 0:
+        branch = 0
+    elif not bool((mode == MODE_VJ).any()):
+        branch = m + 1
+    elif npend <= cap or rotate:
+        branch = min(-(-npend // kb), m)
+    else:
+        branch = m + 2
+    out = torch.full((cap,), n, dtype=torch.int64, device=mode.device)
+    age_out = torch.zeros_like(age)
+    if 1 <= branch <= m:
+        key = torch.where(non_cs, 1 + age.long(), 0)
+        order = torch.sort(-key, stable=True).indices[:min(npend, cap)]
+        out[:order.numel()] = order
+        served = torch.zeros_like(non_cs)
+        served[order] = True
+        age_out = torch.where(non_cs & ~served, age + 1, 0).to(age.dtype)
+    return branch, out, age_out
+
+
+def escape_select_plain(esc, eb):
+    """The escape_select kernel's twin: (sel, eidx) for the escaped
+    streams ``esc`` (N,) bool and escape bucket ``eb``: sel 0 (none
+    escaped), 1 (few: 1 .. eb escaped and eb < N) or 2 (many); eidx (eb,)
+    i64, on few the escaped streams lowest first, padded with N (the
+    reference's top_k of the escaped flags), else all N."""
+    n = esc.shape[0]
+    nesc = int(esc.sum())
+    sel = 0 if nesc == 0 else 1 if eb < n and nesc <= eb else 2
+    eidx = torch.full((eb,), n, dtype=torch.int64, device=esc.device)
+    if sel == 1:
+        hit = torch.nonzero(esc).flatten()
+        eidx[:hit.numel()] = hit
+    return sel, eidx
+
+
+def scan_step_plain(seq, k, frames):
+    """The scan_step kernel's twin: tick k's frames of ``seq`` into
+    ``frames`` (nothing when they are it)."""
+    if seq[k].data_ptr() != frames.data_ptr():
+        frames.copy_(seq[k])
+
+
+def scan_commit_plain(k, carry, rows):
+    """The scan_commit kernel's twin: each (src, dst) of ``carry`` copied
+    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``."""
+    for src, dst in carry:
+        dst.copy_(src)
+    for src, pack, row in rows:
+        pack[row, k].copy_(src)
+
+
+def _check_select(params, n):
+    if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,):
+        raise ValueError(f"params must be ({PARAM_WORDS},) int64, got "
+                         f"{tuple(params.shape)} {params.dtype}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"a select kernel takes 1 .. {MAX_N} streams, "
+                         f"got {n}")
+
+
+def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
+    """One tick's selection into ``idx`` (cap,) i64 and ``age_out`` (N,)
+    i32, its branch into ``params[P_BRANCH]`` and one run into that
+    branch's ``params[P_RUNS + branch]``; ``params[P_FORCE]`` is read (see
+    tick_select_plain) and ``params[P_K]`` advanced."""
+    n = mode.shape[0]
+    _check_select(params, n)
+    if mode.dtype != torch.int32 or age.dtype != torch.int32 or \
+            idx.dtype != torch.int64 or age_out.dtype != torch.int32 or \
+            idx.shape != (cap,) or age.shape != (n,) or \
+            age_out.shape != (n,) or cap % kb or not kb <= cap <= n:
+        raise ValueError("tick_select takes (N,) i32 mode, age and age_out "
+                         "and (cap,) i64 idx, cap a multiple of kb, kb <= "
+                         "cap <= N")
+    if not on_cuda(mode, age, idx, age_out, params):
+        branch, i, a = tick_select_plain(mode, age, kb, cap, rotate,
+                                         int(params[P_FORCE]), idx)
+        idx.copy_(i)
+        age_out.copy_(a)
+        params[P_BRANCH] = branch
+        params[P_RUNS + branch] += 1
+        params[P_K] += 1
+        return
+    with torch.cuda.device(mode.device):
+        launch("tick_select", "tick_select_launch", mode.data_ptr(),
+               age.data_ptr(), idx.data_ptr(), age_out.data_ptr(),
+               params.data_ptr(), n, kb, cap, int(bool(rotate)))
+
+
+def escape_select(esc, eb, eidx, params):
+    """The escape fallback's selection into ``eidx`` (eb,) i64, its body
+    into ``params[P_ESEL]`` and one run into
+    ``params[P_RUNS + ESCAPE_RUNS + sel]`` (see escape_select_plain)."""
+    n = esc.shape[0]
+    _check_select(params, n)
+    if esc.dtype != torch.bool or eidx.dtype != torch.int64 or \
+            eidx.shape != (eb,) or eb < 1:
+        raise ValueError("escape_select takes (N,) bool esc and (eb,) i64 "
+                         "eidx, eb >= 1")
+    if not on_cuda(esc, eidx, params):
+        sel, e = escape_select_plain(esc, eb)
+        eidx.copy_(e)
+        params[P_ESEL] = sel
+        params[P_RUNS + ESCAPE_RUNS + sel] += 1
+        return
+    with torch.cuda.device(esc.device):
+        launch("escape_select", "escape_select_launch", esc.data_ptr(),
+               eidx.data_ptr(), params.data_ptr(), n, eb)
+
+
+def scan_step(params, frames):
+    """Tick ``params[P_K]``'s frames, read at ``params[P_FRAMES]`` (the
+    address of tick 0's, ticks ``frames.numel()`` bytes apart), into
+    ``frames``; one run into ``params[P_STEPS]``.  CUDA only: the frames'
+    address is a device word."""
+    if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,) or \
+            frames.dtype != torch.uint8:
+        raise ValueError("scan_step takes (32,) int64 params and u8 frames")
+    if not on_cuda(params, frames):
+        raise ValueError("scan_step reads a device address: CUDA tensors "
+                         "only (its twin is scan_step_plain)")
+    with torch.cuda.device(frames.device):
+        launch("scan_step", "scan_step_launch", params.data_ptr(),
+               frames.data_ptr(), frames.numel())
+
+
+def segments(carry, rows, device):
+    """scan_commit's table, (segments, 6) i64 on ``device``: each (src,
+    dst) of ``carry`` copied whole; each (src, slot, row) of ``rows`` into
+    row ``row * K + k`` of the output pack at ``params[P_OUT + slot]``,
+    rows of src's bytes.  Sources and destinations of one byte size."""
+    table = []
+    for src, dst in carry:
+        if src.nbytes != dst.nbytes:
+            raise ValueError("a carried leaf changes its size")
+        table.append([src.data_ptr(), dst.data_ptr(), src.nbytes, -1, 0, 0])
+    for src, slot, row in rows:
+        table.append([src.data_ptr(), 0, src.nbytes, slot, row, src.nbytes])
+    return torch.tensor(table, dtype=torch.int64, device=device)
+
+
+def scan_commit(params, table):
+    """The copies of ``table`` (``segments``) for the tick params[P_K] - 1;
+    one run into ``params[P_COMMITS]``.  CUDA only: the table holds device
+    addresses."""
+    if not on_cuda(params, table):
+        raise ValueError("scan_commit reads device addresses: CUDA tensors "
+                         "only (its twin is scan_commit_plain)")
+    with torch.cuda.device(params.device):
+        launch("scan_commit", "scan_commit_launch", params.data_ptr(),
+               table.data_ptr(), table.shape[0])
+
+
+def _error(lib, rc, names):
+    """A readable sched_program_* error."""
+    if rc == -1:
+        v = ctypes.c_int(0)
+        lib.fn("sched_driver_version")(ctypes.addressof(v))
+        return (f"the CUDA driver ({v.value}) is older than {MIN_DRIVER}: "
+                f"conditional graph nodes need CUDA 12.4")
+    if rc <= -1000:
+        body, kind = divmod(-rc - 1000, 100)
+        return (f"the tick body {names[body]!r} holds a "
+                f"{NODE_TYPES.get(kind, kind)} node, which a conditional "
+                f"node's body cannot hold")
+    buf = ctypes.create_string_buffer(256)
+    lib.fn("sched_error_string")(rc, ctypes.addressof(buf), 256)
+    return f"cudaError {rc} ({buf.value.decode()})"
+
+
+class Graph:
+    """The serving program's CUDA graph (csrc/schedule.cu
+    sched_program_build): a WHILE node over one tick (scan_step ->
+    tick_select -> an IF node a body -> escape_select -> IF few, IF many ->
+    scan_commit), each IF node's body a child graph node of a
+    PyTorch-captured body (``torch.cuda.CUDAGraph(keep_graph=True)``'s
+    ``raw_cuda_graph()``).  ``bodies``: {name: raw graph} in branch order;
+    ``few`` / ``many``: raw graphs or 0; ``args``: the device addresses
+    and sizes of BUILD_ARGS.  Building raises on a body node type a
+    conditional body cannot hold, on a driver older than 12.4 and on any
+    CUDA error; so does ``launch``."""
+
+    def __init__(self, bodies, few, many, **args):
+        from .build import load_library
+        self._lib = load_library()
+        args.update(few=few, many=many)
+        words = (ctypes.c_longlong * len(BUILD_ARGS))(
+            *[int(args[k]) for k in BUILD_ARGS])
+        graphs = (ctypes.c_ulonglong * len(bodies))(*bodies.values())
+        out = ctypes.c_void_p(0)
+        rc = self._lib.fn("sched_program_build")(
+            ctypes.addressof(words), len(BUILD_ARGS),
+            ctypes.addressof(graphs), len(bodies), ctypes.addressof(out))
+        if rc:
+            raise RuntimeError("the serving program's graph did not build: "
+                               + _error(self._lib, rc,
+                                        list(bodies) + ["few", "many"]))
+        self._ptr = out.value
+
+    def launch(self):
+        """One launch on the current stream."""
+        rc = self._lib.fn("sched_program_launch")(
+            self._ptr, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("the serving program's launch failed: "
+                               + _error(self._lib, rc, []))
+
+    def __del__(self):
+        ptr, self._ptr = getattr(self, "_ptr", None), None
+        if ptr:
+            self._lib.fn("sched_program_destroy")(ptr)
+

@@ -19,6 +19,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..device import resolve_device
+from ..kernels.launch import host_paths
 from ..ops.histogram import check_hist_kernel
 from ..ops.imageproc import grayscale, whitebalance
 from . import camshift as cs
@@ -183,9 +184,15 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     the reference's ``make_step`` over a batch, with ``device`` and
     ``tables`` as keywords after its parameters.
 
-    step(state, frames, modes=None) -> (state', StepOutput), frames
-    (N, H, W, 3) u8.  ``modes`` is the host copy of ``state.mode`` (a NumPy
-    array); when None the step reads it from the device.
+    step(state, frames, modes=None, *, select=False) -> (state',
+    StepOutput), frames (N, H, W, 3) u8.  ``modes`` is the host copy of
+    ``state.mode`` (a NumPy array); when None the step reads it from the
+    device.  select=True ("full" and "wbtrack"): the select form of the
+    reference's vmapped per-stream ``lax.switch`` instead: every mode's
+    branch runs on every stream and each stream takes its entry mode's
+    result, so the step reads nothing on the host and a CUDA graph can
+    capture it (``modes`` is ignored).  A stream's result is the same in
+    both forms.
 
     variant="full":  the complete WB/VJ/CS mode dispatch; each branch runs
         on the streams in its mode.
@@ -274,12 +281,15 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
         return state._replace(mode=new_mode, cs=cs_state), res, None
 
-    def vj_frozen(state, frames):
+    def vj_frozen(state, frames, wb=None):
         # wbtrack's VJ streams: the reference's wbtrack reports the
         # whitebalance branch's result with conf 0 and keeps the state
+        # (wb: that branch's whitebalance of these frames, when it ran)
         res = _empty_result(frames.shape[0], frames.device)
-        return state, res._replace(wb=whitebalance(frames).to(_F32),
-                                   conf=torch.zeros_like(res.conf)), None
+        if wb is None:
+            wb = whitebalance(frames).to(_F32)
+        return state, res._replace(wb=wb, conf=torch.zeros_like(res.conf)), \
+            None
 
     def cs_branch(state, frames):
         """(state', result, full-frame pdf or None off the full frame)."""
@@ -310,6 +320,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     def dispatch(state, frames, modes):
         """Each mode's branch on its streams: (state', result, pdf or
         None), the pdf zero on the streams of other modes."""
+        host_paths["dispatch"] += 1
         if modes is None:
             modes = state.mode.cpu().numpy()
         present = [m for m in (MODE_WB, MODE_VJ, MODE_CS) if (modes == m).any()]
@@ -328,8 +339,28 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
                 pdf = no_pdf(frames.shape[0]).index_copy(0, idx, sub_pdf)
         return new_state, res, pdf
 
-    def step(state, frames, modes=None):
+    def selected(state, frames):
+        """Every mode's branch on every stream, each stream taking its
+        entry mode's result: (state', result, pdf or None)."""
+        mode = state.mode
+        is_wb, is_vj = mode == MODE_WB, mode == MODE_VJ
+        wb_state, wb_res, _ = wb_branch(state, frames)
+        if variant == "wbtrack":
+            vj_state, vj_res, _ = vj_frozen(state, frames, wb_res.wb)
+        else:
+            vj_state, vj_res, _ = vj_branch(state, frames)
+        cs_state, cs_res, pdf = cs_branch(state, frames)
+        state = _where(is_wb, wb_state, _where(is_vj, vj_state, cs_state))
+        res = _where(is_wb, wb_res, _where(is_vj, vj_res, cs_res))
+        if pdf is not None:
+            pdf = torch.where((mode == MODE_CS).view(-1, 1, 1), pdf, 0.0)
+        return state, res, pdf
+
+    def step(state, frames, modes=None, *, select=False):
         entry_mode = state.mode
+        if select and variant not in ("full", "wbtrack"):
+            raise ValueError(f"select applies to the 'full' and 'wbtrack' "
+                             f"steps, not {variant!r}")
         if variant == "track":
             is_cs = entry_mode == MODE_CS
             new_state, res, pdf = cs_branch(state, frames)
@@ -344,6 +375,8 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             state = _where(is_wb, wb_state, vj_state)
             res = _where(is_wb, wb_res, vj_res)
             pdf = None
+        elif select:
+            state, res, pdf = selected(state, frames)
         else:
             state, res, pdf = dispatch(state, frames, modes)
         # copies: an output must not alias the input state, which a caller

@@ -28,25 +28,37 @@ and chunk_cap = max(kb, (min(N, 4 kb) // kb) kb):
                                       pending streams (by ``pend_age``, ties
                                       to the lower index), while the others
                                       stay frozen and age by one tick.
-Every branch but the rotation's leaves ``pend_age`` at 0.  On the card the
-all-CS tick is one replay of a CUDA graph of the "track" step, captured once
-per tracker on static frame and state buffers, plus one host read
-(``mode_after`` and ``escaped`` together).  So is a bucket or chunk tick
-(1 .. chunk_cap pending, some in VJ; not the rotation's overload tick): one
-replay of a graph of "track" and the reference's ``_apply_bucket`` in its
-device form (``_Steps.bucket_device``: the "pending" step, which selects
-the WB or VJ branch by mode, on the served streams' slots padded with N,
-and a masked scatter back), the served streams filled in from the host
-mode view, and the same one host read.  The detector in it is three
-kernels with no host read (models/detector.py).  The other branches
-(wbtrack, full, the rotation) run eagerly.
+Every branch but the rotation's leaves ``pend_age`` at 0.
+
+On the card the device scheduler runs as the reference's does: one program
+(``_Program``) for one tick or K, launched once, with one host read at the
+end (the last tick's mode_after).  Each tick's branch, its served streams
+and their pend_age are chosen on the card (kernels/schedule.py
+tick_select, which sets the CUDA graph conditional handle of one IF node
+a branch), and so is the band's escape fallback (escape_select: none, a
+sub-batch of ``escape_bucket`` slots, or the batch); a WHILE node runs the
+K ticks of ``run_scan`` (scan_step, scan_commit).  Its select kernels are
+one CTA each, so the card's program serves at most 4,096 streams a device
+(``schedule.MAX_N``; more raise ValueError: a mesh splits them, and the
+host scheduler ``step`` has no such limit).  The branches' bodies
+are CUDA graphs captured from the steps: "track"; the bucket and chunk
+ticks and the rotation (``_Steps.bucket_device``: "track", then the
+"pending" step on the served slots padded with N, a masked scatter);
+"wbtrack" and "full" in their select form (every mode's branch on every
+stream, each taking its entry mode's result).  The detector in them is
+three kernels with no host read (models/detector.py).
 
 With a band (``band="auto"``: DEFAULT_BAND when it is smaller than the
 frame) "track" and "wbtrack" take the band-local camshift.  Streams whose
 window left the band are recomputed from the pre-step state by the
-full-frame "track" step and scattered back.  The reference bounds that
-recompute's cost with ``escape_bucket``; its per-stream results are the same
-whatever the bound, so here exactly the escaped streams are recomputed.
+full-frame "track" step and merged back: up to ``escape_bucket`` of them
+as a sub-batch, more on the whole batch, as the reference's; a stream's
+result is the same either way.
+
+The per-tick path (``_Steps.begin`` / ``end``) is the program's plain
+version, which the CPU runs: the branch chosen on the host from the mode
+view, the served streams from a host ``np.nonzero``, every branch and the
+escape recompute eager.
 
 ``make_batched_steps`` is the same tick in the reference's functional form:
 five functions of (state, frames) that hold no stream state.  It and
@@ -66,7 +78,7 @@ import torch
 from ..cascade import frontalface
 from ..config import TrackerConfig
 from ..device import resolve_device
-from ..kernels import launch
+from ..kernels import launch, schedule
 from ..models import camshift as cs_mod
 from ..models import facetracker as ft
 from ..models.detector import detector_tables
@@ -118,8 +130,8 @@ def plan_serving(n_streams, frame_shape=(240, 320), max_face_px=100,
       under mass loss, oldest pending streams first), else "full" (every
       stream relocks in one slow tick).
     - ``scan_len``: 1 for latency-sensitive callers (drive ``step_auto``
-      tick by tick), else 16.  In this port ``run_scan`` replays one CUDA
-      graph a tick, so a longer scan buys nothing on the card yet.
+      tick by tick), else 16.  On the card ``run_scan`` is one launch and
+      one host read for its K ticks.
     - ``sparse_hist``: 64 when 1.3x ``model_bins`` (the distinct bins of
       the deployment's face models) fits in 64, else None.  It maps to the
       ``sparseHist`` config field, which this port accepts and ignores:
@@ -192,92 +204,281 @@ def _host(modes):
 
 
 class _Buffers:
-    """A batch size's static tick inputs, shared by its captured ticks:
-    ``frames`` and ``state_in`` (the tracker's state after a replayed tick,
-    which ``_Steps.end`` donates)."""
+    """A batch size's static tick buffers, which its tick bodies share.
+    In: ``frames``; ``state_in``, the state every body reads (the tracker's
+    state after a launch of the program, whose scan_commit writes it);
+    ``idx``, the bucket's served slots (chunk_cap of them,
+    padded with N; the bucket body over s slots reads the first s);
+    ``eidx``, the escape fallback's slots (escape_bucket of them); ``age``,
+    pend_age after the tick (the program's tick_select writes it).  Out:
+    ``state_out`` and ``out``, a StepOutput of rows of one packed
+    (fields, N) tensor a dtype (``packs``, laid out at the first write),
+    which every body writes whole and the program's escape bodies also
+    read.  A body keeps nothing it allocates past its capture, so all of a
+    batch size's bodies capture into one memory pool (``pool``)."""
 
-    def __init__(self, state, frames_shape, device):
+    def __init__(self, state, frames_shape, device, cap, escape_bucket):
+        n = frames_shape[0]
+        self.device = device
         self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
                                   device=device)
         self.state_in = _clone(state)
+        self.state_out = _clone(state)
+        self.idx = torch.full((cap,), n, dtype=torch.int64, device=device)
+        self.eidx = torch.full((escape_bucket,), n, dtype=torch.int64,
+                               device=device)
+        self.age = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.out = None
+        self.pool = None
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                self.pool = torch.cuda.graph_pool_handle()
+
+    def write(self, state, out):
+        """A body's results into ``state_out`` and ``out``."""
+        if self.out is None:  # the first write is a body's warm-up run
+            groups = {}
+            self.rows = []
+            for v in out:
+                self.rows.append((v.dtype, len(groups.setdefault(v.dtype,
+                                                                 []))))
+                groups[v.dtype].append(v)
+            self.packs = {dt: torch.zeros((len(g),) + g[0].shape, dtype=dt,
+                                          device=self.device)
+                          for dt, g in groups.items()}
+            self.out = ft.StepOutput(*(self.packs[dt][i]
+                                       for dt, i in self.rows))
+        torch._foreach_copy_(_leaves(self.state_out), _leaves(state))
+        torch._foreach_copy_(_leaves(self.out), _leaves(out))
 
 
 class _TickGraph:
-    """A device-scheduled tick, ``tick(state, frames, *extra) -> (state',
-    StepOutput)``, on a batch size's static ``_Buffers``: on the card
-    captured in a CUDA graph (``launches`` tallies the kernel launches one
-    replay makes; a capture failure raises), on the CPU run uncaptured on
-    the same buffers at each replay.  Out: ``state_out``, the outputs (one
-    packed tensor per dtype) and ``sync`` = (mode_after, escaped) as (2, N)
-    i32, whose host copy each replay starts (into pinned memory, behind an
-    event)."""
+    """A tick body of the serving program, ``tick(state, frames, *extra)
+    -> (state', StepOutput)`` on a batch size's ``_Buffers`` (from their
+    ``state_in`` and ``frames``), which writes its results into the
+    buffers' ``state_out`` and ``out``.  On the card it is captured in a
+    CUDA graph (keep_graph, for the program's conditional nodes; in the
+    buffers' pool; a capture failure raises; ``launches`` tallies the
+    kernel launches one run makes); on the CPU ``run`` calls the tick."""
 
-    def __init__(self, tick, bufs, extra, device):
-        self.device = device
-        self.frames, self.state_in, self.extra = (bufs.frames, bufs.state_in,
-                                                  extra)
+    def __init__(self, tick, bufs, extra):
+        self.bufs, self.extra = bufs, extra
+        self.device = bufs.device
         self.graph = None
         self.launches = dict.fromkeys(launch.launches, 0)
-        self.tick = tick  # run at each replay on the CPU
-        if device.type != "cuda":
+        self.tick = tick  # called at each run on the CPU
+        if self.device.type != "cuda":
             return
-        with torch.cuda.device(device):
+        with torch.cuda.device(self.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):  # warm up off the capture stream
-                tick(self.state_in, self.frames, *extra)
+                self.run()
             torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with launch.capturing() as self.launches, \
-                    torch.cuda.graph(self.graph):
-                self._run()
+                    torch.cuda.graph(self.graph, pool=bufs.pool):
+                self.run()
         # not kept on the card: a graph holding its _Steps' bound method
         # makes a reference cycle, which the cyclic collector may free while
         # another graph captures, destroying CUDA objects mid-capture
         del self.tick
-        self._sync_host = torch.empty(self.sync.shape, dtype=torch.int32,
-                                      pin_memory=True)
-        self._copied = torch.cuda.Event()
 
-    def _run(self):
-        self.state_out, out = self.tick(self.state_in, self.frames,
-                                        *self.extra)
-        rows, packs = [], {}
-        for v in out:
-            group = packs.setdefault(v.dtype, [])
-            rows.append((v.dtype, len(group)))
-            group.append(v)
-        self._packs = {dt: torch.stack(g) for dt, g in packs.items()}
-        self._rows = rows
-        self.sync = torch.stack([out.mode_after, out.escaped.to(torch.int32)])
+    def run(self):
+        """Run the body once, uncaptured (its warm-up and capture on the
+        card, the program's twin on the CPU)."""
+        self.bufs.write(*self.tick(self.bufs.state_in, self.bufs.frames,
+                                   *self.extra))
 
-    def replay(self):
-        """Enqueue one replay and the host copy of its sync word."""
-        if self.graph is None:
-            self._run()
+
+class _Program:
+    """The device-scheduled tick at a batch size, K ticks a launch: the
+    reference's ``auto_step`` with its ``_escape_checked`` fallback, in
+    ``scan_steps``' loop.  Each tick, as kernels/schedule.py's kernels
+    choose: its frames into the bodies' buffer (scan_step); the branch,
+    the served slots and the new pend_age (tick_select) and the branch's
+    body; with a band, the escape fallback's body, none, ``few`` (the
+    full-frame "track" step from the pre-step state on escape_bucket
+    slots) or ``many`` (on the batch, then a per-stream select)
+    (escape_select); then the tick's outputs into row k of the scan's
+    output packs and the new state, pend_age from tick_select, over
+    ``state_in`` (scan_commit).  ``escaped`` is stamped after the merge.
+
+    On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
+    IF node a body), launched once for the K ticks, with one host read at
+    the end: the last tick's mode_after and the parameter block, in which
+    each of the program's kernels counts its own runs (``runs``:
+    tick_select's by the body it chose, escape_select's at 8 + its
+    selection).  The launch counters take those counts, and a launch whose
+    kernels ran other than K ticks raises.  On the CPU the same bodies run
+    uncaptured, each picked by the select kernels' twins in a Python
+    ``if``.  The select kernels are one CTA each: the card's program
+    serves at most ``schedule.MAX_N`` streams a device."""
+
+    def __init__(self, steps, state):
+        n = state.mode.shape[0]
+        self.device = steps.device
+        self.bufs = bufs = steps.buffers(state)
+        self.kb, self.cap = min(steps.bucket, n), steps.chunk_cap(n)
+        self.rotate = steps.overload == "rotate"
+        self.eb = steps.escape_bucket
+        keys = steps.body_keys(n)
+        self.bodies = [steps.captured(state, k) for k in keys]
+        band = steps.band is not None
+        self.few = (steps.captured(state, "few")
+                    if band and self.eb < n else None)
+        self.many = steps.captured(state, "many") if band else None
+        if bufs.out is None:  # the CPU: lay the outputs out as a warm-up
+            self.bodies[0].run()
+        # the commit: state_out over state_in, pend_age from tick_select;
+        # each output row into its pack's row
+        age_leaf = next(i for i, v in enumerate(_leaves(bufs.state_in))
+                        if v is bufs.state_in.pend_age)
+        self.carry = [(bufs.age if i == age_leaf else src, dst)
+                      for i, (src, dst) in enumerate(zip(
+                          _leaves(bufs.state_out), _leaves(bufs.state_in)))]
+        self.dtypes = list(bufs.packs)
+        self.rows = [(v, self.dtypes.index(dt), i)
+                     for v, (dt, i) in zip(bufs.out, bufs.rows)]
+        self._mode_row = self.rows[ft.StepOutput._fields.index(
+            "mode_after")]
+        self.graph = None
+        self.launches = 0  # launches made (a K-tick scan is one)
+        if self.device.type != "cuda":
             return
         with torch.cuda.device(self.device):
-            self.graph.replay()
-            self._sync_host.copy_(self.sync, non_blocking=True)
-            self._copied.record()
-        launch.replayed(self.launches)
+            self._params = torch.zeros((schedule.PARAM_WORDS,),
+                                       dtype=torch.int64, device=self.device)
+            self._table = schedule.segments(self.carry, self.rows,
+                                            self.device)
+            self.graph = schedule.Graph(
+                {str(k): b.graph.raw_cuda_graph()
+                 for k, b in zip(keys, self.bodies)},
+                self.few.graph.raw_cuda_graph() if self.few else 0,
+                self.many.graph.raw_cuda_graph() if self.many else 0,
+                mode=bufs.state_in.mode.data_ptr(),
+                age=bufs.state_in.pend_age.data_ptr(),
+                idx=bufs.idx.data_ptr(), age_out=bufs.age.data_ptr(),
+                params=self._params.data_ptr(), n=n, kb=self.kb,
+                cap=self.cap, rotate=int(self.rotate),
+                esc=bufs.out.escaped.data_ptr() if band else 0,
+                eidx=bufs.eidx.data_ptr(), eb=self.eb,
+                frames=bufs.frames.data_ptr(),
+                frame_bytes=bufs.frames.numel(),
+                segs=self._table.data_ptr(), nseg=self._table.shape[0])
+            self._done = torch.cuda.Event()
+        # the parameter block's host side, written and read through NumPy
+        # views (a torch op a word would cost the launch more host time)
+        self._host = torch.zeros((schedule.PARAM_WORDS,), dtype=torch.int64,
+                                 pin_memory=True)
+        self._back = torch.zeros_like(self._host).pin_memory()
+        self._host_np, self._back_np = self._host.numpy(), self._back.numpy()
+        self._mode_host = torch.empty((n,), dtype=torch.int32,
+                                      pin_memory=True)
+
+    def launch(self, state, seq, force=0, served=None, squeeze=False):
+        """Enqueue len(seq) ticks from ``state`` (copied into ``state_in``
+        unless it is it) on ``seq`` (K, N, H, W, 3) u8 on the device.
+        force = 1 + slots: one tick of the bucket over that many slots on
+        ``served`` (host ints), pend_age kept (``step_bucket``).  Returns
+        the tick for ``finish`` (``squeeze``: a single tick's (N,)
+        outputs); on the CPU the ticks have run."""
+        bufs = self.bufs
+        K, n = seq.shape[0], seq.shape[1]
+        self.launches += 1
+        if state is not bufs.state_in:
+            torch._foreach_copy_(_leaves(bufs.state_in), _leaves(state))
+        packs = [torch.empty((bufs.packs[dt].shape[0], K, n), dtype=dt,
+                             device=self.device) for dt in self.dtypes]
+        if force:
+            idx = np.full((force - 1,), n, dtype=np.int64)
+            idx[:served.size] = served
+            host = torch.from_numpy(idx)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            bufs.idx[:force - 1].copy_(host, non_blocking=True)
+        if self.graph is None:
+            self.runs = self._run_plain(seq, force, packs)
+            return self, (packs, K, seq, squeeze)
+        p = self._host_np
+        p[:] = 0
+        p[schedule.P_TICKS] = K
+        p[schedule.P_FORCE] = force
+        p[schedule.P_FRAMES] = seq.data_ptr()
+        for j, pack in enumerate(packs):
+            p[schedule.P_OUT + j] = pack.data_ptr()
+        _, slot, row = self._mode_row
+        with torch.cuda.device(self.device):
+            self._params.copy_(self._host, non_blocking=True)
+            self.graph.launch()
+            self._mode_host.copy_(packs[slot][row, K - 1], non_blocking=True)
+            self._back.copy_(self._params, non_blocking=True)
+            self._done.record()
+        return self, (packs, K, seq, squeeze)
+
+    def _run_plain(self, seq, force, packs):
+        """The program on the CPU: the kernels' twins, their selections in
+        Python ``if``s, the bodies run uncaptured.  Returns the runs."""
+        bufs = self.bufs
+        runs = [0] * (schedule.PARAM_WORDS - schedule.P_RUNS)
+        rows = [(v, packs[slot], row) for v, slot, row in self.rows]
+        for k in range(seq.shape[0]):
+            schedule.scan_step_plain(seq, k, bufs.frames)
+            branch, idx, age = schedule.tick_select_plain(
+                bufs.state_in.mode, bufs.state_in.pend_age, self.kb,
+                self.cap, self.rotate, force, bufs.idx)
+            bufs.idx.copy_(idx)
+            bufs.age.copy_(age)
+            self.bodies[branch].run()
+            runs[branch] += 1
+            if self.many is not None:
+                sel, eidx = schedule.escape_select_plain(bufs.out.escaped,
+                                                         self.eb)
+                bufs.eidx.copy_(eidx)
+                if sel:
+                    (self.few if sel == 1 else self.many).run()
+                runs[schedule.ESCAPE_RUNS + sel] += 1
+            schedule.scan_commit_plain(k, self.carry, rows)
+        return runs
 
     def wait(self):
-        """Wait for the last replay's sync word to reach the host."""
+        """Wait for the launch's one host read (nothing on the CPU)."""
         if self.graph is not None:
-            self._copied.synchronize()
+            self._done.synchronize()
 
-    def read_sync(self):
-        """The last replay's (mode_after, escaped) as a (2, N) host array."""
-        if self.graph is None:
-            return self.sync.numpy().copy()
+    def finish(self, tick, donate=True):
+        """Finish a launch: (state, StepOutput of (K, N) leaves, or (N,)
+        when squeezed, host mode view: the last tick's mode_after).
+        donate: as ``_Steps.end``'s."""
+        packs, K, _, squeeze = tick
         self.wait()
-        return self._sync_host.numpy().copy()
-
-    def outputs(self):
-        """This replay's StepOutput, copied out of the graph's buffers."""
-        c = {dt: p.clone() for dt, p in self._packs.items()}
-        return ft.StepOutput(*(c[dt][i] for dt, i in self._rows))
+        if self.graph is not None:
+            back = self._back_np
+            self.runs = back[schedule.P_RUNS:].tolist()
+            ticks = sum(self.runs[:schedule.ESCAPE_RUNS])
+            if back[schedule.P_K] != K or ticks != K:
+                raise RuntimeError(f"the serving program ran "
+                                   f"{back[schedule.P_K]} ({ticks} "
+                                   f"selected) of {K} ticks")
+            ran = dict(enumerate(self.bodies))
+            ran.update({schedule.ESCAPE_RUNS + 1: self.few,
+                        schedule.ESCAPE_RUNS + 2: self.many})
+            for i, body in ran.items():
+                for _ in range(self.runs[i] if body is not None else 0):
+                    launch.replayed(body.launches)
+            # each kernel's own count of its runs, read back with the modes
+            launch.launches["tick_select"] += ticks
+            launch.launches["escape_select"] += sum(
+                self.runs[schedule.ESCAPE_RUNS:])
+            launch.launches["scan_step"] += int(back[schedule.P_STEPS])
+            launch.launches["scan_commit"] += int(back[schedule.P_COMMITS])
+            view = self._mode_host.numpy().copy()
+        else:
+            view = self.bufs.state_in.mode.numpy().copy()
+        rows = [(p[:, 0] if squeeze else p).unbind(0) for p in packs]
+        out = ft.StepOutput(*(rows[slot][row] for _, slot, row in self.rows))
+        state = self.bufs.state_in
+        return (state if donate else _clone(state)), out, view
 
 
 def _scatter_slots(tree, idx, sub):
@@ -312,17 +513,22 @@ def _staged(frames, want, device):
 class _Steps:
     """The serving tick on one device, as functions of (state, frames) that
     hold no stream state: the steps of one (cascade, config, frame shape,
-    band, bucket, overload), the device scheduler's branch rule, the
-    bucket merge and the band's escape recompute.  ``BatchedTracker`` (which
-    adds the state and its host mode view) and ``make_batched_steps`` (the
-    reference's functional form) are both built on it.
+    band, bucket, overload, escape bucket), the device scheduler's branch
+    rule, the bucket merge and the band's escape fallback.
+    ``BatchedTracker`` (which adds the state and its host mode view) and
+    ``make_batched_steps`` (the reference's functional form) are both
+    built on it.
 
-    The batch size is read from each call's frames, so the bucket and the
-    chunk cap follow N, as the reference's batch-polymorphic steps do; the
-    all-CS tick's CUDA graph is captured once a batch size."""
+    Two forms of the device-scheduled tick.  ``scheduled`` (the card's):
+    ``_Program``, the ticks chosen on the device.  Else the per-tick path,
+    the program's plain version (the CPU's): the branch chosen on the host
+    from the mode view and run eagerly, the escape recompute too.  The
+    batch size is read from each call's frames, so the bucket and the
+    chunk cap follow N, as the reference's batch-polymorphic steps do;
+    bodies and programs are built once a batch size."""
 
     def __init__(self, cascade, config, frame_shape, device, band, bucket,
-                 overload):
+                 overload, escape_bucket):
         if overload not in ("full", "rotate"):
             raise ValueError(f"overload must be 'full' or 'rotate', got "
                              f"{overload!r}")
@@ -331,6 +537,7 @@ class _Steps:
         self.band = band
         self.bucket = max(1, int(bucket))
         self.overload = overload
+        self.escape_bucket = max(1, int(escape_bucket))
         H, W = self.frame_shape
         tables = detector_tables(W, H, cascade, config.detectorInterval,
                                  device)
@@ -348,13 +555,15 @@ class _Steps:
         self._track = mk("track", band) if band else self._track_plain
         self._wbtrack = mk("wbtrack", band)
         self._pending = mk("pending")  # the bucket's full step, no host read
-        # run the all-CS and the bucket ticks from captured programs: CUDA
-        # graphs on the card; the CPU runs the same tick functions on the
-        # same buffers uncaptured when a caller (a test) sets it
-        self.replay = self.device.type == "cuda"
+        # the card schedules its ticks on the device; the CPU runs the
+        # per-tick path, and the program's twin when a caller (a test)
+        # sets this
+        self.scheduled = self.device.type == "cuda"
         self._bufs = {}  # batch size -> its _Buffers
-        # (batch size, bucket slots; 0: the all-CS tick) -> its _TickGraph
+        # (batch size, body key: 0 the all-CS tick, s > 0 the bucket over s
+        # slots, "wbtrack", "full", "few", "many") -> its _TickGraph
         self._graphs = {}
+        self._programs = {}  # batch size -> its _Program
 
     def chunk_cap(self, n):
         """The most pending streams one tick serves at batch size n."""
@@ -374,6 +583,15 @@ class _Steps:
             return "bucket"
         return "full"
 
+    def body_keys(self, n):
+        """The program's tick bodies at batch size n in branch order
+        (kernels/schedule.py): the all-CS tick, the bucket at each slot
+        count kb .. chunk_cap, "wbtrack", and "full" under overload
+        "full"."""
+        kb = min(self.bucket, n)
+        keys = [0] + list(range(kb, self.chunk_cap(n) + 1, kb)) + ["wbtrack"]
+        return keys + (["full"] if self.overload == "full" else [])
+
     def track(self, state, frames):
         """The "track" step with the band's escape recompute."""
         return self._checked(self._track, state, frames)
@@ -385,18 +603,19 @@ class _Steps:
         return self._apply_bucket(state1, out, frames, idx)
 
     def bucket_step(self, state, frames, served, donate=True):
-        """``bucket_tick`` as the functional ``step_bucket`` runs it: on the
-        card one replay of the bucket graph (``served`` in its slots) and
-        one host read, ``pend_age`` kept as the caller's (the graph zeroes
-        it, as the device scheduler's bucket tick does); elsewhere
-        ``bucket_tick``.  donate as ``end``'s."""
-        if not self.replay:
+        """``bucket_tick`` as the functional ``step_bucket`` runs it, with
+        the caller's ``pend_age`` kept: ``scheduled``, one launch of the
+        program forced to the bucket over ``served`` (its escape fallback
+        on the card) and one host read; else ``bucket_tick``.  donate as
+        ``end``'s."""
+        if not self.scheduled:
             return self.bucket_tick(state, frames, served)
         kb = min(self.bucket, frames.shape[0])
-        age = state.pend_age.clone()
-        new, out, _ = self.end(self._replayed(
-            state, frames, -(-served.size // kb) * kb, served), donate)
-        return new._replace(pend_age=age), out
+        prog = self.program(state)
+        new, out, _ = prog.finish(prog.launch(
+            state, frames[None], 1 + -(-served.size // kb) * kb, served,
+            squeeze=True)[1], donate)
+        return new, out
 
     def _recompute(self, state, frames, new, out, esc, esc_host):
         """Recompute a banded step's escaped streams from the pre-step
@@ -404,6 +623,7 @@ class _Steps:
         output's telemetry."""
         idx = np.nonzero(esc_host)[0]
         if idx.size:
+            launch.host_paths["recompute"] += 1
             idx = torch.as_tensor(idx, device=self.device)
             sub_state, sub_out = self._track_plain(
                 ft.tree_index(state, idx), frames.index_select(0, idx))
@@ -437,15 +657,30 @@ class _Steps:
         return ft.tree_scatter(state1, t, sub_state), \
             ft.tree_scatter(out, t, sub_out)
 
-    def _auto_track(self, state, frames):
-        """The device scheduler's all-CS tick before the escape fallback:
-        "track" (banded: escaped in the output), pend_age zeroed.  No host
-        read: the graph captures it."""
+    def _banded(self, step, state, frames):
+        """A "track" or "wbtrack" step (the select form) before the escape
+        fallback: escaped in the output, pend_age zeroed.  No host read."""
+        kw = {} if step is self._track else {"select": True}
         if self.band is None:
-            new, out = self._track(state, frames)
+            new, out = step(state, frames, **kw)
         else:
-            new, out, esc = self._track(state, frames)
+            new, out, esc = step(state, frames, **kw)
             out = out._replace(escaped=esc)
+        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
+
+    def _auto_track(self, state, frames):
+        """The all-CS tick's body: "track" before the escape fallback."""
+        return self._banded(self._track, state, frames)
+
+    def _auto_wbtrack(self, state, frames):
+        """The wbtrack tick's body: "wbtrack" in its select form before
+        the escape fallback."""
+        return self._banded(self._wbtrack, state, frames)
+
+    def _auto_full(self, state, frames):
+        """The full tick's body: the "full" step in its select form on the
+        batch, pend_age zeroed.  No host read."""
+        new, out = self.full(state, frames, select=True)
         return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
 
     def bucket_device(self, state, frames, idx):
@@ -457,7 +692,8 @@ class _Steps:
         not in CS after the track pass, scattered back (padding dropped).
         A chunk tick's chunks serve disjoint streams and a stream's result
         does not depend on its batch, so one step over all its slots equals
-        the reference's chunks in turn.  pend_age zeroed (no rotation)."""
+        the reference's chunks in turn.  pend_age zeroed (the program
+        commits tick_select's)."""
         state1, out = self._auto_track(state, frames)
         n = frames.shape[0]
         safe = torch.clamp(idx, max=n - 1)
@@ -469,77 +705,85 @@ class _Steps:
         return (_scatter_slots(state1, idx, sub_state),
                 _scatter_slots(out, idx, sub_out))
 
-    def captured(self, state, slots=0):
-        """The CUDA graph of the all-CS tick (slots 0) or of the bucket
-        tick over ``slots`` stream slots at ``state``'s batch size,
-        captured (on a copy of ``state``) on first use; on the CPU the same
-        tick run uncaptured on the same buffers."""
+    def _escape_few(self, state, frames, eidx):
+        """The escape fallback's ``few`` body: the full-frame "track" step
+        from the pre-step ``state`` on the escaped streams' slots ``eidx``
+        (padded with N), merged into the tick's outputs in the buffers;
+        ``escaped`` kept (stamped after the merge)."""
+        bufs = self._bufs[frames.shape[0]]
+        safe = torch.clamp(eidx, max=frames.shape[0] - 1)
+        sub_state, sub_out = self._track_plain(
+            ft.tree_index(state, safe), frames.index_select(0, safe))
+        new = _scatter_slots(bufs.state_out, eidx, sub_state)
+        out = _scatter_slots(bufs.out, eidx, sub_out)
+        return new, out._replace(escaped=bufs.out.escaped)
+
+    def _escape_many(self, state, frames):
+        """The escape fallback's ``many`` body: the full-frame "track" step
+        from the pre-step ``state`` on the batch, taken by the escaped
+        streams."""
+        bufs = self._bufs[frames.shape[0]]
+        esc = bufs.out.escaped
+        new, out = self._track_plain(state, frames)
+        return (ft.tree_where(esc, new, bufs.state_out),
+                ft.tree_where(esc, out, bufs.out)._replace(escaped=esc))
+
+    def buffers(self, state):
+        """The ``_Buffers`` of ``state``'s batch size."""
         n = state.mode.shape[0]
         if n not in self._bufs:
             self._bufs[n] = _Buffers(state, (n,) + self.frame_shape + (3,),
-                                     self.device)
-        if (n, slots) not in self._graphs:
-            if slots == 0:
-                tick, extra = self._auto_track, ()
-            else:  # the served streams' slots, padded with N
-                tick, extra = self.bucket_device, (torch.full(
-                    (slots,), n, dtype=torch.int64, device=self.device),)
-            self._graphs[(n, slots)] = _TickGraph(tick, self._bufs[n], extra,
-                                                  self.device)
-        return self._graphs[(n, slots)]
+                                     self.device, self.chunk_cap(n),
+                                     self.escape_bucket)
+        return self._bufs[n]
 
-    def capture_all(self, state):
-        """Capture, at ``state``'s batch size, the all-CS tick's graph and
-        the bucket tick's at every slot count a tick can take (the bucket
-        kb and its multiples up to the chunk cap)."""
+    def captured(self, state, key=0):
+        """The body ``key`` (see ``_graphs``) at ``state``'s batch size,
+        built (captured on the card) on first use."""
         n = state.mode.shape[0]
-        kb = min(self.bucket, n)
-        for slots in [0] + list(range(kb, self.chunk_cap(n) + 1, kb)):
-            self.captured(state, slots)
+        bufs = self.buffers(state)
+        if (n, key) not in self._graphs:
+            if key == 0:
+                tick, extra = self._auto_track, ()
+            elif key == "few":
+                tick, extra = self._escape_few, (bufs.eidx,)
+            elif isinstance(key, str):
+                tick, extra = {"wbtrack": self._auto_wbtrack,
+                               "full": self._auto_full,
+                               "many": self._escape_many}[key], ()
+            else:  # the served streams' slots, padded with N
+                tick, extra = self.bucket_device, (bufs.idx[:key],)
+            self._graphs[(n, key)] = _TickGraph(tick, bufs, extra)
+        return self._graphs[(n, key)]
 
-    def _replayed(self, state, frames, slots=0, served=None):
-        """Replay the graph of ``captured(state, slots)``: the caller's
-        state copied into the graph's input buffers unless it is them, the
-        frames and (bucket ticks) the served streams, padded with N, into
-        theirs."""
-        g = self.captured(state, slots)
-        if state is not g.state_in:
-            torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
-        g.frames.copy_(frames)
-        if slots:
-            n = frames.shape[0]
-            idx = np.full((slots,), n, dtype=np.int64)
-            idx[:served.size] = served
-            host = torch.from_numpy(idx)
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            g.extra[0].copy_(host, non_blocking=True)
-        g.replay()
-        return g, g.outputs()
+    def program(self, state):
+        """The ``_Program`` at ``state``'s batch size, built on first
+        use.  On the card it raises ValueError beyond ``schedule.MAX_N``
+        streams, what its one-CTA select kernels take."""
+        n = state.mode.shape[0]
+        if self.device.type == "cuda" and n > schedule.MAX_N:
+            raise ValueError(
+                f"the device-scheduled tick (step_auto, run_scan, "
+                f"step_scan) serves at most {schedule.MAX_N} streams a "
+                f"device on the card, got {n}: split the streams over a "
+                f"mesh, or use the host scheduler's step()")
+        if n not in self._programs:
+            self._programs[n] = _Program(self, state)
+        return self._programs[n]
 
     def begin(self, state, frames, modes=None):
-        """Start one device-scheduled tick from ``state`` and its host mode
-        vector ``modes`` (read from the device when None).  On the card an
-        all-CS tick and a bucket or chunk tick are left in flight: one
-        graph replay (the caller's state copied into the graph's input
-        buffers unless it is them; a bucket tick's served streams filled in
-        from ``modes``), its outputs copied out of the graph's buffers and
-        its sync word on the way to the host, no host read.  Every other
-        branch (wbtrack, full, the rotation under overload) runs to its
-        end.  Returns the tick for ``end``: (the replayed graph or None, its
-        StepOutput or the tick's (state, StepOutput))."""
+        """Start one device-scheduled tick from ``state``.  ``scheduled``:
+        one launch of the program, left in flight.  Else the per-tick path
+        from the host mode vector ``modes`` (read from the device when
+        None), run to its end.  Returns the tick for ``end``."""
+        if self.scheduled:
+            return self.program(state).launch(state, frames[None],
+                                              squeeze=True)
         if modes is None:
             modes = state.mode.cpu().numpy()
         branch = self.branch(modes)
         n = len(modes)
-        if branch == "track" and self.replay:
-            return self._replayed(state, frames)
-        if branch == "bucket" and self.replay:
-            served = np.nonzero(modes != ft.MODE_CS)[0]
-            if served.size <= self.chunk_cap(n):
-                kb = min(self.bucket, n)
-                return self._replayed(state, frames,
-                                      -(-served.size // kb) * kb, served)
+        launch.host_paths["eager_branch"] += 1
         age = torch.zeros_like(state.pend_age)
         if branch == "track":
             new, out = self.track(state, frames)
@@ -561,47 +805,45 @@ class _Steps:
             new, out = self.bucket_tick(state, frames, served)
         return None, (new._replace(pend_age=age), out)
 
+    def begin_scan(self, state, seq):
+        """Start K = len(seq) device-scheduled ticks in one launch of the
+        program (``scheduled`` only); ``end`` finishes them."""
+        return self.program(state).launch(state, seq)
+
     def end(self, tick, donate=True):
-        """Finish a tick of ``begin``: (state, StepOutput, mode view), the
-        view the host array of the sync word or ``out.mode_after``.  A
-        replayed tick makes its one host read here; escaped streams are
-        recomputed eagerly from the graph's untouched input state, and only
-        then is the new state committed to it.  donate=True returns the
-        graph's input buffers as the state (the next replay overwrites
-        them, as the reference's donated state is reused); False returns a
-        copy."""
+        """Finish a tick (or a scan) of ``begin``: (state, StepOutput, mode
+        view), the view a host array (the last tick's mode_after) or
+        ``out.mode_after``.  A program launch makes its one host read here;
+        donate=True returns its state buffers as the state (the next launch
+        overwrites them, as the reference's donated state is reused), False
+        a copy."""
         g, res = tick
-        if g is None:
-            state, out = res
-            return state, out, out.mode_after
-        out = res
-        mode_after, esc = g.read_sync()
-        state, view = g.state_out, mode_after
-        # escaped streams were CS at entry and a bucket tick serves only
-        # streams that were not, so the two merges touch disjoint streams
-        # and their order does not matter
-        if esc.any():
-            state, out = self._recompute(g.state_in, g.frames, state, out,
-                                         out.escaped, esc != 0)
-            state = state._replace(pend_age=g.state_out.pend_age)
-            view = out.mode_after
-        if not donate:
-            return _clone(state), out, view
-        torch._foreach_copy_(_leaves(g.state_in), _leaves(state))
-        return g.state_in, out, view
+        if g is not None:
+            return g.finish(res, donate)
+        state, out = res
+        return state, out, out.mode_after
 
 
 def _tick_all(begins, ends):
-    """One device-scheduled tick on every shard: every shard's tick
-    enqueued first (``begins``, thunks), then one wait a device for its
-    last replay's sync word (a lone shard's read is that wait), then each
-    shard's tick finished (``ends``, applied to its tick).  Returns the
-    ends' results in shard order."""
+    """One device-scheduled tick (or scan) on every shard: every shard's
+    launch enqueued first (``begins``, thunks), then one wait a device for
+    its last launch's sync word (a lone shard's read is that wait), then
+    each shard's tick finished (``ends``, applied to its tick).  Returns
+    the ends' results in shard order."""
     ticks = [b() for b in begins]
     if len(ticks) > 1:
         for g in {g.device: g for g, _ in ticks if g is not None}.values():
             g.wait()
     return [e(t) for e, t in zip(ends, ticks)]
+
+
+def _joined_ticks(parts, device):
+    """Shards' StepOutputs of (K, N / shards) leaves joined along the
+    stream axis on ``device``; one shard's as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    return ft.StepOutput(*(torch.cat([p.to(device) for p in leaves], 1)
+                           for leaves in zip(*parts)))
 
 
 def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
@@ -619,13 +861,15 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
         frame and ``out.escaped`` marks them.
       step_bucket(state, frames, idx): "track" on the batch, then the full
         machinery for the streams named by ``idx`` ((bucket,) i32, padded
-        with N) that are still non-CS after it (on the card one replay of
-        the bucket tick's graph, as ``step_auto``'s bucket ticks).
+        with N) that are still non-CS after it, ``pend_age`` kept (on the
+        card one launch of the serving program forced to its bucket body).
       step_auto(state, frames): one device-scheduled tick (the module
         docstring's branch rule and ``pend_age``, the bucket and chunk cap
         from N = the state's batch).
       step_scan(state, frames_seq): K step_auto ticks over (K, N, H, W, 3)
-        frames; the StepOutput's leaves are (K, N).
+        frames; the StepOutput's leaves are (K, N).  On the card step_auto
+        and step_scan are one launch of the serving program (its K ticks
+        scheduled on the card, ``_Program``) and one host read.
 
     config: a ``TrackerConfig``.  States come from ``ft.init_state(...,
     band_audit=wants_band_audit(config, resolve_band(band, frame_shape)))``.
@@ -633,9 +877,11 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
     (the reference donates its state): after an all-CS tick on the card the
     returned state is the CUDA graph's input buffers, which the next such
     tick overwrites.  donate=False leaves the caller's state untouched and
-    returns tensors the caller owns.  escape_bucket is accepted for the
-    reference's signature and changes no result (exactly the escaped
-    streams are recomputed).
+    returns tensors the caller owns.  escape_bucket: with a band, at most
+    that many escaped streams are recomputed as a sub-batch (the program's
+    ``few`` body); more recompute the batch and take the escaped streams'
+    results (``many``), as the reference's; a stream's result is the same
+    either way.
 
     mesh: a ``parallel.stream_mesh``.  State and frames split into its
     equal shards, each stepped on its device by its own copy of the steps
@@ -655,8 +901,8 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
     devices = (list(mesh.devices.flat) if mesh is not None
                else [resolve_device(device)])
     band = resolve_band(band, frame_shape)
-    cores = [_Steps(cascade, config, frame_shape, d, band, bucket, overload)
-             for d in devices]
+    cores = [_Steps(cascade, config, frame_shape, d, band, bucket, overload,
+                    escape_bucket) for d in devices]
     k = len(cores)
     own = mesh is not None  # the shards' states are copies, ours to donate
 
@@ -720,6 +966,13 @@ def make_batched_steps(cascade, config, frame_shape, mesh=None, donate=True,
             raise ValueError("step_scan needs at least one tick "
                              "(frames_seq has leading length 0)")
         states, parts = split(state, seq, lead=(seq.shape[0],))
+        if cores[0].scheduled:
+            res = _tick_all(
+                [lambda c=c, s=s, p=p: c.begin_scan(s, p)
+                 for c, s, p in zip(cores, states, parts)],
+                [lambda t, c=c: c.end(t, donate or own) for c in cores])
+            return (joined([r[0] for r in res]),
+                    _joined_ticks([r[1] for r in res], devices[0]))
         outs = []
         for t in range(seq.shape[0]):
             states, o = auto(states, [p[t] for p in parts], own or t > 0)
@@ -758,9 +1011,10 @@ class BatchedTracker:
         vector (``step``).  bucket: the redetect bucket of both schedulers
         (see the module docstring).  band: "auto", None (full frame) or
         (bh, bw).  overload: the device scheduler's policy when more than
-        chunk_cap streams pend, "full" or "rotate".  escape_bucket:
-        accepted for the reference's signature; it bounds cost there and
-        changes no result, so it is not used."""
+        chunk_cap streams pend, "full" or "rotate".  escape_bucket: with a
+        band, the most escaped streams a tick recomputes as a sub-batch
+        (more recompute the batch, as the reference's); a stream's result
+        is the same either way."""
         self.config = TrackerConfig(**_merged_config(n_streams, params, kw))
         self.mesh = None
         self.n = n_streams
@@ -778,7 +1032,8 @@ class BatchedTracker:
         self.sync_interval = max(1, int(sync_interval))
         self.bucket = max(1, min(int(bucket), n_streams))
         self._steps = _Steps(self.cascade, self.config, self.frame_shape,
-                             self.device, self.band, self.bucket, overload)
+                             self.device, self.band, self.bucket, overload,
+                             escape_bucket)
         # the host scheduler's tick count; reset() keeps it, as the
         # reference's does, so the sync ticks stay on its schedule
         self._tick = 0
@@ -786,7 +1041,8 @@ class BatchedTracker:
 
     @property
     def _graph(self):
-        """The all-CS tick's CUDA graph, or None before its capture."""
+        """The serving program's all-CS body (its CUDA graph on the card),
+        or None before the program is built."""
         return self._steps._graphs.get((self.n, 0))
 
     def _init_state(self, n):
@@ -802,9 +1058,9 @@ class BatchedTracker:
     def set_state(self, state, modes=None):
         """Replace every stream's state (e.g. a checkpoint's): ``state`` a
         TrackerState of this tracker's schema on its device, ``modes`` its
-        host mode view (read from ``state.mode`` when None).  A captured
-        CUDA graph copies the new state into its input buffers at its next
-        replay."""
+        host mode view (read from ``state.mode`` when None).  The serving
+        program copies the new state into its state buffers at its next
+        launch."""
         self.state = state
         self._modes = (state.mode.cpu().numpy() if modes is None
                        else np.array(modes, dtype=np.int32))
@@ -877,40 +1133,47 @@ class BatchedTracker:
         """One device-scheduled tick (the module docstring's branch rule,
         from the exact mode vector).  frames: (N, H, W, 3) u8.  Returns the
         StepOutput batch.  Per stream it equals ``step(sync=True)`` at
-        sync_interval=1 under overload="full".  After a replayed tick
-        ``self.state`` holds the graph's input buffers, which the next
-        replayed tick overwrites (the reference donates its state too)."""
+        sync_interval=1 under overload="full".  On the card: one launch of
+        the serving program and one host read; ``self.state`` then holds
+        the program's state buffers, which the next tick overwrites (the
+        reference donates its state too)."""
         return self._auto_end(self._auto_begin(self._frames(frames)))
 
     def run_scan(self, frames_seq):
         """K device-scheduled ticks: frames_seq (K, N, H, W, 3) u8 (a host
         sequence is staged on the device in one copy; a device tensor is
         used in place).  Returns a StepOutput batch with (K, N) leaves, tick
-        for tick those of K ``step_auto`` calls."""
+        for tick those of K ``step_auto`` calls.  On the card the K ticks
+        are one launch of the serving program and one host read (the last
+        tick's mode_after), as the reference's ``scan_steps`` is one
+        dispatch; the CPU runs the per-tick path."""
         seq = torch.as_tensor(frames_seq)
         if seq.dim() == 0 or seq.shape[0] == 0:
             raise ValueError("run_scan needs at least one tick "
                              "(frames_seq has leading length 0)")
         seq = self._frames(seq, lead=(seq.shape[0],))
+        if self._steps.scheduled:
+            return self._auto_end(self._scan_begin(seq))
         outs = [self._auto_end(self._auto_begin(seq[k]))
                 for k in range(seq.shape[0])]
         return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))
 
     def warmup(self, scan_len=None, host_sched=True, device_sched=True):
         """Pay the first ticks' one-time costs up front: device_sched builds
-        the kernels and, on the card, captures the all-CS tick's and the
-        bucket ticks' CUDA graphs;
+        the kernels and, on the card, the serving program (every tick body
+        captured, the program's CUDA graph built and instantiated);
         host_sched runs the eager steps once ("track", "full" on the batch,
         and the detector at the bucket's size).  The steps are functional,
-        so ``self.state`` and the mode view are untouched.  scan_len is
-        accepted for the reference's signature: ``run_scan`` replays the
-        per-tick graph, so no K needs a program of its own."""
+        so ``self.state`` and the mode view are untouched.  scan_len: the
+        reference compiles a program a K; here one graph serves every K
+        (its WHILE node reads K at each launch), which device_sched builds,
+        so scan_len is only checked."""
         if scan_len is not None and int(scan_len) < 1:
             raise ValueError(f"scan_len must be >= 1, got {scan_len}")
         frames = torch.zeros((self.n,) + self.frame_shape + (3,),
                              dtype=torch.uint8, device=self.device)
-        if device_sched and self.device.type == "cuda":
-            self._steps.capture_all(self.state)
+        if device_sched and self._steps.scheduled:
+            self._steps.program(self.state)
         if host_sched:
             self._steps.track(self.state, frames)
             self._steps.full(self.state, frames)
@@ -928,6 +1191,12 @@ class BatchedTracker:
         view (``_Steps.begin``)."""
         self._tick += 1
         return self._steps.begin(self.state, frames, self._drain())
+
+    def _scan_begin(self, seq):
+        """Start len(seq) device-scheduled ticks in one launch
+        (``_Steps.begin_scan``)."""
+        self._tick += seq.shape[0]
+        return self._steps.begin_scan(self.state, seq)
 
     def _auto_end(self, tick):
         self.state, out, self._pending_modes = self._steps.end(tick)
@@ -1113,6 +1382,12 @@ class _MeshTracker(BatchedTracker):
             raise ValueError("run_scan needs at least one tick "
                              "(frames_seq has leading length 0)")
         parts = self._split(seq, lead=(seq.shape[0],))
+        if self._shards[0]._steps.scheduled:
+            self._tick += seq.shape[0]
+            return _joined_ticks(_tick_all(
+                [lambda s=s, p=p: s._scan_begin(p)
+                 for s, p in zip(self._shards, parts)],
+                [s._auto_end for s in self._shards]), self.device)
         outs = [self._auto_all([p[k] for p in parts])
                 for k in range(seq.shape[0])]
         return ft.StepOutput(*(torch.stack(v) for v in zip(*outs)))

@@ -183,10 +183,10 @@ def _serving_clip(H, W, n):
 
 @pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
 def test_graph_replayed_ticks_equal_host_step(dev, kw):
-    """step_auto and run_scan (all-CS ticks replayed from a CUDA graph)
-    against the eager step(sync=True) at sync_interval 1, 8 streams, on the
-    card: the lock, steady ticks, a loss and its relock, and with the band
-    the escape recompute after replayed ticks."""
+    """step_auto and run_scan (each call one launch of the serving
+    program) against the eager step(sync=True) at sync_interval 1, 8
+    streams, on the card: the lock, steady ticks, a loss and its relock,
+    and with the band the escape fallback on the card."""
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
     mk = lambda **k: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
@@ -195,10 +195,10 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
     want = [[t.cpu().numpy() for t in host.step(f, sync=True)] for f in clip]
     before = dict(launches)
     got_auto = [[t.cpu().numpy() for t in auto.step_auto(f)] for f in clip]
-    assert auto._graph is not None  # replayed on the all-CS ticks
+    assert auto._graph is not None  # the program's all-CS body
     esc = np.stack([o[tft.StepOutput._fields.index("escaped")]
                     for o in got_auto])
-    assert esc[-5:, [3, 7]].all() == bool(kw)  # escapes on replayed ticks
+    assert esc[-5:, [3, 7]].all() == bool(kw)  # escapes in the program
     assert launches["meanshift"] > before["meanshift"]
     assert launches["take_along"] == before["take_along"]
     out = scan.run_scan(clip[:13])
@@ -220,11 +220,10 @@ def test_graph_replayed_ticks_equal_host_step(dev, kw):
 def test_batched_steps_equal_tracker_on_the_card(dev, donate):
     """make_batched_steps' step_auto and step_scan against
     BatchedTracker.step_auto on the card, band and bandHist, 8 streams:
-    every output of every tick bit-equal, through the lock, replayed
-    all-CS ticks with escapes, a loss and its relock.  donate=True hands
-    back the graph's input buffers on replayed ticks (the same tree each
-    steady tick); donate=False leaves the caller's state untouched and
-    hands back a tree of its own."""
+    every output of every tick bit-equal, through the lock, all-CS ticks
+    with escapes, a loss and its relock.  donate=True hands back the
+    program's state buffers (the same tree each tick); donate=False leaves
+    the caller's state untouched and hands back a tree of its own."""
     from headtrackr_tpu_torch.runtime.serving import make_batched_steps
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -246,7 +245,7 @@ def test_batched_steps_equal_tracker_on_the_card(dev, donate):
         state = new
         for name, x, y in zip(tft.StepOutput._fields, want, got):
             assert torch.equal(x, y), f"tick {t} {name}"
-    assert any(same_tree[-5:]) == donate  # replayed into the graph's buffers
+    assert any(same_tree[-5:]) == donate  # the program's state buffers
     for x, y in zip(_leaves(bt.state), _leaves(state)):
         assert torch.equal(x, y)
     want, (state, got) = bt.run_scan(clip[:6]), step_scan(state, clip[:6])
@@ -261,12 +260,13 @@ def test_batched_steps_equal_tracker_on_the_card(dev, donate):
     (dict(histKernel="pallas"), "hist4096", "backproject"),
     (dict(band=(64, 96), bandHist=True), "histpdf_band", None)])
 def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
-    """One replayed all-CS tick adds the launches its graph holds: one
-    meanshift (no take_along), one histogram (hist_mma, the default
-    histKernel's; hist4096, the "pallas" one's; or the band's cluster
-    histpdf_band, which also makes the pdf) and one pdf.  Three streams:
-    the clip's fourth carries a face taller than the band, whose escape
-    recompute would run eagerly after the replay."""
+    """One all-CS tick of the serving program adds the launches its
+    all-CS body holds (one meanshift, no take_along, one histogram:
+    hist_mma, the default histKernel's; hist4096, the "pallas" one's; or
+    the band's cluster histpdf_band, which also makes the pdf; and one pdf)
+    and one launch of each schedule kernel the tick ran (escape_select only
+    with a band).  Three streams: the clip's fourth carries a face taller
+    than the band."""
     H, W, n = 120, 160, 3
     clip = _serving_clip(H, W, n)
     bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev, **kw)
@@ -277,7 +277,10 @@ def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     bt.step_auto(clip[18])
     torch.cuda.synchronize()
     got = {k: launches[k] - before[k] for k in launches}
-    assert got == dict(bt._graph.launches)
+    sched = {"tick_select": 1, "scan_step": 1, "scan_commit": 1,
+             "escape_select": int("band" in kw)}
+    assert got == {k: v + sched.get(k, 0)
+                   for k, v in bt._graph.launches.items()}
     assert got["meanshift"] == 1 and got["take_along"] == 0
     assert got[hist] == 1
     if pdf is not None:
@@ -429,7 +432,7 @@ def test_session_tracker_card_equals_cpu(dev):
 
 
 def test_replayed_outputs_survive_the_next_replay(dev):
-    """A replayed tick's StepOutput is a copy of the graph's buffers, so
+    """A tick's StepOutput lives in output packs of its own launch, so
     holding tick t-1's outputs across tick t (BatchedSession's pipelined
     emission) is safe."""
     H, W, n = 120, 160, 4
@@ -1037,8 +1040,8 @@ def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
 def test_mesh_of_two_shards_equals_meshless(dev, kw):
     """stream_mesh([cuda:0] * 2) over 8 streams: each tick's outputs and
     the final state equal the meshless tracker's bit for bit through the
-    lock, replayed all-CS ticks, a loss and (banded) the escape recompute
-    after replayed ticks; each shard replays a graph of its own."""
+    lock, all-CS ticks, a loss and (banded) the escape fallback; each
+    shard launches a serving program of its own."""
     from headtrackr_tpu_torch.parallel import stream_mesh
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -1260,11 +1263,11 @@ def test_detect_best_in_a_graph_equals_eager(dev):
 
 @pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
 def test_bucket_graph_equals_eager_ticks(dev, kw):
-    """step_auto with the bucket and chunk ticks replayed from CUDA graphs
-    against the same tracker run eagerly (``_Steps.replay`` off), 8
-    streams, bucket 2: every output of every tick bit-equal, through the
-    lock, losses of one and of three streams and their relocks; one graph
-    a slot count."""
+    """step_auto through the serving program (the bucket and chunk ticks
+    its bucket bodies) against the per-tick path run eagerly
+    (``_Steps.scheduled`` off), 8 streams, bucket 2: every output of every
+    tick bit-equal, through the lock, losses of one and of three streams
+    and their relocks; one body a slot count."""
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
     clip = np.concatenate([clip, clip[-4:]])
@@ -1272,7 +1275,7 @@ def test_bucket_graph_equals_eager_ticks(dev, kw):
     mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
                                 device=dev, bucket=2, **kw)
     graph, eager = mk(), mk()
-    eager._steps.replay = False
+    eager._steps.scheduled = False
     before = dict(launches)
     for t, f in enumerate(clip):
         a = [v.cpu().numpy() for v in eager.step_auto(f)]
@@ -1287,8 +1290,9 @@ def test_bucket_graph_equals_eager_ticks(dev, kw):
 
 
 def test_step_bucket_replays_on_the_card(dev):
-    """make_batched_steps' step_bucket on the card (one replay of the bucket
-    graph) against the same step on the CPU: integers exact, floats rtol
+    """make_batched_steps' step_bucket on the card (one launch of the
+    serving program forced to its bucket body) against the same step on
+    the CPU: integers exact, floats rtol
     1e-5 / atol 1e-4, ``pend_age`` kept, the caller's state untouched
     (donate=False)."""
     from headtrackr_tpu_torch.runtime.serving import make_batched_steps
@@ -1439,8 +1443,9 @@ def test_cascade_graph_replays_twice_alike(dev):
 
 def test_relock_graph_real_cascade_equals_host_step(dev):
     """The real cascade at 320x240, 8 streams of the bench pool with 2 loss
-    streams: step_auto (its bucket ticks, the redetects, replayed from CUDA
-    graphs through pyramid, cascade's three kernels and group) against the
+    streams: step_auto (its bucket ticks, the redetects, the serving
+    program's bucket bodies through pyramid, cascade's three kernels and
+    group) against the
     eager step(sync=True) at sync_interval 1, tick for tick through the
     lock, the loss and the relock."""
     from bench import build_pool
@@ -1461,6 +1466,157 @@ def test_relock_graph_real_cascade_equals_host_step(dev):
             else:
                 np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
                                            err_msg=f"tick {t} {name}")
-    assert {s for (_, s) in auto._steps._graphs} >= {2}  # a relock replayed
+    assert {s for (_, s) in auto._steps._graphs} >= {2}  # a bucket body
     assert launches["cascade"] > before["cascade"]
     assert auto.modes.tolist() == [2] * n
+
+
+def _sched_vectors(n, g):
+    """Random modes (WB, VJ, CS) and pend_age with many ties."""
+    mode = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    age = torch.randint(0, 4, (n,), generator=g, dtype=torch.int32)
+    return mode, age
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 256, 4096])
+def test_schedule_select_kernels_equal_twins(dev, n):
+    """tick_select and escape_select against their twins on random
+    vectors with ties (ages 0-3), every bucket, both overloads, the
+    forced bucket of step_bucket, all-CS and all-WB batches, and escape
+    counts of 0, 1, eb and more."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    g = torch.Generator().manual_seed(n)
+    for trial in range(12):
+        mode, age = _sched_vectors(n, g)
+        if trial == 1:
+            mode[:] = tft.MODE_CS
+        if trial == 2:
+            mode[:] = tft.MODE_WB
+        if trial == 3:
+            mode[:] = tft.MODE_VJ
+        for kb in sorted({1, 4, 32, n} & set(range(1, n + 1))):
+            cap = max(kb, (min(n, 4 * kb) // kb) * kb)
+            for rotate in (False, True):
+                for force in (0, 1 + kb) if trial == 4 else (0,):
+                    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+                    params[S.P_FORCE] = force
+                    idx = torch.randint(0, n + 1, (cap,), generator=g)
+                    want = S.tick_select_plain(mode, age, kb, cap, rotate,
+                                               force, idx)
+                    gp, gi, ga = params.to(dev), idx.to(dev), \
+                        torch.empty(n, dtype=torch.int32, device=dev)
+                    before = launches["tick_select"]
+                    S.tick_select(mode.to(dev), age.to(dev), kb, cap, rotate,
+                                  gi, ga, gp)
+                    torch.cuda.synchronize()
+                    assert launches["tick_select"] == before + 1
+                    where = f"n {n} trial {trial} kb {kb} rotate {rotate}"
+                    assert int(gp[S.P_BRANCH]) == want[0], where
+                    assert int(gp[S.P_RUNS + want[0]]) == 1, where
+                    assert torch.equal(gi.cpu(), want[1]), where
+                    assert torch.equal(ga.cpu(), want[2]), where
+        for eb in (1, 2, 8):
+            esc = torch.rand(n, generator=g) < [0.0, 0.02, 0.3][trial % 3]
+            if trial == 5:
+                esc[:] = False
+                esc[torch.randperm(n, generator=g)[:eb]] = True
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+            sel, eidx = S.escape_select_plain(esc, eb)
+            gp = params.to(dev)
+            ge = torch.empty(eb, dtype=torch.int64, device=dev)
+            S.escape_select(esc.to(dev), eb, ge, gp)
+            torch.cuda.synchronize()
+            assert int(gp[S.P_ESEL]) == sel
+            assert int(gp[S.P_RUNS + S.ESCAPE_RUNS + sel]) == 1
+            assert torch.equal(ge.cpu(), eidx)
+
+
+def test_schedule_copy_kernels_equal_twins(dev):
+    """scan_step copies tick k's frames (aligned and odd sizes);
+    scan_commit copies its segments whole and into row k of their packs,
+    as their twins do."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    g = torch.Generator().manual_seed(7)
+    for shape in [(3, 4, 24, 32, 3), (2, 3, 5, 7, 3)]:
+        seq = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+        for k in range(shape[0]):
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+            frames = torch.zeros(shape[1:], dtype=torch.uint8, device=dev)
+            gseq = seq.to(dev)
+            params[S.P_K] = k
+            params[S.P_TICKS] = shape[0]
+            params[S.P_FRAMES] = gseq.data_ptr()
+            gp = params.to(dev)
+            S.scan_step(gp, frames)
+            want = torch.zeros(shape[1:], dtype=torch.uint8)
+            S.scan_step_plain(seq, k, want)
+            torch.cuda.synchronize()
+            assert torch.equal(frames.cpu(), want)
+            assert int(gp[S.P_K]) == k and int(gp[S.P_STEPS]) == 1
+    n, K = 5, 3
+    srcs = [torch.randn(n, 7, generator=g), torch.randint(
+        0, 9, (n,), generator=g, dtype=torch.int32), torch.rand(
+        n, generator=g) < 0.5]
+    rows = [torch.randn(n, generator=g) for _ in range(2)] + [
+        torch.randint(0, 9, (n,), generator=g, dtype=torch.int32)]
+    dsts = [torch.zeros_like(t) for t in srcs]
+    packs = [torch.zeros(2, K, n), torch.zeros(1, K, n, dtype=torch.int32)]
+    gsrcs, gdsts = [t.to(dev) for t in srcs], [t.to(dev) for t in dsts]
+    grows, gpacks = [t.to(dev) for t in rows], [t.to(dev) for t in packs]
+    spec = [(0, 0), (0, 1), (1, 0)]
+    table = S.segments(list(zip(gsrcs, gdsts)),
+                       [(r, slot, row) for r, (slot, row) in zip(grows, spec)],
+                       dev)
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    params[S.P_K] = 2  # scan_commit writes row k - 1
+    params[S.P_TICKS] = K
+    for j, pk in enumerate(gpacks):
+        params[S.P_OUT + j] = pk.data_ptr()
+    gp = params.to(dev)
+    S.scan_commit(gp, table)
+    S.scan_commit_plain(1, list(zip(srcs, dsts)),
+                        [(r, packs[slot], row)
+                         for r, (slot, row) in zip(rows, spec)])
+    torch.cuda.synchronize()
+    for a, b in zip(gdsts + gpacks, dsts + packs):
+        assert torch.equal(a.cpu(), b)
+    assert int(gp[S.P_COMMITS]) == 1
+
+
+@pytest.mark.parametrize("overload", ["full", "rotate"])
+def test_program_equals_per_tick_path(dev, overload):
+    """The serving program (one launch a step_auto or run_scan call)
+    against the per-tick path run eagerly on the card, 8 streams, bucket
+    1, escape_bucket 1, band and bandHist: every output of every tick and
+    the final state bit-equal through wbtrack, full or the rotation,
+    bucket and chunk ticks, and escapes of one stream (few) and of two
+    (many); the per-tick path's host code is not reached."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    H, W, n = 120, 160, 8
+    clip = _serving_clip(H, W, n)
+    clip[22:, 7] = clip[22:, 6]  # from tick 22 one stream escapes, not two
+    kw = dict(bucket=1, band=(64, 96), bandHist=True, escape_bucket=1,
+              overload=overload)
+    mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                device=dev, **kw)
+    eager, program = mk(), mk()
+    eager._steps.scheduled = False
+    program.warmup(scan_len=10)
+    want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
+    L.reset_launches()
+    got = [[v.cpu().numpy() for v in program.step_auto(f)] for f in clip[:4]]
+    runs = np.zeros(16, int)
+    for part in (clip[4:14], clip[14:]):
+        out = program.run_scan(part)
+        runs += program._steps._programs[n].runs
+        got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
+    assert L.host_paths == dict.fromkeys(L.host_paths, 0)
+    # the schedule kernels' counts, read back from the card: one a tick
+    for k in ("tick_select", "escape_select", "scan_step", "scan_commit"):
+        assert L.launches[k] == len(clip), k
+    for t, (a_t, b_t) in enumerate(zip(want, got)):
+        for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
+            np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
+    for x, y in zip(_leaves(eager.state), _leaves(program.state)):
+        assert torch.equal(x, y)
+    assert runs[9] > 0 and runs[10] > 0  # few and many escape bodies ran

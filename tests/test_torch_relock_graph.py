@@ -1,8 +1,9 @@
 """The relock tick's device form (runtime/serving.py ``_Steps.bucket_device``,
-the bucket and chunk ticks a CUDA graph replays on the card) run on the CPU
-without capture:
+the serving program's bucket body for the bucket and chunk ticks on the
+card) run on the CPU without capture:
 
-- ``BatchedTracker.step_auto`` with the replayed form (``_Steps.replay``)
+- ``BatchedTracker.step_auto`` through the program's CPU twin
+  (``_Steps.scheduled``)
   equals the eager ticks bit for bit over a clip with a cold start, a lock,
   losses and relocks (bucket ticks of one pending stream, chunk ticks of
   several), with and without a band (escapes every band tick), and on a
@@ -17,7 +18,7 @@ without capture:
   kernel does not.
 
 Per stream against the reference package's ``step_auto``:
-tests/test_torch_serving_band.py runs the replayed form over its clip
+tests/test_torch_serving_band.py runs the program over its clip
 beside the reference tracker it already compiles."""
 
 import inspect
@@ -57,13 +58,13 @@ def _clip():
                      for t in range(TICKS)])
 
 
-def _tracker(replay, **kw):
+def _tracker(scheduled, **kw):
     if "mesh" not in kw:
         kw["device"] = "cpu"
     bt = pt.BatchedTracker(N, (H, W), cascade=pt.toy_cascade(), bucket=2,
                            **kw)
     for s in (bt._shards if bt.mesh is not None else [bt]):
-        s._steps.replay = replay
+        s._steps.scheduled = scheduled
     return bt
 
 
@@ -143,8 +144,9 @@ def test_bucket_device_equals_eager_bucket_tick():
 
 
 def test_step_bucket_replayed_equals_eager_and_keeps_pend_age():
-    """``_Steps.bucket_step`` (the functional step_bucket: the bucket graph's
-    form, then the read and the merge) equals ``bucket_tick`` and keeps the
+    """``_Steps.bucket_step`` (the functional step_bucket: the program
+    forced to its bucket body, then the read) equals ``bucket_tick`` and
+    keeps the
     caller's ``pend_age``; with donate=False the caller's state is
     untouched."""
     bt, state, frames = _locked_state()
@@ -152,7 +154,7 @@ def test_step_bucket_replayed_equals_eager_and_keeps_pend_age():
     steps = bt._steps
     want_state, want_out = steps.bucket_tick(state, frames, np.array([1, 3]))
     before = [t.clone() for t in steps_leaves(state)]
-    steps.replay = True
+    steps.scheduled = True
     new, out = steps.bucket_step(state, frames, np.array([1, 3]),
                                   donate=False)
     for a, b in zip(before, steps_leaves(state)):

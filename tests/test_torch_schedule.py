@@ -1,0 +1,274 @@
+"""The serving program's scheduling (kernels/schedule.py, runtime/serving.py
+``_Program``) against the reference package on the CPU.
+
+  * the select kernels' twins, ``tick_select_plain`` and
+    ``escape_select_plain``, against a transcription of the reference's
+    rule (headtrackr_tpu/runtime/serving.py:357-424 ``auto_step`` and
+    :240-284 ``_escape_checked``, in NumPy with the reference's own
+    ``jax.lax.top_k``): the branch, the served slots and their order, the
+    new pend_age and the escape slots, on random mode, pend_age and escape
+    vectors with ties (hypothesis);
+  * ``run_scan`` against the reference package's ``run_scan``
+    (histKernel="pallas", interpret mode), 6 streams of 120x160, the toy
+    cascade, band and bandHist, bucket 1 (chunk_cap 4), overload
+    "rotate", escape_bucket 1, through the port's per-tick path and its
+    program (the conditional nodes' twins in Python ifs): a rotate clip
+    (the cold start's burst of more than chunk_cap pending streams) and an
+    escape clip (one stream escaping: the ``few`` body; two in one tick:
+    ``many``).  Integer and bool fields exact, floats to rtol 1e-5 / atol
+    1e-4 (f32 sums in another order), as tests/test_torch_scan.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+import headtrackr_tpu as ht
+import headtrackr_tpu_torch as pt
+from headtrackr_tpu_torch import convert, toy_cascade
+from headtrackr_tpu_torch.kernels import schedule as S
+from headtrackr_tpu_torch.models import facetracker as tft
+
+torch.set_num_threads(2)
+
+WB, VJ, CS = 0, 1, 2
+
+
+def _top_k(key, k):
+    """The reference's top_k, padded with N where the key is 0."""
+    vals, idx = jax.lax.top_k(jnp.asarray(key, jnp.int32), k)
+    return np.where(np.asarray(vals) > 0, np.asarray(idx), len(key))
+
+
+def _ref_rule(mode, age, bucket, overload):
+    """auto_step's choice (headtrackr_tpu/runtime/serving.py:357-424):
+    (branch name, served slots or None, new pend_age, chunks run)."""
+    N = len(mode)
+    kb = max(1, min(bucket, N))
+    entry_non_cs = mode != CS
+    npend = int(entry_non_cs.sum())
+    npend_vj = int((mode == VJ).sum())
+    chunk_cap = max(kb, (min(N, 4 * kb) // kb) * kb)
+    key = np.where(entry_non_cs, 1 + age, 0)
+
+    def aged(idx):
+        served = np.zeros(N, bool)
+        served[idx[idx < N]] = True
+        return np.where(entry_non_cs & ~served, age + 1, 0)
+
+    if overload == "rotate":
+        names = ["track", "bucket", "chunks", "wbtrack"]
+        sel = 0 if npend == 0 else 3 if npend_vj == 0 else \
+            1 if npend <= kb else 2
+    else:
+        names = ["track", "bucket", "chunks", "full", "wbtrack"]
+        sel = 0 if npend == 0 else 4 if npend_vj == 0 else \
+            1 if npend <= kb else 2 if npend <= chunk_cap else 3
+    name = names[sel]
+    if name == "bucket":
+        idx = _top_k(key, kb)
+        return name, idx, aged(idx), 1
+    if name == "chunks":
+        idx = _top_k(key, chunk_cap)
+        nchunks = min((npend + kb - 1) // kb, chunk_cap // kb)
+        return name, idx, aged(idx), nchunks
+    return name, None, np.zeros(N, age.dtype), 0
+
+
+def _ref_escape(esc, escape_bucket):
+    """_escape_checked's choice (:240-284): (0 none | 1 few | 2 many, the
+    few body's slots or None)."""
+    N = len(esc)
+    eb = max(1, int(escape_bucket))
+    nesc = int(esc.sum())
+    if nesc == 0:
+        return 0, None
+    if eb >= N or nesc > eb:
+        return 2, None
+    return 1, _top_k(esc.astype(np.int32), eb)
+
+
+@pytest.mark.parametrize("overload", ["full", "rotate"])
+@pytest.mark.parametrize("bucket", [1, 4, 32])
+@pytest.mark.parametrize("n", [1, 3, 8, 33])
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(data=st.data())
+def test_select_twins_follow_the_reference_rule(n, bucket, overload, data):
+    mode = np.array(data.draw(st.lists(st.sampled_from([WB, VJ, CS]),
+                                       min_size=n, max_size=n)), np.int32)
+    age = np.array(data.draw(st.lists(st.integers(0, 3), min_size=n,
+                                      max_size=n)), np.int32)
+    esc = np.array(data.draw(st.lists(st.booleans(), min_size=n,
+                                      max_size=n)), bool)
+    eb = data.draw(st.sampled_from([1, 2, 8]))
+    kb = max(1, min(bucket, n))
+    cap = max(kb, (min(n, 4 * kb) // kb) * kb)
+    m = cap // kb
+    branch, idx, age_out = S.tick_select_plain(
+        torch.from_numpy(mode), torch.from_numpy(age), kb, cap,
+        overload == "rotate")
+    name, want_idx, want_age, chunks = _ref_rule(mode, age, bucket, overload)
+    port = {0: "track", m + 1: "wbtrack", m + 2: "full"}.get(branch)
+    if port is None:  # the bucket over `branch` chunks of kb slots
+        assert name in ("bucket", "chunks") and branch == chunks
+        got = idx.numpy()
+        np.testing.assert_array_equal(got[:len(want_idx)], want_idx)
+        assert (got[len(want_idx):] == n).all()
+    else:
+        assert port == name
+        assert (idx.numpy() == n).all()
+    np.testing.assert_array_equal(age_out.numpy(), want_age)
+
+    sel, eidx = S.escape_select_plain(torch.from_numpy(esc), eb)
+    want_sel, want_eidx = _ref_escape(esc, eb)
+    assert sel == want_sel
+    if sel == 1:
+        np.testing.assert_array_equal(eidx.numpy(), want_eidx)
+    else:
+        assert (eidx.numpy() == n).all()
+
+
+def test_forced_bucket_keeps_the_hosts_slots_and_pend_age():
+    """step_bucket's forced tick: the bucket over the host's slots (force =
+    1 + slots; 0 slots: "track"), idx as given, pend_age kept."""
+    mode = torch.tensor([CS, VJ, WB, CS], dtype=torch.int32)
+    age = torch.tensor([0, 5, 2, 7], dtype=torch.int32)
+    idx = torch.tensor([2, 4], dtype=torch.int64)
+    for slots, want in ((0, 0), (1, 1), (2, 2)):
+        b, i, a = S.tick_select_plain(mode, age, 1, 2, False, 1 + slots, idx)
+        assert b == want and i is idx and torch.equal(a, age)
+
+
+@pytest.mark.parametrize("esc,sel", [([0, 0, 0], 0), ([0, 1, 0], 1),
+                                     ([1, 1, 0], 2)])
+def test_select_wrappers_count_their_runs(esc, sel):
+    """On the CPU the select wrappers run their twins into the parameter
+    block as the kernels write it: tick_select its branch, one run in that
+    branch's word and k advanced; escape_select its selection and one run
+    in its word, "none" too (the launch counters read these words)."""
+    mode = torch.tensor([CS, VJ, CS], dtype=torch.int32)
+    age = torch.zeros(3, dtype=torch.int32)
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    idx = torch.empty(2, dtype=torch.int64)
+    age_out = torch.empty(3, dtype=torch.int32)
+    S.tick_select(mode, age, 1, 2, False, idx, age_out, params)
+    assert int(params[S.P_BRANCH]) == 1 and int(params[S.P_K]) == 1
+    assert params[S.P_RUNS:S.P_RUNS + S.ESCAPE_RUNS].tolist() == \
+        [0, 1] + [0] * (S.ESCAPE_RUNS - 2)
+    eidx = torch.empty(1, dtype=torch.int64)
+    S.escape_select(torch.tensor(esc, dtype=torch.bool), 1, eidx, params)
+    want = [0, 0, 0]
+    want[sel] = 1
+    assert int(params[S.P_ESEL]) == sel
+    assert params[S.P_RUNS + S.ESCAPE_RUNS:
+                  S.P_RUNS + S.ESCAPE_RUNS + 3].tolist() == want
+
+
+def test_program_refuses_more_streams_than_a_select_kernel_takes():
+    """On the card the program serves at most MAX_N streams a device: a
+    larger batch raises a ValueError that names the limit when its program
+    is built, before anything reaches the card."""
+    n = S.MAX_N + 1
+    tb = pt.BatchedTracker(n, (24, 32), cascade=toy_cascade(), device="cpu")
+    tb._steps.device = torch.device("cuda")
+    with pytest.raises(ValueError, match=f"at most {S.MAX_N} streams"):
+        tb._steps.program(tb.state)
+    assert not tb._steps._programs
+
+
+H, W = 120, 160
+N = 6
+K = 13
+WOBBLE = [0, 2, 2, 4, 6, 6]    # the tick each stream's background settles
+FACES = [(50, 45), (110, 50), (60, 70), (80, 60), (100, 80), (40, 60)]
+BLUE = {(0, 23), (2, 40)}      # (stream, tick) of the loss frames
+TALL = {3: 0, 4: 39}           # stream -> the tick its face outgrows the band
+KW = dict(bucket=1, band=(64, 96), bandHist=True, overload="rotate",
+          escape_bucket=1)
+
+
+def _frame(s, t):
+    f = np.full((H, W, 3), 40 + (8 if t < WOBBLE[s] and t % 2 else 0),
+                np.uint8)
+    if (s, t) in BLUE:
+        f[...] = (0, 0, 250)
+        return f
+    cx, cy = FACES[s]
+    cx += t % 5
+    half = 26 if t >= TALL.get(s, 1 << 30) else 12
+    f[cy - half:cy + half, cx - half:cx + half] = (230, 80, 60)
+    return f
+
+
+def _clip(ticks):
+    return np.stack([np.stack([_frame(s, t) for s in range(N)])
+                     for t in ticks])
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's run_scan over both clips (4 calls of K ticks), its
+    outputs a tick and its state after each clip."""
+    jb = ht.BatchedTracker(N, (H, W), cascade=ht.toy_cascade(),
+                           histKernel="pallas", **KW)
+    outs, states = [], []
+    for k0 in range(0, 4 * K, K):
+        ref = jb.run_scan(_clip(range(k0, k0 + K)))
+        outs += [[np.asarray(v)[k] for v in ref] for k in range(K)]
+        if k0 % (2 * K):
+            states.append([np.asarray(x) for x in
+                           jax.tree_util.tree_leaves(jb.state)])
+    return outs, states
+
+
+def _assert_same(ref, got, where):
+    for name, a, b in zip(tft.StepOutput._fields, ref, got):
+        b = b.numpy()
+        a = np.broadcast_to(a, b.shape)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=f"{where} {name}")
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                       err_msg=f"{where} {name}")
+
+
+@pytest.mark.parametrize("path", ["per_tick", "program"])
+@pytest.mark.parametrize("clip", ["rotate", "escape"])
+def test_run_scan_matches_reference(reference, clip, path):
+    ref_outs, ref_states = reference
+    tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
+                           **KW)
+    tb._steps.scheduled = path == "program"
+    ticks = range(0, 2 * K) if clip == "rotate" else range(2 * K, 4 * K)
+    if clip == "escape":  # the rotate clip first, unchecked
+        for k0 in range(0, 2 * K, K):
+            tb.run_scan(_clip(range(k0, k0 + K)))
+    runs, entry, escaped = np.zeros(16, int), [], []
+    for k0 in range(ticks.start, ticks.stop, K):
+        got = tb.run_scan(torch.as_tensor(_clip(range(k0, k0 + K))))
+        assert got.mode_after.shape == (K, N)
+        for k in range(K):
+            _assert_same(ref_outs[k0 + k], [v[k] for v in got],
+                         f"{clip} {path} tick {k0 + k}")
+        entry += got.detection.tolist()
+        escaped += got.escaped.sum(1).tolist()
+        if path == "program":
+            runs += tb._steps._programs[N].runs
+    want = ref_states[0 if clip == "rotate" else 1]
+    for a, b in zip(want, convert.state_to_numpy(tb.state)):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4)
+    if clip == "rotate":  # a burst beyond chunk_cap, served oldest first
+        assert max(int((np.array(m) != CS).sum()) for m in entry) > 4
+        assert "bucket" in {tb.branch(np.array(m)) for m in entry}
+    else:  # one stream escaping alone, and two in one tick
+        assert 1 in escaped and 2 in escaped
+    if path == "program":  # each select counts one run a tick
+        assert runs[:S.ESCAPE_RUNS].sum() == len(ticks)
+        assert runs[S.ESCAPE_RUNS:].sum() == len(ticks)
+        assert runs[1:5].sum() > 0
+        assert runs[S.ESCAPE_RUNS + 1] > 0
+        assert (runs[S.ESCAPE_RUNS + 2] > 0) == (clip == "escape")

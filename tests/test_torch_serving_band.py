@@ -107,14 +107,15 @@ def test_step_outputs_match_reference_every_tick(run):
 
 
 def test_replayed_relock_ticks_match_reference_every_tick(run):
-    """The same clip through the tick's device form (the bucket and chunk
-    ticks, and the all-CS ticks, run as the card replays them: uncaptured
-    here on the graphs' buffers) against the reference's step_auto."""
+    """The same clip through the tick's device form (the serving program,
+    as the card runs it: its bodies uncaptured here on the program's
+    buffers, chosen by the select kernels' twins) against the reference's
+    step_auto."""
     tb = pt.BatchedTracker(N, (H, W), cascade=pt.toy_cascade(), device="cpu",
                            band=BAND, bandHist=True, bucket=1,
                            bandHistAuditAction=run["tb"].config
                            .bandHistAuditAction)
-    tb._steps.replay = True
+    tb._steps.scheduled = True
     for t, frames in enumerate(_clip()):
         got = [v.numpy() for v in tb.step_auto(frames)]
         _assert_outputs_equal(run["rows"][t][0], got, f"tick {t}")

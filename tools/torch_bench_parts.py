@@ -21,12 +21,12 @@ Parts (``--parts``, comma list; default all):
   pdfonly    the full-frame pdf given the weights (graph);
   meanshift  ``meanshift`` over the full-frame pdf at the tracker's windows
              (graph);
-  dispatch   one replayed all-tracking ``step_auto`` on an idle card (host
+  dispatch   one all-tracking ``step_auto`` on an idle card (host
              clock: the whole call, and its enqueue alone);
   bucket     a tick with 8 streams redetecting (after a blue frame): one
-             replay of the bucket tick's CUDA graph (events and host clock);
-  bucket_eager  the same tick run eagerly (``_Steps.replay`` off for it;
-             events and host clock).
+             launch of the serving program (events and host clock);
+  bucket_eager  the same tick run eagerly on the per-tick path
+             (``_Steps.scheduled`` off for it; events and host clock).
 
 Prints one ``<part>_ms_per_tick`` line a part (ms for N streams), then the
 parts as one JSON line.  tools/profile_chip.py's per-stage camshift times
@@ -61,7 +61,8 @@ def redetect_ms(bt, pool, dev, eager=False):
     """(events ms, host ms), medians over 5 reps, of a tick in which BUCKET
     streams redetect (a blue frame just unlocked them): track on the batch
     and the full step on the BUCKET streams.  eager=True runs that tick
-    eagerly instead of replaying its graph."""
+    eagerly on the per-tick path instead of launching the serving
+    program."""
     import torch
     from headtrackr_tpu_torch.models import facetracker as ft
     lost = pool[1].clone()
@@ -74,14 +75,14 @@ def redetect_ms(bt, pool, dev, eager=False):
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        bt._steps.replay = not eager
+        bt._steps.scheduled = not eager
         t0 = time.perf_counter()
         a.record()
         bt.step_auto(pool[2])  # they redetect: track + full on BUCKET
         b.record()
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
-        bt._steps.replay = True
+        bt._steps.scheduled = True
         ev.append(a.elapsed_time(b))
         for _ in range(2):
             bt.step_auto(pool[2])
@@ -278,7 +279,7 @@ def main(argv=None):
             begin.append(time.perf_counter() - t0)
             bt._auto_end(tick)
         report("dispatch", 1e3 * float(np.median(whole[4:])),
-               "replayed step_auto on an idle card, host clock, median")
+               "step_auto on an idle card, host clock, median")
         report("dispatch_enqueue", 1e3 * float(np.median(begin[4:])),
                "its enqueue alone (_auto_begin), host clock, median")
     for part in ("bucket", "bucket_eager"):

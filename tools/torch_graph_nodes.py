@@ -2,14 +2,16 @@
 streams of 320x240, 96x128 band, bandHist, bucket 8) captures in warmup(),
 in the checkout at ``--root`` (default: this one): the exact device
 operations of each replayed tick, where torch.profiler's count of a
-profiled tick can lose or gain an event.  tools/torch_relock_compare.sh
+profiled tick can lose or gain an event.  tools/torch_compare.sh
 runs it for the parent and this checkout:
 
     python3 tools/torch_graph_nodes.py [--root build/parent]
 
 Prints the card's name and power limit, then one JSON line: each graph's
-node kinds counted (kernel, memcpy, memset, ...) in capture order (the
-all-CS tick, then the bucket and chunk ticks, one graph a slot count).
+node kinds counted (kernel, memcpy, memset, ...) in capture order (in a
+checkout with the serving program, its bodies: the all-CS tick, the bucket
+at each slot count, wbtrack, full, the escape fallback's few and many; in
+one without it, the all-CS tick, then the bucket and chunk ticks).
 Needs a CUDA card; node_kinds comes from this checkout's chip_smoke.py.
 """
 

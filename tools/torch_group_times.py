@@ -1,6 +1,6 @@
 """Times of the ``group`` kernel on the card, by CUDA graph replay, in the
 checkout at ``--root`` (default: this one), so that two checkouts can be
-compared in turns on one card (tools/torch_relock_compare.sh runs it
+compared in turns on one card (tools/torch_compare.sh runs it
 parent, change, change, parent):
 
     python3 tools/torch_group_times.py [--root build/parent]

@@ -1,0 +1,227 @@
+"""The device-scheduled serving path's ticks on the card, in the checkout at
+``--root`` (default: this one), through the public entry points only, so
+that two checkouts compare on one card.  tools/torch_compare.sh runs it
+for a parent checkout and this one in turns.
+
+At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
+8), each tracker after ``warmup(scan_len=16)``:
+
+  scan       run_scan of K = 16 all-tracking ticks (the pool's batches
+             before its loss frame) in the headline (96x128 band, bandHist),
+             full-frame (histKernel="pallas") and band configurations;
+  cold       the headline's cold start from ``reset()``: run_scan of 16
+             ticks of one batch (15 wbtrack ticks and a full tick);
+  relock     the headline's tick in which 8 streams redetect (step_auto
+             after a frame that turned them blue);
+  rotate     the headline under overload="rotate": from ``reset()``, 15
+             wbtrack ticks, then run_scan of 8 ticks of the burst (256
+             pending streams, chunk_cap = 32 served a tick);
+  step_auto  one all-tracking headline tick (latency-sensitive serving);
+  split      that tick in parts: the all-CS tick's body graph
+             (``BatchedTracker._graph``) replayed alone (device span, CUDA
+             events), and the host time of step_auto's enqueue
+             (``_auto_begin``) and of its finish (``_auto_end``, timed once
+             the card is idle), median of 15 each.  The tick's span less
+             the body's is what scheduling it costs the card.
+
+Each: host ms a tick (host clock around the call, which ends in its host
+read, median of 5, step_auto of 15; cold and rotate: one run each) and the
+device's span a tick (CUDA events around the call: device work and the
+gaps in it), every case before any profiling; then under torch.profiler
+one more run of each: device ms and device operations a tick (the sum of
+the device operations' times), host launch calls (kernels and graphs) and
+host reads (stream and event synchronizations) a call; then step_auto
+timed again ("step_auto after profiler").  A first profiler session in a
+process lost device events on the card, so one is spent on a throwaway.
+
+    python3 tools/torch_sched_times.py [--root build/parent]
+
+Prints the card's name and power limit, one line a case, then one JSON
+line.  Needs a CUDA card.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, H, W, POOL, K = 256, 240, 320, 16, 16
+LOSS_AT = POOL // 2
+REPS = 5
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
+CONFIGS = {"headline": dict(band=(96, 128), bandHist=True),
+           "full-frame": dict(band=None, bandHist=False, histKernel="pallas"),
+           "band": dict(band=(96, 128), bandHist=False)}
+
+
+def profiled(fn, ticks):
+    """fn() once under torch.profiler: device ms and operations a tick,
+    host launch calls and host reads a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_ms_per_tick": sum(e.device_time_total for e in dev)
+            / 1e3 / ticks,
+            "device_ops_per_tick": len(dev) / ticks,
+            "host_launches": sum(e.name in LAUNCHES for e in events),
+            "host_reads": sum(e.name in SYNCS for e in events)}
+
+
+def host_ms(fn, ticks, reps, before=None):
+    """Median (host ms, device span ms) a tick of fn() (after
+    ``before()``, untimed)."""
+    import numpy as np
+    import torch
+    host, span = [], []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0) / ticks)
+        span.append(a.elapsed_time(b) / ticks)
+    return float(np.median(host)), float(np.median(span))
+
+
+def split(bt, frames, reps):
+    """The single all-CS tick in parts (see the module docstring): median
+    body span ms, enqueue host ms and finish host ms."""
+    import numpy as np
+    import torch
+    graph = bt._graph.graph
+    body, enqueue, finish = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        body.append(a.elapsed_time(b))
+        t0 = time.perf_counter()
+        tick = bt._auto_begin(frames)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt._auto_end(tick)
+        finish.append(1e3 * (time.perf_counter() - t0))
+    return {"body_span_ms": float(np.median(body)),
+            "enqueue_host_ms": float(np.median(enqueue)),
+            "finish_host_ms": float(np.median(finish))}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=HERE,
+                   help="the checkout whose headtrackr_tpu_torch to time")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_sched_times: no CUDA device", file=sys.stderr)
+        return 1
+    from bench import build_pool
+    from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.models import facetracker as ft
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    pool = torch.as_tensor(build_pool(N, H, W, POOL, 4,
+                                      np.random.default_rng(0))).to(dev)
+    steady = pool[[t % LOSS_AT for t in range(K)]].contiguous()
+    cold = pool[[0] * K].contiguous()
+    lost = pool[1].clone()
+    lost[:8] = torch.tensor([0, 0, 250], dtype=torch.uint8, device=dev)
+    wb = pool[[0] * 15].contiguous()
+    burst = pool[[0] * 8].contiguous()
+    trackers = {}
+    for name, kw in CONFIGS.items():
+        bt = BatchedTracker(N, (H, W), device=dev, bucket=8, **kw)
+        bt.warmup(scan_len=K)
+        for _ in range(16):
+            bt.step_auto(pool[0])
+        if (bt.modes != ft.MODE_CS).mean() > 0.01:
+            raise SystemExit(f"{name}: the pool did not lock")
+        bt.run_scan(steady)
+        trackers[name] = bt
+    rot = BatchedTracker(N, (H, W), device=dev, bucket=8, overload="rotate",
+                         **CONFIGS["headline"])
+    rot.warmup(scan_len=K)
+    head = trackers["headline"]
+
+    def relocked():
+        for _ in range(3):
+            head.run_scan(steady)
+
+    def unlock():
+        head.step_auto(lost)
+        if int((head.modes != ft.MODE_CS).sum()) != 8:
+            raise SystemExit("the blue frame did not unlock 8 streams")
+
+    def to_burst():
+        rot.reset()
+        rot.run_scan(wb)
+        if int((rot.modes == ft.MODE_VJ).sum()) != N:
+            raise SystemExit("the cold start did not leave every stream VJ")
+
+    # name -> (call, ticks, timing repetitions, set-up before each)
+    cases = {f"scan {name}": (lambda bt=bt: bt.run_scan(steady), K, REPS,
+                              None) for name, bt in trackers.items()}
+    cases.update({
+        "step_auto": (lambda: head.step_auto(pool[1]), 1, 3 * REPS, None),
+        "cold": (lambda: head.run_scan(cold), K, 1, head.reset),
+        "relock": (lambda: head.step_auto(pool[2]), 1, REPS, unlock),
+        "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst)})
+    res = {}
+    # the host clock first: once torch.profiler has run in a process, a
+    # launch of a graph with conditional nodes costs the host far more
+    for name, (fn, ticks, reps, before) in cases.items():
+        if name == "relock":
+            relocked()
+        host, span = host_ms(fn, ticks, reps, before)
+        res[name] = {"host_ms_per_tick": host, "span_ms_per_tick": span}
+        if name == "step_auto":
+            res["split"] = split(head, head._frames(pool[1]), 3 * REPS)
+            print(f"split: {json.dumps(res['split'])}", flush=True)
+    profiled(lambda: steady.sum(), 1)  # a first session loses events
+    for name, (fn, ticks, reps, before) in cases.items():
+        if name == "relock":
+            relocked()
+        if before is not None:
+            before()
+        res[name].update(profiled(fn, ticks))
+        print(f"{name}: {json.dumps(res[name])}", flush=True)
+    host, span = host_ms(*cases["step_auto"][:3])
+    res["step_auto after profiler"] = {"host_ms_per_tick": host,
+                                       "span_ms_per_tick": span}
+    print(f"step_auto after profiler: "
+          f"{json.dumps(res['step_auto after profiler'])}", flush=True)
+    print(json.dumps({"card": card, "root": os.path.abspath(args.root),
+                      **res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
