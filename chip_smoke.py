@@ -198,11 +198,14 @@ Phases, one line each; any failure raises and exits nonzero:
      "surface" (pdf_bins' launches, times and error are this phase's).
  15. schedule (run after phase 6): the serving program's kernels
      (csrc/schedule.cu) bit-equal to their twins (tick_select and
-     escape_select on random vectors with ties at 256 and 4,096 streams,
-     both overloads; scan_step and scan_commit on the main path's frames,
-     state and outputs) and timed (events and graph replay) beside their
-     twins, byte bounds and one PyTorch call (torch.sort, copy_,
-     _foreach_copy_); then the headline configuration at 256 streams
+     escape_select on random vectors with ties at 256, 4,096, 10,240 and
+     65,536 streams, both overloads; scan_step and scan_commit on the
+     main path's frames, state and outputs) and timed (events and graph
+     replay) beside their twins, byte bounds and one PyTorch call
+     (torch.topk, copy_, _foreach_copy_); the selects also at each of
+     those sizes on a bucket tick and an all-CS tick, beside an empty
+     kernel at their grid and torch.topk; then the headline configuration
+     at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
      calls of 16 ticks each (the cold start's wbtrack and full ticks or
      its rotation burst, bucket and chunk ticks after losses, band escapes
@@ -211,7 +214,15 @@ Phases, one line each; any failure raises and exits nonzero:
      every branch's body run (the program's own counts), the per-tick
      path's host code never reached (kernels/launch.py host_paths), and a
      profiled scan of 16 ticks one program launch, one host read and no
-     kernel launched from the host.
+     kernel launched from the host.  Then the headline at 10,240 streams
+     (the pool tiled 40 times on the card) from init_state under both
+     overloads, run_scan calls of 4 ticks: every leaf and the final state
+     bit-equal to the per-tick path, one program launch a call, each
+     schedule kernel run once a tick (the card's counts); under "full"
+     every stream s bit-equal to stream s mod 256 of a 256-stream program
+     run on the same ticks; its cold start and an all-CS scan timed (host
+     ms and device span a tick) and one all-CS scan profiled (one launch,
+     one host read, no kernel launched from the host).
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
 facade, plan, mesh, gate, bench, surface and schedule numbers as JSON
@@ -353,7 +364,19 @@ BENCH_KEYS = ("metric", "value", "unit", "exact_value", "cold_start_value",
 SCHED_K = 16  # phase 15: ticks a run_scan
 SCHED_LOSSES = (4, 20)  # streams lost before a bucket tick, a chunk tick
 SCHED_ESCAPES = (12, 3)  # streams whose face outgrows the band: many, few
-SCHED_NS = (N_STREAMS, 4096)  # the select kernels' random vectors
+# the select kernels' random vectors and timings: one CTA, the 4,096
+# streams one CTA once took, the headline past it, the grid's widest
+SCHED_NS = (N_STREAMS, 4096, 10240, 65536)
+# the headline run past 4,096 streams: the pool's 256 streams tiled 40
+# times on the card, run_scan calls of SCHED_BIG_K ticks, SCHED_BIG_TICKS
+# from init_state (the cold start's 16, then pool batches 4.. with the
+# loss batch at tick 20); under "full" SCHED_BIG_LOSS streams of 256 lose
+# track at tick 20 (past chunk_cap at 256 streams too, so that both sizes
+# take the full tick)
+SCHED_BIG = 10240
+SCHED_BIG_K = 4
+SCHED_BIG_TICKS = 28
+SCHED_BIG_LOSS = 36
 SCHED_EB = 8  # escape_bucket (the default)
 SCHED_KERNELS = ("tick_select", "escape_select", "scan_step", "scan_commit")
 
@@ -1849,6 +1872,8 @@ def phase_schedule(pool, dev):
     from headtrackr_tpu_torch.kernels import schedule as S
     from headtrackr_tpu_torch.models import facetracker as ft
 
+    from headtrackr_tpu_torch.kernels.build import load_library
+
     n = pool.shape[1]
     kw, _ = CONFIGS["headline"]
     err, times = dict.fromkeys(SCHED_KERNELS, 0.0), {}
@@ -1856,6 +1881,12 @@ def phase_schedule(pool, dev):
     for m in SCHED_NS:
         kb = min(kw["bucket"], m)
         cap = max(kb, (min(m, 4 * kb) // kb) * kb)
+        for c in (cap, 8):
+            got = load_library().fn("select_scratch_bytes")(m, c)
+            if got != S.scratch_bytes(m, c):
+                raise AssertionError(f"select scratch at N={m}, cap {c}: "
+                                     f"{got} bytes in csrc, "
+                                     f"{S.scratch_bytes(m, c)} in Python")
         for trial in range(8):
             mode = torch.randint(0, 3, (m,), generator=g, dtype=torch.int32)
             age = torch.randint(0, 4, (m,), generator=g, dtype=torch.int32)
@@ -1902,7 +1933,10 @@ def phase_schedule(pool, dev):
     aout = torch.empty(n, dtype=torch.int32, device=dev)
     eidx = torch.empty(8, dtype=torch.int64, device=dev)
     key = torch.where(dmode != ft.MODE_CS, 1 + dage.long(), 0)
-    sel_bytes = 12 * n + 8 * cap
+    # mode read and pend_age written for every stream, pend_age read for
+    # the pending ones, the slots written
+    sel_bytes = 8 * n + 4 * SCHED_LOSSES[0] + 8 * cap
+
     def select():
         S.tick_select(dmode, dage, kb, cap, False, idx, aout, params)
 
@@ -1914,14 +1948,19 @@ def phase_schedule(pool, dev):
         "plain_ms": cuda_ms(lambda: S.tick_select_plain(dmode, dage, kb, cap,
                                                         False)),
         **dict(zip(("bound_ms", "bound_by"), bound(sel_bytes, 0))),
-        **library_times(lambda: torch.sort(key, descending=True,
-                                           stable=True), False)}
+        **library_times(lambda: torch.topk(key, cap), True)}
     times["escape_select"] = {
         "ms": cuda_ms(escape), "graph_ms": graph_ms(escape),
         "plain_ms": cuda_ms(lambda: S.escape_select_plain(desc, 8)),
         **dict(zip(("bound_ms", "bound_by"), bound(n + 64, 0))),
-        **library_times(lambda: torch.sort(desc.int(), descending=True,
-                                           stable=True), False)}
+        **library_times(lambda: torch.topk(desc.int(), 8), True)}
+    sizes = {}
+    for m in SCHED_NS:
+        sizes.update(select_times(m, dev))
+    for name in ("tick_select", "escape_select"):
+        times[name]["sizes"] = {k.split(" ", 1)[1]: v
+                                for k, v in sizes.items()
+                                if k.startswith(name)}
 
     bt = BatchedTracker(n, (H, W), device=dev, **kw)
     bt.warmup(scan_len=SCHED_K)
@@ -1977,6 +2016,12 @@ def phase_schedule(pool, dev):
         **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
         **library_times(lambda: torch._foreach_copy_(
             want_carry, [s for s, _ in carry]), True)}
+    for k, t in sizes.items():
+        log(f"schedule: {k}: {t['ms']:.4f} ms, graph replay "
+            f"{t['graph_ms']:.4f} ms; an empty kernel at its grid "
+            f"({t['ctas']} CTAs) {t['floor_graph_ms']:.4f}; torch.topk "
+            f"{t['topk_ms']:.4f} / {t['topk_graph_ms']:.4f}; bound "
+            f"{t['bound_ms']:.7f} (bytes)")
     for k in SCHED_KERNELS:
         t = times[k]
         log(f"schedule: {k} {t['ms']:.4f} ms, graph replay "
@@ -2095,8 +2140,212 @@ def phase_schedule(pool, dev):
         del bt, ref, prog
     launches = {k: counts["full"][k] + counts["rotate"][k]
                 for k in counts["full"]}
+    numbers["big"] = phase_schedule_big(pool, dev)
     return {"err": err, "times": times, "launches": launches, "runs": runs,
             **numbers}
+
+
+def select_times(n, dev):
+    """tick_select and escape_select at n streams, timed by
+    tools/torch_select_times.py's select_cases (the headline's bucket 8,
+    chunk cap 32, escape bucket 8; a bucket tick of 4 pending VJ streams
+    and 3 escaped, and an all-CS tick: events and graph ms, torch.topk
+    over the keys, an empty kernel at the grid), with each select's CTAs
+    and byte bound.  {"<kernel> <n> <case>": numbers}."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    tool = load_example(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_select_times", "tools")
+    out = {}
+    tool.select_cases(n, dev, out)
+    cap = 4 * tool.BUCKET
+    for label, t in out.items():
+        if not isinstance(t, dict):
+            raise AssertionError(f"schedule: {label}: {t}")
+        name, _, case = label.split()
+        pending = tool.PENDING if case == "bucket" else 0
+        c, nbytes = ((cap, 8 * n + 4 * pending + 8 * cap)
+                     if name == "tick_select" else (tool.EB, n + 8 * tool.EB))
+        t.update(ctas=S.select_blocks(n, c)[0], bound_ms=bound(nbytes, 0)[0])
+    return out
+
+
+def _named(tree, prefix=""):
+    """The (name, tensor) leaves of a StepOutput or TrackerState."""
+    if isinstance(tree, tuple):
+        return [leaf for name, t in zip(tree._fields, tree)
+                for leaf in _named(t, prefix + name + ".")]
+    return [] if tree is None else [(prefix[:-1], tree)]
+
+
+def _host_tree(tree):
+    """A StepOutput or TrackerState with every tensor copied to the host."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_host_tree(t) for t in tree))
+    return None if tree is None else tree.cpu()
+
+
+def phase_schedule_big(pool, dev):
+    """Phase 15's run past the 4,096 streams one select CTA once took: the
+    headline at SCHED_BIG streams from init_state, the pool's streams
+    tiled on the card (a host pool would be 38 GB), run_scan calls of
+    SCHED_BIG_K ticks (9.4 GB staged a call).  Under "full" (the cold
+    start's wbtrack and full ticks, steady ticks, a full tick after
+    SCHED_BIG_LOSS losses a 256 streams) and "rotate" (the cold start's
+    burst of every stream pending, served chunk_cap a tick, with the
+    pool's losses on top): every StepOutput leaf and the final state
+    bit-equal to the per-tick path run eagerly on the same frames; one
+    program launch a run_scan call; each schedule kernel run once a tick
+    (the card's counts); the per-tick path's host code never reached.
+    Under "full" each stream s also bit-equal to stream s mod 256 of a
+    256-stream program run on the same ticks, and then: host ms a tick of
+    the cold start's scans, host ms and device span (CUDA events) a tick
+    of 5 all-CS scans, and one more all-CS scan profiled (one program
+    launch, one host read, no kernel launched from the host)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.models import facetracker as ft
+
+    base_n = pool.shape[1]
+    n, tile, K = SCHED_BIG, SCHED_BIG // base_n, SCHED_BIG_K
+    kw, _ = CONFIGS["headline"]
+    loss_tick = 16 + LOSS_AT - 4
+    order = [0] * 16 + [4 + t for t in range(SCHED_BIG_TICKS - 16)]
+    base = torch.as_tensor(pool[order]).to(dev)
+    blue = torch.tensor([0, 0, 250], dtype=torch.uint8, device=dev)
+    numbers = {}
+
+    def tiled(seq, k0):
+        return seq[k0:k0 + K].repeat(1, tile, 1, 1, 1)
+
+    for overload in ("full", "rotate"):
+        seq = base
+        if overload == "full":
+            seq = base.clone()
+            seq[loss_tick, :SCHED_BIG_LOSS] = blue
+
+        def mk(m):
+            return BatchedTracker(m, (H, W), device=dev, overload=overload,
+                                  escape_bucket=SCHED_EB, **kw)
+
+        bt = mk(n)
+        t0 = time.perf_counter()
+        bt.warmup(scan_len=K)
+        t_build = time.perf_counter() - t0
+        prog = bt._steps._programs[n]
+        torch.cuda.synchronize()
+        L.reset_launches()
+        got, host_ms, ran = [], [], np.zeros(16, int)
+        for k0 in range(0, SCHED_BIG_TICKS, K):
+            frames = tiled(seq, k0)
+            torch.cuda.synchronize()
+            before = prog.launches
+            t0 = time.perf_counter()
+            out = bt.run_scan(frames)
+            host_ms.append(1e3 * (time.perf_counter() - t0) / K)
+            if prog.launches - before != 1:
+                raise AssertionError(f"schedule big [{overload}]: a run_scan "
+                                     f"call made {prog.launches - before} "
+                                     f"program launches")
+            got.append(_host_tree(out))
+            ran += np.array(prog.runs)
+            del frames
+        counts = dict(L.launches)
+        off = {k: counts[k] for k in SCHED_KERNELS
+               if counts[k] != SCHED_BIG_TICKS}
+        if off or any(L.host_paths.values()):
+            raise AssertionError(f"schedule big [{overload}]: schedule "
+                                 f"kernels' runs {off} of {SCHED_BIG_TICKS} "
+                                 f"ticks; host paths {L.host_paths}")
+        state = _host_tree(bt.state)
+        ref = mk(n)
+        ref._steps.scheduled = False
+        want = []
+        for k0 in range(0, SCHED_BIG_TICKS, K):
+            want.append(_host_tree(ref.run_scan(tiled(seq, k0))))
+        same_bits(got, want, f"schedule big [{overload}]")
+        same_bits([state], [_host_tree(ref.state)],
+                  f"schedule big [{overload}] state")
+        del ref
+        entry = torch.cat([o.detection for o in got])
+        npend = (entry != ft.MODE_CS).sum(1)
+        r = {"build_s": t_build, "host_ms_per_tick": host_ms,
+             "pending_per_tick": npend.tolist(),
+             "runs": ran.tolist()}
+        if overload == "full":
+            small = mk(base_n)
+            small.warmup(scan_len=K)
+            few = [_host_tree(small.run_scan(seq[k0:k0 + K]))
+                   for k0 in range(0, SCHED_BIG_TICKS, K)]
+            pairs = [(f"scan {k} {name}", u, v, 1)
+                     for k, (a, b) in enumerate(zip(got, few))
+                     for (name, u), (_, v) in zip(_named(a), _named(b))]
+            pairs += [(f"state {name}", u, v, 0) for (name, u), (_, v) in
+                      zip(_named(state), _named(_host_tree(small.state)))]
+            for where, u, v, lead in pairs:  # stream s vs s mod 256
+                u = _bits(u).reshape(u.shape[:lead] + (tile, base_n)
+                                     + u.shape[lead + 1:])
+                if not (u == np.expand_dims(_bits(v), lead)).all():
+                    raise AssertionError(f"schedule big: {where}: a stream "
+                                         f"differs from its copy in the "
+                                         f"{base_n}-stream run")
+            del small
+            steady = torch.as_tensor(pool[[t % LOSS_AT for t in range(K)]]
+                                     ).to(dev).repeat(1, tile, 1, 1, 1)
+            bt.run_scan(steady)
+            torch.cuda.synchronize()
+            scan_ms, span_ms, pend = [], [], 0
+            for _ in range(5):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                a.record()
+                o = bt.run_scan(steady)
+                b.record()
+                scan_ms.append(1e3 * (time.perf_counter() - t0) / K)
+                torch.cuda.synchronize()
+                span_ms.append(a.elapsed_time(b) / K)
+                pend += int((o.detection != ft.MODE_CS).sum())
+            launches0 = prog.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as pr:
+                bt.run_scan(steady)
+            events = pr.events()
+            p = {"program_launches": prog.launches - launches0,
+                 "host_kernel_launches": sum(
+                     e.name in HOST_LAUNCHES and "Graph" not in e.name
+                     for e in events),
+                 "host_reads": sum(e.name in HOST_SYNCS for e in events)}
+            if p["program_launches"] != 1 or p["host_reads"] != 1 or \
+                    p["host_kernel_launches"]:
+                raise AssertionError(f"schedule big: a scan is not one "
+                                     f"launch and one host read: {p}")
+            r.update(cold_host_ms_per_tick=sum(host_ms[:4]) / 4,
+                     steady_host_ms_per_tick=scan_ms,
+                     steady_span_ms_per_tick=span_ms,
+                     steady_pending=pend, profile=p)
+            del steady
+        numbers[overload] = r
+        log(f"schedule big [{overload}]: {n} streams, program built in "
+            f"{t_build:.2f} s; {SCHED_BIG_TICKS} ticks from init_state in "
+            f"run_scan calls of {K} equal the per-tick path, every leaf and "
+            f"the final state bit for bit"
+            + (f", and every stream its copy in the {base_n}-stream run"
+               if overload == "full" else "")
+            + f"; one launch a call; each schedule kernel "
+            f"{SCHED_BIG_TICKS} runs; body runs {r['runs']}; pending a tick "
+            f"{r['pending_per_tick']}; host ms a tick by call "
+            f"{[round(x, 3) for x in host_ms]}")
+        if overload == "full":
+            log(f"schedule big: cold start {r['cold_host_ms_per_tick']:.3f} "
+                f"host ms a tick; all-CS scans {r['steady_host_ms_per_tick']}"
+                f" host ms and {r['steady_span_ms_per_tick']} device span ms "
+                f"a tick ({r['steady_pending']} pending); a profiled scan "
+                f"{r['profile']}")
+        del bt, prog, seq
+    return numbers
 
 
 def phase_card_vs_cpu(name, pool, dev):
@@ -2569,14 +2818,8 @@ def same_bits(a, b, where):
     integers exactly, floats bit for bit."""
     import numpy as np
 
-    def leaves(tree):
-        if isinstance(tree, tuple):
-            return [(f"{n}.{m}" if m else n, t) for n, v in
-                    zip(tree._fields, tree) for m, t in leaves(v)]
-        return [] if tree is None else [("", tree)]
-
     for k, (x, y) in enumerate(zip(a, b)):
-        for (name, u), (_, v) in zip(leaves(x), leaves(y)):
+        for (name, u), (_, v) in zip(_named(x), _named(y)):
             if not np.array_equal(_bits(u), _bits(v)):
                 raise AssertionError(f"{where}: tick {k} {name}: "
                                      f"{u.cpu().numpy()} vs {v.cpu().numpy()}")

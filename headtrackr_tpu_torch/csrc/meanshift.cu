@@ -681,7 +681,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t npx = static_cast<int64_t>(bh) * bw;
-  const float* p = pdf + n * npx;
+  const float* p = pdf + static_cast<int64_t>(n) * npx;
   auto* bar = reinterpret_cast<uint64_t*>(smem);
   auto* bc = reinterpret_cast<int*>(smem + L.bcast);
   auto* red = reinterpret_cast<float*>(smem + L.red);  // [3][32] segments

@@ -21,25 +21,43 @@
 // What bounds them: none moves more than the tick's frames (scan_step,
 // bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x 240 x 320 on
 // an H100 SXM at 3.35 TB/s) or the state (scan_commit, ~4.3 MB at 256
-// streams); the two selects read 8 bytes a stream and are a chain of
-// latencies (one CTA, a bitonic sort of at most 4,096 keys in shared
-// memory, ~78 barrier steps at 4,096, 36 at 256).  A graph launch costs
-// one host call where a tick of host scheduling cost a launch a body and a
-// host read; that, not these kernels' time, is what they are for.
+// streams); the two selects read 4 to 8 bytes a stream and write 4, and
+// are a chain of latencies (a count, an atomic ticket, a merge in one
+// CTA).  A graph launch costs one host call where a tick of host
+// scheduling cost a launch a body and a host read; that, not these
+// kernels' time, is what they are for.
 //
 // Design:
-//   - One CTA (a thread a compare-exchange pair of the sort: 128 threads
-//     at 256 streams, 1,024 from 2,048) selects over N <= 4,096 streams:
-//     keys in shared memory as one 64-bit word each, (1 + pend_age) << 32
-//     | ~i for a pending stream and 0 otherwise, sorted descending, so the
-//     oldest pending streams come first and ties go to the lower index
-//     (top_k's order); only a bucket tick (or an escape tick with few
-//     escapes) sorts.  Every handle is set, the chosen one to 1, so no
-//     handle keeps a value from another tick.
-//   - The single-CTA tick_select, which runs after scan_step has copied
-//     tick k's frames, advances k and sets the loop's handle: in scan_step
-//     that needed its last CTA to count the others in with an atomic, one
-//     a CTA on one word, which cost more than the copy's gap to its bound.
+//   - A select is a grid of CTAs of kSelThreads threads (select_grid: at
+//     most kMaxSelCtas), CTA b over the streams [b * span, (b + 1) * span),
+//     span a multiple of kSelThreads and at most kSelKeys, in passes of
+//     kSelThreads.  Each CTA counts its pending (or escaped) streams and
+//     appends their keys, in stream order, to shared memory (a warp ballot
+//     and __popc a pass): for tick_select one 64-bit word each, (1 +
+//     pend_age) << 32 | ~i, so that the oldest pending streams sort first
+//     and ties go to the lower index (top_k's order); for escape_select the
+//     index.  Its candidates are those keys; past cap of them, under
+//     overload "rotate" its cap largest (a bitonic sort), else none (the
+//     tick cannot be a bucket tick).  It writes its counts and candidates
+//     to a scratch buffer (select_scratch_bytes; the program allocates one
+//     a batch size) and takes an atomic ticket.  The CTA that finishes
+//     last resets the ticket for the next launch (a replayed graph runs no
+//     memset of it), sums the counts, chooses the body, merges the
+//     candidates in shared memory (in the scratch buffer past kSelKeys of
+//     them), sorts them descending and serves the min(npend, cap) first.
+//     Keys are unique, so the result does not depend on which CTA finishes
+//     last.  One thread of that CTA sets every handle, the chosen one to 1,
+//     after every count has landed, so no handle keeps a value from another
+//     tick.  The grid keeps ctas x cap <= kSelKeys where the streams allow,
+//     so that a bucket tick's merge fits in shared memory.
+//   - pend_age: every CTA writes 0 (forced: the entry pend_age) for its
+//     streams; only a rotation that leaves pending streams unserved has the
+//     last CTA write age + 1 to the pending streams whose key is below the
+//     cap-th.  A steady tick (no stream pending) is the count alone.
+//   - tick_select's last CTA, which runs after scan_step has copied tick
+//     k's frames, advances k and sets the loop's handle: in scan_step that
+//     needed its last CTA to count the others in with an atomic, one a CTA
+//     on one word, which cost more than the copy's gap to its bound.
 //     scan_commit reads the advanced k and writes row k - 1.
 //   - The parameter block (Params) lives in device memory; the host writes
 //     it before each launch (k = 0, K, the frames' and output packs'
@@ -69,8 +87,10 @@
 
 namespace {
 
-constexpr int kMaxN = 4096;       // streams a select kernel takes
-constexpr int kSelThreads = 1024;
+constexpr int kSelThreads = 256;  // a select CTA's threads: a pass of streams
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelKeys = 4096;    // a select CTA's shared keys
+constexpr int kMaxSelCtas = 256;  // the last CTA reads a CTA's counts a thread
 constexpr int kCopyThreads = 256;
 constexpr int kMaxHandles = 8;
 constexpr int kModeVJ = 1;
@@ -133,15 +153,53 @@ __device__ int2 block_sum(int a, int b, int* scratch) {
   return make_int2(scratch[0], scratch[1]);
 }
 
-// A select kernel's threads for n streams: one a compare-exchange pair of
-// the sort (fewer warps at each barrier), at least a warp, at most 1,024.
-int select_threads(int n) {
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  return n2 / 2 < 32 ? 32 : n2 / 2 > kSelThreads ? kSelThreads : n2 / 2;
+// A select's grid: ``ctas`` CTAs, CTA b over the streams [b * span,
+// (b + 1) * span).  At most kSelKeys / cap CTAs (a bucket tick's merge in
+// shared memory), at least n / kSelKeys (a CTA's keys in shared memory),
+// at most one a pass of kSelThreads streams; ctas > kMaxSelCtas (past
+// 1,048,576 streams) is refused.  kernels/schedule.py select_blocks
+// mirrors it.
+struct SelGrid {
+  int ctas;
+  int span;
+};
+
+SelGrid select_grid(int n, int cap) {
+  const int tiles = (n + kSelThreads - 1) / kSelThreads;
+  int g = kSelKeys / cap;
+  g = g < 1 ? 1 : g;
+  g = g > tiles ? tiles : g;
+  g = g > kMaxSelCtas ? kMaxSelCtas : g;
+  const int least = (n + kSelKeys - 1) / kSelKeys;
+  g = g < least ? least : g;
+  SelGrid s;
+  s.span = (tiles + g - 1) / g * kSelThreads;
+  s.ctas = (n + s.span - 1) / s.span;
+  return s;
 }
 
-// Bitonic sort of key[0, n2), n2 a power of two, descending.
+__host__ __device__ int pow2_at_least(int n) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  return n2;
+}
+
+// The scratch buffer's bytes (grid_of lays it out): the ticket (one 64-bit
+// word), each CTA's (pending, pending VJ, candidates) as i32, each CTA's
+// candidates (span 64-bit words a CTA), then pow2(n) words for a merge
+// past kSelKeys.
+long long select_scratch(int n, int cap) {
+  const SelGrid g = select_grid(n, cap);
+  return 8 + (12ll * g.ctas + 7) / 8 * 8 + 8ll * g.ctas * g.span +
+         8ll * pow2_at_least(n);
+}
+
+bool select_ok(int n, int cap) {
+  return n >= 1 && cap >= 1 && select_grid(n, cap).ctas <= kMaxSelCtas;
+}
+
+// Bitonic sort of key[0, n2), n2 a power of two, descending (shared or
+// global memory: only this CTA touches it).
 __device__ void sort_desc(unsigned long long* key, int n2) {
   for (int size = 2; size <= n2; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
@@ -168,11 +226,136 @@ __device__ __forceinline__ int key_stream(unsigned long long k) {
   return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(k));
 }
 
-__device__ int pow2_at_least(int n) {
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  return n2;
+// key[0, n) zero-padded to a power of two and sorted descending.
+__device__ void pad_sort(unsigned long long* key, int n) {
+  const int n2 = pow2_at_least(n);
+  for (int j = n + threadIdx.x; j < n2; j += blockDim.x) key[j] = 0;
+  __syncthreads();
+  sort_desc(key, n2);
 }
+
+// One pass: the keys of the threads that take theirs appended, in thread
+// order, at key[base ..].  Returns how many (every thread).
+__device__ int append(unsigned long long* key, int base, bool take,
+                      unsigned long long k, int* wsum) {
+  const unsigned ball = __ballot_sync(0xffffffffu, take);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) wsum[warp] = __popc(ball);
+  __syncthreads();
+  int off = base, total = 0;
+  for (int w = 0; w < kSelWarps; ++w) {
+    off += w < warp ? wsum[w] : 0;
+    total += wsum[w];
+  }
+  if (take) key[off + __popc(ball & ((1u << lane) - 1u))] = k;
+  __syncthreads();
+  return total;
+}
+
+// The exclusive prefix of v over the CTA's threads in thread order;
+// *total gets the sum.
+__device__ int block_scan(int v, int* wsum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  int off = 0, t = 0;
+  for (int w = 0; w < kSelWarps; ++w) {
+    off += w < warp ? wsum[w] : 0;
+    t += wsum[w];
+  }
+  __syncthreads();
+  *total = t;
+  return off + x - v;
+}
+
+// What a select's CTAs leave for the last one, and the last one's merge.
+struct Grid {
+  unsigned* ticket;
+  int* counts;               // (pending, pending VJ, candidates) a CTA
+  unsigned long long* cand;  // span a CTA
+  unsigned long long* merge;
+};
+
+__device__ Grid grid_of(unsigned char* scratch, int span) {
+  Grid g;
+  g.ticket = reinterpret_cast<unsigned*>(scratch);
+  g.counts = reinterpret_cast<int*>(scratch + 8);
+  const long long cands = 8 + (12ll * gridDim.x + 7) / 8 * 8;
+  g.cand = reinterpret_cast<unsigned long long*>(scratch + cands);
+  g.merge = g.cand + static_cast<long long>(gridDim.x) * span;
+  return g;
+}
+
+// The CTA's counts and its ``keep`` candidates (key[0, keep)) written out,
+// then its ticket.  True in the CTA that finished last, which resets the
+// ticket, sums the counts into a, b (every thread) and finds each CTA's
+// offset in the merged candidates (offs[], *total: their number).
+__device__ bool gather_counts(const Grid& g, const unsigned long long* key,
+                              int span, int a_cta, int b_cta, int keep,
+                              int* a, int* b, int* offs, int* total,
+                              int* wsum, int* flag) {
+  const long long base = static_cast<long long>(blockIdx.x) * span;
+  for (int j = threadIdx.x; j < keep; j += blockDim.x) {
+    g.cand[base + j] = key[j];
+  }
+  if (threadIdx.x == 0) {
+    g.counts[3 * blockIdx.x] = a_cta;
+    g.counts[3 * blockIdx.x + 1] = b_cta;
+    g.counts[3 * blockIdx.x + 2] = keep;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(g.ticket, 1u);
+    *flag = t == gridDim.x - 1;
+    if (*flag) atomicExch(g.ticket, 0u);
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  const int c = threadIdx.x;  // gridDim.x <= kMaxSelCtas == kSelThreads
+  int ca = 0, cb = 0, ck = 0;
+  if (c < gridDim.x) {
+    ca = __ldcg(g.counts + 3 * c);
+    cb = __ldcg(g.counts + 3 * c + 1);
+    ck = __ldcg(g.counts + 3 * c + 2);
+  }
+  int sa, sb;
+  const int off = block_scan(ck, wsum, total);
+  block_scan(ca, wsum, &sa);
+  block_scan(cb, wsum, &sb);
+  if (c < gridDim.x) offs[c] = off;
+  if (c == 0) offs[gridDim.x] = *total;
+  *a = sa;
+  *b = sb;
+  __syncthreads();
+  return true;
+}
+
+// The merged candidates into dst[0, total): CTA c's at offs[c], a warp a
+// CTA.
+template <typename T>
+__device__ void merge_cands(const Grid& g, int span, const int* offs,
+                            T* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < gridDim.x; c += kSelWarps) {
+    const unsigned long long* src =
+        g.cand + static_cast<long long>(c) * span;
+    const int o = offs[c], len = offs[c + 1] - o;
+    for (int j = lane; j < len; j += 32) {
+      dst[o + j] = static_cast<T>(__ldcg(src + j));
+    }
+  }
+  __syncthreads();
+}
+
+static_assert(kMaxSelCtas == kSelThreads, "a CTA's counts a thread");
+
 
 // The tick's body: 0 track, 1..m the bucket at s * kb slots, m + 1
 // wbtrack, m + 2 full (overload "full"); m = cap / kb.  Writes the served
@@ -183,31 +366,54 @@ __device__ int pow2_at_least(int n) {
 __global__ void __launch_bounds__(kSelThreads)
     tick_select_kernel(const int* __restrict__ mode,
                        const int* __restrict__ age, int n, int kb, int cap,
-                       int rotate, long long* __restrict__ idx,
-                       int* __restrict__ age_out, Params* p, Handles h,
-                       Handles loop) {
-  __shared__ unsigned long long key[kMaxN];
-  __shared__ unsigned char served[kMaxN];
-  __shared__ int scratch[2];
-  const int n2 = pow2_at_least(n);
-  int pend = 0, vj = 0;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    unsigned long long k = 0;
-    if (i < n) {
-      const int m = mode[i];
-      if (m != kModeCS) {
-        ++pend;
-        k = sched_key(static_cast<unsigned>(1 + age[i]), i);
-      }
-      vj += m == kModeVJ;
-      served[i] = 0;
-    }
-    key[i] = k;
-  }
-  const int2 sums = block_sum(pend, vj, scratch);
-  const int npend = sums.x, npend_vj = sums.y;
-  const int m = cap / kb;
+                       int rotate, int span, long long* __restrict__ idx,
+                       int* __restrict__ age_out, Params* p,
+                       unsigned char* scratch, Handles h, Handles loop) {
+  __shared__ unsigned long long key[kSelKeys];
+  __shared__ int wsum[kSelWarps];
+  __shared__ int offs[kMaxSelCtas + 1];
+  __shared__ int sums[2];
+  __shared__ int flag;
   const int force = static_cast<int>(p->force);
+  const int lo = blockIdx.x * span;
+  const int hi = min(lo + span, n);
+  int pend = 0, vj = 0, r = 0;
+  for (int s0 = lo; s0 < hi; s0 += kSelThreads) {
+    const int i = s0 + threadIdx.x;
+    bool take = false;
+    unsigned long long k = 0;
+    if (i < hi) {
+      const int m = mode[i];
+      take = m != kModeCS;
+      const int a = take || force > 0 ? age[i] : 0;
+      if (take) k = sched_key(static_cast<unsigned>(1 + a), i);
+      vj += m == kModeVJ;
+      age_out[i] = force > 0 ? a : 0;
+    }
+    pend += take;
+    r += append(key, r, take, k, wsum);
+  }
+  // the CTA's candidates: its pending streams; past cap of them its cap
+  // oldest under "rotate", else none (more than cap pending: no bucket)
+  int keep = force > 0 ? 0 : r;
+  bool sorted = false;
+  if (keep > cap) {
+    if (rotate) {
+      pad_sort(key, r);
+      sorted = true;
+    }
+    keep = rotate ? cap : 0;
+  }
+  const int2 cta = block_sum(pend, vj, sums);
+  int npend = cta.x, npend_vj = cta.y, total = keep;
+  unsigned long long* buf = key;
+  const Grid g = grid_of(scratch, span);
+  if (gridDim.x > 1 &&
+      !gather_counts(g, key, span, cta.x, cta.y, keep, &npend, &npend_vj,
+                     offs, &total, wsum, &flag)) {
+    return;
+  }
+  const int m = cap / kb;
   int branch;
   if (force > 0) {
     branch = (force - 1) / kb;
@@ -220,21 +426,28 @@ __global__ void __launch_bounds__(kSelThreads)
   } else {
     branch = m + 2;
   }
-  const bool bucket = branch >= 1 && branch <= m;
-  if (force > 0) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) age_out[i] = age[i];
-  } else {
-    const int nserved = bucket ? min(npend, cap) : 0;
-    if (bucket) sort_desc(key, n2);
-    for (int t = threadIdx.x; t < cap; t += blockDim.x) {
-      const int s = t < nserved ? key_stream(key[t]) : n;
-      idx[t] = s;
-      if (s < n) served[s] = 1;
+  const bool bucket = force == 0 && branch >= 1 && branch <= m;
+  if (bucket && gridDim.x > 1) {  // the grid's candidates, merged
+    buf = total <= kSelKeys ? key : g.merge;
+    merge_cands(g, span, offs, buf);
+    sorted = false;
+  }
+  if (bucket && !sorted) pad_sort(buf, total);
+  if (force == 0) {
+    const int served = bucket ? min(npend, cap) : 0;
+    for (int t = threadIdx.x; t < cap; t += kSelThreads) {
+      idx[t] = t < served ? key_stream(buf[t]) : n;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      age_out[i] = bucket && mode[i] != kModeCS && !served[i] ? age[i] + 1
-                                                               : 0;
+    if (bucket && npend > cap) {  // a rotation: the unserved pending age
+      const unsigned long long last = buf[served - 1];
+      for (int i = threadIdx.x; i < n; i += kSelThreads) {
+        if (mode[i] != kModeCS) {
+          const int a = age[i];
+          if (sched_key(static_cast<unsigned>(1 + a), i) < last) {
+            age_out[i] = a + 1;
+          }
+        }
+      }
     }
   }
   if (threadIdx.x == 0) {
@@ -251,21 +464,38 @@ __global__ void __launch_bounds__(kSelThreads)
 // eb < n, as the reference.
 __global__ void __launch_bounds__(kSelThreads)
     escape_select_kernel(const unsigned char* __restrict__ esc, int n, int eb,
-                         long long* __restrict__ eidx, Params* p, Handles h) {
-  __shared__ unsigned long long key[kMaxN];
-  __shared__ int scratch[2];
-  const int n2 = pow2_at_least(n);
-  int count = 0;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    const bool e = i < n && esc[i] != 0;
+                         int span, long long* __restrict__ eidx, Params* p,
+                         unsigned char* scratch, Handles h) {
+  __shared__ unsigned long long key[kSelKeys];
+  __shared__ int wsum[kSelWarps];
+  __shared__ int offs[kMaxSelCtas + 1];
+  __shared__ int sums[2];
+  __shared__ int flag;
+  const int lo = blockIdx.x * span;
+  const int hi = min(lo + span, n);
+  int count = 0, r = 0;
+  for (int s0 = lo; s0 < hi; s0 += kSelThreads) {
+    const int i = s0 + threadIdx.x;
+    const bool e = i < hi && esc[i] != 0;
     count += e;
-    key[i] = e ? sched_key(1u, i) : 0ull;
+    r += append(key, r, e, static_cast<unsigned long long>(i), wsum);
   }
-  const int nesc = block_sum(count, 0, scratch).x;
+  // the CTA's escaped streams in order; past eb of them none ("many")
+  const int keep = r <= eb ? r : 0;
+  int nesc = block_sum(count, 0, sums).x, unused, total = keep;
+  const Grid g = grid_of(scratch, span);
+  if (gridDim.x > 1 &&
+      !gather_counts(g, key, span, nesc, 0, keep, &nesc, &unused, offs,
+                     &total, wsum, &flag)) {
+    return;
+  }
   const int sel = nesc == 0 ? 0 : (eb < n && nesc <= eb) ? 1 : 2;
-  if (sel == 1) sort_desc(key, n2);
-  for (int t = threadIdx.x; t < eb; t += blockDim.x) {
-    eidx[t] = sel == 1 && t < nesc ? key_stream(key[t]) : n;
+  const int few = sel == 1 ? nesc : 0;
+  for (int t = few + threadIdx.x; t < eb; t += kSelThreads) eidx[t] = n;
+  if (few && gridDim.x == 1) {
+    for (int t = threadIdx.x; t < few; t += kSelThreads) eidx[t] = key[t];
+  } else if (few) {
+    merge_cands(g, span, offs, eidx);
   }
   if (threadIdx.x == 0) {
     p->esel = sel;
@@ -274,6 +504,8 @@ __global__ void __launch_bounds__(kSelThreads)
   }
 }
 
+// An empty kernel at a select's grid: the floor of one device operation.
+__global__ void __launch_bounds__(kSelThreads) select_floor_kernel() {}
 __device__ __forceinline__ bool aligned16(const void* a, const void* b,
                                           long long bytes) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
@@ -368,7 +600,17 @@ __global__ void __launch_bounds__(kCopyThreads)
 
 constexpr int kCommitCtas = 32;  // a segment's CTAs
 
-bool check_n(int n) { return n >= 1 && n <= kMaxN; }
+// A select's arguments: n streams, cap slots, a scratch buffer of
+// ``bytes`` (select_scratch_bytes).
+bool check_select(int n, int cap, const void* scratch, long long bytes) {
+  return select_ok(n, cap) && scratch != nullptr &&
+         bytes >= select_scratch(n, cap);
+}
+
+bool check_tick(int n, int kb, int cap) {
+  return kb >= 1 && cap >= kb && cap % kb == 0 && cap <= n &&
+         cap / kb + 3 <= kMaxHandles;
+}
 
 Handles no_handles() {
   Handles h;
@@ -452,7 +694,8 @@ int add_conditional(cudaGraphNode_t* node, cudaGraph_t g,
 // BUILD_ARGS mirrors them).
 enum BuildArg {
   kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEsc, kEidx,
-  kEb, kFrames, kFrameBytes, kSegs, kNseg, kFew, kMany, kNumArgs
+  kEb, kFrames, kFrameBytes, kSegs, kNseg, kFew, kMany, kSelScratch,
+  kSelBytes, kEscScratch, kEscBytes, kNumArgs
 };
 
 int build(Program* prog, const long long* a, const unsigned long long* bodies,
@@ -500,12 +743,16 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   Handles hs = no_handles();
   hs.n = nb;
   for (int b = 0; b < nb; ++b) hs.h[b] = hb[b];
-  void* sel_args[] = {&mode, &age, &n, &kb, &cap, &rotate, &idx, &age_out,
-                      &p, &hs, &hl};
+  unsigned char* sel_scratch =
+      reinterpret_cast<unsigned char*>(a[kSelScratch]);
+  const SelGrid sg = select_grid(n, cap);
+  int span = sg.span;
+  void* sel_args[] = {&mode, &age, &n, &kb, &cap, &rotate, &span, &idx,
+                      &age_out, &p, &sel_scratch, &hs, &hl};
   cudaGraphNode_t sel;
   rc = add_kernel(&sel, body, &step, 1,
-                  reinterpret_cast<void*>(tick_select_kernel), dim3(1),
-                  dim3(select_threads(n)), sel_args);
+                  reinterpret_cast<void*>(tick_select_kernel), dim3(sg.ctas),
+                  dim3(kSelThreads), sel_args);
   if (rc) return rc;
   for (int b = 0; b < nb; ++b) {
     cudaGraph_t bb;
@@ -538,11 +785,15 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     he.n = few ? 2 : 1;
     he.h[0] = few ? hf : hm;
     he.h[1] = hm;
-    void* esel_args[] = {&esc, &n, &eb, &eidx, &p, &he};
+    unsigned char* esc_scratch =
+        reinterpret_cast<unsigned char*>(a[kEscScratch]);
+    const SelGrid eg = select_grid(n, eb);
+    int espan = eg.span;
+    void* esel_args[] = {&esc, &n, &eb, &espan, &eidx, &p, &esc_scratch, &he};
     cudaGraphNode_t esel;
     rc = add_kernel(&esel, body, ifs, nb,
-                    reinterpret_cast<void*>(escape_select_kernel), dim3(1),
-                    dim3(select_threads(n)), esel_args);
+                    reinterpret_cast<void*>(escape_select_kernel),
+                    dim3(eg.ctas), dim3(kSelThreads), esel_args);
     if (rc) return rc;
     nlast = 0;
     if (few) {
@@ -586,30 +837,51 @@ void destroy(Program* prog) {
 
 }  // namespace
 
+// The scratch bytes a select of n streams and cap slots needs (under 17
+// MB: 1,048,576 streams at most), or -1 if the select takes no such n.
+extern "C" int select_scratch_bytes(int n, int cap) {
+  return select_ok(n, cap) ? static_cast<int>(select_scratch(n, cap)) : -1;
+}
+
 extern "C" int tick_select_launch(const void* mode, const void* age,
                                   void* idx, void* age_out, void* params,
+                                  void* scratch, long long scratch_bytes,
                                   int n, int kb, int cap, int rotate,
                                   void* stream) {
-  if (!check_n(n) || kb < 1 || cap < kb || cap % kb || cap > n ||
-      cap / kb + 3 > kMaxHandles) {
+  if (!check_tick(n, kb, cap) ||
+      !check_select(n, cap, scratch, scratch_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  tick_select_kernel<<<1, select_threads(n), 0,
+  const SelGrid g = select_grid(n, cap);
+  tick_select_kernel<<<g.ctas, kSelThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(mode), static_cast<const int*>(age), n, kb, cap,
-      rotate, static_cast<long long*>(idx), static_cast<int*>(age_out),
-      static_cast<Params*>(params), no_handles(), no_handles());
+      rotate, g.span, static_cast<long long*>(idx), static_cast<int*>(age_out),
+      static_cast<Params*>(params), static_cast<unsigned char*>(scratch),
+      no_handles(), no_handles());
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int escape_select_launch(const void* esc, void* eidx, void* params,
+                                    void* scratch, long long scratch_bytes,
                                     int n, int eb, void* stream) {
-  if (!check_n(n) || eb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  escape_select_kernel<<<1, select_threads(n), 0,
+  if (!check_select(n, eb, scratch, scratch_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SelGrid g = select_grid(n, eb);
+  escape_select_kernel<<<g.ctas, kSelThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(esc), n, eb,
+      static_cast<const unsigned char*>(esc), n, eb, g.span,
       static_cast<long long*>(eidx), static_cast<Params*>(params),
-      no_handles());
+      static_cast<unsigned char*>(scratch), no_handles());
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel at the grid of a select of n streams and cap slots.
+extern "C" int select_floor_launch(int n, int cap, void* stream) {
+  if (!select_ok(n, cap)) return static_cast<int>(cudaErrorInvalidValue);
+  select_floor_kernel<<<select_grid(n, cap).ctas, kSelThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,8 +911,16 @@ extern "C" int sched_driver_version(void* out) {
 extern "C" int sched_program_build(const void* args, int nargs,
                                    const void* bodies, int nb, void* out) {
   const long long* a = static_cast<const long long*>(args);
+  const int n = static_cast<int>(a[kN]);
   if (nargs != kNumArgs || nb < 1 || nb > kMaxHandles ||
-      !check_n(static_cast<int>(a[kN]))) {
+      !check_tick(n, static_cast<int>(a[kKb]), static_cast<int>(a[kCap])) ||
+      !check_select(n, static_cast<int>(a[kCap]),
+                    reinterpret_cast<const void*>(a[kSelScratch]),
+                    a[kSelBytes]) ||
+      (a[kEsc] != 0 &&
+       !check_select(n, static_cast<int>(a[kEb]),
+                     reinterpret_cast<const void*>(a[kEscScratch]),
+                     a[kEscBytes]))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int version = 0;

@@ -70,8 +70,12 @@ _SIGNATURES = {
                                    _I, _I, _C),
     },
     "schedule": {
-        "tick_select_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _C),
-        "escape_select_launch": (_C, _C, _C, _I, _I, _C),
+        "tick_select_launch": (_C, _C, _C, _C, _C, _C, ctypes.c_longlong,
+                               _I, _I, _I, _I, _C),
+        "escape_select_launch": (_C, _C, _C, _C, ctypes.c_longlong, _I, _I,
+                                 _C),
+        "select_floor_launch": (_I, _I, _C),
+        "select_scratch_bytes": (_I, _I),
         "scan_step_launch": (_C, _C, ctypes.c_longlong, _C),
         "scan_commit_launch": (_C, _C, _I, _C),
         "sched_driver_version": (_C,),

@@ -34,10 +34,16 @@ from .launch import launch, on_cuda
 __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "escape_select_plain", "scan_step", "scan_step_plain",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
-           "PARAM_WORDS", "MAX_N"]
+           "PARAM_WORDS", "select_blocks", "scratch_bytes", "scratch",
+           "select_floor"]
 
 MODE_VJ, MODE_CS = 1, 2
-MAX_N = 4096  # streams a select kernel takes (one CTA)
+# a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
+# CTAs of SELECT_THREADS threads, each over a block of streams in passes of
+# SELECT_THREADS, its keys in SELECT_KEYS words of shared memory
+SELECT_THREADS = 256
+SELECT_KEYS = 4096
+SELECT_MAX_CTAS = 256
 # the parameter block's 64-bit words (csrc/schedule.cu Params)
 PARAM_WORDS = 32
 P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
@@ -47,7 +53,8 @@ ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
 # sched_program_build's argument words (csrc/schedule.cu BuildArg)
 BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
               "rotate", "esc", "eidx", "eb", "frames", "frame_bytes", "segs",
-              "nseg", "few", "many")
+              "nseg", "few", "many", "sel_scratch", "sel_bytes",
+              "esc_scratch", "esc_bytes")
 MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
 # cudaGraphNodeType
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -55,6 +62,53 @@ NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
               8: "external semaphore signal", 9: "external semaphore wait",
               10: "memory allocation", 11: "memory free",
               12: "batch memory operation", 13: "conditional"}
+
+
+def select_blocks(n, cap):
+    """A select's grid for n streams and cap slots (csrc/schedule.cu
+    select_grid): (ctas, span), CTA b over the streams [b * span, (b + 1)
+    * span).  At most SELECT_KEYS // cap CTAs, so that a bucket tick's
+    merge fits in shared memory; at least n / SELECT_KEYS, so that a
+    CTA's keys do; at most one a pass of SELECT_THREADS streams."""
+    tiles = -(-n // SELECT_THREADS)
+    g = max(min(max(1, SELECT_KEYS // cap), tiles, SELECT_MAX_CTAS),
+            -(-n // SELECT_KEYS))
+    if g > SELECT_MAX_CTAS:
+        raise ValueError(f"a select takes at most "
+                         f"{SELECT_MAX_CTAS * SELECT_KEYS} streams, got {n}")
+    span = -(-tiles // g) * SELECT_THREADS
+    return -(-n // span), span
+
+
+def scratch_bytes(n, cap):
+    """The bytes of a select's scratch buffer (csrc/schedule.cu
+    select_scratch): the ticket, the CTAs' counts and candidates, and a
+    merge past SELECT_KEYS candidates."""
+    ctas, span = select_blocks(n, cap)
+    return (8 + -(-12 * ctas // 8) * 8 + 8 * ctas * span
+            + 8 * (1 << max(0, n - 1).bit_length()))
+
+
+_scratch = {}
+
+
+def scratch(n, cap, device):
+    """A zeroed scratch buffer for a select of n streams and cap slots on
+    ``device``, one a (device, bytes), kept: a select leaves its ticket at
+    0, so launches on one stream share it (the serving program allocates
+    its own)."""
+    key = (torch.device(device), scratch_bytes(n, cap))
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(key[1], dtype=torch.uint8, device=device)
+    return _scratch[key]
+
+
+def _blocks(flags, n, cap):
+    """``flags`` (N,) as (ctas, span) rows of the select's CTAs, padded
+    with zeros."""
+    ctas, span = select_blocks(n, cap)
+    return torch.nn.functional.pad(flags, (0, ctas * span - n)) \
+        .view(ctas, span)
 
 
 def tick_select_plain(mode, age, kb, cap, rotate, force=0, idx=None):
@@ -67,16 +121,36 @@ def tick_select_plain(mode, age, kb, cap, rotate, force=0, idx=None):
     ``_aged`` on a bucket branch (served and CS streams 0, pending unserved
     streams age + 1), else 0.  force = 1 + slots (the host's own bucket of
     ``idx``, step_bucket): the bucket over that many slots (0: "track"),
-    ``idx`` as given and pend_age kept."""
+    ``idx`` as given and pend_age kept.
+
+    In the kernel's stages: the streams in blocks of ``select_blocks``'s
+    span (a multiple of SELECT_THREADS), each block's pending count,
+    pending-VJ count and candidates (its pending streams' keys (1 + age)
+    << 32 | ~i; past cap of them its cap largest under "rotate", else
+    none); then the merge: the counts summed, the branch, the candidates
+    sorted descending, the min(npend, cap) first served and, on a rotation
+    past cap, the pending streams whose key is below the last served one
+    aged by one."""
     n = mode.shape[0]
     m = cap // kb
     if force:
         return (force - 1) // kb, idx, age.clone()
-    non_cs = mode != MODE_CS
-    npend = int(non_cs.sum())
+    pend = mode != MODE_CS
+    key = torch.where(pend, (1 + age.long()) << 32
+                      | (0xFFFFFFFF - torch.arange(n, device=mode.device)),
+                      0)
+    # the CTAs: counts and candidates
+    blocks = _blocks(key, n, cap)
+    counts = (blocks > 0).sum(1)
+    counts_vj = _blocks((mode == MODE_VJ).int(), n, cap).sum(1)
+    top = blocks.sort(1, descending=True).values
+    keep = torch.where(counts <= cap, counts, cap if rotate else 0)
+    cand = top[torch.arange(top.shape[1], device=mode.device) < keep[:, None]]
+    # the last CTA: the merge
+    npend, npend_vj = int(counts.sum()), int(counts_vj.sum())
     if npend == 0:
         branch = 0
-    elif not bool((mode == MODE_VJ).any()):
+    elif npend_vj == 0:
         branch = m + 1
     elif npend <= cap or rotate:
         branch = min(-(-npend // kb), m)
@@ -85,12 +159,12 @@ def tick_select_plain(mode, age, kb, cap, rotate, force=0, idx=None):
     out = torch.full((cap,), n, dtype=torch.int64, device=mode.device)
     age_out = torch.zeros_like(age)
     if 1 <= branch <= m:
-        key = torch.where(non_cs, 1 + age.long(), 0)
-        order = torch.sort(-key, stable=True).indices[:min(npend, cap)]
-        out[:order.numel()] = order
-        served = torch.zeros_like(non_cs)
-        served[order] = True
-        age_out = torch.where(non_cs & ~served, age + 1, 0).to(age.dtype)
+        served = min(npend, cap)
+        merged = cand.sort(descending=True).values[:served]
+        out[:served] = 0xFFFFFFFF - (merged & 0xFFFFFFFF)
+        if npend > cap:
+            age_out = torch.where(pend & (key < merged[-1]), age + 1, 0) \
+                .to(age.dtype)
     return branch, out, age_out
 
 
@@ -99,14 +173,21 @@ def escape_select_plain(esc, eb):
     streams ``esc`` (N,) bool and escape bucket ``eb``: sel 0 (none
     escaped), 1 (few: 1 .. eb escaped and eb < N) or 2 (many); eidx (eb,)
     i64, on few the escaped streams lowest first, padded with N (the
-    reference's top_k of the escaped flags), else all N."""
+    reference's top_k of the escaped flags), else all N.
+
+    In the kernel's stages: the streams in blocks of ``select_blocks``'s
+    span, each block's escaped count and its escaped streams in order
+    (past eb of them none); then the merge: the counts summed, the
+    selection, and on few the blocks' streams in block order."""
     n = esc.shape[0]
-    nesc = int(esc.sum())
+    blocks = _blocks(esc.to(torch.uint8), n, eb)
+    counts = blocks.sum(1)
+    kept = blocks * (counts <= eb)[:, None]  # a block's streams, in order
+    nesc = int(counts.sum())
     sel = 0 if nesc == 0 else 1 if eb < n and nesc <= eb else 2
     eidx = torch.full((eb,), n, dtype=torch.int64, device=esc.device)
     if sel == 1:
-        hit = torch.nonzero(esc).flatten()
-        eidx[:hit.numel()] = hit
+        eidx[:nesc] = torch.nonzero(kept.flatten()).flatten()
     return sel, eidx
 
 
@@ -126,22 +207,23 @@ def scan_commit_plain(k, carry, rows):
         pack[row, k].copy_(src)
 
 
-def _check_select(params, n):
+def _check_select(params, n, cap):
     if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,):
         raise ValueError(f"params must be ({PARAM_WORDS},) int64, got "
                          f"{tuple(params.shape)} {params.dtype}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"a select kernel takes 1 .. {MAX_N} streams, "
-                         f"got {n}")
+    if n < 1:
+        raise ValueError("a select takes at least one stream")
+    select_blocks(n, cap)  # raises past the grid's streams
 
 
 def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
     """One tick's selection into ``idx`` (cap,) i64 and ``age_out`` (N,)
     i32, its branch into ``params[P_BRANCH]`` and one run into that
     branch's ``params[P_RUNS + branch]``; ``params[P_FORCE]`` is read (see
-    tick_select_plain) and ``params[P_K]`` advanced."""
+    tick_select_plain) and ``params[P_K]`` advanced.  The kernel's
+    scratch buffer is the kept one of ``scratch``."""
     n = mode.shape[0]
-    _check_select(params, n)
+    _check_select(params, n, cap)
     if mode.dtype != torch.int32 or age.dtype != torch.int32 or \
             idx.dtype != torch.int64 or age_out.dtype != torch.int32 or \
             idx.shape != (cap,) or age.shape != (n,) or \
@@ -158,18 +240,21 @@ def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
         params[P_RUNS + branch] += 1
         params[P_K] += 1
         return
+    buf = scratch(n, cap, mode.device)
     with torch.cuda.device(mode.device):
         launch("tick_select", "tick_select_launch", mode.data_ptr(),
                age.data_ptr(), idx.data_ptr(), age_out.data_ptr(),
-               params.data_ptr(), n, kb, cap, int(bool(rotate)))
+               params.data_ptr(), buf.data_ptr(), buf.numel(), n, kb, cap,
+               int(bool(rotate)))
 
 
 def escape_select(esc, eb, eidx, params):
     """The escape fallback's selection into ``eidx`` (eb,) i64, its body
     into ``params[P_ESEL]`` and one run into
-    ``params[P_RUNS + ESCAPE_RUNS + sel]`` (see escape_select_plain)."""
+    ``params[P_RUNS + ESCAPE_RUNS + sel]`` (see escape_select_plain).
+    The kernel's scratch buffer is the kept one of ``scratch``."""
     n = esc.shape[0]
-    _check_select(params, n)
+    _check_select(params, n, max(1, eb))
     if esc.dtype != torch.bool or eidx.dtype != torch.int64 or \
             eidx.shape != (eb,) or eb < 1:
         raise ValueError("escape_select takes (N,) bool esc and (eb,) i64 "
@@ -180,9 +265,22 @@ def escape_select(esc, eb, eidx, params):
         params[P_ESEL] = sel
         params[P_RUNS + ESCAPE_RUNS + sel] += 1
         return
+    buf = scratch(n, eb, esc.device)
     with torch.cuda.device(esc.device):
         launch("escape_select", "escape_select_launch", esc.data_ptr(),
-               eidx.data_ptr(), params.data_ptr(), n, eb)
+               eidx.data_ptr(), params.data_ptr(), buf.data_ptr(),
+               buf.numel(), n, eb)
+
+
+def select_floor(n, cap):
+    """An empty kernel at the grid of a select of n streams and cap slots,
+    on the current stream (the floor of one device operation, which
+    measurements set beside the selects' times)."""
+    from .build import load_library
+    err = load_library().fn("select_floor_launch")(
+        n, cap, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"select_floor_launch failed: cudaError {err}")
 
 
 def scan_step(params, frames):

@@ -38,9 +38,15 @@ tick_select, which sets the CUDA graph conditional handle of one IF node
 a branch), and so is the band's escape fallback (escape_select: none, a
 sub-batch of ``escape_bucket`` slots, or the batch); a WHILE node runs the
 K ticks of ``run_scan`` (scan_step, scan_commit).  Its select kernels are
-one CTA each, so the card's program serves at most 4,096 streams a device
-(``schedule.MAX_N``; more raise ValueError: a mesh splits them, and the
-host scheduler ``step`` has no such limit).  The branches' bodies
+a grid of CTAs each, whose last CTA merges the others' counts and
+candidates, so the program serves any batch whose frames fit the card.
+What bounds N on one card: the card's memory (one tick's frames, a scan's
+staged ticks, the state and the bodies' buffers: 10,240 streams of
+320x240 stage 9.4 GB a scan of 4 ticks), and 65,535 streams, the most
+that the kernels putting the stream on a grid axis take in one launch
+(csrc/histpdf.cu, histmma.cu, pyramid.cu and cascade.cu raise past it;
+the histbins and pdfbins wrappers split larger batches).  Nothing clips
+N.  The branches' bodies
 are CUDA graphs captured from the steps: "track"; the bucket and chunk
 ticks and the rotation (``_Steps.bucket_device``: "track", then the
 "pending" step on the served slots padded with N, a masked scatter);
@@ -312,8 +318,8 @@ class _Program:
     selection).  The launch counters take those counts, and a launch whose
     kernels ran other than K ticks raises.  On the CPU the same bodies run
     uncaptured, each picked by the select kernels' twins in a Python
-    ``if``.  The select kernels are one CTA each: the card's program
-    serves at most ``schedule.MAX_N`` streams a device."""
+    ``if``.  The select kernels' scratch buffers (``schedule.scratch``)
+    are allocated here, once a batch size."""
 
     def __init__(self, steps, state):
         n = state.mode.shape[0]
@@ -351,6 +357,10 @@ class _Program:
                                        dtype=torch.int64, device=self.device)
             self._table = schedule.segments(self.carry, self.rows,
                                             self.device)
+            self._scratch = [torch.zeros(schedule.scratch_bytes(n, c),
+                                         dtype=torch.uint8,
+                                         device=self.device)
+                             for c in (self.cap, self.eb)]
             self.graph = schedule.Graph(
                 {str(k): b.graph.raw_cuda_graph()
                  for k, b in zip(keys, self.bodies)},
@@ -365,7 +375,11 @@ class _Program:
                 eidx=bufs.eidx.data_ptr(), eb=self.eb,
                 frames=bufs.frames.data_ptr(),
                 frame_bytes=bufs.frames.numel(),
-                segs=self._table.data_ptr(), nseg=self._table.shape[0])
+                segs=self._table.data_ptr(), nseg=self._table.shape[0],
+                sel_scratch=self._scratch[0].data_ptr(),
+                sel_bytes=self._scratch[0].numel(),
+                esc_scratch=self._scratch[1].data_ptr(),
+                esc_bytes=self._scratch[1].numel())
             self._done = torch.cuda.Event()
         # the parameter block's host side, written and read through NumPy
         # views (a torch op a word would cost the launch more host time)
@@ -758,15 +772,8 @@ class _Steps:
 
     def program(self, state):
         """The ``_Program`` at ``state``'s batch size, built on first
-        use.  On the card it raises ValueError beyond ``schedule.MAX_N``
-        streams, what its one-CTA select kernels take."""
+        use."""
         n = state.mode.shape[0]
-        if self.device.type == "cuda" and n > schedule.MAX_N:
-            raise ValueError(
-                f"the device-scheduled tick (step_auto, run_scan, "
-                f"step_scan) serves at most {schedule.MAX_N} streams a "
-                f"device on the card, got {n}: split the streams over a "
-                f"mesh, or use the host scheduler's step()")
         if n not in self._programs:
             self._programs[n] = _Program(self, state)
         return self._programs[n]

@@ -1478,12 +1478,16 @@ def _sched_vectors(n, g):
     return mode, age
 
 
-@pytest.mark.parametrize("n", [1, 3, 33, 256, 4096])
+@pytest.mark.parametrize("n", [1, 3, 33, 256, 257, 4096, 4097, 10240,
+                               65536])
 def test_schedule_select_kernels_equal_twins(dev, n):
     """tick_select and escape_select against their twins on random
     vectors with ties (ages 0-3), every bucket, both overloads, the
     forced bucket of step_bucket, all-CS and all-WB batches, and escape
-    counts of 0, 1, eb and more."""
+    counts of 0, 1, eb and more; one CTA up to 256 streams, a grid past
+    it (a chunk cap of N merges past the shared keys at 65,536).  Every
+    launch after the first reuses the kept scratch buffer, whose ticket
+    the last CTA reset."""
     from headtrackr_tpu_torch.kernels import schedule as S
     g = torch.Generator().manual_seed(n)
     for trial in range(12):

@@ -8,6 +8,9 @@
     ``jax.lax.top_k``): the branch, the served slots and their order, the
     new pend_age and the escape slots, on random mode, pend_age and escape
     vectors with ties (hypothesis);
+  * the select wrappers past the 4,096 streams one CTA once took (N =
+    4,097, 10,240, 65,536; on the CPU their twins, which follow the grid
+    kernel's stages): the same rule and the one-sort formulation, exact;
   * ``run_scan`` against the reference package's ``run_scan``
     (histKernel="pallas", interpret mode), 6 streams of 120x160, the toy
     cascade, band and bandHist, bucket 1 (chunk_cap 4), overload
@@ -168,16 +171,137 @@ def test_select_wrappers_count_their_runs(esc, sel):
                   S.P_RUNS + S.ESCAPE_RUNS + 3].tolist() == want
 
 
-def test_program_refuses_more_streams_than_a_select_kernel_takes():
-    """On the card the program serves at most MAX_N streams a device: a
-    larger batch raises a ValueError that names the limit when its program
-    is built, before anything reaches the card."""
-    n = S.MAX_N + 1
-    tb = pt.BatchedTracker(n, (24, 32), cascade=toy_cascade(), device="cpu")
-    tb._steps.device = torch.device("cuda")
-    with pytest.raises(ValueError, match=f"at most {S.MAX_N} streams"):
-        tb._steps.program(tb.state)
-    assert not tb._steps._programs
+def _one_sort_tick(mode, age, kb, cap, rotate):
+    """The select twin's rule in one stable sort of the whole batch (the
+    twin before its stages followed the grid's kernel)."""
+    n = len(mode)
+    m = cap // kb
+    non_cs = mode != CS
+    npend = int(non_cs.sum())
+    if npend == 0:
+        branch = 0
+    elif not (mode == VJ).any():
+        branch = m + 1
+    elif npend <= cap or rotate:
+        branch = min(-(-npend // kb), m)
+    else:
+        branch = m + 2
+    idx = np.full(cap, n, np.int64)
+    age_out = np.zeros(n, np.int32)
+    if 1 <= branch <= m:
+        order = np.argsort(-np.where(non_cs, 1 + age.astype(np.int64), 0),
+                           kind="stable")[:min(npend, cap)]
+        idx[:order.size] = order
+        served = np.zeros(n, bool)
+        served[order] = True
+        age_out = np.where(non_cs & ~served, age + 1, 0).astype(np.int32)
+    return branch, idx, age_out
+
+
+# mode draws (WB, VJ, CS): a loss within the chunk cap, a burst past it,
+# a cold start (all WB), a steady tick, a mix
+_MIXES = [(0.0002, 0.0002, 0.9996), (0.2, 0.2, 0.6), (1.0, 0.0, 0.0),
+          (0.0, 0.0, 1.0), (0.001, 0.003, 0.996)]
+
+
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("n", [4097, 10240, 65536])
+def test_tick_select_serves_any_batch_as_the_reference(n, rotate):
+    """tick_select (the CPU wrapper: its twin, the kernel's stages over
+    select_blocks' CTAs and their merge) past the 4,096 streams one CTA
+    once took: the branch, the served slots in order and the new pend_age
+    equal, exactly, the reference's rule through jax.lax.top_k
+    (headtrackr_tpu/runtime/serving.py:366-424) and the one-sort
+    formulation, at buckets 8 (the headline), 32 (the default) and 2,048
+    (a chunk cap past the grid's shared keys), on numpy-drawn modes and
+    ages 0-2 (many ties)."""
+    rng = np.random.default_rng(n + rotate)
+    overload = "rotate" if rotate else "full"
+    for bucket in (8, 32, 2048):
+        kb = min(bucket, n)
+        cap = max(kb, (min(n, 4 * kb) // kb) * kb)
+        m = cap // kb
+        for mix in _MIXES:
+            mode = rng.choice(3, n, p=mix).astype(np.int32)
+            age = rng.integers(0, 3, n).astype(np.int32)
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+            idx = torch.empty(cap, dtype=torch.int64)
+            age_out = torch.empty(n, dtype=torch.int32)
+            S.tick_select(torch.from_numpy(mode), torch.from_numpy(age), kb,
+                          cap, rotate, idx, age_out, params)
+            branch = int(params[S.P_BRANCH])
+            where = f"bucket {bucket} mix {mix}"
+            want = _one_sort_tick(mode, age, kb, cap, rotate)
+            assert branch == want[0], where
+            np.testing.assert_array_equal(idx.numpy(), want[1], where)
+            np.testing.assert_array_equal(age_out.numpy(), want[2], where)
+            name, ref_idx, ref_age, chunks = _ref_rule(mode, age, bucket,
+                                                       overload)
+            port = {0: "track", m + 1: "wbtrack", m + 2: "full"}.get(branch)
+            if port is None:
+                assert name in ("bucket", "chunks") and branch == chunks, \
+                    where
+                np.testing.assert_array_equal(idx.numpy()[:len(ref_idx)],
+                                              ref_idx, where)
+                assert (idx.numpy()[len(ref_idx):] == n).all(), where
+            else:
+                assert port == name, where
+            np.testing.assert_array_equal(age_out.numpy(), ref_age, where)
+
+
+def test_select_grid_mirrors_the_kernel():
+    """select_blocks (the twins' blocks, the scratch buffer's size) uses
+    csrc/schedule.cu's constants, and its grid covers every stream once,
+    a CTA's keys within its shared memory, and a bucket tick's merge
+    within it wherever the streams allow."""
+    import pathlib
+    import re
+    src = (pathlib.Path(S.__file__).parent.parent / "csrc"
+           / "schedule.cu").read_text()
+    for name, want in (("kSelThreads", S.SELECT_THREADS),
+                       ("kSelKeys", S.SELECT_KEYS),
+                       ("kMaxSelCtas", S.SELECT_MAX_CTAS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1)) == want, name
+    for n in (1, 255, 256, 257, 4096, 4097, 10240, 65536, 1 << 20):
+        for cap in (1, 8, 32, 128, 4096, 10484):
+            ctas, span = S.select_blocks(n, cap)
+            assert span % S.SELECT_THREADS == 0 and span <= S.SELECT_KEYS
+            assert (ctas - 1) * span < n <= ctas * span
+            assert ctas <= S.SELECT_MAX_CTAS
+            if n <= S.SELECT_KEYS ** 2 // max(cap, S.SELECT_THREADS):
+                assert ctas * cap <= S.SELECT_KEYS or ctas == 1, (n, cap)
+    with pytest.raises(ValueError):
+        S.select_blocks((1 << 20) + 1, 8)
+
+
+@pytest.mark.parametrize("n", [4097, 10240, 65536])
+def test_escape_select_serves_any_batch_as_the_reference(n):
+    """escape_select (the CPU wrapper) past 4,096 streams: none, few or
+    many and the few body's slots equal the reference's
+    (headtrackr_tpu/runtime/serving.py:250-280, jax.lax.top_k) and the
+    escaped streams' indices, at escape buckets 1, 8 and 2,048, on escape
+    counts of 0, 1, the bucket, one past it and a numpy-drawn 1%."""
+    rng = np.random.default_rng(n)
+    for eb in (1, 8, 2048):
+        for count in (0, 1, eb, eb + 1, None):
+            esc = np.zeros(n, bool)
+            if count is None:
+                esc = rng.random(n) < 0.01
+            else:
+                esc[rng.choice(n, count, replace=False)] = True
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+            eidx = torch.empty(eb, dtype=torch.int64)
+            S.escape_select(torch.from_numpy(esc), eb, eidx, params)
+            sel = int(params[S.P_ESEL])
+            want_sel, want = _ref_escape(esc, eb)
+            assert sel == want_sel, (eb, count)
+            hit = np.nonzero(esc)[0]
+            if sel == 1:
+                np.testing.assert_array_equal(eidx.numpy(), want)
+                np.testing.assert_array_equal(eidx.numpy()[:hit.size], hit)
+            else:
+                assert (eidx.numpy() == n).all(), (eb, count)
 
 
 H, W = 120, 160
