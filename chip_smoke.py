@@ -199,26 +199,32 @@ Phases, one line each; any failure raises and exits nonzero:
  15. schedule (run after phase 6): the serving program's kernels
      (csrc/schedule.cu) bit-equal to their twins (tick_select and
      escape_select on random vectors with ties at 256, 4,096, 10,240 and
-     65,536 streams, both overloads; scan_step and scan_commit on the
-     main path's frames, state and outputs) and timed (events and graph
-     replay) beside their twins, byte bounds and one PyTorch call
-     (torch.topk, copy_, _foreach_copy_); the selects also at each of
-     those sizes on a bucket tick and an all-CS tick, beside an empty
-     kernel at their grid and torch.topk; then the headline configuration
-     at 256 streams
+     65,536 streams, both overloads; scan_step, whole and in rows mode on
+     a bucket tick's 8 slots, into a buffer poisoned with 255, and
+     scan_commit on the main path's frames, state and outputs) and timed
+     (events and graph replay) beside their twins, byte bounds and one
+     PyTorch call (torch.topk, copy_, index_copy_, _foreach_copy_);
+     histpdf_band reading tick k's frames in place (through the parameter
+     block's address word) bit-equal to its direct read and timed beside
+     it in turns; the selects also at each of those sizes on a bucket
+     tick and an all-CS tick, beside an empty kernel at their grid and
+     torch.topk; then the headline configuration at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
-     calls of 16 ticks each (the cold start's wbtrack and full ticks or
-     its rotation burst, bucket and chunk ticks after losses, band escapes
-     within escape_bucket and beyond it): every StepOutput leaf and the
-     final state bit-equal to the per-tick path run eagerly on the card,
-     every branch's body run (the program's own counts), the per-tick
-     path's host code never reached (kernels/launch.py host_paths), and a
-     profiled scan of 16 ticks one program launch, one host read and no
-     kernel launched from the host.  Then the headline at 10,240 streams
-     (the pool tiled 40 times on the card) from init_state under both
-     overloads, run_scan calls of 4 ticks: every leaf and the final state
+     calls of 16 ticks each from a poisoned frame buffer (the cold start's
+     wbtrack and full ticks or its rotation burst, bucket and chunk ticks
+     after losses, band escapes within escape_bucket and beyond it): every
+     StepOutput leaf and the final state bit-equal to the per-tick path
+     run eagerly on the card, every branch's body run (the program's own
+     counts), scan_step run once a tick whose body copies and once an
+     escape body's run (copy_runs), the per-tick path's host code never
+     reached (kernels/launch.py host_paths); an all-CS scan of 16 ticks
+     runs no scan_step; a profiled scan of 16 ticks is one program
+     launch, one host read and no kernel launched from the host.  Then
+     the headline at 10,240 streams (the pool tiled 40 times on the card)
+     from init_state under both overloads, run_scan calls of 4 ticks, each
+     from a poisoned frame buffer: every leaf and the final state
      bit-equal to the per-tick path, one program launch a call, each
-     schedule kernel run once a tick (the card's counts); under "full"
+     schedule kernel's runs as above (the card's counts); under "full"
      every stream s bit-equal to stream s mod 256 of a 256-stream program
      run on the same ticks; its cold start and an all-CS scan timed (host
      ms and device span a tick) and one all-CS scan profiled (one launch,
@@ -1868,6 +1874,7 @@ def phase_schedule(pool, dev):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.kernels import histpdf as K
     from headtrackr_tpu_torch.kernels import launch as L
     from headtrackr_tpu_torch.kernels import schedule as S
     from headtrackr_tpu_torch.models import facetracker as ft
@@ -1969,23 +1976,80 @@ def phase_schedule(pool, dev):
     frames = torch.empty_like(seq[0])
     p0 = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
     p0[S.P_K], p0[S.P_TICKS], p0[S.P_FRAMES] = 1, 2, seq.data_ptr()
+    p0[S.P_FRAME_AT] = seq[1].data_ptr()  # as tick_select writes it
     p0 = p0.to(dev)
-    S.scan_step(p0, frames)
-    torch.cuda.synchronize()
+    # scan_step's modes on a poisoned buffer: whole; rows, a bucket tick's
+    # 8 slots (SCHED_LOSSES[0] served, the rest padding)
+    served = SCHED_LOSSES[0]
+    slots = torch.tensor(list(range(served)) + [n] * (kw["bucket"] - served),
+                         dtype=torch.int64, device=dev)
     want = torch.empty_like(frames)
-    S.scan_step_plain(seq, 1, want)
-    err["scan_step"] = float((frames.int() - want.int()).abs().max())
-    if err["scan_step"]:
-        raise AssertionError("scan_step differs from its twin")
+    for rows in (None, slots):
+        frames.fill_(255)
+        want.fill_(255)
+        S.scan_step(p0, frames, rows)
+        S.scan_step_plain(seq[1], want, rows)
+        torch.cuda.synchronize()
+        e = float((frames.int() - want.int()).abs().max())
+        err["scan_step"] = max(err["scan_step"], e)
+        if e:
+            mode = "whole" if rows is None else "rows"
+            raise AssertionError(f"scan_step ({mode}) differs from its twin")
 
     def step_once():
         S.scan_step(p0, frames)
 
+    def step_rows():
+        S.scan_step(p0, frames, slots)
+
+    row_bytes = frames.numel() // n
+    # the library call writes the same buffer: a copy's rate on the card
+    # depends on where its destination lies
     times["scan_step"] = {
         "ms": cuda_ms(step_once), "graph_ms": graph_ms(step_once),
-        "plain_ms": cuda_ms(lambda: S.scan_step_plain(seq, 1, want)),
+        "plain_ms": cuda_ms(lambda: S.scan_step_plain(seq[1], want)),
         **dict(zip(("bound_ms", "bound_by"), bound(2 * frames.numel(), 0))),
-        **library_times(lambda: want.copy_(seq[1]), True)}
+        **library_times(lambda: frames.copy_(seq[1]), True)}
+    times["scan_step rows"] = {
+        "slots": kw["bucket"], "served": served,
+        "ms": cuda_ms(step_rows), "graph_ms": graph_ms(step_rows),
+        "plain_ms": cuda_ms(lambda: S.scan_step_plain(seq[1], want, slots)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * served * row_bytes, 0))),
+        **library_times(lambda: frames.index_copy_(
+            0, slots[:served], seq[1].index_select(0, slots[:served])),
+            True)}
+    # histpdf_band reading tick k's frames in place (through the word that
+    # tick_select sets) against its direct read of them, bit for bit and
+    # timed in turns, on the headline's band at the bench pool's faces
+    band_rects = torch.as_tensor(face_boxes(pool[1])).to(dev)
+    model = K.histpdf_band(seq[1], band_rects)
+    word = p0[S.P_FRAME_AT:S.P_FRAME_AT + 1]
+    frames.fill_(255)
+
+    def in_place():
+        with L.frames_at(frames, word):
+            return K.histpdf_band(frames, band_rects, model, BAND)
+
+    def direct():
+        return K.histpdf_band(seq[1], band_rects, model, BAND)
+
+    for a, b in zip(in_place(), direct()):
+        if not torch.equal(a, b):
+            raise AssertionError("histpdf_band in place differs from its "
+                                 "direct read")
+    ip, dr = [], []
+    for _ in range(2):  # direct, in place, in place, direct
+        dr.append(graph_ms(direct))
+        ip += [graph_ms(in_place), graph_ms(in_place)]
+        dr.append(graph_ms(direct))
+    times["histpdf_band in place"] = {"graph_ms": ip, "direct_graph_ms": dr}
+    log(f"schedule: scan_step rows mode ({served} of {kw['bucket']} slots) "
+        f"and whole bit-equal to their twins on a poisoned buffer; rows "
+        f"{times['scan_step rows']['graph_ms']:.4f} graph ms (bound "
+        f"{times['scan_step rows']['bound_ms']:.6f}); histpdf_band in place "
+        f"bit-equal to its direct read, graph ms in turns: in place "
+        f"{[round(x, 5) for x in ip]}, direct {[round(x, 5) for x in dr]}")
     carry = [(src, torch.empty_like(dst)) for src, dst in prog.carry]
     packs = [torch.empty((p.shape[0], 2) + p.shape[1:], dtype=p.dtype,
                          device=dev) for p in prog.bufs.packs.values()]
@@ -2050,18 +2114,22 @@ def phase_schedule(pool, dev):
         got, ran = [], np.zeros(16, int)
         t0 = time.perf_counter()
         for seq in (cold, second):
+            prog.bufs.frames.fill_(255)  # a body reading it stale differs
             got.append(bt.run_scan(seq))
             ran += np.array(prog.runs)
         torch.cuda.synchronize()
         t_scan = time.perf_counter() - t0
         counts[overload] = dict(L.launches)
         # the schedule kernels' counts, which the card reports in the
-        # program's parameter block: one run of each a tick
+        # program's parameter block: one run of each a tick, scan_step's
+        # one a tick whose body copies and one an escape body's run
+        want_runs = dict.fromkeys(SCHED_KERNELS, 2 * SCHED_K)
+        want_runs["scan_step"] = copy_runs(bt, got)
         off = {k: counts[overload][k] for k in SCHED_KERNELS
-               if counts[overload][k] != 2 * SCHED_K}
+               if counts[overload][k] != want_runs[k]}
         if off:
             raise AssertionError(f"schedule [{overload}]: the card reports "
-                                 f"runs other than one a tick for "
+                                 f"runs other than {want_runs} for "
                                  f"{2 * SCHED_K} ticks: {off}")
         if any(L.host_paths.values()):
             raise AssertionError(f"schedule [{overload}]: the per-tick "
@@ -2101,12 +2169,25 @@ def phase_schedule(pool, dev):
             f"wbtrack{', full' if overload == 'full' else ''}; escape few "
             f"{ran[9]}, many {ran[10]}); pending at most {npend.max()}; "
             f"escapes a tick {escapes}; host code of the per-tick path "
-            f"not reached; {numbers[overload]['ms_per_tick']:.3f} ms/tick")
-        if overload == "full":  # one more scan, profiled
+            f"not reached; scan_step runs {want_runs['scan_step']} of "
+            f"{2 * SCHED_K} ticks, from a poisoned frame buffer; "
+            f"{numbers[overload]['ms_per_tick']:.3f} ms/tick")
+        if overload == "full":  # all-CS scans: no copy; one profiled
             seq = torch.as_tensor(pool[[t % LOSS_AT
                                         for t in range(SCHED_K)]]).to(dev)
             bt.run_scan(seq)
+            o = bt.run_scan(seq)
             torch.cuda.synchronize()
+            if (o.detection != ft.MODE_CS).any() or o.escaped.any():
+                raise AssertionError("schedule: the steady scan is not "
+                                     "all-CS without escapes")
+            if prog.steps["runs"]:
+                raise AssertionError(f"schedule: an all-CS scan of "
+                                     f"{SCHED_K} ticks ran scan_step: "
+                                     f"{prog.steps}")
+            numbers["all_cs_scan_steps"] = dict(prog.steps)
+            log(f"schedule: an all-CS run_scan of {SCHED_K} ticks: "
+                f"scan_step {prog.steps}")
             launches0 = prog.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as pr:
@@ -2143,6 +2224,21 @@ def phase_schedule(pool, dev):
     numbers["big"] = phase_schedule_big(pool, dev)
     return {"err": err, "times": times, "launches": launches, "runs": runs,
             **numbers}
+
+
+def copy_runs(bt, outs):
+    """scan_step's runs in the headline's program (bandHist) over run_scan
+    outputs ``outs``: one a tick whose body copies (all but the all-CS
+    tick, which reads its frames in place) and one a tick whose escape
+    fallback ran a body (few or many; after a wbtrack or full tick it
+    copies nothing, a run all the same)."""
+    runs = 0
+    for o in outs:
+        entry = o.detection.cpu().numpy()
+        esc = o.escaped.cpu().numpy()
+        for modes, e in zip(entry, esc):
+            runs += int(bt.branch(modes) != "track") + int(e.any())
+    return runs
 
 
 def select_times(n, dev):
@@ -2240,6 +2336,7 @@ def phase_schedule_big(pool, dev):
         got, host_ms, ran = [], [], np.zeros(16, int)
         for k0 in range(0, SCHED_BIG_TICKS, K):
             frames = tiled(seq, k0)
+            prog.bufs.frames.fill_(255)  # a body reading it stale differs
             torch.cuda.synchronize()
             before = prog.launches
             t0 = time.perf_counter()
@@ -2253,12 +2350,14 @@ def phase_schedule_big(pool, dev):
             ran += np.array(prog.runs)
             del frames
         counts = dict(L.launches)
+        want_runs = dict.fromkeys(SCHED_KERNELS, SCHED_BIG_TICKS)
+        want_runs["scan_step"] = copy_runs(bt, got)
         off = {k: counts[k] for k in SCHED_KERNELS
-               if counts[k] != SCHED_BIG_TICKS}
+               if counts[k] != want_runs[k]}
         if off or any(L.host_paths.values()):
             raise AssertionError(f"schedule big [{overload}]: schedule "
-                                 f"kernels' runs {off} of {SCHED_BIG_TICKS} "
-                                 f"ticks; host paths {L.host_paths}")
+                                 f"kernels' runs {off}, not {want_runs}; "
+                                 f"host paths {L.host_paths}")
         state = _host_tree(bt.state)
         ref = mk(n)
         ref._steps.scheduled = False
@@ -2273,7 +2372,7 @@ def phase_schedule_big(pool, dev):
         npend = (entry != ft.MODE_CS).sum(1)
         r = {"build_s": t_build, "host_ms_per_tick": host_ms,
              "pending_per_tick": npend.tolist(),
-             "runs": ran.tolist()}
+             "runs": ran.tolist(), "scan_step_runs": want_runs["scan_step"]}
         if overload == "full":
             small = mk(base_n)
             small.warmup(scan_len=K)
@@ -2296,7 +2395,7 @@ def phase_schedule_big(pool, dev):
                                      ).to(dev).repeat(1, tile, 1, 1, 1)
             bt.run_scan(steady)
             torch.cuda.synchronize()
-            scan_ms, span_ms, pend = [], [], 0
+            scan_ms, span_ms, pend, copies = [], [], 0, 0
             for _ in range(5):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
@@ -2308,6 +2407,10 @@ def phase_schedule_big(pool, dev):
                 torch.cuda.synchronize()
                 span_ms.append(a.elapsed_time(b) / K)
                 pend += int((o.detection != ft.MODE_CS).sum())
+                copies += prog.steps["runs"]
+                if prog.steps["runs"] != copy_runs(bt, [o]):
+                    raise AssertionError(f"schedule big: scan_step ran "
+                                         f"{prog.steps} in a steady scan")
             launches0 = prog.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as pr:
@@ -2325,7 +2428,8 @@ def phase_schedule_big(pool, dev):
             r.update(cold_host_ms_per_tick=sum(host_ms[:4]) / 4,
                      steady_host_ms_per_tick=scan_ms,
                      steady_span_ms_per_tick=span_ms,
-                     steady_pending=pend, profile=p)
+                     steady_pending=pend, steady_scan_steps=copies,
+                     profile=p)
             del steady
         numbers[overload] = r
         log(f"schedule big [{overload}]: {n} streams, program built in "
@@ -2334,15 +2438,16 @@ def phase_schedule_big(pool, dev):
             f"the final state bit for bit"
             + (f", and every stream its copy in the {base_n}-stream run"
                if overload == "full" else "")
-            + f"; one launch a call; each schedule kernel "
-            f"{SCHED_BIG_TICKS} runs; body runs {r['runs']}; pending a tick "
+            + f"; one launch a call; the schedule kernels' runs {want_runs} "
+            f"(the card's counts); body runs {r['runs']}; pending a tick "
             f"{r['pending_per_tick']}; host ms a tick by call "
             f"{[round(x, 3) for x in host_ms]}")
         if overload == "full":
             log(f"schedule big: cold start {r['cold_host_ms_per_tick']:.3f} "
                 f"host ms a tick; all-CS scans {r['steady_host_ms_per_tick']}"
                 f" host ms and {r['steady_span_ms_per_tick']} device span ms "
-                f"a tick ({r['steady_pending']} pending); a profiled scan "
+                f"a tick ({r['steady_pending']} pending, "
+                f"{r['steady_scan_steps']} scan_step runs); a profiled scan "
                 f"{r['profile']}")
         del bt, prog, seq
     return numbers
@@ -3236,7 +3341,10 @@ def main():
         if k in ALSO_REPLACES:
             e["also_replaces"] = ALSO_REPLACES[k]
         if k == "histpdf_band":
-            e["x4_workload"] = times[X4]
+            e.update(x4_workload=times[X4],
+                     in_place=times["histpdf_band in place"])
+        if k == "scan_step":
+            e["rows"] = times["scan_step rows"]
         if k == "hist4096":
             e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":

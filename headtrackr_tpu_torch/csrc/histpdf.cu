@@ -83,6 +83,14 @@
 //   - What paces it (H100 SXM, PERF.md): the same fixed cost a CTA, and
 //     the three phases (count, weights, pdf) in turn behind two barriers:
 //     0.016-0.017 ms at 96x128, 1.8x the bound.
+//   - In place: given ``frame_at``, the device address of a word holding
+//     the frames' address (the serving program's parameter block, which
+//     its tick_select sets to tick k's frames of a scan), each CTA loads
+//     the frames' base from it before its first frame read, so the
+//     program's all-CS tick reads each tick's frames where the caller put
+//     them and copies none.  The row loads decide their alignment from
+//     each row's address on the device, so nothing depends on where the
+//     frames lie.
 //
 // The cluster kernel counts a row as one run of rw x 3 bytes: a thread
 // takes 16 neighbouring pixels at a time with three 16-byte loads, and
@@ -391,15 +399,17 @@ __device__ __forceinline__ void count_rows(const uint8_t* f, int w,
 // kPdf: histpdf_band's pdf mode (model, band (bh, bw), pdf); otherwise the
 // counts of each rect clamped to the frame (hist4096, hist-only mode).
 // kStash: the pdf mode keeps its pixels' bins in shared memory.  vec: bw %
-// 4 == 0 and pdf 16-byte aligned.  Dynamic shared memory: the i32
-// histogram, then in pdf mode the f32 weight table and the u16 bins.
+// 4 == 0 and pdf 16-byte aligned.  frame_at: null, or the address of a
+// word holding the frames' address, read in place of ``frames``.  Dynamic
+// shared memory: the i32 histogram, then in pdf mode the f32 weight table
+// and the u16 bins.
 template <bool kPdf, bool kStash>
 __global__ void __launch_bounds__(kThreads)
 cluster_hist_kernel(const uint8_t* __restrict__ frames,
                     const int32_t* __restrict__ rects,
                     const float* __restrict__ model, float* __restrict__ cur,
                     float* __restrict__ pdf, int h, int w, int bh, int bw,
-                    bool vec) {
+                    bool vec, const long long* __restrict__ frame_at) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* hist = reinterpret_cast<int32_t*>(smem);
   float* table = reinterpret_cast<float*>(smem + kBins * sizeof(int32_t));
@@ -410,7 +420,9 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   const int32_t* r = rects + 4 * static_cast<int64_t>(n);
   const Rect rc = kPdf ? band_rect(r, h, w, bh, bw) : clamped_rect(r, h, w);
   const Share sh = cta_share(rc, c, static_cast<int>(rank));
-  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3;
+  const uint8_t* base =
+      frame_at ? reinterpret_cast<const uint8_t*>(*frame_at) : frames;
+  const uint8_t* f = base + static_cast<int64_t>(n) * h * w * 3;
   if (static_cast<int>(rank) < sh.active) {
     chist::zero_hist(hist);
     count_rows<kPdf && kStash>(f, w, rc, sh.r0, sh.nrows, hist, stash);
@@ -475,10 +487,11 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
 template <bool kPdf, bool kStash>
 int launch_cluster(int n, int c, int smem, cudaStream_t s, const uint8_t* f,
                    const int32_t* r, const float* m, float* cur, float* pdf,
-                   int h, int w, int bh, int bw, bool vec) {
+                   int h, int w, int bh, int bw, bool vec,
+                   const long long* frame_at) {
   return sm90::launch_cluster(cluster_hist_kernel<kPdf, kStash>, dim3(c, n),
                               c, kThreads, smem, s, f, r, m, cur, pdf, h, w,
-                              bh, bw, vec);
+                              bh, bw, vec, frame_at);
 }
 
 int blocks_for(int64_t pixels, int per_block) {
@@ -501,7 +514,8 @@ extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
   return launch_cluster<false, false>(
       n, c, kBins * sizeof(int32_t), static_cast<cudaStream_t>(stream),
       static_cast<const uint8_t*>(frames), static_cast<const int32_t*>(rects),
-      nullptr, static_cast<float*>(out), nullptr, h, w, 0, 0, false);
+      nullptr, static_cast<float*>(out), nullptr, h, w, 0, 0, false,
+      nullptr);
 }
 
 // frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
@@ -546,12 +560,14 @@ extern "C" int backproject_rect_launch(const void* frames, const void* weights,
 // band clipped into the frame (1 <= bh <= h, 1 <= bw <= w), model (n, 4096)
 // f32, cur (n, 4096) f32 (both 16-byte aligned): cur = the band's counts,
 // pdf (n, bh, bw) f32 = min(model / cur, 1)[bin].  One cluster of c CTAs a
-// stream (c a power of two, at most 16).  The hist-only mode is
+// stream (c a power of two, at most 16).  frame_at: null, or the device
+// address of an i64 word that holds the frames' address when the kernel
+// runs (then ``frames`` is not read).  The hist-only mode is
 // hist4096_launch.
 extern "C" int histpdf_band_launch(const void* frames, const void* rects,
                                    const void* model, void* cur, void* pdf,
                                    int n, int h, int w, int bh, int bw, int c,
-                                   void* stream) {
+                                   const void* frame_at, void* stream) {
   if (n <= 0) return 0;
   if (!chist::cluster_ok(n, c) || model == nullptr || bh < 1 || bw < 1 ||
       bh > h || bw > w || reinterpret_cast<uintptr_t>(cur) % 16 != 0 ||
@@ -564,6 +580,7 @@ extern "C" int histpdf_band_launch(const void* frames, const void* rects,
   const auto* m = static_cast<const float*>(model);
   auto* cu = static_cast<float*>(cur);
   auto* o = static_cast<float*>(pdf);
+  const auto* at = static_cast<const long long*>(frame_at);
   const bool vec = bw % 4 == 0 && reinterpret_cast<uintptr_t>(pdf) % 16 == 0;
   // the rows of the largest share (cta_share over the band)
   const int active = active_ctas(static_cast<int64_t>(bh) * bw, bh, c);
@@ -572,8 +589,9 @@ extern "C" int histpdf_band_launch(const void* frames, const void* rects,
   const int tables = 2 * kBins * 4;
   if (stash <= kMaxStashBytes) {
     return launch_cluster<true, true>(n, c, tables + static_cast<int>(stash),
-                                      s, f, r, m, cu, o, h, w, bh, bw, vec);
+                                      s, f, r, m, cu, o, h, w, bh, bw, vec,
+                                      at);
   }
   return launch_cluster<true, false>(n, c, tables, s, f, r, m, cu, o, h, w, bh,
-                                     bw, vec);
+                                     bw, vec, at);
 }

@@ -13,15 +13,19 @@
 //                  tick count k and its loop's handle (:426 lax.scan);
 //   escape_select  :225 _escape_checked: the escaped count, none / few /
 //                  many (lax.switch) and the top_k of the escaped streams;
-//   scan_step      :426 scan_steps (lax.scan): tick k's frames into the
-//                  bodies' frame buffer;
+//   scan_step      :426 scan_steps (lax.scan), whose tick k reads its
+//                  slice of the frames: the rows of tick k that a body's
+//                  PyTorch ops read from the bodies' frame buffer, copied
+//                  there (a body whose one frame reader reads in place
+//                  copies none);
 //   scan_commit    the scan's carry and stacked outputs: the tick's
 //                  outputs into row k of the (fields, K, N) output packs,
 //                  the new state into the state every body reads.
-// What bounds them: none moves more than the tick's frames (scan_step,
-// bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x 240 x 320 on
-// an H100 SXM at 3.35 TB/s) or the state (scan_commit, ~4.3 MB at 256
-// streams); the two selects read 4 to 8 bytes a stream and write 4, and
+// What bounds them: none moves more than the tick's frames (scan_step's
+// whole mode, bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x
+// 240 x 320 on an H100 SXM at 3.35 TB/s; its rows mode s rows of H x W x
+// 3, 0.0011 ms at the bucket's 8) or the state (scan_commit, ~4.3 MB at
+// 256 streams); the two selects read 4 to 8 bytes a stream and write 4, and
 // are a chain of latencies (a count, an atomic ticket, a merge in one
 // CTA).  A graph launch costs one host call where a tick of host
 // scheduling cost a launch a body and a host read; that, not these
@@ -54,11 +58,20 @@
 //     streams; only a rotation that leaves pending streams unserved has the
 //     last CTA write age + 1 to the pending streams whose key is below the
 //     cap-th.  A steady tick (no stream pending) is the count alone.
-//   - tick_select's last CTA, which runs after scan_step has copied tick
-//     k's frames, advances k and sets the loop's handle: in scan_step that
-//     needed its last CTA to count the others in with an atomic, one a CTA
-//     on one word, which cost more than the copy's gap to its bound.
-//     scan_commit reads the advanced k and writes row k - 1.
+//   - tick_select's last CTA, the tick's first node, writes where tick
+//     k's frames lie (frame_at: frames_src + k x frame bytes), advances k
+//     and sets the loop's handle.  scan_commit reads the advanced k and
+//     writes row k - 1.
+//   - The frames stay where the caller put them.  A body whose only frame
+//     reader is histpdf_band (the all-CS tick under bandHist) reads tick
+//     k's frames at frame_at (the kernel loads the address from the
+//     parameter block) and has no copy.  Any other body's IF graph runs
+//     scan_step ahead of the body, in the mode sched_program_build is
+//     given for it: rows (the bucket's served slots, the few escape
+//     body's: those rows of tick k into the same rows of the buffer,
+//     padding skipped) or whole.  An escape body's copy does nothing after
+//     a tick body that copied whole (its ``skip`` mask names those bodies,
+//     p->branch the tick's).
 //   - The parameter block (Params) lives in device memory; the host writes
 //     it before each launch (k = 0, K, the frames' and output packs'
 //     addresses) and reads it back with the last tick's modes: each kernel
@@ -67,10 +80,10 @@
 //     kernel node's arguments are fixed when the graph is built, the
 //     block's contents are not.
 //   - sched_program_build assembles the graph: a WHILE node whose body is
-//     scan_step -> tick_select -> one IF node a tick body -> escape_select
-//     -> IF few, IF many -> scan_commit, each IF node's body a child graph
-//     node of a PyTorch-captured body.  It walks each body's nodes first
-//     and refuses a node type a conditional body cannot hold.
+//     tick_select -> one IF node a tick body -> escape_select -> IF few,
+//     IF many -> scan_commit, each IF node's body [scan_step ->] a child
+//     graph node of a PyTorch-captured body.  It walks each body's nodes
+//     first and refuses a node type a conditional body cannot hold.
 //
 // The launchers run on the caller's stream, allocate nothing and return the
 // CUDA error of the launch; sched_program_* return a CUDA error, -1 for a
@@ -100,7 +113,7 @@ constexpr int kMinDriver = 12040;
 // The parameter block, 32 64-bit words (kernels/schedule.py PARAM_WORDS
 // and its word indices mirror it).
 struct Params {
-  long long k;           // 0: the tick scan_step copies next
+  long long k;           // 0: the tick tick_select selects next
   long long K;           // 1: ticks this launch
   long long force;       // 2: 1 + the host's bucket slots (0: schedule)
   long long steps;       // 3: scan_step's runs this launch
@@ -109,7 +122,10 @@ struct Params {
   long long frames_src;  // 6: tick 0's frames
   long long out[4];      // 7-10: the output packs, (rows, K, N) each
   long long commits;     // 11: scan_commit's runs this launch
-  long long pad[4];      // 12-15
+  long long frame_at;    // 12: the tick's frames (tick_select writes it)
+  long long row_steps;   // 13: scan_step's runs that copied rows
+  long long whole_steps; // 14: scan_step's runs that copied whole
+  long long pad;         // 15
   long long runs[16];    // 16-31: runs this launch: tick_select's by the
                          // body it chose (0..), escape_select's at 8 + esel
 };
@@ -361,14 +377,16 @@ static_assert(kMaxSelCtas == kSelThreads, "a CTA's counts a thread");
 // wbtrack, m + 2 full (overload "full"); m = cap / kb.  Writes the served
 // slots (cap of them, oldest first, padded with n) and the new pend_age.
 // force = 1 + slots (the host's own bucket, step_bucket): the bucket over
-// that many slots (0: track) on the host's idx, pend_age kept.  Then k
-// advanced and the loop's handle (loop.n == 0: none) set to k < K.
+// that many slots (0: track) on the host's idx, pend_age kept.  Then tick
+// k's frames' address written (frame_at), k advanced and the loop's handle
+// (loop.n == 0: none) set to k < K.
 __global__ void __launch_bounds__(kSelThreads)
     tick_select_kernel(const int* __restrict__ mode,
                        const int* __restrict__ age, int n, int kb, int cap,
                        int rotate, int span, long long* __restrict__ idx,
                        int* __restrict__ age_out, Params* p,
-                       unsigned char* scratch, Handles h, Handles loop) {
+                       unsigned char* scratch, long long frame_bytes,
+                       Handles h, Handles loop) {
   __shared__ unsigned long long key[kSelKeys];
   __shared__ int wsum[kSelWarps];
   __shared__ int offs[kMaxSelCtas + 1];
@@ -454,6 +472,7 @@ __global__ void __launch_bounds__(kSelThreads)
     p->branch = branch;
     p->runs[branch] += 1;
     set_handles(h, branch);
+    p->frame_at = p->frames_src + p->k * frame_bytes;
     p->k += 1;
     if (loop.n) cudaGraphSetConditional(loop.h[0], p->k < p->K ? 1u : 0u);
   }
@@ -539,30 +558,58 @@ __device__ void copy_bytes(unsigned char* __restrict__ dst,
   }
 }
 
-constexpr int kTileVectors = 4;  // scan_step's 16-byte vectors a thread
+// scan_step's 16-byte vectors a thread.  One, with streaming loads and
+// stores (evict first: the copy is read once, by the body), matched
+// copy_ (a device-to-device cudaMemcpy) on an H100 where 2, 4 or 8
+// vectors, plain loads and stores, 128 or 512 threads a CTA or a
+// grid-stride loop were 0.3-6% slower (tools/torch_copy_variants.py,
+// PERF.md).
+constexpr int kTileVectors = 1;
+constexpr int kCopyNone = 0, kCopyRows = 1, kCopyWhole = 2;
 
-// The grid that gives each of scan_step's threads kTileVectors vectors.
+// The grid.x that gives each of scan_step's threads kTileVectors vectors
+// of a copy of ``bytes``.
 int step_ctas(long long bytes) {
   const long long tile = kCopyThreads * kTileVectors * 16ll;
   const long long c = (bytes + tile - 1) / tile;
   return c < 1 ? 1 : c > (1 << 30) ? (1 << 30) : static_cast<int>(c);
 }
 
-// Tick k's frames into the bodies' buffer (no copy when they are it, as a
-// single tick's own frames may be); a CTA a tile of kTileVectors vectors
-// a thread, each loaded before any is stored (one pass over the grid, as
-// step_ctas sizes it; off the 16-byte grid, bytes strided over it).
+// Tick k's frames, at p->frame_at, into the bodies' buffer ``frames``.
+// Whole mode (rows null): ``bytes`` bytes.  Rows mode: blockIdx.y a slot,
+// the row rows[y] of ``bytes`` bytes to the same row (a slot outside [0,
+// n) is padding: skipped).  A CTA a tile of kTileVectors vectors a thread,
+// each loaded before any is stored (one pass over the grid, as step_ctas
+// sizes it), streamed; off the 16-byte grid, bytes strided over the CTAs.
+// Nothing is copied where source and buffer are one, nor after a tick
+// body of the mask ``skip`` (bit b: body b, p->branch the tick's), which
+// copied the whole tick.  Each run counts in p->steps, a run that copied
+// in its mode's word.
 __global__ void __launch_bounds__(kCopyThreads)
     scan_step_kernel(Params* p, unsigned char* __restrict__ frames,
-                     long long frame_bytes) {
-  const long long k = p->k;
-  if (blockIdx.x == 0 && threadIdx.x == 0) p->steps += 1;
+                     long long bytes, const long long* __restrict__ rows,
+                     int n, unsigned skip) {
+  const long long tick = p->branch;
+  const bool done = tick >= 0 && tick < 32 && ((skip >> tick) & 1u);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    p->steps += 1;
+    if (!done) (rows ? p->row_steps : p->whole_steps) += 1;
+  }
+  if (done) return;
+  long long off = 0;
+  if (rows) {
+    const long long r = rows[blockIdx.y];
+    if (r < 0 || r >= n) return;
+    off = r * bytes;
+  }
   const unsigned char* src =
-      reinterpret_cast<const unsigned char*>(p->frames_src) + k * frame_bytes;
-  if (src != frames && aligned16(frames, src, frame_bytes)) {
+      reinterpret_cast<const unsigned char*>(p->frame_at) + off;
+  unsigned char* dst = frames + off;
+  if (src == dst) return;
+  if (aligned16(dst, src, bytes)) {
     const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(frames);
-    const long long nv = frame_bytes / 16;
+    int4* d = reinterpret_cast<int4*>(dst);
+    const long long nv = bytes / 16;
     const long long base =
         static_cast<long long>(blockIdx.x) * kCopyThreads * kTileVectors +
         threadIdx.x;
@@ -570,15 +617,15 @@ __global__ void __launch_bounds__(kCopyThreads)
 #pragma unroll
     for (int j = 0; j < kTileVectors; ++j) {
       const long long i = base + j * kCopyThreads;
-      if (i < nv) v[j] = s[i];
+      if (i < nv) v[j] = __ldcs(s + i);
     }
 #pragma unroll
     for (int j = 0; j < kTileVectors; ++j) {
       const long long i = base + j * kCopyThreads;
-      if (i < nv) d[i] = v[j];
+      if (i < nv) __stcs(d + i, v[j]);
     }
-  } else if (src != frames) {
-    copy_bytes(frames, src, frame_bytes);
+  } else {
+    copy_bytes(dst, src, bytes);
   }
 }
 
@@ -695,8 +742,39 @@ int add_conditional(cudaGraphNode_t* node, cudaGraph_t g,
 enum BuildArg {
   kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEsc, kEidx,
   kEb, kFrames, kFrameBytes, kSegs, kNseg, kFew, kMany, kSelScratch,
-  kSelBytes, kEscScratch, kEscBytes, kNumArgs
+  kSelBytes, kEscScratch, kEscBytes, kCopies, kNumArgs
 };
+
+// What a body's IF graph runs: scan_step in its copy mode (c: mode, rows,
+// slots: sched_program_build's copies), then the body ``g``; skip as the
+// kernel's.
+int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
+             const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
+             cudaGraph_t g, const long long* c, Params* p,
+             unsigned char* frames, long long frame_bytes, int n,
+             unsigned skip) {
+  cudaGraph_t bb;
+  int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
+  if (rc) return rc;
+  cudaGraphNode_t step;
+  size_t nstep = 0;
+  if (c[0] != kCopyNone) {
+    const long long* rows =
+        c[0] == kCopyRows ? reinterpret_cast<const long long*>(c[1]) : nullptr;
+    long long bytes = rows ? frame_bytes / n : frame_bytes;
+    const unsigned slots = rows ? static_cast<unsigned>(c[2]) : 1u;
+    void* args[] = {&p, &frames, &bytes, &rows, &n, &skip};
+    rc = add_kernel(&step, bb, nullptr, 0,
+                    reinterpret_cast<void*>(scan_step_kernel),
+                    dim3(step_ctas(bytes), slots), dim3(kCopyThreads), args);
+    if (rc) return rc;
+    nstep = 1;
+  }
+  cudaGraphNode_t inner;
+  TRY(cudaGraphAddChildGraphNode(&inner, bb, nstep ? &step : nullptr, nstep,
+                                 g));
+  return 0;
+}
 
 int build(Program* prog, const long long* a, const unsigned long long* bodies,
           int nb) {
@@ -715,16 +793,10 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   Params* p = reinterpret_cast<Params*>(a[kParams]);
   unsigned char* frames = reinterpret_cast<unsigned char*>(a[kFrames]);
   long long frame_bytes = a[kFrameBytes];
+  const long long* copies = reinterpret_cast<const long long*>(a[kCopies]);
   Handles hl = no_handles();
   hl.n = 1;
   hl.h[0] = loop;
-  void* step_args[] = {&p, &frames, &frame_bytes};
-  cudaGraphNode_t step;
-  rc = add_kernel(&step, body, nullptr, 0,
-                  reinterpret_cast<void*>(scan_step_kernel),
-                  dim3(step_ctas(frame_bytes)),
-                  dim3(kCopyThreads), step_args);
-  if (rc) return rc;
 
   // the tick's bodies: IF nodes after the select kernel, which the
   // handles need to exist before it is added
@@ -748,20 +820,19 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   const SelGrid sg = select_grid(n, cap);
   int span = sg.span;
   void* sel_args[] = {&mode, &age, &n, &kb, &cap, &rotate, &span, &idx,
-                      &age_out, &p, &sel_scratch, &hs, &hl};
+                      &age_out, &p, &sel_scratch, &frame_bytes, &hs, &hl};
   cudaGraphNode_t sel;
-  rc = add_kernel(&sel, body, &step, 1,
+  rc = add_kernel(&sel, body, nullptr, 0,
                   reinterpret_cast<void*>(tick_select_kernel), dim3(sg.ctas),
                   dim3(kSelThreads), sel_args);
   if (rc) return rc;
+  unsigned whole = 0;  // the tick bodies that copy the whole tick
   for (int b = 0; b < nb; ++b) {
-    cudaGraph_t bb;
-    rc = add_conditional(&ifs[b], body, &sel, 1, hb[b], cudaGraphCondTypeIf,
-                         &bb);
+    rc = add_body(&ifs[b], body, &sel, hb[b],
+                  reinterpret_cast<cudaGraph_t>(bodies[b]), copies + 3 * b, p,
+                  frames, frame_bytes, n, 0u);
     if (rc) return rc;
-    cudaGraphNode_t inner;
-    TRY(cudaGraphAddChildGraphNode(&inner, bb, nullptr, 0,
-                                   reinterpret_cast<cudaGraph_t>(bodies[b])));
+    if (copies[3 * b] == kCopyWhole) whole |= 1u << b;
   }
 
   // the escape fallback, where a band is on
@@ -797,22 +868,16 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     if (rc) return rc;
     nlast = 0;
     if (few) {
-      cudaGraph_t bb;
-      rc = add_conditional(&tail[nlast], body, &esel, 1, hf,
-                           cudaGraphCondTypeIf, &bb);
+      rc = add_body(&tail[nlast], body, &esel, hf,
+                    reinterpret_cast<cudaGraph_t>(a[kFew]), copies + 3 * nb,
+                    p, frames, frame_bytes, n, whole);
       if (rc) return rc;
-      cudaGraphNode_t inner;
-      TRY(cudaGraphAddChildGraphNode(&inner, bb, nullptr, 0,
-                                     reinterpret_cast<cudaGraph_t>(a[kFew])));
       ++nlast;
     }
-    cudaGraph_t bb;
-    rc = add_conditional(&tail[nlast], body, &esel, 1, hm,
-                         cudaGraphCondTypeIf, &bb);
+    rc = add_body(&tail[nlast], body, &esel, hm,
+                  reinterpret_cast<cudaGraph_t>(a[kMany]),
+                  copies + 3 * (nb + 1), p, frames, frame_bytes, n, whole);
     if (rc) return rc;
-    cudaGraphNode_t inner;
-    TRY(cudaGraphAddChildGraphNode(&inner, bb, nullptr, 0,
-                                   reinterpret_cast<cudaGraph_t>(a[kMany])));
     ++nlast;
     last = tail;
   }
@@ -847,7 +912,7 @@ extern "C" int tick_select_launch(const void* mode, const void* age,
                                   void* idx, void* age_out, void* params,
                                   void* scratch, long long scratch_bytes,
                                   int n, int kb, int cap, int rotate,
-                                  void* stream) {
+                                  long long frame_bytes, void* stream) {
   if (!check_tick(n, kb, cap) ||
       !check_select(n, cap, scratch, scratch_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -858,7 +923,7 @@ extern "C" int tick_select_launch(const void* mode, const void* age,
       static_cast<const int*>(mode), static_cast<const int*>(age), n, kb, cap,
       rotate, g.span, static_cast<long long*>(idx), static_cast<int*>(age_out),
       static_cast<Params*>(params), static_cast<unsigned char*>(scratch),
-      no_handles(), no_handles());
+      frame_bytes, no_handles(), no_handles());
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -885,13 +950,18 @@ extern "C" int select_floor_launch(int n, int cap, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int scan_step_launch(void* params, void* frames,
-                                long long frame_bytes, void* stream) {
-  if (frame_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  scan_step_kernel<<<step_ctas(frame_bytes), kCopyThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+// Whole mode (rows null, nrows 0): ``bytes`` of the tick's frames; rows
+// mode: rows[0, nrows) of ``bytes`` each, slots outside [0, n) skipped.
+extern "C" int scan_step_launch(void* params, void* frames, long long bytes,
+                                const void* rows, int nrows, int n,
+                                unsigned skip, void* stream) {
+  if (bytes < 0 || (rows != nullptr) != (nrows > 0) || nrows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  scan_step_kernel<<<dim3(step_ctas(bytes), rows ? nrows : 1), kCopyThreads,
+                     0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<Params*>(params), static_cast<unsigned char*>(frames),
-      frame_bytes);
+      bytes, static_cast<const long long*>(rows), n, skip);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -926,6 +996,17 @@ extern "C" int sched_program_build(const void* args, int nargs,
   int version = 0;
   TRY(cudaDriverGetVersion(&version));
   if (version < kMinDriver) return -1;
+  // each body's copy: (mode, rows, slots), nb + 2 of them (few, many last)
+  const long long* c = reinterpret_cast<const long long*>(a[kCopies]);
+  if (c == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < nb + 2; ++i) {
+    const long long m = c[3 * i];
+    if (m < kCopyNone || m > kCopyWhole ||
+        (m == kCopyRows && (c[3 * i + 1] == 0 || c[3 * i + 2] < 1 ||
+                            c[3 * i + 2] > 65535 || a[kFrameBytes] % n))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const unsigned long long* b = static_cast<const unsigned long long*>(bodies);
   for (int i = 0; i < nb + 2; ++i) {
     const unsigned long long g = i < nb ? b[i] : a[kFew + i - nb];

@@ -26,6 +26,7 @@ import torch
 from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
 from .histbins import hist_bins
+from .launch import frames_source as _frames_source
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
 from .launch import sm_count as _sm_count
@@ -162,7 +163,11 @@ def histpdf_band(frames, rects, model=None, band=None):
     (bh, bw); each rect's [x, y] places the band (clipped into the frame).
     Returns (cur (N, 4096) f32 counts of the band, pdf (N, bh, bw) f32 =
     min(model/cur, 1)[bin]) -- one band-local camshift tick's pixel work,
-    C from the band's size (``cluster_split``)."""
+    C from the band's size (``cluster_split``).  Under
+    ``launch.frames_at(frames, source)`` the pdf mode reads its frames at
+    ``source`` (the serving program's all-CS and bucket bodies read tick
+    k's frames where they lie): on the card the kernel loads their address
+    from source's word, on the CPU the twin reads source."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
     _check_rects(rects, N)
@@ -172,8 +177,20 @@ def histpdf_band(frames, rects, model=None, band=None):
         return _counts("histpdf_band_hist", frames, rects)
     _check_table("model", model, N)
     bh, bw = _check_band(band, H, W)
+    source = _frames_source(frames)
     if not _on_cuda(frames, rects, model):
+        if source is not None:
+            if source.shape != frames.shape or source.dtype != frames.dtype:
+                raise ValueError("frames_at's source must match the frames")
+            frames = source
         return histpdf_band_plain(frames, rects, model, (bh, bw))
+    at = 0
+    if source is not None:
+        if source.dtype != torch.int64 or source.numel() != 1 or \
+                source.device != frames.device:
+            raise ValueError("on the card frames_at's source is a (1,) i64 "
+                             "word on the frames' device")
+        at = source.data_ptr()
     if model.data_ptr() % 16:
         raise ValueError("model must be 16-byte aligned (float4 loads)")
     cur = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
@@ -183,7 +200,7 @@ def histpdf_band(frames, rects, model=None, band=None):
         with torch.cuda.device(frames.device):
             _launch("histpdf_band", "histpdf_band_launch", frames.data_ptr(),
                     rects.data_ptr(), model.data_ptr(), cur.data_ptr(),
-                    pdf.data_ptr(), N, H, W, bh, bw, c)
+                    pdf.data_ptr(), N, H, W, bh, bw, c, at)
     return cur, pdf
 
 

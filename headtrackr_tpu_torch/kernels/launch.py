@@ -11,6 +11,10 @@ program adds each body's tally times the runs the card reports for it).
 code (the per-tick path's eager branches, the state machine's host index
 lists, the host escape recompute), so a run can show that the
 device-scheduled path never reached them.
+
+``frames_at`` redirects a kernel that can read its frames in place
+(``histpdf_band``) from one buffer to where a tick's frames lie: the
+serving program's bodies read tick k of a scan without a copy.
 """
 
 import contextlib
@@ -19,7 +23,8 @@ import functools
 import torch
 
 __all__ = ["launches", "host_paths", "reset_launches", "capturing",
-           "replayed", "launch", "on_cuda", "sm_count"]
+           "replayed", "frames_at", "frames_source", "launch", "on_cuda",
+           "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
@@ -29,6 +34,7 @@ launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
 host_paths = {"eager_branch": 0, "dispatch": 0, "recompute": 0}
 
 _tally = None  # the open ``capturing`` block's tally
+_redirect = None  # the open ``frames_at`` block's (buffer, source)
 
 
 def reset_launches():
@@ -47,6 +53,33 @@ def capturing():
         yield _tally
     finally:
         _tally = prev
+
+
+@contextlib.contextmanager
+def frames_at(buffer, source):
+    """Inside the block, a kernel that reads its frames in place reads
+    those of ``buffer`` at ``source`` instead: on the card a (1,) i64
+    tensor whose word holds their device address when the kernel runs (the
+    serving program's parameter block word that tick_select sets to tick
+    k's frames), on the CPU a tensor of ``buffer``'s shape (tick k's
+    frames, which the plain twin reads).  Only ``buffer`` itself is
+    redirected, never a view or a copy of it (a sub-batch's
+    ``index_select``).  source None: no redirect."""
+    global _redirect
+    prev, _redirect = _redirect, (None if source is None
+                                  else (buffer, source))
+    try:
+        yield
+    finally:
+        _redirect = prev
+
+
+def frames_source(frames):
+    """The source ``frames_at`` gives ``frames`` (the very tensor), or
+    None."""
+    if _redirect is not None and frames is _redirect[0]:
+        return _redirect[1]
+    return None
 
 
 def replayed(tally):

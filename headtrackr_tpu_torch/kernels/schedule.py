@@ -7,7 +7,9 @@ their plain twins, and the program's CUDA graph.
                  pend_age (_aged); and :426 scan_steps' tick count
   escape_select  :225 _escape_checked: none / few / many (its lax.switch)
                  and the top_k of the escaped streams
-  scan_step      :426 scan_steps (lax.scan): tick k's frames
+  scan_step      :426 scan_steps (lax.scan): of tick k's frames, which
+                 tick_select locates, the rows a body's PyTorch ops read,
+                 into the bodies' buffer (rows or whole)
   scan_commit    the scan's carried state and its stacked outputs
 
 None replaces a Pallas kernel: the reference leaves these to XLA's control
@@ -34,8 +36,8 @@ from .launch import launch, on_cuda
 __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "escape_select_plain", "scan_step", "scan_step_plain",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
-           "PARAM_WORDS", "select_blocks", "scratch_bytes", "scratch",
-           "select_floor"]
+           "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
+           "scratch", "select_floor"]
 
 MODE_VJ, MODE_CS = 1, 2
 # a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
@@ -48,13 +50,17 @@ SELECT_MAX_CTAS = 256
 PARAM_WORDS = 32
 P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
 P_COMMITS = 11  # scan_commit's runs this launch (P_STEPS: scan_step's)
+P_FRAME_AT = 12  # the tick's frames: tick_select writes P_FRAMES + k bytes
+P_ROW_STEPS, P_WHOLE_STEPS = 13, 14  # scan_step's runs that copied, by mode
 P_RUNS = 16  # runs this launch: tick_select's by its body from here,
 ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
 # sched_program_build's argument words (csrc/schedule.cu BuildArg)
 BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
               "rotate", "esc", "eidx", "eb", "frames", "frame_bytes", "segs",
               "nseg", "few", "many", "sel_scratch", "sel_bytes",
-              "esc_scratch", "esc_bytes")
+              "esc_scratch", "esc_bytes", "copies")
+# scan_step's copy modes (csrc/schedule.cu kCopyNone, kCopyRows, kCopyWhole)
+COPY_MODES = ("none", "rows", "whole")
 MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
 # cudaGraphNodeType
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -191,11 +197,18 @@ def escape_select_plain(esc, eb):
     return sel, eidx
 
 
-def scan_step_plain(seq, k, frames):
-    """The scan_step kernel's twin: tick k's frames of ``seq`` into
-    ``frames`` (nothing when they are it)."""
-    if seq[k].data_ptr() != frames.data_ptr():
-        frames.copy_(seq[k])
+def scan_step_plain(src, frames, rows=None):
+    """The scan_step kernel's twin: a tick's frames ``src`` into the
+    buffer ``frames`` of their shape, whole, or with ``rows`` (i64 slots)
+    only those rows into the same rows, a slot outside [0, N) skipped
+    (padding); nothing when they are one."""
+    if src.data_ptr() == frames.data_ptr():
+        return
+    if rows is None:
+        frames.copy_(src)
+        return
+    rows = rows[(rows >= 0) & (rows < frames.shape[0])]
+    frames.index_copy_(0, rows, src.index_select(0, rows))
 
 
 def scan_commit_plain(k, carry, rows):
@@ -216,12 +229,15 @@ def _check_select(params, n, cap):
     select_blocks(n, cap)  # raises past the grid's streams
 
 
-def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
+def tick_select(mode, age, kb, cap, rotate, idx, age_out, params,
+                frame_bytes=0):
     """One tick's selection into ``idx`` (cap,) i64 and ``age_out`` (N,)
     i32, its branch into ``params[P_BRANCH]`` and one run into that
     branch's ``params[P_RUNS + branch]``; ``params[P_FORCE]`` is read (see
-    tick_select_plain) and ``params[P_K]`` advanced.  The kernel's
-    scratch buffer is the kept one of ``scratch``."""
+    tick_select_plain), the tick's frames' address ``params[P_FRAMES] +
+    params[P_K] * frame_bytes`` written into ``params[P_FRAME_AT]`` and
+    ``params[P_K]`` advanced.  The kernel's scratch buffer is the kept one
+    of ``scratch``."""
     n = mode.shape[0]
     _check_select(params, n, cap)
     if mode.dtype != torch.int32 or age.dtype != torch.int32 or \
@@ -238,6 +254,7 @@ def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
         age_out.copy_(a)
         params[P_BRANCH] = branch
         params[P_RUNS + branch] += 1
+        params[P_FRAME_AT] = params[P_FRAMES] + params[P_K] * frame_bytes
         params[P_K] += 1
         return
     buf = scratch(n, cap, mode.device)
@@ -245,7 +262,7 @@ def tick_select(mode, age, kb, cap, rotate, idx, age_out, params):
         launch("tick_select", "tick_select_launch", mode.data_ptr(),
                age.data_ptr(), idx.data_ptr(), age_out.data_ptr(),
                params.data_ptr(), buf.data_ptr(), buf.numel(), n, kb, cap,
-               int(bool(rotate)))
+               int(bool(rotate)), int(frame_bytes))
 
 
 def escape_select(esc, eb, eidx, params):
@@ -283,20 +300,35 @@ def select_floor(n, cap):
         raise RuntimeError(f"select_floor_launch failed: cudaError {err}")
 
 
-def scan_step(params, frames):
-    """Tick ``params[P_K]``'s frames, read at ``params[P_FRAMES]`` (the
-    address of tick 0's, ticks ``frames.numel()`` bytes apart), into
-    ``frames``; one run into ``params[P_STEPS]``.  CUDA only: the frames'
-    address is a device word."""
+def scan_step(params, frames, rows=None, skip=0):
+    """The tick's frames, read at the address ``params[P_FRAME_AT]``
+    (tick_select's), into the buffer ``frames`` (N, ...) u8: whole, or
+    with ``rows`` (S,) i64 only those rows into the same rows (a slot
+    outside [0, N) skipped).  skip: a mask of tick bodies (bit b: body b)
+    after which nothing is copied (the tick's body, ``params[P_BRANCH]``,
+    copied the whole tick).  One run into ``params[P_STEPS]``, and a run
+    that copied into ``params[P_ROW_STEPS]`` or ``[P_WHOLE_STEPS]``.
+    CUDA only: the frames' address is a device word (the twin is
+    scan_step_plain)."""
     if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,) or \
-            frames.dtype != torch.uint8:
+            frames.dtype != torch.uint8 or frames.dim() < 1:
         raise ValueError("scan_step takes (32,) int64 params and u8 frames")
-    if not on_cuda(params, frames):
+    tensors = (params, frames) if rows is None else (params, frames, rows)
+    if not on_cuda(*tensors):
         raise ValueError("scan_step reads a device address: CUDA tensors "
                          "only (its twin is scan_step_plain)")
+    n = frames.shape[0]
+    if rows is None:
+        nbytes, ptr, nrows = frames.numel(), 0, 0
+    else:
+        if rows.dtype != torch.int64 or rows.dim() != 1 or \
+                not 1 <= rows.numel() <= 65535:
+            raise ValueError("scan_step's rows are 1 to 65,535 i64 slots")
+        nbytes, ptr, nrows = frames.numel() // n, rows.data_ptr(), \
+            rows.numel()
     with torch.cuda.device(frames.device):
         launch("scan_step", "scan_step_launch", params.data_ptr(),
-               frames.data_ptr(), frames.numel())
+               frames.data_ptr(), nbytes, ptr, nrows, n, int(skip))
 
 
 def segments(carry, rows, device):
@@ -345,20 +377,29 @@ def _error(lib, rc, names):
 
 class Graph:
     """The serving program's CUDA graph (csrc/schedule.cu
-    sched_program_build): a WHILE node over one tick (scan_step ->
-    tick_select -> an IF node a body -> escape_select -> IF few, IF many ->
-    scan_commit), each IF node's body a child graph node of a
-    PyTorch-captured body (``torch.cuda.CUDAGraph(keep_graph=True)``'s
-    ``raw_cuda_graph()``).  ``bodies``: {name: raw graph} in branch order;
-    ``few`` / ``many``: raw graphs or 0; ``args``: the device addresses
-    and sizes of BUILD_ARGS.  Building raises on a body node type a
+    sched_program_build): a WHILE node over one tick (tick_select -> an IF
+    node a body -> escape_select -> IF few, IF many -> scan_commit), each
+    IF node's body a child graph node of a PyTorch-captured body
+    (``torch.cuda.CUDAGraph(keep_graph=True)``'s ``raw_cuda_graph()``),
+    after a scan_step node where the body copies.  ``bodies``: {name: raw
+    graph} in branch order; ``few`` / ``many``: raw graphs or 0;
+    ``copies``: each body's copy, bodies then few and many, as (mode in
+    COPY_MODES, rows tensor or None); ``args``: the device addresses and
+    sizes of BUILD_ARGS.  Building raises on a body node type a
     conditional body cannot hold, on a driver older than 12.4 and on any
     CUDA error; so does ``launch``."""
 
-    def __init__(self, bodies, few, many, **args):
+    def __init__(self, bodies, few, many, copies, **args):
         from .build import load_library
         self._lib = load_library()
-        args.update(few=few, many=many)
+        if len(copies) != len(bodies) + 2:
+            raise ValueError("a copy a body, few and many")
+        table = (ctypes.c_longlong * (3 * len(copies)))(*[
+            v for mode, rows in copies
+            for v in (COPY_MODES.index(mode),
+                      0 if rows is None else rows.data_ptr(),
+                      0 if rows is None else rows.numel())])
+        args.update(few=few, many=many, copies=ctypes.addressof(table))
         words = (ctypes.c_longlong * len(BUILD_ARGS))(
             *[int(args[k]) for k in BUILD_ARGS])
         graphs = (ctypes.c_ulonglong * len(bodies))(*bodies.values())

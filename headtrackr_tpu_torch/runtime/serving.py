@@ -37,9 +37,14 @@ and their pend_age are chosen on the card (kernels/schedule.py
 tick_select, which sets the CUDA graph conditional handle of one IF node
 a branch), and so is the band's escape fallback (escape_select: none, a
 sub-batch of ``escape_bucket`` slots, or the batch); a WHILE node runs the
-K ticks of ``run_scan`` (scan_step, scan_commit).  Its select kernels are
-a grid of CTAs each, whose last CTA merges the others' counts and
-candidates, so the program serves any batch whose frames fit the card.
+K ticks of ``run_scan`` (scan_commit).  The ticks' frames stay where the
+caller staged them: tick_select writes where tick k's lie, the all-CS
+tick under bandHist reads them there (its one frame reader, histpdf_band,
+reads in place), and scan_step copies into the bodies' buffer only what
+another body's PyTorch ops read (``_Steps.copy_mode``).  Its select
+kernels are a grid of CTAs each, whose last CTA merges the others' counts
+and candidates, so the program serves any batch whose frames fit the
+card.
 What bounds N on one card: the card's memory (one tick's frames, a scan's
 staged ticks, the state and the bodies' buffers: 10,240 streams of
 320x240 stage 9.4 GB a scan of 4 ticks), and 65,535 streams, the most
@@ -221,7 +226,12 @@ class _Buffers:
     (fields, N) tensor a dtype (``packs``, laid out at the first write),
     which every body writes whole and the program's escape bodies also
     read.  A body keeps nothing it allocates past its capture, so all of a
-    batch size's bodies capture into one memory pool (``pool``)."""
+    batch size's bodies capture into one memory pool (``pool``).  On the
+    card ``params`` is the serving program's parameter block, whose word
+    ``frame_at`` holds where the tick's frames lie (tick_select writes it):
+    a body that reads its frames in place reads them there, and the
+    program copies into ``frames`` only what a body's PyTorch ops read of
+    them (``_Steps.copy_mode``)."""
 
     def __init__(self, state, frames_shape, device, cap, escape_bucket):
         n = frames_shape[0]
@@ -235,10 +245,14 @@ class _Buffers:
                                device=device)
         self.age = torch.zeros((n,), dtype=torch.int32, device=device)
         self.out = None
-        self.pool = None
+        self.pool = self.params = self.frame_at = None
         if device.type == "cuda":
             with torch.cuda.device(device):
                 self.pool = torch.cuda.graph_pool_handle()
+                self.params = torch.zeros((schedule.PARAM_WORDS,),
+                                          dtype=torch.int64, device=device)
+            self.frame_at = self.params[schedule.P_FRAME_AT:
+                                        schedule.P_FRAME_AT + 1]
 
     def write(self, state, out):
         """A body's results into ``state_out`` and ``out``."""
@@ -265,10 +279,20 @@ class _TickGraph:
     buffers' ``state_out`` and ``out``.  On the card it is captured in a
     CUDA graph (keep_graph, for the program's conditional nodes; in the
     buffers' pool; a capture failure raises; ``launches`` tallies the
-    kernel launches one run makes); on the CPU ``run`` calls the tick."""
+    kernel launches one run makes); on the CPU ``run`` calls the tick.
 
-    def __init__(self, tick, bufs, extra):
+    ``copy`` (kernels/schedule.py COPY_MODES) is what the program copies
+    into the buffers' frames before the body: "none", "rows" (the slots
+    ``rows``) or "whole".  A body that copies less than the whole tick
+    reads its frames in place where it can: it is captured, and run on
+    the CPU, under ``launch.frames_at`` (on the card the buffers'
+    ``frame_at`` word, on the CPU tick k's frames), so its
+    ``histpdf_band`` reads the tick's frames where they lie and anything
+    else reads the buffer."""
+
+    def __init__(self, tick, bufs, extra, copy="whole", rows=None):
         self.bufs, self.extra = bufs, extra
+        self.copy, self.rows = copy, rows
         self.device = bufs.device
         self.graph = None
         self.launches = dict.fromkeys(launch.launches, 0)
@@ -284,31 +308,38 @@ class _TickGraph:
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with launch.capturing() as self.launches, \
                     torch.cuda.graph(self.graph, pool=bufs.pool):
-                self.run()
+                self.run(bufs.frame_at)
         # not kept on the card: a graph holding its _Steps' bound method
         # makes a reference cycle, which the cyclic collector may free while
         # another graph captures, destroying CUDA objects mid-capture
         del self.tick
 
-    def run(self):
-        """Run the body once, uncaptured (its warm-up and capture on the
-        card, the program's twin on the CPU)."""
-        self.bufs.write(*self.tick(self.bufs.state_in, self.bufs.frames,
-                                   *self.extra))
+    def run(self, source=None):
+        """Run the body once (its warm-up, which reads the buffer, and its
+        capture on the card; the program's twin on the CPU); ``source``:
+        where the tick's frames lie, for a body that copies less than the
+        whole tick (``launch.frames_at``)."""
+        with launch.frames_at(self.bufs.frames,
+                              None if self.copy == "whole" else source):
+            self.bufs.write(*self.tick(self.bufs.state_in, self.bufs.frames,
+                                       *self.extra))
 
 
 class _Program:
     """The device-scheduled tick at a batch size, K ticks a launch: the
     reference's ``auto_step`` with its ``_escape_checked`` fallback, in
     ``scan_steps``' loop.  Each tick, as kernels/schedule.py's kernels
-    choose: its frames into the bodies' buffer (scan_step); the branch,
-    the served slots and the new pend_age (tick_select) and the branch's
-    body; with a band, the escape fallback's body, none, ``few`` (the
-    full-frame "track" step from the pre-step state on escape_bucket
-    slots) or ``many`` (on the batch, then a per-stream select)
-    (escape_select); then the tick's outputs into row k of the scan's
-    output packs and the new state, pend_age from tick_select, over
-    ``state_in`` (scan_commit).  ``escaped`` is stamped after the merge.
+    choose: the branch, the served slots, the new pend_age and where the
+    tick's frames lie (tick_select) and the branch's body; with a band,
+    the escape fallback's body, none, ``few`` (the full-frame "track" step
+    from the pre-step state on escape_bucket slots) or ``many`` (on the
+    batch, then a per-stream select) (escape_select); then the tick's
+    outputs into row k of the scan's output packs and the new state,
+    pend_age from tick_select, over ``state_in`` (scan_commit).
+    ``escaped`` is stamped after the merge.  Ahead of a body, scan_step
+    copies into the bodies' frame buffer what its PyTorch ops read (each
+    body's ``copy``: none, its slots' rows or the whole tick; an escape
+    body copies nothing after a tick body that copied whole).
 
     On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
     IF node a body), launched once for the K ticks, with one host read at
@@ -325,6 +356,7 @@ class _Program:
         n = state.mode.shape[0]
         self.device = steps.device
         self.bufs = bufs = steps.buffers(state)
+        self.steps = dict.fromkeys(("runs", "rows", "whole"), 0)
         self.kb, self.cap = min(steps.bucket, n), steps.chunk_cap(n)
         self.rotate = steps.overload == "rotate"
         self.eb = steps.escape_bucket
@@ -352,9 +384,11 @@ class _Program:
         self.launches = 0  # launches made (a K-tick scan is one)
         if self.device.type != "cuda":
             return
+        self._params = bufs.params
+        copies = [(b.copy, b.rows) for b in self.bodies]
+        copies += [(b.copy, b.rows) if b is not None else ("none", None)
+                   for b in (self.few, self.many)]
         with torch.cuda.device(self.device):
-            self._params = torch.zeros((schedule.PARAM_WORDS,),
-                                       dtype=torch.int64, device=self.device)
             self._table = schedule.segments(self.carry, self.rows,
                                             self.device)
             self._scratch = [torch.zeros(schedule.scratch_bytes(n, c),
@@ -366,7 +400,7 @@ class _Program:
                  for k, b in zip(keys, self.bodies)},
                 self.few.graph.raw_cuda_graph() if self.few else 0,
                 self.many.graph.raw_cuda_graph() if self.many else 0,
-                mode=bufs.state_in.mode.data_ptr(),
+                copies, mode=bufs.state_in.mode.data_ptr(),
                 age=bufs.state_in.pend_age.data_ptr(),
                 idx=bufs.idx.data_ptr(), age_out=bufs.age.data_ptr(),
                 params=self._params.data_ptr(), n=n, kb=self.kb,
@@ -430,27 +464,43 @@ class _Program:
             self._done.record()
         return self, (packs, K, seq, squeeze)
 
+    def _copy_plain(self, body, src, done=False):
+        """scan_step's twin ahead of ``body`` (its copy, tick k's frames
+        ``src``; ``done``: the tick's body copied the whole tick), counted
+        in ``steps`` as the kernel counts its runs."""
+        if body.copy == "none":
+            return
+        self.steps["runs"] += 1
+        if not done:
+            self.steps[body.copy] += 1
+            schedule.scan_step_plain(src, self.bufs.frames, body.rows)
+
     def _run_plain(self, seq, force, packs):
         """The program on the CPU: the kernels' twins, their selections in
-        Python ``if``s, the bodies run uncaptured.  Returns the runs."""
+        Python ``if``s, the bodies run uncaptured, reading tick k's frames
+        in place as on the card.  Returns the runs."""
         bufs = self.bufs
         runs = [0] * (schedule.PARAM_WORDS - schedule.P_RUNS)
         rows = [(v, packs[slot], row) for v, slot, row in self.rows]
+        self.steps = dict.fromkeys(self.steps, 0)
         for k in range(seq.shape[0]):
-            schedule.scan_step_plain(seq, k, bufs.frames)
             branch, idx, age = schedule.tick_select_plain(
                 bufs.state_in.mode, bufs.state_in.pend_age, self.kb,
                 self.cap, self.rotate, force, bufs.idx)
             bufs.idx.copy_(idx)
             bufs.age.copy_(age)
-            self.bodies[branch].run()
+            body = self.bodies[branch]
+            self._copy_plain(body, seq[k])
+            body.run(seq[k])
             runs[branch] += 1
             if self.many is not None:
                 sel, eidx = schedule.escape_select_plain(bufs.out.escaped,
                                                          self.eb)
                 bufs.eidx.copy_(eidx)
                 if sel:
-                    (self.few if sel == 1 else self.many).run()
+                    esc = self.few if sel == 1 else self.many
+                    self._copy_plain(esc, seq[k], body.copy == "whole")
+                    esc.run(seq[k])
                 runs[schedule.ESCAPE_RUNS + sel] += 1
             schedule.scan_commit_plain(k, self.carry, rows)
         return runs
@@ -484,7 +534,10 @@ class _Program:
             launch.launches["tick_select"] += ticks
             launch.launches["escape_select"] += sum(
                 self.runs[schedule.ESCAPE_RUNS:])
-            launch.launches["scan_step"] += int(back[schedule.P_STEPS])
+            self.steps = {"runs": int(back[schedule.P_STEPS]),
+                          "rows": int(back[schedule.P_ROW_STEPS]),
+                          "whole": int(back[schedule.P_WHOLE_STEPS])}
+            launch.launches["scan_step"] += self.steps["runs"]
             launch.launches["scan_commit"] += int(back[schedule.P_COMMITS])
             view = self._mode_host.numpy().copy()
         else:
@@ -549,6 +602,9 @@ class _Steps:
         self.device = device
         self.frame_shape = tuple(frame_shape)
         self.band = band
+        # the all-CS tick's one frame reader is histpdf_band, which reads
+        # the tick's frames in place (copy_mode)
+        self.band_hist = band is not None and bool(config.bandHist)
         self.bucket = max(1, int(bucket))
         self.overload = overload
         self.escape_bucket = max(1, int(escape_bucket))
@@ -605,6 +661,22 @@ class _Steps:
         kb = min(self.bucket, n)
         keys = [0] + list(range(kb, self.chunk_cap(n) + 1, kb)) + ["wbtrack"]
         return keys + (["full"] if self.overload == "full" else [])
+
+    def copy_mode(self, key):
+        """What the program copies of a tick's frames into the bodies'
+        buffer before the body ``key`` (``_graphs``' keys), from what its
+        PyTorch ops read there: under bandHist the all-CS tick's only frame
+        reader is ``histpdf_band``, which reads in place ("none"); the
+        bucket's track pass does too, and its "pending" step and the few
+        escape body read their slots' rows ("rows"); every other body reads
+        the whole frames ("whole").  Without bandHist every tick body
+        copies whole, so the escape bodies copy none."""
+        if not self.band_hist:
+            return "none" if key in ("few", "many") else "whole"
+        if key == 0:
+            return "none"
+        return "rows" if key == "few" or not isinstance(key, str) \
+            else "whole"
 
     def track(self, state, frames):
         """The "track" step with the band's escape recompute."""
@@ -767,7 +839,9 @@ class _Steps:
                                "many": self._escape_many}[key], ()
             else:  # the served streams' slots, padded with N
                 tick, extra = self.bucket_device, (bufs.idx[:key],)
-            self._graphs[(n, key)] = _TickGraph(tick, bufs, extra)
+            copy = self.copy_mode(key)
+            self._graphs[(n, key)] = _TickGraph(
+                tick, bufs, extra, copy, extra[0] if copy == "rows" else None)
         return self._graphs[(n, key)]
 
     def program(self, state):

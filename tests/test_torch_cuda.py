@@ -265,8 +265,9 @@ def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     hist_mma, the default histKernel's; hist4096, the "pallas" one's; or
     the band's cluster histpdf_band, which also makes the pdf; and one pdf)
     and one launch of each schedule kernel the tick ran (escape_select only
-    with a band).  Three streams: the clip's fourth carries a face taller
-    than the band."""
+    with a band; scan_step not under bandHist, whose all-CS body reads the
+    tick's frames in place).  Three streams: the clip's fourth carries a
+    face taller than the band."""
     H, W, n = 120, 160, 3
     clip = _serving_clip(H, W, n)
     bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev, **kw)
@@ -277,8 +278,8 @@ def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     bt.step_auto(clip[18])
     torch.cuda.synchronize()
     got = {k: launches[k] - before[k] for k in launches}
-    sched = {"tick_select": 1, "scan_step": 1, "scan_commit": 1,
-             "escape_select": int("band" in kw)}
+    sched = {"tick_select": 1, "scan_step": int(not kw.get("bandHist")),
+             "scan_commit": 1, "escape_select": int("band" in kw)}
     assert got == {k: v + sched.get(k, 0)
                    for k, v in bt._graph.launches.items()}
     assert got["meanshift"] == 1 and got["take_along"] == 0
@@ -1036,6 +1037,70 @@ def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("n", [1, 3, 256])
+@pytest.mark.parametrize("shape,band", [((240, 320), (96, 128)),
+                                        ((57, 99), (24, 41))])
+def test_histpdf_band_in_place_equals_direct(dev, shape, band, n):
+    """histpdf_band's pdf mode reading its frames in place (under
+    launch.frames_at: a buffer poisoned with 255, its frames at the address
+    held in an i64 word, as the serving program's tick_select sets it) is
+    bit-equal to the direct read of the same frames: on three ticks of a
+    scan, staged on and off the 16-byte grid, eagerly and replayed from a
+    CUDA graph captured once, the word changed between replays (the
+    address is read when the kernel runs); a sub-batch of the buffer and
+    the hist-only mode are not redirected."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    g = torch.Generator().manual_seed(71 + n)
+    H, W = shape
+    bh, bw = band
+    seq = torch.stack([_hist_frames("random", n, shape, g)
+                       for _ in range(3)])
+    x = torch.randint(-20, W - bw + 21, (n,), generator=g)
+    x[: (n + 1) // 2] = x[: (n + 1) // 2].clamp(0, W - bw) // 8 * 8
+    rects = torch.stack([x, torch.randint(-20, H - bh + 21, (n,),
+                                          generator=g),
+                         torch.full((n,), bw), torch.full((n,), bh)],
+                        1).int().to(dev)
+    model = torch.randint(0, 200, (n, 4096), generator=g).float().to(dev)
+    buf = torch.full(seq.shape[1:], 255, dtype=torch.uint8, device=dev)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    for offset in (0, 5):
+        flat = torch.zeros(seq.numel() + 16, dtype=torch.uint8, device=dev)
+        staged = flat[offset:offset + seq.numel()].view(seq.shape)
+        staged.copy_(seq.to(dev))
+        want = [K.histpdf_band(staged[k], rects, model, band)
+                for k in range(3)]
+        for k in range(3):
+            word.fill_(staged[k].data_ptr())
+            before = launches["histpdf_band"]
+            with L.frames_at(buf, word):
+                got = K.histpdf_band(buf, rects, model, band)
+                sub = K.histpdf_band(buf[:n], rects, model, band)
+                hist = K.histpdf_band(buf, rects)
+            torch.cuda.synchronize()
+            assert launches["histpdf_band"] == before + 2
+            for a, b in zip(got, want[k]):
+                assert torch.equal(a, b), (offset, k)
+            poisoned = K.histpdf_band(buf, rects, model, band)
+            for a, b in zip(sub, poisoned):
+                assert torch.equal(a, b), (offset, k)
+            assert torch.equal(hist, K.histpdf_band(buf, rects))
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), L.frames_at(buf, word):
+            K.histpdf_band(buf, rects, model, band)
+        torch.cuda.current_stream().wait_stream(side)
+        with L.frames_at(buf, word), torch.cuda.graph(graph):
+            out = K.histpdf_band(buf, rects, model, band)
+        for k in (2, 0, 1):
+            word.fill_(staged[k].data_ptr())
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(out, want[k]):
+                assert torch.equal(a, b), (offset, k, "graph")
+
+
 @pytest.mark.parametrize("kw", [{}, dict(band=(64, 96), bandHist=True)])
 def test_mesh_of_two_shards_equals_meshless(dev, kw):
     """stream_mesh([cuda:0] * 2) over 8 streams: each tick's outputs and
@@ -1504,6 +1569,7 @@ def test_schedule_select_kernels_equal_twins(dev, n):
                 for force in (0, 1 + kb) if trial == 4 else (0,):
                     params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
                     params[S.P_FORCE] = force
+                    params[S.P_K], params[S.P_FRAMES] = trial, 1 << 36
                     idx = torch.randint(0, n + 1, (cap,), generator=g)
                     want = S.tick_select_plain(mode, age, kb, cap, rotate,
                                                force, idx)
@@ -1511,10 +1577,13 @@ def test_schedule_select_kernels_equal_twins(dev, n):
                         torch.empty(n, dtype=torch.int32, device=dev)
                     before = launches["tick_select"]
                     S.tick_select(mode.to(dev), age.to(dev), kb, cap, rotate,
-                                  gi, ga, gp)
+                                  gi, ga, gp, frame_bytes=230400 + n)
                     torch.cuda.synchronize()
                     assert launches["tick_select"] == before + 1
                     where = f"n {n} trial {trial} kb {kb} rotate {rotate}"
+                    assert int(gp[S.P_K]) == trial + 1, where
+                    assert int(gp[S.P_FRAME_AT]) == \
+                        (1 << 36) + trial * (230400 + n), where
                     assert int(gp[S.P_BRANCH]) == want[0], where
                     assert int(gp[S.P_RUNS + want[0]]) == 1, where
                     assert torch.equal(gi.cpu(), want[1]), where
@@ -1536,27 +1605,61 @@ def test_schedule_select_kernels_equal_twins(dev, n):
 
 
 def test_schedule_copy_kernels_equal_twins(dev):
-    """scan_step copies tick k's frames (aligned and odd sizes);
-    scan_commit copies its segments whole and into row k of their packs,
-    as their twins do."""
+    """scan_step copies tick k's frames from the address word tick_select
+    writes (P_FRAME_AT: P_FRAMES + k frame bytes) into the buffer, whole
+    and in rows mode (served slots with padding, repeats, every row; a
+    buffer poisoned with 255), on aligned and odd sizes and a tick off the
+    16-byte grid; after a tick body of its skip mask it copies nothing
+    (a run all the same); each run and copy counted by mode.  scan_commit
+    copies its segments whole and into row k of their packs, as their
+    twins do."""
     from headtrackr_tpu_torch.kernels import schedule as S
     g = torch.Generator().manual_seed(7)
-    for shape in [(3, 4, 24, 32, 3), (2, 3, 5, 7, 3)]:
+    for shape in [(3, 4, 24, 32, 3), (2, 3, 5, 7, 3), (2, 9, 240, 320, 3)]:
         seq = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
-        for k in range(shape[0]):
-            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
-            frames = torch.zeros(shape[1:], dtype=torch.uint8, device=dev)
-            gseq = seq.to(dev)
-            params[S.P_K] = k
-            params[S.P_TICKS] = shape[0]
-            params[S.P_FRAMES] = gseq.data_ptr()
-            gp = params.to(dev)
-            S.scan_step(gp, frames)
-            want = torch.zeros(shape[1:], dtype=torch.uint8)
-            S.scan_step_plain(seq, k, want)
-            torch.cuda.synchronize()
-            assert torch.equal(frames.cpu(), want)
-            assert int(gp[S.P_K]) == k and int(gp[S.P_STEPS]) == 1
+        n = shape[1]
+        gseq = seq.to(dev)
+        for offset in (0, 1):  # a scan staged off the 16-byte grid
+            flat = torch.zeros(gseq.numel() + 16, dtype=torch.uint8,
+                               device=dev)
+            src = flat[offset:offset + gseq.numel()].view(shape)
+            src.copy_(gseq)
+            for k in range(shape[0]):
+                params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+                params[S.P_K], params[S.P_TICKS] = k, shape[0]
+                params[S.P_FRAMES] = src.data_ptr()
+                gp = params.to(dev)
+                mode = torch.full((n,), tft.MODE_CS, dtype=torch.int32,
+                                  device=dev)
+                S.tick_select(mode, torch.zeros_like(mode), 1, 1, False,
+                              torch.empty(1, dtype=torch.int64, device=dev),
+                              torch.empty_like(mode), gp,
+                              frame_bytes=seq[0].numel())
+                cases = [(None, 0), (torch.tensor([n - 1, n, 0]), 0),
+                         (torch.tensor([n, n]), 0),
+                         (torch.arange(n - 1, -1, -1), 0),
+                         (torch.tensor([1, 1, n]), 0), (None, 1),
+                         (torch.tensor([0]), 1)]
+                for rows, skip in cases:
+                    frames = torch.full(shape[1:], 255, dtype=torch.uint8,
+                                        device=dev)
+                    before = [int(gp[w]) for w in (
+                        S.P_STEPS, S.P_ROW_STEPS, S.P_WHOLE_STEPS)]
+                    S.scan_step(gp, frames,
+                                None if rows is None else rows.to(dev), skip)
+                    want = torch.full(shape[1:], 255, dtype=torch.uint8)
+                    if not skip:
+                        S.scan_step_plain(seq[k], want, rows)
+                    torch.cuda.synchronize()
+                    where = f"{shape} offset {offset} k {k} rows {rows}"
+                    assert torch.equal(frames.cpu(), want), where
+                    after = [int(gp[w]) for w in (
+                        S.P_STEPS, S.P_ROW_STEPS, S.P_WHOLE_STEPS)]
+                    mode_word = 1 if rows is not None else 2
+                    assert after[0] == before[0] + 1, where
+                    for j in (1, 2):
+                        assert after[j] == before[j] + (
+                            j == mode_word and not skip), where
     n, K = 5, 3
     srcs = [torch.randn(n, 7, generator=g), torch.randint(
         0, 9, (n,), generator=g, dtype=torch.int32), torch.rand(
@@ -1615,9 +1718,17 @@ def test_program_equals_per_tick_path(dev, overload):
         runs += program._steps._programs[n].runs
         got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
     assert L.host_paths == dict.fromkeys(L.host_paths, 0)
-    # the schedule kernels' counts, read back from the card: one a tick
-    for k in ("tick_select", "escape_select", "scan_step", "scan_commit"):
+    # the schedule kernels' counts, read back from the card: one a tick,
+    # scan_step's one a tick whose body copies and one an escape body run
+    # after a tick body that does not copy whole, the all-CS tick's none
+    for k in ("tick_select", "escape_select", "scan_commit"):
         assert L.launches[k] == len(clip), k
+    fields = tft.StepOutput._fields
+    copying = sum(program.branch(t[fields.index("detection")]) != "track"
+                  for t in want)
+    escaping = sum(bool(t[fields.index("escaped")].any()) for t in want)
+    assert L.launches["scan_step"] == copying + escaping
+    assert 0 < copying < len(clip) and escaping > 0
     for t, (a_t, b_t) in enumerate(zip(want, got)):
         for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
             np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")

@@ -15,11 +15,15 @@
     (histKernel="pallas", interpret mode), 6 streams of 120x160, the toy
     cascade, band and bandHist, bucket 1 (chunk_cap 4), overload
     "rotate", escape_bucket 1, through the port's per-tick path and its
-    program (the conditional nodes' twins in Python ifs): a rotate clip
-    (the cold start's burst of more than chunk_cap pending streams) and an
+    program (the conditional nodes' twins in Python ifs), also with the
+    bodies' frame buffer poisoned before each call: a rotate clip (the
+    cold start's burst of more than chunk_cap pending streams) and an
     escape clip (one stream escaping: the ``few`` body; two in one tick:
     ``many``).  Integer and bool fields exact, floats to rtol 1e-5 / atol
-    1e-4 (f32 sums in another order), as tests/test_torch_scan.py.
+    1e-4 (f32 sums in another order), as tests/test_torch_scan.py;
+  * the program's frames: ``scan_step_plain``'s rows mode against NumPy,
+    and ``histpdf_band`` under ``launch.frames_at`` against the same call
+    on the tick's frames.
 """
 
 import jax
@@ -33,7 +37,9 @@ from hypothesis import strategies as st
 import headtrackr_tpu as ht
 import headtrackr_tpu_torch as pt
 from headtrackr_tpu_torch import convert, toy_cascade
+from headtrackr_tpu_torch.kernels import launch as L
 from headtrackr_tpu_torch.kernels import schedule as S
+from headtrackr_tpu_torch.kernels.histpdf import histpdf_band
 from headtrackr_tpu_torch.models import facetracker as tft
 
 torch.set_num_threads(2)
@@ -360,28 +366,64 @@ def _assert_same(ref, got, where):
                                        err_msg=f"{where} {name}")
 
 
-@pytest.mark.parametrize("path", ["per_tick", "program"])
+def _copies(tb, entry, escaped):
+    """scan_step's runs and copies a call of the program should count, from
+    each tick's entry modes and escaped count: the tick body copies none
+    (the all-CS tick: histpdf_band reads in place), the served rows (a
+    bucket tick) or the whole tick (wbtrack, full); an escape body its
+    slots' rows (few) or the whole tick (many), nothing after a tick body
+    that copied whole (a run all the same)."""
+    want = dict.fromkeys(("runs", "rows", "whole"), 0)
+    eb = KW["escape_bucket"]
+    for modes, nesc in zip(entry, escaped):
+        body = {"track": "none", "bucket": "rows", "wbtrack": "whole",
+                "full": "whole"}[tb.branch(np.array(modes))]
+        esc = None if nesc == 0 else "rows" if nesc <= eb < N else "whole"
+        for mode, done in ((body, False), (esc, body == "whole")):
+            if mode not in (None, "none"):
+                want["runs"] += 1
+                want[mode] += not done
+    return want
+
+
+@pytest.mark.parametrize("path", ["per_tick", "program", "poison"])
 @pytest.mark.parametrize("clip", ["rotate", "escape"])
 def test_run_scan_matches_reference(reference, clip, path):
+    """The poison case is the program with the bodies' frame buffer filled
+    with 255 before each call: a body that read a stale or poisoned frame
+    where it should read tick k's (in place or copied) would differ, as
+    the faces move every tick.  The program's scan_step counts one run a
+    tick whose body copies and none on an all-CS tick."""
     ref_outs, ref_states = reference
     tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
                            **KW)
-    tb._steps.scheduled = path == "program"
+    tb._steps.scheduled = path != "per_tick"
+
+    def scan(seq):
+        if path == "poison":
+            tb._steps.buffers(tb.state).frames.fill_(255)
+        return tb.run_scan(seq)
+
     ticks = range(0, 2 * K) if clip == "rotate" else range(2 * K, 4 * K)
     if clip == "escape":  # the rotate clip first, unchecked
         for k0 in range(0, 2 * K, K):
-            tb.run_scan(_clip(range(k0, k0 + K)))
+            scan(_clip(range(k0, k0 + K)))
     runs, entry, escaped = np.zeros(16, int), [], []
+    steps = []
     for k0 in range(ticks.start, ticks.stop, K):
-        got = tb.run_scan(torch.as_tensor(_clip(range(k0, k0 + K))))
+        got = scan(torch.as_tensor(_clip(range(k0, k0 + K))))
         assert got.mode_after.shape == (K, N)
         for k in range(K):
             _assert_same(ref_outs[k0 + k], [v[k] for v in got],
                          f"{clip} {path} tick {k0 + k}")
         entry += got.detection.tolist()
         escaped += got.escaped.sum(1).tolist()
-        if path == "program":
-            runs += tb._steps._programs[N].runs
+        if path != "per_tick":
+            prog = tb._steps._programs[N]
+            runs += prog.runs
+            steps.append(prog.steps)
+            assert prog.steps == _copies(tb, got.detection.tolist(),
+                                         got.escaped.sum(1).tolist())
     want = ref_states[0 if clip == "rotate" else 1]
     for a, b in zip(want, convert.state_to_numpy(tb.state)):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4)
@@ -390,9 +432,67 @@ def test_run_scan_matches_reference(reference, clip, path):
         assert "bucket" in {tb.branch(np.array(m)) for m in entry}
     else:  # one stream escaping alone, and two in one tick
         assert 1 in escaped and 2 in escaped
-    if path == "program":  # each select counts one run a tick
+    if path != "per_tick":  # each select counts one run a tick
         assert runs[:S.ESCAPE_RUNS].sum() == len(ticks)
         assert runs[S.ESCAPE_RUNS:].sum() == len(ticks)
         assert runs[1:5].sum() > 0
         assert runs[S.ESCAPE_RUNS + 1] > 0
         assert (runs[S.ESCAPE_RUNS + 2] > 0) == (clip == "escape")
+    if path != "per_tick":  # all-CS ticks (no copy) and row copies ran
+        assert runs[0] > 0 and sum(t["rows"] for t in steps) > 0
+
+
+def test_scan_step_plain_rows_mode():
+    """scan_step's twin in rows mode: the served slots' rows of the tick
+    land in the same rows of the buffer, padding (N) is skipped, other rows
+    are untouched; whole mode copies everything; nothing when the tick's
+    frames are the buffer."""
+    rng = np.random.default_rng(3)
+    n = 7
+    src = rng.integers(0, 256, (n, 5, 6, 3), dtype=np.uint8)
+    before = rng.integers(0, 256, (n, 5, 6, 3), dtype=np.uint8)
+    for slots in ([2], [5, 0, 3], [6, n, n], [n, n], [1, 1, 4]):
+        frames = torch.from_numpy(before.copy())
+        S.scan_step_plain(torch.from_numpy(src), frames,
+                          torch.tensor(slots, dtype=torch.int64))
+        want = before.copy()
+        hit = [r for r in slots if r < n]
+        want[hit] = src[hit]
+        np.testing.assert_array_equal(frames.numpy(), want, str(slots))
+    frames = torch.from_numpy(before.copy())
+    S.scan_step_plain(torch.from_numpy(src), frames)
+    np.testing.assert_array_equal(frames.numpy(), src)
+    S.scan_step_plain(frames, frames, torch.tensor([0]))
+    np.testing.assert_array_equal(frames.numpy(), src)
+
+
+def test_histpdf_band_reads_the_redirected_frames():
+    """histpdf_band's pdf mode under launch.frames_at(buffer, seq[k]) equals
+    histpdf_band(seq[k]) bit for bit for every tick k, whatever the buffer
+    holds (poisoned: 255); a sub-batch of the buffer (index_select) and
+    the hist-only mode are not redirected; outside the block the buffer is
+    read again."""
+    rng = np.random.default_rng(5)
+    n, K_, band = 4, 3, (8, 16)
+    seq = torch.from_numpy(rng.integers(0, 256, (K_, n, 24, 32, 3),
+                                        dtype=np.uint8))
+    seq[:, :, 4:14, 6:20] = torch.tensor([230, 80, 60], dtype=torch.uint8)
+    buf = torch.full((n, 24, 32, 3), 255, dtype=torch.uint8)
+    rects = torch.tensor([[4, 2, 0, 0], [-3, 5, 0, 0], [20, 20, 0, 0],
+                          [8, 0, 0, 0]], dtype=torch.int32)
+    model = torch.from_numpy(rng.integers(0, 50, (n, 4096))
+                             .astype(np.float32))
+    for k in range(K_):
+        with L.frames_at(buf, seq[k]):
+            got = histpdf_band(buf, rects, model, band)
+            sub = histpdf_band(buf.index_select(0, torch.arange(n)), rects,
+                               model, band)
+            counts = histpdf_band(buf, rects)
+        want = histpdf_band(seq[k], rects, model, band)
+        poisoned = histpdf_band(buf, rects, model, band)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), k
+        for a, b in zip(sub, poisoned):
+            assert torch.equal(a, b), k
+        assert torch.equal(counts, histpdf_band(buf, rects))
+        assert not torch.equal(poisoned[1], want[1])

@@ -15,6 +15,11 @@
 #     'python3 tools/torch_sched_times.py --root "$ROOT" 2>&1 | tail -14' \
 #     '(cd "$ROOT" && python3 bench_torch.py --ticks 64 --latency-ticks 20 \
 #        --no-exact-arm 2>/dev/null | tail -1)'
+# The frames read in place and scan_step's modes (PERF.md):
+#   tools/torch_compare.sh build/parent \
+#     'python3 tools/torch_select_times.py --root "$ROOT" --copy 2>&1 | tail -1' \
+#     'python3 tools/torch_sched_times.py --root "$ROOT" 2>&1 | tail -14' \
+#     'python3 tools/torch_sched_times.py --root "$ROOT" --big 2>&1 | tail -2'
 # The relock tick, the group kernel and the graphs' nodes (PRs 13-15):
 #   tools/torch_compare.sh build/parent \
 #     '(cd "$ROOT" && python3 tools/torch_bench_parts.py \

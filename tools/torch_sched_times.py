@@ -34,7 +34,13 @@ host reads (stream and event synchronizations) a call; then step_auto
 timed again ("step_auto after profiler").  A first profiler session in a
 process lost device events on the card, so one is spent on a throwaway.
 
-    python3 tools/torch_sched_times.py [--root build/parent]
+    python3 tools/torch_sched_times.py [--root build/parent] [--big]
+
+``--big`` instead times the headline at BIG streams (the pool's 256
+tiled on the card, as chip_smoke.py phase 15 runs it): after a cold start
+of 16 ticks of one batch in run_scan calls of BIG_K ticks, all-tracking
+run_scan calls of BIG_K ticks (the pool's batches before its loss frame),
+host ms and device span a tick, each of REPS calls.
 
 Prints the card's name and power limit, one line a case, then one JSON
 line.  Needs a CUDA card.
@@ -54,6 +60,7 @@ REPS = 5
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
+BIG, BIG_K = 10240, 4
 CONFIGS = {"headline": dict(band=(96, 128), bandHist=True),
            "full-frame": dict(band=None, bandHist=False, histKernel="pallas"),
            "band": dict(band=(96, 128), bandHist=False)}
@@ -128,10 +135,41 @@ def split(bt, frames, reps):
             "finish_host_ms": float(np.median(finish))}
 
 
+def big(pool, dev, card, root):
+    """The --big case: {"big": {"host_ms_per_tick": [...],
+    "span_ms_per_tick": [...], "pending": pending streams over the timed
+    calls}}."""
+    import torch
+    from headtrackr_tpu_torch import BatchedTracker
+    from headtrackr_tpu_torch.models import facetracker as ft
+    tile = BIG // N
+    bt = BatchedTracker(BIG, (H, W), device=dev, bucket=8,
+                        **CONFIGS["headline"])
+    bt.warmup(scan_len=BIG_K)
+    cold = pool[[0] * BIG_K].repeat(1, tile, 1, 1, 1)
+    for _ in range(16 // BIG_K):
+        bt.run_scan(cold)
+    del cold
+    steady = pool[[t % LOSS_AT for t in range(BIG_K)]].repeat(
+        1, tile, 1, 1, 1)
+    bt.run_scan(steady)
+    res = {"host_ms_per_tick": [], "span_ms_per_tick": [], "pending": 0}
+    for _ in range(REPS):
+        host, span = host_ms(lambda: bt.run_scan(steady), BIG_K, 1)
+        res["host_ms_per_tick"].append(host)
+        res["span_ms_per_tick"].append(span)
+        res["pending"] += int((bt.modes != ft.MODE_CS).sum())
+    print(f"big {BIG}: {json.dumps(res)}", flush=True)
+    print(json.dumps({"card": card, "root": root, "big": res}))
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=HERE,
                    help="the checkout whose headtrackr_tpu_torch to time")
+    p.add_argument("--big", action="store_true",
+                   help=f"time the headline at {BIG} streams instead")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -150,6 +188,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     pool = torch.as_tensor(build_pool(N, H, W, POOL, 4,
                                       np.random.default_rng(0))).to(dev)
+    if args.big:
+        return big(pool, dev, card, os.path.abspath(args.root))
     steady = pool[[t % LOSS_AT for t in range(K)]].contiguous()
     cold = pool[[0] * K].contiguous()
     lost = pool[1].clone()

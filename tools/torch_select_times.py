@@ -15,9 +15,11 @@ graph ms; and, where the checkout's library has ``select_floor_launch``,
 an empty kernel at the select's grid (graph ms).  A checkout whose selects
 refuse N prints the refusal instead.  ``--copy``: ``scan_step`` against
 ``copy_`` of the same tick's frames (240x320) at 256 and 10,240 streams,
-graph replay ms, alternated, 5 repetitions each.  Prints the card's name
-and power limit, then one JSON line.  Needs a CUDA card.  The timers are
-the root's chip_smoke.cuda_ms and graph_ms.
+graph replay ms, alternated, 5 repetitions each; where the checkout's
+``scan_step`` has a rows mode, also that mode on a bucket tick's 8 slots
+(4 served, 4 padding) against ``index_copy_`` of the same rows.  Prints
+the card's name and power limit, then one JSON line.  Needs a CUDA card.
+The timers are the root's chip_smoke.cuda_ms and graph_ms.
 """
 
 import argparse
@@ -27,7 +29,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NS = (256, 4096, 10240, 65536)
-BUCKET, EB, PENDING, ESCAPED = 8, 8, 4, 3
+BUCKET, EB, PENDING, ESCAPED = 8, 8, 4, 3  # PENDING: also the rows served
 H, W = 240, 320
 COPY_NS = (256, 10240)
 COPY_REPS = 5
@@ -83,31 +85,50 @@ def select_cases(n, dev, out):
 
 
 def copy_cases(dev, out):
-    """scan_step and copy_ of one tick's frames, alternated, COPY_REPS
-    each, at COPY_NS streams: out["scan_step <n>"] and out["copy_ <n>"]
-    lists of graph ms."""
+    """scan_step and copy_ of one tick's frames into the same buffer,
+    alternated, COPY_REPS each, at COPY_NS streams: out["scan_step <n>"]
+    and out["copy_ <n>"] lists of graph ms; with a rows mode also
+    out["scan_step rows <n>"] and out["index_copy_ <n>"].  One destination
+    for both: a copy's rate on the card depended on where its destination
+    lay (two buffers gave the same kernel times 0.8% apart)."""
     import torch
     from chip_smoke import graph_ms
     from headtrackr_tpu_torch.kernels import schedule as S
+    rows_mode = hasattr(S, "P_FRAME_AT")  # else: tick k read at P_FRAMES
     for n in COPY_NS:
         seq = torch.randint(0, 256, (2, n, H, W, 3), dtype=torch.uint8,
                             device=dev)
         frames = torch.empty_like(seq[0])
-        want = torch.empty_like(seq[0])
         p = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
         p[S.P_K], p[S.P_TICKS], p[S.P_FRAMES] = 1, 2, seq.data_ptr()
+        if rows_mode:
+            p[S.P_FRAME_AT] = seq[1].data_ptr()
         p = p.to(dev)
-        step = lambda: S.scan_step(p, frames)  # noqa: E731
-        copy = lambda: want.copy_(seq[1])  # noqa: E731
-        a, b = out.setdefault(f"scan_step {n}", []), \
-            out.setdefault(f"copy_ {n}", [])
-        for _ in range(COPY_REPS):
-            a.append(graph_ms(step))
-            b.append(graph_ms(copy))
-        torch.cuda.synchronize()
-        if not torch.equal(frames, want):
-            raise AssertionError(f"scan_step differs from copy_ at N={n}")
-        del seq, frames, want
+        cases = [(f"scan_step {n}", lambda: S.scan_step(p, frames),
+                  f"copy_ {n}", lambda: frames.copy_(seq[1]))]
+        if rows_mode:
+            slots = torch.tensor(list(range(PENDING)) + [n] * (BUCKET -
+                                                               PENDING),
+                                 dtype=torch.int64, device=dev)
+            served = slots[:PENDING]
+            cases.append((f"scan_step rows {n}",
+                          lambda: S.scan_step(p, frames, slots),
+                          f"index_copy_ {n}",
+                          lambda: frames.index_copy_(
+                              0, served, seq[1].index_select(0, served))))
+        for name, step, lib_name, lib in cases:
+            a, b = out.setdefault(name, []), out.setdefault(lib_name, [])
+            for _ in range(COPY_REPS):
+                a.append(graph_ms(step))
+                b.append(graph_ms(lib))
+            frames.zero_()
+            step()
+            torch.cuda.synchronize()
+            want = seq[1] if "rows" not in name else torch.zeros_like(
+                frames).index_copy_(0, served, seq[1].index_select(0, served))
+            if not torch.equal(frames, want):
+                raise AssertionError(f"{name} differs from {lib_name}")
+        del seq, frames
 
 
 def main(argv=None):
