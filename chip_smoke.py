@@ -201,7 +201,9 @@ Phases, one line each; any failure raises and exits nonzero:
      escape_select on random vectors with ties at 256, 4,096, 10,240 and
      65,536 streams, both overloads; scan_step, whole and in rows mode on
      a bucket tick's 8 slots, into a buffer poisoned with 255, and
-     scan_commit on the main path's frames, state and outputs) and timed
+     scan_commit on the headline program's own tables: the all-CS body's,
+     whose model histograms pass through, and the bucket body's, which
+     changes them) and timed
      (events and graph replay) beside their twins, byte bounds and one
      PyTorch call (torch.topk, copy_, index_copy_, _foreach_copy_);
      histpdf_band reading tick k's frames in place (through the parameter
@@ -210,13 +212,15 @@ Phases, one line each; any failure raises and exits nonzero:
      tick and an all-CS tick, beside an empty kernel at their grid and
      torch.topk; then the headline configuration at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
-     calls of 16 ticks each from a poisoned frame buffer (the cold start's
+     calls of 16 ticks each from a poisoned frame buffer and poisoned
+     escape staging buffers (state_out, out; the cold start's
      wbtrack and full ticks or its rotation burst, bucket and chunk ticks
      after losses, band escapes within escape_bucket and beyond it): every
      StepOutput leaf and the final state bit-equal to the per-tick path
      run eagerly on the card, every branch's body run (the program's own
      counts), scan_step run once a tick whose body copies and once an
-     escape body's run (copy_runs), the per-tick path's host code never
+     escape body's run (copy_runs), scan_commit once a tick and once an
+     escape body's run (its staging), the per-tick path's host code never
      reached (kernels/launch.py host_paths); an all-CS scan of 16 ticks
      runs no scan_step; a profiled scan of 16 ticks is one program
      launch, one host read and no kernel launched from the host.  Then
@@ -228,11 +232,25 @@ Phases, one line each; any failure raises and exits nonzero:
      every stream s bit-equal to stream s mod 256 of a 256-stream program
      run on the same ticks; its cold start and an all-CS scan timed (host
      ms and device span a tick) and one all-CS scan profiled (one launch,
-     one host read, no kernel launched from the host).
+     one host read, no kernel launched from the host), and scan_commit on
+     its all-CS and bucket tables timed as at 256 streams.
+ 16. F32 (run after phase 15): every kernel whose grid's y dimension is
+     the stream (hist4096, histpdf_band hist-only and pdf mode, directly
+     and through the address word from a buffer poisoned with 255,
+     backproject over the frame and the band, hist_mma, pyramid, cascade)
+     at 70,000 streams of 160x120 (tools/torch_f32_cases.py: the bench
+     pool's streams tiled, each stamped with its index), one launch a
+     chunk of 65,535 streams, bit-equal to its twin run on the card in
+     slices; each launcher refuses 65,536 streams; then, with the launch
+     counts at 0, BatchedTracker(70000, (120, 160)) from init_state over
+     20 ticks (15 wbtrack, the full tick, all-CS ticks, the last two one
+     run_scan): the serving program bit-equal to the per-tick path run
+     eagerly on the card, every leaf of every tick and the final state,
+     one launch a call, every kernel of its path launched.
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
-facade, plan, mesh, gate, bench, surface and schedule numbers as JSON
-(phases 5, 7-15), the kernels' JSON, the nvidia-smi name/power line, and {"ok": true,
+facade, plan, mesh, gate, bench, surface, schedule and F32 numbers as JSON
+(phases 5, 7-16), the kernels' JSON, the nvidia-smi name/power line, and {"ok": true,
 "device": {...}}.  Imports nothing of JAX or headtrackr_tpu.
 """
 
@@ -385,6 +403,16 @@ SCHED_BIG_TICKS = 28
 SCHED_BIG_LOSS = 36
 SCHED_EB = 8  # escape_bucket (the default)
 SCHED_KERNELS = ("tick_select", "escape_select", "scan_step", "scan_commit")
+# phase 16 (F32): the kernels and the serving program past the 65,535
+# streams a launch's grid takes (tools/torch_f32_cases.py), 160x120 frames
+F32_N = 70000
+F32_TICKS = 20  # from init_state: 15 wbtrack, the full tick, all-CS ticks
+F32_K = 2  # the last ticks as one run_scan
+F32_SPLIT = ("hist4096", "histpdf_band_hist", "histpdf_band", "backproject",
+             "backproject_rect", "hist_mma", "pyramid", "cascade")
+# the program's path at 160x120 (no band; hist_mma the default histogram)
+F32_PATH = ("hist_mma", "backproject", "meanshift", "pyramid", "cascade",
+            "group", "tick_select", "scan_step", "scan_commit")
 
 def log(msg):
     print(msg, flush=True)
@@ -2050,36 +2078,7 @@ def phase_schedule(pool, dev):
         f"{times['scan_step rows']['bound_ms']:.6f}); histpdf_band in place "
         f"bit-equal to its direct read, graph ms in turns: in place "
         f"{[round(x, 5) for x in ip]}, direct {[round(x, 5) for x in dr]}")
-    carry = [(src, torch.empty_like(dst)) for src, dst in prog.carry]
-    packs = [torch.empty((p.shape[0], 2) + p.shape[1:], dtype=p.dtype,
-                         device=dev) for p in prog.bufs.packs.values()]
-    rows = [(v, slot, row) for v, slot, row in prog.rows]
-    table = S.segments(carry, rows, dev)
-    pc = p0.clone()
-    for j, pk in enumerate(packs):
-        pc[S.P_OUT + j] = pk.data_ptr()
-    S.scan_commit(pc, table)  # row k - 1 = 0
-    want_carry = [torch.empty_like(d) for _, d in carry]
-    want_packs = [torch.empty_like(p) for p in packs]
-    S.scan_commit_plain(0, [(s, w) for (s, _), w in zip(carry, want_carry)],
-                        [(v, want_packs[slot], row) for v, slot, row in rows])
-    torch.cuda.synchronize()
-    for a, b in zip([d for _, d in carry] + [p[:, 0] for p in packs],
-                    want_carry + [p[:, 0] for p in want_packs]):
-        if not torch.equal(a, b):
-            raise AssertionError("scan_commit differs from its twin")
-    moved = sum(int(r[2]) for r in table.tolist())
-    def commit():
-        S.scan_commit(pc, table)
-
-    times["scan_commit"] = {
-        "ms": cuda_ms(commit), "graph_ms": graph_ms(commit),
-        "plain_ms": cuda_ms(lambda: S.scan_commit_plain(
-            0, [(s, w) for (s, _), w in zip(carry, want_carry)],
-            [(v, want_packs[slot], row) for v, slot, row in rows])),
-        **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
-        **library_times(lambda: torch._foreach_copy_(
-            want_carry, [s for s, _ in carry]), True)}
+    times["scan_commit"] = commit_times(prog, dev)
     for k, t in sizes.items():
         log(f"schedule: {k}: {t['ms']:.4f} ms, graph replay "
             f"{t['graph_ms']:.4f} ms; an empty kernel at its grid "
@@ -2093,7 +2092,7 @@ def phase_schedule(pool, dev):
             f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f} "
             f"({t['bound_by']}), library {t['library_ms']:.4f} / "
             f"{fmt_ms(t['library_graph_ms'])}")
-    del bt, prog, carry, packs, want_carry, want_packs
+    del bt, prog
 
     # the device-scheduled tick against the per-tick path, from init_state
     cold = torch.as_tensor(pool[[0] * SCHED_K]).to(dev)
@@ -2113,10 +2112,12 @@ def phase_schedule(pool, dev):
         L.reset_launches()
         got, ran = [], np.zeros(16, int)
         t0 = time.perf_counter()
+        stages = 0
         for seq in (cold, second):
-            prog.bufs.frames.fill_(255)  # a body reading it stale differs
+            poison(prog)  # a body reading them stale differs
             got.append(bt.run_scan(seq))
             ran += np.array(prog.runs)
+            stages += prog.stages
         torch.cuda.synchronize()
         t_scan = time.perf_counter() - t0
         counts[overload] = dict(L.launches)
@@ -2125,6 +2126,11 @@ def phase_schedule(pool, dev):
         # one a tick whose body copies and one an escape body's run
         want_runs = dict.fromkeys(SCHED_KERNELS, 2 * SCHED_K)
         want_runs["scan_step"] = copy_runs(bt, got)
+        # scan_commit's staging: one an escape body's run
+        want_runs["scan_commit"] += int(ran[9] + ran[10])
+        if stages != ran[9] + ran[10]:
+            raise AssertionError(f"schedule [{overload}]: {stages} stagings "
+                                 f"for {ran[9] + ran[10]} escape bodies")
         off = {k: counts[overload][k] for k in SCHED_KERNELS
                if counts[overload][k] != want_runs[k]}
         if off:
@@ -2224,6 +2230,100 @@ def phase_schedule(pool, dev):
     numbers["big"] = phase_schedule_big(pool, dev)
     return {"err": err, "times": times, "launches": launches, "runs": runs,
             **numbers}
+
+
+def poison(prog):
+    """Fill the program's frame buffer with 255 and the escape bodies'
+    staging buffers (state_out, out) with the byte 0xA5: a body that read
+    them where it should read tick k's frames, or the tick body's staged
+    results, would differ."""
+    import torch
+    prog.bufs.frames.fill_(255)
+    if prog.bufs.state_out is not None:
+        for v in _leaves_of(prog.bufs.state_out) + _leaves_of(prog.bufs.out):
+            v.view(torch.uint8).fill_(0xA5)
+
+
+def commit_times(prog, dev):
+    """scan_commit on a program's own tables: the all-CS body's (its model
+    histograms passed through: no entry) and the bucket body's at kb slots
+    (the relock tick's, which changes them), each into fresh destinations
+    and a scan's packs
+    of 2 ticks, bit-equal to scan_commit_plain; timed by events and graph
+    replay beside its twin, its byte bound (each table's bytes read and
+    written) and one torch._foreach_copy_ over the same entries.  The
+    all-CS table's numbers at the top level, each table's under
+    "tables"."""
+    import torch
+    from headtrackr_tpu_torch.kernels import schedule as S
+    bodies = {"all-CS": prog.bodies[0], "bucket": prog.bodies[1]}
+    packs = [torch.empty((shape[0], 2) + shape[1:], dtype=dt, device=dev)
+             for dt, shape in prog.bufs.packs.items()]
+    tables = []
+    for body in bodies.values():
+        carry, rows = prog._commit_pairs(body.state, body.out)
+        tables.append(([(src, torch.empty_like(dst)) for src, dst in carry],
+                       rows))
+    ct = S.segments(tables, dev)
+    p = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    p[S.P_K], p[S.P_TICKS] = 1, 2  # row k - 1 = 0
+    for j, pk in enumerate(packs):
+        p[S.P_OUT + j] = pk.data_ptr()
+    p = p.to(dev)
+    out = {}
+    for t, (name, (carry, rows)) in enumerate(zip(bodies, tables)):
+        S.scan_commit(p, ct, t)
+        want = [torch.empty_like(d) for _, d in carry]
+        want_packs = [torch.empty_like(pk) for pk in packs]
+        plain = lambda: S.scan_commit_plain(  # noqa: E731
+            0, [(s, w) for (s, _), w in zip(carry, want)],
+            [(v, want_packs[slot], row) for v, slot, row in rows])
+        plain()
+        torch.cuda.synchronize()
+        for a, b in zip([d for _, d in carry] + [pk[:, 0] for pk in packs],
+                        want + [pk[:, 0] for pk in want_packs]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"scan_commit ({name}) differs from "
+                                     f"its twin")
+        first, count = ct.tables[t, :2].tolist()
+        moved = int(ct.segs[first:first + count, 2].sum())
+        srcs = [s for s, _ in carry] + [v for v, _, _ in rows]
+        dsts = [d for _, d in carry] + [packs[slot][row, 0]
+                                        for _, slot, row in rows]
+        commit = lambda t=t: S.scan_commit(p, ct, t)  # noqa: E731
+        out[name] = {
+            "entries": count, "bytes": moved,
+            "passed_through_bytes": sum(
+                d.nbytes for d in _leaves_of(prog.bufs.state_in))
+            - sum(d.nbytes for _, d in carry),
+            "ms": cuda_ms(commit), "graph_ms": graph_ms(commit),
+            "plain_ms": cuda_ms(plain),
+            **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
+            **library_times(lambda: torch._foreach_copy_(dsts, srcs), True)}
+    held = {id(t) for t in _leaves_of(prog.bufs.state_in)}
+    kept = {}
+    for key, body in zip([str(k) for k in range(len(prog.bodies))]
+                         + ["few", "many"],
+                         prog.bodies + [prog.few, prog.many]):
+        if body is not None:
+            leaves = {t.data_ptr(): t.nbytes for t in
+                      _leaves_of(body.state) + list(body.out)
+                      if id(t) not in held}
+            kept[key] = sum(leaves.values())
+    out["all-CS"]["kept_bytes_per_body"] = kept
+    log(f"schedule: the results each body keeps, bytes by body "
+        f"(tick bodies by index, few, many): {kept}")
+    log(f"schedule: scan_commit bit-equal to its twin on {list(bodies)} "
+        f"tables at {prog.bufs.age.shape[0]} streams: " + "; ".join(
+            f"{k} {v['bytes']} B, graph {v['graph_ms']:.4f} ms (bound "
+            f"{v['bound_ms']:.4f}, _foreach_copy_ "
+            f"{fmt_ms(v['library_graph_ms'])})" for k, v in out.items()))
+    return {**out["all-CS"], "tables": out}
+
+
+def _leaves_of(tree):
+    """The tensors of a NamedTuple tree (None leaves skipped)."""
+    return [t for _, t in _named(tree)]
 
 
 def copy_runs(bt, outs):
@@ -2336,7 +2436,7 @@ def phase_schedule_big(pool, dev):
         got, host_ms, ran = [], [], np.zeros(16, int)
         for k0 in range(0, SCHED_BIG_TICKS, K):
             frames = tiled(seq, k0)
-            prog.bufs.frames.fill_(255)  # a body reading it stale differs
+            poison(prog)  # a body reading them stale differs
             torch.cuda.synchronize()
             before = prog.launches
             t0 = time.perf_counter()
@@ -2352,6 +2452,7 @@ def phase_schedule_big(pool, dev):
         counts = dict(L.launches)
         want_runs = dict.fromkeys(SCHED_KERNELS, SCHED_BIG_TICKS)
         want_runs["scan_step"] = copy_runs(bt, got)
+        want_runs["scan_commit"] += int(ran[9] + ran[10])
         off = {k: counts[k] for k in SCHED_KERNELS
                if counts[k] != want_runs[k]}
         if off or any(L.host_paths.values()):
@@ -2374,6 +2475,7 @@ def phase_schedule_big(pool, dev):
              "pending_per_tick": npend.tolist(),
              "runs": ran.tolist(), "scan_step_runs": want_runs["scan_step"]}
         if overload == "full":
+            r["commit"] = commit_times(prog, dev)
             small = mk(base_n)
             small.warmup(scan_len=K)
             few = [_host_tree(small.run_scan(seq[k0:k0 + K]))
@@ -2451,6 +2553,45 @@ def phase_schedule_big(pool, dev):
                 f"{r['profile']}")
         del bt, prog, seq
     return numbers
+
+
+def phase_f32(dev, root):
+    """Phase 16, F32: every kernel whose grid's y dimension is the stream
+    at F32_N streams of 160x120 (tools/torch_f32_cases.py check: each
+    wrapper a launch a chunk of 65,535 streams, bit-equal to its twin,
+    histpdf_band also through the address word from a poisoned buffer);
+    each launcher refusing 65,536 streams; then, with the launch counts at
+    0, BatchedTracker(F32_N) from init_state over F32_TICKS ticks (the
+    last F32_K one run_scan), the serving program bit-equal to the
+    per-tick path, tick for tick and the final state, and every kernel of
+    F32_PATH launched in the program's own calls."""
+    import torch
+    from headtrackr_tpu_torch.kernels import launch as L
+    cases = load_example(root, "torch_f32_cases", "tools")
+    t0 = time.perf_counter()
+    kernels = cases.check(F32_N, dev)
+    took = cases.refusals()
+    if took:
+        raise AssertionError(f"f32: {took} took 65,536 streams a launch")
+    t_kernels = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    L.reset_launches()
+    t0 = time.perf_counter()
+    prog = cases.program_check(F32_N, dev, ticks=F32_TICKS, scan_k=F32_K)
+    missing = [k for k in F32_PATH if not prog["launches"][k]]
+    if missing:
+        raise AssertionError(f"f32: the program at {F32_N} streams "
+                             f"launched no {missing}")
+    torch.cuda.empty_cache()
+    log(f"f32: at {F32_N} streams of 160x120 {sorted(kernels)} bit-equal "
+        f"to their twins, {kernels['hist4096']['chunks']} launches each "
+        f"(cascade: dense and deep a chunk, one compaction), "
+        f"{t_kernels:.1f} s; every launcher refuses 65,536; the program "
+        f"over {F32_TICKS} ticks from init_state equals the per-tick path "
+        f"(body runs {prog['runs']}, {prog['locked']} locked, "
+        f"{prog['ms_per_tick']:.2f} host ms a tick), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "program": prog}
 
 
 def phase_card_vs_cpu(name, pool, dev):
@@ -3312,6 +3453,7 @@ def main():
     err.update(sched.pop("err"))
     times.update(sched.pop("times"))
     counts["schedule"] = sched.pop("launches")
+    f32 = phase_f32(dev, root)
     session = phase_session(pools[0], dev)
     fanout = phase_fanout(pools[0], dev, root)
     facade = phase_facade(pools[0], dev)
@@ -3345,6 +3487,10 @@ def main():
                      in_place=times["histpdf_band in place"])
         if k == "scan_step":
             e["rows"] = times["scan_step rows"]
+        if k in F32_SPLIT:
+            e["f32"] = f32["kernels"][k]
+        if k in F32_PATH:
+            e["f32_launches"] = f32["program"]["launches"][k]
         if k == "hist4096":
             e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":
@@ -3368,6 +3514,8 @@ def main():
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,
                       "gate": gate, "bench": bench, "schedule": sched,
+                      "f32": {"program": {k: v for k, v in f32[
+                          "program"].items() if k != "launches"}},
                       "surface": {k: surface[k] for k in (
                           "launches", "times", "dirty", "found",
                           "pdf_nodes")}}))

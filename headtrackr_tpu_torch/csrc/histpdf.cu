@@ -400,7 +400,9 @@ __device__ __forceinline__ void count_rows(const uint8_t* f, int w,
 // counts of each rect clamped to the frame (hist4096, hist-only mode).
 // kStash: the pdf mode keeps its pixels' bins in shared memory.  vec: bw %
 // 4 == 0 and pdf 16-byte aligned.  frame_at: null, or the address of a
-// word holding the frames' address, read in place of ``frames``.  Dynamic
+// word holding the frames' address, read in place of ``frames``, whose
+// first frame lies ``frame_off`` bytes past it (a launch over streams r0..
+// of a larger batch: r0 frames).  Dynamic
 // shared memory: the i32 histogram, then in pdf mode the f32 weight table
 // and the u16 bins.
 template <bool kPdf, bool kStash>
@@ -409,7 +411,8 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
                     const int32_t* __restrict__ rects,
                     const float* __restrict__ model, float* __restrict__ cur,
                     float* __restrict__ pdf, int h, int w, int bh, int bw,
-                    bool vec, const long long* __restrict__ frame_at) {
+                    bool vec, const long long* __restrict__ frame_at,
+                    long long frame_off) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* hist = reinterpret_cast<int32_t*>(smem);
   float* table = reinterpret_cast<float*>(smem + kBins * sizeof(int32_t));
@@ -421,7 +424,8 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   const Rect rc = kPdf ? band_rect(r, h, w, bh, bw) : clamped_rect(r, h, w);
   const Share sh = cta_share(rc, c, static_cast<int>(rank));
   const uint8_t* base =
-      frame_at ? reinterpret_cast<const uint8_t*>(*frame_at) : frames;
+      frame_at ? reinterpret_cast<const uint8_t*>(*frame_at + frame_off)
+               : frames;
   const uint8_t* f = base + static_cast<int64_t>(n) * h * w * 3;
   if (static_cast<int>(rank) < sh.active) {
     chist::zero_hist(hist);
@@ -488,10 +492,10 @@ template <bool kPdf, bool kStash>
 int launch_cluster(int n, int c, int smem, cudaStream_t s, const uint8_t* f,
                    const int32_t* r, const float* m, float* cur, float* pdf,
                    int h, int w, int bh, int bw, bool vec,
-                   const long long* frame_at) {
+                   const long long* frame_at, long long frame_off) {
   return sm90::launch_cluster(cluster_hist_kernel<kPdf, kStash>, dim3(c, n),
                               c, kThreads, smem, s, f, r, m, cur, pdf, h, w,
-                              bh, bw, vec, frame_at);
+                              bh, bw, vec, frame_at, frame_off);
 }
 
 int blocks_for(int64_t pixels, int per_block) {
@@ -515,14 +519,16 @@ extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
       n, c, kBins * sizeof(int32_t), static_cast<cudaStream_t>(stream),
       static_cast<const uint8_t*>(frames), static_cast<const int32_t*>(rects),
       nullptr, static_cast<float*>(out), nullptr, h, w, 0, 0, false,
-      nullptr);
+      nullptr, 0);
 }
 
 // frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
-// out (n, h, w) f32.
+// out (n, h, w) f32; n <= 65,535 (the grid's y: kernels/histpdf.py splits
+// a larger batch, as it does for every launcher here).
 extern "C" int backproject_launch(const void* frames, const void* weights,
                                   void* out, int n, int h, int w, void* stream) {
   if (n <= 0) return 0;
+  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t hw = static_cast<int64_t>(h) * w;
   const dim3 grid(blocks_for(hw, kPdfPixelsPerBlock), n);
   backproject_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -562,12 +568,14 @@ extern "C" int backproject_rect_launch(const void* frames, const void* weights,
 // pdf (n, bh, bw) f32 = min(model / cur, 1)[bin].  One cluster of c CTAs a
 // stream (c a power of two, at most 16).  frame_at: null, or the device
 // address of an i64 word that holds the frames' address when the kernel
-// runs (then ``frames`` is not read).  The hist-only mode is
-// hist4096_launch.
+// runs (then ``frames`` is not read: the kernel reads the word's address
+// plus ``frame_off`` bytes, the first frame of this launch's streams when
+// the wrapper splits a batch).  The hist-only mode is hist4096_launch.
 extern "C" int histpdf_band_launch(const void* frames, const void* rects,
                                    const void* model, void* cur, void* pdf,
                                    int n, int h, int w, int bh, int bw, int c,
-                                   const void* frame_at, void* stream) {
+                                   const void* frame_at, long long frame_off,
+                                   void* stream) {
   if (n <= 0) return 0;
   if (!chist::cluster_ok(n, c) || model == nullptr || bh < 1 || bw < 1 ||
       bh > h || bw > w || reinterpret_cast<uintptr_t>(cur) % 16 != 0 ||
@@ -590,8 +598,8 @@ extern "C" int histpdf_band_launch(const void* frames, const void* rects,
   if (stash <= kMaxStashBytes) {
     return launch_cluster<true, true>(n, c, tables + static_cast<int>(stash),
                                       s, f, r, m, cu, o, h, w, bh, bw, vec,
-                                      at);
+                                      at, frame_off);
   }
   return launch_cluster<true, false>(n, c, tables, s, f, r, m, cu, o, h, w, bh,
-                                     bw, vec, at);
+                                     bw, vec, at, frame_off);
 }

@@ -18,14 +18,20 @@
 //                  PyTorch ops read from the bodies' frame buffer, copied
 //                  there (a body whose one frame reader reads in place
 //                  copies none);
-//   scan_commit    the scan's carry and stacked outputs: the tick's
-//                  outputs into row k of the (fields, K, N) output packs,
-//                  the new state into the state every body reads.
+//   scan_commit    the scan's carry and stacked outputs: the results of
+//                  the body that ran (the escape body's when one did, else
+//                  the tick body's), its outputs into row k of the
+//                  (fields, K, N) output packs and its new state over the
+//                  state every body reads; in its staging mode, on a tick
+//                  whose escape fallback runs a body, the tick body's
+//                  results into the buffers the escape bodies read.
 // What bounds them: none moves more than the tick's frames (scan_step's
 // whole mode, bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x
 // 240 x 320 on an H100 SXM at 3.35 TB/s; its rows mode s rows of H x W x
-// 3, 0.0011 ms at the bucket's 8) or the state (scan_commit, ~4.3 MB at
-// 256 streams); the two selects read 4 to 8 bytes a stream and write 4, and
+// 3, 0.0011 ms at the bucket's 8) or the state (scan_commit: the leaves a
+// body changed, ~0.08 MB at 256 streams on an all-CS tick, whose camshift
+// passes its 4.2 MB model histograms through, ~4.3 MB on a tick that
+// changes them); the two selects read 4 to 8 bytes a stream and write 4, and
 // are a chain of latencies (a count, an atomic ticket, a merge in one
 // CTA).  A graph launch costs one host call where a tick of host
 // scheduling cost a launch a body and a host read; that, not these
@@ -72,6 +78,24 @@
 //     padding skipped) or whole.  An escape body's copy does nothing after
 //     a tick body that copied whole (its ``skip`` mask names those bodies,
 //     p->branch the tick's).
+//   - Each body keeps its own results (the tensors its capture returned,
+//     held for the graph's lifetime), so no body writes a shared buffer.
+//     scan_commit reads a table a body (kernels/schedule.py segments):
+//     the body's state leaves over the state every body reads (a leaf the
+//     body passed through, the very tensor, has no entry; pend_age comes
+//     from tick_select's age_out), its outputs into their pack rows (a
+//     1-D strided output gathered).  It picks
+//     the table of what ran: the escape body chosen (p->esel), else the
+//     tick body (p->branch).  The copy is balanced by bytes, not by entry:
+//     a table's entries are one flat run of 16-byte chunks (an entry's
+//     first chunk in its row), the grid a wave of CTAs over the largest
+//     table striding over the chosen one, so one large leaf gets the
+//     whole card; a chunk whose source or destination is off the 16-byte
+//     grid (a row of N bools) is copied byte by byte.  escape_select reads
+//     the tick body's own escaped flags (their address in esc_at, by
+//     p->branch); an escape body's IF graph first stages the tick body's
+//     results into the buffers it reads (scan_commit's staging mode: a
+//     table a tick body, by p->branch), so a steady tick stages nothing.
 //   - The parameter block (Params) lives in device memory; the host writes
 //     it before each launch (k = 0, K, the frames' and output packs'
 //     addresses) and reads it back with the last tick's modes: each kernel
@@ -82,7 +106,8 @@
 //   - sched_program_build assembles the graph: a WHILE node whose body is
 //     tick_select -> one IF node a tick body -> escape_select -> IF few,
 //     IF many -> scan_commit, each IF node's body [scan_step ->] a child
-//     graph node of a PyTorch-captured body.  It walks each body's nodes
+//     graph node of a PyTorch-captured body (an escape body's after
+//     scan_commit's staging).  It walks each body's nodes
 //     first and refuses a node type a conditional body cannot hold.
 //
 // The launchers run on the caller's stream, allocate nothing and return the
@@ -125,7 +150,7 @@ struct Params {
   long long frame_at;    // 12: the tick's frames (tick_select writes it)
   long long row_steps;   // 13: scan_step's runs that copied rows
   long long whole_steps; // 14: scan_step's runs that copied whole
-  long long pad;         // 15
+  long long stages;      // 15: scan_commit's staging runs this launch
   long long runs[16];    // 16-31: runs this launch: tick_select's by the
                          // body it chose (0..), escape_select's at 8 + esel
 };
@@ -138,10 +163,20 @@ struct Handles {
   int first;
 };
 
-// One copy of scan_commit: src -> dst (slot < 0) or -> row (row * K + k)
-// of output pack ``slot`` (rows of ``stride`` bytes).
+// One entry of a scan_commit table: ``bytes`` from src to dst (slot < 0)
+// or to row (row * K + k) of output pack ``slot`` (rows of ``bytes``);
+// ``chunk``: its first 16-byte chunk in its table's run of chunks.  A
+// source of ``elem``-byte elements ``pitch`` bytes apart (a 1-D strided
+// view, such as a column of a row-major (N, 5) tensor; 0: contiguous) is
+// gathered element by element into the contiguous destination.
 struct Seg {
-  long long src, dst, bytes, slot, row, stride;
+  long long src, dst, bytes, slot, row, chunk, pitch, elem;
+};
+static_assert(sizeof(Seg) == 8 * 8, "Seg is 8 words");
+
+// A table's entries: segs[first, first + count), ``chunks`` in all.
+struct Table {
+  long long first, count, chunks, pad;
 };
 
 __device__ void set_handles(const Handles& h, int value) {
@@ -481,11 +516,15 @@ __global__ void __launch_bounds__(kSelThreads)
 // The escape fallback's body: 0 none, 1 few (the escaped streams' slots,
 // lowest index first, padded with n: eb of them), 2 many.  few only when
 // eb < n, as the reference.
+// esc_at: null, or the escaped flags' address a tick body, read at
+// p->branch in place of ``esc`` (the program: each body's own results).
 __global__ void __launch_bounds__(kSelThreads)
-    escape_select_kernel(const unsigned char* __restrict__ esc, int n, int eb,
+    escape_select_kernel(const unsigned char* esc,
+                         const long long* __restrict__ esc_at, int n, int eb,
                          int span, long long* __restrict__ eidx, Params* p,
                          unsigned char* scratch, Handles h) {
   __shared__ unsigned long long key[kSelKeys];
+  if (esc_at) esc = reinterpret_cast<const unsigned char*>(esc_at[p->branch]);
   __shared__ int wsum[kSelWarps];
   __shared__ int offs[kMaxSelCtas + 1];
   __shared__ int sums[2];
@@ -629,23 +668,80 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
-// The tick's copies (blockIdx.y a segment): outputs into row k of their
-// pack, the new state over the state every body reads; k = p->k - 1.
-__global__ void __launch_bounds__(kCopyThreads)
-    scan_commit_kernel(Params* p, const Seg* __restrict__ segs) {
-  const Seg s = segs[blockIdx.y];
-  const long long k = p->k - 1;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
-    p->commits += 1;
-  }
-  unsigned char* dst =
-      s.slot < 0 ? reinterpret_cast<unsigned char*>(s.dst)
-                 : reinterpret_cast<unsigned char*>(p->out[s.slot]) +
-                       (s.row * p->K + k) * s.stride;
-  copy_bytes(dst, reinterpret_cast<const unsigned char*>(s.src), s.bytes);
+// The table of what ran this tick: ``table`` when >= 0; else, staging,
+// the tick body's (p->branch); else the escape body's (nb - 1 + p->esel,
+// few then many after the nb tick bodies) when one ran, the tick body's
+// otherwise.
+__device__ __forceinline__ long long commit_table(const Params* p, int nb,
+                                                  int stage, int table) {
+  if (table >= 0) return table;
+  if (!stage && p->esel > 0) return nb - 1 + p->esel;
+  return p->branch;
 }
 
-constexpr int kCommitCtas = 32;  // a segment's CTAs
+// A table's copies, k = p->k - 1: each entry's bytes to its destination (a
+// pack row: row * K + k of its pack).  The table's entries are one run of
+// 16-byte chunks, thread t taking chunks t, t + the grid's threads, ...: a
+// thread finds its first chunk's entry by bisection and walks on from it.
+// A chunk copies as one vector where its entry's source and destination
+// are 16-byte aligned and it is whole, else byte by byte (a strided
+// source: element by element, an element's bytes each).  One run counts
+// in p->commits, or in p->stages (stage: the tick body's results into the
+// escape bodies' buffers).
+__global__ void __launch_bounds__(kCopyThreads)
+    scan_commit_kernel(Params* p, const Table* __restrict__ tables,
+                       const Seg* __restrict__ segs, int nb, int stage,
+                       int table) {
+  const Table t = tables[commit_table(p, nb, stage, table)];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (stage) {
+      p->stages += 1;
+    } else {
+      p->commits += 1;
+    }
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= t.chunks) return;
+  const long long k = p->k - 1, K = p->K;
+  long long lo = t.first, hi = t.first + t.count - 1;
+  while (lo < hi) {  // the last entry whose first chunk is <= c
+    const long long mid = (lo + hi + 1) / 2;
+    if (__ldg(&segs[mid].chunk) <= c) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long end = t.first + t.count;
+  long long e = lo;
+  for (; c < t.chunks; c += stride) {
+    while (e + 1 < end && __ldg(&segs[e + 1].chunk) <= c) ++e;
+    const Seg& g = segs[e];
+    const long long bytes = __ldg(&g.bytes), slot = __ldg(&g.slot);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(__ldg(&g.src));
+    unsigned char* dst =
+        slot < 0 ? reinterpret_cast<unsigned char*>(__ldg(&g.dst))
+                 : reinterpret_cast<unsigned char*>(p->out[slot]) +
+                       (__ldg(&g.row) * K + k) * bytes;
+    const long long off = (c - __ldg(&g.chunk)) * 16;
+    const long long pitch = __ldg(&g.pitch);
+    const long long last = min(off + 16, bytes);
+    if (pitch != 0) {  // elements of elem bytes (dividing 16), pitch apart
+      const long long elem = __ldg(&g.elem);
+      for (long long i = off; i < last; i += elem) {
+        const unsigned char* s = src + i / elem * pitch;
+        for (long long j = 0; j < elem; ++j) dst[i + j] = s[j];
+      }
+    } else if (off + 16 <= bytes && aligned16(src, dst, 0)) {
+      *reinterpret_cast<int4*>(dst + off) =
+          __ldcs(reinterpret_cast<const int4*>(src + off));
+    } else {
+      for (long long i = off; i < last; ++i) dst[i] = src[i];
+    }
+  }
+}
 
 // A select's arguments: n streams, cap slots, a scratch buffer of
 // ``bytes`` (select_scratch_bytes).
@@ -740,22 +836,51 @@ int add_conditional(cudaGraphNode_t* node, cudaGraph_t g,
 // Word indices of sched_program_build's argument array (kernels/schedule.py
 // BUILD_ARGS mirrors them).
 enum BuildArg {
-  kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEsc, kEidx,
-  kEb, kFrames, kFrameBytes, kSegs, kNseg, kFew, kMany, kSelScratch,
-  kSelBytes, kEscScratch, kEscBytes, kCopies, kNumArgs
+  kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEscAt, kEidx,
+  kEb, kFrames, kFrameBytes, kTables, kSegs, kCommitCtas, kFew, kMany,
+  kSelScratch, kSelBytes, kEscScratch, kEscBytes, kCopies, kStageTables,
+  kStageSegs, kStageCtas, kNumArgs
 };
 
-// What a body's IF graph runs: scan_step in its copy mode (c: mode, rows,
-// slots: sched_program_build's copies), then the body ``g``; skip as the
-// kernel's.
+// scan_commit's arguments: its tables and their entries, the tick bodies
+// (nb), its mode and its grid.
+struct Commit {
+  const Table* tables;
+  const Seg* segs;
+  int nb;
+  int stage;
+  int ctas;
+};
+
+int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
+               const cudaGraphNode_t* deps, size_t ndeps, Params* p,
+               Commit c) {
+  int table = -1;
+  void* args[] = {&p, &c.tables, &c.segs, &c.nb, &c.stage, &table};
+  return add_kernel(node, g, deps, ndeps,
+                    reinterpret_cast<void*>(scan_commit_kernel),
+                    dim3(c.ctas), dim3(kCopyThreads), args);
+}
+
+// What a body's IF graph runs: scan_commit's staging (``stage``, an escape
+// body's: the tick body's results into the buffers it reads), scan_step in
+// its copy mode (c: mode, rows, slots: sched_program_build's copies), then
+// the body ``g``; skip as the kernel's.
 int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
              const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
              cudaGraph_t g, const long long* c, Params* p,
              unsigned char* frames, long long frame_bytes, int n,
-             unsigned skip) {
+             unsigned skip, const Commit* stage) {
   cudaGraph_t bb;
   int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
   if (rc) return rc;
+  cudaGraphNode_t pre;
+  size_t npre = 0;
+  if (stage) {
+    rc = add_commit(&pre, bb, nullptr, 0, p, *stage);
+    if (rc) return rc;
+    npre = 1;
+  }
   cudaGraphNode_t step;
   size_t nstep = 0;
   if (c[0] != kCopyNone) {
@@ -764,15 +889,16 @@ int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
     long long bytes = rows ? frame_bytes / n : frame_bytes;
     const unsigned slots = rows ? static_cast<unsigned>(c[2]) : 1u;
     void* args[] = {&p, &frames, &bytes, &rows, &n, &skip};
-    rc = add_kernel(&step, bb, nullptr, 0,
+    rc = add_kernel(&step, bb, npre ? &pre : nullptr, npre,
                     reinterpret_cast<void*>(scan_step_kernel),
                     dim3(step_ctas(bytes), slots), dim3(kCopyThreads), args);
     if (rc) return rc;
     nstep = 1;
   }
   cudaGraphNode_t inner;
-  TRY(cudaGraphAddChildGraphNode(&inner, bb, nstep ? &step : nullptr, nstep,
-                                 g));
+  TRY(cudaGraphAddChildGraphNode(&inner, bb,
+                                 nstep ? &step : npre ? &pre : nullptr,
+                                 nstep + (nstep ? 0 : npre), g));
   return 0;
 }
 
@@ -830,7 +956,7 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   for (int b = 0; b < nb; ++b) {
     rc = add_body(&ifs[b], body, &sel, hb[b],
                   reinterpret_cast<cudaGraph_t>(bodies[b]), copies + 3 * b, p,
-                  frames, frame_bytes, n, 0u);
+                  frames, frame_bytes, n, 0u, nullptr);
     if (rc) return rc;
     if (copies[3 * b] == kCopyWhole) whole |= 1u << b;
   }
@@ -839,8 +965,12 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   cudaGraphNode_t tail[2];
   const cudaGraphNode_t* last = ifs;
   size_t nlast = nb;
-  if (a[kEsc] != 0) {
-    const unsigned char* esc = reinterpret_cast<const unsigned char*>(a[kEsc]);
+  if (a[kEscAt] != 0) {
+    const unsigned char* esc = nullptr;
+    const long long* esc_at = reinterpret_cast<const long long*>(a[kEscAt]);
+    const Commit stage = {reinterpret_cast<const Table*>(a[kStageTables]),
+                          reinterpret_cast<const Seg*>(a[kStageSegs]), nb, 1,
+                          static_cast<int>(a[kStageCtas])};
     long long* eidx = reinterpret_cast<long long*>(a[kEidx]);
     int eb = static_cast<int>(a[kEb]);
     Handles he = no_handles();
@@ -860,7 +990,8 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
         reinterpret_cast<unsigned char*>(a[kEscScratch]);
     const SelGrid eg = select_grid(n, eb);
     int espan = eg.span;
-    void* esel_args[] = {&esc, &n, &eb, &espan, &eidx, &p, &esc_scratch, &he};
+    void* esel_args[] = {&esc,  &esc_at, &n,           &eb,
+                         &espan, &eidx,  &p, &esc_scratch, &he};
     cudaGraphNode_t esel;
     rc = add_kernel(&esel, body, ifs, nb,
                     reinterpret_cast<void*>(escape_select_kernel),
@@ -870,25 +1001,24 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     if (few) {
       rc = add_body(&tail[nlast], body, &esel, hf,
                     reinterpret_cast<cudaGraph_t>(a[kFew]), copies + 3 * nb,
-                    p, frames, frame_bytes, n, whole);
+                    p, frames, frame_bytes, n, whole, &stage);
       if (rc) return rc;
       ++nlast;
     }
     rc = add_body(&tail[nlast], body, &esel, hm,
                   reinterpret_cast<cudaGraph_t>(a[kMany]),
-                  copies + 3 * (nb + 1), p, frames, frame_bytes, n, whole);
+                  copies + 3 * (nb + 1), p, frames, frame_bytes, n, whole,
+                  &stage);
     if (rc) return rc;
     ++nlast;
     last = tail;
   }
 
-  const Seg* segs = reinterpret_cast<const Seg*>(a[kSegs]);
-  void* commit_args[] = {&p, &segs};
+  const Commit commit_args = {reinterpret_cast<const Table*>(a[kTables]),
+                              reinterpret_cast<const Seg*>(a[kSegs]), nb, 0,
+                              static_cast<int>(a[kCommitCtas])};
   cudaGraphNode_t commit;
-  rc = add_kernel(&commit, body, last, nlast,
-                  reinterpret_cast<void*>(scan_commit_kernel),
-                  dim3(kCommitCtas, static_cast<unsigned>(a[kNseg])),
-                  dim3(kCopyThreads), commit_args);
+  rc = add_commit(&commit, body, last, nlast, p, commit_args);
   if (rc) return rc;
   TRY(cudaGraphInstantiate(&prog->exec, g, 0));
   return 0;
@@ -936,7 +1066,7 @@ extern "C" int escape_select_launch(const void* esc, void* eidx, void* params,
   const SelGrid g = select_grid(n, eb);
   escape_select_kernel<<<g.ctas, kSelThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(esc), n, eb, g.span,
+      static_cast<const unsigned char*>(esc), nullptr, n, eb, g.span,
       static_cast<long long*>(eidx), static_cast<Params*>(params),
       static_cast<unsigned char*>(scratch), no_handles());
   return static_cast<int>(cudaGetLastError());
@@ -965,12 +1095,20 @@ extern "C" int scan_step_launch(void* params, void* frames, long long bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int scan_commit_launch(void* params, const void* segs,
-                                  int nseg, void* stream) {
-  if (nseg < 1 || nseg > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  scan_commit_kernel<<<dim3(kCommitCtas, nseg), kCopyThreads, 0,
+// tables (T, 4) and segs (S, 8) i64 (kernels/schedule.py segments);
+// table: the one to copy (>= 0), or -1 to pick it as the program does from
+// p->branch and p->esel, nb tick bodies before few and many; stage: count
+// the run as staging; ctas: the grid (a wave over the largest table).
+extern "C" int scan_commit_launch(void* params, const void* tables,
+                                  const void* segs, int nb, int stage,
+                                  int table, int ctas, void* stream) {
+  if (tables == nullptr || segs == nullptr || ctas < 1 || nb < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  scan_commit_kernel<<<ctas, kCopyThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<Params*>(params), static_cast<const Seg*>(segs));
+      static_cast<Params*>(params), static_cast<const Table*>(tables),
+      static_cast<const Seg*>(segs), nb, stage, table);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -987,10 +1125,12 @@ extern "C" int sched_program_build(const void* args, int nargs,
       !check_select(n, static_cast<int>(a[kCap]),
                     reinterpret_cast<const void*>(a[kSelScratch]),
                     a[kSelBytes]) ||
-      (a[kEsc] != 0 &&
-       !check_select(n, static_cast<int>(a[kEb]),
-                     reinterpret_cast<const void*>(a[kEscScratch]),
-                     a[kEscBytes]))) {
+      a[kTables] == 0 || a[kSegs] == 0 || a[kCommitCtas] < 1 ||
+      (a[kEscAt] != 0 &&
+       (a[kStageTables] == 0 || a[kStageSegs] == 0 || a[kStageCtas] < 1 ||
+        !check_select(n, static_cast<int>(a[kEb]),
+                      reinterpret_cast<const void*>(a[kEscScratch]),
+                      a[kEscBytes])))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int version = 0;

@@ -34,7 +34,7 @@ _SIGNATURES = {
         "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
         "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
         "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
-                                _C, _C),
+                                _C, ctypes.c_longlong, _C),
     },
     "gather": {
         "take_along_launch": (_C, _C, _C, _I, _I, _I, _I, _I, _I, _C),
@@ -78,7 +78,7 @@ _SIGNATURES = {
         "select_scratch_bytes": (_I, _I),
         "scan_step_launch": (_C, _C, ctypes.c_longlong, _C, _I, _I,
                              ctypes.c_uint, _C),
-        "scan_commit_launch": (_C, _C, _I, _C),
+        "scan_commit_launch": (_C, _C, _C, _I, _I, _I, _I, _C),
         "sched_driver_version": (_C,),
         "sched_program_build": (_C, _I, _C, _I, _C),
         "sched_program_launch": (_C, _C),

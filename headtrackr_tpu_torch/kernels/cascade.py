@@ -12,14 +12,22 @@ most DENSE stages; any other device raises, and so does a failed build or
 launch.  The two are equal to the bit, slot for slot.
 
 The launch policy is this module's: the dense kernel's tile (``dense_tile``)
-and its tiles (``dense_tiles``), cached on the tables.
+and its tiles (``dense_tiles``), cached on the tables.  The dense kernel
+puts the stream on the grid's y dimension and the work list numbers its
+windows n * M + m in 32 bits, so the dense and deep launches run over
+chunks of at most 65,535 streams and 2^32 windows
+(kernels/histbins.py ``row_chunks``), in turn, each chunk's survivors
+listed afresh (the list, its count and the chunk's bitmap zeroed by the
+dense launch's memset); the compaction, a CTA a stream on the grid's x
+dimension, takes the batch in one launch.
 """
 
 import numpy as np
 import torch
 
 from ..ops.detect import cascade_plain
-from .launch import launch, on_cuda, sm_count
+from .histbins import row_chunks
+from .launch import launch, on_cuda, row_ptr, sm_count
 
 DENSE = 2          # stages run a thread a window, at most (kDense)
 DENSE_WEAK = 16    # their weak classifiers, at most (kDenseWeak)
@@ -111,26 +119,26 @@ def cascade(buf, tables, capacity):
         tile = dense_tile(N, int(_tiles(tables, DENSE_TILES[1])[0][-1]),
                           sm_count(dev))
         tile_first, tile_bytes = _tiles(tables, tile)
-        chunk = min(N, max(1, _LIST_MAX // max(M, 1)))
+        chunks = row_chunks(N if M else 0, _LIST_MAX // max(M, 1))
         with torch.cuda.device(dev):
             if M:
-                work = torch.empty((chunk * M,), dtype=torch.int32,
-                                   device=dev)
-            for n0 in range(0, N if M else 0, chunk):
-                n = min(chunk, N - n0)
-                at = (bits[n0 * words].data_ptr(), zero[N * words].data_ptr(),
-                      conf[n0].data_ptr(), work.data_ptr(), n, tables.L, M)
+                work = torch.empty((max(n1 - n0 for n0, n1 in chunks) * M,),
+                                   dtype=torch.int32, device=dev)
+            for n0, n1 in chunks:
+                n = n1 - n0
+                at = (row_ptr(bits, n0 * words), row_ptr(zero, N * words),
+                      row_ptr(conf, n0), work.data_ptr(), n, tables.L, M)
                 launch("cascade", "cascade_dense_launch",
                        dn.codes.ctypes.data, dn.side.ctypes.data,
                        dn.alpha.ctypes.data, dn.thresh.ctypes.data,
                        dn.ends.ctypes.data, d, len(dn.codes),
                        dn.ext.ctypes.data, tile, tile_bytes,
                        dn.scales.ctypes.data, tile_first.ctypes.data,
-                       len(dn.scales), int(stages > d), buf[n0].data_ptr(),
+                       len(dn.scales), int(stages > d), row_ptr(buf, n0),
                        *at)
                 if stages > d:
                     launch("cascade", "cascade_deep_launch",
-                           buf[n0].data_ptr(), tables.base32.data_ptr(),
+                           row_ptr(buf, n0), tables.base32.data_ptr(),
                            tables.rowstep32.data_ptr(),
                            tables.offs16.data_ptr(), tables.alpha.data_ptr(),
                            tables.thresh.data_ptr(),

@@ -65,9 +65,12 @@ def id_shares(c, p, head=0):
     return shares
 
 
-def row_chunks(n):
-    """[r0, r1) of the launches over n rows, each at most ``MAX_ROWS``."""
-    return [(r0, min(r0 + MAX_ROWS, n)) for r0 in range(0, n, MAX_ROWS)]
+def row_chunks(n, most=None):
+    """[r0, r1) of the launches over n rows, each at most ``MAX_ROWS`` (and
+    at most ``most``, where given).  Every wrapper whose kernel puts the
+    stream on the grid's y dimension splits its batch by it."""
+    step = MAX_ROWS if most is None else max(1, min(most, MAX_ROWS))
+    return [(r0, min(r0 + step, n)) for r0 in range(0, n, step)]
 
 
 def hist_bins(bins):

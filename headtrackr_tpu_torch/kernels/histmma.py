@@ -8,14 +8,17 @@
 
 Dispatch as in kernels/histpdf.py: a CPU tensor takes the plain twin
 (ops/histogram.py ``hist_mma_plain``), a CUDA tensor launches the kernel,
-any other device raises.
+any other device raises.  The kernel puts the stream on the grid's y
+dimension: a batch past 65,535 streams takes a launch a chunk of at most
+that many (kernels/histbins.py ``row_chunks``).
 """
 
 import torch
 
 from ..ops.histogram import NBINS, hist_mma_plain
 from .histpdf import _check_frames, _check_rects
-from .launch import launch, on_cuda, sm_count
+from .histbins import row_chunks
+from .launch import launch, on_cuda, row_ptr, sm_count
 
 __all__ = ["hist_mma", "split_frame"]
 
@@ -53,12 +56,17 @@ def hist_mma(frames, rects):
     if N * H * W == 0:
         return torch.zeros((N, NBINS), dtype=torch.float32,
                            device=frames.device)
-    blocks, block_px = split_frame(N, H * W, sm_count(frames.device))
     out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
-    partial = torch.empty((N, blocks, NBINS), dtype=torch.int32,
+    chunks = row_chunks(N)
+    plans = [split_frame(r1 - r0, H * W, sm_count(frames.device))
+             for r0, r1 in chunks]
+    # one scratch for the chunks' partial counts, which run in turn
+    partial = torch.empty((max((r1 - r0) * b for (r0, r1), (b, _) in
+                               zip(chunks, plans)), NBINS), dtype=torch.int32,
                           device=frames.device)
     with torch.cuda.device(frames.device):
-        launch("hist_mma", "hist_mma_launch", frames.data_ptr(),
-               rects.data_ptr(), partial.data_ptr(), out.data_ptr(), N, H, W,
-               blocks, block_px)
+        for (r0, r1), (blocks, block_px) in zip(chunks, plans):
+            launch("hist_mma", "hist_mma_launch", row_ptr(frames, r0),
+                   row_ptr(rects, r0), partial.data_ptr(), row_ptr(out, r0),
+                   r1 - r0, H, W, blocks, block_px)
     return out

@@ -19,16 +19,23 @@ kernel, so a run can show that its main path went through the kernels.
 ``hist4096`` and ``histpdf_band`` run one thread-block cluster of C CTAs a
 stream (``cluster_split``), each CTA counting a share of the rect's rows
 (``cluster_rows``) and reducing a slice of the bins over its peers.
+
+Each kernel here puts the stream on the grid's y dimension, so a launch
+takes at most 65,535 streams: the wrappers split a larger batch into
+launches of at most that many (kernels/histbins.py ``row_chunks``), each
+sized as if its streams were the batch.  The split follows N alone, so a
+CUDA graph captures as many launches as an eager call makes.
 """
 
 import torch
 
 from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
                              histpdf_band_plain)
-from .histbins import hist_bins
+from .histbins import hist_bins, row_chunks
 from .launch import frames_source as _frames_source
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
+from .launch import row_ptr as _row_ptr
 from .launch import sm_count as _sm_count
 from .pdfbins import pdf_bins
 
@@ -112,11 +119,12 @@ def _counts(key, frames, rects):
     launch counted under ``key``."""
     N, H, W, _ = frames.shape
     out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
-    if N:
-        c = cluster_split(N, H, W, _sm_count(frames.device))
-        with torch.cuda.device(frames.device):
-            _launch(key, "hist4096_launch", frames.data_ptr(),
-                    rects.data_ptr(), out.data_ptr(), N, H, W, c)
+    with torch.cuda.device(frames.device):
+        for r0, r1 in row_chunks(N):
+            c = cluster_split(r1 - r0, H, W, _sm_count(frames.device))
+            _launch(key, "hist4096_launch", _row_ptr(frames, r0),
+                    _row_ptr(rects, r0), _row_ptr(out, r0), r1 - r0, H, W,
+                    c)
     return out
 
 
@@ -138,15 +146,17 @@ def backproject(frames, weights, rects=None, band=None):
         raise ValueError("weights must be 16-byte aligned (float4 table load)")
     shape = (N, H, W) if rects is None else (N, bh, bw)
     out = torch.empty(shape, dtype=torch.float32, device=frames.device)
-    if N:
-        with torch.cuda.device(frames.device):
+    with torch.cuda.device(frames.device):
+        for r0, r1 in row_chunks(N):
             if rects is None:
-                _launch("backproject", "backproject_launch", frames.data_ptr(),
-                        weights.data_ptr(), out.data_ptr(), N, H, W)
+                _launch("backproject", "backproject_launch",
+                        _row_ptr(frames, r0), _row_ptr(weights, r0),
+                        _row_ptr(out, r0), r1 - r0, H, W)
             else:
                 _launch("backproject_rect", "backproject_rect_launch",
-                        frames.data_ptr(), weights.data_ptr(), rects.data_ptr(),
-                        out.data_ptr(), N, H, W, bh, bw)
+                        _row_ptr(frames, r0), _row_ptr(weights, r0),
+                        _row_ptr(rects, r0), _row_ptr(out, r0), r1 - r0, H,
+                        W, bh, bw)
     return out
 
 
@@ -195,12 +205,15 @@ def histpdf_band(frames, rects, model=None, band=None):
         raise ValueError("model must be 16-byte aligned (float4 loads)")
     cur = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     pdf = torch.empty((N, bh, bw), dtype=torch.float32, device=frames.device)
-    if N:
-        c = cluster_split(N, bh, bw, _sm_count(frames.device))
-        with torch.cuda.device(frames.device):
-            _launch("histpdf_band", "histpdf_band_launch", frames.data_ptr(),
-                    rects.data_ptr(), model.data_ptr(), cur.data_ptr(),
-                    pdf.data_ptr(), N, H, W, bh, bw, c, at)
+    with torch.cuda.device(frames.device):
+        for r0, r1 in row_chunks(N):
+            # in place, streams r0.. lie r0 frames past the word's address
+            c = cluster_split(r1 - r0, bh, bw, _sm_count(frames.device))
+            _launch("histpdf_band", "histpdf_band_launch",
+                    _row_ptr(frames, r0), _row_ptr(rects, r0),
+                    _row_ptr(model, r0), _row_ptr(cur, r0),
+                    _row_ptr(pdf, r0), r1 - r0, H, W, bh, bw, c, at,
+                    r0 * H * W * 3)
     return cur, pdf
 
 

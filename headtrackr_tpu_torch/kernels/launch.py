@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["launches", "host_paths", "reset_launches", "capturing",
            "replayed", "frames_at", "frames_source", "launch", "on_cuda",
-           "sm_count"]
+           "row_ptr", "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
@@ -117,6 +117,12 @@ def on_cuda(*tensors):
                 raise ValueError("kernel inputs must be contiguous")
         return True
     raise ValueError(f"no kernel for device {dev}")
+
+
+def row_ptr(t, r):
+    """The device address of row ``r`` of the contiguous tensor ``t``
+    (a launch over a batch's rows r..)."""
+    return t.data_ptr() + r * t.stride(0) * t.element_size()
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,13 +13,17 @@ build or launch.  The two are equal to the bit.
 
 The launch policy is this module's: the CTAs a chain (``split``) and each
 CTA's shared-memory regions (``pyramid_regions``, sized so that
-CTAS_PER_SM CTAs fit an SM), cached on the tables.
+CTAS_PER_SM CTAs fit an SM), cached on the tables.  The kernel puts the
+stream on the grid's y dimension: a batch past 65,535 streams takes a
+launch a chunk of at most that many (kernels/histbins.py ``row_chunks``),
+each sized by its own streams.
 """
 
 import torch
 
 from ..ops.imageproc import STEP_H, STEP_SOURCE, STEP_W, pack_pyramid
-from .launch import launch, on_cuda, sm_count
+from .histbins import row_chunks
+from .launch import launch, on_cuda, row_ptr, sm_count
 
 __all__ = ["pyramid", "split", "pyramid_regions", "held_bytes", "SPLITS",
            "CTAS_PER_SM", "SMEM_BYTES"]
@@ -94,18 +98,19 @@ def pyramid(gray, tables):
     out = torch.empty((N, tables.L), dtype=torch.uint8, device=dev)
     if N == 0 or tables.L == 0:
         return out
-    s = split(N, plan.chains, sm_count(dev))
-    key = ("pyramid", s)
-    if key not in tables.launch:
-        tables.launch[key] = pyramid_regions(plan.host, s)
-    r0, r1 = tables.launch[key]
     scratch = (torch.empty((N, plan.S), dtype=torch.uint8, device=dev)
                if plan.S else out)
     with torch.cuda.device(dev):
-        launch("pyramid", "pyramid_launch", gray.data_ptr(),
-               scratch.data_ptr(), out.data_ptr(), plan.steps.data_ptr(),
-               plan.chain_first.data_ptr(), plan.chain_grid.data_ptr(),
-               plan.xg.data_ptr(), plan.yg.data_ptr(), plan.chains, N,
-               spec.w0, spec.h0, plan.S, tables.L, s, r0, r1,
-               plan.grid_bytes)
+        for n0, n1 in row_chunks(N):
+            s = split(n1 - n0, plan.chains, sm_count(dev))
+            key = ("pyramid", s)
+            if key not in tables.launch:
+                tables.launch[key] = pyramid_regions(plan.host, s)
+            r0, r1 = tables.launch[key]
+            launch("pyramid", "pyramid_launch", row_ptr(gray, n0),
+                   row_ptr(scratch, n0), row_ptr(out, n0),
+                   plan.steps.data_ptr(), plan.chain_first.data_ptr(),
+                   plan.chain_grid.data_ptr(), plan.xg.data_ptr(),
+                   plan.yg.data_ptr(), plan.chains, n1 - n0, spec.w0,
+                   spec.h0, plan.S, tables.L, s, r0, r1, plan.grid_bytes)
     return out

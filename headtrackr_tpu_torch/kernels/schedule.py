@@ -10,7 +10,10 @@ their plain twins, and the program's CUDA graph.
   scan_step      :426 scan_steps (lax.scan): of tick k's frames, which
                  tick_select locates, the rows a body's PyTorch ops read,
                  into the bodies' buffer (rows or whole)
-  scan_commit    the scan's carried state and its stacked outputs
+  scan_commit    the scan's carried state and its stacked outputs: the
+                 results of the body that ran (each body keeps its own),
+                 by ``segments``' table of that body; in its staging mode
+                 the tick body's results into the escape bodies' buffers
 
 None replaces a Pallas kernel: the reference leaves these to XLA's control
 flow inside one program.  Dispatch as the other wrappers: a CPU tensor
@@ -28,6 +31,7 @@ rotation at s = m); m + 1 "wbtrack"; m + 2 "full" (overload "full" only).
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +41,8 @@ __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "escape_select_plain", "scan_step", "scan_step_plain",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
            "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
-           "scratch", "select_floor"]
+           "scratch", "select_floor", "CommitTables", "commit_ctas",
+           "commit_chunks", "check_commit"]
 
 MODE_VJ, MODE_CS = 1, 2
 # a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
@@ -52,13 +57,21 @@ P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
 P_COMMITS = 11  # scan_commit's runs this launch (P_STEPS: scan_step's)
 P_FRAME_AT = 12  # the tick's frames: tick_select writes P_FRAMES + k bytes
 P_ROW_STEPS, P_WHOLE_STEPS = 13, 14  # scan_step's runs that copied, by mode
+P_STAGES = 15  # scan_commit's staging runs this launch
 P_RUNS = 16  # runs this launch: tick_select's by its body from here,
 ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
 # sched_program_build's argument words (csrc/schedule.cu BuildArg)
 BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
-              "rotate", "esc", "eidx", "eb", "frames", "frame_bytes", "segs",
-              "nseg", "few", "many", "sel_scratch", "sel_bytes",
-              "esc_scratch", "esc_bytes", "copies")
+              "rotate", "esc_at", "eidx", "eb", "frames", "frame_bytes",
+              "tables", "segs", "commit_ctas", "few", "many", "sel_scratch",
+              "sel_bytes", "esc_scratch", "esc_bytes", "copies",
+              "stage_tables", "stage_segs", "stage_ctas")
+# scan_commit's grid (csrc/schedule.cu kCopyThreads): CTAs of COMMIT_THREADS
+# threads, a thread a 16-byte chunk of the table at a time, at most
+# COMMIT_CTAS_PER_SM CTAs an SM (one wave: 2,048 threads an SM)
+COMMIT_THREADS = 256
+COMMIT_CHUNK = 16
+COMMIT_CTAS_PER_SM = 8
 # scan_step's copy modes (csrc/schedule.cu kCopyNone, kCopyRows, kCopyWhole)
 COPY_MODES = ("none", "rows", "whole")
 MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
@@ -211,9 +224,52 @@ def scan_step_plain(src, frames, rows=None):
     frames.index_copy_(0, rows, src.index_select(0, rows))
 
 
+def _span(t):
+    """[first, last) bytes a tensor's elements cover."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    end = t.data_ptr() + (last + 1) * t.element_size() if t.numel() else \
+        t.data_ptr()
+    return t.data_ptr(), end
+
+
+def _pitch(src):
+    """A source's element pitch in bytes: 0 when contiguous, its stride for
+    a 1-D strided view; any other layout raises."""
+    if src.is_contiguous():
+        return 0
+    if src.dim() != 1:
+        raise ValueError(f"a result of shape {tuple(src.shape)} and strides "
+                         f"{src.stride()}: the commit takes contiguous "
+                         f"tensors and 1-D strided views")
+    return src.stride(0) * src.element_size()
+
+
+def check_commit(carry, rows):
+    """Raise unless no source of ``carry`` ((src, dst) pairs) or ``rows``
+    ((src, ...) tuples) overlaps a destination of ``carry`` (a copy must
+    not read what the same copy writes), every destination is contiguous
+    and every source contiguous or a 1-D strided view.  A body's state
+    leaf that is the destination tensor itself (passed through) has no
+    pair."""
+    for _, d in carry:
+        if not d.is_contiguous():
+            raise ValueError("a commit destination must be contiguous")
+    dsts = [_span(d) for _, d in carry]
+    for src in [c[0] for c in carry] + [r[0] for r in rows]:
+        _pitch(src)
+        a0, a1 = _span(src)
+        for d0, d1 in dsts:
+            if a0 < d1 and d0 < a1:
+                raise ValueError("a body's result overlaps the state it "
+                                 "commits into (only a leaf passed through "
+                                 "whole may be that state's own tensor)")
+
+
 def scan_commit_plain(k, carry, rows):
     """The scan_commit kernel's twin: each (src, dst) of ``carry`` copied
-    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``."""
+    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``; a
+    source that overlaps a destination raises (``check_commit``)."""
+    check_commit(carry, rows)
     for src, dst in carry:
         dst.copy_(src)
     for src, pack, row in rows:
@@ -331,31 +387,99 @@ def scan_step(params, frames, rows=None, skip=0):
                frames.data_ptr(), nbytes, ptr, nrows, n, int(skip))
 
 
-def segments(carry, rows, device):
-    """scan_commit's table, (segments, 6) i64 on ``device``: each (src,
-    dst) of ``carry`` copied whole; each (src, slot, row) of ``rows`` into
-    row ``row * K + k`` of the output pack at ``params[P_OUT + slot]``,
-    rows of src's bytes.  Sources and destinations of one byte size."""
-    table = []
-    for src, dst in carry:
-        if src.nbytes != dst.nbytes:
-            raise ValueError("a carried leaf changes its size")
-        table.append([src.data_ptr(), dst.data_ptr(), src.nbytes, -1, 0, 0])
-    for src, slot, row in rows:
-        table.append([src.data_ptr(), 0, src.nbytes, slot, row, src.nbytes])
-    return torch.tensor(table, dtype=torch.int64, device=device)
+class CommitTables(NamedTuple):
+    """scan_commit's tables (csrc/schedule.cu Table, Seg), one a body:
+    ``tables`` (T, 4) i64, table t's first entry, its entries and its
+    16-byte chunks; ``segs`` (S, 8) i64, an entry's source, destination (0
+    for a pack row), bytes, pack slot (-1: none), pack row, first chunk in
+    its table, source pitch (0: contiguous; a 1-D strided view's element
+    stride in bytes) and element bytes; ``chunks``: the most chunks a
+    table holds (the grid's size); ``keep``: the tensors the entries
+    address."""
+    tables: torch.Tensor
+    segs: torch.Tensor
+    chunks: int
+    keep: tuple
 
 
-def scan_commit(params, table):
-    """The copies of ``table`` (``segments``) for the tick params[P_K] - 1;
-    one run into ``params[P_COMMITS]``.  CUDA only: the table holds device
-    addresses."""
-    if not on_cuda(params, table):
+def segments(tables, device):
+    """scan_commit's tables (``CommitTables``) on ``device``, one for each
+    (carry, rows) of ``tables``: each (src, dst) of carry copied whole;
+    each (src, slot, row) of rows into row ``row * K + k`` of the output
+    pack at ``params[P_OUT + slot]``, rows of src's bytes (a 1-D strided
+    source gathered into them).  Each table's
+    entries are one run of 16-byte chunks, an entry's bytes rounded up to
+    a whole chunk (the kernel copies a partial or unaligned chunk byte by
+    byte), so that the copy is balanced by bytes.  An empty source is
+    left out; a source that overlaps a carry destination raises
+    (``check_commit``), and so does a carried pair of two sizes."""
+    heads, segs, keep = [], [], []
+    for carry, rows in tables:
+        check_commit(carry, rows)
+        first, chunk = len(segs), 0
+        for src, dst in carry:
+            if src.nbytes != dst.nbytes:
+                raise ValueError("a carried leaf changes its size")
+            keep += [src, dst]
+            if src.nbytes:
+                segs.append([src.data_ptr(), dst.data_ptr(), src.nbytes, -1,
+                             0, chunk, _pitch(src), src.element_size()])
+                chunk += -(-src.nbytes // COMMIT_CHUNK)
+        for src, slot, row in rows:
+            keep.append(src)
+            if src.nbytes:
+                segs.append([src.data_ptr(), 0, src.nbytes, slot, row, chunk,
+                             _pitch(src), src.element_size()])
+                chunk += -(-src.nbytes // COMMIT_CHUNK)
+        heads.append([first, len(segs) - first, chunk, 0])
+    return CommitTables(
+        torch.tensor(heads, dtype=torch.int64, device=device),
+        torch.tensor(segs or [[0] * 8], dtype=torch.int64, device=device),
+        max(h[2] for h in heads), tuple(keep))
+
+
+def commit_ctas(chunks, sms):
+    """scan_commit's grid for tables of at most ``chunks`` chunks on a card
+    of ``sms`` SMs: a CTA a COMMIT_THREADS chunks, at most one wave."""
+    return max(1, min(-(-chunks // COMMIT_THREADS), COMMIT_CTAS_PER_SM * sms))
+
+
+def commit_chunks(ct, t):
+    """The chunks of table t of ``ct`` as the kernel takes them: (entry,
+    byte offset in it, bytes) for chunk 0, 1, ... of the table, in order
+    (a thread's first chunk found by bisection over the entries' first
+    chunks, the next by walking on)."""
+    first, count, chunks, _ = ct.tables[t].tolist()
+    starts = ct.segs[first:first + count, 5].tolist()
+    nbytes = ct.segs[first:first + count, 2].tolist()
+    out, e = [], 0
+    for c in range(chunks):
+        while e + 1 < count and starts[e + 1] <= c:
+            e += 1
+        off = (c - starts[e]) * COMMIT_CHUNK
+        out.append((first + e, off, min(COMMIT_CHUNK, nbytes[e] - off)))
+    return out
+
+
+def scan_commit(params, ct, table=0, nb=1, stage=False, ctas=None):
+    """The copies of table ``table`` of ``ct`` (``segments``) for the tick
+    params[P_K] - 1 (table -1: the program's pick, the escape body's table
+    nb - 1 + params[P_ESEL] when one ran, else params[P_BRANCH]'s; staging
+    the latter only); one run into ``params[P_COMMITS]`` (staging:
+    ``params[P_STAGES]``).  ctas: the grid (``commit_ctas`` of the tables'
+    chunks by default).  CUDA only: the tables hold device addresses."""
+    if not on_cuda(params, ct.tables, ct.segs):
         raise ValueError("scan_commit reads device addresses: CUDA tensors "
                          "only (its twin is scan_commit_plain)")
+    if not -1 <= table < ct.tables.shape[0]:
+        raise ValueError(f"no table {table} of {ct.tables.shape[0]}")
+    if ctas is None:
+        from .launch import sm_count
+        ctas = commit_ctas(ct.chunks, sm_count(params.device))
     with torch.cuda.device(params.device):
         launch("scan_commit", "scan_commit_launch", params.data_ptr(),
-               table.data_ptr(), table.shape[0])
+               ct.tables.data_ptr(), ct.segs.data_ptr(), nb, int(stage),
+               table, ctas)
 
 
 def _error(lib, rc, names):
@@ -381,11 +505,15 @@ class Graph:
     node a body -> escape_select -> IF few, IF many -> scan_commit), each
     IF node's body a child graph node of a PyTorch-captured body
     (``torch.cuda.CUDAGraph(keep_graph=True)``'s ``raw_cuda_graph()``),
-    after a scan_step node where the body copies.  ``bodies``: {name: raw
-    graph} in branch order; ``few`` / ``many``: raw graphs or 0;
-    ``copies``: each body's copy, bodies then few and many, as (mode in
-    COPY_MODES, rows tensor or None); ``args``: the device addresses and
-    sizes of BUILD_ARGS.  Building raises on a body node type a
+    after a scan_step node where the body copies, and an escape body's
+    after scan_commit's staging.  ``bodies``: {name: raw graph} in branch
+    order; ``few`` / ``many``: raw graphs or 0; ``copies``: each body's
+    copy, bodies then few and many, as (mode in COPY_MODES, rows tensor or
+    None); ``args``: the device addresses and sizes of BUILD_ARGS
+    (``tables``/``segs``: the commit's ``CommitTables``, a table a tick
+    body, then few and many; ``stage_*``: the staging's, a table a tick
+    body; ``esc_at``: a tick body's escaped flags' address each, on the
+    device, or 0 without a band).  Building raises on a body node type a
     conditional body cannot hold, on a driver older than 12.4 and on any
     CUDA error; so does ``launch``."""
 

@@ -149,11 +149,14 @@ def tree_scatter(tree, idx, sub):
 
 
 def tree_where(cond, a, b):
-    """Per-stream select over NamedTuple trees of (N, ...) tensors."""
+    """Per-stream select over NamedTuple trees of (N, ...) tensors.  A leaf
+    that is one tensor on both sides is returned as it is (the select of a
+    tensor with itself is that tensor): a step passes a leaf it leaves
+    unchanged through without a copy."""
     if isinstance(a, tuple):
         return type(a)(*(tree_where(cond, x, y) for x, y in zip(a, b)))
-    if a is None:
-        return None
+    if a is None or a is b:
+        return a
     return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 

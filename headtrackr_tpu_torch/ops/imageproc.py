@@ -21,19 +21,35 @@ __all__ = ["grayscale", "whitebalance", "resize_bilinear", "build_pyramid",
 
 
 def grayscale(rgb):
-    """(..., H, W, 3) u8 -> (..., H, W) u8.  Spec: (30 r + 59 g + 11 b + 50) // 100."""
-    c = rgb.to(torch.int32)
+    """(..., H, W, 3) u8 -> (..., H, W) u8.  Spec: (30 r + 59 g + 11 b + 50) // 100,
+    exact in int16 (at most 25,550), so that a large batch's temporaries
+    take 2 bytes a channel, not 4."""
+    c = rgb.to(torch.int16)
     g = 30 * c[..., 0] + 59 * c[..., 1] + 11 * c[..., 2] + 50
     return torch.div(g, 100, rounding_mode="floor").to(torch.uint8)
 
 
+# the most bytes of the integer copy a whitebalance slice of streams makes
+# (a batch past it is summed a slice at a time)
+_WB_SLICE_BYTES = 1 << 28
+
+
 def whitebalance(rgb):
     """(N, H, W, 3) u8 -> (N,) f32 mean gray value (avgR + avgG + avgB) / 3.
-    src/whitebalance.js:17-28.  The channel sums are exact in f64 (as the
-    JS numbers are), so a stream's value is the same in any batch and in
-    any reduction order; it is rounded once to f32."""
-    m = rgb.sum(dim=(-3, -2), dtype=torch.float64) / (
-        rgb.shape[-3] * rgb.shape[-2])
+    src/whitebalance.js:17-28.  The channel sums are exact integers (int32
+    where 255 H W fits it, else int64), made over slices of streams whose
+    integer copy stays within _WB_SLICE_BYTES, then taken to f64 (as the
+    JS numbers are: the same values an f64 sum gives), so a stream's value
+    is the same in any batch and in any reduction order, and a large batch
+    needs no wide copy of all its frames; it is rounded once to f32."""
+    H, W = rgb.shape[-3], rgb.shape[-2]
+    dt = torch.int32 if 255 * H * W < 2 ** 31 else torch.int64
+    flat = rgb.reshape((-1, H, W, 3))
+    step = max(1, _WB_SLICE_BYTES // max(1, 3 * H * W * dt.itemsize))
+    sums = torch.cat([flat[s:s + step].sum(dim=(1, 2), dtype=dt)
+                      for s in range(0, flat.shape[0], step)]) \
+        if flat.shape[0] > step else flat.sum(dim=(1, 2), dtype=dt)
+    m = sums.reshape(rgb.shape[:-3] + (3,)).to(torch.float64) / (H * W)
     return ((m[..., 0] + m[..., 1] + m[..., 2]) / 3.0).to(torch.float32)
 
 

@@ -44,14 +44,15 @@ reads in place), and scan_step copies into the bodies' buffer only what
 another body's PyTorch ops read (``_Steps.copy_mode``).  Its select
 kernels are a grid of CTAs each, whose last CTA merges the others' counts
 and candidates, so the program serves any batch whose frames fit the
-card.
-What bounds N on one card: the card's memory (one tick's frames, a scan's
-staged ticks, the state and the bodies' buffers: 10,240 streams of
-320x240 stage 9.4 GB a scan of 4 ticks), and 65,535 streams, the most
-that the kernels putting the stream on a grid axis take in one launch
-(csrc/histpdf.cu, histmma.cu, pyramid.cu and cascade.cu raise past it;
-the histbins and pdfbins wrappers split larger batches).  Nothing clips
-N.  The branches' bodies
+card.  Each body keeps its own results, and scan_commit copies those of
+the body that ran (a leaf it passed through, none).
+What bounds N on one card is its memory alone (one tick's frames, a
+scan's staged ticks, the state, the bodies' buffers and the results each
+body keeps: 10,240 streams of 320x240 stage 9.4 GB a scan of 4 ticks):
+the wrappers of the kernels that put the stream on the grid's y axis
+(65,535 a launch) split a larger batch into launches of at most that
+many (kernels/histbins.py row_chunks).  Nothing clips N.  The branches'
+bodies
 are CUDA graphs captured from the steps: "track"; the bucket and chunk
 ticks and the rotation (``_Steps.bucket_device``: "track", then the
 "pending" step on the served slots padded with N, a masked scatter);
@@ -221,17 +222,21 @@ class _Buffers:
     ``idx``, the bucket's served slots (chunk_cap of them,
     padded with N; the bucket body over s slots reads the first s);
     ``eidx``, the escape fallback's slots (escape_bucket of them); ``age``,
-    pend_age after the tick (the program's tick_select writes it).  Out:
-    ``state_out`` and ``out``, a StepOutput of rows of one packed
-    (fields, N) tensor a dtype (``packs``, laid out at the first write),
-    which every body writes whole and the program's escape bodies also
-    read.  A body keeps nothing it allocates past its capture, so all of a
-    batch size's bodies capture into one memory pool (``pool``).  On the
-    card ``params`` is the serving program's parameter block, whose word
-    ``frame_at`` holds where the tick's frames lie (tick_select writes it):
-    a body that reads its frames in place reads them there, and the
-    program copies into ``frames`` only what a body's PyTorch ops read of
-    them (``_Steps.copy_mode``)."""
+    pend_age after the tick (the program's tick_select writes it).  No
+    body writes any of them: each keeps its own results (``_TickGraph``),
+    which the program commits.  ``state_out`` and ``out`` (``stage_for``,
+    where a band's escape bodies exist) are what the escape bodies read:
+    the program stages the tick body's results there on a tick whose
+    escape fallback runs a body, and on no other; ``out`` is a StepOutput
+    of rows of one packed (fields, N) tensor a dtype (``lay_out``, also
+    the layout of the program's output packs).  All of a batch size's
+    bodies capture into one memory pool (``pool``), in which the results
+    each keeps stay allocated for the graph's lifetime, so that no later
+    capture reuses them.  On the card ``params`` is the serving program's
+    parameter block, whose word ``frame_at`` holds where the tick's frames
+    lie (tick_select writes it): a body that reads its frames in place
+    reads them there, and the program copies into ``frames`` only what a
+    body's PyTorch ops read of them (``_Steps.copy_mode``)."""
 
     def __init__(self, state, frames_shape, device, cap, escape_bucket):
         n = frames_shape[0]
@@ -239,12 +244,11 @@ class _Buffers:
         self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
                                   device=device)
         self.state_in = _clone(state)
-        self.state_out = _clone(state)
         self.idx = torch.full((cap,), n, dtype=torch.int64, device=device)
         self.eidx = torch.full((escape_bucket,), n, dtype=torch.int64,
                                device=device)
         self.age = torch.zeros((n,), dtype=torch.int32, device=device)
-        self.out = None
+        self.state_out = self.out = self.rows = None
         self.pool = self.params = self.frame_at = None
         if device.type == "cuda":
             with torch.cuda.device(device):
@@ -254,32 +258,43 @@ class _Buffers:
             self.frame_at = self.params[schedule.P_FRAME_AT:
                                         schedule.P_FRAME_AT + 1]
 
-    def write(self, state, out):
-        """A body's results into ``state_out`` and ``out``."""
-        if self.out is None:  # the first write is a body's warm-up run
+    def lay_out(self, out):
+        """The output packs' layout from a body's outputs, once: ``rows``,
+        each leaf's (dtype, row) in a (fields, N) pack a dtype, and
+        ``packs``, each dtype's (fields, N) shape."""
+        if self.rows is None:
             groups = {}
             self.rows = []
             for v in out:
                 self.rows.append((v.dtype, len(groups.setdefault(v.dtype,
                                                                  []))))
                 groups[v.dtype].append(v)
-            self.packs = {dt: torch.zeros((len(g),) + g[0].shape, dtype=dt,
-                                          device=self.device)
+            self.packs = {dt: (len(g),) + tuple(g[0].shape)
                           for dt, g in groups.items()}
-            self.out = ft.StepOutput(*(self.packs[dt][i]
-                                       for dt, i in self.rows))
-        torch._foreach_copy_(_leaves(self.state_out), _leaves(state))
-        torch._foreach_copy_(_leaves(self.out), _leaves(out))
+
+    def stage_for(self):
+        """Make ``state_out`` and ``out``, the escape bodies' inputs, once
+        (after ``lay_out``)."""
+        if self.state_out is None:
+            self.state_out = _clone(self.state_in)
+            packs = {dt: torch.zeros(shape, dtype=dt, device=self.device)
+                     for dt, shape in self.packs.items()}
+            self.out = ft.StepOutput(*(packs[dt][i] for dt, i in self.rows))
 
 
 class _TickGraph:
     """A tick body of the serving program, ``tick(state, frames, *extra)
     -> (state', StepOutput)`` on a batch size's ``_Buffers`` (from their
-    ``state_in`` and ``frames``), which writes its results into the
-    buffers' ``state_out`` and ``out``.  On the card it is captured in a
-    CUDA graph (keep_graph, for the program's conditional nodes; in the
-    buffers' pool; a capture failure raises; ``launches`` tallies the
-    kernel launches one run makes); on the CPU ``run`` calls the tick.
+    ``state_in`` and ``frames``).  It writes no shared buffer.  On the card
+    it is captured in a CUDA graph (keep_graph, for the program's
+    conditional nodes; in the buffers' pool; a capture failure raises;
+    ``launches`` tallies the kernel launches one run makes), and ``state``
+    and ``out`` keep the tensors its capture returned, as
+    ``torch.cuda.make_graphed_callables`` keeps its static outputs: each
+    replay's results, at addresses fixed for the graph's lifetime, which
+    the program commits (a leaf the body passes through is ``state_in``'s
+    own tensor).  On the CPU ``run`` calls the tick and returns its
+    results.
 
     ``copy`` (kernels/schedule.py COPY_MODES) is what the program copies
     into the buffers' frames before the body: "none", "rows" (the slots
@@ -294,7 +309,7 @@ class _TickGraph:
         self.bufs, self.extra = bufs, extra
         self.copy, self.rows = copy, rows
         self.device = bufs.device
-        self.graph = None
+        self.graph = self.state = self.out = None
         self.launches = dict.fromkeys(launch.launches, 0)
         self.tick = tick  # called at each run on the CPU
         if self.device.type != "cuda":
@@ -308,7 +323,7 @@ class _TickGraph:
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with launch.capturing() as self.launches, \
                     torch.cuda.graph(self.graph, pool=bufs.pool):
-                self.run(bufs.frame_at)
+                self.state, self.out = self.run(bufs.frame_at)
         # not kept on the card: a graph holding its _Steps' bound method
         # makes a reference cycle, which the cyclic collector may free while
         # another graph captures, destroying CUDA objects mid-capture
@@ -316,13 +331,13 @@ class _TickGraph:
 
     def run(self, source=None):
         """Run the body once (its warm-up, which reads the buffer, and its
-        capture on the card; the program's twin on the CPU); ``source``:
-        where the tick's frames lie, for a body that copies less than the
-        whole tick (``launch.frames_at``)."""
+        capture on the card; the program's twin on the CPU) and return its
+        results; ``source``: where the tick's frames lie, for a body that
+        copies less than the whole tick (``launch.frames_at``)."""
         with launch.frames_at(self.bufs.frames,
                               None if self.copy == "whole" else source):
-            self.bufs.write(*self.tick(self.bufs.state_in, self.bufs.frames,
-                                       *self.extra))
+            return self.tick(self.bufs.state_in, self.bufs.frames,
+                             *self.extra)
 
 
 class _Program:
@@ -333,52 +348,67 @@ class _Program:
     tick's frames lie (tick_select) and the branch's body; with a band,
     the escape fallback's body, none, ``few`` (the full-frame "track" step
     from the pre-step state on escape_bucket slots) or ``many`` (on the
-    batch, then a per-stream select) (escape_select); then the tick's
-    outputs into row k of the scan's output packs and the new state,
-    pend_age from tick_select, over ``state_in`` (scan_commit).
-    ``escaped`` is stamped after the merge.  Ahead of a body, scan_step
-    copies into the bodies' frame buffer what its PyTorch ops read (each
-    body's ``copy``: none, its slots' rows or the whole tick; an escape
-    body copies nothing after a tick body that copied whole).
+    batch, then a per-stream select) (escape_select, on the tick body's
+    own escaped flags); then the results of the body that ran, the escape
+    body's when one did, else the tick body's: its outputs into row k of
+    the scan's output packs and its new state, pend_age from tick_select,
+    over ``state_in`` (scan_commit, by that body's table: ``_commit_pairs``
+    of the results it keeps).  An escape body reads the tick body's
+    results from the buffers' ``state_out`` and ``out``, where scan_commit
+    stages them (``_stage_pairs``) ahead of it, so only a tick whose escape
+    fallback runs a body touches those buffers.  ``escaped`` is stamped
+    after the merge.  Ahead of a body, scan_step copies into the bodies'
+    frame buffer what its PyTorch ops read (each body's ``copy``: none,
+    its slots' rows or the whole tick; an escape body copies nothing after
+    a tick body that copied whole).
+
+    Each body keeps one state and one output set of its own, so a batch
+    size holds one a body on top of the shared buffers (the leaves it
+    passes through excepted): at 256 streams of 320x240, 4.26 MB a body
+    that changes the 16 KB model histograms (the headline's bucket and
+    full bodies, the escape bodies) and 0.04-0.06 MB one that passes them
+    through (the all-CS and wbtrack bodies); 170 MB and 1.8-2.4 MB at
+    10,240 streams; ~1.2 GB and ~12 MB at 70,000.
 
     On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
     IF node a body), launched once for the K ticks, with one host read at
     the end: the last tick's mode_after and the parameter block, in which
     each of the program's kernels counts its own runs (``runs``:
     tick_select's by the body it chose, escape_select's at 8 + its
-    selection).  The launch counters take those counts, and a launch whose
-    kernels ran other than K ticks raises.  On the CPU the same bodies run
-    uncaptured, each picked by the select kernels' twins in a Python
-    ``if``.  The select kernels' scratch buffers (``schedule.scratch``)
-    are allocated here, once a batch size."""
+    selection; ``stages``: scan_commit's staging runs).  The launch
+    counters take those counts, and a launch whose kernels ran other than
+    K ticks raises.  On the CPU the same bodies run uncaptured, each
+    picked by the select kernels' twins in a Python ``if``, and their
+    results go to scan_commit's twin as they are.  The select kernels'
+    scratch buffers (``schedule.scratch``) are allocated here, once a
+    batch size."""
 
     def __init__(self, steps, state):
         n = state.mode.shape[0]
         self.device = steps.device
         self.bufs = bufs = steps.buffers(state)
         self.steps = dict.fromkeys(("runs", "rows", "whole"), 0)
+        self.stages = 0
         self.kb, self.cap = min(steps.bucket, n), steps.chunk_cap(n)
         self.rotate = steps.overload == "rotate"
         self.eb = steps.escape_bucket
         keys = steps.body_keys(n)
         self.bodies = [steps.captured(state, k) for k in keys]
         band = steps.band is not None
+        # the outputs' layout from a body's outputs (on the CPU a warm-up
+        # run's); the escape bodies read the staging buffers
+        bufs.lay_out(self.bodies[0].out if self.bodies[0].out is not None
+                     else self.bodies[0].run()[1])
+        if band:
+            bufs.stage_for()
         self.few = (steps.captured(state, "few")
                     if band and self.eb < n else None)
         self.many = steps.captured(state, "many") if band else None
-        if bufs.out is None:  # the CPU: lay the outputs out as a warm-up
-            self.bodies[0].run()
-        # the commit: state_out over state_in, pend_age from tick_select;
-        # each output row into its pack's row
-        age_leaf = next(i for i, v in enumerate(_leaves(bufs.state_in))
-                        if v is bufs.state_in.pend_age)
-        self.carry = [(bufs.age if i == age_leaf else src, dst)
-                      for i, (src, dst) in enumerate(zip(
-                          _leaves(bufs.state_out), _leaves(bufs.state_in)))]
+        self._age_leaf = next(i for i, v in enumerate(_leaves(bufs.state_in))
+                              if v is bufs.state_in.pend_age)
         self.dtypes = list(bufs.packs)
-        self.rows = [(v, self.dtypes.index(dt), i)
-                     for v, (dt, i) in zip(bufs.out, bufs.rows)]
-        self._mode_row = self.rows[ft.StepOutput._fields.index(
+        self.layout = [(self.dtypes.index(dt), i) for dt, i in bufs.rows]
+        self._mode_row = self.layout[ft.StepOutput._fields.index(
             "mode_after")]
         self.graph = None
         self.launches = 0  # launches made (a K-tick scan is one)
@@ -388,9 +418,22 @@ class _Program:
         copies = [(b.copy, b.rows) for b in self.bodies]
         copies += [(b.copy, b.rows) if b is not None else ("none", None)
                    for b in (self.few, self.many)]
+        sms = launch.sm_count(self.device)
         with torch.cuda.device(self.device):
-            self._table = schedule.segments(self.carry, self.rows,
-                                            self.device)
+            # a table a body: the tick bodies, then few and many
+            self._commit = schedule.segments(
+                [self._commit_pairs(b.state, b.out) if b is not None
+                 else ([], []) for b in self.bodies + [self.few, self.many]],
+                self.device)
+            stage = esc_at = None
+            if band:
+                stage = schedule.segments(
+                    [(self._stage_pairs(b.state, b.out), [])
+                     for b in self.bodies], self.device)
+                esc_at = torch.tensor([b.out.escaped.data_ptr()
+                                       for b in self.bodies],
+                                      dtype=torch.int64, device=self.device)
+            self._stage, self._esc_at = stage, esc_at
             self._scratch = [torch.zeros(schedule.scratch_bytes(n, c),
                                          dtype=torch.uint8,
                                          device=self.device)
@@ -405,11 +448,17 @@ class _Program:
                 idx=bufs.idx.data_ptr(), age_out=bufs.age.data_ptr(),
                 params=self._params.data_ptr(), n=n, kb=self.kb,
                 cap=self.cap, rotate=int(self.rotate),
-                esc=bufs.out.escaped.data_ptr() if band else 0,
+                esc_at=esc_at.data_ptr() if band else 0,
                 eidx=bufs.eidx.data_ptr(), eb=self.eb,
                 frames=bufs.frames.data_ptr(),
                 frame_bytes=bufs.frames.numel(),
-                segs=self._table.data_ptr(), nseg=self._table.shape[0],
+                tables=self._commit.tables.data_ptr(),
+                segs=self._commit.segs.data_ptr(),
+                commit_ctas=schedule.commit_ctas(self._commit.chunks, sms),
+                stage_tables=stage.tables.data_ptr() if band else 0,
+                stage_segs=stage.segs.data_ptr() if band else 0,
+                stage_ctas=schedule.commit_ctas(stage.chunks, sms)
+                if band else 0,
                 sel_scratch=self._scratch[0].data_ptr(),
                 sel_bytes=self._scratch[0].numel(),
                 esc_scratch=self._scratch[1].data_ptr(),
@@ -424,6 +473,30 @@ class _Program:
         self._mode_host = torch.empty((n,), dtype=torch.int32,
                                       pin_memory=True)
 
+    def _commit_pairs(self, state, out):
+        """scan_commit's copies of one body's results (state, out), as
+        (carry, rows): each state leaf over ``state_in``'s, pend_age from
+        tick_select's ``age``, none for a leaf that is ``state_in``'s own
+        tensor (passed through: nothing to copy); each output leaf as
+        (leaf, pack slot, pack row)."""
+        bufs = self.bufs
+        carry = []
+        for i, (src, dst) in enumerate(zip(_leaves(state),
+                                           _leaves(bufs.state_in))):
+            src = bufs.age if i == self._age_leaf else src
+            if src.data_ptr() != dst.data_ptr() or src.nbytes != dst.nbytes:
+                carry.append((src, dst))
+        return carry, [(v, slot, row)
+                       for v, (slot, row) in zip(out, self.layout)]
+
+    def _stage_pairs(self, state, out):
+        """scan_commit's staging of a tick body's results (state, out) into
+        the escape bodies' ``state_out`` and ``out``, every leaf, as (src,
+        dst) pairs."""
+        bufs = self.bufs
+        return list(zip(_leaves(state), _leaves(bufs.state_out))) + \
+            list(zip(out, bufs.out))
+
     def launch(self, state, seq, force=0, served=None, squeeze=False):
         """Enqueue len(seq) ticks from ``state`` (copied into ``state_in``
         unless it is it) on ``seq`` (K, N, H, W, 3) u8 on the device.
@@ -436,7 +509,7 @@ class _Program:
         self.launches += 1
         if state is not bufs.state_in:
             torch._foreach_copy_(_leaves(bufs.state_in), _leaves(state))
-        packs = [torch.empty((bufs.packs[dt].shape[0], K, n), dtype=dt,
+        packs = [torch.empty((bufs.packs[dt][0], K, n), dtype=dt,
                              device=self.device) for dt in self.dtypes]
         if force:
             idx = np.full((force - 1,), n, dtype=np.int64)
@@ -455,7 +528,7 @@ class _Program:
         p[schedule.P_FRAMES] = seq.data_ptr()
         for j, pack in enumerate(packs):
             p[schedule.P_OUT + j] = pack.data_ptr()
-        _, slot, row = self._mode_row
+        slot, row = self._mode_row
         with torch.cuda.device(self.device):
             self._params.copy_(self._host, non_blocking=True)
             self.graph.launch()
@@ -478,11 +551,12 @@ class _Program:
     def _run_plain(self, seq, force, packs):
         """The program on the CPU: the kernels' twins, their selections in
         Python ``if``s, the bodies run uncaptured, reading tick k's frames
-        in place as on the card.  Returns the runs."""
+        in place as on the card, their results committed as they are (an
+        escape body's inputs staged first).  Returns the runs."""
         bufs = self.bufs
         runs = [0] * (schedule.PARAM_WORDS - schedule.P_RUNS)
-        rows = [(v, packs[slot], row) for v, slot, row in self.rows]
         self.steps = dict.fromkeys(self.steps, 0)
+        self.stages = 0
         for k in range(seq.shape[0]):
             branch, idx, age = schedule.tick_select_plain(
                 bufs.state_in.mode, bufs.state_in.pend_age, self.kb,
@@ -491,18 +565,23 @@ class _Program:
             bufs.age.copy_(age)
             body = self.bodies[branch]
             self._copy_plain(body, seq[k])
-            body.run(seq[k])
+            state, out = body.run(seq[k])
             runs[branch] += 1
             if self.many is not None:
-                sel, eidx = schedule.escape_select_plain(bufs.out.escaped,
+                sel, eidx = schedule.escape_select_plain(out.escaped,
                                                          self.eb)
                 bufs.eidx.copy_(eidx)
                 if sel:
                     esc = self.few if sel == 1 else self.many
+                    schedule.scan_commit_plain(
+                        None, self._stage_pairs(state, out), [])
+                    self.stages += 1
                     self._copy_plain(esc, seq[k], body.copy == "whole")
-                    esc.run(seq[k])
+                    state, out = esc.run(seq[k])
                 runs[schedule.ESCAPE_RUNS + sel] += 1
-            schedule.scan_commit_plain(k, self.carry, rows)
+            carry, rows = self._commit_pairs(state, out)
+            schedule.scan_commit_plain(k, carry, [(v, packs[slot], row)
+                                                  for v, slot, row in rows])
         return runs
 
     def wait(self):
@@ -537,13 +616,15 @@ class _Program:
             self.steps = {"runs": int(back[schedule.P_STEPS]),
                           "rows": int(back[schedule.P_ROW_STEPS]),
                           "whole": int(back[schedule.P_WHOLE_STEPS])}
+            self.stages = int(back[schedule.P_STAGES])
             launch.launches["scan_step"] += self.steps["runs"]
-            launch.launches["scan_commit"] += int(back[schedule.P_COMMITS])
+            launch.launches["scan_commit"] += int(back[schedule.P_COMMITS]) \
+                + self.stages
             view = self._mode_host.numpy().copy()
         else:
             view = self.bufs.state_in.mode.numpy().copy()
         rows = [(p[:, 0] if squeeze else p).unbind(0) for p in packs]
-        out = ft.StepOutput(*(rows[slot][row] for _, slot, row in self.rows))
+        out = ft.StepOutput(*(rows[slot][row] for slot, row in self.layout))
         state = self.bufs.state_in
         return (state if donate else _clone(state)), out, view
 
@@ -745,14 +826,13 @@ class _Steps:
 
     def _banded(self, step, state, frames):
         """A "track" or "wbtrack" step (the select form) before the escape
-        fallback: escaped in the output, pend_age zeroed.  No host read."""
+        fallback: escaped in the output.  No host read.  pend_age passes
+        through (the program commits tick_select's)."""
         kw = {} if step is self._track else {"select": True}
         if self.band is None:
-            new, out = step(state, frames, **kw)
-        else:
-            new, out, esc = step(state, frames, **kw)
-            out = out._replace(escaped=esc)
-        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
+            return step(state, frames, **kw)
+        new, out, esc = step(state, frames, **kw)
+        return new, out._replace(escaped=esc)
 
     def _auto_track(self, state, frames):
         """The all-CS tick's body: "track" before the escape fallback."""
@@ -765,9 +845,8 @@ class _Steps:
 
     def _auto_full(self, state, frames):
         """The full tick's body: the "full" step in its select form on the
-        batch, pend_age zeroed.  No host read."""
-        new, out = self.full(state, frames, select=True)
-        return new._replace(pend_age=torch.zeros_like(state.pend_age)), out
+        batch.  No host read."""
+        return self.full(state, frames, select=True)
 
     def bucket_device(self, state, frames, idx):
         """The device scheduler's bucket or chunk tick before the escape
@@ -778,8 +857,8 @@ class _Steps:
         not in CS after the track pass, scattered back (padding dropped).
         A chunk tick's chunks serve disjoint streams and a stream's result
         does not depend on its batch, so one step over all its slots equals
-        the reference's chunks in turn.  pend_age zeroed (the program
-        commits tick_select's)."""
+        the reference's chunks in turn.  pend_age passes through (the
+        program commits tick_select's)."""
         state1, out = self._auto_track(state, frames)
         n = frames.shape[0]
         safe = torch.clamp(idx, max=n - 1)
@@ -794,8 +873,9 @@ class _Steps:
     def _escape_few(self, state, frames, eidx):
         """The escape fallback's ``few`` body: the full-frame "track" step
         from the pre-step ``state`` on the escaped streams' slots ``eidx``
-        (padded with N), merged into the tick's outputs in the buffers;
-        ``escaped`` kept (stamped after the merge)."""
+        (padded with N), merged into the tick body's results, which the
+        program stages into the buffers' ``state_out`` and ``out`` ahead of
+        it; ``escaped`` kept (stamped after the merge)."""
         bufs = self._bufs[frames.shape[0]]
         safe = torch.clamp(eidx, max=frames.shape[0] - 1)
         sub_state, sub_out = self._track_plain(
@@ -807,7 +887,7 @@ class _Steps:
     def _escape_many(self, state, frames):
         """The escape fallback's ``many`` body: the full-frame "track" step
         from the pre-step ``state`` on the batch, taken by the escaped
-        streams."""
+        streams over the tick body's results (staged, as for ``few``)."""
         bufs = self._bufs[frames.shape[0]]
         esc = bufs.out.escaped
         new, out = self._track_plain(state, frames)

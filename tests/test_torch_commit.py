@@ -1,0 +1,182 @@
+"""The serving program's commit (kernels/schedule.py ``segments``,
+``scan_commit_plain``, ``commit_chunks``; runtime/serving.py ``_Program``'s
+tables) on the CPU.
+
+  * a body keeps its own results, and a state leaf it passes through (the
+    all-CS body's model histograms: ``tree_where`` of a tensor with
+    itself) is ``state_in``'s own tensor and gets no commit entry; the
+    staging of a tick body's results for the escape bodies still copies
+    every leaf;
+  * a result that overlaps the state it commits into any other way raises,
+    in the tables and in the twin;
+  * the byte-balanced chunk map (the kernel's: an entry's first 16-byte
+    chunk in its table's run, bisection then a walk) copies exactly what
+    ``scan_commit_plain`` copies, on entries of every size and alignment
+    (rows of 13 bools among them) and a column of an (n, 5) tensor (a 1-D
+    strided view, gathered element by element), emulated with
+    ``ctypes.memmove`` on the CPU tensors' own addresses; any other
+    non-contiguous result raises.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import headtrackr_tpu_torch as pt
+from headtrackr_tpu_torch import toy_cascade
+from headtrackr_tpu_torch.kernels import schedule as S
+from headtrackr_tpu_torch.runtime.serving import _leaves
+
+torch.set_num_threads(2)
+
+
+def _program(**kw):
+    tb = pt.BatchedTracker(4, (48, 64), cascade=toy_cascade(), device="cpu",
+                           bucket=1, **kw)
+    tb._steps.scheduled = True
+    return tb._steps.program(tb.state)
+
+
+def test_passed_through_leaf_gets_no_entry():
+    """The all-CS body under a band passes the camshift model histograms
+    (and every other leaf its step leaves unchanged) through as
+    ``state_in``'s own tensors: no commit pair copies them, while
+    pend_age is committed from tick_select's ``age``; the staging pairs
+    hold every leaf."""
+    prog = _program(band=(32, 48), bandHist=True)
+    bufs = prog.bufs
+    state, out = prog.bodies[0].run()
+    assert state.cs.model_hist is bufs.state_in.cs.model_hist
+    carry, rows = prog._commit_pairs(state, out)
+    dsts = [d for _, d in carry]
+    assert not any(d is bufs.state_in.cs.model_hist for d in dsts)
+    assert any(s is bufs.age and d is bufs.state_in.pend_age
+               for s, d in carry)
+    for src, dst in carry:
+        assert src.data_ptr() != dst.data_ptr()
+    assert len(rows) == len(out)
+    staged = prog._stage_pairs(state, out)
+    assert len(staged) == len(_leaves(state)) + len(out)
+    table = S.segments([(carry, rows)], "cpu")
+    want = sum(s.nbytes for s, _ in carry) + sum(v.nbytes for v, _, _ in rows)
+    assert int(table.segs[:, 2].sum()) == want
+    # a body that changes the histograms (the full tick's) commits them
+    full = prog.bodies[-1]
+    state, out = full.run()
+    carry, _ = prog._commit_pairs(state, out)
+    assert any(d is bufs.state_in.cs.model_hist for _, d in carry)
+
+
+def test_overlapping_result_raises():
+    """A source that overlaps a destination of the same commit (a view of
+    the state it is copied over, or an output row read from a leaf the
+    commit writes) raises when the table is built and in the twin; a leaf
+    of one tensor on both sides is no entry at all, and an output row that
+    reads a leaf the commit does not write is fine."""
+    dst = torch.arange(32, dtype=torch.int32)
+    other = torch.zeros(32, dtype=torch.int32)
+    pack = torch.zeros((1, 2, 32), dtype=torch.int32)
+    bad = [([(dst.flip(0)[:16].contiguous(), dst[:16])], []),  # fine: a copy
+           ([(dst[8:24], dst[:16])], []),
+           ([(other, dst)], [(dst, 0, 0)])]
+    S.segments([bad[0]], "cpu")
+    for carry, rows in bad[1:]:
+        with pytest.raises(ValueError, match="overlaps"):
+            S.segments([(carry, rows)], "cpu")
+        with pytest.raises(ValueError, match="overlaps"):
+            S.scan_commit_plain(0, carry, [(s, pack, r) for s, _, r in rows])
+    S.segments([([(other, dst)], [(torch.ones(32, dtype=torch.int32), 0, 0)])],
+               "cpu")
+    grid = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="1-D strided"):
+        S.segments([([(grid[:, :4], torch.zeros((4, 4), dtype=torch.int32))],
+                     [])], "cpu")
+    S.segments([([], [(grid[:, 3], 0, 0)])], "cpu")
+
+
+def _emulate(params, ct, t):
+    """scan_commit's kernel on table t of ``ct`` (CPU addresses): each
+    chunk of ``commit_chunks`` copied from its entry's source to its
+    destination (a pack row: row * K + k of params' pack ``slot``)."""
+    k, K = int(params[S.P_K]) - 1, int(params[S.P_TICKS])
+    for e, off, nbytes in S.commit_chunks(ct, t):
+        src, dst, size, slot, row, _, pitch, elem = ct.segs[e].tolist()
+        if slot >= 0:
+            dst = int(params[S.P_OUT + slot]) + (row * K + k) * size
+        if not pitch:
+            ctypes.memmove(dst + off, src + off, nbytes)
+            continue
+        for i in range(off, off + nbytes, elem):  # a strided source
+            ctypes.memmove(dst + i, src + i // elem * pitch, elem)
+
+
+@pytest.mark.parametrize("n", [13, 16, 100])
+def test_chunk_map_copies_what_the_twin_copies(n):
+    """Three tables (a tick body's, an escape body's, one empty) of state
+    leaves of (n,), (n, 4), (n, 4096) f32, (n,) bool and (n, 15) i32 and
+    output rows of every dtype, some sources off the 16-byte grid: the
+    chunk map covers each entry's bytes exactly once, in order, and its
+    copies equal scan_commit_plain's, leaves and pack rows, at tick k = 2
+    of K = 3."""
+    rng = np.random.default_rng(n)
+
+    def leaf(shape, dtype):
+        if dtype == torch.bool:
+            return torch.from_numpy(rng.random(shape) < 0.5)
+        return torch.from_numpy(rng.integers(-99, 99, shape)).to(dtype)
+
+    shapes = [((n,), torch.float32), ((n, 4), torch.int32),
+              ((n, 4096), torch.float32), ((n,), torch.bool),
+              ((n, 15), torch.int32)]
+    out_dtypes = [torch.float32, torch.bool, torch.int32, torch.float32]
+    K, k = 3, 2
+    packs = {dt: torch.zeros((sum(d == dt for d in out_dtypes), K, n),
+                             dtype=dt) for dt in (torch.float32, torch.bool,
+                                                  torch.int32)}
+    slots = {dt: j for j, dt in enumerate(packs)}
+    rows_of = [sum(d == dt for d in out_dtypes[:i])
+               for i, dt in enumerate(out_dtypes)]
+    tables, plain = [], []
+    for t in range(3):
+        srcs = [leaf(s, d) for s, d in shapes]
+        srcs[3] = leaf((n + 1,), torch.bool)[1:]  # off the 16-byte grid
+        dsts = [torch.zeros(s, dtype=d) for s, d in shapes]
+        outs = [leaf((n,), d) for d in out_dtypes]
+        outs[1] = leaf((n + 3,), torch.bool)[3:]
+        outs[3] = leaf((n, 5), torch.float32)[:, 2]  # a column: strided
+        if t == 2:
+            srcs, dsts, outs = [], [], []
+        carry = list(zip(srcs, dsts))
+        rows = [(v, slots[d], r) for v, d, r in zip(outs, out_dtypes,
+                                                    rows_of)]
+        tables.append((carry, rows))
+        plain.append(([(s, d.clone()) for s, d in carry],
+                      [(v, packs[d].clone(), r) for v, d, r in
+                       zip(outs, out_dtypes, rows_of)]))
+    ct = S.segments(tables, "cpu")
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    params[S.P_K], params[S.P_TICKS] = k + 1, K
+    for dt, j in slots.items():
+        params[S.P_OUT + j] = packs[dt].data_ptr()
+    assert ct.chunks == max(int(ct.tables[t, 2]) for t in range(3))
+    for t, (carry, rows) in enumerate(tables):
+        first, count, chunks, _ = ct.tables[t].tolist()
+        seen = {}
+        for e, off, nbytes in S.commit_chunks(ct, t):
+            assert first <= e < first + count and 0 < nbytes <= 16
+            assert off == seen.get(e, 0)
+            seen[e] = off + nbytes
+        assert [seen[e] for e in sorted(seen)] == \
+            ct.segs[first:first + count, 2].tolist()
+        for pk in packs.values():
+            pk.zero_()
+        _emulate(params, ct, t)
+        pcarry, prows = plain[t]
+        S.scan_commit_plain(k, pcarry, prows)
+        for (_, got), (_, want) in zip(carry, pcarry):
+            assert torch.equal(got, want), t
+        for (_, slot, row), (_, want, r) in zip(rows, prows):
+            dt = want.dtype
+            assert torch.equal(packs[dt][row, k], want[r, k]), (t, dt, row)

@@ -1660,78 +1660,197 @@ def test_schedule_copy_kernels_equal_twins(dev):
                     for j in (1, 2):
                         assert after[j] == before[j] + (
                             j == mode_word and not skip), where
-    n, K = 5, 3
-    srcs = [torch.randn(n, 7, generator=g), torch.randint(
-        0, 9, (n,), generator=g, dtype=torch.int32), torch.rand(
-        n, generator=g) < 0.5]
-    rows = [torch.randn(n, generator=g) for _ in range(2)] + [
-        torch.randint(0, 9, (n,), generator=g, dtype=torch.int32)]
-    dsts = [torch.zeros_like(t) for t in srcs]
-    packs = [torch.zeros(2, K, n), torch.zeros(1, K, n, dtype=torch.int32)]
-    gsrcs, gdsts = [t.to(dev) for t in srcs], [t.to(dev) for t in dsts]
-    grows, gpacks = [t.to(dev) for t in rows], [t.to(dev) for t in packs]
-    spec = [(0, 0), (0, 1), (1, 0)]
-    table = S.segments(list(zip(gsrcs, gdsts)),
-                       [(r, slot, row) for r, (slot, row) in zip(grows, spec)],
-                       dev)
+    for n in (5, 16, 256):  # rows of 5 bools, i32 and f32: off the grid
+        _commit_equals_twin(dev, g, n)
+
+
+def _commit_equals_twin(dev, g, n):
+    """scan_commit against scan_commit_plain on three tables (a tick
+    body's, an escape body's, an empty one) of state leaves (one of 4,096
+    floats a stream) and output rows of three dtypes: each table by index
+    and the program's pick (table -1: the escape body's when P_ESEL names
+    one, else P_BRANCH's; staging: P_BRANCH's), into a destination
+    poisoned first; one run counted in P_COMMITS, or in P_STAGES."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    K, k = 3, 1
+    shapes = [((n, 7), torch.float32), ((n,), torch.int32),
+              ((n,), torch.bool), ((n, 4096), torch.float32)]
+    out_spec = [(torch.float32, 0, 0), (torch.float32, 0, 1),
+                (torch.int32, 1, 0), (torch.bool, 2, 0)]
+
+    def rand(shape, dtype):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=g) < 0.5
+        return torch.randint(-9, 99, shape, generator=g).to(dtype)
+
+    tables, cpu = [], []
+    for t in range(3):
+        srcs = [rand(sh, dt) for sh, dt in shapes][:4 if t < 2 else 0]
+        outs = [rand((n,), dt) for dt, _, _ in out_spec][:4 if t < 2 else 0]
+        cpu.append((srcs, outs))
+        tables.append(([(x.to(dev), torch.full_like(x.to(dev), 7))
+                        for x in srcs],
+                       [(v.to(dev), slot, row) for v, (_, slot, row) in
+                        zip(outs, out_spec)]))
+    ct = S.segments(tables, dev)
+    packs = [torch.full((2, K, n), 7, dtype=torch.float32, device=dev),
+             torch.full((1, K, n), 7, dtype=torch.int32, device=dev),
+             torch.ones((1, K, n), dtype=torch.bool, device=dev)]
     params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
-    params[S.P_K] = 2  # scan_commit writes row k - 1
-    params[S.P_TICKS] = K
-    for j, pk in enumerate(gpacks):
+    params[S.P_K], params[S.P_TICKS] = k + 1, K  # row k = P_K - 1
+    for j, pk in enumerate(packs):
         params[S.P_OUT + j] = pk.data_ptr()
-    gp = params.to(dev)
-    S.scan_commit(gp, table)
-    S.scan_commit_plain(1, list(zip(srcs, dsts)),
-                        [(r, packs[slot], row)
-                         for r, (slot, row) in zip(rows, spec)])
-    torch.cuda.synchronize()
-    for a, b in zip(gdsts + gpacks, dsts + packs):
-        assert torch.equal(a.cpu(), b)
-    assert int(gp[S.P_COMMITS]) == 1
+    # (table, branch, esel, stage): by index; the program's picks (nb = 2
+    # tick bodies, then few and many: esel 1 picks table 2 - 1 + 1 = 2)
+    for table, branch, esel, stage in ((0, 0, 0, 0), (1, 0, 0, 0),
+                                       (-1, 1, 0, 0), (-1, 0, 1, 0),
+                                       (-1, 1, 0, 1), (-1, 0, 1, 1)):
+        want_t = table if table >= 0 else branch if stage or not esel \
+            else 2 - 1 + esel
+        for _, d in tables[want_t][0]:
+            d.fill_(7)
+        for pk in packs:
+            pk.fill_(7)
+        gp = params.clone()
+        gp[S.P_BRANCH], gp[S.P_ESEL] = branch, esel
+        gp = gp.to(dev)
+        S.scan_commit(gp, ct, table, nb=2, stage=bool(stage))
+        srcs, outs = cpu[want_t]
+        wdst = [torch.full_like(x, 7) for x in srcs]
+        wpacks = [torch.full((2, K, n), 7, dtype=torch.float32),
+                  torch.full((1, K, n), 7, dtype=torch.int32),
+                  torch.ones((1, K, n), dtype=torch.bool)]
+        S.scan_commit_plain(k, list(zip(srcs, wdst)),
+                            [(v, wpacks[slot], row) for v, (_, slot, row) in
+                             zip(outs, out_spec)])
+        torch.cuda.synchronize()
+        where = f"n {n} table {table} branch {branch} esel {esel} {stage}"
+        for (_, d), w in zip(tables[want_t][0], wdst):
+            assert torch.equal(d.cpu(), w), where
+        for pk, w in zip(packs, wpacks):
+            assert torch.equal(pk.cpu(), w), where
+        assert int(gp[S.P_STAGES if stage else S.P_COMMITS]) == 1, where
+        assert int(gp[S.P_COMMITS if stage else S.P_STAGES]) == 0, where
 
 
 @pytest.mark.parametrize("overload", ["full", "rotate"])
-def test_program_equals_per_tick_path(dev, overload):
+@pytest.mark.parametrize("config", ["headline", "band", "full-frame"])
+def test_program_equals_per_tick_path(dev, overload, config):
     """The serving program (one launch a step_auto or run_scan call)
     against the per-tick path run eagerly on the card, 8 streams, bucket
-    1, escape_bucket 1, band and bandHist: every output of every tick and
-    the final state bit-equal through wbtrack, full or the rotation,
-    bucket and chunk ticks, and escapes of one stream (few) and of two
-    (many); the per-tick path's host code is not reached."""
+    1, escape_bucket 1, in three configurations (a 64x96 band with
+    bandHist, the band with full-frame histograms, the full frame with
+    hist4096), with the escape bodies' staging buffers (``state_out``,
+    ``out``) poisoned before each call: every output of every tick and the
+    final state bit-equal through wbtrack, full or the rotation, bucket
+    and chunk ticks, and with a band escapes of one stream (few) and of
+    two (many); the per-tick path's host code is not reached; each body
+    keeps its own results, so a tick whose escape fallback runs no body
+    stages nothing."""
     from headtrackr_tpu_torch.kernels import launch as L
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
     clip[22:, 7] = clip[22:, 6]  # from tick 22 one stream escapes, not two
-    kw = dict(bucket=1, band=(64, 96), bandHist=True, escape_bucket=1,
-              overload=overload)
+    kw = dict(bucket=1, escape_bucket=1, overload=overload,
+              **{"headline": dict(band=(64, 96), bandHist=True),
+                 "band": dict(band=(64, 96)),
+                 "full-frame": dict(band=None, histKernel="pallas")}[config])
     mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
                                 device=dev, **kw)
     eager, program = mk(), mk()
     eager._steps.scheduled = False
     program.warmup(scan_len=10)
+    prog = program._steps._programs[n]
+    band = config != "full-frame"
+    assert (prog.bufs.state_out is not None) == band
+
+    def poison():
+        if band:
+            for v in _leaves(prog.bufs.state_out) + list(prog.bufs.out):
+                v.view(torch.uint8).fill_(0xA5)
+
     want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
     L.reset_launches()
-    got = [[v.cpu().numpy() for v in program.step_auto(f)] for f in clip[:4]]
-    runs = np.zeros(16, int)
+    got = []
+    for f in clip[:4]:
+        poison()
+        got.append([v.cpu().numpy() for v in program.step_auto(f)])
+    runs, stages = np.zeros(16, int), 0
     for part in (clip[4:14], clip[14:]):
+        poison()
         out = program.run_scan(part)
-        runs += program._steps._programs[n].runs
+        runs += prog.runs
+        stages += prog.stages
         got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
     assert L.host_paths == dict.fromkeys(L.host_paths, 0)
-    # the schedule kernels' counts, read back from the card: one a tick,
-    # scan_step's one a tick whose body copies and one an escape body run
-    # after a tick body that does not copy whole, the all-CS tick's none
-    for k in ("tick_select", "escape_select", "scan_commit"):
-        assert L.launches[k] == len(clip), k
+    # the schedule kernels' counts, read back from the card: one a tick
+    # (escape_select with a band), scan_commit's also one an escape body's
+    # run (its staging), scan_step's one a tick whose body copies and one
+    # an escape body run after a tick body that does not copy whole
     fields = tft.StepOutput._fields
-    copying = sum(program.branch(t[fields.index("detection")]) != "track"
-                  for t in want)
     escaping = sum(bool(t[fields.index("escaped")].any()) for t in want)
-    assert L.launches["scan_step"] == copying + escaping
-    assert 0 < copying < len(clip) and escaping > 0
+    assert stages == escaping == runs[9] + runs[10]
+    assert L.launches["tick_select"] == len(clip)
+    assert L.launches["escape_select"] == (len(clip) if band else 0)
+    assert L.launches["scan_commit"] == len(clip) + escaping
+    copying = sum(program.branch(t[fields.index("detection")]) != "track"
+                  or not kw.get("bandHist") for t in want)
+    copy_escapes = sum(
+        bool(t[fields.index("escaped")].any()) and kw.get("bandHist", False)
+        for t in want)
+    assert L.launches["scan_step"] == copying + (copy_escapes if band
+                                                 else 0)
+    if kw.get("bandHist"):  # all-CS ticks copy nothing
+        assert 0 < copying < len(clip) and escaping > 0
     for t, (a_t, b_t) in enumerate(zip(want, got)):
         for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
             np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
     for x, y in zip(_leaves(eager.state), _leaves(program.state)):
         assert torch.equal(x, y)
-    assert runs[9] > 0 and runs[10] > 0  # few and many escape bodies ran
+    if band:
+        assert runs[9] > 0 and runs[10] > 0  # few and many escape bodies ran
+    else:
+        assert escaping == 0
+
+
+@pytest.mark.parametrize("n", [65535, 65536, 70000])
+def test_kernels_past_the_grid_equal_twins(dev, n):
+    """F32: every kernel whose grid's y dimension is the stream
+    (hist4096, histpdf_band hist-only, pdf direct and through the address
+    word, backproject over the frame and the band, hist_mma, pyramid,
+    cascade) at n streams of 160x120 (tools/torch_f32_cases.py check):
+    bit-equal to its twin, one launch a chunk of 65,535 streams; each
+    launcher refuses 65,536 and kernels/launch.py's launch then raises."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    cases = _tool("torch_f32_cases")
+    res = cases.check(n, dev)
+    assert set(res) >= {"hist4096", "histpdf_band", "histpdf_band in place",
+                        "backproject", "backproject_rect", "hist_mma",
+                        "pyramid", "cascade"}
+    assert all(r["max_abs_err"] == 0.0 for r in res.values())
+    assert res["hist4096"]["chunks"] == (1 if n <= 65535 else 2)
+    assert cases.refusals() == []
+    with pytest.raises(RuntimeError, match="hist4096 launch failed"):
+        L.launch("hist4096", "hist4096_launch", 0, 0, 0, 65536, 120, 160, 1)
+
+
+def test_program_past_the_grid_equals_per_tick_path(dev):
+    """F32: step_auto and run_scan at 70,000 streams of 160x120 (the cold
+    start's wbtrack ticks, the full tick on every stream, all-CS ticks, a
+    run_scan of 2) bit-equal to the per-tick path, tick for tick, and the
+    final state (tools/torch_f32_cases.py program_check)."""
+    res = _tool("torch_f32_cases").program_check(70000, dev)
+    assert res["locked"] > 0.99 * 70000
+    assert res["runs"][0] > 0  # all-CS ticks ran
+
+
+def _tool(name):
+    """tools/<name>.py (a script, loaded by path)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -16,7 +16,10 @@
     cascade, band and bandHist, bucket 1 (chunk_cap 4), overload
     "rotate", escape_bucket 1, through the port's per-tick path and its
     program (the conditional nodes' twins in Python ifs), also with the
-    bodies' frame buffer poisoned before each call: a rotate clip (the
+    bodies' frame buffer poisoned before each call, and with the escape
+    bodies' staging buffers (``state_out``, ``out``) poisoned before each
+    call (no tick body reads them; an escape body reads only what the
+    program staged there on its tick): a rotate clip (the
     cold start's burst of more than chunk_cap pending streams) and an
     escape clip (one stream escaping: the ``few`` body; two in one tick:
     ``many``).  Integer and bool fields exact, floats to rtol 1e-5 / atol
@@ -386,14 +389,28 @@ def _copies(tb, entry, escaped):
     return want
 
 
-@pytest.mark.parametrize("path", ["per_tick", "program", "poison"])
+def _poison(tree):
+    """Every leaf of ``tree`` filled with the byte 0xA5."""
+    for v in (tree if isinstance(tree, tuple) else [tree]):
+        if isinstance(v, tuple):
+            _poison(v)
+        elif v is not None:
+            v.view(torch.uint8).fill_(0xA5)
+
+
+@pytest.mark.parametrize("path", ["per_tick", "program", "poison",
+                                  "poison_staging"])
 @pytest.mark.parametrize("clip", ["rotate", "escape"])
 def test_run_scan_matches_reference(reference, clip, path):
     """The poison case is the program with the bodies' frame buffer filled
     with 255 before each call: a body that read a stale or poisoned frame
     where it should read tick k's (in place or copied) would differ, as
-    the faces move every tick.  The program's scan_step counts one run a
-    tick whose body copies and none on an all-CS tick."""
+    the faces move every tick.  The poison_staging case fills the escape
+    bodies' ``state_out`` and ``out`` with garbage before each call: the
+    program must stage the tick body's results there before an escape body
+    reads them, and read them nowhere else.  The program's scan_step
+    counts one run a tick whose body copies and none on an all-CS tick;
+    scan_commit's staging one a tick whose escape body runs."""
     ref_outs, ref_states = reference
     tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
                            **KW)
@@ -402,6 +419,10 @@ def test_run_scan_matches_reference(reference, clip, path):
     def scan(seq):
         if path == "poison":
             tb._steps.buffers(tb.state).frames.fill_(255)
+        if path == "poison_staging":
+            bufs = tb._steps.program(tb.state).bufs
+            _poison(bufs.state_out)
+            _poison(bufs.out)
         return tb.run_scan(seq)
 
     ticks = range(0, 2 * K) if clip == "rotate" else range(2 * K, 4 * K)
@@ -422,6 +443,8 @@ def test_run_scan_matches_reference(reference, clip, path):
             prog = tb._steps._programs[N]
             runs += prog.runs
             steps.append(prog.steps)
+            assert prog.stages == sum(prog.runs[S.ESCAPE_RUNS + 1:
+                                                S.ESCAPE_RUNS + 3])
             assert prog.steps == _copies(tb, got.detection.tolist(),
                                          got.escaped.sum(1).tolist())
     want = ref_states[0 if clip == "rotate" else 1]

@@ -197,7 +197,7 @@ def main():
         pdf = pdfs[b]
         err = fns[name]["histpdf_band_launch"](
             fr.data_ptr(), rects.data_ptr(), model.data_ptr(), cur.data_ptr(),
-            pdf.data_ptr(), N, H, W, *b, c, None,
+            pdf.data_ptr(), N, H, W, *b, c, None, 0,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: cudaError {err}")

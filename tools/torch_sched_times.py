@@ -22,7 +22,13 @@ At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
              events), and the host time of step_auto's enqueue
              (``_auto_begin``) and of its finish (``_auto_end``, timed once
              the card is idle), median of 15 each.  The tick's span less
-             the body's is what scheduling it costs the card.
+             the body's is what scheduling it costs the card, the commit
+             of the body's results included: a body keeps its own results
+             (since the bodies stopped writing the shared buffers, its
+             span holds no writes).  In a checkout whose bodies still
+             wrote them (``_Buffers.write``), ``writes`` gives those
+             writes captured alone: their graph nodes, replay span and
+             bytes.
 
 Each: host ms a tick (host clock around the call, which ends in its host
 read, median of 5, step_auto of 15; cold and rotate: one run each) and the
@@ -47,6 +53,7 @@ line.  Needs a CUDA card.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -132,7 +139,56 @@ def split(bt, frames, reps):
         finish.append(1e3 * (time.perf_counter() - t0))
     return {"body_span_ms": float(np.median(body)),
             "enqueue_host_ms": float(np.median(enqueue)),
-            "finish_host_ms": float(np.median(finish))}
+            "finish_host_ms": float(np.median(finish)),
+            "writes": writes(bt, reps)}
+
+
+def writes(bt, reps):
+    """In a checkout whose bodies write their results into the shared
+    buffers (``_Buffers.write``, before the bodies kept their own results):
+    those writes of the all-CS body alone, captured as a graph of their
+    own from one eager run's results: its nodes by kind and its median
+    replay span ms.  None in a checkout without them."""
+    import collections
+    import numpy as np
+    import torch
+    steps = bt._steps
+    bufs = steps.buffers(bt.state)
+    if not hasattr(bufs, "write"):
+        return None
+    results = steps._auto_track(bufs.state_in, bufs.frames)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bufs.write(*results)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        bufs.write(*results)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    nodes = dict(collections.Counter(cs.node_kinds(graph)))
+    span = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        span.append(a.elapsed_time(b))
+
+    def nbytes(tree):
+        if isinstance(tree, tuple):
+            return sum(nbytes(v) for v in tree)
+        return 0 if tree is None else tree.nbytes
+
+    return {"nodes": nodes, "span_ms": float(np.median(span)),
+            "bytes": nbytes(results)}
 
 
 def big(pool, dev, card, root):
