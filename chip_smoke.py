@@ -87,7 +87,21 @@ Phases, one line each; any failure raises and exits nonzero:
      also beside an empty kernel at its grid (the floor of one device
      operation), and on its worst case (random toy frames: every slot
      valid) and the adversarial chain, shuffled chain, singletons and
-     dense slots;
+     dense slots.  tick_epilogue (K8: camshift's finish, the "track"
+     step's freeze and the supervision, one launch) must be bit-equal
+     (NaN-equal) to its twin run on the card: tools/torch_epilogue_cases.py
+     at N=256 (every form, each of the 64 configurations of the flag grid,
+     every branch reached, one launch a call), and the bench pools' own
+     mean-shift outputs and states (face boxes handed off on batch 0, the
+     banded "track" step over batches 1 to the loss batch) through the
+     fused form, the finish alone and the supervision of the "full" and
+     "wbtrack" variants, under the headline's configuration and under
+     calcAngles with the "escape" audit action; timed (events, graph
+     replay) on batch 1's inputs beside its twin, an empty kernel at its
+     grid and its byte bound (no PyTorch call computes its function).
+     After phase 5, each body of the headline's serving program (all-CS,
+     the bucket at each slot count, wbtrack, full, few, many) must launch
+     tick_epilogue (its tally), with its graph's nodes counted;
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -281,6 +295,11 @@ MEANSHIFT_SRC = "headtrackr_tpu_torch/csrc/meanshift.cu"
 PYRAMID_SRC = "headtrackr_tpu_torch/csrc/pyramid.cu"
 CASCADE_SRC = "headtrackr_tpu_torch/csrc/cascade.cu"
 GROUP_SRC = "headtrackr_tpu_torch/csrc/group.cu"
+EPILOGUE_SRC = "headtrackr_tpu_torch/csrc/epilogue.cu"
+# f32 operations a stream takes through tick_epilogue's fused form at most
+# (csrc/epilogue.cu, counting a square root or a transcendental as one: the
+# finish's 28, the supervision's 37, the FOV estimate's 11, track_head's 58)
+EPILOGUE_OPS = 134
 DETECT = ("pyramid", "cascade", "group")  # the detector's kernels
 DETECT_NS = (256, 8, 1)  # phase 3's timed stream counts (8: a bucket)
 DETECT_BIG = 16  # streams of the 480x640 case
@@ -298,13 +317,13 @@ CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8,
                         histKernel="pallas"),
                    ("hist4096", "backproject", "histpdf_band_hist",
-                    "meanshift") + DETECT),
+                    "meanshift", "tick_epilogue") + DETECT),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
              ("hist_mma", "backproject_rect", "histpdf_band_hist",
-              "meanshift") + DETECT),
+              "meanshift", "tick_epilogue") + DETECT),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
                  ("histpdf_band", "histpdf_band_hist", "backproject",
-                  "meanshift") + DETECT),
+                  "meanshift", "tick_epilogue") + DETECT),
 }
 # kernel -> (the TPU kernel it replaces, the configuration whose run its
 # launch count reports, its source)
@@ -331,6 +350,10 @@ KERNELS = {
     "cascade": ("headtrackr_tpu/models/detector.py:595", "headline",
                 CASCADE_SRC),
     "group": ("headtrackr_tpu/models/detector.py:517", "headline", GROUP_SRC),
+    # XLA's chain after the branches, no Pallas kernel: camshift's finish
+    # and the supervision
+    "tick_epilogue": ("headtrackr_tpu/models/camshift.py:364", "headline",
+                      EPILOGUE_SRC),
     # the serving program's kernels: XLA's control flow, no Pallas kernel
     "tick_select": ("headtrackr_tpu/runtime/serving.py:326", "schedule",
                     "headtrackr_tpu_torch/csrc/schedule.cu"),
@@ -353,7 +376,8 @@ ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
                  "meanshift": "headtrackr_tpu/models/camshift.py:265",
                  "pyramid": "headtrackr_tpu/ops/imageproc.py:49",
                  "cascade": "headtrackr_tpu/models/detector.py:261, :441",
-                 "group": "headtrackr_tpu/models/detector.py:788"}
+                 "group": "headtrackr_tpu/models/detector.py:788",
+                 "tick_epilogue": "headtrackr_tpu/models/facetracker.py:244"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # backproject_rect's timing entry at band x origins on the 8-pixel grid, as
 # the serving path places them (its main entry: origins from -20 up)
@@ -412,7 +436,8 @@ F32_SPLIT = ("hist4096", "histpdf_band_hist", "histpdf_band", "backproject",
              "backproject_rect", "hist_mma", "pyramid", "cascade")
 # the program's path at 160x120 (no band; hist_mma the default histogram)
 F32_PATH = ("hist_mma", "backproject", "meanshift", "pyramid", "cascade",
-            "group", "tick_select", "scan_step", "scan_commit")
+            "group", "tick_epilogue", "tick_select", "scan_step",
+            "scan_commit")
 
 def log(msg):
     print(msg, flush=True)
@@ -1616,6 +1641,180 @@ def agree(a_outs, b_outs, where):
             raise AssertionError(f"{where}: tick {k} {field}: {x[k]} vs "
                                  f"{y[k]}")
     return worst
+
+
+def epilogue_bytes(inputs, state_in, state, out, esc):
+    """Bytes a tick_epilogue call must move: each input read once, each
+    result it writes (a tensor that is no input and no leaf of the state
+    it was given, which passes through) written once."""
+    seen = {t.data_ptr() for t in inputs + _leaves_of(state_in)}
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    for t in _leaves_of(state) + list(out.values()) + [esc]:
+        if t is not None and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    return nbytes
+
+
+def phase_epilogue(pools, dev, root):
+    """tick_epilogue (K8) against its twin run on the card, bit-equal
+    (NaN-equal): (a) tools/torch_epilogue_cases.py's check at N_STREAMS
+    (every form under each of the 64 configurations of its flag grid, on
+    seeded inputs drawn to reach every branch); (b) the serving path's own
+    inputs from the bench pools: each stream handed its face box on batch
+    0, then the "track" step with the 96x128 band and bandHist, eager on
+    the card, over batches 1 to LOSS_AT (the ring fills and head tracking
+    activates; the loss streams' blue frame gives zero mass), and at each
+    tick the mean shift's outputs (camshift.shift_band) and the state go
+    through the fused form, the finish alone and the supervision of the
+    "full" and "wbtrack" variants, kernel and twin, under the headline's
+    configuration and under calcAngles with the "escape" audit action.
+    Then the fused form's times on batch 1's inputs: events and graph
+    replay beside its twin, an empty kernel at its grid, its byte bound.
+    No PyTorch call computes its function.  Returns (max abs err, timing
+    entries)."""
+    import torch
+    from headtrackr_tpu_torch import TrackerConfig
+    from headtrackr_tpu_torch.kernels import epilogue as K
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.models import camshift as cs
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.ops import epilogue as P
+
+    cases = load_example(root, "torch_epilogue_cases", "tools")
+    t0 = time.perf_counter()
+    grid = cases.check(N_STREAMS, dev)
+    if grid["launches"] != grid["runs"] or not all(
+            grid[k] for k in ("activations", "lost", "nan_angles",
+                              "escaped", "head_valid")):
+        raise AssertionError(f"epilogue: the grid's check missed a branch "
+                             f"or a launch: {grid}")
+    log(f"kernels: tick_epilogue bit-equal to its twin on the card on "
+        f"{grid['runs']} form x configuration runs at N={N_STREAMS} "
+        f"({grid}; {time.perf_counter() - t0:.1f} s)")
+
+    def flat(r, form):  # every result of a form's call
+        if form == "finish":
+            return list(r)
+        return (cases._leaves(r[0]) + [v for _, v in sorted(r[1].items())]
+                + [r[2]])
+
+    configs = {"headline": TrackerConfig(bandHist=True),
+               "calcAngles escape": TrackerConfig(
+                   bandHist=True, calcAngles=True,
+                   bandHistAuditAction="escape")}
+    checked, worst, seen = 0, 0.0, dict(activated=0, zero_mass=0, lost=0)
+    timed = None
+    for k, pool in pools.items():
+        boxes = torch.as_tensor(face_boxes(pool[0])).to(dev)
+        frames = [torch.as_tensor(pool[t]).to(dev) for t in
+                  range(LOSS_AT + 1)]
+        for cname, cfg in configs.items():
+            ep = P.epilogue_config(cfg, (H, W))
+            state = ft.init_state(N_STREAMS, band_audit=True, device=dev)
+            state = state._replace(
+                mode=torch.full_like(state.mode, ft.MODE_CS),
+                cs=cs.init_tracker(frames[0], boxes, audit_band=BAND))
+            for t in range(1, LOSS_AT + 1):
+                win, m, zm, esc, dirty = cs.shift_band(
+                    state.cs, frames[t], BAND, None, True,
+                    cfg.bandHistAuditAction == "escape")
+                args = (state, win, m, zm, esc, dirty, ep)
+                before = L.launches["tick_epilogue"]
+                got = K.track(*args)
+                torch.cuda.synchronize()
+                if L.launches["tick_epilogue"] != before + 1:
+                    raise AssertionError("epilogue: the fused form is not "
+                                         "one launch")
+                want = P.track_plain(*args)
+                res = cases.Result(*(got[1][f] for f in (
+                    "face_x", "face_y", "face_w", "face_h", "face_angle",
+                    "face_conf", "wb")), escaped=esc)
+                runs = [("track", got, want),
+                        ("finish", K.finish(win, m, zm, ep.calc_angles, H, W),
+                         P.finish_plain(win, m, zm, ep.calc_angles, H, W))]
+                for variant in ("full", "wbtrack"):
+                    e = esc if variant == "wbtrack" else None
+                    runs.append((f"supervise {variant}",
+                                 K.supervise(state, state.mode, res, ep,
+                                             variant, e),
+                                 P.supervise_plain(state, state.mode, res, ep,
+                                                   variant, e)))
+                for form, a, b in runs:
+                    for x, y in zip(flat(a, form), flat(b, form)):
+                        if (x is None) != (y is None) or (
+                                x is not None and not cases.same_bits(x, y)):
+                            raise AssertionError(
+                                f"epilogue: tick_epilogue differs from its "
+                                f"twin on the bench pool (face_noise={k}, "
+                                f"{cname}, tick {t}, {form})")
+                        if x is not None and x.is_floating_point():
+                            fin = torch.isfinite(x) & torch.isfinite(y)
+                            if fin.any():
+                                worst = max(worst, float(
+                                    (x - y)[fin].abs().max()))
+                    checked += 1
+                new = got[0]
+                seen["activated"] += int((state.first_run
+                                          & ~new.first_run).sum())
+                seen["zero_mass"] += int(zm.sum())
+                seen["lost"] += int(((got[1]["status"] & 24) != 0).sum())
+                if timed is None and t == 1 and cname == "headline":
+                    timed = args, epilogue_bytes(
+                        [win, *(m[c] for c in ("mu20", "mu02", "mu11",
+                                               "invM00")), zm, esc,
+                         state.mode, state.cs.window, state.cs.track_x,
+                         state.cs.track_y, state.cs.track_w,
+                         state.cs.track_h, state.cs.track_angle,
+                         state.first_run, state.face_found, state.sm_init,
+                         state.headpose_active, state.stopped, state.sm_sp,
+                         state.diag_ring, state.diag_n, state.tan_fov,
+                         state.fov_width, state.head_diag_cam], state, *got)
+                state = new._replace(mode=torch.full_like(new.mode,
+                                                          ft.MODE_CS))
+    if not (seen["zero_mass"] and seen["lost"]):
+        raise AssertionError(f"epilogue: the bench pool's loss batch gave "
+                             f"no zero-mass or lost stream: {seen}")
+    log(f"kernels: tick_epilogue bit-equal to its twin run on the card on "
+        f"the bench pool's mean-shift outputs and states ({checked} form "
+        f"runs: the fused form, the finish, the supervision of full and "
+        f"wbtrack; {len(configs)} configurations, ticks 1-{LOSS_AT}; "
+        f"{seen}; max abs err {worst})")
+
+    args, nbytes = timed
+    b, by = bound(nbytes, EPILOGUE_OPS * N_STREAMS)
+    kernel = lambda: K.track(*args)  # noqa: E731
+    ms, plain_ms = interleaved_ms(kernel, lambda: P.track_plain(*args))
+    t = {"tick_epilogue": dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        graph_ms=graph_ms(kernel),
+        empty_ms=graph_ms(lambda: floor_launch(1)),
+        library_ms=None, library_graph_ms=None, bytes=nbytes,
+        launches_a_call=launches_of("tick_epilogue", kernel))}
+    e = t["tick_epilogue"]
+    log(f"kernels: tick_epilogue (fused track form, N={N_STREAMS}) "
+        f"{ms:.4f} ms, graph replay {e['graph_ms']:.4f} ms, an empty kernel "
+        f"at its grid {e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {b:.6f} ms by {by}, {nbytes} B; no PyTorch call computes "
+        f"its function)")
+    return worst, t
+
+
+def epilogue_bodies(bt):
+    """Each serving-program body of a warmed tracker: its tick_epilogue
+    launches a run (its tally) and its graph's nodes; raises where a body
+    launches none."""
+    out = {}
+    for (n, key), body in bt._steps._graphs.items():
+        kinds = node_kinds(body.graph)
+        out[str(key)] = {"tick_epilogue": body.launches["tick_epilogue"],
+                         "nodes": len(kinds),
+                         "kernel_nodes": kinds.count("kernel")}
+    missing = [k for k, v in out.items() if not v["tick_epilogue"]]
+    if missing:
+        raise AssertionError(f"epilogue: the bodies {missing} launch no "
+                             f"tick_epilogue")
+    return out
 
 
 def phase_serving(name, frames, dev):
@@ -3440,10 +3639,15 @@ def main():
     det_err, det_times = phase_detect(pools, dev, root)
     err.update(det_err)
     times.update(det_times)
+    err["tick_epilogue"], ep_times = phase_epilogue(pools, dev, root)
+    times.update(ep_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
     relock = phase_relock(runs["headline"][2], frames)
+    bodies = epilogue_bodies(runs["headline"][2])
+    log(f"epilogue: the headline's program bodies, tick_epilogue launches a "
+        f"run and graph nodes: {bodies}")
     counts = {name: r[0] for name, r in runs.items()}
     ms = {name: r[1] for name, r in runs.items()}
     del runs, frames  # free the trackers and the staged pool
@@ -3487,6 +3691,9 @@ def main():
                      in_place=times["histpdf_band in place"])
         if k == "scan_step":
             e["rows"] = times["scan_step rows"]
+        if k == "tick_epilogue":
+            e.update(steady_tick_launches=prof["headline"]["step_auto"][0][
+                "kernel_launches"][k], bodies=bodies)
         if k in F32_SPLIT:
             e["f32"] = f32["kernels"][k]
         if k in F32_PATH:

@@ -85,6 +85,10 @@ _SIGNATURES = {
         "sched_program_destroy": (_C,),
         "sched_error_string": (_I, _C, _I),
     },
+    "epilogue": {
+        "tick_epilogue_launch": (_C, ctypes.c_longlong, ctypes.c_uint, _C),
+        "tick_epilogue_args_bytes": (),
+    },
     "group": {
         "group_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I,
                          _C),

@@ -28,16 +28,21 @@ Two forms of the step:
   iterations, the second moments, all in shared memory and in the fixed
   order of its twin (ops/meanshift.py), so the card and the CPU agree to
   the bit.
+* The finish (size and orientation from the central moments, the output
+  box, the window growth) is the ``tick_epilogue`` kernel's finish form
+  (kernels/epilogue.py); ``shift`` and ``shift_band`` stop before it, so
+  that the serving step's "track" variant runs it fused with its
+  supervision, one launch.
 * The JS NaN-mediated loss (zero backprojection mass => 0-size box,
   src/camshift.js:109,240-241) is explicit zero-mass logic.
 """
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..device import resolve_device
+from ..kernels import epilogue as _epilogue
 from ..kernels import meanshift as _ms
 from ..kernels.histpdf import backproject, histpdf_band, pdf_pallas
 from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
@@ -162,41 +167,14 @@ def init_tracker(frame_rgb, rect, sparse_k=0, audit_band=None):
             if audit_band is not None else None))
 
 
-def _sqrt_shl2(v, bad):
-    """JS ``Math.sqrt(v) << 2``: trunc(sqrt(v)) * 4; NaN (v<0 or zero-mass) -> 0."""
-    ok = (~bad) & (v >= 0) & torch.isfinite(v)
-    r = torch.sqrt(torch.clamp(v, min=0.0))
-    return torch.where(ok, torch.trunc(r) * 4, 0.0).to(_I32)
-
-
 def _finish(state, win, m, zero_mass, calc_angles, H, W):
     """Size/orientation from central moments + output box + 1.1x window
-    growth (src/camshift.js:230-258)."""
-    a = m["mu20"] * m["invM00"]
-    c = m["mu02"] * m["invM00"]
-    if calc_angles:
-        b = m["mu11"] * m["invM00"]
-        d = a + c
-        e = torch.sqrt((4 * b * b) + ((a - c) * (a - c)))
-        tw = _sqrt_shl2((d - e) * 0.5, zero_mass)
-        th = _sqrt_shl2((d + e) * 0.5, zero_mass)
-        ang = torch.atan2(2 * b, a - c + e)
-        ang = torch.where(ang < 0, ang + math.pi, ang)
-        ang = torch.where(zero_mass, math.nan, ang)
-    else:
-        tw = _sqrt_shl2(a, zero_mass)
-        th = _sqrt_shl2(c, zero_mass)
-        ang = torch.full_like(a, math.pi / 2)
-
-    fw = win[:, 2].to(_F32)
-    fh = win[:, 3].to(_F32)
-    tx = torch.floor(torch.clamp(win[:, 0].to(_F32) + fw / 2, 0, W)).to(_I32)
-    ty = torch.floor(torch.clamp(win[:, 1].to(_F32) + fh / 2, 0, H)).to(_I32)
-    new_w = torch.floor(1.1 * tw.to(_F32)).to(_I32)
-    new_h = torch.floor(1.1 * th.to(_F32)).to(_I32)
-    win = torch.stack([win[:, 0], win[:, 1], new_w, new_h], dim=1)
+    growth (src/camshift.js:230-258): the ``tick_epilogue`` kernel's finish
+    (kernels/epilogue.py; its twin ops/epilogue.finish_plain on the CPU)."""
+    win, tx, ty, tw, th, ang = _epilogue.finish(win, m, zero_mass,
+                                                calc_angles, H, W)
     return state._replace(window=win, track_x=tx, track_y=ty,
-                          track_w=tw, track_h=th, track_angle=ang.to(_F32))
+                          track_w=tw, track_h=th, track_angle=ang)
 
 
 def mean_shift(pdf, window, exact=False):
@@ -220,11 +198,19 @@ def track(state, frame_rgb, calc_angles=True, exact=False, block=None,
     the pdf is always the exact lookup, and no scan has blocks.  Returns
     (new state, full-frame pdf (N, H, W))."""
     H, W = frame_rgb.shape[1], frame_rgb.shape[2]
+    win, m, zero_mass, pdf = shift(state, frame_rgb, kernel)
+    return _finish(state, win, m, zero_mass, calc_angles, H, W), pdf
+
+
+def shift(state, frame_rgb, kernel=None):
+    """``track``'s work before the finish: the full-frame histogram, the
+    ratio weights, the backprojection and the mean shift.  Returns
+    (window' (N, 4) i32, moments, zero_mass (N,) bool, pdf (N, H, W))."""
     cur = histogram_full(frame_rgb, kernel)
     weights = backprojection_weights(state.model_hist, cur)
     pdf = backproject(frame_rgb, weights)
     win, m, zero_mass, _ = _ms.mean_shift(pdf, state.window)
-    return _finish(state, win, m, zero_mass, calc_angles, H, W), pdf
+    return win, m, zero_mass, pdf
 
 
 def band_for(max_window, frame_shape=(240, 320)):
@@ -279,6 +265,22 @@ def track_band(state, frame_rgb, calc_angles=True, exact=False,
     ``exact`` and ``block`` are accepted as there.  frame_rgb
     (N, H, W, 3) u8."""
     H, W = frame_rgb.shape[1], frame_rgb.shape[2]
+    win, m, zero_mass, escaped, dirty = shift_band(
+        state, frame_rgb, band, kernel, band_hist, audit_escape)
+    if dirty is not None:
+        escaped = escaped | dirty
+    return _finish(state, win, m, zero_mass, calc_angles, H, W), escaped
+
+
+def shift_band(state, frame_rgb, band=DEFAULT_BAND, kernel=None,
+               band_hist=False, audit_escape=True):
+    """``track_band``'s work before the finish: the band's pdf and the
+    mean shift over it.  Returns (window' (N, 4) i32, moments, zero_mass
+    (N,) bool, escaped (N,) bool, dirty): dirty is the state's
+    ``band_dirty`` where the "escape" audit action reports those streams
+    escaped too (band_hist, audit_escape and the leaf present), else
+    None."""
+    H, W = frame_rgb.shape[1], frame_rgb.shape[2]
     ry, rx, bh, bw = band_rect(state.window, band, (H, W))
     rects = band_rects(ry, rx, bh, bw)
     if band_hist:
@@ -289,9 +291,9 @@ def track_band(state, frame_rgb, calc_angles=True, exact=False,
         pdf = backproject(frame_rgb, weights, rects, (bh, bw))
     win, m, zero_mass, escaped = _ms.mean_shift(pdf, state.window, ry, rx,
                                                 (H, W))
-    if band_hist and audit_escape and state.band_dirty is not None:
-        escaped = escaped | state.band_dirty
-    return _finish(state, win, m, zero_mass, calc_angles, H, W), escaped
+    dirty = (state.band_dirty if band_hist and audit_escape
+             and state.band_dirty is not None else None)
+    return win, m, zero_mass, escaped, dirty
 
 
 def camshift_step(state, frame_rgb, calc_angles=True, exact=False):

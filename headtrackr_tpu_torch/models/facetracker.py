@@ -11,7 +11,6 @@ every tree helper as None.
 Status side effects are a bitmask in the step output (src/main.js:70-77).
 """
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -19,11 +18,15 @@ import torch
 
 from ..config import TrackerConfig
 from ..device import resolve_device
+from ..kernels import epilogue as _epilogue
 from ..kernels.launch import host_paths
+from ..ops.epilogue import (DIAG_LENGTH, MODE_CS, MODE_VJ, MODE_WB,
+                            STATUS_DETECTING, STATUS_FOUND, STATUS_LOST,
+                            STATUS_REDETECTING, STATUS_WHITEBALANCE,
+                            epilogue_config)
 from ..ops.histogram import check_hist_kernel
 from ..ops.imageproc import grayscale, whitebalance
 from . import camshift as cs
-from . import headpose as hp
 from .detector import detect_best, detector_tables
 
 __all__ = ["TrackerState", "StepOutput", "init_state", "make_step",
@@ -32,13 +35,6 @@ __all__ = ["TrackerState", "StepOutput", "init_state", "make_step",
            "STATUS_WHITEBALANCE", "STATUS_DETECTING", "STATUS_FOUND",
            "STATUS_REDETECTING", "STATUS_LOST", "STATUS_BITS"]
 
-MODE_WB, MODE_VJ, MODE_CS = 0, 1, 2
-
-STATUS_WHITEBALANCE = 1
-STATUS_DETECTING = 2
-STATUS_FOUND = 4
-STATUS_REDETECTING = 8
-STATUS_LOST = 16
 STATUS_BITS = [
     (STATUS_WHITEBALANCE, "whitebalance"),
     (STATUS_DETECTING, "detecting"),
@@ -49,7 +45,6 @@ STATUS_BITS = [
 
 PWB_LENGTH = 15                # src/facetrackr.js:59
 CONFIDENCE_THRESHOLD = -10.0   # src/facetrackr.js:57
-DIAG_LENGTH = 6                # src/main.js:271
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -231,7 +226,11 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         computes anyway; not with ``band``.
     The full-frame histogram runs the kernel that config.histKernel names
     (ops/histogram.HIST_KERNELS: None -> hist_mma, "pallas" -> hist4096);
-    any other value raises.
+    any other value raises.  Every variant ends in one launch of the
+    ``tick_epilogue`` kernel (kernels/epilogue.py; its twin on the CPU):
+    "track" in its fused form from the mean shift's outputs (camshift's
+    finish, the freeze, the supervision), the others in its supervision
+    form after their branches.
     """
     device = resolve_device(device)
     if variant not in ("full", "track", "wbtrack", "pending"):
@@ -248,12 +247,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
     if variant in ("full", "pending") and tables is None:
         tables = detector_tables(W, H, cascade, config.detectorInterval,
                                  device=device)
-    # f32 constants made once: a host-to-device copy per tick would
-    # synchronize the stream
-    camw = torch.tensor(W, dtype=_F32, device=device)
-    camh = torch.tensor(H, dtype=_F32, device=device)
-    alpha = torch.tensor(config.smoothingAlpha, dtype=_F32, device=device)
-    rad2deg = torch.tensor(180.0 / math.pi, dtype=_F32, device=device)
+    epi = epilogue_config(config, frame_shape)
 
     def wb_branch(state, frames):
         wb = whitebalance(frames).to(_F32)
@@ -364,139 +358,42 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
         if select and variant not in ("full", "wbtrack"):
             raise ValueError(f"select applies to the 'full' and 'wbtrack' "
                              f"steps, not {variant!r}")
-        if variant == "track":
-            is_cs = entry_mode == MODE_CS
-            new_state, res, pdf = cs_branch(state, frames)
-            state = state._replace(cs=_where(is_cs, new_state.cs, state.cs))
-            res = res._replace(conf=torch.where(is_cs, res.conf, 0.0))
+        esc = None
+        if variant == "track":  # the mean shift, then one epilogue launch
+            if band is None:
+                win, m, zero_mass, pdf = cs.shift(state.cs, frames,
+                                                  hist_kernel)
+                escaped = dirty = None
+            else:
+                win, m, zero_mass, escaped, dirty = cs.shift_band(
+                    state.cs, frames, band, hist_kernel, config.bandHist,
+                    config.bandHistAuditAction == "escape")
+            state, out, esc = _epilogue.track(state, win, m, zero_mass,
+                                              escaped, dirty, epi)
             if with_pdf:
-                pdf = torch.where(is_cs.view(-1, 1, 1), pdf, 0.0)
-        elif variant == "pending":
-            is_wb = (entry_mode == MODE_WB)
-            wb_state, wb_res, _ = wb_branch(state, frames)
-            vj_state, vj_res, _ = vj_branch(state, frames)
-            state = _where(is_wb, wb_state, vj_state)
-            res = _where(is_wb, wb_res, vj_res)
-            pdf = None
-        elif select:
-            state, res, pdf = selected(state, frames)
+                pdf = torch.where((entry_mode == MODE_CS).view(-1, 1, 1),
+                                  pdf, 0.0)
         else:
-            state, res, pdf = dispatch(state, frames, modes)
-        # copies: an output must not alias the input state, which a caller
-        # may overwrite in place (the serving graphs' donated buffers)
-        detection = entry_mode.clone()
-        N = frames.shape[0]
-        dev = frames.device
-        zeros_i = torch.zeros((N,), dtype=_I32, device=dev)
-
-        status = torch.where(detection == MODE_WB, STATUS_WHITEBALANCE, zeros_i)
-        status = status | torch.where(
-            state.first_run & (detection == MODE_VJ), STATUS_DETECTING, zeros_i)
-        if variant == "track":  # frozen non-CS streams emit nothing
-            status = torch.where(detection == MODE_CS, status, zeros_i)
-        elif variant == "wbtrack":  # frozen VJ streams emit nothing
-            status = torch.where(detection != MODE_VJ, status, zeros_i)
-
-        is_cs = detection == MODE_CS
-        conf_gate = res.conf != 0  # src/main.js:186
-        lost = is_cs & conf_gate & ((res.w == 0) | (res.h == 0))
-        tracking = is_cs & conf_gate & ~lost
-
-        # --- loss / retry (src/main.js:230-248)
-        if config.retryDetection:
-            status = status | torch.where(lost, STATUS_REDETECTING, zeros_i)
-            mode_after = torch.where(lost, MODE_VJ, state.mode).to(_I32)
-            stopped = state.stopped
-        else:
-            status = status | torch.where(lost, STATUS_LOST, zeros_i)
-            mode_after = state.mode.clone()
-            stopped = state.stopped | lost
-        face_found = state.face_found & ~lost
-        headpose_active = state.headpose_active & ~lost
-
-        # --- found + smoothing (src/main.js:250-261)
-        status = status | torch.where(tracking & ~state.face_found,
-                                      STATUS_FOUND, zeros_i)
-        face_found = face_found | tracking
-
-        zero = torch.zeros_like(res.x)
-        cur = torch.stack([res.x, res.y, zero, res.w, res.h], dim=1)
-        if config.smoothing:
-            t1 = tracking[:, None]
-            sp0 = torch.where(state.sm_init[:, None], state.sm_sp, cur)
-            sp1 = alpha * cur + (1 - alpha) * sp0
-            sm_sp = torch.where(t1, sp1, state.sm_sp)
-            sm_init = state.sm_init | tracking
-            smoothed = torch.where(t1, sp1, cur)
-        else:
-            sm_sp = state.sm_sp
-            sm_init = state.sm_init
-            smoothed = cur
-        sx, sy, sw, sh = smoothed[:, 0], smoothed[:, 1], smoothed[:, 3], smoothed[:, 4]
-
-        # --- head-diagonal stability gate + FOV (src/main.js:263-297)
-        diag = torch.sqrt(sw * sw + sh * sh)
-        gate = tracking & ~headpose_active & bool(config.headPosition)
-        ring_full = state.diag_n >= DIAG_LENGTH
-        rolled = torch.cat([state.diag_ring[:, 1:], diag[:, None]], dim=1)
-        slot = torch.clamp(state.diag_n, max=DIAG_LENGTH - 1).long()
-        filled = state.diag_ring.scatter(1, slot[:, None], diag[:, None])
-        pushed = torch.where(ring_full[:, None], rolled, filled)
-        diag_ring = torch.where(gate[:, None], pushed, state.diag_ring)
-        diag_n = torch.where(gate, torch.clamp(state.diag_n + 1, max=DIAG_LENGTH),
-                             state.diag_n)
-        stable = gate & ring_full & (
-            (pushed.amax(dim=1) - pushed.amin(dim=1)) < 5.0)
-
-        if config.fov is not None:
-            fov_est = torch.full_like(sw, config.fov * math.pi / 180.0)
-        else:
-            fov_est = hp.estimate_fov_width(sw, sh, camw,
-                                            config.distance_to_screen)
-        activate = stable
-        first = activate & state.first_run
-        fov_width = torch.where(first, fov_est, state.fov_width)
-        tan_fov = torch.where(first, 2 * torch.tan(fov_est / 2), state.tan_fov)
-        first_run = state.first_run & ~activate
-        # constructor resets head_diag_cam from the activation faceObj
-        # (src/headposition.js:66-68)
-        head_diag_cam = torch.where(activate, torch.sqrt(sw * sw + sh * sh),
-                                    state.head_diag_cam)
-        headpose_active = headpose_active | activate
-
-        run_head = activate | (tracking & headpose_active
-                               & bool(config.headPosition))
-        hx, hy, hz, new_diag_cam = hp.track_head(
-            sx, sy, sw, sh, head_diag_cam,
-            torch.where(tan_fov > 0, tan_fov, 1.0),  # guard; masked by run_head
-            camw, camh, config.cameraOffset, config.edgecorrection)
-        head_diag_cam = torch.where(run_head, new_diag_cam, head_diag_cam)
-
-        out = StepOutput(
-            detection=detection, wb=res.wb,
-            face_x=res.x, face_y=res.y, face_w=res.w, face_h=res.h,
-            face_angle=res.angle, face_conf=res.conf,
-            smooth_x=sx, smooth_y=sy, smooth_w=sw, smooth_h=sh,
-            head_valid=run_head,
-            head_x=torch.where(run_head, hx, 0.0),
-            head_y=torch.where(run_head, hy, 0.0),
-            head_z=torch.where(run_head, hz, 0.0),
-            status=status,
-            event_face=is_cs & bool(config.sendEvents),
-            fov_deg=fov_width * rad2deg,
-            mode_after=mode_after,
-            escaped=torch.zeros((N,), dtype=torch.bool, device=dev),
-        )
-        new_state = state._replace(
-            mode=mode_after, sm_sp=sm_sp, sm_init=sm_init,
-            face_found=face_found, first_run=first_run,
-            diag_ring=diag_ring, diag_n=diag_n,
-            headpose_active=headpose_active, tan_fov=tan_fov,
-            fov_width=fov_width, head_diag_cam=head_diag_cam, stopped=stopped)
+            if variant == "pending":
+                is_wb = (entry_mode == MODE_WB)
+                wb_state, wb_res, _ = wb_branch(state, frames)
+                vj_state, vj_res, _ = vj_branch(state, frames)
+                state = _where(is_wb, wb_state, vj_state)
+                res = _where(is_wb, wb_res, vj_res)
+                pdf = None
+            elif select:
+                state, res, pdf = selected(state, frames)
+            else:
+                state, res, pdf = dispatch(state, frames, modes)
+            state, out, esc = _epilogue.supervise(
+                state, entry_mode, res, epi, variant,
+                res.escaped if band is not None else None)
+        out = StepOutput(**out)
         if band is not None:
-            return new_state, out, res.escaped & is_cs
+            return state, out, esc
         if with_pdf:
-            return new_state, out, pdf if pdf is not None else no_pdf(N)
-        return new_state, out
+            return state, out, pdf if pdf is not None else \
+                no_pdf(frames.shape[0])
+        return state, out
 
     return step

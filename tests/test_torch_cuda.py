@@ -1844,6 +1844,37 @@ def test_program_past_the_grid_equals_per_tick_path(dev):
     assert res["runs"][0] > 0  # all-CS ticks ran
 
 
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_tick_epilogue_bit_equal_to_twin(dev, n):
+    """tick_epilogue against its twin run on the card
+    (tools/torch_epilogue_cases.py check): the finish alone, the "track"
+    step's end with and without the band's flags, the supervision of each
+    variant, under each of the 64 configurations of the flag grid;
+    bit-equal (NaN-equal), the same leaves passed through, one launch a
+    call."""
+    cases = _tool("torch_epilogue_cases")
+    res = cases.check(n, dev)
+    assert res["launches"] == res["runs"] == 64 * len(cases.FORMS)
+    if n >= 256:  # every branch taken
+        assert all(res[k] for k in ("activations", "lost", "nan_angles",
+                                    "escaped", "head_valid")), res
+
+
+def test_every_program_body_runs_the_epilogue(dev):
+    """Each body of the serving program (all-CS, the bucket at each slot
+    count, wbtrack, full, few, many) launches tick_epilogue, and the
+    all-CS body holds none of the epilogue's PyTorch ops: at most 30 graph
+    nodes (band_rect's, histpdf_band, meanshift, tick_epilogue)."""
+    from chip_smoke import epilogue_bodies
+    bt = BatchedTracker(16, (120, 160), cascade=toy_cascade(), device=dev,
+                        band=(64, 96), bandHist=True, bucket=2)
+    bt.warmup(scan_len=2)
+    bodies = epilogue_bodies(bt)
+    assert {"0", "2", "wbtrack", "full", "few", "many"} <= set(bodies)
+    assert bodies["0"]["tick_epilogue"] == 1
+    assert bodies["0"]["nodes"] <= 30, bodies["0"]
+
+
 def _tool(name):
     """tools/<name>.py (a script, loaded by path)."""
     import importlib.util
