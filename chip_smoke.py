@@ -101,7 +101,17 @@ Phases, one line each; any failure raises and exits nonzero:
      grid and its byte bound (no PyTorch call computes its function).
      After phase 5, each body of the headline's serving program (all-CS,
      the bucket at each slot count, wbtrack, full, few, many) must launch
-     tick_epilogue (its tally), with its graph's nodes counted;
+     tick_epilogue (its tally), with its graph's nodes counted (phase 5's
+     relock profile reports them by body);
+ 3b. bucket: the relock tick's bucket kernels, frame_prep (K9), handoff
+     (K7) and slot_gather (S5), bit-equal to their twins run on the card
+     (tools/torch_bucket_cases.py at 1, 8 and 256 streams, every branch;
+     then the relock tick's own shapes on the bench pool: 8 slots over 256
+     streams, the 4 loss streams served and padding, face boxes as the
+     detections, the 96x128 band's audit), each timed (events, graph
+     replay) beside its twin, an empty kernel at its grid, the bytes this
+     run's data needs and a library call (a channel sum, torch.bincount
+     of the rects' bins, index_select of the model histograms' rows);
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -110,7 +120,10 @@ Phases, one line each; any failure raises and exits nonzero:
      at 0: 16 lock ticks and 32 ticks of step_auto over a 16-batch pool
      with 4 loss streams, then run_scan over the pool (K = 16, as bench.py
      runs it).  Checks: >= 99% locked, loss streams relock, every kernel of
-     its path launched in its run, no NaN outside the zero-mass angle; and
+     its path launched in its run (the headline's also through
+     band_hist_divergence, the bandHist cross-check, whose band histogram
+     is histpdf_band's hist-only mode), no NaN outside the zero-mass
+     angle; and
      a second tracker driven by step(sync=True) at sync_interval 1 over the
      same 64 frame batches agrees on every tick (integers exact, floats
      within rtol 1e-5 / atol 1e-4; the largest float difference printed).
@@ -260,7 +273,9 @@ Phases, one line each; any failure raises and exits nonzero:
      20 ticks (15 wbtrack, the full tick, all-CS ticks, the last two one
      run_scan): the serving program bit-equal to the per-tick path run
      eagerly on the card, every leaf of every tick and the final state,
-     one launch a call, every kernel of its path launched.
+     one launch a call, every kernel of its path launched; and frame_prep,
+     handoff and slot_gather at 70,000 streams bit-equal to their twins
+     (tools/torch_bucket_cases.py).
 
 The last four lines: the steady-tick and relock profiles, session, fanout, checkpoint,
 facade, plan, mesh, gate, bench, surface, schedule and F32 numbers as JSON
@@ -296,6 +311,14 @@ PYRAMID_SRC = "headtrackr_tpu_torch/csrc/pyramid.cu"
 CASCADE_SRC = "headtrackr_tpu_torch/csrc/cascade.cu"
 GROUP_SRC = "headtrackr_tpu_torch/csrc/group.cu"
 EPILOGUE_SRC = "headtrackr_tpu_torch/csrc/epilogue.cu"
+FRAMEPREP_SRC = "headtrackr_tpu_torch/csrc/frameprep.cu"
+HANDOFF_SRC = "headtrackr_tpu_torch/csrc/handoff.cu"
+SCHEDULE_SRC = "headtrackr_tpu_torch/csrc/schedule.cu"
+# the relock tick's bucket body (phase 3b): its slots (the headline's
+# bucket, LOSS_STREAMS of them served) and the kernels of its pending step
+BUCKET = ("frame_prep", "handoff", "slot_gather")
+BUCKET_SLOTS = 8
+BUCKET_NS = (1, 8, 256)  # phase 3b's checks against the twins
 # f32 operations a stream takes through tick_epilogue's fused form at most
 # (csrc/epilogue.cu, counting a square root or a transcendental as one: the
 # finish's 28, the supervision's 37, the FOV estimate's 11, track_head's 58)
@@ -316,14 +339,14 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8,
                         histKernel="pallas"),
-                   ("hist4096", "backproject", "histpdf_band_hist",
-                    "meanshift", "tick_epilogue") + DETECT),
+                   ("hist4096", "backproject", "meanshift",
+                    "tick_epilogue") + DETECT + BUCKET),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
-             ("hist_mma", "backproject_rect", "histpdf_band_hist",
-              "meanshift", "tick_epilogue") + DETECT),
+             ("hist_mma", "backproject_rect", "meanshift",
+              "tick_epilogue") + DETECT + BUCKET),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
-                 ("histpdf_band", "histpdf_band_hist", "backproject",
-                  "meanshift", "tick_epilogue") + DETECT),
+                 ("histpdf_band", "meanshift", "tick_epilogue") + DETECT
+                 + BUCKET),
 }
 # kernel -> (the TPU kernel it replaces, the configuration whose run its
 # launch count reports, its source)
@@ -354,6 +377,13 @@ KERNELS = {
     # and the supervision
     "tick_epilogue": ("headtrackr_tpu/models/camshift.py:364", "headline",
                       EPILOGUE_SRC),
+    # the relock tick's bucket body: XLA paths, no Pallas kernel
+    "frame_prep": ("headtrackr_tpu/ops/imageproc.py:35", "headline",
+                   FRAMEPREP_SRC),
+    "handoff": ("headtrackr_tpu/models/camshift.py:133", "headline",
+                HANDOFF_SRC),
+    "slot_gather": ("headtrackr_tpu/runtime/serving.py:299", "headline",
+                    SCHEDULE_SRC),
     # the serving program's kernels: XLA's control flow, no Pallas kernel
     "tick_select": ("headtrackr_tpu/runtime/serving.py:326", "schedule",
                     "headtrackr_tpu_torch/csrc/schedule.cu"),
@@ -369,7 +399,7 @@ SURFACE_PATH = ("hist_bins", "pdf_bins", "meanshift") + DETECT
 SURFACE_NS = (N_STREAMS, 1)  # hist_pallas / pdf_pallas: 256 streams and one
 SURFACE_DETECT = 8  # detect_best(gray, cascade): a relock bucket's streams
 # the kernels the facade phase's path launches
-FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "histpdf_band_hist",
+FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "handoff",
                "meanshift")
 FACADE_CPU_FRAMES = 24
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
@@ -437,7 +467,7 @@ F32_SPLIT = ("hist4096", "histpdf_band_hist", "histpdf_band", "backproject",
 # the program's path at 160x120 (no band; hist_mma the default histogram)
 F32_PATH = ("hist_mma", "backproject", "meanshift", "pyramid", "cascade",
             "group", "tick_epilogue", "tick_select", "scan_step",
-            "scan_commit")
+            "scan_commit", "frame_prep", "handoff")
 
 def log(msg):
     print(msg, flush=True)
@@ -1800,16 +1830,160 @@ def phase_epilogue(pools, dev, root):
     return worst, t
 
 
+def phase_bucket(pools, dev, root):
+    """Phase 3b, the relock tick's bucket kernels: frame_prep (K9),
+    handoff (K7) and slot_gather (S5) against their twins run on the card,
+    bit-equal: (a) tools/torch_bucket_cases.py's check at BUCKET_NS
+    streams (every branch: WB streams with stable rings, VJ streams
+    switching or not, detections at and past the frame's edges and empty,
+    model pixels one row or column outside the band, padded slots); (b)
+    the relock tick's own shapes on the bench pool: BUCKET_SLOTS slots
+    over N_STREAMS streams, LOSS_STREAMS of them served (the loss streams,
+    entering in VJ after their blue frame, then WB ones) and the rest
+    padding, each stream's face box its detection, the 96x128 band's
+    audit, and a state of the headline's leaves.  Then each kernel's
+    times there: events and graph replay beside its twin, an empty kernel
+    at its grid, its bound (the bytes this run's data needs) and a library
+    call (frame_prep: a channel sum over the served frames; handoff:
+    torch.bincount of the rects' bins, the histogram alone; slot_gather:
+    index_select of the model histograms' rows, the largest leaf).
+    Returns (max abs err by kernel, timing entries)."""
+    import torch
+    from headtrackr_tpu_torch.kernels.frameprep import frame_prep
+    from headtrackr_tpu_torch.kernels.handoff import handoff
+    from headtrackr_tpu_torch.kernels.schedule import (slot_gather,
+                                                       slot_gather_plain)
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.models.camshift import band_rect
+    from headtrackr_tpu_torch.ops.handoff import handoff_plain
+    from headtrackr_tpu_torch.ops.histogram import rgb_bins
+    from headtrackr_tpu_torch.ops.imageproc import frame_prep_plain
+
+    cases = load_example(root, "torch_bucket_cases", "tools")
+    t0 = time.perf_counter()
+    reached = {n: cases.check(n, dev) for n in BUCKET_NS}
+    big = reached[N_STREAMS]
+    if not all(big[k] for k in ("stable", "switched", "dirty", "clean",
+                                "kept")):
+        raise AssertionError(f"bucket: the cases missed a branch: {big}")
+    for n, r in reached.items():
+        if r["launches"] != {"frame_prep": 4, "handoff": 4,
+                             "slot_gather": 1}:
+            raise AssertionError(f"bucket: launches at N={n}: {r}")
+    log(f"kernels: frame_prep, handoff and slot_gather bit-equal to their "
+        f"twins on the card at N={list(BUCKET_NS)} ({big}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    pool = pools[0]
+    frames = torch.as_tensor(pool[LOSS_AT + 1]).to(dev)
+    S = BUCKET_SLOTS
+    idx = torch.full((S,), N_STREAMS, dtype=torch.int64)
+    idx[:LOSS_STREAMS] = torch.arange(LOSS_STREAMS)
+    idx = idx.to(dev)
+    state = ft.init_state(N_STREAMS, band_audit=True, device=dev)
+    mode = torch.full((N_STREAMS,), ft.MODE_CS, dtype=torch.int32)
+    mode[:LOSS_STREAMS] = ft.MODE_VJ
+    mode[LOSS_STREAMS:2 * LOSS_STREAMS] = ft.MODE_WB
+    state = state._replace(mode=mode.to(dev))
+    sub, keep = slot_gather(state, idx)
+    want_sub, want_keep = slot_gather_plain(state, idx)
+    for a, b in zip(_leaves_of(sub) + [keep],
+                    _leaves_of(want_sub) + [want_keep]):
+        if not cases._same(a, b):
+            raise AssertionError("bucket: slot_gather differs from its twin "
+                                 "on the relock tick")
+    prep_args = (frames, idx, sub.mode, sub.wb_ring, sub.wb_n)
+    got = frame_prep(*prep_args)
+    cases._check("frame_prep on the relock tick", got,
+                 frame_prep_plain(*prep_args))
+    boxes = torch.as_tensor(face_boxes(pool[LOSS_AT + 1])).to(dev)
+    rows = boxes.index_select(0, torch.clamp(idx, max=N_STREAMS - 1))
+    det = (torch.ones((S,), dtype=torch.bool, device=dev),
+           *(rows[:, j].float() + 0.5 for j in range(4)),
+           torch.full((S,), 3.0, device=dev))
+    ho_args = dict(det=det, entry_mode=sub.mode, mode=got[4],
+                   old=tuple(sub.cs), band=BAND)
+    hgot = handoff(frames, idx, **ho_args)
+    hwant = handoff_plain(frames, idx, **ho_args)
+    cases._check("handoff leaves on the relock tick", hgot[0], hwant[0])
+    cases._check("handoff mode and result on the relock tick",
+                 (hgot[1],) + hgot[2], (hwant[1],) + hwant[2])
+    torch.cuda.synchronize()
+
+    # the bytes this run's data needs
+    H_, W_ = frames.shape[1:3]
+    px = H_ * W_
+    served = idx < N_STREAMS
+    fp_bytes = S * (3 * px + px + 4 * 15 * 2 + 4 * 4 + 4 + 8)
+    rects = torch.floor(torch.stack(det[1:5], 1)).int()
+    rw = (torch.clamp(rects[:, 0] + rects[:, 2], max=W_)
+          - torch.clamp(rects[:, 0], min=0)).clamp(min=0)
+    rh = (torch.clamp(rects[:, 1] + rects[:, 3], max=H_)
+          - torch.clamp(rects[:, 1], min=0)).clamp(min=0)
+    switched = (sub.mode == ft.MODE_VJ).cpu()
+    _, _, bh, bw = band_rect(rects, BAND, (H_, W_))
+    dirty = hgot[0][7].cpu()
+    scan = torch.where(dirty, 3, 3 * (px - bh * bw))
+    ho_bytes = int((switched * (3 * (rw * rh).cpu() + scan)).sum()) \
+        + S * (4 * 4096 + 8 * 4 + 4 * 7 + 8)
+    leaves = _leaves_of(state)
+    sg_bytes = 2 * sum(t.nbytes // N_STREAMS for t in leaves) * S + 9 * S
+    bins = rgb_bins(frames.index_select(0, torch.clamp(idx, max=N_STREAMS - 1)))
+    inside = torch.zeros_like(bins, dtype=torch.bool)
+    for j in range(S):
+        if switched[j]:
+            x0, y0 = max(int(rects[j, 0]), 0), max(int(rects[j, 1]), 0)
+            inside[j, y0:y0 + int(rh[j]), x0:x0 + int(rw[j])] = True
+    ids = (bins.long() + 4096 * torch.arange(S, device=dev).view(S, 1, 1))[
+        inside]
+    calls = {
+        "frame_prep": (lambda: frame_prep(*prep_args),
+                       lambda: frame_prep_plain(*prep_args), fp_bytes,
+                       lambda: frames[:S].sum(dim=(1, 2), dtype=torch.int32),
+                       True),
+        "handoff": (lambda: handoff(frames, idx, **ho_args),
+                    lambda: handoff_plain(frames, idx, **ho_args), ho_bytes,
+                    lambda: torch.bincount(ids, minlength=S * 4096), False),
+        "slot_gather": (lambda: slot_gather(state, idx),
+                        lambda: slot_gather_plain(state, idx), sg_bytes,
+                        lambda: state.cs.model_hist.index_select(0, idx.clamp(
+                            max=N_STREAMS - 1)), True),
+    }
+    times = {}
+    for k, (kernel, plain, nbytes, lib, capturable) in calls.items():
+        ms, plain_ms = interleaved_ms(kernel, plain)
+        b, by = bound(nbytes, 0)
+        grid = S if k != "slot_gather" else S * len(leaves)
+        times[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        graph_ms=graph_ms(kernel),
+                        empty_ms=graph_ms(lambda g=grid: floor_launch(g)),
+                        bytes=nbytes, launches_a_call=launches_of(k, kernel),
+                        **library_times(lib, capturable))
+        e = times[k]
+        log(f"kernels: {k} (the relock tick: {S} slots, {int(served.sum())} "
+            f"served, of {N_STREAMS} streams) {ms:.4f} ms, graph replay "
+            f"{e['graph_ms']:.4f} ms, an empty kernel at its grid "
+            f"{e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{b:.6f} ms by {by}, {nbytes} B; library "
+            f"{e['library_ms']:.4f} ms events, graph "
+            f"{fmt_ms(e['library_graph_ms'])}; no one PyTorch call computes "
+            f"its whole function)")
+        if e["launches_a_call"] != 1:
+            raise AssertionError(f"bucket: {k} is not one launch a call")
+    return {k: 0.0 for k in BUCKET}, times
+
+
 def epilogue_bodies(bt):
     """Each serving-program body of a warmed tracker: its tick_epilogue
-    launches a run (its tally) and its graph's nodes; raises where a body
-    launches none."""
+    and bucket kernels' launches a run (its tally) and its graph's nodes;
+    raises where a body launches no tick_epilogue."""
     out = {}
     for (n, key), body in bt._steps._graphs.items():
         kinds = node_kinds(body.graph)
         out[str(key)] = {"tick_epilogue": body.launches["tick_epilogue"],
                          "nodes": len(kinds),
-                         "kernel_nodes": kinds.count("kernel")}
+                         "kernel_nodes": kinds.count("kernel"),
+                         **{k: body.launches[k] for k in BUCKET}}
     missing = [k for k, v in out.items() if not v["tick_epilogue"]]
     if missing:
         raise AssertionError(f"epilogue: the bodies {missing} launch no "
@@ -1852,6 +2026,11 @@ def phase_serving(name, frames, dev):
     scan = bt.run_scan(frames)
     torch.cuda.synchronize()
     dt_scan = time.perf_counter() - t0
+    divergence = None
+    if kw.get("bandHist"):  # the periodic bandHist cross-check (a user's
+        # entry point; its band histogram is histpdf_band's hist-only mode)
+        divergence = bt.band_hist_divergence(frames[0])
+        path = path + ("histpdf_band_hist",)
     counts = dict(L.launches)
     missing = [k for k in path if counts[k] <= 0]
     if missing:
@@ -1903,7 +2082,8 @@ def phase_serving(name, frames, dev):
         f"({N_STREAMS * POOL / dt_scan:.0f} frames/s), step (eager, "
         f"sync_interval 1) {ms['step']:.3f} ms/tick; escapes {esc:.2f}/tick; "
         f"band_dirty {n_dirty}; {LOSS_STREAMS} loss streams relocked on each "
-        f"pool pass; launches {counts}")
+        f"pool pass; bandHist divergence of stream 0 {divergence}; launches "
+        f"{counts}")
     log(f"serving [{name}]: step_auto + run_scan agree with step(sync=True) "
         f"on {len(outs)} ticks (integers exact, floats rtol {RTOL} / atol "
         f"{ATOL}; largest float difference {worst})")
@@ -2446,13 +2626,14 @@ def poison(prog):
 def commit_times(prog, dev):
     """scan_commit on a program's own tables: the all-CS body's (its model
     histograms passed through: no entry) and the bucket body's at kb slots
-    (the relock tick's, which changes them), each into fresh destinations
-    and a scan's packs
-    of 2 ticks, bit-equal to scan_commit_plain; timed by events and graph
-    replay beside its twin, its byte bound (each table's bytes read and
-    written) and one torch._foreach_copy_ over the same entries.  The
-    all-CS table's numbers at the top level, each table's under
-    "tables"."""
+    (the relock tick's: the track pass's changed leaves whole, the
+    sub-batch's rows merged by its slot map, the model histograms by their
+    served rows alone), each into copies of the state (a merge writes only
+    its rows) and a scan's packs of 2 ticks, bit-equal to
+    scan_commit_plain; timed by events and graph replay beside its twin,
+    its byte bound (each table's bytes read and written) and one
+    torch._foreach_copy_ over the entries with a source.  The all-CS
+    table's numbers at the top level, each table's under "tables"."""
     import torch
     from headtrackr_tpu_torch.kernels import schedule as S
     bodies = {"all-CS": prog.bodies[0], "bucket": prog.bodies[1]}
@@ -2460,9 +2641,10 @@ def commit_times(prog, dev):
              for dt, shape in prog.bufs.packs.items()]
     tables = []
     for body in bodies.values():
-        carry, rows = prog._commit_pairs(body.state, body.out)
-        tables.append(([(src, torch.empty_like(dst)) for src, dst in carry],
-                       rows))
+        carry, rows, *slots = prog._commit_pairs(body.state, body.out,
+                                                 body.merge)
+        tables.append(([(c[0], c[1].clone()) + tuple(c[2:]) for c in carry],
+                       rows, *slots))
     ct = S.segments(tables, dev)
     p = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
     p[S.P_K], p[S.P_TICKS] = 1, 2  # row k - 1 = 0
@@ -2470,31 +2652,36 @@ def commit_times(prog, dev):
         p[S.P_OUT + j] = pk.data_ptr()
     p = p.to(dev)
     out = {}
-    for t, (name, (carry, rows)) in enumerate(zip(bodies, tables)):
+    for t, (name, (carry, rows, *slots)) in enumerate(zip(bodies, tables)):
+        want = [c[1].clone() for c in carry]
+        want_packs = [torch.zeros_like(pk) for pk in packs]
+        for pk in packs:
+            pk.zero_()
         S.scan_commit(p, ct, t)
-        want = [torch.empty_like(d) for _, d in carry]
-        want_packs = [torch.empty_like(pk) for pk in packs]
         plain = lambda: S.scan_commit_plain(  # noqa: E731
-            0, [(s, w) for (s, _), w in zip(carry, want)],
-            [(v, want_packs[slot], row) for v, slot, row in rows])
+            0, [(c[0], w) + tuple(c[2:]) for c, w in zip(carry, want)],
+            [(r[0], want_packs[r[1]], r[2]) + tuple(r[3:]) for r in rows],
+            *slots)
         plain()
         torch.cuda.synchronize()
-        for a, b in zip([d for _, d in carry] + [pk[:, 0] for pk in packs],
+        for a, b in zip([c[1] for c in carry] + [pk[:, 0] for pk in packs],
                         want + [pk[:, 0] for pk in want_packs]):
             if not torch.equal(a, b):
                 raise AssertionError(f"scan_commit ({name}) differs from "
                                      f"its twin")
         first, count = ct.tables[t, :2].tolist()
         moved = int(ct.segs[first:first + count, 2].sum())
-        srcs = [s for s, _ in carry] + [v for v, _, _ in rows]
-        dsts = [d for _, d in carry] + [packs[slot][row, 0]
-                                        for _, slot, row in rows]
+        whole = [c for c in carry if c[0] is not None]
+        srcs = [c[0] for c in whole] + [r[0] for r in rows]
+        dsts = [c[1] for c in whole] + [packs[r[1]][r[2], 0] for r in rows]
         commit = lambda t=t: S.scan_commit(p, ct, t)  # noqa: E731
         out[name] = {
             "entries": count, "bytes": moved,
+            "merged_entries": sum(len(c) > 2 for c in carry)
+            + sum(len(r) > 3 for r in rows),
             "passed_through_bytes": sum(
                 d.nbytes for d in _leaves_of(prog.bufs.state_in))
-            - sum(d.nbytes for _, d in carry),
+            - sum(c[1].nbytes for c in whole),
             "ms": cuda_ms(commit), "graph_ms": graph_ms(commit),
             "plain_ms": cuda_ms(plain),
             **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
@@ -2505,8 +2692,10 @@ def commit_times(prog, dev):
                          + ["few", "many"],
                          prog.bodies + [prog.few, prog.many]):
         if body is not None:
+            extra = [] if body.merge is None else (
+                _leaves_of(body.merge.state) + list(body.merge.out))
             leaves = {t.data_ptr(): t.nbytes for t in
-                      _leaves_of(body.state) + list(body.out)
+                      _leaves_of(body.state) + list(body.out) + extra
                       if id(t) not in held}
             kept[key] = sum(leaves.values())
     out["all-CS"]["kept_bytes_per_body"] = kept
@@ -2514,9 +2703,10 @@ def commit_times(prog, dev):
         f"(tick bodies by index, few, many): {kept}")
     log(f"schedule: scan_commit bit-equal to its twin on {list(bodies)} "
         f"tables at {prog.bufs.age.shape[0]} streams: " + "; ".join(
-            f"{k} {v['bytes']} B, graph {v['graph_ms']:.4f} ms (bound "
-            f"{v['bound_ms']:.4f}, _foreach_copy_ "
-            f"{fmt_ms(v['library_graph_ms'])})" for k, v in out.items()))
+            f"{k} {v['bytes']} B ({v['merged_entries']} merged entries), "
+            f"graph {v['graph_ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+            f"_foreach_copy_ {fmt_ms(v['library_graph_ms'])})"
+            for k, v in out.items()))
     return {**out["all-CS"], "tables": out}
 
 
@@ -2769,6 +2959,11 @@ def phase_f32(dev, root):
     cases = load_example(root, "torch_f32_cases", "tools")
     t0 = time.perf_counter()
     kernels = cases.check(F32_N, dev)
+    bucket = load_example(root, "torch_bucket_cases", "tools").check(F32_N,
+                                                                     dev)
+    if bucket["launches"] != {"frame_prep": 4, "handoff": 4,
+                              "slot_gather": 1}:
+        raise AssertionError(f"f32: the bucket kernels at {F32_N}: {bucket}")
     took = cases.refusals()
     if took:
         raise AssertionError(f"f32: {took} took 65,536 streams a launch")
@@ -2784,13 +2979,15 @@ def phase_f32(dev, root):
     torch.cuda.empty_cache()
     log(f"f32: at {F32_N} streams of 160x120 {sorted(kernels)} bit-equal "
         f"to their twins, {kernels['hist4096']['chunks']} launches each "
-        f"(cascade: dense and deep a chunk, one compaction), "
+        f"(cascade: dense and deep a chunk, one compaction), frame_prep, "
+        f"handoff and slot_gather bit-equal to their twins, one launch a "
+        f"call ({bucket}), "
         f"{t_kernels:.1f} s; every launcher refuses 65,536; the program "
         f"over {F32_TICKS} ticks from init_state equals the per-tick path "
         f"(body runs {prog['runs']}, {prog['locked']} locked, "
         f"{prog['ms_per_tick']:.2f} host ms a tick), "
         f"{time.perf_counter() - t0:.1f} s")
-    return {"kernels": kernels, "program": prog}
+    return {"kernels": kernels, "program": prog, "bucket": bucket}
 
 
 def phase_card_vs_cpu(name, pool, dev):
@@ -3236,7 +3433,9 @@ def phase_plan(pool, dev, root):
     if tracker.status != "tracking" or not any(
             ln.startswith("[head]") for ln in lines):
         raise AssertionError(f"torch_facetracking: status {tracker.status}")
-    missing = [k for k in CONFIGS["headline"][1] if counts[k] <= 0]
+    # a cold start and tracking ticks: no bucket tick (slot_gather)
+    missing = [k for k in CONFIGS["headline"][1] if counts[k] <= 0
+               and k != "slot_gather"]
     if missing:
         raise AssertionError(f"plan/examples: kernels never launched: "
                              f"{missing} ({counts})")
@@ -3641,11 +3840,16 @@ def main():
     times.update(det_times)
     err["tick_epilogue"], ep_times = phase_epilogue(pools, dev, root)
     times.update(ep_times)
+    bucket_err, bucket_times = phase_bucket(pools, dev, root)
+    err.update(bucket_err)
+    times.update(bucket_times)
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
     relock = phase_relock(runs["headline"][2], frames)
     bodies = epilogue_bodies(runs["headline"][2])
+    relock["nodes_by_body"] = {k: v["nodes"] for k, v in bodies.items()}
+    log(f"relock [headline]: graph nodes by body {relock['nodes_by_body']}")
     log(f"epilogue: the headline's program bodies, tick_epilogue launches a "
         f"run and graph nodes: {bodies}")
     counts = {name: r[0] for name, r in runs.items()}
@@ -3698,6 +3902,9 @@ def main():
             e["f32"] = f32["kernels"][k]
         if k in F32_PATH:
             e["f32_launches"] = f32["program"]["launches"][k]
+        if k in BUCKET:
+            e.update(relock_body_launches=bodies[str(min(8, N_STREAMS))]
+                     .get(k), f32=f32["bucket"]["launches"][k])
         if k == "hist4096":
             e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":
@@ -3722,7 +3929,8 @@ def main():
                       "facade": facade, "plan": plan, "mesh": mesh,
                       "gate": gate, "bench": bench, "schedule": sched,
                       "f32": {"program": {k: v for k, v in f32[
-                          "program"].items() if k != "launches"}},
+                          "program"].items() if k != "launches"},
+                          "bucket": f32["bucket"]},
                       "surface": {k: surface[k] for k in (
                           "launches", "times", "dirty", "found",
                           "pdf_nodes")}}))

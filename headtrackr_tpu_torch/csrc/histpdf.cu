@@ -111,6 +111,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "band.cuh"
 #include "cluster_hist.cuh"
 #include "sm90.cuh"
 
@@ -132,31 +133,10 @@ __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
          static_cast<int>(px[2] >> 4);
 }
 
-// The rect [x, y, w, h] clamped to the frame: origin (x0, y0), size rw x rh.
-struct Rect {
-  int64_t x0, y0, rw, rh;
-};
-
-__device__ __forceinline__ Rect clamped_rect(const int32_t* r, int h, int w) {
-  const int64_t rx = r[0], ry = r[1];
-  const int64_t x0 = rx > 0 ? rx : 0;
-  const int64_t y0 = ry > 0 ? ry : 0;
-  int64_t x1 = rx + r[2];
-  int64_t y1 = ry + r[3];
-  x1 = x1 < w ? x1 : w;
-  y1 = y1 < h ? y1 : h;
-  return {x0, y0, x1 > x0 ? x1 - x0 : 0, y1 > y0 ? y1 - y0 : 0};
-}
-
-// A (bh, bw) band at the rect's origin, the origin clipped so the band lies
-// in the frame (the caller guarantees bh <= h and bw <= w).
-__device__ __forceinline__ Rect band_rect(const int32_t* r, int h, int w,
-                                          int bh, int bw) {
-  int64_t x0 = r[0], y0 = r[1];
-  x0 = x0 < 0 ? 0 : (x0 > w - bw ? w - bw : x0);
-  y0 = y0 < 0 ? 0 : (y0 > h - bh ? h - bh : y0);
-  return {x0, y0, bw, bh};
-}
+// The rect and band rules (band.cuh), one copy for every kernel.
+using band::Rect;
+using band::band_rect;
+using band::clamped_rect;
 
 __device__ __forceinline__ const float* stage_table(const float* weights,
                                                     int n, float4* table4) {

@@ -24,7 +24,14 @@
 //                  (fields, K, N) output packs and its new state over the
 //                  state every body reads; in its staging mode, on a tick
 //                  whose escape fallback runs a body, the tick body's
-//                  results into the buffers the escape bodies read.
+//                  results into the buffers the escape bodies read;
+//                  a bucket body's sub-batch rows merged by its slot map
+//                  (:210-223 _scatter_subbatch: rows kept and not padding
+//                  written, the rest dropped);
+//   slot_gather    :299-320 _apply_bucket's gathers (a[safe] over the
+//                  state): every state leaf's rows at min(idx, N - 1)
+//                  into the sub-batch, and the kept flags (idx < N and
+//                  not in CS), one launch driven by a table of leaves.
 // What bounds them: none moves more than the tick's frames (scan_step's
 // whole mode, bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x
 // 240 x 320 on an H100 SXM at 3.35 TB/s; its rows mode s rows of H x W x
@@ -177,6 +184,26 @@ static_assert(sizeof(Seg) == 8 * 8, "Seg is 8 words");
 // A table's entries: segs[first, first + count), ``chunks`` in all.
 struct Table {
   long long first, count, chunks, pad;
+};
+
+// An entry's merge of a sub-batch's rows (kernels/schedule.py segments;
+// beside each Seg): kind 0 none; kind 1 (merged) the entry's copy with
+// each row r that its table's slot map names taken from row j of ``sub``
+// (rows of ``rb`` bytes, the slot j with idx[j] == r kept); kind 2 (rows)
+// only those rows, the entry's chunks running over the S sub rows, each
+// ceil(rb / 16) chunks (the leaf the body passed through whole: no copy
+// but of its served rows).  ``pitch``: a 1-D strided sub's element stride
+// in bytes (0: contiguous).
+struct Merge {
+  long long sub, rb, pitch, kind;
+};
+static_assert(sizeof(Merge) == 4 * 8, "Merge is 4 words");
+constexpr long long kMergeNone = 0, kMerged = 1, kMergeRows = 2;
+
+// A table's slot map: row j of its merges lands on row idx[j] where
+// keep[j] and idx[j] < n (slots padded with n are dropped); slots 0: none.
+struct SlotMap {
+  long long idx, keep, slots, n;
 };
 
 __device__ void set_handles(const Handles& h, int value) {
@@ -679,20 +706,51 @@ __device__ __forceinline__ long long commit_table(const Params* p, int nb,
   return p->branch;
 }
 
+// The row slot j of a slot map lands on, or -1 (not kept, or padding).
+__device__ __forceinline__ long long slot_row(const SlotMap& m, long long j) {
+  const long long r = reinterpret_cast<const long long*>(m.idx)[j];
+  const bool kept = reinterpret_cast<const unsigned char*>(m.keep)[j] != 0;
+  return kept && r >= 0 && r < m.n ? r : -1;
+}
+
+// The slot of the slot map whose row is r, or -1.
+__device__ __forceinline__ long long slot_of(const SlotMap& m, long long r) {
+  for (long long j = 0; j < m.slots; ++j) {
+    if (slot_row(m, j) == r) return j;
+  }
+  return -1;
+}
+
+// Byte o of sub row j.
+__device__ __forceinline__ unsigned char sub_byte(const Merge& g,
+                                                  long long j, long long o) {
+  const unsigned char* sub = reinterpret_cast<const unsigned char*>(g.sub);
+  return g.pitch ? sub[j * g.pitch + o] : sub[j * g.rb + o];
+}
+
 // A table's copies, k = p->k - 1: each entry's bytes to its destination (a
 // pack row: row * K + k of its pack).  The table's entries are one run of
 // 16-byte chunks, thread t taking chunks t, t + the grid's threads, ...: a
 // thread finds its first chunk's entry by bisection and walks on from it.
 // A chunk copies as one vector where its entry's source and destination
 // are 16-byte aligned and it is whole, else byte by byte (a strided
-// source: element by element, an element's bytes each).  One run counts
-// in p->commits, or in p->stages (stage: the tick body's results into the
-// escape bodies' buffers).
+// source: element by element, an element's bytes each).  With a slot map
+// (maps, the table's; a bucket body's sub-batch) an entry may merge rows
+// (merges: a merged entry's chunk takes the bytes of a row the map names
+// from the sub row, the rows entry's chunks run over the sub rows alone),
+// so no two chunks write one byte and the copy needs no order.  One run
+// counts in p->commits, or in p->stages (stage: the tick body's results
+// into the escape bodies' buffers).
 __global__ void __launch_bounds__(kCopyThreads)
     scan_commit_kernel(Params* p, const Table* __restrict__ tables,
-                       const Seg* __restrict__ segs, int nb, int stage,
+                       const Seg* __restrict__ segs,
+                       const Merge* __restrict__ merges,
+                       const SlotMap* __restrict__ maps, int nb, int stage,
                        int table) {
-  const Table t = tables[commit_table(p, nb, stage, table)];
+  const long long ti = commit_table(p, nb, stage, table);
+  const Table t = tables[ti];
+  SlotMap m = {0, 0, 0, 0};
+  if (maps && merges) m = maps[ti];
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     if (stage) {
       p->stages += 1;
@@ -719,15 +777,56 @@ __global__ void __launch_bounds__(kCopyThreads)
     while (e + 1 < end && __ldg(&segs[e + 1].chunk) <= c) ++e;
     const Seg& g = segs[e];
     const long long bytes = __ldg(&g.bytes), slot = __ldg(&g.slot);
+    const Merge mg = m.slots ? merges[e] : Merge{0, 0, 0, kMergeNone};
     const unsigned char* src =
         reinterpret_cast<const unsigned char*>(__ldg(&g.src));
+    const long long pitch = __ldg(&g.pitch);
+    if (mg.kind == kMergeRows) {  // the sub rows alone
+      const long long cpr = (mg.rb + 15) / 16;
+      const long long local = c - __ldg(&g.chunk);
+      const long long j = local / cpr, o = (local % cpr) * 16;
+      const long long r = slot_row(m, j);
+      if (r < 0) continue;
+      unsigned char* dst =
+          slot < 0 ? reinterpret_cast<unsigned char*>(__ldg(&g.dst))
+                   : reinterpret_cast<unsigned char*>(p->out[slot]) +
+                         (__ldg(&g.row) * K + k) * m.n * mg.rb;
+      dst += r * mg.rb;
+      const long long last = min(o + 16, mg.rb);
+      const unsigned char* sub =
+          reinterpret_cast<const unsigned char*>(mg.sub) +
+          (mg.pitch ? j * mg.pitch : j * mg.rb);
+      if (!mg.pitch && last - o == 16 && aligned16(sub + o, dst + o, 0)) {
+        *reinterpret_cast<int4*>(dst + o) =
+            *reinterpret_cast<const int4*>(sub + o);
+      } else {
+        for (long long i = o; i < last; ++i) dst[i] = sub[i];
+      }
+      continue;
+    }
     unsigned char* dst =
         slot < 0 ? reinterpret_cast<unsigned char*>(__ldg(&g.dst))
                  : reinterpret_cast<unsigned char*>(p->out[slot]) +
                        (__ldg(&g.row) * K + k) * bytes;
     const long long off = (c - __ldg(&g.chunk)) * 16;
-    const long long pitch = __ldg(&g.pitch);
     const long long last = min(off + 16, bytes);
+    if (mg.kind == kMerged) {  // rows the map names come from the sub rows
+      const long long r0 = off / mg.rb, r1 = (last - 1) / mg.rb;
+      bool hit = false;
+      for (long long j = 0; j < m.slots && !hit; ++j) {
+        const long long r = slot_row(m, j);
+        hit = r >= r0 && r <= r1;
+      }
+      if (hit) {
+        const long long elem = pitch ? __ldg(&g.elem) : 1;
+        for (long long i = off; i < last; ++i) {
+          const long long js = slot_of(m, i / mg.rb);
+          dst[i] = js >= 0 ? sub_byte(mg, js, i % mg.rb)
+                           : src[pitch ? i / elem * pitch + i % elem : i];
+        }
+        continue;
+      }
+    }
     if (pitch != 0) {  // elements of elem bytes (dividing 16), pitch apart
       const long long elem = __ldg(&g.elem);
       for (long long i = off; i < last; i += elem) {
@@ -740,6 +839,52 @@ __global__ void __launch_bounds__(kCopyThreads)
     } else {
       for (long long i = off; i < last; ++i) dst[i] = src[i];
     }
+  }
+}
+
+// slot_gather's leaves a launch (kernels/schedule.py SLOT_LEAVES).
+constexpr int kMaxLeaves = 32;
+
+// slot_gather's arguments, by value (kernels/schedule.py _GatherArgs
+// mirrors it): the slots, the mode leaf (i32, ``mode_pitch`` elements a
+// stream) and the keep flags written; a leaf each: its source, its sub
+// rows, its row bytes and, for a 1-D strided source, its element stride in
+// bytes (0: contiguous).
+struct GatherArgs {
+  const long long* idx;
+  const int* mode;
+  unsigned char* keep;
+  long long n, mode_pitch;
+  int slots, leaves;
+  const unsigned char* src[kMaxLeaves];
+  unsigned char* dst[kMaxLeaves];
+  long long rb[kMaxLeaves];
+  long long pitch[kMaxLeaves];
+};
+
+// CTA (leaf e, slot j): row min(idx[j], n - 1) of leaf e into row j of its
+// sub rows; CTA (0, j) also writes keep[j] (idx[j] < n and that row's mode
+// not CS: the reference's ``valid``).
+__global__ void __launch_bounds__(kCopyThreads)
+    slot_gather_kernel(GatherArgs a) {
+  const int e = blockIdx.x;
+  const long long j = blockIdx.y;
+  const long long i = a.idx[j];
+  const long long r = i < a.n - 1 ? i : a.n - 1;
+  if (e == 0 && threadIdx.x == 0) {
+    a.keep[j] = i < a.n && a.mode[r * a.mode_pitch] != kModeCS;
+  }
+  const long long rb = a.rb[e];
+  unsigned char* dst = a.dst[e] + j * rb;
+  const unsigned char* src = a.src[e] + (a.pitch[e] ? r * a.pitch[e] : r * rb);
+  if (!a.pitch[e] && aligned16(src, dst, rb)) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (long long v = threadIdx.x; v < rb / 16; v += kCopyThreads) {
+      d4[v] = s4[v];
+    }
+  } else {
+    for (long long b = threadIdx.x; b < rb; b += kCopyThreads) dst[b] = src[b];
   }
 }
 
@@ -839,7 +984,7 @@ enum BuildArg {
   kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEscAt, kEidx,
   kEb, kFrames, kFrameBytes, kTables, kSegs, kCommitCtas, kFew, kMany,
   kSelScratch, kSelBytes, kEscScratch, kEscBytes, kCopies, kStageTables,
-  kStageSegs, kStageCtas, kNumArgs
+  kStageSegs, kStageCtas, kMerges, kMaps, kStageMerges, kStageMaps, kNumArgs
 };
 
 // scan_commit's arguments: its tables and their entries, the tick bodies
@@ -847,6 +992,8 @@ enum BuildArg {
 struct Commit {
   const Table* tables;
   const Seg* segs;
+  const Merge* merges;
+  const SlotMap* maps;
   int nb;
   int stage;
   int ctas;
@@ -856,7 +1003,8 @@ int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
                const cudaGraphNode_t* deps, size_t ndeps, Params* p,
                Commit c) {
   int table = -1;
-  void* args[] = {&p, &c.tables, &c.segs, &c.nb, &c.stage, &table};
+  void* args[] = {&p,    &c.tables, &c.segs,  &c.merges,
+                  &c.maps, &c.nb,    &c.stage, &table};
   return add_kernel(node, g, deps, ndeps,
                     reinterpret_cast<void*>(scan_commit_kernel),
                     dim3(c.ctas), dim3(kCopyThreads), args);
@@ -969,8 +1117,10 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     const unsigned char* esc = nullptr;
     const long long* esc_at = reinterpret_cast<const long long*>(a[kEscAt]);
     const Commit stage = {reinterpret_cast<const Table*>(a[kStageTables]),
-                          reinterpret_cast<const Seg*>(a[kStageSegs]), nb, 1,
-                          static_cast<int>(a[kStageCtas])};
+                          reinterpret_cast<const Seg*>(a[kStageSegs]),
+                          reinterpret_cast<const Merge*>(a[kStageMerges]),
+                          reinterpret_cast<const SlotMap*>(a[kStageMaps]),
+                          nb, 1, static_cast<int>(a[kStageCtas])};
     long long* eidx = reinterpret_cast<long long*>(a[kEidx]);
     int eb = static_cast<int>(a[kEb]);
     Handles he = no_handles();
@@ -1015,8 +1165,10 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   }
 
   const Commit commit_args = {reinterpret_cast<const Table*>(a[kTables]),
-                              reinterpret_cast<const Seg*>(a[kSegs]), nb, 0,
-                              static_cast<int>(a[kCommitCtas])};
+                              reinterpret_cast<const Seg*>(a[kSegs]),
+                              reinterpret_cast<const Merge*>(a[kMerges]),
+                              reinterpret_cast<const SlotMap*>(a[kMaps]), nb,
+                              0, static_cast<int>(a[kCommitCtas])};
   cudaGraphNode_t commit;
   rc = add_commit(&commit, body, last, nlast, p, commit_args);
   if (rc) return rc;
@@ -1095,20 +1247,40 @@ extern "C" int scan_step_launch(void* params, void* frames, long long bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tables (T, 4) and segs (S, 8) i64 (kernels/schedule.py segments);
+// tables (T, 4), segs (S, 8), merges (S, 4) and maps (T, 4) i64
+// (kernels/schedule.py segments; merges and maps null: no merge);
 // table: the one to copy (>= 0), or -1 to pick it as the program does from
 // p->branch and p->esel, nb tick bodies before few and many; stage: count
 // the run as staging; ctas: the grid (a wave over the largest table).
 extern "C" int scan_commit_launch(void* params, const void* tables,
-                                  const void* segs, int nb, int stage,
+                                  const void* segs, const void* merges,
+                                  const void* maps, int nb, int stage,
                                   int table, int ctas, void* stream) {
-  if (tables == nullptr || segs == nullptr || ctas < 1 || nb < 1) {
+  if (tables == nullptr || segs == nullptr || ctas < 1 || nb < 1 ||
+      (merges == nullptr) != (maps == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   scan_commit_kernel<<<ctas, kCopyThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<Params*>(params), static_cast<const Table*>(tables),
-      static_cast<const Seg*>(segs), nb, stage, table);
+      static_cast<const Seg*>(segs), static_cast<const Merge*>(merges),
+      static_cast<const SlotMap*>(maps), nb, stage, table);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int slot_gather_args_bytes() { return sizeof(GatherArgs); }
+
+// The sub-batch rows of ``leaves`` leaves at ``slots`` slots, from ``args``
+// (GatherArgs): a CTA a (leaf, slot).
+extern "C" int slot_gather_launch(const void* args, void* stream) {
+  const GatherArgs a = *static_cast<const GatherArgs*>(args);
+  if (a.slots < 1 || a.slots > 65535 || a.leaves < 1 ||
+      a.leaves > kMaxLeaves || a.n < 1 || a.idx == nullptr ||
+      a.mode == nullptr || a.keep == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  slot_gather_kernel<<<dim3(a.leaves, a.slots), kCopyThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

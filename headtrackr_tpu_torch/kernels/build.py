@@ -78,7 +78,9 @@ _SIGNATURES = {
         "select_scratch_bytes": (_I, _I),
         "scan_step_launch": (_C, _C, ctypes.c_longlong, _C, _I, _I,
                              ctypes.c_uint, _C),
-        "scan_commit_launch": (_C, _C, _C, _I, _I, _I, _I, _C),
+        "scan_commit_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _C),
+        "slot_gather_launch": (_C, _C),
+        "slot_gather_args_bytes": (),
         "sched_driver_version": (_C,),
         "sched_program_build": (_C, _I, _C, _I, _C),
         "sched_program_launch": (_C, _C),
@@ -88,6 +90,14 @@ _SIGNATURES = {
     "epilogue": {
         "tick_epilogue_launch": (_C, ctypes.c_longlong, ctypes.c_uint, _C),
         "tick_epilogue_args_bytes": (),
+    },
+    "frameprep": {
+        "frame_prep_launch": (_C, _I, _C),
+        "frame_prep_args_bytes": (),
+    },
+    "handoff": {
+        "handoff_launch": (_C, _I, _C),
+        "handoff_args_bytes": (),
     },
     "group": {
         "group_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I,

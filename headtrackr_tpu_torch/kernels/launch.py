@@ -30,8 +30,9 @@ launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
             "hist_mma": 0, "hist_bins": 0, "pdf_bins": 0, "meanshift": 0,
             "pyramid": 0, "cascade": 0, "group": 0, "tick_epilogue": 0,
-            "tick_select": 0,
-            "escape_select": 0, "scan_step": 0, "scan_commit": 0}
+            "frame_prep": 0, "handoff": 0, "tick_select": 0,
+            "escape_select": 0, "scan_step": 0, "scan_commit": 0,
+            "slot_gather": 0}
 host_paths = {"eager_branch": 0, "dispatch": 0, "recompute": 0}
 
 _tally = None  # the open ``capturing`` block's tally

@@ -13,7 +13,11 @@ their plain twins, and the program's CUDA graph.
   scan_commit    the scan's carried state and its stacked outputs: the
                  results of the body that ran (each body keeps its own),
                  by ``segments``' table of that body; in its staging mode
-                 the tick body's results into the escape bodies' buffers
+                 the tick body's results into the escape bodies' buffers;
+                 a bucket body's sub-batch rows merged in by the table's
+                 slot map (:210-223 _scatter_subbatch)
+  slot_gather    :299-320 _apply_bucket's gathers over the state (a[safe])
+                 and its ``valid`` flags, one launch
 
 None replaces a Pallas kernel: the reference leaves these to XLA's control
 flow inside one program.  Dispatch as the other wrappers: a CPU tensor
@@ -31,6 +35,7 @@ rotation at s = m); m + 1 "wbtrack"; m + 2 "full" (overload "full" only).
 """
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,7 +47,8 @@ __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
            "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
            "scratch", "select_floor", "CommitTables", "commit_ctas",
-           "commit_chunks", "check_commit"]
+           "commit_chunks", "check_commit", "Slots", "slot_gather",
+           "slot_gather_plain", "SLOT_LEAVES"]
 
 MODE_VJ, MODE_CS = 1, 2
 # a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
@@ -65,7 +71,8 @@ BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
               "rotate", "esc_at", "eidx", "eb", "frames", "frame_bytes",
               "tables", "segs", "commit_ctas", "few", "many", "sel_scratch",
               "sel_bytes", "esc_scratch", "esc_bytes", "copies",
-              "stage_tables", "stage_segs", "stage_ctas")
+              "stage_tables", "stage_segs", "stage_ctas", "merges", "maps",
+              "stage_merges", "stage_maps")
 # scan_commit's grid (csrc/schedule.cu kCopyThreads): CTAs of COMMIT_THREADS
 # threads, a thread a 16-byte chunk of the table at a time, at most
 # COMMIT_CTAS_PER_SM CTAs an SM (one wave: 2,048 threads an SM)
@@ -74,6 +81,11 @@ COMMIT_CHUNK = 16
 COMMIT_CTAS_PER_SM = 8
 # scan_step's copy modes (csrc/schedule.cu kCopyNone, kCopyRows, kCopyWhole)
 COPY_MODES = ("none", "rows", "whole")
+# a commit entry's merge kinds (csrc/schedule.cu Merge): none, a whole copy
+# whose mapped rows come from the sub rows, the mapped rows alone
+MERGE_NONE, MERGED, MERGE_ROWS = 0, 1, 2
+# slot_gather's leaves a launch (csrc/schedule.cu kMaxLeaves)
+SLOT_LEAVES = 32
 MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
 # cudaGraphNodeType
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -244,18 +256,32 @@ def _pitch(src):
     return src.stride(0) * src.element_size()
 
 
+class Slots(NamedTuple):
+    """A bucket body's slot map: its sub-batch row j lands on stream
+    ``idx[j]`` where ``keep[j]`` (and idx[j] < N: padding is dropped).
+    idx (S,) i64, keep (S,) bool."""
+    idx: torch.Tensor
+    keep: torch.Tensor
+
+
 def check_commit(carry, rows):
-    """Raise unless no source of ``carry`` ((src, dst) pairs) or ``rows``
-    ((src, ...) tuples) overlaps a destination of ``carry`` (a copy must
-    not read what the same copy writes), every destination is contiguous
-    and every source contiguous or a 1-D strided view.  A body's state
-    leaf that is the destination tensor itself (passed through) has no
-    pair."""
-    for _, d in carry:
-        if not d.is_contiguous():
+    """Raise unless no source of ``carry`` ((src, dst[, sub]) entries) or
+    ``rows`` ((src, slot, row[, sub]) entries), sub rows included, overlaps
+    a destination of ``carry`` (a copy must not read what the same copy
+    writes), every destination is contiguous and every source contiguous
+    or a 1-D strided view.  A body's state leaf that is the destination
+    tensor itself (passed through) has no pair, or src None with its sub
+    rows (the leaf's served rows alone)."""
+    for c in carry:
+        if not c[1].is_contiguous():
             raise ValueError("a commit destination must be contiguous")
-    dsts = [_span(d) for _, d in carry]
-    for src in [c[0] for c in carry] + [r[0] for r in rows]:
+    dsts = [_span(c[1]) for c in carry]
+    srcs = [c[0] for c in carry] + [r[0] for r in rows] + \
+        [c[2] for c in carry if len(c) > 2] + [r[3] for r in rows
+                                                if len(r) > 3]
+    for src in srcs:
+        if src is None:
+            continue
         _pitch(src)
         a0, a1 = _span(src)
         for d0, d1 in dsts:
@@ -265,15 +291,120 @@ def check_commit(carry, rows):
                                  "whole may be that state's own tensor)")
 
 
-def scan_commit_plain(k, carry, rows):
+def _merge_rows(dst, sub, slots):
+    """Rows ``slots.idx`` of ``dst`` (N rows) set from ``sub``'s where kept
+    and not padding."""
+    sel = slots.keep & (slots.idx >= 0) & (slots.idx < dst.shape[0])
+    dst[slots.idx[sel]] = sub[sel].to(dst.dtype)
+
+
+def scan_commit_plain(k, carry, rows, slots=None):
     """The scan_commit kernel's twin: each (src, dst) of ``carry`` copied
-    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``; a
-    source that overlaps a destination raises (``check_commit``)."""
+    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``; an
+    entry with sub rows (a fourth or fifth element) then takes the rows
+    ``slots`` (``Slots``) names from them, src None copying nothing else.
+    A source that overlaps a destination raises (``check_commit``)."""
     check_commit(carry, rows)
-    for src, dst in carry:
-        dst.copy_(src)
-    for src, pack, row in rows:
-        pack[row, k].copy_(src)
+    for c in carry:
+        if c[0] is not None:
+            c[1].copy_(c[0])
+        if len(c) > 2:
+            _merge_rows(c[1], c[2], slots)
+    for r in rows:
+        src, pack, row = r[:3]
+        if src is not None:
+            pack[row, k].copy_(src)
+        if len(r) > 3:
+            _merge_rows(pack[row, k], r[3], slots)
+
+
+def slot_gather_plain(state, idx):
+    """The slot_gather kernel's twin: (sub, keep): ``sub`` every leaf's
+    rows min(idx, N - 1) of ``state`` (a NamedTuple tree of (N, ...)
+    tensors, None leaves kept None) and ``keep`` (S,) bool, idx < N and
+    the row's ``mode`` not CS (the reference's ``valid``)."""
+    n = state.mode.shape[0]
+    safe = torch.clamp(idx, max=n - 1)
+
+    def rows(t):
+        if isinstance(t, tuple):
+            return type(t)(*(rows(v) for v in t))
+        return None if t is None else t.index_select(0, safe)
+
+    sub = rows(state)
+    return sub, (idx < n) & (sub.mode != MODE_CS)
+
+
+class _GatherArgs(ctypes.Structure):
+    """csrc/schedule.cu's GatherArgs, field for field."""
+    _fields_ = [("idx", ctypes.c_void_p), ("mode", ctypes.c_void_p),
+                ("keep", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("mode_pitch", ctypes.c_longlong), ("slots", ctypes.c_int),
+                ("leaves", ctypes.c_int),
+                ("src", ctypes.c_void_p * SLOT_LEAVES),
+                ("dst", ctypes.c_void_p * SLOT_LEAVES),
+                ("rb", ctypes.c_longlong * SLOT_LEAVES),
+                ("pitch", ctypes.c_longlong * SLOT_LEAVES)]
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rebuild(v, it) for v in tree))
+    return None if tree is None else next(it)
+
+
+def slot_gather(state, idx):
+    """The bucket's sub-batch in one launch: ``slot_gather_plain``'s
+    contract (state a NamedTuple tree of (N, ...) tensors with a ``mode``
+    (N,) i32 leaf, contiguous or 1-D strided; idx (S,) i64 padded with N).
+    Returns (sub, keep), sub's leaves fresh contiguous (S, ...) tensors."""
+    leaves = _tree_leaves(state)
+    n = state.mode.shape[0]
+    if idx.dtype != torch.int64 or idx.dim() != 1 or \
+            not 1 <= idx.numel() <= 65535:
+        raise ValueError("slot_gather's idx is 1 to 65,535 i64 slots")
+    if any(t.shape[0] != n for t in leaves) or state.mode.dtype != \
+            torch.int32:
+        raise ValueError("slot_gather takes (N, ...) leaves and an i32 mode")
+    if len(leaves) > SLOT_LEAVES:
+        raise ValueError(f"slot_gather takes at most {SLOT_LEAVES} leaves")
+    if not on_cuda(idx, state.mode):
+        return slot_gather_plain(state, idx)
+    s, dev = idx.numel(), idx.device
+    subs = [torch.empty((s,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
+            for t in leaves]
+    keep = torch.empty((s,), dtype=torch.bool, device=dev)
+    a = _GatherArgs(idx.data_ptr(), state.mode.data_ptr(), keep.data_ptr(),
+                    n, state.mode.stride(0), s, len(leaves))
+    for j, (t, d) in enumerate(zip(leaves, subs)):
+        if t.device != dev:
+            raise ValueError("idx and the state lie on different devices")
+        a.src[j], a.dst[j] = t.data_ptr(), d.data_ptr()
+        a.rb[j] = d.nbytes // s
+        a.pitch[j] = _pitch(t) if t.dim() == 1 else 0
+        if t.dim() > 1 and not t.is_contiguous():
+            raise ValueError("slot_gather takes contiguous leaves and 1-D "
+                             "strided views")
+    with torch.cuda.device(dev):
+        _checked_gather_layout()
+        launch("slot_gather", "slot_gather_launch", ctypes.addressof(a))
+    return _rebuild(state, iter(subs)), keep
+
+
+@functools.lru_cache(maxsize=1)
+def _checked_gather_layout():
+    """Raise unless the library's GatherArgs is this module's (once)."""
+    from .build import load_library
+    got = load_library().fn("slot_gather_args_bytes")()
+    if got != ctypes.sizeof(_GatherArgs):
+        raise RuntimeError(f"slot_gather's GatherArgs is {got} bytes, the "
+                           f"wrapper's {ctypes.sizeof(_GatherArgs)}")
 
 
 def _check_select(params, n, cap):
@@ -388,54 +519,107 @@ def scan_step(params, frames, rows=None, skip=0):
 
 
 class CommitTables(NamedTuple):
-    """scan_commit's tables (csrc/schedule.cu Table, Seg), one a body:
-    ``tables`` (T, 4) i64, table t's first entry, its entries and its
-    16-byte chunks; ``segs`` (S, 8) i64, an entry's source, destination (0
-    for a pack row), bytes, pack slot (-1: none), pack row, first chunk in
-    its table, source pitch (0: contiguous; a 1-D strided view's element
-    stride in bytes) and element bytes; ``chunks``: the most chunks a
-    table holds (the grid's size); ``keep``: the tensors the entries
-    address."""
+    """scan_commit's tables (csrc/schedule.cu Table, Seg, Merge, SlotMap),
+    one a body: ``tables`` (T, 4) i64, table t's first entry, its entries
+    and its 16-byte chunks; ``segs`` (S, 8) i64, an entry's source (0 for
+    a rows entry), destination (0 for a pack row), bytes, pack slot (-1:
+    none), pack row, first chunk in its table, source pitch (0:
+    contiguous; a 1-D strided view's element stride in bytes) and element
+    bytes; ``chunks``: the most chunks a table holds (the grid's size);
+    ``keep``: the tensors the entries address; ``merges`` (S, 4) i64, an
+    entry's sub rows, row bytes, sub pitch and merge kind (MERGE_NONE,
+    MERGED, MERGE_ROWS); ``maps`` (T, 4) i64, a table's slot map: idx,
+    keep, slots (0: none) and the leaves' rows N."""
     tables: torch.Tensor
     segs: torch.Tensor
     chunks: int
     keep: tuple
+    merges: torch.Tensor = None
+    maps: torch.Tensor = None
+
+
+def _merge(leaf, sub, slots, kind):
+    """An entry's merge word [sub, row bytes, sub pitch, kind] for the
+    (N, ...) ``leaf`` it lands in, raising unless ``sub`` holds the slots'
+    rows of the leaf's row shape and dtype."""
+    s = slots.idx.numel()
+    if sub.shape[0] != s or sub.shape[1:] != leaf.shape[1:] or \
+            sub.dtype != leaf.dtype:
+        raise ValueError(f"sub rows {tuple(sub.shape)} {sub.dtype} are not "
+                         f"{s} rows of the leaf {tuple(leaf.shape)} "
+                         f"{leaf.dtype}")
+    return [sub.data_ptr(), leaf.nbytes // leaf.shape[0], _pitch(sub), kind]
 
 
 def segments(tables, device):
     """scan_commit's tables (``CommitTables``) on ``device``, one for each
-    (carry, rows) of ``tables``: each (src, dst) of carry copied whole;
-    each (src, slot, row) of rows into row ``row * K + k`` of the output
-    pack at ``params[P_OUT + slot]``, rows of src's bytes (a 1-D strided
-    source gathered into them).  Each table's
-    entries are one run of 16-byte chunks, an entry's bytes rounded up to
-    a whole chunk (the kernel copies a partial or unaligned chunk byte by
-    byte), so that the copy is balanced by bytes.  An empty source is
-    left out; a source that overlaps a carry destination raises
-    (``check_commit``), and so does a carried pair of two sizes."""
-    heads, segs, keep = [], [], []
-    for carry, rows in tables:
+    (carry, rows[, slots]) of ``tables``: each (src, dst) of carry copied
+    whole; each (src, slot, row) of rows into row ``row * K + k`` of the
+    output pack at ``params[P_OUT + slot]``, rows of src's bytes (a 1-D
+    strided source gathered into them).  With ``slots`` (``Slots``, a
+    bucket body's), an entry with a last element ``sub`` (S rows of the
+    leaf's row shape) merges them: rows idx[j] (kept, not padding) come
+    from sub's row j; a carry entry whose src is None writes those rows
+    alone (a leaf the body passed through whole).  Each table's entries
+    are one run of 16-byte chunks, an entry's bytes rounded up to a whole
+    chunk (the kernel copies a partial or unaligned chunk byte by byte), a
+    rows-alone entry's S rows each rounded up, so that the copy is
+    balanced by bytes.  An empty source is left out; a source that
+    overlaps a carry destination raises (``check_commit``), and so does a
+    carried pair of two sizes."""
+    heads, segs, merges, maps, keep = [], [], [], [], []
+    for table in tables:
+        carry, rows = table[:2]
+        slots = table[2] if len(table) > 2 else None
         check_commit(carry, rows)
-        first, chunk = len(segs), 0
-        for src, dst in carry:
-            if src.nbytes != dst.nbytes:
+        first, chunk, n = len(segs), 0, 0
+        entries = [(c[0], c[1], c[1].data_ptr(), -1, 0,
+                    c[2] if len(c) > 2 else None) for c in carry]
+        entries += [(r[0], r[0], 0, r[1], r[2], r[3] if len(r) > 3 else None)
+                    for r in rows]
+        for src, leaf, dst, slot, row, sub in entries:
+            if slot < 0 and src is not None and src.nbytes != leaf.nbytes:
                 raise ValueError("a carried leaf changes its size")
-            keep += [src, dst]
-            if src.nbytes:
-                segs.append([src.data_ptr(), dst.data_ptr(), src.nbytes, -1,
-                             0, chunk, _pitch(src), src.element_size()])
-                chunk += -(-src.nbytes // COMMIT_CHUNK)
-        for src, slot, row in rows:
-            keep.append(src)
-            if src.nbytes:
-                segs.append([src.data_ptr(), 0, src.nbytes, slot, row, chunk,
-                             _pitch(src), src.element_size()])
-                chunk += -(-src.nbytes // COMMIT_CHUNK)
+            keep += [t for t in (src, leaf, sub) if t is not None]
+            m = [0, 0, 0, MERGE_NONE]
+            nbytes = leaf.nbytes if src is None else src.nbytes
+            span = -(-nbytes // COMMIT_CHUNK)
+            if sub is not None:
+                if slots is None:
+                    raise ValueError("sub rows need the table's slots")
+                if n and n != leaf.shape[0]:
+                    raise ValueError("merged leaves of two batch sizes")
+                n = leaf.shape[0]
+                m = _merge(leaf, sub, slots,
+                           MERGED if src is not None else MERGE_ROWS)
+                if src is None:
+                    nbytes = sub.nbytes
+                    span = sub.shape[0] * -(-m[1] // COMMIT_CHUNK)
+            elif src is None:
+                raise ValueError("an entry without a source needs sub rows")
+            if nbytes:
+                ref = src if src is not None else sub
+                segs.append([0 if src is None else src.data_ptr(), dst,
+                             nbytes, slot, row, chunk,
+                             0 if src is None else _pitch(src),
+                             ref.element_size()])
+                merges.append(m)
+                chunk += span
         heads.append([first, len(segs) - first, chunk, 0])
+        maps.append([slots.idx.data_ptr(), slots.keep.data_ptr(),
+                     slots.idx.numel(), n] if slots is not None
+                    else [0, 0, 0, 0])
+        if slots is not None:
+            keep += [slots.idx, slots.keep]
+    merged = any(m[3] != MERGE_NONE for m in merges)
     return CommitTables(
         torch.tensor(heads, dtype=torch.int64, device=device),
         torch.tensor(segs or [[0] * 8], dtype=torch.int64, device=device),
-        max(h[2] for h in heads), tuple(keep))
+        max(h[2] for h in heads), tuple(keep),
+        torch.tensor(merges, dtype=torch.int64, device=device)
+        if merged else None,
+        torch.tensor(maps, dtype=torch.int64, device=device)
+        if merged else None)
 
 
 def commit_ctas(chunks, sms):
@@ -446,17 +630,29 @@ def commit_ctas(chunks, sms):
 
 def commit_chunks(ct, t):
     """The chunks of table t of ``ct`` as the kernel takes them: (entry,
-    byte offset in it, bytes) for chunk 0, 1, ... of the table, in order
-    (a thread's first chunk found by bisection over the entries' first
-    chunks, the next by walking on)."""
+    byte offset, bytes) for chunk 0, 1, ... of the table, in order (a
+    thread's first chunk found by bisection over the entries' first
+    chunks, the next by walking on).  A rows entry's offset is into its
+    sub rows (row j's bytes at j times the row bytes), each row's chunks
+    starting a row."""
     first, count, chunks, _ = ct.tables[t].tolist()
     starts = ct.segs[first:first + count, 5].tolist()
     nbytes = ct.segs[first:first + count, 2].tolist()
+    kinds = ([MERGE_NONE] * count if ct.merges is None else
+             ct.merges[first:first + count].tolist())
     out, e = [], 0
     for c in range(chunks):
         while e + 1 < count and starts[e + 1] <= c:
             e += 1
-        off = (c - starts[e]) * COMMIT_CHUNK
+        local = c - starts[e]
+        if ct.merges is not None and kinds[e][3] == MERGE_ROWS:
+            rb = kinds[e][1]
+            cpr = -(-rb // COMMIT_CHUNK)
+            j, o = divmod(local, cpr)
+            o *= COMMIT_CHUNK
+            out.append((first + e, j * rb + o, min(COMMIT_CHUNK, rb - o)))
+            continue
+        off = local * COMMIT_CHUNK
         out.append((first + e, off, min(COMMIT_CHUNK, nbytes[e] - off)))
     return out
 
@@ -478,7 +674,9 @@ def scan_commit(params, ct, table=0, nb=1, stage=False, ctas=None):
         ctas = commit_ctas(ct.chunks, sm_count(params.device))
     with torch.cuda.device(params.device):
         launch("scan_commit", "scan_commit_launch", params.data_ptr(),
-               ct.tables.data_ptr(), ct.segs.data_ptr(), nb, int(stage),
+               ct.tables.data_ptr(), ct.segs.data_ptr(),
+               0 if ct.merges is None else ct.merges.data_ptr(),
+               0 if ct.maps is None else ct.maps.data_ptr(), nb, int(stage),
                table, ctas)
 
 

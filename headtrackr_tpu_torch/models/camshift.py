@@ -43,10 +43,10 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import epilogue as _epilogue
+from ..kernels import handoff as _handoff
 from ..kernels import meanshift as _ms
 from ..kernels.histpdf import backproject, histpdf_band, pdf_pallas
-from ..ops.histogram import (NBINS, backprojection_weights, histogram_full,
-                             histogram_rects)
+from ..ops.histogram import NBINS, backprojection_weights, histogram_full
 from ..ops.meanshift import MEANSHIFT_ITERS
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
@@ -152,19 +152,13 @@ def init_tracker(frame_rgb, rect, sparse_k=0, audit_band=None):
     already floored by the caller (src/facetrackr.js:101-106).
     ``sparse_k`` is accepted for the reference's signature (sparseHist is
     value-identical here).  audit_band=(bh, bw) also runs the bandHist
-    handoff audit (``handoff_band_audit``'s function, its lookup by
-    ``backproject`` on the frames) and stores ``band_dirty``."""
-    rects = rect.to(_I32).contiguous()
-    n = rects.shape[0]
-    hist = histogram_rects(frame_rgb, rects)
-    z = torch.zeros((n,), dtype=_I32, device=rects.device)
-    return CamshiftState(
-        model_hist=hist, window=rects,
-        track_x=z, track_y=z.clone(), track_w=z.clone(), track_h=z.clone(),
-        track_angle=torch.zeros((n,), dtype=_F32, device=rects.device),
-        band_dirty=(_model_outside_band(
-            backproject(frame_rgb, (hist > 0).to(_F32)), rects, audit_band)
-            if audit_band is not None else None))
+    handoff audit (``handoff_band_audit``'s function) and stores
+    ``band_dirty``.  One launch of the ``handoff`` kernel in its init form
+    (kernels/handoff.py: the histogram, the model-bin mask and the audit's
+    scan outside the band in one pass a stream)."""
+    return CamshiftState(*_handoff.handoff(frame_rgb,
+                                           rect=rect.to(_I32).contiguous(),
+                                           band=audit_band))
 
 
 def _finish(state, win, m, zero_mass, calc_angles, H, W):

@@ -19,13 +19,16 @@ import torch
 from ..config import TrackerConfig
 from ..device import resolve_device
 from ..kernels import epilogue as _epilogue
+from ..kernels.frameprep import frame_prep
+from ..kernels.handoff import handoff
 from ..kernels.launch import host_paths
 from ..ops.epilogue import (DIAG_LENGTH, MODE_CS, MODE_VJ, MODE_WB,
                             STATUS_DETECTING, STATUS_FOUND, STATUS_LOST,
                             STATUS_REDETECTING, STATUS_WHITEBALANCE,
                             epilogue_config)
+from ..ops.handoff import CONFIDENCE_THRESHOLD  # noqa: F401 (the reference's name)
 from ..ops.histogram import check_hist_kernel
-from ..ops.imageproc import grayscale, whitebalance
+from ..ops.imageproc import PWB_LENGTH
 from . import camshift as cs
 from .detector import detect_best, detector_tables
 
@@ -42,9 +45,6 @@ STATUS_BITS = [
     (STATUS_REDETECTING, "redetecting"),
     (STATUS_LOST, "lost"),
 ]
-
-PWB_LENGTH = 15                # src/facetrackr.js:59
-CONFIDENCE_THRESHOLD = -10.0   # src/facetrackr.js:57
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -249,44 +249,43 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
                                  device=device)
     epi = epilogue_config(config, frame_shape)
 
-    def wb_branch(state, frames):
-        wb = whitebalance(frames).to(_F32)
-        # 15-deep stability ring, switch when max - min < 2 (src/facetrackr.js:79-95)
-        ring = torch.cat([wb[:, None], state.wb_ring[:, :-1]], dim=1)
-        n = torch.clamp(state.wb_n + 1, max=PWB_LENGTH)
-        stable = (n == PWB_LENGTH) & (
-            (ring.amax(dim=1) - ring.amin(dim=1)) < 2.0)
-        new_mode = torch.where(stable, MODE_VJ, MODE_WB).to(_I32)
+    def wb_branch(state, frames, wb_vj=False):
+        """The WB branch (src/facetrackr.js:79-95) on the streams that
+        enter in WB: one ``frame_prep`` launch (its whitebalance, the
+        15-deep stability ring, VJ once the ring spans less than 2); the
+        others keep their rows (wb_vj: VJ streams report the whitebalance
+        too)."""
+        _, wb, ring, n, mode = frame_prep(frames, None, state.mode,
+                                          state.wb_ring, state.wb_n,
+                                          gray=False, wb_vj=wb_vj)
         res = _empty_result(frames.shape[0], frames.device)._replace(wb=wb)
-        return state._replace(mode=new_mode, wb_ring=ring, wb_n=n), res, None
+        return state._replace(mode=mode, wb_ring=ring, wb_n=n), res, None
 
-    def vj_branch(state, frames):
-        found, x, y, w, h, conf = detect_best(
-            grayscale(frames), tables, config.detectorInterval,
-            config.minNeighbors)
-        zero = torch.zeros_like(x)
-        conf = torch.where(found, conf, -10000.0)
-        res = _Result(x=torch.where(found, x, zero), y=torch.where(found, y, zero),
-                      w=torch.where(found, w, zero), h=torch.where(found, h, zero),
-                      angle=zero, conf=conf, wb=zero,
-                      escaped=torch.zeros_like(found))
-        # VJ -> CS handoff (src/facetrackr.js:97-108)
-        switch = conf > CONFIDENCE_THRESHOLD
-        rect = torch.floor(torch.stack([res.x, res.y, res.w, res.h], 1)).to(_I32)
-        new_cs = cs.init_tracker(frames, rect, audit_band=audit_band)
-        cs_state = _where(switch, new_cs, state.cs)
-        new_mode = torch.where(switch, MODE_CS, MODE_VJ).to(_I32)
-        return state._replace(mode=new_mode, cs=cs_state), res, None
+    def vj_branch(state, frames, slots=None, prep=None):
+        """The VJ branch and its handoff (src/facetrackr.js:97-108) on the
+        streams that enter in VJ: the detector on ``frame_prep``'s gray
+        plane (``prep``, the WB branch's run of it, when it ran), then one
+        ``handoff`` launch: the result, the switch, the camshift rows of
+        the floored rect (and the audit), the mode.  Every other stream
+        keeps its mode and camshift rows and reports no detection.
+        frames (N, ...) read through ``slots`` (None: every stream)."""
+        if prep is None:
+            prep = frame_prep(frames, slots, state.mode, state.wb_ring,
+                              state.wb_n)
+        det = detect_best(prep[0], tables, config.detectorInterval,
+                          config.minNeighbors)
+        leaves, mode, r = handoff(frames, slots, det=det,
+                                  entry_mode=state.mode, mode=prep[4],
+                                  old=tuple(state.cs), band=audit_band)
+        res = _Result(*r, wb=prep[1], escaped=None)
+        return state._replace(mode=mode, cs=cs.CamshiftState(*leaves)), \
+            res, None
 
-    def vj_frozen(state, frames, wb=None):
+    def vj_frozen(state, frames):
         # wbtrack's VJ streams: the reference's wbtrack reports the
         # whitebalance branch's result with conf 0 and keeps the state
-        # (wb: that branch's whitebalance of these frames, when it ran)
-        res = _empty_result(frames.shape[0], frames.device)
-        if wb is None:
-            wb = whitebalance(frames).to(_F32)
-        return state, res._replace(wb=wb, conf=torch.zeros_like(res.conf)), \
-            None
+        _, res, _ = wb_branch(state, frames, wb_vj=True)
+        return state, res._replace(conf=torch.zeros_like(res.conf)), None
 
     def cs_branch(state, frames):
         """(state', result, full-frame pdf or None off the full frame)."""
@@ -330,31 +329,50 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
             idx = torch.as_tensor(np.nonzero(modes == m)[0], device=frames.device)
             sub_state, sub_res, sub_pdf = branches[m](
                 tree_index(state, idx), frames.index_select(0, idx))
+            if sub_res.escaped is None:  # the VJ branch reports none
+                sub_res = sub_res._replace(escaped=torch.zeros(
+                    idx.shape, dtype=torch.bool, device=frames.device))
             new_state = tree_scatter(new_state, idx, sub_state)
             res = tree_scatter(res, idx, sub_res)
             if with_pdf and sub_pdf is not None:
                 pdf = no_pdf(frames.shape[0]).index_copy(0, idx, sub_pdf)
         return new_state, res, pdf
 
+    def pending(state, frames, slots=None):
+        """The WB and the VJ branch in one: ``frame_prep`` (the gray plane,
+        the WB streams' rows), the detector, ``handoff`` (the VJ streams'
+        rows), each writing only the rows of its own entry mode: (state',
+        result, None), a CS stream's rows meaningless."""
+        prep = frame_prep(frames, slots, state.mode, state.wb_ring,
+                          state.wb_n)
+        state = state._replace(wb_ring=prep[2], wb_n=prep[3])
+        return vj_branch(state, frames, slots, prep)
+
     def selected(state, frames):
         """Every mode's branch on every stream, each stream taking its
-        entry mode's result: (state', result, pdf or None)."""
+        entry mode's result: (state', result, pdf or None).  The WB and
+        VJ branches write only their own streams' rows (``frame_prep``,
+        ``handoff``); the CS streams take the camshift branch's."""
         mode = state.mode
-        is_wb, is_vj = mode == MODE_WB, mode == MODE_VJ
-        wb_state, wb_res, _ = wb_branch(state, frames)
+        is_cs = mode == MODE_CS
         if variant == "wbtrack":
-            vj_state, vj_res, _ = vj_frozen(state, frames, wb_res.wb)
+            new, res, _ = wb_branch(state, frames, wb_vj=True)
+            res = res._replace(conf=torch.where(mode == MODE_VJ, 0.0,
+                                                res.conf))
         else:
-            vj_state, vj_res, _ = vj_branch(state, frames)
+            new, res, _ = pending(state, frames)
+            res = res._replace(escaped=torch.zeros_like(is_cs))
         cs_state, cs_res, pdf = cs_branch(state, frames)
-        state = _where(is_wb, wb_state, _where(is_vj, vj_state, cs_state))
-        res = _where(is_wb, wb_res, _where(is_vj, vj_res, cs_res))
+        new = new._replace(cs=_where(is_cs, cs_state.cs, new.cs))
+        res = _where(is_cs, cs_res, res)
         if pdf is not None:
-            pdf = torch.where((mode == MODE_CS).view(-1, 1, 1), pdf, 0.0)
-        return state, res, pdf
+            pdf = torch.where(is_cs.view(-1, 1, 1), pdf, 0.0)
+        return new, res, pdf
 
-    def step(state, frames, modes=None, *, select=False):
+    def step(state, frames, modes=None, *, select=False, slots=None):
         entry_mode = state.mode
+        if slots is not None and variant != "pending":
+            raise ValueError("slots apply to the 'pending' step")
         if select and variant not in ("full", "wbtrack"):
             raise ValueError(f"select applies to the 'full' and 'wbtrack' "
                              f"steps, not {variant!r}")
@@ -375,12 +393,7 @@ def make_step(cascade, config: TrackerConfig, frame_shape, variant="full",
                                   pdf, 0.0)
         else:
             if variant == "pending":
-                is_wb = (entry_mode == MODE_WB)
-                wb_state, wb_res, _ = wb_branch(state, frames)
-                vj_state, vj_res, _ = vj_branch(state, frames)
-                state = _where(is_wb, wb_state, vj_state)
-                res = _where(is_wb, wb_res, vj_res)
-                pdf = None
+                state, res, pdf = pending(state, frames, slots)
             elif select:
                 state, res, pdf = selected(state, frames)
             else:

@@ -15,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["grayscale", "whitebalance", "resize_bilinear", "build_pyramid",
+__all__ = ["grayscale", "whitebalance", "frame_prep_plain", "slot_rows",
+           "PWB_LENGTH", "resize_bilinear", "build_pyramid",
            "PyramidSpec", "pyramid_spec", "pack_pyramid", "PyramidPlan",
            "pyramid_plan"]
 
@@ -51,6 +52,50 @@ def whitebalance(rgb):
         if flat.shape[0] > step else flat.sum(dim=(1, 2), dtype=dt)
     m = sums.reshape(rgb.shape[:-3] + (3,)).to(torch.float64) / (H * W)
     return ((m[..., 0] + m[..., 1] + m[..., 2]) / 3.0).to(torch.float32)
+
+
+PWB_LENGTH = 15  # the whitebalance stability ring (src/facetrackr.js:59)
+_MODE_WB, _MODE_VJ = 0, 1  # models/facetracker.py MODE_WB, MODE_VJ
+
+
+def slot_rows(frames, slots):
+    """``frames`` (N, ...) read through ``slots`` (S,) i64 padded with N:
+    rows min(slot, N - 1) (the padding reads stream N - 1, whose result the
+    caller drops); ``slots`` None: every row, in order."""
+    if slots is None:
+        return frames
+    return frames.index_select(0, torch.clamp(slots, max=frames.shape[0] - 1))
+
+
+def frame_prep_plain(frames, slots, mode, wb_ring, wb_n, gray=True,
+                     wb_vj=False):
+    """The ``frame_prep`` kernel's twin (kernels/frameprep.py): one pass
+    over each served stream's frame, the grayscale plane and the WB
+    branch of the state machine (src/facetrackr.js:79-95) in one.
+
+    frames (N, H, W, 3) u8 read through ``slots`` (``slot_rows``); mode
+    (S,) i32 the entry modes, wb_ring (S, 15) f32 and wb_n (S,) i32 the
+    rows' state.  Returns (gray (S, H, W) u8 or None when ``gray`` is
+    False, wb (S,) f32, wb_ring', wb_n', mode'): a stream that enters in
+    WB takes the branch's new ring (its whitebalance pushed in front), n
+    and mode (VJ once the full ring spans less than 2); every other stream
+    keeps its rows.  wb is the frame's whitebalance where the stream enters
+    in WB, or in VJ with ``wb_vj`` (the wbtrack step reports it there),
+    else 0.  The whitebalance is ``whitebalance``'s: exact channel sums,
+    f64 means, one f32 rounding."""
+    rows = slot_rows(frames, slots)
+    g = grayscale(rows) if gray else None
+    wb = whitebalance(rows).to(torch.float32)
+    is_wb = mode == _MODE_WB
+    ring = torch.cat([wb[:, None], wb_ring[:, :-1]], dim=1)
+    n = torch.clamp(wb_n + 1, max=PWB_LENGTH)
+    stable = (n == PWB_LENGTH) & ((ring.amax(dim=1) - ring.amin(dim=1)) < 2.0)
+    new_mode = torch.where(stable, _MODE_VJ, _MODE_WB).to(torch.int32)
+    report = is_wb | (mode == _MODE_VJ) if wb_vj else is_wb
+    return (g, torch.where(report, wb, 0.0),
+            torch.where(is_wb[:, None], ring, wb_ring),
+            torch.where(is_wb, n, wb_n).to(torch.int32),
+            torch.where(is_wb, new_mode, mode).to(torch.int32))
 
 
 @functools.lru_cache(maxsize=256)

@@ -84,6 +84,8 @@ chunk cap and ``pend_age`` order, no cross-shard read), as the reference's
 shard_map does; the host scheduler keeps the reference's global rule.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -210,6 +212,21 @@ def _merged_config(n_streams, params, kw):
     return merged
 
 
+class _Merge(NamedTuple):
+    """A bucket body's sub-batch, which scan_commit merges into the track
+    pass's results (``_Program._commit_pairs``): the served slots ``idx``
+    (S,) i64 padded with N, ``keep`` (S,) bool (slot_gather's: not
+    padding, not in CS after the track pass), the rows ``sub`` it gathered
+    from the track pass's state, and the "pending" step's ``state`` and
+    ``out`` on them.  A leaf of ``state`` that is ``sub``'s own tensor the
+    step passed through: its rows need no write."""
+    idx: torch.Tensor
+    keep: torch.Tensor
+    sub: ft.TrackerState
+    state: ft.TrackerState
+    out: ft.StepOutput
+
+
 def _host(modes):
     """A mode vector (device tensor or host array) as a host array."""
     return modes.cpu().numpy() if torch.is_tensor(modes) else np.array(modes)
@@ -309,7 +326,7 @@ class _TickGraph:
         self.bufs, self.extra = bufs, extra
         self.copy, self.rows = copy, rows
         self.device = bufs.device
-        self.graph = self.state = self.out = None
+        self.graph = self.state = self.out = self.merge = None
         self.launches = dict.fromkeys(launch.launches, 0)
         self.tick = tick  # called at each run on the CPU
         if self.device.type != "cuda":
@@ -323,7 +340,9 @@ class _TickGraph:
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with launch.capturing() as self.launches, \
                     torch.cuda.graph(self.graph, pool=bufs.pool):
-                self.state, self.out = self.run(bufs.frame_at)
+                res = self.run(bufs.frame_at)
+            self.state, self.out = res[:2]
+            self.merge = res[2] if len(res) > 2 else None
         # not kept on the card: a graph holding its _Steps' bound method
         # makes a reference cycle, which the cyclic collector may free while
         # another graph captures, destroying CUDA objects mid-capture
@@ -365,10 +384,12 @@ class _Program:
     Each body keeps one state and one output set of its own, so a batch
     size holds one a body on top of the shared buffers (the leaves it
     passes through excepted): at 256 streams of 320x240, 4.26 MB a body
-    that changes the 16 KB model histograms (the headline's bucket and
-    full bodies, the escape bodies) and 0.04-0.06 MB one that passes them
-    through (the all-CS and wbtrack bodies); 170 MB and 1.8-2.4 MB at
-    10,240 streams; ~1.2 GB and ~12 MB at 70,000.
+    that changes the 16 KB model histograms of every stream (the full
+    body, the escape bodies) and 0.04-0.06 MB one that passes them
+    through (the all-CS and wbtrack bodies); a bucket body keeps its
+    track pass's results and its sub-batch's rows (0.18 MB at 8 slots);
+    170 MB and 1.8-2.4 MB at 10,240 streams; ~1.2 GB and ~12 MB at
+    70,000.
 
     On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
     IF node a body), launched once for the K ticks, with one host read at
@@ -422,13 +443,13 @@ class _Program:
         with torch.cuda.device(self.device):
             # a table a body: the tick bodies, then few and many
             self._commit = schedule.segments(
-                [self._commit_pairs(b.state, b.out) if b is not None
+                [self._commit_pairs(b.state, b.out, b.merge) if b is not None
                  else ([], []) for b in self.bodies + [self.few, self.many]],
                 self.device)
             stage = esc_at = None
             if band:
                 stage = schedule.segments(
-                    [(self._stage_pairs(b.state, b.out), [])
+                    [self._stage_table(b.state, b.out, b.merge)
                      for b in self.bodies], self.device)
                 esc_at = torch.tensor([b.out.escaped.data_ptr()
                                        for b in self.bodies],
@@ -459,6 +480,10 @@ class _Program:
                 stage_segs=stage.segs.data_ptr() if band else 0,
                 stage_ctas=schedule.commit_ctas(stage.chunks, sms)
                 if band else 0,
+                merges=_addr(self._commit.merges),
+                maps=_addr(self._commit.maps),
+                stage_merges=_addr(stage.merges) if band else 0,
+                stage_maps=_addr(stage.maps) if band else 0,
                 sel_scratch=self._scratch[0].data_ptr(),
                 sel_bytes=self._scratch[0].numel(),
                 esc_scratch=self._scratch[1].data_ptr(),
@@ -473,29 +498,68 @@ class _Program:
         self._mode_host = torch.empty((n,), dtype=torch.int32,
                                       pin_memory=True)
 
-    def _commit_pairs(self, state, out):
+    @staticmethod
+    def _subs(state, out, merge):
+        """The sub rows of each state and output leaf of a body's results:
+        a bucket body's "pending" step's leaves that it changed (None where
+        it passed the gathered rows through) and its outputs; all None
+        without a ``merge``."""
+        if merge is None:
+            return [None] * len(_leaves(state)), [None] * len(out)
+        return ([new if new.data_ptr() != was.data_ptr() else None
+                 for new, was in zip(_leaves(merge.state),
+                                     _leaves(merge.sub))],
+                list(merge.out))
+
+    def _commit_pairs(self, state, out, merge=None):
         """scan_commit's copies of one body's results (state, out), as
         (carry, rows): each state leaf over ``state_in``'s, pend_age from
         tick_select's ``age``, none for a leaf that is ``state_in``'s own
         tensor (passed through: nothing to copy); each output leaf as
-        (leaf, pack slot, pack row)."""
+        (leaf, pack slot, pack row).  A bucket body's ``merge``: each leaf
+        its "pending" step changed also takes its sub rows (the entry's
+        last element; a leaf the track pass passed through, src None: its
+        served rows alone), and the table its slots (a third element,
+        ``schedule.Slots``), as the reference's masked scatter: rows kept
+        and not padding."""
         bufs = self.bufs
+        state_subs, out_subs = self._subs(state, out, merge)
         carry = []
         for i, (src, dst) in enumerate(zip(_leaves(state),
                                            _leaves(bufs.state_in))):
+            sub = None if i == self._age_leaf else state_subs[i]
             src = bufs.age if i == self._age_leaf else src
-            if src.data_ptr() != dst.data_ptr() or src.nbytes != dst.nbytes:
-                carry.append((src, dst))
-        return carry, [(v, slot, row)
-                       for v, (slot, row) in zip(out, self.layout)]
+            passed = src.data_ptr() == dst.data_ptr() and \
+                src.nbytes == dst.nbytes
+            if not passed or sub is not None:
+                carry.append((None if passed else src, dst)
+                             + (() if sub is None else (sub,)))
+        rows = [(v, slot, row) + (() if sv is None else (sv,))
+                for v, sv, (slot, row) in zip(out, out_subs, self.layout)]
+        if merge is None:
+            return carry, rows
+        return carry, rows, schedule.Slots(merge.idx, merge.keep)
 
-    def _stage_pairs(self, state, out):
+    def _stage_pairs(self, state, out, merge=None):
         """scan_commit's staging of a tick body's results (state, out) into
         the escape bodies' ``state_out`` and ``out``, every leaf, as (src,
-        dst) pairs."""
+        dst) pairs; a bucket body's merged (``merge``: (src, dst, sub) for
+        a leaf its "pending" step changed)."""
         bufs = self.bufs
-        return list(zip(_leaves(state), _leaves(bufs.state_out))) + \
-            list(zip(out, bufs.out))
+        state_subs, out_subs = self._subs(state, out, merge)
+        return [(src, dst) + (() if sub is None else (sub,))
+                for src, dst, sub in zip(_leaves(state) + list(out),
+                                         _leaves(bufs.state_out)
+                                         + list(bufs.out),
+                                         state_subs + out_subs)]
+
+    def _stage_table(self, state, out, merge=None):
+        """The staging's table of a tick body (scan_commit's staging
+        mode): its ``_stage_pairs`` and, for a bucket body, its slots."""
+        pairs = self._stage_pairs(state, out, merge)
+        if merge is None:
+            return pairs, []
+        return pairs, [], schedule.Slots(merge.idx, merge.keep)
 
     def launch(self, state, seq, force=0, served=None, squeeze=False):
         """Enqueue len(seq) ticks from ``state`` (copied into ``state_in``
@@ -565,7 +629,8 @@ class _Program:
             bufs.age.copy_(age)
             body = self.bodies[branch]
             self._copy_plain(body, seq[k])
-            state, out = body.run(seq[k])
+            state, out, *merge = body.run(seq[k])
+            merge = merge[0] if merge else None
             runs[branch] += 1
             if self.many is not None:
                 sel, eidx = schedule.escape_select_plain(out.escaped,
@@ -574,14 +639,16 @@ class _Program:
                 if sel:
                     esc = self.few if sel == 1 else self.many
                     schedule.scan_commit_plain(
-                        None, self._stage_pairs(state, out), [])
+                        None, *self._stage_table(state, out, merge))
                     self.stages += 1
                     self._copy_plain(esc, seq[k], body.copy == "whole")
                     state, out = esc.run(seq[k])
+                    merge = None
                 runs[schedule.ESCAPE_RUNS + sel] += 1
-            carry, rows = self._commit_pairs(state, out)
-            schedule.scan_commit_plain(k, carry, [(v, packs[slot], row)
-                                                  for v, slot, row in rows])
+            carry, rows, *slots = self._commit_pairs(state, out, merge)
+            schedule.scan_commit_plain(
+                k, carry, [(r[0], packs[r[1]], r[2]) + tuple(r[3:])
+                           for r in rows], *slots)
         return runs
 
     def wait(self):
@@ -627,6 +694,11 @@ class _Program:
         out = ft.StepOutput(*(rows[slot][row] for slot, row in self.layout))
         state = self.bufs.state_in
         return (state if donate else _clone(state)), out, view
+
+
+def _addr(t):
+    """A tensor's device address, 0 for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _scatter_slots(tree, idx, sub):
@@ -852,23 +924,24 @@ class _Steps:
         """The device scheduler's bucket or chunk tick before the escape
         fallback, with no host read (the graph captures it): "track" on the
         batch, then the reference's ``_apply_bucket`` on the slots ``idx``
-        ((slots,) i64 on the device, padded with N): the "pending" step on
-        the streams min(idx, N - 1), kept where idx < N and the stream is
-        not in CS after the track pass, scattered back (padding dropped).
-        A chunk tick's chunks serve disjoint streams and a stream's result
-        does not depend on its batch, so one step over all its slots equals
-        the reference's chunks in turn.  pend_age passes through (the
-        program commits tick_select's)."""
+        ((slots,) i64 on the device, padded with N): one ``slot_gather``
+        launch takes every state leaf's rows min(idx, N - 1) and the kept
+        flags (idx < N and not in CS after the track pass), and the
+        "pending" step runs on them, reading its frames through the slots.
+        Returns (state', out, ``_Merge``): the track pass's results and
+        the sub-batch's, which scan_commit merges (rows kept and not
+        padding written; no leaf copied whole), so the body itself
+        scatters nothing.  A chunk tick's chunks serve disjoint streams and
+        a stream's result does not depend on its batch, so one step over
+        all its slots equals the reference's chunks in turn.  pend_age
+        passes through (the program commits tick_select's).  Where the
+        track pass escaped a stream, the escape fallback recomputes it from
+        the pre-step state; a served stream enters outside CS, so the track
+        pass freezes it and never reports it escaped."""
         state1, out = self._auto_track(state, frames)
-        n = frames.shape[0]
-        safe = torch.clamp(idx, max=n - 1)
-        sub = ft.tree_index(state1, safe)
-        sub_state, sub_out = self._pending(sub, frames.index_select(0, safe))
-        keep = (idx < n) & (sub.mode != ft.MODE_CS)
-        sub_state = ft.tree_where(keep, sub_state, sub)
-        sub_out = ft.tree_where(keep, sub_out, ft.tree_index(out, safe))
-        return (_scatter_slots(state1, idx, sub_state),
-                _scatter_slots(out, idx, sub_out))
+        sub, keep = schedule.slot_gather(state1, idx)
+        new, new_out = self._pending(sub, frames, slots=idx)
+        return state1, out, _Merge(idx, keep, sub, new, new_out)
 
     def _escape_few(self, state, frames, eidx):
         """The escape fallback's ``few`` body: the full-frame "track" step

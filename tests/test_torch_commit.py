@@ -180,3 +180,120 @@ def test_chunk_map_copies_what_the_twin_copies(n):
         for (_, slot, row), (_, want, r) in zip(rows, prows):
             dt = want.dtype
             assert torch.equal(packs[dt][row, k], want[r, k]), (t, dt, row)
+
+
+def _emulate_merged(params, ct, t):
+    """scan_commit's kernel on table t of ``ct`` with its slot map (CPU
+    addresses), byte by byte in the kernel's logic: a merged entry's byte
+    of a row the map names from that row's sub row, any other from its
+    source; a rows entry's chunks over its sub rows, each landing on its
+    slot's row where kept and not padding."""
+    k, K = int(params[S.P_K]) - 1, int(params[S.P_TICKS])
+    idx_p, keep_p, nslots, n = ct.maps[t].tolist()
+    idx = (ctypes.c_int64 * nslots).from_address(idx_p)
+    keep = (ctypes.c_uint8 * nslots).from_address(keep_p)
+    rows = {j: idx[j] for j in range(nslots)
+            if keep[j] and 0 <= idx[j] < n}
+    slot_of = {r: j for j, r in rows.items()}
+    byte = lambda a: ctypes.c_uint8.from_address(a)  # noqa: E731
+    for e, off, nbytes in S.commit_chunks(ct, t):
+        src, dst, size, slot, row, _, pitch, elem = ct.segs[e].tolist()
+        sub, rb, sub_pitch, kind = ct.merges[e].tolist()
+        if kind == S.MERGE_ROWS:
+            j, o = divmod(off, rb)
+            if j not in rows:
+                continue
+            base = dst if slot < 0 else \
+                int(params[S.P_OUT + slot]) + (row * K + k) * n * rb
+            from_ = sub + (j * sub_pitch if sub_pitch else j * rb)
+            ctypes.memmove(base + rows[j] * rb + o, from_ + o, nbytes)
+            continue
+        if slot >= 0:
+            dst = int(params[S.P_OUT + slot]) + (row * K + k) * size
+        for i in range(off, off + nbytes):
+            j = slot_of.get(i // rb) if kind == S.MERGED else None
+            if j is not None:
+                at = sub + (j * sub_pitch if sub_pitch else j * rb) + i % rb
+            else:
+                at = src + (i // elem * pitch + i % elem if pitch else i)
+            byte(dst + i).value = byte(at).value
+
+
+@pytest.mark.parametrize("n", [9, 40])
+def test_merged_entries_copy_what_the_twin_copies(n):
+    """A bucket body's table: its slot map (8 slots, a dropped slot and
+    padding with N), merged entries (a whole copy whose served rows come
+    from the sub rows) of (n,), (n, 4) i32, (n, 15) f32 and (n,) bool
+    leaves, rows-alone entries (the leaf passed through: only its served
+    rows written) of an (n, 4096) f32 and an (n,) i32 leaf, merged output
+    rows of every dtype, a strided source and a strided sub among them;
+    beside a table without a map.  The chunk map covers each entry once
+    (a rows entry's chunks its S sub rows', row by row), and the kernel's
+    byte logic, emulated, equals scan_commit_plain's merge: the kept rows
+    from the sub rows, the rest from the source (or untouched)."""
+    rng = np.random.default_rng(n)
+
+    def leaf(shape, dtype):
+        if dtype == torch.bool:
+            return torch.from_numpy(rng.random(shape) < 0.5)
+        return torch.from_numpy(rng.integers(-99, 99, shape)).to(dtype)
+
+    s = 8
+    idx = torch.tensor([3, 0, n - 1, 5, 7, n, n, n], dtype=torch.int64)
+    keep = torch.tensor([True, True, True, False, True, False, True, False])
+    slots = S.Slots(idx, keep)
+    merged = [((n,), torch.float32), ((n, 4), torch.int32),
+              ((n, 15), torch.float32), ((n,), torch.bool)]
+    alone = [((n, 4096), torch.float32), ((n,), torch.int32)]
+    out_dtypes = [torch.float32, torch.bool, torch.int32, torch.float32]
+    K, k = 2, 1
+    packs = {dt: torch.zeros((sum(d == dt for d in out_dtypes), K, n),
+                             dtype=dt) for dt in (torch.float32, torch.bool,
+                                                  torch.int32)}
+    pslot = {dt: j for j, dt in enumerate(packs)}
+    rows_of = [sum(d == dt for d in out_dtypes[:i])
+               for i, dt in enumerate(out_dtypes)]
+    carry = [(leaf(sh, dt), leaf(sh, dt), leaf((s,) + sh[1:], dt))
+             for sh, dt in merged]
+    carry[0] = (leaf((n, 3), torch.float32)[:, 1],) + carry[0][1:]
+    carry += [(None, leaf(sh, dt), leaf((s,) + sh[1:], dt))
+              for sh, dt in alone]
+    outs = [leaf((n,), d) for d in out_dtypes]
+    subs = [leaf((s,), d) for d in out_dtypes]
+    subs[3] = leaf((s, 3), torch.float32)[:, 2]  # a strided sub
+    rows = [(v, pslot[d], r, sv) for v, d, r, sv in zip(outs, out_dtypes,
+                                                        rows_of, subs)]
+    plain_carry = [(c[0], c[1].clone(), c[2]) for c in carry]
+    plain_packs = {dt: p.clone() for dt, p in packs.items()}
+    other = ([(leaf((n,), torch.int32), torch.zeros(n, dtype=torch.int32))],
+             [])
+    ct = S.segments([other, (carry, rows, slots)], "cpu")
+    first, count, chunks, _ = ct.tables[1].tolist()
+    assert ct.maps[0].tolist() == [0, 0, 0, 0]
+    assert ct.maps[1].tolist()[2:] == [s, n]
+    kinds = ct.merges[first:first + count, 3].tolist()
+    assert kinds.count(S.MERGE_ROWS) == 2 and kinds.count(S.MERGED) == 8
+    # a rows entry moves its S rows, not the leaf
+    assert int(ct.segs[first + 4, 2]) == s * 4096 * 4
+    seen = {}
+    for e, off, nbytes in S.commit_chunks(ct, 1):
+        assert off == seen.get(e, 0) and 0 < nbytes <= 16
+        seen[e] = off + nbytes
+    assert [seen[e] for e in sorted(seen)] == \
+        ct.segs[first:first + count, 2].tolist()
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    params[S.P_K], params[S.P_TICKS] = k + 1, K
+    for dt, j in pslot.items():
+        params[S.P_OUT + j] = packs[dt].data_ptr()
+    _emulate_merged(params, ct, 1)
+    S.scan_commit_plain(k, plain_carry,
+                        [(v, plain_packs[d], r, sv) for v, d, r, sv in
+                         zip(outs, out_dtypes, rows_of, subs)], slots)
+    for i, (c, w) in enumerate(zip(carry, plain_carry)):
+        assert torch.equal(c[1], w[1]), i
+    for dt in packs:
+        assert torch.equal(packs[dt][:, k], plain_packs[dt][:, k]), dt
+    # the kept rows took their sub rows; the dropped slot's row did not
+    dst, sub = plain_carry[4][1], plain_carry[4][2]
+    assert torch.equal(dst[3], sub[0]) and torch.equal(dst[n - 1], sub[2])
+    assert not torch.equal(dst[5], sub[3])

@@ -1875,6 +1875,46 @@ def test_every_program_body_runs_the_epilogue(dev):
     assert bodies["0"]["nodes"] <= 30, bodies["0"]
 
 
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_bucket_kernels_bit_equal_to_twins(dev, n):
+    """frame_prep (K9), handoff (K7, both forms, the audit on and off) and
+    slot_gather (S5) against their twins run on the card
+    (tools/torch_bucket_cases.py check), bit-equal, one launch a call,
+    over every stream and through slots padded with N."""
+    res = _tool("torch_bucket_cases").check(n, dev)
+    assert res["launches"] == {"frame_prep": 4, "handoff": 4,
+                               "slot_gather": 1}, res
+    if n >= 256:  # every branch taken
+        assert all(res[k] for k in ("stable", "switched", "dirty", "clean",
+                                    "kept")), res
+
+
+def test_bucket_body_runs_its_kernels_and_commits_rows(dev):
+    """The headline's bucket body (256 streams of 320x240, bucket 8)
+    launches slot_gather, frame_prep and handoff once a run (and
+    tick_epilogue twice: its track pass's and its "pending" step's) and no
+    PyTorch op over the whole state: at most 70 graph nodes; its commit
+    table moves under 0.25 MB (the track pass's changed leaves and the 8
+    served rows), the model histograms by their served rows alone."""
+    from chip_smoke import node_kinds
+    from headtrackr_tpu_torch.kernels import schedule as S
+    bt = BatchedTracker(256, (240, 320), cascade=toy_cascade(), device=dev,
+                        band=(96, 128), bandHist=True, bucket=8)
+    bt.warmup(scan_len=2)
+    prog = bt._steps.program(bt.state)
+    body = prog.bodies[1]
+    assert body.merge is not None
+    for k, runs in (("slot_gather", 1), ("frame_prep", 1), ("handoff", 1),
+                    ("tick_epilogue", 2)):
+        assert body.launches[k] == runs, (k, body.launches)
+    assert len(node_kinds(body.graph)) <= 70
+    first, count = prog._commit.tables[1, :2].tolist()
+    moved = int(prog._commit.segs[first:first + count, 2].sum())
+    assert moved < 250_000, moved
+    kinds = prog._commit.merges[first:first + count, 3].tolist()
+    assert S.MERGE_ROWS in kinds and S.MERGED in kinds
+
+
 def _tool(name):
     """tools/<name>.py (a script, loaded by path)."""
     import importlib.util

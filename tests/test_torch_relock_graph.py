@@ -8,8 +8,10 @@ card) run on the CPU without capture:
   losses and relocks (bucket ticks of one pending stream, chunk ticks of
   several), with and without a band (escapes every band tick), and on a
   mesh of two CPU shards;
-- one ``bucket_device`` call equals the eager ``bucket_tick``, with a
-  stream in CS among the slots (dropped) and padding slots;
+- one ``bucket_device`` call, its sub-batch merged into the track pass's
+  results as scan_commit merges it (the twin, ``scan_commit_plain``, by
+  its slots), equals the eager ``bucket_tick``, with a stream in CS among
+  the slots (dropped) and padding slots;
 - under a ``TorchDispatchMode`` the device form dispatches no op that reads
   the host (``_local_scalar_dense``, ``item``, ``nonzero``, ``equal``,
   ``is_nonzero``, ``masked_select``, ``index`` with a bool mask) outside the
@@ -126,7 +128,10 @@ def test_bucket_device_equals_eager_bucket_tick():
     # lose track in it (the mode vector above is not their state's), and
     # stream 2, named, is served; N pads the slots
     idx = torch.tensor([0, 1, 2, 3, 5, N], dtype=torch.int64)
-    new, out = steps.bucket_device(state, frames, idx)
+    new, out, merge = steps.bucket_device(state, frames, idx)
+    assert merge.keep.tolist() == [False, True, True, True, True, False]
+    new, out = _merged(new, merge.state, merge), _merged(out, merge.out,
+                                                         merge)
     want_state, want_out = steps.bucket_tick(state, frames,
                                              np.array([0, 1, 2, 3, 5]))
     for name, a, b in zip(tft.StepOutput._fields, want_out, out):
@@ -141,6 +146,23 @@ def test_bucket_device_equals_eager_bucket_tick():
     # served streams report the mode they entered the full step in
     assert out.detection.tolist() == [2, 1, 1, 0, 2, 1]
     assert new.mode[0] == tft.MODE_CS and new.mode[4] == tft.MODE_VJ
+
+
+def _merged(tree, sub, merge):
+    """``tree`` (N rows) with the rows ``merge`` keeps taken from ``sub``,
+    as the program's commit merges a bucket body's sub-batch."""
+    from headtrackr_tpu_torch.kernels.schedule import Slots, scan_commit_plain
+    leaves = [t.clone() for t in steps_leaves(tree)]
+    scan_commit_plain(None, [(None, d, s) for d, s in
+                             zip(leaves, steps_leaves(sub))], [],
+                      Slots(merge.idx, merge.keep))
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, tuple):
+            return type(t)(*(rebuild(v) for v in t))
+        return None if t is None else next(it)
+    return rebuild(tree)
 
 
 def test_step_bucket_replayed_equals_eager_and_keeps_pend_age():

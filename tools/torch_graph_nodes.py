@@ -11,8 +11,11 @@ Prints the card's name and power limit, then one JSON line: each graph's
 node kinds counted (kernel, memcpy, memset, ...) in capture order (in a
 checkout with the serving program, its bodies: the all-CS tick, the bucket
 at each slot count, wbtrack, full, the escape fallback's few and many; in
-one without it, the all-CS tick, then the bucket and chunk ticks).
-Needs a CUDA card; node_kinds comes from this checkout's chip_smoke.py.
+one without it, the all-CS tick, then the bucket and chunk ticks); then,
+in a checkout whose program commits by tables, one JSON line of each
+body's commit table (``commit_tables``: bytes and entries, in the
+program's body order).  Needs a CUDA card; node_kinds comes from this
+checkout's chip_smoke.py.
 """
 
 import argparse
@@ -23,6 +26,18 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def commit_tables(bt):
+    """Each body's scan_commit table of ``bt``'s program (warmed up): bytes
+    its entries move and its entry count, in the program's body order (the
+    tick bodies, then few and many); None in a checkout without tables."""
+    prog = bt._steps._programs.get(bt.n)
+    ct = getattr(prog, "_commit", None)
+    if ct is None:
+        return None
+    return [{"bytes": int(ct.segs[f:f + c, 2].sum()) if c else 0,
+             "entries": c} for f, c, _, _ in ct.tables.tolist()]
 
 
 def main(argv=None):
@@ -54,6 +69,7 @@ def main(argv=None):
     print(cs.smi())
     print(json.dumps([dict(collections.Counter(cs.node_kinds(g)))
                       for g in graphs]))
+    print(json.dumps({"commit_tables": commit_tables(bt)}))
     return 0
 
 

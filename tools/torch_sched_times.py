@@ -46,7 +46,8 @@ process lost device events on the card, so one is spent on a throwaway.
 tiled on the card, as chip_smoke.py phase 15 runs it): after a cold start
 of 16 ticks of one batch in run_scan calls of BIG_K ticks, all-tracking
 run_scan calls of BIG_K ticks (the pool's batches before its loss frame),
-host ms and device span a tick, each of REPS calls.
+host ms and device span a tick, each of REPS calls; and the bytes of each
+body's commit table (``commit_tables``, tools/torch_graph_nodes.py).
 
 Prints the card's name and power limit, one line a case, then one JSON
 line.  Needs a CUDA card.
@@ -191,6 +192,15 @@ def writes(bt, reps):
             "bytes": nbytes(results)}
 
 
+def _tool(name):
+    """This checkout's tools/<name>.py (a script, loaded by path)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def big(pool, dev, card, root):
     """The --big case: {"big": {"host_ms_per_tick": [...],
     "span_ms_per_tick": [...], "pending": pending streams over the timed
@@ -209,7 +219,8 @@ def big(pool, dev, card, root):
     steady = pool[[t % LOSS_AT for t in range(BIG_K)]].repeat(
         1, tile, 1, 1, 1)
     bt.run_scan(steady)
-    res = {"host_ms_per_tick": [], "span_ms_per_tick": [], "pending": 0}
+    res = {"host_ms_per_tick": [], "span_ms_per_tick": [], "pending": 0,
+           "commit_tables": _tool("torch_graph_nodes").commit_tables(bt)}
     for _ in range(REPS):
         host, span = host_ms(lambda: bt.run_scan(steady), BIG_K, 1)
         res["host_ms_per_tick"].append(host)
