@@ -13,10 +13,16 @@ Phases, one line each; any failure raises and exits nonzero:
      (face_noise 0 and 20) and uniform random frames, with full-frame
      rects, random detection boxes and 96x128 bands, plus histpdf_band on
      the TPU experiments' own workload (the full frame, random bins, a model
-     of integers 1..199), and backproject_rect also on band x origins on and
-     off the 8-pixel grid, odd band widths and a band equal to the frame
-     (and timed on both: origins from -20 up, and on the grid as the
-     serving path places them), histpdf_band likewise at N=256, 1 and 3;
+     of integers 1..199).  The band kernels (backproject_rect,
+     histpdf_band's pdf mode) take search windows and place each band
+     themselves: they are held against the rects form (the twin at
+     models/camshift.py band_rect's rects) and against their placed twins
+     on the CPU, and backproject_rect also on windows at every clip of the
+     placement (below 0, past the right and bottom edges, negative and odd
+     sizes), windows of the band's size on the 8-pixel grid, odd band
+     widths, a band equal to the frame or as wide as it and a 57x99 frame
+     (and timed on windows from -20 up and on the grid), histpdf_band
+     likewise at N=256, 1 and 3;
      hist4096 and histpdf_band's hist-only mode (one cluster kernel) also
      on bench, uniform random, uniform random-bin and one-bin frames of
      240x320, 241x320, 57x99 and 8x8 at N=256, 1, 2 and 3, with full
@@ -30,8 +36,10 @@ Phases, one line each; any failure raises and exits nonzero:
      twin run on the card and to its twin run on the CPU on the serving
      path's inputs from the bench pools (face boxes as windows, the pdf of
      a tracking batch and of the loss batch through histpdf_band at the
-     96x128 band and at 128x192, at band_rect's origins, and through
-     backproject over the frame; 128 of those frame pdfs upsampled 2x by
+     96x128 band and at 128x192, each band placed from the window walked,
+     and through backproject over the frame (the kernel places the band
+     from the window; its twin on the card takes band_rect's origins, its
+     twin on the CPU places them); 128 of those frame pdfs upsampled 2x by
      nearest neighbour to 480x640, the 640x480 cell's frames), on
      escaping, off-frame and empty windows and at N=1, each through the
      kernel kernels/meanshift.py route picks (logged: one CTA a stream, a
@@ -98,11 +106,16 @@ Phases, one line each; any failure raises and exits nonzero:
      "wbtrack" variants, under the headline's configuration and under
      calcAngles with the "escape" audit action; timed (events, graph
      replay) on batch 1's inputs beside its twin, an empty kernel at its
-     grid and its byte bound (no PyTorch call computes its function).
-     After phase 5, each body of the headline's serving program (all-CS,
-     the bucket at each slot count, wbtrack, full, few, many) must launch
-     tick_epilogue (its tally), with its graph's nodes counted (phase 5's
-     relock profile reports them by body);
+     grid and its byte bound (no PyTorch call computes its function), and
+     on those inputs tiled to 10,240 streams (bit-equal there too; events,
+     graph replay, the empty kernel at that grid).  After phase 5, each
+     body of the headline's serving program (all-CS, the bucket at each
+     slot count, wbtrack, full, few, many) must launch tick_epilogue (its
+     tally), with its graph's nodes counted (phase 5's relock profile
+     reports them by body); the all-CS body must hold at most
+     ALLCS_BODY_NODES graph nodes (histpdf_band, meanshift, tick_epilogue:
+     the band kernels place the band, so no PyTorch operation of it is
+     left);
  3b. bucket: the relock tick's bucket kernels, frame_prep (K9), handoff
      (K7) and slot_gather (S5), bit-equal to their twins run on the card
      (tools/torch_bucket_cases.py at 1, 8 and 256 streams, every branch;
@@ -140,7 +153,9 @@ Phases, one line each; any failure raises and exits nonzero:
      the next batch (a bucket tick), one launch of the serving program and
      the same tick eager on the per-tick path, in turns: host ms, device
      ms, device operations, host launch calls and host reads a relock
-     tick;
+     tick.  The headline's steady step_auto tick must take at most
+     STEADY_OPS device operations (9: no PyTorch operation of the band is
+     left in it);
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
      integer outputs exactly, floats within rtol 1e-5 / atol 1e-4;
@@ -296,6 +311,13 @@ LOCK_TICKS = 16
 LOSS_STREAMS = 4
 LOSS_AT = POOL // 2  # the pool batch where the loss streams turn blue
 PROFILE_TICKS = 8
+# the headline's steady tick now that the band kernels place their bands
+# (PERF.md section 6): step_auto's device operations a tick (the frames'
+# address in, tick_select, histpdf_band, meanshift, tick_epilogue,
+# escape_select, scan_commit, the host read's two copies) and the all-CS
+# body's graph nodes (histpdf_band, meanshift, tick_epilogue; at most 5)
+STEADY_OPS = 9
+ALLCS_BODY_NODES = 5
 BAND = (96, 128)
 RTOL, ATOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -601,6 +623,32 @@ def cluster_rects(n, shape, g, dev):
     return full_rects(n, shape, dev), boxes.to(dev), empty.to(dev)
 
 
+def placed(windows, band, shape):
+    """The band rects (N, 4) i32 that models/camshift.py band_rect places
+    around search windows: the rects form the band kernels took before
+    they placed their bands themselves, which their twins read."""
+    from headtrackr_tpu_torch.models import camshift as cs
+    return cs.band_rects(*cs.band_rect(windows, band, shape))
+
+
+def clip_windows(n, shape, g, dev):
+    """n search windows (N, 4) i32 over an (h, w) frame that hit every clip
+    of the band placement: x or y below 0, past the right or bottom edge,
+    negative and odd sizes (floor_div2), the whole frame and beyond."""
+    import torch
+    sh, sw = shape
+    w = torch.cat([torch.randint(-60, sw + 60, (n, 1), generator=g),
+                   torch.randint(-60, sh + 60, (n, 1), generator=g),
+                   torch.randint(-41, 200, (n, 2), generator=g)], 1)
+    fixed = torch.tensor([[-30, -25, 7, 9], [sw + 9, sh + 11, -3, -5],
+                          [sw - 3, 4, 41, 17], [5, sh - 2, -7, 33],
+                          [-1, -1, -1, -1], [0, 0, sw, sh], [sw, sh, 0, 0],
+                          [-sw, -sh, 2 * sw + 1, 2 * sh + 1]])
+    k = min(n, len(fixed))
+    w[:k] = fixed[:k]
+    return w.to(torch.int32).to(dev)
+
+
 def phase_kernels(pools, dev):
     import torch
     from headtrackr_tpu_torch.kernels import histpdf as K
@@ -634,18 +682,31 @@ def phase_kernels(pools, dev):
             check("histpdf_band_hist", K.histpdf_band(fr, rects),
                   hg.histpdf_band_plain(fr, rects))
         model = K.histpdf_band(fr, boxes)
+        # the band kernels take the windows ``bands`` and place each band;
+        # held against the rects form (the twin at band_rect's rects)
+        rects = placed(bands, BAND, (H, W))
         for w in (hg.backprojection_weights(model, K.hist4096(fr, full)),
                   torch.rand((N, 4096), generator=g).to(dev)):
             check("backproject", K.backproject(fr, w),
                   hg.backproject_plain(fr, w))
             check("backproject_rect", K.backproject(fr, w, bands, BAND),
-                  hg.backproject_plain(fr, w, bands, BAND))
+                  hg.backproject_plain(fr, w, rects, BAND))
         for m in (model, torch.randint(1, 200, (N, 4096), generator=g)
                   .float().to(dev)):
             got = K.histpdf_band(fr, bands, m, BAND)
-            want = hg.histpdf_band_plain(fr, bands, m, BAND)
+            want = hg.histpdf_band_plain(fr, rects, m, BAND)
             for a, b in zip(got, want):
                 check("histpdf_band", a, b)
+    # and against the placed twins, the wrappers' own CPU path (band_rect
+    # on the CPU), on the bench faces
+    fr, cpu = inputs["face_noise=0"], torch.device("cpu")
+    w = torch.rand((N, 4096), generator=g)
+    m = torch.randint(1, 200, (N, 4096), generator=g).float()
+    check("backproject_rect", K.backproject(fr, w.to(dev), bands, BAND).cpu(),
+          K.backproject(fr.to(cpu), w, bands.to(cpu), BAND))
+    for a, b in zip(K.histpdf_band(fr, bands, m.to(dev), BAND),
+                    K.histpdf_band(fr.to(cpu), bands.to(cpu), m, BAND)):
+        check("histpdf_band", a.cpu(), b)
     # the TPU experiments' own workload: every pixel of the frame, random
     # bins, a model of integers 1..199 (tools/kernel_experiments.py:44-46)
     x4_frames = bin_frames(torch.randint(0, 4096, (N, H, W), generator=g)).to(dev)
@@ -654,24 +715,33 @@ def phase_kernels(pools, dev):
     want = hg.histpdf_band_plain(x4_frames, full, x4_model, (H, W))
     for a, b in zip(got, want):
         check("histpdf_band", a, b)
-    # backproject_rect's and histpdf_band's edges: x origins on the 8-pixel
-    # grid (the serving path's 4-pixel loop) and off it, odd band widths,
-    # the whole frame; histpdf_band also at N = 1 and 3
+    # backproject_rect's and histpdf_band's placement at every clip: windows
+    # below 0, past the right and bottom edges, negative and odd sizes;
+    # windows of the band's size on the 8-pixel grid (the serving path's
+    # 4-pixel loop); odd band widths (origins clipped off the grid), the
+    # whole frame, a band as wide as the frame, and a 57x99 frame;
+    # histpdf_band also at N = 1 and 3
     on_grid = bands.clone()
     on_grid[:, 0] = bands[:, 0].clamp(0, W - bw) // 8 * 8
-    off_grid = on_grid.clone()
-    off_grid[:, 0] += torch.arange(N, device=dev, dtype=torch.int32) % 7 + 1
     w = torch.rand((N, 4096), generator=g).to(dev)
     m = torch.randint(0, 200, (N, 4096), generator=g).float().to(dev)
+    wins = {(H, W): clip_windows(N, (H, W), g, dev),
+            (57, 99): clip_windows(N, (57, 99), g, dev)}
     for fr in (inputs["random"], inputs["face_noise=0"], inputs["face_noise=20"]):
-        for rects, band in ((on_grid, BAND), (off_grid, BAND),
-                            (bands, (bh - 1, bw - 1)), (on_grid, (bh, bw + 3)),
-                            (bands, (H, W))):
-            check("backproject_rect", K.backproject(fr, w, rects, band),
-                  hg.backproject_plain(fr, w, rects, band))
+        for shape, windows, band in (
+                ((H, W), wins[H, W], BAND), ((H, W), on_grid, BAND),
+                ((H, W), wins[H, W], (bh - 1, bw - 1)),
+                ((H, W), wins[H, W], (bh, bw + 3)),
+                ((H, W), wins[H, W], (H, W)), ((H, W), wins[H, W], (bh, W)),
+                ((57, 99), wins[57, 99], (40, 64)),
+                ((57, 99), wins[57, 99], (33, 99))):
+            f = fr[:, :shape[0], :shape[1]].contiguous()
+            rects = placed(windows, band, shape)
+            check("backproject_rect", K.backproject(f, w, windows, band),
+                  hg.backproject_plain(f, w, rects, band))
             for n in (N, 1, 3):
-                got = K.histpdf_band(fr[:n], rects[:n], m[:n], band)
-                want = hg.histpdf_band_plain(fr[:n], rects[:n], m[:n], band)
+                got = K.histpdf_band(f[:n], windows[:n], m[:n], band)
+                want = hg.histpdf_band_plain(f[:n], rects[:n], m[:n], band)
                 for a, b in zip(got, want):
                     check("histpdf_band", a, b)
     # the cluster histogram's edges (hist4096 and histpdf_band's hist-only
@@ -705,8 +775,11 @@ def phase_kernels(pools, dev):
             raise AssertionError(f"{name} differs from its plain twin: "
                                  f"max abs err {e}")
     log(f"kernels: bit-equal to their plain twins, backproject_rect and "
-        f"histpdf_band also on origins on and off the 8-pixel grid, odd "
-        f"widths and the whole frame (histpdf_band at N=256, 1 and 3), "
+        f"histpdf_band (each placing its bands from the windows) to the "
+        f"rects form at band_rect's rects and to their CPU twins, also on "
+        f"windows at every clip of the placement, on the 8-pixel grid, odd "
+        f"band widths, the whole frame, a band as wide as the frame and a "
+        f"57x99 frame (histpdf_band at N=256, 1 and 3), "
         f"hist4096 and histpdf_band_hist also on bench, random, random-bin "
         f"and one-bin frames of 240x320, 241x320, 57x99 and 8x8 at N=256, "
         f"1, 2 and 3, full rects, boxes and empty rects, and frames off the "
@@ -717,8 +790,10 @@ def phase_kernels(pools, dev):
     model = K.histpdf_band(fr, boxes)
     w = hg.backprojection_weights(model, K.hist4096(fr, full))
     bins_full = hg.rgb_bins(fr).view(N, -1).long()
-    bins_band = hg.band_bins(fr, bands, BAND).view(N, -1)
-    bins_grid = hg.band_bins(fr, on_grid, BAND).view(N, -1)
+    rects, rects_grid = placed(bands, BAND, (H, W)), placed(on_grid, BAND,
+                                                              (H, W))
+    bins_band = hg.band_bins(fr, rects, BAND).view(N, -1)
+    bins_grid = hg.band_bins(fr, rects_grid, BAND).view(N, -1)
     given_full, given_box = given_bins(fr, full), given_bins(fr, boxes)
     npx_band, npx_full = N * bh * bw, N * H * W
     npx_box = given_box.numel()
@@ -744,17 +819,17 @@ def phase_kernels(pools, dev):
             7 * npx_full + 4 * 4096 * N, 6 * npx_full),
         "backproject_rect": (
             lambda: K.backproject(fr, w, bands, BAND),
-            lambda: hg.backproject_plain(fr, w, bands, BAND),
+            lambda: hg.backproject_plain(fr, w, rects, BAND),
             lambda: torch.gather(w, 1, bins_band),
             7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
         BPR_GRID: (
             lambda: K.backproject(fr, w, on_grid, BAND),
-            lambda: hg.backproject_plain(fr, w, on_grid, BAND),
+            lambda: hg.backproject_plain(fr, w, rects_grid, BAND),
             lambda: torch.gather(w, 1, bins_grid),
             7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
         "histpdf_band": (
             lambda: K.histpdf_band(fr, bands, model, BAND),
-            lambda: hg.histpdf_band_plain(fr, bands, model, BAND),
+            lambda: hg.histpdf_band_plain(fr, rects, model, BAND),
             lambda: torch.gather(w, 1, bins_band),
             7 * npx_band + 16 * N + 8 * 4096 * N, 7 * npx_band + 3 * 4096 * N),
         "histpdf_band_hist": (
@@ -909,11 +984,14 @@ def phase_meanshift(pools, dev):
     its window, its model histogram from the pool's first batch, then the
     pdf of batch 1 (tracking) and of the loss batch (zero mass on the loss
     streams) through histpdf_band at the 96x128 band and at DEFAULT_BAND
-    (128x192), at band_rect's origins, and through backproject over the
-    240x320 frame, and 128 of those frame pdfs upsampled 2x to 480x640
-    (windows doubled); plus windows that escape the band (larger than it,
-    or shifted off its origin), lie partly off the frame, or are empty, and
-    N=1.  Then its times beside its twin's and its bound, and the kernel
+    (128x192), each band placed around the window it is walked from, and
+    through backproject over the 240x320 frame, and 128 of those frame
+    pdfs upsampled 2x to 480x640 (windows doubled); plus windows that
+    escape the band (larger than it), moved, lie partly off the frame, or
+    are empty, and N=1.  The kernel places each band from the window
+    itself: it is held against the twin's origins form on the card (the
+    origins band_rect gives) and against the wrapper's placed twin on the
+    CPU.  Then its times beside its twin's and its bound, and the kernel
     route picked; no PyTorch call computes its function.  Returns (max abs
     err, timing entries)."""
     import torch
@@ -929,10 +1007,9 @@ def phase_meanshift(pools, dev):
     full = hg.full_rects(N, (H, W), dev)
     cases = {}  # name -> (pdf, window, ry, rx) on the card
 
-    def band_pdf(fr, win, model, band):
-        ry, rx, bh, bw = cs.band_rect(win, band, (H, W))
-        _, pdf = K.histpdf_band(fr, cs.band_rects(ry, rx, bh, bw), model,
-                                band)
+    def band_pdf(fr, win, model, band):  # the pdf and its origins
+        ry, rx, _, _ = cs.band_rect(win, band, (H, W))
+        _, pdf = K.histpdf_band(fr, win, model, band)
         return pdf, ry, rx
 
     for k, pool in pools.items():
@@ -947,20 +1024,21 @@ def phase_meanshift(pools, dev):
             w = hg.backprojection_weights(model, K.hist4096(fr, full))
             cases[f"face_noise={k} t={t} frame"] = (K.backproject(fr, w),
                                                    boxes, None, None)
-    pdf, boxes, ry, rx = cases[f"face_noise=0 t=1 {BAND[0]}x{BAND[1]}"]
+    boxes = cases[f"face_noise=0 t=1 {BAND[0]}x{BAND[1]}"][1]
     q = N // 4
+    model = K.histpdf_band(torch.as_tensor(pools[0][0]).to(dev), boxes)
+    fr1 = torch.as_tensor(pools[0][1]).to(dev)
     odd = boxes.clone()
     odd[:q, 2:] = torch.tensor([150, 110], dtype=torch.int32)  # > the band
-    odd[q:2 * q, 0] += 80  # moved off the band's origin
+    odd[q:2 * q, 0] += 80  # moved off the face
     odd[2 * q:3 * q, 2] = 0  # empty
+    pdf, ry, rx = band_pdf(fr1, odd, model, BAND)
     cases["escaping and empty windows"] = (pdf, odd, ry, rx)
     edge = boxes.clone()
     edge[:q, :2] = torch.tensor([-20, -12], dtype=torch.int32)
     edge[q:2 * q, 0] = W - 20
     edge[2 * q:3 * q, 1] = H - 10
-    model = K.histpdf_band(torch.as_tensor(pools[0][0]).to(dev), boxes)
-    pdf, ry, rx = band_pdf(torch.as_tensor(pools[0][1]).to(dev), edge, model,
-                           BAND)
+    pdf, ry, rx = band_pdf(fr1, edge, model, BAND)
     cases["windows partly off the frame"] = (pdf, edge, ry, rx)
     headline, frame = f"face_noise=0 t=1 {BAND[0]}x{BAND[1]}", \
         "face_noise=0 t=1 frame"
@@ -981,14 +1059,15 @@ def phase_meanshift(pools, dev):
     err, escaped, zero = 0.0, 0, 0
     card = kms.card(dev)
     for name, (pdf, win, ry, rx) in cases.items():
-        got = mean_shift(pdf, win, ry, rx, frame_of(pdf, ry))
+        got = mean_shift(pdf, win, frame_of(pdf, ry))
         torch.cuda.synchronize()
         escaped += int(got[3].sum())
         zero += int(got[2].sum())
-        on = lambda v, d: None if v is None else v.to(d)  # noqa: E731
-        for where, d in (("the card", dev), ("the CPU", cpu)):
-            want = om.mean_shift_plain(pdf.to(d), win.to(d), on(ry, d),
-                                       on(rx, d), frame_of(pdf, ry))
+        for where, want in (
+                ("the card, origins form", om.mean_shift_plain(
+                    pdf, win, ry, rx, frame_of(pdf, ry))),
+                ("the CPU, placed", mean_shift(pdf.to(cpu), win.to(cpu),
+                                               frame_of(pdf, ry)))):
             for label, a, b in (("window", got[0], want[0]),
                                 ("zero_mass", got[2], want[2]),
                                 ("escaped", got[3], want[3])):
@@ -1019,16 +1098,16 @@ def phase_meanshift(pools, dev):
         c = kms.route(n, bh, bw, card)
         kernel = {kms.ONE_CTA: "one CTA", kms.SCRATCH: "scratch"}.get(
             c, f"cluster of {c}")
-        # the pdf, windows and origins read once; windows, moments, flags
-        # written once
-        nbytes = (4 * pdf.numel() + 16 * n + (0 if ry is None else 8 * n)
+        # the pdf and windows read once (the kernel places the band from
+        # the window); windows, moments, flags written once
+        nbytes = (4 * pdf.numel() + 16 * n
                   + (16 + 4 * len(om.MOMENTS) + 2) * n)
         b, by = bound(nbytes, meanshift_ops(pdf, win, ry, rx, fs))
-        args = (pdf, win, ry, rx, fs)
-        ms, plain_ms = interleaved_ms(lambda a=args: mean_shift(*a),
-                                      lambda a=args: om.mean_shift_plain(*a))
+        ms, plain_ms = interleaved_ms(
+            lambda: mean_shift(pdf, win, fs),
+            lambda: om.mean_shift_plain(pdf, win, ry, rx, fs))
         t[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                       graph_ms=graph_ms(lambda a=args: mean_shift(*a)),
+                       graph_ms=graph_ms(lambda: mean_shift(pdf, win, fs)),
                        library_ms=None, library_graph_ms=None,
                        shape=list(pdf.shape), kernel=c)
         log(f"kernels: {name} {tuple(pdf.shape)} ({kernel}) {ms:.4f} ms, "
@@ -1699,10 +1778,11 @@ def phase_epilogue(pools, dev, root):
     through the fused form, the finish alone and the supervision of the
     "full" and "wbtrack" variants, kernel and twin, under the headline's
     configuration and under calcAngles with the "escape" audit action.
-    Then the fused form's times on batch 1's inputs: events and graph
-    replay beside its twin, an empty kernel at its grid, its byte bound.
-    No PyTorch call computes its function.  Returns (max abs err, timing
-    entries)."""
+    Then the fused form's times on batch 1's inputs: events (eager
+    wrapper calls) and graph replay beside its twin, an empty kernel at its
+    grid, its byte bound; and the same inputs tiled to SCHED_BIG streams
+    (events, graph, the empty kernel at that grid).  No PyTorch call
+    computes its function.  Returns (max abs err, timing entries)."""
     import torch
     from headtrackr_tpu_torch import TrackerConfig
     from headtrackr_tpu_torch.kernels import epilogue as K
@@ -1818,16 +1898,70 @@ def phase_epilogue(pools, dev, root):
     t = {"tick_epilogue": dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
         graph_ms=graph_ms(kernel),
-        empty_ms=graph_ms(lambda: floor_launch(1)),
+        empty_ms=graph_ms(lambda: epilogue_floor(N_STREAMS)),
         library_ms=None, library_graph_ms=None, bytes=nbytes,
         launches_a_call=launches_of("tick_epilogue", kernel))}
     e = t["tick_epilogue"]
+    # the same inputs tiled to SCHED_BIG streams (the moments and flags
+    # still columns of one block each)
+    big = tile_epilogue_args(args, SCHED_BIG // N_STREAMS)
+    got, want = K.track(*big), P.track_plain(*big)
+    for x, y in zip(flat(got, "track"), flat(want, "track")):
+        if (x is None) != (y is None) or (
+                x is not None and not cases.same_bits(x, y)):
+            raise AssertionError(f"epilogue: tick_epilogue differs from its "
+                                 f"twin at {SCHED_BIG} streams")
+    kernel_big = lambda: K.track(*big)  # noqa: E731
+    e.update(big_streams=SCHED_BIG, big_ms=cuda_ms(kernel_big),
+             big_graph_ms=graph_ms(kernel_big),
+             big_empty_ms=graph_ms(lambda: epilogue_floor(SCHED_BIG)),
+             big_bound_ms=bound(nbytes * (SCHED_BIG // N_STREAMS),
+                                EPILOGUE_OPS * SCHED_BIG)[0])
     log(f"kernels: tick_epilogue (fused track form, N={N_STREAMS}) "
         f"{ms:.4f} ms, graph replay {e['graph_ms']:.4f} ms, an empty kernel "
         f"at its grid {e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, "
         f"bound {b:.6f} ms by {by}, {nbytes} B; no PyTorch call computes "
-        f"its function)")
+        f"its function); N={SCHED_BIG}: {e['big_ms']:.4f} ms, graph replay "
+        f"{e['big_graph_ms']:.4f} ms, an empty kernel at its grid "
+        f"{e['big_empty_ms']:.4f} ms, bound {e['big_bound_ms']:.6f} ms")
     return worst, t
+
+
+def epilogue_floor(n):
+    """An empty kernel at tick_epilogue's grid for n streams, on the
+    current stream."""
+    import torch
+    from headtrackr_tpu_torch.kernels.build import load_library
+    err = load_library().fn("tick_epilogue_floor_launch")(
+        n, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tick_epilogue_floor_launch failed: cudaError "
+                           f"{err}")
+
+
+def tile_epilogue_args(args, k):
+    """tick_epilogue's fused-form arguments (state, win, m, zero_mass,
+    escaped, dirty, ep) with every stream repeated k times: the moments
+    columns of one (N k, 12) block, zero_mass and escaped of one (N k, 2)
+    block, as the mean shift hands them over."""
+    import torch
+    from headtrackr_tpu_torch.ops.meanshift import MOMENTS
+    state, win, m, zm, esc, dirty, ep = args
+
+    def rep(t):
+        return None if t is None else t.repeat(k, *[1] * (t.dim() - 1))
+
+    def tree(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(tree(v) for v in x))
+        return rep(x)
+
+    mom = torch.stack([rep(m[c]) for c in MOMENTS], 1)
+    flags = torch.stack([rep(zm), rep(esc) if esc is not None
+                         else torch.zeros_like(rep(zm))], 1)
+    return (tree(state), rep(win),
+            {c: mom[:, j] for j, c in enumerate(MOMENTS)}, flags[:, 0],
+            None if esc is None else flags[:, 1], rep(dirty), ep)
 
 
 def phase_bucket(pools, dev, root):
@@ -2429,17 +2563,17 @@ def phase_schedule(pool, dev):
     # histpdf_band reading tick k's frames in place (through the word that
     # tick_select sets) against its direct read of them, bit for bit and
     # timed in turns, on the headline's band at the bench pool's faces
-    band_rects = torch.as_tensor(face_boxes(pool[1])).to(dev)
-    model = K.histpdf_band(seq[1], band_rects)
+    boxes = torch.as_tensor(face_boxes(pool[1])).to(dev)
+    model = K.histpdf_band(seq[1], boxes)
     word = p0[S.P_FRAME_AT:S.P_FRAME_AT + 1]
     frames.fill_(255)
 
     def in_place():
         with L.frames_at(frames, word):
-            return K.histpdf_band(frames, band_rects, model, BAND)
+            return K.histpdf_band(frames, boxes, model, BAND)
 
     def direct():
-        return K.histpdf_band(seq[1], band_rects, model, BAND)
+        return K.histpdf_band(seq[1], boxes, model, BAND)
 
     for a, b in zip(in_place(), direct()):
         if not torch.equal(a, b):
@@ -3848,6 +3982,15 @@ def main():
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
     relock = phase_relock(runs["headline"][2], frames)
     bodies = epilogue_bodies(runs["headline"][2])
+    if bodies["0"]["nodes"] > ALLCS_BODY_NODES:
+        raise AssertionError(f"the headline's all-CS body has "
+                             f"{bodies['0']['nodes']} graph nodes, more than "
+                             f"{ALLCS_BODY_NODES}")
+    steady = [r["launches"] for r in prof["headline"]["step_auto"]]
+    if max(steady) > STEADY_OPS:
+        raise AssertionError(f"the headline's steady step_auto tick runs "
+                             f"{steady} device operations, more than "
+                             f"{STEADY_OPS}")
     relock["nodes_by_body"] = {k: v["nodes"] for k, v in bodies.items()}
     log(f"relock [headline]: graph nodes by body {relock['nodes_by_body']}")
     log(f"epilogue: the headline's program bodies, tick_epilogue launches a "

@@ -1,15 +1,15 @@
 // The rect and band rules of the camshift kernels, shared by histpdf.cu
-// (the handoff histogram, the band pdf) and handoff.cu (the handoff's
-// histogram and its band audit), so that every kernel clamps a rect and
-// places a band as the Python side does:
+// (the handoff histogram, the band pdf and the band backprojection),
+// meanshift.cu (the band's origin in the frame) and handoff.cu (the
+// handoff's histogram and its band audit), so that every kernel clamps a
+// rect and places a band as the Python side does:
 //   - clamped_rect: a detection rect [x, y, w, h] clamped to the frame
 //     (ops/histogram.py hist4096_plain's ``_inside``);
 //   - place_band: models/camshift.py band_rect, the one placement rule of
 //     the band (8-aligned starts centred on the clamped window, clipped to
-//     the frame);
-//   - band_rect: a band at a placed origin, the origin clipped into the
-//     frame (ops/histogram.py band_origins: the kernels take origins that
-//     place_band's rule already placed, and clip as the twin does).
+//     the frame).  The band kernels take each stream's search window and
+//     place its band themselves, one placement a CTA, so the host computes
+//     no origin.
 // Header only; each .cu that includes it builds on its own.
 
 #pragma once
@@ -33,16 +33,6 @@ __host__ __device__ __forceinline__ Rect clamped_rect(const int32_t* r, int h,
   x1 = x1 < w ? x1 : w;
   y1 = y1 < h ? y1 : h;
   return {x0, y0, x1 > x0 ? x1 - x0 : 0, y1 > y0 ? y1 - y0 : 0};
-}
-
-// A (bh, bw) band at the rect's origin, the origin clipped so the band lies
-// in the frame (the caller guarantees bh <= h and bw <= w).
-__host__ __device__ __forceinline__ Rect band_rect(const int32_t* r, int h,
-                                                   int w, int bh, int bw) {
-  int64_t x0 = r[0], y0 = r[1];
-  x0 = x0 < 0 ? 0 : (x0 > w - bw ? w - bw : x0);
-  y0 = y0 < 0 ? 0 : (y0 > h - bh ? h - bh : y0);
-  return {x0, y0, bw, bh};
 }
 
 __host__ __device__ __forceinline__ int32_t floor_div2(int32_t v) {

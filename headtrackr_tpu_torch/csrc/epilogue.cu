@@ -23,12 +23,39 @@
 //     (a Python float rounded to f32 by the wrapper).
 //   - Inputs are read where they lie: each (N,) or (N, k) input is a base
 //     and a stride between streams (the mean shift's moments are columns of
-//     one (N, 12) tensor).  Outputs are rows the wrapper allocates, a
-//     pointer each; a leaf the step leaves alone is not written (the
-//     wrapper passes the input tensor through).
-//   - Bound: latency.  A stream reads ~120 B and writes ~160 B; one thread
-//     a stream on the grid's x dimension (any N), 256 threads a CTA.
-//
+//     one (N, 12) tensor, its flags of one (N, 2) tensor).  The outputs are
+//     one block the wrapper allocates, each row at a place fixed by N
+//     (Out); a leaf the step leaves alone is not written (the wrapper
+//     passes the input tensor through).
+//   - Bound: latency.  A stream reads ~120 B and writes ~160 B.
+//   - What held the first design back (one thread a stream, 256 streams a
+//     CTA): at 256 streams the batch was one CTA on one SM, and each thread
+//     loaded ~40 scalars one by one, many of them behind a branch on an
+//     earlier load (the entry mode before the frozen state, diag_n before
+//     the ring), so a thread paid several round trips in a chain.
+//   - Design: kStreams = 32 streams a CTA of kWarps = 8 warps (8 CTAs at
+//     256 streams, 320 at 10,240; the stream stays on grid x, so any N).
+//     The CTA first stages every input row of its streams into shared
+//     memory, every copy issued before any value is used: warp w takes the
+//     inputs q = w, w + 8, ..., each input's rows of the CTA's streams one
+//     segment of 16-byte cp.async copies spread over the lanes (the
+//     (N, 12) moments, (N, 5) sm_sp and (N, 6) ring rows whole, the bool
+//     planes as words), or for an input whose rows lie more than
+//     kMaxPitch bytes apart the 4-byte word holding each element; each
+//     input has a fixed slot, and the warp writes where its rows start
+//     (Meta).  After one barrier the first warp computes a stream a thread
+//     from shared memory; a value only some streams use (the FOV at
+//     activation, the head position, an edge's correction) is computed
+//     only where used.  A copied 16-byte unit always holds a byte of its
+//     input, so no copy leaves the input's pages.
+//   - What the card taught (tools/torch_epilogue_variants.py, PERF.md):
+//     the time went to fetching the kernel's own instructions and
+//     parameters, not to the copies.  With the loop over the inputs
+//     unrolled and a layout computed by the host, the kernel was ~10K
+//     instructions with ~500 constant loads and took longer than the first
+//     design; a compact staging loop (each warp's few turns unrolled, the
+//     parameters a __grid_constant__ block indexed in place) and the fixed
+//     slots brought it to ~2,200.
 // The launch is on the caller's stream, allocates nothing and returns
 // cudaGetLastError() of the launch.
 
@@ -36,6 +63,8 @@
 #include <cstring>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -60,6 +89,25 @@ enum {
   kAlpha, kOffset, kFovRad, kDistance, kRad2Deg, kCamW, kCamH, kSin, kCos,
   kTan, kDiagCm, kPi, kHalfPi, kMargin, kWidthCm, kGrowth, kConsts
 };
+// the inputs (Args::in), in the wrapper's order
+enum {
+  iModeIn,                  // i32, the mode each stream entered the step in
+  iMode,                    // i32, after the branches (supervision form)
+  iRes,                     // f32 x, y, w, h, angle, conf, wb (supervision)
+  iEsc = iRes + 7, iDirty,  // bool
+  iWin,                     // (N, 4) i32, the mean shift's window
+  iMom,                     // f32 mu20, mu02, mu11, invM00
+  iZeroMass = iMom + 4,     // bool
+  iOldWin,                  // (N, 4) i32, the camshift state's (freeze)
+  iOldTrack,                // i32 track_x, track_y, track_w, track_h
+  iOldAngle = iOldTrack + 4,  // f32 track_angle
+  iFirstRun, iFaceFound, iSmInit, iHeadposeActive, iStopped,  // bool
+  iSmSp,                    // (N, 5) f32
+  iDiagRing,                // (N, 6) f32
+  iDiagN,                   // i32
+  iTanFov, iFovWidth, iHeadDiagCam,  // f32
+  kInputs
+};
 // output rows (Args::of, oi, ob)
 enum {
   oTrackAngle, oFaceX, oFaceY, oFaceW, oFaceH, oAngle, oConf, oWb, oSmoothX,
@@ -77,47 +125,169 @@ enum {
 
 constexpr int kModeWb = 0, kModeVj = 1, kModeCs = 2;
 constexpr int kDiagLength = 6;
-constexpr int kThreads = 256;
+// streams a CTA (a thread each, the CTA's first warp), the CTA's warps (all
+// of them stage), and the widest row pitch staged as a segment
+constexpr int kStreams = 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr long long kMaxPitch = 48;
+// a CTA's first stream, kStreams i0, lies a multiple of 16 bytes past an
+// input's base: its staged rows keep the base's offset into 16 bytes
+static_assert(kStreams % 16 == 0, "a CTA's rows start at base mod 16");
 
-// an input: its base and the elements between two streams' rows
+// an input's bytes an element and elements a stream
+__host__ __device__ constexpr int elem_bytes(int q) {
+  return (q == iEsc || q == iDirty || q == iZeroMass ||
+          (q >= iFirstRun && q <= iStopped)) ? 1 : 4;
+}
+__host__ __device__ constexpr int columns(int q) {
+  return q == iWin || q == iOldWin ? 4
+       : q == iSmSp ? 5
+       : q == iDiagRing ? kDiagLength : 1;
+}
+
+// an input: its base (null: not read) and the elements between two
+// streams' rows
 struct Plane {
   const void* p;
   long long s;
 };
 
+// The launch's arguments: the inputs, one output block and the constants.
 struct Args {
-  Plane mode_in;  // i32, the mode each stream entered the step in
-  Plane mode;     // i32, after the branches (supervision form)
-  Plane res[7];   // f32 x, y, w, h, angle, conf, wb (supervision form)
-  Plane esc, dirty;       // bool
-  Plane win;              // (N, 4) i32, the mean shift's window
-  Plane mom[4];           // f32 mu20, mu02, mu11, invM00
-  Plane zero_mass;        // bool
-  Plane old_win;          // (N, 4) i32, the camshift state's (freeze)
-  Plane old_track[4];     // i32 track_x, track_y, track_w, track_h
-  Plane old_angle;        // f32 track_angle
-  Plane first_run, face_found, sm_init, headpose_active, stopped;  // bool
-  Plane sm_sp;            // (N, 5) f32
-  Plane diag_ring;        // (N, 6) f32
-  Plane diag_n;           // i32
-  Plane tan_fov, fov_width, head_diag_cam;  // f32
-  float* of[kF32Rows];
-  int* oi[kI32Rows];
-  unsigned char* ob[kBoolRows];
-  float* sm_sp_out;       // (N, 5)
-  float* ring_out;        // (N, 6)
-  int* win_out;           // (N, 4)
+  Plane in[kInputs];
+  uint8_t* out;
   float k[kConsts];
 };
 
-template <typename T>
-__device__ __forceinline__ T ld(const Plane& a, long long i, int col = 0) {
-  return static_cast<const T*>(a.p)[i * a.s + col];
+// The output block of n streams, every row at a place fixed by n: the f32
+// rows, the i32 rows, sm_sp (N, 5), the ring (N, 6), the window (N, 4),
+// then the bool rows (kernels/epilogue.py views it the same way).
+struct Out {
+  uint8_t* base;
+  long long n;
+  __device__ __forceinline__ float* f32(int r) const {
+    return reinterpret_cast<float*>(base) + r * n;
+  }
+  __device__ __forceinline__ int* i32(int r) const {
+    return reinterpret_cast<int*>(base) + (kF32Rows + r) * n;
+  }
+  __device__ __forceinline__ float* sm_sp() const {
+    return reinterpret_cast<float*>(base) + (kF32Rows + kI32Rows) * n;
+  }
+  __device__ __forceinline__ float* ring() const {
+    return reinterpret_cast<float*>(base) + (kF32Rows + kI32Rows + 5) * n;
+  }
+  __device__ __forceinline__ int* win() const {
+    return reinterpret_cast<int*>(base) + (kF32Rows + kI32Rows + 11) * n;
+  }
+  __device__ __forceinline__ uint8_t* b8(int r) const {
+    return base + (4 * (kF32Rows + kI32Rows + 15) + r) * n;
+  }
+};
+
+// Each input's place in a CTA's shared memory: a fixed slot (kSlot bytes
+// at kSlot q) that holds its kStreams rows whatever their pitch
+constexpr int kSlot = kStreams * kMaxPitch + 32;
+constexpr int kSmem = kInputs * kSlot;
+static_assert(4 * kStreams * kDiagLength <= kSlot, "a word an element fits");
+
+// Where a staged input's rows lie (the staging warp writes it): the CTA's
+// first stream's element at row0 bytes from the dynamic base, each
+// stream's pitch bytes after the one before; a word-an-element input's
+// bools also need the base's and the stride's low two bits (lane, s4).
+struct Meta {
+  int row0, pitch, lane, s4;
+};
+
+// The word holding each element of an input whose rows lie far apart:
+// columns k of e bytes, streams [i0, i0 + m), by a warp's lanes in turn.
+// Out of line: one copy of its code serves every input.
+__device__ __noinline__ void stage_words(const uint8_t* p, long long s,
+                                         int e, int k, uint8_t* dst,
+                                         long long i0, int m, int lane) {
+  for (int t = lane; t < m * k; t += 32) {
+    const int j = t / k, c = t - j * k;
+    const uintptr_t at =
+        reinterpret_cast<uintptr_t>(p) + ((i0 + j) * s + c) * e;
+    sm90::cp_async4(dst + 4 * t,
+                    reinterpret_cast<const void*>(at & ~uintptr_t{3}));
+  }
 }
 
-__device__ __forceinline__ bool ldb(const Plane& a, long long i) {
-  return static_cast<const unsigned char*>(a.p)[i * a.s] != 0;
+// Copy the rows of streams [i0, i0 + m) of every input into its slot in
+// shared memory: warp w copies the inputs q with q % kWarps == w, its
+// lanes a 16-byte unit each in turn (from the unit holding stream i0's row
+// to the one holding the last stream's last element; a word an element
+// where rows lie more than kMaxPitch bytes apart), every copy issued
+// before the first wait, and lane 0 writes the input's Meta.  Each warp
+// reads only its own inputs' parameters (a __grid_constant__ block,
+// indexed in place), the loop over them unrolled (kPerWarp turns) so that
+// their loads issue together, and the code stays small: a CTA fetches each
+// instruction once, and the loop unrolled over all the inputs fetched more
+// code than its copies took time.
+constexpr int kPerWarp = (kInputs + kWarps - 1) / kWarps;
+
+__device__ __forceinline__ void stage(const Args& a, uint8_t* sm, Meta* meta,
+                                      long long i0, int m) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kPerWarp; ++r) {
+    const int q = warp + kWarps * r;
+    if (q >= kInputs) break;
+    const uint8_t* p = static_cast<const uint8_t*>(a.in[q].p);
+    if (p == nullptr) continue;
+    const long long s = a.in[q].s;
+    const int e = elem_bytes(q), k = columns(q);
+    const long long pitch = s * e;
+    uint8_t* slot = sm + q * kSlot;
+    if (pitch < 0 || pitch > kMaxPitch) {
+      stage_words(p, s, e, k, slot, i0, m, lane);
+      if (lane == 0) {
+        meta[q] = {q * kSlot, 4 * k,
+                   static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3),
+                   static_cast<int>(s & 3)};
+      }
+      continue;
+    }
+    // kStreams i0 pitch is a multiple of 16: a CTA's first row keeps the
+    // base's offset into 16 bytes
+    const int head = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+    const uint8_t* src = p - head + i0 * pitch;
+    const int bytes = static_cast<int>(
+        (head + (m - 1) * pitch + k * e + 15) & ~15ll);
+#pragma unroll 1
+    for (int o = 16 * lane; o < bytes; o += 16 * 32) {
+      sm90::cp_async16(slot + o, src + o);
+    }
+    if (lane == 0) meta[q] = {q * kSlot + head, static_cast<int>(pitch), 0, 0};
+  }
+  sm90::cp_async_wait_all();
+  __syncthreads();
 }
+
+// stream i0 + j's staged inputs
+struct Staged {
+  const uint8_t* sm;
+  const Meta* meta;
+  int j;
+
+  __device__ __forceinline__ const uint8_t* at(int q, int c) const {
+    const Meta& t = meta[q];
+    if (elem_bytes(q) == 1) {
+      // a bool (one column): its byte in a segment (lane = s4 = 0), or in
+      // its word (the base's and the stride's low two bits; kStreams i0 s
+      // is a multiple of 4)
+      return sm + t.row0 + j * t.pitch + ((t.lane + j * t.s4) & 3);
+    }
+    return sm + t.row0 + j * t.pitch + 4 * c;
+  }
+  template <typename T>
+  __device__ __forceinline__ T get(int q, int c = 0) const {
+    return *reinterpret_cast<const T*>(at(q, c));
+  }
+  __device__ __forceinline__ bool flag(int q) const { return *at(q, 0) != 0; }
+};
 
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -143,15 +313,15 @@ struct Finished {
 };
 
 // camshift's _finish (src/camshift.js:230-258)
-__device__ __forceinline__ Finished finish(const Args& a, long long i,
+__device__ __forceinline__ Finished finish(const Args& a, const Staged& S,
                                            unsigned flags) {
   Finished f;
-  const float inv = ld<float>(a.mom[3], i);
-  const float am = fmul(ld<float>(a.mom[0], i), inv);
-  const float cm = fmul(ld<float>(a.mom[1], i), inv);
-  const bool zm = ldb(a.zero_mass, i);
+  const float inv = S.get<float>(iMom + 3);
+  const float am = fmul(S.get<float>(iMom + 0), inv);
+  const float cm = fmul(S.get<float>(iMom + 1), inv);
+  const bool zm = S.flag(iZeroMass);
   if (flags & kCalcAngles) {
-    const float b = fmul(ld<float>(a.mom[2], i), inv);
+    const float b = fmul(S.get<float>(iMom + 2), inv);
     const float d = fadd(am, cm);
     const float amc = fsub(am, cm);
     const float e = fsqrt(fadd(fmul(fmul(4.0f, b), b), fmul(amc, amc)));
@@ -166,7 +336,7 @@ __device__ __forceinline__ Finished finish(const Args& a, long long i,
     f.ang = a.k[kHalfPi];
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) f.win[c] = ld<int>(a.win, i, c);
+  for (int c = 0; c < 4; ++c) f.win[c] = S.get<int>(iWin, c);
   const float fw = __int2float_rn(f.win[2]), fh = __int2float_rn(f.win[3]);
   f.tx = floor_clamp(fadd(__int2float_rn(f.win[0]), fmul(fw, 0.5f)),
                      a.k[kCamW]);
@@ -202,33 +372,31 @@ __device__ __forceinline__ void track_head(const Args& a, unsigned flags,
     const float bottom = fsub(camh, fadd(fy, h2));
     const bool on_v = left < m || right < m;
     const bool on_h = top < m || bottom < m;
-    const float sin2 = fmul(fmul(hdc, a.k[kSin]), 0.5f);
-    const float cos2 = fmul(fmul(hdc, a.k[kCos]), 0.5f);
-    // corner: keep previous diagonal (src/headposition.js:111-127)
-    const float c_fx = left < m ? fsub(w, sin2) : fadd(left, sin2);
-    const float c_fy = top < m ? fsub(h, cos2) : fadd(top, cos2);
-    // top/bottom edge (src/headposition.js:130-143)
-    const float t_ow = fdiv(top < m ? top : bottom, m);
-    const float t_ew = fsub(1.0f, t_ow);
-    const float hb_in = fadd(fmul(fmul(t_ow, h), 0.5f),
-                             fmul(t_ew, fmul(fdiv(w, a.k[kTan]), 0.5f)));
-    const float hb_fy = top < m ? fsub(h, hb_in) : fadd(top, hb_in);
-    const float hb_diag = fadd(fmul(t_ew, fdiv(w, a.k[kSin])),
-                               fmul(t_ow, diag));
-    // left/right edge (src/headposition.js:144-156)
-    const float v_ow = fdiv(left < m ? left : right, m);
-    const float v_ew = fsub(1.0f, v_ow);
-    const float v_in = fadd(fmul(fmul(v_ow, w), 0.5f),
-                            fmul(v_ew, fmul(fmul(h, a.k[kTan]), 0.5f)));
-    const float v_fx = left < m ? fsub(w, v_in) : fadd(left, v_in);
-    const float v_diag = fadd(fmul(v_ew, fdiv(h, a.k[kCos])),
-                              fmul(v_ow, diag));
-    const bool corner = on_h && on_v;
-    const float nfx = corner ? c_fx : (on_v ? v_fx : fx);
-    const float nfy = corner ? c_fy : (on_h ? hb_fy : fy);
-    hdc = corner ? hdc : (on_h ? hb_diag : (on_v ? v_diag : diag));
-    fx = nfx;
-    fy = nfy;
+    if (on_h && on_v) {
+      // corner: keep previous diagonal (src/headposition.js:111-127)
+      const float sin2 = fmul(fmul(hdc, a.k[kSin]), 0.5f);
+      const float cos2 = fmul(fmul(hdc, a.k[kCos]), 0.5f);
+      fx = left < m ? fsub(w, sin2) : fadd(left, sin2);
+      fy = top < m ? fsub(h, cos2) : fadd(top, cos2);
+    } else if (on_h) {
+      // top/bottom edge (src/headposition.js:130-143)
+      const float t_ow = fdiv(top < m ? top : bottom, m);
+      const float t_ew = fsub(1.0f, t_ow);
+      const float hb_in = fadd(fmul(fmul(t_ow, h), 0.5f),
+                               fmul(t_ew, fmul(fdiv(w, a.k[kTan]), 0.5f)));
+      fy = top < m ? fsub(h, hb_in) : fadd(top, hb_in);
+      hdc = fadd(fmul(t_ew, fdiv(w, a.k[kSin])), fmul(t_ow, diag));
+    } else if (on_v) {
+      // left/right edge (src/headposition.js:144-156)
+      const float v_ow = fdiv(left < m ? left : right, m);
+      const float v_ew = fsub(1.0f, v_ow);
+      const float v_in = fadd(fmul(fmul(v_ow, w), 0.5f),
+                              fmul(v_ew, fmul(fmul(h, a.k[kTan]), 0.5f)));
+      fx = left < m ? fsub(w, v_in) : fadd(left, v_in);
+      hdc = fadd(fmul(v_ew, fdiv(h, a.k[kCos])), fmul(v_ow, diag));
+    } else {
+      hdc = diag;
+    }
   } else {
     hdc = diag;
   }
@@ -242,26 +410,34 @@ __device__ __forceinline__ void track_head(const Args& a, unsigned flags,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    tick_epilogue(const Args a, long long n, unsigned flags) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
+    tick_epilogue(const __grid_constant__ Args a, long long n,
+                  unsigned flags) {
+  extern __shared__ __align__(16) uint8_t staged[];
+  __shared__ Meta meta[kInputs];
+  const long long i0 = static_cast<long long>(blockIdx.x) * kStreams;
+  const int m = n - i0 < kStreams ? static_cast<int>(n - i0) : kStreams;
+  stage(a, staged, meta, i0, m);  // every load, before any branch on a value
+  if (threadIdx.x >= kStreams) return;  // the first warp computes
+  const Staged S{staged, meta, static_cast<int>(threadIdx.x)};
+  const Out O{a.out, n};
+  const long long i = i0 + threadIdx.x;
   if (i >= n) return;
   // the finish alone reads no mode
   const int entry =
-      (flags & (kFreeze | kSupervise)) ? ld<int>(a.mode_in, i) : kModeCs;
+      (flags & (kFreeze | kSupervise)) ? S.get<int>(iModeIn) : kModeCs;
   const bool is_cs = entry == kModeCs;
   float r[7];  // the result: x, y, w, h, angle, conf, wb
   int mode = entry;
   if (flags & kFinish) {
-    const Finished f = finish(a, i, flags);
+    const Finished f = finish(a, S, flags);
     const bool keep = (flags & kFreeze) && !is_cs;  // a frozen stream
     const int track[4] = {f.tx, f.ty, f.tw, f.th};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      a.win_out[4 * i + c] = keep ? ld<int>(a.old_win, i, c) : f.win[c];
-      a.oi[oTrackX + c][i] = keep ? ld<int>(a.old_track[c], i) : track[c];
+      O.win()[4 * i + c] = keep ? S.get<int>(iOldWin, c) : f.win[c];
+      O.i32(oTrackX + c)[i] = keep ? S.get<int>(iOldTrack + c) : track[c];
     }
-    a.of[oTrackAngle][i] = keep ? ld<float>(a.old_angle, i) : f.ang;
+    O.f32(oTrackAngle)[i] = keep ? S.get<float>(iOldAngle) : f.ang;
     if (!(flags & kSupervise)) return;
 #pragma unroll
     for (int c = 0; c < 4; ++c) r[c] = __int2float_rn(track[c]);
@@ -269,14 +445,14 @@ __global__ void __launch_bounds__(kThreads)
     r[5] = (flags & kFreeze) && !is_cs ? 0.0f : 1.0f;
     r[6] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 7; ++c) a.of[oFaceX + c][i] = r[c];
+    for (int c = 0; c < 7; ++c) O.f32(oFaceX + c)[i] = r[c];
   } else {
 #pragma unroll
-    for (int c = 0; c < 7; ++c) r[c] = ld<float>(a.res[c], i);
-    mode = ld<int>(a.mode, i);
+    for (int c = 0; c < 7; ++c) r[c] = S.get<float>(iRes + c);
+    mode = S.get<int>(iMode);
   }
 
-  const bool first_run = ldb(a.first_run, i);
+  const bool first_run = S.flag(iFirstRun);
   int status = entry == kModeWb ? 1 : 0;
   if (first_run && entry == kModeVj) status |= 2;
   if ((flags & kFreeze) && !is_cs) status = 0;
@@ -294,28 +470,28 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     if (lost) status |= 16;
-    a.ob[oStopped][i] = ldb(a.stopped, i) || lost;
+    O.b8(oStopped)[i] = S.flag(iStopped) || lost;
   }
-  const bool found0 = ldb(a.face_found, i);
-  bool active = ldb(a.headpose_active, i) && !lost;
+  const bool found0 = S.flag(iFaceFound);
+  bool active = S.flag(iHeadposeActive) && !lost;
   // found + smoothing (src/main.js:250-261)
   if (tracking && !found0) status |= 4;
-  a.ob[oFaceFound][i] = (found0 && !lost) || tracking;
+  O.b8(oFaceFound)[i] = (found0 && !lost) || tracking;
 
   const float cur[5] = {r[0], r[1], 0.0f, r[2], r[3]};
   float sm[5];
   if (flags & kSmoothing) {
     const float alpha = a.k[kAlpha];
     const float beta = fsub(1.0f, alpha);
-    const bool init = ldb(a.sm_init, i);
+    const bool init = S.flag(iSmInit);
 #pragma unroll
     for (int c = 0; c < 5; ++c) {
-      const float sp = ld<float>(a.sm_sp, i, c);
+      const float sp = S.get<float>(iSmSp, c);
       const float sp1 = fadd(fmul(alpha, cur[c]), fmul(beta, init ? sp : cur[c]));
-      a.sm_sp_out[5 * i + c] = tracking ? sp1 : sp;
+      O.sm_sp()[5 * i + c] = tracking ? sp1 : sp;
       sm[c] = tracking ? sp1 : cur[c];
     }
-    a.ob[oSmInit][i] = init || tracking;
+    O.b8(oSmInit)[i] = init || tracking;
   } else {
 #pragma unroll
     for (int c = 0; c < 5; ++c) sm[c] = cur[c];
@@ -325,12 +501,12 @@ __global__ void __launch_bounds__(kThreads)
   // head-diagonal stability gate + FOV (src/main.js:263-297)
   const float diag = fsqrt(fadd(fmul(sw, sw), fmul(sh, sh)));
   const bool gate = tracking && !active && (flags & kHeadPosition);
-  const int dn = ld<int>(a.diag_n, i);
+  const int dn = S.get<int>(iDiagN);
   const bool ring_full = dn >= kDiagLength;
   const int slot = dn < kDiagLength - 1 ? (dn < 0 ? 0 : dn) : kDiagLength - 1;
   float ring[kDiagLength], pushed[kDiagLength];
 #pragma unroll
-  for (int c = 0; c < kDiagLength; ++c) ring[c] = ld<float>(a.diag_ring, i, c);
+  for (int c = 0; c < kDiagLength; ++c) ring[c] = S.get<float>(iDiagRing, c);
   bool nan = false;
   float hi = -CUDART_INF_F, lo = CUDART_INF_F;
 #pragma unroll
@@ -340,64 +516,84 @@ __global__ void __launch_bounds__(kThreads)
     nan = nan || isnan(pushed[c]);
     hi = fmaxf(hi, pushed[c]);
     lo = fminf(lo, pushed[c]);
-    a.ring_out[kDiagLength * i + c] = gate ? pushed[c] : ring[c];
+    O.ring()[kDiagLength * i + c] = gate ? pushed[c] : ring[c];
   }
-  a.oi[oDiagN][i] = gate ? (dn + 1 < kDiagLength ? dn + 1 : kDiagLength)
+  O.i32(oDiagN)[i] = gate ? (dn + 1 < kDiagLength ? dn + 1 : kDiagLength)
                          : dn;
   const bool activate = gate && ring_full && !nan && fsub(hi, lo) < 5.0f;
 
-  const float fov_est = (flags & kFov) ? a.k[kFovRad]
-                                       : fov_estimate(a, sw, sh);
+  // each value below is computed only where it is used (a stream that
+  // activates; one whose head is tracked): the same values as the twin's
+  // selects, without the math no lane of the warp needs
   const bool first = activate && first_run;
-  const float fov_width = first ? fov_est : ld<float>(a.fov_width, i);
-  const float tan_fov = first ? fmul(2.0f, tanf(fmul(fov_est, 0.5f)))
-                              : ld<float>(a.tan_fov, i);
-  a.ob[oFirstRun][i] = first_run && !activate;
+  float fov_width = S.get<float>(iFovWidth);
+  float tan_fov = S.get<float>(iTanFov);
+  if (first) {
+    fov_width = (flags & kFov) ? a.k[kFovRad] : fov_estimate(a, sw, sh);
+    tan_fov = fmul(2.0f, tanf(fmul(fov_width, 0.5f)));
+  }
+  O.b8(oFirstRun)[i] = first_run && !activate;
   // the constructor resets head_diag_cam from the activation faceObj
   // (src/headposition.js:66-68)
-  float hdc = activate ? diag : ld<float>(a.head_diag_cam, i);
+  float hdc = activate ? diag : S.get<float>(iHeadDiagCam);
   active = active || activate;
   const bool run_head =
       activate || (tracking && active && (flags & kHeadPosition));
-  float head[4];
-  track_head(a, flags, sx, sy, sw, sh, hdc, tan_fov > 0.0f ? tan_fov : 1.0f,
-             head);
-  hdc = run_head ? head[3] : hdc;
+  float head[4] = {0.0f, 0.0f, 0.0f, hdc};
+  if (run_head) {
+    track_head(a, flags, sx, sy, sw, sh, hdc,
+               tan_fov > 0.0f ? tan_fov : 1.0f, head);
+  }
+  hdc = head[3];
 
-  a.oi[oDetection][i] = entry;
-  a.oi[oStatus][i] = status;
-  a.oi[oModeAfter][i] = mode_after;
-  a.of[oSmoothX][i] = sx;
-  a.of[oSmoothY][i] = sy;
-  a.of[oSmoothW][i] = sw;
-  a.of[oSmoothH][i] = sh;
-  a.of[oHeadX][i] = run_head ? head[0] : 0.0f;
-  a.of[oHeadY][i] = run_head ? head[1] : 0.0f;
-  a.of[oHeadZ][i] = run_head ? head[2] : 0.0f;
-  a.of[oFovDeg][i] = fmul(fov_width, a.k[kRad2Deg]);
-  a.of[oTanFov][i] = tan_fov;
-  a.of[oFovWidth][i] = fov_width;
-  a.of[oHeadDiag][i] = hdc;
-  a.ob[oHeadValid][i] = run_head;
-  a.ob[oEventFace][i] = is_cs && (flags & kSendEvents);
-  a.ob[oEscapedOut][i] = 0;
-  a.ob[oHeadposeActive][i] = active;
+  O.i32(oDetection)[i] = entry;
+  O.i32(oStatus)[i] = status;
+  O.i32(oModeAfter)[i] = mode_after;
+  O.f32(oSmoothX)[i] = sx;
+  O.f32(oSmoothY)[i] = sy;
+  O.f32(oSmoothW)[i] = sw;
+  O.f32(oSmoothH)[i] = sh;
+  O.f32(oHeadX)[i] = run_head ? head[0] : 0.0f;
+  O.f32(oHeadY)[i] = run_head ? head[1] : 0.0f;
+  O.f32(oHeadZ)[i] = run_head ? head[2] : 0.0f;
+  O.f32(oFovDeg)[i] = fmul(fov_width, a.k[kRad2Deg]);
+  O.f32(oTanFov)[i] = tan_fov;
+  O.f32(oFovWidth)[i] = fov_width;
+  O.f32(oHeadDiag)[i] = hdc;
+  O.b8(oHeadValid)[i] = run_head;
+  O.b8(oEventFace)[i] = is_cs && (flags & kSendEvents);
+  O.b8(oEscapedOut)[i] = 0;
+  O.b8(oHeadposeActive)[i] = active;
   if (flags & kEscaped) {
-    const bool esc = ldb(a.esc, i) || ((flags & kDirty) && ldb(a.dirty, i));
-    a.ob[oEsc][i] = esc && is_cs;
+    const bool esc = S.flag(iEsc) || ((flags & kDirty) && S.flag(iDirty));
+    O.b8(oEsc)[i] = esc && is_cs;
   }
 }
+
+// an empty kernel at tick_epilogue's grid (its floor)
+__global__ void __launch_bounds__(kThreads) epilogue_floor() {}
 
 }  // namespace
 
 extern "C" int tick_epilogue_args_bytes() { return sizeof(Args); }
 
+// The empty kernel at the grid tick_epilogue takes for n streams.
+extern "C" int tick_epilogue_floor_launch(long long n, cudaStream_t stream) {
+  const long long blocks = (n + kStreams - 1) / kStreams;
+  epilogue_floor<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int tick_epilogue_launch(const void* args, long long n,
                                     unsigned flags, cudaStream_t stream) {
+  if (n <= 0) return 0;
   Args a;
   std::memcpy(&a, args, sizeof(Args));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  tick_epilogue<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  const cudaError_t e = cudaFuncSetAttribute(
+      tick_epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (n + kStreams - 1) / kStreams;
+  tick_epilogue<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(
       a, n, flags);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,7 +41,9 @@
 //
 // backproject_rect is the same lookup over a per-stream (bh, bw) band (the
 // band pdf of the band-local camshift with full-frame histograms), on the
-// band configuration's steady tick once a tick.
+// band configuration's steady tick once a tick.  It takes each stream's
+// search window and places the band itself (band.cuh place_band, the
+// twin's models/camshift.py band_rect), so the host computes no origin.
 //   - Bound: bytes.  At a 96x128 band: 36 KB of RGB in, 48 KB of pdf out
 //     and the 16 KB weight row per stream; 0.0078 ms at 256 streams.
 //   - Design: a thread-block cluster of kCluster CTAs per stream splits the
@@ -52,7 +54,9 @@
 //     band's rows start 4-byte aligned and its width is a multiple of 4 (the
 //     serving path: the band's x origin is a multiple of 8), a thread takes
 //     4 pixels at a time: three 4-byte loads, four lookups and one 16-byte
-//     store.  Any other origin or width takes the pixel-at-a-time loop.
+//     store (the placement's x origin is a multiple of 8 except where it is
+//     clipped to w - bw).  Any other origin or width takes the
+//     pixel-at-a-time loop.
 //
 // histpdf_band replaces tools/kernel_experiments.py hp_call (k4) and
 // hp7_call (k7), the fused per-stream histogram + min(model/cur, 1) weights +
@@ -66,6 +70,10 @@
 //     blocks on 132 SMs left every load's latency exposed; the band was
 //     read twice (counting, then the pdf), each time with a 64-bit division
 //     a pixel, and one block formed all 4,096 weights.
+//   - Placement: the pdf mode takes each stream's search window; every CTA
+//     places the band from it in its prologue (band.cuh place_band, i32
+//     arithmetic as models/camshift.py band_rect), so the serving tick
+//     runs no operation of the band on the host or as small PyTorch ops.
 //   - Design: the same cluster of C CTAs a stream as hist4096 (C from the
 //     band's size and the streams: 2 at 256 streams, 4 for one stream's
 //     96x128 band).  Each CTA counts its share of the band's rows and keeps
@@ -135,8 +143,8 @@ __device__ __forceinline__ int rgb_bin(const uint8_t* px) {
 
 // The rect and band rules (band.cuh), one copy for every kernel.
 using band::Rect;
-using band::band_rect;
 using band::clamped_rect;
+using band::place_band;
 
 __device__ __forceinline__ const float* stage_table(const float* weights,
                                                     int n, float4* table4) {
@@ -169,13 +177,13 @@ __device__ __forceinline__ int bin_of(uint32_t R, uint32_t G, uint32_t B) {
   return static_cast<int>(((R >> 4) << 8) | ((G >> 4) << 4) | (B >> 4));
 }
 
-// grid (kCluster, N), one cluster a stream: CTA `rank` of stream n looks up
-// its share of the band's rows.  vec: the launcher found the frames 4-byte
+// grid (kCluster, N), one cluster a stream: CTA `rank` of stream n places
+// the band around the stream's window and looks up its share of its rows.  vec: the launcher found the frames 4-byte
 // aligned, w and bw multiples of 4 and out 16-byte aligned.
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 backproject_rect_kernel(const uint8_t* __restrict__ frames,
                         const float* __restrict__ weights,
-                        const int32_t* __restrict__ rects,
+                        const int32_t* __restrict__ windows,
                         float* __restrict__ out, int h, int w, int bh, int bw,
                         bool vec) {
   __shared__ alignas(16) float table[kBins];
@@ -197,7 +205,8 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
             + rank * kSlice,
         kSlice, &bar, static_cast<uint16_t>((1u << kCluster) - 1));
   }
-  const Rect rc = band_rect(rects + 4 * static_cast<int64_t>(n), h, w, bh, bw);
+  const Rect rc =
+      place_band(windows + 4 * static_cast<int64_t>(n), h, w, bh, bw);
   const int x0 = static_cast<int>(rc.x0);
   const int rows = (bh + kCluster - 1) / kCluster;
   const int r0 = static_cast<int>(rank) * rows;
@@ -376,8 +385,10 @@ __device__ __forceinline__ void count_rows(const uint8_t* f, int w,
 }
 
 // grid (C, N), one cluster of C CTAs a stream (C a power of two <= 16).
-// kPdf: histpdf_band's pdf mode (model, band (bh, bw), pdf); otherwise the
-// counts of each rect clamped to the frame (hist4096, hist-only mode).
+// kPdf: histpdf_band's pdf mode (``rects`` the search windows, each CTA
+// placing its stream's (bh, bw) band with place_band; model, pdf);
+// otherwise the counts of each rect clamped to the frame (hist4096,
+// hist-only mode).
 // kStash: the pdf mode keeps its pixels' bins in shared memory.  vec: bw %
 // 4 == 0 and pdf 16-byte aligned.  frame_at: null, or the address of a
 // word holding the frames' address, read in place of ``frames``, whose
@@ -401,7 +412,7 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   const int c = gridDim.x;
   const uint32_t rank = sm90::cluster_rank();
   const int32_t* r = rects + 4 * static_cast<int64_t>(n);
-  const Rect rc = kPdf ? band_rect(r, h, w, bh, bw) : clamped_rect(r, h, w);
+  const Rect rc = kPdf ? place_band(r, h, w, bh, bw) : clamped_rect(r, h, w);
   const Share sh = cta_share(rc, c, static_cast<int>(rank));
   const uint8_t* base =
       frame_at ? reinterpret_cast<const uint8_t*>(*frame_at + frame_off)
@@ -518,11 +529,11 @@ extern "C" int backproject_launch(const void* frames, const void* weights,
 }
 
 // frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
-// rects (n, 4) i32 whose [x, y] place a (bh, bw) band (clipped into the
-// frame; 1 <= bh <= h, 1 <= bw <= w), out (n, bh, bw) f32.  One cluster of
-// kCluster CTAs a stream.
+// windows (n, 4) i32 [x, y, w, h] search windows, each placing its
+// stream's (bh, bw) band (place_band; 1 <= bh <= h, 1 <= bw <= w), out (n,
+// bh, bw) f32.  One cluster of kCluster CTAs a stream.
 extern "C" int backproject_rect_launch(const void* frames, const void* weights,
-                                       const void* rects, void* out, int n,
+                                       const void* windows, void* out, int n,
                                        int h, int w, int bh, int bw,
                                        void* stream) {
   if (n <= 0) return 0;
@@ -537,13 +548,14 @@ extern "C" int backproject_rect_launch(const void* frames, const void* weights,
   backproject_rect_kernel<<<dim3(kCluster, n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
-      static_cast<const int32_t*>(rects), static_cast<float*>(out), h, w, bh,
-      bw, vec);
+      static_cast<const int32_t*>(windows), static_cast<float*>(out), h, w,
+      bh, bw, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames (n, h, w, 3) u8, rects (n, 4) i32 whose [x, y] place a (bh, bw)
-// band clipped into the frame (1 <= bh <= h, 1 <= bw <= w), model (n, 4096)
+// frames (n, h, w, 3) u8, windows (n, 4) i32 [x, y, w, h] search windows,
+// each placing its stream's (bh, bw) band (place_band; 1 <= bh <= h, 1 <=
+// bw <= w), model (n, 4096)
 // f32, cur (n, 4096) f32 (both 16-byte aligned): cur = the band's counts,
 // pdf (n, bh, bw) f32 = min(model / cur, 1)[bin].  One cluster of c CTAs a
 // stream (c a power of two, at most 16).  frame_at: null, or the device
@@ -551,7 +563,7 @@ extern "C" int backproject_rect_launch(const void* frames, const void* weights,
 // runs (then ``frames`` is not read: the kernel reads the word's address
 // plus ``frame_off`` bytes, the first frame of this launch's streams when
 // the wrapper splits a batch).  The hist-only mode is hist4096_launch.
-extern "C" int histpdf_band_launch(const void* frames, const void* rects,
+extern "C" int histpdf_band_launch(const void* frames, const void* windows,
                                    const void* model, void* cur, void* pdf,
                                    int n, int h, int w, int bh, int bw, int c,
                                    const void* frame_at, long long frame_off,
@@ -564,7 +576,7 @@ extern "C" int histpdf_band_launch(const void* frames, const void* rects,
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const uint8_t*>(frames);
-  const auto* r = static_cast<const int32_t*>(rects);
+  const auto* r = static_cast<const int32_t*>(windows);
   const auto* m = static_cast<const float*>(model);
   auto* cu = static_cast<float*>(cur);
   auto* o = static_cast<float*>(pdf);

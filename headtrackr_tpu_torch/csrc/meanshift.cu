@@ -16,6 +16,12 @@
 //     subtract, divide and conversion is an _rn intrinsic: nothing
 //     contracts into a fused multiply-add (F1), and the divisions are IEEE
 //     (F6).
+//   - Placement: a band pdf's origin in the frame comes from the stream's
+//     window, which the walk reads anyway (band.cuh place_band, the twin's
+//     models/camshift.py band_rect, in the walk's prologue), so the host
+//     passes no origin.  A full-frame pdf (bh, bw) = (H, W) places at (0,
+//     0), where no bound can leave the band: the escape test is the band's
+//     alone.
 //   - Bound: bytes, and far from it.  The function reads the pdf once (48 KB
 //     a stream at a 96x128 band, 300 KB over a 240x320 frame) and writes 80
 //     bytes; its adds are a few per pixel.  What paces a stream is latency:
@@ -108,6 +114,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "band.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -248,21 +255,22 @@ __device__ __forceinline__ int js_shift(float v) {  // JS v >> 0 (F3)
 
 // A stream's walk, carried by thread 0 (of every CTA of a cluster, each on
 // the same sums): the window, its previous position, the escape flag and
-// the moments of the last live iteration.  bc[0..3] broadcast the
+// the moments of the last live iteration; (ox, oy) the band's origin,
+// placed from the window (place_band).  bc[0..3] broadcast the
 // iteration's band bounds [x0, y0, x1, y1], bc[4] the stop flag, bc[8..11]
 // the stopping iteration's bounds.
 struct Walk {
   int wx, wy, ww, wh, prevx, prevy, ox, oy, bh, bw, H, W;
-  bool banded, esc;
+  bool esc;
   float hw, hh;  // the window's half width and height
   float m00, m10, m01;
 
-  __device__ Walk(const int32_t* window, const int32_t* ry,
-                  const int32_t* rx, int n, int bh_, int bw_, int H_,
+  __device__ Walk(const int32_t* window, int n, int bh_, int bw_, int H_,
                   int W_) {
-    banded = ry != nullptr;
-    oy = banded ? ry[n] : 0;
-    ox = banded ? rx[n] : 0;
+    const band::Rect o = band::place_band(window + 4 * static_cast<int64_t>(n),
+                                          H_, W_, bh_, bw_);
+    ox = static_cast<int>(o.x0);
+    oy = static_cast<int>(o.y0);
     wx = prevx = window[4 * n + 0];
     wy = prevy = window[4 * n + 1];
     ww = window[4 * n + 2];
@@ -281,7 +289,7 @@ struct Walk {
   __device__ void bounds(int* bc) {
     const int lx = max(wx, 0), ly = max(wy, 0);
     int b[4] = {lx - ox, ly - oy, min(lx + ww, W) - ox, min(ly + wh, H) - oy};
-    if (banded) esc |= b[0] < 0 || b[1] < 0 || b[2] > bw || b[3] > bh;
+    esc |= b[0] < 0 || b[1] < 0 || b[2] > bw || b[3] > bh;
     const int hi[4] = {bw, bh, bw, bh};
 #pragma unroll
     for (int k = 0; k < 4; ++k) bc[k] = min(max(b[k], 0), hi[k]);
@@ -668,8 +676,6 @@ template <bool kShared, bool kTma>
 __global__ void __launch_bounds__(kThreads)
     meanshift_kernel(const float* __restrict__ pdf,
                      const int32_t* __restrict__ window,
-                     const int32_t* __restrict__ ry,
-                     const int32_t* __restrict__ rx,
                      int32_t* __restrict__ out_win,
                      float* __restrict__ out_mom,
                      uint8_t* __restrict__ out_flags, float* scratch, int bh,
@@ -755,7 +761,7 @@ __global__ void __launch_bounds__(kThreads)
   const Planes<kShared> pl{C, R, bh, bw, L.rs};
 
   // ---- the iterations -----------------------------------------------------
-  Walk walk(window, ry, rx, n, bh, bw, H, W);
+  Walk walk(window, n, bh, bw, H, W);
   if (tid == 0) walk.bounds(bc);
   __syncthreads();
   for (int it = 0;; ++it) {
@@ -813,8 +819,6 @@ template <bool kTma>
 __global__ void __launch_bounds__(kThreads)
     meanshift_cluster_kernel(const float* __restrict__ pdf,
                              const int32_t* __restrict__ window,
-                             const int32_t* __restrict__ ry,
-                             const int32_t* __restrict__ rx,
                              int32_t* __restrict__ out_win,
                              float* __restrict__ out_mom,
                              uint8_t* __restrict__ out_flags, int bh, int bw,
@@ -902,7 +906,7 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   // ---- the iterations -----------------------------------------------------
-  Walk walk(window, ry, rx, n, bh, bw, H, W);
+  Walk walk(window, n, bh, bw, H, W);
   if (tid == 0) walk.bounds(bc);
   float* peer_seg = sm90::map_peer(seg, static_cast<uint32_t>(
                                             lane < nc ? lane : 0));
@@ -1026,13 +1030,12 @@ int smem_bytes(int bh, int bw, int c) {
 
 template <bool kShared, bool kTma>
 void launch(int n, int smem, cudaStream_t st, const float* pdf,
-            const int32_t* window, const int32_t* ry, const int32_t* rx,
-            int32_t* win, float* mom, uint8_t* flags, float* scratch, int bh,
-            int bw, int H, int W) {
+            const int32_t* window, int32_t* win, float* mom, uint8_t* flags,
+            float* scratch, int bh, int bw, int H, int W) {
   cudaFuncSetAttribute(meanshift_kernel<kShared, kTma>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   meanshift_kernel<kShared, kTma><<<n, kThreads, smem, st>>>(
-      pdf, window, ry, rx, win, mom, flags, scratch, bh, bw, H, W);
+      pdf, window, win, mom, flags, scratch, bh, bw, H, W);
 }
 
 }  // namespace
@@ -1067,8 +1070,9 @@ extern "C" int meanshift_scratch_floats(int bh, int bw) {
   return fit ? 0 : scratch_floats(bh, bw);
 }
 
-// pdf (n, bh, bw) f32, window (n, 4) i32 [x, y, w, h], ry / rx (n,) i32
-// band origins or both null (a full-frame pdf); out: win (n, 4) i32, mom
+// pdf (n, bh, bw) f32 over the band that place_band places around each
+// window (n, 4) i32 [x, y, w, h] in an (H, W) frame (the frame itself
+// where (bh, bw) = (H, W)); out: win (n, 4) i32, mom
 // (n, 12) f32 [m00, m10, m01, m11, m20, m02, invM00, xc, yc, mu20, mu02,
 // mu11], flags (n, 2) u8 [zero_mass, escaped]; all contiguous.  c picks
 // the kernel: 1 one CTA a stream (its planes must fit a CTA's shared
@@ -1077,12 +1081,11 @@ extern "C" int meanshift_scratch_floats(int bh, int bw) {
 // scratch_floats(bh, bw) f32 (unused by the others).  A kernel that does
 // not fit is refused.
 extern "C" int meanshift_launch(const void* pdf, const void* window,
-                                const void* ry, const void* rx, void* win,
-                                void* mom, void* flags, void* scratch, int n,
-                                int bh, int bw, int H, int W, int c,
-                                void* stream) {
+                                void* win, void* mom, void* flags,
+                                void* scratch, int n, int bh, int bw, int H,
+                                int W, int c, void* stream) {
   if (n <= 0) return 0;
-  if (!side_ok(bh, bw) || !kernel_ok(c) || (ry == nullptr) != (rx == nullptr) ||
+  if (!side_ok(bh, bw) || !kernel_ok(c) || bh > H || bw > W ||
       (c == 0 && scratch == nullptr) || (c > 1 && n > INT_MAX / c) ||
       (c != 0 && smem_bytes(bh, bw, c) > max_smem())) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1090,8 +1093,6 @@ extern "C" int meanshift_launch(const void* pdf, const void* window,
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(pdf);
   const auto* w = static_cast<const int32_t*>(window);
-  const auto* oy = static_cast<const int32_t*>(ry);
-  const auto* ox = static_cast<const int32_t*>(rx);
   auto* wo = static_cast<int32_t*>(win);
   auto* mo = static_cast<float*>(mom);
   auto* fo = static_cast<uint8_t*>(flags);
@@ -1101,18 +1102,15 @@ extern "C" int meanshift_launch(const void* pdf, const void* window,
   if (c > 1) {
     return sm90::launch_cluster(
         tma ? meanshift_cluster_kernel<true> : meanshift_cluster_kernel<false>,
-        dim3(c * n), c, kThreads, smem, st, p, w, oy, ox, wo, mo, fo, bh, bw,
-        H, W, c);
+        dim3(c * n), c, kThreads, smem, st, p, w, wo, mo, fo, bh, bw, H, W,
+        c);
   }
   if (c == 0) {
-    launch<false, false>(n, smem, st, p, w, oy, ox, wo, mo, fo, sc, bh, bw, H,
-                         W);
+    launch<false, false>(n, smem, st, p, w, wo, mo, fo, sc, bh, bw, H, W);
   } else if (tma) {
-    launch<true, true>(n, smem, st, p, w, oy, ox, wo, mo, fo, sc, bh, bw, H,
-                       W);
+    launch<true, true>(n, smem, st, p, w, wo, mo, fo, sc, bh, bw, H, W);
   } else {
-    launch<true, false>(n, smem, st, p, w, oy, ox, wo, mo, fo, sc, bh, bw, H,
-                        W);
+    launch<true, false>(n, smem, st, p, w, wo, mo, fo, sc, bh, bw, H, W);
   }
   return static_cast<int>(cudaGetLastError());
 }

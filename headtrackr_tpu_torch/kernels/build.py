@@ -49,8 +49,8 @@ _SIGNATURES = {
         "pdf_bins_launch": (_C, _C, _C, _I, _I, _I, _C),
     },
     "meanshift": {
-        "meanshift_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
-                             _I, _I, _C),
+        "meanshift_launch": (_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
+                             _C),
         "meanshift_scratch_floats": (_I, _I),
         "meanshift_smem_bytes": (_I, _I, _I),
         "meanshift_smem_limits": (_C,),
@@ -90,6 +90,7 @@ _SIGNATURES = {
     "epilogue": {
         "tick_epilogue_launch": (_C, ctypes.c_longlong, ctypes.c_uint, _C),
         "tick_epilogue_args_bytes": (),
+        "tick_epilogue_floor_launch": (ctypes.c_longlong, _C),
     },
     "frameprep": {
         "frame_prep_launch": (_C, _I, _C),

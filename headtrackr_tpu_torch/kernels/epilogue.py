@@ -14,13 +14,20 @@ tensors launch the kernel, one launch a call for every stream; any other
 device raises, and so does a failed build or launch.  The kernel equals
 the twin run on the card to the bit (NaN-equal).  Inputs are read where
 they lie (a base and a stride between streams, so the mean shift's moment
-columns are read in place); each output is a row of a fresh tensor, and a
+columns are read in place); the outputs are rows of one fresh block (each
+row at a place fixed by the batch size, whichever a form writes), and a
 leaf the step leaves alone is the input tensor itself.
+
+A call's argument block is built once per (form, flags, configuration,
+batch size) and kept (``_call``): a call writes only its inputs' bases and
+strides and its output block's addresses into it, then launches.
 """
 
 import ctypes
 import functools
 import math
+import struct
+import threading
 
 import torch
 
@@ -35,6 +42,17 @@ __all__ = ["finish", "supervise", "track", "F32_ROWS", "I32_ROWS",
 _FINISH, _SUPERVISE, _FREEZE, _WBTRACK = 1, 2, 4, 8
 _CALC_ANGLES, _RETRY, _SMOOTHING, _HEAD_POSITION = 16, 32, 64, 128
 _FOV, _EDGE, _SEND_EVENTS, _ESCAPED, _DIRTY = 256, 512, 1024, 2048, 4096
+# the kernel's inputs (Args::in), in its order: (name, planes)
+_INPUTS = (("mode_in", 1), ("mode", 1), ("res", 7), ("esc", 1),
+           ("dirty", 1), ("win", 1), ("mom", 4), ("zero_mass", 1),
+           ("old_win", 1), ("old_track", 4), ("old_angle", 1),
+           ("first_run", 1), ("face_found", 1), ("sm_init", 1),
+           ("headpose_active", 1), ("stopped", 1), ("sm_sp", 1),
+           ("diag_ring", 1), ("diag_n", 1), ("tan_fov", 1),
+           ("fov_width", 1), ("head_diag_cam", 1))
+_IN, _N_IN = {}, 0  # each group's first plane; the planes in all
+for _name, _k in _INPUTS:
+    _IN[_name], _N_IN = _N_IN, _N_IN + _k
 # the kernel's output rows, in its order
 F32_ROWS = ("track_angle", "face_x", "face_y", "face_w", "face_h",
             "face_angle", "face_conf", "wb", "smooth_x", "smooth_y",
@@ -47,6 +65,7 @@ BOOL_ROWS = ("head_valid", "event_face", "escaped", "esc", "sm_init",
 _CONSTS = ("alpha", "offset", "fov_rad", "distance", "rad2deg", "camw",
            "camh", "sin", "cos", "tan", "diag_cm", "pi", "half_pi",
            "margin", "width_cm", "growth")
+_MOMENTS = ("mu20", "mu02", "mu11", "invM00")
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 
 
@@ -56,22 +75,17 @@ class _Plane(ctypes.Structure):
 
 class _Args(ctypes.Structure):
     """csrc/epilogue.cu's Args, field for field."""
-    _fields_ = [("mode_in", _Plane), ("mode", _Plane), ("res", _Plane * 7),
-                ("esc", _Plane), ("dirty", _Plane), ("win", _Plane),
-                ("mom", _Plane * 4), ("zero_mass", _Plane),
-                ("old_win", _Plane), ("old_track", _Plane * 4),
-                ("old_angle", _Plane), ("first_run", _Plane),
-                ("face_found", _Plane), ("sm_init", _Plane),
-                ("headpose_active", _Plane), ("stopped", _Plane),
-                ("sm_sp", _Plane), ("diag_ring", _Plane), ("diag_n", _Plane),
-                ("tan_fov", _Plane), ("fov_width", _Plane),
-                ("head_diag_cam", _Plane),
-                ("of", ctypes.c_void_p * len(F32_ROWS)),
-                ("oi", ctypes.c_void_p * len(I32_ROWS)),
-                ("ob", ctypes.c_void_p * len(BOOL_ROWS)),
-                ("sm_sp_out", ctypes.c_void_p), ("ring_out", ctypes.c_void_p),
-                ("win_out", ctypes.c_void_p),
+    _fields_ = [("inputs", _Plane * _N_IN), ("out", ctypes.c_void_p),
                 ("k", ctypes.c_float * len(_CONSTS))]
+
+
+# the output block of n streams (csrc/epilogue.cu Out): (dtype, rows,
+# columns) regions in order, each rows x n x columns elements
+_REGIONS = ((_F32, len(F32_ROWS), 1), (_I32, len(I32_ROWS), 1),
+            (_F32, 1, 5), (_F32, 1, 6), (_I32, 1, 4),
+            (_BOOL, len(BOOL_ROWS), 1))
+_OUT_BYTES_A_STREAM = 4 * (len(F32_ROWS) + len(I32_ROWS) + 15) + len(
+    BOOL_ROWS)
 
 
 @functools.lru_cache(maxsize=1)
@@ -99,15 +113,6 @@ def _on_cuda(*tensors):
     raise ValueError(f"no kernel for device {dev}")
 
 
-def _plane(t, keep):
-    """An input's (base, stride between streams); a 2-D input whose rows
-    are not dense is copied first (kept alive in ``keep``)."""
-    if t.dim() == 2 and t.stride(1) != 1:
-        t = t.contiguous()
-        keep.append(t)
-    return _Plane(t.data_ptr(), t.stride(0))
-
-
 def _consts(ep, H, W):
     k = dict(camw=float(W), camh=float(H), sin=_ep.SIN_HSA, cos=_ep.COS_HSA,
              tan=_ep.TAN_HSA, diag_cm=_ep.HEAD_DIAG_CM, pi=math.pi,
@@ -130,34 +135,86 @@ def _flags(ep):
             | (_SEND_EVENTS if ep.send_events else 0))
 
 
-def _outputs(a, n, dev, f32, i32, bools):
-    """Allocate the named rows (one tensor a dtype) and point ``a``'s
-    output rows at them: {name: (n,) tensor}."""
-    rows = {}
-    for names, order, dt, table in ((f32, F32_ROWS, _F32, a.of),
-                                    (i32, I32_ROWS, _I32, a.oi),
-                                    (bools, BOOL_ROWS, _BOOL, a.ob)):
-        block = torch.empty((len(names), n), dtype=dt, device=dev)
-        base, pitch = block.data_ptr(), n * block.element_size()
-        for j, (name, row) in enumerate(zip(names, block.unbind(0))):
-            rows[name] = row
-            table[order.index(name)] = base + j * pitch
-    return rows
+class _Call:
+    """One (form, flags, configuration, batch size)'s launch: its argument
+    block (the constants set, the inputs it reads named by ``inputs``) and
+    the rows of the output block it returns."""
 
+    def __init__(self, n, flags, inputs, ep, H, W, f32, i32, bools, sm_sp,
+                 ring, window):
+        self.n, self.flags = n, flags
+        self.args = _Args()
+        self.args.k = _consts(ep, H, W)
+        # the inputs' (base, stride) words and the output block's address,
+        # written by one struct.pack_into (the words between them skipped)
+        words, fmt, at = sorted(inputs) + [_N_IN], "<", 0
+        for q in words:
+            fmt += f"{8 * (2 * q - at)}x" if 2 * q > at else ""
+            fmt += "qq" if q < _N_IN else "q"
+            at = 2 * q + 2
+        self.pack = struct.Struct(fmt).pack_into
+        self.lock = threading.Lock()  # one block, written then launched
+        self.order = sorted(range(len(inputs)), key=inputs.__getitem__)
+        # the inputs read as (N, k) rows: a view whose rows are not dense is
+        # copied first
+        self.wide = [j for j, q in enumerate(inputs)
+                     if q in (_IN["win"], _IN["old_win"], _IN["sm_sp"],
+                              _IN["diag_ring"])]
+        self.bytes = -(-_OUT_BYTES_A_STREAM * n // 16) * 16
+        # the output block's regions: (start, end, dtype, rows or (n,
+        # width), row names or None) of those this form returns
+        self.regions, at = [], 0
+        for (dt, nrows, width), names, order in zip(
+                _REGIONS, (f32, i32, sm_sp, ring, window, bools),
+                (F32_ROWS, I32_ROWS, None, None, None, BOOL_ROWS)):
+            size = nrows * width * n * (1 if dt == _BOOL else 4)
+            if order is not None and names:
+                self.regions.append((at, at + size, dt, (nrows, n), names,
+                                     [order.index(k) for k in names]))
+            elif order is None and names:
+                self.regions.append((at, at + size, dt, (n, width), None,
+                                     None))
+            at += size
 
-def _launch(a, n, flags, dev):
-    with torch.cuda.device(dev):
+    def __call__(self, inputs, dev):
+        """Launch on ``inputs`` (the tensors of the inputs named at
+        construction, in order); returns ({row name: (n,) tensor}, [sm_sp,
+        ring, window] as constructed)."""
+        keep = []
+        for j in self.wide:
+            if inputs[j].stride(1) != 1:  # rows read as a whole
+                keep.append(inputs[j].contiguous())
+                inputs = (*inputs[:j], keep[-1], *inputs[j + 1:])
+        block = torch.empty((self.bytes,), dtype=torch.uint8, device=dev)
+        words = [v for j in self.order
+                 for v in (inputs[j].data_ptr(), inputs[j].stride(0))]
+        if self.n:
+            with self.lock:
+                self.pack(self.args, 0, *words, block.data_ptr())
+                if dev.index != torch.cuda.current_device():
+                    with torch.cuda.device(dev):
+                        self._launch()
+                else:
+                    self._launch()
+        rows, leaves = {}, []
+        for a, b, dt, shape, names, idx in self.regions:
+            t = block.narrow(0, a, b - a).view(dt).view(shape)
+            if names is None:
+                leaves.append(t)
+            else:
+                t = t.unbind(0)
+                rows.update(zip(names, [t[j] for j in idx]))
+        return rows, leaves
+
+    def _launch(self):
         _checked_layout()
-        if n:
-            launch("tick_epilogue", "tick_epilogue_launch",
-                   ctypes.addressof(a), n, flags)
+        launch("tick_epilogue", "tick_epilogue_launch",
+               ctypes.addressof(self.args), self.n, self.flags)
 
 
-def _set_finish(a, win, m, zero_mass, keep):
-    a.win = _plane(win, keep)
-    for j, name in enumerate(("mu20", "mu02", "mu11", "invM00")):
-        a.mom[j] = _plane(m[name], keep)
-    a.zero_mass = _plane(zero_mass, keep)
+@functools.lru_cache(maxsize=256)
+def _call(*key):
+    return _Call(*key)
 
 
 def _check_finish(win, m, zero_mass):
@@ -165,13 +222,33 @@ def _check_finish(win, m, zero_mass):
     if win.dtype != _I32 or tuple(win.shape) != (N, 4):
         raise ValueError(f"win must be (N, 4) int32, got "
                          f"{tuple(win.shape)} {win.dtype}")
-    for name in ("mu20", "mu02", "mu11", "invM00"):
+    for name in _MOMENTS:
         t = m[name]
         if t.dtype != _F32 or tuple(t.shape) != (N,):
             raise ValueError(f"{name} must be ({N},) float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if zero_mass.dtype != _BOOL or tuple(zero_mass.shape) != (N,):
         raise ValueError(f"zero_mass must be a ({N},) bool mask")
+
+
+def _ids(*names):
+    """The kernel's input indices of ``names`` (a plane group by its
+    first name, e.g. "mom": its four planes)."""
+    out = []
+    for name in names:
+        k = dict(_INPUTS)[name]
+        out += range(_IN[name], _IN[name] + k)
+    return tuple(out)
+
+
+_FINISH_IN = _ids("win", "mom", "zero_mass")
+_STATE_LEAVES = ("first_run", "face_found", "sm_init", "headpose_active",
+                 "stopped", "sm_sp", "diag_ring", "diag_n", "tan_fov",
+                 "fov_width", "head_diag_cam")
+_SUPERVISE_IN = _ids("mode_in", *_STATE_LEAVES)
+_ESC_IN, _DIRTY_IN = _ids("esc"), _ids("dirty")
+_RESULT_IN = _ids("mode", "res")
+_TRACK_IN = _FINISH_IN + _ids("old_win", "old_track", "old_angle")
 
 
 def finish(win, m, zero_mass, calc_angles, H, W):
@@ -181,59 +258,49 @@ def finish(win, m, zero_mass, calc_angles, H, W):
     (window (N, 4) i32, track_x, track_y, track_w, track_h (N,) i32,
     track_angle (N,) f32)."""
     _check_finish(win, m, zero_mass)
-    names = ("mu20", "mu02", "mu11", "invM00")
-    if not _on_cuda(win, zero_mass, *(m[k] for k in names)):
+    moments = [m[k] for k in _MOMENTS]
+    if not _on_cuda(win, zero_mass, *moments):
         return finish_plain(win, m, zero_mass, calc_angles, H, W)
-    N, dev = win.shape[0], win.device
-    a, keep = _Args(), []
-    _set_finish(a, win, m, zero_mass, keep)
-    rows = _outputs(a, N, dev, ("track_angle",), I32_ROWS[:4], ())
-    window = torch.empty((N, 4), dtype=_I32, device=dev)
-    a.win_out = window.data_ptr()
-    a.k = _consts(None, H, W)
-    _launch(a, N, _FINISH | (_CALC_ANGLES if calc_angles else 0), dev)
+    call = _call(win.shape[0], _FINISH | (_CALC_ANGLES if calc_angles
+                                          else 0),
+                 _FINISH_IN, None, H, W, ("track_angle",), I32_ROWS[:4], (),
+                 False, False, True)
+    rows, (window,) = call((win, *moments, zero_mass), win.device)
     return (window, rows["track_x"], rows["track_y"], rows["track_w"],
             rows["track_h"], rows["track_angle"])
 
 
-def _supervision(a, state, entry_mode, ep, keep, escaped, finished):
-    """Point ``a`` at the state leaves the supervision reads and allocate
-    its outputs (with the finish's when ``finished``; the escaped flags'
-    when ``escaped`` is given): (flags, rows, sm_sp, diag_ring)."""
-    N, dev = entry_mode.shape[0], entry_mode.device
-    a.mode_in = _plane(entry_mode, keep)
-    for name in ("first_run", "face_found", "sm_init", "headpose_active",
-                 "stopped", "sm_sp", "diag_ring", "diag_n", "tan_fov",
-                 "fov_width", "head_diag_cam"):
-        setattr(a, name, _plane(getattr(state, name), keep))
-    flags = _SUPERVISE | _flags(ep)
+def _supervision(state, entry_mode, ep, escaped, finished, variant_flags,
+                 extra_in):
+    """The launch of a supervision form: (the call, its input tensors
+    before ``extra_in``'s).  ``finished``: the finish's outputs too;
+    ``escaped`` given: its flags' output too."""
+    flags = _SUPERVISE | _flags(ep) | variant_flags
     bools = ["head_valid", "event_face", "escaped", "face_found",
              "first_run", "headpose_active"]
+    ins = _SUPERVISE_IN
+    tensors = [entry_mode, *(getattr(state, k) for k in _STATE_LEAVES)]
     if escaped is not None:
-        a.esc = _plane(escaped, keep)
         bools.append("esc")
         flags |= _ESCAPED
+        ins += _ESC_IN
+        tensors.append(escaped)
     if ep.smoothing:
         bools.append("sm_init")
     if not ep.retry:
         bools.append("stopped")
-    rows = _outputs(a, N, dev, F32_ROWS if finished else F32_ROWS[8:],
-                    I32_ROWS if finished else I32_ROWS[4:], bools)
-    sm_sp = state.sm_sp
-    if ep.smoothing:
-        sm_sp = torch.empty((N, 5), dtype=_F32, device=dev)
-        a.sm_sp_out = sm_sp.data_ptr()
-    ring = torch.empty((N, 6), dtype=_F32, device=dev)
-    a.ring_out = ring.data_ptr()
-    a.k = _consts(ep, ep.H, ep.W)
-    return flags, rows, sm_sp, ring
+    call = _call(entry_mode.shape[0], flags, ins + extra_in, ep, ep.H, ep.W,
+                 F32_ROWS if finished else F32_ROWS[8:],
+                 I32_ROWS if finished else I32_ROWS[4:], tuple(bools),
+                 ep.smoothing, True, finished)
+    return call, tensors
 
 
 def _results(state, rows, sm_sp, ring, ep, res):
     """(state', the StepOutput's fields) from the kernel's rows; ``res``
     the result fields (x, y, w, h, angle, conf, wb) the output reports."""
     new_state = state._replace(
-        mode=rows["mode_after"], sm_sp=sm_sp,
+        mode=rows["mode_after"], sm_sp=sm_sp if ep.smoothing else state.sm_sp,
         sm_init=rows["sm_init"] if ep.smoothing else state.sm_init,
         face_found=rows["face_found"], first_run=rows["first_run"],
         diag_ring=ring, diag_n=rows["diag_n"],
@@ -264,14 +331,12 @@ def supervise(state, entry_mode, res, ep, variant="full", escaped=None):
     fields = (res.x, res.y, res.w, res.h, res.angle, res.conf, res.wb)
     if not _on_cuda(entry_mode, state.mode, escaped, *fields):
         return supervise_plain(state, entry_mode, res, ep, variant, escaped)
-    a, keep = _Args(), []
-    flags, rows, sm_sp, ring = _supervision(a, state, entry_mode, ep, keep,
-                                            escaped, False)
-    a.mode = _plane(state.mode, keep)
-    for j, t in enumerate(fields):
-        a.res[j] = _plane(t, keep)
-    flags |= {"track": _FREEZE, "wbtrack": _WBTRACK}.get(variant, 0)
-    _launch(a, entry_mode.shape[0], flags, entry_mode.device)
+    call, tensors = _supervision(
+        state, entry_mode, ep, escaped, False,
+        {"track": _FREEZE, "wbtrack": _WBTRACK}.get(variant, 0),
+        _RESULT_IN)
+    rows, leaves = call((*tensors, state.mode, *fields), entry_mode.device)
+    sm_sp, ring = (leaves if ep.smoothing else (None, *leaves))
     new_state, out = _results(state, rows, sm_sp, ring, ep, fields)
     return new_state, out, rows.get("esc")
 
@@ -283,27 +348,25 @@ def track(state, win, m, zero_mass, escaped, dirty, ep):
     band_dirty to OR into it or None).  Returns (state', the StepOutput's
     fields, escaped & in CS or None)."""
     _check_finish(win, m, zero_mass)
-    names = ("mu20", "mu02", "mu11", "invM00")
-    if not _on_cuda(win, zero_mass, state.mode, escaped,
-                    *(m[k] for k in names)):
+    moments = [m[k] for k in _MOMENTS]
+    if not _on_cuda(win, zero_mass, state.mode, escaped, *moments):
         return track_plain(state, win, m, zero_mass, escaped, dirty, ep)
-    N, dev = win.shape[0], win.device
-    a, keep = _Args(), []
-    _set_finish(a, win, m, zero_mass, keep)
     old = state.cs
-    a.old_win = _plane(old.window, keep)
-    for j, t in enumerate((old.track_x, old.track_y, old.track_w,
-                           old.track_h)):
-        a.old_track[j] = _plane(t, keep)
-    a.old_angle = _plane(old.track_angle, keep)
-    flags, rows, sm_sp, ring = _supervision(a, state, state.mode, ep, keep,
-                                            escaped, True)
-    window = torch.empty((N, 4), dtype=_I32, device=dev)
-    a.win_out = window.data_ptr()
+    extra = _TRACK_IN
+    tail = [win, *moments, zero_mass, old.window, old.track_x, old.track_y,
+            old.track_w, old.track_h, old.track_angle]
+    flags = _FINISH | _FREEZE
     if escaped is not None and dirty is not None:
-        a.dirty = _plane(dirty, keep)
+        extra += _DIRTY_IN
+        tail.append(dirty)
         flags |= _DIRTY
-    _launch(a, N, flags | _FINISH | _FREEZE, dev)
+    call, tensors = _supervision(state, state.mode, ep, escaped, True, flags,
+                                 extra)
+    rows, leaves = call((*tensors, *tail), win.device)
+    if ep.smoothing:
+        sm_sp, ring, window = leaves
+    else:
+        sm_sp, (ring, window) = None, leaves
     cs = old._replace(window=window, track_x=rows["track_x"],
                       track_y=rows["track_y"], track_w=rows["track_w"],
                       track_h=rows["track_h"],

@@ -20,6 +20,13 @@ kernel, so a run can show that its main path went through the kernels.
 stream (``cluster_split``), each CTA counting a share of the rect's rows
 (``cluster_rows``) and reducing a slice of the bins over its peers.
 
+The band kernels (``backproject`` with a band, ``histpdf_band``'s pdf
+mode) take each stream's search window and place its band themselves
+(``csrc/band.cuh`` ``place_band``, one placement a CTA); their twins place
+it with ``models/camshift.py`` ``band_rect``, the same rule in the same
+i32 arithmetic, so no placement runs on the host or as PyTorch operations
+on the card.
+
 Each kernel here puts the stream on the grid's y dimension, so a launch
 takes at most 65,535 streams: the wrappers split a larger batch into
 launches of at most that many (kernels/histbins.py ``row_chunks``), each
@@ -81,9 +88,9 @@ def _check_frames(frames):
                          f"{tuple(frames.shape)} {frames.dtype}")
 
 
-def _check_rects(rects, n):
+def _check_rects(rects, n, name="rects"):
     if rects.dtype != torch.int32 or tuple(rects.shape) != (n, 4):
-        raise ValueError(f"rects must be ({n}, 4) int32, got "
+        raise ValueError(f"{name} must be ({n}, 4) int32, got "
                          f"{tuple(rects.shape)} {rects.dtype}")
 
 
@@ -98,6 +105,14 @@ def _check_band(band, H, W):
     if not (1 <= bh <= H and 1 <= bw <= W):
         raise ValueError(f"band {band} must fit the ({H}, {W}) frame")
     return bh, bw
+
+
+def _placed(windows, band, H, W):
+    """The twins' (N, 4) i32 band rects for the search windows:
+    ``models/camshift.py`` ``band_rect``'s placement (the kernels' own
+    rule)."""
+    from ..models.camshift import band_rect, band_rects
+    return band_rects(*band_rect(windows, band, (H, W)))
 
 
 def hist4096(frames, rects):
@@ -128,49 +143,56 @@ def _counts(key, frames, rects):
     return out
 
 
-def backproject(frames, weights, rects=None, band=None):
+def backproject(frames, weights, windows=None, band=None):
     """(N, H, W, 3) u8 + (N, 4096) f32 -> pdf = weights[bin]: (N, H, W)
-    over the frame, or with ``rects`` (N, 4) i32 and ``band`` (bh, bw),
-    (N, bh, bw) over the band at each rect's [x, y] (clipped into the
-    frame)."""
+    over the frame, or with ``windows`` (N, 4) i32 [x, y, w, h] search
+    windows and ``band`` (bh, bw), (N, bh, bw) over the band placed around
+    each window (``models/camshift.py`` ``band_rect``'s rule; the kernel,
+    ``backproject_rect``, places it itself)."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
     _check_table("weights", weights, N)
-    if rects is not None:
-        _check_rects(rects, N)
+    if windows is not None:
+        _check_rects(windows, N, "windows")
         bh, bw = _check_band(band, H, W)
-    tensors = (frames, weights) if rects is None else (frames, weights, rects)
+    tensors = ((frames, weights) if windows is None
+               else (frames, weights, windows))
     if not _on_cuda(*tensors):
-        return backproject_plain(frames, weights, rects, band)
+        if windows is None:
+            return backproject_plain(frames, weights)
+        return backproject_plain(frames, weights,
+                                 _placed(windows, (bh, bw), H, W), (bh, bw))
     if weights.data_ptr() % 16:
         raise ValueError("weights must be 16-byte aligned (float4 table load)")
-    shape = (N, H, W) if rects is None else (N, bh, bw)
+    shape = (N, H, W) if windows is None else (N, bh, bw)
     out = torch.empty(shape, dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         for r0, r1 in row_chunks(N):
-            if rects is None:
+            if windows is None:
                 _launch("backproject", "backproject_launch",
                         _row_ptr(frames, r0), _row_ptr(weights, r0),
                         _row_ptr(out, r0), r1 - r0, H, W)
             else:
                 _launch("backproject_rect", "backproject_rect_launch",
                         _row_ptr(frames, r0), _row_ptr(weights, r0),
-                        _row_ptr(rects, r0), _row_ptr(out, r0), r1 - r0, H,
-                        W, bh, bw)
+                        _row_ptr(windows, r0), _row_ptr(out, r0), r1 - r0,
+                        H, W, bh, bw)
     return out
 
 
-def histpdf_band(frames, rects, model=None, band=None):
+def histpdf_band(frames, boxes, model=None, band=None):
     """One cluster per stream: the histogram of a rect and, given the model,
-    the ratio weights and the pdf over it.
+    the ratio weights and the pdf over a band.
 
-    Hist-only (``model`` None): (N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h]
-    -> (N, 4096) f32 exact counts of each rect clamped to the frame (the
-    handoff model histogram of a detection box): ``hist4096``'s kernel,
-    counted as ``histpdf_band_hist``.
+    Hist-only (``model`` None): (N, H, W, 3) u8 + ``boxes`` (N, 4) i32
+    [x, y, w, h] rects -> (N, 4096) f32 exact counts of each rect clamped
+    to the frame (the handoff model histogram of a detection box):
+    ``hist4096``'s kernel, counted as ``histpdf_band_hist``.
 
-    Pdf mode: also ``model`` (N, 4096) f32 (16-byte aligned) and ``band``
-    (bh, bw); each rect's [x, y] places the band (clipped into the frame).
+    Pdf mode: ``boxes`` are the streams' (N, 4) i32 [x, y, w, h] search
+    windows, ``model`` (N, 4096) f32 (16-byte aligned) and ``band`` (bh,
+    bw); the band lies where ``models/camshift.py`` ``band_rect`` places
+    it around each window (each CTA of the kernel places it itself).
     Returns (cur (N, 4096) f32 counts of the band, pdf (N, bh, bw) f32 =
     min(model/cur, 1)[bin]) -- one band-local camshift tick's pixel work,
     C from the band's size (``cluster_split``).  Under
@@ -180,20 +202,21 @@ def histpdf_band(frames, rects, model=None, band=None):
     from source's word, on the CPU the twin reads source."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
-    _check_rects(rects, N)
+    _check_rects(boxes, N)
     if model is None:
-        if not _on_cuda(frames, rects):
-            return histpdf_band_plain(frames, rects)
-        return _counts("histpdf_band_hist", frames, rects)
+        if not _on_cuda(frames, boxes):
+            return histpdf_band_plain(frames, boxes)
+        return _counts("histpdf_band_hist", frames, boxes)
     _check_table("model", model, N)
     bh, bw = _check_band(band, H, W)
     source = _frames_source(frames)
-    if not _on_cuda(frames, rects, model):
+    if not _on_cuda(frames, boxes, model):
         if source is not None:
             if source.shape != frames.shape or source.dtype != frames.dtype:
                 raise ValueError("frames_at's source must match the frames")
             frames = source
-        return histpdf_band_plain(frames, rects, model, (bh, bw))
+        return histpdf_band_plain(frames, _placed(boxes, (bh, bw), H, W),
+                                  model, (bh, bw))
     at = 0
     if source is not None:
         if source.dtype != torch.int64 or source.numel() != 1 or \
@@ -210,7 +233,7 @@ def histpdf_band(frames, rects, model=None, band=None):
             # in place, streams r0.. lie r0 frames past the word's address
             c = cluster_split(r1 - r0, bh, bw, _sm_count(frames.device))
             _launch("histpdf_band", "histpdf_band_launch",
-                    _row_ptr(frames, r0), _row_ptr(rects, r0),
+                    _row_ptr(frames, r0), _row_ptr(boxes, r0),
                     _row_ptr(model, r0), _row_ptr(cur, r0),
                     _row_ptr(pdf, r0), r1 - r0, H, W, bh, bw, c, at,
                     r0 * H * W * 3)

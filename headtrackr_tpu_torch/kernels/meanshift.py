@@ -161,15 +161,18 @@ def card(device):
     return Card(sm_count(device), *out)
 
 
-def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
+def mean_shift(pdf, window, frame_shape=None):
     """<= 10 mean-shift iterations for every stream, then the second and
-    central moments: ``ops.meanshift.mean_shift_plain``'s contract.
+    central moments: ``ops.meanshift.mean_shift_plain``'s contract, with
+    the band placed from each window.
 
-    pdf (N, bh, bw) f32 over frame rows [ry, ry+bh) x cols [rx, rx+bw) (ry,
-    rx (N,) i32 band origins; the full frame when both are None), window
-    (N, 4) i32, frame_shape (H, W) (default: the pdf's); bh, bw <=
-    MAX_SIDE.  Returns (window' (N, 4) i32, moments {name: (N,) f32},
-    zero_mass (N,) bool, escaped (N,) bool)."""
+    pdf (N, bh, bw) f32: with ``frame_shape`` (H, W), over the band that
+    ``models/camshift.py`` ``band_rect`` places around each stream's window
+    in an (H, W) frame (the kernel places it itself, ``csrc/band.cuh``
+    ``place_band``; the twin through ``band_rect``); without it, over the
+    whole frame.  window (N, 4) i32; bh, bw <= MAX_SIDE.  Returns (window'
+    (N, 4) i32, moments {name: (N,) f32}, zero_mass (N,) bool, escaped (N,)
+    bool)."""
     if pdf.dtype != torch.float32 or pdf.dim() != 3:
         raise ValueError(f"pdf must be (N, bh, bw) float32, got "
                          f"{tuple(pdf.shape)} {pdf.dtype}")
@@ -180,23 +183,22 @@ def mean_shift(pdf, window, ry=None, rx=None, frame_shape=None):
     if window.dtype != torch.int32 or tuple(window.shape) != (N, 4):
         raise ValueError(f"window must be ({N}, 4) int32, got "
                          f"{tuple(window.shape)} {window.dtype}")
-    if (ry is None) != (rx is None):
-        raise ValueError("pass both band origins ry and rx, or neither")
-    origins = () if ry is None else (ry.contiguous(), rx.contiguous())
-    for name, t in zip(("ry", "rx"), origins):
-        if t.dtype != torch.int32 or tuple(t.shape) != (N,):
-            raise ValueError(f"{name} must be ({N},) int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    if frame_shape is not None and not (bh <= frame_shape[0]
+                                        and bw <= frame_shape[1]):
+        raise ValueError(f"the {bh} x {bw} band must fit the frame "
+                         f"{tuple(frame_shape)}")
     pdf, window = pdf.contiguous(), window.contiguous()
-    if not on_cuda(pdf, window, *origins):
-        return mean_shift_plain(pdf, window, *(origins or (None, None)),
-                                frame_shape)
+    if not on_cuda(pdf, window):
+        if frame_shape is None:
+            return mean_shift_plain(pdf, window)
+        from ..models.camshift import band_rect
+        ry, rx, _, _ = band_rect(window, (bh, bw), frame_shape)
+        return mean_shift_plain(pdf, window, ry, rx, frame_shape)
     c = route(N, bh, bw, card(pdf.device))
-    return launch_kernel(c, pdf, window, *(origins or (None, None)),
-                         frame_shape)
+    return launch_kernel(c, pdf, window, frame_shape)
 
 
-def launch_kernel(c, pdf, window, ry=None, rx=None, frame_shape=None):
+def launch_kernel(c, pdf, window, frame_shape=None):
     """``mean_shift`` on contiguous CUDA tensors through kernel c, the
     C launcher's choice (ONE_CTA, a cluster size of CLUSTER_SIZES, or
     SCRATCH) in place of ``route``'s: the card tests and
@@ -214,9 +216,8 @@ def launch_kernel(c, pdf, window, ry=None, rx=None, frame_shape=None):
                                    dtype=torch.float32, device=dev)
                        if c == SCRATCH else None)
             launch("meanshift", "meanshift_launch", pdf.data_ptr(),
-                   window.data_ptr(),
-                   *(None if t is None else t.data_ptr() for t in (ry, rx)),
-                   win.data_ptr(), mom.data_ptr(), flags.data_ptr(),
+                   window.data_ptr(), win.data_ptr(), mom.data_ptr(),
+                   flags.data_ptr(),
                    None if scratch is None else scratch.data_ptr(), N, bh,
                    bw, int(H), int(W), c)
     return (win, dict(zip(MOMENTS, mom.unbind(1))), flags[:, 0],

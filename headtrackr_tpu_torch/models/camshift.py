@@ -15,7 +15,8 @@ Two forms of the step:
     ``kernel`` names, ``hist_mma`` by default or ``hist4096``, and
     ``backproject``).
   * ``track_band``: the pdf and the moments over an 8-aligned (bh, bw) band
-    around each search window (``band_rect``).  The current histogram is
+    around each search window (``band_rect``, which each band kernel
+    applies itself to the window it is given).  The current histogram is
     full frame (``kernel``'s + ``backproject_rect``) or, with
     ``band_hist``, the band's own (one fused ``histpdf_band`` launch:
     counts, weights and pdf).  A stream whose mean-shift trajectory leaves
@@ -105,7 +106,10 @@ def band_rect(window, band, frame_shape):
     8-aligned starts centered on the clamped window, clipped to the frame.
     window (N, 4) i32 -> ry, rx (N,) i32 tensors and bh, bw ints -- the one
     placement rule of track_band, the handoff audit and the divergence
-    cross-check."""
+    cross-check.  The band kernels (histpdf_band, backproject_rect,
+    meanshift, handoff) apply it themselves to the window they are given
+    (csrc/band.cuh place_band, the same i32 arithmetic); their CPU twins
+    call this function."""
     H, W = frame_shape
     bh = min(band[0], H)
     bw = min(band[1], W)
@@ -275,16 +279,17 @@ def shift_band(state, frame_rgb, band=DEFAULT_BAND, kernel=None,
     escaped too (band_hist, audit_escape and the leaf present), else
     None."""
     H, W = frame_rgb.shape[1], frame_rgb.shape[2]
-    ry, rx, bh, bw = band_rect(state.window, band, (H, W))
-    rects = band_rects(ry, rx, bh, bw)
+    bh, bw = min(band[0], H), min(band[1], W)
+    window = state.window.contiguous()
+    # each kernel places the band around its stream's window (band_rect's
+    # rule, csrc/band.cuh place_band): no operation of the band here
     if band_hist:
-        _, pdf = histpdf_band(frame_rgb, rects, state.model_hist, (bh, bw))
+        _, pdf = histpdf_band(frame_rgb, window, state.model_hist, (bh, bw))
     else:
         weights = backprojection_weights(state.model_hist,
                                          histogram_full(frame_rgb, kernel))
-        pdf = backproject(frame_rgb, weights, rects, (bh, bw))
-    win, m, zero_mass, escaped = _ms.mean_shift(pdf, state.window, ry, rx,
-                                                (H, W))
+        pdf = backproject(frame_rgb, weights, window, (bh, bw))
+    win, m, zero_mass, escaped = _ms.mean_shift(pdf, window, (H, W))
     dirty = (state.band_dirty if band_hist and audit_escape
              and state.band_dirty is not None else None)
     return win, m, zero_mass, escaped, dirty

@@ -6,9 +6,10 @@
     clips: windows, track_x/y/w/h and escaped exact, the angle by the rule
     of tests/test_torch_camshift.py; a band too small for the window
     escapes;
-  * the kernels' plain twins: histpdf_band (pdf mode) against hist_pallas +
-    backprojection_weights + pdf_pallas on the band's bins, hist-only mode
-    against histogram_rect, rect backproject against pdf_pallas, exact;
+  * the kernels' plain twins: histpdf_band (pdf mode, the band placed
+    from each search window) against hist_pallas + backprojection_weights
+    + pdf_pallas on the band's bins, hist-only mode against
+    histogram_rect, the band backprojection against pdf_pallas, exact;
   * handoff_band_audit, clean and dirty;
   * the "wbtrack" step with a band on a WB / VJ / CS batch;
   * no silent CPU fallback: without a card, device=None raises in
@@ -160,32 +161,38 @@ def _band_bins(rgb, rects, band):
                                         ((72, 96), (48, 64)),
                                         ((240, 320), (240, 320))])
 def test_histpdf_band_twin_matches_pallas(rng, shape, band):
+    """The pdf mode and the band backprojection take search windows and
+    place each band by the reference's ``band_rect``; the pixels then equal
+    the reference's Pallas kernels on that band's bins."""
     N = 3
     rgb = rng.integers(0, 256, (N,) + shape + (3,), np.uint8)
     rgb[0, : shape[0] // 2] = (120, 100, 90)  # a flat region: one hot bin
     model = rng.integers(0, 200, (N, 4096)).astype(np.float32)
-    xs = rng.integers(0, shape[1] - band[1] + 1, N)
-    ys = rng.integers(0, shape[0] - band[0] + 1, N)
-    rects = np.stack([xs, ys, np.full(N, band[1]), np.full(N, band[0])],
-                     1).astype(np.int32)
+    wins = np.stack([rng.integers(-20, shape[1] + 20, N),
+                     rng.integers(-20, shape[0] + 20, N),
+                     rng.integers(-5, 80, N), rng.integers(-5, 80, N)],
+                    1).astype(np.int32)
+    placed = [jcs.band_rect(jnp.asarray(w), band, shape) for w in wins]
+    rects = np.array([[int(rx), int(ry), bw, bh] for ry, rx, bh, bw in placed],
+                     np.int32)
     bb = jnp.asarray(_band_bins(rgb, rects, band))
     want_cur = np.asarray(jax.vmap(hist_pallas)(bb))
     want_w = jax.vmap(jhg.backprojection_weights)(jnp.asarray(model),
                                                   jnp.asarray(want_cur))
     want_pdf = np.asarray(jax.vmap(pdf_pallas)(bb, want_w))
 
-    frames, tr = torch.as_tensor(rgb), torch.as_tensor(rects)
-    cur, pdf = K.histpdf_band(frames, tr, torch.as_tensor(model), band)
+    frames, tw = torch.as_tensor(rgb), torch.as_tensor(wins)
+    cur, pdf = K.histpdf_band(frames, tw, torch.as_tensor(model), band)
     np.testing.assert_array_equal(cur.numpy(), want_cur)
     np.testing.assert_array_equal(pdf.numpy(), want_pdf)
     w = torch.as_tensor(np.array(want_w))
     np.testing.assert_array_equal(
-        K.backproject(frames, w, tr, band).numpy(),
+        K.backproject(frames, w, tw, band).numpy(),
         np.asarray(jax.vmap(pdf_pallas)(bb, want_w)))
-    # a rect origin outside the frame is clipped so the band fits
-    off = tr.clone()
-    off[:, 0] = shape[1]
-    off[:, 1] = -5
+    # a window outside the frame places its band inside it
+    off = tw.clone()
+    off[:, 0] = shape[1] + 40
+    off[:, 1] = -25
     _, pdf_off = K.histpdf_band(frames, off, torch.as_tensor(model), band)
     assert pdf_off.shape == (N,) + band
 

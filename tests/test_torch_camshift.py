@@ -171,9 +171,8 @@ def test_mean_shift_matches_reference_core(rng, band):
         p, w, True, y, x, H, W))
     jwin, jm, jzero, jesc = core(jnp.asarray(part), jnp.asarray(win),
                                  jnp.asarray(ry), jnp.asarray(rx))
-    offs = {} if band is None else dict(ry=torch.as_tensor(ry),
-                                        rx=torch.as_tensor(rx),
-                                        frame_shape=(H, W))
+    # the wrapper places the band from each window (band_rect's rule)
+    offs = {} if band is None else dict(frame_shape=(H, W))
     twin, tm, tzero, tesc = kms.mean_shift(torch.as_tensor(part),
                                            torch.as_tensor(win), **offs)
     np.testing.assert_array_equal(twin.numpy(), np.asarray(jwin))

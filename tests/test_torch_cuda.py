@@ -51,15 +51,19 @@ def test_kernels_bit_equal_to_twins(dev, shape):
                                         ((57, 99), (24, 40)),
                                         ((240, 320), (240, 320))])
 def test_band_kernels_bit_equal_to_twins(dev, shape, band):
+    """histpdf_band (both modes) and backproject_rect against their twins;
+    the band kernels take the rects as search windows and place each band
+    (band_rect's rule), the twins read band_rect's rects."""
     g = torch.Generator().manual_seed(5)
     N = 8
     frames = torch.randint(0, 256, (N,) + shape + (3,), generator=g,
                            dtype=torch.uint8)
     frames[:4, : shape[0] // 2] = torch.tensor([120, 100, 90], dtype=torch.uint8)
-    # band origins inside and outside the frame (clipped by both sides)
+    # windows inside and outside the frame (bands clipped by both sides)
     rects = torch.cat([torch.randint(-20, shape[1], (N, 1), generator=g),
                        torch.randint(-20, shape[0], (N, 1), generator=g),
                        torch.randint(0, 80, (N, 2), generator=g)], 1).int()
+    placed = _placed(rects, band, shape)
     model = torch.randint(0, 200, (N, 4096), generator=g).float()
     model[:, :64] = 0
     w = torch.rand((N, 4096), generator=g)
@@ -70,11 +74,88 @@ def test_band_kernels_bit_equal_to_twins(dev, shape, band):
     torch.cuda.synchronize()
     for k in ("histpdf_band", "histpdf_band_hist", "backproject_rect"):
         assert launches[k] == before[k] + 1, k
-    want_cur, want_pdf = hg.histpdf_band_plain(frames, rects, model, band)
+    want_cur, want_pdf = hg.histpdf_band_plain(frames, placed, model, band)
     assert torch.equal(cur.cpu(), want_cur)
     assert torch.equal(pdf.cpu(), want_pdf)
     assert torch.equal(hist.cpu(), hg.histpdf_band_plain(frames, rects))
-    assert torch.equal(bp.cpu(), hg.backproject_plain(frames, w, rects, band))
+    assert torch.equal(bp.cpu(), hg.backproject_plain(frames, w, placed,
+                                                      band))
+
+
+def _placed(windows, band, shape):
+    """band_rect's (N, 4) i32 band rects of the search windows: the rects
+    form the twins read."""
+    from headtrackr_tpu_torch.models import camshift as tcs
+    return tcs.band_rects(*tcs.band_rect(windows, band, shape))
+
+
+def _clip_windows(n, shape, g):
+    """n search windows hitting every clip of the band placement: x or y
+    below 0, past the right or bottom edge, negative and odd sizes, the
+    whole frame and beyond (chip_smoke's clip_windows)."""
+    from chip_smoke import clip_windows
+    return clip_windows(n, shape, g, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_placed_band_kernels_bit_equal(dev, n):
+    """histpdf_band's pdf mode, backproject_rect and meanshift (every route
+    that takes the band: one CTA, each cluster size, the scratch kernel)
+    place each stream's band from its search window in the kernel: at
+    windows that hit every clip, bit-equal to the rects / origins form of
+    their twins run on the card at band_rect's placement, and to the
+    placed twins on the CPU (the wrappers' own CPU path) at N <= 256.  At
+    70,000 streams histpdf_band and backproject_rect split into launches
+    of 65,535; the twins run in slices."""
+    from headtrackr_tpu_torch.kernels import meanshift as kms
+    from headtrackr_tpu_torch.models import camshift as tcs
+    from headtrackr_tpu_torch.ops import meanshift as om
+    H, W, band, step = 120, 160, (64, 96), 4096
+    g = torch.Generator().manual_seed(n)
+    pool = torch.randint(0, 256, (64, H, W, 3), generator=g,
+                         dtype=torch.uint8)
+    pool[::2, 30:90, 40:100] = torch.tensor([200, 80, 60], dtype=torch.uint8)
+    fr = pool.to(dev)[torch.arange(n, device=dev) % 64]
+    win = _clip_windows(n, (H, W), g).to(dev)
+    model = torch.randint(0, 200, (n, 4096), generator=g).float().to(dev)
+    w = torch.rand((n, 4096), generator=g).to(dev)
+    rects = _placed(win, band, (H, W))
+    ry, rx, _, _ = tcs.band_rect(win, band, (H, W))
+    cur, pdf = K.histpdf_band(fr, win, model, band)
+    bp = K.backproject(fr, w, win, band)
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        want_cur, want_pdf = hg.histpdf_band_plain(fr[sl], rects[sl],
+                                                   model[sl], band)
+        assert torch.equal(cur[sl], want_cur) and torch.equal(pdf[sl],
+                                                              want_pdf)
+        assert torch.equal(bp[sl], hg.backproject_plain(fr[sl], w[sl],
+                                                        rects[sl], band))
+    if n <= 256:
+        cpu = torch.device("cpu")
+        for a, b in zip((cur, pdf), K.histpdf_band(
+                fr.cpu(), win.cpu(), model.cpu(), band)):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(bp.cpu(), K.backproject(fr.to(cpu), w.cpu(),
+                                                   win.cpu(), band))
+    card = kms.card(dev)
+    routes = [c for c in (kms.ONE_CTA,) + kms.CLUSTER_SIZES
+              if kms.smem_bytes(*band, c) <= card.smem_cta] + [kms.SCRATCH]
+    want = [om.mean_shift_plain(pdf[s:s + step], win[s:s + step],
+                                ry[s:s + step], rx[s:s + step], (H, W))
+            for s in range(0, n, step)]
+    placed_cpu = (kms.mean_shift(pdf.cpu(), win.cpu(), (H, W)) if n <= 256
+                  else None)
+    for c in routes:
+        got = kms.launch_kernel(c, pdf, win, (H, W))
+        for k, s in enumerate(range(0, n, step)):
+            part = tuple(v[s:s + step] if torch.is_tensor(v)
+                         else {m: v[m][s:s + step] for m in v} for v in got)
+            _meanshift_equal(part, want[k])
+        if placed_cpu is not None:
+            _meanshift_equal(tuple(v.cpu() if torch.is_tensor(v) else
+                                   {m: v[m].cpu() for m in v} for v in got),
+                             placed_cpu)
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
@@ -361,10 +442,11 @@ def test_hist_mma_ragged_frames(dev, shape, n):
                                         ((57, 99), (24, 41)),
                                         ((57, 99), (57, 99))])
 def test_backproject_rect_origins_and_widths(dev, shape, band):
-    """backproject_rect with band x origins on the 8-pixel grid (the
-    serving path's 4-pixel loop), off it and clipped from -20, odd band
-    widths and the whole frame, bit-equal to the twin; a view one stream
-    in."""
+    """backproject_rect on windows of the band's size with x on the 8-pixel
+    grid (the serving path's 4-pixel loop) and from -20 (the kernel places
+    each band), odd band widths (origins clipped off the grid) and the
+    whole frame, bit-equal to the twin at band_rect's rects; a view one
+    stream in."""
     g = torch.Generator().manual_seed(37)
     H, W = shape
     bh, bw = band
@@ -380,11 +462,13 @@ def test_backproject_rect_origins_and_widths(dev, shape, band):
     got = K.backproject(frames.to(dev), w.to(dev), rects.to(dev), band)
     torch.cuda.synchronize()
     assert launches["backproject_rect"] == before + 1
-    assert torch.equal(got.cpu(), hg.backproject_plain(frames, w, rects, band))
+    placed = _placed(rects, band, shape)
+    assert torch.equal(got.cpu(), hg.backproject_plain(frames, w, placed,
+                                                       band))
     got = K.backproject(frames.to(dev)[1:], w.to(dev)[1:], rects.to(dev)[1:],
                         band)
-    assert torch.equal(got.cpu(),
-                       hg.backproject_plain(frames[1:], w[1:], rects[1:], band))
+    assert torch.equal(got.cpu(), hg.backproject_plain(frames[1:], w[1:],
+                                                       placed[1:], band))
 
 
 def test_session_tracker_card_equals_cpu(dev):
@@ -795,9 +879,10 @@ def test_facades_default_to_the_card(dev):
 
 def _meanshift_case(n, shape, banded, seed):
     """A batch of pdfs (40% of pixels zero), windows (some partly off the
-    frame or the band, one of width 0) and band origins, with a zero-mass
-    stream where n > 2.  A band lies in a 240x320 frame; a full-frame pdf
-    is its frame."""
+    frame, some larger than the band, one of width 0) and the band origins
+    band_rect places for them, with a zero-mass stream where n > 2.  A
+    band lies in a 240x320 frame; a full-frame pdf is its frame."""
+    from headtrackr_tpu_torch.models import camshift as tcs
     g = torch.Generator().manual_seed(seed)
     bh, bw = shape
     H, W = (240, 320) if banded else shape
@@ -805,15 +890,14 @@ def _meanshift_case(n, shape, banded, seed):
     pdf[pdf < 0.4] = 0
     if n > 2:
         pdf[1] = 0
-    ry = torch.randint(0, H - bh + 1, (n,), generator=g).int()
-    rx = torch.randint(0, W - bw + 1, (n,), generator=g).int()
-    off = (torch.stack([rx, ry], 1) if banded
-           else torch.zeros((n, 2), dtype=torch.int32))
-    win = torch.cat([off + torch.randint(-12, min(bh, bw), (n, 2),
-                                         generator=g).int(),
-                     torch.randint(4, 60, (n, 2), generator=g).int()], 1)
+    win = torch.stack([torch.randint(-12, W - 4, (n,), generator=g),
+                       torch.randint(-12, H - 4, (n,), generator=g),
+                       torch.randint(4, 60, (n,), generator=g),
+                       torch.randint(4, 60, (n,), generator=g)], 1).int()
     win[-1, 2] = 0
-    return pdf, win, (ry, rx) if banded else (None, None), (H, W)
+    origins = (tcs.band_rect(win, shape, (H, W))[:2] if banded
+               else (None, None))
+    return pdf, win, origins, (H, W)
 
 
 def _bits(t):
@@ -832,9 +916,17 @@ def _meanshift_equal(got, want):
 
 
 def _meanshift_args(case, d):
+    """The twin's arguments: the origins form (ry, rx from band_rect)."""
     pdf, win, (ry, rx), frame = case
     on = lambda t: None if t is None else t.to(d)  # noqa: E731
     return pdf.to(d), win.to(d), on(ry), on(rx), frame
+
+
+def _kernel_args(case, d):
+    """The wrapper's arguments: the kernel places the band from each
+    window (a band's frame given; a full-frame pdf's left out)."""
+    pdf, win, (ry, _), frame = case
+    return pdf.to(d), win.to(d), None if ry is None else frame
 
 
 @pytest.mark.parametrize("n,shape,banded", [
@@ -858,11 +950,12 @@ def test_meanshift_bit_equal_to_twin(dev, n, shape, banded):
     assert (c == kms.SCRATCH) == (shape == (1024, 1024) or (
         shape in ((240, 320), (480, 640)) and n == 256))
     before = launches["meanshift"]
-    got = kms.mean_shift(*_meanshift_args(case, dev))
+    got = kms.mean_shift(*_kernel_args(case, dev))
     torch.cuda.synchronize()
     assert launches["meanshift"] == before + 1
     _meanshift_equal(got, mean_shift_plain(*_meanshift_args(case, dev)))
     _meanshift_equal(got, mean_shift_plain(*_meanshift_args(case, "cpu")))
+    _meanshift_equal(got, kms.mean_shift(*_kernel_args(case, "cpu")))
 
 
 @pytest.mark.parametrize("shape,banded,kernels", [
@@ -878,8 +971,8 @@ def test_meanshift_every_kernel(dev, shape, banded, kernels):
     from headtrackr_tpu_torch.kernels import meanshift as kms
     from headtrackr_tpu_torch.ops.meanshift import mean_shift_plain
     case = _meanshift_case(8, shape, banded, seed=91)
-    args = _meanshift_args(case, dev)
-    want = mean_shift_plain(*args)
+    args = _kernel_args(case, dev)
+    want = mean_shift_plain(*_meanshift_args(case, dev))
     smem = kms.card(dev).smem_cta
     for c in kernels:
         _meanshift_equal(kms.launch_kernel(c, *args), want)
@@ -916,7 +1009,7 @@ def test_meanshift_in_a_graph_equals_eager(dev):
     for shape, banded, c in (((96, 128), True, kms.ONE_CTA),
                              ((240, 320), False, 8),
                              ((240, 320), False, kms.SCRATCH)):
-        args = _meanshift_args(_meanshift_case(8, shape, banded, seed=4), dev)
+        args = _kernel_args(_meanshift_case(8, shape, banded, seed=4), dev)
         eager = kms.launch_kernel(c, *args)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -1001,10 +1094,11 @@ def test_hist4096_cluster_bit_equal_to_twin(dev, shape, n, kind):
                                         ((57, 99), (24, 41)),
                                         ((57, 99), (57, 99))])
 def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
-    """histpdf_band in pdf mode (band x origins on the 8-pixel grid, off it
-    and clipped from -20; odd widths; the whole frame, X7's use) and in
-    hist-only mode, bit-equal to the twins, on random and bench frames; a
-    view one stream in."""
+    """histpdf_band in pdf mode (the kernel placing each band around windows
+    of the band's size with x on the 8-pixel grid and from -20; odd widths,
+    origins clipped off the grid; the whole frame, X7's use) and in
+    hist-only mode, bit-equal to the twins (the pdf mode's at band_rect's
+    rects), on random and bench frames; a view one stream in."""
     g = torch.Generator().manual_seed(53 + n)
     H, W = shape
     bh, bw = band
@@ -1023,7 +1117,9 @@ def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
                                   model.to(dev), band)
         torch.cuda.synchronize()
         assert launches["histpdf_band"] == before + 1
-        want_cur, want_pdf = hg.histpdf_band_plain(frames, rects, model, band)
+        placed = _placed(rects, band, shape)
+        want_cur, want_pdf = hg.histpdf_band_plain(frames, placed, model,
+                                                   band)
         assert torch.equal(cur.cpu(), want_cur), kind
         assert torch.equal(pdf.cpu(), want_pdf), kind
         boxes = _cluster_rects(n, shape, g)["boxes"]
@@ -1032,7 +1128,7 @@ def test_histpdf_band_cluster_bit_equal_to_twin(dev, shape, band, n):
         if n > 1:
             got = K.histpdf_band(frames.to(dev)[1:], rects.to(dev)[1:],
                                  model.to(dev)[1:], band)
-            want = hg.histpdf_band_plain(frames[1:], rects[1:], model[1:],
+            want = hg.histpdf_band_plain(frames[1:], placed[1:], model[1:],
                                          band)
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
@@ -1844,17 +1940,18 @@ def test_program_past_the_grid_equals_per_tick_path(dev):
     assert res["runs"][0] > 0  # all-CS ticks ran
 
 
-@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+@pytest.mark.parametrize("n", [1, 8, 31, 32, 33, 63, 64, 65, 256, 70000])
 def test_tick_epilogue_bit_equal_to_twin(dev, n):
     """tick_epilogue against its twin run on the card
     (tools/torch_epilogue_cases.py check): the finish alone, the "track"
     step's end with and without the band's flags, the supervision of each
-    variant, under each of the 64 configurations of the flag grid;
-    bit-equal (NaN-equal), the same leaves passed through, one launch a
-    call."""
+    variant, under each of the 64 configurations of the flag grid, then
+    8 of them on inputs whose rows lie far apart (staged a word an
+    element); bit-equal (NaN-equal), the same leaves passed through, one
+    launch a call; at the sizes around the kernel's 32-stream CTAs too."""
     cases = _tool("torch_epilogue_cases")
     res = cases.check(n, dev)
-    assert res["launches"] == res["runs"] == 64 * len(cases.FORMS)
+    assert res["launches"] == res["runs"] == (64 + 8) * len(cases.FORMS)
     if n >= 256:  # every branch taken
         assert all(res[k] for k in ("activations", "lost", "nan_angles",
                                     "escaped", "head_valid")), res
@@ -1863,8 +1960,9 @@ def test_tick_epilogue_bit_equal_to_twin(dev, n):
 def test_every_program_body_runs_the_epilogue(dev):
     """Each body of the serving program (all-CS, the bucket at each slot
     count, wbtrack, full, few, many) launches tick_epilogue, and the
-    all-CS body holds none of the epilogue's PyTorch ops: at most 30 graph
-    nodes (band_rect's, histpdf_band, meanshift, tick_epilogue)."""
+    all-CS body holds no PyTorch op of the epilogue or of the band's
+    placement (the band kernels place it from the windows): at most 5
+    graph nodes, its kernels histpdf_band, meanshift and tick_epilogue."""
     from chip_smoke import epilogue_bodies
     bt = BatchedTracker(16, (120, 160), cascade=toy_cascade(), device=dev,
                         band=(64, 96), bandHist=True, bucket=2)
@@ -1872,7 +1970,7 @@ def test_every_program_body_runs_the_epilogue(dev):
     bodies = epilogue_bodies(bt)
     assert {"0", "2", "wbtrack", "full", "few", "many"} <= set(bodies)
     assert bodies["0"]["tick_epilogue"] == 1
-    assert bodies["0"]["nodes"] <= 30, bodies["0"]
+    assert bodies["0"]["nodes"] <= 5, bodies["0"]
 
 
 @pytest.mark.parametrize("n", [1, 8, 256, 70000])

@@ -412,16 +412,16 @@ def test_camshift_mean_shift_is_the_wrapper(monkeypatch):
 def test_wrapper_rejects_what_it_does_not_take():
     pdf = torch.zeros((2, 8, 8))
     win = torch.zeros((2, 4), dtype=torch.int32)
-    o = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(ValueError, match="pdf"):
         mean_shift(pdf.double(), win)
     with pytest.raises(ValueError, match="pdf"):
         mean_shift(torch.zeros((2, 8, MAX_SIDE + 1)), win)
     with pytest.raises(ValueError, match="window"):
         mean_shift(pdf, win.long())
-    with pytest.raises(ValueError, match="both"):
-        mean_shift(pdf, win, ry=o)
-    with pytest.raises(ValueError, match="rx"):
-        mean_shift(pdf, win, o, o[:1])
+    with pytest.raises(ValueError, match="fit the frame"):
+        mean_shift(pdf, win, (4, 8))  # a band larger than its frame
+    with pytest.raises(TypeError):  # the kernel places the band: no origins
+        mean_shift(pdf, win, torch.zeros((2,), dtype=torch.int32),
+                   torch.zeros((2,), dtype=torch.int32), (8, 8))
     with pytest.raises(ValueError, match="no kernel"):  # no CPU fallback
         mean_shift(pdf.to("meta"), win.to("meta"))

@@ -213,31 +213,22 @@ def main(argv=None):
     if "bandparts" in want and band is not None:
         win, model = state.cs.window, state.cs.model_hist
 
-        def rects():
-            ry, rx, bh, bw = cs.band_rect(win, band, (H, W))
-            return ry, rx, cs.band_rects(ry, rx, bh, bw), (bh, bw)
-
         def upto_hist():
-            ry, rx, r, _ = rects()
-            if args.band_hist:
-                return histogram_rects(frames, r)
+            if args.band_hist:  # the band's counts, at band_rect's rects
+                return histogram_rects(
+                    frames, cs.band_rects(*cs.band_rect(win, band, (H, W))))
             return histogram_full(frames, hk)
 
-        def upto_pdf():
-            ry, rx, r, b = rects()
+        b = (min(band[0], H), min(band[1], W))
+
+        def upto_pdf():  # the band kernels place the band from win
             if args.band_hist:
-                return histpdf_band(frames, r, model, b)[1]
+                return histpdf_band(frames, win, model, b)[1]
             w = backprojection_weights(model, histogram_full(frames, hk))
-            return backproject(frames, w, r, b)
+            return backproject(frames, w, win, b)
 
         def upto_ms():
-            ry, rx, r, b = rects()
-            if args.band_hist:
-                pdf = histpdf_band(frames, r, model, b)[1]
-            else:
-                w = backprojection_weights(model, histogram_full(frames, hk))
-                pdf = backproject(frames, w, r, b)
-            return mean_shift(pdf, win, ry, rx, (H, W))
+            return mean_shift(upto_pdf(), win, (H, W))
 
         trackb = step("track", True)
         for name, fn in (("bins_hist", upto_hist),

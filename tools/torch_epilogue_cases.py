@@ -18,9 +18,15 @@ configuration of ``configs()`` (calcAngles, retryDetection, smoothing,
 headPosition, fov 60 or estimated, edgecorrection: 64) through the
 wrapper (the kernel for CUDA tensors) and through the twin, and raises
 unless they are equal to the bit (NaN-equal) and pass the same leaves
-through as the same tensors.
+through as the same tensors; then every form again under 8 of the
+configurations with ``inputs(..., wide=True)``, where some inputs are
+columns of wide tensors (rows more than 64 bytes apart: the kernel stages
+those a word an element, the bools among them at every byte offset).
+The kernel takes 32 streams a CTA, so the sizes at a CTA's edges (31, 32,
+33, 63, 64, 65) check its last, partial CTA.
 
-    python3 tools/torch_epilogue_cases.py [N ...]   (default: 1 8 256 70000)
+    python3 tools/torch_epilogue_cases.py [N ...]
+        (default: 1 8 31 32 33 63 64 65 256 70000)
 """
 
 import itertools
@@ -29,7 +35,7 @@ import sys
 from typing import NamedTuple
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NS = (1, 8, 256, 70000)
+NS = (1, 8, 31, 32, 33, 63, 64, 65, 256, 70000)
 FRAME = (240, 320)
 # the moments' columns in the mean shift's output (ops/meanshift.MOMENTS)
 MOMENT_COLS = {"invM00": 6, "mu20": 9, "mu02": 10, "mu11": 11}
@@ -69,8 +75,10 @@ class Result(NamedTuple):
     escaped: object
 
 
-def inputs(n, dev, seed=0, frame=FRAME):
-    """N streams' epilogue inputs on ``dev`` (see the module's doc)."""
+def inputs(n, dev, seed=0, frame=FRAME, wide=False):
+    """N streams' epilogue inputs on ``dev`` (see the module's doc); with
+    ``wide`` the result's fields, first_run, diag_n, tan_fov and the
+    camshift state's track_x are columns of wider tensors."""
     import numpy as np
     import torch
     from headtrackr_tpu_torch.models import camshift as tcs
@@ -156,8 +164,20 @@ def inputs(n, dev, seed=0, frame=FRAME):
     mom_t, flags_t = t(mom), t(flags)
     moments = {k: mom_t[:, c] for k, c in MOMENT_COLS.items()}
     r = t(res)
+    fields = r[:7].unbind(0)
+    if wide:
+        def col(x, width, at):  # x as column ``at`` of an (n, width) tensor
+            w = torch.zeros((n, width), dtype=x.dtype, device=dev)
+            w[:, at] = x
+            return w[:, at]
+        fields = [col(v, 24, 3 + j) for j, v in enumerate(fields)]
+        state = state._replace(
+            first_run=col(state.first_run, 70, 5),
+            diag_n=col(state.diag_n, 20, 1),
+            tan_fov=col(state.tan_fov, 17, 16),
+            cs=state.cs._replace(track_x=col(state.cs.track_x, 33, 2)))
     return Inputs(state, t(win, i32), moments, flags_t[:, 0], flags_t[:, 1],
-                  t(entry), Result(*r[:7].unbind(0), escaped=flags_t[:, 1]))
+                  t(entry), Result(*fields, escaped=flags_t[:, 1]))
 
 
 def _passed(form, state, ep):
@@ -239,19 +259,21 @@ def same_bits(a, b):
 
 def check(n, dev, seed=0):
     """Every form under every configuration, kernel wrapper against twin
-    on ``dev``; raises on a difference.  Returns a summary: forms x
-    configurations run, the wrapper's launches, and how many streams took
-    each branch (activations, losses, NaN angles, escapes)."""
+    on ``dev``, then every form under 8 configurations on the wide inputs;
+    raises on a difference.  Returns a summary: forms x configurations
+    run, the wrapper's launches, and how many streams took each branch
+    (activations, losses, NaN angles, escapes)."""
     import torch
     from headtrackr_tpu_torch.kernels import launch as L
-    inp = inputs(n, dev, seed)
     fns = routes()
     before = L.launches["tick_epilogue"]
     runs = 0
     seen = dict(activations=0, lost=0, nan_angles=0, escaped=0,
                 head_valid=0)
-    for ep in configs():
-        for form in FORMS:
+    cases = [(inputs(n, dev, seed), configs()),
+             (inputs(n, dev, seed + 1, wide=True), configs()[::8])]
+    for inp, eps in cases:
+        for ep, form in itertools.product(eps, FORMS):
             k_state, got = run(form, inp, ep, fns["kernel"])
             p_state, want = run(form, inp, ep, fns["twin"])
             if [k for k, _ in got] != [k for k, _ in want]:

@@ -11,7 +11,9 @@ at most that many streams at a time (kernels/histbins.py ``row_chunks``).
 The frames: the bench pool's 256 streams of 160x120 (``bench.build_pool``,
 faces) tiled over N, each stream's first three pixels stamped with its
 index (so that a chunk reading another chunk's frames differs); boxes
-random from a seeded generator, partly off the frame; the model weights
+random from a seeded generator, partly off the frame (the band kernels
+take them as search windows and place each band from them, their twins
+at ``models/camshift.py`` ``band_rect``'s rects); the model weights
 integers 1..199.  Every kernel's result must equal its twin's, which runs
 on the same card tensors in slices of SLICE streams (each stream's result
 is its own), bit for bit; each wrapper's launches must number its chunks
@@ -95,6 +97,8 @@ def check(n, dev):
                                      device=dev)], 1).int()
     model = torch.randint(1, 200, (n, 4096), generator=g,
                           device=dev).float()
+    from headtrackr_tpu_torch.models import camshift as cs
+    placed = cs.band_rects(*cs.band_rect(rects, BAND, FRAME))
     chunks = len(row_chunks(n))
     errs, counts = {}, {}
 
@@ -126,7 +130,8 @@ def check(n, dev):
     twin = {}
 
     def band_twin(s):
-        twin[s.start] = hg.histpdf_band_plain(fr[s], rects[s], model[s], BAND)
+        twin[s.start] = hg.histpdf_band_plain(fr[s], placed[s], model[s],
+                                              BAND)
         return twin[s.start]
 
     slices("histpdf_band", got, band_twin)
@@ -147,8 +152,8 @@ def check(n, dev):
     got = run("backproject_rect", lambda: K.backproject(fr, model, rects,
                                                          BAND))
     slices("backproject_rect", got,
-           lambda s: hg.backproject_plain(fr[s], model[s], rects[s], BAND))
-    del got, model
+           lambda s: hg.backproject_plain(fr[s], model[s], placed[s], BAND))
+    del got, model, placed
     got = run("hist_mma", lambda: hist_mma(fr, rects))
     slices("hist_mma", got, lambda s: hg.hist_mma_plain(fr[s], rects[s]))
     del got

@@ -24,8 +24,9 @@ CUDA-graph replay (chip_smoke.graph_ms), variants in turns (forward, then
 backward), at 256 streams x 240x320: the counting orders on every workload
 (hist4096 on the bench pool, face_noise 0 and 20, on uniform random bins
 and at one stream; histpdf_band over the 96x128 band of the bench pool,
-x origins on the 8-pixel grid as the serving path places them and from
--20 on as chip_smoke times it, and over the frame of uniform random bins,
+placed by the kernel around windows of the band's size at x on the
+8-pixel grid and from -20 on (the twin at ``band_rect``'s rects), and
+over the frame of uniform random bins,
 X7's workload; the hist-only mode on 256 random boxes of at most
 120x120), the structural ones on hist4096's bench pool and the bands.
 Then the shipped source at every cluster size C (the launch takes it) on
@@ -154,6 +155,7 @@ def main():
     from chip_smoke import bin_frames, graph_ms, smi
     from headtrackr_tpu_torch.kernels.histpdf import cluster_split
     from headtrackr_tpu_torch.kernels.launch import sm_count
+    from headtrackr_tpu_torch.models import camshift as cs
     from headtrackr_tpu_torch.ops import histogram as hg
 
     dev = torch.device("cuda", 0)
@@ -171,7 +173,7 @@ def main():
     y = torch.randint(0, H - BAND[0] + 1, (N,), generator=g)
     bands = torch.stack([x, y, torch.full((N,), BAND[1]),
                          torch.full((N,), BAND[0])], 1).int().to(dev)
-    # origins from -20 on, clipped into the frame (chip_smoke's timing)
+    # windows from -20 on, their bands placed and clipped into the frame
     loose = bands.clone()
     loose[:, 0] = torch.randint(-20, W - BAND[1] + 20, (N,), generator=g).to(dev)
     boxes = torch.cat([torch.randint(-20, 300, (N, 2), generator=g),
@@ -232,7 +234,9 @@ def main():
                              (frames["random_bins"], full, (H, W))):
             for c in SIZES:
                 got = [t.clone() for t in band(name, fr, rects, b, c)]
-                want = hg.histpdf_band_plain(fr, rects, model, b)
+                want = hg.histpdf_band_plain(
+                    fr, cs.band_rects(*cs.band_rect(rects, b, (H, W))),
+                    model, b)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, w) for a, w in zip(got, want)):
                     raise AssertionError(f"{name}: histpdf_band differs "

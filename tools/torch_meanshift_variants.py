@@ -299,9 +299,8 @@ def workloads(dev):
                              (2 * H, 2 * W)) for n in (8, 16, 32, 64, BIG)},
     }
     for band in ((96, 128), cs.DEFAULT_BAND):
-        ry, rx, bh, bw = cs.band_rect(boxes, band, (H, W))
-        _, bpdf = K.histpdf_band(fr, cs.band_rects(ry, rx, bh, bw), model,
-                                 band)
+        ry, rx, _, _ = cs.band_rect(boxes, band, (H, W))  # the twin's
+        _, bpdf = K.histpdf_band(fr, boxes, model, band)  # placed bands
         work[f"band {band[0]}x{band[1]} n256"] = (bpdf, boxes, ry, rx,
                                                   (H, W))
         work[f"band {band[0]}x{band[1]} n1"] = (
@@ -376,9 +375,9 @@ def main():
                                    device=dev),
                        torch.empty((n, 2), dtype=torch.bool, device=dev))
         win_o, mom, flags = outs[n]
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        # the kernel places a band from win (ry, rx: the twin's origins)
         err = fns[name]["meanshift_launch"](
-            pdf.data_ptr(), win.data_ptr(), ptr(ry), ptr(rx),
+            pdf.data_ptr(), win.data_ptr(),
             win_o.data_ptr(), mom.data_ptr(), flags.data_ptr(),
             scratch.data_ptr(), n, bh, bw, *frame, c,
             torch.cuda.current_stream().cuda_stream)

@@ -35,8 +35,9 @@ read, median of 5, step_auto of 15; cold and rotate: one run each) and the
 device's span a tick (CUDA events around the call: device work and the
 gaps in it), every case before any profiling; then under torch.profiler
 one more run of each: device ms and device operations a tick (the sum of
-the device operations' times), host launch calls (kernels and graphs) and
-host reads (stream and event synchronizations) a call; then step_auto
+the device operations' times; a one-tick case also each operation by
+name, its count and device ms), host launch calls (kernels and graphs)
+and host reads (stream and event synchronizations) a call; then step_auto
 timed again ("step_auto after profiler").  A first profiler session in a
 process lost device events on the card, so one is spent on a throwaway.
 
@@ -86,11 +87,19 @@ def profiled(fn, ticks):
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"device_ms_per_tick": sum(e.device_time_total for e in dev)
-            / 1e3 / ticks,
-            "device_ops_per_tick": len(dev) / ticks,
-            "host_launches": sum(e.name in LAUNCHES for e in events),
-            "host_reads": sum(e.name in SYNCS for e in events)}
+    out = {"device_ms_per_tick": sum(e.device_time_total for e in dev)
+           / 1e3 / ticks,
+           "device_ops_per_tick": len(dev) / ticks,
+           "host_launches": sum(e.name in LAUNCHES for e in events),
+           "host_reads": sum(e.name in SYNCS for e in events)}
+    if ticks == 1:  # a single tick's operations by name: [count, device ms]
+        ops = {}
+        for e in dev:
+            k = ops.setdefault(e.name[:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e.device_time_total / 1e3
+        out["ops"] = ops
+    return out
 
 
 def host_ms(fn, ticks, reps, before=None):
