@@ -1621,9 +1621,13 @@ def phase_detect(pools, dev, root):
             graph_nodes=nodes,
             floor_graph_ms=graph_ms(lambda: floor_launch(n)),
             most_candidates=k)
+    # its bound as the group entries': the slots read and written, the
+    # picks written, ~20 operations a pair of valid slots
+    nw, pairs = worst[5].shape[0], int((worst[5].sum(1) ** 2).sum())
+    b, by = bound(nw * 256 * (21 + 25) + 21 * nw, 20 * pairs)
     t["group"]["worst_case"] = dict(
         input=WORST_GROUP, graph_ms=graph_ms(lambda: group(*worst, 1)),
-        pairs=int((worst[5].sum(1) ** 2).sum()))
+        pairs=pairs, bound_ms=b, bound_by=by)
     for name in ("chain", "chain shuffled", "singletons", "dense"):
         gin = [torch.as_tensor(a).to(dev) for a in gcases[name]]
         t["group"]["worst_case"][name] = graph_ms(lambda: group(*gin, 1))
@@ -1641,7 +1645,8 @@ def phase_detect(pools, dev, root):
                 f"{e['floor_graph_ms']:.4f} ms by graph replay")
     wc = t["group"]["worst_case"]
     log(f"kernels: group's worst case ({wc['input']}, {wc['pairs']} pairs "
-        f"of valid slots) {wc['graph_ms']:.4f} ms by graph replay; at N=1: "
+        f"of valid slots) {wc['graph_ms']:.4f} ms by graph replay, bound "
+        f"{wc['bound_ms']:.6f} ms by {wc['bound_by']}; at N=1: "
         + ", ".join(f"{k} {wc[k]:.4f} ms" for k in
                     ("chain", "chain shuffled", "singletons", "dense")))
     return err, t
@@ -1964,6 +1969,97 @@ def tile_epilogue_args(args, k):
             None if esc is None else flags[:, 1], rep(dirty), ep)
 
 
+def bucket_workloads(pool, dev):
+    """The bucket kernels' timed calls on the bench pool's frame after the
+    loss frame: (a) the relock tick's, BUCKET_SLOTS slots over N_STREAMS
+    streams, LOSS_STREAMS of them served (entering in VJ after their blue
+    frame, then WB ones) and the rest padding, each stream's face box its
+    detection, the BAND audit, a state of the headline's leaves; (b) at
+    N_STREAMS streams the cold start's: every stream entering in VJ and
+    switching on its face box with the BAND audit (the full tick's
+    handoff), frame_prep over every stream with the gray plane (the full
+    tick, streams in VJ) and without it (wbtrack, streams in WB).  Returns
+    (name -> (kernel, args, kwargs, streams), the state, the slots)."""
+    import torch
+    from headtrackr_tpu_torch.kernels.schedule import slot_gather
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.ops.imageproc import frame_prep_plain
+    frames = torch.as_tensor(pool[LOSS_AT + 1]).to(dev)
+    S = BUCKET_SLOTS
+    idx = torch.full((S,), N_STREAMS, dtype=torch.int64)
+    idx[:LOSS_STREAMS] = torch.arange(LOSS_STREAMS)
+    idx = idx.to(dev)
+    state = ft.init_state(N_STREAMS, band_audit=True, device=dev)
+    mode = torch.full((N_STREAMS,), ft.MODE_CS, dtype=torch.int32)
+    mode[:LOSS_STREAMS] = ft.MODE_VJ
+    mode[LOSS_STREAMS:2 * LOSS_STREAMS] = ft.MODE_WB
+    state = state._replace(mode=mode.to(dev))
+    sub, _ = slot_gather(state, idx)
+    boxes = torch.as_tensor(face_boxes(pool[LOSS_AT + 1])).to(dev)
+
+    def det_of(rows):
+        n = rows.shape[0]
+        return (torch.ones((n,), dtype=torch.bool, device=dev),
+                *(rows[:, j].float() + 0.5 for j in range(4)),
+                torch.full((n,), 3.0, device=dev))
+
+    # the modes frame_prep hands the handoff (its twin's: the same bits)
+    sub_mode = frame_prep_plain(frames, idx, sub.mode, sub.wb_ring,
+                                sub.wb_n, gray=False)[4]
+    vj = torch.full((N_STREAMS,), ft.MODE_VJ, dtype=torch.int32, device=dev)
+    every = (frames, None, vj, state.wb_ring, state.wb_n)
+    calls = {
+        "frame_prep": ("frame_prep",
+                       (frames, idx, sub.mode, sub.wb_ring, sub.wb_n), {}, S),
+        "handoff": ("handoff", (frames, idx), dict(
+            det=det_of(boxes.index_select(0, idx.clamp(max=N_STREAMS - 1))),
+            entry_mode=sub.mode, mode=sub_mode, old=tuple(sub.cs),
+            band=BAND), S),
+        f"frame_prep n{N_STREAMS}": ("frame_prep", every, {}, N_STREAMS),
+        f"frame_prep n{N_STREAMS} no gray": (
+            "frame_prep", (frames, None, state.mode, state.wb_ring,
+                           state.wb_n), dict(gray=False, wb_vj=True),
+            N_STREAMS),
+        f"handoff n{N_STREAMS}": ("handoff", (frames, None), dict(
+            det=det_of(boxes), entry_mode=vj, mode=vj,
+            old=tuple(state.cs), band=BAND), N_STREAMS),
+    }
+    return calls, state, idx
+
+
+def bucket_bytes(key, args, kw, out):
+    """The bytes a bucket kernel's call must move on this run's data: each
+    input row read once, each output written once; handoff reads a
+    switching stream's rect and, auditing, the frame outside the band up
+    to its first model-colored pixel (3 bytes where one is found, the
+    whole outside where none is); any other stream copies its 16 KB row."""
+    import torch
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.models.camshift import band_rect
+    frames, slots = args[0], args[1]
+    H_, W_ = frames.shape[1:3]
+    px = H_ * W_
+    slot = 0 if slots is None else 8
+    if key == "frame_prep":
+        S = args[2].shape[0]
+        gray = kw.get("gray", True)
+        return S * (3 * px + (px if gray else 0) + 4 * 15 * 2 + 4 * 4 + 4
+                    + slot)
+    det = kw["det"]
+    S = det[0].shape[0]
+    rects = torch.floor(torch.stack(det[1:5], 1)).int()
+    rw = (torch.clamp(rects[:, 0] + rects[:, 2], max=W_)
+          - torch.clamp(rects[:, 0], min=0)).clamp(min=0)
+    rh = (torch.clamp(rects[:, 1] + rects[:, 3], max=H_)
+          - torch.clamp(rects[:, 1], min=0)).clamp(min=0)
+    switched = (kw["entry_mode"] == ft.MODE_VJ).cpu()
+    _, _, bh, bw = band_rect(rects, kw["band"], (H_, W_))
+    dirty = out[0][7].cpu()
+    scan = torch.where(dirty, 3, 3 * (px - bh * bw))
+    return int((switched * (3 * (rw * rh).cpu() + scan)).sum()) \
+        + S * (4 * 4096 + 8 * 4 + 4 * 7 + slot)
+
+
 def phase_bucket(pools, dev, root):
     """Phase 3b, the relock tick's bucket kernels: frame_prep (K9),
     handoff (K7) and slot_gather (S5) against their twins run on the card,
@@ -1971,24 +2067,23 @@ def phase_bucket(pools, dev, root):
     streams (every branch: WB streams with stable rings, VJ streams
     switching or not, detections at and past the frame's edges and empty,
     model pixels one row or column outside the band, padded slots); (b)
-    the relock tick's own shapes on the bench pool: BUCKET_SLOTS slots
-    over N_STREAMS streams, LOSS_STREAMS of them served (the loss streams,
-    entering in VJ after their blue frame, then WB ones) and the rest
-    padding, each stream's face box its detection, the 96x128 band's
-    audit, and a state of the headline's leaves.  Then each kernel's
-    times there: events and graph replay beside its twin, an empty kernel
-    at its grid, its bound (the bytes this run's data needs) and a library
-    call (frame_prep: a channel sum over the served frames; handoff:
-    torch.bincount of the rects' bins, the histogram alone; slot_gather:
-    index_select of the model histograms' rows, the largest leaf).
-    Returns (max abs err by kernel, timing entries)."""
+    its check_splits at BUCKET_NS: frame_prep and handoff with their split
+    forced to every P the launchers can pick, each against its twin at
+    that P; (c) bucket_workloads' calls: the relock tick's shapes and the
+    cold start's at N_STREAMS streams.  Then each kernel's times on those
+    calls: events and graph replay beside its twin, an empty kernel at its
+    grid (the streams times the launcher's split), its bound (the bytes
+    this run's data needs) and a library call (frame_prep: a channel sum
+    over the served frames; handoff: torch.bincount of the rects' bins,
+    the histogram alone; slot_gather: index_select of the model
+    histograms' rows, the largest leaf).  Returns (max abs err by kernel,
+    timing entries)."""
     import torch
-    from headtrackr_tpu_torch.kernels.frameprep import frame_prep
+    from headtrackr_tpu_torch.kernels.frameprep import frame_prep, pick_split
     from headtrackr_tpu_torch.kernels.handoff import handoff
+    from headtrackr_tpu_torch.kernels.launch import sm_count
     from headtrackr_tpu_torch.kernels.schedule import (slot_gather,
                                                        slot_gather_plain)
-    from headtrackr_tpu_torch.models import facetracker as ft
-    from headtrackr_tpu_torch.models.camshift import band_rect
     from headtrackr_tpu_torch.ops.handoff import handoff_plain
     from headtrackr_tpu_torch.ops.histogram import rgb_bins
     from headtrackr_tpu_torch.ops.imageproc import frame_prep_plain
@@ -2007,18 +2102,19 @@ def phase_bucket(pools, dev, root):
     log(f"kernels: frame_prep, handoff and slot_gather bit-equal to their "
         f"twins on the card at N={list(BUCKET_NS)} ({big}; "
         f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for n in BUCKET_NS:
+        r = cases.check_splits(n, dev)
+        if r["launches"] != {p: {"frame_prep": 4, "handoff": 3}
+                             for p in cases.SPLITS} or (
+                n == N_STREAMS and not (r["dirty"] and r["clean"])):
+            raise AssertionError(f"bucket: the forced splits at N={n}: {r}")
+    log(f"kernels: frame_prep and handoff at every forced split "
+        f"{list(cases.SPLITS)} bit-equal to their twins at that split, at "
+        f"N={list(BUCKET_NS)} ({time.perf_counter() - t0:.1f} s)")
 
     pool = pools[0]
-    frames = torch.as_tensor(pool[LOSS_AT + 1]).to(dev)
-    S = BUCKET_SLOTS
-    idx = torch.full((S,), N_STREAMS, dtype=torch.int64)
-    idx[:LOSS_STREAMS] = torch.arange(LOSS_STREAMS)
-    idx = idx.to(dev)
-    state = ft.init_state(N_STREAMS, band_audit=True, device=dev)
-    mode = torch.full((N_STREAMS,), ft.MODE_CS, dtype=torch.int32)
-    mode[:LOSS_STREAMS] = ft.MODE_VJ
-    mode[LOSS_STREAMS:2 * LOSS_STREAMS] = ft.MODE_WB
-    state = state._replace(mode=mode.to(dev))
+    calls, state, idx = bucket_workloads(pool, dev)
     sub, keep = slot_gather(state, idx)
     want_sub, want_keep = slot_gather_plain(state, idx)
     for a, b in zip(_leaves_of(sub) + [keep],
@@ -2026,84 +2122,86 @@ def phase_bucket(pools, dev, root):
         if not cases._same(a, b):
             raise AssertionError("bucket: slot_gather differs from its twin "
                                  "on the relock tick")
-    prep_args = (frames, idx, sub.mode, sub.wb_ring, sub.wb_n)
-    got = frame_prep(*prep_args)
-    cases._check("frame_prep on the relock tick", got,
-                 frame_prep_plain(*prep_args))
-    boxes = torch.as_tensor(face_boxes(pool[LOSS_AT + 1])).to(dev)
-    rows = boxes.index_select(0, torch.clamp(idx, max=N_STREAMS - 1))
-    det = (torch.ones((S,), dtype=torch.bool, device=dev),
-           *(rows[:, j].float() + 0.5 for j in range(4)),
-           torch.full((S,), 3.0, device=dev))
-    ho_args = dict(det=det, entry_mode=sub.mode, mode=got[4],
-                   old=tuple(sub.cs), band=BAND)
-    hgot = handoff(frames, idx, **ho_args)
-    hwant = handoff_plain(frames, idx, **ho_args)
-    cases._check("handoff leaves on the relock tick", hgot[0], hwant[0])
-    cases._check("handoff mode and result on the relock tick",
-                 (hgot[1],) + hgot[2], (hwant[1],) + hwant[2])
+    wrapper = {"frame_prep": (frame_prep, frame_prep_plain),
+               "handoff": (handoff, handoff_plain)}
+    outs = {}
+    for name, (key, args, kw, _) in calls.items():
+        kernel, plain = wrapper[key]
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        if key == "frame_prep":
+            cases._check(f"{name} on the bench pool", got, want)
+        else:
+            cases._check(f"{name} leaves on the bench pool", got[0], want[0])
+            cases._check(f"{name} mode and result on the bench pool",
+                         (got[1],) + got[2], (want[1],) + want[2])
+        outs[name] = got
     torch.cuda.synchronize()
 
-    # the bytes this run's data needs
-    H_, W_ = frames.shape[1:3]
-    px = H_ * W_
-    served = idx < N_STREAMS
-    fp_bytes = S * (3 * px + px + 4 * 15 * 2 + 4 * 4 + 4 + 8)
-    rects = torch.floor(torch.stack(det[1:5], 1)).int()
-    rw = (torch.clamp(rects[:, 0] + rects[:, 2], max=W_)
-          - torch.clamp(rects[:, 0], min=0)).clamp(min=0)
-    rh = (torch.clamp(rects[:, 1] + rects[:, 3], max=H_)
-          - torch.clamp(rects[:, 1], min=0)).clamp(min=0)
-    switched = (sub.mode == ft.MODE_VJ).cpu()
-    _, _, bh, bw = band_rect(rects, BAND, (H_, W_))
-    dirty = hgot[0][7].cpu()
-    scan = torch.where(dirty, 3, 3 * (px - bh * bw))
-    ho_bytes = int((switched * (3 * (rw * rh).cpu() + scan)).sum()) \
-        + S * (4 * 4096 + 8 * 4 + 4 * 7 + 8)
+    S = BUCKET_SLOTS
     leaves = _leaves_of(state)
     sg_bytes = 2 * sum(t.nbytes // N_STREAMS for t in leaves) * S + 9 * S
-    bins = rgb_bins(frames.index_select(0, torch.clamp(idx, max=N_STREAMS - 1)))
-    inside = torch.zeros_like(bins, dtype=torch.bool)
-    for j in range(S):
-        if switched[j]:
-            x0, y0 = max(int(rects[j, 0]), 0), max(int(rects[j, 1]), 0)
-            inside[j, y0:y0 + int(rh[j]), x0:x0 + int(rw[j])] = True
-    ids = (bins.long() + 4096 * torch.arange(S, device=dev).view(S, 1, 1))[
-        inside]
-    calls = {
-        "frame_prep": (lambda: frame_prep(*prep_args),
-                       lambda: frame_prep_plain(*prep_args), fp_bytes,
-                       lambda: frames[:S].sum(dim=(1, 2), dtype=torch.int32),
-                       True),
-        "handoff": (lambda: handoff(frames, idx, **ho_args),
-                    lambda: handoff_plain(frames, idx, **ho_args), ho_bytes,
-                    lambda: torch.bincount(ids, minlength=S * 4096), False),
-        "slot_gather": (lambda: slot_gather(state, idx),
-                        lambda: slot_gather_plain(state, idx), sg_bytes,
-                        lambda: state.cs.model_hist.index_select(0, idx.clamp(
-                            max=N_STREAMS - 1)), True),
-    }
+    sms = sm_count(dev)
+
+    def rect_ids(args, kw):
+        """The per-stream-offset bins of the switching streams' rects."""
+        frames, slots = args
+        det = kw["det"]
+        n = det[0].shape[0]
+        rows = frames if slots is None else frames.index_select(
+            0, torch.clamp(slots, max=N_STREAMS - 1))
+        rects = torch.floor(torch.stack(det[1:5], 1)).int().tolist()
+        switched = (kw["entry_mode"] == 1).tolist()
+        bins = rgb_bins(rows)
+        inside = torch.zeros_like(bins, dtype=torch.bool)
+        for j, (x, y, w, h) in enumerate(rects):
+            if switched[j]:
+                inside[j, max(y, 0):max(y + h, 0), max(x, 0):max(x + w, 0)] \
+                    = True
+        return (bins.long() + 4096 * torch.arange(n, device=dev).view(
+            n, 1, 1))[inside], n
+
+    timed = {}
+    for name, (key, args, kw, n) in calls.items():
+        kernel, plain = wrapper[key]
+        if key == "frame_prep":
+            rows = args[0] if args[1] is None else args[0][:n]
+            lib = (lambda r=rows: r.sum(dim=(1, 2), dtype=torch.int32), True)
+        else:
+            ids, m = rect_ids(args, kw)
+            lib = (lambda i=ids, m=m: torch.bincount(i, minlength=m * 4096),
+                   False)
+        timed[name] = (lambda k=kernel, a=args, w=kw: k(*a, **w),
+                       lambda p=plain, a=args, w=kw: p(*a, **w),
+                       bucket_bytes(key, args, kw, outs[name]), lib,
+                       n * pick_split(n, sms), key)
+    timed["slot_gather"] = (
+        lambda: slot_gather(state, idx), lambda: slot_gather_plain(state, idx),
+        sg_bytes, (lambda: state.cs.model_hist.index_select(0, idx.clamp(
+            max=N_STREAMS - 1)), True), S * len(leaves), "slot_gather")
     times = {}
-    for k, (kernel, plain, nbytes, lib, capturable) in calls.items():
+    for name, (kernel, plain, nbytes, (lib, capturable), grid, key) \
+            in timed.items():
         ms, plain_ms = interleaved_ms(kernel, plain)
         b, by = bound(nbytes, 0)
-        grid = S if k != "slot_gather" else S * len(leaves)
-        times[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                        graph_ms=graph_ms(kernel),
-                        empty_ms=graph_ms(lambda g=grid: floor_launch(g)),
-                        bytes=nbytes, launches_a_call=launches_of(k, kernel),
-                        **library_times(lib, capturable))
-        e = times[k]
-        log(f"kernels: {k} (the relock tick: {S} slots, {int(served.sum())} "
-            f"served, of {N_STREAMS} streams) {ms:.4f} ms, graph replay "
-            f"{e['graph_ms']:.4f} ms, an empty kernel at its grid "
-            f"{e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                           graph_ms=graph_ms(kernel),
+                           empty_ms=graph_ms(lambda g=grid: floor_launch(g)),
+                           grid=grid, bytes=nbytes,
+                           launches_a_call=launches_of(key, kernel),
+                           **library_times(lib, capturable))
+        e = times[name]
+        where = (f"the relock tick: {S} slots, {LOSS_STREAMS} served, of "
+                 f"{N_STREAMS} streams" if " n" not in name else
+                 f"the cold start's {N_STREAMS} streams")
+        log(f"kernels: {name} ({where}) {ms:.4f} ms, graph replay "
+            f"{e['graph_ms']:.4f} ms, an empty kernel at its grid of {grid} "
+            f"CTAs {e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{b:.6f} ms by {by}, {nbytes} B; library "
             f"{e['library_ms']:.4f} ms events, graph "
             f"{fmt_ms(e['library_graph_ms'])}; no one PyTorch call computes "
             f"its whole function)")
         if e["launches_a_call"] != 1:
-            raise AssertionError(f"bucket: {k} is not one launch a call")
+            raise AssertionError(f"bucket: {name} is not one launch a call")
     return {k: 0.0 for k in BUCKET}, times
 
 
@@ -4048,6 +4146,8 @@ def main():
         if k in BUCKET:
             e.update(relock_body_launches=bodies[str(min(8, N_STREAMS))]
                      .get(k), f32=f32["bucket"]["launches"][k])
+            e.update({t[len(k) + 1:].replace(" ", "_"): times[t]
+                      for t in times if t.startswith(f"{k} n")})
         if k == "hist4096":
             e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":

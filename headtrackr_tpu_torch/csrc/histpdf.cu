@@ -129,22 +129,22 @@ constexpr int kBins = 4096;
 constexpr int kThreads = 256;
 constexpr int kPdfPixelsPerBlock = 16384;
 constexpr int kCluster = 4;  // backproject_rect's CTAs per stream
-// the cluster histogram: pixels a counting CTA takes at least (as
-// kernels/histpdf.py _MIN_CTA_PX) and the most shared memory a CTA spends
-// keeping its pixels' bins
-constexpr int kMinCtaPx = 3072;
+// the most shared memory a CTA of the cluster histogram spends keeping its
+// pixels' bins
 constexpr int kMaxStashBytes = 96 * 1024;
-
-__device__ __forceinline__ int rgb_bin(const uint8_t* px) {
-  return (static_cast<int>(px[0] >> 4) << 8) |
-         (static_cast<int>(px[1] >> 4) << 4) |
-         static_cast<int>(px[2] >> 4);
-}
 
 // The rect and band rules (band.cuh), one copy for every kernel.
 using band::Rect;
 using band::clamped_rect;
 using band::place_band;
+// The pixel bins and the row loader of the cluster histogram
+// (cluster_hist.cuh, shared with handoff.cu).
+using chist::active_ctas;
+using chist::bin_of;
+using chist::count_rows;
+using chist::cta_share;
+using chist::rgb_bin;
+using chist::Share;
 
 __device__ __forceinline__ const float* stage_table(const float* weights,
                                                     int n, float4* table4) {
@@ -171,10 +171,6 @@ backproject_kernel(const uint8_t* __restrict__ frames,
   for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
     o[p] = table[rgb_bin(f + p * 3)];
   }
-}
-
-__device__ __forceinline__ int bin_of(uint32_t R, uint32_t G, uint32_t B) {
-  return static_cast<int>(((R >> 4) << 8) | ((G >> 4) << 4) | (B >> 4));
 }
 
 // grid (kCluster, N), one cluster a stream: CTA `rank` of stream n places
@@ -255,134 +251,8 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
 }
 
 // ---- the cluster histogram (hist4096, histpdf_band) ----------------------
-// (its machinery, shared with histbins.cu: cluster_hist.cuh)
-
-// The rows of a rect's rh rows that CTA `rank` of a cluster of c counts:
-// [r0, r0 + nrows), over the first `active` CTAs (kernels/histpdf.py
-// cluster_rows is the same split).
-struct Share {
-  int r0, nrows, active;
-};
-
-// The CTAs of a cluster of c that count a rect of `rows` rows and `npx`
-// pixels: one a kMinCtaPx pixels, at most one a row, at least one.
-__host__ __device__ __forceinline__ int active_ctas(int64_t npx, int64_t rows,
-                                                    int c) {
-  int64_t a = (npx + kMinCtaPx - 1) / kMinCtaPx;
-  a = a < c ? a : c;
-  a = a < rows ? a : rows;
-  return a > 1 ? static_cast<int>(a) : 1;
-}
-
-__device__ __forceinline__ Share cta_share(const Rect& rc, int c, int rank) {
-  const int a = active_ctas(rc.rw * rc.rh, rc.rh, c);
-  const int rh = static_cast<int>(rc.rh);
-  if (rank >= a) return {rh, 0, a};
-  const int r0 = rank * rh / a;
-  return {r0, (rank + 1) * rh / a - r0, a};
-}
-
-// The bins of 16 neighbouring pixels: 48 bytes from a 16-byte aligned p.
-__device__ __forceinline__ void bins16(const uint8_t* p, int (&b)[16]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
-  const uint32_t v[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                          q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    // little-endian: byte k of the run is byte k % 4 of v[k / 4]
-    const uint32_t r = (v[(3 * j) / 4] >> (8 * ((3 * j) % 4))) & 0xFF;
-    const uint32_t g = (v[(3 * j + 1) / 4] >> (8 * ((3 * j + 1) % 4))) & 0xFF;
-    const uint32_t bl = (v[(3 * j + 2) / 4] >> (8 * ((3 * j + 2) % 4))) & 0xFF;
-    b[j] = bin_of(r, g, bl);
-  }
-}
-
-// Keep a chunk's 16 bins at s as u16, in the widest stores its alignment
-// allows: two 16-byte stores, eight 4-byte ones, or (s 2 bytes past a
-// 4-byte boundary) one u16, seven 4-byte stores and one u16.
-__device__ __forceinline__ void stash16(uint16_t* s, const int (&b)[16]) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(s);
-  if ((a & 15) == 0) {
-    uint4* s4 = reinterpret_cast<uint4*>(s);
-    s4[0] = make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16,
-                       b[4] | b[5] << 16, b[6] | b[7] << 16);
-    s4[1] = make_uint4(b[8] | b[9] << 16, b[10] | b[11] << 16,
-                       b[12] | b[13] << 16, b[14] | b[15] << 16);
-  } else if ((a & 3) == 0) {
-    uint32_t* s1 = reinterpret_cast<uint32_t*>(s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s1[j] = b[2 * j] | b[2 * j + 1] << 16;
-  } else {
-    s[0] = static_cast<uint16_t>(b[0]);
-    uint32_t* s1 = reinterpret_cast<uint32_t*>(s + 1);
-#pragma unroll
-    for (int j = 0; j < 7; ++j) s1[j] = b[2 * j + 1] | b[2 * j + 2] << 16;
-    s[15] = static_cast<uint16_t>(b[15]);
-  }
-}
-
-// Count rows [r0, r0 + nrows) of the rect into hist; with kStash also keep
-// each pixel's bin, stash[(row - r0) * rw + x].  A row is rw / 16 + 2
-// units: unit 0 its unaligned head, units 1..body its 16-pixel chunks,
-// unit body + 1 its tail (head and tail < 16 pixels, taken one pixel at a
-// time but with every load issued before the first is used).  Units are
-// dealt to threads in order, advanced without division; the loop's trip
-// count is uniform over the block.
-template <bool kStash>
-__device__ __forceinline__ void count_rows(const uint8_t* f, int w,
-                                           const Rect& rc, int r0, int nrows,
-                                           int32_t* hist, uint16_t* stash) {
-  const int rw = static_cast<int>(rc.rw);
-  const int units = rw / 16 + 2;
-  const int total = nrows * units;
-  const int step_r = blockDim.x / units;
-  const int step_c = blockDim.x - step_r * units;
-  int row = threadIdx.x / units;
-  int col = threadIdx.x - row * units;
-  chist::Run run;
-  for (int base = 0; base < total; base += blockDim.x) {
-    int b[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) b[j] = -1;
-    if (base + static_cast<int>(threadIdx.x) < total) {
-      const uint8_t* p = f + ((rc.y0 + r0 + row) * w + rc.x0) * 3;
-      // 3 head == -p (mod 16): the pixel at `head` starts 16-byte aligned
-      int head = static_cast<int>(
-          ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) * 11) & 15);
-      head = head < rw ? head : rw;
-      const int body = (rw - head) / 16;
-      const int tail = head + 16 * body;
-      uint16_t* s = stash + row * rw;
-      if (col == 0 || col == body + 1) {
-        const int x = col == 0 ? 0 : tail;
-        const int m = col == 0 ? head : rw - tail;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (j < m) b[j] = rgb_bin(p + 3 * (x + j));
-        }
-        if constexpr (kStash) {
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            if (j < m) s[x + j] = static_cast<uint16_t>(b[j]);
-          }
-        }
-      } else if (col <= body) {
-        const int x = head + 16 * (col - 1);
-        bins16(p + 3 * x, b);
-        if constexpr (kStash) stash16(s + x, b);
-      }
-    }
-    chist::count16(b, run, hist);
-    col += step_c;
-    row += step_r;
-    if (col >= units) {
-      col -= units;
-      ++row;
-    }
-  }
-  run.flush(hist);
-}
+// (its machinery and row loader, shared with histbins.cu and handoff.cu:
+// cluster_hist.cuh)
 
 // grid (C, N), one cluster of C CTAs a stream (C a power of two <= 16).
 // kPdf: histpdf_band's pdf mode (``rects`` the search windows, each CTA

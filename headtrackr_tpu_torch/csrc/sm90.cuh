@@ -113,8 +113,22 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+// The CTAs in this CTA's cluster (1 in a launch without clusters).
+__device__ __forceinline__ uint32_t cluster_ctas() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An arrival that orders no memory: with the cluster_wait after it, it
+// only says that every CTA of the cluster has started (so that its shared
+// memory may be written), and the work between the two overlaps the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {

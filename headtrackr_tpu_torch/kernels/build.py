@@ -93,11 +93,11 @@ _SIGNATURES = {
         "tick_epilogue_floor_launch": (ctypes.c_longlong, _C),
     },
     "frameprep": {
-        "frame_prep_launch": (_C, _I, _C),
+        "frame_prep_launch": (_C, _I, _I, _C),
         "frame_prep_args_bytes": (),
     },
     "handoff": {
-        "handoff_launch": (_C, _I, _C),
+        "handoff_launch": (_C, _I, _I, _C),
         "handoff_args_bytes": (),
     },
     "group": {

@@ -9,6 +9,11 @@ Dispatch as the other wrappers: CPU tensors take the plain twin
 (ops/handoff.py ``handoff_plain``), CUDA tensors launch the kernel, one
 launch a call; any other device raises, and so does a failed build or
 launch.  The kernel equals the twin to the bit.
+
+The kernel spreads each stream over a cluster of P CTAs (``pick_split``,
+frame_prep's rule; ``split=`` forces it): the rect's rows, the histogram's
+bins and the audit's frame rows split over them; the twin takes the same
+split.
 """
 
 import ctypes
@@ -18,9 +23,10 @@ import torch
 
 from ..ops.handoff import handoff_plain
 from ..ops.histogram import NBINS
+from .frameprep import MAX_SPLIT, pick_split, resolve_split
 from .launch import launch
 
-__all__ = ["handoff"]
+__all__ = ["handoff", "pick_split", "MAX_SPLIT"]
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -93,14 +99,15 @@ def _check(frames, slots, s):
 
 
 def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
-            mode=None, old=None, band=None):
+            mode=None, old=None, band=None, split=None):
     """``ops.handoff.handoff_plain``'s contract: the init form (``rect``
     (S, 4) i32; returns the camshift leaves) or the handoff form (``det``
     = (found, x, y, w, h, conf) (S,), entry_mode and mode (S,) i32, old
     the rows' camshift leaves in ``CamshiftState``'s order; returns
     (leaves, mode', (x, y, w, h, angle, conf))).  frames (N, H, W, 3) u8
     read through ``slots`` (S,) i64 padded with N (None: every stream);
-    band=(bh, bw): the audit, band_dirty among the leaves."""
+    band=(bh, bw): the audit, band_dirty among the leaves; ``split`` the
+    CTAs a stream (None: ``pick_split``'s)."""
     init = det is None
     s = rect.shape[0] if init else entry_mode.shape[0]
     _check(frames, slots, s)
@@ -120,11 +127,13 @@ def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
     inputs = [frames, slots, rect] + ([] if init else [*det, entry_mode,
                                                         mode,
                                                         *old])
-    if not _devices(inputs):
-        return handoff_plain(frames, slots, rect, det, entry_mode, mode, old,
-                             band)
-    N, H, W, _ = frames.shape
+    cuda = _devices(inputs)
     dev = frames.device
+    split = resolve_split(split, s, dev, cuda)
+    if not cuda:
+        return handoff_plain(frames, slots, rect, det, entry_mode, mode, old,
+                             band, split)
+    N, H, W, _ = frames.shape
     keep = []
 
     def dense(t):
@@ -168,7 +177,8 @@ def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
     with torch.cuda.device(dev):
         _checked_layout()
         if s:
-            launch("handoff", "handoff_launch", ctypes.addressof(a), s)
+            launch("handoff", "handoff_launch", ctypes.addressof(a), s,
+                   split)
     leaves = (hist, win, *track.unbind(0), angle, dirty)
     if init:
         return leaves

@@ -15,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["grayscale", "whitebalance", "frame_prep_plain", "slot_rows",
+__all__ = ["grayscale", "whitebalance", "channel_sums", "frame_shares",
+           "frame_prep_plain", "slot_rows",
            "PWB_LENGTH", "resize_bilinear", "build_pyramid",
            "PyramidSpec", "pyramid_spec", "pack_pyramid", "PyramidPlan",
            "pyramid_plan"]
@@ -37,21 +38,49 @@ _WB_SLICE_BYTES = 1 << 28
 
 def whitebalance(rgb):
     """(N, H, W, 3) u8 -> (N,) f32 mean gray value (avgR + avgG + avgB) / 3.
-    src/whitebalance.js:17-28.  The channel sums are exact integers (int32
-    where 255 H W fits it, else int64), made over slices of streams whose
-    integer copy stays within _WB_SLICE_BYTES, then taken to f64 (as the
-    JS numbers are: the same values an f64 sum gives), so a stream's value
-    is the same in any batch and in any reduction order, and a large batch
-    needs no wide copy of all its frames; it is rounded once to f32."""
+    src/whitebalance.js:17-28.  The channel sums are exact integers
+    (``channel_sums``), taken to f64 (as the JS numbers are: the same
+    values an f64 sum gives), so a stream's value is the same in any batch
+    and in any reduction order, and a large batch needs no wide copy of
+    all its frames; it is rounded once to f32."""
     H, W = rgb.shape[-3], rgb.shape[-2]
-    dt = torch.int32 if 255 * H * W < 2 ** 31 else torch.int64
-    flat = rgb.reshape((-1, H, W, 3))
-    step = max(1, _WB_SLICE_BYTES // max(1, 3 * H * W * dt.itemsize))
-    sums = torch.cat([flat[s:s + step].sum(dim=(1, 2), dtype=dt)
-                      for s in range(0, flat.shape[0], step)]) \
-        if flat.shape[0] > step else flat.sum(dim=(1, 2), dtype=dt)
-    m = sums.reshape(rgb.shape[:-3] + (3,)).to(torch.float64) / (H * W)
+    sums = channel_sums(rgb.reshape((-1, H * W, 3)))
+    return _mean_gray(sums, H * W).reshape(rgb.shape[:-3])
+
+
+def channel_sums(px):
+    """(N, M, 3) u8 -> (N, 3) i64 exact channel sums, made in int32 where
+    255 M fits it (else int64) over slices of streams whose integer copy
+    stays within _WB_SLICE_BYTES."""
+    N, M = px.shape[0], px.shape[1]
+    dt = torch.int32 if 255 * M < 2 ** 31 else torch.int64
+    step = max(1, _WB_SLICE_BYTES // max(1, 3 * M * dt.itemsize))
+    if N > step:
+        sums = torch.cat([px[s:s + step].sum(dim=1, dtype=dt)
+                          for s in range(0, N, step)])
+    else:
+        sums = px.sum(dim=1, dtype=dt)
+    return sums.to(torch.int64)
+
+
+def _mean_gray(sums, npx):
+    """(..., 3) i64 channel sums of npx pixels -> (...,) f32: the f64 means,
+    ((m_r + m_g) + m_b) / 3, one rounding."""
+    m = sums.to(torch.float64) / npx
     return ((m[..., 0] + m[..., 1] + m[..., 2]) / 3.0).to(torch.float32)
+
+
+def frame_shares(hw, split):
+    """The pixel ranges [a, b) of an hw-pixel frame that each of ``split``
+    CTAs of the ``frame_prep`` kernel sums: ceil(units / split) units of
+    16 pixels a CTA where hw % 16 == 0 (else 4 where hw % 4 == 0, else
+    1; the kernel takes the same units where the frames' and gray plane's
+    bases are aligned to them, narrower ones otherwise, and the sums are
+    the same).  A CTA past the last unit sums none."""
+    unit = 16 if hw % 16 == 0 else 4 if hw % 4 == 0 else 1
+    share = -(-(hw // unit) // split) * unit
+    return [(min(hw, k * share), min(hw, (k + 1) * share))
+            for k in range(split)]
 
 
 PWB_LENGTH = 15  # the whitebalance stability ring (src/facetrackr.js:59)
@@ -68,7 +97,7 @@ def slot_rows(frames, slots):
 
 
 def frame_prep_plain(frames, slots, mode, wb_ring, wb_n, gray=True,
-                     wb_vj=False):
+                     wb_vj=False, split=None):
     """The ``frame_prep`` kernel's twin (kernels/frameprep.py): one pass
     over each served stream's frame, the grayscale plane and the WB
     branch of the state machine (src/facetrackr.js:79-95) in one.
@@ -82,10 +111,22 @@ def frame_prep_plain(frames, slots, mode, wb_ring, wb_n, gray=True,
     keeps its rows.  wb is the frame's whitebalance where the stream enters
     in WB, or in VJ with ``wb_vj`` (the wbtrack step reports it there),
     else 0.  The whitebalance is ``whitebalance``'s: exact channel sums,
-    f64 means, one f32 rounding."""
+    f64 means, one f32 rounding.  As the kernel, the sums are taken over
+    ``split`` shares of each frame (``frame_shares``; None: the kernel's
+    ``pick_split``) and joined in order, exact, so any split gives the
+    same bits."""
     rows = slot_rows(frames, slots)
+    S, H, W = rows.shape[0], rows.shape[1], rows.shape[2]
+    if split is None:
+        from ..kernels.frameprep import pick_split
+        split = pick_split(S)
     g = grayscale(rows) if gray else None
-    wb = whitebalance(rows).to(torch.float32)
+    px = rows.reshape(S, H * W, 3)
+    sums = torch.zeros((S, 3), dtype=torch.int64, device=rows.device)
+    for a, b in frame_shares(H * W, split):
+        if b > a:
+            sums += channel_sums(px[:, a:b])
+    wb = _mean_gray(sums, H * W)
     is_wb = mode == _MODE_WB
     ring = torch.cat([wb[:, None], wb_ring[:, :-1]], dim=1)
     n = torch.clamp(wb_n + 1, max=PWB_LENGTH)

@@ -1987,6 +1987,35 @@ def test_bucket_kernels_bit_equal_to_twins(dev, n):
                                     "kept")), res
 
 
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_bucket_kernels_bit_equal_to_twins_at_every_split(dev, n):
+    """frame_prep (K9) and handoff (K7, the init form with the audit on
+    and off, the handoff form with it) with their split forced to every P
+    the launchers can pick (1, 2, 4, 8, 16), against their twins taking
+    the same P (tools/torch_bucket_cases.py check_splits), bit-equal, one
+    launch a call; a model-colored pixel just outside the band on a row
+    where the audit's shares meet."""
+    cases = _tool("torch_bucket_cases")
+    res = cases.check_splits(n, dev)
+    assert res["launches"] == {p: {"frame_prep": 4, "handoff": 3}
+                               for p in cases.SPLITS}, res
+    if n >= 256:
+        assert res["dirty"] and res["clean"], res
+
+
+def test_bucket_split_picks(dev):
+    """The launchers' split on this card: a power of two <= 16, 16 at the
+    relock bucket's 8 slots, 1 at 256 streams and past; the streams times
+    the split stay on the grid's x."""
+    from headtrackr_tpu_torch.kernels import frameprep, handoff
+    from headtrackr_tpu_torch.kernels.launch import sm_count
+    sms = sm_count(dev)
+    for mod in (frameprep, handoff):
+        assert mod.pick_split(8, sms) == 16
+        assert mod.pick_split(256, sms) == 1
+        assert mod.pick_split(70000, sms) == 1
+
+
 def test_bucket_body_runs_its_kernels_and_commits_rows(dev):
     """The headline's bucket body (256 streams of 320x240, bucket 8)
     launches slot_gather, frame_prep and handoff once a run (and

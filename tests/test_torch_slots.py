@@ -145,3 +145,14 @@ def test_bucket_body_matches_reference_step_bucket(reference, n):
     assert mode[roles.index("wb")] == tft.MODE_VJ  # its ring was stable
     assert mode[roles.index("vj unserved")] == tft.MODE_VJ
     assert bool(out.escaped[roles.index("cs escapes")])
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 8, 16])
+def test_bucket_body_at_every_split(reference, split, monkeypatch):
+    """The bucket body with frame_prep's and handoff's split forced to P
+    (their twins compute by it: share sums joined, rect counts and the
+    audit's row shares joined): the reference's step_bucket at N = 8
+    (make_step's WB branch and VJ handoff) leaf for leaf, as above."""
+    from headtrackr_tpu_torch.kernels import frameprep
+    monkeypatch.setattr(frameprep, "pick_split", lambda s, sms=None: split)
+    test_bucket_body_matches_reference_step_bucket(reference, 8)

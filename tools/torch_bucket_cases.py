@@ -13,7 +13,13 @@ twin run on the card).
 
 ``check(n, dev)`` returns the counts it reached (and raises on the first
 difference); ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run it
-at 1, 8, 256 and 70,000 streams.
+at 1, 8, 256 and 70,000 streams.  ``check_splits(n, dev)`` holds
+``frame_prep`` and ``handoff`` to their twins with each kernel's split
+forced to every P the launchers can pick (``SPLITS``), the twin taking
+the same split; its inputs add a model-colored pixel just outside the
+band on a row where the audit's shares of the frame meet.
+
+    python3 tools/torch_bucket_cases.py --splits [N ...]
 """
 
 import os
@@ -27,6 +33,7 @@ NS = (1, 8, 256, 70000)
 SLOTS = 8  # a relock bucket's slots
 BIG = 4096  # past it the frames shrink to 120x160 (70,000 streams: 4 GB)
 CHUNK = 8192  # streams a twin call takes at once (its temporaries' memory)
+SPLITS = (1, 2, 4, 8, 16)  # every CTAs-a-stream the launchers can pick
 
 
 def frame_shape(n):
@@ -105,6 +112,13 @@ def inputs(n, dev, seed=0):
             frames[j, ry + bh // 2, rx - 1] = face
         elif rx + bw < W:
             frames[j, ry + bh // 2, rx + bw] = face
+    # and on a row where the audit's shares meet (k H / 16 or the row
+    # before it), one column outside the band: streams 6k
+    col = rx - 1 if rx > 0 else rx + bw
+    for j in range(0, n, 6):
+        if col < W:
+            y = (j // 6 % 16) * H // 16 - (j // 96 % 2)
+            frames[j, max(y, 0), col] = face
     rects = torch.from_numpy(np.stack([
         rng.integers(-30, W, n), rng.integers(-30, H, n),
         rng.integers(0, W, n), rng.integers(0, H, n)], 1).astype(np.int32))
@@ -260,12 +274,79 @@ def check(n, dev, seed=0):
     return counts
 
 
+def check_splits(n, dev, seed=0, splits=SPLITS):
+    """frame_prep (gray and wb_vj both ways, every stream and through
+    slots) and handoff (the init form with the audit on and off, the
+    handoff form with it) against their twins at n streams on ``dev``,
+    each with its split forced to every P of ``splits`` and the twin
+    taking the same P; one launch a call.  Returns {P: launches} and the
+    counts reached."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels.frameprep import frame_prep
+    from headtrackr_tpu_torch.kernels.handoff import handoff
+    from headtrackr_tpu_torch.ops.handoff import handoff_plain
+    from headtrackr_tpu_torch.ops.imageproc import frame_prep_plain
+
+    inp = inputs(n, dev, seed)
+    frames, band, mode = inp["frames"], inp["band"], inp["mode"]
+    old = old_cs(n, dev)
+    det = inp["det"]
+    mode_in = torch.where(mode == 0, 1, mode).to(torch.int32)
+    slots = _slots(n, dev)
+    safe = torch.clamp(slots, max=n - 1)
+    rows = lambda t: t.index_select(0, safe)  # noqa: E731
+    out = {"launches": {}, "dirty": 0, "clean": 0}
+    for p in splits:
+        before = {k: L.launches[k] for k in ("frame_prep", "handoff")}
+        for gray, wb_vj in ((True, False), (False, True)):
+            got = frame_prep(frames, None, mode, inp["ring"], inp["wb_n"],
+                             gray, wb_vj, split=p)
+            want = _cat([frame_prep_plain(frames[a:b], None, mode[a:b],
+                                          inp["ring"][a:b], inp["wb_n"][a:b],
+                                          gray, wb_vj, p)
+                         for a, b in _chunks(n)])
+            _check(f"frame_prep P={p} gray={gray}", got, want)
+            args = (rows(mode), rows(inp["ring"]), rows(inp["wb_n"]), gray,
+                    wb_vj)
+            _check(f"frame_prep P={p} slots gray={gray}",
+                   frame_prep(frames, slots, *args, split=p),
+                   frame_prep_plain(frames, slots, *args, p))
+        for b in (band, None):
+            got = handoff(frames, rect=inp["rects"], band=b, split=p)
+            want = _cat([handoff_plain(frames[a:c], rect=inp["rects"][a:c],
+                                       band=b, split=p)
+                         for a, c in _chunks(n)])
+            _check(f"handoff init P={p} band={b}", got, want)
+            if b is not None:
+                out["dirty"] += int(got[7].sum())
+                out["clean"] += int((~got[7]).sum())
+        got = handoff(frames, det=det, entry_mode=mode, mode=mode_in,
+                      old=old, band=band, split=p)
+        parts = [handoff_plain(frames[a:c], det=tuple(d[a:c] for d in det),
+                               entry_mode=mode[a:c], mode=mode_in[a:c],
+                               old=tuple(o[a:c] for o in old), band=band,
+                               split=p)
+                 for a, c in _chunks(n)]
+        _check(f"handoff P={p} leaves", got[0], _cat([w[0] for w in parts]))
+        _check(f"handoff P={p} mode", (got[1],),
+               (torch.cat([w[1] for w in parts]),))
+        _check(f"handoff P={p} result", got[2], _cat([w[2] for w in parts]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["launches"][p] = {k: L.launches[k] - v
+                              for k, v in before.items()}
+    return out
+
+
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
+    fn = check
+    if args and args[0] == "--splits":
+        fn, args = check_splits, args[1:]
     for n in [int(a) for a in args] or NS:
-        print(n, check(n, dev), flush=True)
+        print(n, fn(n, dev), flush=True)
 
 
 if __name__ == "__main__":

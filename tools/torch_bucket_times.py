@@ -1,0 +1,93 @@
+"""The relock tick's bucket kernels ``frame_prep`` (K9) and ``handoff``
+(K7) timed on the card in the checkout at ``--root`` (default: this one),
+so that two checkouts compare on one card (tools/torch_compare.sh runs it
+for a parent checkout and this one in turns).
+
+The calls are chip_smoke.py ``bucket_workloads``' on the bench pool: the
+relock tick's 8 slots (4 served, switching on their face boxes, the 96x128
+audit) and the cold start's 256 streams (every stream switching, and
+``frame_prep`` with the gray plane and without it).  For each: CUDA events
+over 20 eager wrapper calls, graph replay, an empty kernel at the
+checkout's grid (its CTAs: the streams, times the launcher's split where
+the checkout has one), and a digest of the outputs' bytes, so that the
+turns can be seen to agree.
+
+    python3 tools/torch_bucket_times.py [--root build/parent]
+
+Prints the card's name and power limit, then one JSON line.  Needs a CUDA
+card.
+"""
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digest(tree):
+    """A short hash of the bytes of every tensor in a nested output."""
+    import torch
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
+        elif t is not None:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    walk(tree)
+    return h.hexdigest()[:12]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=HERE,
+                   help="the checkout whose headtrackr_tpu_torch to time")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_bucket_times: no CUDA device", file=sys.stderr)
+        return 1
+    cs = _load("chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    from bench import build_pool
+    from headtrackr_tpu_torch.kernels import frameprep, handoff
+    from headtrackr_tpu_torch.kernels.launch import sm_count
+
+    print(cs.smi(), flush=True)
+    dev = torch.device("cuda", 0)
+    pick = getattr(frameprep, "pick_split", lambda n, sms=None: 1)
+    pool = build_pool(cs.N_STREAMS, cs.H, cs.W, cs.POOL, cs.LOSS_STREAMS,
+                      np.random.default_rng(0))
+    calls, _, _ = cs.bucket_workloads(pool, dev)
+    del pool
+    wrapper = {"frame_prep": frameprep.frame_prep,
+               "handoff": handoff.handoff}
+    res = {}
+    for name, (key, a, kw, n) in calls.items():
+        fn = (lambda f=wrapper[key], a=a, kw=kw: f(*a, **kw))
+        grid = n * pick(n, sm_count(dev))
+        res[name] = dict(events_ms=cs.cuda_ms(fn), graph_ms=cs.graph_ms(fn),
+                         empty_ms=cs.graph_ms(lambda g=grid:
+                                              cs.floor_launch(g)),
+                         grid=grid, digest=digest(fn()))
+        print(f"{name}: {res[name]}", flush=True)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
