@@ -119,12 +119,16 @@ Phases, one line each; any failure raises and exits nonzero:
  3b. bucket: the relock tick's bucket kernels, frame_prep (K9), handoff
      (K7) and slot_gather (S5), bit-equal to their twins run on the card
      (tools/torch_bucket_cases.py at 1, 8 and 256 streams, every branch;
-     then the relock tick's own shapes on the bench pool: 8 slots over 256
-     streams, the 4 loss streams served and padding, face boxes as the
-     detections, the 96x128 band's audit), each timed (events, graph
-     replay) beside its twin, an empty kernel at its grid, the bytes this
-     run's data needs and a library call (a channel sum, torch.bincount
-     of the rects' bins, index_select of the model histograms' rows);
+     slot_gather at every slot count to the chunk cap and at
+     escape_bucket under both keep rules; then the relock tick's own
+     shapes on the bench pool: 8 slots over 256 streams, the 4 loss
+     streams served and padding, face boxes as the detections, the 96x128
+     band's audit; and slot_gather on the few escape body's 8 slots, 3
+     escaped, with the frames a leaf), each timed (events, graph replay)
+     beside its twin, an empty kernel at its grid, the bytes this run's
+     data needs and a library call (a channel sum, torch.bincount of the
+     rects' bins, index_select of the model histograms' rows or of the
+     frames' rows);
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -255,7 +259,7 @@ Phases, one line each; any failure raises and exits nonzero:
      torch.topk; then the headline configuration at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
      calls of 16 ticks each from a poisoned frame buffer and poisoned
-     escape staging buffers (state_out, out; the cold start's
+     many-body staging buffers (state_out, out; the cold start's
      wbtrack and full ticks or its rotation burst, bucket and chunk ticks
      after losses, band escapes within escape_bucket and beyond it): every
      StepOutput leaf and the final state bit-equal to the per-tick path
@@ -429,7 +433,8 @@ ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
                  "pyramid": "headtrackr_tpu/ops/imageproc.py:49",
                  "cascade": "headtrackr_tpu/models/detector.py:261, :441",
                  "group": "headtrackr_tpu/models/detector.py:788",
-                 "tick_epilogue": "headtrackr_tpu/models/facetracker.py:244"}
+                 "tick_epilogue": "headtrackr_tpu/models/facetracker.py:244",
+                 "slot_gather": "headtrackr_tpu/runtime/serving.py:249"}
 X4 = "histpdf_band x4 workload"  # its timing entry on X4/X7's own workload
 # backproject_rect's timing entry at band x origins on the 8-pixel grid, as
 # the serving path places them (its main entry: origins from -20 up)
@@ -2064,6 +2069,8 @@ def phase_bucket(pools, dev, root):
     """Phase 3b, the relock tick's bucket kernels: frame_prep (K9),
     handoff (K7) and slot_gather (S5) against their twins run on the card,
     bit-equal: (a) tools/torch_bucket_cases.py's check at BUCKET_NS
+    streams, and its check_gather there (slot_gather at every slot count
+    to the chunk cap and at escape_bucket, both keep rules)
     streams (every branch: WB streams with stable rings, VJ streams
     switching or not, detections at and past the frame's edges and empty,
     model pixels one row or column outside the band, padded slots); (b)
@@ -2082,7 +2089,8 @@ def phase_bucket(pools, dev, root):
     from headtrackr_tpu_torch.kernels.frameprep import frame_prep, pick_split
     from headtrackr_tpu_torch.kernels.handoff import handoff
     from headtrackr_tpu_torch.kernels.launch import sm_count
-    from headtrackr_tpu_torch.kernels.schedule import (slot_gather,
+    from headtrackr_tpu_torch.kernels.schedule import (gather_ctas,
+                                                       slot_gather,
                                                        slot_gather_plain)
     from headtrackr_tpu_torch.ops.handoff import handoff_plain
     from headtrackr_tpu_torch.ops.histogram import rgb_bins
@@ -2102,6 +2110,14 @@ def phase_bucket(pools, dev, root):
     log(f"kernels: frame_prep, handoff and slot_gather bit-equal to their "
         f"twins on the card at N={list(BUCKET_NS)} ({big}; "
         f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for n in BUCKET_NS:
+        r = cases.check_gather(n, dev)
+        if r["launches"] != r["calls"]:
+            raise AssertionError(f"bucket: slot_gather at N={n}: {r}")
+    log(f"kernels: slot_gather bit-equal to its twin at every slot count to "
+        f"the chunk cap and at escape_bucket, both keep rules, at "
+        f"N={list(BUCKET_NS)} ({r}; {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     for n in BUCKET_NS:
         r = cases.check_splits(n, dev)
@@ -2140,6 +2156,22 @@ def phase_bucket(pools, dev, root):
     S = BUCKET_SLOTS
     leaves = _leaves_of(state)
     sg_bytes = 2 * sum(t.nbytes // N_STREAMS for t in leaves) * S + 9 * S
+    # the few escape body's gather: SCHED_EB slots, the last
+    # SCHED_ESCAPES[1] streams and padding, the frames an extra leaf
+    frames = calls["frame_prep"][1][0]
+    eidx = torch.full((SCHED_EB,), N_STREAMS, dtype=torch.int64)
+    eidx[:SCHED_ESCAPES[1]] = torch.arange(N_STREAMS - SCHED_ESCAPES[1],
+                                           N_STREAMS)
+    eidx = eidx.to(dev)
+    got = slot_gather(state, eidx, True, (frames,))
+    want = slot_gather_plain(state, eidx, True, (frames,))
+    for a, b in zip(_leaves_of(got[0]) + list(got[1:]),
+                    _leaves_of(want[0]) + list(want[1:])):
+        if not cases._same(a, b):
+            raise AssertionError("bucket: slot_gather differs from its twin "
+                                 "on the few escape body's slots")
+    esc_rows = [t.nbytes // N_STREAMS for t in leaves + [frames]]
+    sge_bytes = 2 * sum(esc_rows) * SCHED_EB + 9 * SCHED_EB
     sms = sm_count(dev)
 
     def rect_ids(args, kw):
@@ -2177,7 +2209,14 @@ def phase_bucket(pools, dev, root):
     timed["slot_gather"] = (
         lambda: slot_gather(state, idx), lambda: slot_gather_plain(state, idx),
         sg_bytes, (lambda: state.cs.model_hist.index_select(0, idx.clamp(
-            max=N_STREAMS - 1)), True), S * len(leaves), "slot_gather")
+            max=N_STREAMS - 1)), True),
+        S * gather_ctas([t.nbytes // N_STREAMS for t in leaves]),
+        "slot_gather")
+    timed["slot_gather escape"] = (
+        lambda: slot_gather(state, eidx, True, (frames,)),
+        lambda: slot_gather_plain(state, eidx, True, (frames,)), sge_bytes,
+        (lambda: frames.index_select(0, eidx.clamp(max=N_STREAMS - 1)),
+         True), SCHED_EB * gather_ctas(esc_rows), "slot_gather")
     times = {}
     for name, (kernel, plain, nbytes, (lib, capturable), grid, key) \
             in timed.items():
@@ -2193,6 +2232,9 @@ def phase_bucket(pools, dev, root):
         where = (f"the relock tick: {S} slots, {LOSS_STREAMS} served, of "
                  f"{N_STREAMS} streams" if " n" not in name else
                  f"the cold start's {N_STREAMS} streams")
+        if name == "slot_gather escape":
+            where = (f"the few escape body: {SCHED_EB} slots, "
+                     f"{SCHED_ESCAPES[1]} escaped, the frames a leaf")
         log(f"kernels: {name} ({where}) {ms:.4f} ms, graph replay "
             f"{e['graph_ms']:.4f} ms, an empty kernel at its grid of {grid} "
             f"CTAs {e['empty_ms']:.4f} ms (plain {plain_ms:.4f} ms, bound "
@@ -2737,11 +2779,13 @@ def phase_schedule(pool, dev):
         # one a tick whose body copies and one an escape body's run
         want_runs = dict.fromkeys(SCHED_KERNELS, 2 * SCHED_K)
         want_runs["scan_step"] = copy_runs(bt, got)
-        # scan_commit's staging: one an escape body's run
+        # scan_commit: one more an escape body's run (the many body's
+        # staging; the few body's rows after the tick body's table), and
+        # staging on the many body's ticks alone
         want_runs["scan_commit"] += int(ran[9] + ran[10])
-        if stages != ran[9] + ran[10]:
+        if stages != ran[10]:
             raise AssertionError(f"schedule [{overload}]: {stages} stagings "
-                                 f"for {ran[9] + ran[10]} escape bodies")
+                                 f"for {ran[10]} many bodies")
         off = {k: counts[overload][k] for k in SCHED_KERNELS
                if counts[overload][k] != want_runs[k]}
         if off:
@@ -2844,7 +2888,7 @@ def phase_schedule(pool, dev):
 
 
 def poison(prog):
-    """Fill the program's frame buffer with 255 and the escape bodies'
+    """Fill the program's frame buffer with 255 and the many escape body's
     staging buffers (state_out, out) with the byte 0xA5: a body that read
     them where it should read tick k's frames, or the tick body's staged
     results, would differ."""
@@ -2860,21 +2904,25 @@ def commit_times(prog, dev):
     histograms passed through: no entry) and the bucket body's at kb slots
     (the relock tick's: the track pass's changed leaves whole, the
     sub-batch's rows merged by its slot map, the model histograms by their
-    served rows alone), each into copies of the state (a merge writes only
-    its rows) and a scan's packs of 2 ticks, bit-equal to
+    served rows alone) and the few escape body's (the kept rows alone of
+    what its step changed), each into copies of the state (a merge writes
+    only its rows) and a scan's packs of 2 ticks, bit-equal to
     scan_commit_plain; timed by events and graph replay beside its twin,
     its byte bound (each table's bytes read and written) and one
-    torch._foreach_copy_ over the entries with a source.  The all-CS
+    torch._foreach_copy_ over the entries with a source (none for the few
+    body's table, which has none).  The all-CS
     table's numbers at the top level, each table's under "tables"."""
     import torch
     from headtrackr_tpu_torch.kernels import schedule as S
-    bodies = {"all-CS": prog.bodies[0], "bucket": prog.bodies[1]}
+    bodies = {"all-CS": prog.bodies[0], "bucket": prog.bodies[1],
+              "few": prog.few}
     packs = [torch.empty((shape[0], 2) + shape[1:], dtype=dt, device=dev)
              for dt, shape in prog.bufs.packs.items()]
     tables = []
-    for body in bodies.values():
-        carry, rows, *slots = prog._commit_pairs(body.state, body.out,
-                                                 body.merge)
+    for name, body in bodies.items():
+        carry, rows, *slots = (
+            prog._few_pairs(body.merge) if name == "few" else
+            prog._commit_pairs(body.state, body.out, body.merge))
         tables.append(([(c[0], c[1].clone()) + tuple(c[2:]) for c in carry],
                        rows, *slots))
     ct = S.segments(tables, dev)
@@ -2904,8 +2952,10 @@ def commit_times(prog, dev):
         first, count = ct.tables[t, :2].tolist()
         moved = int(ct.segs[first:first + count, 2].sum())
         whole = [c for c in carry if c[0] is not None]
-        srcs = [c[0] for c in whole] + [r[0] for r in rows]
-        dsts = [c[1] for c in whole] + [packs[r[1]][r[2], 0] for r in rows]
+        sourced = [r for r in rows if r[0] is not None]
+        srcs = [c[0] for c in whole] + [r[0] for r in sourced]
+        dsts = [c[1] for c in whole] + [packs[r[1]][r[2], 0]
+                                        for r in sourced]
         commit = lambda t=t: S.scan_commit(p, ct, t)  # noqa: E731
         out[name] = {
             "entries": count, "bytes": moved,
@@ -2917,7 +2967,9 @@ def commit_times(prog, dev):
             "ms": cuda_ms(commit), "graph_ms": graph_ms(commit),
             "plain_ms": cuda_ms(plain),
             **dict(zip(("bound_ms", "bound_by"), bound(2 * moved, 0))),
-            **library_times(lambda: torch._foreach_copy_(dsts, srcs), True)}
+            **(library_times(lambda: torch._foreach_copy_(dsts, srcs), True)
+               if srcs else {"library_ms": None,
+                             "library_graph_ms": None})}
     held = {id(t) for t in _leaves_of(prog.bufs.state_in)}
     kept = {}
     for key, body in zip([str(k) for k in range(len(prog.bodies))]
@@ -2927,18 +2979,21 @@ def commit_times(prog, dev):
             extra = [] if body.merge is None else (
                 _leaves_of(body.merge.state) + list(body.merge.out))
             leaves = {t.data_ptr(): t.nbytes for t in
-                      _leaves_of(body.state) + list(body.out) + extra
+                      _leaves_of(body.state) + _leaves_of(body.out) + extra
                       if id(t) not in held}
             kept[key] = sum(leaves.values())
     out["all-CS"]["kept_bytes_per_body"] = kept
     log(f"schedule: the results each body keeps, bytes by body "
         f"(tick bodies by index, few, many): {kept}")
+    def library(v):
+        return ("none: no source" if v["library_ms"] is None
+                else fmt_ms(v["library_graph_ms"]))
+
     log(f"schedule: scan_commit bit-equal to its twin on {list(bodies)} "
         f"tables at {prog.bufs.age.shape[0]} streams: " + "; ".join(
             f"{k} {v['bytes']} B ({v['merged_entries']} merged entries), "
             f"graph {v['graph_ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
-            f"_foreach_copy_ {fmt_ms(v['library_graph_ms'])})"
-            for k, v in out.items()))
+            f"_foreach_copy_ {library(v)})" for k, v in out.items()))
     return {**out["all-CS"], "tables": out}
 
 
@@ -4146,6 +4201,9 @@ def main():
         if k in BUCKET:
             e.update(relock_body_launches=bodies[str(min(8, N_STREAMS))]
                      .get(k), f32=f32["bucket"]["launches"][k])
+        if k == "slot_gather":
+            e.update(escape=times["slot_gather escape"],
+                     few_body_launches=bodies["few"][k])
             e.update({t[len(k) + 1:].replace(" ", "_"): times[t]
                       for t in times if t.startswith(f"{k} n")})
         if k == "hist4096":

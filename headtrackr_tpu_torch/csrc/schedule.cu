@@ -19,19 +19,23 @@
 //                  there (a body whose one frame reader reads in place
 //                  copies none);
 //   scan_commit    the scan's carry and stacked outputs: the results of
-//                  the body that ran (the escape body's when one did, else
-//                  the tick body's), its outputs into row k of the
+//                  the body that ran (the many escape body's when it did,
+//                  else the tick body's), its outputs into row k of the
 //                  (fields, K, N) output packs and its new state over the
 //                  state every body reads; in its staging mode, on a tick
-//                  whose escape fallback runs a body, the tick body's
-//                  results into the buffers the escape bodies read;
-//                  a bucket body's sub-batch rows merged by its slot map
-//                  (:210-223 _scatter_subbatch: rows kept and not padding
-//                  written, the rest dropped);
-//   slot_gather    :299-320 _apply_bucket's gathers (a[safe] over the
-//                  state): every state leaf's rows at min(idx, N - 1)
-//                  into the sub-batch, and the kept flags (idx < N and
-//                  not in CS), one launch driven by a table of leaves.
+//                  whose escape fallback runs the many body, the tick
+//                  body's results into the buffers that body reads;
+//                  a sub-batch's rows merged by its slot map (:210-223
+//                  _scatter_subbatch: rows kept and not padding written,
+//                  the rest dropped): a bucket body's into its own table,
+//                  the few escape body's as a table of rows alone written
+//                  after the tick body's;
+//   slot_gather    :299-320 _apply_bucket's and :249-262 the few escape
+//                  branch's gathers (a[safe] over the state): every leaf's
+//                  rows at min(idx, N - 1) into the sub-batch, and the
+//                  kept flags (idx < N, and under the bucket's rule not in
+//                  CS), one launch over a by-value table of leaves, its
+//                  grid sized by the rows' bytes.
 // What bounds them: none moves more than the tick's frames (scan_step's
 // whole mode, bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x
 // 240 x 320 on an H100 SXM at 3.35 TB/s; its rows mode s rows of H x W x
@@ -91,18 +95,25 @@
 //     the body's state leaves over the state every body reads (a leaf the
 //     body passed through, the very tensor, has no entry; pend_age comes
 //     from tick_select's age_out), its outputs into their pack rows (a
-//     1-D strided output gathered).  It picks
-//     the table of what ran: the escape body chosen (p->esel), else the
-//     tick body (p->branch).  The copy is balanced by bytes, not by entry:
-//     a table's entries are one flat run of 16-byte chunks (an entry's
-//     first chunk in its row), the grid a wave of CTAs over the largest
-//     table striding over the chosen one, so one large leaf gets the
+//     1-D strided output gathered).  It picks the table of what ran:
+//     the many body when it ran (p->esel), else the tick body
+//     (p->branch); on a tick whose few body ran it skips, since that
+//     body's IF graph committed.  The copy is balanced by bytes, not by
+//     entry: a table's entries are one flat run of 16-byte chunks (an
+//     entry's first chunk in its row), the grid a wave of CTAs over the
+//     largest table striding over the chosen one, so one large leaf gets the
 //     whole card; a chunk whose source or destination is off the 16-byte
 //     grid (a row of N bools) is copied byte by byte.  escape_select reads
 //     the tick body's own escaped flags (their address in esc_at, by
-//     p->branch); an escape body's IF graph first stages the tick body's
+//     p->branch); the many body's IF graph first stages the tick body's
 //     results into the buffers it reads (scan_commit's staging mode: a
-//     table a tick body, by p->branch), so a steady tick stages nothing.
+//     table a tick body, by p->branch), so only its ticks stage.  The few
+//     body reads the state every body reads, before anything commits:
+//     its IF graph runs [scan_step ->] the body, which gathers its slots'
+//     rows (slot_gather) and returns them and its step's results on
+//     them, then scan_commit of the tick body's table, then scan_commit
+//     of the few body's, each changed leaf's kept rows alone, so an
+//     escape within escape_bucket copies no leaf whole.
 //   - The parameter block (Params) lives in device memory; the host writes
 //     it before each launch (k = 0, K, the frames' and output packs'
 //     addresses) and reads it back with the last tick's modes: each kernel
@@ -113,8 +124,9 @@
 //   - sched_program_build assembles the graph: a WHILE node whose body is
 //     tick_select -> one IF node a tick body -> escape_select -> IF few,
 //     IF many -> scan_commit, each IF node's body [scan_step ->] a child
-//     graph node of a PyTorch-captured body (an escape body's after
-//     scan_commit's staging).  It walks each body's nodes
+//     graph node of a PyTorch-captured body (the many body's after
+//     scan_commit's staging; the few body's followed by its two
+//     scan_commits).  It walks each body's nodes
 //     first and refuses a node type a conditional body cannot hold.
 //
 // The launchers run on the caller's stream, allocate nothing and return the
@@ -695,15 +707,21 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
-// The table of what ran this tick: ``table`` when >= 0; else, staging,
-// the tick body's (p->branch); else the escape body's (nb - 1 + p->esel,
-// few then many after the nb tick bodies) when one ran, the tick body's
-// otherwise.
+// scan_commit's table arguments below 0: the program's pick, and the
+// tick body's table (kernels/schedule.py TABLE_PICK, TABLE_TICK).
+constexpr int kTablePick = -1;
+constexpr int kTableTick = -2;
+
+// The table of what ran this tick: ``table`` when >= 0; the tick body's
+// (p->branch) when staging or for kTableTick; else (kTablePick) none when
+// the few escape body ran (its IF graph committed the tick body's table
+// and then its own rows), the many body's (nb + 1, after the nb tick
+// bodies and few) when it ran, the tick body's otherwise.  -1: nothing.
 __device__ __forceinline__ long long commit_table(const Params* p, int nb,
                                                   int stage, int table) {
   if (table >= 0) return table;
-  if (!stage && p->esel > 0) return nb - 1 + p->esel;
-  return p->branch;
+  if (stage || table == kTableTick || p->esel == 0) return p->branch;
+  return p->esel == 1 ? -1 : nb - 1 + p->esel;
 }
 
 // The row slot j of a slot map lands on, or -1 (not kept, or padding).
@@ -740,7 +758,9 @@ __device__ __forceinline__ unsigned char sub_byte(const Merge& g,
 // from the sub row, the rows entry's chunks run over the sub rows alone),
 // so no two chunks write one byte and the copy needs no order.  One run
 // counts in p->commits, or in p->stages (stage: the tick body's results
-// into the escape bodies' buffers).
+// into the many body's buffers); a run that picks no table (the few
+// body's tick, which its own IF graph committed) copies and counts
+// nothing.
 __global__ void __launch_bounds__(kCopyThreads)
     scan_commit_kernel(Params* p, const Table* __restrict__ tables,
                        const Seg* __restrict__ segs,
@@ -748,6 +768,7 @@ __global__ void __launch_bounds__(kCopyThreads)
                        const SlotMap* __restrict__ maps, int nb, int stage,
                        int table) {
   const long long ti = commit_table(p, nb, stage, table);
+  if (ti < 0) return;
   const Table t = tables[ti];
   SlotMap m = {0, 0, 0, 0};
   if (maps && merges) m = maps[ti];
@@ -844,48 +865,163 @@ __global__ void __launch_bounds__(kCopyThreads)
 
 // slot_gather's leaves a launch (kernels/schedule.py SLOT_LEAVES).
 constexpr int kMaxLeaves = 32;
+// slot_gather's grid (kernels/schedule.py GATHER_*): a warp-unit is a
+// lane's 16 bytes across a warp, 512 bytes of one leaf's row; a warp takes
+// kGatherSpan of them, a CTA kGatherWarps warps' worth.
+constexpr int kWarpBytes = 32 * 16;
+constexpr int kGatherThreads = 256;
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGatherSpan = 1;
 
 // slot_gather's arguments, by value (kernels/schedule.py _GatherArgs
 // mirrors it): the slots, the mode leaf (i32, ``mode_pitch`` elements a
-// stream) and the keep flags written; a leaf each: its source, its sub
-// rows, its row bytes and, for a 1-D strided source, its element stride in
-// bytes (0: contiguous).
+// stream), the keep flags written and their rule (escape: idx < n alone,
+// the escape fallback's; else also not in CS, the bucket's); a leaf each:
+// its source, its sub rows, its row bytes and, for a 1-D strided source,
+// its element stride in bytes (0: contiguous).  ``warps`` and ``first``
+// (leaf e's first warp-unit in a slot's run) the launcher fills.
 struct GatherArgs {
   const long long* idx;
   const int* mode;
   unsigned char* keep;
   long long n, mode_pitch;
-  int slots, leaves;
+  int slots, leaves, escape, warps;
   const unsigned char* src[kMaxLeaves];
   unsigned char* dst[kMaxLeaves];
   long long rb[kMaxLeaves];
   long long pitch[kMaxLeaves];
+  int first[kMaxLeaves];
 };
 
-// CTA (leaf e, slot j): row min(idx[j], n - 1) of leaf e into row j of its
-// sub rows; CTA (0, j) also writes keep[j] (idx[j] < n and that row's mode
-// not CS: the reference's ``valid``).
-__global__ void __launch_bounds__(kCopyThreads)
-    slot_gather_kernel(GatherArgs a) {
-  const int e = blockIdx.x;
-  const long long j = blockIdx.y;
-  const long long i = a.idx[j];
-  const long long r = i < a.n - 1 ? i : a.n - 1;
-  if (e == 0 && threadIdx.x == 0) {
-    a.keep[j] = i < a.n && a.mode[r * a.mode_pitch] != kModeCS;
-  }
-  const long long rb = a.rb[e];
-  unsigned char* dst = a.dst[e] + j * rb;
-  const unsigned char* src = a.src[e] + (a.pitch[e] ? r * a.pitch[e] : r * rb);
-  if (!a.pitch[e] && aligned16(src, dst, rb)) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (long long v = threadIdx.x; v < rb / 16; v += kCopyThreads) {
-      d4[v] = s4[v];
+// One lane's unit: up to 16 bytes of a row, as one vector (16-aligned,
+// whole), 4-byte words (4-aligned) or bytes, held in registers between
+// the loads and the stores.
+struct Unit {
+  unsigned w[4];
+  unsigned char* dst;
+  int bytes, kind;  // kind 2 vector, 1 words, 0 bytes; bytes 0: none
+};
+
+__device__ __forceinline__ void unit_load(Unit& u,
+                                          const unsigned char* src) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(src) |
+                          reinterpret_cast<uintptr_t>(u.dst);
+  if (u.bytes == 16 && (align & 15) == 0) {
+    u.kind = 2;
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    u.w[0] = v.x;
+    u.w[1] = v.y;
+    u.w[2] = v.z;
+    u.w[3] = v.w;
+  } else if ((u.bytes & 3) == 0 && (align & 3) == 0) {
+    u.kind = 1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * k < u.bytes) u.w[k] = reinterpret_cast<const unsigned*>(src)[k];
     }
   } else {
-    for (long long b = threadIdx.x; b < rb; b += kCopyThreads) dst[b] = src[b];
+    u.kind = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u.w[k] = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (k < u.bytes) u.w[k >> 2] |= static_cast<unsigned>(src[k])
+                                      << (8 * (k & 3));
+    }
   }
+}
+
+__device__ __forceinline__ void unit_store(const Unit& u) {
+  if (u.kind == 2) {
+    *reinterpret_cast<uint4*>(u.dst) =
+        make_uint4(u.w[0], u.w[1], u.w[2], u.w[3]);
+  } else if (u.kind == 1) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * k < u.bytes) reinterpret_cast<unsigned*>(u.dst)[k] = u.w[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (k < u.bytes) u.dst[k] =
+          static_cast<unsigned char>(u.w[k >> 2] >> (8 * (k & 3)));
+    }
+  }
+}
+
+// The grid: x over a slot's run of warp-units (every leaf's row cut into
+// warp-units of kWarpBytes, a leaf starting a warp-unit of its own, so a
+// warp's lanes share a leaf), y the slot.  Each warp finds its units'
+// leaves while idx[j] loads (a binary search for the last leaf whose first
+// warp-unit is at or before the unit, a leaf of no bytes passed over),
+// then loads every unit of its span before it stores any.  Row
+// min(idx[j], n - 1) of each leaf goes to row j of its sub rows; CTA
+// (0, j) also writes keep[j]: idx[j] < n and, under the bucket's rule,
+// that row's mode not CS (the reference's ``valid``).
+__global__ void __launch_bounds__(kGatherThreads)
+    slot_gather_kernel(const __grid_constant__ GatherArgs a) {
+  const long long j = blockIdx.y;
+  const long long i = a.idx[j];
+  const int lane = threadIdx.x & 31;
+  const int q0 =
+      (blockIdx.x * kGatherWarps + (threadIdx.x >> 5)) * kGatherSpan;
+  int leaf[kGatherSpan];
+  long long off[kGatherSpan];
+#pragma unroll
+  for (int v = 0; v < kGatherSpan; ++v) {
+    const int q = q0 + v;
+    int lo = 0, hi = a.leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (a.first[mid] <= q) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    leaf[v] = q < a.warps ? lo : -1;
+    off[v] = leaf[v] < 0 ? 0
+                         : static_cast<long long>(q - a.first[leaf[v]]) *
+                                   kWarpBytes + 16 * lane;
+  }
+  const long long r = i < a.n - 1 ? i : a.n - 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.keep[j] = i < a.n && (a.escape || a.mode[r * a.mode_pitch] != kModeCS);
+  }
+  Unit u[kGatherSpan];
+#pragma unroll
+  for (int v = 0; v < kGatherSpan; ++v) {
+    u[v].bytes = 0;
+    const int e = leaf[v];
+    if (e < 0) continue;
+    const long long rb = a.rb[e];
+    if (off[v] >= rb) continue;
+    u[v].bytes = static_cast<int>(rb - off[v] < 16 ? rb - off[v] : 16);
+    u[v].dst = a.dst[e] + j * rb + off[v];
+    unit_load(u[v], a.src[e] + (a.pitch[e] ? r * a.pitch[e] : r * rb) +
+                        off[v]);
+  }
+#pragma unroll
+  for (int v = 0; v < kGatherSpan; ++v) {
+    if (u[v].bytes) unit_store(u[v]);
+  }
+}
+
+// The launcher's side of ``a``: each leaf's first warp-unit and a slot's
+// warp-units.  Returns the grid's x (kernels/schedule.py gather_ctas
+// mirrors it), or -1 where a row's bytes are negative or too many.
+int gather_layout(GatherArgs* a) {
+  long long w = 0;
+  for (int e = 0; e < a->leaves; ++e) {
+    if (a->rb[e] < 0) return -1;
+    a->first[e] = static_cast<int>(w);
+    w += (a->rb[e] + kWarpBytes - 1) / kWarpBytes;
+    if (w > (1 << 30)) return -1;
+  }
+  a->warps = static_cast<int>(w);
+  const long long per = kGatherWarps * kGatherSpan;
+  const long long x = (w + per - 1) / per;
+  return static_cast<int>(x < 1 ? 1 : x);
 }
 
 // A select's arguments: n streams, cap slots, a scratch buffer of
@@ -1001,8 +1137,7 @@ struct Commit {
 
 int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
                const cudaGraphNode_t* deps, size_t ndeps, Params* p,
-               Commit c) {
-  int table = -1;
+               Commit c, int table) {
   void* args[] = {&p,    &c.tables, &c.segs,  &c.merges,
                   &c.maps, &c.nb,    &c.stage, &table};
   return add_kernel(node, g, deps, ndeps,
@@ -1010,22 +1145,25 @@ int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
                     dim3(c.ctas), dim3(kCopyThreads), args);
 }
 
-// What a body's IF graph runs: scan_commit's staging (``stage``, an escape
+// What a body's IF graph runs: scan_commit's staging (``stage``, the many
 // body's: the tick body's results into the buffers it reads), scan_step in
 // its copy mode (c: mode, rows, slots: sched_program_build's copies), then
-// the body ``g``; skip as the kernel's.
+// the body ``g``, then (``after``, the few body's) scan_commit of the tick
+// body's table and of table ``after_table``, the body's sub-batch rows;
+// skip as the kernel's.
 int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
              const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
              cudaGraph_t g, const long long* c, Params* p,
              unsigned char* frames, long long frame_bytes, int n,
-             unsigned skip, const Commit* stage) {
+             unsigned skip, const Commit* stage, const Commit* after,
+             int after_table) {
   cudaGraph_t bb;
   int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
   if (rc) return rc;
   cudaGraphNode_t pre;
   size_t npre = 0;
   if (stage) {
-    rc = add_commit(&pre, bb, nullptr, 0, p, *stage);
+    rc = add_commit(&pre, bb, nullptr, 0, p, *stage, kTablePick);
     if (rc) return rc;
     npre = 1;
   }
@@ -1047,6 +1185,13 @@ int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
   TRY(cudaGraphAddChildGraphNode(&inner, bb,
                                  nstep ? &step : npre ? &pre : nullptr,
                                  nstep + (nstep ? 0 : npre), g));
+  if (after) {
+    cudaGraphNode_t tick, rows;
+    rc = add_commit(&tick, bb, &inner, 1, p, *after, kTableTick);
+    if (rc) return rc;
+    rc = add_commit(&rows, bb, &tick, 1, p, *after, after_table);
+    if (rc) return rc;
+  }
   return 0;
 }
 
@@ -1104,11 +1249,16 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   for (int b = 0; b < nb; ++b) {
     rc = add_body(&ifs[b], body, &sel, hb[b],
                   reinterpret_cast<cudaGraph_t>(bodies[b]), copies + 3 * b, p,
-                  frames, frame_bytes, n, 0u, nullptr);
+                  frames, frame_bytes, n, 0u, nullptr, nullptr, 0);
     if (rc) return rc;
     if (copies[3 * b] == kCopyWhole) whole |= 1u << b;
   }
 
+  const Commit commit_args = {reinterpret_cast<const Table*>(a[kTables]),
+                              reinterpret_cast<const Seg*>(a[kSegs]),
+                              reinterpret_cast<const Merge*>(a[kMerges]),
+                              reinterpret_cast<const SlotMap*>(a[kMaps]), nb,
+                              0, static_cast<int>(a[kCommitCtas])};
   // the escape fallback, where a band is on
   cudaGraphNode_t tail[2];
   const cudaGraphNode_t* last = ifs;
@@ -1151,26 +1301,22 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     if (few) {
       rc = add_body(&tail[nlast], body, &esel, hf,
                     reinterpret_cast<cudaGraph_t>(a[kFew]), copies + 3 * nb,
-                    p, frames, frame_bytes, n, whole, &stage);
+                    p, frames, frame_bytes, n, whole, nullptr, &commit_args,
+                    nb);
       if (rc) return rc;
       ++nlast;
     }
     rc = add_body(&tail[nlast], body, &esel, hm,
                   reinterpret_cast<cudaGraph_t>(a[kMany]),
                   copies + 3 * (nb + 1), p, frames, frame_bytes, n, whole,
-                  &stage);
+                  &stage, nullptr, 0);
     if (rc) return rc;
     ++nlast;
     last = tail;
   }
 
-  const Commit commit_args = {reinterpret_cast<const Table*>(a[kTables]),
-                              reinterpret_cast<const Seg*>(a[kSegs]),
-                              reinterpret_cast<const Merge*>(a[kMerges]),
-                              reinterpret_cast<const SlotMap*>(a[kMaps]), nb,
-                              0, static_cast<int>(a[kCommitCtas])};
   cudaGraphNode_t commit;
-  rc = add_commit(&commit, body, last, nlast, p, commit_args);
+  rc = add_commit(&commit, body, last, nlast, p, commit_args, kTablePick);
   if (rc) return rc;
   TRY(cudaGraphInstantiate(&prog->exec, g, 0));
   return 0;
@@ -1249,15 +1395,16 @@ extern "C" int scan_step_launch(void* params, void* frames, long long bytes,
 
 // tables (T, 4), segs (S, 8), merges (S, 4) and maps (T, 4) i64
 // (kernels/schedule.py segments; merges and maps null: no merge);
-// table: the one to copy (>= 0), or -1 to pick it as the program does from
-// p->branch and p->esel, nb tick bodies before few and many; stage: count
-// the run as staging; ctas: the grid (a wave over the largest table).
+// table: the one to copy (>= 0), kTablePick to pick it as the program
+// does from p->branch and p->esel (nb tick bodies before few and many), or
+// kTableTick for the tick body's (p->branch); stage: count the run as
+// staging; ctas: the grid (a wave over the largest table).
 extern "C" int scan_commit_launch(void* params, const void* tables,
                                   const void* segs, const void* merges,
                                   const void* maps, int nb, int stage,
                                   int table, int ctas, void* stream) {
   if (tables == nullptr || segs == nullptr || ctas < 1 || nb < 1 ||
-      (merges == nullptr) != (maps == nullptr)) {
+      table < kTableTick || (merges == nullptr) != (maps == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   scan_commit_kernel<<<ctas, kCopyThreads, 0,
@@ -1270,16 +1417,29 @@ extern "C" int scan_commit_launch(void* params, const void* tables,
 
 extern "C" int slot_gather_args_bytes() { return sizeof(GatherArgs); }
 
-// The sub-batch rows of ``leaves`` leaves at ``slots`` slots, from ``args``
-// (GatherArgs): a CTA a (leaf, slot).
-extern "C" int slot_gather_launch(const void* args, void* stream) {
-  const GatherArgs a = *static_cast<const GatherArgs*>(args);
-  if (a.slots < 1 || a.slots > 65535 || a.leaves < 1 ||
-      a.leaves > kMaxLeaves || a.n < 1 || a.idx == nullptr ||
-      a.mode == nullptr || a.keep == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// ``args`` (GatherArgs) valid for a launch: the grid's x (> 0), else -1.
+int gather_check(GatherArgs* a) {
+  if (a->slots < 1 || a->slots > 65535 || a->leaves < 1 ||
+      a->leaves > kMaxLeaves || a->n < 1 || a->idx == nullptr ||
+      a->mode == nullptr || a->keep == nullptr) {
+    return -1;
   }
-  slot_gather_kernel<<<dim3(a.leaves, a.slots), kCopyThreads, 0,
+  return gather_layout(a);
+}
+
+// The grid's x that slot_gather_launch takes for ``args``, or -1.
+extern "C" int slot_gather_ctas(const void* args) {
+  GatherArgs a = *static_cast<const GatherArgs*>(args);
+  return gather_check(&a);
+}
+
+// The sub-batch rows of ``leaves`` leaves at ``slots`` slots, from ``args``
+// (GatherArgs): a grid of (gather_layout's x, slots) CTAs.
+extern "C" int slot_gather_launch(const void* args, void* stream) {
+  GatherArgs a = *static_cast<const GatherArgs*>(args);
+  const int x = gather_check(&a);
+  if (x < 0) return static_cast<int>(cudaErrorInvalidValue);
+  slot_gather_kernel<<<dim3(x, a.slots), kGatherThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

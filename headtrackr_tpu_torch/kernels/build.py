@@ -80,6 +80,7 @@ _SIGNATURES = {
                              ctypes.c_uint, _C),
         "scan_commit_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _C),
         "slot_gather_launch": (_C, _C),
+        "slot_gather_ctas": (_C,),
         "slot_gather_args_bytes": (),
         "sched_driver_version": (_C,),
         "sched_program_build": (_C, _I, _C, _I, _C),

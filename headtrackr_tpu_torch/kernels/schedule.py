@@ -13,11 +13,14 @@ their plain twins, and the program's CUDA graph.
   scan_commit    the scan's carried state and its stacked outputs: the
                  results of the body that ran (each body keeps its own),
                  by ``segments``' table of that body; in its staging mode
-                 the tick body's results into the escape bodies' buffers;
-                 a bucket body's sub-batch rows merged in by the table's
-                 slot map (:210-223 _scatter_subbatch)
-  slot_gather    :299-320 _apply_bucket's gathers over the state (a[safe])
-                 and its ``valid`` flags, one launch
+                 the tick body's results into the many escape body's
+                 buffers; a sub-batch's rows merged in by the table's slot
+                 map (:210-223 _scatter_subbatch): a bucket body's, and
+                 the few escape body's rows alone after the tick body's
+  slot_gather    :299-320 _apply_bucket's and :249-262 the few escape
+                 branch's gathers over the state (a[safe]) and their
+                 ``valid`` flags (the bucket's rule or the escape's), one
+                 launch
 
 None replaces a Pallas kernel: the reference leaves these to XLA's control
 flow inside one program.  Dispatch as the other wrappers: a CPU tensor
@@ -48,7 +51,8 @@ __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
            "scratch", "select_floor", "CommitTables", "commit_ctas",
            "commit_chunks", "check_commit", "Slots", "slot_gather",
-           "slot_gather_plain", "SLOT_LEAVES"]
+           "slot_gather_plain", "SLOT_LEAVES", "gather_ctas", "TABLE_PICK",
+           "TABLE_TICK"]
 
 MODE_VJ, MODE_CS = 1, 2
 # a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
@@ -84,8 +88,16 @@ COPY_MODES = ("none", "rows", "whole")
 # a commit entry's merge kinds (csrc/schedule.cu Merge): none, a whole copy
 # whose mapped rows come from the sub rows, the mapped rows alone
 MERGE_NONE, MERGED, MERGE_ROWS = 0, 1, 2
-# slot_gather's leaves a launch (csrc/schedule.cu kMaxLeaves)
+# scan_commit's table arguments below 0 (csrc/schedule.cu kTablePick,
+# kTableTick): the program's pick; the tick body's
+TABLE_PICK, TABLE_TICK = -1, -2
+# slot_gather's leaves a launch (csrc/schedule.cu kMaxLeaves) and its grid
+# (kWarpBytes, kGatherWarps, kGatherSpan): a leaf's row in warp-units of
+# GATHER_WARP_BYTES, GATHER_SPAN of them a warp, GATHER_WARPS warps a CTA
 SLOT_LEAVES = 32
+GATHER_WARP_BYTES = 512
+GATHER_WARPS = 8
+GATHER_SPAN = 1
 MIN_DRIVER = 12040  # conditional nodes: CUDA 12.4
 # cudaGraphNodeType
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -318,11 +330,14 @@ def scan_commit_plain(k, carry, rows, slots=None):
             _merge_rows(pack[row, k], r[3], slots)
 
 
-def slot_gather_plain(state, idx):
-    """The slot_gather kernel's twin: (sub, keep): ``sub`` every leaf's
-    rows min(idx, N - 1) of ``state`` (a NamedTuple tree of (N, ...)
-    tensors, None leaves kept None) and ``keep`` (S,) bool, idx < N and
-    the row's ``mode`` not CS (the reference's ``valid``)."""
+def slot_gather_plain(state, idx, escape=False, extra=()):
+    """The slot_gather kernel's twin: (sub, keep, *rows): ``sub`` every
+    leaf's rows min(idx, N - 1) of ``state`` (a NamedTuple tree of (N, ...)
+    tensors, None leaves kept None), ``keep`` (S,) bool, the reference's
+    ``valid``: idx < N and, under the bucket's rule, the row's ``mode`` not
+    CS (:318); under the escape's (``escape``: every escaped stream entered
+    in CS) idx < N alone (:260); then each (N, ...) tensor of ``extra``'s
+    same rows."""
     n = state.mode.shape[0]
     safe = torch.clamp(idx, max=n - 1)
 
@@ -332,19 +347,34 @@ def slot_gather_plain(state, idx):
         return None if t is None else t.index_select(0, safe)
 
     sub = rows(state)
-    return sub, (idx < n) & (sub.mode != MODE_CS)
+    keep = idx < n
+    if not escape:
+        keep &= sub.mode != MODE_CS
+    return (sub, keep) + tuple(rows(t) for t in extra)
 
 
 class _GatherArgs(ctypes.Structure):
-    """csrc/schedule.cu's GatherArgs, field for field."""
+    """csrc/schedule.cu's GatherArgs, field for field (``warps`` and
+    ``first`` the launcher fills)."""
     _fields_ = [("idx", ctypes.c_void_p), ("mode", ctypes.c_void_p),
                 ("keep", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("mode_pitch", ctypes.c_longlong), ("slots", ctypes.c_int),
-                ("leaves", ctypes.c_int),
+                ("leaves", ctypes.c_int), ("escape", ctypes.c_int),
+                ("warps", ctypes.c_int),
                 ("src", ctypes.c_void_p * SLOT_LEAVES),
                 ("dst", ctypes.c_void_p * SLOT_LEAVES),
                 ("rb", ctypes.c_longlong * SLOT_LEAVES),
-                ("pitch", ctypes.c_longlong * SLOT_LEAVES)]
+                ("pitch", ctypes.c_longlong * SLOT_LEAVES),
+                ("first", ctypes.c_int * SLOT_LEAVES)]
+
+
+def gather_ctas(row_bytes):
+    """slot_gather's grid along x for leaves of ``row_bytes`` bytes a row
+    (csrc/schedule.cu gather_layout): each row cut into warp-units of
+    GATHER_WARP_BYTES, a leaf starting a warp-unit of its own, a CTA over
+    GATHER_WARPS * GATHER_SPAN of them; the grid's y is the slot."""
+    warps = sum(-(-rb // GATHER_WARP_BYTES) for rb in row_bytes)
+    return max(1, -(-warps // (GATHER_WARPS * GATHER_SPAN)))
 
 
 def _tree_leaves(tree):
@@ -359,12 +389,14 @@ def _rebuild(tree, it):
     return None if tree is None else next(it)
 
 
-def slot_gather(state, idx):
-    """The bucket's sub-batch in one launch: ``slot_gather_plain``'s
-    contract (state a NamedTuple tree of (N, ...) tensors with a ``mode``
-    (N,) i32 leaf, contiguous or 1-D strided; idx (S,) i64 padded with N).
-    Returns (sub, keep), sub's leaves fresh contiguous (S, ...) tensors."""
-    leaves = _tree_leaves(state)
+def slot_gather(state, idx, escape=False, extra=()):
+    """A sub-batch in one launch: ``slot_gather_plain``'s contract (state
+    a NamedTuple tree of (N, ...) tensors with a ``mode`` (N,) i32 leaf,
+    contiguous or 1-D strided, and ``extra`` (N, ...) tensors gathered in
+    the same launch; idx (S,) i64 padded with N; ``escape``: the keep
+    rule).  Returns (sub, keep, *rows), the rows fresh contiguous (S, ...)
+    tensors."""
+    leaves = _tree_leaves(state) + list(extra)
     n = state.mode.shape[0]
     if idx.dtype != torch.int64 or idx.dim() != 1 or \
             not 1 <= idx.numel() <= 65535:
@@ -375,13 +407,13 @@ def slot_gather(state, idx):
     if len(leaves) > SLOT_LEAVES:
         raise ValueError(f"slot_gather takes at most {SLOT_LEAVES} leaves")
     if not on_cuda(idx, state.mode):
-        return slot_gather_plain(state, idx)
+        return slot_gather_plain(state, idx, escape, extra)
     s, dev = idx.numel(), idx.device
     subs = [torch.empty((s,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
             for t in leaves]
     keep = torch.empty((s,), dtype=torch.bool, device=dev)
     a = _GatherArgs(idx.data_ptr(), state.mode.data_ptr(), keep.data_ptr(),
-                    n, state.mode.stride(0), s, len(leaves))
+                    n, state.mode.stride(0), s, len(leaves), int(escape))
     for j, (t, d) in enumerate(zip(leaves, subs)):
         if t.device != dev:
             raise ValueError("idx and the state lie on different devices")
@@ -394,7 +426,8 @@ def slot_gather(state, idx):
     with torch.cuda.device(dev):
         _checked_gather_layout()
         launch("slot_gather", "slot_gather_launch", ctypes.addressof(a))
-    return _rebuild(state, iter(subs)), keep
+    k = len(subs) - len(extra)
+    return (_rebuild(state, iter(subs[:k])), keep) + tuple(subs[k:])
 
 
 @functools.lru_cache(maxsize=1)
@@ -551,6 +584,17 @@ def _merge(leaf, sub, slots, kind):
     return [sub.data_ptr(), leaf.nbytes // leaf.shape[0], _pitch(sub), kind]
 
 
+def _pack_row(sub, carry):
+    """The shape of the pack row that a rows-alone output entry's ``sub``
+    lands in (no tensor): N elements of its dtype, N the rows of the
+    table's carried leaves."""
+    if sub is None or not carry:
+        raise ValueError("an output entry without a source needs sub rows "
+                         "and carried leaves")
+    return torch.empty((carry[0][1].shape[0],) + tuple(sub.shape[1:]),
+                       dtype=sub.dtype, device="meta")
+
+
 def segments(tables, device):
     """scan_commit's tables (``CommitTables``) on ``device``, one for each
     (carry, rows[, slots]) of ``tables``: each (src, dst) of carry copied
@@ -559,8 +603,10 @@ def segments(tables, device):
     strided source gathered into them).  With ``slots`` (``Slots``, a
     bucket body's), an entry with a last element ``sub`` (S rows of the
     leaf's row shape) merges them: rows idx[j] (kept, not padding) come
-    from sub's row j; a carry entry whose src is None writes those rows
-    alone (a leaf the body passed through whole).  Each table's entries
+    from sub's row j; an entry whose src is None writes those rows alone
+    (a leaf the body passed through whole; the few escape body's leaves
+    and outputs, a pack row taking the table's carried leaves' N rows).
+    Each table's entries
     are one run of 16-byte chunks, an entry's bytes rounded up to a whole
     chunk (the kernel copies a partial or unaligned chunk byte by byte), a
     rows-alone entry's S rows each rounded up, so that the copy is
@@ -575,12 +621,15 @@ def segments(tables, device):
         first, chunk, n = len(segs), 0, 0
         entries = [(c[0], c[1], c[1].data_ptr(), -1, 0,
                     c[2] if len(c) > 2 else None) for c in carry]
-        entries += [(r[0], r[0], 0, r[1], r[2], r[3] if len(r) > 3 else None)
+        entries += [(r[0], r[0] if r[0] is not None else
+                     _pack_row(r[3] if len(r) > 3 else None, carry),
+                     0, r[1], r[2], r[3] if len(r) > 3 else None)
                     for r in rows]
         for src, leaf, dst, slot, row, sub in entries:
             if slot < 0 and src is not None and src.nbytes != leaf.nbytes:
                 raise ValueError("a carried leaf changes its size")
-            keep += [t for t in (src, leaf, sub) if t is not None]
+            keep += [t for t in (src, leaf, sub)
+                     if t is not None and not t.is_meta]
             m = [0, 0, 0, MERGE_NONE]
             nbytes = leaf.nbytes if src is None else src.nbytes
             span = -(-nbytes // COMMIT_CHUNK)
@@ -659,15 +708,18 @@ def commit_chunks(ct, t):
 
 def scan_commit(params, ct, table=0, nb=1, stage=False, ctas=None):
     """The copies of table ``table`` of ``ct`` (``segments``) for the tick
-    params[P_K] - 1 (table -1: the program's pick, the escape body's table
-    nb - 1 + params[P_ESEL] when one ran, else params[P_BRANCH]'s; staging
-    the latter only); one run into ``params[P_COMMITS]`` (staging:
-    ``params[P_STAGES]``).  ctas: the grid (``commit_ctas`` of the tables'
-    chunks by default).  CUDA only: the tables hold device addresses."""
+    params[P_K] - 1 (TABLE_TICK: params[P_BRANCH]'s, the tick body's;
+    TABLE_PICK: the program's pick, none when params[P_ESEL] is 1 (the few
+    escape body's tick, which its IF graph commits), the many body's table
+    nb + 1 when it is 2, else params[P_BRANCH]'s; staging the latter
+    only); one run into ``params[P_COMMITS]`` (staging:
+    ``params[P_STAGES]``; a run that picks none counts none).  ctas: the
+    grid (``commit_ctas`` of the tables' chunks by default).  CUDA only:
+    the tables hold device addresses."""
     if not on_cuda(params, ct.tables, ct.segs):
         raise ValueError("scan_commit reads device addresses: CUDA tensors "
                          "only (its twin is scan_commit_plain)")
-    if not -1 <= table < ct.tables.shape[0]:
+    if not TABLE_TICK <= table < ct.tables.shape[0]:
         raise ValueError(f"no table {table} of {ct.tables.shape[0]}")
     if ctas is None:
         from .launch import sm_count

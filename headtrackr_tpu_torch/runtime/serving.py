@@ -213,13 +213,16 @@ def _merged_config(n_streams, params, kw):
 
 
 class _Merge(NamedTuple):
-    """A bucket body's sub-batch, which scan_commit merges into the track
-    pass's results (``_Program._commit_pairs``): the served slots ``idx``
-    (S,) i64 padded with N, ``keep`` (S,) bool (slot_gather's: not
-    padding, not in CS after the track pass), the rows ``sub`` it gathered
-    from the track pass's state, and the "pending" step's ``state`` and
-    ``out`` on them.  A leaf of ``state`` that is ``sub``'s own tensor the
-    step passed through: its rows need no write."""
+    """A body's sub-batch, whose rows scan_commit merges: a bucket body's
+    into its track pass's results (``_Program._commit_pairs``), the few
+    escape body's over the tick body's committed results
+    (``_Program._few_pairs``).  The slots ``idx`` (S,) i64 padded with N,
+    ``keep`` (S,) bool (slot_gather's: not padding and, for a bucket, not
+    in CS after the track pass), the rows ``sub`` it gathered (from the
+    track pass's state; the few body's from the pre-step state), and its
+    step's ``state`` and ``out`` on them.  A leaf of ``state`` that is
+    ``sub``'s own tensor the step passed through: its rows need no
+    write."""
     idx: torch.Tensor
     keep: torch.Tensor
     sub: ft.TrackerState
@@ -242,9 +245,9 @@ class _Buffers:
     pend_age after the tick (the program's tick_select writes it).  No
     body writes any of them: each keeps its own results (``_TickGraph``),
     which the program commits.  ``state_out`` and ``out`` (``stage_for``,
-    where a band's escape bodies exist) are what the escape bodies read:
-    the program stages the tick body's results there on a tick whose
-    escape fallback runs a body, and on no other; ``out`` is a StepOutput
+    where a band's many escape body exists) are what that body reads: the
+    program stages the tick body's results there on a tick whose escape
+    fallback runs it, and on no other; ``out`` is a StepOutput
     of rows of one packed (fields, N) tensor a dtype (``lay_out``, also
     the layout of the program's output packs).  All of a batch size's
     bodies capture into one memory pool (``pool``), in which the results
@@ -290,8 +293,8 @@ class _Buffers:
                           for dt, g in groups.items()}
 
     def stage_for(self):
-        """Make ``state_out`` and ``out``, the escape bodies' inputs, once
-        (after ``lay_out``)."""
+        """Make ``state_out`` and ``out``, the many escape body's inputs,
+        once (after ``lay_out``)."""
         if self.state_out is None:
             self.state_out = _clone(self.state_in)
             packs = {dt: torch.zeros(shape, dtype=dt, device=self.device)
@@ -301,12 +304,14 @@ class _Buffers:
 
 class _TickGraph:
     """A tick body of the serving program, ``tick(state, frames, *extra)
-    -> (state', StepOutput)`` on a batch size's ``_Buffers`` (from their
-    ``state_in`` and ``frames``).  It writes no shared buffer.  On the card
-    it is captured in a CUDA graph (keep_graph, for the program's
-    conditional nodes; in the buffers' pool; a capture failure raises;
-    ``launches`` tallies the kernel launches one run makes), and ``state``
-    and ``out`` keep the tensors its capture returned, as
+    -> (state', StepOutput[, _Merge])``, or a ``_Merge`` alone (the few
+    escape body: its sub-batch, no results of the whole batch), on a batch
+    size's ``_Buffers`` (from their ``state_in`` and ``frames``).  It
+    writes no shared buffer.  On the card it is captured in a CUDA graph
+    (keep_graph, for the program's conditional nodes; in the buffers'
+    pool; a capture failure raises; ``launches`` tallies the kernel
+    launches one run makes), and ``state`` and ``out`` (and ``merge``)
+    keep the tensors its capture returned, as
     ``torch.cuda.make_graphed_callables`` keeps its static outputs: each
     replay's results, at addresses fixed for the graph's lifetime, which
     the program commits (a leaf the body passes through is ``state_in``'s
@@ -341,8 +346,11 @@ class _TickGraph:
             with launch.capturing() as self.launches, \
                     torch.cuda.graph(self.graph, pool=bufs.pool):
                 res = self.run(bufs.frame_at)
-            self.state, self.out = res[:2]
-            self.merge = res[2] if len(res) > 2 else None
+            if isinstance(res, _Merge):
+                self.merge = res
+            else:
+                self.state, self.out = res[:2]
+                self.merge = res[2] if len(res) > 2 else None
         # not kept on the card: a graph holding its _Steps' bound method
         # makes a reference cycle, which the cyclic collector may free while
         # another graph captures, destroying CUDA objects mid-capture
@@ -368,39 +376,45 @@ class _Program:
     the escape fallback's body, none, ``few`` (the full-frame "track" step
     from the pre-step state on escape_bucket slots) or ``many`` (on the
     batch, then a per-stream select) (escape_select, on the tick body's
-    own escaped flags); then the results of the body that ran, the escape
-    body's when one did, else the tick body's: its outputs into row k of
+    own escaped flags); then the results of the body that ran, the many
+    body's when it did, else the tick body's: its outputs into row k of
     the scan's output packs and its new state, pend_age from tick_select,
     over ``state_in`` (scan_commit, by that body's table: ``_commit_pairs``
-    of the results it keeps).  An escape body reads the tick body's
+    of the results it keeps).  The many body reads the tick body's
     results from the buffers' ``state_out`` and ``out``, where scan_commit
     stages them (``_stage_pairs``) ahead of it, so only a tick whose escape
-    fallback runs a body touches those buffers.  ``escaped`` is stamped
-    after the merge.  Ahead of a body, scan_step copies into the bodies'
-    frame buffer what its PyTorch ops read (each body's ``copy``: none,
-    its slots' rows or the whole tick; an escape body copies nothing after
-    a tick body that copied whole).
+    fallback runs it touches those buffers.  The few body gathers its
+    slots' rows from ``state_in`` before anything commits, and keeps its
+    sub-batch alone: on its tick scan_commit writes the tick body's table,
+    then the few body's (``_few_pairs``: the kept rows of each leaf its
+    step changed), so such a tick stages nothing and copies no leaf whole.
+    ``escaped`` is stamped after the merge (the tick body's flags).  Ahead
+    of a body, scan_step copies into the bodies' frame buffer what its
+    PyTorch ops read (each body's ``copy``: none, its slots' rows or the
+    whole tick; an escape body copies nothing after a tick body that
+    copied whole).
 
     Each body keeps one state and one output set of its own, so a batch
     size holds one a body on top of the shared buffers (the leaves it
     passes through excepted): at 256 streams of 320x240, 4.26 MB a body
     that changes the 16 KB model histograms of every stream (the full
-    body, the escape bodies) and 0.04-0.06 MB one that passes them
-    through (the all-CS and wbtrack bodies); a bucket body keeps its
-    track pass's results and its sub-batch's rows (0.18 MB at 8 slots);
-    170 MB and 1.8-2.4 MB at 10,240 streams; ~1.2 GB and ~12 MB at
-    70,000.
+    body, the many body) and 0.04-0.06 MB one that passes them through
+    (the all-CS and wbtrack bodies); a bucket body keeps its track pass's
+    results and its sub-batch's rows (0.18 MB at 8 slots), the few body
+    its sub-batch alone (escape_bucket rows of the state and of the
+    frames, 2 MB at 8 slots of 320x240, whatever the batch); 170 MB and
+    1.8-2.4 MB at 10,240 streams; ~1.2 GB and ~12 MB at 70,000.
 
     On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
     IF node a body), launched once for the K ticks, with one host read at
     the end: the last tick's mode_after and the parameter block, in which
     each of the program's kernels counts its own runs (``runs``:
     tick_select's by the body it chose, escape_select's at 8 + its
-    selection; ``stages``: scan_commit's staging runs).  The launch
-    counters take those counts, and a launch whose kernels ran other than
-    K ticks raises.  On the CPU the same bodies run uncaptured, each
-    picked by the select kernels' twins in a Python ``if``, and their
-    results go to scan_commit's twin as they are.  The select kernels'
+    selection; ``stages``: scan_commit's staging runs, one a many body's
+    run).  The launch counters take those counts, and a launch whose
+    kernels ran other than K ticks raises.  On the CPU the same bodies run
+    uncaptured, each picked by the select kernels' twins in a Python
+    ``if``, and their results go to scan_commit's twin as they are.  The select kernels'
     scratch buffers (``schedule.scratch``) are allocated here, once a
     batch size."""
 
@@ -417,7 +431,7 @@ class _Program:
         self.bodies = [steps.captured(state, k) for k in keys]
         band = steps.band is not None
         # the outputs' layout from a body's outputs (on the CPU a warm-up
-        # run's); the escape bodies read the staging buffers
+        # run's); the many body reads the staging buffers
         bufs.lay_out(self.bodies[0].out if self.bodies[0].out is not None
                      else self.bodies[0].run()[1])
         if band:
@@ -443,9 +457,11 @@ class _Program:
         with torch.cuda.device(self.device):
             # a table a body: the tick bodies, then few and many
             self._commit = schedule.segments(
-                [self._commit_pairs(b.state, b.out, b.merge) if b is not None
-                 else ([], []) for b in self.bodies + [self.few, self.many]],
-                self.device)
+                [self._commit_pairs(b.state, b.out, b.merge)
+                 for b in self.bodies]
+                + [self._few_pairs(self.few.merge) if self.few else ([], []),
+                   self._commit_pairs(self.many.state, self.many.out)
+                   if self.many else ([], [])], self.device)
             stage = esc_at = None
             if band:
                 stage = schedule.segments(
@@ -501,9 +517,10 @@ class _Program:
     @staticmethod
     def _subs(state, out, merge):
         """The sub rows of each state and output leaf of a body's results:
-        a bucket body's "pending" step's leaves that it changed (None where
-        it passed the gathered rows through) and its outputs; all None
-        without a ``merge``."""
+        the leaves that its sub-batch's step (a bucket body's "pending"
+        step, the few body's "track" step) changed (None where it passed
+        the gathered rows through) and its outputs; all None without a
+        ``merge``."""
         if merge is None:
             return [None] * len(_leaves(state)), [None] * len(out)
         return ([new if new.data_ptr() != was.data_ptr() else None
@@ -540,9 +557,31 @@ class _Program:
             return carry, rows
         return carry, rows, schedule.Slots(merge.idx, merge.keep)
 
+    def _few_pairs(self, merge):
+        """scan_commit's table of the few escape body's sub-batch
+        (``merge``), written after the tick body's table: rows alone (src
+        None), the kept rows ``merge.idx`` of each state leaf the "track"
+        step changed and of each output, but pend_age (tick_select's) and
+        ``escaped`` (the tick body's flags, stamped after the merge), and
+        the table's slots.  A leaf the step passed through keeps the tick
+        body's rows: the escaped streams entered in CS, and no tick body
+        that can escape a stream changes those leaves' rows of a stream in
+        CS (the wbtrack body's whitebalance ring only a WB stream's)."""
+        state_subs, out_subs = self._subs(None, None, merge)
+        carry = [(None, dst, sub) for i, (dst, sub) in enumerate(
+            zip(_leaves(self.bufs.state_in), state_subs))
+            if sub is not None and i != self._age_leaf]
+        rows = [(None, slot, row, sv) for name, sv, (slot, row) in zip(
+            ft.StepOutput._fields, out_subs, self.layout)
+            if name != "escaped"]
+        if any(r[3].dtype != self.dtypes[r[1]] for r in rows):
+            raise ValueError("the few body's outputs differ in dtype from "
+                             "the output packs")
+        return carry, rows, schedule.Slots(merge.idx, merge.keep)
+
     def _stage_pairs(self, state, out, merge=None):
         """scan_commit's staging of a tick body's results (state, out) into
-        the escape bodies' ``state_out`` and ``out``, every leaf, as (src,
+        the many body's ``state_out`` and ``out``, every leaf, as (src,
         dst) pairs; a bucket body's merged (``merge``: (src, dst, sub) for
         a leaf its "pending" step changed)."""
         bufs = self.bufs
@@ -615,8 +654,10 @@ class _Program:
     def _run_plain(self, seq, force, packs):
         """The program on the CPU: the kernels' twins, their selections in
         Python ``if``s, the bodies run uncaptured, reading tick k's frames
-        in place as on the card, their results committed as they are (an
-        escape body's inputs staged first).  Returns the runs."""
+        in place as on the card, their results committed as they are, in
+        the card's order (the many body's inputs staged first; the few
+        body run before the tick body's commit, its rows committed after
+        it).  Returns the runs."""
         bufs = self.bufs
         runs = [0] * (schedule.PARAM_WORDS - schedule.P_RUNS)
         self.steps = dict.fromkeys(self.steps, 0)
@@ -632,23 +673,29 @@ class _Program:
             state, out, *merge = body.run(seq[k])
             merge = merge[0] if merge else None
             runs[branch] += 1
+            few = None
             if self.many is not None:
                 sel, eidx = schedule.escape_select_plain(out.escaped,
                                                          self.eb)
                 bufs.eidx.copy_(eidx)
-                if sel:
-                    esc = self.few if sel == 1 else self.many
+                if sel == 1:
+                    self._copy_plain(self.few, seq[k], body.copy == "whole")
+                    few = self.few.run(seq[k])
+                elif sel == 2:
                     schedule.scan_commit_plain(
                         None, *self._stage_table(state, out, merge))
                     self.stages += 1
-                    self._copy_plain(esc, seq[k], body.copy == "whole")
-                    state, out = esc.run(seq[k])
+                    self._copy_plain(self.many, seq[k], body.copy == "whole")
+                    state, out = self.many.run(seq[k])
                     merge = None
                 runs[schedule.ESCAPE_RUNS + sel] += 1
-            carry, rows, *slots = self._commit_pairs(state, out, merge)
-            schedule.scan_commit_plain(
-                k, carry, [(r[0], packs[r[1]], r[2]) + tuple(r[3:])
-                           for r in rows], *slots)
+            tables = [self._commit_pairs(state, out, merge)]
+            if few is not None:
+                tables.append(self._few_pairs(few))
+            for carry, rows, *slots in tables:
+                schedule.scan_commit_plain(
+                    k, carry, [(r[0], packs[r[1]], r[2]) + tuple(r[3:])
+                               for r in rows], *slots)
         return runs
 
     def wait(self):
@@ -699,20 +746,6 @@ class _Program:
 def _addr(t):
     """A tensor's device address, 0 for None."""
     return 0 if t is None else t.data_ptr()
-
-
-def _scatter_slots(tree, idx, sub):
-    """A copy of ``tree`` (N rows) with rows ``idx`` replaced by ``sub``'s
-    rows, where ``idx`` may hold N (padding: that row is dropped, as the
-    reference's scatter with mode="drop" drops it).  No host read."""
-    if isinstance(tree, tuple):
-        return type(tree)(*(_scatter_slots(t, idx, s)
-                            for t, s in zip(tree, sub)))
-    if tree is None:
-        return None
-    n = tree.shape[0]
-    return torch.cat([tree, tree[:1]]).index_copy(
-        0, idx, sub.to(tree.dtype))[:n]
 
 
 def _check_frames(frames, want):
@@ -944,23 +977,27 @@ class _Steps:
         return state1, out, _Merge(idx, keep, sub, new, new_out)
 
     def _escape_few(self, state, frames, eidx):
-        """The escape fallback's ``few`` body: the full-frame "track" step
-        from the pre-step ``state`` on the escaped streams' slots ``eidx``
-        (padded with N), merged into the tick body's results, which the
-        program stages into the buffers' ``state_out`` and ``out`` ahead of
-        it; ``escaped`` kept (stamped after the merge)."""
-        bufs = self._bufs[frames.shape[0]]
-        safe = torch.clamp(eidx, max=frames.shape[0] - 1)
-        sub_state, sub_out = self._track_plain(
-            ft.tree_index(state, safe), frames.index_select(0, safe))
-        new = _scatter_slots(bufs.state_out, eidx, sub_state)
-        out = _scatter_slots(bufs.out, eidx, sub_out)
-        return new, out._replace(escaped=bufs.out.escaped)
+        """The escape fallback's ``few`` body, with no host read: the
+        full-frame "track" step from the pre-step ``state`` on the escaped
+        streams' slots ``eidx`` ((eb,) i64 on the device, padded with N).
+        One ``slot_gather`` launch takes every state leaf's rows and the
+        frames' rows min(eidx, N - 1) (the program's scan_step copied those
+        rows of the tick's frames into the buffer, or the tick body's copy
+        the whole tick) and the kept flags under the escape's rule, eidx <
+        N (every escaped stream entered in CS, which the bucket's rule
+        would drop).  Returns the ``_Merge`` alone: the program commits the
+        tick body's results, then the kept rows of what the step changed
+        (``_Program._few_pairs``), so the body scatters nothing."""
+        sub, keep, rows = schedule.slot_gather(state, eidx, escape=True,
+                                               extra=(frames,))
+        new, out = self._track_plain(sub, rows)
+        return _Merge(eidx, keep, sub, new, out)
 
     def _escape_many(self, state, frames):
         """The escape fallback's ``many`` body: the full-frame "track" step
         from the pre-step ``state`` on the batch, taken by the escaped
-        streams over the tick body's results (staged, as for ``few``)."""
+        streams over the tick body's results, which the program stages into
+        the buffers' ``state_out`` and ``out`` ahead of it."""
         bufs = self._bufs[frames.shape[0]]
         esc = bufs.out.escaped
         new, out = self._track_plain(state, frames)

@@ -15,7 +15,10 @@ tables) on the CPU.
     (rows of 13 bools among them) and a column of an (n, 5) tensor (a 1-D
     strided view, gathered element by element), emulated with
     ``ctypes.memmove`` on the CPU tensors' own addresses; any other
-    non-contiguous result raises.
+    non-contiguous result raises;
+  * the few escape body's table holds the kept rows alone of the leaves
+    its step changed and of its outputs (``escaped`` and pend_age
+    excepted), emulated against ``scan_commit_plain`` as above.
 """
 
 import ctypes
@@ -297,3 +300,48 @@ def test_merged_entries_copy_what_the_twin_copies(n):
     dst, sub = plain_carry[4][1], plain_carry[4][2]
     assert torch.equal(dst[3], sub[0]) and torch.equal(dst[n - 1], sub[2])
     assert not torch.equal(dst[5], sub[3])
+
+
+def test_few_table_writes_kept_rows_alone():
+    """The few escape body's table (``_Program._few_pairs``): rows-alone
+    entries only (no source), the kept rows of each state leaf the "track"
+    step changed (not the model histograms it passes through, not
+    pend_age) and of each output but ``escaped``, into a pack row of the
+    program's layout; S sub rows each, no leaf whole.  The kernel's byte
+    logic, emulated, equals scan_commit_plain's merge: the kept slot's rows
+    written, the padding's dropped, every other row untouched."""
+    prog = _program(band=(32, 48), bandHist=True, escape_bucket=2)
+    bufs = prog.bufs
+    bufs.eidx.copy_(torch.tensor([2, 4]))  # one escaped stream, padding
+    merge = prog.few.run()
+    carry, rows, slots = prog._few_pairs(merge)
+    assert carry and all(c[0] is None for c in carry)
+    assert not any(c[1] is bufs.state_in.cs.model_hist
+                   or c[1] is bufs.state_in.pend_age for c in carry)
+    assert len(rows) == len(merge.out) - 1 and all(r[0] is None
+                                                   for r in rows)
+    assert slots.keep.tolist() == [True, False]
+    ct = S.segments([(carry, rows, slots)], "cpu")
+    first, count = ct.tables[0, :2].tolist()
+    assert set(ct.merges[first:first + count, 3].tolist()) == {S.MERGE_ROWS}
+    assert int(ct.segs[:, 2].sum()) == sum(c[2].nbytes for c in carry) + \
+        sum(r[3].nbytes for r in rows)
+    K, k, n = 2, 1, bufs.state_in.mode.shape[0]
+    packs = [torch.zeros((bufs.packs[dt][0], K, n), dtype=dt)
+             for dt in prog.dtypes]
+    plain = [p.clone() for p in packs]
+    dsts = [c[1].clone() for c in carry]
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    params[S.P_K], params[S.P_TICKS] = k + 1, K
+    for j, p in enumerate(packs):
+        params[S.P_OUT + j] = p.data_ptr()
+    was = [c[1].clone() for c in carry]
+    _emulate_merged(params, ct, 0)
+    S.scan_commit_plain(k, [(None, d, c[2]) for d, c in zip(dsts, carry)],
+                        [(None, plain[r[1]], r[2], r[3]) for r in rows],
+                        slots)
+    for c, d, w in zip(carry, dsts, was):
+        assert torch.equal(c[1], d)
+        assert torch.equal(c[1][[0, 1, 3]], w[[0, 1, 3]])  # rows not kept
+    for p, q in zip(packs, plain):
+        assert torch.equal(p, q)

@@ -1761,12 +1761,15 @@ def test_schedule_copy_kernels_equal_twins(dev):
 
 
 def _commit_equals_twin(dev, g, n):
-    """scan_commit against scan_commit_plain on three tables (a tick
-    body's, an escape body's, an empty one) of state leaves (one of 4,096
-    floats a stream) and output rows of three dtypes: each table by index
-    and the program's pick (table -1: the escape body's when P_ESEL names
-    one, else P_BRANCH's; staging: P_BRANCH's), into a destination
-    poisoned first; one run counted in P_COMMITS, or in P_STAGES."""
+    """scan_commit against scan_commit_plain on four tables (two tick
+    bodies', an empty one in the few body's place, the many body's) of
+    state leaves (one of 4,096 floats a stream) and output rows of three
+    dtypes: each table by index, the tick body's (TABLE_TICK: P_BRANCH's)
+    and the program's pick (TABLE_PICK: none when P_ESEL is 1, the few
+    body's tick, which its IF graph commits; the many body's when it is 2;
+    else P_BRANCH's; staging: P_BRANCH's), into destinations poisoned
+    first; one run counted in P_COMMITS, or in P_STAGES, and none where
+    the pick is none (nothing written)."""
     from headtrackr_tpu_torch.kernels import schedule as S
     K, k = 3, 1
     shapes = [((n, 7), torch.float32), ((n,), torch.int32),
@@ -1780,9 +1783,9 @@ def _commit_equals_twin(dev, g, n):
         return torch.randint(-9, 99, shape, generator=g).to(dtype)
 
     tables, cpu = [], []
-    for t in range(3):
-        srcs = [rand(sh, dt) for sh, dt in shapes][:4 if t < 2 else 0]
-        outs = [rand((n,), dt) for dt, _, _ in out_spec][:4 if t < 2 else 0]
+    for t in range(4):
+        srcs = [rand(sh, dt) for sh, dt in shapes][:0 if t == 2 else 4]
+        outs = [rand((n,), dt) for dt, _, _ in out_spec][:0 if t == 2 else 4]
         cpu.append((srcs, outs))
         tables.append(([(x.to(dev), torch.full_like(x.to(dev), 7))
                         for x in srcs],
@@ -1796,22 +1799,28 @@ def _commit_equals_twin(dev, g, n):
     params[S.P_K], params[S.P_TICKS] = k + 1, K  # row k = P_K - 1
     for j, pk in enumerate(packs):
         params[S.P_OUT + j] = pk.data_ptr()
-    # (table, branch, esel, stage): by index; the program's picks (nb = 2
-    # tick bodies, then few and many: esel 1 picks table 2 - 1 + 1 = 2)
+    # (table, branch, esel, stage): by index; the tick body's; the
+    # program's picks (nb = 2 tick bodies, then few and many: esel 2 picks
+    # table 2 - 1 + 2 = 3, esel 1 none)
+    pick, tick = S.TABLE_PICK, S.TABLE_TICK
     for table, branch, esel, stage in ((0, 0, 0, 0), (1, 0, 0, 0),
-                                       (-1, 1, 0, 0), (-1, 0, 1, 0),
-                                       (-1, 1, 0, 1), (-1, 0, 1, 1)):
-        want_t = table if table >= 0 else branch if stage or not esel \
+                                       (tick, 1, 1, 0), (tick, 0, 2, 0),
+                                       (pick, 1, 0, 0), (pick, 0, 1, 0),
+                                       (pick, 1, 2, 0), (pick, 1, 0, 1),
+                                       (pick, 0, 1, 1), (pick, 1, 2, 1)):
+        want_t = table if table >= 0 else branch if (
+            stage or not esel or table == tick) else None if esel == 1 \
             else 2 - 1 + esel
-        for _, d in tables[want_t][0]:
-            d.fill_(7)
+        for t in tables:
+            for _, d in t[0]:
+                d.fill_(7)
         for pk in packs:
             pk.fill_(7)
         gp = params.clone()
         gp[S.P_BRANCH], gp[S.P_ESEL] = branch, esel
         gp = gp.to(dev)
         S.scan_commit(gp, ct, table, nb=2, stage=bool(stage))
-        srcs, outs = cpu[want_t]
+        srcs, outs = cpu[2 if want_t is None else want_t]
         wdst = [torch.full_like(x, 7) for x in srcs]
         wpacks = [torch.full((2, K, n), 7, dtype=torch.float32),
                   torch.full((1, K, n), 7, dtype=torch.int32),
@@ -1821,11 +1830,17 @@ def _commit_equals_twin(dev, g, n):
                              zip(outs, out_spec)])
         torch.cuda.synchronize()
         where = f"n {n} table {table} branch {branch} esel {esel} {stage}"
-        for (_, d), w in zip(tables[want_t][0], wdst):
+        if want_t is None:  # nothing written
+            for t in tables:
+                for _, d in t[0]:
+                    assert torch.equal(d, torch.full_like(d, 7)), where
+        for (_, d), w in zip([] if want_t is None else tables[want_t][0],
+                             wdst):
             assert torch.equal(d.cpu(), w), where
         for pk, w in zip(packs, wpacks):
             assert torch.equal(pk.cpu(), w), where
-        assert int(gp[S.P_STAGES if stage else S.P_COMMITS]) == 1, where
+        ran = 0 if want_t is None else 1
+        assert int(gp[S.P_STAGES if stage else S.P_COMMITS]) == ran, where
         assert int(gp[S.P_COMMITS if stage else S.P_STAGES]) == 0, where
 
 
@@ -1836,13 +1851,14 @@ def test_program_equals_per_tick_path(dev, overload, config):
     against the per-tick path run eagerly on the card, 8 streams, bucket
     1, escape_bucket 1, in three configurations (a 64x96 band with
     bandHist, the band with full-frame histograms, the full frame with
-    hist4096), with the escape bodies' staging buffers (``state_out``,
+    hist4096), with the many escape body's staging buffers (``state_out``,
     ``out``) poisoned before each call: every output of every tick and the
     final state bit-equal through wbtrack, full or the rotation, bucket
     and chunk ticks, and with a band escapes of one stream (few) and of
     two (many); the per-tick path's host code is not reached; each body
-    keeps its own results, so a tick whose escape fallback runs no body
-    stages nothing."""
+    keeps its own results, so only a tick whose escape fallback runs the
+    many body stages (the few body's tick commits the tick body's table
+    and then its own rows: one more commit, no staging)."""
     from headtrackr_tpu_torch.kernels import launch as L
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -1881,11 +1897,12 @@ def test_program_equals_per_tick_path(dev, overload, config):
     assert L.host_paths == dict.fromkeys(L.host_paths, 0)
     # the schedule kernels' counts, read back from the card: one a tick
     # (escape_select with a band), scan_commit's also one an escape body's
-    # run (its staging), scan_step's one a tick whose body copies and one
-    # an escape body run after a tick body that does not copy whole
+    # run (the many body's staging, the few body's rows), scan_step's one
+    # a tick whose body copies and one an escape body run after a tick
+    # body that does not copy whole
     fields = tft.StepOutput._fields
     escaping = sum(bool(t[fields.index("escaped")].any()) for t in want)
-    assert stages == escaping == runs[9] + runs[10]
+    assert escaping == runs[9] + runs[10] and stages == runs[10]
     assert L.launches["tick_select"] == len(clip)
     assert L.launches["escape_select"] == (len(clip) if band else 0)
     assert L.launches["scan_commit"] == len(clip) + escaping
@@ -2040,6 +2057,51 @@ def test_bucket_body_runs_its_kernels_and_commits_rows(dev):
     assert moved < 250_000, moved
     kinds = prog._commit.merges[first:first + count, 3].tolist()
     assert S.MERGE_ROWS in kinds and S.MERGED in kinds
+
+
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_slot_gather_bit_equal_at_every_slot_count(dev, n):
+    """slot_gather (S5) against its twin run on the card
+    (tools/torch_bucket_cases.py check_gather): every slot count from 1 to
+    the chunk cap and at escape_bucket, under the bucket's and the
+    escape's keep rules, 1-D strided f32 and bool leaves, the frames as an
+    extra leaf; bit-equal, one launch a call, the launcher's grid equal to
+    gather_ctas."""
+    res = _tool("torch_bucket_cases").check_gather(n, dev)
+    assert res["launches"] == res["calls"], res
+    if n >= 8:
+        assert res["kept escape"] > res["kept bucket"] > 0, res
+
+
+def test_few_body_gathers_once_and_commits_rows(dev):
+    """The headline's few escape body (256 streams of 320x240, bucket 8,
+    escape_bucket 8) launches slot_gather once and then the full-frame
+    "track" step, in at most the step's own graph nodes + 2, and keeps its
+    sub-batch alone: its commit table holds rows alone (the changed leaves'
+    and the outputs' kept rows), under 0.15 MB, no leaf whole."""
+    import collections
+    from chip_smoke import graph_nodes, node_kinds
+    from headtrackr_tpu_torch.kernels import schedule as S
+    from headtrackr_tpu_torch.models import facetracker as ft
+    bt = BatchedTracker(256, (240, 320), cascade=toy_cascade(), device=dev,
+                        band=(96, 128), bandHist=True, bucket=8)
+    bt.warmup(scan_len=2)
+    steps = bt._steps
+    prog = steps.program(bt.state)
+    few = prog.few
+    assert few.merge is not None and few.state is None
+    assert few.launches["slot_gather"] == 1, few.launches
+    idx = torch.arange(steps.escape_bucket, device=dev)
+    sub = ft.tree_index(prog.bufs.state_in, idx)
+    rows = prog.bufs.frames.index_select(0, idx)
+    alone = graph_nodes(lambda: steps._track_plain(sub, rows))
+    kinds = collections.Counter(node_kinds(few.graph))
+    assert sum(kinds.values()) <= len(alone) + 2, (kinds, alone)
+    first, count = prog._commit.tables[len(prog.bodies), :2].tolist()
+    moved = int(prog._commit.segs[first:first + count, 2].sum())
+    assert 0 < moved < 150_000, moved
+    assert set(prog._commit.merges[first:first + count, 3].tolist()) == \
+        {S.MERGE_ROWS}
 
 
 def _tool(name):

@@ -16,9 +16,9 @@
     cascade, band and bandHist, bucket 1 (chunk_cap 4), overload
     "rotate", escape_bucket 1, through the port's per-tick path and its
     program (the conditional nodes' twins in Python ifs), also with the
-    bodies' frame buffer poisoned before each call, and with the escape
-    bodies' staging buffers (``state_out``, ``out``) poisoned before each
-    call (no tick body reads them; an escape body reads only what the
+    bodies' frame buffer poisoned before each call, and with the many
+    escape body's staging buffers (``state_out``, ``out``) poisoned before
+    each call (no other body reads them; the many body reads only what the
     program staged there on its tick): a rotate clip (the
     cold start's burst of more than chunk_cap pending streams) and an
     escape clip (one stream escaping: the ``few`` body; two in one tick:
@@ -405,12 +405,12 @@ def test_run_scan_matches_reference(reference, clip, path):
     """The poison case is the program with the bodies' frame buffer filled
     with 255 before each call: a body that read a stale or poisoned frame
     where it should read tick k's (in place or copied) would differ, as
-    the faces move every tick.  The poison_staging case fills the escape
-    bodies' ``state_out`` and ``out`` with garbage before each call: the
-    program must stage the tick body's results there before an escape body
+    the faces move every tick.  The poison_staging case fills the many
+    escape body's ``state_out`` and ``out`` with garbage before each call:
+    the program must stage the tick body's results there before that body
     reads them, and read them nowhere else.  The program's scan_step
     counts one run a tick whose body copies and none on an all-CS tick;
-    scan_commit's staging one a tick whose escape body runs."""
+    scan_commit's staging one a tick whose many escape body runs."""
     ref_outs, ref_states = reference
     tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
                            **KW)
@@ -443,8 +443,7 @@ def test_run_scan_matches_reference(reference, clip, path):
             prog = tb._steps._programs[N]
             runs += prog.runs
             steps.append(prog.steps)
-            assert prog.stages == sum(prog.runs[S.ESCAPE_RUNS + 1:
-                                                S.ESCAPE_RUNS + 3])
+            assert prog.stages == prog.runs[S.ESCAPE_RUNS + 2]
             assert prog.steps == _copies(tb, got.detection.tolist(),
                                          got.escaped.sum(1).tolist())
     want = ref_states[0 if clip == "rotate" else 1]

@@ -14,13 +14,26 @@ N), with streams entering in CS (one of them named among the slots and
 kept out: still in CS after the track pass), in VJ with a face (it
 relocks) and without one, in WB with a stable ring (it turns VJ), and a
 CS stream whose window outgrows the band (it escapes: the tick's escape
-fallback recomputes it from the staged, merged results).  Every state and
-output leaf equals the reference's: integers exact, floats within rtol
-1e-5 / atol 1e-4 (the reference's f32 whitebalance mean)."""
+fallback recomputes it from the pre-step state).  Every state and output
+leaf equals the reference's: integers exact, floats within rtol 1e-5 /
+atol 1e-4 (the reference's f32 whitebalance mean).
+
+The escape fallback's few body, at N = 12 and escape_bucket 8, against
+the reference's ``step_auto``: one stream escaping on an all-CS tick, and
+two escaping on a bucket tick (served slots disjoint from the escaped
+ones), eidx padded with N; the body gathers the pre-step state's rows and
+the frames' with one ``slot_gather`` under the escape's keep rule (idx <
+N), and ``scan_commit`` writes the tick body's table and then the
+sub-batch's kept rows (no staging).  Also ``slot_gather_plain`` under
+both keep rules against the reference's ``valid`` expressions, and a
+dispatch-mode check that the few body runs no operation over a tensor of
+the batch's rows."""
 
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -54,11 +67,11 @@ ROLES = [("cs", tft.MODE_CS, (8, 8, 20, 20)),
 SERVED = ("vj", "wb", "cs kept out", "vj miss")
 
 
-def _scene(n, seed):
+def _scene(n, seed, roles=ROLES):
     rng = np.random.default_rng(seed)
     frames = rng.integers(30, 50, (n, H, W, 3)).astype(np.uint8)
     for s in range(n):
-        box = ROLES[s % len(ROLES)][2]
+        box = roles[s % len(roles)][2]
         if box is not None:
             x, y, w, h = box
             frames[s, y:y + h, x:x + w] = FACE
@@ -73,7 +86,7 @@ def reference():
                   band=BAND, escape_bucket=ESCAPE_BUCKET)[2]
 
 
-def _states(n, frames):
+def _states(n, frames, roles=ROLES):
     """The reference's state and the port's copy: CS streams handed their
     face box on this frame's predecessor (the face one pixel left), the WB
     stream's ring stable around its own whitebalance."""
@@ -83,7 +96,7 @@ def _states(n, frames):
     prev = np.roll(frames, -1, axis=2)
     hands, modes = [], []
     for s in range(n):
-        _, mode, box = ROLES[s % len(ROLES)]
+        _, mode, box = roles[s % len(roles)]
         modes.append(mode)
         rect = box if box is not None and mode == tft.MODE_CS else (0, 0, 0,
                                                                    0)
@@ -120,7 +133,7 @@ def test_bucket_body_matches_reference_step_bucket(reference, n):
     new, out = steps.bucket_step(state, torch.from_numpy(frames), served)
     prog = steps.program(state)
     assert prog.runs[slots // BUCKET] == 1  # the bucket body of its slots
-    assert prog.runs[9] == 1 and prog.stages == 1  # few, after staging
+    assert prog.runs[9] == 1 and prog.stages == 0  # few: no staging
     assert L.host_paths == {"eager_branch": 0, "dispatch": 0, "recompute": 0}
 
     got = convert.state_to_numpy(new)
@@ -156,3 +169,158 @@ def test_bucket_body_at_every_split(reference, split, monkeypatch):
     from headtrackr_tpu_torch.kernels import frameprep
     monkeypatch.setattr(frameprep, "pick_split", lambda s, sms=None: split)
     test_bucket_body_matches_reference_step_bucket(reference, 8)
+
+
+# The escape fallback's few body (escape_bucket 8 of 12 streams): one
+# stream escaping alone on an all-CS tick, and two escaping on a bucket
+# tick (VJ and WB streams served, disjoint from the escaped ones)
+N_FEW, EB_FEW = 12, 8
+_CS, _ESC = ("cs", tft.MODE_CS), ("cs escapes", tft.MODE_CS)
+_SMALL = [(8, 8), (20, 24), (36, 20), (40, 30), (10, 30), (50, 8), (30, 4),
+          (44, 30)]  # 10x10 faces, whose windows stay inside the band
+FEW_ROLES = {
+    "alone": [_CS + ((x, y, 10, 10),) for x, y in _SMALL[:2]]
+    + [_ESC + ((4, 2, 44, 40),)]
+    + [_CS + ((x, y, 10, 10),) for x, y in (_SMALL[2:] + _SMALL[:3])],
+    "bucket": [("vj", tft.MODE_VJ, (30, 14, 20, 20)),
+               _ESC + ((4, 2, 44, 40),), ("wb", tft.MODE_WB, None),
+               _CS + ((8, 8, 10, 10),), _ESC + ((6, 4, 42, 40),),
+               _CS + ((20, 24, 10, 10),), ("vj", tft.MODE_VJ,
+                                           (30, 14, 20, 20)),
+               _CS + ((36, 20, 10, 10),), ("wb", tft.MODE_WB, None)]
+    + [_CS + ((x, y, 10, 10),) for x, y in _SMALL[3:6]],
+}
+
+
+@pytest.fixture(scope="module")
+def reference_auto():
+    """The reference's step_auto at escape_bucket 8 (jitted once)."""
+    return jsteps(jtoy(), JConfig(), (H, W), donate=False, bucket=BUCKET,
+                  band=BAND, escape_bucket=EB_FEW)[3]
+
+
+@pytest.mark.parametrize("case", ["alone", "bucket"])
+def test_few_body_matches_reference_step_auto(reference_auto, case):
+    """The program's twin (the bodies uncaptured) on a tick whose escape
+    fallback runs the few body: the tick body's results committed by its
+    table, then the few body's rows (gathered from the pre-step state by
+    slot_gather under the escape's rule, eidx padded with N) by its rows
+    table, no staging; every state and output leaf equals the reference's
+    step_auto (integers exact, floats within rtol 1e-5 / atol 1e-4)."""
+    roles = FEW_ROLES[case]
+    frames = _scene(N_FEW, 26, roles)
+    jst, state = _states(N_FEW, frames, roles)
+    jnew, jout = reference_auto(jst, jnp.asarray(frames))
+
+    bt = BatchedTracker(N_FEW, (H, W), cascade=toy_cascade(), device="cpu",
+                        band=BAND, bucket=BUCKET, escape_bucket=EB_FEW)
+    bt._steps.scheduled = True
+    bt.set_state(state)
+    L.reset_launches()
+    out = bt.step_auto(frames)
+    prog = bt._steps.program(bt.state)
+    names = [r[0] for r in roles]
+    escaping = [s for s, r in enumerate(names) if r == "cs escapes"]
+    assert prog.runs[9] == 1 and prog.stages == 0  # few: no staging
+    assert prog.runs[0 if case == "alone" else 1] == 1
+    assert out.escaped.nonzero().flatten().tolist() == escaping
+    want_eidx = escaping + [N_FEW] * (EB_FEW - len(escaping))
+    assert prog.bufs.eidx.tolist() == want_eidx  # padded with N
+    assert L.host_paths == {"eager_branch": 0, "dispatch": 0, "recompute": 0}
+
+    got = convert.state_to_numpy(bt.state)
+    ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jnew)]
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=f"leaf {i}")
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                       err_msg=f"leaf {i}")
+    for name, a, b in zip(tft.StepOutput._fields, jout, out):
+        a, b = np.asarray(a), b.numpy()
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                       equal_nan=True, err_msg=name)
+    if case == "bucket":
+        assert bt.state.mode[names.index("vj")] == tft.MODE_CS  # relocked
+        assert bt.state.mode[names.index("wb")] == tft.MODE_VJ
+
+
+@pytest.mark.parametrize("escape", [False, True])
+def test_slot_gather_plain_keeps_by_the_reference_rule(escape):
+    """slot_gather's twin under each keep rule against the reference's
+    expressions on the same state: the rows a[safe] of every leaf (and of
+    an extra tensor, the frames), ``valid = (idx < N) & (mode != CS)``
+    for a bucket (headtrackr_tpu/runtime/serving.py:318) and ``valid =
+    idx < N`` for an escape (:260), with CS, VJ and WB rows and padding."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    n = 10
+    frames = _scene(n, 4)
+    jst, state = _states(n, frames)
+    idx = np.array([5, 0, 2, n, 9, 3, n, n])
+    got = S.slot_gather_plain(state, torch.as_tensor(idx), escape,
+                              (torch.from_numpy(frames),))
+    jidx = jnp.asarray(idx)
+    safe = jnp.minimum(jidx, n - 1)
+    sub = jax.tree_util.tree_map(lambda a: a[safe], jst)
+    valid = jidx < n if escape else (jidx < n) & (sub.mode != jft.MODE_CS)
+    assert got[1].tolist() == np.asarray(valid).tolist()
+    assert not escape or got[1].tolist() != np.asarray(
+        (jidx < n) & (sub.mode != jft.MODE_CS)).tolist()
+    for a, b in zip(jax.tree_util.tree_leaves(sub),
+                    convert.state_to_numpy(got[0])):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    np.testing.assert_array_equal(got[2].numpy(), frames[np.asarray(safe)])
+
+
+class _Ops(TorchDispatchMode):
+    """Records each ATen operation dispatched inside the block and the
+    leading sizes of its tensor arguments and results."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        flat = pytree.tree_flatten((args, kwargs or {}, out))[0]
+        self.ops.append((str(func), [tuple(t.shape[:1]) for t in flat
+                                     if torch.is_tensor(t) and t.dim()]))
+        return out
+
+
+def test_few_body_gathers_and_scatters_no_whole_leaf(monkeypatch):
+    """The few body with slot_gather stubbed (its twin's result given):
+    it gathers through slot_gather with the escape rule and the frames as
+    an extra leaf, returns a _Merge, and dispatches no operation over a
+    tensor of the batch's 12 rows: no index_select, cat or index_copy of
+    a state leaf or of the frames, nor any other operation over them (the
+    track step runs on the 8 rows)."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    from headtrackr_tpu_torch.runtime import serving as srv
+    roles = FEW_ROLES["bucket"]
+    frames = torch.from_numpy(_scene(N_FEW, 26, roles))
+    _, state = _states(N_FEW, frames.numpy(), roles)
+    bt = BatchedTracker(N_FEW, (H, W), cascade=toy_cascade(), device="cpu",
+                        band=BAND, bucket=BUCKET, escape_bucket=EB_FEW)
+    eidx = torch.tensor([1, 4] + [N_FEW] * (EB_FEW - 2))
+    given = S.slot_gather_plain(state, eidx, True, (frames,))
+    calls = []
+
+    def gather(st, idx, escape=False, extra=()):
+        calls.append((st is state, idx is eidx, escape,
+                      len(extra) == 1 and extra[0] is frames))
+        return given
+
+    monkeypatch.setattr(srv.schedule, "slot_gather", gather)
+    with _Ops() as seen:
+        merge = bt._steps._escape_few(state, frames, eidx)
+    assert calls == [(True, True, True, True)]
+    assert isinstance(merge, srv._Merge)
+    assert merge.idx is eidx and merge.keep is given[1]
+    whole = [op for op, shapes in seen.ops if (N_FEW,) in shapes]
+    assert not whole, whole
+    assert seen.ops  # the track step ran on the sub-batch

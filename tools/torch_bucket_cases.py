@@ -20,6 +20,15 @@ the same split; its inputs add a model-colored pixel just outside the
 band on a row where the audit's shares of the frame meet.
 
     python3 tools/torch_bucket_cases.py --splits [N ...]
+
+``check_gather(n, dev)`` holds ``slot_gather`` to its twin at every slot
+count from 1 to the serving tick's chunk cap (bucket 8) and at the escape
+fallback's escape_bucket, under both keep rules (the bucket's and the
+escape's), on a seeded state with two 1-D strided leaves (an f32 and a
+bool column) and the frames gathered as an extra leaf; its grid's x
+against ``gather_ctas``; one launch a call.
+
+    python3 tools/torch_bucket_cases.py --gather [N ...]
 """
 
 import os
@@ -34,6 +43,8 @@ SLOTS = 8  # a relock bucket's slots
 BIG = 4096  # past it the frames shrink to 120x160 (70,000 streams: 4 GB)
 CHUNK = 8192  # streams a twin call takes at once (its temporaries' memory)
 SPLITS = (1, 2, 4, 8, 16)  # every CTAs-a-stream the launchers can pick
+BUCKET = 8  # the serving tick's bucket (chunk cap: up to 4 of them)
+ESCAPE_BUCKET = 8  # the escape fallback's slots
 
 
 def frame_shape(n):
@@ -274,6 +285,88 @@ def check(n, dev, seed=0):
     return counts
 
 
+def gather_state(n, dev, seed=5):
+    """A seeded TrackerState of n streams (band_dirty on) whose modes mix
+    WB, VJ and CS, with tan_fov an f32 column of an (n, 3) tensor and
+    sm_init a bool column of an (n, 2) tensor (1-D strided leaves)."""
+    from headtrackr_tpu_torch.models import facetracker as ft
+    state = ft.init_state(n, band_audit=True, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def fill(t):
+        r = torch.randint(0, 7, t.shape, generator=g)
+        return (r > 3).to(dev) if t.dtype == torch.bool else \
+            r.to(t.dtype).to(dev)
+
+    state = type(state)(*(fill(v) if torch.is_tensor(v) else
+                          type(v)(*(fill(x) if x is not None else None
+                                    for x in v)) for v in state))
+    col = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    col[:, 1] = state.tan_fov
+    flags = torch.zeros((n, 2), dtype=torch.bool, device=dev)
+    flags[:, 1] = state.sm_init
+    return state._replace(mode=(state.mode % 3).to(torch.int32),
+                          tan_fov=col[:, 1], sm_init=flags[:, 1])
+
+
+def gather_slots(n, s, dev, seed):
+    """s seeded slots of n streams, about a quarter of them padding (N)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randint(0, n, (s,), generator=g)
+    idx[torch.rand((s,), generator=g) < 0.25] = n
+    return idx.to(dev)
+
+
+def check_gather(n, dev, seed=0):
+    """slot_gather against its twin at n streams on ``dev``: every slot
+    count from 1 to the chunk cap and escape_bucket, both keep rules,
+    ``gather_state``'s leaves and the frames as an extra leaf, bit for
+    bit; on the card the launcher's grid against ``gather_ctas``.
+    Returns the counts reached (calls, kept rows by rule, launches)."""
+    import ctypes
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels import schedule as S
+    from headtrackr_tpu_torch.kernels.build import load_library
+    H, W = frame_shape(n)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    state = gather_state(n, dev)
+    kb = min(BUCKET, n)
+    cap = max(kb, (min(n, 4 * kb) // kb) * kb)
+    counts = {"calls": 0, "kept bucket": 0, "kept escape": 0}
+    before = L.launches["slot_gather"]
+    leaves = _leaves(state) + [frames]
+    for s in sorted(set(range(1, cap + 1)) | {ESCAPE_BUCKET}):
+        idx = gather_slots(n, s, dev, seed + s)
+        if dev.type == "cuda":
+            a = S._GatherArgs(idx.data_ptr(), state.mode.data_ptr(),
+                              idx.data_ptr(), n, state.mode.stride(0), s,
+                              len(leaves), 0)
+            for j, t in enumerate(leaves):
+                a.rb[j] = t.nbytes // n
+            got = load_library().fn("slot_gather_ctas")(ctypes.addressof(a))
+            want = S.gather_ctas([a.rb[j] for j in range(len(leaves))])
+            if got != want:
+                raise AssertionError(f"slot_gather's grid at N={n}, {s} "
+                                     f"slots: {got} CTAs in csrc, {want} "
+                                     f"in Python")
+        for escape in (False, True):
+            got = S.slot_gather(state, idx, escape, (frames,))
+            want = S.slot_gather_plain(state, idx, escape, (frames,))
+            where = f"slot_gather N={n} slots={s} escape={escape}"
+            _check(where, _leaves(got[0]), _leaves(want[0]))
+            _check(f"{where} keep", (got[1],), (want[1],))
+            _check(f"{where} frames", got[2:], want[2:])
+            counts["kept escape" if escape else "kept bucket"] += \
+                int(got[1].sum())
+            counts["calls"] += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts["launches"] = L.launches["slot_gather"] - before
+    return counts
+
+
 def check_splits(n, dev, seed=0, splits=SPLITS):
     """frame_prep (gray and wb_vj both ways, every stream and through
     slots) and handoff (the init form with the audit on and off, the
@@ -343,8 +436,9 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     fn = check
-    if args and args[0] == "--splits":
-        fn, args = check_splits, args[1:]
+    if args and args[0] in ("--splits", "--gather"):
+        fn, args = {"--splits": check_splits,
+                    "--gather": check_gather}[args[0]], args[1:]
     for n in [int(a) for a in args] or NS:
         print(n, fn(n, dev), flush=True)
 

@@ -1,12 +1,19 @@
-"""The relock tick's bucket kernels ``frame_prep`` (K9) and ``handoff``
-(K7) timed on the card in the checkout at ``--root`` (default: this one),
-so that two checkouts compare on one card (tools/torch_compare.sh runs it
-for a parent checkout and this one in turns).
+"""The relock tick's bucket kernels ``frame_prep`` (K9), ``handoff`` (K7)
+and ``slot_gather`` (S5) timed on the card in the checkout at ``--root``
+(default: this one), so that two checkouts compare on one card
+(tools/torch_compare.sh runs it for a parent checkout and this one in
+turns).
 
 The calls are chip_smoke.py ``bucket_workloads``' on the bench pool: the
 relock tick's 8 slots (4 served, switching on their face boxes, the 96x128
 audit) and the cold start's 256 streams (every stream switching, and
-``frame_prep`` with the gray plane and without it).  For each: CUDA events
+``frame_prep`` with the gray plane and without it); ``slot_gather`` of
+the relock tick's 8 slots over a state of the headline's leaves, and
+``gather escape``, the few escape body's gather: 8 slots, the last 3
+streams and padding, every state leaf and the frames (one
+``slot_gather`` launch under the escape's rule where the checkout has
+it, else the few body's PyTorch gathers, ``tree_index`` and
+``index_select``).  For each: CUDA events
 over 20 eager wrapper calls, graph replay, an empty kernel at the
 checkout's grid (its CTAs: the streams, times the launcher's split where
 the checkout has one), and a digest of the outputs' bytes, so that the
@@ -51,6 +58,42 @@ def digest(tree):
     return h.hexdigest()[:12]
 
 
+def gathers(cs, state, idx, frames, dev):
+    """slot_gather at the relock tick's slots, and the few escape body's
+    gather (see the module docstring), timed as the kernels above."""
+    import inspect
+    import torch
+    from headtrackr_tpu_torch.kernels import schedule
+    from headtrackr_tpu_torch.models import facetracker as ft
+    n = state.mode.shape[0]
+    rows = [t.nbytes // n for t in cs._leaves_of(state)]
+    ctas = getattr(schedule, "gather_ctas", lambda rb: len(rb))
+    eidx = torch.full((cs.SCHED_EB,), n, dtype=torch.int64)
+    eidx[:cs.SCHED_ESCAPES[1]] = torch.arange(n - cs.SCHED_ESCAPES[1], n)
+    eidx = eidx.to(dev)
+    if "extra" in inspect.signature(schedule.slot_gather).parameters:
+        def escape():
+            got = schedule.slot_gather(state, eidx, True, (frames,))
+            return got[0], got[2]
+        egrid = cs.SCHED_EB * ctas(rows + [frames.nbytes // n])
+    else:
+        def escape():
+            safe = torch.clamp(eidx, max=n - 1)
+            return ft.tree_index(state, safe), frames.index_select(0, safe)
+        egrid = None
+    res = {}
+    for name, fn, grid in (
+            ("slot_gather", lambda: schedule.slot_gather(state, idx),
+             idx.numel() * ctas(rows)),
+            ("gather escape", escape, egrid)):
+        res[name] = dict(events_ms=cs.cuda_ms(fn), graph_ms=cs.graph_ms(fn),
+                         empty_ms=None if grid is None else cs.graph_ms(
+                             lambda g=grid: cs.floor_launch(g)),
+                         grid=grid, digest=digest(fn()))
+        print(f"{name}: {res[name]}", flush=True)
+    return res
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=HERE,
@@ -72,7 +115,7 @@ def main(argv=None):
     pick = getattr(frameprep, "pick_split", lambda n, sms=None: 1)
     pool = build_pool(cs.N_STREAMS, cs.H, cs.W, cs.POOL, cs.LOSS_STREAMS,
                       np.random.default_rng(0))
-    calls, _, _ = cs.bucket_workloads(pool, dev)
+    calls, state, idx = cs.bucket_workloads(pool, dev)
     del pool
     wrapper = {"frame_prep": frameprep.frame_prep,
                "handoff": handoff.handoff}
@@ -85,6 +128,7 @@ def main(argv=None):
                                               cs.floor_launch(g)),
                          grid=grid, digest=digest(fn()))
         print(f"{name}: {res[name]}", flush=True)
+    res.update(gathers(cs, state, idx, calls["frame_prep"][1][0], dev))
     print(json.dumps(res))
     return 0
 

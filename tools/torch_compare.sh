@@ -26,6 +26,11 @@
 #        --parts bucket,bucket_eager,dispatch 2>&1 | grep -v "^#" | tail -4)' \
 #     'python3 tools/torch_group_times.py --root "$ROOT" 2>&1 | tail -1' \
 #     'python3 tools/torch_graph_nodes.py --root "$ROOT" 2>&1 | tail -1'
+# The few escape body and slot_gather (PERF.md §6):
+#   tools/torch_compare.sh build/parent \
+#     'python3 tools/torch_bucket_times.py --root "$ROOT" 2>&1 | tail -1' \
+#     'python3 tools/torch_sched_times.py --root "$ROOT" 2>&1 | tail -1' \
+#     'python3 tools/torch_graph_nodes.py --root "$ROOT" 2>&1 | tail -2'
 set -e
 if [ $# -lt 2 ]; then
   echo "usage: $0 PARENT_CHECKOUT COMMAND..." >&2

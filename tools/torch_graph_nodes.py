@@ -14,8 +14,10 @@ at each slot count, wbtrack, full, the escape fallback's few and many; in
 one without it, the all-CS tick, then the bucket and chunk ticks); then,
 in a checkout whose program commits by tables, one JSON line of each
 body's commit table (``commit_tables``: bytes and entries, in the
-program's body order).  Needs a CUDA card; node_kinds comes from this
-checkout's chip_smoke.py.
+program's body order), and the nodes of the full-frame "track" step
+alone on escape_bucket gathered rows (``few_track_step``: the escape
+fallback's few body runs it after its gather).  Needs a CUDA card;
+node_kinds and graph_nodes come from this checkout's chip_smoke.py.
 """
 
 import argparse
@@ -38,6 +40,21 @@ def commit_tables(bt):
         return None
     return [{"bytes": int(ct.segs[f:f + c, 2].sum()) if c else 0,
              "entries": c} for f, c, _, _ in ct.tables.tolist()]
+
+
+def track_step_nodes(bt, cs):
+    """The node kinds of the full-frame "track" step captured alone on the
+    escape fallback's escape_bucket rows (gathered before the capture), as
+    the few body runs it."""
+    import torch
+    from headtrackr_tpu_torch.models import facetracker as ft
+    steps = bt._steps
+    bufs = steps.buffers(bt.state)
+    idx = torch.arange(steps.escape_bucket, device=bufs.frames.device)
+    sub = ft.tree_index(bufs.state_in, idx)
+    rows = bufs.frames.index_select(0, idx)
+    return dict(collections.Counter(cs.graph_nodes(
+        lambda: steps._track_plain(sub, rows))))
 
 
 def main(argv=None):
@@ -69,7 +86,8 @@ def main(argv=None):
     print(cs.smi())
     print(json.dumps([dict(collections.Counter(cs.node_kinds(g)))
                       for g in graphs]))
-    print(json.dumps({"commit_tables": commit_tables(bt)}))
+    print(json.dumps({"commit_tables": commit_tables(bt),
+                      "few_track_step": track_step_nodes(bt, cs)}))
     return 0
 
 

@@ -17,6 +17,13 @@ At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
              wbtrack ticks, then run_scan of 8 ticks of the burst (256
              pending streams, chunk_cap = 32 served a tick);
   step_auto  one all-tracking headline tick (latency-sensitive serving);
+  escape     the headline's tick in which ESCAPES streams escape the band
+             within escape_bucket (the escape fallback's few body): their
+             faces stretched to 120 rows of the face's color, as
+             chip_smoke.py's sched_frames stretches them, from a locked
+             state, until a step_auto tick escapes exactly ESCAPES streams;
+             each call replays that tick from the state before it (restored
+             into the program's state buffers, untimed);
   split      that tick in parts: the all-CS tick's body graph
              (``BatchedTracker._graph``) replayed alone (device span, CUDA
              events), and the host time of step_auto's enqueue
@@ -70,6 +77,7 @@ LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
 BIG, BIG_K = 10240, 4
+ESCAPES = 3  # the escape case's escaping streams (the few body: <= 8)
 CONFIGS = {"headline": dict(band=(96, 128), bandHist=True),
            "full-frame": dict(band=None, bandHist=False, histKernel="pallas"),
            "band": dict(band=(96, 128), bandHist=False)}
@@ -201,6 +209,65 @@ def writes(bt, reps):
             "bytes": nbytes(results)}
 
 
+def stretched(pool, n_last):
+    """The pool's batches before its loss frame, the faces of the last
+    ``n_last`` streams stretched to 120 rows of the face's color (their
+    bin), as chip_smoke.py's sched_frames stretches them: a window grows
+    to the face and escapes the band once taller than it."""
+    import numpy as np
+    import torch
+    from bench import _face_rgb
+    seq = pool[:LOSS_AT].clone()
+    skin = torch.as_tensor(np.median(_face_rgb().reshape(-1, 3), 0)
+                           .astype(np.uint8)).to(pool.device)
+    for t in range(seq.shape[0]):
+        for s in range(seq.shape[1] - n_last, seq.shape[1]):
+            f = seq[t, s]
+            rows, cols = torch.nonzero((f // 16 == skin // 16).all(-1),
+                                       as_tuple=True)
+            if rows.numel():
+                cy = int(rows.float().mean())
+                f[max(0, cy - 60):cy + 60, int(cols.min()):int(cols.max())
+                  + 1] = skin
+    return seq
+
+
+def escape_tick(bt, pool):
+    """From ``bt``'s (locked) state, step_auto ticks on ``stretched``
+    frames until one escapes exactly ESCAPES streams: (the state before
+    that tick, cloned, its host modes, the tick's frames).  ``bt``'s state
+    is left as it was."""
+    import torch
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    start, modes0 = _clone(bt.state), bt.modes.copy()
+    seq = stretched(pool, ESCAPES)
+    found = None
+    for t in range(4 * LOSS_AT):
+        before, modes = _clone(bt.state), bt.modes.copy()
+        frame = seq[t % LOSS_AT]
+        out = bt.step_auto(frame)
+        nesc = int(out.escaped.sum())
+        if nesc == ESCAPES:
+            found = (before, modes, frame)
+            break
+        if nesc > ESCAPES:
+            raise SystemExit(f"escape: {nesc} streams escaped at once")
+    restore(bt, start, modes0)
+    if found is None:
+        raise SystemExit("escape: no tick escaped the stretched faces")
+    torch.cuda.synchronize()
+    return found
+
+
+def restore(bt, state, modes):
+    """``state`` copied into ``bt``'s state buffers (the program's, after a
+    step_auto), so that the next tick launches no copy of its own."""
+    import torch
+    from headtrackr_tpu_torch.runtime.serving import _leaves
+    torch._foreach_copy_(_leaves(bt.state), _leaves(state))
+    bt.set_state(bt.state, modes)
+
+
 def _tool(name):
     """This checkout's tools/<name>.py (a script, loaded by path)."""
     spec = importlib.util.spec_from_file_location(
@@ -302,6 +369,13 @@ def main(argv=None):
         if int((rot.modes == ft.MODE_VJ).sum()) != N:
             raise SystemExit("the cold start did not leave every stream VJ")
 
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    clean, clean_modes = _clone(head.state), head.modes.copy()
+    esc_state, esc_modes, esc_frame = escape_tick(head, pool)
+
+    def escaping():
+        return head.step_auto(esc_frame)
+
     # name -> (call, ticks, timing repetitions, set-up before each)
     cases = {f"scan {name}": (lambda bt=bt: bt.run_scan(steady), K, REPS,
                               None) for name, bt in trackers.items()}
@@ -309,7 +383,9 @@ def main(argv=None):
         "step_auto": (lambda: head.step_auto(pool[1]), 1, 3 * REPS, None),
         "cold": (lambda: head.run_scan(cold), K, 1, head.reset),
         "relock": (lambda: head.step_auto(pool[2]), 1, REPS, unlock),
-        "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst)})
+        "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst),
+        "escape": (escaping, 1, REPS,
+                   lambda: restore(head, esc_state, esc_modes))})
     res = {}
     # the host clock first: once torch.profiler has run in a process, a
     # launch of a graph with conditional nodes costs the host far more
@@ -329,6 +405,12 @@ def main(argv=None):
             before()
         res[name].update(profiled(fn, ticks))
         print(f"{name}: {json.dumps(res[name])}", flush=True)
+    restore(head, esc_state, esc_modes)
+    if int(escaping().escaped.sum()) != ESCAPES or \
+            head._steps._programs[N].runs[9] != 1:
+        raise SystemExit(f"escape: the replayed tick did not escape "
+                         f"{ESCAPES} streams through the few body")
+    restore(head, clean, clean_modes)
     host, span = host_ms(*cases["step_auto"][:3])
     res["step_auto after profiler"] = {"host_ms_per_tick": host,
                                        "span_ms_per_tick": span}
