@@ -7,7 +7,11 @@ Phases, one line each; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build: nvcc builds the CUDA kernels from headtrackr_tpu_torch/csrc/,
      one process per source, all started together;
-  3. kernels: hist4096, backproject (frame and band), histpdf_band (pdf and
+  3. kernels: hist4096, backproject (frame and band), backproject_ratio
+     (frame and band: the same kernels forming min(model / cur, 1) as they
+     stage their tables, at N=256, 8 and 1, on the bench pools' counts and
+     on tables with zero counts, clamped and equal bins and model bins
+     absent from the frame), histpdf_band (pdf and
      hist-only) on the card at N=256 x 240x320 must be bit-equal to their
      plain PyTorch twins on the same inputs (tolerance 0): the bench pools
      (face_noise 0 and 20) and uniform random frames, with full-frame
@@ -159,7 +163,11 @@ Phases, one line each; any failure raises and exits nonzero:
      ms, device operations, host launch calls and host reads a relock
      tick.  The headline's steady step_auto tick must take at most
      STEADY_OPS device operations (9: no PyTorch operation of the band is
-     left in it);
+     left in it); no configuration's steady tick runs scan_step (every
+     all-CS body reads the tick's frames in place), and the band and
+     full-frame all-CS bodies hold no graph node but hand-written kernels
+     (``foreign_nodes``: ALLCS_NODES of them, the ratio weights formed in
+     the backprojection kernel, no rect made on the card);
   6. card vs CPU: 2 streams x 24 ticks through the port on the card and on
      the CPU (plain twins), full-frame and headline configurations, agree:
      integer outputs exactly, floats within rtol 1e-5 / atol 1e-4;
@@ -168,7 +176,7 @@ Phases, one line each; any failure raises and exits nonzero:
      included) passes whitebalance -> detecting -> found, emits finite
      facetrackingEvents and headtrackingEvents, relocks after each loss,
      shows a (240, 320, 3) u8 backprojection on CS frames, and launches
-     hist_mma and backproject; ms per step_once (mean, p50, p99) over all
+     hist_mma and backproject_ratio; ms per step_once (mean, p50, p99) over all
      frames and by the mode each frame ran in (WB, VJ, CS);
   8. fanout and checkpoint: a BatchedSession of 256 pull-mode ClipSources
      (the bench pool, headline configuration) over 32 ticks plus flush()
@@ -187,7 +195,7 @@ Phases, one line each; any failure raises and exits nonzero:
      live CS box, with a controllers.RealisticAbsoluteCameraControl on the
      bus: one finite pose per headtrackingEvent; Smoother over the boxes;
      camshift.Histogram of each frame equals hist4096 of the full frame;
-     hist_bins, hist_mma, backproject, histpdf_band_hist and meanshift
+     hist_bins, hist_mma, backproject_ratio, handoff and meanshift
      each launched; ms per track() by mode (p50/p99), per
      ccv.detect_objects at 320x240 and per Histogram;
  10. plan and examples: plan_serving's kwargs for 256 streams of 320x240
@@ -264,8 +272,8 @@ Phases, one line each; any failure raises and exits nonzero:
      after losses, band escapes within escape_bucket and beyond it): every
      StepOutput leaf and the final state bit-equal to the per-tick path
      run eagerly on the card, every branch's body run (the program's own
-     counts), scan_step run once a tick whose body copies and once an
-     escape body's run (copy_runs), scan_commit once a tick and once an
+     counts), scan_step run once a tick whose body copies and once a
+     few body's run (copy_runs), scan_commit once a tick and once an
      escape body's run (its staging), the per-tick path's host code never
      reached (kernels/launch.py host_paths); an all-CS scan of 16 ticks
      runs no scan_step; a profiled scan of 16 ticks is one program
@@ -322,6 +330,11 @@ PROFILE_TICKS = 8
 # body's graph nodes (histpdf_band, meanshift, tick_epilogue; at most 5)
 STEADY_OPS = 9
 ALLCS_BODY_NODES = 5
+# the band and full-frame configurations' all-CS body: its graph's nodes,
+# each a hand-written kernel (band: hist_mma and its reduction,
+# backproject_rect_ratio, meanshift, tick_epilogue; full frame: hist4096,
+# backproject_ratio, meanshift, tick_epilogue)
+ALLCS_NODES = {"band": 5, "full-frame": 4}
 BAND = (96, 128)
 RTOL, ATOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -365,10 +378,10 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 CONFIGS = {
     "full-frame": (dict(band=None, bandHist=False, bucket=8,
                         histKernel="pallas"),
-                   ("hist4096", "backproject", "meanshift",
+                   ("hist4096", "backproject_ratio", "meanshift",
                     "tick_epilogue") + DETECT + BUCKET),
     "band": (dict(band=BAND, bandHist=False, bucket=8),
-             ("hist_mma", "backproject_rect", "meanshift",
+             ("hist_mma", "backproject_rect_ratio", "meanshift",
               "tick_epilogue") + DETECT + BUCKET),
     "headline": (dict(band=BAND, bandHist=True, bucket=8),
                  ("histpdf_band", "meanshift", "tick_epilogue") + DETECT
@@ -383,6 +396,12 @@ KERNELS = {
                     HISTPDF_SRC),
     "backproject_rect": ("headtrackr_tpu/kernels/histpdf.py:123", "band",
                          HISTPDF_SRC),
+    # K2's kernels forming the ratio weights (an XLA path, no Pallas
+    # kernel of its own) as they stage their tables
+    "backproject_ratio": ("headtrackr_tpu/ops/histogram.py:141",
+                          "full-frame", HISTPDF_SRC),
+    "backproject_rect_ratio": ("headtrackr_tpu/ops/histogram.py:141",
+                               "band", HISTPDF_SRC),
     "histpdf_band": ("tools/kernel_experiments.py:148", "headline",
                      HISTPDF_SRC),
     "histpdf_band_hist": ("tools/kernel_experiments.py:84", "headline",
@@ -425,10 +444,15 @@ SURFACE_PATH = ("hist_bins", "pdf_bins", "meanshift") + DETECT
 SURFACE_NS = (N_STREAMS, 1)  # hist_pallas / pdf_pallas: 256 streams and one
 SURFACE_DETECT = 8  # detect_best(gray, cascade): a relock bucket's streams
 # the kernels the facade phase's path launches
-FACADE_PATH = ("hist_bins", "hist_mma", "backproject", "handoff",
+FACADE_PATH = ("hist_bins", "hist_mma", "backproject_ratio", "handoff",
                "meanshift")
 FACADE_CPU_FRAMES = 24
 ALSO_REPLACES = {"histpdf_band": "tools/kernel_experiments.py:351",
+                 "backproject_ratio": "headtrackr_tpu/kernels/histpdf.py:123"
+                 " (with headtrackr_tpu/models/camshift.py:425)",
+                 "backproject_rect_ratio":
+                     "headtrackr_tpu/kernels/histpdf.py:123 (with "
+                     "headtrackr_tpu/models/camshift.py:574, :577)",
                  "meanshift": "headtrackr_tpu/models/camshift.py:265",
                  "pyramid": "headtrackr_tpu/ops/imageproc.py:49",
                  "cascade": "headtrackr_tpu/models/detector.py:261, :441",
@@ -490,9 +514,10 @@ F32_N = 70000
 F32_TICKS = 20  # from init_state: 15 wbtrack, the full tick, all-CS ticks
 F32_K = 2  # the last ticks as one run_scan
 F32_SPLIT = ("hist4096", "histpdf_band_hist", "histpdf_band", "backproject",
-             "backproject_rect", "hist_mma", "pyramid", "cascade")
+             "backproject_rect", "backproject_ratio", "backproject_rect_ratio",
+             "hist_mma", "pyramid", "cascade")
 # the program's path at 160x120 (no band; hist_mma the default histogram)
-F32_PATH = ("hist_mma", "backproject", "meanshift", "pyramid", "cascade",
+F32_PATH = ("hist_mma", "backproject_ratio", "meanshift", "pyramid", "cascade",
             "group", "tick_epilogue", "tick_select", "scan_step",
             "scan_commit", "frame_prep", "handoff")
 
@@ -654,6 +679,21 @@ def clip_windows(n, shape, g, dev):
     return w.to(torch.int32).to(dev)
 
 
+def ratio_tables(n, g, dev):
+    """(model, cur) (n, 4096) f32 on ``dev`` hitting every case of the
+    ratio weight min(model / cur, 1): cur == 0 with a model bin absent
+    from the frame (model > 0) and without, model > cur (clamped to 1),
+    model == cur, model 0, fractional counts."""
+    import torch
+    cur = torch.randint(0, 6, (n, 4096), generator=g).float()
+    model = torch.randint(0, 12, (n, 4096), generator=g).float()
+    cur[:, 0::7] = 0
+    model[:, 1::11] = cur[:, 1::11]
+    model[:, 3::17] = 0.75
+    cur[:, 3::17] = 3.0
+    return model.to(dev), cur.to(dev)
+
+
 def phase_kernels(pools, dev):
     import torch
     from headtrackr_tpu_torch.kernels import histpdf as K
@@ -702,6 +742,19 @@ def phase_kernels(pools, dev):
             want = hg.histpdf_band_plain(fr, rects, m, BAND)
             for a, b in zip(got, want):
                 check("histpdf_band", a, b)
+        # the ratio forms against their twins run on the card: the model
+        # of a detection box against the frame's counts, and tables with
+        # zero counts, clamped, equal and absent bins; N = 256, 8 and 1
+        for m, c in ((model, K.hist4096(fr)), ratio_tables(N, g, dev)):
+            for n in (N, 8, 1):
+                check("backproject_ratio",
+                      K.backproject_ratio(fr[:n], m[:n], c[:n]),
+                      hg.backproject_ratio_plain(fr[:n], m[:n], c[:n]))
+                check("backproject_rect_ratio",
+                      K.backproject_ratio(fr[:n], m[:n], c[:n], bands[:n],
+                                          BAND),
+                      hg.backproject_ratio_plain(fr[:n], m[:n], c[:n],
+                                                 rects[:n], BAND))
     # and against the placed twins, the wrappers' own CPU path (band_rect
     # on the CPU), on the bench faces
     fr, cpu = inputs["face_noise=0"], torch.device("cpu")
@@ -709,6 +762,13 @@ def phase_kernels(pools, dev):
     m = torch.randint(1, 200, (N, 4096), generator=g).float()
     check("backproject_rect", K.backproject(fr, w.to(dev), bands, BAND).cpu(),
           K.backproject(fr.to(cpu), w, bands.to(cpu), BAND))
+    m, c = (t.cpu() for t in ratio_tables(N, g, dev))
+    check("backproject_ratio",
+          K.backproject_ratio(fr, m.to(dev), c.to(dev)).cpu(),
+          K.backproject_ratio(fr.to(cpu), m, c))
+    check("backproject_rect_ratio",
+          K.backproject_ratio(fr, m.to(dev), c.to(dev), bands, BAND).cpu(),
+          K.backproject_ratio(fr.to(cpu), m, c, bands.to(cpu), BAND))
     for a, b in zip(K.histpdf_band(fr, bands, m.to(dev), BAND),
                     K.histpdf_band(fr.to(cpu), bands.to(cpu), m, BAND)):
         check("histpdf_band", a.cpu(), b)
@@ -779,7 +839,9 @@ def phase_kernels(pools, dev):
         if e != 0.0:
             raise AssertionError(f"{name} differs from its plain twin: "
                                  f"max abs err {e}")
-    log(f"kernels: bit-equal to their plain twins, backproject_rect and "
+    log(f"kernels: bit-equal to their plain twins (backproject_ratio over "
+        f"the frame and the band also at N=8 and 1, and on tables with "
+        f"zero counts, clamped, equal and absent bins), backproject_rect and "
         f"histpdf_band (each placing its bands from the windows) to the "
         f"rects form at band_rect's rects and to their CPU twins, also on "
         f"windows at every clip of the placement, on the 8-pixel grid, odd "
@@ -793,7 +855,8 @@ def phase_kernels(pools, dev):
     # times at the main path's shapes, face_noise=0 frames
     fr = inputs["face_noise=0"]
     model = K.histpdf_band(fr, boxes)
-    w = hg.backprojection_weights(model, K.hist4096(fr, full))
+    cur_full = K.hist4096(fr, full)
+    w = hg.backprojection_weights(model, cur_full)
     bins_full = hg.rgb_bins(fr).view(N, -1).long()
     rects, rects_grid = placed(bands, BAND, (H, W)), placed(on_grid, BAND,
                                                               (H, W))
@@ -827,6 +890,18 @@ def phase_kernels(pools, dev):
             lambda: hg.backproject_plain(fr, w, rects, BAND),
             lambda: torch.gather(w, 1, bins_band),
             7 * npx_band + 16 * N + 4 * 4096 * N, 6 * npx_band),
+        "backproject_ratio": (
+            lambda: K.backproject_ratio(fr, model, cur_full),
+            lambda: hg.backproject_ratio_plain(fr, model, cur_full),
+            lambda: torch.gather(w, 1, bins_full),
+            7 * npx_full + 8 * 4096 * N, 6 * npx_full + 3 * 4096 * N),
+        "backproject_rect_ratio": (
+            lambda: K.backproject_ratio(fr, model, cur_full, bands, BAND),
+            lambda: hg.backproject_ratio_plain(fr, model, cur_full, rects,
+                                               BAND),
+            lambda: torch.gather(w, 1, bins_band),
+            7 * npx_band + 16 * N + 8 * 4096 * N,
+            6 * npx_band + 3 * 4096 * N),
         BPR_GRID: (
             lambda: K.backproject(fr, w, on_grid, BAND),
             lambda: hg.backproject_plain(fr, w, rects_grid, BAND),
@@ -1708,6 +1783,71 @@ def node_kinds(g):
     return kinds
 
 
+def node_names(g):
+    """The nodes of a torch.cuda.CUDAGraph captured with keep_graph=True,
+    in the graph's order: a kernel node's function name (libcuda's
+    cuGraphKernelNodeGetParams_v2, then cuFuncGetName, or cuKernelGetName
+    where the node holds a library kernel), any other node its type."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value != 0:
+            names.append(GRAPH_NODE_TYPES.get(kind.value, str(kind.value)))
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_uint8 * 128)()
+        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params):
+            raise RuntimeError("cuGraphKernelNodeGetParams_v2 failed")
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func))
+               if func else
+               cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)))
+        if err or not name.value:
+            raise RuntimeError(f"no name for a kernel node (CUresult {err})")
+        names.append(name.value.decode())
+    return names
+
+
+def own_kernels(root):
+    """The names of the __global__ functions in the checkout's
+    headtrackr_tpu_torch/csrc/*.cu: the hand-written kernels."""
+    import glob
+    import re
+    names = set()
+    for path in glob.glob(os.path.join(root, "headtrackr_tpu_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as f:
+            text = f.read()
+        text = re.sub(r"__(launch_bounds|cluster_dims)__\s*\([^)]*\)", "",
+                      text)
+        for m in re.finditer(r"__global__\b[^;{(]*?\b(\w+)\s*\(", text):
+            names.add(m.group(1))
+    return names
+
+
+def foreign_nodes(g, root):
+    """The nodes of graph g that are not launches of a hand-written kernel
+    (``own_kernels``): every node that is not a kernel, and every kernel
+    whose name is none of those functions, plain or as a mangled name's
+    length-prefixed part (a PyTorch operation's kernel: at::native::...)."""
+    own = own_kernels(root)
+    return [name for name in node_names(g)
+            if not any(name == k or f"{len(k)}{k}" in name for k in own)]
+
+
 def graph_nodes(fn):
     """The node types of the CUDA graph that captures one call of fn."""
     import torch
@@ -2428,6 +2568,36 @@ def phase_profile(trackers, frames):
 HOST_SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
 
 
+def phase_allcs(runs, prof, root):
+    """Phase 5's checks of the steady tick in every configuration: no
+    scan_step ran on a profiled all-CS step_auto tick (each all-CS body
+    reads the tick's frames in place), and the band and full-frame
+    all-CS bodies' graphs hold ALLCS_NODES nodes, none of them other than
+    a launch of a hand-written kernel (``foreign_nodes``).  Returns each
+    checked body's nodes by kernel name."""
+    out = {}
+    for name, (_, _, bt) in runs.items():
+        steps = [r["kernel_launches"]["scan_step"]
+                 for r in prof[name]["step_auto"]]
+        if any(steps):
+            raise AssertionError(f"allcs [{name}]: scan_step ran on all-CS "
+                                 f"ticks ({steps} a tick)")
+        if name not in ALLCS_NODES:
+            continue
+        body = bt._steps._graphs[(bt.n, 0)]
+        names = node_names(body.graph)
+        foreign = foreign_nodes(body.graph, root)
+        if foreign or len(names) != ALLCS_NODES[name] or body.copy != "none":
+            raise AssertionError(f"allcs [{name}]: the all-CS body copies "
+                                 f"{body.copy!r}, holds {names}, not "
+                                 f"hand-written: {foreign}")
+        out[name] = names
+    log(f"allcs: no scan_step on any configuration's all-CS ticks; the "
+        f"band and full-frame all-CS bodies hold hand-written kernels "
+        f"alone: {out}")
+    return out
+
+
 def phase_relock(bt, frames):
     """Phase 5's relock tick on the headline's locked tracker: the
     LOSS_STREAMS streams turn blue (pool batch LOSS_AT, an all-CS tick) and
@@ -3005,15 +3175,17 @@ def _leaves_of(tree):
 def copy_runs(bt, outs):
     """scan_step's runs in the headline's program (bandHist) over run_scan
     outputs ``outs``: one a tick whose body copies (all but the all-CS
-    tick, which reads its frames in place) and one a tick whose escape
-    fallback ran a body (few or many; after a wbtrack or full tick it
-    copies nothing, a run all the same)."""
-    runs = 0
+    tick, whose frame readers read in place) and one a tick whose escape
+    fallback ran the few body (its slots' rows; after a wbtrack or full
+    tick it copies nothing, a run all the same); the many body reads in
+    place and copies none."""
+    eb, runs = bt._steps.escape_bucket, 0
     for o in outs:
         entry = o.detection.cpu().numpy()
         esc = o.escaped.cpu().numpy()
         for modes, e in zip(entry, esc):
-            runs += int(bt.branch(modes) != "track") + int(e.any())
+            runs += int(bt.branch(modes) != "track") + int(
+                0 < int(e.sum()) <= eb < len(modes))
     return runs
 
 
@@ -3379,7 +3551,8 @@ def phase_session(pool, dev):
     if not heads or not all(math.isfinite(e[k]) for e in heads
                             for k in ("x", "y", "z")):
         raise AssertionError("session: no finite headtrackingEvents")
-    missing = [k for k in ("hist_mma", "backproject") if counts[k] <= 0]
+    missing = [k for k in ("hist_mma", "backproject_ratio")
+               if counts[k] <= 0]
     if missing:
         raise AssertionError(f"session: kernels never launched: {missing}")
     ms, modes = 1e3 * np.asarray(times), np.asarray(modes)
@@ -4133,6 +4306,7 @@ def main():
     frames = torch.as_tensor(pools[0]).to(dev)
     runs = {name: phase_serving(name, frames, dev) for name in CONFIGS}
     prof = phase_profile({name: r[2] for name, r in runs.items()}, frames)
+    allcs = phase_allcs(runs, prof, root)
     relock = phase_relock(runs["headline"][2], frames)
     bodies = epilogue_bodies(runs["headline"][2])
     if bodies["0"]["nodes"] > ALLCS_BODY_NODES:
@@ -4224,7 +4398,7 @@ def main():
                      hist4096_n1=times["hist4096 n1"])
         entries.append(e)
     print(json.dumps({"profile": prof, "relock": relock,
-                      "serving_ms_per_tick": ms,
+                      "serving_ms_per_tick": ms, "all_cs_bodies": allcs,
                       "ticks": PROFILE_TICKS, "streams": N_STREAMS,
                       "session": session, "fanout": fanout,
                       "facade": facade, "plan": plan, "mesh": mesh,

@@ -7,7 +7,7 @@ position over N camera streams, served on one NVIDIA GPU:
     -> [whitebalance-stability gate]
     -> cascade detection over every window of every scale
     -> camshift tracking, full frame or band-local (CUDA kernels: hist_mma,
-       hist4096, backproject, histpdf_band, meanshift)
+       hist4096, backproject_ratio, histpdf_band, meanshift)
     -> EMA smoothing -> head position (x, y, z cm)
     -> facetrackingEvent / headtrackingEvent / headtrackrStatus callbacks
 

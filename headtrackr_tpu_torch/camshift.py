@@ -3,7 +3,7 @@ headtrackr.camshift and headtrackr_tpu/camshift.py).
 
 Canvas-free port of the reference interface (src/camshift.js:148-354):
 frames are (H, W, 3) u8 arrays or tensors.  The work runs on the device in
-models/camshift.py at N = 1 (the ``hist_mma``, ``backproject`` and
+models/camshift.py at N = 1 (the ``hist_mma``, ``backproject_ratio`` and
 ``meanshift`` kernels on the card); this wrapper is the stateful object API
 (initTracker / track / getTrackObj / getBackProjectionImg).  ``Histogram``
 counts an image's bins with the ``hist_bins`` kernel.

@@ -43,7 +43,18 @@
 //     these variants).
 //   - Frames whose pixel count is not a multiple of 16, or that do not
 //     start 16-byte aligned (a view), cannot take the bulk copies: there
-//     each thread loads its pixels' bytes from global memory itself.
+//     each thread loads its run's bytes from global memory itself, into
+//     the registers the bulk-copy path fills from shared memory, so the
+//     tile loop is one code on both paths.
+//   - In place: given frame_at (the device address of a word holding the
+//     frames' address when the kernel runs, the serving program's
+//     parameter block word), the kernel reads the frames there, and the
+//     host cannot see that address.  Each block then tests it (one load of
+//     the word, the same for every thread) and takes the bulk copies where
+//     it is 16-byte aligned, else the per-thread loads: a uniform branch
+//     once a stage around the loads only, so the tile loop and its wgmma
+//     stream are the same on both.
+//   - Rects null: the whole frame, no rect read.
 //
 // The launch is on the caller's stream, allocates nothing (the caller passes
 // the (N, blocks, 4096) i32 partials) and returns cudaGetLastError().
@@ -94,14 +105,21 @@ __device__ __forceinline__ int tile_offset(uint32_t row, int k) {
          (k >> 4) * static_cast<int>(kLbo) + (k & 15);
 }
 
+// How a block's frame bytes arrive: each thread loads its own, TMA bulk
+// copies (the launcher checked alignment), or either as the frames'
+// address read from frame_at allows.
+enum Load { kLoadThreads = 0, kLoadTma = 1, kLoadAt = 2 };
+
 // grid (blocks, N), kThreads threads: block s of stream n counts pixels
-// [s * block_px, (s + 1) * block_px) and writes partial[n][s][:].  kTma:
-// the frame bytes come by bulk copies (the launcher checked alignment).
-template <bool kTma>
+// [s * block_px, (s + 1) * block_px) and writes partial[n][s][:].  kLoad:
+// Load; with kLoadAt the frames lie frame_off bytes past the address that
+// *frame_at holds.  rects null: the whole frame.
+template <int kLoad>
 __global__ void __launch_bounds__(kThreads)
 hist_mma_kernel(const uint8_t* __restrict__ frames,
                 const int32_t* __restrict__ rects,
-                int32_t* __restrict__ partial, int h, int w, int block_px) {
+                int32_t* __restrict__ partial, int h, int w, int block_px,
+                const long long* __restrict__ frame_at, long long frame_off) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t{127});
@@ -109,15 +127,25 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
   const int P = h * w;
-  const uint8_t* px = frames + static_cast<int64_t>(n) * P * 3;
-  const int64_t rx = rects[4 * n], ry = rects[4 * n + 1];
-  const int64_t rw = rects[4 * n + 2], rh = rects[4 * n + 3];
-  Rect r;
-  r.x0 = static_cast<int>(rx < 0 ? 0 : (rx > w ? w : rx));
-  r.y0 = static_cast<int>(ry < 0 ? 0 : (ry > h ? h : ry));
-  r.x1 = static_cast<int>(rx + rw < 0 ? 0 : (rx + rw > w ? w : rx + rw));
-  r.y1 = static_cast<int>(ry + rh < 0 ? 0 : (ry + rh > h ? h : ry + rh));
-  r.full = r.x0 == 0 && r.y0 == 0 && r.x1 == w && r.y1 == h;
+  const uint8_t* base =
+      kLoad == kLoadAt
+          ? reinterpret_cast<const uint8_t*>(*frame_at + frame_off)
+          : frames;
+  // uniform over the grid: the word and P are the same for every thread
+  const bool tma = kLoad == kLoadTma ||
+                   (kLoad == kLoadAt && P % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(base) & 15) == 0);
+  const uint8_t* px = base + static_cast<int64_t>(n) * P * 3;
+  Rect r = {0, 0, w, h, true};
+  if (rects) {
+    const int64_t rx = rects[4 * n], ry = rects[4 * n + 1];
+    const int64_t rw = rects[4 * n + 2], rh = rects[4 * n + 3];
+    r.x0 = static_cast<int>(rx < 0 ? 0 : (rx > w ? w : rx));
+    r.y0 = static_cast<int>(ry < 0 ? 0 : (ry > h ? h : ry));
+    r.x1 = static_cast<int>(rx + rw < 0 ? 0 : (rx + rw > w ? w : rx + rw));
+    r.y1 = static_cast<int>(ry + rh < 0 ? 0 : (ry + rh > h ? h : ry + rh));
+    r.full = r.x0 == 0 && r.y0 == 0 && r.x1 == w && r.y1 == h;
+  }
 
   const int start = blk * block_px;
   const int lim = min(start + block_px, P);
@@ -136,12 +164,12 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
     sm90::bulk_load(sm.ring[slot], px + 3 * static_cast<int64_t>(p0), bytes,
                     &sm.full[slot]);
   };
-  if (kTma && tid == 0) {
+  if (tma && tid == 0) {
     for (int i = 0; i < kRing; ++i) sm90::mbar_init(&sm.full[i], 1);
     sm90::mbar_init_fence();
   }
   __syncthreads();
-  if (kTma && tid == 0) {
+  if (tma && tid == 0) {
     for (int st = 0; st < min(kRing, stages); ++st) issue(st);
   }
 
@@ -161,8 +189,12 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
     const int slot = st % kRing;
     // this thread's run: pixels p_run .. p_run + kRun - 1 of the stream
     const int p_run = start + st * kStagePx + kRun * tid;
-    uint32_t wd[6] = {};  // the run's 24 bytes, on the bulk-copy path
-    if (kTma) {
+    // the run's 24 bytes: from the stage's bulk copy, else from global
+    // memory where they lie (three 8-byte loads where the run is whole and
+    // 8-byte aligned, else the bytes of its pixels inside the block), so
+    // the tile loop below is the same on both paths
+    uint32_t wd[6] = {};
+    if (tma) {
       sm90::mbar_wait(&sm.full[slot], (st / kRing) & 1);
       const uint2* q = reinterpret_cast<const uint2*>(
           &sm.ring[slot][3 * kRun * tid]);
@@ -171,6 +203,25 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
         const uint2 v = q[i];
         wd[2 * i] = v.x;
         wd[2 * i + 1] = v.y;
+      }
+    } else {
+      const uint8_t* q = px + 3 * static_cast<int64_t>(p_run);
+      const int bytes = 3 * min(kRun, lim - p_run);
+      if (bytes == 3 * kRun && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+        const uint2* q2 = reinterpret_cast<const uint2*>(q);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const uint2 v = __ldg(q2 + i);
+          wd[2 * i] = v.x;
+          wd[2 * i + 1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 3 * kRun; ++k) {
+          if (k < bytes) {
+            wd[k >> 2] |= static_cast<uint32_t>(__ldg(q + k)) << (8 * (k & 3));
+          }
+        }
       }
     }
     int x = 0, y = 0;  // of pixel p_run, when the rect is not the frame
@@ -182,17 +233,11 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
     for (int c = 0; c < kStagePx / kTile; ++c) {
       const int j = run_slot(c);
       bool in = p_run + j < lim;
-      uint32_t R = 0, G = 0, B = 0;
-      if (kTma) {
-        R = (wd[(3 * j) >> 2] >> (8 * ((3 * j) & 3))) & 0xFFu;
-        G = (wd[(3 * j + 1) >> 2] >> (8 * ((3 * j + 1) & 3))) & 0xFFu;
-        B = (wd[(3 * j + 2) >> 2] >> (8 * ((3 * j + 2) & 3))) & 0xFFu;
-      } else if (in) {
-        const uint8_t* q = px + 3 * static_cast<int64_t>(p_run + j);
-        R = q[0];
-        G = q[1];
-        B = q[2];
-      }
+      const uint32_t R = (wd[(3 * j) >> 2] >> (8 * ((3 * j) & 3))) & 0xFFu;
+      const uint32_t G =
+          (wd[(3 * j + 1) >> 2] >> (8 * ((3 * j + 1) & 3))) & 0xFFu;
+      const uint32_t B =
+          (wd[(3 * j + 2) >> 2] >> (8 * ((3 * j + 2) & 3))) & 0xFFu;
       if (!r.full) {
         int xj = x + j, yj = y;
         while (xj >= w) {
@@ -236,7 +281,7 @@ hist_mma_kernel(const uint8_t* __restrict__ frames,
       sm90::fence_operands(acc);
     }
     // every thread has read its run from the slot (before the barriers)
-    if (kTma && tid == 0 && st + kRing < stages) issue(st + kRing);
+    if (tma && tid == 0 && st + kRing < stages) issue(st + kRing);
   }
   sm90::wgmma_wait<0>();
   sm90::fence_operands(acc);
@@ -278,13 +323,18 @@ __global__ void hist_mma_reduce(const int32_t* __restrict__ partial,
 
 }  // namespace
 
-// frames (n, h, w, 3) u8, rects (n, 4) i32, partial (n, blocks, 4096) i32
-// scratch, out (n, 4096) f32, all contiguous.  Block s of a stream counts
-// pixels [s * block_px, (s + 1) * block_px); block_px is a multiple of
-// 1,024 (a bulk-copy stage) and blocks * block_px covers the frame.
+// frames (n, h, w, 3) u8, rects (n, 4) i32 or null (the whole frame),
+// partial (n, blocks, 4096) i32 scratch, out (n, 4096) f32, all
+// contiguous.  Block s of a stream counts pixels [s * block_px, (s + 1) *
+// block_px); block_px is a multiple of 1,024 (a bulk-copy stage) and
+// blocks * block_px covers the frame.  frame_at: null, or the device
+// address of an i64 word that holds the frames' address when the kernel
+// runs (then ``frames`` is not read: the kernel reads the word's address
+// plus ``frame_off`` bytes).
 extern "C" int hist_mma_launch(const void* frames, const void* rects,
                                void* partial, void* out, int n, int h, int w,
-                               int blocks, int block_px, void* stream) {
+                               int blocks, int block_px, const void* frame_at,
+                               long long frame_off, void* stream) {
   if (n <= 0) return 0;
   const int64_t P = static_cast<int64_t>(h) * w;
   if (h <= 0 || w <= 0 || n > 65535 || blocks < 1 || block_px < kStagePx ||
@@ -298,18 +348,21 @@ extern "C" int hist_mma_launch(const void* frames, const void* rects,
   const auto* f = static_cast<const uint8_t*>(frames);
   const auto* r = static_cast<const int32_t*>(rects);
   auto* part = static_cast<int32_t*>(partial);
-  if (P % 16 == 0 && reinterpret_cast<uintptr_t>(frames) % 16 == 0) {
-    cudaFuncSetAttribute(hist_mma_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto* at = static_cast<const long long*>(frame_at);
+  using Kernel = void (*)(const uint8_t*, const int32_t*, int32_t*, int, int,
+                          int, const long long*, long long);
+  auto run = [&](Kernel kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmemBytes);
-    hist_mma_kernel<true><<<grid, kThreads, kSmemBytes, st>>>(
-        f, r, part, h, w, block_px);
+    kernel<<<grid, kThreads, kSmemBytes, st>>>(f, r, part, h, w, block_px, at,
+                                               frame_off);
+  };
+  if (at) {
+    run(hist_mma_kernel<kLoadAt>);
+  } else if (P % 16 == 0 && reinterpret_cast<uintptr_t>(frames) % 16 == 0) {
+    run(hist_mma_kernel<kLoadTma>);
   } else {
-    cudaFuncSetAttribute(hist_mma_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
-    hist_mma_kernel<false><<<grid, kThreads, kSmemBytes, st>>>(
-        f, r, part, h, w, block_px);
+    run(hist_mma_kernel<kLoadThreads>);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

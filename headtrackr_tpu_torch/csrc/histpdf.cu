@@ -38,6 +38,14 @@
 //     memory, then each thread bins its pixels and loads the weight.  A table
 //     load is exact by construction, so no split is needed.  Blocks cover
 //     16,384 pixels each so the table load stays small against the pixels.
+//   - Ratio form (the camshift step's, replacing the XLA path
+//     headtrackr_tpu/ops/histogram.py:141 backprojection_weights): given
+//     the model histogram and the current counts instead of weights, each
+//     block forms min(model / cur, 1), 0 where cur == 0, as it stages its
+//     table (IEEE division, bit-equal to the torch formulation on the
+//     card, F6).  The (N, 4096) weights tensor, its write and its read,
+//     and the PyTorch operations that made it are gone; a block reads 32
+//     KB of tables from L2 instead of 16.
 //
 // backproject_rect is the same lookup over a per-stream (bh, bw) band (the
 // band pdf of the band-local camshift with full-frame histograms), on the
@@ -57,6 +65,10 @@
 //     store (the placement's x origin is a multiple of 8 except where it is
 //     clipped to w - bw).  Any other origin or width takes the
 //     pixel-at-a-time loop.
+//   - Ratio form: each CTA forms the ratio weights of its quarter of the
+//     bins from the model and counts rows (one float4 of each a thread)
+//     and stores them into every peer's table through distributed shared
+//     memory, as histpdf_band does with its slices; no TMA, no mbarrier.
 //
 // histpdf_band replaces tools/kernel_experiments.py hp_call (k4) and
 // hp7_call (k7), the fused per-stream histogram + min(model/cur, 1) weights +
@@ -99,6 +111,11 @@
 //     them and copies none.  The row loads decide their alignment from
 //     each row's address on the device, so nothing depends on where the
 //     frames lie.
+//
+// In place: hist4096 and both backproject forms take ``frame_at`` as
+// histpdf_band does (frames_base), so the serving program's all-CS body of
+// every configuration reads each tick's frames where they lie.  hist4096
+// without rects counts the whole frame (no rect is made on the card).
 //
 // The cluster kernel counts a row as one run of rw x 3 bytes: a thread
 // takes 16 neighbouring pixels at a time with three 16-byte loads, and
@@ -146,60 +163,152 @@ using chist::cta_share;
 using chist::rgb_bin;
 using chist::Share;
 
-__device__ __forceinline__ const float* stage_table(const float* weights,
-                                                    int n, float4* table4) {
-  const float4* w4 =
-      reinterpret_cast<const float4*>(weights + static_cast<int64_t>(n) * kBins);
-  for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) table4[i] = w4[i];
+// The ratio weight min(model / cur, 1), 0 where cur == 0, as
+// ops/histogram.py backprojection_weights computes it on the card: IEEE
+// round-to-nearest division (F6) and the clamp's rule (a NaN stays NaN, as
+// torch.clamp keeps it), so each weight is bit-equal to the twin's.
+__device__ __forceinline__ float ratio_weight(float m, float c) {
+  if (c == 0.0f) return 0.0f;
+  const float q = __fdiv_rn(m, c);
+  return q > 1.0f ? 1.0f : q;
+}
+
+__device__ __forceinline__ float4 ratio_weights(const float4& m,
+                                                const float4& c) {
+  return make_float4(ratio_weight(m.x, c.x), ratio_weight(m.y, c.y),
+                     ratio_weight(m.z, c.z), ratio_weight(m.w, c.w));
+}
+
+// Stage stream n's table in shared memory (kThreads threads): its weight
+// row, or (kRatio) the ratio weights of its model row ``table`` and counts
+// row ``cur``, formed as they are staged (both 16-byte aligned rows).
+// Every load of a thread is issued before its first store: the compiler
+// cannot prove that a store into shared memory misses the rows.
+template <bool kRatio>
+__device__ __forceinline__ const float* stage_table(const float* table,
+                                                    const float* cur, int n,
+                                                    float4* table4) {
+  constexpr int kPer = kBins / 4 / kThreads;  // float4s a thread
+  const int64_t row = static_cast<int64_t>(n) * kBins;
+  const float4* t4 = reinterpret_cast<const float4*>(table + row);
+  const float4* c4 = reinterpret_cast<const float4*>(cur + row);
+  float4 t[kPer], c[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    t[j] = __ldg(t4 + threadIdx.x + j * kThreads);
+    if constexpr (kRatio) c[j] = __ldg(c4 + threadIdx.x + j * kThreads);
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if constexpr (kRatio) t[j] = ratio_weights(t[j], c[j]);
+    table4[threadIdx.x + j * kThreads] = t[j];
+  }
   __syncthreads();
   return reinterpret_cast<const float*>(table4);
 }
 
+// The frames a launch reads: ``frames``, or given ``frame_at`` (the
+// device address of an i64 word holding the frames' address when the
+// kernel runs: the serving program's parameter block word) that address
+// plus ``frame_off`` bytes.
+__device__ __forceinline__ const uint8_t* frames_base(
+    const uint8_t* frames, const long long* frame_at, long long frame_off) {
+  return frame_at ? reinterpret_cast<const uint8_t*>(*frame_at + frame_off)
+                  : frames;
+}
+
+// grid (blocks, N): block x of stream n looks up its 16,384 pixels in the
+// stream's table (the weights, or kRatio: formed from model and cur).
+template <bool kRatio>
 __global__ void __launch_bounds__(kThreads)
 backproject_kernel(const uint8_t* __restrict__ frames,
                    const float* __restrict__ weights,
-                   float* __restrict__ out, int64_t hw) {
+                   const float* __restrict__ cur, float* __restrict__ out,
+                   int64_t hw, const long long* __restrict__ frame_at,
+                   long long frame_off) {
   __shared__ float4 table4[kBins / 4];
   const int n = blockIdx.y;
-  const float* table = stage_table(weights, n, table4);
+  const float* table = stage_table<kRatio>(weights, cur, n, table4);
 
-  const uint8_t* f = frames + static_cast<int64_t>(n) * hw * 3;
+  const uint8_t* f = frames_base(frames, frame_at, frame_off) +
+                     static_cast<int64_t>(n) * hw * 3;
   float* o = out + static_cast<int64_t>(n) * hw;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kPdfPixelsPerBlock;
   int64_t end = start + kPdfPixelsPerBlock;
   end = end < hw ? end : hw;
-  for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
-    o[p] = table[rgb_bin(f + p * 3)];
+  // kUnroll pixels a thread a step, every load before the first store:
+  // frames_base's pointer carries no __restrict__, so the compiler cannot
+  // hoist a load above a store to ``o`` itself
+  constexpr int kUnroll = 4;
+  for (int64_t p0 = start + threadIdx.x; p0 < end;
+       p0 += kUnroll * kThreads) {
+    int b[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t p = p0 + j * kThreads;
+      const uint8_t* q = f + 3 * (p < end ? p : p0);
+      b[j] = bin_of(__ldg(q), __ldg(q + 1), __ldg(q + 2));
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t p = p0 + j * kThreads;
+      if (p < end) o[p] = table[b[j]];
+    }
   }
 }
 
 // grid (kCluster, N), one cluster a stream: CTA `rank` of stream n places
-// the band around the stream's window and looks up its share of its rows.  vec: the launcher found the frames 4-byte
-// aligned, w and bw multiples of 4 and out 16-byte aligned.
+// the band around the stream's window and looks up its share of its rows.
+// The table reaches every CTA's shared memory in quarters, one from each
+// CTA: the weights by a multicast TMA copy, or (kRatio) the ratio weights
+// of the CTA's quarter of the model and counts rows, formed in registers
+// and stored into every peer's table through distributed shared memory.
+// vec: the launcher found w and bw multiples of 4 and out 16-byte aligned
+// (the kernel checks the frames' 4-byte alignment itself).  frame_at,
+// frame_off: frames_base.
+template <bool kRatio>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 backproject_rect_kernel(const uint8_t* __restrict__ frames,
                         const float* __restrict__ weights,
+                        const float* __restrict__ cur,
                         const int32_t* __restrict__ windows,
                         float* __restrict__ out, int h, int w, int bh, int bw,
-                        bool vec) {
+                        bool vec, const long long* __restrict__ frame_at,
+                        long long frame_off) {
   __shared__ alignas(16) float table[kBins];
   __shared__ uint64_t bar;
+  constexpr int kSlice = kBins / kCluster;  // a CTA's quarter of the bins
+  static_assert(kSlice / 4 == kThreads, "one float4 of weights a thread");
   const int n = blockIdx.y;
   const uint32_t rank = sm90::cluster_rank();
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(&bar, 1);
-    sm90::mbar_init_fence();
-  }
-  // every CTA's barrier is set before any CTA's copy lands on it
-  sm90::cluster_sync();
-  if (threadIdx.x == 0) {
-    constexpr uint32_t kSlice = kBins * sizeof(float) / kCluster;
-    sm90::mbar_arrive_expect_tx(&bar, kBins * sizeof(float));
-    sm90::bulk_load_multicast(
-        reinterpret_cast<char*>(table) + rank * kSlice,
-        reinterpret_cast<const char*>(weights + static_cast<int64_t>(n) * kBins)
-            + rank * kSlice,
-        kSlice, &bar, static_cast<uint16_t>((1u << kCluster) - 1));
+  const int64_t trow = static_cast<int64_t>(n) * kBins;  // the table rows
+  if constexpr (kRatio) {
+    // every CTA has started (its table may be written) after the wait; the
+    // weights are formed while the cluster arrives
+    sm90::cluster_arrive_relaxed();
+    const int b = static_cast<int>(rank) * kSlice + 4 * threadIdx.x;
+    const float4 wt = ratio_weights(
+        *reinterpret_cast<const float4*>(weights + trow + b),
+        *reinterpret_cast<const float4*>(cur + trow + b));
+    sm90::cluster_wait();
+    for (int p = 0; p < kCluster; ++p) {
+      sm90::st_cluster_v4(sm90::map_rank(table + b, p), wt);
+    }
+  } else {
+    if (threadIdx.x == 0) {
+      sm90::mbar_init(&bar, 1);
+      sm90::mbar_init_fence();
+    }
+    // every CTA's barrier is set before any CTA's copy lands on it
+    sm90::cluster_sync();
+    if (threadIdx.x == 0) {
+      constexpr uint32_t kBytes = kSlice * sizeof(float);
+      sm90::mbar_arrive_expect_tx(&bar, kBins * sizeof(float));
+      sm90::bulk_load_multicast(
+          reinterpret_cast<char*>(table) + rank * kBytes,
+          reinterpret_cast<const char*>(weights + trow) + rank * kBytes,
+          kBytes, &bar, static_cast<uint16_t>((1u << kCluster) - 1));
+    }
   }
   const Rect rc =
       place_band(windows + 4 * static_cast<int64_t>(n), h, w, bh, bw);
@@ -207,15 +316,22 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
   const int rows = (bh + kCluster - 1) / kCluster;
   const int r0 = static_cast<int>(rank) * rows;
   const int nrows = max(0, min(bh - r0, rows));
-  const uint8_t* f = frames + static_cast<int64_t>(n) * h * w * 3 +
+  const uint8_t* base = frames_base(frames, frame_at, frame_off);
+  const uint8_t* f = base + static_cast<int64_t>(n) * h * w * 3 +
                      (static_cast<int64_t>(rc.y0 + r0) * w + x0) * 3;
   float* o = out + static_cast<int64_t>(n) * bh * bw +
              static_cast<int64_t>(r0) * bw;
-  sm90::mbar_wait(&bar, 0);
-  // this CTA holds the whole row, so every copy into it has landed
-  sm90::cluster_arrive();
+  if constexpr (kRatio) {
+    // every quarter of every CTA's table has landed
+    sm90::cluster_sync();
+  } else {
+    sm90::mbar_wait(&bar, 0);
+    // this CTA holds the whole row, so every copy into it has landed
+    sm90::cluster_arrive();
+  }
 
-  const bool quad = vec && x0 % 4 == 0;
+  const bool quad = vec && x0 % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(base) & 3) == 0;
   const int cols = quad ? bw / 4 : bw;  // units a row: 4 pixels or 1
   const int units = nrows * cols;
   // unit u = (row, col), advanced by blockDim.x units a step
@@ -237,7 +353,8 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
       v.w = table[bin_of((c >> 8) & 0xFF, (c >> 16) & 0xFF, c >> 24)];
       *reinterpret_cast<float4*>(o + dst) = v;
     } else {
-      o[dst] = table[rgb_bin(f + 3 * src)];
+      const uint8_t* q = f + 3 * src;
+      o[dst] = table[bin_of(__ldg(q), __ldg(q + 1), __ldg(q + 2))];
     }
     col += step_c;
     row += step_r;
@@ -247,7 +364,7 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
     }
   }
   // no CTA exits while a copy it issued may still land in another
-  sm90::cluster_wait();
+  if constexpr (!kRatio) sm90::cluster_wait();
 }
 
 // ---- the cluster histogram (hist4096, histpdf_band) ----------------------
@@ -257,8 +374,8 @@ backproject_rect_kernel(const uint8_t* __restrict__ frames,
 // grid (C, N), one cluster of C CTAs a stream (C a power of two <= 16).
 // kPdf: histpdf_band's pdf mode (``rects`` the search windows, each CTA
 // placing its stream's (bh, bw) band with place_band; model, pdf);
-// otherwise the counts of each rect clamped to the frame (hist4096,
-// hist-only mode).
+// otherwise the counts of each rect clamped to the frame, or of the whole
+// frame where ``rects`` is null (hist4096, hist-only mode).
 // kStash: the pdf mode keeps its pixels' bins in shared memory.  vec: bw %
 // 4 == 0 and pdf 16-byte aligned.  frame_at: null, or the address of a
 // word holding the frames' address, read in place of ``frames``, whose
@@ -282,12 +399,13 @@ cluster_hist_kernel(const uint8_t* __restrict__ frames,
   const int c = gridDim.x;
   const uint32_t rank = sm90::cluster_rank();
   const int32_t* r = rects + 4 * static_cast<int64_t>(n);
-  const Rect rc = kPdf ? place_band(r, h, w, bh, bw) : clamped_rect(r, h, w);
+  // hist-only mode without rects: the whole frame
+  const Rect rc = kPdf    ? place_band(r, h, w, bh, bw)
+                  : rects ? clamped_rect(r, h, w)
+                          : Rect{0, 0, w, h};
   const Share sh = cta_share(rc, c, static_cast<int>(rank));
-  const uint8_t* base =
-      frame_at ? reinterpret_cast<const uint8_t*>(*frame_at + frame_off)
-               : frames;
-  const uint8_t* f = base + static_cast<int64_t>(n) * h * w * 3;
+  const uint8_t* f = frames_base(frames, frame_at, frame_off) +
+                     static_cast<int64_t>(n) * h * w * 3;
   if (static_cast<int>(rank) < sh.active) {
     chist::zero_hist(hist);
     count_rows<kPdf && kStash>(f, w, rc, sh.r0, sh.nrows, hist, stash);
@@ -366,11 +484,15 @@ int blocks_for(int64_t pixels, int per_block) {
 
 }  // namespace
 
-// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h], out (n, 4096) f32
-// (16-byte aligned): the counts of each rect clamped to the frame.  One
-// cluster of c CTAs a stream (c a power of two, at most 16).
+// frames (n, h, w, 3) u8, rects (n, 4) i32 [x, y, w, h] or null, out (n,
+// 4096) f32 (16-byte aligned): the counts of each rect clamped to the
+// frame, or of the whole frame where rects is null.  One cluster of c CTAs
+// a stream (c a power of two, at most 16).  frame_at, frame_off: as
+// histpdf_band_launch's (null: the kernel reads ``frames``).
 extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
-                               int n, int h, int w, int c, void* stream) {
+                               int n, int h, int w, int c,
+                               const void* frame_at, long long frame_off,
+                               void* stream) {
   if (n <= 0) return 0;
   if (!chist::cluster_ok(n, c) ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
@@ -380,46 +502,80 @@ extern "C" int hist4096_launch(const void* frames, const void* rects, void* out,
       n, c, kBins * sizeof(int32_t), static_cast<cudaStream_t>(stream),
       static_cast<const uint8_t*>(frames), static_cast<const int32_t*>(rects),
       nullptr, static_cast<float*>(out), nullptr, h, w, 0, 0, false,
-      nullptr, 0);
+      static_cast<const long long*>(frame_at), frame_off);
 }
 
-// frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
-// out (n, h, w) f32; n <= 65,535 (the grid's y: kernels/histpdf.py splits
-// a larger batch, as it does for every launcher here).
-extern "C" int backproject_launch(const void* frames, const void* weights,
-                                  void* out, int n, int h, int w, void* stream) {
+// frames (n, h, w, 3) u8, table (n, 4096) f32, out (n, h, w) f32: pdf =
+// table[bin] where cur is null, else pdf = min(table / cur, 1)[bin] with
+// cur (n, 4096) f32 the current counts and table the model histogram (the
+// ratio weights formed as each block stages its table; table and cur
+// 16-byte aligned).  n <= 65,535 (the grid's y: kernels/histpdf.py splits
+// a larger batch, as it does for every launcher here).  frame_at,
+// frame_off: as histpdf_band_launch's.
+extern "C" int backproject_launch(const void* frames, const void* table,
+                                  void* out, int n, int h, int w,
+                                  const void* cur, const void* frame_at,
+                                  long long frame_off, void* stream) {
   if (n <= 0) return 0;
-  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cur) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t hw = static_cast<int64_t>(h) * w;
   const dim3 grid(blocks_for(hw, kPdfPixelsPerBlock), n);
-  backproject_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
-      static_cast<float*>(out), hw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint8_t*>(frames);
+  const auto* t = static_cast<const float*>(table);
+  const auto* cu = static_cast<const float*>(cur);
+  auto* o = static_cast<float*>(out);
+  const auto* at = static_cast<const long long*>(frame_at);
+  if (cu) {
+    backproject_kernel<true><<<grid, kThreads, 0, s>>>(f, t, cu, o, hw, at,
+                                                       frame_off);
+  } else {
+    backproject_kernel<false><<<grid, kThreads, 0, s>>>(f, t, cu, o, hw, at,
+                                                        frame_off);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames (n, h, w, 3) u8, weights (n, 4096) f32 (16-byte aligned rows),
-// windows (n, 4) i32 [x, y, w, h] search windows, each placing its
-// stream's (bh, bw) band (place_band; 1 <= bh <= h, 1 <= bw <= w), out (n,
-// bh, bw) f32.  One cluster of kCluster CTAs a stream.
-extern "C" int backproject_rect_launch(const void* frames, const void* weights,
+// frames (n, h, w, 3) u8, table (n, 4096) f32, windows (n, 4) i32 [x, y,
+// w, h] search windows, each placing its stream's (bh, bw) band
+// (place_band; 1 <= bh <= h, 1 <= bw <= w), out (n, bh, bw) f32: the
+// table's lookup over the band, the table the weights where cur is null,
+// else the model histogram whose ratio weights against the counts cur (n,
+// 4096) f32 the kernel forms (table and cur 16-byte aligned).  One cluster
+// of kCluster CTAs a stream.  frame_at, frame_off: as
+// histpdf_band_launch's.
+extern "C" int backproject_rect_launch(const void* frames, const void* table,
                                        const void* windows, void* out, int n,
                                        int h, int w, int bh, int bw,
-                                       void* stream) {
+                                       const void* cur, const void* frame_at,
+                                       long long frame_off, void* stream) {
   if (n <= 0) return 0;
   if (n > 65535 || bh < 1 || bw < 1 || bh > h || bw > w ||
       static_cast<int64_t>(h) * w * 3 > INT32_MAX ||
-      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cur) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = reinterpret_cast<uintptr_t>(frames) % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 4 == 0 &&
+  const bool vec = reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 4 == 0 &&
                    bw % 4 == 0;
-  backproject_rect_kernel<<<dim3(kCluster, n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(frames), static_cast<const float*>(weights),
-      static_cast<const int32_t*>(windows), static_cast<float*>(out), h, w,
-      bh, bw, vec);
+  const dim3 grid(kCluster, n);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint8_t*>(frames);
+  const auto* t = static_cast<const float*>(table);
+  const auto* cu = static_cast<const float*>(cur);
+  const auto* r = static_cast<const int32_t*>(windows);
+  auto* o = static_cast<float*>(out);
+  const auto* at = static_cast<const long long*>(frame_at);
+  if (cu) {
+    backproject_rect_kernel<true><<<grid, kThreads, 0, s>>>(
+        f, t, cu, r, o, h, w, bh, bw, vec, at, frame_off);
+  } else {
+    backproject_rect_kernel<false><<<grid, kThreads, 0, s>>>(
+        f, t, cu, r, o, h, w, bh, bw, vec, at, frame_off);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

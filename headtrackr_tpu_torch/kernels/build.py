@@ -30,9 +30,12 @@ _I = ctypes.c_int
 # source stem -> {C launcher: argtypes}
 _SIGNATURES = {
     "histpdf": {
-        "hist4096_launch": (_C, _C, _C, _I, _I, _I, _I, _C),
-        "backproject_launch": (_C, _C, _C, _I, _I, _I, _C),
-        "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+        "hist4096_launch": (_C, _C, _C, _I, _I, _I, _I, _C,
+                            ctypes.c_longlong, _C),
+        "backproject_launch": (_C, _C, _C, _I, _I, _I, _C, _C,
+                               ctypes.c_longlong, _C),
+        "backproject_rect_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C,
+                                    _C, ctypes.c_longlong, _C),
         "histpdf_band_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
                                 _C, ctypes.c_longlong, _C),
     },
@@ -40,7 +43,8 @@ _SIGNATURES = {
         "take_along_launch": (_C, _C, _C, _I, _I, _I, _I, _I, _I, _C),
     },
     "histmma": {
-        "hist_mma_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C),
+        "hist_mma_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _I, _C,
+                            ctypes.c_longlong, _C),
     },
     "histbins": {
         "hist_bins_launch": (_C, _C, _I, _I, _I, _C),

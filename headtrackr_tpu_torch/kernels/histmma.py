@@ -16,7 +16,8 @@ that many (kernels/histbins.py ``row_chunks``).
 import torch
 
 from ..ops.histogram import NBINS, hist_mma_plain
-from .histpdf import _check_frames, _check_rects
+from ..ops.histogram import full_rects
+from .histpdf import _check_frames, _check_rects, _frames_of
 from .histbins import row_chunks
 from .launch import launch, on_cuda, row_ptr, sm_count
 
@@ -43,15 +44,24 @@ def split_frame(n, npx, sms):
     return -(-npx // block_px), block_px
 
 
-def hist_mma(frames, rects):
+def hist_mma(frames, rects=None):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
-    counts of each stream's rect (clamped to the frame), by an int8 one-hot
+    counts of each stream's rect (clamped to the frame); ``rects`` None: of
+    the whole frame (the kernel reads no rect).  By an int8 one-hot
     product on the tensor cores: ``hist4096``'s contract.  Its grid covers
-    the frame: meant for full-frame rects."""
+    the frame: meant for the whole frame.  Reads its frames in place under
+    ``launch.frames_at`` (kernels/histpdf.py ``_frames_of``): the kernel
+    then takes its bulk copies where the address it loads is 16-byte
+    aligned, else its per-thread loads."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
-    _check_rects(rects, N)
-    if not on_cuda(frames, rects):
+    if rects is not None:
+        _check_rects(rects, N)
+    card = on_cuda(frames, *(() if rects is None else (rects,)))
+    frames, at = _frames_of(frames, card)
+    if not card:
+        if rects is None:
+            rects = full_rects(N, (H, W), frames.device)
         return hist_mma_plain(frames, rects)
     if N * H * W == 0:
         return torch.zeros((N, NBINS), dtype=torch.float32,
@@ -66,7 +76,9 @@ def hist_mma(frames, rects):
                           device=frames.device)
     with torch.cuda.device(frames.device):
         for (r0, r1), (blocks, block_px) in zip(chunks, plans):
+            # in place, streams r0.. lie r0 frames past the word's address
             launch("hist_mma", "hist_mma_launch", row_ptr(frames, r0),
-                   row_ptr(rects, r0), partial.data_ptr(), row_ptr(out, r0),
-                   r1 - r0, H, W, blocks, block_px)
+                   0 if rects is None else row_ptr(rects, r0),
+                   partial.data_ptr(), row_ptr(out, r0), r1 - r0, H, W,
+                   blocks, block_px, at, r0 * H * W * 3)
     return out

@@ -3,6 +3,11 @@
   hist4096      replaces headtrackr_tpu/kernels/histpdf.py::hist_pallas
   backproject   replaces headtrackr_tpu/kernels/histpdf.py::pdf_pallas
                 (over the frame, or over a per-stream band: backproject_rect)
+  backproject_ratio
+                the same kernels forming the table from the model and the
+                current counts (headtrackr_tpu/ops/histogram.py:141
+                backprojection_weights) as they stage it: the camshift
+                step's weights and pdf, no weights tensor
   histpdf_band  replaces tools/kernel_experiments.py hp_call (k4) and
                 hp7_call (k7); in hist-only mode hist_call (k3)
   hist_pallas   the reference's name and contract for K1, on bin ids: the
@@ -20,6 +25,14 @@ kernel, so a run can show that its main path went through the kernels.
 stream (``cluster_split``), each CTA counting a share of the rect's rows
 (``cluster_rows``) and reducing a slice of the bins over its peers.
 
+The frame readers (``hist4096``, ``backproject`` and
+``backproject_ratio``, ``histpdf_band``'s pdf mode, and
+kernels/histmma.py's ``hist_mma``) read their frames in place under
+``launch.frames_at(frames, source)`` (``_frames_of``): on the card the
+kernel loads the frames' address from source's word (the serving
+program's parameter block, which tick_select sets to tick k's frames), on
+the CPU the twin reads source.
+
 The band kernels (``backproject`` with a band, ``histpdf_band``'s pdf
 mode) take each stream's search window and place its band themselves
 (``csrc/band.cuh`` ``place_band``, one placement a CTA); their twins place
@@ -36,8 +49,9 @@ CUDA graph captures as many launches as an eager call makes.
 
 import torch
 
-from ..ops.histogram import (NBINS, backproject_plain, hist4096_plain,
-                             histpdf_band_plain)
+from ..ops.histogram import (NBINS, backproject_plain,
+                             backproject_ratio_plain, full_rects,
+                             hist4096_plain, histpdf_band_plain)
 from .histbins import hist_bins, row_chunks
 from .launch import frames_source as _frames_source
 from .launch import launch as _launch
@@ -46,8 +60,8 @@ from .launch import row_ptr as _row_ptr
 from .launch import sm_count as _sm_count
 from .pdfbins import pdf_bins
 
-__all__ = ["hist4096", "backproject", "histpdf_band", "hist_pallas",
-           "pdf_pallas", "cluster_split", "cluster_rows"]
+__all__ = ["hist4096", "backproject", "backproject_ratio", "histpdf_band",
+           "hist_pallas", "pdf_pallas", "cluster_split", "cluster_rows"]
 
 # the cluster histogram's CTAs a launch puts on an SM (one wave of them),
 # the pixels a counting CTA takes at least (csrc/histpdf.cu kMinCtaPx), the
@@ -115,31 +129,59 @@ def _placed(windows, band, H, W):
     return band_rects(*band_rect(windows, band, (H, W)))
 
 
-def hist4096(frames, rects):
+def _frames_of(frames, on_card):
+    """Where a frame reader reads ``frames`` (``launch.frames_at``): on the
+    card (frames, the device address of the word that holds their address
+    when the kernel runs, 0 where it reads ``frames`` themselves), on the
+    CPU (the frames the twin reads, 0)."""
+    source = _frames_source(frames)
+    if source is None:
+        return frames, 0
+    if on_card:
+        if source.dtype != torch.int64 or source.numel() != 1 or \
+                source.device != frames.device:
+            raise ValueError("on the card frames_at's source is a (1,) i64 "
+                             "word on the frames' device")
+        return frames, source.data_ptr()
+    if source.shape != frames.shape or source.dtype != frames.dtype:
+        raise ValueError("frames_at's source must match the frames")
+    return source, 0
+
+
+def hist4096(frames, rects=None):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
-    counts of each stream's rect (clamped to the frame).  One cluster a
-    stream sized by the frame: meant for full-frame rects (a box counts on
-    one or two of its CTAs; ``histpdf_band``'s hist-only mode sizes its
-    clusters the same way)."""
+    counts of each stream's rect (clamped to the frame); ``rects`` None:
+    of the whole frame (the kernel reads no rect).  One cluster a stream
+    sized by the frame: meant for the whole frame (a box counts on one or
+    two of its CTAs; ``histpdf_band``'s hist-only mode sizes its clusters
+    the same way).  Reads its frames in place under ``launch.frames_at``."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
-    _check_rects(rects, N)
-    if not _on_cuda(frames, rects):
+    if rects is not None:
+        _check_rects(rects, N)
+    card = _on_cuda(frames, *(() if rects is None else (rects,)))
+    frames, at = _frames_of(frames, card)
+    if not card:
+        if rects is None:
+            rects = full_rects(N, (H, W), frames.device)
         return hist4096_plain(frames, rects).to(torch.float32)
-    return _counts("hist4096", frames, rects)
+    return _counts("hist4096", frames, rects, at)
 
 
-def _counts(key, frames, rects):
-    """The rects' counts by the cluster kernel (C from the frame), its
-    launch counted under ``key``."""
+def _counts(key, frames, rects, at=0):
+    """The rects' counts (None: the whole frame) by the cluster kernel (C
+    from the frame), its launch counted under ``key``; ``at``: the address
+    word of frames read in place (``_frames_of``), 0 for none."""
     N, H, W, _ = frames.shape
     out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         for r0, r1 in row_chunks(N):
+            # in place, streams r0.. lie r0 frames past the word's address
             c = cluster_split(r1 - r0, H, W, _sm_count(frames.device))
             _launch(key, "hist4096_launch", _row_ptr(frames, r0),
-                    _row_ptr(rects, r0), _row_ptr(out, r0), r1 - r0, H, W,
-                    c)
+                    0 if rects is None else _row_ptr(rects, r0),
+                    _row_ptr(out, r0), r1 - r0, H, W, c, at,
+                    r0 * H * W * 3)
     return out
 
 
@@ -148,35 +190,61 @@ def backproject(frames, weights, windows=None, band=None):
     over the frame, or with ``windows`` (N, 4) i32 [x, y, w, h] search
     windows and ``band`` (bh, bw), (N, bh, bw) over the band placed around
     each window (``models/camshift.py`` ``band_rect``'s rule; the kernel,
-    ``backproject_rect``, places it itself)."""
+    ``backproject_rect``, places it itself).  Reads its frames in place
+    under ``launch.frames_at``."""
+    return _lookup(frames, weights, None, windows, band)
+
+
+def backproject_ratio(frames, model, cur, windows=None, band=None):
+    """``backproject`` of the ratio weights min(model / cur, 1), 0 where
+    cur == 0 (``ops/histogram.py`` ``backprojection_weights``), which the
+    kernel forms from the (N, 4096) f32 model histogram and current counts
+    as it stages its table (IEEE division, F6; each weight bit-equal to the
+    twin's on the card): one launch, no weights tensor.  Counted as
+    ``backproject_ratio`` over the frame, ``backproject_rect_ratio`` over
+    the band."""
+    _check_table("cur", cur, frames.shape[0])
+    return _lookup(frames, model, cur, windows, band)
+
+
+def _lookup(frames, table, cur, windows, band):
+    """``backproject`` (cur None: ``table`` the weights) and
+    ``backproject_ratio`` (``table`` the model)."""
     _check_frames(frames)
     N, H, W, _ = frames.shape
-    _check_table("weights", weights, N)
+    _check_table("model" if cur is not None else "weights", table, N)
     if windows is not None:
         _check_rects(windows, N, "windows")
         bh, bw = _check_band(band, H, W)
-    tensors = ((frames, weights) if windows is None
-               else (frames, weights, windows))
-    if not _on_cuda(*tensors):
-        if windows is None:
-            return backproject_plain(frames, weights)
-        return backproject_plain(frames, weights,
-                                 _placed(windows, (bh, bw), H, W), (bh, bw))
-    if weights.data_ptr() % 16:
-        raise ValueError("weights must be 16-byte aligned (float4 table load)")
+    tensors = [t for t in (frames, table, cur, windows) if t is not None]
+    card = _on_cuda(*tensors)
+    frames, at = _frames_of(frames, card)
+    if not card:
+        rects = (None if windows is None
+                 else _placed(windows, (bh, bw), H, W))
+        b = None if windows is None else (bh, bw)
+        if cur is None:
+            return backproject_plain(frames, table, rects, b)
+        return backproject_ratio_plain(frames, table, cur, rects, b)
+    if any(t.data_ptr() % 16 for t in (table, cur) if t is not None):
+        raise ValueError("the table and the counts must be 16-byte aligned "
+                         "(float4 table loads)")
     shape = (N, H, W) if windows is None else (N, bh, bw)
     out = torch.empty(shape, dtype=torch.float32, device=frames.device)
+    key = "backproject" if windows is None else "backproject_rect"
+    key += "" if cur is None else "_ratio"
     with torch.cuda.device(frames.device):
         for r0, r1 in row_chunks(N):
-            if windows is None:
-                _launch("backproject", "backproject_launch",
-                        _row_ptr(frames, r0), _row_ptr(weights, r0),
-                        _row_ptr(out, r0), r1 - r0, H, W)
-            else:
-                _launch("backproject_rect", "backproject_rect_launch",
-                        _row_ptr(frames, r0), _row_ptr(weights, r0),
-                        _row_ptr(windows, r0), _row_ptr(out, r0), r1 - r0,
-                        H, W, bh, bw)
+            ptrs = (_row_ptr(frames, r0), _row_ptr(table, r0))
+            if windows is not None:
+                ptrs += (_row_ptr(windows, r0),)
+            dims = (H, W) if windows is None else (H, W, bh, bw)
+            # in place, streams r0.. lie r0 frames past the word's address
+            _launch(key, "backproject_launch" if windows is None
+                    else "backproject_rect_launch", *ptrs,
+                    _row_ptr(out, r0), r1 - r0, *dims,
+                    0 if cur is None else _row_ptr(cur, r0), at,
+                    r0 * H * W * 3)
     return out
 
 
@@ -209,21 +277,11 @@ def histpdf_band(frames, boxes, model=None, band=None):
         return _counts("histpdf_band_hist", frames, boxes)
     _check_table("model", model, N)
     bh, bw = _check_band(band, H, W)
-    source = _frames_source(frames)
-    if not _on_cuda(frames, boxes, model):
-        if source is not None:
-            if source.shape != frames.shape or source.dtype != frames.dtype:
-                raise ValueError("frames_at's source must match the frames")
-            frames = source
+    card = _on_cuda(frames, boxes, model)
+    frames, at = _frames_of(frames, card)
+    if not card:
         return histpdf_band_plain(frames, _placed(boxes, (bh, bw), H, W),
                                   model, (bh, bw))
-    at = 0
-    if source is not None:
-        if source.dtype != torch.int64 or source.numel() != 1 or \
-                source.device != frames.device:
-            raise ValueError("on the card frames_at's source is a (1,) i64 "
-                             "word on the frames' device")
-        at = source.data_ptr()
     if model.data_ptr() % 16:
         raise ValueError("model must be 16-byte aligned (float4 loads)")
     cur = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)

@@ -13,8 +13,9 @@ lists, the host escape recompute), so a run can show that the
 device-scheduled path never reached them.
 
 ``frames_at`` redirects a kernel that can read its frames in place
-(``histpdf_band``) from one buffer to where a tick's frames lie: the
-serving program's bodies read tick k of a scan without a copy.
+(``histpdf_band``, ``hist4096``, ``hist_mma``, ``backproject`` in both
+forms) from one buffer to where a tick's frames lie: the serving program's
+bodies read tick k of a scan without a copy.
 """
 
 import contextlib
@@ -27,6 +28,7 @@ __all__ = ["launches", "host_paths", "reset_launches", "capturing",
            "row_ptr", "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
+            "backproject_ratio": 0, "backproject_rect_ratio": 0,
             "histpdf_band": 0, "histpdf_band_hist": 0, "take_along": 0,
             "hist_mma": 0, "hist_bins": 0, "pdf_bins": 0, "meanshift": 0,
             "pyramid": 0, "cascade": 0, "group": 0, "tick_epilogue": 0,

@@ -12,12 +12,14 @@ windows and rects (N, 4)); ``init_state`` takes N first.
 
 Two forms of the step:
   * ``track``: full frame (CUDA kernels on the card: the histogram that
-    ``kernel`` names, ``hist_mma`` by default or ``hist4096``, and
-    ``backproject``).
+    ``kernel`` names, ``hist_mma`` by default or ``hist4096``, then
+    ``backproject_ratio``, which forms the ratio weights from the model
+    and those counts as it stages its table).
   * ``track_band``: the pdf and the moments over an 8-aligned (bh, bw) band
     around each search window (``band_rect``, which each band kernel
     applies itself to the window it is given).  The current histogram is
-    full frame (``kernel``'s + ``backproject_rect``) or, with
+    full frame (``kernel``'s, then ``backproject_ratio`` over the band) or,
+    with
     ``band_hist``, the band's own (one fused ``histpdf_band`` launch:
     counts, weights and pdf).  A stream whose mean-shift trajectory leaves
     its band is flagged ``escaped``; its result is invalid and the caller
@@ -46,8 +48,8 @@ from ..device import resolve_device
 from ..kernels import epilogue as _epilogue
 from ..kernels import handoff as _handoff
 from ..kernels import meanshift as _ms
-from ..kernels.histpdf import backproject, histpdf_band, pdf_pallas
-from ..ops.histogram import NBINS, backprojection_weights, histogram_full
+from ..kernels.histpdf import backproject_ratio, histpdf_band, pdf_pallas
+from ..ops.histogram import NBINS, histogram_full
 from ..ops.meanshift import MEANSHIFT_ITERS
 
 __all__ = ["CamshiftState", "init_state", "init_tracker", "track",
@@ -202,11 +204,11 @@ def track(state, frame_rgb, calc_angles=True, exact=False, block=None,
 
 def shift(state, frame_rgb, kernel=None):
     """``track``'s work before the finish: the full-frame histogram, the
-    ratio weights, the backprojection and the mean shift.  Returns
-    (window' (N, 4) i32, moments, zero_mass (N,) bool, pdf (N, H, W))."""
+    ratio weights with the backprojection (one kernel) and the mean shift:
+    three kernels, no PyTorch operation between them.  Returns (window'
+    (N, 4) i32, moments, zero_mass (N,) bool, pdf (N, H, W))."""
     cur = histogram_full(frame_rgb, kernel)
-    weights = backprojection_weights(state.model_hist, cur)
-    pdf = backproject(frame_rgb, weights)
+    pdf = backproject_ratio(frame_rgb, state.model_hist, cur)
     win, m, zero_mass, _ = _ms.mean_shift(pdf, state.window)
     return win, m, zero_mass, pdf
 
@@ -286,9 +288,9 @@ def shift_band(state, frame_rgb, band=DEFAULT_BAND, kernel=None,
     if band_hist:
         _, pdf = histpdf_band(frame_rgb, window, state.model_hist, (bh, bw))
     else:
-        weights = backprojection_weights(state.model_hist,
-                                         histogram_full(frame_rgb, kernel))
-        pdf = backproject(frame_rgb, weights, window, (bh, bw))
+        pdf = backproject_ratio(frame_rgb, state.model_hist,
+                                histogram_full(frame_rgb, kernel), window,
+                                (bh, bw))
     win, m, zero_mass, escaped = _ms.mean_shift(pdf, window, (H, W))
     dirty = (state.band_dirty if band_hist and audit_escape
              and state.band_dirty is not None else None)

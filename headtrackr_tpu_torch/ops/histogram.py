@@ -5,8 +5,9 @@ Reference math:
   - ratio weights  min(model/cur, 1), 0 where cur == 0              (src/camshift.js:314-330)
   - backprojection pdf[p] = weights[bin(p)]                          (src/camshift.js:332-353)
 
-``hist4096_plain``, ``backproject_plain`` and ``histpdf_band_plain`` are the
-plain PyTorch twins of the CUDA kernels in ``kernels/histpdf.py``, and
+``hist4096_plain``, ``backproject_plain``, ``backproject_ratio_plain`` and
+``histpdf_band_plain`` are the plain PyTorch twins of the CUDA kernels in
+``kernels/histpdf.py``, and
 ``hist_mma_plain`` that of ``kernels/histmma.py``, ``hist_bins_plain``
 that of ``kernels/histbins.py`` and ``pdf_bins_plain`` that of
 ``kernels/pdfbins.py``: the same function, used for CPU tensors
@@ -26,7 +27,8 @@ import torch
 
 __all__ = ["NBINS", "rgb_bins", "full_rects", "band_origins",
            "band_bins", "hist4096_plain", "hist_mma_plain", "hist_bins_plain",
-           "pdf_bins_plain", "backproject_plain", "histpdf_band_plain", "HIST_KERNELS",
+           "pdf_bins_plain", "backproject_plain", "backproject_ratio_plain",
+           "histpdf_band_plain", "HIST_KERNELS",
            "check_hist_kernel", "histogram_rects", "histogram_full",
            "histogram_4096", "histogram_rect", "histogram_scan",
            "backprojection_weights"]
@@ -165,6 +167,15 @@ def backproject_plain(frames, weights, rects=None, band=None):
     return torch.gather(weights, 1, bins.view(N, -1)).view(bins.shape)
 
 
+def backproject_ratio_plain(frames, model, cur, rects=None, band=None):
+    """``backproject_plain`` of the ratio weights of ``model`` against
+    ``cur`` (``backprojection_weights``), looked up in the same order: the
+    twin of ``kernels/histpdf.py`` ``backproject_ratio``, which forms each
+    weight as it stages its table."""
+    return backproject_plain(frames, backprojection_weights(model, cur),
+                             rects, band)
+
+
 def histpdf_band_plain(frames, rects, model=None, band=None):
     """Hist-only (``model`` None): (N, 4096) f32 exact counts of each rect,
     clamped to the frame.  Otherwise (cur, pdf): the counts of each stream's
@@ -192,12 +203,13 @@ def histogram_rects(frames, rects):
 
 def histogram_full(frames, kernel=None):
     """Current full-frame histogram: (N, 4096) f32 counts, by the kernel
-    that ``kernel`` (TrackerConfig.histKernel) names in HIST_KERNELS."""
+    that ``kernel`` (TrackerConfig.histKernel) names in HIST_KERNELS, over
+    the whole frame (no rects: nothing runs on the host or the card before
+    the kernel)."""
     from ..kernels.histmma import hist_mma
     from ..kernels.histpdf import hist4096
     fn = hist_mma if check_hist_kernel(kernel) is None else hist4096
-    N, H, W, _ = frames.shape
-    return fn(frames, full_rects(N, (H, W), frames.device))
+    return fn(frames, None)
 
 
 def histogram_4096(bins, mask=None):

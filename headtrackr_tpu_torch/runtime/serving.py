@@ -38,13 +38,14 @@ tick_select, which sets the CUDA graph conditional handle of one IF node
 a branch), and so is the band's escape fallback (escape_select: none, a
 sub-batch of ``escape_bucket`` slots, or the batch); a WHILE node runs the
 K ticks of ``run_scan`` (scan_commit).  The ticks' frames stay where the
-caller staged them: tick_select writes where tick k's lie, the all-CS
-tick under bandHist reads them there (its one frame reader, histpdf_band,
-reads in place), and scan_step copies into the bodies' buffer only what
-another body's PyTorch ops read (``_Steps.copy_mode``).  Its select
-kernels are a grid of CTAs each, whose last CTA merges the others' counts
-and candidates, so the program serves any batch whose frames fit the
-card.  Each body keeps its own results, and scan_commit copies those of
+caller staged them: tick_select writes where tick k's lie, the frame
+readers of the camshift step read them there (histpdf_band, hist_mma,
+hist4096, backproject: the all-CS tick of every configuration and the
+escape fallback's many body copy none), and scan_step copies into the
+bodies' buffer only what another body's kernels read of it
+(``_Steps.copy_mode``).  Its select kernels are a grid of CTAs each,
+whose last CTA merges the others' counts and candidates, so the program
+serves any batch whose frames fit the card.  Each body keeps its own results, and scan_commit copies those of
 the body that ran (a leaf it passed through, none).
 What bounds N on one card is its memory alone (one tick's frames, a
 scan's staged ticks, the state, the bodies' buffers and the results each
@@ -254,9 +255,12 @@ class _Buffers:
     each keeps stay allocated for the graph's lifetime, so that no later
     capture reuses them.  On the card ``params`` is the serving program's
     parameter block, whose word ``frame_at`` holds where the tick's frames
-    lie (tick_select writes it): a body that reads its frames in place
-    reads them there, and the program copies into ``frames`` only what a
-    body's PyTorch ops read of them (``_Steps.copy_mode``)."""
+    lie (tick_select writes it): a body's frame readers that read in place
+    read them there, and the program copies into ``frames`` only what the
+    body's other kernels read of them (``_Steps.copy_mode``: the slots'
+    rows that frame_prep, handoff and slot_gather read, or the whole tick
+    that the wbtrack and full bodies' frame_prep, handoff and pyramid
+    read)."""
 
     def __init__(self, state, frames_shape, device, cap, escape_bucket):
         n = frames_shape[0]
@@ -323,8 +327,9 @@ class _TickGraph:
     ``rows``) or "whole".  A body that copies less than the whole tick
     reads its frames in place where it can: it is captured, and run on
     the CPU, under ``launch.frames_at`` (on the card the buffers'
-    ``frame_at`` word, on the CPU tick k's frames), so its
-    ``histpdf_band`` reads the tick's frames where they lie and anything
+    ``frame_at`` word, on the CPU tick k's frames), so its camshift step's
+    frame readers (``histpdf_band``, ``hist_mma``, ``hist4096``,
+    ``backproject``) read the tick's frames where they lie and anything
     else reads the buffer."""
 
     def __init__(self, tick, bufs, extra, copy="whole", rows=None):
@@ -390,7 +395,7 @@ class _Program:
     step changed), so such a tick stages nothing and copies no leaf whole.
     ``escaped`` is stamped after the merge (the tick body's flags).  Ahead
     of a body, scan_step copies into the bodies' frame buffer what its
-    PyTorch ops read (each body's ``copy``: none, its slots' rows or the
+    kernels read there (each body's ``copy``: none, its slots' rows or the
     whole tick; an escape body copies nothing after a tick body that
     copied whole).
 
@@ -788,9 +793,6 @@ class _Steps:
         self.device = device
         self.frame_shape = tuple(frame_shape)
         self.band = band
-        # the all-CS tick's one frame reader is histpdf_band, which reads
-        # the tick's frames in place (copy_mode)
-        self.band_hist = band is not None and bool(config.bandHist)
         self.bucket = max(1, int(bucket))
         self.overload = overload
         self.escape_bucket = max(1, int(escape_bucket))
@@ -848,21 +850,21 @@ class _Steps:
         keys = [0] + list(range(kb, self.chunk_cap(n) + 1, kb)) + ["wbtrack"]
         return keys + (["full"] if self.overload == "full" else [])
 
-    def copy_mode(self, key):
+    @staticmethod
+    def copy_mode(key):
         """What the program copies of a tick's frames into the bodies'
         buffer before the body ``key`` (``_graphs``' keys), from what its
-        PyTorch ops read there: under bandHist the all-CS tick's only frame
-        reader is ``histpdf_band``, which reads in place ("none"); the
-        bucket's track pass does too, and its "pending" step and the few
-        escape body read their slots' rows ("rows"); every other body reads
-        the whole frames ("whole").  Without bandHist every tick body
-        copies whole, so the escape bodies copy none."""
-        if not self.band_hist:
-            return "none" if key in ("few", "many") else "whole"
-        if key == 0:
+        kernels read there, the same in every configuration: the camshift
+        step's frame readers (``histpdf_band``; ``hist_mma`` or
+        ``hist4096`` and ``backproject``) read in place, so the all-CS
+        tick and the many escape body copy none ("none"); the bucket's
+        "pending" step (``frame_prep``, ``handoff``) and the few escape
+        body's ``slot_gather`` read their slots' rows ("rows"); the wbtrack
+        and full bodies' ``frame_prep``, ``handoff`` and ``pyramid`` read
+        the whole frames ("whole")."""
+        if key in (0, "many"):
             return "none"
-        return "rows" if key == "few" or not isinstance(key, str) \
-            else "whole"
+        return "whole" if key in ("wbtrack", "full") else "rows"
 
     def track(self, state, frames):
         """The "track" step with the band's escape recompute."""
@@ -995,9 +997,10 @@ class _Steps:
 
     def _escape_many(self, state, frames):
         """The escape fallback's ``many`` body: the full-frame "track" step
-        from the pre-step ``state`` on the batch, taken by the escaped
-        streams over the tick body's results, which the program stages into
-        the buffers' ``state_out`` and ``out`` ahead of it."""
+        from the pre-step ``state`` on the batch (its frame readers read
+        the tick's frames in place: the program copies none), taken by the
+        escaped streams over the tick body's results, which the program
+        stages into the buffers' ``state_out`` and ``out`` ahead of it."""
         bufs = self._bufs[frames.shape[0]]
         esc = bufs.out.escaped
         new, out = self._track_plain(state, frames)

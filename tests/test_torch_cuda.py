@@ -182,11 +182,11 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     stream = torch.cuda.current_stream().cuda_stream
     for c in (3, 32):
         assert fn(frames.data_ptr(), rects.data_ptr(), out.data_ptr(), 2, 8,
-                  8, c, stream) != 0
+                  8, c, 0, 0, stream) != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         from headtrackr_tpu_torch.kernels.launch import launch
         launch("hist4096", "hist4096_launch", frames.data_ptr(),
-               rects.data_ptr(), out.data_ptr(), 2, 8, 8, 3)
+               rects.data_ptr(), out.data_ptr(), 2, 8, 8, 3, 0, 0)
 
 
 def test_serving_tick_card_equals_cpu(dev):
@@ -337,18 +337,19 @@ def test_batched_steps_equal_tracker_on_the_card(dev, donate):
 
 
 @pytest.mark.parametrize("kw,hist,pdf", [
-    ({}, "hist_mma", "backproject"),
-    (dict(histKernel="pallas"), "hist4096", "backproject"),
+    ({}, "hist_mma", "backproject_ratio"),
+    (dict(histKernel="pallas"), "hist4096", "backproject_ratio"),
+    (dict(band=(64, 96)), "hist_mma", "backproject_rect_ratio"),
     (dict(band=(64, 96), bandHist=True), "histpdf_band", None)])
 def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     """One all-CS tick of the serving program adds the launches its
     all-CS body holds (one meanshift, no take_along, one histogram:
     hist_mma, the default histKernel's; hist4096, the "pallas" one's; or
-    the band's cluster histpdf_band, which also makes the pdf; and one pdf)
-    and one launch of each schedule kernel the tick ran (escape_select only
-    with a band; scan_step not under bandHist, whose all-CS body reads the
-    tick's frames in place).  Three streams: the clip's fourth carries a
-    face taller than the band."""
+    the band's cluster histpdf_band, which also makes the pdf; and one pdf,
+    the ratio form, which forms the weights) and one launch of each
+    schedule kernel the tick ran (escape_select only with a band; no
+    scan_step: every all-CS body reads the tick's frames in place).  Three
+    streams: the clip's fourth carries a face taller than the band."""
     H, W, n = 120, 160, 3
     clip = _serving_clip(H, W, n)
     bt = BatchedTracker(n, (H, W), cascade=toy_cascade(), device=dev, **kw)
@@ -359,15 +360,16 @@ def test_graph_replay_counts_its_launches(dev, kw, hist, pdf):
     bt.step_auto(clip[18])
     torch.cuda.synchronize()
     got = {k: launches[k] - before[k] for k in launches}
-    sched = {"tick_select": 1, "scan_step": int(not kw.get("bandHist")),
-             "scan_commit": 1, "escape_select": int("band" in kw)}
+    sched = {"tick_select": 1, "scan_commit": 1,
+             "escape_select": int("band" in kw)}
     assert got == {k: v + sched.get(k, 0)
                    for k, v in bt._graph.launches.items()}
     assert got["meanshift"] == 1 and got["take_along"] == 0
     assert got[hist] == 1
     if pdf is not None:
         assert got[pdf] == 1
-    others = {"hist_mma", "hist4096", "histpdf_band"} - {hist}
+    others = {"hist_mma", "hist4096", "histpdf_band", "backproject",
+              "backproject_rect", "scan_step"} - {hist}
     assert all(got[k] == 0 for k in others)
 
 
@@ -1852,13 +1854,16 @@ def test_program_equals_per_tick_path(dev, overload, config):
     1, escape_bucket 1, in three configurations (a 64x96 band with
     bandHist, the band with full-frame histograms, the full frame with
     hist4096), with the many escape body's staging buffers (``state_out``,
-    ``out``) poisoned before each call: every output of every tick and the
+    ``out``) and the bodies' frame buffer poisoned before each call (a
+    frame reader left on the buffer where it should read the tick's
+    frames in place would differ): every output of every tick and the
     final state bit-equal through wbtrack, full or the rotation, bucket
     and chunk ticks, and with a band escapes of one stream (few) and of
     two (many); the per-tick path's host code is not reached; each body
     keeps its own results, so only a tick whose escape fallback runs the
     many body stages (the few body's tick commits the tick body's table
-    and then its own rows: one more commit, no staging)."""
+    and then its own rows: one more commit, no staging); scan_step runs
+    on no all-CS tick and for no many body, in every configuration."""
     from headtrackr_tpu_torch.kernels import launch as L
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -1877,6 +1882,7 @@ def test_program_equals_per_tick_path(dev, overload, config):
     assert (prog.bufs.state_out is not None) == band
 
     def poison():
+        prog.bufs.frames.fill_(255)
         if band:
             for v in _leaves(prog.bufs.state_out) + list(prog.bufs.out):
                 v.view(torch.uint8).fill_(0xA5)
@@ -1898,8 +1904,9 @@ def test_program_equals_per_tick_path(dev, overload, config):
     # the schedule kernels' counts, read back from the card: one a tick
     # (escape_select with a band), scan_commit's also one an escape body's
     # run (the many body's staging, the few body's rows), scan_step's one
-    # a tick whose body copies and one an escape body run after a tick
-    # body that does not copy whole
+    # a tick whose body copies (every body but the all-CS tick's) and one
+    # a few body's run (its slots' rows, a run also after a tick body that
+    # copied whole); the many body copies nothing
     fields = tft.StepOutput._fields
     escaping = sum(bool(t[fields.index("escaped")].any()) for t in want)
     assert escaping == runs[9] + runs[10] and stages == runs[10]
@@ -1907,14 +1914,10 @@ def test_program_equals_per_tick_path(dev, overload, config):
     assert L.launches["escape_select"] == (len(clip) if band else 0)
     assert L.launches["scan_commit"] == len(clip) + escaping
     copying = sum(program.branch(t[fields.index("detection")]) != "track"
-                  or not kw.get("bandHist") for t in want)
-    copy_escapes = sum(
-        bool(t[fields.index("escaped")].any()) and kw.get("bandHist", False)
-        for t in want)
-    assert L.launches["scan_step"] == copying + (copy_escapes if band
-                                                 else 0)
-    if kw.get("bandHist"):  # all-CS ticks copy nothing
-        assert 0 < copying < len(clip) and escaping > 0
+                  for t in want)
+    assert L.launches["scan_step"] == copying + runs[9]
+    assert 0 < copying < len(clip)  # all-CS ticks copy nothing
+    assert escaping > 0 or not band
     for t, (a_t, b_t) in enumerate(zip(want, got)):
         for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
             np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
@@ -1944,7 +1947,8 @@ def test_kernels_past_the_grid_equal_twins(dev, n):
     assert res["hist4096"]["chunks"] == (1 if n <= 65535 else 2)
     assert cases.refusals() == []
     with pytest.raises(RuntimeError, match="hist4096 launch failed"):
-        L.launch("hist4096", "hist4096_launch", 0, 0, 0, 65536, 120, 160, 1)
+        L.launch("hist4096", "hist4096_launch", 0, 0, 0, 65536, 120, 160, 1,
+                 0, 0)
 
 
 def test_program_past_the_grid_equals_per_tick_path(dev):
@@ -2114,3 +2118,159 @@ def _tool(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _every_bin_frames(n, shape, dev, g):
+    """(n, H, W, 3) u8 on ``dev`` whose pixels take every one of the 4,096
+    bins, each stream in its own random order (H W a multiple of 4096),
+    the low 4 bits of each byte random."""
+    H, W = shape
+    perm = torch.argsort(torch.rand((n, H * W // 4096, 4096), generator=g,
+                                    device=dev), -1).view(n, H, W)
+    rgb = torch.stack([(perm >> 8) << 4, ((perm >> 4) & 15) << 4,
+                       (perm & 15) << 4], -1)
+    low = torch.randint(0, 16, rgb.shape, generator=g, device=dev)
+    return (rgb | low).to(torch.uint8)
+
+
+def _ratio_tables(n, dev, g):
+    """(model, cur) (n, 4096) f32 on ``dev`` hitting every case of the
+    ratio weight: cur == 0 with a model bin absent from the frame (model >
+    0) and without, model > cur (clamped to 1), model == cur, model 0,
+    fractional and denormal counts, an infinite model."""
+    cur = torch.randint(0, 6, (n, 4096), generator=g, device=dev).float()
+    model = torch.randint(0, 12, (n, 4096), generator=g, device=dev).float()
+    cur[:, 0::7] = 0
+    model[:, 1::11] = cur[:, 1::11]
+    cur[:, 2::13] = 1e-40
+    model[:, 3::17] = 0.75
+    cur[:, 3::17] = 3.0
+    model[:, 5::19] = float("inf")
+    cur[:, 6::23] = -0.0
+    return model, cur
+
+
+@pytest.mark.parametrize("n", [1, 8, 256, 70000])
+def test_backproject_ratio_bit_equal_to_twin_on_the_card(dev, n):
+    """backproject_ratio over the frame and over the band (the kernels
+    forming min(model / cur, 1), 0 where cur == 0, as they stage their
+    tables) bit-equal to their twins run on the card
+    (ops/histogram.py backproject_ratio_plain: backprojection_weights,
+    then the lookup), on frames whose pixels take every bin, so that each
+    weight is looked up and equals backprojection_weights' on the card;
+    one launch a chunk of 65,535 streams (F32)."""
+    from headtrackr_tpu_torch.kernels.histbins import row_chunks
+    g = torch.Generator(device=dev).manual_seed(n)
+    shape, band = (64, 64), (40, 48)
+    frames = _every_bin_frames(n, shape, dev, g)
+    model, cur = _ratio_tables(n, dev, g)
+    wins = torch.cat([torch.randint(-20, 70, (n, 2), generator=g,
+                                    device=dev),
+                      torch.randint(-5, 60, (n, 2), generator=g,
+                                    device=dev)], 1).int()
+    chunks = len(row_chunks(n))
+    for windows, key in ((None, "backproject_ratio"),
+                         (wins, "backproject_rect_ratio")):
+        b = None if windows is None else band
+        before = launches[key]
+        got = K.backproject_ratio(frames, model, cur, windows, b)
+        torch.cuda.synchronize()
+        assert launches[key] == before + chunks
+        rects = None if windows is None else _placed(windows, band, shape)
+        want = hg.backproject_ratio_plain(frames, model, cur, rects, b)
+        assert torch.equal(got, want), key
+        if windows is None:
+            weights = hg.backprojection_weights(model, cur)
+            bins = hg.rgb_bins(frames).view(n, -1).long()
+            assert torch.equal(got.view(n, -1),
+                               torch.gather(weights, 1, bins))
+        del got, want
+
+
+@pytest.mark.parametrize("n", [1, 3, 256])
+@pytest.mark.parametrize("shape", [(240, 320), (57, 99)])
+def test_frame_readers_in_place_equal_direct(dev, shape, n):
+    """The camshift step's frame readers reading their frames in place
+    (under launch.frames_at: a buffer poisoned with 255, the frames at the
+    address an i64 word holds, as the serving program's tick_select sets
+    it): hist4096 and hist_mma over the whole frame (no rects),
+    backproject_ratio over the frame and the band, and backproject's
+    weight forms, each bit-equal to its direct read of the same frames, on
+    three ticks of a scan staged on and off the 16-byte grid (hist_mma:
+    its bulk copies where the address it loads is aligned and H W % 16 ==
+    0, else its per-thread loads), eagerly and replayed from one captured
+    graph, the word changed between replays; a direct read of the buffer
+    is not redirected."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    from headtrackr_tpu_torch.kernels.histmma import hist_mma
+    g = torch.Generator().manual_seed(83 + n)
+    H, W = shape
+    band = (min(96, H), min(128, W))
+    seq = torch.stack([_hist_frames("bench" if k == 1 else "random", n,
+                                    shape, g) for k in range(3)])
+    model = torch.randint(0, 200, (n, 4096), generator=g).float().to(dev)
+    cur = torch.randint(0, 50, (n, 4096), generator=g).float().to(dev)
+    w = torch.rand((n, 4096), generator=g).to(dev)
+    wins = torch.cat([torch.randint(-20, W, (n, 2), generator=g),
+                      torch.randint(0, 90, (n, 2), generator=g)],
+                     1).int().to(dev)
+    readers = {
+        "hist4096": lambda f: K.hist4096(f),
+        "hist_mma": lambda f: hist_mma(f),
+        "backproject_ratio": lambda f: K.backproject_ratio(f, model, cur),
+        "backproject_rect_ratio": lambda f: K.backproject_ratio(
+            f, model, cur, wins, band),
+        "backproject": lambda f: K.backproject(f, w),
+        "backproject_rect": lambda f: K.backproject(f, w, wins, band)}
+    buf = torch.full(seq.shape[1:], 255, dtype=torch.uint8, device=dev)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    for offset in (0, 5):
+        flat = torch.zeros(seq.numel() + 16, dtype=torch.uint8, device=dev)
+        staged = flat[offset:offset + seq.numel()].view(seq.shape)
+        staged.copy_(seq.to(dev))
+        for key, read in readers.items():
+            want = [read(staged[k]) for k in range(3)]
+            for k in range(3):
+                word.fill_(staged[k].data_ptr())
+                before = launches[key]
+                with L.frames_at(buf, word):
+                    got = read(buf)
+                torch.cuda.synchronize()
+                assert launches[key] == before + 1, key
+                assert torch.equal(got, want[k]), (key, offset, k)
+            assert not torch.equal(read(buf), want[0]), key
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), L.frames_at(buf, word):
+                read(buf)
+            torch.cuda.current_stream().wait_stream(side)
+            with L.frames_at(buf, word), torch.cuda.graph(graph):
+                out = read(buf)
+            for k in (2, 0, 1):
+                word.fill_(staged[k].data_ptr())
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, want[k]), (key, offset, k, "graph")
+
+
+@pytest.mark.parametrize("kw", [dict(band=(64, 96)), {},
+                                dict(histKernel="pallas"),
+                                dict(band=(64, 96), bandHist=True)])
+def test_all_cs_body_holds_only_hand_written_kernels(dev, kw):
+    """The all-CS body of every configuration copies none of the tick's
+    frames, and its graph holds no node but launches of the package's
+    hand-written kernels (chip_smoke.py foreign_nodes: each kernel node's
+    function named in csrc/*.cu): no PyTorch operation, memcpy or
+    memset."""
+    import pathlib
+    import chip_smoke
+    root = pathlib.Path(__file__).resolve().parent.parent
+    bt = BatchedTracker(3, (120, 160), cascade=toy_cascade(), device=dev,
+                        **kw)
+    body = bt._steps.captured(bt.state, 0)
+    assert body.copy == "none"
+    names = chip_smoke.node_names(body.graph)
+    assert chip_smoke.foreign_nodes(body.graph, str(root)) == [], names
+    assert len(names) == (3 if kw.get("bandHist") else
+                          5 if kw.get("histKernel") is None else 4), names

@@ -3,8 +3,12 @@ package's BatchedTracker(band=None, bandHist=False, histKernel="pallas")
 ``step_auto`` on the lose-and-refind clip of tests/test_pipeline.py (the
 second stream offset in time and space).  Every StepOutput field on every
 tick: integer and bool fields exact, float fields to rtol 1e-5 / atol 1e-4
-(f32 sums in another order).  Also the convert.py round trip, the config
-pin, and the import boundary (no jax, no headtrackr_tpu)."""
+(f32 sums in another order).  The same clip through the port's serving
+program (its CPU twin) with the bodies' frame buffer poisoned before each
+call, through step_auto and run_scan: the all-CS ticks copy none of the
+frames (the full-frame readers read them in place) and still equal the
+reference.  Also the convert.py round trip, the config pin, and the
+import boundary (no jax, no headtrackr_tpu)."""
 
 import dataclasses
 import os
@@ -46,10 +50,14 @@ def _clip_track_lose_refind(dx=0, dy=0, lead=0):
     return clip
 
 
+def _clip():
+    return np.stack([np.stack(_clip_track_lose_refind()),
+                     np.stack(_clip_track_lose_refind(20, 10, 3))], axis=1)
+
+
 @pytest.fixture(scope="module")
 def runs():
-    clip = np.stack([np.stack(_clip_track_lose_refind()),
-                     np.stack(_clip_track_lose_refind(20, 10, 3))], axis=1)
+    clip = _clip()
     jb = ht.BatchedTracker(2, (H, W), cascade=ht.toy_cascade(), band=None,
                            bandHist=False, histKernel="pallas")
     tb = pt.BatchedTracker(2, (H, W), cascade=pt.toy_cascade(), device="cpu")
@@ -82,6 +90,43 @@ def test_step_outputs_match_reference_every_tick(runs):
     for s in range(2):  # the lifecycle happened on both streams
         bits = np.bitwise_or.reduce(status[:, s])
         assert bits & tft.STATUS_REDETECTING and bits & tft.STATUS_FOUND
+
+
+@pytest.mark.parametrize("entry", ["step_auto", "run_scan"])
+def test_program_reads_frames_in_place_every_tick(runs, entry):
+    """The full-frame configuration's serving program (``scheduled``: the
+    bodies uncaptured, the kernels' twins) over the clip, the bodies'
+    frame buffer filled with 255 before each call (run_scan: chunks of
+    8): every StepOutput field on every tick equals the reference's
+    step_auto; scan_step copies on the ticks whose body is not all-CS
+    alone (wbtrack, full, bucket), and all-CS ticks ran."""
+    rows, _ = runs
+    clip = _clip()
+    tb = pt.BatchedTracker(2, (H, W), cascade=pt.toy_cascade(), device="cpu")
+    tb._steps.scheduled = True
+    bufs = tb._steps.buffers(tb.state)
+    got, copies, allcs = [], 0, 0
+    for k0 in range(0, len(clip), 1 if entry == "step_auto" else 8):
+        bufs.frames.fill_(255)
+        if entry == "step_auto":
+            outs = [tb.step_auto(clip[k0])]
+        else:
+            part = tb.run_scan(torch.as_tensor(clip[k0:k0 + 8]))
+            outs = [[v[k] for v in part] for k in range(part[0].shape[0])]
+        prog = tb._steps.program(tb.state)
+        copies += prog.steps["runs"]
+        allcs += prog.runs[0]
+        got += [[v.numpy() for v in o] for o in outs]
+    assert len(got) == len(rows)
+    for t, ((ref, _), out) in enumerate(zip(rows, got)):
+        for name, a, b in zip(tft.StepOutput._fields, ref, out):
+            a = np.broadcast_to(a, b.shape)
+            if a.dtype.kind in "biu":
+                np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
+            else:
+                np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                           err_msg=f"tick {t} {name}")
+    assert allcs > 0 and copies == len(clip) - allcs
 
 
 def test_convert_round_trip(runs):

@@ -149,16 +149,15 @@ def test_shift_band_runs_no_band_op(rng, monkeypatch, band_hist):
 
     monkeypatch.setattr(tcs, "histpdf_band", fake("histpdf_band",
                                                   (None, pdf)))
-    monkeypatch.setattr(tcs, "backproject", fake("backproject", pdf))
+    monkeypatch.setattr(tcs, "backproject_ratio",
+                        fake("backproject_ratio", pdf))
     monkeypatch.setattr(tcs, "histogram_full", fake("histogram_full", None))
-    monkeypatch.setattr(tcs, "backprojection_weights",
-                        fake("weights", None))
     monkeypatch.setattr(tcs._ms, "mean_shift", fake("mean_shift", outs))
     with _Ops() as mode:
         got = tcs.shift_band(state, frames, (24, 32), band_hist=band_hist)
     assert mode.ops == []
-    kernel = "histpdf_band" if band_hist else "backproject"
-    assert seen[kernel][1 if band_hist else 2] is state.window
+    kernel = "histpdf_band" if band_hist else "backproject_ratio"
+    assert seen[kernel][1 if band_hist else 3] is state.window
     assert seen[kernel][-1] == (24, 32)
     ms = seen["mean_shift"]
     assert ms[0] is pdf and ms[1] is state.window and ms[2] == (H, W)

@@ -374,14 +374,15 @@ def _copies(tb, entry, escaped):
     each tick's entry modes and escaped count: the tick body copies none
     (the all-CS tick: histpdf_band reads in place), the served rows (a
     bucket tick) or the whole tick (wbtrack, full); an escape body its
-    slots' rows (few) or the whole tick (many), nothing after a tick body
-    that copied whole (a run all the same)."""
+    slots' rows (few), nothing after a tick body that copied whole (a run
+    all the same), or none (many: its frame readers read in place, no
+    run)."""
     want = dict.fromkeys(("runs", "rows", "whole"), 0)
     eb = KW["escape_bucket"]
     for modes, nesc in zip(entry, escaped):
         body = {"track": "none", "bucket": "rows", "wbtrack": "whole",
                 "full": "whole"}[tb.branch(np.array(modes))]
-        esc = None if nesc == 0 else "rows" if nesc <= eb < N else "whole"
+        esc = None if nesc == 0 else "rows" if nesc <= eb < N else "none"
         for mode, done in ((body, False), (esc, body == "whole")):
             if mode not in (None, "none"):
                 want["runs"] += 1

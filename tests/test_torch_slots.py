@@ -18,6 +18,14 @@ fallback recomputes it from the pre-step state).  Every state and output
 leaf equals the reference's: integers exact, floats within rtol 1e-5 /
 atol 1e-4 (the reference's f32 whitebalance mean).
 
+The serving program of the band configuration (its track pass
+``hist_mma`` + ``backproject_ratio``, reading the tick's frames in place)
+at N = 12 and escape_bucket 8 against the reference's ``step_auto`` on
+two ticks from a tick with a relock and few escapes, one with many
+escapes and an all-CS tick with one escape, through ``step_auto`` and
+``run_scan``, with the bodies' frame buffer poisoned before each call: a
+frame reader left on the buffer would differ.
+
 The escape fallback's few body, at N = 12 and escape_bucket 8, against
 the reference's ``step_auto``: one stream escaping on an all-CS tick, and
 two escaping on a bucket tick (served slots disjoint from the escaped
@@ -189,6 +197,12 @@ FEW_ROLES = {
                                            (30, 14, 20, 20)),
                _CS + ((36, 20, 10, 10),), ("wb", tft.MODE_WB, None)]
     + [_CS + ((x, y, 10, 10),) for x, y in _SMALL[3:6]],
+    # a bucket tick (a VJ stream relocks, a WB one turns VJ) on which nine
+    # streams escape: more than escape_bucket, the many body
+    "many": [("vj", tft.MODE_VJ, (30, 14, 20, 20)), ("wb", tft.MODE_WB, None),
+             _CS + ((8, 8, 10, 10),)]
+    + [_ESC + ((2 + k % 3, 1 + k % 4, 44 - k % 3, 40 - k % 5),)
+       for k in range(9)],
 }
 
 
@@ -247,6 +261,75 @@ def test_few_body_matches_reference_step_auto(reference_auto, case):
     if case == "bucket":
         assert bt.state.mode[names.index("vj")] == tft.MODE_CS  # relocked
         assert bt.state.mode[names.index("wb")] == tft.MODE_VJ
+
+
+def _assert_reference(jnew, jout, state, out, where):
+    """The port's state (None: not compared) and StepOutput equal the
+    reference's: integers exact, floats within rtol 1e-5 / atol 1e-4."""
+    pairs = [(f"{where} {name}", np.asarray(a), b.numpy())
+             for name, a, b in zip(tft.StepOutput._fields, jout, out)]
+    if state is not None:
+        ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jnew)]
+        got = convert.state_to_numpy(state)
+        assert len(got) == len(ref)
+        pairs += [(f"{where} leaf {i}", a, b)
+                  for i, (a, b) in enumerate(zip(ref, got))]
+    for what, a, b in pairs:
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=what)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                       equal_nan=True, err_msg=what)
+
+
+@pytest.mark.parametrize("entry", ["step_auto", "run_scan"])
+@pytest.mark.parametrize("case", ["bucket", "many", "alone"])
+def test_band_program_reads_frames_in_place(reference_auto, case, entry):
+    """The band configuration's serving program (the program's twin, the
+    bodies uncaptured) over two ticks, the second's faces a pixel to the
+    right, from a state whose first tick relocks and escapes a few streams
+    (bucket), relocks and escapes nine (many: more than escape_bucket) or
+    escapes one on an all-CS tick (alone), with the bodies' frame buffer
+    filled with 255 before each call: the all-CS and many bodies copy none
+    of the tick's frames and read them in place, the bucket and few bodies
+    copy their slots' rows; every output and the state after each tick
+    equal the reference's step_auto."""
+    roles = FEW_ROLES[case]
+    frames = _scene(N_FEW, 26, roles)
+    seq = np.stack([frames, np.roll(frames, 1, axis=2)])
+    jst, state = _states(N_FEW, frames, roles)
+    refs = []
+    for f in seq:
+        jst, jout = reference_auto(jst, jnp.asarray(f))
+        refs.append((jst, jout))
+    bt = BatchedTracker(N_FEW, (H, W), cascade=toy_cascade(), device="cpu",
+                        band=BAND, bucket=BUCKET, escape_bucket=EB_FEW)
+    bt._steps.scheduled = True
+    bt.set_state(state)
+    bufs = bt._steps.buffers(bt.state)
+    L.reset_launches()
+    runs = []
+    if entry == "step_auto":
+        for k, f in enumerate(seq):
+            bufs.frames.fill_(255)
+            out = bt.step_auto(f)
+            runs.append(bt._steps.program(bt.state).runs)
+            _assert_reference(*refs[k], bt.state, out, f"tick {k}")
+    else:
+        bufs.frames.fill_(255)
+        got = bt.run_scan(torch.as_tensor(seq))
+        runs.append(bt._steps.program(bt.state).runs)
+        for k in range(len(seq)):
+            _assert_reference(*refs[k], bt.state if k == len(seq) - 1
+                              else None, [v[k] for v in got],
+                              f"scan tick {k}")
+    assert L.host_paths == dict.fromkeys(L.host_paths, 0)
+    # the first tick's escape fallback (step_auto; run_scan: both ticks'
+    # runs): the many body, else the few body; its body all-CS or bucket
+    assert runs[0][10 if case == "many" else 9] >= 1, runs
+    assert (runs[0][0] >= 1) == (case == "alone"), runs
+    if case != "alone":
+        assert bt.state.mode[0] == tft.MODE_CS  # the VJ stream relocked
 
 
 @pytest.mark.parametrize("escape", [False, True])

@@ -157,7 +157,9 @@ def main(argv=None):
     from headtrackr_tpu_torch.ops.histogram import (backprojection_weights,
                                                     histogram_full,
                                                     histogram_rects)
-    from headtrackr_tpu_torch.kernels.histpdf import backproject, histpdf_band
+    from headtrackr_tpu_torch.kernels.histpdf import (backproject,
+                                                      backproject_ratio,
+                                                      histpdf_band)
 
     dev = torch.device("cuda", 0)
     N, H, W = args.streams, 240, 320
@@ -224,8 +226,8 @@ def main(argv=None):
         def upto_pdf():  # the band kernels place the band from win
             if args.band_hist:
                 return histpdf_band(frames, win, model, b)[1]
-            w = backprojection_weights(model, histogram_full(frames, hk))
-            return backproject(frames, w, win, b)
+            return backproject_ratio(frames, model,
+                                     histogram_full(frames, hk), win, b)
 
         def upto_ms():
             return mean_shift(upto_pdf(), win, (H, W))
@@ -239,10 +241,10 @@ def main(argv=None):
     model = state.cs.model_hist
     if "histpdf" in want:
         def histpdf():
-            w = backprojection_weights(model, histogram_full(frames, hk))
-            return backproject(frames, w)
+            return backproject_ratio(frames, model,
+                                     histogram_full(frames, hk))
         report("histpdf", graph_ms(histpdf),
-               "full-frame histogram + weights + pdf, graph")
+               "full-frame histogram + weights and pdf, graph")
     if "hist" in want:
         report("hist", graph_ms(lambda: histogram_full(frames, hk)),
                f"full-frame histogram ({'hist4096' if hk else 'hist_mma'}), "

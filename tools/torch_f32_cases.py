@@ -2,10 +2,12 @@
 at N streams of 160x120 frames, against their plain twins: the cases that
 tests/test_torch_cuda.py and chip_smoke.py's F32 phase share.
 
-Each of ``hist4096``, ``histpdf_band`` (hist-only; the pdf mode reading
-its frames directly and through the serving program's address word, from
-a buffer poisoned with 255), ``backproject`` (over the frame and the
-band), ``hist_mma``, ``pyramid`` and ``cascade`` puts the stream on the
+Each of ``hist4096`` (rects and the whole frame), ``histpdf_band``
+(hist-only; the pdf mode reading its frames directly and through the
+serving program's address word, from a buffer poisoned with 255),
+``backproject`` (over the frame and the band, the weights and the ratio
+forms), ``hist_mma`` (rects, and the whole frame in place), ``pyramid``
+and ``cascade`` puts the stream on the
 grid's y dimension (65,535 a launch), so its wrapper launches a chunk of
 at most that many streams at a time (kernels/histbins.py ``row_chunks``).
 The frames: the bench pool's 256 streams of 160x120 (``bench.build_pool``,
@@ -32,14 +34,17 @@ FRAME = (120, 160)
 BAND = (64, 96)
 SLICE = 8192
 NS = (65535, 65536, 70000)
+# a case's name -> the launch count it reads, where the two differ
+ALIAS = {"histpdf_band in place": "histpdf_band",
+         "hist4096 whole frame": "hist4096", "hist_mma in place": "hist_mma"}
 # the launchers that put the stream on the grid's y dimension: (arguments
 # before the stream count, after it, before the stream), any sizes that
 # pass their other checks, null pointers (a refused launch runs nothing)
-LAUNCHERS = {"hist4096_launch": (3, (120, 160, 1)),
-             "backproject_launch": (3, (120, 160)),
-             "backproject_rect_launch": (4, (120, 160, 64, 96)),
+LAUNCHERS = {"hist4096_launch": (3, (120, 160, 1, 0, 0)),
+             "backproject_launch": (3, (120, 160, 0, 0, 0)),
+             "backproject_rect_launch": (4, (120, 160, 64, 96, 0, 0, 0)),
              "histpdf_band_launch": (5, (120, 160, 64, 96, 1, 0, 0)),
-             "hist_mma_launch": (4, (120, 160, 19, 1024)),
+             "hist_mma_launch": (4, (120, 160, 19, 1024, 0, 0)),
              "pyramid_launch": (9, (160, 120, 0, 1, 1, 0, 0, 0)),
              "cascade_dense_launch": (19, (1, 1)),
              "cascade_deep_launch": (20, (1, 1, 132))}
@@ -153,9 +158,31 @@ def check(n, dev):
                                                          BAND))
     slices("backproject_rect", got,
            lambda s: hg.backproject_plain(fr[s], model[s], placed[s], BAND))
-    del got, model, placed
+    del got
+    full = hg.full_rects(n, FRAME, dev)
+    cur = run("hist4096", lambda: K.hist4096(fr))
+    slices("hist4096 whole frame", cur,
+           lambda s: hg.hist4096_plain(fr[s], full[s]).float())
+    got = run("backproject_ratio", lambda: K.backproject_ratio(fr, model,
+                                                                cur))
+    slices("backproject_ratio", got, lambda s: hg.backproject_ratio_plain(
+        fr[s], model[s], cur[s]))
+    del got
+    got = run("backproject_rect_ratio", lambda: K.backproject_ratio(
+        fr, model, cur, rects, BAND))
+    slices("backproject_rect_ratio", got,
+           lambda s: hg.backproject_ratio_plain(fr[s], model[s], cur[s],
+                                                placed[s], BAND))
+    del got, model, placed, cur
     got = run("hist_mma", lambda: hist_mma(fr, rects))
     slices("hist_mma", got, lambda s: hg.hist_mma_plain(fr[s], rects[s]))
+    del got
+    buf = torch.full_like(fr, 255)
+    with L.frames_at(buf, word):
+        got = run("hist_mma", lambda: hist_mma(buf))
+    del buf
+    slices("hist_mma in place", got,
+           lambda s: hg.hist_mma_plain(fr[s], full[s]))
     del got
     tables = detector_tables(W, H, frontalface(), 5, device=dev)
     gray = grayscale(fr)
@@ -172,9 +199,8 @@ def check(n, dev):
     slices("cascade", tuple(got[k] for k in keys),
            lambda s: tuple(cascade_plain(planes[s], tables, 256)[k]
                            for k in keys))
-    return {k: {"launches": counts[k if k != "histpdf_band in place"
-                                   else "histpdf_band"],
-                "chunks": chunks, "max_abs_err": e} for k, e in errs.items()}
+    return {k: {"launches": counts[ALIAS.get(k, k)], "chunks": chunks,
+                "max_abs_err": e} for k, e in errs.items()}
 
 
 def program_check(n, dev, ticks=20, scan_k=2):

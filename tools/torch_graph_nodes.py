@@ -16,8 +16,11 @@ in a checkout whose program commits by tables, one JSON line of each
 body's commit table (``commit_tables``: bytes and entries, in the
 program's body order), and the nodes of the full-frame "track" step
 alone on escape_bucket gathered rows (``few_track_step``: the escape
-fallback's few body runs it after its gather).  Needs a CUDA card;
-node_kinds and graph_nodes come from this checkout's chip_smoke.py.
+fallback's few body runs it after its gather); then one JSON line of the
+all-CS body of the band and full-frame configurations (``all_cs``: its
+nodes by kernel name, those that are no hand-written kernel's launch, and
+the body's frame copy).  Needs a CUDA card; node_kinds, node_names,
+foreign_nodes and graph_nodes come from this checkout's chip_smoke.py.
 """
 
 import argparse
@@ -57,6 +60,26 @@ def track_step_nodes(bt, cs):
         lambda: steps._track_plain(sub, rows))))
 
 
+def all_cs_bodies(cs, root):
+    """The all-CS body of the band and full-frame configurations (256
+    streams of 320x240, bucket 8): its graph's nodes in order, kernels by
+    name (chip_smoke.py node_names), and those that are not a launch of a
+    hand-written kernel of ``root`` (``foreign_nodes``)."""
+    import torch
+    from headtrackr_tpu_torch import BatchedTracker
+    out = {}
+    for name, kw in (("band", dict(band=(96, 128), bandHist=False)),
+                     ("full-frame", dict(band=None, bandHist=False,
+                                         histKernel="pallas"))):
+        bt = BatchedTracker(256, (240, 320), device=torch.device("cuda", 0),
+                            bucket=8, **kw)
+        body = bt._steps.captured(bt.state, 0)
+        out[name] = {"nodes": cs.node_names(body.graph),
+                     "foreign": cs.foreign_nodes(body.graph, root),
+                     "copy": body.copy}
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=HERE,
@@ -88,6 +111,7 @@ def main(argv=None):
                       for g in graphs]))
     print(json.dumps({"commit_tables": commit_tables(bt),
                       "few_track_step": track_step_nodes(bt, cs)}))
+    print(json.dumps({"all_cs": all_cs_bodies(cs, args.root)}))
     return 0
 
 

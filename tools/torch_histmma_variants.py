@@ -12,7 +12,14 @@ ctypes:
             it (neighbouring pixels in one bin);
   no_store  no operand byte stored at all: the same loads, barriers and
             wgmma stream on tiles that stay zero (its counts are wrong by
-            design; it is only timed).
+            design; it is only timed);
+  at_trusted  the in-place form taking its bulk copies without testing
+            the address it loads (what a proof of alignment where the
+            program is built would give; only timed in place).
+Each is timed reading its frames directly and in place (the frames'
+address in an i64 word, as the serving program's parameter block holds
+it: the shipped in-place form tests it and takes its bulk copies where it
+is 16-byte aligned).
 The counting variants must equal the plain histogram (tolerance 0).  Each
 is timed by CUDA-graph replay (chip_smoke.graph_ms) at 256 streams x
 240x320 on the bench pool and on uniformly random frames, variants in
@@ -38,6 +45,9 @@ VARIANTS = {
     "no_skip": [("      if (a != set_a[buf]) {", "      if (true) {"),
                 ("      if (b != set_b[buf]) {", "      if (true) {")],
     "no_store": [(STORES, ""), (STORES_B, "")],
+    "at_trusted": [("                   (kLoad == kLoadAt && P % 16 == 0 &&\n"
+                    "                    (reinterpret_cast<uintptr_t>(base) & "
+                    "15) == 0);", "kLoad == kLoadAt;")],
 }
 COUNTS_WRONG = ("no_store",)
 
@@ -93,9 +103,16 @@ def main():
     out = torch.empty((N, 4096), dtype=torch.float32, device=dev)
     part = torch.empty((N, blocks, 4096), dtype=torch.int32, device=dev)
 
-    def call(name, fr, rects):
-        err = fns[name](fr.data_ptr(), rects.data_ptr(), part.data_ptr(),
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def call(name, fr, rects, in_place=False):
+        # in place: no rects (the whole frame), the frames' address in word
+        if in_place:
+            word.fill_(fr.data_ptr())
+        err = fns[name](0 if in_place else fr.data_ptr(),
+                        0 if in_place else rects.data_ptr(), part.data_ptr(),
                         out.data_ptr(), N, H, W, blocks, block_px,
+                        word.data_ptr() if in_place else 0, 0,
                         torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: cudaError {err}")
@@ -113,17 +130,21 @@ def main():
         want = hg.hist4096_plain(fr, full).float()
         for name in fns:
             if name not in COUNTS_WRONG:
-                got = call(name, fr, full)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} differs on {kind}")
+                for in_place in (False, True):
+                    got = call(name, fr, full, in_place)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name} differs on {kind} "
+                                             f"(in place: {in_place})")
     res = {"card": smi(), "streams": N, "frame": [H, W],
            "onehot_ms": 1e3 * 2 * 4096 * N * H * W / INT8_OPS_PER_S}
     for kind, fr in frames.items():
-        order = list(fns) + list(fns)[::-1]
-        t = {k: [] for k in fns}
-        for name in order:
-            t[name].append(graph_ms(lambda name=name: call(name, fr, full)))
+        arms = [(k, False) for k in fns if k != "at_trusted"] + [
+            (k, True) for k in ("shipped", "at_trusted")]
+        t = {k + (" in place" if p else ""): [] for k, p in arms}
+        for name, in_place in arms + arms[::-1]:
+            t[name + (" in place" if in_place else "")].append(graph_ms(
+                lambda name=name, p=in_place: call(name, fr, full, p)))
         t["hist4096"] = [graph_ms(lambda: hist4096(fr, full))]
         res[kind] = t
     print(json.dumps(res))

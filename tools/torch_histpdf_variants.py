@@ -189,7 +189,7 @@ def main():
         c = c or cluster_split(n, H, W, sms)
         err = fns[name]["hist4096_launch"](
             fr.data_ptr(), rects.data_ptr(), cur.data_ptr(), n, H, W, c,
-            torch.cuda.current_stream().cuda_stream)
+            0, 0, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: cudaError {err}")
         return cur[:n]

@@ -17,6 +17,9 @@ At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
              wbtrack ticks, then run_scan of 8 ticks of the burst (256
              pending streams, chunk_cap = 32 served a tick);
   step_auto  one all-tracking headline tick (latency-sensitive serving);
+  tick band, tick full-frame
+             one all-tracking step_auto tick of the band and full-frame
+             configurations (their one-tick ``ops`` listing);
   escape     the headline's tick in which ESCAPES streams escape the band
              within escape_bucket (the escape fallback's few body): their
              faces stretched to 120 rows of the face's color, as
@@ -381,6 +384,9 @@ def main(argv=None):
                               None) for name, bt in trackers.items()}
     cases.update({
         "step_auto": (lambda: head.step_auto(pool[1]), 1, 3 * REPS, None),
+        **{f"tick {name}": (lambda bt=trackers[name]: bt.step_auto(pool[1]),
+                            1, 3 * REPS, None)
+           for name in ("band", "full-frame")},
         "cold": (lambda: head.run_scan(cold), K, 1, head.reset),
         "relock": (lambda: head.step_auto(pool[2]), 1, REPS, unlock),
         "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst),
