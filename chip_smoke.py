@@ -266,18 +266,25 @@ Phases, one line each; any failure raises and exits nonzero:
      tick and an all-CS tick, beside an empty kernel at their grid and
      torch.topk; then the headline configuration at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
-     calls of 16 ticks each from a poisoned frame buffer and poisoned
-     many-body staging buffers (state_out, out; the cold start's
+     calls of 16 ticks each from a poisoned frame buffer and a poisoned
+     many-body list and chunk slots (elist, cidx; the cold start's
      wbtrack and full ticks or its rotation burst, bucket and chunk ticks
      after losses, band escapes within escape_bucket and beyond it): every
      StepOutput leaf and the final state bit-equal to the per-tick path
      run eagerly on the card, every branch's body run (the program's own
-     counts), scan_step run once a tick whose body copies and once a
-     few body's run (copy_runs), scan_commit once a tick and once an
-     escape body's run (its staging), the per-tick path's host code never
-     reached (kernels/launch.py host_paths); an all-CS scan of 16 ticks
-     runs no scan_step; a profiled scan of 16 ticks is one program
-     launch, one host read and no kernel launched from the host.  Then
+     counts), scan_step run once a tick whose body copies (copy_runs; the
+     escape bodies read the frames in place), scan_commit once a tick,
+     once more a few body's run and once a many body's chunk, the
+     per-tick path's host code never reached (kernels/launch.py
+     host_paths); an all-CS scan of 16 ticks runs no scan_step; a
+     profiled scan of 16 ticks is one program launch, one host read and
+     no kernel launched from the host; many escape ticks (SCHED_MANY: the
+     windows of E streams, the first and the last among them, made taller
+     than the band) bit-equal to the per-tick path, each in its chunk
+     plan's big and small chunks, their device ms and operations
+     profiled; the same on a tracker whose many body runs big chunks of
+     64 and small ones of 16 (SCHED_CHUNKED_MANY: E = 150 runs two of
+     each, every stream four big ones).  Then
      the headline at 10,240 streams (the pool tiled 40 times on the card)
      from init_state under both overloads, run_scan calls of 4 ticks, each
      from a poisoned frame buffer: every leaf and the final state
@@ -286,8 +293,10 @@ Phases, one line each; any failure raises and exits nonzero:
      every stream s bit-equal to stream s mod 256 of a 256-stream program
      run on the same ticks; its cold start and an all-CS scan timed (host
      ms and device span a tick) and one all-CS scan profiled (one launch,
-     one host read, no kernel launched from the host), and scan_commit on
-     its all-CS and bucket tables timed as at 256 streams.
+     one host read, no kernel launched from the host), scan_commit on
+     its tables timed as at 256 streams, and many escape ticks
+     (SCHED_BIG_MANY: E = 300 runs a big chunk and two small ones, 1,000
+     four big ones) as at 256 streams.
  16. F32 (run after phase 15): every kernel whose grid's y dimension is
      the stream (hist4096, histpdf_band hist-only and pdf mode, directly
      and through the address word from a buffer poisoned with 255,
@@ -507,6 +516,17 @@ SCHED_BIG_K = 4
 SCHED_BIG_TICKS = 28
 SCHED_BIG_LOSS = 36
 SCHED_EB = 8  # escape_bucket (the default)
+# many escape ticks (the windows of E streams made TALL rows high, taller
+# than the band) at 256 streams (E = 12 and every stream: one chunk each)
+# and at SCHED_BIG (E = 12, 100: one chunk; 300: a big chunk and two small
+# ones; 1,000: four big chunks)
+SCHED_MANY = (12, N_STREAMS)
+SCHED_BIG_MANY = (12, 100, 300, 1000)
+# and at 256 streams with big chunks of 64 and small ones of 16: E = 150
+# runs two of each, every stream four big ones
+SCHED_CHUNKS = (64, 16)
+SCHED_CHUNKED_MANY = (150, N_STREAMS)
+TALL = 120
 SCHED_KERNELS = ("tick_select", "escape_select", "scan_step", "scan_commit")
 # phase 16 (F32): the kernels and the serving program past the 65,535
 # streams a launch's grid takes (tools/torch_f32_cases.py), 160x120 frames
@@ -2729,6 +2749,7 @@ def phase_schedule(pool, dev):
     from headtrackr_tpu_torch.kernels import launch as L
     from headtrackr_tpu_torch.kernels import schedule as S
     from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.runtime.serving import _clone
 
     from headtrackr_tpu_torch.kernels.build import load_library
 
@@ -2762,8 +2783,13 @@ def phase_schedule(pool, dev):
                 b, want_i, want_a = S.tick_select_plain(mode, age, kb, cap,
                                                         rotate)
                 eidx = torch.empty(8, dtype=torch.int64, device=dev)
-                S.escape_select(esc.to(dev), 8, eidx, params)
+                # the many body's list, small and big chunks of 16 and 64
+                elist = torch.full((-(-m // 64) * 64,), -1,
+                                   dtype=torch.int64, device=dev)
+                S.escape_select(esc.to(dev), 8, eidx, params, elist, 16,
+                                64)
                 sel, want_e = S.escape_select_plain(esc, 8)
+                want_l, plan = S.escape_list_plain(esc, 16, 64)
                 torch.cuda.synchronize()
                 if (int(params[S.P_BRANCH]) != b
                         or not torch.equal(idx.cpu(), want_i)
@@ -2771,11 +2797,16 @@ def phase_schedule(pool, dev):
                     raise AssertionError(f"tick_select differs from its twin "
                                          f"at N={m} trial {trial}")
                 if int(params[S.P_ESEL]) != sel or \
-                        not torch.equal(eidx.cpu(), want_e):
+                        not torch.equal(eidx.cpu(), want_e) or \
+                        (sel == 2 and not torch.equal(elist.cpu(), want_l)) \
+                        or tuple(params[[S.P_CHUNKS, S.P_TAIL, S.P_TAILS]]
+                                 .tolist()) != (plan if sel == 2
+                                                else (0, 0, 0)):
                     raise AssertionError(f"escape_select differs from its "
                                          f"twin at N={m} trial {trial}")
-    log(f"schedule: tick_select and escape_select equal their twins on "
-        f"random vectors with ties at N = {SCHED_NS}, both overloads")
+    log(f"schedule: tick_select and escape_select (its many list and chunk "
+        f"plan too, chunks of 16 and 64) equal their twins on random vectors "
+        f"with ties at N = {SCHED_NS}, both overloads")
 
     # the main path's shapes: a bucket tick's selection at 256 streams
     mode = torch.full((n,), ft.MODE_CS, dtype=torch.int32)
@@ -2935,12 +2966,12 @@ def phase_schedule(pool, dev):
         L.reset_launches()
         got, ran = [], np.zeros(16, int)
         t0 = time.perf_counter()
-        stages = 0
+        chunks = 0
         for seq in (cold, second):
             poison(prog)  # a body reading them stale differs
             got.append(bt.run_scan(seq))
             ran += np.array(prog.runs)
-            stages += prog.stages
+            chunks += prog.chunks
         torch.cuda.synchronize()
         t_scan = time.perf_counter() - t0
         counts[overload] = dict(L.launches)
@@ -2949,13 +2980,14 @@ def phase_schedule(pool, dev):
         # one a tick whose body copies and one an escape body's run
         want_runs = dict.fromkeys(SCHED_KERNELS, 2 * SCHED_K)
         want_runs["scan_step"] = copy_runs(bt, got)
-        # scan_commit: one more an escape body's run (the many body's
-        # staging; the few body's rows after the tick body's table), and
-        # staging on the many body's ticks alone
-        want_runs["scan_commit"] += int(ran[9] + ran[10])
-        if stages != ran[10]:
-            raise AssertionError(f"schedule [{overload}]: {stages} stagings "
-                                 f"for {ran[10]} many bodies")
+        # scan_commit: one more a few body's run (its rows after the tick
+        # body's table) and one more a many body's chunk (its rows after
+        # the tick body's table with the escaped rows held)
+        want_runs["scan_commit"] += int(ran[9]) + chunks
+        if chunks != many_chunks(bt, got):
+            raise AssertionError(f"schedule [{overload}]: {chunks} chunks "
+                                 f"of {ran[10]} many bodies, not "
+                                 f"{many_chunks(bt, got)}")
         off = {k: counts[overload][k] for k in SCHED_KERNELS
                if counts[overload][k] != want_runs[k]}
         if off:
@@ -3049,6 +3081,17 @@ def phase_schedule(pool, dev):
                 f"kernel launches from the host; "
                 f"{p['device_ops_per_tick']:.2f} device ops and "
                 f"{p['device_ms_per_tick']:.3f} device ms a tick")
+            numbers["many"] = many_ticks(bt, seq[1], SCHED_MANY, "schedule")
+            # the many body over several chunks of each size
+            chunked = mk()
+            chunked._steps.escape_chunk, chunked._steps.escape_tail = \
+                SCHED_CHUNKS
+            chunked.warmup(scan_len=1)
+            chunked.set_state(_clone(bt.state), bt.modes.copy())
+            numbers["many_chunked"] = many_ticks(
+                chunked, seq[1], SCHED_CHUNKED_MANY,
+                f"schedule, chunks of {SCHED_CHUNKS}")
+            del chunked
         del bt, ref, prog
     launches = {k: counts["full"][k] + counts["rotate"][k]
                 for k in counts["full"]}
@@ -3059,43 +3102,186 @@ def phase_schedule(pool, dev):
 
 def poison(prog):
     """Fill the program's frame buffer with 255 and the many escape body's
-    staging buffers (state_out, out) with the byte 0xA5: a body that read
-    them where it should read tick k's frames, or the tick body's staged
-    results, would differ."""
-    import torch
+    list and chunk slots (elist, cidx) with stream 0: a body that read the
+    buffer where it should read tick k's frames, or a chunk that read a
+    list or slots its tick did not write, would differ."""
     prog.bufs.frames.fill_(255)
-    if prog.bufs.state_out is not None:
-        for v in _leaves_of(prog.bufs.state_out) + _leaves_of(prog.bufs.out):
-            v.view(torch.uint8).fill_(0xA5)
+    for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
+        t.fill_(0)
+
+
+def many_chunks(bt, outs):
+    """The many escape body's chunks over run_scan outputs ``outs``: on a
+    tick that escapes more than escape_bucket streams (or any, where
+    escape_bucket covers the batch), its big and small chunks
+    (``schedule.chunk_plan``)."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    eb, runs = bt._steps.escape_bucket, 0
+    for o in outs:
+        n = o.escaped.shape[-1]
+        m, ms = bt._steps.chunk_rows(n)
+        for e in o.escaped.sum(-1).reshape(-1).tolist():
+            if e > eb or (e and eb >= n):
+                big, tail0, tails = S.chunk_plan(e, ms, m)
+                runs += big + tails - tail0
+    return runs
+
+
+def spread(n, e):
+    """E streams of n spread evenly, the first and the last among them."""
+    if e >= n:
+        return list(range(n))
+    return sorted({round(i * (n - 1) / (e - 1)) for i in range(e)})
+
+
+def tall_windows(state, idx, rows):
+    """A copy of ``state`` whose search windows of the streams ``idx`` are
+    TALL rows high around their centres (frames of ``rows`` rows): taller
+    than the band, so that those streams escape on the next tick."""
+    import torch
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    state = _clone(state)
+    win = state.cs.window
+    idx = torch.as_tensor(idx, device=win.device)
+    cy = win[idx, 1] + win[idx, 3] // 2
+    win[idx, 1] = torch.clamp(cy - TALL // 2, 0, rows - TALL)
+    win[idx, 3] = TALL
+    return state
+
+
+def many_ticks(bt, frame, counts, where):
+    """Many escape ticks of the headline tracker ``bt`` (warmed, locked,
+    all-CS) on ``frame``: for each E of ``counts``, from its state with the
+    windows of ``spread(N, E)`` streams made taller than the band
+    (``tall_windows``), one step_auto tick through the program and one
+    through the per-tick path (``_Steps.scheduled`` off: the host
+    recompute), every output and the state after it bit-equal; exactly
+    those streams escaped, the many body ran once in its chunk plan's big
+    and small chunks (``schedule.chunk_plan``);
+    then that tick's device span with the host's enqueue hidden behind a
+    spin (``torch.cuda._sleep``: every chunk), and once more under
+    torch.profiler (device ms and operations: the whole tick where it
+    runs one chunk; the profiler keeps a WHILE node's later iterations in
+    part or not at all).
+    ``bt``'s state is restored.  {E: numbers}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from headtrackr_tpu_torch.kernels import schedule as S
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    n = frame.shape[0]
+    steps = bt._steps
+    prog = steps._programs[n]
+    m, ms = prog.bufs.m, prog.bufs.ms
+    clean, modes = _clone(bt.state), bt.modes.copy()
+
+    def set_state(state):
+        torch._foreach_copy_(_leaves_of(bt.state), _leaves_of(state))
+        bt.set_state(bt.state, modes)
+
+    out = {}
+    for e in counts:
+        idx = spread(n, e)
+        start = tall_windows(clean, idx, frame.shape[1])
+        res = []
+        for scheduled in (True, False):
+            steps.scheduled = scheduled
+            set_state(start)
+            o = bt.step_auto(frame)
+            res.append((_host_tree(o), _host_tree(bt.state)))
+            if scheduled:
+                runs, chunks = list(prog.runs), prog.chunks
+                big = prog.big_chunks
+        steps.scheduled = True
+        same_bits([res[0][0]], [res[1][0]], f"{where}: many {e}")
+        same_bits([res[0][1]], [res[1][1]], f"{where}: many {e} state")
+        got = torch.nonzero(res[0][0].escaped).flatten().tolist()
+        want_big, tail0, tails = S.chunk_plan(len(idx), ms, m)
+        if got != idx or runs[10] != 1 or \
+                (big, chunks - big) != (want_big, tails - tail0):
+            raise AssertionError(f"{where}: many {e}: escaped {len(got)} "
+                                 f"streams, many body runs {runs[10]}, "
+                                 f"{big} big chunks of {m} and "
+                                 f"{chunks - big} small of {ms}, not "
+                                 f"{want_big} and {tails - tail0}")
+        spans = []
+        for _ in range(3):
+            set_state(start)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)  # the host enqueues meanwhile
+            a.record()
+            bt.step_auto(frame)
+            b.record()
+            torch.cuda.synchronize()
+            spans.append(a.elapsed_time(b))
+        set_state(start)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            bt.step_auto(frame)
+        dev_ops = [e_ for e_ in pr.events()
+                   if e_.device_type == torch.autograd.DeviceType.CUDA]
+        out[e] = {"chunks": [big, chunks - big], "chunk_rows": [m, ms],
+                  "busy_span_ms": sorted(spans)[1],
+                  "profiled_device_ops": len(dev_ops),
+                  "profiled_device_ms": sum(e_.device_time_total
+                                               for e_ in dev_ops) / 1e3}
+        log(f"{where}: a many escape tick of {e} of {n} streams (the first "
+            f"and the last among them) bit-equal to the per-tick path, "
+            f"{big} big chunks of {m} rows and {chunks - big} small of "
+            f"{ms}: "
+            f"{out[e]['busy_span_ms']:.4f} device span ms (every chunk); "
+            f"profiled {out[e]['profiled_device_ms']:.4f} device ms, "
+            f"{out[e]['profiled_device_ops']} device operations (of a "
+            f"tick of one chunk; of more, what the profiler kept)")
+    set_state(clean)
+    return out
 
 
 def commit_times(prog, dev):
     """scan_commit on a program's own tables: the all-CS body's (its model
-    histograms passed through: no entry) and the bucket body's at kb slots
-    (the relock tick's: the track pass's changed leaves whole, the
-    sub-batch's rows merged by its slot map, the model histograms by their
-    served rows alone) and the few escape body's (the kept rows alone of
-    what its step changed), each into copies of the state (a merge writes
-    only its rows) and a scan's packs of 2 ticks, bit-equal to
-    scan_commit_plain; timed by events and graph replay beside its twin,
-    its byte bound (each table's bytes read and written) and one
-    torch._foreach_copy_ over the entries with a source (none for the few
-    body's table, which has none).  The all-CS
-    table's numbers at the top level, each table's under "tables"."""
+    histograms passed through: no entry), that table with the escaped
+    streams' rows held ("held": a many escape tick's, SCHED_MANY[0]
+    streams spread over the batch), the bucket body's at kb slots (the
+    relock tick's: the track pass's changed leaves whole, the sub-batch's
+    rows merged by its slot map, the model histograms by their served
+    rows alone), the few escape body's and one chunk's of the many body
+    (the kept rows alone of what its step changed), each into copies of
+    the state (a merge writes only its rows) and a scan's packs of 2
+    ticks, bit-equal to scan_commit_plain; timed by events and graph
+    replay beside its twin, its byte bound (each table's bytes read and
+    written; the held table's all the same) and one torch._foreach_copy_
+    over the entries with a source (none for the escape bodies' tables,
+    which have none).  The all-CS table's numbers at the top level, each
+    table's under "tables"."""
     import torch
     from headtrackr_tpu_torch.kernels import schedule as S
-    bodies = {"all-CS": prog.bodies[0], "bucket": prog.bodies[1],
-              "few": prog.few}
+    bodies = {"all-CS": prog.bodies[0], "held": prog.bodies[0],
+              "bucket": prog.bodies[1], "few": prog.few, "many": prog.many}
+    # the big chunk's slots and kept flags as a many tick of SCHED_MANY[0]
+    # escapes leaves them (a poisoned or never-run chunk's are not a map)
+    n, m = prog.bufs.age.shape[0], prog.bufs.m
+    slots = torch.full((m,), n, dtype=torch.int64)
+    slots[:SCHED_MANY[0]] = torch.tensor(spread(n, SCHED_MANY[0]))
+    prog.bufs.cidx.copy_(slots)
+    prog.many.merge.keep.copy_(slots < n)
     packs = [torch.empty((shape[0], 2) + shape[1:], dtype=dt, device=dev)
              for dt, shape in prog.bufs.packs.items()]
-    tables = []
+    tables, held_dsts = [], []
     for name, body in bodies.items():
         carry, rows, *slots = (
-            prog._few_pairs(body.merge) if name == "few" else
+            prog._few_pairs(body.merge) if name in ("few", "many") else
             prog._commit_pairs(body.state, body.out, body.merge))
-        tables.append(([(c[0], c[1].clone()) + tuple(c[2:]) for c in carry],
-                       rows, *slots))
-    ct = S.segments(tables, dev)
+        clones = [(c[0], c[1].clone()) + tuple(c[2:]) for c in carry]
+        if name == "held":
+            held_dsts = [d[1] for c, d in zip(carry, clones)
+                         if any(c[1] is h for h in prog.held)]
+        tables.append((clones, rows, *slots))
+    ct = S.segments(tables, dev, held_dsts)
+    esc = torch.zeros(n, dtype=torch.bool, device=dev)
+    esc[spread(n, SCHED_MANY[0])] = True
+    esc_at = torch.tensor([esc.data_ptr()], dtype=torch.int64, device=dev)
     p = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
     p[S.P_K], p[S.P_TICKS] = 1, 2  # row k - 1 = 0
     for j, pk in enumerate(packs):
@@ -3107,11 +3293,15 @@ def commit_times(prog, dev):
         want_packs = [torch.zeros_like(pk) for pk in packs]
         for pk in packs:
             pk.zero_()
-        S.scan_commit(p, ct, t)
+        hold = esc_at if name == "held" else None
+        S.scan_commit(p, ct, t, hold)
         plain = lambda: S.scan_commit_plain(  # noqa: E731
             0, [(c[0], w) + tuple(c[2:]) for c, w in zip(carry, want)],
             [(r[0], want_packs[r[1]], r[2]) + tuple(r[3:]) for r in rows],
-            *slots)
+            *(slots or [None]), hold=S.Hold(esc, tuple(
+                w for c, w in zip(carry, want)
+                if any(c[1] is h for h in held_dsts))) if hold is not None
+            else None)
         plain()
         torch.cuda.synchronize()
         for a, b in zip([c[1] for c in carry] + [pk[:, 0] for pk in packs],
@@ -3126,7 +3316,7 @@ def commit_times(prog, dev):
         srcs = [c[0] for c in whole] + [r[0] for r in sourced]
         dsts = [c[1] for c in whole] + [packs[r[1]][r[2], 0]
                                         for r in sourced]
-        commit = lambda t=t: S.scan_commit(p, ct, t)  # noqa: E731
+        commit = lambda t=t, h=hold: S.scan_commit(p, ct, t, h)  # noqa
         out[name] = {
             "entries": count, "bytes": moved,
             "merged_entries": sum(len(c) > 2 for c in carry)
@@ -3143,8 +3333,8 @@ def commit_times(prog, dev):
     held = {id(t) for t in _leaves_of(prog.bufs.state_in)}
     kept = {}
     for key, body in zip([str(k) for k in range(len(prog.bodies))]
-                         + ["few", "many"],
-                         prog.bodies + [prog.few, prog.many]):
+                         + ["few", "many", "tail"],
+                         prog.bodies + [prog.few, prog.many, prog.tail]):
         if body is not None:
             extra = [] if body.merge is None else (
                 _leaves_of(body.merge.state) + list(body.merge.out))
@@ -3154,7 +3344,7 @@ def commit_times(prog, dev):
             kept[key] = sum(leaves.values())
     out["all-CS"]["kept_bytes_per_body"] = kept
     log(f"schedule: the results each body keeps, bytes by body "
-        f"(tick bodies by index, few, many): {kept}")
+        f"(tick bodies by index, few, many, tail): {kept}")
     def library(v):
         return ("none: no source" if v["library_ms"] is None
                 else fmt_ms(v["library_graph_ms"]))
@@ -3175,17 +3365,12 @@ def _leaves_of(tree):
 def copy_runs(bt, outs):
     """scan_step's runs in the headline's program (bandHist) over run_scan
     outputs ``outs``: one a tick whose body copies (all but the all-CS
-    tick, whose frame readers read in place) and one a tick whose escape
-    fallback ran the few body (its slots' rows; after a wbtrack or full
-    tick it copies nothing, a run all the same); the many body reads in
-    place and copies none."""
-    eb, runs = bt._steps.escape_bucket, 0
+    tick, whose frame readers read in place); the escape bodies read in
+    place and copy none."""
+    runs = 0
     for o in outs:
-        entry = o.detection.cpu().numpy()
-        esc = o.escaped.cpu().numpy()
-        for modes, e in zip(entry, esc):
-            runs += int(bt.branch(modes) != "track") + int(
-                0 < int(e.sum()) <= eb < len(modes))
+        for modes in o.detection.cpu().numpy():
+            runs += int(bt.branch(modes) != "track")
     return runs
 
 
@@ -3281,7 +3466,7 @@ def phase_schedule_big(pool, dev):
         prog = bt._steps._programs[n]
         torch.cuda.synchronize()
         L.reset_launches()
-        got, host_ms, ran = [], [], np.zeros(16, int)
+        got, host_ms, ran, chunks = [], [], np.zeros(16, int), 0
         for k0 in range(0, SCHED_BIG_TICKS, K):
             frames = tiled(seq, k0)
             poison(prog)  # a body reading them stale differs
@@ -3296,11 +3481,15 @@ def phase_schedule_big(pool, dev):
                                      f"program launches")
             got.append(_host_tree(out))
             ran += np.array(prog.runs)
+            chunks += prog.chunks
             del frames
         counts = dict(L.launches)
         want_runs = dict.fromkeys(SCHED_KERNELS, SCHED_BIG_TICKS)
         want_runs["scan_step"] = copy_runs(bt, got)
-        want_runs["scan_commit"] += int(ran[9] + ran[10])
+        want_runs["scan_commit"] += int(ran[9]) + chunks
+        if chunks != many_chunks(bt, got):
+            raise AssertionError(f"schedule big [{overload}]: {chunks} "
+                                 f"chunks, not {many_chunks(bt, got)}")
         off = {k: counts[k] for k in SCHED_KERNELS
                if counts[k] != want_runs[k]}
         if off or any(L.host_paths.values()):
@@ -3380,6 +3569,8 @@ def phase_schedule_big(pool, dev):
                      steady_span_ms_per_tick=span_ms,
                      steady_pending=pend, steady_scan_steps=copies,
                      profile=p)
+            r["many"] = many_ticks(bt, steady[1], SCHED_BIG_MANY,
+                                   "schedule big")
             del steady
         numbers[overload] = r
         log(f"schedule big [{overload}]: {n} streams, program built in "
@@ -3401,6 +3592,39 @@ def phase_schedule_big(pool, dev):
                 f"{r['profile']}")
         del bt, prog, seq
     return numbers
+
+
+def escape_lists(n, dev):
+    """escape_select's list for the many escape body at n streams against
+    its twin (escape_list_plain), bit for bit, and its chunk plan: random
+    shares of escaped streams with the first and the last among them, and
+    every stream, in small and big chunks of 32 and 256, 128 and 128.
+    Returns the cases checked."""
+    import torch
+    from headtrackr_tpu_torch.kernels import schedule as S
+    g = torch.Generator().manual_seed(n)
+    cases = 0
+    for share in (0.001, 0.3, 1.0):
+        esc = torch.rand(n, generator=g) < share
+        esc[[0, n - 1]] = True
+        for m, mb in ((32, 256), (128, 128)):
+            want, plan = S.escape_list_plain(esc, m, mb)
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64,
+                                 device=dev)
+            eidx = torch.empty(SCHED_EB, dtype=torch.int64, device=dev)
+            elist = torch.full_like(want, -1, device=dev)
+            S.escape_select(esc.to(dev), SCHED_EB, eidx, params, elist, m,
+                            mb)
+            torch.cuda.synchronize()
+            words = params[[S.P_CHUNKS, S.P_TAIL, S.P_TAILS]].tolist()
+            if int(params[S.P_ESEL]) != 2 or tuple(words) != plan or \
+                    not torch.equal(elist.cpu(), want):
+                raise AssertionError(f"escape_select's list differs from "
+                                     f"its twin at {n} streams, "
+                                     f"{int(esc.sum())} escaped, chunks "
+                                     f"of {m} and {mb}")
+            cases += 1
+    return cases
 
 
 def phase_f32(dev, root):
@@ -3426,6 +3650,7 @@ def phase_f32(dev, root):
     took = cases.refusals()
     if took:
         raise AssertionError(f"f32: {took} took 65,536 streams a launch")
+    lists = escape_lists(F32_N, dev)
     t_kernels = time.perf_counter() - t0
     torch.cuda.empty_cache()
     L.reset_launches()
@@ -3440,13 +3665,15 @@ def phase_f32(dev, root):
         f"to their twins, {kernels['hist4096']['chunks']} launches each "
         f"(cascade: dense and deep a chunk, one compaction), frame_prep, "
         f"handoff and slot_gather bit-equal to their twins, one launch a "
-        f"call ({bucket}), "
+        f"call ({bucket}), escape_select's many list bit-equal to its twin "
+        f"({lists} cases), "
         f"{t_kernels:.1f} s; every launcher refuses 65,536; the program "
         f"over {F32_TICKS} ticks from init_state equals the per-tick path "
         f"(body runs {prog['runs']}, {prog['locked']} locked, "
         f"{prog['ms_per_tick']:.2f} host ms a tick), "
         f"{time.perf_counter() - t0:.1f} s")
-    return {"kernels": kernels, "program": prog, "bucket": bucket}
+    return {"kernels": kernels, "program": prog, "bucket": bucket,
+            "escape_lists": lists}
 
 
 def phase_card_vs_cpu(name, pool, dev):

@@ -12,26 +12,25 @@
 //                  their new pend_age (:366-383, _aged); and the scan's
 //                  tick count k and its loop's handle (:426 lax.scan);
 //   escape_select  :225 _escape_checked: the escaped count, none / few /
-//                  many (lax.switch) and the top_k of the escaped streams;
+//                  many (lax.switch) and the top_k of the escaped streams
+//                  (few), or all of them in chunks (many);
 //   scan_step      :426 scan_steps (lax.scan), whose tick k reads its
 //                  slice of the frames: the rows of tick k that a body's
 //                  PyTorch ops read from the bodies' frame buffer, copied
 //                  there (a body whose one frame reader reads in place
 //                  copies none);
-//   scan_commit    the scan's carry and stacked outputs: the results of
-//                  the body that ran (the many escape body's when it did,
-//                  else the tick body's), its outputs into row k of the
-//                  (fields, K, N) output packs and its new state over the
-//                  state every body reads; in its staging mode, on a tick
-//                  whose escape fallback runs the many body, the tick
-//                  body's results into the buffers that body reads;
-//                  a sub-batch's rows merged by its slot map (:210-223
-//                  _scatter_subbatch: rows kept and not padding written,
-//                  the rest dropped): a bucket body's into its own table,
-//                  the few escape body's as a table of rows alone written
-//                  after the tick body's;
-//   slot_gather    :299-320 _apply_bucket's and :249-262 the few escape
-//                  branch's gathers (a[safe] over the state): every leaf's
+//   scan_commit    the scan's carry and stacked outputs: the tick body's
+//                  results, its outputs into row k of the (fields, K, N)
+//                  output packs and its new state over the state every
+//                  body reads; a sub-batch's rows merged by its slot map
+//                  (:210-223 _scatter_subbatch: rows kept and not padding
+//                  written, the rest dropped): a bucket body's into its
+//                  own table, an escape body's as a table of rows alone
+//                  written after the tick body's (the many body's a chunk
+//                  at a time, after a tick commit that holds the escaped
+//                  streams' state rows: :264-274 many's tree_where);
+//   slot_gather    :299-320 _apply_bucket's and :249-274 the escape
+//                  branches' gathers (a[safe] over the state): every leaf's
 //                  rows at min(idx, N - 1) into the sub-batch, and the
 //                  kept flags (idx < N, and under the bucket's rule not in
 //                  CS), one launch over a by-value table of leaves, its
@@ -82,38 +81,46 @@
 //   - The frames stay where the caller put them.  A body whose only frame
 //     reader is histpdf_band (the all-CS tick under bandHist) reads tick
 //     k's frames at frame_at (the kernel loads the address from the
-//     parameter block) and has no copy.  Any other body's IF graph runs
-//     scan_step ahead of the body, in the mode sched_program_build is
-//     given for it: rows (the bucket's served slots, the few escape
-//     body's: those rows of tick k into the same rows of the buffer,
-//     padding skipped) or whole.  An escape body's copy does nothing after
-//     a tick body that copied whole (its ``skip`` mask names those bodies,
-//     p->branch the tick's).
+//     parameter block) and has no copy; nor have the escape bodies, whose
+//     slot_gather reads the frames' rows there.  Any other body's IF graph
+//     runs scan_step ahead of the body, in the mode sched_program_build is
+//     given for it: rows (the bucket's served slots: those rows of tick k
+//     into the same rows of the buffer, padding skipped) or whole.
 //   - Each body keeps its own results (the tensors its capture returned,
 //     held for the graph's lifetime), so no body writes a shared buffer.
 //     scan_commit reads a table a body (kernels/schedule.py segments):
 //     the body's state leaves over the state every body reads (a leaf the
 //     body passed through, the very tensor, has no entry; pend_age comes
 //     from tick_select's age_out), its outputs into their pack rows (a
-//     1-D strided output gathered).  It picks the table of what ran:
-//     the many body when it ran (p->esel), else the tick body
-//     (p->branch); on a tick whose few body ran it skips, since that
-//     body's IF graph committed.  The copy is balanced by bytes, not by
-//     entry: a table's entries are one flat run of 16-byte chunks (an
+//     1-D strided output gathered).  It picks the tick body's table
+//     (p->branch); on a tick whose escape body ran (p->esel) it skips,
+//     since that body's IF graph committed.  The copy is balanced by
+//     bytes, not by entry: a table's entries are one flat run of 16-byte chunks (an
 //     entry's first chunk in its row), the grid a wave of CTAs over the
 //     largest table striding over the chosen one, so one large leaf gets the
 //     whole card; a chunk whose source or destination is off the 16-byte
 //     grid (a row of N bools) is copied byte by byte.  escape_select reads
 //     the tick body's own escaped flags (their address in esc_at, by
-//     p->branch); the many body's IF graph first stages the tick body's
-//     results into the buffers it reads (scan_commit's staging mode: a
-//     table a tick body, by p->branch), so only its ticks stage.  The few
-//     body reads the state every body reads, before anything commits:
-//     its IF graph runs [scan_step ->] the body, which gathers its slots'
-//     rows (slot_gather) and returns them and its step's results on
-//     them, then scan_commit of the tick body's table, then scan_commit
-//     of the few body's, each changed leaf's kept rows alone, so an
-//     escape within escape_bucket copies no leaf whole.
+//     p->branch).  The few body reads the state every body reads, before
+//     anything commits: its IF graph runs [scan_step ->] the body, which
+//     gathers its slots' rows (slot_gather) and returns them and its
+//     step's results on them, then scan_commit of the tick body's table,
+//     then scan_commit of the few body's, each changed leaf's kept rows
+//     alone, so an escape within escape_bucket copies no leaf whole.
+//   - The many body computes the escaped streams alone, in chunks: on
+//     many escape_select lists every escaped stream (lowest first, padded
+//     with n) and plans its chunks (chunk_plan): big ones of mb slots,
+//     then at most kTailChunks small ones of m for the rest.  Its IF
+//     graph runs scan_commit of the tick body's table with the escaped
+//     streams' rows of every state leaf but pend_age held (their flags by
+//     p->branch), so those rows stay the pre-step state's, then a WHILE
+//     node over the big chunks and one over the small: a chunk body
+//     gathers its chunk's slots of the list (slot_gather, the state's
+//     rows and tick k's frames read in place), runs the full-frame
+//     "track" step on them, and scan_commit writes the kept rows of what
+//     it changed and of its outputs (escaped excepted), advances the
+//     loop's chunk and sets its handle.  No leaf is staged or copied
+//     whole, and the device work grows with the escaped streams.
 //   - The parameter block (Params) lives in device memory; the host writes
 //     it before each launch (k = 0, K, the frames' and output packs'
 //     addresses) and reads it back with the last tick's modes: each kernel
@@ -123,10 +130,11 @@
 //     block's contents are not.
 //   - sched_program_build assembles the graph: a WHILE node whose body is
 //     tick_select -> one IF node a tick body -> escape_select -> IF few,
-//     IF many -> scan_commit, each IF node's body [scan_step ->] a child
-//     graph node of a PyTorch-captured body (the many body's after
-//     scan_commit's staging; the few body's followed by its two
-//     scan_commits).  It walks each body's nodes
+//     IF many -> scan_commit, each tick body's and the few body's IF node
+//     [scan_step ->] a child graph node of a PyTorch-captured body (the
+//     few body's followed by its two scan_commits), the many body's IF
+//     node the held tick commit -> WHILE (chunk body -> scan_commit):
+//     conditional nodes nested three deep.  It walks each body's nodes
 //     first and refuses a node type a conditional body cannot hold.
 //
 // The launchers run on the caller's stream, allocate nothing and return the
@@ -154,7 +162,7 @@ constexpr int kModeVJ = 1;
 constexpr int kModeCS = 2;
 constexpr int kMinDriver = 12040;
 
-// The parameter block, 32 64-bit words (kernels/schedule.py PARAM_WORDS
+// The parameter block, 38 64-bit words (kernels/schedule.py PARAM_WORDS
 // and its word indices mirror it).
 struct Params {
   long long k;           // 0: the tick tick_select selects next
@@ -169,11 +177,39 @@ struct Params {
   long long frame_at;    // 12: the tick's frames (tick_select writes it)
   long long row_steps;   // 13: scan_step's runs that copied rows
   long long whole_steps; // 14: scan_step's runs that copied whole
-  long long stages;      // 15: scan_commit's staging runs this launch
+  long long chunks;      // 15: the many escape body's big chunks this tick
   long long runs[16];    // 16-31: runs this launch: tick_select's by the
                          // body it chose (0..), escape_select's at 8 + esel
+  long long chunk;       // 32: the many body's big chunk that runs
+  long long chunk_runs;  // 33: its big chunks run this launch
+  long long tail;        // 34: its small chunk that runs (from tail0)
+  long long tails;       // 35: the end of its small chunks this tick
+  long long tail_runs;   // 36: its small chunks run this launch
+  long long pad;         // 37
 };
-static_assert(sizeof(Params) == 32 * 8, "Params is 32 words");
+static_assert(sizeof(Params) == 38 * 8, "Params is 38 words");
+
+// The many body's chunks for nesc escaped streams, big chunks of mb slots
+// and small ones of m (mb a multiple of m): nesc / mb big chunks, one more
+// where the rest exceeds kTailChunks small chunks, then the small chunks
+// [tail0, tails) of what is left (kernels/schedule.py chunk_plan mirrors
+// it).
+constexpr long long kTailChunks = 2;
+
+struct ChunkPlan {
+  long long big, tail0, tails;
+};
+
+__host__ __device__ ChunkPlan chunk_plan(long long nesc, long long m,
+                                         long long mb) {
+  ChunkPlan c;
+  c.big = nesc / mb;
+  if (nesc - c.big * mb > kTailChunks * m) c.big += 1;
+  c.tail0 = c.big * (mb / m);
+  const long long end = (nesc + m - 1) / m;
+  c.tails = end > c.tail0 ? end : c.tail0;
+  return c;
+}
 
 // handle j stands for selection value first + j
 struct Handles {
@@ -205,12 +241,14 @@ struct Table {
 // only those rows, the entry's chunks running over the S sub rows, each
 // ceil(rb / 16) chunks (the leaf the body passed through whole: no copy
 // but of its served rows).  ``pitch``: a 1-D strided sub's element stride
-// in bytes (0: contiguous).
+// in bytes (0: contiguous).  The flag kHold (with ``rb`` set) marks a
+// state leaf whose held streams' rows a commit with held rows leaves as
+// they are.
 struct Merge {
   long long sub, rb, pitch, kind;
 };
 static_assert(sizeof(Merge) == 4 * 8, "Merge is 4 words");
-constexpr long long kMergeNone = 0, kMerged = 1, kMergeRows = 2;
+constexpr long long kMergeNone = 0, kMerged = 1, kMergeRows = 2, kHold = 4;
 
 // A table's slot map: row j of its merges lands on row idx[j] where
 // keep[j] and idx[j] < n (slots padded with n are dropped); slots 0: none.
@@ -554,14 +592,20 @@ __global__ void __launch_bounds__(kSelThreads)
 
 // The escape fallback's body: 0 none, 1 few (the escaped streams' slots,
 // lowest index first, padded with n: eb of them), 2 many.  few only when
-// eb < n, as the reference.
+// eb < n, as the reference.  With a list (``elist``, ``len`` slots, a
+// multiple of the big chunk ``mb``, itself one of the small chunk ``m``):
+// on many every escaped stream, lowest index first, padded with n, and
+// the chunks of chunk_plan (else none): p->chunks big, p->chunk = 0, the
+// small ones p->tail = tail0 to p->tails.
 // esc_at: null, or the escaped flags' address a tick body, read at
 // p->branch in place of ``esc`` (the program: each body's own results).
 __global__ void __launch_bounds__(kSelThreads)
     escape_select_kernel(const unsigned char* esc,
                          const long long* __restrict__ esc_at, int n, int eb,
                          int span, long long* __restrict__ eidx, Params* p,
-                         unsigned char* scratch, Handles h) {
+                         unsigned char* scratch, Handles h,
+                         long long* __restrict__ elist, int m, int mb,
+                         long long len) {
   __shared__ unsigned long long key[kSelKeys];
   if (esc_at) esc = reinterpret_cast<const unsigned char*>(esc_at[p->branch]);
   __shared__ int wsum[kSelWarps];
@@ -577,8 +621,9 @@ __global__ void __launch_bounds__(kSelThreads)
     count += e;
     r += append(key, r, e, static_cast<unsigned long long>(i), wsum);
   }
-  // the CTA's escaped streams in order; past eb of them none ("many")
-  const int keep = r <= eb ? r : 0;
+  // the CTA's escaped streams in order; without a list past eb of them
+  // none ("many")
+  const int keep = elist || r <= eb ? r : 0;
   int nesc = block_sum(count, 0, sums).x, unused, total = keep;
   const Grid g = grid_of(scratch, span);
   if (gridDim.x > 1 &&
@@ -594,7 +639,25 @@ __global__ void __launch_bounds__(kSelThreads)
   } else if (few) {
     merge_cands(g, span, offs, eidx);
   }
+  const bool listed = elist && sel == 2;
+  if (listed && gridDim.x == 1) {
+    for (int t = threadIdx.x; t < nesc; t += kSelThreads) elist[t] = key[t];
+  } else if (listed) {
+    merge_cands(g, span, offs, elist);
+  }
+  if (listed) {
+    for (long long t = nesc + threadIdx.x; t < len; t += kSelThreads) {
+      elist[t] = n;
+    }
+  }
   if (threadIdx.x == 0) {
+    if (elist) {
+      const ChunkPlan c = chunk_plan(listed ? nesc : 0, m, mb);
+      p->chunks = c.big;
+      p->chunk = 0;
+      p->tail = c.tail0;
+      p->tails = c.tails;
+    }
     p->esel = sel;
     p->runs[8 + sel] += 1;
     set_handles(h, sel);
@@ -659,21 +722,16 @@ int step_ctas(long long bytes) {
 // n) is padding: skipped).  A CTA a tile of kTileVectors vectors a thread,
 // each loaded before any is stored (one pass over the grid, as step_ctas
 // sizes it), streamed; off the 16-byte grid, bytes strided over the CTAs.
-// Nothing is copied where source and buffer are one, nor after a tick
-// body of the mask ``skip`` (bit b: body b, p->branch the tick's), which
-// copied the whole tick.  Each run counts in p->steps, a run that copied
-// in its mode's word.
+// Nothing is copied where source and buffer are one.  Each run counts in
+// p->steps and in its mode's word.
 __global__ void __launch_bounds__(kCopyThreads)
     scan_step_kernel(Params* p, unsigned char* __restrict__ frames,
                      long long bytes, const long long* __restrict__ rows,
-                     int n, unsigned skip) {
-  const long long tick = p->branch;
-  const bool done = tick >= 0 && tick < 32 && ((skip >> tick) & 1u);
+                     int n) {
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
     p->steps += 1;
-    if (!done) (rows ? p->row_steps : p->whole_steps) += 1;
+    (rows ? p->row_steps : p->whole_steps) += 1;
   }
-  if (done) return;
   long long off = 0;
   if (rows) {
     const long long r = rows[blockIdx.y];
@@ -711,17 +769,23 @@ __global__ void __launch_bounds__(kCopyThreads)
 // tick body's table (kernels/schedule.py TABLE_PICK, TABLE_TICK).
 constexpr int kTablePick = -1;
 constexpr int kTableTick = -2;
+// scan_commit's step of the many escape body's chunk loops
+// (kernels/schedule.py CHUNK_START, CHUNK_NEXT, TAIL_NEXT): none; both
+// loops' handles set, to whether each has a chunk (the held tick commit
+// ahead of the loops); p->chunk advanced, counted in p->chunk_runs, and
+// the big loop's handle set to whether a big chunk is left (a big chunk's
+// commit); the same for p->tail and the small loop.
+constexpr int kChunkNone = 0, kChunkStart = 1, kChunkNext = 2, kTailNext = 3;
 
 // The table of what ran this tick: ``table`` when >= 0; the tick body's
-// (p->branch) when staging or for kTableTick; else (kTablePick) none when
-// the few escape body ran (its IF graph committed the tick body's table
-// and then its own rows), the many body's (nb + 1, after the nb tick
-// bodies and few) when it ran, the tick body's otherwise.  -1: nothing.
-__device__ __forceinline__ long long commit_table(const Params* p, int nb,
-                                                  int stage, int table) {
+// (p->branch) for kTableTick; else (kTablePick) the tick body's when no
+// escape body ran, none when one did (its IF graph committed the tick
+// body's table and then its own rows).  -1: nothing.
+__device__ __forceinline__ long long commit_table(const Params* p,
+                                                  int table) {
   if (table >= 0) return table;
-  if (stage || table == kTableTick || p->esel == 0) return p->branch;
-  return p->esel == 1 ? -1 : nb - 1 + p->esel;
+  if (table == kTableTick || p->esel == 0) return p->branch;
+  return -1;
 }
 
 // The row slot j of a slot map lands on, or -1 (not kept, or padding).
@@ -746,6 +810,14 @@ __device__ __forceinline__ unsigned char sub_byte(const Merge& g,
   return g.pitch ? sub[j * g.pitch + o] : sub[j * g.rb + o];
 }
 
+// Whether a row in [r0, r1] is held (its flag in ``held`` set).
+__device__ __forceinline__ bool any_held(const unsigned char* held,
+                                         long long r0, long long r1) {
+  bool any = false;
+  for (long long r = r0; r <= r1 && !any; ++r) any = held[r] != 0;
+  return any;
+}
+
 // A table's copies, k = p->k - 1: each entry's bytes to its destination (a
 // pack row: row * K + k of its pack).  The table's entries are one run of
 // 16-byte chunks, thread t taking chunks t, t + the grid's threads, ...: a
@@ -756,27 +828,48 @@ __device__ __forceinline__ unsigned char sub_byte(const Merge& g,
 // (maps, the table's; a bucket body's sub-batch) an entry may merge rows
 // (merges: a merged entry's chunk takes the bytes of a row the map names
 // from the sub row, the rows entry's chunks run over the sub rows alone),
-// so no two chunks write one byte and the copy needs no order.  One run
-// counts in p->commits, or in p->stages (stage: the tick body's results
-// into the many body's buffers); a run that picks no table (the few
-// body's tick, which its own IF graph committed) copies and counts
-// nothing.
+// so no two chunks write one byte and the copy needs no order.  With held
+// rows (``hold``: the escaped flags' address a tick body, read at
+// p->branch; the many escape body's tick) an entry flagged kHold leaves
+// the rows of the escaped streams as they are, for that body's chunks to
+// gather them from the pre-step state.  One run counts in p->commits; a
+// run that picks no table (an escape body's tick, which its own IF graph
+// committed) copies and counts nothing.  ``chunk`` steps the many body's
+// chunk loops (their handles ``loop``, ``loop2``; 0: none).
 __global__ void __launch_bounds__(kCopyThreads)
     scan_commit_kernel(Params* p, const Table* __restrict__ tables,
                        const Seg* __restrict__ segs,
                        const Merge* __restrict__ merges,
-                       const SlotMap* __restrict__ maps, int nb, int stage,
-                       int table) {
-  const long long ti = commit_table(p, nb, stage, table);
+                       const SlotMap* __restrict__ maps,
+                       const long long* __restrict__ hold, int table,
+                       cudaGraphConditionalHandle loop,
+                       cudaGraphConditionalHandle loop2, int chunk) {
+  const long long ti = commit_table(p, table);
   if (ti < 0) return;
   const Table t = tables[ti];
   SlotMap m = {0, 0, 0, 0};
   if (maps && merges) m = maps[ti];
+  const unsigned char* held =
+      hold && merges ? reinterpret_cast<const unsigned char*>(hold[p->branch])
+                     : nullptr;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    if (stage) {
-      p->stages += 1;
-    } else {
-      p->commits += 1;
+    p->commits += 1;
+    if (chunk == kChunkNext) {
+      p->chunk += 1;
+      p->chunk_runs += 1;
+    } else if (chunk == kTailNext) {
+      p->tail += 1;
+      p->tail_runs += 1;
+    }
+    const bool big = p->chunk < p->chunks, small = p->tail < p->tails;
+    if (loop && (chunk == kChunkStart || chunk == kChunkNext)) {
+      cudaGraphSetConditional(loop, big ? 1u : 0u);
+    }
+    if (loop && chunk == kTailNext) {
+      cudaGraphSetConditional(loop, small ? 1u : 0u);
+    }
+    if (loop2 && chunk == kChunkStart) {
+      cudaGraphSetConditional(loop2, small ? 1u : 0u);
     }
   }
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -798,11 +891,13 @@ __global__ void __launch_bounds__(kCopyThreads)
     while (e + 1 < end && __ldg(&segs[e + 1].chunk) <= c) ++e;
     const Seg& g = segs[e];
     const long long bytes = __ldg(&g.bytes), slot = __ldg(&g.slot);
-    const Merge mg = m.slots ? merges[e] : Merge{0, 0, 0, kMergeNone};
+    const Merge mg =
+        m.slots || held ? merges[e] : Merge{0, 0, 0, kMergeNone};
+    const long long kind = mg.kind & ~kHold;
     const unsigned char* src =
         reinterpret_cast<const unsigned char*>(__ldg(&g.src));
     const long long pitch = __ldg(&g.pitch);
-    if (mg.kind == kMergeRows) {  // the sub rows alone
+    if (kind == kMergeRows) {  // the sub rows alone
       const long long cpr = (mg.rb + 15) / 16;
       const long long local = c - __ldg(&g.chunk);
       const long long j = local / cpr, o = (local % cpr) * 16;
@@ -831,17 +926,21 @@ __global__ void __launch_bounds__(kCopyThreads)
                        (__ldg(&g.row) * K + k) * bytes;
     const long long off = (c - __ldg(&g.chunk)) * 16;
     const long long last = min(off + 16, bytes);
-    if (mg.kind == kMerged) {  // rows the map names come from the sub rows
+    const bool holds = held && (mg.kind & kHold);
+    if (kind == kMerged || holds) {
+      // rows the map names come from the sub rows; held rows stay
       const long long r0 = off / mg.rb, r1 = (last - 1) / mg.rb;
-      bool hit = false;
-      for (long long j = 0; j < m.slots && !hit; ++j) {
+      bool hit = holds && any_held(held, r0, r1);
+      for (long long j = 0; kind == kMerged && j < m.slots && !hit; ++j) {
         const long long r = slot_row(m, j);
         hit = r >= r0 && r <= r1;
       }
       if (hit) {
         const long long elem = pitch ? __ldg(&g.elem) : 1;
         for (long long i = off; i < last; ++i) {
-          const long long js = slot_of(m, i / mg.rb);
+          const long long r = i / mg.rb;
+          if (holds && held[r]) continue;
+          const long long js = kind == kMerged ? slot_of(m, r) : -1;
           dst[i] = js >= 0 ? sub_byte(mg, js, i % mg.rb)
                            : src[pitch ? i / elem * pitch + i % elem : i];
         }
@@ -879,7 +978,12 @@ constexpr int kGatherSpan = 1;
 // the escape fallback's; else also not in CS, the bucket's); a leaf each:
 // its source, its sub rows, its row bytes and, for a 1-D strided source,
 // its element stride in bytes (0: contiguous).  ``warps`` and ``first``
-// (leaf e's first warp-unit in a slot's run) the launcher fills.
+// (leaf e's first warp-unit in a slot's run) the launcher fills.  ``at``
+// (or null): a word holding the chunk c, the slots then being idx[c *
+// slots, (c + 1) * slots), which ``slots_out`` (or null) receives;
+// ``src_at`` (or null: every leaf at ``src``): a word holding leaf
+// ``src_leaf``'s source address when the kernel runs (the tick's frames,
+// read in place).
 struct GatherArgs {
   const long long* idx;
   const int* mode;
@@ -891,6 +995,10 @@ struct GatherArgs {
   long long rb[kMaxLeaves];
   long long pitch[kMaxLeaves];
   int first[kMaxLeaves];
+  const long long* at;
+  long long* slots_out;
+  const long long* src_at;
+  long long src_leaf;
 };
 
 // One lane's unit: up to 16 bytes of a row, as one vector (16-aligned,
@@ -961,7 +1069,8 @@ __device__ __forceinline__ void unit_store(const Unit& u) {
 __global__ void __launch_bounds__(kGatherThreads)
     slot_gather_kernel(const __grid_constant__ GatherArgs a) {
   const long long j = blockIdx.y;
-  const long long i = a.idx[j];
+  const long long* idx = a.at ? a.idx + *a.at * a.slots : a.idx;
+  const long long i = idx[j];
   const int lane = threadIdx.x & 31;
   const int q0 =
       (blockIdx.x * kGatherWarps + (threadIdx.x >> 5)) * kGatherSpan;
@@ -987,6 +1096,7 @@ __global__ void __launch_bounds__(kGatherThreads)
   const long long r = i < a.n - 1 ? i : a.n - 1;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     a.keep[j] = i < a.n && (a.escape || a.mode[r * a.mode_pitch] != kModeCS);
+    if (a.slots_out) a.slots_out[j] = i;
   }
   Unit u[kGatherSpan];
 #pragma unroll
@@ -998,8 +1108,11 @@ __global__ void __launch_bounds__(kGatherThreads)
     if (off[v] >= rb) continue;
     u[v].bytes = static_cast<int>(rb - off[v] < 16 ? rb - off[v] : 16);
     u[v].dst = a.dst[e] + j * rb + off[v];
-    unit_load(u[v], a.src[e] + (a.pitch[e] ? r * a.pitch[e] : r * rb) +
-                        off[v]);
+    const unsigned char* src =
+        a.src_at && e == a.src_leaf
+            ? reinterpret_cast<const unsigned char*>(*a.src_at)
+            : a.src[e];
+    unit_load(u[v], src + (a.pitch[e] ? r * a.pitch[e] : r * rb) + off[v]);
   }
 #pragma unroll
   for (int v = 0; v < kGatherSpan; ++v) {
@@ -1119,54 +1232,44 @@ int add_conditional(cudaGraphNode_t* node, cudaGraph_t g,
 enum BuildArg {
   kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEscAt, kEidx,
   kEb, kFrames, kFrameBytes, kTables, kSegs, kCommitCtas, kFew, kMany,
-  kSelScratch, kSelBytes, kEscScratch, kEscBytes, kCopies, kStageTables,
-  kStageSegs, kStageCtas, kMerges, kMaps, kStageMerges, kStageMaps, kNumArgs
+  kSelScratch, kSelBytes, kEscScratch, kEscBytes, kCopies, kMerges, kMaps,
+  kElist, kChunkRows, kListLen, kTail, kTailRows, kNumArgs
 };
 
-// scan_commit's arguments: its tables and their entries, the tick bodies
-// (nb), its mode and its grid.
+// scan_commit's arguments: its tables and their entries, the held rows'
+// flags (or null) and its grid.
 struct Commit {
   const Table* tables;
   const Seg* segs;
   const Merge* merges;
   const SlotMap* maps;
-  int nb;
-  int stage;
+  const long long* hold;
   int ctas;
 };
 
 int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
                const cudaGraphNode_t* deps, size_t ndeps, Params* p,
-               Commit c, int table) {
-  void* args[] = {&p,    &c.tables, &c.segs,  &c.merges,
-                  &c.maps, &c.nb,    &c.stage, &table};
+               Commit c, int table, cudaGraphConditionalHandle loop = 0,
+               cudaGraphConditionalHandle loop2 = 0, int chunk = kChunkNone) {
+  void* args[] = {&p,      &c.tables, &c.segs, &c.merges, &c.maps,
+                  &c.hold, &table,    &loop,   &loop2,    &chunk};
   return add_kernel(node, g, deps, ndeps,
                     reinterpret_cast<void*>(scan_commit_kernel),
                     dim3(c.ctas), dim3(kCopyThreads), args);
 }
 
-// What a body's IF graph runs: scan_commit's staging (``stage``, the many
-// body's: the tick body's results into the buffers it reads), scan_step in
-// its copy mode (c: mode, rows, slots: sched_program_build's copies), then
-// the body ``g``, then (``after``, the few body's) scan_commit of the tick
-// body's table and of table ``after_table``, the body's sub-batch rows;
-// skip as the kernel's.
+// What a body's IF graph runs: scan_step in its copy mode (c: mode, rows,
+// slots: sched_program_build's copies), then the body ``g``, then
+// (``after``, the few body's) scan_commit of the tick body's table and of
+// table ``after_table``, the body's sub-batch rows.
 int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
              const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
              cudaGraph_t g, const long long* c, Params* p,
              unsigned char* frames, long long frame_bytes, int n,
-             unsigned skip, const Commit* stage, const Commit* after,
-             int after_table) {
+             const Commit* after, int after_table) {
   cudaGraph_t bb;
   int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
   if (rc) return rc;
-  cudaGraphNode_t pre;
-  size_t npre = 0;
-  if (stage) {
-    rc = add_commit(&pre, bb, nullptr, 0, p, *stage, kTablePick);
-    if (rc) return rc;
-    npre = 1;
-  }
   cudaGraphNode_t step;
   size_t nstep = 0;
   if (c[0] != kCopyNone) {
@@ -1174,17 +1277,16 @@ int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
         c[0] == kCopyRows ? reinterpret_cast<const long long*>(c[1]) : nullptr;
     long long bytes = rows ? frame_bytes / n : frame_bytes;
     const unsigned slots = rows ? static_cast<unsigned>(c[2]) : 1u;
-    void* args[] = {&p, &frames, &bytes, &rows, &n, &skip};
-    rc = add_kernel(&step, bb, npre ? &pre : nullptr, npre,
+    void* args[] = {&p, &frames, &bytes, &rows, &n};
+    rc = add_kernel(&step, bb, nullptr, 0,
                     reinterpret_cast<void*>(scan_step_kernel),
                     dim3(step_ctas(bytes), slots), dim3(kCopyThreads), args);
     if (rc) return rc;
     nstep = 1;
   }
   cudaGraphNode_t inner;
-  TRY(cudaGraphAddChildGraphNode(&inner, bb,
-                                 nstep ? &step : npre ? &pre : nullptr,
-                                 nstep + (nstep ? 0 : npre), g));
+  TRY(cudaGraphAddChildGraphNode(&inner, bb, nstep ? &step : nullptr, nstep,
+                                 g));
   if (after) {
     cudaGraphNode_t tick, rows;
     rc = add_commit(&tick, bb, &inner, 1, p, *after, kTableTick);
@@ -1193,6 +1295,51 @@ int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
     if (rc) return rc;
   }
   return 0;
+}
+
+// A WHILE node on ``loop`` after ``dep`` whose body runs the chunk body
+// ``g`` and then scan_commit of table ``table`` (its kept rows), which
+// steps the loop (``chunk``: kChunkNext or kTailNext).
+int add_chunks(cudaGraphNode_t* node, cudaGraph_t parent,
+               const cudaGraphNode_t* dep, cudaGraphConditionalHandle loop,
+               cudaGraph_t g, Params* p, const Commit& rows, int table,
+               int chunk) {
+  cudaGraph_t cb;
+  int rc = add_conditional(node, parent, dep, 1, loop,
+                           cudaGraphCondTypeWhile, &cb);
+  if (rc) return rc;
+  cudaGraphNode_t inner, commit;
+  TRY(cudaGraphAddChildGraphNode(&inner, cb, nullptr, 0, g));
+  return add_commit(&commit, cb, &inner, 1, p, rows, table, loop, 0, chunk);
+}
+
+// The many escape body's IF graph: scan_commit of the tick body's table
+// with the escaped streams' state rows held (``held``), which starts the
+// chunk loops, then a WHILE node over the big chunks (the body ``g``,
+// gathering chunk p->chunk of escape_select's list from the state and
+// tick k's frames, and scan_commit of table ``table``, its kept rows),
+// then one over the small chunks (``gs``, chunk p->tail, table ``table``
+// + 1).
+int add_many(cudaGraphNode_t* node, cudaGraph_t parent,
+             const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
+             cudaGraph_t g, cudaGraph_t gs, Params* p, const Commit& held,
+             const Commit& rows, int table) {
+  cudaGraph_t bb;
+  int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
+  if (rc) return rc;
+  cudaGraphConditionalHandle big, small;
+  TRY(cudaGraphConditionalHandleCreate(&big, bb, 0,
+                                       cudaGraphCondAssignDefault));
+  TRY(cudaGraphConditionalHandleCreate(&small, bb, 0,
+                                       cudaGraphCondAssignDefault));
+  cudaGraphNode_t tick, wbig, wsmall;
+  rc = add_commit(&tick, bb, nullptr, 0, p, held, kTableTick, big, small,
+                  kChunkStart);
+  if (rc) return rc;
+  rc = add_chunks(&wbig, bb, &tick, big, g, p, rows, table, kChunkNext);
+  if (rc) return rc;
+  return add_chunks(&wsmall, bb, &wbig, small, gs, p, rows, table + 1,
+                    kTailNext);
 }
 
 int build(Program* prog, const long long* a, const unsigned long long* bodies,
@@ -1245,20 +1392,18 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
                   reinterpret_cast<void*>(tick_select_kernel), dim3(sg.ctas),
                   dim3(kSelThreads), sel_args);
   if (rc) return rc;
-  unsigned whole = 0;  // the tick bodies that copy the whole tick
   for (int b = 0; b < nb; ++b) {
     rc = add_body(&ifs[b], body, &sel, hb[b],
                   reinterpret_cast<cudaGraph_t>(bodies[b]), copies + 3 * b, p,
-                  frames, frame_bytes, n, 0u, nullptr, nullptr, 0);
+                  frames, frame_bytes, n, nullptr, 0);
     if (rc) return rc;
-    if (copies[3 * b] == kCopyWhole) whole |= 1u << b;
   }
 
   const Commit commit_args = {reinterpret_cast<const Table*>(a[kTables]),
                               reinterpret_cast<const Seg*>(a[kSegs]),
                               reinterpret_cast<const Merge*>(a[kMerges]),
-                              reinterpret_cast<const SlotMap*>(a[kMaps]), nb,
-                              0, static_cast<int>(a[kCommitCtas])};
+                              reinterpret_cast<const SlotMap*>(a[kMaps]),
+                              nullptr, static_cast<int>(a[kCommitCtas])};
   // the escape fallback, where a band is on
   cudaGraphNode_t tail[2];
   const cudaGraphNode_t* last = ifs;
@@ -1266,12 +1411,13 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   if (a[kEscAt] != 0) {
     const unsigned char* esc = nullptr;
     const long long* esc_at = reinterpret_cast<const long long*>(a[kEscAt]);
-    const Commit stage = {reinterpret_cast<const Table*>(a[kStageTables]),
-                          reinterpret_cast<const Seg*>(a[kStageSegs]),
-                          reinterpret_cast<const Merge*>(a[kStageMerges]),
-                          reinterpret_cast<const SlotMap*>(a[kStageMaps]),
-                          nb, 1, static_cast<int>(a[kStageCtas])};
+    Commit held = commit_args;
+    held.hold = esc_at;
     long long* eidx = reinterpret_cast<long long*>(a[kEidx]);
+    long long* elist = reinterpret_cast<long long*>(a[kElist]);
+    int chunk_rows = static_cast<int>(a[kChunkRows]);
+    int tail_rows = static_cast<int>(a[kTailRows]);
+    long long list_len = a[kListLen];
     int eb = static_cast<int>(a[kEb]);
     Handles he = no_handles();
     const bool few = a[kFew] != 0;
@@ -1290,8 +1436,9 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
         reinterpret_cast<unsigned char*>(a[kEscScratch]);
     const SelGrid eg = select_grid(n, eb);
     int espan = eg.span;
-    void* esel_args[] = {&esc,  &esc_at, &n,           &eb,
-                         &espan, &eidx,  &p, &esc_scratch, &he};
+    void* esel_args[] = {&esc,   &esc_at, &n,           &eb,
+                         &espan, &eidx,   &p, &esc_scratch, &he,
+                         &elist, &tail_rows, &chunk_rows, &list_len};
     cudaGraphNode_t esel;
     rc = add_kernel(&esel, body, ifs, nb,
                     reinterpret_cast<void*>(escape_select_kernel),
@@ -1301,15 +1448,14 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     if (few) {
       rc = add_body(&tail[nlast], body, &esel, hf,
                     reinterpret_cast<cudaGraph_t>(a[kFew]), copies + 3 * nb,
-                    p, frames, frame_bytes, n, whole, nullptr, &commit_args,
-                    nb);
+                    p, frames, frame_bytes, n, &commit_args, nb);
       if (rc) return rc;
       ++nlast;
     }
-    rc = add_body(&tail[nlast], body, &esel, hm,
+    rc = add_many(&tail[nlast], body, &esel, hm,
                   reinterpret_cast<cudaGraph_t>(a[kMany]),
-                  copies + 3 * (nb + 1), p, frames, frame_bytes, n, whole,
-                  &stage, nullptr, 0);
+                  reinterpret_cast<cudaGraph_t>(a[kTail]), p, held,
+                  commit_args, nb + 1);
     if (rc) return rc;
     ++nlast;
     last = tail;
@@ -1355,10 +1501,14 @@ extern "C" int tick_select_launch(const void* mode, const void* age,
   return static_cast<int>(cudaGetLastError());
 }
 
+// elist: null, or ``len`` slots (a multiple of the big chunk mb, itself
+// one of the small chunk m >= 1; at least n) for the many body's list.
 extern "C" int escape_select_launch(const void* esc, void* eidx, void* params,
                                     void* scratch, long long scratch_bytes,
-                                    int n, int eb, void* stream) {
-  if (!check_select(n, eb, scratch, scratch_bytes)) {
+                                    int n, int eb, void* elist, int m, int mb,
+                                    long long len, void* stream) {
+  if (!check_select(n, eb, scratch, scratch_bytes) ||
+      (elist && (m < 1 || mb < m || mb % m || len < n || len % mb))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SelGrid g = select_grid(n, eb);
@@ -1366,7 +1516,8 @@ extern "C" int escape_select_launch(const void* esc, void* eidx, void* params,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(esc), nullptr, n, eb, g.span,
       static_cast<long long*>(eidx), static_cast<Params*>(params),
-      static_cast<unsigned char*>(scratch), no_handles());
+      static_cast<unsigned char*>(scratch), no_handles(),
+      static_cast<long long*>(elist), m, mb, len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1382,36 +1533,41 @@ extern "C" int select_floor_launch(int n, int cap, void* stream) {
 // mode: rows[0, nrows) of ``bytes`` each, slots outside [0, n) skipped.
 extern "C" int scan_step_launch(void* params, void* frames, long long bytes,
                                 const void* rows, int nrows, int n,
-                                unsigned skip, void* stream) {
+                                void* stream) {
   if (bytes < 0 || (rows != nullptr) != (nrows > 0) || nrows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   scan_step_kernel<<<dim3(step_ctas(bytes), rows ? nrows : 1), kCopyThreads,
                      0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<Params*>(params), static_cast<unsigned char*>(frames),
-      bytes, static_cast<const long long*>(rows), n, skip);
+      bytes, static_cast<const long long*>(rows), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // tables (T, 4), segs (S, 8), merges (S, 4) and maps (T, 4) i64
-// (kernels/schedule.py segments; merges and maps null: no merge);
-// table: the one to copy (>= 0), kTablePick to pick it as the program
-// does from p->branch and p->esel (nb tick bodies before few and many), or
-// kTableTick for the tick body's (p->branch); stage: count the run as
-// staging; ctas: the grid (a wave over the largest table).
+// (kernels/schedule.py segments; merges and maps null: no merge or held
+// leaf); hold: null, or the escaped flags' address a tick body (held rows,
+// read at p->branch); table: the one to copy (>= 0), kTablePick to pick
+// it as the program does from p->branch and p->esel, or kTableTick for the
+// tick body's (p->branch); chunk: the chunk loops' step (kChunkNone,
+// kChunkStart, kChunkNext, kTailNext; no handle set); ctas: the grid (a
+// wave over the largest table).
 extern "C" int scan_commit_launch(void* params, const void* tables,
                                   const void* segs, const void* merges,
-                                  const void* maps, int nb, int stage,
-                                  int table, int ctas, void* stream) {
-  if (tables == nullptr || segs == nullptr || ctas < 1 || nb < 1 ||
-      table < kTableTick || (merges == nullptr) != (maps == nullptr)) {
+                                  const void* maps, const void* hold,
+                                  int table, int chunk, int ctas,
+                                  void* stream) {
+  if (tables == nullptr || segs == nullptr || ctas < 1 ||
+      table < kTableTick || (merges == nullptr) != (maps == nullptr) ||
+      chunk < kChunkNone || chunk > kTailNext) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   scan_commit_kernel<<<ctas, kCopyThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<Params*>(params), static_cast<const Table*>(tables),
       static_cast<const Seg*>(segs), static_cast<const Merge*>(merges),
-      static_cast<const SlotMap*>(maps), nb, stage, table);
+      static_cast<const SlotMap*>(maps),
+      static_cast<const long long*>(hold), table, 0, 0, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1421,7 +1577,8 @@ extern "C" int slot_gather_args_bytes() { return sizeof(GatherArgs); }
 int gather_check(GatherArgs* a) {
   if (a->slots < 1 || a->slots > 65535 || a->leaves < 1 ||
       a->leaves > kMaxLeaves || a->n < 1 || a->idx == nullptr ||
-      a->mode == nullptr || a->keep == nullptr) {
+      a->mode == nullptr || a->keep == nullptr ||
+      (a->src_at && (a->src_leaf < 0 || a->src_leaf >= a->leaves))) {
     return -1;
   }
   return gather_layout(a);
@@ -1459,7 +1616,10 @@ extern "C" int sched_program_build(const void* args, int nargs,
                     a[kSelBytes]) ||
       a[kTables] == 0 || a[kSegs] == 0 || a[kCommitCtas] < 1 ||
       (a[kEscAt] != 0 &&
-       (a[kStageTables] == 0 || a[kStageSegs] == 0 || a[kStageCtas] < 1 ||
+       (a[kMerges] == 0 || a[kMaps] == 0 || a[kMany] == 0 ||
+        a[kElist] == 0 || a[kTail] == 0 || a[kTailRows] < 1 ||
+        a[kChunkRows] < a[kTailRows] || a[kChunkRows] % a[kTailRows] ||
+        a[kListLen] < n || a[kListLen] % a[kChunkRows] ||
         !check_select(n, static_cast<int>(a[kEb]),
                       reinterpret_cast<const void*>(a[kEscScratch]),
                       a[kEscBytes])))) {
@@ -1480,8 +1640,9 @@ extern "C" int sched_program_build(const void* args, int nargs,
     }
   }
   const unsigned long long* b = static_cast<const unsigned long long*>(bodies);
-  for (int i = 0; i < nb + 2; ++i) {
-    const unsigned long long g = i < nb ? b[i] : a[kFew + i - nb];
+  for (int i = 0; i < nb + 3; ++i) {
+    const unsigned long long g =
+        i < nb ? b[i] : i < nb + 2 ? a[kFew + i - nb] : a[kTail];
     if (g == 0) continue;
     const int rc = check_body(reinterpret_cast<cudaGraph_t>(g), i);
     if (rc) return rc;

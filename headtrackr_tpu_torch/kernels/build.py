@@ -77,12 +77,11 @@ _SIGNATURES = {
         "tick_select_launch": (_C, _C, _C, _C, _C, _C, ctypes.c_longlong,
                                _I, _I, _I, _I, ctypes.c_longlong, _C),
         "escape_select_launch": (_C, _C, _C, _C, ctypes.c_longlong, _I, _I,
-                                 _C),
+                                 _C, _I, _I, ctypes.c_longlong, _C),
         "select_floor_launch": (_I, _I, _C),
         "select_scratch_bytes": (_I, _I),
-        "scan_step_launch": (_C, _C, ctypes.c_longlong, _C, _I, _I,
-                             ctypes.c_uint, _C),
-        "scan_commit_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _C),
+        "scan_step_launch": (_C, _C, ctypes.c_longlong, _C, _I, _I, _C),
+        "scan_commit_launch": (_C, _C, _C, _C, _C, _C, _I, _I, _I, _C),
         "slot_gather_launch": (_C, _C),
         "slot_gather_ctas": (_C,),
         "slot_gather_args_bytes": (),

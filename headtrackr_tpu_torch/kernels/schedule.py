@@ -6,21 +6,23 @@ their plain twins, and the program's CUDA graph.
                  oldest-first top_k of the served streams and their new
                  pend_age (_aged); and :426 scan_steps' tick count
   escape_select  :225 _escape_checked: none / few / many (its lax.switch)
-                 and the top_k of the escaped streams
+                 and the top_k of the escaped streams (few), or all of
+                 them, listed for the many body's chunks
   scan_step      :426 scan_steps (lax.scan): of tick k's frames, which
                  tick_select locates, the rows a body's PyTorch ops read,
                  into the bodies' buffer (rows or whole)
   scan_commit    the scan's carried state and its stacked outputs: the
-                 results of the body that ran (each body keeps its own),
-                 by ``segments``' table of that body; in its staging mode
-                 the tick body's results into the many escape body's
-                 buffers; a sub-batch's rows merged in by the table's slot
-                 map (:210-223 _scatter_subbatch): a bucket body's, and
-                 the few escape body's rows alone after the tick body's
-  slot_gather    :299-320 _apply_bucket's and :249-262 the few escape
-                 branch's gathers over the state (a[safe]) and their
+                 tick body's results (each body keeps its own), by
+                 ``segments``' table of that body; a sub-batch's rows
+                 merged in by the table's slot map (:210-223
+                 _scatter_subbatch): a bucket body's, and an escape
+                 body's rows alone after the tick body's (the many body's
+                 a chunk at a time, after a tick commit that holds the
+                 escaped streams' state rows: :264-274 many's tree_where)
+  slot_gather    :299-320 _apply_bucket's and :249-274 the escape
+                 branches' gathers over the state (a[safe]) and their
                  ``valid`` flags (the bucket's rule or the escape's), one
-                 launch
+                 launch (the many body's: a chunk of escape_select's list)
 
 None replaces a Pallas kernel: the reference leaves these to XLA's control
 flow inside one program.  Dispatch as the other wrappers: a CPU tensor
@@ -43,16 +45,18 @@ from typing import NamedTuple
 
 import torch
 
-from .launch import launch, on_cuda
+from .launch import frames_source, launch, on_cuda
 
 __all__ = ["tick_select", "tick_select_plain", "escape_select",
-           "escape_select_plain", "scan_step", "scan_step_plain",
+           "escape_select_plain", "escape_list_plain", "scan_step",
+           "scan_step_plain",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
            "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
            "scratch", "select_floor", "CommitTables", "commit_ctas",
            "commit_chunks", "check_commit", "Slots", "slot_gather",
            "slot_gather_plain", "SLOT_LEAVES", "gather_ctas", "TABLE_PICK",
-           "TABLE_TICK"]
+           "TABLE_TICK", "Hold", "CHUNK_START", "CHUNK_NEXT", "TAIL_NEXT",
+           "chunk_plan"]
 
 MODE_VJ, MODE_CS = 1, 2
 # a select's grid (csrc/schedule.cu kSelThreads, kSelKeys, kMaxSelCtas):
@@ -62,21 +66,25 @@ SELECT_THREADS = 256
 SELECT_KEYS = 4096
 SELECT_MAX_CTAS = 256
 # the parameter block's 64-bit words (csrc/schedule.cu Params)
-PARAM_WORDS = 32
+PARAM_WORDS = 38
 P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
 P_COMMITS = 11  # scan_commit's runs this launch (P_STEPS: scan_step's)
 P_FRAME_AT = 12  # the tick's frames: tick_select writes P_FRAMES + k bytes
 P_ROW_STEPS, P_WHOLE_STEPS = 13, 14  # scan_step's runs that copied, by mode
-P_STAGES = 15  # scan_commit's staging runs this launch
+P_CHUNKS = 15  # the many escape body's big chunks this tick
 P_RUNS = 16  # runs this launch: tick_select's by its body from here,
 ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
+RUN_WORDS = 16  # the runs' words
+P_CHUNK = 32  # the many body's big chunk that runs (slot_gather reads it)
+P_CHUNK_RUNS = 33  # its big chunks run this launch
+P_TAIL, P_TAILS = 34, 35  # its small chunk that runs, the end of them
+P_TAIL_RUNS = 36  # its small chunks run this launch
 # sched_program_build's argument words (csrc/schedule.cu BuildArg)
 BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
               "rotate", "esc_at", "eidx", "eb", "frames", "frame_bytes",
               "tables", "segs", "commit_ctas", "few", "many", "sel_scratch",
-              "sel_bytes", "esc_scratch", "esc_bytes", "copies",
-              "stage_tables", "stage_segs", "stage_ctas", "merges", "maps",
-              "stage_merges", "stage_maps")
+              "sel_bytes", "esc_scratch", "esc_bytes", "copies", "merges",
+              "maps", "elist", "chunk_rows", "list_len", "tail", "tail_rows")
 # scan_commit's grid (csrc/schedule.cu kCopyThreads): CTAs of COMMIT_THREADS
 # threads, a thread a 16-byte chunk of the table at a time, at most
 # COMMIT_CTAS_PER_SM CTAs an SM (one wave: 2,048 threads an SM)
@@ -86,11 +94,17 @@ COMMIT_CTAS_PER_SM = 8
 # scan_step's copy modes (csrc/schedule.cu kCopyNone, kCopyRows, kCopyWhole)
 COPY_MODES = ("none", "rows", "whole")
 # a commit entry's merge kinds (csrc/schedule.cu Merge): none, a whole copy
-# whose mapped rows come from the sub rows, the mapped rows alone
-MERGE_NONE, MERGED, MERGE_ROWS = 0, 1, 2
+# whose mapped rows come from the sub rows, the mapped rows alone; the flag
+# of a leaf whose held rows a commit with held rows leaves
+MERGE_NONE, MERGED, MERGE_ROWS, MERGE_HOLD = 0, 1, 2, 4
 # scan_commit's table arguments below 0 (csrc/schedule.cu kTablePick,
 # kTableTick): the program's pick; the tick body's
 TABLE_PICK, TABLE_TICK = -1, -2
+# scan_commit's steps of the many body's chunk loops (csrc/schedule.cu
+# kChunkStart, kChunkNext, kTailNext)
+CHUNK_START, CHUNK_NEXT, TAIL_NEXT = 1, 2, 3
+# the small chunks past the big ones at most (csrc/schedule.cu kTailChunks)
+TAIL_CHUNKS = 2
 # slot_gather's leaves a launch (csrc/schedule.cu kMaxLeaves) and its grid
 # (kWarpBytes, kGatherWarps, kGatherSpan): a leaf's row in warp-units of
 # GATHER_WARP_BYTES, GATHER_SPAN of them a warp, GATHER_WARPS warps a CTA
@@ -234,6 +248,34 @@ def escape_select_plain(esc, eb):
     return sel, eidx
 
 
+def chunk_plan(nesc, m, mb):
+    """The many escape body's chunks for ``nesc`` escaped streams
+    (csrc/schedule.cu chunk_plan): (big, tail0, tails), big chunks of
+    ``mb`` slots of the list (nesc // mb, one more where the rest exceeds
+    TAIL_CHUNKS small chunks), then the small chunks [tail0, tails) of
+    ``m`` slots (mb a multiple of m) for what is left."""
+    big = nesc // mb
+    if nesc - big * mb > TAIL_CHUNKS * m:
+        big += 1
+    tail0 = big * (mb // m)
+    return big, tail0, max(tail0, -(-nesc // m))
+
+
+def escape_list_plain(esc, m, mb):
+    """The escape_select kernel's list on many: (elist, plan) for the
+    escaped streams ``esc`` (N,) bool, the many body's small chunk of
+    ``m`` slots and big chunk of ``mb`` (a multiple of m): elist (ceil(N
+    / mb) * mb,) i64, every escaped stream lowest first, padded with N;
+    plan ``chunk_plan``'s.  In the kernel's stages: each block's escaped
+    streams in order, the blocks' in block order."""
+    n = esc.shape[0]
+    idx = torch.nonzero(esc.flatten()).flatten()
+    elist = torch.full((-(-n // mb) * mb,), n, dtype=torch.int64,
+                       device=esc.device)
+    elist[:idx.numel()] = idx
+    return elist, chunk_plan(idx.numel(), m, mb)
+
+
 def scan_step_plain(src, frames, rows=None):
     """The scan_step kernel's twin: a tick's frames ``src`` into the
     buffer ``frames`` of their shape, whole, or with ``rows`` (i64 slots)
@@ -276,6 +318,14 @@ class Slots(NamedTuple):
     keep: torch.Tensor
 
 
+class Hold(NamedTuple):
+    """A commit's held rows (the many escape body's tick): in each carried
+    leaf of ``leaves`` (destination tensors, by identity) the rows of the
+    streams that ``rows`` ((N,) bool) flags stay as they are."""
+    rows: torch.Tensor
+    leaves: tuple
+
+
 def check_commit(carry, rows):
     """Raise unless no source of ``carry`` ((src, dst[, sub]) entries) or
     ``rows`` ((src, slot, row[, sub]) entries), sub rows included, overlaps
@@ -310,15 +360,19 @@ def _merge_rows(dst, sub, slots):
     dst[slots.idx[sel]] = sub[sel].to(dst.dtype)
 
 
-def scan_commit_plain(k, carry, rows, slots=None):
+def scan_commit_plain(k, carry, rows, slots=None, hold=None):
     """The scan_commit kernel's twin: each (src, dst) of ``carry`` copied
-    whole, each (src, pack, row) of ``rows`` into ``pack[row, k]``; an
-    entry with sub rows (a fourth or fifth element) then takes the rows
-    ``slots`` (``Slots``) names from them, src None copying nothing else.
-    A source that overlaps a destination raises (``check_commit``)."""
+    whole (a destination among ``hold``'s leaves all but its held rows),
+    each (src, pack, row) of ``rows`` into ``pack[row, k]``; an entry with
+    sub rows (a fourth or fifth element) then takes the rows ``slots``
+    (``Slots``) names from them, src None copying nothing else.  A source
+    that overlaps a destination raises (``check_commit``)."""
     check_commit(carry, rows)
+    held = () if hold is None else hold.leaves
     for c in carry:
-        if c[0] is not None:
+        if c[0] is not None and any(c[1] is h for h in held):
+            c[1][~hold.rows] = c[0][~hold.rows]
+        elif c[0] is not None:
             c[1].copy_(c[0])
         if len(c) > 2:
             _merge_rows(c[1], c[2], slots)
@@ -330,16 +384,26 @@ def scan_commit_plain(k, carry, rows, slots=None):
             _merge_rows(pack[row, k], r[3], slots)
 
 
-def slot_gather_plain(state, idx, escape=False, extra=()):
+def slot_gather_plain(state, idx, escape=False, extra=(), at=None,
+                      into=None):
     """The slot_gather kernel's twin: (sub, keep, *rows): ``sub`` every
     leaf's rows min(idx, N - 1) of ``state`` (a NamedTuple tree of (N, ...)
     tensors, None leaves kept None), ``keep`` (S,) bool, the reference's
     ``valid``: idx < N and, under the bucket's rule, the row's ``mode`` not
     CS (:318); under the escape's (``escape``: every escaped stream entered
     in CS) idx < N alone (:260); then each (N, ...) tensor of ``extra``'s
-    same rows."""
+    same rows.  ``at`` (a (1,) i64 word holding the chunk c) and ``into``
+    ((S,) i64): the slots are idx[c S, (c + 1) S), copied into ``into``
+    (the many escape body's chunk of escape_select's list).  An ``extra``
+    tensor that ``launch.frames_at`` redirects is read at its source."""
+    if at is not None:
+        c, s = int(at[0]), into.numel()
+        into.copy_(idx[c * s:(c + 1) * s])
+        idx = into
     n = state.mode.shape[0]
     safe = torch.clamp(idx, max=n - 1)
+    extra = tuple(t if frames_source(t) is None else frames_source(t)
+                  for t in extra)
 
     def rows(t):
         if isinstance(t, tuple):
@@ -365,7 +429,9 @@ class _GatherArgs(ctypes.Structure):
                 ("dst", ctypes.c_void_p * SLOT_LEAVES),
                 ("rb", ctypes.c_longlong * SLOT_LEAVES),
                 ("pitch", ctypes.c_longlong * SLOT_LEAVES),
-                ("first", ctypes.c_int * SLOT_LEAVES)]
+                ("first", ctypes.c_int * SLOT_LEAVES),
+                ("at", ctypes.c_void_p), ("slots_out", ctypes.c_void_p),
+                ("src_at", ctypes.c_void_p), ("src_leaf", ctypes.c_longlong)]
 
 
 def gather_ctas(row_bytes):
@@ -389,34 +455,49 @@ def _rebuild(tree, it):
     return None if tree is None else next(it)
 
 
-def slot_gather(state, idx, escape=False, extra=()):
+def slot_gather(state, idx, escape=False, extra=(), at=None, into=None):
     """A sub-batch in one launch: ``slot_gather_plain``'s contract (state
     a NamedTuple tree of (N, ...) tensors with a ``mode`` (N,) i32 leaf,
     contiguous or 1-D strided, and ``extra`` (N, ...) tensors gathered in
-    the same launch; idx (S,) i64 padded with N; ``escape``: the keep
-    rule).  Returns (sub, keep, *rows), the rows fresh contiguous (S, ...)
-    tensors."""
+    the same launch, one of them read in place where ``launch.frames_at``
+    redirects it; idx (S,) i64 padded with N, or with ``at`` and ``into``
+    a list of chunks of len(into) slots, chunk at[0] gathered and its
+    slots written into ``into``; ``escape``: the keep rule).  Returns
+    (sub, keep, *rows), the rows fresh contiguous (S, ...) tensors."""
     leaves = _tree_leaves(state) + list(extra)
     n = state.mode.shape[0]
-    if idx.dtype != torch.int64 or idx.dim() != 1 or \
-            not 1 <= idx.numel() <= 65535:
-        raise ValueError("slot_gather's idx is 1 to 65,535 i64 slots")
+    slots = idx if into is None else into
+    if (at is None) != (into is None) or slots.dtype != torch.int64 or \
+            slots.dim() != 1 or not 1 <= slots.numel() <= 65535 or \
+            (at is not None and (idx.numel() % into.numel() or
+                                 at.dtype != torch.int64)):
+        raise ValueError("slot_gather's idx is 1 to 65,535 i64 slots, or a "
+                         "list of chunks of into's with the word at")
     if any(t.shape[0] != n for t in leaves) or state.mode.dtype != \
             torch.int32:
         raise ValueError("slot_gather takes (N, ...) leaves and an i32 mode")
     if len(leaves) > SLOT_LEAVES:
         raise ValueError(f"slot_gather takes at most {SLOT_LEAVES} leaves")
     if not on_cuda(idx, state.mode):
-        return slot_gather_plain(state, idx, escape, extra)
-    s, dev = idx.numel(), idx.device
+        return slot_gather_plain(state, idx, escape, extra, at, into)
+    s, dev = slots.numel(), idx.device
     subs = [torch.empty((s,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
             for t in leaves]
     keep = torch.empty((s,), dtype=torch.bool, device=dev)
     a = _GatherArgs(idx.data_ptr(), state.mode.data_ptr(), keep.data_ptr(),
                     n, state.mode.stride(0), s, len(leaves), int(escape))
+    if at is not None:
+        a.at, a.slots_out = at.data_ptr(), into.data_ptr()
     for j, (t, d) in enumerate(zip(leaves, subs)):
         if t.device != dev:
             raise ValueError("idx and the state lie on different devices")
+        source = frames_source(t) if j >= len(leaves) - len(extra) else None
+        if source is not None:  # read in place at the word's address
+            if source.dtype != torch.int64 or source.numel() != 1 or \
+                    source.device != dev or a.src_at:
+                raise ValueError("slot_gather reads one tensor in place, "
+                                 "through a (1,) i64 word on its device")
+            a.src_at, a.src_leaf = source.data_ptr(), j
         a.src[j], a.dst[j] = t.data_ptr(), d.data_ptr()
         a.rb[j] = d.nbytes // s
         a.pitch[j] = _pitch(t) if t.dim() == 1 else 0
@@ -485,20 +566,40 @@ def tick_select(mode, age, kb, cap, rotate, idx, age_out, params,
                int(bool(rotate)), int(frame_bytes))
 
 
-def escape_select(esc, eb, eidx, params):
+def escape_select(esc, eb, eidx, params, elist=None, m=1, mb=1):
     """The escape fallback's selection into ``eidx`` (eb,) i64, its body
     into ``params[P_ESEL]`` and one run into
     ``params[P_RUNS + ESCAPE_RUNS + sel]`` (see escape_select_plain).
-    The kernel's scratch buffer is the kept one of ``scratch``."""
+    With ``elist`` (i64, at least N slots, a multiple of the big chunk
+    ``mb``, itself a multiple of the small chunk m >= 1): on many the list
+    of escape_list_plain and its plan, the big chunks into
+    ``params[P_CHUNKS]`` (``params[P_CHUNK]`` zeroed) and the small ones
+    [``params[P_TAIL]``, ``params[P_TAILS]``); none on none or few.  The
+    kernel's scratch buffer is the kept one of ``scratch``."""
     n = esc.shape[0]
     _check_select(params, n, max(1, eb))
     if esc.dtype != torch.bool or eidx.dtype != torch.int64 or \
             eidx.shape != (eb,) or eb < 1:
         raise ValueError("escape_select takes (N,) bool esc and (eb,) i64 "
                          "eidx, eb >= 1")
-    if not on_cuda(esc, eidx, params):
+    if elist is not None and (elist.dtype != torch.int64 or m < 1 or
+                              mb < m or mb % m or elist.dim() != 1 or
+                              elist.numel() < n or elist.numel() % mb):
+        raise ValueError("escape_select's list is at least N i64 slots, a "
+                         "multiple of mb, itself a multiple of m >= 1")
+    tensors = (esc, eidx, params) + (() if elist is None else (elist,))
+    if not on_cuda(*tensors):
         sel, e = escape_select_plain(esc, eb)
         eidx.copy_(e)
+        if elist is not None:
+            lst, plan = escape_list_plain(esc, m, mb)
+            if sel == 2:
+                elist[:lst.numel()] = lst
+                elist[lst.numel():] = n
+            else:
+                plan = chunk_plan(0, m, mb)
+            params[P_CHUNKS], params[P_TAIL], params[P_TAILS] = plan
+            params[P_CHUNK] = 0
         params[P_ESEL] = sel
         params[P_RUNS + ESCAPE_RUNS + sel] += 1
         return
@@ -506,7 +607,8 @@ def escape_select(esc, eb, eidx, params):
     with torch.cuda.device(esc.device):
         launch("escape_select", "escape_select_launch", esc.data_ptr(),
                eidx.data_ptr(), params.data_ptr(), buf.data_ptr(),
-               buf.numel(), n, eb)
+               buf.numel(), n, eb, 0 if elist is None else elist.data_ptr(),
+               int(m), int(mb), 0 if elist is None else elist.numel())
 
 
 def select_floor(n, cap):
@@ -520,19 +622,18 @@ def select_floor(n, cap):
         raise RuntimeError(f"select_floor_launch failed: cudaError {err}")
 
 
-def scan_step(params, frames, rows=None, skip=0):
+def scan_step(params, frames, rows=None):
     """The tick's frames, read at the address ``params[P_FRAME_AT]``
     (tick_select's), into the buffer ``frames`` (N, ...) u8: whole, or
     with ``rows`` (S,) i64 only those rows into the same rows (a slot
-    outside [0, N) skipped).  skip: a mask of tick bodies (bit b: body b)
-    after which nothing is copied (the tick's body, ``params[P_BRANCH]``,
-    copied the whole tick).  One run into ``params[P_STEPS]``, and a run
-    that copied into ``params[P_ROW_STEPS]`` or ``[P_WHOLE_STEPS]``.
+    outside [0, N) skipped).  One run into ``params[P_STEPS]`` and into
+    ``params[P_ROW_STEPS]`` or ``[P_WHOLE_STEPS]``.
     CUDA only: the frames' address is a device word (the twin is
     scan_step_plain)."""
     if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,) or \
             frames.dtype != torch.uint8 or frames.dim() < 1:
-        raise ValueError("scan_step takes (32,) int64 params and u8 frames")
+        raise ValueError(f"scan_step takes ({PARAM_WORDS},) int64 params and "
+                         "u8 frames")
     tensors = (params, frames) if rows is None else (params, frames, rows)
     if not on_cuda(*tensors):
         raise ValueError("scan_step reads a device address: CUDA tensors "
@@ -548,7 +649,7 @@ def scan_step(params, frames, rows=None, skip=0):
             rows.numel()
     with torch.cuda.device(frames.device):
         launch("scan_step", "scan_step_launch", params.data_ptr(),
-               frames.data_ptr(), nbytes, ptr, nrows, n, int(skip))
+               frames.data_ptr(), nbytes, ptr, nrows, n)
 
 
 class CommitTables(NamedTuple):
@@ -561,14 +662,20 @@ class CommitTables(NamedTuple):
     bytes; ``chunks``: the most chunks a table holds (the grid's size);
     ``keep``: the tensors the entries address; ``merges`` (S, 4) i64, an
     entry's sub rows, row bytes, sub pitch and merge kind (MERGE_NONE,
-    MERGED, MERGE_ROWS); ``maps`` (T, 4) i64, a table's slot map: idx,
-    keep, slots (0: none) and the leaves' rows N."""
+    MERGED, MERGE_ROWS, with the flag MERGE_HOLD); ``maps`` (T, 4) i64, a
+    table's slot map: idx, keep, slots (0: none) and the leaves' rows
+    N."""
     tables: torch.Tensor
     segs: torch.Tensor
     chunks: int
     keep: tuple
     merges: torch.Tensor = None
     maps: torch.Tensor = None
+
+
+def _row_bytes(leaf):
+    """A leaf's row bytes."""
+    return leaf.nbytes // leaf.shape[0]
 
 
 def _merge(leaf, sub, slots, kind):
@@ -581,7 +688,7 @@ def _merge(leaf, sub, slots, kind):
         raise ValueError(f"sub rows {tuple(sub.shape)} {sub.dtype} are not "
                          f"{s} rows of the leaf {tuple(leaf.shape)} "
                          f"{leaf.dtype}")
-    return [sub.data_ptr(), leaf.nbytes // leaf.shape[0], _pitch(sub), kind]
+    return [sub.data_ptr(), _row_bytes(leaf), _pitch(sub), kind]
 
 
 def _pack_row(sub, carry):
@@ -595,7 +702,7 @@ def _pack_row(sub, carry):
                        dtype=sub.dtype, device="meta")
 
 
-def segments(tables, device):
+def segments(tables, device, held=()):
     """scan_commit's tables (``CommitTables``) on ``device``, one for each
     (carry, rows[, slots]) of ``tables``: each (src, dst) of carry copied
     whole; each (src, slot, row) of rows into row ``row * K + k`` of the
@@ -604,9 +711,11 @@ def segments(tables, device):
     bucket body's), an entry with a last element ``sub`` (S rows of the
     leaf's row shape) merges them: rows idx[j] (kept, not padding) come
     from sub's row j; an entry whose src is None writes those rows alone
-    (a leaf the body passed through whole; the few escape body's leaves
-    and outputs, a pack row taking the table's carried leaves' N rows).
-    Each table's entries
+    (a leaf the body passed through whole; an escape body's leaves and
+    outputs, a pack row taking the table's carried leaves' N rows).  A
+    carried entry with a source whose destination is one of ``held`` (by
+    identity) is flagged MERGE_HOLD: a commit with held rows (``Hold``)
+    leaves those rows of it as they are.  Each table's entries
     are one run of 16-byte chunks, an entry's bytes rounded up to a whole
     chunk (the kernel copies a partial or unaligned chunk byte by byte), a
     rows-alone entry's S rows each rounded up, so that the copy is
@@ -631,6 +740,8 @@ def segments(tables, device):
             keep += [t for t in (src, leaf, sub)
                      if t is not None and not t.is_meta]
             m = [0, 0, 0, MERGE_NONE]
+            hold = slot < 0 and src is not None and \
+                any(leaf is h for h in held)
             nbytes = leaf.nbytes if src is None else src.nbytes
             span = -(-nbytes // COMMIT_CHUNK)
             if sub is not None:
@@ -646,6 +757,8 @@ def segments(tables, device):
                     span = sub.shape[0] * -(-m[1] // COMMIT_CHUNK)
             elif src is None:
                 raise ValueError("an entry without a source needs sub rows")
+            if hold:
+                m[1], m[3] = _row_bytes(leaf), m[3] | MERGE_HOLD
             if nbytes:
                 ref = src if src is not None else sub
                 segs.append([0 if src is None else src.data_ptr(), dst,
@@ -694,7 +807,8 @@ def commit_chunks(ct, t):
         while e + 1 < count and starts[e + 1] <= c:
             e += 1
         local = c - starts[e]
-        if ct.merges is not None and kinds[e][3] == MERGE_ROWS:
+        if ct.merges is not None and kinds[e][3] & ~MERGE_HOLD == \
+                MERGE_ROWS:
             rb = kinds[e][1]
             cpr = -(-rb // COMMIT_CHUNK)
             j, o = divmod(local, cpr)
@@ -706,17 +820,22 @@ def commit_chunks(ct, t):
     return out
 
 
-def scan_commit(params, ct, table=0, nb=1, stage=False, ctas=None):
+def scan_commit(params, ct, table=0, hold=None, chunk=0, ctas=None):
     """The copies of table ``table`` of ``ct`` (``segments``) for the tick
     params[P_K] - 1 (TABLE_TICK: params[P_BRANCH]'s, the tick body's;
-    TABLE_PICK: the program's pick, none when params[P_ESEL] is 1 (the few
-    escape body's tick, which its IF graph commits), the many body's table
-    nb + 1 when it is 2, else params[P_BRANCH]'s; staging the latter
-    only); one run into ``params[P_COMMITS]`` (staging:
-    ``params[P_STAGES]``; a run that picks none counts none).  ctas: the
-    grid (``commit_ctas`` of the tables' chunks by default).  CUDA only:
-    the tables hold device addresses."""
-    if not on_cuda(params, ct.tables, ct.segs):
+    TABLE_PICK: the program's pick, params[P_BRANCH]'s when params[P_ESEL]
+    is 0, else none (an escape body's tick, which its IF graph commits));
+    one run into ``params[P_COMMITS]`` (a run that picks none counts
+    none).  hold: None, or a (bodies,) i64 tensor of each tick body's
+    escaped flags' address: the entries flagged MERGE_HOLD leave the rows
+    of the streams flagged in params[P_BRANCH]'s.  chunk: CHUNK_NEXT
+    advances ``params[P_CHUNK]`` and counts a run in
+    ``params[P_CHUNK_RUNS]``, TAIL_NEXT ``params[P_TAIL]`` and
+    ``params[P_TAIL_RUNS]`` (the many body's chunk loops; no handle is set
+    here).  ctas: the grid (``commit_ctas`` of the tables' chunks by
+    default).  CUDA only: the tables hold device addresses."""
+    if not on_cuda(params, ct.tables, ct.segs,
+                   *(() if hold is None else (hold,))):
         raise ValueError("scan_commit reads device addresses: CUDA tensors "
                          "only (its twin is scan_commit_plain)")
     if not TABLE_TICK <= table < ct.tables.shape[0]:
@@ -728,8 +847,9 @@ def scan_commit(params, ct, table=0, nb=1, stage=False, ctas=None):
         launch("scan_commit", "scan_commit_launch", params.data_ptr(),
                ct.tables.data_ptr(), ct.segs.data_ptr(),
                0 if ct.merges is None else ct.merges.data_ptr(),
-               0 if ct.maps is None else ct.maps.data_ptr(), nb, int(stage),
-               table, ctas)
+               0 if ct.maps is None else ct.maps.data_ptr(),
+               0 if hold is None else hold.data_ptr(), table, int(chunk),
+               ctas)
 
 
 def _error(lib, rc, names):
@@ -753,19 +873,26 @@ class Graph:
     """The serving program's CUDA graph (csrc/schedule.cu
     sched_program_build): a WHILE node over one tick (tick_select -> an IF
     node a body -> escape_select -> IF few, IF many -> scan_commit), each
-    IF node's body a child graph node of a PyTorch-captured body
-    (``torch.cuda.CUDAGraph(keep_graph=True)``'s ``raw_cuda_graph()``),
-    after a scan_step node where the body copies, and an escape body's
-    after scan_commit's staging.  ``bodies``: {name: raw graph} in branch
-    order; ``few`` / ``many``: raw graphs or 0; ``copies``: each body's
-    copy, bodies then few and many, as (mode in COPY_MODES, rows tensor or
-    None); ``args``: the device addresses and sizes of BUILD_ARGS
-    (``tables``/``segs``: the commit's ``CommitTables``, a table a tick
-    body, then few and many; ``stage_*``: the staging's, a table a tick
-    body; ``esc_at``: a tick body's escaped flags' address each, on the
-    device, or 0 without a band).  Building raises on a body node type a
-    conditional body cannot hold, on a driver older than 12.4 and on any
-    CUDA error; so does ``launch``."""
+    tick body's and the few body's IF node a child graph node of a
+    PyTorch-captured body (``torch.cuda.CUDAGraph(keep_graph=True)``'s
+    ``raw_cuda_graph()``), after a scan_step node where the body copies,
+    the few body's followed by the tick body's commit and its own; the
+    many body's IF node the tick body's commit with the escaped streams'
+    state rows held, then a WHILE node over its big chunks and one over
+    its small ones (a chunk body's child graph node, then the chunk's
+    commit).  ``bodies``: {name: raw graph} in branch order; ``few`` /
+    ``many``: raw graphs or 0 (many: the big chunk's body); ``copies``:
+    each body's copy, bodies then few and many, as (mode in COPY_MODES,
+    rows tensor or None); ``args``: the device
+    addresses and sizes of BUILD_ARGS (``tables``/``segs``: the commit's
+    ``CommitTables``, a table a tick body, then few and the many body's
+    chunk, then its small chunk; ``esc_at``: a tick body's escaped flags'
+    address each, on the device, or 0 without a band; ``elist``,
+    ``chunk_rows``, ``list_len``, ``tail_rows``: escape_select's list for
+    the many body, its big and small chunks; ``tail``: the small chunk's
+    raw graph).  Building
+    raises on a body node type a conditional body cannot hold, on a driver
+    older than 12.4 and on any CUDA error; so does ``launch``."""
 
     def __init__(self, bodies, few, many, copies, **args):
         from .build import load_library
@@ -788,7 +915,8 @@ class Graph:
         if rc:
             raise RuntimeError("the serving program's graph did not build: "
                                + _error(self._lib, rc,
-                                        list(bodies) + ["few", "many"]))
+                                        list(bodies) + ["few", "many",
+                                                        "tail"]))
         self._ptr = out.value
 
     def launch(self):

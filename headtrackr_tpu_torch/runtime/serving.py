@@ -36,14 +36,15 @@ end (the last tick's mode_after).  Each tick's branch, its served streams
 and their pend_age are chosen on the card (kernels/schedule.py
 tick_select, which sets the CUDA graph conditional handle of one IF node
 a branch), and so is the band's escape fallback (escape_select: none, a
-sub-batch of ``escape_bucket`` slots, or the batch); a WHILE node runs the
-K ticks of ``run_scan`` (scan_commit).  The ticks' frames stay where the
-caller staged them: tick_select writes where tick k's lie, the frame
-readers of the camshift step read them there (histpdf_band, hist_mma,
-hist4096, backproject: the all-CS tick of every configuration and the
-escape fallback's many body copy none), and scan_step copies into the
-bodies' buffer only what another body's kernels read of it
-(``_Steps.copy_mode``).  Its select kernels are a grid of CTAs each,
+sub-batch of ``escape_bucket`` slots, or every escaped stream in chunks
+of ``escape_chunk``, a WHILE node nested in the fallback's IF node); a
+WHILE node runs the K ticks of ``run_scan`` (scan_commit).  The ticks'
+frames stay where the caller staged them: tick_select writes where tick
+k's lie, the frame readers of the camshift step and the escape bodies'
+gathers read them there (histpdf_band, hist_mma, hist4096, backproject,
+slot_gather: the all-CS tick of every configuration and the escape
+bodies copy none), and scan_step copies into the bodies' buffer only
+what another body's kernels read of it (``_Steps.copy_mode``).  Its select kernels are a grid of CTAs each,
 whose last CTA merges the others' counts and candidates, so the program
 serves any batch whose frames fit the card.  Each body keeps its own results, and scan_commit copies those of
 the body that ran (a leaf it passed through, none).
@@ -65,8 +66,10 @@ With a band (``band="auto"``: DEFAULT_BAND when it is smaller than the
 frame) "track" and "wbtrack" take the band-local camshift.  Streams whose
 window left the band are recomputed from the pre-step state by the
 full-frame "track" step and merged back: up to ``escape_bucket`` of them
-as a sub-batch, more on the whole batch, as the reference's; a stream's
-result is the same either way.
+as a sub-batch, more as sub-batches of ``escape_chunk`` (where the
+reference recomputes the whole batch and selects the escaped streams); a
+stream's result does not depend on its batch, so it is the same either
+way.
 
 The per-tick path (``_Steps.begin`` / ``end``) is the program's plain
 version, which the CPU runs: the branch chosen on the host from the mode
@@ -185,6 +188,12 @@ def plan_serving(n_streams, frame_shape=(240, 320), max_face_px=100,
     }
 
 
+# the many escape body's chunks of escaped streams: big and small ones
+# (``_Steps.chunk_rows`` rounds the small to a multiple of escape_bucket,
+# the big to one of the small)
+ESCAPE_CHUNK, ESCAPE_TAIL = 256, 32
+
+
 def _leaves(tree):
     """The tensors of a NamedTuple tree in field order (None leaves
     skipped)."""
@@ -215,15 +224,15 @@ def _merged_config(n_streams, params, kw):
 
 class _Merge(NamedTuple):
     """A body's sub-batch, whose rows scan_commit merges: a bucket body's
-    into its track pass's results (``_Program._commit_pairs``), the few
-    escape body's over the tick body's committed results
-    (``_Program._few_pairs``).  The slots ``idx`` (S,) i64 padded with N,
-    ``keep`` (S,) bool (slot_gather's: not padding and, for a bucket, not
-    in CS after the track pass), the rows ``sub`` it gathered (from the
-    track pass's state; the few body's from the pre-step state), and its
-    step's ``state`` and ``out`` on them.  A leaf of ``state`` that is
-    ``sub``'s own tensor the step passed through: its rows need no
-    write."""
+    into its track pass's results (``_Program._commit_pairs``), an escape
+    body's (the few body's, a chunk of the many body's) over the tick
+    body's committed results (``_Program._few_pairs``).  The slots ``idx``
+    (S,) i64 padded with N, ``keep`` (S,) bool (slot_gather's: not padding
+    and, for a bucket, not in CS after the track pass), the rows ``sub``
+    it gathered (from the track pass's state; an escape body's from the
+    pre-step state), and its step's ``state`` and ``out`` on them.  A leaf
+    of ``state`` that is ``sub``'s own tensor the step passed through: its
+    rows need no write."""
     idx: torch.Tensor
     keep: torch.Tensor
     sub: ft.TrackerState
@@ -242,27 +251,30 @@ class _Buffers:
     state after a launch of the program, whose scan_commit writes it);
     ``idx``, the bucket's served slots (chunk_cap of them,
     padded with N; the bucket body over s slots reads the first s);
-    ``eidx``, the escape fallback's slots (escape_bucket of them); ``age``,
-    pend_age after the tick (the program's tick_select writes it).  No
-    body writes any of them: each keeps its own results (``_TickGraph``),
-    which the program commits.  ``state_out`` and ``out`` (``stage_for``,
-    where a band's many escape body exists) are what that body reads: the
-    program stages the tick body's results there on a tick whose escape
-    fallback runs it, and on no other; ``out`` is a StepOutput
-    of rows of one packed (fields, N) tensor a dtype (``lay_out``, also
-    the layout of the program's output packs).  All of a batch size's
-    bodies capture into one memory pool (``pool``), in which the results
-    each keeps stay allocated for the graph's lifetime, so that no later
-    capture reuses them.  On the card ``params`` is the serving program's
-    parameter block, whose word ``frame_at`` holds where the tick's frames
-    lie (tick_select writes it): a body's frame readers that read in place
-    read them there, and the program copies into ``frames`` only what the
-    body's other kernels read of them (``_Steps.copy_mode``: the slots'
-    rows that frame_prep, handoff and slot_gather read, or the whole tick
-    that the wbtrack and full bodies' frame_prep, handoff and pyramid
-    read)."""
+    ``eidx``, the few escape body's slots (escape_bucket of them);
+    ``elist``, the many escape body's list (every escaped stream, padded
+    with N to whole big chunks of ``m`` slots); ``chunk`` the word holding
+    the big chunk that runs and ``cidx`` its ``m`` slots (its slot_gather
+    writes them), ``tail`` and ``tidx`` the same for the small chunks of
+    ``ms`` slots;
+    ``age``, pend_age after the tick (the program's tick_select writes
+    it).  No body writes any other of them: each keeps its own results
+    (``_TickGraph``), which the program commits.  The output packs' layout
+    (``lay_out``): rows of one packed (fields, N) tensor a dtype.  All of
+    a batch size's bodies capture into one memory pool (``pool``), in
+    which the results each keeps stay allocated for the graph's lifetime,
+    so that no later capture reuses them.  On the card ``params`` is the
+    serving program's parameter block (``chunk`` and ``tail`` its words
+    P_CHUNK and P_TAIL), whose
+    word ``frame_at`` holds where the tick's frames lie (tick_select
+    writes it): a body's frame readers that read in place read them
+    there, and the program copies into ``frames`` only what the body's
+    other kernels read of them (``_Steps.copy_mode``: the slots' rows that
+    frame_prep and handoff read, or the whole tick that the wbtrack and
+    full bodies' frame_prep, handoff and pyramid read)."""
 
-    def __init__(self, state, frames_shape, device, cap, escape_bucket):
+    def __init__(self, state, frames_shape, device, cap, escape_bucket, m,
+                 ms):
         n = frames_shape[0]
         self.device = device
         self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
@@ -271,9 +283,16 @@ class _Buffers:
         self.idx = torch.full((cap,), n, dtype=torch.int64, device=device)
         self.eidx = torch.full((escape_bucket,), n, dtype=torch.int64,
                                device=device)
+        self.m, self.ms = m, ms
+        self.elist = torch.full((-(-n // m) * m,), n, dtype=torch.int64,
+                                device=device)
+        self.cidx = torch.full((m,), n, dtype=torch.int64, device=device)
+        self.tidx = torch.full((ms,), n, dtype=torch.int64, device=device)
         self.age = torch.zeros((n,), dtype=torch.int32, device=device)
-        self.state_out = self.out = self.rows = None
+        self.rows = None
         self.pool = self.params = self.frame_at = None
+        self.chunk = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.tail = torch.zeros((1,), dtype=torch.int64, device=device)
         if device.type == "cuda":
             with torch.cuda.device(device):
                 self.pool = torch.cuda.graph_pool_handle()
@@ -281,6 +300,8 @@ class _Buffers:
                                           dtype=torch.int64, device=device)
             self.frame_at = self.params[schedule.P_FRAME_AT:
                                         schedule.P_FRAME_AT + 1]
+            self.chunk = self.params[schedule.P_CHUNK:schedule.P_CHUNK + 1]
+            self.tail = self.params[schedule.P_TAIL:schedule.P_TAIL + 1]
 
     def lay_out(self, out):
         """The output packs' layout from a body's outputs, once: ``rows``,
@@ -296,20 +317,11 @@ class _Buffers:
             self.packs = {dt: (len(g),) + tuple(g[0].shape)
                           for dt, g in groups.items()}
 
-    def stage_for(self):
-        """Make ``state_out`` and ``out``, the many escape body's inputs,
-        once (after ``lay_out``)."""
-        if self.state_out is None:
-            self.state_out = _clone(self.state_in)
-            packs = {dt: torch.zeros(shape, dtype=dt, device=self.device)
-                     for dt, shape in self.packs.items()}
-            self.out = ft.StepOutput(*(packs[dt][i] for dt, i in self.rows))
-
 
 class _TickGraph:
     """A tick body of the serving program, ``tick(state, frames, *extra)
-    -> (state', StepOutput[, _Merge])``, or a ``_Merge`` alone (the few
-    escape body: its sub-batch, no results of the whole batch), on a batch
+    -> (state', StepOutput[, _Merge])``, or a ``_Merge`` alone (an escape
+    body: its sub-batch, no results of the whole batch), on a batch
     size's ``_Buffers`` (from their ``state_in`` and ``frames``).  It
     writes no shared buffer.  On the card it is captured in a CUDA graph
     (keep_graph, for the program's conditional nodes; in the buffers'
@@ -378,57 +390,64 @@ class _Program:
     ``scan_steps``' loop.  Each tick, as kernels/schedule.py's kernels
     choose: the branch, the served slots, the new pend_age and where the
     tick's frames lie (tick_select) and the branch's body; with a band,
-    the escape fallback's body, none, ``few`` (the full-frame "track" step
-    from the pre-step state on escape_bucket slots) or ``many`` (on the
-    batch, then a per-stream select) (escape_select, on the tick body's
-    own escaped flags); then the results of the body that ran, the many
-    body's when it did, else the tick body's: its outputs into row k of
-    the scan's output packs and its new state, pend_age from tick_select,
-    over ``state_in`` (scan_commit, by that body's table: ``_commit_pairs``
-    of the results it keeps).  The many body reads the tick body's
-    results from the buffers' ``state_out`` and ``out``, where scan_commit
-    stages them (``_stage_pairs``) ahead of it, so only a tick whose escape
-    fallback runs it touches those buffers.  The few body gathers its
-    slots' rows from ``state_in`` before anything commits, and keeps its
-    sub-batch alone: on its tick scan_commit writes the tick body's table,
-    then the few body's (``_few_pairs``: the kept rows of each leaf its
-    step changed), so such a tick stages nothing and copies no leaf whole.
-    ``escaped`` is stamped after the merge (the tick body's flags).  Ahead
-    of a body, scan_step copies into the bodies' frame buffer what its
-    kernels read there (each body's ``copy``: none, its slots' rows or the
-    whole tick; an escape body copies nothing after a tick body that
-    copied whole).
+    the escape fallback's body (escape_select, on the tick body's own
+    escaped flags): none, ``few`` (the full-frame "track" step from the
+    pre-step state on escape_bucket slots) or ``many`` (the same step on
+    every escaped stream, in chunks).  scan_commit then writes the
+    tick body's results (``_commit_pairs`` of the results it keeps): its
+    outputs into row k of the scan's output packs and its new state,
+    pend_age from tick_select, over ``state_in``.  The few body gathers
+    its slots' rows from ``state_in`` before anything commits, and keeps
+    its sub-batch alone: on its tick scan_commit writes the tick body's
+    table, then the few body's (``_few_pairs``: the kept rows of each leaf
+    its step changed and of its outputs).  On a many tick scan_commit
+    writes the tick body's table with the escaped streams' rows of every
+    state leaf but pend_age held (``held``), so that they stay the
+    pre-step state's; then a loop over the big chunks of escape_select's
+    list and one over the small (``schedule.chunk_plan``: whole big
+    chunks, one more where the rest exceeds two small ones): a chunk body
+    (``many``: ``m`` slots, ``tail``: ``ms``) gathers its chunk's slots'
+    rows from ``state_in`` and the tick's frames, runs the step on them,
+    and scan_commit writes its kept rows alone (``_few_pairs`` again).
+    No tick stages a leaf or copies one whole for an escape.  ``escaped``
+    is the tick body's flags, stamped after the merge.  Ahead of a body,
+    scan_step copies into the bodies' frame buffer what its kernels read
+    there (each body's ``copy``: none, its slots' rows or the whole tick;
+    the escape bodies read the tick's frames in place and copy none).
 
     Each body keeps one state and one output set of its own, so a batch
     size holds one a body on top of the shared buffers (the leaves it
     passes through excepted): at 256 streams of 320x240, 4.26 MB a body
     that changes the 16 KB model histograms of every stream (the full
-    body, the many body) and 0.04-0.06 MB one that passes them through
-    (the all-CS and wbtrack bodies); a bucket body keeps its track pass's
-    results and its sub-batch's rows (0.18 MB at 8 slots), the few body
-    its sub-batch alone (escape_bucket rows of the state and of the
-    frames, 2 MB at 8 slots of 320x240, whatever the batch); 170 MB and
-    1.8-2.4 MB at 10,240 streams; ~1.2 GB and ~12 MB at 70,000.
+    body) and 0.04-0.06 MB one that passes them through (the all-CS and
+    wbtrack bodies); a bucket body keeps its track pass's results and its
+    sub-batch's rows (0.18 MB at 8 slots), an escape body its sub-batch
+    alone (its slots' rows of the state and of the frames and its step's
+    planes: 2 MB at 8 slots of 320x240, the many body's chunks of 256
+    and 32 slots ~110 MB, whatever the batch); 170 MB and 1.8-2.4 MB at
+    10,240 streams; ~1.2 GB and ~12 MB at 70,000.
 
     On the card it is one CUDA graph (``schedule.Graph``: a WHILE node, an
-    IF node a body), launched once for the K ticks, with one host read at
-    the end: the last tick's mode_after and the parameter block, in which
-    each of the program's kernels counts its own runs (``runs``:
-    tick_select's by the body it chose, escape_select's at 8 + its
-    selection; ``stages``: scan_commit's staging runs, one a many body's
-    run).  The launch counters take those counts, and a launch whose
-    kernels ran other than K ticks raises.  On the CPU the same bodies run
-    uncaptured, each picked by the select kernels' twins in a Python
-    ``if``, and their results go to scan_commit's twin as they are.  The select kernels'
-    scratch buffers (``schedule.scratch``) are allocated here, once a
-    batch size."""
+    IF node a body, the many body's chunks a WHILE node in its IF node),
+    launched once for the K ticks, with one host read at the end: the last
+    tick's mode_after and the parameter block, in which each of the
+    program's kernels counts its own runs (``runs``: tick_select's by the
+    body it chose, escape_select's at 8 + its selection; ``chunks``: the
+    many body's chunks, big and small).  The launch counters take those
+    counts, and a launch whose kernels ran other than K ticks raises.  On the CPU the
+    same bodies run uncaptured, each picked by the select kernels' twins
+    in a Python ``if``, and their results go to scan_commit's twin as they
+    are.  The select kernels' scratch buffers (``schedule.scratch``) are
+    allocated here, once a batch size."""
 
     def __init__(self, steps, state):
         n = state.mode.shape[0]
         self.device = steps.device
         self.bufs = bufs = steps.buffers(state)
         self.steps = dict.fromkeys(("runs", "rows", "whole"), 0)
-        self.stages = 0
+        # the many body's chunks run by the last launch, and the big ones
+        # among them
+        self.chunks = self.big_chunks = 0
         self.kb, self.cap = min(steps.bucket, n), steps.chunk_cap(n)
         self.rotate = steps.overload == "rotate"
         self.eb = steps.escape_bucket
@@ -436,16 +455,18 @@ class _Program:
         self.bodies = [steps.captured(state, k) for k in keys]
         band = steps.band is not None
         # the outputs' layout from a body's outputs (on the CPU a warm-up
-        # run's); the many body reads the staging buffers
+        # run's)
         bufs.lay_out(self.bodies[0].out if self.bodies[0].out is not None
                      else self.bodies[0].run()[1])
-        if band:
-            bufs.stage_for()
         self.few = (steps.captured(state, "few")
                     if band and self.eb < n else None)
         self.many = steps.captured(state, "many") if band else None
+        self.tail = steps.captured(state, "tail") if band else None
         self._age_leaf = next(i for i, v in enumerate(_leaves(bufs.state_in))
                               if v is bufs.state_in.pend_age)
+        # the state leaves whose escaped rows a many tick's commit holds
+        self.held = tuple(v for i, v in enumerate(_leaves(bufs.state_in))
+                          if i != self._age_leaf)
         self.dtypes = list(bufs.packs)
         self.layout = [(self.dtypes.index(dt), i) for dt, i in bufs.rows]
         self._mode_row = self.layout[ft.StepOutput._fields.index(
@@ -460,22 +481,20 @@ class _Program:
                    for b in (self.few, self.many)]
         sms = launch.sm_count(self.device)
         with torch.cuda.device(self.device):
-            # a table a body: the tick bodies, then few and many
+            # a table a body: the tick bodies, then few and the many body's
+            # big and small chunks
             self._commit = schedule.segments(
                 [self._commit_pairs(b.state, b.out, b.merge)
                  for b in self.bodies]
-                + [self._few_pairs(self.few.merge) if self.few else ([], []),
-                   self._commit_pairs(self.many.state, self.many.out)
-                   if self.many else ([], [])], self.device)
-            stage = esc_at = None
+                + [self._few_pairs(b.merge) if b else ([], [])
+                   for b in (self.few, self.many, self.tail)], self.device,
+                self.held)
+            esc_at = None
             if band:
-                stage = schedule.segments(
-                    [self._stage_table(b.state, b.out, b.merge)
-                     for b in self.bodies], self.device)
                 esc_at = torch.tensor([b.out.escaped.data_ptr()
                                        for b in self.bodies],
                                       dtype=torch.int64, device=self.device)
-            self._stage, self._esc_at = stage, esc_at
+            self._esc_at = esc_at
             self._scratch = [torch.zeros(schedule.scratch_bytes(n, c),
                                          dtype=torch.uint8,
                                          device=self.device)
@@ -497,14 +516,12 @@ class _Program:
                 tables=self._commit.tables.data_ptr(),
                 segs=self._commit.segs.data_ptr(),
                 commit_ctas=schedule.commit_ctas(self._commit.chunks, sms),
-                stage_tables=stage.tables.data_ptr() if band else 0,
-                stage_segs=stage.segs.data_ptr() if band else 0,
-                stage_ctas=schedule.commit_ctas(stage.chunks, sms)
-                if band else 0,
                 merges=_addr(self._commit.merges),
                 maps=_addr(self._commit.maps),
-                stage_merges=_addr(stage.merges) if band else 0,
-                stage_maps=_addr(stage.maps) if band else 0,
+                elist=bufs.elist.data_ptr(), chunk_rows=bufs.m,
+                list_len=bufs.elist.numel(),
+                tail=self.tail.graph.raw_cuda_graph() if band else 0,
+                tail_rows=bufs.ms,
                 sel_scratch=self._scratch[0].data_ptr(),
                 sel_bytes=self._scratch[0].numel(),
                 esc_scratch=self._scratch[1].data_ptr(),
@@ -563,15 +580,17 @@ class _Program:
         return carry, rows, schedule.Slots(merge.idx, merge.keep)
 
     def _few_pairs(self, merge):
-        """scan_commit's table of the few escape body's sub-batch
-        (``merge``), written after the tick body's table: rows alone (src
-        None), the kept rows ``merge.idx`` of each state leaf the "track"
-        step changed and of each output, but pend_age (tick_select's) and
-        ``escaped`` (the tick body's flags, stamped after the merge), and
-        the table's slots.  A leaf the step passed through keeps the tick
-        body's rows: the escaped streams entered in CS, and no tick body
-        that can escape a stream changes those leaves' rows of a stream in
-        CS (the wbtrack body's whitebalance ring only a WB stream's)."""
+        """scan_commit's table of an escape body's sub-batch (``merge``:
+        the few body's, a chunk of the many body's), written after the
+        tick body's table: rows alone (src None), the kept rows
+        ``merge.idx`` of each state leaf the "track" step changed and of
+        each output, but pend_age (tick_select's) and ``escaped`` (the tick
+        body's flags, stamped after the merge), and the table's slots.  A
+        leaf the step passed through keeps the tick body's rows after the
+        few body (the escaped streams entered in CS, and no tick body that
+        can escape a stream changes those leaves' rows of a stream in CS:
+        the wbtrack body's whitebalance ring only a WB stream's) and the
+        pre-step state's, the step's own, after the many body (``held``)."""
         state_subs, out_subs = self._subs(None, None, merge)
         carry = [(None, dst, sub) for i, (dst, sub) in enumerate(
             zip(_leaves(self.bufs.state_in), state_subs))
@@ -580,30 +599,9 @@ class _Program:
             ft.StepOutput._fields, out_subs, self.layout)
             if name != "escaped"]
         if any(r[3].dtype != self.dtypes[r[1]] for r in rows):
-            raise ValueError("the few body's outputs differ in dtype from "
-                             "the output packs")
+            raise ValueError("an escape body's outputs differ in dtype "
+                             "from the output packs")
         return carry, rows, schedule.Slots(merge.idx, merge.keep)
-
-    def _stage_pairs(self, state, out, merge=None):
-        """scan_commit's staging of a tick body's results (state, out) into
-        the many body's ``state_out`` and ``out``, every leaf, as (src,
-        dst) pairs; a bucket body's merged (``merge``: (src, dst, sub) for
-        a leaf its "pending" step changed)."""
-        bufs = self.bufs
-        state_subs, out_subs = self._subs(state, out, merge)
-        return [(src, dst) + (() if sub is None else (sub,))
-                for src, dst, sub in zip(_leaves(state) + list(out),
-                                         _leaves(bufs.state_out)
-                                         + list(bufs.out),
-                                         state_subs + out_subs)]
-
-    def _stage_table(self, state, out, merge=None):
-        """The staging's table of a tick body (scan_commit's staging
-        mode): its ``_stage_pairs`` and, for a bucket body, its slots."""
-        pairs = self._stage_pairs(state, out, merge)
-        if merge is None:
-            return pairs, []
-        return pairs, [], schedule.Slots(merge.idx, merge.keep)
 
     def launch(self, state, seq, force=0, served=None, squeeze=False):
         """Enqueue len(seq) ticks from ``state`` (copied into ``state_in``
@@ -645,28 +643,35 @@ class _Program:
             self._done.record()
         return self, (packs, K, seq, squeeze)
 
-    def _copy_plain(self, body, src, done=False):
+    def _copy_plain(self, body, src):
         """scan_step's twin ahead of ``body`` (its copy, tick k's frames
-        ``src``; ``done``: the tick's body copied the whole tick), counted
-        in ``steps`` as the kernel counts its runs."""
+        ``src``), counted in ``steps`` as the kernel counts its runs."""
         if body.copy == "none":
             return
         self.steps["runs"] += 1
-        if not done:
-            self.steps[body.copy] += 1
-            schedule.scan_step_plain(src, self.bufs.frames, body.rows)
+        self.steps[body.copy] += 1
+        schedule.scan_step_plain(src, self.bufs.frames, body.rows)
+
+    def _commit_plain(self, k, packs, table, hold=None):
+        """scan_commit's twin of one (carry, rows[, slots]) table for tick
+        k into ``packs``."""
+        carry, rows, *slots = table
+        schedule.scan_commit_plain(
+            k, carry, [(r[0], packs[r[1]], r[2]) + tuple(r[3:])
+                       for r in rows], *(slots or [None]), hold=hold)
 
     def _run_plain(self, seq, force, packs):
         """The program on the CPU: the kernels' twins, their selections in
         Python ``if``s, the bodies run uncaptured, reading tick k's frames
         in place as on the card, their results committed as they are, in
-        the card's order (the many body's inputs staged first; the few
-        body run before the tick body's commit, its rows committed after
-        it).  Returns the runs."""
+        the card's order (the few body run before the tick body's commit,
+        its rows committed after it; on a many tick the tick body's commit
+        with the escaped rows held, then each chunk's gather, step and
+        rows).  Returns the runs."""
         bufs = self.bufs
-        runs = [0] * (schedule.PARAM_WORDS - schedule.P_RUNS)
+        runs = [0] * schedule.RUN_WORDS
         self.steps = dict.fromkeys(self.steps, 0)
-        self.stages = 0
+        self.chunks = self.big_chunks = 0
         for k in range(seq.shape[0]):
             branch, idx, age = schedule.tick_select_plain(
                 bufs.state_in.mode, bufs.state_in.pend_age, self.kb,
@@ -678,29 +683,35 @@ class _Program:
             state, out, *merge = body.run(seq[k])
             merge = merge[0] if merge else None
             runs[branch] += 1
-            few = None
+            tick = self._commit_pairs(state, out, merge)
+            sel = 0
             if self.many is not None:
                 sel, eidx = schedule.escape_select_plain(out.escaped,
                                                          self.eb)
                 bufs.eidx.copy_(eidx)
-                if sel == 1:
-                    self._copy_plain(self.few, seq[k], body.copy == "whole")
-                    few = self.few.run(seq[k])
-                elif sel == 2:
-                    schedule.scan_commit_plain(
-                        None, *self._stage_table(state, out, merge))
-                    self.stages += 1
-                    self._copy_plain(self.many, seq[k], body.copy == "whole")
-                    state, out = self.many.run(seq[k])
-                    merge = None
                 runs[schedule.ESCAPE_RUNS + sel] += 1
-            tables = [self._commit_pairs(state, out, merge)]
-            if few is not None:
-                tables.append(self._few_pairs(few))
-            for carry, rows, *slots in tables:
-                schedule.scan_commit_plain(
-                    k, carry, [(r[0], packs[r[1]], r[2]) + tuple(r[3:])
-                               for r in rows], *slots)
+            if sel == 1:
+                few = self.few.run(seq[k])
+                self._commit_plain(k, packs, tick)
+                self._commit_plain(k, packs, self._few_pairs(few))
+            elif sel == 2:
+                elist, (big, tail0, tails) = schedule.escape_list_plain(
+                    out.escaped, bufs.ms, bufs.m)
+                bufs.elist.copy_(elist)
+                self._commit_plain(k, packs, tick,
+                                   schedule.Hold(out.escaped, self.held))
+                for word, body, chunks in ((bufs.chunk, self.many,
+                                            range(big)),
+                                           (bufs.tail, self.tail,
+                                            range(tail0, tails))):
+                    for c in chunks:
+                        word[0] = c
+                        self._commit_plain(k, packs,
+                                           self._few_pairs(body.run(seq[k])))
+                self.chunks += big + tails - tail0
+                self.big_chunks += big
+            else:
+                self._commit_plain(k, packs, tick)
         return runs
 
     def wait(self):
@@ -716,17 +727,21 @@ class _Program:
         self.wait()
         if self.graph is not None:
             back = self._back_np
-            self.runs = back[schedule.P_RUNS:].tolist()
+            self.runs = back[schedule.P_RUNS:schedule.P_RUNS
+                             + schedule.RUN_WORDS].tolist()
+            big, small = (int(back[schedule.P_CHUNK_RUNS]),
+                          int(back[schedule.P_TAIL_RUNS]))
+            self.chunks, self.big_chunks = big + small, big
             ticks = sum(self.runs[:schedule.ESCAPE_RUNS])
             if back[schedule.P_K] != K or ticks != K:
                 raise RuntimeError(f"the serving program ran "
                                    f"{back[schedule.P_K]} ({ticks} "
                                    f"selected) of {K} ticks")
-            ran = dict(enumerate(self.bodies))
-            ran.update({schedule.ESCAPE_RUNS + 1: self.few,
-                        schedule.ESCAPE_RUNS + 2: self.many})
-            for i, body in ran.items():
-                for _ in range(self.runs[i] if body is not None else 0):
+            ran = [(b, self.runs[i]) for i, b in enumerate(self.bodies)]
+            ran += [(self.few, self.runs[schedule.ESCAPE_RUNS + 1]),
+                    (self.many, big), (self.tail, small)]
+            for body, times in ran:
+                for _ in range(times if body is not None else 0):
                     launch.replayed(body.launches)
             # each kernel's own count of its runs, read back with the modes
             launch.launches["tick_select"] += ticks
@@ -735,10 +750,8 @@ class _Program:
             self.steps = {"runs": int(back[schedule.P_STEPS]),
                           "rows": int(back[schedule.P_ROW_STEPS]),
                           "whole": int(back[schedule.P_WHOLE_STEPS])}
-            self.stages = int(back[schedule.P_STAGES])
             launch.launches["scan_step"] += self.steps["runs"]
-            launch.launches["scan_commit"] += int(back[schedule.P_COMMITS]) \
-                + self.stages
+            launch.launches["scan_commit"] += int(back[schedule.P_COMMITS])
             view = self._mode_host.numpy().copy()
         else:
             view = self.bufs.state_in.mode.numpy().copy()
@@ -796,6 +809,8 @@ class _Steps:
         self.bucket = max(1, int(bucket))
         self.overload = overload
         self.escape_bucket = max(1, int(escape_bucket))
+        # the many escape body's big and small chunks (``chunk_rows``)
+        self.escape_chunk, self.escape_tail = ESCAPE_CHUNK, ESCAPE_TAIL
         H, W = self.frame_shape
         tables = detector_tables(W, H, cascade, config.detectorInterval,
                                  device)
@@ -819,9 +834,20 @@ class _Steps:
         self.scheduled = self.device.type == "cuda"
         self._bufs = {}  # batch size -> its _Buffers
         # (batch size, body key: 0 the all-CS tick, s > 0 the bucket over s
-        # slots, "wbtrack", "full", "few", "many") -> its _TickGraph
+        # slots, "wbtrack", "full", "few", "many" and "tail" (the many
+        # body's big and small chunks)) -> its _TickGraph
         self._graphs = {}
         self._programs = {}  # batch size -> its _Program
+
+    def chunk_rows(self, n):
+        """The many escape body's chunks at batch size n, (big, small):
+        ``escape_tail`` rounded down to a multiple of escape_bucket (at
+        least one), at most n rounded up to one; ``escape_chunk`` rounded
+        down to a multiple of that (at least one), at most n rounded up to
+        one."""
+        eb = self.escape_bucket
+        s = min(max(eb, self.escape_tail // eb * eb), -(-n // eb) * eb)
+        return min(max(s, self.escape_chunk // s * s), -(-n // s) * s), s
 
     def chunk_cap(self, n):
         """The most pending streams one tick serves at batch size n."""
@@ -856,13 +882,13 @@ class _Steps:
         buffer before the body ``key`` (``_graphs``' keys), from what its
         kernels read there, the same in every configuration: the camshift
         step's frame readers (``histpdf_band``; ``hist_mma`` or
-        ``hist4096`` and ``backproject``) read in place, so the all-CS
-        tick and the many escape body copy none ("none"); the bucket's
-        "pending" step (``frame_prep``, ``handoff``) and the few escape
-        body's ``slot_gather`` read their slots' rows ("rows"); the wbtrack
-        and full bodies' ``frame_prep``, ``handoff`` and ``pyramid`` read
-        the whole frames ("whole")."""
-        if key in (0, "many"):
+        ``hist4096`` and ``backproject``) and the escape bodies'
+        ``slot_gather`` read in place, so the all-CS tick and the few and
+        many escape bodies copy none ("none"); the bucket's "pending" step
+        (``frame_prep``, ``handoff``) reads its slots' rows ("rows"); the
+        wbtrack and full bodies' ``frame_prep``, ``handoff`` and
+        ``pyramid`` read the whole frames ("whole")."""
+        if key in (0, "few", "many", "tail"):
             return "none"
         return "whole" if key in ("wbtrack", "full") else "rows"
 
@@ -983,29 +1009,33 @@ class _Steps:
         full-frame "track" step from the pre-step ``state`` on the escaped
         streams' slots ``eidx`` ((eb,) i64 on the device, padded with N).
         One ``slot_gather`` launch takes every state leaf's rows and the
-        frames' rows min(eidx, N - 1) (the program's scan_step copied those
-        rows of the tick's frames into the buffer, or the tick body's copy
-        the whole tick) and the kept flags under the escape's rule, eidx <
-        N (every escaped stream entered in CS, which the bucket's rule
-        would drop).  Returns the ``_Merge`` alone: the program commits the
-        tick body's results, then the kept rows of what the step changed
+        frames' rows min(eidx, N - 1) (the tick's frames read in place) and
+        the kept flags under the escape's rule, eidx < N (every escaped
+        stream entered in CS, which the bucket's rule would drop).  Returns
+        the ``_Merge`` alone: the program commits the tick body's results,
+        then the kept rows of what the step changed
         (``_Program._few_pairs``), so the body scatters nothing."""
         sub, keep, rows = schedule.slot_gather(state, eidx, escape=True,
                                                extra=(frames,))
         new, out = self._track_plain(sub, rows)
         return _Merge(eidx, keep, sub, new, out)
 
-    def _escape_many(self, state, frames):
-        """The escape fallback's ``many`` body: the full-frame "track" step
-        from the pre-step ``state`` on the batch (its frame readers read
-        the tick's frames in place: the program copies none), taken by the
-        escaped streams over the tick body's results, which the program
-        stages into the buffers' ``state_out`` and ``out`` ahead of it."""
-        bufs = self._bufs[frames.shape[0]]
-        esc = bufs.out.escaped
-        new, out = self._track_plain(state, frames)
-        return (ft.tree_where(esc, new, bufs.state_out),
-                ft.tree_where(esc, out, bufs.out)._replace(escaped=esc))
+    def _escape_many(self, state, frames, elist, at, into):
+        """A chunk of the escape fallback's ``many`` body, with no host
+        read: the few body's step on the chunk that the word ``at`` names
+        of escape_select's list ``elist`` (every escaped stream, padded
+        with N), in chunks of len(into) (the buffers' big chunk ``cidx``
+        at ``chunk``, or their small one ``tidx`` at ``tail``): one
+        ``slot_gather`` launch takes its slots into ``into``, every state
+        leaf's rows (the pre-step state's: the tick body's commit held
+        them) and the frames' rows (read in place) and the kept flags.
+        Returns the ``_Merge`` alone, whose kept rows the program commits
+        after the chunk; so the many body computes the escaped streams
+        alone."""
+        sub, keep, rows = schedule.slot_gather(
+            state, elist, escape=True, extra=(frames,), at=at, into=into)
+        new, out = self._track_plain(sub, rows)
+        return _Merge(into, keep, sub, new, out)
 
     def buffers(self, state):
         """The ``_Buffers`` of ``state``'s batch size."""
@@ -1013,7 +1043,8 @@ class _Steps:
         if n not in self._bufs:
             self._bufs[n] = _Buffers(state, (n,) + self.frame_shape + (3,),
                                      self.device, self.chunk_cap(n),
-                                     self.escape_bucket)
+                                     self.escape_bucket,
+                                     *self.chunk_rows(n))
         return self._bufs[n]
 
     def captured(self, state, key=0):
@@ -1026,10 +1057,15 @@ class _Steps:
                 tick, extra = self._auto_track, ()
             elif key == "few":
                 tick, extra = self._escape_few, (bufs.eidx,)
+            elif key == "many":
+                tick, extra = self._escape_many, (bufs.elist, bufs.chunk,
+                                                  bufs.cidx)
+            elif key == "tail":
+                tick, extra = self._escape_many, (bufs.elist, bufs.tail,
+                                                  bufs.tidx)
             elif isinstance(key, str):
                 tick, extra = {"wbtrack": self._auto_wbtrack,
-                               "full": self._auto_full,
-                               "many": self._escape_many}[key], ()
+                               "full": self._auto_full}[key], ()
             else:  # the served streams' slots, padded with N
                 tick, extra = self.bucket_device, (bufs.idx[:key],)
             copy = self.copy_mode(key)

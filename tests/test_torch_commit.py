@@ -4,9 +4,9 @@ tables) on the CPU.
 
   * a body keeps its own results, and a state leaf it passes through (the
     all-CS body's model histograms: ``tree_where`` of a tensor with
-    itself) is ``state_in``'s own tensor and gets no commit entry; the
-    staging of a tick body's results for the escape bodies still copies
-    every leaf;
+    itself) is ``state_in``'s own tensor and gets no commit entry; every
+    other carried state leaf but pend_age is flagged held (a many escape
+    tick's commit leaves the escaped streams' rows of it);
   * a result that overlaps the state it commits into any other way raises,
     in the tables and in the twin;
   * the byte-balanced chunk map (the kernel's: an entry's first 16-byte
@@ -18,7 +18,12 @@ tables) on the CPU.
     non-contiguous result raises;
   * the few escape body's table holds the kept rows alone of the leaves
     its step changed and of its outputs (``escaped`` and pend_age
-    excepted), emulated against ``scan_commit_plain`` as above.
+    excepted), emulated against ``scan_commit_plain`` as above;
+  * a many escape tick's commit of the tick body's table (the all-CS
+    body's and a bucket body's, merged entries among them) with the
+    escaped streams' rows held: the kernel's byte logic, emulated, equals
+    ``scan_commit_plain`` with its ``Hold``: held rows of every state leaf
+    but pend_age untouched, every other byte written.
 """
 
 import ctypes
@@ -46,8 +51,9 @@ def test_passed_through_leaf_gets_no_entry():
     """The all-CS body under a band passes the camshift model histograms
     (and every other leaf its step leaves unchanged) through as
     ``state_in``'s own tensors: no commit pair copies them, while
-    pend_age is committed from tick_select's ``age``; the staging pairs
-    hold every leaf."""
+    pend_age is committed from tick_select's ``age``; the carried leaves
+    but pend_age are flagged held (MERGE_HOLD, with their row bytes) in
+    the program's tables."""
     prog = _program(band=(32, 48), bandHist=True)
     bufs = prog.bufs
     state, out = prog.bodies[0].run()
@@ -60,11 +66,17 @@ def test_passed_through_leaf_gets_no_entry():
     for src, dst in carry:
         assert src.data_ptr() != dst.data_ptr()
     assert len(rows) == len(out)
-    staged = prog._stage_pairs(state, out)
-    assert len(staged) == len(_leaves(state)) + len(out)
-    table = S.segments([(carry, rows)], "cpu")
+    assert len(prog.held) == len(_leaves(bufs.state_in)) - 1
+    assert not any(h is bufs.state_in.pend_age for h in prog.held)
+    table = S.segments([(carry, rows)], "cpu", prog.held)
     want = sum(s.nbytes for s, _ in carry) + sum(v.nbytes for v, _, _ in rows)
     assert int(table.segs[:, 2].sum()) == want
+    flags = table.merges[:len(carry)].tolist()
+    for (src, dst), (_, rb, _, kind) in zip(carry, flags):
+        held = dst is not bufs.state_in.pend_age
+        assert kind == (S.MERGE_HOLD if held else S.MERGE_NONE)
+        assert rb == (dst.nbytes // dst.shape[0] if held else 0)
+    assert not table.merges[len(carry):].any()
     # a body that changes the histograms (the full tick's) commits them
     full = prog.bodies[-1]
     state, out = full.run()
@@ -185,16 +197,17 @@ def test_chunk_map_copies_what_the_twin_copies(n):
             assert torch.equal(packs[dt][row, k], want[r, k]), (t, dt, row)
 
 
-def _emulate_merged(params, ct, t):
+def _emulate_merged(params, ct, t, held=None):
     """scan_commit's kernel on table t of ``ct`` with its slot map (CPU
     addresses), byte by byte in the kernel's logic: a merged entry's byte
     of a row the map names from that row's sub row, any other from its
     source; a rows entry's chunks over its sub rows, each landing on its
-    slot's row where kept and not padding."""
+    slot's row where kept and not padding.  ``held`` (rows flagged, or
+    None): an entry flagged MERGE_HOLD leaves its held rows' bytes."""
     k, K = int(params[S.P_K]) - 1, int(params[S.P_TICKS])
     idx_p, keep_p, nslots, n = ct.maps[t].tolist()
-    idx = (ctypes.c_int64 * nslots).from_address(idx_p)
-    keep = (ctypes.c_uint8 * nslots).from_address(keep_p)
+    idx = (ctypes.c_int64 * nslots).from_address(idx_p) if nslots else []
+    keep = (ctypes.c_uint8 * nslots).from_address(keep_p) if nslots else []
     rows = {j: idx[j] for j in range(nslots)
             if keep[j] and 0 <= idx[j] < n}
     slot_of = {r: j for j, r in rows.items()}
@@ -202,6 +215,8 @@ def _emulate_merged(params, ct, t):
     for e, off, nbytes in S.commit_chunks(ct, t):
         src, dst, size, slot, row, _, pitch, elem = ct.segs[e].tolist()
         sub, rb, sub_pitch, kind = ct.merges[e].tolist()
+        hold = held is not None and kind & S.MERGE_HOLD
+        kind &= ~S.MERGE_HOLD
         if kind == S.MERGE_ROWS:
             j, o = divmod(off, rb)
             if j not in rows:
@@ -214,6 +229,8 @@ def _emulate_merged(params, ct, t):
         if slot >= 0:
             dst = int(params[S.P_OUT + slot]) + (row * K + k) * size
         for i in range(off, off + nbytes):
+            if hold and held[i // rb]:
+                continue
             j = slot_of.get(i // rb) if kind == S.MERGED else None
             if j is not None:
                 at = sub + (j * sub_pitch if sub_pitch else j * rb) + i % rb
@@ -345,3 +362,53 @@ def test_few_table_writes_kept_rows_alone():
         assert torch.equal(c[1][[0, 1, 3]], w[[0, 1, 3]])  # rows not kept
     for p, q in zip(packs, plain):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("body", [0, 1])
+def test_held_rows_stay_as_they_are(body):
+    """A many escape tick's commit of the tick body's table (the all-CS
+    body's; the bucket body's at 1 slot, a served stream merged in) with
+    the escaped streams 0, 2 and 3 held: the kernel's byte logic,
+    emulated, equals ``scan_commit_plain`` with ``Hold``: the held rows
+    of every carried leaf but pend_age keep the state's bytes, pend_age
+    and the outputs are written whole, the rest of each leaf is the
+    body's."""
+    prog = _program(band=(32, 48), bandHist=True)
+    bufs = prog.bufs
+    n = bufs.state_in.mode.shape[0]
+    bufs.idx.copy_(torch.tensor([1] + [n] * (bufs.idx.numel() - 1)))
+    bufs.state_in.mode[1] = 1  # the served stream: VJ, kept
+    res = prog.bodies[body].run()
+    table = prog._commit_pairs(*res[:2], *(res[2:] or [None]))
+    carry, rows, *slots = table
+    ct = S.segments([table], "cpu", prog.held)
+    esc = torch.tensor([True, False, True, True])
+    K, k = 2, 1
+    packs = [torch.zeros((bufs.packs[dt][0], K, n), dtype=dt)
+             for dt in prog.dtypes]
+    plain = [p.clone() for p in packs]
+    for c in carry:  # distinct bytes to keep or overwrite
+        c[1].view(torch.uint8).copy_(torch.randint(
+            0, 256, c[1].view(torch.uint8).shape, dtype=torch.uint8))
+    was = [c[1].clone() for c in carry]
+    params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    params[S.P_K], params[S.P_TICKS] = k + 1, K
+    for j, p in enumerate(packs):
+        params[S.P_OUT + j] = p.data_ptr()
+    _emulate_merged(params, ct, 0, esc.tolist())
+    got = [c[1].clone() for c in carry]
+    for c, w in zip(carry, was):
+        c[1].copy_(w)
+    S.scan_commit_plain(k, carry, [(r[0], plain[r[1]], r[2]) + tuple(r[3:])
+                                   for r in rows], *(slots or [None]),
+                        hold=S.Hold(esc, prog.held))
+    bits = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+    for c, g, w in zip(carry, got, was):
+        assert torch.equal(bits(g), bits(c[1]))
+        if any(c[1] is h for h in prog.held):
+            assert torch.equal(bits(g[esc]), bits(w[esc]))
+        elif c[0] is not None:
+            assert torch.equal(bits(g[esc]), bits(c[0][esc]))
+    for p, q in zip(packs, plain):
+        assert torch.equal(p, q)
+    assert any(c[1] is bufs.state_in.pend_age for c in carry)

@@ -242,9 +242,10 @@ def test_take_along_bit_equal_to_twin(dev, shape, dim, idx_shape):
     assert torch.equal(got.cpu(), take_along_plain(src, idx, dim))
 
 
-def _serving_clip(H, W, n):
-    """Faces drifting right; stream 1 loses track at tick 20; streams 3
-    and 7 carry faces taller than a 64-row band (an escape every band
+def _serving_clip(H, W, n, tall=4):
+    """Faces drifting right; stream 1 loses track at tick 20; every
+    ``tall``-th stream from stream ``tall`` - 1 (streams 3 and 7 of 8)
+    carries a face taller than a 64-row band (an escape every band
     tick)."""
     def frame(cx, cy, half):
         f = np.full((H, W, 3), 40, np.uint8)
@@ -257,8 +258,9 @@ def _serving_clip(H, W, n):
     for t in range(30):
         clip.append(np.stack([
             blue if (s, t) == (1, 20) else
-            np.roll(frame(60 + t % 5, 55, 26 if s % 4 == 3 else 12), 10 * s,
-                    axis=1) for s in range(n)]))
+            np.roll(frame(60 + t % 5, 55, 26 if s % tall == tall - 1
+                          else 12), 10 * (s % 8), axis=1)
+            for s in range(n)]))
     return np.stack(clip)
 
 
@@ -1700,6 +1702,50 @@ def test_schedule_select_kernels_equal_twins(dev, n):
             assert int(gp[S.P_ESEL]) == sel
             assert int(gp[S.P_RUNS + S.ESCAPE_RUNS + sel]) == 1
             assert torch.equal(ge.cpu(), eidx)
+            _escape_list_equals_twin(dev, esc, eb, 2 * eb, 8 * eb)
+
+
+def _escape_list_equals_twin(dev, esc, eb, m, mb):
+    """escape_select with a list of big chunks of mb and small ones of m
+    against its twins: the selection and, on many, every escaped stream
+    lowest first, padded with N, and the chunk plan (P_CHUNKS, P_TAIL,
+    P_TAILS; else none, the list left), P_CHUNK 0."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    n = esc.shape[0]
+    sel, eidx = S.escape_select_plain(esc, eb)
+    want, plan = S.escape_list_plain(esc, m, mb)
+    gp = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+    gp[S.P_CHUNK] = 5
+    gp = gp.to(dev)
+    ge = torch.empty(eb, dtype=torch.int64, device=dev)
+    gl = torch.full_like(want, -1, device=dev)
+    S.escape_select(esc.to(dev), eb, ge, gp, gl, m, mb)
+    torch.cuda.synchronize()
+    where = f"n {n} eb {eb} m {m} mb {mb} escaped {int(esc.sum())}"
+    assert int(gp[S.P_ESEL]) == sel and int(gp[S.P_CHUNK]) == 0, where
+    assert torch.equal(ge.cpu(), eidx), where
+    words = gp[[S.P_CHUNKS, S.P_TAIL, S.P_TAILS]].tolist()
+    if sel == 2:
+        assert torch.equal(gl.cpu(), want), where
+        assert tuple(words) == plan, where
+    else:
+        assert (gl == -1).all() and words == [0, 0, 0], where
+
+
+@pytest.mark.parametrize("n", [256, 10240, 70000])
+def test_escape_list_equals_twin(dev, n):
+    """escape_select's list for the many escape body against its twin at
+    the headline's 256 streams, the 10,240 of one card and F32's 70,000
+    (a grid of select CTAs whose last merges the list in order): random
+    shares of escaped streams with the first and the last among them,
+    every stream, and small and big chunks of 8 and 64, 32 and 256, 128
+    and 128."""
+    g = torch.Generator().manual_seed(n)
+    for share in (0.001, 0.01, 0.3, 1.0):
+        esc = torch.rand(n, generator=g) < share
+        esc[[0, n - 1]] = True
+        for m, mb in ((8, 64), (32, 256), (128, 128)):
+            _escape_list_equals_twin(dev, esc, 8, m, mb)
 
 
 def test_schedule_copy_kernels_equal_twins(dev):
@@ -1707,8 +1753,7 @@ def test_schedule_copy_kernels_equal_twins(dev):
     writes (P_FRAME_AT: P_FRAMES + k frame bytes) into the buffer, whole
     and in rows mode (served slots with padding, repeats, every row; a
     buffer poisoned with 255), on aligned and odd sizes and a tick off the
-    16-byte grid; after a tick body of its skip mask it copies nothing
-    (a run all the same); each run and copy counted by mode.  scan_commit
+    16-byte grid; each run and copy counted by mode.  scan_commit
     copies its segments whole and into row k of their packs, as their
     twins do."""
     from headtrackr_tpu_torch.kernels import schedule as S
@@ -1733,21 +1778,18 @@ def test_schedule_copy_kernels_equal_twins(dev):
                               torch.empty(1, dtype=torch.int64, device=dev),
                               torch.empty_like(mode), gp,
                               frame_bytes=seq[0].numel())
-                cases = [(None, 0), (torch.tensor([n - 1, n, 0]), 0),
-                         (torch.tensor([n, n]), 0),
-                         (torch.arange(n - 1, -1, -1), 0),
-                         (torch.tensor([1, 1, n]), 0), (None, 1),
-                         (torch.tensor([0]), 1)]
-                for rows, skip in cases:
+                cases = [None, torch.tensor([n - 1, n, 0]),
+                         torch.tensor([n, n]), torch.arange(n - 1, -1, -1),
+                         torch.tensor([1, 1, n]), torch.tensor([0])]
+                for rows in cases:
                     frames = torch.full(shape[1:], 255, dtype=torch.uint8,
                                         device=dev)
                     before = [int(gp[w]) for w in (
                         S.P_STEPS, S.P_ROW_STEPS, S.P_WHOLE_STEPS)]
                     S.scan_step(gp, frames,
-                                None if rows is None else rows.to(dev), skip)
+                                None if rows is None else rows.to(dev))
                     want = torch.full(shape[1:], 255, dtype=torch.uint8)
-                    if not skip:
-                        S.scan_step_plain(seq[k], want, rows)
+                    S.scan_step_plain(seq[k], want, rows)
                     torch.cuda.synchronize()
                     where = f"{shape} offset {offset} k {k} rows {rows}"
                     assert torch.equal(frames.cpu(), want), where
@@ -1756,8 +1798,8 @@ def test_schedule_copy_kernels_equal_twins(dev):
                     mode_word = 1 if rows is not None else 2
                     assert after[0] == before[0] + 1, where
                     for j in (1, 2):
-                        assert after[j] == before[j] + (
-                            j == mode_word and not skip), where
+                        assert after[j] == before[j] + (j == mode_word), \
+                            where
     for n in (5, 16, 256):  # rows of 5 bools, i32 and f32: off the grid
         _commit_equals_twin(dev, g, n)
 
@@ -1767,11 +1809,13 @@ def _commit_equals_twin(dev, g, n):
     bodies', an empty one in the few body's place, the many body's) of
     state leaves (one of 4,096 floats a stream) and output rows of three
     dtypes: each table by index, the tick body's (TABLE_TICK: P_BRANCH's)
-    and the program's pick (TABLE_PICK: none when P_ESEL is 1, the few
-    body's tick, which its IF graph commits; the many body's when it is 2;
-    else P_BRANCH's; staging: P_BRANCH's), into destinations poisoned
-    first; one run counted in P_COMMITS, or in P_STAGES, and none where
-    the pick is none (nothing written)."""
+    and the program's pick (TABLE_PICK: none when P_ESEL is 1 or 2, an
+    escape body's tick, which its IF graph commits; else P_BRANCH's), and
+    the tick body's with held rows (the escaped flags of P_BRANCH's body:
+    the rows of the leaves flagged held left, as ``Hold`` leaves them),
+    into destinations poisoned first; one run counted in P_COMMITS and
+    none where the pick is none (nothing written); CHUNK_NEXT advances
+    P_CHUNK and counts in P_CHUNK_RUNS."""
     from headtrackr_tpu_torch.kernels import schedule as S
     K, k = 3, 1
     shapes = [((n, 7), torch.float32), ((n,), torch.int32),
@@ -1793,7 +1837,14 @@ def _commit_equals_twin(dev, g, n):
                         for x in srcs],
                        [(v.to(dev), slot, row) for v, (_, slot, row) in
                         zip(outs, out_spec)]))
-    ct = S.segments(tables, dev)
+    held = tuple(d for t in tables[:2] for _, d in t[0][:3])
+    ct = S.segments(tables, dev, held)
+    flags = [torch.rand(n, generator=g) < 0.3 for _ in range(2)]
+    for f in flags:
+        f[[0, n - 1]] = True
+    gflags = [f.to(dev) for f in flags]
+    esc_at = torch.tensor([f.data_ptr() for f in gflags], dtype=torch.int64,
+                          device=dev)
     packs = [torch.full((2, K, n), 7, dtype=torch.float32, device=dev),
              torch.full((1, K, n), 7, dtype=torch.int32, device=dev),
              torch.ones((1, K, n), dtype=torch.bool, device=dev)]
@@ -1801,18 +1852,16 @@ def _commit_equals_twin(dev, g, n):
     params[S.P_K], params[S.P_TICKS] = k + 1, K  # row k = P_K - 1
     for j, pk in enumerate(packs):
         params[S.P_OUT + j] = pk.data_ptr()
-    # (table, branch, esel, stage): by index; the tick body's; the
-    # program's picks (nb = 2 tick bodies, then few and many: esel 2 picks
-    # table 2 - 1 + 2 = 3, esel 1 none)
+    # (table, branch, esel, hold): by index; the tick body's; the
+    # program's picks (esel 1 and 2 none); the tick body's with held rows
     pick, tick = S.TABLE_PICK, S.TABLE_TICK
-    for table, branch, esel, stage in ((0, 0, 0, 0), (1, 0, 0, 0),
-                                       (tick, 1, 1, 0), (tick, 0, 2, 0),
-                                       (pick, 1, 0, 0), (pick, 0, 1, 0),
-                                       (pick, 1, 2, 0), (pick, 1, 0, 1),
-                                       (pick, 0, 1, 1), (pick, 1, 2, 1)):
+    for table, branch, esel, hold in ((0, 0, 0, 0), (1, 0, 0, 0),
+                                      (tick, 1, 1, 0), (tick, 0, 2, 0),
+                                      (pick, 1, 0, 0), (pick, 0, 1, 0),
+                                      (pick, 1, 2, 0), (tick, 0, 2, 1),
+                                      (tick, 1, 2, 1), (2, 1, 2, 1)):
         want_t = table if table >= 0 else branch if (
-            stage or not esel or table == tick) else None if esel == 1 \
-            else 2 - 1 + esel
+            not esel or table == tick) else None
         for t in tables:
             for _, d in t[0]:
                 d.fill_(7)
@@ -1820,18 +1869,25 @@ def _commit_equals_twin(dev, g, n):
             pk.fill_(7)
         gp = params.clone()
         gp[S.P_BRANCH], gp[S.P_ESEL] = branch, esel
+        gp[S.P_CHUNK], gp[S.P_CHUNKS] = 2, 3
         gp = gp.to(dev)
-        S.scan_commit(gp, ct, table, nb=2, stage=bool(stage))
+        S.scan_commit(gp, ct, table, esc_at if hold else None,
+                      S.CHUNK_NEXT if hold else 0)
         srcs, outs = cpu[2 if want_t is None else want_t]
         wdst = [torch.full_like(x, 7) for x in srcs]
         wpacks = [torch.full((2, K, n), 7, dtype=torch.float32),
                   torch.full((1, K, n), 7, dtype=torch.int32),
                   torch.ones((1, K, n), dtype=torch.bool)]
+        dsts = [] if want_t is None else [d for _, d in tables[want_t][0]]
         S.scan_commit_plain(k, list(zip(srcs, wdst)),
                             [(v, wpacks[slot], row) for v, (_, slot, row) in
-                             zip(outs, out_spec)])
+                             zip(outs, out_spec)],
+                            hold=S.Hold(flags[branch], tuple(
+                                w for w, d in zip(wdst, dsts)
+                                if any(d is h for h in held)))
+                            if hold else None)
         torch.cuda.synchronize()
-        where = f"n {n} table {table} branch {branch} esel {esel} {stage}"
+        where = f"n {n} table {table} branch {branch} esel {esel} {hold}"
         if want_t is None:  # nothing written
             for t in tables:
                 for _, d in t[0]:
@@ -1842,8 +1898,9 @@ def _commit_equals_twin(dev, g, n):
         for pk, w in zip(packs, wpacks):
             assert torch.equal(pk.cpu(), w), where
         ran = 0 if want_t is None else 1
-        assert int(gp[S.P_STAGES if stage else S.P_COMMITS]) == ran, where
-        assert int(gp[S.P_COMMITS if stage else S.P_STAGES]) == 0, where
+        assert int(gp[S.P_COMMITS]) == ran, where
+        assert int(gp[S.P_CHUNK]) == 2 + ran * hold, where
+        assert int(gp[S.P_CHUNK_RUNS]) == ran * hold, where
 
 
 @pytest.mark.parametrize("overload", ["full", "rotate"])
@@ -1853,17 +1910,17 @@ def test_program_equals_per_tick_path(dev, overload, config):
     against the per-tick path run eagerly on the card, 8 streams, bucket
     1, escape_bucket 1, in three configurations (a 64x96 band with
     bandHist, the band with full-frame histograms, the full frame with
-    hist4096), with the many escape body's staging buffers (``state_out``,
-    ``out``) and the bodies' frame buffer poisoned before each call (a
-    frame reader left on the buffer where it should read the tick's
-    frames in place would differ): every output of every tick and the
-    final state bit-equal through wbtrack, full or the rotation, bucket
-    and chunk ticks, and with a band escapes of one stream (few) and of
-    two (many); the per-tick path's host code is not reached; each body
-    keeps its own results, so only a tick whose escape fallback runs the
-    many body stages (the few body's tick commits the tick body's table
-    and then its own rows: one more commit, no staging); scan_step runs
-    on no all-CS tick and for no many body, in every configuration."""
+    hist4096), with the many escape body's list and chunk slots and the
+    bodies' frame buffer poisoned before each call (a frame reader left on
+    the buffer where it should read the tick's frames in place would
+    differ): every output of every tick and the final state bit-equal
+    through wbtrack, full or the rotation, bucket and chunk ticks, and
+    with a band escapes of one stream (few) and of two (many, in chunks
+    of one stream); the per-tick path's host code is not reached; each
+    body keeps its own results (the few body's tick commits the tick
+    body's table and then its own rows; the many body's the tick body's
+    with the escaped rows held, then a commit a chunk); scan_step runs
+    on no all-CS tick and for no escape body, in every configuration."""
     from headtrackr_tpu_torch.kernels import launch as L
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -1876,16 +1933,16 @@ def test_program_equals_per_tick_path(dev, overload, config):
                                 device=dev, **kw)
     eager, program = mk(), mk()
     eager._steps.scheduled = False
+    program._steps.escape_chunk, program._steps.escape_tail = 4, 1
     program.warmup(scan_len=10)
     prog = program._steps._programs[n]
     band = config != "full-frame"
-    assert (prog.bufs.state_out is not None) == band
+    assert (prog.many is not None) == band
 
     def poison():
         prog.bufs.frames.fill_(255)
-        if band:
-            for v in _leaves(prog.bufs.state_out) + list(prog.bufs.out):
-                v.view(torch.uint8).fill_(0xA5)
+        for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
+            t.fill_(0)
 
     want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
     L.reset_launches()
@@ -1893,29 +1950,31 @@ def test_program_equals_per_tick_path(dev, overload, config):
     for f in clip[:4]:
         poison()
         got.append([v.cpu().numpy() for v in program.step_auto(f)])
-    runs, stages = np.zeros(16, int), 0
+    runs, chunks = np.zeros(16, int), 0
     for part in (clip[4:14], clip[14:]):
         poison()
         out = program.run_scan(part)
         runs += prog.runs
-        stages += prog.stages
+        chunks += prog.chunks
         got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
     assert L.host_paths == dict.fromkeys(L.host_paths, 0)
     # the schedule kernels' counts, read back from the card: one a tick
-    # (escape_select with a band), scan_commit's also one an escape body's
-    # run (the many body's staging, the few body's rows), scan_step's one
-    # a tick whose body copies (every body but the all-CS tick's) and one
-    # a few body's run (its slots' rows, a run also after a tick body that
-    # copied whole); the many body copies nothing
+    # (escape_select with a band), scan_commit's also one a few body's run
+    # (its rows) and one a chunk of the many body's (its rows; the held
+    # tick commit in place of the common one), scan_step's one a tick
+    # whose body copies (every body but the all-CS tick's); the escape
+    # bodies copy nothing
     fields = tft.StepOutput._fields
-    escaping = sum(bool(t[fields.index("escaped")].any()) for t in want)
-    assert escaping == runs[9] + runs[10] and stages == runs[10]
+    escaped = [int(t[fields.index("escaped")].sum()) for t in want]
+    escaping = sum(e > 0 for e in escaped)
+    assert escaping == runs[9] + runs[10]
+    assert chunks == sum(e for e in escaped if e > 1)
     assert L.launches["tick_select"] == len(clip)
     assert L.launches["escape_select"] == (len(clip) if band else 0)
-    assert L.launches["scan_commit"] == len(clip) + escaping
+    assert L.launches["scan_commit"] == len(clip) + runs[9] + chunks
     copying = sum(program.branch(t[fields.index("detection")]) != "track"
                   for t in want)
-    assert L.launches["scan_step"] == copying + runs[9]
+    assert L.launches["scan_step"] == copying
     assert 0 < copying < len(clip)  # all-CS ticks copy nothing
     assert escaping > 0 or not band
     for t, (a_t, b_t) in enumerate(zip(want, got)):
@@ -1927,6 +1986,51 @@ def test_program_equals_per_tick_path(dev, overload, config):
         assert runs[9] > 0 and runs[10] > 0  # few and many escape bodies ran
     else:
         assert escaping == 0
+
+
+def test_many_body_chunks_equal_per_tick_path(dev):
+    """The many escape body over several chunks of each size: 16 streams,
+    every odd one's face taller than the 64-row band (8 escapes a band
+    tick), bandHist, escape_bucket 1, big chunks of 3 streams and small
+    ones of 1, so that a band tick runs two big chunks and then two small
+    ones (``schedule.chunk_plan``); the list and chunk slots and the frame
+    buffer poisoned before each call.  Every output of every tick and the
+    final state bit-equal to the per-tick path run eagerly on the card;
+    the program's big and small chunks those of the plan."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    H, W, n = 120, 160, 16
+    clip = _serving_clip(H, W, n, tall=2)
+    mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                device=dev, bucket=1, escape_bucket=1,
+                                band=(64, 96), bandHist=True)
+    eager, program = mk(), mk()
+    eager._steps.scheduled = False
+    program._steps.escape_chunk, program._steps.escape_tail = 3, 1
+    program.warmup(scan_len=10)
+    prog = program._steps._programs[n]
+    assert (prog.bufs.m, prog.bufs.ms) == (3, 1)
+    want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
+    got, big, chunks = [], 0, 0
+    for part in (clip[:10], clip[10:20], clip[20:]):
+        prog.bufs.frames.fill_(255)
+        for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
+            t.fill_(0)
+        out = program.run_scan(part)
+        big += prog.big_chunks
+        chunks += prog.chunks
+        got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
+    fields = tft.StepOutput._fields
+    escaped = [int(t[fields.index("escaped")].sum()) for t in want]
+    plans = [S.chunk_plan(e, 1, 3) for e in escaped if e > 1]  # many
+    plans = [(b, tails - tail0) for b, tail0, tails in plans]
+    assert (2, 2) in plans  # 8 escapes: two big chunks, two small
+    assert (big, chunks - big) == (sum(p[0] for p in plans),
+                                   sum(p[1] for p in plans))
+    for t, (a_t, b_t) in enumerate(zip(want, got)):
+        for name, a, b in zip(fields, a_t, b_t):
+            np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
+    for x, y in zip(_leaves(eager.state), _leaves(program.state)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("n", [65535, 65536, 70000])
@@ -2106,6 +2210,50 @@ def test_few_body_gathers_once_and_commits_rows(dev):
     assert 0 < moved < 150_000, moved
     assert set(prog._commit.merges[first:first + count, 3].tolist()) == \
         {S.MERGE_ROWS}
+
+
+def test_many_body_gathers_chunks_and_commits_rows(dev):
+    """The headline's many escape body (256 streams of 320x240, bucket 8,
+    escape_bucket 8): each chunk body (big and small) launches
+    slot_gather once (a chunk of escape_select's list, the tick's frames
+    read in place: no copy) and then the full-frame "track" step, its
+    graph nothing but launches of the package's hand-written kernels (no
+    PyTorch operation, memcpy or memset: no leaf copied whole); each
+    commit table holds rows alone, the chunk's kept rows, as many bytes a
+    row as the few body's table (the step passes the model histograms
+    through); the tick bodies' tables flag every carried state leaf but
+    pend_age held."""
+    import pathlib
+    import chip_smoke
+    from headtrackr_tpu_torch.kernels import schedule as S
+    root = pathlib.Path(__file__).resolve().parent.parent
+    bt = BatchedTracker(256, (240, 320), cascade=toy_cascade(), device=dev,
+                        band=(96, 128), bandHist=True, bucket=8)
+    bt.warmup(scan_len=2)
+    prog = bt._steps.program(bt.state)
+    m, ms = prog.bufs.m, prog.bufs.ms
+    assert m % ms == 0 and ms % 8 == 0
+    for body in (prog.many, prog.tail):
+        assert body.merge is not None and body.state is None
+        assert body.copy == "none"
+        assert body.launches["slot_gather"] == 1, body.launches
+        names = chip_smoke.node_names(body.graph)
+        assert chip_smoke.foreign_nodes(body.graph, str(root)) == [], names
+        assert set(chip_smoke.node_kinds(body.graph)) == {"kernel"}, names
+    ct = prog._commit
+    moved = [int(ct.segs[f:f + c, 2].sum())
+             for f, c, _, _ in ct.tables[len(prog.bodies):].tolist()]
+    assert 0 < moved[1] * prog.eb == moved[0] * m < 1000 * m * prog.eb, moved
+    assert moved[2] * prog.eb == moved[0] * ms, moved
+    first, count = ct.tables[len(prog.bodies) + 1, :2].tolist()
+    assert set(ct.merges[first:first + count, 3].tolist()) == {S.MERGE_ROWS}
+    age = prog.bufs.state_in.pend_age.data_ptr()
+    first, count = ct.tables[0, :2].tolist()
+    for (src, dst, *_), (_, _, _, kind) in zip(
+            ct.segs[first:first + count].tolist(),
+            ct.merges[first:first + count].tolist()):
+        if dst and src:  # a carried state leaf
+            assert bool(kind & S.MERGE_HOLD) == (dst != age), (dst, kind)
 
 
 def _tool(name):

@@ -277,8 +277,8 @@ CONFIGS = {"headline": dict(band=(24, 32), bandHist=True),
 def test_copy_mode_is_one_table_in_every_configuration(config):
     """What the serving program copies of a tick's frames before each
     body, every configuration x every body key: none before the all-CS
-    tick and the many escape body (their frame readers read in place),
-    the slots' rows before a bucket body and the few escape body, the
+    tick and the few and many escape bodies (their frame readers and
+    gathers read in place), the slots' rows before a bucket body, the
     whole tick before wbtrack and full (frame_prep, handoff and pyramid
     read the buffer)."""
     n = 12
@@ -291,7 +291,7 @@ def test_copy_mode_is_one_table_in_every_configuration(config):
     if CONFIGS[config]["band"] is not None:
         keys += ["few", "many"]
     want = {0: "none", "many": "none", "wbtrack": "whole", "full": "whole",
-            "few": "rows"}
+            "few": "none"}
     for key in keys:
         body = steps.captured(tb.state, key)
         expect = want.get(key, "rows")

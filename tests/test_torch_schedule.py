@@ -17,12 +17,12 @@
     "rotate", escape_bucket 1, through the port's per-tick path and its
     program (the conditional nodes' twins in Python ifs), also with the
     bodies' frame buffer poisoned before each call, and with the many
-    escape body's staging buffers (``state_out``, ``out``) poisoned before
-    each call (no other body reads them; the many body reads only what the
-    program staged there on its tick): a rotate clip (the
-    cold start's burst of more than chunk_cap pending streams) and an
-    escape clip (one stream escaping: the ``few`` body; two in one tick:
-    ``many``).  Integer and bool fields exact, floats to rtol 1e-5 / atol
+    escape body's list and chunk slots (``elist``, ``cidx``) poisoned
+    before each call (escape_select writes the list on a many tick, the
+    chunk's slot_gather its slots, before the chunk reads them): a rotate
+    clip (the cold start's burst of more than chunk_cap pending streams)
+    and an escape clip (one stream escaping: the ``few`` body; two in one
+    tick: ``many``, in chunks of one stream).  Integer and bool fields exact, floats to rtol 1e-5 / atol
     1e-4 (f32 sums in another order), as tests/test_torch_scan.py;
   * the program's frames: ``scan_step_plain``'s rows mode against NumPy,
     and ``histpdf_band`` under ``launch.frames_at`` against the same call
@@ -369,34 +369,20 @@ def _assert_same(ref, got, where):
                                        err_msg=f"{where} {name}")
 
 
-def _copies(tb, entry, escaped):
+def _copies(tb, entry):
     """scan_step's runs and copies a call of the program should count, from
-    each tick's entry modes and escaped count: the tick body copies none
-    (the all-CS tick: histpdf_band reads in place), the served rows (a
-    bucket tick) or the whole tick (wbtrack, full); an escape body its
-    slots' rows (few), nothing after a tick body that copied whole (a run
-    all the same), or none (many: its frame readers read in place, no
-    run)."""
+    each tick's entry modes: the tick body copies none (the all-CS tick:
+    histpdf_band reads in place), the served rows (a bucket tick) or the
+    whole tick (wbtrack, full); an escape body none (its gathers and
+    frame readers read in place, no run)."""
     want = dict.fromkeys(("runs", "rows", "whole"), 0)
-    eb = KW["escape_bucket"]
-    for modes, nesc in zip(entry, escaped):
+    for modes in entry:
         body = {"track": "none", "bucket": "rows", "wbtrack": "whole",
                 "full": "whole"}[tb.branch(np.array(modes))]
-        esc = None if nesc == 0 else "rows" if nesc <= eb < N else "none"
-        for mode, done in ((body, False), (esc, body == "whole")):
-            if mode not in (None, "none"):
-                want["runs"] += 1
-                want[mode] += not done
+        if body != "none":
+            want["runs"] += 1
+            want[body] += 1
     return want
-
-
-def _poison(tree):
-    """Every leaf of ``tree`` filled with the byte 0xA5."""
-    for v in (tree if isinstance(tree, tuple) else [tree]):
-        if isinstance(v, tuple):
-            _poison(v)
-        elif v is not None:
-            v.view(torch.uint8).fill_(0xA5)
 
 
 @pytest.mark.parametrize("path", ["per_tick", "program", "poison",
@@ -407,23 +393,24 @@ def test_run_scan_matches_reference(reference, clip, path):
     with 255 before each call: a body that read a stale or poisoned frame
     where it should read tick k's (in place or copied) would differ, as
     the faces move every tick.  The poison_staging case fills the many
-    escape body's ``state_out`` and ``out`` with garbage before each call:
-    the program must stage the tick body's results there before that body
-    reads them, and read them nowhere else.  The program's scan_step
-    counts one run a tick whose body copies and none on an all-CS tick;
-    scan_commit's staging one a tick whose many escape body runs."""
+    escape body's list and chunk slots with stream 0 before each call: the
+    program must write them on a many tick before its chunks read them.
+    The many body runs in small chunks of one stream.  The program's scan_step
+    counts one run a tick whose body copies and none on an all-CS tick or
+    for an escape body; the many body one chunk an escaped stream."""
     ref_outs, ref_states = reference
     tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
                            **KW)
     tb._steps.scheduled = path != "per_tick"
+    tb._steps.escape_chunk, tb._steps.escape_tail = 4, 1
 
     def scan(seq):
         if path == "poison":
             tb._steps.buffers(tb.state).frames.fill_(255)
         if path == "poison_staging":
             bufs = tb._steps.program(tb.state).bufs
-            _poison(bufs.state_out)
-            _poison(bufs.out)
+            for t in (bufs.elist, bufs.cidx, bufs.tidx):
+                t.fill_(0)
         return tb.run_scan(seq)
 
     ticks = range(0, 2 * K) if clip == "rotate" else range(2 * K, 4 * K)
@@ -444,9 +431,10 @@ def test_run_scan_matches_reference(reference, clip, path):
             prog = tb._steps._programs[N]
             runs += prog.runs
             steps.append(prog.steps)
-            assert prog.stages == prog.runs[S.ESCAPE_RUNS + 2]
-            assert prog.steps == _copies(tb, got.detection.tolist(),
-                                         got.escaped.sum(1).tolist())
+            many = [e for e in got.escaped.sum(1).tolist()
+                    if e > KW["escape_bucket"]]
+            assert prog.chunks == sum(many)
+            assert prog.steps == _copies(tb, got.detection.tolist())
     want = ref_states[0 if clip == "rotate" else 1]
     for a, b in zip(want, convert.state_to_numpy(tb.state)):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4)

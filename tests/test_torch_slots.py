@@ -141,7 +141,7 @@ def test_bucket_body_matches_reference_step_bucket(reference, n):
     new, out = steps.bucket_step(state, torch.from_numpy(frames), served)
     prog = steps.program(state)
     assert prog.runs[slots // BUCKET] == 1  # the bucket body of its slots
-    assert prog.runs[9] == 1 and prog.stages == 0  # few: no staging
+    assert prog.runs[9] == 1 and prog.chunks == 0  # few: no chunk of many
     assert L.host_paths == {"eager_branch": 0, "dispatch": 0, "recompute": 0}
 
     got = convert.state_to_numpy(new)
@@ -235,7 +235,7 @@ def test_few_body_matches_reference_step_auto(reference_auto, case):
     prog = bt._steps.program(bt.state)
     names = [r[0] for r in roles]
     escaping = [s for s, r in enumerate(names) if r == "cs escapes"]
-    assert prog.runs[9] == 1 and prog.stages == 0  # few: no staging
+    assert prog.runs[9] == 1 and prog.chunks == 0  # few: no chunk of many
     assert prog.runs[0 if case == "alone" else 1] == 1
     assert out.escaped.nonzero().flatten().tolist() == escaping
     want_eidx = escaping + [N_FEW] * (EB_FEW - len(escaping))
@@ -407,3 +407,154 @@ def test_few_body_gathers_and_scatters_no_whole_leaf(monkeypatch):
     whole = [op for op, shapes in seen.ops if (N_FEW,) in shapes]
     assert not whole, whole
     assert seen.ops  # the track step ran on the sub-batch
+
+
+def _esc_role(k):
+    """A CS stream whose window outgrows the band (it escapes)."""
+    return _ESC + ((2 + k % 3, 1 + k % 4, 44 - k % 3, 40 - k % 5),)
+
+
+# the many escape body's cases: (tick body, escaped streams E, big and
+# small chunks[, escape_bucket]) at N = 12, escape_bucket 8 unless given:
+# E = escape_bucket + 1 = M + 1 across a big chunk and a small one, in two
+# small chunks, or in one partial small chunk; E = N (every stream, the
+# all-escape tick) across a big chunk and a small one; E = 11 at
+# escape_bucket 2 in two big chunks of 4 and then two small ones of 2;
+# streams 0 and N - 1 escape in every case
+CHUNK_CASES = {
+    "alone 12 by 8 8": ("track", [_esc_role(k) for k in range(12)], (8, 8)),
+    "alone 11 by 4 2": ("track", [_esc_role(k) for k in range(6)]
+                        + [_CS + ((8, 8, 10, 10),)]
+                        + [_esc_role(k) for k in range(6, 11)], (4, 2), 2),
+    "alone 9 by 16 8": ("track", [_esc_role(k) for k in range(5)]
+                     + [_CS + ((8, 8, 10, 10),), _CS + ((20, 24, 10, 10),),
+                        _CS + ((36, 20, 10, 10),)]
+                     + [_esc_role(k) for k in range(5, 9)], (16, 8)),
+    "bucket 9 by 8 8": ("bucket", [_esc_role(0), ("vj", tft.MODE_VJ,
+                                                (30, 14, 20, 20))]
+                      + [_esc_role(k) for k in range(1, 5)]
+                      + [("wb", tft.MODE_WB, None), _CS + ((8, 8, 10, 10),)]
+                      + [_esc_role(k) for k in range(5, 9)], (8, 8)),
+    "wbtrack 9 by 16 16": ("wbtrack", [_esc_role(k) for k in range(4)]
+                        + [("wb", tft.MODE_WB, None), _CS + ((8, 8, 10, 10),),
+                           ("wb", tft.MODE_WB, None)]
+                        + [_esc_role(k) for k in range(4, 9)], (16, 16)),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_many_body_in_chunks_matches_reference(reference_auto, case):
+    """The program's twin on a tick whose escape fallback runs the many
+    body in chunks (``escape_chunk`` and ``escape_tail``, big and small):
+    the tick body's commit with the escaped streams' state rows held, then
+    each chunk's slot_gather of its slots of escape_select's list from the
+    pre-step state and the tick's frames (read in place; the bodies' frame
+    buffer poisoned), the full-frame "track" step on them and its kept
+    rows; every state and output leaf equals the reference's step_auto
+    (integers exact, floats within rtol 1e-5 / atol 1e-4) and the per-tick
+    path's host recompute (``_Steps._recompute``) bit for bit.  The list
+    holds the escaped streams lowest first, padded with N, and the chunks
+    of ``chunk_plan`` ran."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    tick, roles, (m, ms), *eb = CHUNK_CASES[case]
+    eb = eb[0] if eb else EB_FEW
+    frames = _scene(N_FEW, 26, roles)
+    jst, state = _states(N_FEW, frames, roles)
+    jnew, jout = reference_auto(jst, jnp.asarray(frames))
+    escaping = [s for s, r in enumerate(roles) if r[0] == "cs escapes"]
+    assert escaping[0] == 0 and escaping[-1] == N_FEW - 1
+
+    got = []
+    for scheduled in (True, False):
+        bt = BatchedTracker(N_FEW, (H, W), cascade=toy_cascade(),
+                            device="cpu", band=BAND, bucket=BUCKET,
+                            escape_bucket=eb)
+        bt._steps.scheduled = scheduled
+        bt._steps.escape_chunk, bt._steps.escape_tail = m, ms
+        bt.set_state(state)
+        bt._steps.buffers(bt.state).frames.fill_(255)
+        L.reset_launches()
+        out = bt.step_auto(frames)
+        got.append((convert.state_to_numpy(bt.state), out))
+        if scheduled:
+            prog = bt._steps.program(bt.state)
+            assert bt._steps.branch(np.array([r[1] for r in roles])) == tick
+            assert (prog.bufs.m, prog.bufs.ms) == (m, ms)
+            assert prog.runs[10] == 1
+            big, tail0, tails = S.chunk_plan(len(escaping), ms, m)
+            assert prog.chunks == big + tails - tail0
+            assert prog.big_chunks == big
+            assert (big, tails - tail0) == {
+                "alone 12 by 8 8": (1, 1), "alone 11 by 4 2": (2, 2),
+                "alone 9 by 16 8": (0, 2), "bucket 9 by 8 8": (1, 1),
+                "wbtrack 9 by 16 16": (0, 1)}[case]
+            size = -(-N_FEW // m) * m
+            assert prog.bufs.elist.tolist() == escaping + [N_FEW] * (
+                size - len(escaping))
+            assert L.host_paths == dict.fromkeys(L.host_paths, 0)
+        else:
+            assert L.host_paths["recompute"] == 1
+    assert got[0][1].escaped.nonzero().flatten().tolist() == escaping
+    _assert_reference(jnew, jout, bt.state, got[1][1], f"{case} per-tick")
+    state_p, out_p = got[0]
+    state_t, out_t = got[1]
+    for i, (a, b) in enumerate(zip(state_t, state_p)):
+        np.testing.assert_array_equal(b, a, err_msg=f"{case} leaf {i}")
+    for name, a, b in zip(tft.StepOutput._fields, out_t, out_p):
+        np.testing.assert_array_equal(b.numpy(), a.numpy(),
+                                      err_msg=f"{case} {name}")
+    ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jnew)]
+    for i, (a, b) in enumerate(zip(ref, state_p)):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=f"{case} leaf {i}")
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                       err_msg=f"{case} leaf {i}")
+
+
+@pytest.mark.parametrize("n", [12, 4097, 10240])
+def test_escape_list_follows_the_escaped_flags(n):
+    """escape_select's list (the wrapper on the CPU, its twin
+    ``escape_list_plain``) past one select CTA's span (``select_blocks``:
+    several blocks at 4,097 and 10,240 streams): on many every escaped
+    stream, lowest first, padded with N to whole big chunks, and the
+    chunk plan (P_CHUNKS big chunks, the small ones [P_TAIL, P_TAILS):
+    whole big chunks, one more where more than two small ones are left),
+    P_CHUNK zeroed; on few and none the list is left and no chunk
+    planned.  Small and big chunks of 8 and 64, 32 and 256; the first and
+    the last stream escaping among random ones."""
+    from headtrackr_tpu_torch.kernels import schedule as S
+    rng = np.random.default_rng(n)
+    eb = 8
+    assert n < 100 or S.select_blocks(n, eb)[0] > 1
+    for m, mb in ((8, 64), (32, 256)):
+        for share in (0.0, 0.0005, 0.02, 0.5, 1.0):
+            esc = rng.random(n) < share
+            if share >= 0.02:
+                esc[[0, n - 1]] = True
+            nesc = int(esc.sum())
+            sel = 0 if nesc == 0 else 1 if nesc <= eb else 2
+            size = -(-n // mb) * mb
+            elist = torch.full((size,), -1, dtype=torch.int64)
+            params = torch.zeros(S.PARAM_WORDS, dtype=torch.int64)
+            params[S.P_CHUNK] = 5
+            eidx = torch.empty(eb, dtype=torch.int64)
+            S.escape_select(torch.from_numpy(esc), eb, eidx, params, elist,
+                            m, mb)
+            assert int(params[S.P_ESEL]) == sel
+            assert int(params[S.P_CHUNK]) == 0
+            want, plan = S.escape_list_plain(torch.from_numpy(esc), m, mb)
+            big, tail0, tails = plan
+            rest = nesc - big * mb  # what the small chunks take
+            assert big * mb <= nesc + mb and rest <= S.TAIL_CHUNKS * m
+            assert tail0 == big * mb // m and tails * m >= nesc
+            assert tails - tail0 <= S.TAIL_CHUNKS
+            assert want.tolist() == np.nonzero(esc)[0].tolist() + [n] * (
+                size - nesc)
+            words = params[[S.P_CHUNKS, S.P_TAIL, S.P_TAILS]].tolist()
+            if sel == 2:
+                assert torch.equal(elist, want)
+                assert tuple(words) == plan
+            else:
+                assert (elist == -1).all()
+                assert words == [0, 0, 0]

@@ -77,7 +77,7 @@ def main():
         def step(name):
             err = fns[name]["scan_step_launch"](
                 p.data_ptr(), frames.data_ptr(), frames.numel(), None, 0, n,
-                0, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: cudaError {err}")
 

@@ -16,7 +16,11 @@ in a checkout whose program commits by tables, one JSON line of each
 body's commit table (``commit_tables``: bytes and entries, in the
 program's body order), and the nodes of the full-frame "track" step
 alone on escape_bucket gathered rows (``few_track_step``: the escape
-fallback's few body runs it after its gather); then one JSON line of the
+fallback's few body runs it after its gather) and the many escape body
+(``many``: its graph's nodes by kernel name, those that are no
+hand-written kernel's launch, its chunks of streams and its commit
+tables, in a checkout with chunks a big and a small chunk's, else the
+whole batch's); then one JSON line of the
 all-CS body of the band and full-frame configurations (``all_cs``: its
 nodes by kernel name, those that are no hand-written kernel's launch, and
 the body's frame copy).  Needs a CUDA card; node_kinds, node_names,
@@ -58,6 +62,26 @@ def track_step_nodes(bt, cs):
     rows = bufs.frames.index_select(0, idx)
     return dict(collections.Counter(cs.graph_nodes(
         lambda: steps._track_plain(sub, rows))))
+
+
+def many_body(bt, cs, root):
+    """The many escape body of ``bt``'s program (warmed up): its graph's
+    nodes in order, kernels by name, the foreign ones, its chunks' streams
+    (``chunk_rows``, big and small; None in a checkout whose many body
+    runs on the whole batch) and its commit tables (the program's last
+    two, or its last: the whole batch's)."""
+    prog = bt._steps._programs.get(bt.n)
+    many = getattr(prog, "many", None)
+    if many is None or many.graph is None:
+        return None
+    tail = getattr(prog, "tail", None)
+    tables = commit_tables(bt) or [None]
+    return {"nodes": cs.node_names(many.graph),
+            "foreign": cs.foreign_nodes(many.graph, root),
+            "tail_nodes": None if tail is None else cs.node_names(tail.graph),
+            "chunk_rows": [getattr(prog.bufs, "m", None),
+                           getattr(prog.bufs, "ms", None)],
+            "commit": tables[-2:] if tail is not None else tables[-1]}
 
 
 def all_cs_bodies(cs, root):
@@ -110,7 +134,8 @@ def main(argv=None):
     print(json.dumps([dict(collections.Counter(cs.node_kinds(g)))
                       for g in graphs]))
     print(json.dumps({"commit_tables": commit_tables(bt),
-                      "few_track_step": track_step_nodes(bt, cs)}))
+                      "few_track_step": track_step_nodes(bt, cs),
+                      "many": many_body(bt, cs, args.root)}))
     print(json.dumps({"all_cs": all_cs_bodies(cs, args.root)}))
     return 0
 

@@ -27,6 +27,17 @@ At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
              state, until a step_auto tick escapes exactly ESCAPES streams;
              each call replays that tick from the state before it (restored
              into the program's state buffers, untimed);
+  many E     the headline's tick in which E streams (MANY: 12, 32, 256)
+             escape the band beyond escape_bucket (the escape fallback's
+             many body): from the locked state, the search windows of E
+             streams spread over the batch (the first and the last among
+             them) made TALL rows high, taller than the band, so that
+             exactly those escape on the next step_auto tick (checked once
+             a case: their escaped flags and a run of the many body);
+             each call replays that tick from that state (restored,
+             untimed); also its device span with the host's enqueue
+             hidden behind a spin (``busy_span``), which every chunk of
+             the many body's loop is in;
   split      that tick in parts: the all-CS tick's body graph
              (``BatchedTracker._graph``) replayed alone (device span, CUDA
              events), and the host time of step_auto's enqueue
@@ -52,13 +63,27 @@ timed again ("step_auto after profiler").  A first profiler session in a
 process lost device events on the card, so one is spent on a throwaway.
 
     python3 tools/torch_sched_times.py [--root build/parent] [--big]
+        [--only many] [--chunk M] [--tail S]
 
 ``--big`` instead times the headline at BIG streams (the pool's 256
 tiled on the card, as chip_smoke.py phase 15 runs it): after a cold start
 of 16 ticks of one batch in run_scan calls of BIG_K ticks, all-tracking
 run_scan calls of BIG_K ticks (the pool's batches before its loss frame),
-host ms and device span a tick, each of REPS calls; and the bytes of each
-body's commit table (``commit_tables``, tools/torch_graph_nodes.py).
+host ms and device span a tick, each of REPS calls; the bytes of each
+body's commit table (``commit_tables``, tools/torch_graph_nodes.py); then
+the all-CS step_auto tick (``tick``) and the many E tick at BIG streams
+for E in BIG_MANY (12, 100, 1,000), timed and profiled as above.
+
+With ``--only many`` or ``--big``, ``tracker_mb`` is the device memory
+that building and warming the headline tracker took (its state, buffers
+and bodies' graphs and results).
+
+``--only NAME,...`` runs only the cases whose names start with one of the
+NAMEs (``--only many``: the many E ticks alone, on the headline tracker
+alone; with ``--big`` no all-tracking scan is timed).  ``--chunk M`` and
+``--tail S`` set the many escape body's big and small chunks on each
+tracker before its programs are built (``_Steps.escape_chunk`` and
+``escape_tail``, which a checkout without chunks ignores: the sweeps).
 
 Prints the card's name and power limit, one line a case, then one JSON
 line.  Needs a CUDA card.
@@ -81,6 +106,10 @@ LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize")
 BIG, BIG_K = 10240, 4
 ESCAPES = 3  # the escape case's escaping streams (the few body: <= 8)
+MANY = (12, 32, 256)  # the many cases' escaping streams (past escape_bucket)
+BIG_MANY = (12, 100, 1000)  # the same at BIG streams
+TALL = 120  # rows of an escaping window: taller than the band's 96
+SPIN_CYCLES = 5_000_000  # busy_span's spin, ~2.5 ms: longer than an enqueue
 CONFIGS = {"headline": dict(band=(96, 128), bandHist=True),
            "full-frame": dict(band=None, bandHist=False, histKernel="pallas"),
            "band": dict(band=(96, 128), bandHist=False)}
@@ -271,6 +300,97 @@ def restore(bt, state, modes):
     bt.set_state(bt.state, modes)
 
 
+def spread(n, e):
+    """E streams of n spread evenly, the first and the last among them."""
+    if e >= n:
+        return list(range(n))
+    return sorted({round(i * (n - 1) / (e - 1)) for i in range(e)})
+
+
+def many_ticks(bt, frame, counts):
+    """{E: state} for E in ``counts``: ``bt``'s (locked) state with the
+    search windows of ``spread(N, E)`` streams made TALL rows high around
+    their centres, from which the step_auto tick on ``frame`` escapes
+    exactly those streams through the escape fallback's many body (checked
+    here, once each).  ``bt``'s state is left as it was."""
+    import torch
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    n = frame.shape[0]
+    clean, modes = _clone(bt.state), bt.modes.copy()
+    states = {}
+    for e in counts:
+        state = _clone(clean)
+        idx = torch.tensor(spread(n, e), device=frame.device)
+        win = state.cs.window
+        cy = win[idx, 1] + win[idx, 3] // 2
+        win[idx, 1] = torch.clamp(cy - TALL // 2, 0, H - TALL)
+        win[idx, 3] = TALL
+        restore(bt, state, modes)
+        esc = bt.step_auto(frame).escaped
+        many = bt._steps._programs[n].runs[10]
+        if sorted(torch.nonzero(esc).flatten().tolist()) != idx.tolist() \
+                or many != 1:
+            raise SystemExit(f"many {e}: the tick escaped "
+                             f"{int(esc.sum())} streams, many body runs "
+                             f"{many}")
+        states[e] = state
+    restore(bt, clean, modes)
+    torch.cuda.synchronize()
+    return states
+
+
+def many_cases(bt, frame, counts, modes):
+    """The many E cases of ``many_ticks``: {"many E": (call, 1, REPS,
+    set-up)}."""
+    states = many_ticks(bt, frame, counts)
+    return {f"many {e}": (lambda: bt.step_auto(frame), 1, REPS,
+                          lambda s=s: restore(bt, s, modes))
+            for e, s in states.items()}
+
+
+def busy_span(fn, ticks, reps, before=None):
+    """Median device span ms a tick of fn() with the host's enqueue hidden:
+    the stream spins SPIN_CYCLES first (``torch.cuda._sleep``) and the
+    first event waits behind the spin, by which time the host has
+    enqueued the call, so the span is the device's from the call's first
+    operation to its last.  (torch.profiler sees a WHILE node's first
+    iteration only: this sees every chunk of a many tick.)"""
+    import numpy as np
+    import torch
+    span = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        span.append(a.elapsed_time(b) / ticks)
+    return float(np.median(span))
+
+
+def run_cases(cases, res):
+    """Each case timed (host_ms, busy_span), then profiled (a throwaway
+    session first), into ``res``."""
+    for name, (fn, ticks, reps, before) in cases.items():
+        host, span = host_ms(fn, ticks, reps, before)
+        res[name] = {"host_ms_per_tick": host, "span_ms_per_tick": span,
+                     "busy_span_ms_per_tick": busy_span(fn, ticks, reps,
+                                                        before)}
+    import torch
+    profiled(lambda: torch.ones(1, device="cuda").sum(), 1)  # a first
+    # session loses events
+    for name, (fn, ticks, reps, before) in cases.items():
+        if before is not None:
+            before()
+        res[name].update(profiled(fn, ticks))
+        print(f"{name}: {json.dumps(res[name])}", flush=True)
+
+
 def _tool(name):
     """This checkout's tools/<name>.py (a script, loaded by path)."""
     spec = importlib.util.spec_from_file_location(
@@ -280,17 +400,31 @@ def _tool(name):
     return mod
 
 
-def big(pool, dev, card, root):
+def tracker(n, dev, chunks, **kw):
+    """A BatchedTracker of n streams of H x W, bucket 8, with the many
+    escape body's big and small chunks ``chunks`` (0: the checkout's)
+    set before its programs are built."""
+    from headtrackr_tpu_torch import BatchedTracker
+    bt = BatchedTracker(n, (H, W), device=dev, bucket=8, **kw)
+    big, small = chunks
+    if big:
+        bt._steps.escape_chunk = big
+    if small:
+        bt._steps.escape_tail = small
+    return bt
+
+
+def big(pool, dev, card, root, only, chunks):
     """The --big case: {"big": {"host_ms_per_tick": [...],
     "span_ms_per_tick": [...], "pending": pending streams over the timed
-    calls}}."""
+    calls}, "many E": ...} (``only``: the many cases alone)."""
     import torch
-    from headtrackr_tpu_torch import BatchedTracker
     from headtrackr_tpu_torch.models import facetracker as ft
     tile = BIG // N
-    bt = BatchedTracker(BIG, (H, W), device=dev, bucket=8,
-                        **CONFIGS["headline"])
+    before = torch.cuda.memory_allocated(dev)
+    bt = tracker(BIG, dev, chunks, **CONFIGS["headline"])
     bt.warmup(scan_len=BIG_K)
+    held = torch.cuda.memory_allocated(dev) - before
     cold = pool[[0] * BIG_K].repeat(1, tile, 1, 1, 1)
     for _ in range(16 // BIG_K):
         bt.run_scan(cold)
@@ -298,15 +432,24 @@ def big(pool, dev, card, root):
     steady = pool[[t % LOSS_AT for t in range(BIG_K)]].repeat(
         1, tile, 1, 1, 1)
     bt.run_scan(steady)
-    res = {"host_ms_per_tick": [], "span_ms_per_tick": [], "pending": 0,
+    res = {"tracker_mb": held / 2 ** 20,
+           "host_ms_per_tick": [], "span_ms_per_tick": [], "pending": 0,
            "commit_tables": _tool("torch_graph_nodes").commit_tables(bt)}
-    for _ in range(REPS):
+    for _ in range(0 if only else REPS):
         host, span = host_ms(lambda: bt.run_scan(steady), BIG_K, 1)
         res["host_ms_per_tick"].append(host)
         res["span_ms_per_tick"].append(span)
         res["pending"] += int((bt.modes != ft.MODE_CS).sum())
     print(f"big {BIG}: {json.dumps(res)}", flush=True)
-    print(json.dumps({"card": card, "root": root, "big": res}))
+    many = {}
+    frame = steady[1].contiguous()
+    del steady
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    clean, modes = _clone(bt.state), bt.modes.copy()
+    run_cases({"tick": (lambda: bt.step_auto(frame), 1, REPS,
+                        lambda: restore(bt, clean, modes)),
+               **many_cases(bt, frame, BIG_MANY, modes)}, many)
+    print(json.dumps({"card": card, "root": root, "big": res, **many}))
     return 0
 
 
@@ -316,6 +459,13 @@ def main(argv=None):
                    help="the checkout whose headtrackr_tpu_torch to time")
     p.add_argument("--big", action="store_true",
                    help=f"time the headline at {BIG} streams instead")
+    p.add_argument("--only", default="",
+                   help="comma-separated case name prefixes to run")
+    p.add_argument("--chunk", type=int, default=0,
+                   help="the many escape body's big chunk (0: the "
+                   "checkout's)")
+    p.add_argument("--tail", type=int, default=0,
+                   help="its small chunk (0: the checkout's)")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -324,8 +474,8 @@ def main(argv=None):
         print("torch_sched_times: no CUDA device", file=sys.stderr)
         return 1
     from bench import build_pool
-    from headtrackr_tpu_torch import BatchedTracker
     from headtrackr_tpu_torch.models import facetracker as ft
+    chunks = (args.chunk, args.tail)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -334,8 +484,23 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     pool = torch.as_tensor(build_pool(N, H, W, POOL, 4,
                                       np.random.default_rng(0))).to(dev)
+    only = [x for x in args.only.split(",") if x]
     if args.big:
-        return big(pool, dev, card, os.path.abspath(args.root))
+        return big(pool, dev, card, os.path.abspath(args.root),
+                   only == ["many"], chunks)
+    if only == ["many"]:  # the headline tracker alone
+        before = torch.cuda.memory_allocated(dev)
+        bt = tracker(N, dev, chunks, **CONFIGS["headline"])
+        bt.warmup(scan_len=K)
+        held = torch.cuda.memory_allocated(dev) - before
+        for _ in range(16):
+            bt.step_auto(pool[0])
+        bt.run_scan(pool[[t % LOSS_AT for t in range(K)]].contiguous())
+        res = {"tracker_mb": held / 2 ** 20}
+        run_cases(many_cases(bt, pool[1], MANY, bt.modes.copy()), res)
+        print(json.dumps({"card": card, "root": os.path.abspath(args.root),
+                          **res}))
+        return 0
     steady = pool[[t % LOSS_AT for t in range(K)]].contiguous()
     cold = pool[[0] * K].contiguous()
     lost = pool[1].clone()
@@ -344,7 +509,7 @@ def main(argv=None):
     burst = pool[[0] * 8].contiguous()
     trackers = {}
     for name, kw in CONFIGS.items():
-        bt = BatchedTracker(N, (H, W), device=dev, bucket=8, **kw)
+        bt = tracker(N, dev, chunks, **kw)
         bt.warmup(scan_len=K)
         for _ in range(16):
             bt.step_auto(pool[0])
@@ -352,8 +517,7 @@ def main(argv=None):
             raise SystemExit(f"{name}: the pool did not lock")
         bt.run_scan(steady)
         trackers[name] = bt
-    rot = BatchedTracker(N, (H, W), device=dev, bucket=8, overload="rotate",
-                         **CONFIGS["headline"])
+    rot = tracker(N, dev, chunks, overload="rotate", **CONFIGS["headline"])
     rot.warmup(scan_len=K)
     head = trackers["headline"]
 
@@ -391,7 +555,11 @@ def main(argv=None):
         "relock": (lambda: head.step_auto(pool[2]), 1, REPS, unlock),
         "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst),
         "escape": (escaping, 1, REPS,
-                   lambda: restore(head, esc_state, esc_modes))})
+                   lambda: restore(head, esc_state, esc_modes)),
+        **many_cases(head, pool[1], MANY, clean_modes)})
+    if only:
+        cases = {k: v for k, v in cases.items()
+                 if any(k.startswith(o) for o in only)}
     res = {}
     # the host clock first: once torch.profiler has run in a process, a
     # launch of a graph with conditional nodes costs the host far more
