@@ -132,7 +132,12 @@ Phases, one line each; any failure raises and exits nonzero:
      beside its twin, an empty kernel at its grid, the bytes this run's
      data needs and a library call (a channel sum, torch.bincount of the
      rects' bins, index_select of the model histograms' rows or of the
-     frames' rows);
+     frames' rows); frame_prep and handoff reading tick 2 of a scan in
+     place (through a device word, as the serving program's bodies read
+     them) bit-equal to their direct reads at 8 and 256 streams, 320x240
+     and 57x99 frames, the scan on a 16-byte boundary and 4 and 1 bytes
+     past one (check_in_place), and on the relock tick's and the cold
+     start's calls timed in place beside direct (graph replay, in turns);
   4. serving: BatchedTracker(256, (240, 320)) with the real cascade and the
      bench protocol in three configurations: the full-frame arm
      (histKernel="pallas": hist4096), a 96x128 band with full-frame
@@ -163,8 +168,10 @@ Phases, one line each; any failure raises and exits nonzero:
      ms, device operations, host launch calls and host reads a relock
      tick.  The headline's steady step_auto tick must take at most
      STEADY_OPS device operations (9: no PyTorch operation of the band is
-     left in it); no configuration's steady tick runs scan_step (every
-     all-CS body reads the tick's frames in place), and the band and
+     left in it); no tick of any configuration runs scan_step (phase 4's
+     cold start, relocks and steady ticks, the relock tick, the profiled
+     steady ticks: every body reads the tick's frames in place), and the
+     band and
      full-frame all-CS bodies hold no graph node but hand-written kernels
      (``foreign_nodes``: ALLCS_NODES of them, the ratio weights formed in
      the backprojection kernel, no rect made on the card);
@@ -266,14 +273,15 @@ Phases, one line each; any failure raises and exits nonzero:
      tick and an all-CS tick, beside an empty kernel at their grid and
      torch.topk; then the headline configuration at 256 streams
      from init_state under overload "full" and "rotate", two run_scan
-     calls of 16 ticks each from a poisoned frame buffer and a poisoned
-     many-body list and chunk slots (elist, cidx; the cold start's
+     calls of 16 ticks each, the bodies' frame buffer freed after their
+     capture, from a poisoned many-body list and chunk slots (elist,
+     cidx; the cold start's
      wbtrack and full ticks or its rotation burst, bucket and chunk ticks
      after losses, band escapes within escape_bucket and beyond it): every
      StepOutput leaf and the final state bit-equal to the per-tick path
      run eagerly on the card, every branch's body run (the program's own
-     counts), scan_step run once a tick whose body copies (copy_runs; the
-     escape bodies read the frames in place), scan_commit once a tick,
+     counts), scan_step run on no tick (every body reads the tick's
+     frames in place), scan_commit once a tick,
      once more a few body's run and once a many body's chunk, the
      per-tick path's host code never reached (kernels/launch.py
      host_paths); an all-CS scan of 16 ticks runs no scan_step; a
@@ -286,8 +294,8 @@ Phases, one line each; any failure raises and exits nonzero:
      64 and small ones of 16 (SCHED_CHUNKED_MANY: E = 150 runs two of
      each, every stream four big ones).  Then
      the headline at 10,240 streams (the pool tiled 40 times on the card)
-     from init_state under both overloads, run_scan calls of 4 ticks, each
-     from a poisoned frame buffer: every leaf and the final state
+     from init_state under both overloads, run_scan calls of 4 ticks, the
+     frame buffer freed: every leaf and the final state
      bit-equal to the per-tick path, one program launch a call, each
      schedule kernel's runs as above (the card's counts); under "full"
      every stream s bit-equal to stream s mod 256 of a 256-stream program
@@ -538,8 +546,8 @@ F32_SPLIT = ("hist4096", "histpdf_band_hist", "histpdf_band", "backproject",
              "hist_mma", "pyramid", "cascade")
 # the program's path at 160x120 (no band; hist_mma the default histogram)
 F32_PATH = ("hist_mma", "backproject_ratio", "meanshift", "pyramid", "cascade",
-            "group", "tick_epilogue", "tick_select", "scan_step",
-            "scan_commit", "frame_prep", "handoff")
+            "group", "tick_epilogue", "tick_select", "scan_commit",
+            "frame_prep", "handoff")
 
 def log(msg):
     print(msg, flush=True)
@@ -2288,6 +2296,20 @@ def phase_bucket(pools, dev, root):
     log(f"kernels: frame_prep and handoff at every forced split "
         f"{list(cases.SPLITS)} bit-equal to their twins at that split, at "
         f"N={list(BUCKET_NS)} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    calls_in_place = 8  # tools/torch_bucket_cases.py in_place_calls
+    shapes, offsets = cases.IN_PLACE_SHAPES, cases.IN_PLACE_OFFSETS
+    for n in (BUCKET_SLOTS, N_STREAMS):
+        r = cases.check_in_place(n, dev)
+        if r["cases"] != len(shapes) * len(offsets) * calls_in_place or \
+                r["launches"] != len(shapes) * (1 + len(offsets)) * \
+                calls_in_place:
+            raise AssertionError(f"bucket: in place at N={n}: {r}")
+    log(f"kernels: frame_prep and handoff reading tick "
+        f"{cases.IN_PLACE_TICK} of a scan in place bit-equal to their direct "
+        f"reads at N={[BUCKET_SLOTS, N_STREAMS]}, frames {list(shapes)}, the "
+        f"scan {list(offsets)} bytes past a 16-byte boundary "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     pool = pools[0]
     calls, state, idx = bucket_workloads(pool, dev)
@@ -2404,6 +2426,37 @@ def phase_bucket(pools, dev, root):
             f"its whole function)")
         if e["launches_a_call"] != 1:
             raise AssertionError(f"bucket: {name} is not one launch a call")
+    # frame_prep and handoff reading tick k's frames in place (through a
+    # word, as the serving program's bodies do) against their direct read
+    # of them, bit for bit and graph ms in turns, on each of the calls
+    from headtrackr_tpu_torch.kernels import launch as L
+    seq, word = cases.staged_scan(frames, cases.IN_PLACE_TICKS,
+                                  cases.IN_PLACE_TICK, 0)
+    tick = seq[cases.IN_PLACE_TICK]
+    buf = torch.full_like(frames, 255)
+    for name, (key, args, kw, _) in calls.items():
+        kernel = wrapper[key][0]
+
+        def direct(k=kernel, a=args[1:], w=kw):
+            return k(tick, *a, **w)
+
+        def in_place(k=kernel, a=args[1:], w=kw):
+            with L.frames_at(buf, word):
+                return k(buf, *a, **w)
+
+        cases._check(f"{name} in place", cases._leaves(in_place()),
+                     cases._leaves(direct()))
+        ip, dr = [], []
+        for _ in range(2):  # direct, in place, in place, direct
+            dr.append(graph_ms(direct))
+            ip += [graph_ms(in_place), graph_ms(in_place)]
+            dr.append(graph_ms(direct))
+        times[name]["in_place"] = {"graph_ms": ip, "direct_graph_ms": dr}
+        log(f"kernels: {name} in place bit-equal to its direct read, graph "
+            f"ms in turns: in place {[round(x, 5) for x in ip]}, direct "
+            f"{[round(x, 5) for x in dr]} ({sum(ip) / sum(dr) - 1:+.1%})")
+    if not bool((buf == 255).all()):
+        raise AssertionError("bucket: a kernel in place wrote its buffer")
     return {k: 0.0 for k in BUCKET}, times
 
 
@@ -2470,6 +2523,10 @@ def phase_serving(name, frames, dev):
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: "
                              f"{missing} ({counts})")
+    if counts["scan_step"]:  # every body reads the tick's frames in place
+        raise AssertionError(f"{name}: scan_step ran {counts['scan_step']} "
+                             f"times over the cold start, relocks and "
+                             f"steady ticks")
     outs += [ft.StepOutput(*(v[k] for v in scan)) for k in range(POOL)]
 
     status = np.stack([o.status.cpu().numpy() for o in outs[LOCK_TICKS:]])
@@ -2554,13 +2611,17 @@ def phase_profile(trackers, frames):
                 tick = getattr(bt, entry)
                 steady_s(tick, frames)  # warm
                 wall = steady_s(tick, frames)
-                L.reset_launches()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    pwall = steady_s(tick, frames)
-                events = prof.events()
-                dev_ops = [e for e in events if e.device_type
-                           == torch.autograd.DeviceType.CUDA]
+                for _ in range(2):  # a session has lost all its device
+                    # events on this card (PERF.md §7): one more window
+                    L.reset_launches()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        pwall = steady_s(tick, frames)
+                    events = prof.events()
+                    dev_ops = [e for e in events if e.device_type
+                               == torch.autograd.DeviceType.CUDA]
+                    if dev_ops:
+                        break
                 if not dev_ops:
                     raise AssertionError("the profiler saw no device kernels")
                 host = sum(e.name in HOST_LAUNCHES for e in events)
@@ -2607,9 +2668,10 @@ def phase_allcs(runs, prof, root):
         body = bt._steps._graphs[(bt.n, 0)]
         names = node_names(body.graph)
         foreign = foreign_nodes(body.graph, root)
-        if foreign or len(names) != ALLCS_NODES[name] or body.copy != "none":
+        copy = bt._steps.copy_mode(0)
+        if foreign or len(names) != ALLCS_NODES[name] or copy != "none":
             raise AssertionError(f"allcs [{name}]: the all-CS body copies "
-                                 f"{body.copy!r}, holds {names}, not "
+                                 f"{copy!r}, holds {names}, not "
                                  f"hand-written: {foreign}")
         out[name] = names
     log(f"allcs: no scan_step on any configuration's all-CS ticks; the "
@@ -2638,7 +2700,9 @@ def phase_relock(bt, frames):
             raise AssertionError(f"relock: {pend} streams pending after the "
                                  f"blue frame, not {LOSS_STREAMS}")
 
+    from headtrackr_tpu_torch.kernels import launch as L
     rows = {"graph": [], "eager": []}
+    steps0 = L.launches["scan_step"]
     for rep in range(2):
         for arm in rows:
             host, dev_s, ops, launches, syncs = [], 0.0, 0, 0, 0
@@ -2683,6 +2747,9 @@ def phase_relock(bt, frames):
                 f"{r['device_ms']:.3f} ms, {r['device_ops']:.2f} device ops, "
                 f"{r['host_launches']:.2f} host launch calls, "
                 f"{r['host_reads']:.2f} host reads a relock tick")
+    if L.launches["scan_step"] != steps0:
+        raise AssertionError(f"relock: scan_step ran "
+                             f"{L.launches['scan_step'] - steps0} times")
     return rows
 
 
@@ -2976,10 +3043,11 @@ def phase_schedule(pool, dev):
         t_scan = time.perf_counter() - t0
         counts[overload] = dict(L.launches)
         # the schedule kernels' counts, which the card reports in the
-        # program's parameter block: one run of each a tick, scan_step's
-        # one a tick whose body copies and one an escape body's run
+        # program's parameter block: one run of each a tick; scan_step's
+        # none (no body copies a frame: the launch counts of the bodies'
+        # captured kernels hold none)
         want_runs = dict.fromkeys(SCHED_KERNELS, 2 * SCHED_K)
-        want_runs["scan_step"] = copy_runs(bt, got)
+        want_runs["scan_step"] = 0
         # scan_commit: one more a few body's run (its rows after the tick
         # body's table) and one more a many body's chunk (its rows after
         # the tick body's table with the escaped rows held)
@@ -3033,24 +3101,25 @@ def phase_schedule(pool, dev):
             f"{ran[9]}, many {ran[10]}); pending at most {npend.max()}; "
             f"escapes a tick {escapes}; host code of the per-tick path "
             f"not reached; scan_step runs {want_runs['scan_step']} of "
-            f"{2 * SCHED_K} ticks, from a poisoned frame buffer; "
+            f"{2 * SCHED_K} ticks, the frame buffer freed; "
             f"{numbers[overload]['ms_per_tick']:.3f} ms/tick")
         if overload == "full":  # all-CS scans: no copy; one profiled
             seq = torch.as_tensor(pool[[t % LOSS_AT
                                         for t in range(SCHED_K)]]).to(dev)
             bt.run_scan(seq)
+            steps0 = L.launches["scan_step"]
             o = bt.run_scan(seq)
             torch.cuda.synchronize()
             if (o.detection != ft.MODE_CS).any() or o.escaped.any():
                 raise AssertionError("schedule: the steady scan is not "
                                      "all-CS without escapes")
-            if prog.steps["runs"]:
+            numbers["all_cs_scan_steps"] = L.launches["scan_step"] - steps0
+            if numbers["all_cs_scan_steps"]:
                 raise AssertionError(f"schedule: an all-CS scan of "
-                                     f"{SCHED_K} ticks ran scan_step: "
-                                     f"{prog.steps}")
-            numbers["all_cs_scan_steps"] = dict(prog.steps)
+                                     f"{SCHED_K} ticks ran scan_step "
+                                     f"{numbers['all_cs_scan_steps']} times")
             log(f"schedule: an all-CS run_scan of {SCHED_K} ticks: "
-                f"scan_step {prog.steps}")
+                f"scan_step {numbers['all_cs_scan_steps']} runs")
             launches0 = prog.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as pr:
@@ -3101,11 +3170,14 @@ def phase_schedule(pool, dev):
 
 
 def poison(prog):
-    """Fill the program's frame buffer with 255 and the many escape body's
-    list and chunk slots (elist, cidx) with stream 0: a body that read the
-    buffer where it should read tick k's frames, or a chunk that read a
-    list or slots its tick did not write, would differ."""
-    prog.bufs.frames.fill_(255)
+    """Fill the many escape body's list and chunk slots (elist, cidx,
+    tidx) with stream 0, and check that the bodies' frame buffer was freed
+    once they were captured: a chunk that read a list or slots its tick
+    did not write, or a body that read the buffer where it should read
+    tick k's frames, would differ."""
+    if prog.bufs._frames is not None:
+        raise AssertionError("the serving program holds its bodies' frame "
+                             "buffer after their capture")
     for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
         t.fill_(0)
 
@@ -3362,18 +3434,6 @@ def _leaves_of(tree):
     return [t for _, t in _named(tree)]
 
 
-def copy_runs(bt, outs):
-    """scan_step's runs in the headline's program (bandHist) over run_scan
-    outputs ``outs``: one a tick whose body copies (all but the all-CS
-    tick, whose frame readers read in place); the escape bodies read in
-    place and copy none."""
-    runs = 0
-    for o in outs:
-        for modes in o.detection.cpu().numpy():
-            runs += int(bt.branch(modes) != "track")
-    return runs
-
-
 def select_times(n, dev):
     """tick_select and escape_select at n streams, timed by
     tools/torch_select_times.py's select_cases (the headline's bucket 8,
@@ -3485,7 +3545,7 @@ def phase_schedule_big(pool, dev):
             del frames
         counts = dict(L.launches)
         want_runs = dict.fromkeys(SCHED_KERNELS, SCHED_BIG_TICKS)
-        want_runs["scan_step"] = copy_runs(bt, got)
+        want_runs["scan_step"] = 0  # no body copies a frame
         want_runs["scan_commit"] += int(ran[9]) + chunks
         if chunks != many_chunks(bt, got):
             raise AssertionError(f"schedule big [{overload}]: {chunks} "
@@ -3546,10 +3606,10 @@ def phase_schedule_big(pool, dev):
                 torch.cuda.synchronize()
                 span_ms.append(a.elapsed_time(b) / K)
                 pend += int((o.detection != ft.MODE_CS).sum())
-                copies += prog.steps["runs"]
-                if prog.steps["runs"] != copy_runs(bt, [o]):
+                copies = L.launches["scan_step"] - counts["scan_step"]
+                if copies:
                     raise AssertionError(f"schedule big: scan_step ran "
-                                         f"{prog.steps} in a steady scan")
+                                         f"{copies} times in steady scans")
             launches0 = prog.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as pr:
@@ -3635,8 +3695,8 @@ def phase_f32(dev, root):
     each launcher refusing 65,536 streams; then, with the launch counts at
     0, BatchedTracker(F32_N) from init_state over F32_TICKS ticks (the
     last F32_K one run_scan), the serving program bit-equal to the
-    per-tick path, tick for tick and the final state, and every kernel of
-    F32_PATH launched in the program's own calls."""
+    per-tick path, tick for tick and the final state, every kernel of
+    F32_PATH launched in the program's own calls and scan_step none."""
     import torch
     from headtrackr_tpu_torch.kernels import launch as L
     cases = load_example(root, "torch_f32_cases", "tools")
@@ -3657,9 +3717,10 @@ def phase_f32(dev, root):
     t0 = time.perf_counter()
     prog = cases.program_check(F32_N, dev, ticks=F32_TICKS, scan_k=F32_K)
     missing = [k for k in F32_PATH if not prog["launches"][k]]
-    if missing:
+    if missing or prog["launches"]["scan_step"]:
         raise AssertionError(f"f32: the program at {F32_N} streams "
-                             f"launched no {missing}")
+                             f"launched no {missing}, scan_step "
+                             f"{prog['launches']['scan_step']} times")
     torch.cuda.empty_cache()
     log(f"f32: at {F32_N} streams of 160x120 {sorted(kernels)} bit-equal "
         f"to their twins, {kernels['hist4096']['chunks']} launches each "
@@ -4592,6 +4653,9 @@ def main():
                      in_place=times["histpdf_band in place"])
         if k == "scan_step":
             e["rows"] = times["scan_step rows"]
+            e["note"] = ("on no tick of the program (every body reads the "
+                         "tick's frames in place); held against its twin "
+                         "in phase 15")
         if k == "tick_epilogue":
             e.update(steady_tick_launches=prof["headline"]["step_auto"][0][
                 "kernel_launches"][k], bodies=bodies)
@@ -4602,11 +4666,11 @@ def main():
         if k in BUCKET:
             e.update(relock_body_launches=bodies[str(min(8, N_STREAMS))]
                      .get(k), f32=f32["bucket"]["launches"][k])
+            e.update({t[len(k) + 1:].replace(" ", "_"): times[t]
+                      for t in times if t.startswith(f"{k} n")})
         if k == "slot_gather":
             e.update(escape=times["slot_gather escape"],
                      few_body_launches=bodies["few"][k])
-            e.update({t[len(k) + 1:].replace(" ", "_"): times[t]
-                      for t in times if t.startswith(f"{k} n")})
         if k == "hist4096":
             e.update(random=times[K1_RANDOM], n1=times["hist4096 n1"])
         if k == "take_along":

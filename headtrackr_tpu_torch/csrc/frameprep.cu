@@ -23,16 +23,16 @@
 //     streams), the stream on grid x (cluster c is CTAs c P .. c P + P - 1,
 //     so no limit of 65,535 streams).  Each CTA takes a contiguous share
 //     of the frame's units: 16 pixels (three 16-byte loads, one 16-byte
-//     gray store) where the frames, the gray plane and H W allow it, else
-//     4 pixels (4-byte loads) or one; each thread keeps kUnroll units'
-//     loads in flight.  The channel sums and the gray values are byte dot
-//     products (__dp4a), exact integers.  Each CTA reduces its sums (warp
-//     shuffles, then shared memory) and stores them into rank 0's shared
-//     memory through distributed shared memory; after a cluster barrier
-//     rank 0 adds the P partial sums in rank order (exact u64, so the split
-//     changes no bit) and one thread takes the means in f64 and rounds
-//     once to f32, every operation an _rn intrinsic in the twin's order
-//     ((m_r + m_g) + m_b) / 3 (no contraction), and writes the stream's
+//     gray store) where the stream's frame, the gray plane and H W allow
+//     it, else 4 pixels (4-byte loads) or one; each thread keeps kUnroll
+//     units' loads in flight.  The channel sums and the gray values are
+//     byte dot products (__dp4a), exact integers.  Each CTA reduces its
+//     sums (warp shuffles, then shared memory) and stores them into rank
+//     0's shared memory through distributed shared memory; after a cluster
+//     barrier rank 0 adds the P partial sums in rank order (exact u64, so
+//     the split changes no bit) and one thread takes the means in f64 and
+//     rounds once to f32, every operation an _rn intrinsic in the twin's
+//     order ((m_r + m_g) + m_b) / 3 (no contraction), and writes the stream's
 //     ring, wb_n and mode: the WB branch's where the stream enters in WB,
 //     its own rows elsewhere (rank 0's first thread copies those state
 //     rows into shared memory by cp.async at its start, so they land
@@ -40,6 +40,17 @@
 //     streams) is a plain launch with no cluster barrier.
 //   - The frame's row is min(slot, N - 1): a slot of N is padding, whose
 //     result the caller drops.
+//   - In place: given ``frame_at`` (the device address of an i64 word
+//     holding the frames' address when the kernel runs: the serving
+//     program's parameter block word that tick_select sets to tick k's
+//     frames) the kernel reads the frames there, so the program's bodies
+//     copy none.  That address exists only on the card, and a captured
+//     graph replays its launch for every later scan, so the unit cannot
+//     be chosen on the host from it: the launcher picks the widest unit
+//     that H W and the gray plane allow (kMaxPx), and each CTA takes the
+//     widest of those that its stream's frame address allows (16-byte
+//     aligned: 16 pixels; 4-byte: 4; else one).  The sums are exact
+//     integers, so the unit changes no bit.
 //
 // The launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() of the launch.
@@ -62,6 +73,7 @@ constexpr int kModeWB = 0, kModeVJ = 1;
 // kernels/frameprep.py _Args mirrors it field for field.
 struct Args {
   const uint8_t* frames;
+  const long long* frame_at;  // null, or the word holding the frames' address
   long long n, h, w;
   const long long* slots;  // (S,) or null: row s
   const int32_t* mode;     // (S,) entry modes
@@ -171,10 +183,31 @@ __device__ __forceinline__ void sum_share(const uint8_t* f, uint8_t* g,
   }
 }
 
+// CTA `rank` of `split`'s share of the hw pixels of frame f in units of
+// kPx pixels (hw % kPx == 0): channel sums into t, gray values into g (or
+// none).
+template <int kPx>
+__device__ __forceinline__ void sum_rank(const uint8_t* f, uint8_t* g,
+                                         long long hw, uint32_t rank,
+                                         uint32_t split,
+                                         unsigned long long (&t)[3]) {
+  const long long units = hw / kPx;
+  const long long share = (units + split - 1) / split;
+  const long long lo = rank * share;
+  const long long hi = lo + share < units ? lo + share : units;
+  sum_share<kPx>(f, g, lo, hi, t);
+}
+
+__device__ __forceinline__ bool aligned_at(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // grid (S P), clusters of P CTAs along x (P = 1: no cluster): CTA `rank`
 // of stream s takes its share of the frame; rank 0 joins the sums and
-// writes the stream's rows.  kPx: 16, 4 or 1 pixels a unit.
-template <int kPx>
+// writes the stream's rows.  kMaxPx: the widest unit (16, 4 or 1 pixels)
+// that H W and the gray plane allow; the CTA takes the widest of those
+// that its frame's address allows.
+template <int kMaxPx>
 __global__ void __launch_bounds__(kThreads) frame_prep_kernel(Args a) {
   __shared__ unsigned long long part[kWarps][3];
   __shared__ unsigned long long join[kMaxSplit][3];  // rank 0's: each CTA's
@@ -195,13 +228,18 @@ __global__ void __launch_bounds__(kThreads) frame_prep_kernel(Args a) {
   long long row = a.slots ? a.slots[s] : s;
   row = row < a.n - 1 ? row : a.n - 1;
   const long long hw = a.h * a.w;
-  const long long units = hw / kPx;
-  const long long share = (units + split - 1) / split;
-  const long long lo = rank * share;
-  const long long hi = lo + share < units ? lo + share : units;
+  const uint8_t* frames =
+      a.frame_at ? reinterpret_cast<const uint8_t*>(*a.frame_at) : a.frames;
+  const uint8_t* f = frames + row * hw * 3;
+  uint8_t* g = a.gray ? a.gray + s * hw : nullptr;
   unsigned long long t[3] = {0, 0, 0};
-  sum_share<kPx>(a.frames + row * hw * 3, a.gray ? a.gray + s * hw : nullptr,
-                 lo, hi, t);
+  if (kMaxPx >= 16 && aligned_at(f, 16)) {
+    sum_rank<16>(f, g, hw, rank, split, t);
+  } else if (kMaxPx >= 4 && aligned_at(f, 4)) {
+    sum_rank<4>(f, g, hw, rank, split, t);
+  } else {
+    sum_rank<1>(f, g, hw, rank, split, t);
+  }
   for (int c = 0; c < 3; ++c) t[c] = warp_sum(t[c]);
   const int warp = threadIdx.x / 32;
   if ((threadIdx.x & 31) == 0) {
@@ -268,15 +306,15 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <int kPx>
+template <int kMaxPx>
 int launch(const Args& a, int streams, int split, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(streams) * split);
   if (split == 1) {
-    frame_prep_kernel<kPx><<<grid, kThreads, 0, s>>>(a);
+    frame_prep_kernel<kMaxPx><<<grid, kThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  return sm90::launch_cluster(frame_prep_kernel<kPx>, grid, split, kThreads,
-                              0, s, a);
+  return sm90::launch_cluster(frame_prep_kernel<kMaxPx>, grid, split,
+                              kThreads, 0, s, a);
 }
 
 }  // namespace
@@ -284,9 +322,10 @@ int launch(const Args& a, int streams, int split, cudaStream_t s) {
 extern "C" int frame_prep_args_bytes() { return sizeof(Args); }
 
 // Clusters of ``split`` CTAs (a power of two <= 16), one a served stream:
-// ``streams`` of them (S), from ``args`` (Args).  The unit is 16 pixels
-// where the frames and the gray plane are 16-byte aligned and H W % 16 ==
-// 0, else 4 (4-byte alignment, H W % 4 == 0), else one pixel.
+// ``streams`` of them (S), from ``args`` (Args).  The widest unit is 16
+// pixels where the gray plane is 16-byte aligned and H W % 16 == 0, else 4
+// (4-byte alignment, H W % 4 == 0), else one pixel; each CTA narrows it
+// to what its frame's address allows (the frames may be read in place).
 extern "C" int frame_prep_launch(const void* args, int streams, int split,
                                  void* stream) {
   const Args a = *static_cast<const Args*>(args);
@@ -297,12 +336,10 @@ extern "C" int frame_prep_launch(const void* args, int streams, int split,
   }
   const long long hw = a.h * a.w;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (hw % 16 == 0 && aligned(a.frames, 16) &&
-      (a.gray == nullptr || aligned(a.gray, 16))) {
+  if (hw % 16 == 0 && (a.gray == nullptr || aligned(a.gray, 16))) {
     return launch<16>(a, streams, split, s);
   }
-  if (hw % 4 == 0 && aligned(a.frames, 4) &&
-      (a.gray == nullptr || aligned(a.gray, 4))) {
+  if (hw % 4 == 0 && (a.gray == nullptr || aligned(a.gray, 4))) {
     return launch<4>(a, streams, split, s);
   }
   return launch<1>(a, streams, split, s);

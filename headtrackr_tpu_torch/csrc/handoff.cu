@@ -44,7 +44,7 @@
 //     [k H / P, (k + 1) H / P)) outside the band placed for the rect (the
 //     one placement rule, band.cuh place_band: models/camshift.py
 //     band_rect), 16 pixels a thread a unit (three 16-byte loads where the
-//     frames are 16-byte aligned and W % 16 == 0, else byte loads),
+//     frame is 16-byte aligned and W % 16 == 0, else byte loads),
 //     kUnroll units in flight, a unit inside the band skipped unread, each
 //     pixel's bin tested against its own copy of the mask.  The first
 //     model-colored pixel sets a flag in rank 0's shared memory, which
@@ -54,6 +54,14 @@
 //     band_dirty is False.
 //   - The frame's row is min(slot, N - 1): a slot of N is padding, whose
 //     result the caller drops.
+//   - In place: given ``frame_at`` (the device address of an i64 word
+//     holding the frames' address when the kernel runs: the serving
+//     program's parameter block word that tick_select sets to tick k's
+//     frames) both frame reads, the rect's rows and the audit's, take the
+//     frames there, so the program's bodies copy none.  The rect's row
+//     loader finds each row's aligned head itself; the audit takes its
+//     16-byte loads where the stream's frame read is 16-byte aligned,
+//     tested on the address read, not on the launch's argument.
 //
 // The launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() of the launch.
@@ -86,6 +94,7 @@ struct Plane {
 // kernels/handoff.py _Args mirrors it field for field.
 struct Args {
   const uint8_t* frames;
+  const long long* frame_at;    // null, or the word holding the frames' address
   long long n, h, w;
   const long long* slots;       // (S,) or null: row s
   const int32_t* rect;          // the init form's (S, 4) rects, else null
@@ -206,7 +215,9 @@ __global__ void __launch_bounds__(kThreads) handoff_kernel(Args a) {
   long long row = a.slots ? a.slots[s] : s;
   row = row < a.n - 1 ? row : a.n - 1;
   const int h = static_cast<int>(a.h), w = static_cast<int>(a.w);
-  const uint8_t* f = a.frames + row * a.h * a.w * 3;
+  const uint8_t* frames =
+      a.frame_at ? reinterpret_cast<const uint8_t*>(*a.frame_at) : a.frames;
+  const uint8_t* f = frames + row * a.h * a.w * 3;
   if (t == 0) {
     if (a.rect) {
       for (int i = 0; i < 4; ++i) rect[i] = a.rect[4 * s + i];
@@ -306,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) handoff_kernel(Args a) {
   // the audit: a model-colored pixel outside the band placed for the rect
   if (rc.rw * rc.rh > 0) {  // an empty rect's mask is empty
     const band::Rect b = band::place_band(rect, h, w, a.band_h, a.band_w);
-    const bool vec = reinterpret_cast<uintptr_t>(a.frames) % 16 == 0 &&
+    const bool vec = reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
                      w % 16 == 0;
     volatile int* seen = at_rank(&flag, 0, split);
     scan_rows(f, w, static_cast<int>(rank) * h / static_cast<int>(split),

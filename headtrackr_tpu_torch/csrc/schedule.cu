@@ -15,10 +15,10 @@
 //                  many (lax.switch) and the top_k of the escaped streams
 //                  (few), or all of them in chunks (many);
 //   scan_step      :426 scan_steps (lax.scan), whose tick k reads its
-//                  slice of the frames: the rows of tick k that a body's
-//                  PyTorch ops read from the bodies' frame buffer, copied
-//                  there (a body whose one frame reader reads in place
-//                  copies none);
+//                  slice of the frames: tick k's frames (or some of their
+//                  rows) copied into a buffer.  The program runs none: all
+//                  of its bodies' frame readers read tick k's frames in
+//                  place;
 //   scan_commit    the scan's carry and stacked outputs: the tick body's
 //                  results, its outputs into row k of the (fields, K, N)
 //                  output packs and its new state over the state every
@@ -38,7 +38,7 @@
 // What bounds them: none moves more than the tick's frames (scan_step's
 // whole mode, bytes: N x H x W x 3 read and written, 0.0352 ms at 256 x
 // 240 x 320 on an H100 SXM at 3.35 TB/s; its rows mode s rows of H x W x
-// 3, 0.0011 ms at the bucket's 8) or the state (scan_commit: the leaves a
+// 3, 0.0011 ms at 8 rows) or the state (scan_commit: the leaves a
 // body changed, ~0.08 MB at 256 streams on an all-CS tick, whose camshift
 // passes its 4.2 MB model histograms through, ~4.3 MB on a tick that
 // changes them); the two selects read 4 to 8 bytes a stream and write 4, and
@@ -78,14 +78,11 @@
 //     k's frames lie (frame_at: frames_src + k x frame bytes), advances k
 //     and sets the loop's handle.  scan_commit reads the advanced k and
 //     writes row k - 1.
-//   - The frames stay where the caller put them.  A body whose only frame
-//     reader is histpdf_band (the all-CS tick under bandHist) reads tick
+//   - The frames stay where the caller put them.  Every frame reader of
+//     every body (histpdf_band, hist_mma, hist4096, the backprojections,
+//     frame_prep, handoff, and the escape bodies' slot_gather) reads tick
 //     k's frames at frame_at (the kernel loads the address from the
-//     parameter block) and has no copy; nor have the escape bodies, whose
-//     slot_gather reads the frames' rows there.  Any other body's IF graph
-//     runs scan_step ahead of the body, in the mode sched_program_build is
-//     given for it: rows (the bucket's served slots: those rows of tick k
-//     into the same rows of the buffer, padding skipped) or whole.
+//     parameter block), so no body copies a frame.
 //   - Each body keeps its own results (the tensors its capture returned,
 //     held for the graph's lifetime), so no body writes a shared buffer.
 //     scan_commit reads a table a body (kernels/schedule.py segments):
@@ -102,7 +99,7 @@
 //     grid (a row of N bools) is copied byte by byte.  escape_select reads
 //     the tick body's own escaped flags (their address in esc_at, by
 //     p->branch).  The few body reads the state every body reads, before
-//     anything commits: its IF graph runs [scan_step ->] the body, which
+//     anything commits: its IF graph runs the body, which
 //     gathers its slots' rows (slot_gather) and returns them and its
 //     step's results on them, then scan_commit of the tick body's table,
 //     then scan_commit of the few body's, each changed leaf's kept rows
@@ -131,7 +128,7 @@
 //   - sched_program_build assembles the graph: a WHILE node whose body is
 //     tick_select -> one IF node a tick body -> escape_select -> IF few,
 //     IF many -> scan_commit, each tick body's and the few body's IF node
-//     [scan_step ->] a child graph node of a PyTorch-captured body (the
+//     a child graph node of a PyTorch-captured body (the
 //     few body's followed by its two scan_commits), the many body's IF
 //     node the held tick commit -> WHILE (chunk body -> scan_commit):
 //     conditional nodes nested three deep.  It walks each body's nodes
@@ -175,8 +172,7 @@ struct Params {
   long long out[4];      // 7-10: the output packs, (rows, K, N) each
   long long commits;     // 11: scan_commit's runs this launch
   long long frame_at;    // 12: the tick's frames (tick_select writes it)
-  long long row_steps;   // 13: scan_step's runs that copied rows
-  long long whole_steps; // 14: scan_step's runs that copied whole
+  long long unused[2];   // 13-14
   long long chunks;      // 15: the many escape body's big chunks this tick
   long long runs[16];    // 16-31: runs this launch: tick_select's by the
                          // body it chose (0..), escape_select's at 8 + esel
@@ -706,7 +702,6 @@ __device__ void copy_bytes(unsigned char* __restrict__ dst,
 // grid-stride loop were 0.3-6% slower (tools/torch_copy_variants.py,
 // PERF.md).
 constexpr int kTileVectors = 1;
-constexpr int kCopyNone = 0, kCopyRows = 1, kCopyWhole = 2;
 
 // The grid.x that gives each of scan_step's threads kTileVectors vectors
 // of a copy of ``bytes``.
@@ -716,21 +711,20 @@ int step_ctas(long long bytes) {
   return c < 1 ? 1 : c > (1 << 30) ? (1 << 30) : static_cast<int>(c);
 }
 
-// Tick k's frames, at p->frame_at, into the bodies' buffer ``frames``.
+// Tick k's frames, at p->frame_at, into the buffer ``frames``.
 // Whole mode (rows null): ``bytes`` bytes.  Rows mode: blockIdx.y a slot,
 // the row rows[y] of ``bytes`` bytes to the same row (a slot outside [0,
 // n) is padding: skipped).  A CTA a tile of kTileVectors vectors a thread,
 // each loaded before any is stored (one pass over the grid, as step_ctas
 // sizes it), streamed; off the 16-byte grid, bytes strided over the CTAs.
 // Nothing is copied where source and buffer are one.  Each run counts in
-// p->steps and in its mode's word.
+// p->steps.
 __global__ void __launch_bounds__(kCopyThreads)
     scan_step_kernel(Params* p, unsigned char* __restrict__ frames,
                      long long bytes, const long long* __restrict__ rows,
                      int n) {
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
     p->steps += 1;
-    (rows ? p->row_steps : p->whole_steps) += 1;
   }
   long long off = 0;
   if (rows) {
@@ -1231,9 +1225,9 @@ int add_conditional(cudaGraphNode_t* node, cudaGraph_t g,
 // BUILD_ARGS mirrors them).
 enum BuildArg {
   kMode, kAge, kIdx, kAgeOut, kParams, kN, kKb, kCap, kRotate, kEscAt, kEidx,
-  kEb, kFrames, kFrameBytes, kTables, kSegs, kCommitCtas, kFew, kMany,
-  kSelScratch, kSelBytes, kEscScratch, kEscBytes, kCopies, kMerges, kMaps,
-  kElist, kChunkRows, kListLen, kTail, kTailRows, kNumArgs
+  kEb, kFrameBytes, kTables, kSegs, kCommitCtas, kFew, kMany, kSelScratch,
+  kSelBytes, kEscScratch, kEscBytes, kMerges, kMaps, kElist, kChunkRows,
+  kListLen, kTail, kTailRows, kNumArgs
 };
 
 // scan_commit's arguments: its tables and their entries, the held rows'
@@ -1258,35 +1252,17 @@ int add_commit(cudaGraphNode_t* node, cudaGraph_t g,
                     dim3(c.ctas), dim3(kCopyThreads), args);
 }
 
-// What a body's IF graph runs: scan_step in its copy mode (c: mode, rows,
-// slots: sched_program_build's copies), then the body ``g``, then
-// (``after``, the few body's) scan_commit of the tick body's table and of
-// table ``after_table``, the body's sub-batch rows.
+// What a body's IF graph runs: the body ``g``, then (``after``, the few
+// body's) scan_commit of the tick body's table and of table
+// ``after_table``, the body's sub-batch rows.
 int add_body(cudaGraphNode_t* node, cudaGraph_t parent,
              const cudaGraphNode_t* dep, cudaGraphConditionalHandle h,
-             cudaGraph_t g, const long long* c, Params* p,
-             unsigned char* frames, long long frame_bytes, int n,
-             const Commit* after, int after_table) {
+             cudaGraph_t g, Params* p, const Commit* after, int after_table) {
   cudaGraph_t bb;
   int rc = add_conditional(node, parent, dep, 1, h, cudaGraphCondTypeIf, &bb);
   if (rc) return rc;
-  cudaGraphNode_t step;
-  size_t nstep = 0;
-  if (c[0] != kCopyNone) {
-    const long long* rows =
-        c[0] == kCopyRows ? reinterpret_cast<const long long*>(c[1]) : nullptr;
-    long long bytes = rows ? frame_bytes / n : frame_bytes;
-    const unsigned slots = rows ? static_cast<unsigned>(c[2]) : 1u;
-    void* args[] = {&p, &frames, &bytes, &rows, &n};
-    rc = add_kernel(&step, bb, nullptr, 0,
-                    reinterpret_cast<void*>(scan_step_kernel),
-                    dim3(step_ctas(bytes), slots), dim3(kCopyThreads), args);
-    if (rc) return rc;
-    nstep = 1;
-  }
   cudaGraphNode_t inner;
-  TRY(cudaGraphAddChildGraphNode(&inner, bb, nstep ? &step : nullptr, nstep,
-                                 g));
+  TRY(cudaGraphAddChildGraphNode(&inner, bb, nullptr, 0, g));
   if (after) {
     cudaGraphNode_t tick, rows;
     rc = add_commit(&tick, bb, &inner, 1, p, *after, kTableTick);
@@ -1357,9 +1333,7 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   if (rc) return rc;
 
   Params* p = reinterpret_cast<Params*>(a[kParams]);
-  unsigned char* frames = reinterpret_cast<unsigned char*>(a[kFrames]);
   long long frame_bytes = a[kFrameBytes];
-  const long long* copies = reinterpret_cast<const long long*>(a[kCopies]);
   Handles hl = no_handles();
   hl.n = 1;
   hl.h[0] = loop;
@@ -1394,8 +1368,7 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
   if (rc) return rc;
   for (int b = 0; b < nb; ++b) {
     rc = add_body(&ifs[b], body, &sel, hb[b],
-                  reinterpret_cast<cudaGraph_t>(bodies[b]), copies + 3 * b, p,
-                  frames, frame_bytes, n, nullptr, 0);
+                  reinterpret_cast<cudaGraph_t>(bodies[b]), p, nullptr, 0);
     if (rc) return rc;
   }
 
@@ -1447,8 +1420,8 @@ int build(Program* prog, const long long* a, const unsigned long long* bodies,
     nlast = 0;
     if (few) {
       rc = add_body(&tail[nlast], body, &esel, hf,
-                    reinterpret_cast<cudaGraph_t>(a[kFew]), copies + 3 * nb,
-                    p, frames, frame_bytes, n, &commit_args, nb);
+                    reinterpret_cast<cudaGraph_t>(a[kFew]), p, &commit_args,
+                    nb);
       if (rc) return rc;
       ++nlast;
     }
@@ -1628,17 +1601,6 @@ extern "C" int sched_program_build(const void* args, int nargs,
   int version = 0;
   TRY(cudaDriverGetVersion(&version));
   if (version < kMinDriver) return -1;
-  // each body's copy: (mode, rows, slots), nb + 2 of them (few, many last)
-  const long long* c = reinterpret_cast<const long long*>(a[kCopies]);
-  if (c == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  for (int i = 0; i < nb + 2; ++i) {
-    const long long m = c[3 * i];
-    if (m < kCopyNone || m > kCopyWhole ||
-        (m == kCopyRows && (c[3 * i + 1] == 0 || c[3 * i + 2] < 1 ||
-                            c[3 * i + 2] > 65535 || a[kFrameBytes] % n))) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   const unsigned long long* b = static_cast<const unsigned long long*>(bodies);
   for (int i = 0; i < nb + 3; ++i) {
     const unsigned long long g =

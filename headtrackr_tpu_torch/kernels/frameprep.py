@@ -12,7 +12,10 @@ launch.  The kernel equals the twin to the bit.
 
 The kernel spreads each stream's frame over a cluster of P CTAs
 (``pick_split``; ``split=`` forces it) and joins their exact channel sums
-in the cluster's first CTA; the twin takes the same split.
+in the cluster's first CTA; the twin takes the same split.  It reads its
+frames in place under ``launch.frames_at`` (``launch.frames_of``), at any
+address: each CTA takes the widest loads that the address it reads
+allows.
 """
 
 import ctypes
@@ -21,7 +24,7 @@ import functools
 import torch
 
 from ..ops.imageproc import PWB_LENGTH, frame_prep_plain
-from .launch import launch, on_cuda, sm_count
+from .launch import frames_of, launch, on_cuda, sm_count
 from .meanshift import H100
 
 __all__ = ["frame_prep", "pick_split", "resolve_split", "MAX_SPLIT"]
@@ -55,7 +58,8 @@ def resolve_split(split, s, dev, cuda):
 
 class _Args(ctypes.Structure):
     """csrc/frameprep.cu's Args, field for field."""
-    _fields_ = [("frames", ctypes.c_void_p), ("n", ctypes.c_longlong),
+    _fields_ = [("frames", ctypes.c_void_p), ("frame_at", ctypes.c_void_p),
+                ("n", ctypes.c_longlong),
                 ("h", ctypes.c_longlong), ("w", ctypes.c_longlong),
                 ("slots", ctypes.c_void_p), ("mode", ctypes.c_void_p),
                 ("ring", ctypes.c_void_p), ("wb_n", ctypes.c_void_p),
@@ -100,13 +104,15 @@ def frame_prep(frames, slots, mode, wb_ring, wb_n, gray=True, wb_vj=False,
     u8 read through ``slots`` (S,) i64 padded with N (None: every
     stream); mode, wb_ring, wb_n the S rows' state; ``split`` the CTAs a
     stream (None: ``pick_split``'s).  Returns (gray (S, H, W) u8 or None,
-    wb (S,) f32, wb_ring' (S, 15) f32, wb_n' (S,) i32, mode' (S,) i32)."""
+    wb (S,) f32, wb_ring' (S, 15) f32, wb_n' (S,) i32, mode' (S,) i32).
+    Reads its frames in place under ``launch.frames_at``."""
     _check(frames, slots, mode, wb_ring, wb_n)
     tensors = [frames, mode, wb_ring, wb_n] + ([] if slots is None
                                                else [slots])
     cuda = on_cuda(*tensors)
     S, dev = mode.shape[0], frames.device
     split = resolve_split(split, S, dev, cuda)
+    frames, at = frames_of(frames, cuda)
     if not cuda:
         return frame_prep_plain(frames, slots, mode, wb_ring, wb_n, gray,
                                 wb_vj, split)
@@ -117,7 +123,7 @@ def frame_prep(frames, slots, mode, wb_ring, wb_n, gray=True, wb_vj=False,
     ring = torch.empty((S, PWB_LENGTH), dtype=torch.float32, device=dev)
     n = torch.empty((S,), dtype=torch.int32, device=dev)
     mode_out = torch.empty((S,), dtype=torch.int32, device=dev)
-    a = _Args(frames.data_ptr(), N, H, W,
+    a = _Args(frames.data_ptr(), at, N, H, W,
               0 if slots is None else slots.data_ptr(), mode.data_ptr(),
               wb_ring.data_ptr(), wb_n.data_ptr(),
               0 if g is None else g.data_ptr(), wb.data_ptr(),

@@ -13,7 +13,8 @@ launch.  The kernel equals the twin to the bit.
 The kernel spreads each stream over a cluster of P CTAs (``pick_split``,
 frame_prep's rule; ``split=`` forces it): the rect's rows, the histogram's
 bins and the audit's frame rows split over them; the twin takes the same
-split.
+split.  It reads its frames in place under ``launch.frames_at``
+(``launch.frames_of``), at any address.
 """
 
 import ctypes
@@ -24,7 +25,7 @@ import torch
 from ..ops.handoff import handoff_plain
 from ..ops.histogram import NBINS
 from .frameprep import MAX_SPLIT, pick_split, resolve_split
-from .launch import launch
+from .launch import frames_of, launch
 
 __all__ = ["handoff", "pick_split", "MAX_SPLIT"]
 
@@ -37,7 +38,8 @@ class _Plane(ctypes.Structure):
 
 class _Args(ctypes.Structure):
     """csrc/handoff.cu's Args, field for field."""
-    _fields_ = [("frames", ctypes.c_void_p), ("n", ctypes.c_longlong),
+    _fields_ = [("frames", ctypes.c_void_p), ("frame_at", ctypes.c_void_p),
+                ("n", ctypes.c_longlong),
                 ("h", ctypes.c_longlong), ("w", ctypes.c_longlong),
                 ("slots", ctypes.c_void_p), ("rect", ctypes.c_void_p),
                 ("found", _Plane), ("x", _Plane), ("y", _Plane),
@@ -107,7 +109,8 @@ def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
     (leaves, mode', (x, y, w, h, angle, conf))).  frames (N, H, W, 3) u8
     read through ``slots`` (S,) i64 padded with N (None: every stream);
     band=(bh, bw): the audit, band_dirty among the leaves; ``split`` the
-    CTAs a stream (None: ``pick_split``'s)."""
+    CTAs a stream (None: ``pick_split``'s).  Reads its frames in place
+    under ``launch.frames_at``."""
     init = det is None
     s = rect.shape[0] if init else entry_mode.shape[0]
     _check(frames, slots, s)
@@ -130,6 +133,7 @@ def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
     cuda = _devices(inputs)
     dev = frames.device
     split = resolve_split(split, s, dev, cuda)
+    frames, at = frames_of(frames, cuda)
     if not cuda:
         return handoff_plain(frames, slots, rect, det, entry_mode, mode, old,
                              band, split)
@@ -152,7 +156,7 @@ def handoff(frames, slots=None, rect=None, det=None, entry_mode=None,
     angle = torch.empty((s,), dtype=_F32, device=dev)
     dirty = torch.empty((s,), dtype=torch.bool, device=dev) \
         if band is not None else None
-    a = _Args(frames.data_ptr(), N, H, W, dense(slots), dense(rect))
+    a = _Args(frames.data_ptr(), at, N, H, W, dense(slots), dense(rect))
     a.hist, a.win, a.angle, a.dirty = (hist.data_ptr(), win.data_ptr(),
                                        angle.data_ptr(), dense(dirty))
     for j in range(4):

@@ -17,9 +17,9 @@ import torch
 
 from ..ops.histogram import NBINS, hist_mma_plain
 from ..ops.histogram import full_rects
-from .histpdf import _check_frames, _check_rects, _frames_of
+from .histpdf import _check_frames, _check_rects
 from .histbins import row_chunks
-from .launch import launch, on_cuda, row_ptr, sm_count
+from .launch import frames_of, launch, on_cuda, row_ptr, sm_count
 
 __all__ = ["hist_mma", "split_frame"]
 
@@ -50,7 +50,7 @@ def hist_mma(frames, rects=None):
     the whole frame (the kernel reads no rect).  By an int8 one-hot
     product on the tensor cores: ``hist4096``'s contract.  Its grid covers
     the frame: meant for the whole frame.  Reads its frames in place under
-    ``launch.frames_at`` (kernels/histpdf.py ``_frames_of``): the kernel
+    ``launch.frames_at`` (``launch.frames_of``): the kernel
     then takes its bulk copies where the address it loads is 16-byte
     aligned, else its per-thread loads."""
     _check_frames(frames)
@@ -58,7 +58,7 @@ def hist_mma(frames, rects=None):
     if rects is not None:
         _check_rects(rects, N)
     card = on_cuda(frames, *(() if rects is None else (rects,)))
-    frames, at = _frames_of(frames, card)
+    frames, at = frames_of(frames, card)
     if not card:
         if rects is None:
             rects = full_rects(N, (H, W), frames.device)

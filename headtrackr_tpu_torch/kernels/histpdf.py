@@ -28,7 +28,7 @@ stream (``cluster_split``), each CTA counting a share of the rect's rows
 The frame readers (``hist4096``, ``backproject`` and
 ``backproject_ratio``, ``histpdf_band``'s pdf mode, and
 kernels/histmma.py's ``hist_mma``) read their frames in place under
-``launch.frames_at(frames, source)`` (``_frames_of``): on the card the
+``launch.frames_at(frames, source)`` (``launch.frames_of``): on the card the
 kernel loads the frames' address from source's word (the serving
 program's parameter block, which tick_select sets to tick k's frames), on
 the CPU the twin reads source.
@@ -53,7 +53,7 @@ from ..ops.histogram import (NBINS, backproject_plain,
                              backproject_ratio_plain, full_rects,
                              hist4096_plain, histpdf_band_plain)
 from .histbins import hist_bins, row_chunks
-from .launch import frames_source as _frames_source
+from .launch import frames_of as _frames_of
 from .launch import launch as _launch
 from .launch import on_cuda as _on_cuda
 from .launch import row_ptr as _row_ptr
@@ -129,25 +129,6 @@ def _placed(windows, band, H, W):
     return band_rects(*band_rect(windows, band, (H, W)))
 
 
-def _frames_of(frames, on_card):
-    """Where a frame reader reads ``frames`` (``launch.frames_at``): on the
-    card (frames, the device address of the word that holds their address
-    when the kernel runs, 0 where it reads ``frames`` themselves), on the
-    CPU (the frames the twin reads, 0)."""
-    source = _frames_source(frames)
-    if source is None:
-        return frames, 0
-    if on_card:
-        if source.dtype != torch.int64 or source.numel() != 1 or \
-                source.device != frames.device:
-            raise ValueError("on the card frames_at's source is a (1,) i64 "
-                             "word on the frames' device")
-        return frames, source.data_ptr()
-    if source.shape != frames.shape or source.dtype != frames.dtype:
-        raise ValueError("frames_at's source must match the frames")
-    return source, 0
-
-
 def hist4096(frames, rects=None):
     """(N, H, W, 3) u8 + (N, 4) i32 [x, y, w, h] -> (N, 4096) f32 exact
     counts of each stream's rect (clamped to the frame); ``rects`` None:
@@ -171,7 +152,7 @@ def hist4096(frames, rects=None):
 def _counts(key, frames, rects, at=0):
     """The rects' counts (None: the whole frame) by the cluster kernel (C
     from the frame), its launch counted under ``key``; ``at``: the address
-    word of frames read in place (``_frames_of``), 0 for none."""
+    word of frames read in place (``launch.frames_of``), 0 for none."""
     N, H, W, _ = frames.shape
     out = torch.empty((N, NBINS), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):

@@ -12,10 +12,11 @@ code (the per-tick path's eager branches, the state machine's host index
 lists, the host escape recompute), so a run can show that the
 device-scheduled path never reached them.
 
-``frames_at`` redirects a kernel that can read its frames in place
-(``histpdf_band``, ``hist4096``, ``hist_mma``, ``backproject`` in both
-forms) from one buffer to where a tick's frames lie: the serving program's
-bodies read tick k of a scan without a copy.
+``frames_at`` redirects the kernels that read frames (``histpdf_band``,
+``hist4096``, ``hist_mma``, ``backproject`` in both forms, ``frame_prep``,
+``handoff``, ``slot_gather``'s extra leaf) from one buffer to where a
+tick's frames lie (``frames_of``): the serving program's bodies read tick
+k of a scan without a copy.
 """
 
 import contextlib
@@ -24,7 +25,8 @@ import functools
 import torch
 
 __all__ = ["launches", "host_paths", "reset_launches", "capturing",
-           "replayed", "frames_at", "frames_source", "launch", "on_cuda",
+           "replayed", "frames_at", "frames_source", "frames_of", "launch",
+           "on_cuda",
            "row_ptr", "sm_count"]
 
 launches = {"hist4096": 0, "backproject": 0, "backproject_rect": 0,
@@ -84,6 +86,25 @@ def frames_source(frames):
     if _redirect is not None and frames is _redirect[0]:
         return _redirect[1]
     return None
+
+
+def frames_of(frames, on_card):
+    """Where a frame reader reads ``frames`` (``frames_at``): on the card
+    (frames, the device address of the word that holds their address when
+    the kernel runs, 0 where it reads ``frames`` themselves), on the CPU
+    (the frames the twin reads, 0)."""
+    source = frames_source(frames)
+    if source is None:
+        return frames, 0
+    if on_card:
+        if source.dtype != torch.int64 or source.numel() != 1 or \
+                source.device != frames.device:
+            raise ValueError("on the card frames_at's source is a (1,) i64 "
+                             "word on the frames' device")
+        return frames, source.data_ptr()
+    if source.shape != frames.shape or source.dtype != frames.dtype:
+        raise ValueError("frames_at's source must match the frames")
+    return source, 0
 
 
 def replayed(tally):

@@ -8,9 +8,9 @@ their plain twins, and the program's CUDA graph.
   escape_select  :225 _escape_checked: none / few / many (its lax.switch)
                  and the top_k of the escaped streams (few), or all of
                  them, listed for the many body's chunks
-  scan_step      :426 scan_steps (lax.scan): of tick k's frames, which
-                 tick_select locates, the rows a body's PyTorch ops read,
-                 into the bodies' buffer (rows or whole)
+  scan_step      :426 scan_steps (lax.scan): tick k's frames, which
+                 tick_select locates, into a buffer (rows or whole); the
+                 program runs none, since every body reads them in place
   scan_commit    the scan's carried state and its stacked outputs: the
                  tick body's results (each body keeps its own), by
                  ``segments``' table of that body; a sub-batch's rows
@@ -45,13 +45,13 @@ from typing import NamedTuple
 
 import torch
 
-from .launch import frames_source, launch, on_cuda
+from .launch import frames_of, frames_source, launch, on_cuda
 
 __all__ = ["tick_select", "tick_select_plain", "escape_select",
            "escape_select_plain", "escape_list_plain", "scan_step",
            "scan_step_plain",
            "scan_commit", "scan_commit_plain", "segments", "Graph",
-           "PARAM_WORDS", "COPY_MODES", "select_blocks", "scratch_bytes",
+           "PARAM_WORDS", "select_blocks", "scratch_bytes",
            "scratch", "select_floor", "CommitTables", "commit_ctas",
            "commit_chunks", "check_commit", "Slots", "slot_gather",
            "slot_gather_plain", "SLOT_LEAVES", "gather_ctas", "TABLE_PICK",
@@ -70,7 +70,6 @@ PARAM_WORDS = 38
 P_K, P_TICKS, P_FORCE, P_STEPS, P_BRANCH, P_ESEL, P_FRAMES, P_OUT = range(8)
 P_COMMITS = 11  # scan_commit's runs this launch (P_STEPS: scan_step's)
 P_FRAME_AT = 12  # the tick's frames: tick_select writes P_FRAMES + k bytes
-P_ROW_STEPS, P_WHOLE_STEPS = 13, 14  # scan_step's runs that copied, by mode
 P_CHUNKS = 15  # the many escape body's big chunks this tick
 P_RUNS = 16  # runs this launch: tick_select's by its body from here,
 ESCAPE_RUNS = 8  # escape_select's at P_RUNS + ESCAPE_RUNS + sel
@@ -81,18 +80,16 @@ P_TAIL, P_TAILS = 34, 35  # its small chunk that runs, the end of them
 P_TAIL_RUNS = 36  # its small chunks run this launch
 # sched_program_build's argument words (csrc/schedule.cu BuildArg)
 BUILD_ARGS = ("mode", "age", "idx", "age_out", "params", "n", "kb", "cap",
-              "rotate", "esc_at", "eidx", "eb", "frames", "frame_bytes",
-              "tables", "segs", "commit_ctas", "few", "many", "sel_scratch",
-              "sel_bytes", "esc_scratch", "esc_bytes", "copies", "merges",
-              "maps", "elist", "chunk_rows", "list_len", "tail", "tail_rows")
+              "rotate", "esc_at", "eidx", "eb", "frame_bytes", "tables",
+              "segs", "commit_ctas", "few", "many", "sel_scratch",
+              "sel_bytes", "esc_scratch", "esc_bytes", "merges", "maps",
+              "elist", "chunk_rows", "list_len", "tail", "tail_rows")
 # scan_commit's grid (csrc/schedule.cu kCopyThreads): CTAs of COMMIT_THREADS
 # threads, a thread a 16-byte chunk of the table at a time, at most
 # COMMIT_CTAS_PER_SM CTAs an SM (one wave: 2,048 threads an SM)
 COMMIT_THREADS = 256
 COMMIT_CHUNK = 16
 COMMIT_CTAS_PER_SM = 8
-# scan_step's copy modes (csrc/schedule.cu kCopyNone, kCopyRows, kCopyWhole)
-COPY_MODES = ("none", "rows", "whole")
 # a commit entry's merge kinds (csrc/schedule.cu Merge): none, a whole copy
 # whose mapped rows come from the sub rows, the mapped rows alone; the flag
 # of a leaf whose held rows a commit with held rows leaves
@@ -402,8 +399,7 @@ def slot_gather_plain(state, idx, escape=False, extra=(), at=None,
         idx = into
     n = state.mode.shape[0]
     safe = torch.clamp(idx, max=n - 1)
-    extra = tuple(t if frames_source(t) is None else frames_source(t)
-                  for t in extra)
+    extra = tuple(frames_of(t, False)[0] for t in extra)
 
     def rows(t):
         if isinstance(t, tuple):
@@ -626,8 +622,7 @@ def scan_step(params, frames, rows=None):
     """The tick's frames, read at the address ``params[P_FRAME_AT]``
     (tick_select's), into the buffer ``frames`` (N, ...) u8: whole, or
     with ``rows`` (S,) i64 only those rows into the same rows (a slot
-    outside [0, N) skipped).  One run into ``params[P_STEPS]`` and into
-    ``params[P_ROW_STEPS]`` or ``[P_WHOLE_STEPS]``.
+    outside [0, N) skipped).  One run into ``params[P_STEPS]``.
     CUDA only: the frames' address is a device word (the twin is
     scan_step_plain)."""
     if params.dtype != torch.int64 or params.shape != (PARAM_WORDS,) or \
@@ -875,36 +870,27 @@ class Graph:
     node a body -> escape_select -> IF few, IF many -> scan_commit), each
     tick body's and the few body's IF node a child graph node of a
     PyTorch-captured body (``torch.cuda.CUDAGraph(keep_graph=True)``'s
-    ``raw_cuda_graph()``), after a scan_step node where the body copies,
-    the few body's followed by the tick body's commit and its own; the
-    many body's IF node the tick body's commit with the escaped streams'
-    state rows held, then a WHILE node over its big chunks and one over
-    its small ones (a chunk body's child graph node, then the chunk's
-    commit).  ``bodies``: {name: raw graph} in branch order; ``few`` /
-    ``many``: raw graphs or 0 (many: the big chunk's body); ``copies``:
-    each body's copy, bodies then few and many, as (mode in COPY_MODES,
-    rows tensor or None); ``args``: the device
-    addresses and sizes of BUILD_ARGS (``tables``/``segs``: the commit's
-    ``CommitTables``, a table a tick body, then few and the many body's
-    chunk, then its small chunk; ``esc_at``: a tick body's escaped flags'
-    address each, on the device, or 0 without a band; ``elist``,
-    ``chunk_rows``, ``list_len``, ``tail_rows``: escape_select's list for
-    the many body, its big and small chunks; ``tail``: the small chunk's
-    raw graph).  Building
-    raises on a body node type a conditional body cannot hold, on a driver
-    older than 12.4 and on any CUDA error; so does ``launch``."""
+    ``raw_cuda_graph()``), the few body's followed by the tick body's
+    commit and its own; the many body's IF node the tick body's commit
+    with the escaped streams' state rows held, then a WHILE node over its
+    big chunks and one over its small ones (a chunk body's child graph
+    node, then the chunk's commit).  No node copies a frame: every body
+    reads tick k's frames in place.  ``bodies``: {name: raw graph} in
+    branch order; ``few`` / ``many``: raw graphs or 0 (many: the big
+    chunk's body); ``args``: the device addresses and sizes of BUILD_ARGS
+    (``tables``/``segs``: the commit's ``CommitTables``, a table a tick
+    body, then few and the many body's chunk, then its small chunk;
+    ``esc_at``: a tick body's escaped flags' address each, on the device,
+    or 0 without a band; ``elist``, ``chunk_rows``, ``list_len``,
+    ``tail_rows``: escape_select's list for the many body, its big and
+    small chunks; ``tail``: the small chunk's raw graph).  Building raises
+    on a body node type a conditional body cannot hold, on CUDA older than
+    12.4 and on any CUDA error; so does ``launch``."""
 
-    def __init__(self, bodies, few, many, copies, **args):
+    def __init__(self, bodies, few, many, **args):
         from .build import load_library
         self._lib = load_library()
-        if len(copies) != len(bodies) + 2:
-            raise ValueError("a copy a body, few and many")
-        table = (ctypes.c_longlong * (3 * len(copies)))(*[
-            v for mode, rows in copies
-            for v in (COPY_MODES.index(mode),
-                      0 if rows is None else rows.data_ptr(),
-                      0 if rows is None else rows.numel())])
-        args.update(few=few, many=many, copies=ctypes.addressof(table))
+        args.update(few=few, many=many)
         words = (ctypes.c_longlong * len(BUILD_ARGS))(
             *[int(args[k]) for k in BUILD_ARGS])
         graphs = (ctypes.c_ulonglong * len(bodies))(*bodies.values())

@@ -40,17 +40,17 @@ sub-batch of ``escape_bucket`` slots, or every escaped stream in chunks
 of ``escape_chunk``, a WHILE node nested in the fallback's IF node); a
 WHILE node runs the K ticks of ``run_scan`` (scan_commit).  The ticks'
 frames stay where the caller staged them: tick_select writes where tick
-k's lie, the frame readers of the camshift step and the escape bodies'
-gathers read them there (histpdf_band, hist_mma, hist4096, backproject,
-slot_gather: the all-CS tick of every configuration and the escape
-bodies copy none), and scan_step copies into the bodies' buffer only
-what another body's kernels read of it (``_Steps.copy_mode``).  Its select kernels are a grid of CTAs each,
+k's lie, and every frame reader of every body reads them there
+(histpdf_band, hist_mma, hist4096, backproject, frame_prep, handoff and
+the escape bodies' slot_gather), so no body copies a frame
+(``_Steps.copy_mode``).  Its select kernels are a grid of CTAs each,
 whose last CTA merges the others' counts and candidates, so the program
-serves any batch whose frames fit the card.  Each body keeps its own results, and scan_commit copies those of
-the body that ran (a leaf it passed through, none).
+serves any batch whose frames fit the card.  Each body keeps its own
+results, and scan_commit copies those of the body that ran (a leaf it
+passed through, none).
 What bounds N on one card is its memory alone (one tick's frames, a
-scan's staged ticks, the state, the bodies' buffers and the results each
-body keeps: 10,240 streams of 320x240 stage 9.4 GB a scan of 4 ticks):
+scan's staged ticks, the state and the results each body keeps: 10,240
+streams of 320x240 stage 9.4 GB a scan of 4 ticks):
 the wrappers of the kernels that put the stream on the grid's y axis
 (65,535 a launch) split a larger batch into launches of at most that
 many (kernels/histbins.py row_chunks).  Nothing clips N.  The branches'
@@ -265,20 +265,16 @@ class _Buffers:
     which the results each keeps stay allocated for the graph's lifetime,
     so that no later capture reuses them.  On the card ``params`` is the
     serving program's parameter block (``chunk`` and ``tail`` its words
-    P_CHUNK and P_TAIL), whose
-    word ``frame_at`` holds where the tick's frames lie (tick_select
-    writes it): a body's frame readers that read in place read them
-    there, and the program copies into ``frames`` only what the body's
-    other kernels read of them (``_Steps.copy_mode``: the slots' rows that
-    frame_prep and handoff read, or the whole tick that the wbtrack and
-    full bodies' frame_prep, handoff and pyramid read)."""
+    P_CHUNK and P_TAIL), whose word ``frame_at`` holds where the tick's
+    frames lie (tick_select writes it): every frame reader of every body
+    reads them there (``frames``)."""
 
     def __init__(self, state, frames_shape, device, cap, escape_bucket, m,
                  ms):
         n = frames_shape[0]
         self.device = device
-        self.frames = torch.zeros(frames_shape, dtype=torch.uint8,
-                                  device=device)
+        self.frames_shape = tuple(frames_shape)
+        self._frames = None
         self.state_in = _clone(state)
         self.idx = torch.full((cap,), n, dtype=torch.int64, device=device)
         self.eidx = torch.full((escape_bucket,), n, dtype=torch.int64,
@@ -303,6 +299,27 @@ class _Buffers:
             self.chunk = self.params[schedule.P_CHUNK:schedule.P_CHUNK + 1]
             self.tail = self.params[schedule.P_TAIL:schedule.P_TAIL + 1]
 
+    @property
+    def frames(self):
+        """The (N, H, W, 3) u8 frames the bodies take, which none of their
+        kernels reads: under ``launch.frames_at`` each reads the tick's
+        frames where they lie instead (on the card at ``frame_at``, on the
+        CPU tick k's, which the twins read).  Only a body's warm-up before
+        its capture reads these (zeros).  On the card they are held while
+        bodies are captured and freed after (``release``): a captured
+        launch keeps their address, which it never dereferences.  On the
+        CPU they stay, the tensor the twins' redirect names."""
+        if self._frames is None:
+            self._frames = torch.zeros(self.frames_shape, dtype=torch.uint8,
+                                       device=self.device)
+        return self._frames
+
+    def release(self):
+        """Free the card's ``frames`` once the bodies are captured (a later
+        capture allocates them again)."""
+        if self.device.type == "cuda":
+            self._frames = None
+
     def lay_out(self, out):
         """The output packs' layout from a body's outputs, once: ``rows``,
         each leaf's (dtype, row) in a (fields, N) pack a dtype, and
@@ -322,31 +339,26 @@ class _TickGraph:
     """A tick body of the serving program, ``tick(state, frames, *extra)
     -> (state', StepOutput[, _Merge])``, or a ``_Merge`` alone (an escape
     body: its sub-batch, no results of the whole batch), on a batch
-    size's ``_Buffers`` (from their ``state_in`` and ``frames``).  It
-    writes no shared buffer.  On the card it is captured in a CUDA graph
-    (keep_graph, for the program's conditional nodes; in the buffers'
-    pool; a capture failure raises; ``launches`` tallies the kernel
-    launches one run makes), and ``state`` and ``out`` (and ``merge``)
-    keep the tensors its capture returned, as
+    size's ``_Buffers`` (from their ``state_in``; its frames read where
+    the tick's lie).  It writes no shared buffer.  On the card it is
+    captured in a CUDA graph (keep_graph, for the program's conditional
+    nodes; in the buffers' pool; a capture failure raises; ``launches``
+    tallies the kernel launches one run makes), and ``state`` and ``out``
+    (and ``merge``) keep the tensors its capture returned, as
     ``torch.cuda.make_graphed_callables`` keeps its static outputs: each
     replay's results, at addresses fixed for the graph's lifetime, which
     the program commits (a leaf the body passes through is ``state_in``'s
     own tensor).  On the CPU ``run`` calls the tick and returns its
     results.
 
-    ``copy`` (kernels/schedule.py COPY_MODES) is what the program copies
-    into the buffers' frames before the body: "none", "rows" (the slots
-    ``rows``) or "whole".  A body that copies less than the whole tick
-    reads its frames in place where it can: it is captured, and run on
-    the CPU, under ``launch.frames_at`` (on the card the buffers'
-    ``frame_at`` word, on the CPU tick k's frames), so its camshift step's
-    frame readers (``histpdf_band``, ``hist_mma``, ``hist4096``,
-    ``backproject``) read the tick's frames where they lie and anything
-    else reads the buffer."""
+    The body reads its frames in place: it is captured, and run on the
+    CPU, under ``launch.frames_at`` (on the card the buffers' ``frame_at``
+    word, on the CPU tick k's frames), so every frame reader in it reads
+    the tick's frames where they lie and none reads the buffers'
+    ``frames``."""
 
-    def __init__(self, tick, bufs, extra, copy="whole", rows=None):
+    def __init__(self, tick, bufs, extra):
         self.bufs, self.extra = bufs, extra
-        self.copy, self.rows = copy, rows
         self.device = bufs.device
         self.graph = self.state = self.out = self.merge = None
         self.launches = dict.fromkeys(launch.launches, 0)
@@ -374,14 +386,13 @@ class _TickGraph:
         del self.tick
 
     def run(self, source=None):
-        """Run the body once (its warm-up, which reads the buffer, and its
-        capture on the card; the program's twin on the CPU) and return its
-        results; ``source``: where the tick's frames lie, for a body that
-        copies less than the whole tick (``launch.frames_at``)."""
-        with launch.frames_at(self.bufs.frames,
-                              None if self.copy == "whole" else source):
-            return self.tick(self.bufs.state_in, self.bufs.frames,
-                             *self.extra)
+        """Run the body once (its warm-up, which reads the buffers' frames,
+        and its capture on the card; the program's twin on the CPU) and
+        return its results; ``source``: where the tick's frames lie
+        (``launch.frames_at``)."""
+        frames = self.bufs.frames
+        with launch.frames_at(frames, source):
+            return self.tick(self.bufs.state_in, frames, *self.extra)
 
 
 class _Program:
@@ -410,10 +421,8 @@ class _Program:
     rows from ``state_in`` and the tick's frames, runs the step on them,
     and scan_commit writes its kept rows alone (``_few_pairs`` again).
     No tick stages a leaf or copies one whole for an escape.  ``escaped``
-    is the tick body's flags, stamped after the merge.  Ahead of a body,
-    scan_step copies into the bodies' frame buffer what its kernels read
-    there (each body's ``copy``: none, its slots' rows or the whole tick;
-    the escape bodies read the tick's frames in place and copy none).
+    is the tick body's flags, stamped after the merge.  No body copies a
+    frame: each reads the tick's frames where they lie.
 
     Each body keeps one state and one output set of its own, so a batch
     size holds one a body on top of the shared buffers (the leaves it
@@ -444,7 +453,6 @@ class _Program:
         n = state.mode.shape[0]
         self.device = steps.device
         self.bufs = bufs = steps.buffers(state)
-        self.steps = dict.fromkeys(("runs", "rows", "whole"), 0)
         # the many body's chunks run by the last launch, and the big ones
         # among them
         self.chunks = self.big_chunks = 0
@@ -476,9 +484,6 @@ class _Program:
         if self.device.type != "cuda":
             return
         self._params = bufs.params
-        copies = [(b.copy, b.rows) for b in self.bodies]
-        copies += [(b.copy, b.rows) if b is not None else ("none", None)
-                   for b in (self.few, self.many)]
         sms = launch.sm_count(self.device)
         with torch.cuda.device(self.device):
             # a table a body: the tick bodies, then few and the many body's
@@ -504,15 +509,14 @@ class _Program:
                  for k, b in zip(keys, self.bodies)},
                 self.few.graph.raw_cuda_graph() if self.few else 0,
                 self.many.graph.raw_cuda_graph() if self.many else 0,
-                copies, mode=bufs.state_in.mode.data_ptr(),
+                mode=bufs.state_in.mode.data_ptr(),
                 age=bufs.state_in.pend_age.data_ptr(),
                 idx=bufs.idx.data_ptr(), age_out=bufs.age.data_ptr(),
                 params=self._params.data_ptr(), n=n, kb=self.kb,
                 cap=self.cap, rotate=int(self.rotate),
                 esc_at=esc_at.data_ptr() if band else 0,
                 eidx=bufs.eidx.data_ptr(), eb=self.eb,
-                frames=bufs.frames.data_ptr(),
-                frame_bytes=bufs.frames.numel(),
+                frame_bytes=int(np.prod(bufs.frames_shape)),
                 tables=self._commit.tables.data_ptr(),
                 segs=self._commit.segs.data_ptr(),
                 commit_ctas=schedule.commit_ctas(self._commit.chunks, sms),
@@ -527,6 +531,7 @@ class _Program:
                 esc_scratch=self._scratch[1].data_ptr(),
                 esc_bytes=self._scratch[1].numel())
             self._done = torch.cuda.Event()
+        bufs.release()
         # the parameter block's host side, written and read through NumPy
         # views (a torch op a word would cost the launch more host time)
         self._host = torch.zeros((schedule.PARAM_WORDS,), dtype=torch.int64,
@@ -643,15 +648,6 @@ class _Program:
             self._done.record()
         return self, (packs, K, seq, squeeze)
 
-    def _copy_plain(self, body, src):
-        """scan_step's twin ahead of ``body`` (its copy, tick k's frames
-        ``src``), counted in ``steps`` as the kernel counts its runs."""
-        if body.copy == "none":
-            return
-        self.steps["runs"] += 1
-        self.steps[body.copy] += 1
-        schedule.scan_step_plain(src, self.bufs.frames, body.rows)
-
     def _commit_plain(self, k, packs, table, hold=None):
         """scan_commit's twin of one (carry, rows[, slots]) table for tick
         k into ``packs``."""
@@ -670,7 +666,6 @@ class _Program:
         rows).  Returns the runs."""
         bufs = self.bufs
         runs = [0] * schedule.RUN_WORDS
-        self.steps = dict.fromkeys(self.steps, 0)
         self.chunks = self.big_chunks = 0
         for k in range(seq.shape[0]):
             branch, idx, age = schedule.tick_select_plain(
@@ -678,9 +673,7 @@ class _Program:
                 self.cap, self.rotate, force, bufs.idx)
             bufs.idx.copy_(idx)
             bufs.age.copy_(age)
-            body = self.bodies[branch]
-            self._copy_plain(body, seq[k])
-            state, out, *merge = body.run(seq[k])
+            state, out, *merge = self.bodies[branch].run(seq[k])
             merge = merge[0] if merge else None
             runs[branch] += 1
             tick = self._commit_pairs(state, out, merge)
@@ -747,10 +740,6 @@ class _Program:
             launch.launches["tick_select"] += ticks
             launch.launches["escape_select"] += sum(
                 self.runs[schedule.ESCAPE_RUNS:])
-            self.steps = {"runs": int(back[schedule.P_STEPS]),
-                          "rows": int(back[schedule.P_ROW_STEPS]),
-                          "whole": int(back[schedule.P_WHOLE_STEPS])}
-            launch.launches["scan_step"] += self.steps["runs"]
             launch.launches["scan_commit"] += int(back[schedule.P_COMMITS])
             view = self._mode_host.numpy().copy()
         else:
@@ -878,19 +867,15 @@ class _Steps:
 
     @staticmethod
     def copy_mode(key):
-        """What the program copies of a tick's frames into the bodies'
-        buffer before the body ``key`` (``_graphs``' keys), from what its
-        kernels read there, the same in every configuration: the camshift
-        step's frame readers (``histpdf_band``; ``hist_mma`` or
-        ``hist4096`` and ``backproject``) and the escape bodies'
-        ``slot_gather`` read in place, so the all-CS tick and the few and
-        many escape bodies copy none ("none"); the bucket's "pending" step
-        (``frame_prep``, ``handoff``) reads its slots' rows ("rows"); the
-        wbtrack and full bodies' ``frame_prep``, ``handoff`` and
-        ``pyramid`` read the whole frames ("whole")."""
-        if key in (0, "few", "many", "tail"):
-            return "none"
-        return "whole" if key in ("wbtrack", "full") else "rows"
+        """What the program copies of a tick's frames before the body
+        ``key`` (``_graphs``' keys): "none", for every body in every
+        configuration.  Every frame reader of the bodies (the camshift
+        step's ``histpdf_band``, ``hist_mma`` or ``hist4096`` and
+        ``backproject``; ``frame_prep`` and ``handoff`` of the WB and VJ
+        branches; the escape bodies' ``slot_gather``) reads the tick's
+        frames in place, and ``pyramid`` reads ``frame_prep``'s gray
+        plane."""
+        return "none"
 
     def track(self, state, frames):
         """The "track" step with the band's escape recompute."""
@@ -1068,9 +1053,7 @@ class _Steps:
                                "full": self._auto_full}[key], ()
             else:  # the served streams' slots, padded with N
                 tick, extra = self.bucket_device, (bufs.idx[:key],)
-            copy = self.copy_mode(key)
-            self._graphs[(n, key)] = _TickGraph(
-                tick, bufs, extra, copy, extra[0] if copy == "rows" else None)
+            self._graphs[(n, key)] = _TickGraph(tick, bufs, extra)
         return self._graphs[(n, key)]
 
     def program(self, state):

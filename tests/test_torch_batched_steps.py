@@ -165,6 +165,33 @@ def test_steps_match_reference_tick_for_tick(reference):
     assert esc[-8:, 3].all()
 
 
+def test_program_reads_every_tick_in_place_with_a_poisoned_buffer(
+        reference):
+    """The serving program's CPU twin (``scheduled``: the bodies
+    uncaptured, the kernels' twins) over the clip, the bodies' frame
+    buffer filled with 255 before each step_auto call: every tick's state
+    and outputs equal the reference's step_auto, through the cold start's
+    wbtrack ticks, a full tick (overload "full", more pending streams
+    than chunk_cap), chunk and bucket ticks and all-CS ticks; and the
+    buffer stays 255 (no body copies a frame into it)."""
+    clip, ticks, _ = reference
+    tb = pt.BatchedTracker(N, (H, W), cascade=toy_cascade(), device="cpu",
+                           **KW, **CFG)
+    tb._steps.scheduled = True
+    bufs = tb._steps.buffers(tb.state)
+    runs = np.zeros(16, int)
+    for t, (frames, row) in enumerate(zip(clip, ticks)):
+        bufs.frames.fill_(255)
+        out = tb.step_auto(frames)
+        _assert_result(row["auto"], (tb.state, out), f"tick {t}")
+        assert bool((bufs.frames == 255).all()), f"tick {t}"
+        runs += tb._steps.program(tb.state).runs
+    keys = tb._steps.body_keys(N)
+    ran = {keys[b] for b in range(len(keys)) if runs[b]}
+    assert {0, "wbtrack", "full"} <= ran and ran & {1, 2, 3, 4}, ran
+    assert tb._steps.chunk_cap(N) == 4
+
+
 def test_donate_false_leaves_the_state_untouched():
     (s_full, s_track, s_bucket, s_auto, s_scan), config = _steps(
         donate=False)

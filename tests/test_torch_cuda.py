@@ -1784,8 +1784,7 @@ def test_schedule_copy_kernels_equal_twins(dev):
                 for rows in cases:
                     frames = torch.full(shape[1:], 255, dtype=torch.uint8,
                                         device=dev)
-                    before = [int(gp[w]) for w in (
-                        S.P_STEPS, S.P_ROW_STEPS, S.P_WHOLE_STEPS)]
+                    before = int(gp[S.P_STEPS])
                     S.scan_step(gp, frames,
                                 None if rows is None else rows.to(dev))
                     want = torch.full(shape[1:], 255, dtype=torch.uint8)
@@ -1793,13 +1792,7 @@ def test_schedule_copy_kernels_equal_twins(dev):
                     torch.cuda.synchronize()
                     where = f"{shape} offset {offset} k {k} rows {rows}"
                     assert torch.equal(frames.cpu(), want), where
-                    after = [int(gp[w]) for w in (
-                        S.P_STEPS, S.P_ROW_STEPS, S.P_WHOLE_STEPS)]
-                    mode_word = 1 if rows is not None else 2
-                    assert after[0] == before[0] + 1, where
-                    for j in (1, 2):
-                        assert after[j] == before[j] + (j == mode_word), \
-                            where
+                    assert int(gp[S.P_STEPS]) == before + 1, where
     for n in (5, 16, 256):  # rows of 5 bools, i32 and f32: off the grid
         _commit_equals_twin(dev, g, n)
 
@@ -1910,17 +1903,18 @@ def test_program_equals_per_tick_path(dev, overload, config):
     against the per-tick path run eagerly on the card, 8 streams, bucket
     1, escape_bucket 1, in three configurations (a 64x96 band with
     bandHist, the band with full-frame histograms, the full frame with
-    hist4096), with the many escape body's list and chunk slots and the
-    bodies' frame buffer poisoned before each call (a frame reader left on
-    the buffer where it should read the tick's frames in place would
-    differ): every output of every tick and the final state bit-equal
+    hist4096), with the many escape body's list and chunk slots poisoned
+    before each call and the bodies' frame buffer freed once they were
+    captured (a frame reader left on the buffer where it should read the
+    tick's frames in place would differ): every output of every tick and
+    the final state bit-equal
     through wbtrack, full or the rotation, bucket and chunk ticks, and
     with a band escapes of one stream (few) and of two (many, in chunks
     of one stream); the per-tick path's host code is not reached; each
     body keeps its own results (the few body's tick commits the tick
     body's table and then its own rows; the many body's the tick body's
     with the escaped rows held, then a commit a chunk); scan_step runs
-    on no all-CS tick and for no escape body, in every configuration."""
+    on no tick, in every configuration."""
     from headtrackr_tpu_torch.kernels import launch as L
     H, W, n = 120, 160, 8
     clip = _serving_clip(H, W, n)
@@ -1938,9 +1932,9 @@ def test_program_equals_per_tick_path(dev, overload, config):
     prog = program._steps._programs[n]
     band = config != "full-frame"
     assert (prog.many is not None) == band
+    assert prog.bufs._frames is None  # freed once the bodies were captured
 
     def poison():
-        prog.bufs.frames.fill_(255)
         for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
             t.fill_(0)
 
@@ -1961,9 +1955,8 @@ def test_program_equals_per_tick_path(dev, overload, config):
     # the schedule kernels' counts, read back from the card: one a tick
     # (escape_select with a band), scan_commit's also one a few body's run
     # (its rows) and one a chunk of the many body's (its rows; the held
-    # tick commit in place of the common one), scan_step's one a tick
-    # whose body copies (every body but the all-CS tick's); the escape
-    # bodies copy nothing
+    # tick commit in place of the common one); scan_step's none: no body
+    # copies a frame
     fields = tft.StepOutput._fields
     escaped = [int(t[fields.index("escaped")].sum()) for t in want]
     escaping = sum(e > 0 for e in escaped)
@@ -1974,8 +1967,8 @@ def test_program_equals_per_tick_path(dev, overload, config):
     assert L.launches["scan_commit"] == len(clip) + runs[9] + chunks
     copying = sum(program.branch(t[fields.index("detection")]) != "track"
                   for t in want)
-    assert L.launches["scan_step"] == copying
-    assert 0 < copying < len(clip)  # all-CS ticks copy nothing
+    assert L.launches["scan_step"] == 0
+    assert 0 < copying < len(clip)  # ticks that once copied ran
     assert escaping > 0 or not band
     for t, (a_t, b_t) in enumerate(zip(want, got)):
         for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
@@ -1993,8 +1986,8 @@ def test_many_body_chunks_equal_per_tick_path(dev):
     every odd one's face taller than the 64-row band (8 escapes a band
     tick), bandHist, escape_bucket 1, big chunks of 3 streams and small
     ones of 1, so that a band tick runs two big chunks and then two small
-    ones (``schedule.chunk_plan``); the list and chunk slots and the frame
-    buffer poisoned before each call.  Every output of every tick and the
+    ones (``schedule.chunk_plan``); the list and chunk slots poisoned
+    before each call, the frame buffer freed.  Every output of every tick and the
     final state bit-equal to the per-tick path run eagerly on the card;
     the program's big and small chunks those of the plan."""
     from headtrackr_tpu_torch.kernels import schedule as S
@@ -2011,8 +2004,8 @@ def test_many_body_chunks_equal_per_tick_path(dev):
     assert (prog.bufs.m, prog.bufs.ms) == (3, 1)
     want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
     got, big, chunks = [], 0, 0
+    assert prog.bufs._frames is None
     for part in (clip[:10], clip[10:20], clip[20:]):
-        prog.bufs.frames.fill_(255)
         for t in (prog.bufs.elist, prog.bufs.cidx, prog.bufs.tidx):
             t.fill_(0)
         out = program.run_scan(part)
@@ -2128,6 +2121,64 @@ def test_bucket_kernels_bit_equal_to_twins_at_every_split(dev, n):
         assert res["dirty"] and res["clean"], res
 
 
+@pytest.mark.parametrize("n", [8, 256])
+def test_frame_prep_and_handoff_in_place_bit_equal_to_direct(dev, n):
+    """frame_prep (gray and not, every stream and through slots) and
+    handoff (the init form with the audit, the handoff form) reading tick
+    2 of a 3-tick scan in place (launch.frames_at through a device word)
+    against the same kernels reading that tick directly
+    (tools/torch_bucket_cases.py check_in_place): bit-equal at 320x240
+    and 57x99 (H W % 16 != 0, W % 16 != 0), the scan staged on a 16-byte
+    boundary and 4 and 1 bytes past it; one launch a call; the buffer
+    they were given untouched."""
+    cases = _tool("torch_bucket_cases")
+    res = cases.check_in_place(n, dev)
+    calls = 8  # frame_prep x 4, handoff x 4
+    shapes, offsets = len(cases.IN_PLACE_SHAPES), len(cases.IN_PLACE_OFFSETS)
+    assert res["cases"] == shapes * offsets * calls, res
+    assert res["launches"] == shapes * (1 + offsets) * calls, res
+
+
+@pytest.mark.parametrize("overload", ["full", "rotate"])
+def test_program_at_256_streams_equals_per_tick_path(dev, overload):
+    """The headline configuration's serving program at 256 streams of
+    120x160 (bucket 8, a 64x96 band with bandHist) against the per-tick
+    path run eagerly on the card, over the cold start (wbtrack ticks,
+    then the full tick or the rotation's burst of every stream pending), a
+    relock and the band's escapes, the bodies' frame buffer freed once
+    they were captured: every output of every tick and the final state
+    bit-equal; scan_step runs on no tick."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    H, W, n = 120, 160, 256
+    clip = _serving_clip(H, W, n)
+    mk = lambda: BatchedTracker(n, (H, W), cascade=toy_cascade(),  # noqa: E731
+                                device=dev, bucket=8, band=(64, 96),
+                                bandHist=True, overload=overload)
+    eager, program = mk(), mk()
+    eager._steps.scheduled = False
+    program.warmup(scan_len=10)
+    prog = program._steps._programs[n]
+    assert prog.bufs._frames is None
+    want = [[v.cpu().numpy() for v in eager.step_auto(f)] for f in clip]
+    L.reset_launches()
+    got, runs = [], np.zeros(16, int)
+    for part in (clip[:10], clip[10:20], clip[20:]):
+        out = program.run_scan(part)
+        runs += prog.runs
+        got += [[v[k].cpu().numpy() for v in out] for k in range(len(part))]
+    assert L.launches["scan_step"] == 0
+    keys = program._steps.body_keys(n)
+    ran = {keys[b] for b in range(len(keys)) if runs[b]}
+    assert {0, "wbtrack"} <= ran, ran
+    assert ("full" in ran) == (overload == "full"), ran
+    assert ran & set(range(1, 33)), ran  # bucket ticks: the rotation, a relock
+    for t, (a_t, b_t) in enumerate(zip(want, got)):
+        for name, a, b in zip(tft.StepOutput._fields, a_t, b_t):
+            np.testing.assert_array_equal(b, a, err_msg=f"tick {t} {name}")
+    for x, y in zip(_leaves(eager.state), _leaves(program.state)):
+        assert torch.equal(x, y)
+
+
 def test_bucket_split_picks(dev):
     """The launchers' split on this card: a power of two <= 16, 16 at the
     relock bucket's 8 slots, 1 at 256 streams and past; the streams times
@@ -2201,7 +2252,8 @@ def test_few_body_gathers_once_and_commits_rows(dev):
     assert few.launches["slot_gather"] == 1, few.launches
     idx = torch.arange(steps.escape_bucket, device=dev)
     sub = ft.tree_index(prog.bufs.state_in, idx)
-    rows = prog.bufs.frames.index_select(0, idx)
+    rows = torch.zeros((idx.numel(),) + prog.bufs.frames_shape[1:],
+                       dtype=torch.uint8, device=dev)
     alone = graph_nodes(lambda: steps._track_plain(sub, rows))
     kinds = collections.Counter(node_kinds(few.graph))
     assert sum(kinds.values()) <= len(alone) + 2, (kinds, alone)
@@ -2235,7 +2287,6 @@ def test_many_body_gathers_chunks_and_commits_rows(dev):
     assert m % ms == 0 and ms % 8 == 0
     for body in (prog.many, prog.tail):
         assert body.merge is not None and body.state is None
-        assert body.copy == "none"
         assert body.launches["slot_gather"] == 1, body.launches
         names = chip_smoke.node_names(body.graph)
         assert chip_smoke.foreign_nodes(body.graph, str(root)) == [], names
@@ -2417,7 +2468,7 @@ def test_all_cs_body_holds_only_hand_written_kernels(dev, kw):
     bt = BatchedTracker(3, (120, 160), cascade=toy_cascade(), device=dev,
                         **kw)
     body = bt._steps.captured(bt.state, 0)
-    assert body.copy == "none"
+    assert bt._steps.copy_mode(0) == "none"
     names = chip_smoke.node_names(body.graph)
     assert chip_smoke.foreign_nodes(body.graph, str(root)) == [], names
     assert len(names) == (3 if kw.get("bandHist") else

@@ -11,9 +11,9 @@ bins and model bins absent from the frame.  ``hist4096`` and ``hist_mma``
 without rects count the whole frame (``histogram_full`` makes no rect).
 ``shift`` and ``shift_band`` (without bandHist) equal the reference's
 jitted ``track`` / ``track_band`` (kernel="pallas") and dispatch no
-PyTorch operation between their kernels.  The serving program's copy of a
-tick's frames (``_Steps.copy_mode``) is the same table in every
-configuration.  (The band and full-frame programs against the reference's
+PyTorch operation between their kernels.  The serving program copies no
+tick's frames before any body (``_Steps.copy_mode``) in any configuration,
+and no body reads the bodies' frame buffer.  (The band and full-frame programs against the reference's
 ``step_auto``, with the frame buffer poisoned, are in
 tests/test_torch_slots.py and tests/test_torch_pipeline.py, beside the
 fixtures that compile the reference.)
@@ -273,14 +273,22 @@ CONFIGS = {"headline": dict(band=(24, 32), bandHist=True),
            "full-frame mma": dict(band=None)}
 
 
+def _tensors(tree):
+    """The tensors of a body's results (NamedTuples of tensors and None)."""
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_copy_mode_is_one_table_in_every_configuration(config):
     """What the serving program copies of a tick's frames before each
-    body, every configuration x every body key: none before the all-CS
-    tick and the few and many escape bodies (their frame readers and
-    gathers read in place), the slots' rows before a bucket body, the
-    whole tick before wbtrack and full (frame_prep, handoff and pyramid
-    read the buffer)."""
+    body, every configuration x every body key: none.  Each body (its
+    twin, run as the program's CPU twin runs it: under launch.frames_at,
+    its frames the tick's) gives the same results with the bodies' frame
+    buffer filled with 255 as with the buffer holding the tick's frames:
+    no frame reader of any body (the camshift step's, frame_prep,
+    handoff, slot_gather) reads the buffer."""
     n = 12
     tb = pt.BatchedTracker(n, (H, W), cascade=toy_cascade(), device="cpu",
                            bucket=2, escape_bucket=4, **CONFIGS[config])
@@ -290,10 +298,26 @@ def test_copy_mode_is_one_table_in_every_configuration(config):
     assert len(keys) > 4  # bucket bodies at several slot counts
     if CONFIGS[config]["band"] is not None:
         keys += ["few", "many"]
-    want = {0: "none", "many": "none", "wbtrack": "whole", "full": "whole",
-            "few": "none"}
+    rng = np.random.default_rng(5)
+    tick = torch.as_tensor(_frames(rng, n))
+    state = tb.state._replace(mode=torch.as_tensor(
+        np.arange(n) % 3, dtype=torch.int32))  # WB, VJ and CS streams
+    bufs = steps.buffers(state)
+    for t, v in zip(_tensors(bufs.state_in), _tensors(state)):
+        t.copy_(v)
+    bufs.idx.copy_(torch.arange(bufs.idx.numel()) * 2 % (n + 1))
     for key in keys:
-        body = steps.captured(tb.state, key)
-        expect = want.get(key, "rows")
-        assert steps.copy_mode(key) == body.copy == expect, key
-        assert (body.rows is not None) == (expect == "rows"), key
+        body = steps.captured(state, key)
+        assert steps.copy_mode(key) == "none", key
+        assert not hasattr(body, "rows") and not hasattr(body, "copy"), key
+        got = []
+        for fill in (None, 255):
+            if fill is None:
+                bufs.frames.copy_(tick)
+            else:
+                bufs.frames.fill_(fill)
+            got.append(_tensors(body.run(tick)))
+        assert len(got[0]) == len(got[1]) > 0, key
+        for a, b in zip(*got):
+            np.testing.assert_array_equal(b.numpy(), a.numpy(),
+                                          err_msg=str(key))

@@ -29,6 +29,15 @@ bool column) and the frames gathered as an extra leaf; its grid's x
 against ``gather_ctas``; one launch a call.
 
     python3 tools/torch_bucket_cases.py --gather [N ...]
+
+``check_in_place(n, dev)`` holds ``frame_prep`` and ``handoff`` reading
+tick k of a scan in place (``launch.frames_at`` through a device word,
+the buffer they are given filled with 255) to the same kernels reading
+tick k's frames directly, bit for bit: 320x240 and an odd size (57x99:
+H W % 16 != 0 and W % 16 != 0), the scan staged on a 16-byte boundary
+and 4 and 1 bytes past one, tick 2 of 3.
+
+    python3 tools/torch_bucket_cases.py --in-place [N ...]
 """
 
 import os
@@ -45,6 +54,11 @@ CHUNK = 8192  # streams a twin call takes at once (its temporaries' memory)
 SPLITS = (1, 2, 4, 8, 16)  # every CTAs-a-stream the launchers can pick
 BUCKET = 8  # the serving tick's bucket (chunk cap: up to 4 of them)
 ESCAPE_BUCKET = 8  # the escape fallback's slots
+
+
+IN_PLACE_SHAPES = ((240, 320), (57, 99))  # aligned rows, and neither
+IN_PLACE_OFFSETS = (0, 4, 1)  # bytes past a 16-byte boundary
+IN_PLACE_TICKS, IN_PLACE_TICK = 3, 2  # the scan's ticks, the one read
 
 
 def frame_shape(n):
@@ -72,10 +86,11 @@ def _check(name, got, want):
             raise AssertionError(f"{name}: output {i} differs from the twin")
 
 
-def inputs(n, dev, seed=0):
-    """Seeded frames (N, H, W, 3) u8 and each stream's state rows: a
-    face-colored box on noise, modes, rings, detections and rects."""
-    H, W = frame_shape(n)
+def inputs(n, dev, seed=0, shape=None):
+    """Seeded frames (N, H, W, 3) u8 (of ``shape``, else frame_shape(n))
+    and each stream's state rows: a face-colored box on noise, modes,
+    rings, detections and rects."""
+    H, W = frame_shape(n) if shape is None else shape
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cpu").manual_seed(seed)
     frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
@@ -431,14 +446,99 @@ def check_splits(n, dev, seed=0, splits=SPLITS):
     return out
 
 
+def staged_scan(frames, ticks, k, offset):
+    """A scan of ``ticks`` ticks whose tick k is ``frames`` (the others
+    its complement), staged ``offset`` bytes past a 16-byte boundary of
+    one allocation on frames' device, and a (1,) i64 word on that device
+    holding tick k's address: (scan, word)."""
+    n = frames.numel()
+    flat = torch.empty(ticks * n + 16 + offset, dtype=torch.uint8,
+                       device=frames.device)
+    at = (-flat.data_ptr()) % 16 + offset
+    seq = flat[at:at + ticks * n].view((ticks,) + tuple(frames.shape))
+    seq.copy_((255 - frames)[None].expand_as(seq))
+    seq[k] = frames
+    word = torch.tensor([seq[k].data_ptr()], dtype=torch.int64,
+                        device=frames.device)
+    return seq, word
+
+
+def in_place_calls(inp, old, slots):
+    """The calls ``check_in_place`` holds in place against direct: name ->
+    fn(frames), frame_prep with and without the gray plane, handoff's init
+    form with the audit and its handoff form, every stream and through
+    ``slots``."""
+    from headtrackr_tpu_torch.kernels.frameprep import frame_prep
+    from headtrackr_tpu_torch.kernels.handoff import handoff
+    safe = torch.clamp(slots, max=inp["mode"].shape[0] - 1)
+    rows = lambda t: t.index_select(0, safe)  # noqa: E731
+    mode, det, band = inp["mode"], inp["det"], inp["band"]
+    mode_in = torch.where(mode == 0, 1, mode).to(torch.int32)
+    calls = {}
+    for sl, r in ((None, lambda t: t), (slots, rows)):
+        tag = "" if sl is None else " slots"
+        for gray in (True, False):
+            calls[f"frame_prep gray={gray}{tag}"] = (
+                lambda f, sl=sl, r=r, gray=gray: frame_prep(
+                    f, sl, r(mode), r(inp["ring"]), r(inp["wb_n"]), gray,
+                    not gray))
+        calls[f"handoff init{tag}"] = (
+            lambda f, sl=sl, r=r: handoff(f, sl, rect=r(inp["rects"]),
+                                          band=band))
+        calls[f"handoff{tag}"] = (
+            lambda f, sl=sl, r=r: handoff(
+                f, sl, det=tuple(r(d) for d in det), entry_mode=r(mode),
+                mode=r(mode_in), old=tuple(r(o) for o in old), band=band))
+    return calls
+
+
+def check_in_place(n, dev, seed=0, shapes=IN_PLACE_SHAPES,
+                   offsets=IN_PLACE_OFFSETS):
+    """frame_prep and handoff (``in_place_calls``) at n streams on
+    ``dev`` reading tick IN_PLACE_TICK of a scan in place, against the
+    same kernels on a contiguous copy of that tick's frames: every output
+    bit-equal, for each frame shape and staging offset; one launch a
+    call; the buffer they are given (255) untouched.  Returns the counts
+    reached."""
+    from headtrackr_tpu_torch.kernels import launch as L
+    out = {"cases": 0, "launches": 0}
+    before = L.launches["frame_prep"] + L.launches["handoff"]
+    for shape in shapes:
+        inp = inputs(n, dev, seed, shape)
+        frames = inp["frames"]
+        old = old_cs(n, dev)
+        calls = in_place_calls(inp, old, _slots(n, dev))
+        direct = {name: fn(frames) for name, fn in calls.items()}
+        buf = torch.full_like(frames, 255)
+        for offset in offsets:
+            seq, word = staged_scan(frames, IN_PLACE_TICKS, IN_PLACE_TICK,
+                                    offset)
+            assert seq[IN_PLACE_TICK].data_ptr() % 16 == offset
+            # the twins on the CPU read the tick's frames themselves
+            src = word if dev.type == "cuda" else seq[IN_PLACE_TICK]
+            for name, fn in calls.items():
+                with L.frames_at(buf, src):
+                    got = fn(buf)
+                _check(f"{name} {shape} offset {offset} in place",
+                       _leaves(got), _leaves(direct[name]))
+                out["cases"] += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if not bool((buf == 255).all()):
+            raise AssertionError("the buffer given in place was written")
+    out["launches"] = L.launches["frame_prep"] + L.launches["handoff"] - \
+        before
+    return out
+
+
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     fn = check
-    if args and args[0] in ("--splits", "--gather"):
-        fn, args = {"--splits": check_splits,
-                    "--gather": check_gather}[args[0]], args[1:]
+    if args and args[0] in ("--splits", "--gather", "--in-place"):
+        fn, args = {"--splits": check_splits, "--gather": check_gather,
+                    "--in-place": check_in_place}[args[0]], args[1:]
     for n in [int(a) for a in args] or NS:
         print(n, fn(n, dev), flush=True)
 

@@ -17,7 +17,13 @@ it, else the few body's PyTorch gathers, ``tree_index`` and
 over 20 eager wrapper calls, graph replay, an empty kernel at the
 checkout's grid (its CTAs: the streams, times the launcher's split where
 the checkout has one), and a digest of the outputs' bytes, so that the
-turns can be seen to agree.
+turns can be seen to agree.  Where the checkout's ``frame_prep`` and
+``handoff`` read their frames in place (``launch.frames_of``), each of
+their calls also reads tick 2 of a 3-tick scan in place (through a device
+word, a 255 buffer in the frames' place, as the serving program's bodies
+call them) against the same call reading that tick directly: graph replay
+ms in turns (direct, in place, in place, direct, twice) under
+``in_place``, after a check that both give the same bytes.
 
     python3 tools/torch_bucket_times.py [--root build/parent]
 
@@ -94,6 +100,29 @@ def gathers(cs, state, idx, frames, dev):
     return res
 
 
+def in_place(cs, fn, args, kw, tick, buf, word):
+    """fn reading ``tick`` in place (``buf`` in its frames' place, under
+    ``launch.frames_at(buf, word)``) against fn reading it directly:
+    {"graph_ms": in place, "direct_graph_ms": direct}, in turns."""
+    from headtrackr_tpu_torch.kernels import launch as L
+
+    def direct():
+        return fn(tick, *args[1:], **kw)
+
+    def placed():
+        with L.frames_at(buf, word):
+            return fn(buf, *args[1:], **kw)
+
+    if digest(placed()) != digest(direct()):
+        raise SystemExit("in place and direct reads differ")
+    ip, dr = [], []
+    for _ in range(2):  # direct, in place, in place, direct
+        dr.append(cs.graph_ms(direct))
+        ip += [cs.graph_ms(placed), cs.graph_ms(placed)]
+        dr.append(cs.graph_ms(direct))
+    return {"graph_ms": ip, "direct_graph_ms": dr}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=HERE,
@@ -119,6 +148,12 @@ def main(argv=None):
     del pool
     wrapper = {"frame_prep": frameprep.frame_prep,
                "handoff": handoff.handoff}
+    from headtrackr_tpu_torch.kernels import launch as L
+    cases = _load("torch_bucket_cases_here",
+                  os.path.join(HERE, "tools", "torch_bucket_cases.py"))
+    frames = calls["frame_prep"][1][0]
+    seq, word = cases.staged_scan(frames, 3, 2, 0)
+    buf = torch.full_like(frames, 255)
     res = {}
     for name, (key, a, kw, n) in calls.items():
         fn = (lambda f=wrapper[key], a=a, kw=kw: f(*a, **kw))
@@ -127,6 +162,9 @@ def main(argv=None):
                          empty_ms=cs.graph_ms(lambda g=grid:
                                               cs.floor_launch(g)),
                          grid=grid, digest=digest(fn()))
+        if hasattr(L, "frames_of"):
+            res[name]["in_place"] = in_place(cs, wrapper[key], a, kw, seq[2],
+                                             buf, word)
         print(f"{name}: {res[name]}", flush=True)
     res.update(gathers(cs, state, idx, calls["frame_prep"][1][0], dev))
     print(json.dumps(res))

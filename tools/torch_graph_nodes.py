@@ -57,9 +57,10 @@ def track_step_nodes(bt, cs):
     from headtrackr_tpu_torch.models import facetracker as ft
     steps = bt._steps
     bufs = steps.buffers(bt.state)
-    idx = torch.arange(steps.escape_bucket, device=bufs.frames.device)
+    idx = torch.arange(steps.escape_bucket, device=bufs.state_in.mode.device)
     sub = ft.tree_index(bufs.state_in, idx)
-    rows = bufs.frames.index_select(0, idx)
+    rows = torch.zeros((idx.numel(),) + tuple(bt.frame_shape) + (3,),
+                       dtype=torch.uint8, device=idx.device)
     return dict(collections.Counter(cs.graph_nodes(
         lambda: steps._track_plain(sub, rows))))
 
@@ -100,7 +101,7 @@ def all_cs_bodies(cs, root):
         body = bt._steps.captured(bt.state, 0)
         out[name] = {"nodes": cs.node_names(body.graph),
                      "foreign": cs.foreign_nodes(body.graph, root),
-                     "copy": body.copy}
+                     "copy": bt._steps.copy_mode(0)}
     return out
 
 

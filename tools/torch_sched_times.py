@@ -11,6 +11,11 @@ At 256 streams of 320x240 (``bench.build_pool``, the real cascade, bucket
              full-frame (histKernel="pallas") and band configurations;
   cold       the headline's cold start from ``reset()``: run_scan of 16
              ticks of one batch (15 wbtrack ticks and a full tick);
+  cold wbtrack, cold full
+             its ticks by kind: step_auto on the batch from the initial
+             state (a wbtrack tick), and from the state after 15 such
+             ticks (every stream in VJ: the full tick), each state
+             restored before each call (``cold_cases``);
   relock     the headline's tick in which 8 streams redetect (step_auto
              after a frame that turned them blue);
   rotate     the headline under overload="rotate": from ``reset()``, 15
@@ -66,17 +71,18 @@ process lost device events on the card, so one is spent on a throwaway.
         [--only many] [--chunk M] [--tail S]
 
 ``--big`` instead times the headline at BIG streams (the pool's 256
-tiled on the card, as chip_smoke.py phase 15 runs it): after a cold start
-of 16 ticks of one batch in run_scan calls of BIG_K ticks, all-tracking
+tiled on the card, as chip_smoke.py phase 15 runs it): the cold start's
+ticks by kind (``cold wbtrack``, ``cold full``, as above); after a cold
+start of 16 ticks of one batch in run_scan calls of BIG_K ticks, all-tracking
 run_scan calls of BIG_K ticks (the pool's batches before its loss frame),
 host ms and device span a tick, each of REPS calls; the bytes of each
 body's commit table (``commit_tables``, tools/torch_graph_nodes.py); then
 the all-CS step_auto tick (``tick``) and the many E tick at BIG streams
 for E in BIG_MANY (12, 100, 1,000), timed and profiled as above.
 
-With ``--only many`` or ``--big``, ``tracker_mb`` is the device memory
-that building and warming the headline tracker took (its state, buffers
-and bodies' graphs and results).
+``tracker_mb`` (``tracker_mb <configuration>`` at 256 streams) is the
+device memory that building and warming the tracker took (its state,
+buffers and bodies' graphs and results).
 
 ``--only NAME,...`` runs only the cases whose names start with one of the
 NAMEs (``--only many``: the many E ticks alone, on the headline tracker
@@ -339,6 +345,30 @@ def many_ticks(bt, frame, counts):
     return states
 
 
+def cold_cases(bt, frame):
+    """The cold start's ticks by kind from ``bt``'s initial state (which
+    ``bt`` is left in): {"cold wbtrack": the step_auto tick on ``frame``
+    from that state, "cold full": the one from the state after 15 such
+    ticks, every stream in VJ} as (call, 1, REPS, set-up)."""
+    import torch
+    from headtrackr_tpu_torch.models import facetracker as ft
+    from headtrackr_tpu_torch.runtime.serving import _clone
+    if (bt.modes != ft.MODE_WB).any():
+        raise SystemExit("cold: the tracker is not in its initial state")
+    cold = _clone(bt.state), bt.modes.copy()
+    for _ in range(15):
+        bt.step_auto(frame)
+    if (bt.modes != ft.MODE_VJ).any():
+        raise SystemExit("cold: 15 wbtrack ticks left streams outside VJ")
+    vj = _clone(bt.state), bt.modes.copy()
+    restore(bt, *cold)
+    torch.cuda.synchronize()
+    return {"cold wbtrack": (lambda: bt.step_auto(frame), 1, REPS,
+                             lambda: restore(bt, *cold)),
+            "cold full": (lambda: bt.step_auto(frame), 1, REPS,
+                          lambda: restore(bt, *vj))}
+
+
 def many_cases(bt, frame, counts, modes):
     """The many E cases of ``many_ticks``: {"many E": (call, 1, REPS,
     set-up)}."""
@@ -426,6 +456,8 @@ def big(pool, dev, card, root, only, chunks):
     bt.warmup(scan_len=BIG_K)
     held = torch.cuda.memory_allocated(dev) - before
     cold = pool[[0] * BIG_K].repeat(1, tile, 1, 1, 1)
+    cold_frame = cold[0].contiguous()
+    ticks = {} if only else cold_cases(bt, cold_frame)
     for _ in range(16 // BIG_K):
         bt.run_scan(cold)
     del cold
@@ -446,8 +478,8 @@ def big(pool, dev, card, root, only, chunks):
     del steady
     from headtrackr_tpu_torch.runtime.serving import _clone
     clean, modes = _clone(bt.state), bt.modes.copy()
-    run_cases({"tick": (lambda: bt.step_auto(frame), 1, REPS,
-                        lambda: restore(bt, clean, modes)),
+    run_cases({**ticks, "tick": (lambda: bt.step_auto(frame), 1, REPS,
+                                 lambda: restore(bt, clean, modes)),
                **many_cases(bt, frame, BIG_MANY, modes)}, many)
     print(json.dumps({"card": card, "root": root, "big": res, **many}))
     return 0
@@ -507,10 +539,13 @@ def main(argv=None):
     lost[:8] = torch.tensor([0, 0, 250], dtype=torch.uint8, device=dev)
     wb = pool[[0] * 15].contiguous()
     burst = pool[[0] * 8].contiguous()
-    trackers = {}
+    trackers, held = {}, {}
     for name, kw in CONFIGS.items():
+        before = torch.cuda.memory_allocated(dev)
         bt = tracker(N, dev, chunks, **kw)
         bt.warmup(scan_len=K)
+        held[f"tracker_mb {name}"] = \
+            (torch.cuda.memory_allocated(dev) - before) / 2 ** 20
         for _ in range(16):
             bt.step_auto(pool[0])
         if (bt.modes != ft.MODE_CS).mean() > 0.01:
@@ -538,6 +573,9 @@ def main(argv=None):
 
     from headtrackr_tpu_torch.runtime.serving import _clone
     clean, clean_modes = _clone(head.state), head.modes.copy()
+    head.reset()
+    cold_ticks = cold_cases(head, pool[0])
+    restore(head, clean, clean_modes)
     esc_state, esc_modes, esc_frame = escape_tick(head, pool)
 
     def escaping():
@@ -552,6 +590,7 @@ def main(argv=None):
                             1, 3 * REPS, None)
            for name in ("band", "full-frame")},
         "cold": (lambda: head.run_scan(cold), K, 1, head.reset),
+        **cold_ticks,
         "relock": (lambda: head.step_auto(pool[2]), 1, REPS, unlock),
         "rotate": (lambda: rot.run_scan(burst), 8, 1, to_burst),
         "escape": (escaping, 1, REPS,
@@ -560,7 +599,7 @@ def main(argv=None):
     if only:
         cases = {k: v for k, v in cases.items()
                  if any(k.startswith(o) for o in only)}
-    res = {}
+    res = dict(held)
     # the host clock first: once torch.profiler has run in a process, a
     # launch of a graph with conditional nodes costs the host far more
     for name, (fn, ticks, reps, before) in cases.items():
