@@ -1,0 +1,7 @@
+"""sched_ms_per_tick.live: device ms a profiled tick of the sched layer's
+kernels (sched_ms_per_tick.py's reader), in the cell whose calls are
+single ``step_auto`` ticks, where it moves tick_p95_ms."""
+
+from benchmark.lib.readers import reader_of
+
+read = reader_of("sched_ms_per_tick")
